@@ -7,32 +7,44 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
 Phases, in order; any failure exits non-zero without the final line:
 
-  1. build   every CUDA kernel of the served path from
-             deeplearning4j_tpu_torch/csrc (one nvcc per source, started
-             together), with the build time and ptxas' resource report.
-  2. kernel  each kernel against its plain PyTorch version on the card, at
-             every (shape, activation) the ResNet-50 path gives it at the
-             serving batch, in float32 and bfloat16: max error against the
-             stated tolerance, kernel / plain / one-library-call times
-             (CUDA events, inputs rotated through more than the 50 MB L2)
-             and the least time the card could take (bytes or operations
-             over the card's published rates).
-  3. serve   the port's main path: zoo ResNet-50 (1000 classes, 224x224x3,
-             random weights from a seed) on the card behind InferenceServer
-             (batch_limit 32), warmed up, answering concurrent requests of
-             1, 3, 8 and 32 rows and then a stream of 32-row requests. Every
-             request must resolve OK with finite (n, 1000) softmax rows that
-             sum to 1 and agree with net.output on the same rows; every
-             kernel's launch count is reset just before this phase and must
-             show the kernel ran on every dispatched batch (bn_act: 53
-             launches per forward).
-  4. refer   the same seeded network on the CPU (plain epilogue, exact
-             float32) against the card with TF32 off: every vertex's
-             activation must agree.
+  1. build    every CUDA kernel of the served paths from
+              deeplearning4j_tpu_torch/csrc (one nvcc per source, started
+              together), with the build time and ptxas' resource report.
+  2. kernel   each kernel against its plain PyTorch version on the card:
+              bn_act at every (shape, activation) the ResNet-50 path gives
+              it at the serving batch, flash_attention at the TransformerLM
+              path's shape (16, 8, 512, 64) causal with and without lse and
+              at edge cases (ragged t, t=1, non-causal, head dims 16, 32,
+              128), in float32 and bfloat16: max error against the stated
+              tolerance, kernel / plain / one-library-call times (CUDA
+              events, inputs rotated through more than the 50 MB L2) and the
+              least time the card could take (bytes or operations over the
+              card's published rates).
+  3. serve    zoo ResNet-50 (1000 classes, 224x224x3, random weights from a
+              seed) behind InferenceServer (batch_limit 32), warmed up,
+              answering concurrent requests of 1, 3, 8 and 32 rows and then
+              a stream of 32-row requests; every answer finite softmax rows
+              equal to net.output on the same rows; bn_act must have run
+              53 times per dispatched batch.
+  4. refer    the same seeded ResNet-50 on the CPU (plain epilogue, exact
+              float32) against the card with TF32 off, vertex by vertex.
+  5. serve-lm zoo TransformerLM (vocab 8192, max length 512, d_model 512,
+              8 heads, 6 blocks, random weights from a seed) behind
+              InferenceServer (batch_limit 16), warmed up with a [1, 512]
+              int32 example, answering concurrent requests of 1, 3, 8 and
+              16 rows of 512 token ids and then a stream of 16-row requests;
+              every answer finite (n, 512, 8192) softmax rows equal to
+              net.output on the same rows; flash_attention must have run 6
+              times per dispatched batch.
+  6. refer-lm the same seeded TransformerLM on the CPU (plain attention,
+              exact float32) against the card with TF32 off, layer by layer
+              on 2 x 128 token ids.
 
-The last lines are the kernels JSON, the card's name and power limit, and
-{"ok": true, "device": {...}}. Exits non-zero when no CUDA device is
-available, and when the port's package is not beside this script.
+Every kernel's launch count is set to 0 just before each serve phase and
+read just after it. The last lines are the kernels JSON, the card's name
+and power limit, and {"ok": true, "device": {...}}. Exits non-zero when no
+CUDA device is available, and when the port's package is not beside this
+script.
 """
 from __future__ import annotations
 
@@ -46,24 +58,35 @@ import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 SEED = 7
-BATCH = 32                 # the server's batch_limit: the serving batch
+BATCH = 32                 # ResNet-50 server's batch_limit: its serving batch
 L2_BYTES = 50 * 2 ** 20    # H100 L2; timing inputs rotate through 2x this
 ITERS = 50
 
-# Published rates (NVIDIA data sheets, dense): device-memory bytes/s and
-# float32 operations/s outside the tensor cores. The epilogue's bfloat16
-# arithmetic also runs on the float32 units.
+# the repo's transformer configuration (bench.py bench_transformer,
+# profile_transformer.py), served at batch limit 16
+LM = dict(num_classes=8192, max_length=512, d_model=512, n_heads=8,
+          n_layers=6)
+LM_BATCH = 16
+
+# Published rates (NVIDIA data sheets, dense): device-memory bytes/s,
+# float32 operations/s outside the tensor cores, and bfloat16 operations/s
+# on the tensor cores. bn_act's bfloat16 arithmetic runs on the float32
+# units; the flash-attention bound in bfloat16 takes the tensor-core rate.
 CARD_RATES = {
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H100": (3.35e12, 67e12),      # SXM
-    "H200": (4.8e12, 67e12),
+    "H100 PCIe": (2.0e12, 51e12, 756e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12),
+    "H100": (3.35e12, 67e12, 989e12),      # SXM
+    "H200": (4.8e12, 67e12, 989e12),
 }
 
-# Kernels of the served path: name -> (route, source, TPU kernel it replaces)
+# Kernels of the served paths: name -> (route, source, TPU kernel it
+# replaces)
 KERNELS = {
     "bn_act": ("cuda", "deeplearning4j_tpu_torch/csrc/bn_act.cu",
                "deeplearning4j_tpu/ops/pallas_kernels.py:1430"),
+    "flash_attention": (
+        "cuda", "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
+        "deeplearning4j_tpu/ops/pallas_kernels.py:163"),
 }
 
 
@@ -102,6 +125,23 @@ def device_ms(torch, fn, nbuf: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / ITERS
+
+
+def wrappers():
+    """Each kernel's wrapper, which counts its launches."""
+    from deeplearning4j_tpu_torch.ops.bn_act import bn_act
+    from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention
+
+    return {"bn_act": bn_act, "flash_attention": flash_attention}
+
+
+def reset_counts():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in wrappers().items()}
 
 
 # ---------------------------------------------------------------- phase 1
@@ -217,9 +257,99 @@ def phase_kernel(torch, cases, bw, peak):
     return rows_out, max_err
 
 
+# (b, h, t, d, causal): the served shape first, then the edge cases
+FLASH_CASES = [
+    (16, 8, 512, 64, True),     # TransformerLM serving, one launch per block
+    (16, 8, 512, 64, False),    # non-causal
+    (4, 8, 200, 64, True),      # ragged t: no multiple of the 64-row tile
+    (4, 8, 1, 64, True),        # t = 1
+    (4, 8, 300, 16, True),
+    (4, 8, 512, 32, True),
+    (4, 8, 512, 128, True),
+    (2, 4, 129, 128, False),
+]
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # x max|o| of the plain
+
+
+def phase_flash(torch, bw, peak, peak_bf16):
+    """flash_attention against its plain version at FLASH_CASES, float32
+    and bfloat16, with and without lse. Returns the served case's float32
+    row (per launch) and the largest absolute error of any case."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa_library
+
+    from deeplearning4j_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # the library yardstick computes in full float32 too
+    torch.backends.cuda.matmul.allow_tf32 = False
+    served, max_err, checked = None, 0.0, 0
+    for b, h, t, d, causal in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            item = torch.empty((), dtype=dtype).element_size()
+            set_bytes = 3 * b * h * t * d * item
+            nbuf = max(1, min(16, math.ceil(2 * L2_BYTES / set_bytes)))
+            qkv = [[torch.randn((b, h, t, d), generator=gen, device=dev)
+                    .to(dtype) for _ in range(3)] for _ in range(nbuf)]
+            for lse in (False, True):
+                got = flash_attention(*qkv[0], causal, return_lse=lse)
+                ref = flash_attention_reference(*qkv[0], causal,
+                                                return_lse=lse)
+                torch.cuda.synchronize()
+                o, o_ref = (got[0], ref[0]) if lse else (got, ref)
+                err = float((o.float() - o_ref.float()).abs().max())
+                mag = float(o_ref.float().abs().max())
+                ok = (o.dtype == dtype and o.shape == o_ref.shape
+                      and err <= FLASH_TOL[dname] * mag)
+                lse_err = 0.0
+                if lse:
+                    lse_err = float((got[1] - ref[1]).abs().max())
+                    ok = ok and lse_err <= 1e-5 * max(
+                        1.0, float(ref[1].abs().max()))
+                if not ok:
+                    raise AssertionError(
+                        f"flash_attention disagrees with its plain version "
+                        f"at b={b} h={h} t={t} d={d} causal={causal} "
+                        f"{dname} lse={lse}: max err {err:.3g} (|o| max "
+                        f"{mag:.3g}), lse err {lse_err:.3g}")
+                max_err = max(max_err, err)
+                checked += 1
+                k_ms = device_ms(torch, lambda i: flash_attention(
+                    *qkv[i], causal, return_lse=lse), nbuf)
+                p_ms = device_ms(torch, lambda i: flash_attention_reference(
+                    *qkv[i], causal, return_lse=lse), nbuf)
+                l_ms = device_ms(torch, lambda i: sdpa_library(
+                    *qkv[i], is_causal=causal), nbuf)
+                pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+                ops = 4 * d * pairs
+                moved = 4 * b * h * t * d * item + (4 * b * h * t if lse
+                                                    else 0)
+                rate = peak if dtype == torch.float32 else peak_bf16
+                b_ms = max(moved / bw, ops / rate) * 1e3
+                by = "bytes" if moved / bw >= ops / rate else "operations"
+                log(f"[kernel] flash_attention {dname:8s} b={b:2d} h={h} "
+                    f"t={t:3d} d={d:3d} {'causal' if causal else 'full  '} "
+                    f"lse={int(lse)}  max_err={err:.3g} (tol "
+                    f"{FLASH_TOL[dname]:g} x {mag:.3g})  lse_err="
+                    f"{lse_err:.3g}  kernel={k_ms:.4f} ms  plain={p_ms:.4f} "
+                    f"ms  library[scaled_dot_product_attention]={l_ms:.4f} "
+                    f"ms  bound={b_ms:.4f} ms ({by})")
+                if (b, h, t, d, causal) == FLASH_CASES[0] and not lse \
+                        and dtype == torch.float32:
+                    served = {"ms": k_ms, "plain_ms": p_ms,
+                              "library_ms": l_ms, "bound_ms": b_ms,
+                              "bound_by": by}
+            del qkv
+    log(f"[kernel] verdict: flash_attention agrees with its plain version "
+        f"in {checked}/{checked} (shape, dtype, lse) cases, max abs error "
+        f"{max_err:.3g} (tol float32 1e-5, bfloat16 2e-2, x max|o|)")
+    return served, max_err
+
+
 # ---------------------------------------------------------------- phase 3
 def phase_serve(torch, np, net, card):
-    from deeplearning4j_tpu_torch.ops.bn_act import bn_act
     from deeplearning4j_tpu_torch.serving import InferenceServer
 
     rng = np.random.default_rng(SEED)
@@ -245,7 +375,7 @@ def phase_serve(torch, np, net, card):
         out = server.output(x)
         return out, time.perf_counter() - t0
 
-    bn_act.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     server = InferenceServer(model=net, batch_limit=BATCH)
     try:
@@ -264,10 +394,10 @@ def phase_serve(torch, np, net, card):
     finally:
         server.shutdown()
         net.output = direct
-    launches = {"bn_act": bn_act.launches}
+    launches = read_counts()
     per_forward = sum(n for *_, n in bn_cases(net, 1))
-    log(f"[serve] {forwards[0]} batches dispatched, bn_act launches "
-        f"{launches['bn_act']} ({per_forward} per forward)")
+    log(f"[serve] {forwards[0]} batches dispatched, launches {launches} "
+        f"(bn_act {per_forward} per forward)")
     if per_forward != 53 or launches["bn_act"] != 53 * forwards[0] \
             or forwards[0] == 0:
         raise AssertionError(
@@ -331,6 +461,132 @@ def phase_reference(torch, np, net):
         f"vs CPU: max {float(np.abs(tf32 - cpu_acts[-1].numpy()).max()):.3g}")
 
 
+# ---------------------------------------------------------------- phase 5
+def phase_serve_lm(torch, np, net, card):
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+
+    rng = np.random.default_rng(SEED)
+    t, vocab = LM["max_length"], LM["num_classes"]
+    direct = net.output
+    forwards = [0]
+
+    def counted_output(x):
+        forwards[0] += 1
+        return direct(x)
+
+    net.output = counted_output  # counts the server's dispatched batches
+    sizes = (1, 3, 8, LM_BATCH)
+    xs = [rng.integers(0, vocab, (n, t)).astype(np.int32) for n in sizes]
+    stream = [rng.integers(0, vocab, (LM_BATCH, t)).astype(np.int32)
+              for _ in range(4)]
+
+    def timed(x):
+        t0 = time.perf_counter()
+        out = server.output(x)
+        return out, time.perf_counter() - t0
+
+    reset_counts()
+    t0 = time.perf_counter()
+    server = InferenceServer(model=net, batch_limit=LM_BATCH)
+    try:
+        server.warmup(xs[0][:1])
+        torch.cuda.synchronize()
+        log(f"[serve-lm] warmup of buckets {server.buckets.sizes} took "
+            f"{time.perf_counter() - t0:.2f} s")
+        with ThreadPoolExecutor(len(sizes)) as pool:
+            first = list(pool.map(timed, xs))
+        n_stream = 24
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            streamed = list(pool.map(timed, [stream[i % len(stream)]
+                                             for i in range(n_stream)]))
+        wall = time.perf_counter() - t1
+    finally:
+        server.shutdown()
+        net.output = direct
+    launches = read_counts()
+    per_forward = LM["n_layers"]
+    log(f"[serve-lm] {forwards[0]} batches dispatched, launches {launches} "
+        f"(flash_attention {per_forward} per forward)")
+    if forwards[0] == 0 or \
+            launches["flash_attention"] != per_forward * forwards[0]:
+        raise AssertionError(
+            f"flash_attention launches {launches['flash_attention']} != "
+            f"{per_forward} x {forwards[0]} dispatched batches")
+
+    for x, (out, lat) in zip(xs, first):
+        n = x.shape[0]
+        if out.shape != (n, t, vocab) or not np.isfinite(out).all():
+            raise AssertionError(f"request of {n} rows: bad output "
+                                 f"{out.shape}")
+        if np.abs(out.sum(axis=-1) - 1.0).max() > 1e-4:
+            raise AssertionError(f"request of {n} rows: softmax rows do "
+                                 f"not sum to 1")
+        ref = direct(x).cpu().numpy()
+        rel = float(np.abs(out - ref).max() / np.abs(ref).max())
+        # TF32 matmuls: cuBLAS may pick another algorithm for the padded
+        # bucket than for n rows alone
+        if rel > 1e-3:
+            raise AssertionError(f"request of {n} rows: server and "
+                                 f"net.output differ by {rel:.3g} relative")
+        log(f"[serve-lm] request rows={n:2d} latency={lat * 1e3:.2f} ms  "
+            f"max |server - net.output| / max|p| = {rel:.3g}  ({card})")
+    lats = sorted(lat for _, lat in streamed)
+    for out, _ in streamed:
+        if out.shape != (LM_BATCH, t, vocab) or not np.isfinite(out).all():
+            raise AssertionError("streamed request: bad output")
+    tok_s = n_stream * LM_BATCH * t / wall
+    log(f"[serve-lm] stream: {n_stream} requests x {LM_BATCH} rows x {t} "
+        f"tokens in {wall:.3f} s = {tok_s:.1f} tokens/s, latency p50 "
+        f"{lats[len(lats) // 2] * 1e3:.2f} ms, max {lats[-1] * 1e3:.2f} ms "
+        f"({card})")
+
+    # one served batch split: the forward on the card, then the copy of its
+    # [16, 512, 8192] float32 answer to pageable host memory
+    x = stream[0]
+    fwd, copy = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = direct(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out.cpu()
+        fwd.append(t1 - t0)
+        copy.append(time.perf_counter() - t1)
+    mb = out.numel() * out.element_size() / 1e6
+    log(f"[serve-lm] one batch of {LM_BATCH}: forward {min(fwd) * 1e3:.2f} "
+        f"ms, answer copy to host {min(copy) * 1e3:.2f} ms for {mb:.1f} MB "
+        f"(best of 5; {card})")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 6
+def phase_reference_lm(torch, np, net):
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.zoo import TransformerLM
+
+    # same config, same seed: the same weights, drawn on the CPU
+    cpu_net = TransformerLM(**LM, seed=SEED).init(device="cpu")
+    x = np.random.default_rng(SEED + 1).integers(
+        0, LM["num_classes"], (2, 128)).astype(np.int32)
+    with dtypes.full_precision():
+        gpu_acts = net.feed_forward(x)
+    cpu_acts = cpu_net.feed_forward(x)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(gpu_acts, cpu_acts)):
+        a, b = a.cpu().numpy(), b.numpy()
+        rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        worst = max(worst, rel)
+        # float32 sums in another order on each device, over 8 layers
+        if a.shape != b.shape or rel > 1e-4:
+            raise AssertionError(f"layer {i - 1}: card and CPU differ, "
+                                 f"relative {rel:.3g}")
+    log(f"[refer-lm] {len(cpu_acts)} activations (input and "
+        f"{len(cpu_acts) - 1} layers), card (TF32 off) vs CPU: worst "
+        f"relative difference {worst:.3g} (tol 1e-4)")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -349,15 +605,16 @@ def main() -> int:
         print(f"chip_smoke: the port's package is not beside this script "
               f"({e})", file=sys.stderr)
         return 2
-    from deeplearning4j_tpu_torch.zoo import ResNet50
+    from deeplearning4j_tpu_torch.zoo import ResNet50, TransformerLM
 
     try:
         card = card_line()
         name = torch.cuda.get_device_name(0)
-        bw, peak = card_rates(name)
+        bw, peak, peak_bf16 = card_rates(name)
         log(f"[card] {card}; torch {torch.__version__} CUDA "
             f"{torch.version.cuda}; rates used for bounds: {bw / 1e12} TB/s,"
-            f" {peak / 1e12} TFLOP/s float32")
+            f" {peak / 1e12} TFLOP/s float32, {peak_bf16 / 1e12} TFLOP/s "
+            f"bfloat16 tensor")
         phase_build()
         t0 = time.perf_counter()
         net = ResNet50(num_classes=1000, input_shape=(224, 224, 3),
@@ -365,8 +622,16 @@ def main() -> int:
         log(f"[serve] ResNet-50 ({net.num_params()} params) on "
             f"{net.device} in {time.perf_counter() - t0:.2f} s")
         times, max_err = phase_kernel(torch, bn_cases(net, BATCH), bw, peak)
+        flash, flash_err = phase_flash(torch, bw, peak, peak_bf16)
         launches = phase_serve(torch, np, net, card)
         phase_reference(torch, np, net)
+        del net
+        t0 = time.perf_counter()
+        lm = TransformerLM(**LM, seed=SEED).init()
+        log(f"[serve-lm] TransformerLM {LM} ({lm.num_params()} params) on "
+            f"{lm.device} in {time.perf_counter() - t0:.2f} s")
+        lm_launches = phase_serve_lm(torch, np, lm, card)
+        phase_reference_lm(torch, np, lm)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
         if leaked:
@@ -375,15 +640,27 @@ def main() -> int:
         traceback.print_exc()
         return 1
 
-    f32 = times[torch.float32]
+    # float32 times per forward of each kernel's own path: bn_act's 53
+    # calls of a ResNet-50 forward at batch 32, flash_attention's 6 calls
+    # of a TransformerLM forward at batch 16
+    per_fwd = LM["n_layers"]
+    rows = {
+        "bn_act": (launches["bn_act"], max_err,
+                   dict(times[torch.float32], bound_by="bytes")),
+        "flash_attention": (
+            lm_launches["flash_attention"], flash_err,
+            {k: (v * per_fwd if k.endswith("ms") else v)
+             for k, v in flash.items()}),
+    }
     kernels = []
     for kname, (route, source, replaces) in KERNELS.items():
+        n, err, t = rows[kname]
         kernels.append({
             "name": kname, "route": route, "source": source,
-            "replaces": replaces, "launches": launches[kname],
-            "max_abs_err": max_err, "ms": f32["ms"],
-            "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
-            "bound_by": "bytes", "library_ms": f32["library_ms"]})
+            "replaces": replaces, "launches": n, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

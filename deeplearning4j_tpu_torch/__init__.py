@@ -6,19 +6,22 @@ nor JAX. Module paths and class names mirror the JAX package, so
 `deeplearning4j_tpu_torch/nn/layers/normalization.py:BatchNorm` is the
 counterpart of `deeplearning4j_tpu/nn/layers/normalization.py:BatchNorm`.
 
-Layout of the ported slice (ResNet-50 served by InferenceServer):
+Layout of the ported slices (ResNet-50 and TransformerLM served by
+InferenceServer):
     device.py   device resolution: CUDA unless the caller asks for the CPU
     dtypes.py   precision policy (TF32, bf16 activations)
     nn/         config DSL, layers, activations, initializers
-    ops/        dot/conv primitives and the hand-written CUDA kernels
+    ops/        dot/conv and attention primitives, the hand-written CUDA
+                kernels' wrappers (bn_act, flash_attention)
     csrc/       CUDA C++ sources, built at first use by ops/_build.py
-    models/     ComputationGraph inference runtime
-    zoo/        ResNet50
+    models/     ComputationGraph and MultiLayerNetwork inference runtimes
+    zoo/        ResNet50, TransformerLM
     interop.py  carries JAX-package weights into a port network
     serving/    InferenceServer with admission, shedding, circuit breaking
 
-Activations keep the JAX package's layout at public functions: NHWC
-tensors, HWIO conv weights in the interchange form (`get_param_table`,
+Activations keep the JAX package's layout at public functions: NHWC images,
+BTF [b, t, f] sequences, [b, h, t, d] attention heads, [n_in, n_out] dense
+weights and HWIO conv weights in the interchange form (`get_param_table`,
 `interop`).
 """
 

@@ -1,18 +1,28 @@
-"""Configuration DSL: NeuralNetConfiguration, the network-wide defaults
-(counterpart of deeplearning4j_tpu/nn/conf.py; MultiLayerConfiguration and
-the fluent builder come with the MultiLayerNetwork slice).
+"""Configuration DSL: NeuralNetConfiguration (the network-wide defaults) and
+MultiLayerConfiguration (the sequential network description); counterpart
+of deeplearning4j_tpu/nn/conf.py. The fluent NeuralNetConfigurationBuilder
+and the input preprocessors (nn/preprocessors.py) come with later slices.
 
 "Config is data": every config round-trips through JSON, and the JSON of a
 config is the same in both packages.
+
+    conf = (NeuralNetConfiguration(seed=12)
+            .list([EmbeddingSequence(n_in=1000, n_out=64),
+                   TransformerBlock(n_heads=4, causal=True),
+                   RnnOutput(n_out=1000)])
+            .set_input_type(inputs.recurrent(1000, 128)))
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Optional, Union
+import json
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Union
 
+from deeplearning4j_tpu_torch.nn import inputs as it
 from deeplearning4j_tpu_torch.nn import schedules as sched_mod
 from deeplearning4j_tpu_torch.nn import updaters as upd_mod
+from deeplearning4j_tpu_torch.nn.layers.base import Layer
 
 
 @dataclass
@@ -48,6 +58,10 @@ class NeuralNetConfiguration:
         if self.learning_rate is not None:
             self.updater.learning_rate = self.learning_rate
 
+    def list(self, layers: Optional[List[Layer]] = None
+             ) -> "MultiLayerConfiguration":
+        return MultiLayerConfiguration(defaults=self, layers=list(layers or []))
+
     def graph(self):
         from deeplearning4j_tpu_torch.nn.graph_conf import (
             ComputationGraphConfiguration)
@@ -73,3 +87,121 @@ class NeuralNetConfiguration:
             d["lr_schedule"] = sched_mod.from_json(d["lr_schedule"])
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})
+
+
+# sequence-first layer types: with no explicit input_type, an n_in on one
+# of these implies a Recurrent (BTF) input; anything else FeedForward
+_RNN_FIRST_LAYERS = ("LSTM", "GravesLSTM", "GravesBidirectionalLSTM",
+                     "SimpleRnn", "Conv1D", "EmbeddingSequence")
+
+
+def resolve_first_input_type(conf: "MultiLayerConfiguration") -> it.InputType:
+    """Input type seen by layer 0: the explicit input_type, else inferred
+    from the first layer's n_in. Raises ValueError when neither is there."""
+    if conf.input_type is not None:
+        return conf.input_type
+    first = conf.layers[0]
+    n_in = getattr(first, "n_in", None)
+    if not n_in:
+        raise ValueError(
+            "No input_type set and first layer has no n_in; call "
+            "set_input_type(...)")
+    return (it.Recurrent(n_in)
+            if type(first).__name__ in _RNN_FIRST_LAYERS
+            else it.FeedForward(n_in))
+
+
+@dataclass
+class MultiLayerConfiguration:
+    """Sequential network description (MultiLayerConfiguration.java).
+
+    `input_preprocessors` maps a layer index to an input preprocessor
+    (an object with `output_type(input_type)`, `transform(x, mask)` and
+    `to_json()`). The port has no preprocessor types yet, so a config whose
+    JSON names one does not load.
+    """
+
+    defaults: NeuralNetConfiguration = field(
+        default_factory=NeuralNetConfiguration)
+    layers: List[Layer] = field(default_factory=list)
+    input_type: Optional[it.InputType] = None
+    input_preprocessors: Dict[int, Any] = field(default_factory=dict)
+
+    def layer(self, l: Layer) -> "MultiLayerConfiguration":
+        self.layers.append(l)
+        return self
+
+    def input_preprocessor(self, idx: int, p) -> "MultiLayerConfiguration":
+        self.input_preprocessors[int(idx)] = p
+        return self
+
+    def set_input_type(self, input_type: it.InputType
+                       ) -> "MultiLayerConfiguration":
+        self.input_type = input_type
+        return self
+
+    def build(self) -> "MultiLayerConfiguration":
+        self.validate()
+        return self
+
+    def validate(self):
+        """Raise ValueError when the network has no layers, a preprocessor
+        names no layer, or shapes do not infer. The JAX package's full
+        analyzer (analysis/graph.py) is ported with the analysis slice."""
+        if not self.layers:
+            raise ValueError("MultiLayerConfiguration has no layers")
+        bad = sorted(i for i in self.input_preprocessors
+                     if not 0 <= i < len(self.layers))
+        if bad:
+            raise ValueError(f"input preprocessors at {bad} name no layer "
+                             f"(network has {len(self.layers)})")
+        self.layer_input_types()
+
+    def layer_input_types(self) -> List[it.InputType]:
+        """Input type seen by each layer (after its preprocessor), plus the
+        final output type appended: len(layers) + 1 entries."""
+        cur = resolve_first_input_type(self)
+        types = []
+        for i, layer in enumerate(self.layers):
+            if i in self.input_preprocessors:
+                cur = self.input_preprocessors[i].output_type(cur)
+            types.append(cur)
+            cur = layer.output_type(cur)
+        types.append(cur)
+        return types
+
+    # ---- serde (the checkpoint `configuration.json` payload) ----
+    def to_json(self) -> str:
+        d = {
+            "format": "deeplearning4j_tpu/MultiLayerConfiguration/v1",
+            "defaults": self.defaults.to_json(),
+            "layers": [l.to_json() for l in self.layers],
+            "input_type": (self.input_type.to_json() if self.input_type
+                           else None),
+            "input_preprocessors": {
+                str(k): v.to_json() for k, v in self.input_preprocessors.items()
+            },
+        }
+        return json.dumps(d, indent=2)
+
+    @classmethod
+    def from_json(cls, s: Union[str, dict]) -> "MultiLayerConfiguration":
+        d = json.loads(s) if isinstance(s, str) else s
+        if d.get("input_preprocessors"):
+            raise ValueError(
+                f"input preprocessors are not ported yet; the config has "
+                f"them at layers {sorted(d['input_preprocessors'])}")
+        return cls(
+            defaults=NeuralNetConfiguration.from_json(d["defaults"]),
+            layers=[Layer.from_json(ld) for ld in d["layers"]],
+            input_type=(it.from_json(d["input_type"]) if d.get("input_type")
+                        else None),
+        )
+
+    # ---- resolved per-layer hyperparameters ----
+    def resolved(self, i: int, attr: str, default=None):
+        """Layer-level override else network default else `default`."""
+        v = getattr(self.layers[i], attr, None)
+        if v is None:
+            v = getattr(self.defaults, attr, None)
+        return default if v is None else v

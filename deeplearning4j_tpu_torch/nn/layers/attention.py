@@ -1,0 +1,241 @@
+"""Attention and transformer layers (counterpart of
+deeplearning4j_tpu/nn/layers/attention.py).
+
+All BTF [batch, time, features]:
+  LayerNorm            per-feature normalization over the last axis.
+  PositionEmbedding    learned or fixed sinusoidal position encodings.
+  MultiHeadAttention   self-attention with a fused qkv projection; causal
+                       option; key-padding masks [b, t] (1 = real token).
+  TransformerBlock     pre-LN block: x += MHA(LN(x)); x += FFN(LN(x)).
+
+Weights are [n_in, n_out] like Dense, q/k/v fused into one [f, 3f] matmul.
+
+Attention routing in MultiHeadAttention.apply, as in the JAX package minus
+its sequence-parallel ring branch (no sequence-parallel context in the port
+yet): `attention_impl="blockwise"` takes ops.attention.blockwise; with no
+mask and `attention_impl` "auto" or "pallas" the flash-attention forward
+(ops/flash_attention.py: the CUDA kernel on the card, at every length, its
+plain version on the CPU); anything else, and every masked call, takes
+ops.attention.sdpa, since the kernel takes no mask.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from deeplearning4j_tpu_torch.nn import initializers as init_mod
+from deeplearning4j_tpu_torch.nn import inputs as it
+from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+from deeplearning4j_tpu_torch.ops import attention as att
+from deeplearning4j_tpu_torch.ops import flash_attention as fa
+from deeplearning4j_tpu_torch.ops import linear as ops
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """(x - mean) / sqrt(var + eps) * gamma + beta over the last axis, with
+    the population variance (jnp.var; torch.var's default is unbiased)."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    return (x - mean) / torch.sqrt(var + eps) * gamma + beta
+
+
+def _ln_params(f: int):
+    return {"gamma": torch.ones(f), "beta": torch.zeros(f)}
+
+
+@register_layer
+@dataclass
+class LayerNorm(Layer):
+    """y = gamma * (x - mean) / sqrt(var + eps) + beta over the last axis."""
+
+    eps: float = 1e-5
+
+    def output_type(self, input_type):
+        return input_type
+
+    def init_params(self, gen, input_type):
+        if isinstance(input_type, it.Recurrent):
+            return _ln_params(input_type.size)
+        return _ln_params(input_type.arity())
+
+    def apply(self, params, x, *, state, train, mask=None):
+        return layer_norm(x, params["gamma"], params["beta"], self.eps), state
+
+
+@register_layer
+@dataclass
+class PositionEmbedding(Layer):
+    """Adds position encodings to [b, t, f] activations.
+
+    mode="learned": trainable [max_len, f] table (GPT-style).
+    mode="sincos":  fixed sinusoidal encodings (Vaswani et al.), no params.
+    """
+
+    max_len: int = 512
+    mode: str = "learned"  # learned | sincos
+
+    def output_type(self, input_type):
+        return input_type
+
+    def init_params(self, gen, input_type):
+        if self.mode != "learned":
+            return {}
+        f = input_type.size
+        scheme = self.weight_init or "normal"
+        w = init_mod.init(scheme, gen, (self.max_len, f), fan_in=f, fan_out=f)
+        return {"pos": w * 0.02 if scheme == "normal" else w}
+
+    def has_params(self):
+        return self.mode == "learned"
+
+    @staticmethod
+    def sincos(t: int, f: int, dtype, device=None) -> torch.Tensor:
+        """[t, f] sinusoidal table in `dtype` (the last column zero when f
+        is odd)."""
+        pos = torch.arange(t, dtype=dtype, device=device)[:, None]
+        i = torch.arange(f // 2, dtype=dtype, device=device)[None, :]
+        angle = pos / torch.pow(10000.0, 2 * i / f)
+        emb = torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+        if emb.shape[-1] < f:
+            emb = torch.nn.functional.pad(emb, (0, f - emb.shape[-1]))
+        return emb
+
+    def apply(self, params, x, *, state, train, mask=None):
+        b, t, f = x.shape
+        if self.mode == "learned":
+            if t > self.max_len:
+                # slicing would silently give a shorter table
+                raise ValueError(
+                    f"sequence length {t} exceeds PositionEmbedding "
+                    f"max_len={self.max_len}")
+            pe = params["pos"][:t]
+        else:
+            pe = self.sincos(t, f, x.dtype, x.device)
+        return x + pe.to(x.dtype)[None], state
+
+
+@register_layer
+@dataclass
+class MultiHeadAttention(Layer):
+    """Self-attention over [b, t, f]: fused qkv projection, attention (see
+    the module docstring for the routing), output projection.
+
+    n_out defaults to n_in. A key-padding `mask` [b, t] (1 = real token)
+    masks keys and zeroes padded query positions; `causal` adds the
+    autoregressive constraint.
+    """
+
+    n_heads: int = 8
+    n_in: Optional[int] = None
+    n_out: Optional[int] = None
+    causal: bool = False
+    attention_impl: str = "auto"
+    block_size: int = 512
+    attn_dropout: Optional[float] = None  # retain prob, DL4J convention
+
+    def output_type(self, input_type):
+        f = self.n_out or input_type.size
+        return it.Recurrent(f, getattr(input_type, "timesteps", -1))
+
+    def init_params(self, gen, input_type):
+        f = self.n_in or input_type.size
+        out = self.n_out or f
+        if f % self.n_heads:
+            raise ValueError(f"n_heads={self.n_heads} must divide d_model={f}")
+        wi = self.weight_init or "xavier"
+        wqkv = init_mod.init(wi, gen, (f, 3 * f), fan_in=f, fan_out=3 * f)
+        wo = init_mod.init(wi, gen, (f, out), fan_in=f, fan_out=out)
+        return {"Wqkv": wqkv, "bqkv": torch.zeros(3 * f),
+                "Wo": wo, "bo": torch.zeros(out)}
+
+    def attend(self, q, k, v, mask):
+        """[b, h, t, d] heads -> [b, h, t, d] attention output."""
+        if self.attention_impl == "blockwise":
+            return att.blockwise(q, k, v, mask=mask, causal=self.causal,
+                                 block_size=self.block_size)
+        if mask is None and self.attention_impl in ("auto", "pallas"):
+            # the kernel takes [b, h, t, d] contiguous: copy the head-split
+            # views here, once each, rather than inside the wrapper
+            return fa.flash_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), self.causal)
+        return att.sdpa(q, k, v, mask=mask, causal=self.causal)
+
+    def apply(self, params, x, *, state, train, mask=None):
+        b, t, f = x.shape
+        h = self.n_heads
+        d = f // h
+        qkv = ops.bias_add(ops.dot(x, params["Wqkv"]), params["bqkv"])
+
+        def heads(a):  # [b, t, f] -> [b, h, t, d]
+            return a.reshape(b, t, h, d).transpose(1, 2)
+
+        q, k, v = (heads(a) for a in qkv.split(f, dim=-1))
+        o = self.attend(q, k, v, mask)
+        o = o.transpose(1, 2).reshape(b, t, f)
+        y = ops.bias_add(ops.dot(o, params["Wo"]), params["bo"])
+        if mask is not None:
+            y = y * mask[..., None].to(y.dtype)
+        return y, state
+
+
+@register_layer
+@dataclass
+class TransformerBlock(Layer):
+    """Pre-LN transformer block:
+        x = x + MHA(LN(x));  x = x + W2 . act(W1 . LN(x)).
+    One Layer, so networks stay flat lists; params nest the sublayers':
+    {"ln1": {gamma, beta}, "attn": {Wqkv, bqkv, Wo, bo}, "ln2": {...},
+    "W1", "b1", "W2", "b2"}."""
+
+    n_heads: int = 8
+    n_in: Optional[int] = None
+    ffn_mult: int = 4
+    causal: bool = False
+    attention_impl: str = "auto"
+    eps: float = 1e-5
+
+    def __post_init__(self):
+        if self.activation is None:
+            self.activation = "gelu"
+
+    def output_type(self, input_type):
+        return input_type
+
+    def _sub(self, f):
+        return MultiHeadAttention(n_heads=self.n_heads, n_in=f,
+                                  causal=self.causal,
+                                  attention_impl=self.attention_impl,
+                                  weight_init=self.weight_init)
+
+    def init_params(self, gen, input_type):
+        f = self.n_in or input_type.size
+        hid = self.ffn_mult * f
+        wi = self.weight_init or "xavier"
+        attn = self._sub(f).init_params(gen, input_type)
+        return {
+            "ln1": _ln_params(f),
+            "attn": attn,
+            "ln2": _ln_params(f),
+            "W1": init_mod.init(wi, gen, (f, hid), fan_in=f, fan_out=hid),
+            "b1": torch.zeros(hid),
+            "W2": init_mod.init(wi, gen, (hid, f), fan_in=hid, fan_out=f),
+            "b2": torch.zeros(f),
+        }
+
+    def apply(self, params, x, *, state, train, mask=None):
+        f = x.shape[-1]
+        ln1, ln2 = params["ln1"], params["ln2"]
+        a, _ = self._sub(f).apply(
+            params["attn"], layer_norm(x, ln1["gamma"], ln1["beta"], self.eps),
+            state={}, train=train, mask=mask)
+        x = x + a
+        hn = layer_norm(x, ln2["gamma"], ln2["beta"], self.eps)
+        hid = self.act_fn("gelu")(ops.bias_add(ops.dot(hn, params["W1"]),
+                                               params["b1"]))
+        y = x + ops.bias_add(ops.dot(hid, params["W2"]), params["b2"])
+        if mask is not None:
+            y = y * mask[..., None].to(y.dtype)
+        return y, state

@@ -9,9 +9,11 @@ methods compute on tensors:
                                   layout, drawn from a torch.Generator
     init_state(input)             running state (BN stats); {} if none
     apply(params, x, *, state, train, mask) -> (y, new_state)
+    propagate_mask(mask, input)   the mask the next layer sees
 
 Params are held as plain dicts of tensors per vertex, keyed by the JAX
-package's names ("W", "b", "gamma", ...). Where the port keeps a param in
+package's names ("W", "b", "gamma", ...); a layer made of sublayers
+(TransformerBlock) nests dicts the same way. Where the port keeps a param in
 another memory layout than the interchange form (Conv2D holds OIHW weights
 for cuDNN, the interchange form is HWIO), the layer converts in
 `from_interchange` / `to_interchange`; nothing else knows the layout.
@@ -82,6 +84,12 @@ class Layer:
 
     def has_params(self) -> bool:
         return True
+
+    def propagate_mask(self, mask: Optional[torch.Tensor],
+                       input_type: it.InputType) -> Optional[torch.Tensor]:
+        """The mask the next layer sees (DL4J feedForwardMaskArray);
+        default passthrough."""
+        return mask
 
     # ---- param layout (interchange form = the JAX package's layout) ----
     def from_interchange(self, key: str, value: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Feed-forward layers, the part ResNet-50 runs: Dense and Activation
-(counterpart of deeplearning4j_tpu/nn/layers/dense.py; the embeddings,
-ElementWiseMultiplication and DropoutLayer come with later slices).
+"""Feed-forward layers, the part the served paths run: Dense, Activation,
+Embedding and EmbeddingSequence (counterpart of
+deeplearning4j_tpu/nn/layers/dense.py; ElementWiseMultiplication and
+DropoutLayer come with later slices).
 
 Params follow DL4J naming: W [nIn, nOut], b [nOut] — the same layout in
 both packages.
@@ -78,3 +79,76 @@ class Activation(Layer):
 
     def apply(self, params, x, *, state, train, mask=None):
         return self.act_fn("identity")(x), state
+
+
+def _lookup(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Rows of `table` at ids `x`, as the JAX package's
+    `jnp.take(W, x.astype(int32), axis=0)`: ids of any numeric dtype
+    truncate toward zero, ids in [-n, 0) count from the end, and ids out
+    of range give NaN rows (jnp.take's "fill" mode). A server then refuses
+    the batch as non-finite; an unchecked gather would raise on the CPU and
+    assert on the device, which loses the process's CUDA context."""
+    n = table.shape[0]
+    idx = x.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    y = torch.nn.functional.embedding(idx.clamp(0, n - 1), table)
+    return y.masked_fill(~valid[..., None], float("nan"))
+
+
+@register_layer
+@dataclass
+class Embedding(Layer):
+    """Index lookup: ids [b] or [b, 1] -> [b, n_out], plus a bias after the
+    lookup when has_bias (DL4J EmbeddingLayer)."""
+
+    n_in: Optional[int] = None  # vocab size
+    n_out: int = 0
+    has_bias: bool = True
+
+    def output_type(self, input_type):
+        return it.FeedForward(self.n_out)
+
+    def init_params(self, gen, input_type):
+        n_in = self.n_in or input_type.arity()
+        p = {"W": init_mod.init(self.weight_init or "xavier", gen,
+                                (n_in, self.n_out), distribution=self.dist)}
+        if self.has_bias:
+            p["b"] = torch.full((self.n_out,), float(self.bias_init or 0.0))
+        return p
+
+    def apply(self, params, x, *, state, train, mask=None):
+        if x.dim() == 2 and x.shape[-1] == 1:
+            x = x[:, 0]
+        y = _lookup(params["W"], x)
+        if self.has_bias:
+            y = ops.bias_add(y, params["b"])
+        return self.act_fn("identity")(y), state
+
+
+@register_layer
+@dataclass
+class EmbeddingSequence(Layer):
+    """Sequence embedding: ids [b, t] -> [b, t, n_out] (BTF layout)."""
+
+    n_in: Optional[int] = None
+    n_out: int = 0
+    has_bias: bool = False
+
+    def output_type(self, input_type):
+        t = input_type.timesteps if isinstance(input_type, it.Recurrent) else -1
+        return it.Recurrent(self.n_out, t)
+
+    def init_params(self, gen, input_type):
+        n_in = self.n_in or input_type.size
+        p = {"W": init_mod.init(self.weight_init or "xavier", gen,
+                                (n_in, self.n_out), distribution=self.dist)}
+        if self.has_bias:
+            p["b"] = torch.zeros(self.n_out)
+        return p
+
+    def apply(self, params, x, *, state, train, mask=None):
+        y = _lookup(params["W"], x)
+        if self.has_bias:
+            y = ops.bias_add(y, params["b"])
+        return self.act_fn("identity")(y), state

@@ -111,8 +111,9 @@ class InferenceServer:
     """Continuous-batching inference with overload protection.
 
     Pass a `model` (anything with ``output(x)`` returning a tensor, such as
-    a port ComputationGraph on its device) or a raw ``dispatch(batch) ->
-    outputs`` callable (tests, custom stacks). `buckets` defaults to
+    a port ComputationGraph or MultiLayerNetwork on its device; integer
+    token-id requests keep their dtype through padding and coalescing) or a
+    raw ``dispatch(batch) -> outputs`` callable (tests, custom stacks). `buckets` defaults to
     power-of-two sizes up to `batch_limit`.
     """
 

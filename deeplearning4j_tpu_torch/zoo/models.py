@@ -1,6 +1,6 @@
-"""Model zoo, the part ported so far: ZooModel and ResNet50 (counterpart of
-deeplearning4j_tpu/zoo/models.py; the other eleven architectures and the
-checksummed pretrained cache come with later slices).
+"""Model zoo, the part ported so far: ZooModel, ResNet50 and TransformerLM
+(counterpart of deeplearning4j_tpu/zoo/models.py; the other architectures
+and the checksummed pretrained cache come with later slices).
 
 Each ZooModel builds a fresh config via `conf()` and an initialized network
 via `init(device=...)`.
@@ -8,20 +8,25 @@ via `init(device=...)`.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
-from deeplearning4j_tpu_torch.models import ComputationGraph
+from deeplearning4j_tpu_torch.models import ComputationGraph, MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn import inputs as it
 from deeplearning4j_tpu_torch.nn import updaters
 from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+from deeplearning4j_tpu_torch.nn.graph_conf import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.graph_vertices import ElementWiseVertex
 from deeplearning4j_tpu_torch.nn.layers import (
     Activation,
     BatchNorm,
     Conv2D,
+    EmbeddingSequence,
     GlobalPooling,
     Output,
+    PositionEmbedding,
+    RnnOutput,
     Subsampling2D,
+    TransformerBlock,
 )
 
 
@@ -37,8 +42,12 @@ class ZooModel:
         raise NotImplementedError
 
     def init(self, device=None):
-        """The initialized network on `device` (default: the CUDA card)."""
-        return ComputationGraph(self.conf()).init(device)
+        """The initialized network on `device` (default: the CUDA card): a
+        ComputationGraph for a graph config, else a MultiLayerNetwork."""
+        c = self.conf()
+        if isinstance(c, ComputationGraphConfiguration):
+            return ComputationGraph(c).init(device)
+        return MultiLayerNetwork(c).init(device)
 
 
 @dataclass
@@ -101,3 +110,35 @@ class ResNet50(ZooModel):
         g.set_outputs("out")
         g.set_input_types(it.convolutional(h, w, c))
         return g
+
+
+@dataclass
+class TransformerLM(ZooModel):
+    """Decoder-only transformer LM built from the layer library, the JAX
+    package's zoo TransformerLM: token embedding, learned positions,
+    `n_layers` causal pre-LN TransformerBlocks, a per-timestep softmax over
+    the vocabulary. Input: [b, t] token ids."""
+
+    num_classes: int = 1000  # vocab
+    max_length: int = 128
+    d_model: int = 256
+    n_heads: int = 8
+    n_layers: int = 4
+    # per-block activation-checkpoint policy, carried in the config for
+    # training ('none' | 'dots_saveable' | 'full' | 'offload')
+    remat: Optional[str] = None
+
+    def conf(self):
+        blocks = [TransformerBlock(n_heads=self.n_heads, causal=True,
+                                   remat=self.remat)
+                  for _ in range(self.n_layers)]
+        return NeuralNetConfiguration(
+            seed=self.seed, updater=updaters.Adam(learning_rate=3e-4),
+            weight_init="xavier",
+        ).list([
+            EmbeddingSequence(n_in=self.num_classes, n_out=self.d_model),
+            PositionEmbedding(max_len=self.max_length),
+            *blocks,
+            RnnOutput(n_out=self.num_classes, loss="mcxent",
+                      activation="softmax"),
+        ]).set_input_type(it.recurrent(self.num_classes, self.max_length))

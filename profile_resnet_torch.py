@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time of one served ResNet-50 batch goes on the card, for the
-PyTorch/CUDA port (deeplearning4j_tpu_torch).
+"""Where the time of one served batch goes on the card, for the PyTorch/CUDA
+port (deeplearning4j_tpu_torch): zoo ResNet-50, or the zoo TransformerLM
+with `--model transformer`.
 
-    python3 profile_resnet_torch.py [--batch 32] [--iters 20] [--mixed]
+    python3 profile_resnet_torch.py [--model resnet50|transformer]
+                                    [--batch N] [--iters 20] [--mixed]
                                     [--out profile_out]
 
-Builds the port's zoo ResNet-50 (1000 classes, 224x224x3, random weights
-from a seed) on the card, warms it up, then traces `--iters` forwards of
-the serving path's dispatch (host array in, `net.output`, result back to
-the host) with torch.profiler. Prints, beside the card's name and power
-limit: host wall time per batch, the device's busy and idle share of that
-window, and device time per batch by category (cuDNN convolutions, the
-bn_act kernel, other elementwise kernels, pooling/reductions, copies). The
-full per-kernel table goes to <out>/profile_resnet_torch_<mode>.txt.
+Builds the port's model on the card with random weights from a seed
+(ResNet-50: 1000 classes, 224x224x3, batch 32 by default; TransformerLM:
+vocab 8192, 512 tokens, d_model 512, 8 heads, 6 blocks, batch 16 by
+default), warms it up, then traces `--iters` forwards of the serving path's
+dispatch (host array in, `net.output`, result back to the host) with
+torch.profiler. Prints, beside the card's name and power limit: host wall
+time per batch, the device's busy and idle share of that window, and device
+time per batch by category (the port's kernels, cuDNN convolutions and
+cuBLAS matmuls, other elementwise kernels, pooling/reductions/softmax,
+copies). The full per-kernel table goes to
+<out>/profile_<resnet|transformer>_torch_<mode>.txt.
 """
 from __future__ import annotations
 
@@ -22,10 +27,14 @@ import subprocess
 import sys
 import time
 
+LM = dict(num_classes=8192, max_length=512, d_model=512, n_heads=8,
+          n_layers=6)
+
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("bn_act", ("bn_act",)),
-    ("conv (cuDNN)", ("conv", "cudnn", "sm90_xmma", "implicit", "winograd",
-                      "gemm", "cutlass", "xmma", "fprop", "nhwc", "nvjet")),
+    ("flash_attention", ("flash_fwd",)),
+    ("conv/matmul", ("conv", "cudnn", "sm90_xmma", "implicit", "winograd",
+                     "gemm", "cutlass", "xmma", "fprop", "nhwc", "nvjet")),
     ("copy", ("memcpy", "memset", "copy")),
     ("pool/reduce", ("pool", "reduce", "softmax", "mean")),
     ("elementwise", ("elementwise", "vectorized", "add", "relu",
@@ -43,7 +52,11 @@ def category(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--model", choices=("resnet50", "transformer"),
+                    default="resnet50")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="rows per served batch (32 ResNet-50, 16 "
+                         "TransformerLM)")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--mixed", action="store_true",
                     help="bf16 activations (dtypes.set_mixed_precision)")
@@ -60,17 +73,26 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deeplearning4j_tpu_torch import dtypes
-    from deeplearning4j_tpu_torch.zoo import ResNet50
+    from deeplearning4j_tpu_torch.zoo import ResNet50, TransformerLM
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     dtypes.set_mixed_precision(args.mixed)
-    net = ResNet50(num_classes=1000, input_shape=(224, 224, 3),
-                   seed=7).init()
-    x = np.random.default_rng(0).standard_normal(
-        (args.batch, 224, 224, 3)).astype(np.float32)
+    rng = np.random.default_rng(0)
+    if args.model == "resnet50":
+        batch = args.batch or 32
+        net = ResNet50(num_classes=1000, input_shape=(224, 224, 3),
+                       seed=7).init()
+        x = rng.standard_normal((batch, 224, 224, 3)).astype(np.float32)
+        per_row, unit, ops = 1, "img/s", "TF32 convs"
+    else:
+        batch = args.batch or 16
+        net = TransformerLM(**LM, seed=7).init()
+        x = rng.integers(0, LM["num_classes"],
+                         (batch, LM["max_length"])).astype(np.int32)
+        per_row, unit, ops = LM["max_length"], "tokens/s", "TF32 matmuls"
 
     def serve_once():
         return net.output(x).float().cpu().numpy()
@@ -101,10 +123,10 @@ def main() -> int:
         cat = category(ev.key)
         by_cat[cat] = by_cat.get(cat, 0.0) + us
     mode = "bf16" if args.mixed else "f32"
-    tag = f"({card}; batch {args.batch}, " \
-          f"{'bf16 activations' if args.mixed else 'float32, TF32 convs'})"
+    tag = f"({card}; {args.model}, batch {batch}, " \
+          f"{'bf16 activations' if args.mixed else 'float32, ' + ops})"
     print(f"[profile] untraced wall per served batch: {wall_ms:.3f} ms = "
-          f"{args.batch / wall_ms * 1e3:.1f} img/s {tag}")
+          f"{batch * per_row / wall_ms * 1e3:.1f} {unit} {tag}")
     if device_us == 0:
         print("[profile] the profiler recorded no device time: device "
               "breakdown not measured")
@@ -118,8 +140,9 @@ def main() -> int:
         print(f"[profile]   {cat:14s} {ms:8.3f} ms/batch  "
               f"{us / device_us * 100:5.1f}% of device time")
     os.makedirs(args.out, exist_ok=True)
+    name = "resnet" if args.model == "resnet50" else "transformer"
     with open(os.path.join(args.out,
-                           f"profile_resnet_torch_{mode}.txt"), "w") as f:
+                           f"profile_{name}_torch_{mode}.txt"), "w") as f:
         f.write(f"{tag}\n")
         f.write(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=60))
