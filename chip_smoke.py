@@ -39,12 +39,37 @@ Phases, in order; any failure exits non-zero without the final line:
   6. refer-lm the same seeded TransformerLM on the CPU (plain attention,
               exact float32) against the card with TF32 off, layer by layer
               on 2 x 128 token ids.
+  7. kernel-lstm  lstm_scan against its plain version on the card at the
+              TextGenerationLSTM path's shapes (served (64, 64, 256)
+              peephole, rnn_time_step (64, 1, 256)) and at edge cases
+              (plain cell, masked with a fully masked row, ragged (3, 7,
+              12), long t (8, 1024, 256), wide n (16, 64, 512)), float32
+              and bfloat16, nonzero h0/c0: max error against the stated
+              tolerance, kernel / plain / library times, the bound; and
+              the port's LSTM layer (projection + kernel) beside
+              torch.nn.LSTM (cuDNN) for the plain cell.
+  8. serve-rnn    zoo TextGenerationLSTM (77 characters, 64 steps, two
+              GravesLSTM(256), random weights from a seed) behind
+              InferenceServer (batch_limit 64), warmed up, answering
+              concurrent one-hot requests of 1, 3, 8 and 64 rows and then a
+              stream of 64-row requests; every answer finite (n, 64, 77)
+              softmax rows equal to net.output on the same rows; lstm_scan
+              must have run 2 times per dispatched batch.
+  9. stream-rnn   rnn_time_step with TF32 off: 64 single steps and 4 calls
+              of 16 steps equal net.output on one [64, 64, 77] sequence,
+              rnn_clear_previous_state restarts the stream; then 64 streams
+              generate 256 characters each, sampled on the card with a
+              seeded generator and fed back as one-hot, no host round trip
+              per step; lstm_scan must have run 2 times per call.
+ 10. refer-rnn    the same seeded TextGenerationLSTM on the CPU (plain scan,
+              exact float32) against the card with TF32 off, layer by
+              layer on 2 x 64 one-hot rows.
 
 Every kernel's launch count is set to 0 just before each serve phase and
-read just after it. The last lines are the kernels JSON, the card's name
-and power limit, and {"ok": true, "device": {...}}. Exits non-zero when no
-CUDA device is available, and when the port's package is not beside this
-script.
+the generation run, and read just after. The last lines are the kernels
+JSON, the card's name and power limit, and {"ok": true, "device": {...}}.
+Exits non-zero when no CUDA device is available, and when the port's
+package is not beside this script.
 """
 from __future__ import annotations
 
@@ -68,6 +93,11 @@ LM = dict(num_classes=8192, max_length=512, d_model=512, n_heads=8,
           n_layers=6)
 LM_BATCH = 16
 
+# zoo TextGenerationLSTM as the JAX package's bench drives it (bench.py
+# char-RNN row: 77 characters, 64 steps, batch 64), served at batch 64
+RNN = dict(num_classes=77, max_length=64)
+RNN_BATCH = 64
+
 # Published rates (NVIDIA data sheets, dense): device-memory bytes/s,
 # float32 operations/s outside the tensor cores, and bfloat16 operations/s
 # on the tensor cores. bn_act's bfloat16 arithmetic runs on the float32
@@ -87,6 +117,8 @@ KERNELS = {
     "flash_attention": (
         "cuda", "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
         "deeplearning4j_tpu/ops/pallas_kernels.py:163"),
+    "lstm_scan": ("cuda", "deeplearning4j_tpu_torch/csrc/lstm_scan.cu",
+                  "deeplearning4j_tpu/ops/pallas_kernels.py:444"),
 }
 
 
@@ -109,10 +141,12 @@ def card_rates(name: str):
     raise RuntimeError(f"no published rates for card {name!r}")
 
 
-def device_ms(torch, fn, nbuf: int) -> float:
-    """Mean device time of fn(i) over ITERS calls. A sleep kernel holds the
-    stream while the calls are enqueued, so host launch overhead does not
-    enter the measurement; `i` cycles through `nbuf` input buffers."""
+def device_ms(torch, fn, nbuf: int, iters: int = ITERS) -> float:
+    """Mean device time of fn(i) over `iters` calls. A sleep kernel holds
+    the stream while the calls are enqueued, so host launch overhead does
+    not enter the measurement (unless enqueuing outlasts the sleep, as for
+    a plain version of thousands of small launches); `i` cycles through
+    `nbuf` input buffers."""
     for i in range(min(nbuf, 3)):
         fn(i)
     torch.cuda.synchronize()
@@ -120,19 +154,21 @@ def device_ms(torch, fn, nbuf: int) -> float:
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(200_000_000)
     start.record()
-    for i in range(ITERS):
+    for i in range(iters):
         fn(i % nbuf)
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / ITERS
+    return start.elapsed_time(end) / iters
 
 
 def wrappers():
     """Each kernel's wrapper, which counts its launches."""
     from deeplearning4j_tpu_torch.ops.bn_act import bn_act
     from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention
+    from deeplearning4j_tpu_torch.ops.lstm import lstm_scan
 
-    return {"bn_act": bn_act, "flash_attention": flash_attention}
+    return {"bn_act": bn_act, "flash_attention": flash_attention,
+            "lstm_scan": lstm_scan}
 
 
 def reset_counts():
@@ -587,6 +623,347 @@ def phase_reference_lm(torch, np, net):
         f"relative difference {worst:.3g} (tol 1e-4)")
 
 
+# ---------------------------------------------------------------- phase 7
+# (b, t, n, peephole, masked): the served shape first, then the edge cases
+LSTM_CASES = [
+    (64, 64, 256, True, False),     # TextGenerationLSTM serving, 2 per fwd
+    (64, 1, 256, True, False),      # rnn_time_step, 2 per call
+    (64, 64, 256, False, False),    # plain cell (LSTM)
+    (8, 64, 256, True, True),       # ragged lengths, one row fully masked
+    (3, 7, 12, True, True),         # ragged small
+    (8, 1024, 256, False, False),   # long t (the JAX chunked kernel's)
+    (16, 64, 512, True, False),     # wide n: R read from L2 every step
+]
+LSTM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # x max(1, max|plain|)
+
+
+def lstm_case_inputs(torch, gen, b, t, n, dtype, peephole, masked):
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    zx = rnd(b, t, 4 * n)
+    R = rnd(n, 4 * n, scale=(2.0 / (5 * n)) ** 0.5)  # xavier, as init
+    p = rnd(3, n, scale=0.3) if peephole else None
+    h0, c0 = rnd(b, n, scale=0.5), rnd(b, n, scale=0.5)
+    mask = None
+    if masked:
+        lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
+        mask = (torch.arange(t, device=dev)[None] < lengths[:, None]).float()
+        mask[1] = 0.0
+    return zx, R, p, h0, c0, mask
+
+
+def phase_lstm(torch, bw, peak, peak_bf16):
+    """lstm_scan against its plain version at LSTM_CASES, float32 and
+    bfloat16. Returns the served case's float32 row (per launch) and the
+    largest absolute error of any case."""
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    served, max_err, checked = None, 0.0, 0
+    for b, t, n, peephole, masked in LSTM_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            item = torch.empty((), dtype=dtype).element_size()
+            set_bytes = b * t * 5 * n * item + 4 * n * n * item
+            nbuf = max(1, min(16, math.ceil(2 * L2_BYTES / set_bytes)))
+            sets = [lstm_case_inputs(torch, gen, b, t, n, dtype, peephole,
+                                     masked) for _ in range(nbuf)]
+
+            def kernel(i):
+                zx, R, p, h0, c0, m = sets[i]
+                if peephole:
+                    return lstm_ops.lstm_scan_peephole(zx, R, p, h0, c0, m)
+                return lstm_ops.lstm_scan(zx, R, h0, c0, m)
+
+            def plain(i):
+                zx, R, p, h0, c0, m = sets[i]
+                return lstm_ops.lstm_scan_reference(zx, R, h0, c0, p, m)
+
+            got, ref = kernel(0), plain(0)
+            torch.cuda.synchronize()
+            errs, mag = [], 1.0
+            for a, r in zip(got, ref):
+                if a.dtype != dtype or a.shape != r.shape:
+                    raise AssertionError(f"lstm_scan output {a.dtype} "
+                                         f"{tuple(a.shape)}, plain {r.dtype} "
+                                         f"{tuple(r.shape)}")
+                errs.append(float((a.float() - r.float()).abs().max()))
+                mag = max(mag, float(r.float().abs().max()))
+            err = max(errs)
+            if err > LSTM_TOL[dname] * mag:
+                raise AssertionError(
+                    f"lstm_scan disagrees with its plain version at b={b} "
+                    f"t={t} n={n} peephole={peephole} masked={masked} "
+                    f"{dname}: max err (hs, hT, cT) {errs}, tol "
+                    f"{LSTM_TOL[dname]} x {mag:.3g}")
+            if masked and (got[0][1].float().abs().any()
+                           or not torch.equal(got[1][1], sets[0][3][1])):
+                raise AssertionError("lstm_scan: the fully masked row did "
+                                     "not keep its carry")
+            max_err = max(max_err, err)
+            checked += 1
+            k_ms = device_ms(torch, kernel, nbuf)
+            p_ms = device_ms(torch, plain, nbuf,
+                             iters=max(2, min(ITERS, 3200 // t)))
+            moved = (b * t * 5 * n + 4 * n * n + 4 * b * n
+                     + (3 * n if peephole else 0)) * item \
+                + (4 * b * t if masked else 0)
+            ops = 2 * b * n * 4 * n * t
+            rate = peak if dtype == torch.float32 else peak_bf16
+            b_ms = max(moved / bw, ops / rate) * 1e3
+            by = "bytes" if moved / bw >= ops / rate else "operations"
+            log(f"[kernel-lstm] lstm_scan {dname:8s} b={b:2d} t={t:4d} "
+                f"n={n:3d} {'peephole' if peephole else 'plain   '} "
+                f"{'masked' if masked else '      '} resident="
+                f"{int(lstm_ops.resident(n))}  max_err={err:.3g} (tol "
+                f"{LSTM_TOL[dname]:g} x {mag:.3g})  kernel={k_ms:.4f} ms  "
+                f"plain={p_ms:.4f} ms  library=none{' (peepholes)' if peephole else ''}"
+                f"  bound={b_ms:.4f} ms ({by})")
+            if (b, t, n, peephole, masked) == LSTM_CASES[0] and \
+                    dtype == torch.float32:
+                served = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                          "bound_ms": b_ms, "bound_by": by}
+            del sets
+    log(f"[kernel-lstm] verdict: lstm_scan agrees with its plain version in "
+        f"{checked}/{checked} (shape, dtype) cases, max abs error "
+        f"{max_err:.3g} (tol float32 1e-5, bfloat16 2e-2, x max(1, "
+        f"max|plain|))")
+    phase_lstm_library(torch)
+    return served, max_err
+
+
+def phase_lstm_library(torch):
+    """The plain cell as a layer: the port's LSTM (projection + kernel)
+    beside torch.nn.LSTM (cuDNN, projection included) at (64, 64, 256),
+    input width 256, float32 with TF32 off in both."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.nn import inputs as it
+    from deeplearning4j_tpu_torch.nn.layers import LSTM
+
+    b, t, n = 64, 64, 256
+    dev = torch.device("cuda")
+    layer = LSTM(n_out=n, activation="tanh")
+    params = {k: v.to(dev) for k, v in layer.init_params(
+        torch.Generator().manual_seed(SEED), it.recurrent(n, t)).items()}
+    cudnn = torch.nn.LSTM(n, n, batch_first=True).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    nbuf = math.ceil(2 * L2_BYTES / (b * t * n * 4))
+    xs = [torch.randn((b, t, n), generator=gen, device=dev)
+          for _ in range(nbuf)]
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode(), dtypes.full_precision():
+            port_ms = device_ms(torch, lambda i: layer.apply(
+                params, xs[i], state={}, train=False), nbuf)
+            lib_ms = device_ms(torch, lambda i: cudnn(xs[i]), nbuf)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    log(f"[kernel-lstm] plain cell as a layer at b={b} t={t} n={n}, input "
+        f"width {n}, float32, TF32 off: port LSTM (x @ W + b, then "
+        f"lstm_scan) {port_ms:.4f} ms; library torch.nn.LSTM (cuDNN, its "
+        f"input projection included) {lib_ms:.4f} ms")
+
+
+# ---------------------------------------------------------------- phase 8
+def one_hot_rows(np, rng, n, t, vocab):
+    return np.eye(vocab, dtype=np.float32)[rng.integers(0, vocab, (n, t))]
+
+
+def phase_serve_rnn(torch, np, net, card):
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+
+    rng = np.random.default_rng(SEED)
+    t, vocab = RNN["max_length"], RNN["num_classes"]
+    direct = net.output
+    forwards = [0]
+
+    def counted_output(x):
+        forwards[0] += 1
+        return direct(x)
+
+    net.output = counted_output  # counts the server's dispatched batches
+    sizes = (1, 3, 8, RNN_BATCH)
+    xs = [one_hot_rows(np, rng, n, t, vocab) for n in sizes]
+    stream = [one_hot_rows(np, rng, RNN_BATCH, t, vocab) for _ in range(4)]
+
+    def timed(x):
+        t0 = time.perf_counter()
+        out = server.output(x)
+        return out, time.perf_counter() - t0
+
+    reset_counts()
+    t0 = time.perf_counter()
+    server = InferenceServer(model=net, batch_limit=RNN_BATCH)
+    try:
+        server.warmup(xs[0])
+        torch.cuda.synchronize()
+        log(f"[serve-rnn] warmup of buckets {server.buckets.sizes} took "
+            f"{time.perf_counter() - t0:.2f} s")
+        with ThreadPoolExecutor(len(sizes)) as pool:
+            first = list(pool.map(timed, xs))
+        n_stream = 96
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            streamed = list(pool.map(timed, [stream[i % len(stream)]
+                                             for i in range(n_stream)]))
+        wall = time.perf_counter() - t1
+    finally:
+        server.shutdown()
+        net.output = direct
+    launches = read_counts()
+    log(f"[serve-rnn] {forwards[0]} batches dispatched, launches {launches} "
+        f"(lstm_scan 2 per forward)")
+    if forwards[0] == 0 or launches["lstm_scan"] != 2 * forwards[0]:
+        raise AssertionError(f"lstm_scan launches {launches['lstm_scan']} "
+                             f"!= 2 x {forwards[0]} dispatched batches")
+
+    for x, (out, lat) in zip(xs, first):
+        n = x.shape[0]
+        if out.shape != (n, t, vocab) or not np.isfinite(out).all():
+            raise AssertionError(f"request of {n} rows: bad output "
+                                 f"{out.shape}")
+        if np.abs(out.sum(axis=-1) - 1.0).max() > 1e-4:
+            raise AssertionError(f"request of {n} rows: softmax rows do "
+                                 f"not sum to 1")
+        ref = direct(x).cpu().numpy()
+        rel = float(np.abs(out - ref).max() / np.abs(ref).max())
+        # TF32 input projections: cuBLAS may pick another algorithm for
+        # the padded bucket than for n rows alone
+        if rel > 1e-3:
+            raise AssertionError(f"request of {n} rows: server and "
+                                 f"net.output differ by {rel:.3g} relative")
+        log(f"[serve-rnn] request rows={n:2d} latency={lat * 1e3:.2f} ms  "
+            f"max |server - net.output| / max|p| = {rel:.3g}  ({card})")
+    lats = sorted(lat for _, lat in streamed)
+    for out, _ in streamed:
+        if out.shape != (RNN_BATCH, t, vocab) or not np.isfinite(out).all():
+            raise AssertionError("streamed request: bad output")
+    chars = n_stream * RNN_BATCH * t / wall
+    log(f"[serve-rnn] stream: {n_stream} requests x {RNN_BATCH} rows x {t} "
+        f"characters in {wall:.3f} s = {chars:.1f} chars/s, latency p50 "
+        f"{lats[len(lats) // 2] * 1e3:.2f} ms, max {lats[-1] * 1e3:.2f} ms "
+        f"({card})")
+
+    x = stream[0]
+    fwd, copy = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = direct(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out.cpu()
+        fwd.append(t1 - t0)
+        copy.append(time.perf_counter() - t1)
+    log(f"[serve-rnn] one batch of {RNN_BATCH}: forward (input copy "
+        f"included) {min(fwd) * 1e3:.3f} ms, answer copy to host "
+        f"{min(copy) * 1e3:.3f} ms for "
+        f"{out.numel() * out.element_size() / 1e6:.2f} MB (best of 5; "
+        f"{card})")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 9
+def phase_stream_rnn(torch, np, net, card):
+    from deeplearning4j_tpu_torch import dtypes
+
+    t, vocab = RNN["max_length"], RNN["num_classes"]
+    dev = torch.device("cuda")
+    x = torch.from_numpy(one_hot_rows(np, np.random.default_rng(SEED + 2),
+                                      RNN_BATCH, t, vocab)).to(dev)
+    with dtypes.full_precision():
+        full = net.output(x)
+        net.rnn_clear_previous_state()
+        steps = torch.stack([net.rnn_time_step(x[:, s]) for s in range(t)],
+                            dim=1)
+        net.rnn_clear_previous_state()
+        chunks = torch.cat([net.rnn_time_step(x[:, a:a + 16])
+                            for a in range(0, t, 16)], dim=1)
+        net.rnn_clear_previous_state()
+        again = net.rnn_time_step(x[:, 0])
+    e_steps = float((steps - full).abs().max())
+    e_chunks = float((chunks - full).abs().max())
+    if steps.shape != full.shape or e_steps > 1e-5 or e_chunks > 1e-5:
+        raise AssertionError(f"rnn_time_step differs from net.output: "
+                             f"{e_steps:.3g} stepped, {e_chunks:.3g} in "
+                             f"chunks of 16 (tol 1e-5)")
+    if not torch.equal(again, steps[:, 0]):
+        raise AssertionError("rnn_clear_previous_state did not restart the "
+                             "stream")
+    log(f"[stream-rnn] {t} single steps and {t // 16} calls of 16 steps "
+        f"equal net.output (TF32 off): max |diff| {e_steps:.3g} / "
+        f"{e_chunks:.3g} (tol 1e-5); cleared state repeats step 0 exactly")
+
+    # generation: 64 streams, 256 characters each, sampled on the card
+    n_chars = 256
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    start = torch.randint(0, vocab, (RNN_BATCH,), generator=gen, device=dev)
+    eye = torch.eye(vocab, device=dev)
+
+    def generate():
+        net.rnn_clear_previous_state()
+        cur, ids = eye[start], []
+        for _ in range(n_chars):
+            probs = net.rnn_time_step(cur)
+            nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            ids.append(nxt)
+            cur = eye[nxt]
+        return torch.stack(ids, dim=1), probs
+
+    generate()  # warm-up: allocator and handles
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, last = generate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    if launches["lstm_scan"] != 2 * n_chars:
+        raise AssertionError(f"lstm_scan launches {launches['lstm_scan']} "
+                             f"!= 2 x {n_chars} rnn_time_step calls")
+    if ids.shape != (RNN_BATCH, n_chars) or int(ids.min()) < 0 or \
+            int(ids.max()) >= vocab or not bool(torch.isfinite(last).all()) \
+            or float((last.sum(-1) - 1).abs().max()) > 1e-4:
+        raise AssertionError("generation produced bad characters or "
+                             "probabilities")
+    log(f"[stream-rnn] generated {RNN_BATCH} x {n_chars} characters in "
+        f"{wall:.3f} s = {RNN_BATCH * n_chars / wall:.1f} chars/s, "
+        f"{wall / n_chars * 1e3:.3f} ms per rnn_time_step call; launches "
+        f"{launches} ({card})")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 10
+def phase_reference_rnn(torch, np, net):
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    # same config, same seed: the same weights, drawn on the CPU
+    cpu_net = TextGenerationLSTM(**RNN, seed=SEED).init(device="cpu")
+    x = one_hot_rows(np, np.random.default_rng(SEED + 1), 2,
+                     RNN["max_length"], RNN["num_classes"])
+    with dtypes.full_precision():
+        gpu_acts = net.feed_forward(x)
+    cpu_acts = cpu_net.feed_forward(x)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(gpu_acts, cpu_acts)):
+        a, b = a.cpu().numpy(), b.numpy()
+        rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        worst = max(worst, rel)
+        # float32 sums in another order on each device, over 64 steps
+        if a.shape != b.shape or rel > 1e-4:
+            raise AssertionError(f"layer {i - 1}: card and CPU differ, "
+                                 f"relative {rel:.3g}")
+    log(f"[refer-rnn] {len(cpu_acts)} activations (input and "
+        f"{len(cpu_acts) - 1} layers), card (TF32 off) vs CPU: worst "
+        f"relative difference {worst:.3g} (tol 1e-4)")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -605,7 +982,11 @@ def main() -> int:
         print(f"chip_smoke: the port's package is not beside this script "
               f"({e})", file=sys.stderr)
         return 2
-    from deeplearning4j_tpu_torch.zoo import ResNet50, TransformerLM
+    from deeplearning4j_tpu_torch.zoo import (
+        ResNet50,
+        TextGenerationLSTM,
+        TransformerLM,
+    )
 
     try:
         card = card_line()
@@ -632,6 +1013,15 @@ def main() -> int:
             f"{lm.device} in {time.perf_counter() - t0:.2f} s")
         lm_launches = phase_serve_lm(torch, np, lm, card)
         phase_reference_lm(torch, np, lm)
+        del lm
+        lstm, lstm_err = phase_lstm(torch, bw, peak, peak_bf16)
+        t0 = time.perf_counter()
+        rnn = TextGenerationLSTM(**RNN, seed=SEED).init()
+        log(f"[serve-rnn] TextGenerationLSTM {RNN} ({rnn.num_params()} "
+            f"params) on {rnn.device} in {time.perf_counter() - t0:.2f} s")
+        rnn_launches = phase_serve_rnn(torch, np, rnn, card)
+        phase_stream_rnn(torch, np, rnn, card)
+        phase_reference_rnn(torch, np, rnn)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
         if leaked:
@@ -642,15 +1032,19 @@ def main() -> int:
 
     # float32 times per forward of each kernel's own path: bn_act's 53
     # calls of a ResNet-50 forward at batch 32, flash_attention's 6 calls
-    # of a TransformerLM forward at batch 16
-    per_fwd = LM["n_layers"]
+    # of a TransformerLM forward at batch 16, lstm_scan's 2 calls of a
+    # TextGenerationLSTM forward at batch 64
+    def per_forward(row, calls):
+        return {k: (v * calls if k.endswith("ms") and v is not None else v)
+                for k, v in row.items()}
+
     rows = {
         "bn_act": (launches["bn_act"], max_err,
                    dict(times[torch.float32], bound_by="bytes")),
-        "flash_attention": (
-            lm_launches["flash_attention"], flash_err,
-            {k: (v * per_fwd if k.endswith("ms") else v)
-             for k, v in flash.items()}),
+        "flash_attention": (lm_launches["flash_attention"], flash_err,
+                            per_forward(flash, LM["n_layers"])),
+        "lstm_scan": (rnn_launches["lstm_scan"], lstm_err,
+                      per_forward(lstm, 2)),
     }
     kernels = []
     for kname, (route, source, replaces) in KERNELS.items():

@@ -46,6 +46,19 @@ def full_precision():
         _reduced_matmul = prev
 
 
+@contextlib.contextmanager
+def exact_float32_matmul():
+    """float32 matmuls in full float32 on the card (TF32 off), whatever the
+    policy, as the port's kernels compute; restores the switch after. The
+    kernels' plain versions run their products under it."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 # --- mixed-precision activations ------------------------------------------
 _mixed_activations = False
 

@@ -1,12 +1,14 @@
 """MultiLayerNetwork — sequential-network runtime, inference part (counterpart
-of deeplearning4j_tpu/models/multi_layer_network.py; fit, losses, tBPTT,
-rnn_time_step and evaluation come with later slices).
+of deeplearning4j_tpu/models/multi_layer_network.py; fit, losses, tBPTT
+and evaluation come with later slices).
 
 A forward walks the layers eagerly under `torch.inference_mode()`: each
-layer's input preprocessor, its `apply`, then `propagate_mask` for the next
-layer. Params and running state are dicts per layer keyed "layer_{i}", with
-the JAX package's names (nested where a layer nests sublayers, as
-TransformerBlock does), on the device `init` was given.
+layer's input preprocessor, its `apply` (or, with carries, a recurrent
+layer's `scan`), then `propagate_mask` for the next layer. Params and
+running state are dicts per layer keyed "layer_{i}", with the JAX package's
+names (nested where a layer nests sublayers, as TransformerBlock does), on
+the device `init` was given. `rnn_time_step` streams: each recurrent
+layer's (h, c) carry is kept between calls (rnnTimeStep).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from deeplearning4j_tpu_torch import device as device_mod
 from deeplearning4j_tpu_torch.models.computation_graph import _as_tensor
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrent
 
 Params = Dict[str, object]
 
@@ -56,6 +59,7 @@ class MultiLayerNetwork:
         self.state: Optional[Dict[str, Params]] = None
         self.device: Optional[torch.device] = None
         self._input_types = conf.layer_input_types()
+        self._rnn_carries: Optional[list] = None
 
     def init(self, device=None) -> "MultiLayerNetwork":
         """Random params from `conf.defaults.seed` (one CPU torch.Generator
@@ -88,15 +92,22 @@ class MultiLayerNetwork:
         return _as_tensor(x).to(self.device)
 
     def _forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                 acts: Optional[list] = None) -> torch.Tensor:
+                 acts: Optional[list] = None,
+                 carries: Optional[list] = None) -> torch.Tensor:
         """Inference forward through every layer; appends each layer's
-        activation to `acts` when given."""
+        activation to `acts` when given. With `carries` (one entry per
+        layer, see `_init_carries`) a recurrent layer scans from its entry
+        and the entry is replaced by its new carry, in place."""
         for i, layer in enumerate(self.layers):
             if i in self.conf.input_preprocessors:
                 x = self.conf.input_preprocessors[i].transform(x, mask)
             k = _key(i)
-            x, _ = layer.apply(self.params[k], x, state=self.state[k],
-                               train=False, mask=mask)
+            if carries is not None and isinstance(layer, BaseRecurrent):
+                x, carries[i] = layer.scan(self.params[k], x, carries[i],
+                                           mask=mask)
+            else:
+                x, _ = layer.apply(self.params[k], x, state=self.state[k],
+                                   train=False, mask=mask)
             if acts is not None:
                 acts.append(x)
             mask = layer.propagate_mask(mask, self._input_types[i])
@@ -118,6 +129,44 @@ class MultiLayerNetwork:
             acts = [h]
             self._forward(h, acts=acts)
         return acts
+
+    # ---- stateful RNN inference (rnnTimeStep) ----
+    def _init_carries(self, batch: int, for_streaming: bool = False) -> list:
+        """A zero (h, c) carry per recurrent layer, None elsewhere.
+        for_streaming (rnn_time_step) rejects a layer that is not
+        streamable: a bidirectional layer's backward scan needs the
+        sequence end."""
+        if for_streaming:
+            for l in self.layers:
+                if isinstance(l, BaseRecurrent) and not l.streamable:
+                    raise ValueError(
+                        f"{type(l).__name__} is bidirectional: rnnTimeStep "
+                        f"needs a forward-only state carry (backward scan "
+                        f"requires the sequence end)")
+        return [l.init_carry(batch, self.device)
+                if isinstance(l, BaseRecurrent) else None
+                for l in self.layers]
+
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_carries = None
+
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """Feed one or more timesteps, carrying every recurrent layer's
+        state across calls. x: [b, t, f], or [b, f] for a single step (then
+        the result is [b, n_out]). Returns a tensor on the network's
+        device."""
+        with torch.inference_mode():
+            x = self._as_input(x)
+            single = x.dim() == 2
+            if single:
+                x = x[:, None, :]
+            carries = self._rnn_carries
+            if carries is None:
+                carries = self._init_carries(x.shape[0], for_streaming=True)
+            carries = list(carries)  # a failed call keeps the old state
+            h = self._forward(x, carries=carries)
+            self._rnn_carries = carries
+        return h[:, 0] if single and h.dim() == 3 else h
 
     def get_param_table(self) -> Dict[str, np.ndarray]:
         """"layer_i/name" -> numpy array (paramTable()), nested params

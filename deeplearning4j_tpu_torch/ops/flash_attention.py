@@ -22,12 +22,13 @@ kernel's is a pair of Pallas kernels (dq, dkv), owed by the training slice.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import threading
 from typing import Optional
 
 import torch
+
+from deeplearning4j_tpu_torch import dtypes
 
 HEAD_DIMS = (16, 32, 64, 128)
 NEG_INF = -1e30
@@ -48,18 +49,6 @@ def scale_in(dtype: torch.dtype, scale: float) -> float:
     return float(torch.tensor(scale, dtype=dtype))
 
 
-@contextlib.contextmanager
-def _exact_float32_matmul():
-    """float32 matmuls in full float32 on the card (TF32 off), as the kernel
-    computes; restores the switch after."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, causal: bool = True,
                               scale: Optional[float] = None,
@@ -70,7 +59,7 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     d = q.shape[-1]
     s_q = scale_in(q.dtype, default_scale(d) if scale is None else scale)
     qs = q * torch.tensor(s_q, dtype=q.dtype, device=q.device)
-    with _exact_float32_matmul():
+    with dtypes.exact_float32_matmul():
         s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
         if causal:
             tq, tk = s.shape[-2], s.shape[-1]

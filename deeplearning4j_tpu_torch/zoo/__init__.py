@@ -1,2 +1,7 @@
 """Model zoo of the port."""
-from deeplearning4j_tpu_torch.zoo.models import ResNet50, TransformerLM, ZooModel  # noqa: F401
+from deeplearning4j_tpu_torch.zoo.models import (  # noqa: F401
+    ResNet50,
+    TextGenerationLSTM,
+    TransformerLM,
+    ZooModel,
+)

@@ -1,5 +1,5 @@
-"""Model zoo, the part ported so far: ZooModel, ResNet50 and TransformerLM
-(counterpart of deeplearning4j_tpu/zoo/models.py; the other architectures
+"""Model zoo, the part ported so far: ZooModel, ResNet50,
+TextGenerationLSTM and TransformerLM (counterpart of deeplearning4j_tpu/zoo/models.py; the other architectures
 and the checksummed pretrained cache come with later slices).
 
 Each ZooModel builds a fresh config via `conf()` and an initialized network
@@ -22,6 +22,7 @@ from deeplearning4j_tpu_torch.nn.layers import (
     Conv2D,
     EmbeddingSequence,
     GlobalPooling,
+    GravesLSTM,
     Output,
     PositionEmbedding,
     RnnOutput,
@@ -110,6 +111,28 @@ class ResNet50(ZooModel):
         g.set_outputs("out")
         g.set_input_types(it.convolutional(h, w, c))
         return g
+
+
+@dataclass
+class TextGenerationLSTM(ZooModel):
+    """Char-level 2xLSTM generator (zoo/model/TextGenerationLSTM.java:111),
+    the JAX package's zoo TextGenerationLSTM: two GravesLSTM(256) layers
+    and a per-timestep softmax over the vocabulary. Input: [b, t, vocab]
+    one-hot characters. The updater and l2 are carried as config."""
+
+    num_classes: int = 77  # vocab size
+    max_length: int = 40
+
+    def conf(self):
+        return NeuralNetConfiguration(
+            seed=self.seed, updater=updaters.RmsProp(learning_rate=1e-2),
+            l2=1e-4,
+        ).list([
+            GravesLSTM(n_out=256, activation="tanh"),
+            GravesLSTM(n_out=256, activation="tanh"),
+            RnnOutput(n_out=self.num_classes, loss="mcxent",
+                      activation="softmax"),
+        ]).set_input_type(it.recurrent(self.num_classes, self.max_length))
 
 
 @dataclass

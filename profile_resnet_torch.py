@@ -1,23 +1,25 @@
 #!/usr/bin/env python3
 """Where the time of one served batch goes on the card, for the PyTorch/CUDA
-port (deeplearning4j_tpu_torch): zoo ResNet-50, or the zoo TransformerLM
-with `--model transformer`.
+port (deeplearning4j_tpu_torch): zoo ResNet-50, the zoo TransformerLM with
+`--model transformer`, or the zoo TextGenerationLSTM with `--model lstm`.
 
-    python3 profile_resnet_torch.py [--model resnet50|transformer]
+    python3 profile_resnet_torch.py [--model resnet50|transformer|lstm]
                                     [--batch N] [--iters 20] [--mixed]
                                     [--out profile_out]
 
 Builds the port's model on the card with random weights from a seed
 (ResNet-50: 1000 classes, 224x224x3, batch 32 by default; TransformerLM:
 vocab 8192, 512 tokens, d_model 512, 8 heads, 6 blocks, batch 16 by
-default), warms it up, then traces `--iters` forwards of the serving path's
-dispatch (host array in, `net.output`, result back to the host) with
-torch.profiler. Prints, beside the card's name and power limit: host wall
-time per batch, the device's busy and idle share of that window, and device
-time per batch by category (the port's kernels, cuDNN convolutions and
-cuBLAS matmuls, other elementwise kernels, pooling/reductions/softmax,
-copies). The full per-kernel table goes to
-<out>/profile_<resnet|transformer>_torch_<mode>.txt.
+default; TextGenerationLSTM: 77 characters, 64 steps, two GravesLSTM(256),
+one-hot float32 input, batch 64 by default), warms it up, then traces
+`--iters` forwards of the serving path's dispatch (host array in,
+`net.output`, result back to the host) with torch.profiler. Prints, beside
+the card's name and power limit: host wall time per batch, the device's
+busy and idle share of that window, and device time per batch by category
+(the port's kernels, cuDNN convolutions and cuBLAS matmuls, other
+elementwise kernels, pooling/reductions/softmax, copies). The full
+per-kernel table goes to <out>/profile_<resnet|transformer|lstm>_torch_
+<mode>.txt.
 """
 from __future__ import annotations
 
@@ -29,10 +31,12 @@ import time
 
 LM = dict(num_classes=8192, max_length=512, d_model=512, n_heads=8,
           n_layers=6)
+RNN = dict(num_classes=77, max_length=64)
 
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("bn_act", ("bn_act",)),
     ("flash_attention", ("flash_fwd",)),
+    ("lstm_scan", ("lstm_scan",)),
     ("conv/matmul", ("conv", "cudnn", "sm90_xmma", "implicit", "winograd",
                      "gemm", "cutlass", "xmma", "fprop", "nhwc", "nvjet")),
     ("copy", ("memcpy", "memset", "copy")),
@@ -52,11 +56,11 @@ def category(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("resnet50", "transformer"),
+    ap.add_argument("--model", choices=("resnet50", "transformer", "lstm"),
                     default="resnet50")
     ap.add_argument("--batch", type=int, default=None,
                     help="rows per served batch (32 ResNet-50, 16 "
-                         "TransformerLM)")
+                         "TransformerLM, 64 TextGenerationLSTM)")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--mixed", action="store_true",
                     help="bf16 activations (dtypes.set_mixed_precision)")
@@ -73,7 +77,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deeplearning4j_tpu_torch import dtypes
-    from deeplearning4j_tpu_torch.zoo import ResNet50, TransformerLM
+    from deeplearning4j_tpu_torch.zoo import (
+        ResNet50,
+        TextGenerationLSTM,
+        TransformerLM,
+    )
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -87,12 +95,18 @@ def main() -> int:
                        seed=7).init()
         x = rng.standard_normal((batch, 224, 224, 3)).astype(np.float32)
         per_row, unit, ops = 1, "img/s", "TF32 convs"
-    else:
+    elif args.model == "transformer":
         batch = args.batch or 16
         net = TransformerLM(**LM, seed=7).init()
         x = rng.integers(0, LM["num_classes"],
                          (batch, LM["max_length"])).astype(np.int32)
         per_row, unit, ops = LM["max_length"], "tokens/s", "TF32 matmuls"
+    else:
+        batch = args.batch or 64
+        net = TextGenerationLSTM(**RNN, seed=7).init()
+        ids = rng.integers(0, RNN["num_classes"], (batch, RNN["max_length"]))
+        x = np.eye(RNN["num_classes"], dtype=np.float32)[ids]
+        per_row, unit, ops = RNN["max_length"], "chars/s", "TF32 matmuls"
 
     def serve_once():
         return net.output(x).float().cpu().numpy()
@@ -140,7 +154,7 @@ def main() -> int:
         print(f"[profile]   {cat:14s} {ms:8.3f} ms/batch  "
               f"{us / device_us * 100:5.1f}% of device time")
     os.makedirs(args.out, exist_ok=True)
-    name = "resnet" if args.model == "resnet50" else "transformer"
+    name = "resnet" if args.model == "resnet50" else args.model
     with open(os.path.join(args.out,
                            f"profile_{name}_torch_{mode}.txt"), "w") as f:
         f.write(f"{tag}\n")
