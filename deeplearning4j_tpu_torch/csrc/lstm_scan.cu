@@ -32,17 +32,22 @@
 // float32, more than one SM's shared memory, and every step needs all of h
 // against all of R. So a cluster of kCluster = 8 blocks shares one batch
 // tile of kRows = 8 rows: block q owns hidden units [q*J, (q+1)*J), J =
-// ceil(n/8), and the 4J columns of R that feed their gates. Its slice of R
-// stays resident in shared memory for all t steps (transposed, as float32)
-// when it fits (n up to about 330), else it is read from L2 every step.
-// Each step: (1) every block forms z for its 4J columns and 8 rows from
-// the full h_{t-1} in its own shared memory; (2) one thread per (row, unit)
-// applies the cell, keeps c and h in registers, writes hs, and stores h_t
-// into the next h buffer of all 8 blocks of the cluster (distributed shared
-// memory); (3) one cluster barrier. The h buffers are double-buffered, so
-// that barrier is the only one across blocks per step. Batch tiles run as
-// independent clusters along grid y. n is capped at kMaxN = 1024 (each
-// thread keeps at most 4 (row, unit) carries in registers).
+// ceil(n/8), and the C = 4J columns of R that feed their gates. Its slice
+// of R stays resident in shared memory for all t steps (as float32, [k][C])
+// when it fits (n up to about 290), else it is read from L2 every step.
+// Each step: (1) every block forms z for its C columns and 8 rows from the
+// full h_{t-1} in its own shared memory, split over k: KS groups of threads
+// each take a range of k, and each thread keeps an 8-row x 4-column tile of
+// sums in registers, so one broadcast float4 of h and one float4 of R feed
+// 16 FMAs and shared-memory loads do not bound the product; the KS partial
+// sums go to shared memory; (2) one thread per (row, unit) adds the partials
+// and zx, applies the cell, keeps c and h in registers, writes hs, and
+// stores h_t into the next h buffer of all 8 blocks of the cluster
+// (distributed shared memory); (3) one cluster barrier. The h buffers are
+// double-buffered, so that barrier is the only one across blocks per step.
+// Batch tiles run as independent clusters along grid y. n is capped at
+// kMaxN = 1024 (each thread keeps at most 4 (row, unit) carries in
+// registers).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,14 +79,16 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+constexpr int kCols = 4;       // columns per thread in the product tile
+
 struct Dims {
   int b, t, n;
   int J;      // hidden units per block
   int C;      // 4 * J columns per block
-  int NP;     // h row stride in shared memory (n rounded up to 4)
-  int LDR;    // resident R row stride (NP + 4: conflict-free float4 rows)
-  int G;      // row groups in the product phase
-  int rpt;    // rows per thread in the product phase (kRows / G)
+  int NP;     // n rounded up to 4: h row stride, resident R rows
+  int TPG;    // threads per k-group: ceil(C / kCols)
+  int KS;     // k-groups (kThreads / TPG)
+  int KC;     // k per group, a multiple of 4
 };
 
 template <typename T, bool RESIDENT>
@@ -102,10 +109,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   extern __shared__ __align__(16) float smem[];
   float* hbuf0 = smem;                     // [kRows, NP] h_{t-1}
   float* hbuf1 = hbuf0 + kRows * NP;       // [kRows, NP] h_t
-  float* zs = hbuf1 + kRows * NP;          // [kRows, C] h @ R
-  float* Rs = zs + kRows * C;              // [C, LDR] resident R slice
+  float* part = hbuf1 + kRows * NP;        // [KS, kRows, C] partial sums
+  float* Rs = part + d.KS * kRows * C;     // [NP, C] resident R slice
 
-  // ---- set-up: zeroed h buffers, h0, the resident R slice
+  // ---- set-up: zeroed h buffers (the pad columns stay 0), h0, R slice
   for (int e = tid; e < 2 * kRows * NP; e += kThreads) smem[e] = 0.0f;
   __syncthreads();
   for (int e = tid; e < kRows * n; e += kThreads) {
@@ -115,11 +122,39 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
           to_float(h0[static_cast<int64_t>(b0 + r) * n + k]);
   }
   if (RESIDENT) {
-    for (int e = tid; e < n * C; e += kThreads) {
-      const int k = e / C, c = e % C;
-      const int g = c / J, u = u0 + c % J;
-      Rs[c * d.LDR + k] = u < n ? to_float(R[k * n4 + g * n + u]) : 0.0f;
+    // kCopy loads in flight per thread: one at a time, the copy of a 128 KB
+    // slice waits on memory latency for tens of microseconds
+    constexpr int kCopy = 16;
+    for (int e0 = tid; e0 < NP * C; e0 += kCopy * kThreads) {
+      float v[kCopy];
+#pragma unroll
+      for (int i = 0; i < kCopy; ++i) {
+        const int e = e0 + i * kThreads;
+        const int k = e / C, c = e % C;
+        const int g = c / J, u = u0 + c % J;
+        v[i] = e < NP * C && k < n && u < n
+                   ? to_float(R[k * n4 + g * n + u])
+                   : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < kCopy; ++i)
+        if (e0 + i * kThreads < NP * C) Rs[e0 + i * kThreads] = v[i];
     }
+  }
+
+  // ---- this thread's product tile: k-group kg, columns col0 .. col0 + 3
+  const int kg = tid / d.TPG;
+  const int col0 = (tid % d.TPG) * kCols;
+  const bool tile_ok = kg < d.KS;
+  const int k_lo = kg * d.KC;
+  const int k_hi = min(NP, k_lo + d.KC);
+  int64_t rofs[kCols];  // column offsets into a row of R (global path)
+  bool rok[kCols];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) {
+    const int c = col0 + i;
+    rok[i] = u0 + c % J < n;
+    rofs[i] = rok[i] ? (c / J) * n + u0 + c % J : 0;
   }
 
   // ---- this thread's (row, unit) pairs: carries and peepholes in registers
@@ -171,47 +206,48 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
       }
     }
 
-    // (1) zs[r][c] = sum_k h[r][k] * R[k][col(c)] for this block's columns
-    for (int item = tid; item < C * d.G; item += kThreads) {
-      const int c = item % C, r0 = (item / C) * d.rpt;
-      const int g = c / J, u = u0 + c % J;
-      if (u >= n) continue;
-      float acc[kRows];
+    // (1) part[kg][r][c] = sum over this group's k of h[r][k] * R[k][c]
+    if (tile_ok) {
+      float acc[kRows][kCols];
 #pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) acc[rr] = 0.0f;
-      const T* rcol = R + g * n + u;
-      for (int k = 0; k < n_even; k += 4) {
-        float4 rv;
-        if (RESIDENT) {
-          rv = *reinterpret_cast<const float4*>(&Rs[c * d.LDR + k]);
-        } else {
-          rv.x = to_float(rcol[(k + 0) * n4]);
-          rv.y = to_float(rcol[(k + 1) * n4]);
-          rv.z = to_float(rcol[(k + 2) * n4]);
-          rv.w = to_float(rcol[(k + 3) * n4]);
-        }
+      for (int r = 0; r < kRows; ++r)
 #pragma unroll
-        for (int rr = 0; rr < kRows; ++rr) {
-          if (rr < d.rpt) {
-            const float4 hv =
-                *reinterpret_cast<const float4*>(&hcur[(r0 + rr) * NP + k]);
-            acc[rr] = fmaf(hv.x, rv.x, acc[rr]);
-            acc[rr] = fmaf(hv.y, rv.y, acc[rr]);
-            acc[rr] = fmaf(hv.z, rv.z, acc[rr]);
-            acc[rr] = fmaf(hv.w, rv.w, acc[rr]);
+        for (int i = 0; i < kCols; ++i) acc[r][i] = 0.0f;
+      for (int k = k_lo; k < k_hi; k += 4) {
+        float4 h4[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          h4[r] = *reinterpret_cast<const float4*>(&hcur[r * NP + k]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float4 rv;
+          if (RESIDENT) {
+            rv = *reinterpret_cast<const float4*>(&Rs[(k + kk) * C + col0]);
+          } else {
+            const bool in = k + kk < n;
+            const T* row = R + (k + kk) * n4;
+            rv.x = in && rok[0] ? to_float(row[rofs[0]]) : 0.0f;
+            rv.y = in && rok[1] ? to_float(row[rofs[1]]) : 0.0f;
+            rv.z = in && rok[2] ? to_float(row[rofs[2]]) : 0.0f;
+            rv.w = in && rok[3] ? to_float(row[rofs[3]]) : 0.0f;
+          }
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            const float hv = kk == 0   ? h4[r].x
+                             : kk == 1 ? h4[r].y
+                             : kk == 2 ? h4[r].z
+                                       : h4[r].w;
+            acc[r][0] = fmaf(hv, rv.x, acc[r][0]);
+            acc[r][1] = fmaf(hv, rv.y, acc[r][1]);
+            acc[r][2] = fmaf(hv, rv.z, acc[r][2]);
+            acc[r][3] = fmaf(hv, rv.w, acc[r][3]);
           }
         }
       }
-      for (int k = n_even; k < n; ++k) {
-        const float rk =
-            RESIDENT ? Rs[c * d.LDR + k] : to_float(rcol[k * n4]);
 #pragma unroll
-        for (int rr = 0; rr < kRows; ++rr)
-          if (rr < d.rpt) acc[rr] = fmaf(hcur[(r0 + rr) * NP + k], rk, acc[rr]);
-      }
-#pragma unroll
-      for (int rr = 0; rr < kRows; ++rr)
-        if (rr < d.rpt) zs[(r0 + rr) * C + c] = acc[rr];
+      for (int r = 0; r < kRows; ++r)
+        *reinterpret_cast<float4*>(&part[(kg * kRows + r) * C + col0]) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
     }
     __syncthreads();
 
@@ -221,13 +257,18 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
       if (!pok[i]) continue;
       const int pidx = tid + i * kThreads;
       const int r = pidx / J, j = pidx % J;
-      const float* z = zs + r * C + j;
+      float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int g2 = 0; g2 < d.KS; ++g2) {
+        const float* pz = part + (g2 * kRows + r) * C + j;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) z[g] += pz[g * J];
+      }
       const float c_prev = creg[i];
       const float ig = sigmoid(zxv[i][0] + z[0] + pi[i] * c_prev);
-      const float fg = sigmoid(zxv[i][1] + z[J] + pf[i] * c_prev);
-      const float gg = tanhf(zxv[i][2] + z[2 * J]);
+      const float fg = sigmoid(zxv[i][1] + z[1] + pf[i] * c_prev);
+      const float gg = tanhf(zxv[i][2] + z[2]);
       float c_new = fg * c_prev + ig * gg;
-      const float og = sigmoid(zxv[i][3] + z[3 * J] + po[i] * c_new);
+      const float og = sigmoid(zxv[i][3] + z[3] + po[i] * c_new);
       float h_new = og * tanhf(c_new);
       float h_out = h_new;
       if (!live[i]) {
@@ -243,7 +284,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
       for (int peer = 0; peer < kCluster; ++peer)
         cluster.map_shared_rank(hnext, peer)[r * NP + punit[i]] = h_new;
     }
-    // (3) h_t is in every block's next buffer; zs and hcur are free again
+    // (3) h_t is in every block's next buffer; part and hcur are free again
     cluster.sync();
     float* tmp = hcur;
     hcur = hnext;
@@ -267,19 +308,16 @@ Dims make_dims(int64_t b, int64_t t, int64_t n) {
   d.J = (d.n + kCluster - 1) / kCluster;
   d.C = 4 * d.J;
   d.NP = (d.n + 3) & ~3;
-  d.LDR = d.NP + 4;
-  // row groups: a power of two dividing kRows, enough to keep kThreads busy
-  int g = 1;
-  while (2 * g <= kRows && 2 * g * d.C <= kThreads) g *= 2;
-  d.G = g;
-  d.rpt = kRows / g;
+  d.TPG = (d.C + kCols - 1) / kCols;
+  d.KS = kThreads / d.TPG;
+  d.KC = (((d.NP + d.KS - 1) / d.KS) + 3) & ~3;
   return d;
 }
 
 size_t smem_bytes(const Dims& d, bool resident) {
   size_t floats = 2 * static_cast<size_t>(kRows) * d.NP +
-                  static_cast<size_t>(kRows) * d.C;
-  if (resident) floats += static_cast<size_t>(d.C) * d.LDR;
+                  static_cast<size_t>(d.KS) * kRows * d.C;
+  if (resident) floats += static_cast<size_t>(d.NP) * d.C;
   return floats * sizeof(float);
 }
 
@@ -324,9 +362,6 @@ cudaError_t launch_typed(const void* zx, const void* R, const void* p,
 }  // namespace
 
 extern "C" {
-
-// The largest hidden width the kernel takes.
-int lstm_scan_max_n() { return kMaxN; }
 
 // Whether the launch for (n, dtype) keeps its slice of R in shared memory
 // (1) or reads it from L2 every step (0); negative on a CUDA error.

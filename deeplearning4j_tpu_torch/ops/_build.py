@@ -8,7 +8,7 @@ unchanged one is loaded as it is. Nothing here runs at import: the CPU
 tests import every module on a machine with no `nvcc`.
 
     lib = _build.load("bn_act")               # build if needed, then dlopen
-    logs = _build.build_all(["bn_act", "flash_attention"])
+    logs = _build.build_all(["bn_act", "flash_attention", "lstm_scan"])
                                               # one nvcc per source, in parallel
 """
 from __future__ import annotations
