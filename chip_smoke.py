@@ -64,9 +64,36 @@ Phases, in order; any failure exits non-zero without the final line:
  10. refer-rnn    the same seeded TextGenerationLSTM on the CPU (plain scan,
               exact float32) against the card with TF32 off, layer by
               layer on 2 x 64 one-hot rows.
+ 11. kernel-flash-bwd  the flash-attention backward kernels (dq, dk/dv)
+              against their plain formulas on the card at the training
+              shape (16, 8, 512, 64) causal and at edge cases (ragged t,
+              t = 1, non-causal, head dims 16, 32, 128), float32 and
+              bfloat16: max error against the stated tolerance, kernel /
+              plain / library (the backward of scaled_dot_product_attention
+              through autograd) times and the bound.
+ 12. kernel-xent  the fused linear + softmax cross-entropy kernels (forward,
+              backward) against their plain versions at the training shape
+              (8192 rows, d 512, vocab 8192) with one-hot labels (the
+              backward's index path), soft labels and one smoothed row (the
+              dense path), at a ragged shape, float32 and bfloat16; library
+              F.cross_entropy(x @ W + b, idx) forward and backward.
+ 13. train-lm     zoo TransformerLM at full width (vocab 8192, 512 tokens,
+              d_model 512, 8 heads, 6 blocks), Adam(3e-4), trained by
+              MultiLayerNetwork.fit for 20 steps on one repeated batch of
+              16 x 512 token ids with one-hot float32 labels (268 MB, copied
+              from host memory every step), TF32 policy: loss finite every
+              step and lower at the end, step time split into the labels'
+              copy and the rest, trained tokens/s; per step 6 flash
+              forward, 6 dq, 6 dk/dv, 1 xent forward and 1 xent backward
+              launches. Then 5 steps under set_mixed_precision(True), same
+              checks.
+ 14. refer-train  the same seeded TransformerLM at full width and 2 blocks,
+              3 Adam steps on 2 x 128 tokens, on the CPU (plain versions,
+              exact float32) and on the card (TF32 off): per-step scores,
+              params and Adam slots agree within the stated tolerances.
 
-Every kernel's launch count is set to 0 just before each serve phase and
-the generation run, and read just after. The last lines are the kernels
+Every kernel's launch count is set to 0 just before each serve phase, the
+generation run and each training run, and read just after. The last lines are the kernels
 JSON, the card's name and power limit, and {"ok": true, "device": {...}}.
 Exits non-zero when no CUDA device is available, and when the port's
 package is not beside this script.
@@ -109,7 +136,12 @@ CARD_RATES = {
     "H200": (4.8e12, 67e12, 989e12),
 }
 
-# Kernels of the served paths: name -> (route, source, TPU kernel it
+# the repo's transformer training batch (bench.py bench_transformer: 16 x
+# 512 token ids, one-hot float32 next-token labels), 20 Adam steps
+TRAIN_STEPS = 20
+MIXED_STEPS = 5
+
+# Kernels of the ported paths: name -> (route, source, TPU kernel it
 # replaces)
 KERNELS = {
     "bn_act": ("cuda", "deeplearning4j_tpu_torch/csrc/bn_act.cu",
@@ -119,7 +151,19 @@ KERNELS = {
         "deeplearning4j_tpu/ops/pallas_kernels.py:163"),
     "lstm_scan": ("cuda", "deeplearning4j_tpu_torch/csrc/lstm_scan.cu",
                   "deeplearning4j_tpu/ops/pallas_kernels.py:444"),
+    "flash_attention_bwd_dq": (
+        "cuda", "deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
+        "deeplearning4j_tpu/ops/pallas_kernels.py:294"),
+    "flash_attention_bwd_dkv": (
+        "cuda", "deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
+        "deeplearning4j_tpu/ops/pallas_kernels.py:304"),
+    "linear_xent_fwd": ("cuda", "deeplearning4j_tpu_torch/csrc/linear_xent.cu",
+                        "deeplearning4j_tpu/ops/xent_kernel.py:174"),
+    "linear_xent_bwd": ("cuda", "deeplearning4j_tpu_torch/csrc/linear_xent.cu",
+                        "deeplearning4j_tpu/ops/xent_kernel.py:277"),
 }
+SOURCES = sorted({os.path.basename(src)[:-len(".cu")]
+                  for _, src, _ in KERNELS.values()})
 
 
 def log(msg: str = "") -> None:
@@ -163,12 +207,17 @@ def device_ms(torch, fn, nbuf: int, iters: int = ITERS) -> float:
 
 def wrappers():
     """Each kernel's wrapper, which counts its launches."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import xent_kernel as xk
     from deeplearning4j_tpu_torch.ops.bn_act import bn_act
-    from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention
     from deeplearning4j_tpu_torch.ops.lstm import lstm_scan
 
-    return {"bn_act": bn_act, "flash_attention": flash_attention,
-            "lstm_scan": lstm_scan}
+    return {"bn_act": bn_act, "flash_attention": fa.flash_attention,
+            "lstm_scan": lstm_scan,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "linear_xent_fwd": xk.linear_xent_fwd,
+            "linear_xent_bwd": xk.linear_xent_bwd}
 
 
 def reset_counts():
@@ -185,9 +234,9 @@ def phase_build():
     from deeplearning4j_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all(list(KERNELS))
+    logs = _build.build_all(SOURCES)
     dt = time.perf_counter() - t0
-    log(f"[build] {', '.join(KERNELS)} built in {dt:.2f} s with "
+    log(f"[build] {', '.join(SOURCES)} built in {dt:.2f} s with "
         f"{_build.nvcc_path()}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -488,7 +537,7 @@ def phase_reference(torch, np, net):
         rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
         worst = max(worst, rel)
         # float32 sums in another order on each device, over ~50 layers
-        if a.shape != b.shape or rel > 1e-4:
+        if a.shape != b.shape or not rel <= 1e-4:
             raise AssertionError(f"vertex {name}: card and CPU differ, "
                                  f"relative {rel:.3g}")
     tf32 = net.output(x).cpu().numpy()
@@ -562,7 +611,7 @@ def phase_serve_lm(torch, np, net, card):
         rel = float(np.abs(out - ref).max() / np.abs(ref).max())
         # TF32 matmuls: cuBLAS may pick another algorithm for the padded
         # bucket than for n rows alone
-        if rel > 1e-3:
+        if not rel <= 1e-3:
             raise AssertionError(f"request of {n} rows: server and "
                                  f"net.output differ by {rel:.3g} relative")
         log(f"[serve-lm] request rows={n:2d} latency={lat * 1e3:.2f} ms  "
@@ -615,7 +664,7 @@ def phase_reference_lm(torch, np, net):
         rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
         worst = max(worst, rel)
         # float32 sums in another order on each device, over 8 layers
-        if a.shape != b.shape or rel > 1e-4:
+        if a.shape != b.shape or not rel <= 1e-4:
             raise AssertionError(f"layer {i - 1}: card and CPU differ, "
                                  f"relative {rel:.3g}")
     log(f"[refer-lm] {len(cpu_acts)} activations (input and "
@@ -694,7 +743,7 @@ def phase_lstm(torch, bw, peak, peak_bf16):
                 errs.append(float((a.float() - r.float()).abs().max()))
                 mag = max(mag, float(r.float().abs().max()))
             err = max(errs)
-            if err > LSTM_TOL[dname] * mag:
+            if not err <= LSTM_TOL[dname] * mag:
                 raise AssertionError(
                     f"lstm_scan disagrees with its plain version at b={b} "
                     f"t={t} n={n} peephole={peephole} masked={masked} "
@@ -834,7 +883,7 @@ def phase_serve_rnn(torch, np, net, card):
         rel = float(np.abs(out - ref).max() / np.abs(ref).max())
         # TF32 input projections: cuBLAS may pick another algorithm for
         # the padded bucket than for n rows alone
-        if rel > 1e-3:
+        if not rel <= 1e-3:
             raise AssertionError(f"request of {n} rows: server and "
                                  f"net.output differ by {rel:.3g} relative")
         log(f"[serve-rnn] request rows={n:2d} latency={lat * 1e3:.2f} ms  "
@@ -956,12 +1005,450 @@ def phase_reference_rnn(torch, np, net):
         rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
         worst = max(worst, rel)
         # float32 sums in another order on each device, over 64 steps
-        if a.shape != b.shape or rel > 1e-4:
+        if a.shape != b.shape or not rel <= 1e-4:
             raise AssertionError(f"layer {i - 1}: card and CPU differ, "
                                  f"relative {rel:.3g}")
     log(f"[refer-rnn] {len(cpu_acts)} activations (input and "
         f"{len(cpu_acts) - 1} layers), card (TF32 off) vs CPU: worst "
         f"relative difference {worst:.3g} (tol 1e-4)")
+
+
+# ---------------------------------------------------------------- phase 11
+# (b, h, t, d, causal): the training shape first, then the edge cases
+FLASH_BWD_CASES = [
+    (16, 8, 512, 64, True),     # TransformerLM training, 6 of each per step
+    (16, 8, 512, 64, False),    # non-causal
+    (4, 8, 200, 64, True),      # ragged t
+    (4, 8, 1, 64, True),        # t = 1
+    (4, 8, 300, 16, True),
+    (4, 8, 512, 32, True),
+    (4, 8, 512, 128, True),
+    (2, 4, 129, 128, False),
+]
+# x max(1, max|plain|): float32 sums in another order (dS = P * (dP -
+# delta) cancels; at t = 1 dq is 0 up to rounding), bfloat16 one rounding of
+# the float32 result apart
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def phase_flash_bwd(torch, bw, peak, peak_bf16):
+    """dq and dk/dv kernels against their plain formulas at
+    FLASH_BWD_CASES, float32 and bfloat16. Returns the training case's
+    float32 rows (per launch) and the largest absolute error of any case."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa_library
+
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    served, max_err, checked = {}, 0.0, 0
+    for b, h, t, d, causal in FLASH_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            item = torch.empty((), dtype=dtype).element_size()
+            set_bytes = 4 * b * h * t * d * item
+            nbuf = max(1, min(16, math.ceil(2 * L2_BYTES / set_bytes)))
+            sets = []
+            for _ in range(nbuf):
+                q, k, v, do = (torch.randn((b, h, t, d), generator=gen,
+                                           device=dev).to(dtype)
+                               for _ in range(4))
+                o, lse = fa.flash_attention(q, k, v, causal, return_lse=True)
+                delta = (do.float() * o.float()).sum(-1)
+                sets.append((q, k, v, do, o, lse, delta))
+            q, k, v, do, o, lse, delta = sets[0]
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                causal)
+            ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                   causal)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+                err = float((got.float() - want.float()).abs().max())
+                mag = max(1.0, float(want.float().abs().max()))
+                if got.dtype != dtype or got.shape != want.shape or \
+                        not err <= FLASH_BWD_TOL[dname] * mag:
+                    raise AssertionError(
+                        f"flash backward {name} disagrees with its plain "
+                        f"version at b={b} h={h} t={t} d={d} causal={causal}"
+                        f" {dname}: max err {err:.3g} (x max(1, |plain|) "
+                        f"{mag:.3g})")
+                errs[name] = err
+                max_err = max(max_err, err)
+            checked += 1
+            scale = d ** -0.5
+            k_dq = device_ms(torch, lambda i: fa.flash_attention_bwd_dq(
+                *sets[i][:4], sets[i][5], sets[i][6], causal), nbuf)
+            k_dkv = device_ms(torch, lambda i: fa.flash_attention_bwd_dkv(
+                *sets[i][:4], sets[i][5], sets[i][6], causal), nbuf)
+            p_dq = device_ms(torch, lambda i: fa._bwd_plain(
+                *sets[i][:4], sets[i][5], sets[i][6], causal, scale, "dq"),
+                nbuf, iters=10)
+            p_dkv = device_ms(torch, lambda i: fa._bwd_plain(
+                *sets[i][:4], sets[i][5], sets[i][6], causal, scale, "dkv"),
+                nbuf, iters=10)
+            # the library's whole backward (dq, dk and dv in one call)
+            lib = []
+            for qq, kk, vv, dd, *_ in sets:
+                leaves = [a.detach().requires_grad_() for a in (qq, kk, vv)]
+                with torch.enable_grad():
+                    lib.append((sdpa_library(*leaves, is_causal=causal),
+                                leaves, dd))
+            l_ms = device_ms(torch, lambda i: torch.autograd.grad(
+                lib[i][0], lib[i][1], lib[i][2], retain_graph=True), nbuf)
+            del lib
+            pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+            rate = peak if dtype == torch.float32 else peak_bf16
+            in_bytes = 4 * b * h * t * d * item + 2 * 4 * b * h * t
+            rows = {}
+            for name, ms, pl_ms, ops, out_n in (("dq", k_dq, p_dq, 6, 1),
+                                                ("dkv", k_dkv, p_dkv, 8, 2)):
+                moved = in_bytes + out_n * b * h * t * d * item
+                work = ops * d * pairs
+                b_ms = max(moved / bw, work / rate) * 1e3
+                by = "bytes" if moved / bw >= work / rate else "operations"
+                # one library call gives dq, dk and dv: its time is shared
+                # by the pair, not comparable with either kernel alone
+                rows[name] = {"ms": ms, "plain_ms": pl_ms, "library_ms": l_ms,
+                              "library_covers": "dq, dk and dv: shared by "
+                              "flash_attention_bwd_dq and _dkv",
+                              "bound_ms": b_ms, "bound_by": by}
+                log(f"[kernel-flash-bwd] {name:3s} {dname:8s} b={b:2d} h={h} "
+                    f"t={t:3d} d={d:3d} {'causal' if causal else 'full  '}  "
+                    f"max_err={max(errs[n] for n in (['dq'] if name == 'dq' else ['dk', 'dv'])):.3g} "
+                    f"(tol {FLASH_BWD_TOL[dname]:g} x max(1,|plain|))  "
+                    f"kernel={ms:.4f} ms  plain={pl_ms:.4f} ms  "
+                    f"bound={b_ms:.4f} ms ({by})")
+            log(f"[kernel-flash-bwd] dq + dkv {dname:8s} kernels together "
+                f"{k_dq + k_dkv:.4f} ms  library[sdpa backward, dq+dk+dv]="
+                f"{l_ms:.4f} ms")
+            if (b, h, t, d, causal) == FLASH_BWD_CASES[0] and \
+                    dtype == torch.float32:
+                served = rows
+            del sets
+    log(f"[kernel-flash-bwd] verdict: dq and dk/dv agree with their plain "
+        f"versions in {checked}/{checked} (shape, dtype) cases, max abs "
+        f"error {max_err:.3g} (tol float32 1e-4, bfloat16 1e-2, x max(1, "
+        f"max|plain|))")
+    return served, max_err
+
+
+# ---------------------------------------------------------------- phase 12
+# (n, d, v, labels, dtype): the training shape first
+XENT_CASES = [
+    (8192, 512, 8192, "onehot", "float32"),   # TransformerLM training
+    (8192, 512, 8192, "soft", "float32"),
+    (8192, 512, 8192, "mixed", "float32"),    # one smoothed row: dense path
+    (8192, 512, 8192, "onehot", "bfloat16"),  # the mixed-precision policy
+    (8192, 512, 8192, "soft", "bfloat16"),
+    (1000, 200, 3001, "onehot", "float32"),   # ragged n, d and v
+    (1000, 200, 3001, "mixed", "bfloat16"),
+]
+# each output x max|plain| of that output (1 where the plain output is all
+# zero): forward outputs (float32 for both dtypes: the products are exact in
+# float32) 1e-4, sums over d and the vocabulary in another order; backward
+# dx and dz 1e-4 (float32) or 1e-2 (bfloat16, one rounding apart), db 1e-4.
+# The cotangent is of order 1, so that dx and dz are as large as the
+# label term makes them.
+XENT_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def xent_disagrees(a, r, tol):
+    """(max abs error, limit) when `a` is not `r` within tol x max|r|."""
+    err = float((a.float() - r.float()).abs().max())
+    mag = float(r.float().abs().max()) or 1.0
+    bad = a.shape != r.shape or a.dtype != r.dtype or not err <= tol * mag
+    return (err, tol * mag) if bad else None
+
+
+def xent_inputs(torch, gen, n, d, v, labels, dtype):
+    dev = torch.device("cuda")
+    x = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(d, v, generator=gen, device=dev) * d ** -0.5).to(dtype)
+    b = torch.randn(v, generator=gen, device=dev) * 0.1
+    ids = torch.randint(0, v, (n,), generator=gen, device=dev)
+    t = torch.nn.functional.one_hot(ids, v).float()
+    if labels == "soft":
+        t = torch.rand(n, v, generator=gen, device=dev) / v
+    elif labels == "mixed":
+        t[3] = 0.9 * t[3] + 0.1 / v
+    g = torch.rand(n, generator=gen, device=dev) + 0.5
+    return x, w, b, t, ids, g
+
+
+def phase_xent(torch, bw, peak, peak_bf16):
+    """Forward and backward kernels against their plain versions at
+    XENT_CASES. Returns the training case's rows and the largest absolute
+    error of any case."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import xent_kernel as xk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    served, max_err = {}, 0.0
+    for n, d, v, labels, dname in XENT_CASES:
+        dtype = getattr(torch, dname)
+        item = torch.empty((), dtype=dtype).element_size()
+        x, w, b, t, ids, g = xent_inputs(torch, gen, n, d, v, labels, dtype)
+        got = xk.linear_xent_fwd(x, w, b, t)
+        ref = xk.linear_xent_fwd_reference(x, w, b, t)
+        flag = got[4].amin().reshape(())
+        dx, dz, db = xk.linear_xent_bwd(x, w, b, t, got[3], flag, got[1],
+                                        got[2], g)
+        rdx, rdz, rdb = xk.linear_xent_bwd_reference(x, w, b, t, got[1],
+                                                     got[2], g)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, r, tol in (
+                ("per_row", got[0], ref[0], 1e-4), ("lse", got[1], ref[1],
+                                                    1e-4),
+                ("T", got[2], ref[2], 1e-4), ("dx", dx, rdx, XENT_TOL[dname]),
+                ("dz", dz, rdz, XENT_TOL[dname]), ("db", db, rdb, 1e-4)):
+            bad = xent_disagrees(a, r, tol)
+            if bad:
+                raise AssertionError(
+                    f"linear_xent {name} disagrees with its plain version at"
+                    f" n={n} d={d} v={v} {labels} {dname}: max err "
+                    f"{bad[0]:.3g} (limit {bad[1]:.3g})")
+            errs[name] = float((a.float() - r.float()).abs().max())
+            max_err = max(max_err, errs[name])
+        # the comparison must see a broken backward: a zeroed dx, a zeroed
+        # dz and a dz without its label term each fail it
+        no_label = (dz.float() + g[:, None] * t).to(dz.dtype)
+        for name, a, r in (("dx = 0", torch.zeros_like(dx), rdx),
+                           ("dz = 0", torch.zeros_like(dz), rdz),
+                           ("dz without the label term", no_label, rdz)):
+            if not xent_disagrees(a, r, XENT_TOL[dname]):
+                raise AssertionError(f"kernel-xent cannot tell {name} from "
+                                     f"the plain backward ({labels} {dname})")
+        del no_label
+        one = labels == "onehot"
+        if not (torch.equal(got[3], ref[3]) and torch.equal(got[4], ref[4])
+                and float(flag) == (1.0 if one else 0.0)):
+            raise AssertionError(f"linear_xent idx / one-hot flag differ "
+                                 f"from the plain version ({labels})")
+        k_f = device_ms(torch, lambda i: xk.linear_xent_fwd(x, w, b, t), 1,
+                        iters=10)
+        k_b = device_ms(torch, lambda i: xk.linear_xent_bwd(
+            x, w, b, t, got[3], flag, got[1], got[2], g), 1, iters=10)
+        p_f = device_ms(torch, lambda i: xk.linear_xent_fwd_reference(
+            x, w, b, t), 1, iters=10)
+        p_b = device_ms(torch, lambda i: xk.linear_xent_bwd_reference(
+            x, w, b, t, got[1], got[2], g), 1, iters=10)
+        # library: one F.cross_entropy over materialized logits, forward,
+        # and its backward through autograd (which also gives dW)
+        if one:
+            leaves = [a.detach().requires_grad_() for a in (x, w, b)]
+            l_f = device_ms(torch, lambda i: F.cross_entropy(
+                leaves[0] @ leaves[1] + leaves[2], ids, reduction="none"),
+                1, iters=10)
+            with torch.enable_grad():
+                lib_out = F.cross_entropy(leaves[0] @ leaves[1] + leaves[2],
+                                          ids, reduction="none")
+            l_b = device_ms(torch, lambda i: torch.autograd.grad(
+                lib_out, leaves, g, retain_graph=True), 1, iters=10)
+            del lib_out, leaves
+        else:
+            l_f = l_b = None
+        rate = peak if dtype == torch.float32 else peak_bf16
+        work = 2 * n * d * v
+        ins = (n * d + d * v) * item + 4 * v
+        label_bytes = 4 * n * v
+        rows = {}
+        for name, ms, pl_ms, lib_ms, ops, moved in (
+                ("fwd", k_f, p_f, l_f, work, ins + label_bytes + 4 * 5 * n),
+                # the index path reads idx instead of the labels
+                ("bwd", k_b, p_b, l_b, 2 * work,
+                 ins + (4 * n if one else label_bytes) + 4 * 3 * n
+                 + (n * d + n * v) * item + 4 * v)):
+            b_ms = max(moved / bw, ops / rate) * 1e3
+            by = "bytes" if moved / bw >= ops / rate else "operations"
+            rows[name] = {"ms": ms, "plain_ms": pl_ms, "library_ms": lib_ms,
+                          "bound_ms": b_ms, "bound_by": by}
+            lib_s = "n/a (soft labels)" if lib_ms is None else \
+                f"{lib_ms:.4f} ms"
+            log(f"[kernel-xent] {name} {dname:8s} n={n} d={d} v={v} "
+                f"{labels:6s}  max_err={max(errs.values()):.3g}  kernel="
+                f"{ms:.4f} ms  plain={pl_ms:.4f} ms  library[F.cross_entropy"
+                f" {'forward' if name == 'fwd' else 'backward'}]={lib_s}  "
+                f"bound={b_ms:.4f} ms ({by})")
+        if (n, d, v, labels, dname) == XENT_CASES[0]:
+            served = rows
+        del x, w, b, t, got, ref, dx, dz, db, rdx, rdz, rdb
+        torch.cuda.empty_cache()
+    log(f"[kernel-xent] verdict: forward and backward agree with their plain"
+        f" versions in {len(XENT_CASES)}/{len(XENT_CASES)} cases, max abs "
+        f"error {max_err:.3g} (tol 1e-4, bfloat16 dx/dz 1e-2, x max|plain| "
+        f"of each output); a zeroed dx, a zeroed dz and a dz without its "
+        f"label term fail the comparison in every case")
+    return served, max_err
+
+
+# ---------------------------------------------------------------- phase 13
+LM_PER_STEP = {"flash_attention": LM["n_layers"],
+               "flash_attention_bwd_dq": LM["n_layers"],
+               "flash_attention_bwd_dkv": LM["n_layers"],
+               "linear_xent_fwd": 1, "linear_xent_bwd": 1}
+
+
+def lm_batch(np, rng, n, t, vocab):
+    """n x t token ids and their one-hot float32 next-token labels, as
+    bench.py's transformer row makes them."""
+    ids = rng.integers(0, vocab, (n, t + 1))
+    y = np.zeros((n, t, vocab), np.float32)
+    np.put_along_axis(y, ids[:, 1:, None], 1.0, axis=-1)
+    return ids[:, :t].astype(np.int32), y
+
+
+def train_steps(torch, net, x_np, y_np, steps, DataSet):
+    """`steps` fit calls on one host batch, each copying it to the card
+    first. Returns per-step (copy s, rest s, score)."""
+    dev = net.device
+    out = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = torch.from_numpy(x_np).to(dev)
+        y = torch.from_numpy(y_np).to(dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        net.fit(DataSet(x, y))
+        torch.cuda.synchronize()
+        out.append((t1 - t0, time.perf_counter() - t1, net.score_))
+    return out
+
+
+def phase_train_lm(torch, np, card):
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.zoo import TransformerLM
+
+    t, vocab = LM["max_length"], LM["num_classes"]
+    x_np, y_np = lm_batch(np, np.random.default_rng(SEED + 3), LM_BATCH, t,
+                          vocab)
+    results = {}
+    for mixed, steps in ((False, TRAIN_STEPS), (True, MIXED_STEPS)):
+        tag = "mixed bf16" if mixed else "TF32"
+        net = TransformerLM(**LM, seed=SEED).init()
+        dtypes.set_mixed_precision(mixed)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            reset_counts()
+            runs = train_steps(torch, net, x_np, y_np, steps, DataSet)
+            launches = read_counts()
+        finally:
+            dtypes.set_mixed_precision(False)
+        scores = [s for *_, s in runs]
+        if not all(math.isfinite(s) for s in scores) or \
+                not scores[-1] < scores[0]:
+            raise AssertionError(f"train-lm ({tag}): scores {scores}")
+        want = {k: steps * n for k, n in LM_PER_STEP.items()}
+        got = {k: launches[k] for k in LM_PER_STEP}
+        if got != want:
+            raise AssertionError(f"train-lm ({tag}): launches {got}, want "
+                                 f"{want}")
+        # the first step pays one-time set-up (cuBLAS handles, allocator)
+        steady = runs[1:]
+        copy_ms = sorted(c for c, _, _ in steady)[len(steady) // 2] * 1e3
+        rest_ms = sorted(r for _, r, _ in steady)[len(steady) // 2] * 1e3
+        tok_s = LM_BATCH * t / ((copy_ms + rest_ms) / 1e3)
+        log(f"[train-lm] {tag}: {steps} steps of {LM_BATCH} x {t} tokens, "
+            f"score {scores[0]:.5f} -> {scores[-1]:.5f}; launches {got} "
+            f"(per step {LM_PER_STEP})")
+        log(f"[train-lm] {tag}: median step {copy_ms + rest_ms:.2f} ms = "
+            f"labels copy to the card {copy_ms:.2f} ms ({y_np.nbytes / 1e6:.1f}"
+            f" MB from pageable memory) + the rest {rest_ms:.2f} ms; "
+            f"{tok_s:.1f} trained tokens/s; first step "
+            f"{(runs[0][0] + runs[0][1]) * 1e3:.2f} ms; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
+        results[tag] = launches
+        del net
+        torch.cuda.empty_cache()
+    return results["TF32"]
+
+
+# ---------------------------------------------------------------- phase 14
+# An element whose reference RMS gradient is below this share of the
+# network's largest is zero up to float32 rounding (the attention key bias,
+# to which softmax is invariant: 3.3e-10 against 0.037). Adam divides the
+# rounding noise by its own size, so such an element's change is set by the
+# noise on each device and is held only to Adam's bound of lr per step.
+ZERO_GRAD = 1e-6
+
+
+def phase_refer_train(torch, np):
+    from deeplearning4j_tpu_torch import dtypes, interop
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.multi_layer_network import flat_items
+    from deeplearning4j_tpu_torch.zoo import TransformerLM
+
+    cfg = dict(LM, n_layers=2)
+    steps, lr = 3, 3e-4
+    x, y = lm_batch(np, np.random.default_rng(SEED + 4), 2, 128,
+                    LM["num_classes"])
+    nets = {"card": TransformerLM(**cfg, seed=SEED).init(),
+            "cpu": TransformerLM(**cfg, seed=SEED).init(device="cpu")}
+    start = {k: {key: p.copy() for key, p in net.get_param_table().items()}
+             for k, net in nets.items()}
+    scores = {k: [] for k in nets}
+    with dtypes.full_precision():
+        for _ in range(steps):
+            for k, net in nets.items():
+                net.fit(DataSet(x, y))
+                scores[k].append(net.score_)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(scores["card"],
+                                                  scores["cpu"]))
+    moved = {k: {key: p - start[k][key]
+                 for key, p in net.get_param_table().items()}
+             for k, net in nets.items()}
+    slots = {k: interop.opt_state_to_jax(net) for k, net in nets.items()}
+    rms = {f"layer_{i}/{path}": np.sqrt(v)
+           for i, b in enumerate(slots["cpu"]) if b
+           for path, v in flat_items(b["v"])}
+    floor = ZERO_GRAD * max(float(r.max()) for r in rms.values())
+    p_err, z_move, n_zero, s_err, steps_ok = 0.0, 0.0, 0, 0.0, True
+    for key, want in moved["cpu"].items():
+        got, zero = moved["card"][key], rms[key] <= floor
+        p_err = max(p_err, float(np.abs(got - want)[~zero].max(initial=0)))
+        z_move = max(z_move, float(np.abs(got)[zero].max(initial=0)),
+                     float(np.abs(want)[zero].max(initial=0)))
+        n_zero += int(np.count_nonzero(zero & (want != 0)))
+    for a, b in zip(slots["card"], slots["cpu"]):
+        if not b:
+            continue
+        steps_ok &= int(a["t"]) == int(b["t"]) == steps
+        for slot in ("m", "v"):
+            got = dict(flat_items(a[slot]))
+            for path, want in flat_items(b[slot]):
+                s_err = max(s_err, float(np.abs(got[path] - want).max()
+                                         / max(np.abs(want).max(), 1e-30)))
+    # scores: float32 sums in another order on each device; each element's
+    # change from its start 1e-5 absolute (sound: 4.52e-06 over every
+    # element, a step moves an element by up to lr = 3e-4); zero-gradient
+    # elements within Adam's bound; slots m and v relative to each leaf's
+    # largest magnitude
+    finite = all(np.isfinite(a).all() for k in nets
+                 for a in [*moved[k].values(), *(
+                     leaf for b in slots[k] if b for slot in ("m", "v")
+                     for _, leaf in flat_items(b[slot]))]) and all(
+        math.isfinite(x) for v in scores.values() for x in v)
+    if not (rel <= 1e-5 and p_err <= 1e-5 and z_move <= 1.01 * steps * lr
+            and s_err <= 1e-4 and steps_ok and finite):
+        raise AssertionError(
+            f"refer-train: card and CPU differ: scores {scores}, changes "
+            f"{p_err:.3g}, zero-gradient moves {z_move:.3g}, slots "
+            f"{s_err:.3g}, steps counted {steps_ok}, finite {finite}")
+    log(f"[refer-train] TransformerLM (2 blocks, full width), {steps} Adam "
+        f"steps on 2 x 128 tokens, card (TF32 off) vs CPU: scores "
+        f"{scores['card']} vs {scores['cpu']} (relative {rel:.3g}, tol "
+        f"1e-5); params' change from their start max |diff| {p_err:.3g} "
+        f"(tol 1e-5); {n_zero} moved elements with zero gradient (RMS "
+        f"gradient <= {floor:.3g}) move at most {z_move:.3g} (Adam's bound "
+        f"{1.01 * steps * lr:.3g}); Adam m, v max relative {s_err:.3g} "
+        f"(tol 1e-4); t = {steps} on both")
 
 
 def main() -> int:
@@ -1022,6 +1509,12 @@ def main() -> int:
         rnn_launches = phase_serve_rnn(torch, np, rnn, card)
         phase_stream_rnn(torch, np, rnn, card)
         phase_reference_rnn(torch, np, rnn)
+        del rnn
+        flash_bwd, flash_bwd_err = phase_flash_bwd(torch, bw, peak,
+                                                   peak_bf16)
+        xent, xent_err = phase_xent(torch, bw, peak, peak_bf16)
+        train_launches = phase_train_lm(torch, np, card)
+        phase_refer_train(torch, np)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
         if leaked:
@@ -1033,7 +1526,9 @@ def main() -> int:
     # float32 times per forward of each kernel's own path: bn_act's 53
     # calls of a ResNet-50 forward at batch 32, flash_attention's 6 calls
     # of a TransformerLM forward at batch 16, lstm_scan's 2 calls of a
-    # TextGenerationLSTM forward at batch 64
+    # TextGenerationLSTM forward at batch 64; per training step of the
+    # TransformerLM at batch 16 x 512: 6 dq and 6 dk/dv launches, 1 xent
+    # forward and 1 xent backward
     def per_forward(row, calls):
         return {k: (v * calls if k.endswith("ms") and v is not None else v)
                 for k, v in row.items()}
@@ -1045,6 +1540,16 @@ def main() -> int:
                             per_forward(flash, LM["n_layers"])),
         "lstm_scan": (rnn_launches["lstm_scan"], lstm_err,
                       per_forward(lstm, 2)),
+        "flash_attention_bwd_dq": (
+            train_launches["flash_attention_bwd_dq"], flash_bwd_err,
+            per_forward(flash_bwd["dq"], LM["n_layers"])),
+        "flash_attention_bwd_dkv": (
+            train_launches["flash_attention_bwd_dkv"], flash_bwd_err,
+            per_forward(flash_bwd["dkv"], LM["n_layers"])),
+        "linear_xent_fwd": (train_launches["linear_xent_fwd"], xent_err,
+                            xent["fwd"]),
+        "linear_xent_bwd": (train_launches["linear_xent_bwd"], xent_err,
+                            xent["bwd"]),
     }
     kernels = []
     for kname, (route, source, replaces) in KERNELS.items():
@@ -1054,7 +1559,8 @@ def main() -> int:
             "replaces": replaces, "launches": n, "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            **{k: t[k] for k in ("library_covers",) if k in t}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,11 @@ policy says. On the CPU neither switch changes a result.
 
 `set_mixed_precision(True)` gives bf16 activations: dot/conv operands are
 cast to bfloat16 and produce bfloat16 outputs, while params, BN statistics
-and losses stay float32, as in the JAX package.
+and losses stay float32, as in the JAX package. On the training path the
+same holds: the flash-attention kernels run forward and backward in
+bfloat16, the fused cross-entropy takes bfloat16 x and W (its dz spill is
+bfloat16, its loss, lse and db float32), gradients reach the float32
+params through the casts, and the updater slots stay float32.
 """
 from __future__ import annotations
 

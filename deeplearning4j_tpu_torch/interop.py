@@ -14,6 +14,12 @@ Each layer converts from the interchange layout to its own once (Conv2D:
 HWIO -> OIHW channels_last), by the param's '/'-joined path. Afterwards
 both packages compute the same function.
 
+`opt_state_from_jax(net, opt_state)` carries a JAX MultiLayerNetwork's
+updater slots across (one entry per layer, the JAX names: Adam's "m" and
+"v" nested like the layer's params, its step count "t"), so a run started
+in the JAX package resumes in the port; `opt_state_to_jax(net)` is the
+reverse, as numpy arrays in the interchange layout.
+
 Names, shapes and the set of entries must match exactly at every level of
 nesting; anything else raises, so a half-loaded network cannot run.
 """
@@ -82,3 +88,78 @@ def params_from_jax(net, params: Arrays, state: Arrays):
     new_state = _load("state", net.state, state, net)
     net.params, net.state = new_params, new_state
     return net
+
+
+def _layer_slots_from_jax(layer, have, incoming, device, where: str):
+    """One layer's updater state: dict slots that mirror the params convert
+    like params (float32, the layer's layout), scalar slots keep their
+    dtype; () stays ()."""
+    if isinstance(have, tuple):
+        if tuple(incoming) != ():
+            raise ValueError(f"{where}: the port's updater keeps no slots, "
+                             f"got {type(incoming).__name__}")
+        return ()
+    if not isinstance(incoming, Mapping) or set(incoming) != set(have):
+        got = sorted(incoming) if isinstance(incoming, Mapping) else incoming
+        raise ValueError(f"{where}: expected slots {sorted(have)}, got "
+                         f"{got}")
+    out = {}
+    for slot, cur in have.items():
+        if isinstance(cur, dict):
+            new = layer_params_from_jax(layer, incoming[slot], device)
+            want, got = _shapes(cur), _shapes(new)
+            if want != got:
+                raise ValueError(f"{where}/{slot}: shapes {got} do not "
+                                 f"match the port network's {want}")
+        else:
+            arr = np.asarray(incoming[slot])
+            if arr.shape != tuple(cur.shape):
+                raise ValueError(f"{where}/{slot}: shape {arr.shape}, the "
+                                 f"port network's {tuple(cur.shape)}")
+            new = torch.from_numpy(np.array(arr)).to(cur.dtype).to(
+                cur.device)
+        out[slot] = new
+    return out
+
+
+def opt_state_from_jax(net, opt_state):
+    """Replace an initialized MultiLayerNetwork's updater slots with a JAX
+    network's `opt_state` (a list with one entry per layer, numpy or JAX
+    arrays). Returns `net`."""
+    if net.opt_state is None:
+        raise RuntimeError("init() the port network before loading slots")
+    if len(opt_state) != len(net.opt_state):
+        raise ValueError(f"opt_state has {len(opt_state)} layers, the port "
+                         f"network {len(net.opt_state)}")
+    new = [_layer_slots_from_jax(net.layers[i], have, incoming, net.device,
+                                 f"opt_state[{i}]")
+           for i, (have, incoming) in enumerate(zip(net.opt_state,
+                                                    opt_state))]
+    net.opt_state = new
+    return net
+
+
+def _to_interchange(layer, tree, prefix: str = ""):
+    out = {}
+    for key, t in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(t, dict):
+            out[key] = _to_interchange(layer, t, path + "/")
+        else:
+            out[key] = layer.to_interchange(path, t).detach().cpu().numpy()
+    return out
+
+
+def opt_state_to_jax(net) -> list:
+    """The port network's updater slots as the JAX package keeps them: one
+    entry per layer, dict slots as nested numpy arrays in the interchange
+    layout, scalar slots as numpy scalars of their dtype, () as ()."""
+    out = []
+    for layer, st in zip(net.layers, net.opt_state):
+        if isinstance(st, tuple):
+            out.append(())
+            continue
+        out.append({slot: (_to_interchange(layer, v) if isinstance(v, dict)
+                           else v.detach().cpu().numpy())
+                    for slot, v in st.items()})
+    return out

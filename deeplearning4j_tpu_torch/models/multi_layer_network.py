@@ -1,27 +1,52 @@
-"""MultiLayerNetwork — sequential-network runtime, inference part (counterpart
-of deeplearning4j_tpu/models/multi_layer_network.py; fit, losses, tBPTT
-and evaluation come with later slices).
+"""MultiLayerNetwork — the sequential-network runtime (counterpart of
+deeplearning4j_tpu/models/multi_layer_network.py): inference, stateful RNN
+streaming and the training step.
 
-A forward walks the layers eagerly under `torch.inference_mode()`: each
-layer's input preprocessor, its `apply` (or, with carries, a recurrent
-layer's `scan`), then `propagate_mask` for the next layer. Params and
-running state are dicts per layer keyed "layer_{i}", with the JAX package's
-names (nested where a layer nests sublayers, as TransformerBlock does), on
-the device `init` was given. `rnn_time_step` streams: each recurrent
-layer's (h, c) carry is kept between calls (rnnTimeStep).
+A forward walks the layers eagerly: each layer's input preprocessor, its
+`apply` (or, with carries, a recurrent layer's `scan`), then
+`propagate_mask` for the next layer. Params and running state are dicts per
+layer keyed "layer_{i}", with the JAX package's names (nested where a layer
+nests sublayers, as TransformerBlock does), on the device `init` was given.
+Inference runs under `torch.inference_mode()`; `rnn_time_step` streams, each
+recurrent layer's (h, c) carry kept between calls (rnnTimeStep).
+
+Training (`fit`) is the JAX package's train step, run eagerly: the forward
+with `train=True` and the output layer's loss plus the l1/l2 penalty
+(`_loss`), `torch.autograd.grad` over the param leaves, then under
+`torch.no_grad()` per layer: gradient normalization, the updater rule (at
+the learning rate of `lr_schedule` for the iteration), the step and the
+constraints (`_apply_updates`; frozen layers skipped). Params are updated
+IN PLACE (`p -= step`), so the tensors `init` made stay the network's
+params; the updater slots (`opt_state`, one entry per layer with the JAX
+names) are replaced each step. `fit` takes a DataSet, features and labels,
+or a DataSetIterator; batches already on the network's device are used as
+they are. The line-search solvers, tBPTT, layerwise `pretrain` and the JAX
+package's windowed engine (training/engine.py: step windows, TrainingRun's
+resume/save cadence, the stall watchdog, flight bundles, async prefetch) are
+not ported yet; `fit` raises on a configuration that needs them, and on
+dropout or weight noise.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import device as device_mod
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.datasets.iterators import (
+    DataSetIterator,
+    ListDataSetIterator,
+)
 from deeplearning4j_tpu_torch.models.computation_graph import _as_tensor
+from deeplearning4j_tpu_torch.nn import updaters as upd_mod
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.nn.layers.output import BaseOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrent
+from deeplearning4j_tpu_torch.nn.regularization import apply_constraints
 
 Params = Dict[str, object]
 
@@ -33,6 +58,11 @@ def _key(i: int) -> str:
 def _to(tree, device):
     """A (nested) dict of tensors moved to `device`."""
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _detach(tree):
+    return {k: _detach(v) if isinstance(v, dict) else v.detach()
             for k, v in tree.items()}
 
 
@@ -58,14 +88,35 @@ class MultiLayerNetwork:
         self.params: Optional[Dict[str, Params]] = None
         self.state: Optional[Dict[str, Params]] = None
         self.device: Optional[torch.device] = None
+        self.opt_state: Optional[list] = None
+        self.iteration: int = 0
+        self.epoch: int = 0
+        self.listeners: List = []
+        self.score_: float = float("nan")
+        self.last_batch_size: int = 0
         self._input_types = conf.layer_input_types()
+        self._updaters = self._resolve_updaters()
         self._rnn_carries: Optional[list] = None
+
+    def _resolve_updaters(self) -> List[upd_mod.Updater]:
+        """Each layer's updater (its own, else the network default), with
+        the layer's learning-rate override applied to a copy."""
+        out = []
+        for layer in self.layers:
+            u = upd_mod.get(layer.updater if layer.updater is not None
+                            else self.conf.defaults.updater)
+            if layer.learning_rate is not None:
+                u = copy.copy(u)
+                u.learning_rate = layer.learning_rate
+            out.append(u)
+        return out
 
     def init(self, device=None) -> "MultiLayerNetwork":
         """Random params from `conf.defaults.seed` (one CPU torch.Generator
         drawn layer by layer, so a seed gives the same weights on every
-        device), running state at its defaults, all on `device` (default:
-        the CUDA card; pass device="cpu" for the CPU)."""
+        device), running state at its defaults and zeroed updater slots,
+        all on `device` (default: the CUDA card; pass device="cpu" for the
+        CPU)."""
         self.device = device_mod.resolve(device)
         gen = torch.Generator().manual_seed(int(self.conf.defaults.seed))
         self.params, self.state = {}, {}
@@ -74,6 +125,8 @@ class MultiLayerNetwork:
             p = layer.init_params(gen, in_type) if layer.has_params() else {}
             self.params[_key(i)] = _to(p, self.device)
             self.state[_key(i)] = _to(layer.init_state(in_type), self.device)
+        self.opt_state = [u.init_state(self.params[_key(i)])
+                          for i, u in enumerate(self._updaters)]
         return self
 
     def layer(self, key: str) -> Layer:
@@ -91,27 +144,43 @@ class MultiLayerNetwork:
             raise RuntimeError("call init() before running the network")
         return _as_tensor(x).to(self.device)
 
-    def _forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                 acts: Optional[list] = None,
-                 carries: Optional[list] = None) -> torch.Tensor:
-        """Inference forward through every layer; appends each layer's
-        activation to `acts` when given. With `carries` (one entry per
-        layer, see `_init_carries`) a recurrent layer scans from its entry
-        and the entry is replaced by its new carry, in place."""
-        for i, layer in enumerate(self.layers):
+    def _walk(self, params, x: torch.Tensor, *, train: bool = False,
+              mask: Optional[torch.Tensor] = None,
+              to_layer: Optional[int] = None, acts: Optional[list] = None,
+              carries: Optional[list] = None):
+        """Forward through layers [0, to_layer) with `params`. Returns (x,
+        new_state, mask): the activation, the running state after the walk
+        (updated by layers that track statistics when `train`) and the mask
+        the next layer would see. Appends each activation to `acts` when
+        given. With `carries` (one entry per layer, see `_init_carries`) a
+        recurrent layer scans from its entry and the entry is replaced by
+        its new carry, in place."""
+        n = len(self.layers) if to_layer is None else to_layer
+        new_state = dict(self.state)
+        for i in range(n):
+            layer = self.layers[i]
             if i in self.conf.input_preprocessors:
                 x = self.conf.input_preprocessors[i].transform(x, mask)
             k = _key(i)
             if carries is not None and isinstance(layer, BaseRecurrent):
-                x, carries[i] = layer.scan(self.params[k], x, carries[i],
+                x, carries[i] = layer.scan(params[k], x, carries[i],
                                            mask=mask)
             else:
-                x, _ = layer.apply(self.params[k], x, state=self.state[k],
-                                   train=False, mask=mask)
+                x, st = layer.apply(params[k], x, state=self.state[k],
+                                    train=train, mask=mask)
+                if train:
+                    new_state[k] = st
             if acts is not None:
                 acts.append(x)
             mask = layer.propagate_mask(mask, self._input_types[i])
-        return x
+        return x, new_state, mask
+
+    def _forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                 acts: Optional[list] = None,
+                 carries: Optional[list] = None) -> torch.Tensor:
+        """Inference forward through every layer (see `_walk`)."""
+        return self._walk(self.params, x, mask=mask, acts=acts,
+                          carries=carries)[0]
 
     def output(self, x) -> torch.Tensor:
         """Full forward pass (MultiLayerNetwork.output). `x` is an array or
@@ -167,6 +236,183 @@ class MultiLayerNetwork:
             h = self._forward(x, carries=carries)
             self._rnn_carries = carries
         return h[:, 0] if single and h.dim() == 3 else h
+
+    # ---- training (the JAX package's train step, eagerly) ----
+    def _reg_score(self, params) -> torch.Tensor:
+        """The l1/l2 penalty over all layers (BaseLayer.calcL1/calcL2):
+        l1 * sum|w| + 0.5 * l2 * sum w^2 over each layer's `regularizable`
+        params, and the bias terms over its params named "b*"."""
+        total = torch.zeros((), device=self.device)
+        d = self.conf.defaults
+        for i, layer in enumerate(self.layers):
+            p = params[_key(i)]
+            if not p:
+                continue
+            l1 = layer.l1 if layer.l1 is not None else d.l1
+            l2 = layer.l2 if layer.l2 is not None else d.l2
+            l1b = layer.l1_bias if layer.l1_bias is not None else d.l1_bias
+            l2b = layer.l2_bias if layer.l2_bias is not None else d.l2_bias
+            if l1 or l2:
+                for v in upd_mod.tree_leaves(layer.regularizable(p)):
+                    if l1:
+                        total = total + l1 * v.abs().sum()
+                    if l2:
+                        total = total + 0.5 * l2 * (v * v).sum()
+            if l1b or l2b:
+                for name, v in p.items():
+                    if name.startswith("b"):
+                        if l1b:
+                            total = total + l1b * v.abs().sum()
+                        if l2b:
+                            total = total + 0.5 * l2b * (v * v).sum()
+        return total
+
+    def _loss(self, params, x, y, fmask=None, lmask=None, train=True):
+        """(score, new_state): the output layer's loss on the last hidden
+        activation, under the labels mask (else the propagated features
+        mask), plus the l1/l2 penalty."""
+        out_layer = self.layers[-1]
+        if not isinstance(out_layer, BaseOutputLayer):
+            raise TypeError("the last layer must be an output layer "
+                            "(Output, RnnOutput, LossLayer)")
+        n = len(self.layers)
+        h, new_state, cur_mask = self._walk(params, x, train=train,
+                                            mask=fmask, to_layer=n - 1)
+        k = _key(n - 1)
+        score, _, out_state = out_layer.compute_loss(
+            params[k], h, y, state=self.state[k],
+            mask=lmask if lmask is not None else cur_mask)
+        new_state[k] = out_state
+        return score + self._reg_score(params), new_state
+
+    def _apply_updates(self, grads, iteration: int) -> None:
+        """Per layer: gradient normalization, the updater rule at the
+        scheduled learning rate, params -= step (in place), constraints.
+        Frozen layers and layers without params are left alone."""
+        d = self.conf.defaults
+        schedule = d.lr_schedule
+        for i, layer in enumerate(self.layers):
+            k = _key(i)
+            g = grads.get(k)
+            if not g or getattr(layer, "frozen", False):
+                continue
+            gn = (layer.gradient_normalization
+                  if layer.gradient_normalization is not None
+                  else d.gradient_normalization)
+            thr = (layer.gradient_normalization_threshold
+                   if layer.gradient_normalization_threshold is not None
+                   else d.gradient_normalization_threshold)
+            g = upd_mod.normalize_gradients(g, gn, thr)
+            u = self._updaters[i]
+            lr = (schedule(u.learning_rate, iteration) if schedule
+                  else u.learning_rate)
+            steps, self.opt_state[i] = u.apply(g, self.opt_state[i], lr)
+            upd_mod.tree_map(lambda p, s: p.sub_(s), self.params[k], steps)
+            if layer.constraints:
+                upd_mod.tree_map(
+                    lambda p, c: p.copy_(c), self.params[k],
+                    apply_constraints(self.params[k], layer.constraints))
+
+    def _check_trainable(self) -> None:
+        d = self.conf.defaults
+        if d.optimization_algo not in ("stochastic_gradient_descent", "sgd"):
+            raise NotImplementedError(
+                f"optimization_algo={d.optimization_algo!r}: the line-search "
+                f"solvers are not ported yet; fit trains with SGD updaters")
+        if d.backprop_type == "tbptt":
+            raise NotImplementedError("tBPTT is not ported yet (ROADMAP A5)")
+        for i, layer in enumerate(self.layers):
+            for field in ("dropout", "weight_noise", "attn_dropout"):
+                if getattr(layer, field, None) is not None:
+                    raise NotImplementedError(
+                        f"layer {i} ({type(layer).__name__}) asks for "
+                        f"{field}, which training in the port does not "
+                        f"apply yet; refusing to train without it")
+
+    def _train_leaves(self):
+        """[(layer key, path, tensor)] of every param, each made a leaf
+        that records gradients."""
+        leaves = []
+        for k, p in self.params.items():
+            for path, t in flat_items(p):
+                if not t.requires_grad:
+                    t.requires_grad_(True)
+                leaves.append((k, path, t))
+        return leaves
+
+    def _batch(self, a):
+        """A batch array as a tensor on the network's device: a tensor
+        already there is used as it is (no copy)."""
+        return None if a is None else _as_tensor(a).to(self.device)
+
+    def _fit_batch(self, ds: DataSet) -> None:
+        x = self._batch(ds.features)
+        y = self._batch(ds.labels)
+        fm = self._batch(ds.features_mask)
+        lm = self._batch(ds.labels_mask)
+        leaves = self._train_leaves()
+        with torch.enable_grad():
+            score, new_state = self._loss(self.params, x, y, fm, lm)
+            flat = torch.autograd.grad(score, [t for *_, t in leaves],
+                                       allow_unused=True)
+        grads: Dict[str, dict] = {k: {} for k in self.params}
+        for (k, path, t), g in zip(leaves, flat):
+            node = grads[k]
+            *parents, name = path.split("/")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[name] = torch.zeros_like(t) if g is None else g
+        with torch.no_grad():
+            self._apply_updates(grads, self.iteration)
+            self.state = {k: _detach(v) for k, v in new_state.items()}
+        self.score_ = float(score.detach())
+        self.last_batch_size = int(x.shape[0])
+        self.iteration += 1
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration, self.score_)
+
+    def _as_iterator(self, data, labels=None) -> DataSetIterator:
+        if isinstance(data, DataSetIterator):
+            return data
+        if isinstance(data, DataSet):
+            return ListDataSetIterator(data, batch=data.num_examples())
+        if labels is not None:
+            ds = DataSet(data, labels)
+            return ListDataSetIterator(ds, batch=ds.num_examples())
+        raise TypeError(f"Cannot build iterator from {type(data)}")
+
+    def fit(self, data, labels=None, epochs: int = 1) -> "MultiLayerNetwork":
+        """fit(DataSetIterator) | fit(DataSet) | fit(features, labels): one
+        training step per batch, `epochs` passes (MultiLayerNetwork.fit).
+        After each step `score_` holds the batch's loss (with the l1/l2
+        penalty), `last_batch_size` its rows, and every listener's
+        `iteration_done(net, iteration, score)` has run."""
+        if self.params is None:
+            raise RuntimeError("call init() before fit()")
+        self._check_trainable()
+        iterator = self._as_iterator(data, labels)
+        for _ in range(epochs):
+            for ds in iterator:
+                self._fit_batch(ds)
+            self.epoch += 1
+        return self
+
+    def score(self, ds: DataSet, training: bool = False) -> float:
+        """The loss on a dataset (score(DataSet)), penalty included."""
+        with torch.no_grad():
+            s, _ = self._loss(self.params, self._batch(ds.features),
+                              self._batch(ds.labels),
+                              self._batch(ds.features_mask),
+                              self._batch(ds.labels_mask), train=training)
+        return float(s)
+
+    def set_listeners(self, *listeners) -> "MultiLayerNetwork":
+        self.listeners = list(listeners)
+        return self
+
+    def add_listeners(self, *listeners) -> "MultiLayerNetwork":
+        self.listeners.extend(listeners)
+        return self
 
     def get_param_table(self) -> Dict[str, np.ndarray]:
         """"layer_i/name" -> numpy array (paramTable()), nested params

@@ -15,7 +15,12 @@ from deeplearning4j_tpu_torch.nn.layers.dense import (  # noqa: F401
     EmbeddingSequence,
 )
 from deeplearning4j_tpu_torch.nn.layers.normalization import BatchNorm  # noqa: F401
-from deeplearning4j_tpu_torch.nn.layers.output import Output, RnnOutput  # noqa: F401
+from deeplearning4j_tpu_torch.nn.layers.output import (  # noqa: F401
+    BaseOutputLayer,
+    LossLayer,
+    Output,
+    RnnOutput,
+)
 from deeplearning4j_tpu_torch.nn.layers.pooling import GlobalPooling  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (  # noqa: F401
     LSTM,

@@ -16,7 +16,10 @@ yet): `attention_impl="blockwise"` takes ops.attention.blockwise; with no
 mask and `attention_impl` "auto" or "pallas" the flash-attention forward
 (ops/flash_attention.py: the CUDA kernel on the card, at every length, its
 plain version on the CPU); anything else, and every masked call, takes
-ops.attention.sdpa, since the kernel takes no mask.
+ops.attention.sdpa, since the kernel takes no mask. The flash path is
+differentiable through the backward kernels; dropout (`attn_dropout`,
+TransformerBlock's `dropout`) is not ported yet, so `fit` refuses a network
+that asks for it.
 """
 from __future__ import annotations
 
@@ -61,6 +64,9 @@ class LayerNorm(Layer):
             return _ln_params(input_type.size)
         return _ln_params(input_type.arity())
 
+    def regularizable(self, params):
+        return {}
+
     def apply(self, params, x, *, state, train, mask=None):
         return layer_norm(x, params["gamma"], params["beta"], self.eps), state
 
@@ -90,6 +96,9 @@ class PositionEmbedding(Layer):
 
     def has_params(self):
         return self.mode == "learned"
+
+    def regularizable(self, params):
+        return {}
 
     @staticmethod
     def sincos(t: int, f: int, dtype, device=None) -> torch.Tensor:
@@ -150,6 +159,9 @@ class MultiHeadAttention(Layer):
         wo = init_mod.init(wi, gen, (f, out), fan_in=f, fan_out=out)
         return {"Wqkv": wqkv, "bqkv": torch.zeros(3 * f),
                 "Wo": wo, "bo": torch.zeros(out)}
+
+    def regularizable(self, params):
+        return {k: v for k, v in params.items() if k.startswith("W")}
 
     def attend(self, q, k, v, mask):
         """[b, h, t, d] heads -> [b, h, t, d] attention output."""
@@ -224,6 +236,12 @@ class TransformerBlock(Layer):
             "W2": init_mod.init(wi, gen, (hid, f), fan_in=hid, fan_out=f),
             "b2": torch.zeros(f),
         }
+
+    def regularizable(self, params):
+        out = {"W1": params["W1"], "W2": params["W2"]}
+        out.update({"attn/" + k: v for k, v in params["attn"].items()
+                    if k.startswith("W")})
+        return out
 
     def apply(self, params, x, *, state, train, mask=None):
         f = x.shape[-1]

@@ -44,8 +44,10 @@ def register_layer(cls):
 @dataclass
 class Layer:
     """Base layer config. The fields are the JAX package's, so a config's
-    JSON reads the same in both packages; the training-side ones (updater,
-    dropout, regularization, remat) are carried but not used for serving."""
+    JSON reads the same in both packages. Training reads the updater,
+    learning rate, l1/l2, gradient normalization and constraints; dropout
+    and weight noise are not ported yet (fit refuses a network that asks
+    for them), remat is carried for the JAX package."""
 
     # --- per-layer overrides (None = inherit from NeuralNetConfiguration) ---
     name: Optional[str] = None
@@ -84,6 +86,11 @@ class Layer:
 
     def has_params(self) -> bool:
         return True
+
+    def regularizable(self, params: Params) -> Params:
+        """Params subject to l1/l2 weight decay (default: every key except
+        biases)."""
+        return {k: v for k, v in params.items() if not k.startswith("b")}
 
     def propagate_mask(self, mask: Optional[torch.Tensor],
                        input_type: it.InputType) -> Optional[torch.Tensor]:

@@ -65,6 +65,9 @@ class BatchNorm(Layer):
             shift = shift * params["gamma"] + params["beta"]
         return scale, shift
 
+    def regularizable(self, params):
+        return {}
+
     def apply(self, params, x, *, state, train, mask=None):
         if train:
             raise NotImplementedError(

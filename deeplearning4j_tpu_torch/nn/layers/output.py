@@ -1,34 +1,109 @@
-"""Output layers, inference part (counterpart of
-deeplearning4j_tpu/nn/layers/output.py). `Output.apply` and `RnnOutput.apply`
-are the activation (softmax by default) over `preout`; the loss contract,
-LossLayer and CenterLossOutput come with the training slice."""
+"""Output and loss layers: Output, RnnOutput, LossLayer (counterpart of
+deeplearning4j_tpu/nn/layers/output.py; CenterLossOutput comes with a later
+slice).
+
+An output layer is a Dense layer plus a loss contract:
+    compute_loss(params, x, labels, *, state, mask) ->
+        (mean_score, per_example, new_state)
+`apply` is the activation (softmax by default) over `preout`.
+
+The loss of Output and RnnOutput takes the fused linear + softmax
+cross-entropy (ops/xent_kernel.py) under the JAX package's semantic
+conditions: mcxent or negativeloglikelihood on a softmax, a 2-D W, shapes
+that agree, and float32 or bfloat16 operands after the mixed-precision
+cast. The JAX package also asks `xk.plan` (TPU VMEM budgets and tiling)
+and the `DL4J_TPU_PALLAS_XENT` gate; neither is ported, as the char-RNN
+slice dropped the LSTM kernel's gates: on a CUDA tensor the kernel always
+runs, on a CPU tensor its plain version does. Anything else takes
+`losses.compute` over the materialized pre-activation.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
 
+import torch
+
 from deeplearning4j_tpu_torch.nn import inputs as it
-from deeplearning4j_tpu_torch.nn.layers.base import register_layer
-from deeplearning4j_tpu_torch.nn.layers.dense import Dense
+from deeplearning4j_tpu_torch.nn import losses as loss_mod
+from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+from deeplearning4j_tpu_torch.nn.layers.dense import Dense, _flatten_if_needed
 from deeplearning4j_tpu_torch.ops import linear as ops
+from deeplearning4j_tpu_torch.ops import xent_kernel as xk
+
+
+class BaseOutputLayer(Layer):
+    """Contract of the layers that end a network with a loss."""
+
+    def compute_loss(self, params, x, labels, *, state, mask=None):
+        """(mean_score, per_example_scores, new_state)."""
+        raise NotImplementedError
 
 
 @register_layer
 @dataclass
-class Output(Dense):
+class Output(Dense, BaseOutputLayer):
     """Dense + loss (DL4J OutputLayer). Default act=softmax, loss=MCXENT."""
 
     loss: Optional[str] = None  # loss function name
 
+    def _loss_name(self):
+        return self.loss or "mcxent"
+
+    def _act(self):
+        return self.act_fn("softmax")
+
     def apply(self, params, x, *, state, train, mask=None):
-        return self.act_fn("softmax")(self.preout(params, x)), state
+        return self._act()(self.preout(params, x)), state
+
+    def _fused_xent_per_example(self, params, x, labels):
+        """Per-example scores through the fused linear + softmax-xent
+        kernel, the [.., n_out] logits never materialized; None (the plain
+        `losses.compute` path) unless the loss is mcxent/NLL on softmax with
+        a 2-D W and shapes that agree."""
+        if self._loss_name() not in ("mcxent", "negativeloglikelihood"):
+            return None
+        if not loss_mod._is_softmax(self._act()):
+            return None
+        W = params.get("W")
+        if W is None or W.dim() != 2 or labels.dim() < 2:
+            return None
+        x2 = _flatten_if_needed(x)
+        if (x2.shape[-1] != W.shape[0] or labels.shape[-1] != W.shape[1]
+                or x2.shape[:-1] != labels.shape[:-1]):
+            return None
+        xc, Wc = ops._mixed_cast(x2, W)
+        if xc.dtype not in (torch.float32, torch.bfloat16):
+            return None
+        if Wc.dtype != xc.dtype:  # the product promotes, as jnp.dot does
+            common = torch.promote_types(xc.dtype, Wc.dtype)
+            xc, Wc = xc.to(common), Wc.to(common)
+        n = labels.shape[:-1].numel()
+        bias = (params["b"] if self.has_bias and "b" in params
+                else torch.zeros(Wc.shape[1], dtype=torch.float32,
+                                 device=Wc.device))
+        per_row = xk.linear_xent_rows(
+            xc.reshape(n, xc.shape[-1]).contiguous(), Wc.contiguous(), bias,
+            labels.reshape(n, labels.shape[-1]))
+        return per_row.reshape(labels.shape[:-1])
+
+    def compute_loss(self, params, x, labels, *, state, mask=None):
+        per_example = self._fused_xent_per_example(params, x, labels)
+        if per_example is not None:
+            score, per_ex = loss_mod.reduce_score(per_example, mask)
+            return score, per_ex, state
+        z = self.preout(params, x)
+        score, per_ex = loss_mod.compute(self._loss_name(), labels, z,
+                                         self._act(), mask=mask)
+        return score, per_ex, state
 
 
 @register_layer
 @dataclass
 class RnnOutput(Output):
     """Per-timestep output over [b, t, f] input (DL4J RnnOutputLayer):
-    [b, t, n_out] probabilities."""
+    [b, t, n_out] probabilities; the loss averages over batch * time, with
+    masks."""
 
     def output_type(self, input_type):
         t = input_type.timesteps if isinstance(input_type, it.Recurrent) else -1
@@ -39,3 +114,26 @@ class RnnOutput(Output):
         if self.has_bias:
             z = ops.bias_add(z, params["b"])
         return z
+
+
+@register_layer
+@dataclass
+class LossLayer(BaseOutputLayer, Layer):
+    """Loss without params: activation + loss on its input
+    (nn/conf/layers/LossLayer.java)."""
+
+    loss: Optional[str] = None
+
+    def output_type(self, input_type):
+        return input_type
+
+    def has_params(self):
+        return False
+
+    def apply(self, params, x, *, state, train, mask=None):
+        return self.act_fn("identity")(x), state
+
+    def compute_loss(self, params, x, labels, *, state, mask=None):
+        score, per_ex = loss_mod.compute(self.loss or "mcxent", labels, x,
+                                         self.act_fn("identity"), mask=mask)
+        return score, per_ex, state

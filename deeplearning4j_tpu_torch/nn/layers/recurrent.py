@@ -159,6 +159,9 @@ class LSTM(BaseRecurrent):
         return (torch.zeros((batch, self.n_out), device=device),
                 torch.zeros((batch, self.n_out), device=device))
 
+    def regularizable(self, params):
+        return {k: v for k, v in params.items() if k in ("W", "R")}
+
     def scan(self, params, x, carry, *, mask=None, train=False):
         return _lstm_scan(params, x, carry,
                           act_mod.get(self.gate_activation),

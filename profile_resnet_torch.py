@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of one served batch goes on the card, for the PyTorch/CUDA
 port (deeplearning4j_tpu_torch): zoo ResNet-50, the zoo TransformerLM with
-`--model transformer`, or the zoo TextGenerationLSTM with `--model lstm`.
+`--model transformer`, or the zoo TextGenerationLSTM with `--model lstm`;
+or of one training step of the zoo TransformerLM with `--model train-lm`.
 
-    python3 profile_resnet_torch.py [--model resnet50|transformer|lstm]
+    python3 profile_resnet_torch.py [--model resnet50|transformer|lstm|
+                                     train-lm]
                                     [--batch N] [--iters 20] [--mixed]
                                     [--out profile_out]
 
@@ -13,13 +15,16 @@ vocab 8192, 512 tokens, d_model 512, 8 heads, 6 blocks, batch 16 by
 default; TextGenerationLSTM: 77 characters, 64 steps, two GravesLSTM(256),
 one-hot float32 input, batch 64 by default), warms it up, then traces
 `--iters` forwards of the serving path's dispatch (host array in,
-`net.output`, result back to the host) with torch.profiler. Prints, beside
+`net.output`, result back to the host) with torch.profiler. `train-lm`
+traces `--iters` steps of `MultiLayerNetwork.fit` on one repeated batch of
+16 x 512 token ids with one-hot float32 labels (copied from host memory
+every step, as `fit` of a host DataSet does), Adam(3e-4). Prints, beside
 the card's name and power limit: host wall time per batch, the device's
 busy and idle share of that window, and device time per batch by category
 (the port's kernels, cuDNN convolutions and cuBLAS matmuls, other
 elementwise kernels, pooling/reductions/softmax, copies). The full
-per-kernel table goes to <out>/profile_<resnet|transformer|lstm>_torch_
-<mode>.txt.
+per-kernel table goes to <out>/profile_<resnet|transformer|lstm|train-lm>
+_torch_<mode>.txt.
 """
 from __future__ import annotations
 
@@ -36,6 +41,8 @@ RNN = dict(num_classes=77, max_length=64)
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("bn_act", ("bn_act",)),
     ("flash_attention", ("flash_fwd",)),
+    ("flash_attention_bwd", ("flash_bwd",)),
+    ("linear_xent", ("xent_",)),
     ("lstm_scan", ("lstm_scan",)),
     ("conv/matmul", ("conv", "cudnn", "sm90_xmma", "implicit", "winograd",
                      "gemm", "cutlass", "xmma", "fprop", "nhwc", "nvjet")),
@@ -56,11 +63,12 @@ def category(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("resnet50", "transformer", "lstm"),
-                    default="resnet50")
+    ap.add_argument("--model", choices=("resnet50", "transformer", "lstm",
+                                        "train-lm"), default="resnet50")
     ap.add_argument("--batch", type=int, default=None,
                     help="rows per served batch (32 ResNet-50, 16 "
-                         "TransformerLM, 64 TextGenerationLSTM)")
+                         "TransformerLM, 64 TextGenerationLSTM) or per "
+                         "training batch (16)")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--mixed", action="store_true",
                     help="bf16 activations (dtypes.set_mixed_precision)")
@@ -101,14 +109,27 @@ def main() -> int:
         x = rng.integers(0, LM["num_classes"],
                          (batch, LM["max_length"])).astype(np.int32)
         per_row, unit, ops = LM["max_length"], "tokens/s", "TF32 matmuls"
-    else:
+    elif args.model == "lstm":
         batch = args.batch or 64
         net = TextGenerationLSTM(**RNN, seed=7).init()
         ids = rng.integers(0, RNN["num_classes"], (batch, RNN["max_length"]))
         x = np.eye(RNN["num_classes"], dtype=np.float32)[ids]
         per_row, unit, ops = RNN["max_length"], "chars/s", "TF32 matmuls"
+    else:
+        from deeplearning4j_tpu_torch.datasets import DataSet
+
+        batch = args.batch or 16
+        net = TransformerLM(**LM, seed=7).init()
+        t, vocab = LM["max_length"], LM["num_classes"]
+        ids = rng.integers(0, vocab, (batch, t + 1))
+        x = ids[:, :t].astype(np.int32)
+        y = np.zeros((batch, t, vocab), np.float32)
+        np.put_along_axis(y, ids[:, 1:, None], 1.0, axis=-1)
+        per_row, unit, ops = t, "trained tokens/s", "TF32 matmuls"
 
     def serve_once():
+        if args.model == "train-lm":
+            return net.fit(DataSet(x, y)).score_
         return net.output(x).float().cpu().numpy()
 
     for _ in range(10):
@@ -139,7 +160,8 @@ def main() -> int:
     mode = "bf16" if args.mixed else "f32"
     tag = f"({card}; {args.model}, batch {batch}, " \
           f"{'bf16 activations' if args.mixed else 'float32, ' + ops})"
-    print(f"[profile] untraced wall per served batch: {wall_ms:.3f} ms = "
+    what = "step" if args.model == "train-lm" else "served batch"
+    print(f"[profile] untraced wall per {what}: {wall_ms:.3f} ms = "
           f"{batch * per_row / wall_ms * 1e3:.1f} {unit} {tag}")
     if device_us == 0:
         print("[profile] the profiler recorded no device time: device "

@@ -4,8 +4,11 @@ not reach (bn_act: ragged row counts, channel counts that are not a
 multiple of the vector width, unaligned views; flash_attention: ragged t,
 t = 1, non-causal, every head dim, the lse output; lstm_scan: masks with a
 fully masked row, ragged b and n, long t, n past the shared-memory resident
-width, the cap on n), the attention layer's routing to the kernel, and
-`rnn_time_step` on the card against `output`.
+width, the cap on n), the attention layer's routing to the kernel,
+`rnn_time_step` on the card against `output`; the training kernels
+(flash-attention dq and dk/dv, the fused linear + softmax cross-entropy
+forward and backward, including the backward's device-side choice of
+path) and one `fit` step of a small TransformerLM against the CPU.
 
 Marked `cuda`; they skip where torch.cuda.is_available() is False. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -27,11 +30,16 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch import dtypes
+from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.models.multi_layer_network import flat_items
 from deeplearning4j_tpu_torch.nn import inputs as it
 from deeplearning4j_tpu_torch.nn.layers import MultiHeadAttention
 from deeplearning4j_tpu_torch.ops.bn_act import bn_act, bn_act_reference
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_reference,
     flash_attention_reference,
 )
 from deeplearning4j_tpu_torch.ops.lstm import (
@@ -40,7 +48,15 @@ from deeplearning4j_tpu_torch.ops.lstm import (
     lstm_scan_peephole,
     lstm_scan_reference,
 )
-from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+from deeplearning4j_tpu_torch.ops.xent_kernel import (
+    linear_xent_bwd,
+    linear_xent_bwd_reference,
+    linear_xent_fwd,
+    linear_xent_fwd_reference,
+    linear_xent_reference,
+    linear_xent_rows,
+)
+from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM, TransformerLM
 
 ULP = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7}
 
@@ -294,3 +310,216 @@ def test_rnn_time_step_on_the_card_equals_output(cuda):
     assert steps.is_cuda and steps.shape == full.shape
     assert float((steps - full).abs().max()) <= 1e-5
     assert float((chunks - full).abs().max()) <= 1e-5
+
+
+# ------------------------------------------------ flash-attention backward
+# dq, dk, dv against the plain formulas on the same inputs: float32 1e-4 of
+# max(1, the plain gradient's largest magnitude) (sums over up to t keys or
+# queries in another order, and dS = P * (dP - delta) cancels: at t = 1 dq
+# is 0 up to that rounding), bfloat16 1e-2 (one rounding of the float32
+# result to bfloat16 apart)
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _flash_bwd_check(cuda, shape, causal, dtype):
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + 1)
+    q, k, v, do = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                   for _ in range(4))
+    o, lse = flash_attention(q, k, v, causal, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    before = (flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    ref = flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    for name, got, want in zip("qkv", (dq, dk, dv), ref):
+        assert got.dtype == dtype and got.shape == q.shape and got.is_cuda
+        err = float((got.float() - want.float()).abs().max())
+        mag = max(1.0, float(want.float().abs().max()))
+        assert err <= FLASH_BWD_TOL[dtype] * mag, (name, err, mag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal", [
+    ((16, 8, 512, 64), True),      # TransformerLM training
+    ((2, 8, 512, 64), False),
+    ((2, 3, 200, 64), True),       # ragged t
+    ((2, 3, 1, 64), True),         # t = 1
+    ((1, 2, 65, 16), False),
+    ((2, 2, 130, 32), True),
+    ((2, 2, 127, 128), True),
+    ((1, 1, 64, 128), False),
+])
+def test_flash_bwd_kernels_match_plain_version(cuda, shape, causal, dtype):
+    _flash_bwd_check(cuda, shape, causal, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_on_the_card_launches_both_backward_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(2, 4, 96, 32, generator=g, device=cuda)
+               .requires_grad_() for _ in range(3))
+    before = (flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches)
+    flash_attention(q, k, v, True).square().sum().backward()
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    qc, kc, vc = (a.detach().cpu().requires_grad_() for a in (q, k, v))
+    flash_attention_reference(qc, kc, vc, True).square().sum().backward()
+    for got, want in ((q.grad, qc.grad), (k.grad, kc.grad),
+                      (v.grad, vc.grad)):
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+
+
+# --------------------------------------------------------- linear xent
+# each output within its tolerance times the plain output's largest
+# magnitude (1 where that output is all zero): forward outputs (float32
+# even for bfloat16 x and W: the products are exact in float32) 1e-4 (sums
+# over d and over the vocabulary in another order); idx and the one-hot
+# flag exact; backward dx and dz 1e-4 (float32) or 1e-2 (bfloat16, one
+# rounding apart), db 1e-4
+XENT_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _xent_inputs(cuda, n, d, v, dtype, labels, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, d, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(d, v, generator=g, device=cuda) * d ** -0.5).to(dtype)
+    b = torch.randn(v, generator=g, device=cuda) * 0.1
+    ids = torch.randint(0, v, (n,), generator=g, device=cuda)
+    t = torch.nn.functional.one_hot(ids, v).float()
+    if labels == "soft":
+        t = torch.rand(n, v, generator=g, device=cuda) * 0.01
+    elif labels == "mixed":
+        r = min(3, n - 1)
+        t[r] = 0.9 * t[r] + 0.1 / v     # one smoothed row
+    return x, w, b, t
+
+
+def _close(got, want, tol):
+    err = float((got.float() - want.float()).abs().max())
+    return err <= tol * (float(want.float().abs().max()) or 1.0), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("labels", ["onehot", "soft", "mixed"])
+@pytest.mark.parametrize("n,d,v", [(512, 128, 2048), (100, 70, 333),
+                                   (64, 512, 8192), (1, 16, 5)])
+def test_xent_kernels_match_plain_version(cuda, n, d, v, dtype, labels):
+    x, w, b, t = _xent_inputs(cuda, n, d, v, dtype, labels, seed=n + v)
+    before = (linear_xent_fwd.launches, linear_xent_bwd.launches)
+    got = linear_xent_fwd(x, w, b, t)
+    ref = linear_xent_fwd_reference(x, w, b, t)
+    for name, a, r in zip(("per_row", "lse", "T"), got[:3], ref[:3]):
+        ok, err = _close(a, r, 1e-4)
+        assert ok and a.dtype == torch.float32, (name, err)
+    assert torch.equal(got[3], ref[3]) and torch.equal(got[4], ref[4])
+    assert float(got[4].min()) == (1.0 if labels == "onehot" else 0.0)
+    g = torch.rand(n, generator=torch.Generator(device=cuda).manual_seed(1),
+                   device=cuda)
+    flag = got[4].amin().reshape(())
+    dx, dz, db = linear_xent_bwd(x, w, b, t, got[3], flag, got[1], got[2], g)
+    rdx, rdz, rdb = linear_xent_bwd_reference(x, w, b, t, got[1], got[2], g)
+    torch.cuda.synchronize()
+    assert (linear_xent_fwd.launches, linear_xent_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert dx.dtype == dz.dtype == dtype and db.dtype == torch.float32
+    for name, a, r, tol in (("dx", dx, rdx, XENT_TOL[dtype]),
+                            ("dz", dz, rdz, XENT_TOL[dtype]),
+                            ("db", db, rdb, 1e-4)):
+        ok, err = _close(a, r, tol)
+        assert ok and a.shape == r.shape, (name, err)
+
+
+@pytest.mark.cuda
+def test_xent_backward_branches_on_the_device_flag(cuda):
+    """With the flag at 1 the kernel rebuilds one-hot rows from idx and
+    reads no labels: zeroed labels change nothing. At 0 it reads them."""
+    x, w, b, t = _xent_inputs(cuda, 256, 64, 1000, torch.float32, "onehot")
+    per_row, lse, ts, idx, oh = linear_xent_fwd(x, w, b, t)
+    g = torch.ones(256, device=cuda)
+    want = linear_xent_bwd_reference(x, w, b, t, lse, ts, g)
+    junk = torch.zeros_like(t)
+    one = torch.ones((), device=cuda)
+    dx, dz, db = linear_xent_bwd(x, w, b, junk, idx, one, lse, ts, g)
+    assert _close(dz, want[1], 1e-4)[0] and _close(dx, want[0], 1e-4)[0]
+    dx0, dz0, _ = linear_xent_bwd(x, w, b, junk, idx, one * 0, lse, ts, g)
+    assert not _close(dz0, want[1], 1e-4)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_xent_rows_autograd_on_the_card(cuda, dtype):
+    x, w, b, t = _xent_inputs(cuda, 300, 96, 777, dtype, "mixed", seed=5)
+    wt = torch.linspace(0, 1, 300, device=cuda)
+    leaves = [a.clone().requires_grad_() for a in (x, w, b)]
+    before = (linear_xent_fwd.launches, linear_xent_bwd.launches)
+    with dtypes.full_precision():  # dW = x^T . dz without TF32
+        (linear_xent_rows(*leaves, t) * wt).sum().backward()
+    assert (linear_xent_fwd.launches, linear_xent_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    cpu = [a.detach().cpu().float().requires_grad_() for a in (x, w, b)]
+    (linear_xent_reference(*cpu, t.cpu()) * wt.cpu()).sum().backward()
+    for a, r in zip(leaves, cpu):
+        assert a.grad.dtype == a.dtype
+        ok, err = _close(a.grad.cpu(), r.grad, XENT_TOL[dtype])
+        assert ok, err
+
+
+# ------------------------------------------------------------ training
+@pytest.mark.cuda
+def test_one_fit_step_on_the_card_matches_the_cpu(cuda):
+    """One Adam step of a small TransformerLM (TF32 off) on the card and on
+    the CPU from the same seed: scores within 1e-5 relative, the Adam m
+    slots within 1e-4 of each leaf's largest magnitude, each param's
+    change from its start within 1e-5 (the step moves an element by up to
+    lr = 3e-4). An element whose CPU RMS gradient is below 1e-6 of the
+    network's largest has a true gradient of zero (the key bias, to which
+    softmax is invariant): Adam moves it on rounding noise alone, so it is
+    held only to Adam's bound of lr. The step launches each kernel of the
+    path."""
+    cfg = dict(num_classes=512, max_length=64, d_model=64, n_heads=4,
+               n_layers=2)
+    g = torch.Generator().manual_seed(11)
+    ids = torch.randint(0, 512, (4, 65), generator=g)
+    x = ids[:, :64].to(torch.int32)
+    y = torch.nn.functional.one_hot(ids[:, 1:], 512).float()
+    card = TransformerLM(**cfg, seed=3).init()
+    cpu = TransformerLM(**cfg, seed=3).init(device="cpu")
+    counters = (flash_attention, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv, linear_xent_fwd, linear_xent_bwd)
+    before = [c.launches for c in counters]
+    start = {k: v.copy() for k, v in cpu.get_param_table().items()}
+    with dtypes.full_precision():
+        card.fit(DataSet(x.to(cuda), y.to(cuda)))
+        cpu.fit(DataSet(x, y))
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 2,
+                                                                  1, 1]
+    assert abs(card.score_ - cpu.score_) <= 1e-5 * abs(cpu.score_)
+    tc, tp = card.get_param_table(), cpu.get_param_table()
+    rms = {f"layer_{i}/{path}": v.sqrt().numpy()
+           for i, b in enumerate(cpu.opt_state) if b
+           for path, v in flat_items(b["v"])}
+    floor = 1e-6 * max(float(r.max()) for r in rms.values())
+    for k in tp:
+        zero = rms[k] <= floor
+        got, want = tc[k] - start[k], tp[k] - start[k]
+        assert float(abs(got - want)[~zero].max(initial=0)) <= 1e-5, k
+        assert float(abs(got)[zero].max(initial=0)) <= 1.01 * 3e-4, k
+    for a, b in zip(card.opt_state, cpu.opt_state):
+        if not a:
+            continue
+        assert int(a["t"]) == int(b["t"]) == 1
+        for path, leaf in flat_items(b["m"]):
+            got = dict(flat_items(a["m"]))[path].cpu()
+            assert float((got - leaf).abs().max()) <= 1e-4 * max(
+                float(leaf.abs().max()), 1e-30)

@@ -1,0 +1,158 @@
+"""The port's flash-attention backward (deeplearning4j_tpu_torch/ops/
+flash_attention.py: the dq and dk/dv kernels' plain formulas, which the CPU
+runs) against the JAX package's Pallas pair `_flash_bwd_dq_kernel` /
+`_flash_bwd_dkv_kernel`, run as the JAX tests run them on the CPU
+(interpret mode, blocks bq = bk = 16).
+
+Inputs (q, k, v and the output cotangent dO) are made with numpy from a seed
+and handed to both packages. Tolerances, relative to the largest magnitude
+of the expected gradient:
+  - through autograd (jax.vjp of pk.flash_attention against loss.backward
+    of the port's flash_attention): float32 1e-5 (sums in another order;
+    the Pallas forward's online softmax against the plain version's whole
+    row feeds o and lse to the backward), bfloat16 2e-2 (o rounded to
+    bfloat16 at another running max in each program, which moves delta);
+  - the backward formulas alone, on the same o and lse: float32 1e-5,
+    bfloat16 1e-2 (one bfloat16 rounding of the result apart).
+"""
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.ops import pallas_kernels as pk
+from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+DTYPES = {"float32": (np.float32, torch.float32),
+          "bfloat16": (ml_dtypes.bfloat16, torch.bfloat16)}
+TOL_GRAD = {"float32": 1e-5, "bfloat16": 2e-2}
+TOL_FORMULA = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _arrays(shape, dtype, seed, n=4):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(DTYPES[dtype][0])
+            for _ in range(n)]
+
+
+def _t(a, dtype):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(DTYPES[dtype][1])
+
+
+def _rel(got, want):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+def _jax_grads(q, k, v, do, causal):
+    def f(q_, k_, v_):
+        return pk.flash_attention(q_, k_, v_, causal, None, 16, 16, True)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    return vjp(jnp.asarray(do))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t,d", [(16, 16), (32, 16), (32, 64), (64, 32)])
+def test_autograd_matches_pallas_interpret(dtype, causal, t, d):
+    q, k, v, do = _arrays((2, 3, t, d), dtype, seed=t * 7 + d)
+    want = _jax_grads(q, k, v, do, causal)
+    tq, tk, tv = (_t(a, dtype).requires_grad_() for a in (q, k, v))
+    o = fa.flash_attention(tq, tk, tv, causal)
+    o.backward(_t(do, dtype))
+    for name, got, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        assert got.dtype == DTYPES[dtype][1], name
+        assert _rel(got, np.asarray(w, np.float32)) < TOL_GRAD[dtype], (
+            name, _rel(got, np.asarray(w, np.float32)))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+def test_formulas_match_pallas_on_the_same_residuals(dtype, causal):
+    """The dq and dk/dv wrappers (CPU: the plain formulas) against
+    `pk._flash_bwd` given the same o and lse, so only the backward's own
+    arithmetic is compared; dq's single factor of scale and dk's pre-scaled
+    q included (d = 32: the scale is not a bfloat16 number)."""
+    q, k, v, do = _arrays((2, 2, 32, 32), dtype, seed=5)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    o, lse = pk._flash_fwd(jq, jk, jv, causal=causal, scale=32 ** -0.5,
+                           bq=16, bk=16, interpret=True, return_lse=True)
+    want = pk._flash_bwd(jq, jk, jv, o, lse, jdo, causal=causal,
+                         scale=32 ** -0.5, bq=16, bk=16, interpret=True)
+    tq, tk, tv, tdo = (_t(a, dtype) for a in (q, k, v, do))
+    to = _t(np.asarray(o, np.float32), dtype)
+    tlse = torch.from_numpy(np.asarray(lse, np.float32))
+    delta = (tdo.float() * to.float()).sum(-1)
+    dq = fa.flash_attention_bwd_dq(tq, tk, tv, tdo, tlse, delta, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(tq, tk, tv, tdo, tlse, delta, causal)
+    ref = fa.flash_attention_bwd_reference(tq, tk, tv, to, tlse, tdo, causal)
+    for name, got, r, w in zip("qkv", (dq, dk, dv), ref, want):
+        w = np.asarray(w, np.float32)
+        assert _rel(got, w) < TOL_FORMULA[dtype], (name, _rel(got, w))
+        assert torch.equal(got, r), name
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ragged_t_matches_autograd_of_the_plain_forward(causal):
+    """t = 13 (no multiple of any tile): the JAX layer sends such lengths
+    to sdpa, so the port's backward is held against autograd through its
+    own plain forward, which differentiates the same function."""
+    q, k, v, do = _arrays((2, 3, 13, 16), "float32", seed=13)
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_reference):
+        tq, tk, tv = (_t(a, "float32").requires_grad_() for a in (q, k, v))
+        fn(tq, tk, tv, causal).backward(_t(do, "float32"))
+        grads.append((tq.grad, tk.grad, tv.grad))
+    for got, want in zip(*grads):
+        assert _rel(got, want.numpy()) < 1e-5
+
+
+def test_lse_output_is_not_differentiable_and_o_still_is():
+    q, k, v, do = _arrays((1, 2, 16, 16), "float32", seed=3)
+    tq, tk, tv = (_t(a, "float32").requires_grad_() for a in (q, k, v))
+    o, lse = fa.flash_attention(tq, tk, tv, True, return_lse=True)
+    assert o.requires_grad and not lse.requires_grad
+    o.backward(_t(do, "float32"))
+    want = _jax_grads(q, k, v, do, True)
+    assert _rel(tq.grad, np.asarray(want[0])) < 1e-5
+
+
+def test_backward_launches_stay_zero_on_cpu():
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    q, k, v, do = _arrays((1, 2, 16, 16), "float32", seed=4)
+    tq = _t(q, "float32").requires_grad_()
+    fa.flash_attention(tq, _t(k, "float32"), _t(v, "float32")).backward(
+        _t(do, "float32"))
+    assert tq.grad is not None
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == before
+
+
+@pytest.mark.parametrize("bad", ["do_shape", "do_dtype", "lse_dtype",
+                                 "delta_shape", "do_transposed"])
+def test_backward_wrappers_refuse_what_they_do_not_take(bad):
+    q, k, v, do = (_t(a, "float32")
+                   for a in _arrays((1, 2, 8, 16), "float32", seed=1))
+    lse = torch.zeros(1, 2, 8)
+    delta = torch.zeros(1, 2, 8)
+    if bad == "do_shape":
+        do = do[:, :, :4]
+    elif bad == "do_dtype":
+        do = do.double()
+    elif bad == "lse_dtype":
+        lse = lse.double()
+    elif bad == "delta_shape":
+        delta = delta[..., :4]
+    else:
+        do = _t(_arrays((1, 8, 2, 16), "float32", seed=2)[0],
+                "float32").transpose(1, 2)
+    for fn in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError):
+            fn(q, k, v, do, lse, delta)
