@@ -40,8 +40,9 @@ Phases, in order; any failure exits non-zero without the final line:
               exact float32) against the card with TF32 off, layer by layer
               on 2 x 128 token ids.
   7. kernel-lstm  lstm_scan against its plain version on the card at the
-              TextGenerationLSTM path's shapes (served (64, 64, 256)
-              peephole, rnn_time_step (64, 1, 256)) and at edge cases
+              TextGenerationLSTM path's shapes (served and trained (64, 64,
+              256) peephole, rnn_time_step (64, 1, 256), the tBPTT window
+              (32, 50, 256)) and at edge cases
               (plain cell, masked with a fully masked row, ragged (3, 7,
               12), long t (8, 1024, 256), wide n (16, 64, 512)), float32
               and bfloat16, nonzero h0/c0: max error against the stated
@@ -75,8 +76,11 @@ Phases, in order; any failure exits non-zero without the final line:
               backward) against their plain versions at the training shape
               (8192 rows, d 512, vocab 8192) with one-hot labels (the
               backward's index path), soft labels and one smoothed row (the
-              dense path), at a ragged shape, float32 and bfloat16; library
-              F.cross_entropy(x @ W + b, idx) forward and backward.
+              dense path), at a ragged shape, at the char-RNN training
+              paths' shapes (4096, 1600 and 32768 rows, d 256, 77
+              characters: less than one vocabulary tile), float32 and
+              bfloat16; library F.cross_entropy(x @ W + b, idx) forward and
+              backward.
  13. train-lm     zoo TransformerLM at full width (vocab 8192, 512 tokens,
               d_model 512, 8 heads, 6 blocks), Adam(3e-4), trained by
               MultiLayerNetwork.fit for 20 steps on one repeated batch of
@@ -91,6 +95,41 @@ Phases, in order; any failure exits non-zero without the final line:
               3 Adam steps on 2 x 128 tokens, on the CPU (plain versions,
               exact float32) and on the card (TF32 off): per-step scores,
               params and Adam slots agree within the stated tolerances.
+ 15. kernel-lstm-bwd  the fused LSTM backward (lstm_scan_bwd), the
+              time-chunked forward (lstm_scan_chunked) and the chunked
+              backward (lstm_scan_chunked_bwd) against their plain versions
+              at the training paths' shapes ((64, 64, 256) and the tBPTT
+              window (32, 50, 256) peephole, (8, 4096, 256)) and at edge
+              cases (plain cell, masked, ragged (3, 7, 12), t = 1, a ragged
+              last chunk at t = 1000, n = 512 and 1024), float32 and
+              bfloat16, nonzero h0/c0, cotangents of order 1: each output
+              against its tolerance x its largest magnitude (a zeroed dzx,
+              dR or dp must fail), kernel / plain / library (torch.nn.LSTM
+              backward, cuDNN, plain cell) times, us per step, the bound.
+ 16. train-rnn    zoo TextGenerationLSTM at full width (two GravesLSTM(256),
+              77 characters), RmsProp(1e-2), l2 1e-4, trained by
+              MultiLayerNetwork.fit for 20 BPTT steps on one repeated batch
+              of 64 x 64 one-hot characters, then 5 more under the mixed
+              policy: loss finite every step and lower at the end of each
+              run, step time, trained characters/s, peak memory; per step 2
+              lstm_scan, 2 lstm_scan_bwd, 1 xent forward, 1 xent backward
+              and nothing else.
+ 17. train-rnn-tbptt  the same network with tBPTT windows of 50 on one
+              batch of 32 x 1000 characters: 20 iterations, per window the
+              launches of train-rnn; score per window, time per window.
+ 18. train-rnn-long  standard BPTT at 8 x 4096 characters, 10 steps, inside
+              the chunked regime: per step 2 lstm_scan_chunked, 2
+              lstm_scan_chunked_bwd, 1 + 1 xent and no lstm_scan or
+              lstm_scan_bwd.
+ 19. refer-train-rnn  the same seeded network on the CPU (plain versions,
+              exact float32) and on the card (TF32 off): 3 BPTT steps at
+              2 x 64, tBPTT at 2 x 100 in windows of 50, 3 steps at 2 x
+              1024 on the chunked route; scores, each param's change and
+              the RmsProp slots within the stated tolerances.
+
+The characters the training phases learn are drawn with Zipf frequencies,
+so that a falling loss shows learning; their shapes are bench.py
+bench_lstm's.
 
 Every kernel's launch count is set to 0 just before each serve phase, the
 generation run and each training run, and read just after. The last lines are the kernels
@@ -161,6 +200,13 @@ KERNELS = {
                         "deeplearning4j_tpu/ops/xent_kernel.py:174"),
     "linear_xent_bwd": ("cuda", "deeplearning4j_tpu_torch/csrc/linear_xent.cu",
                         "deeplearning4j_tpu/ops/xent_kernel.py:277"),
+    "lstm_scan_bwd": ("cuda", "deeplearning4j_tpu_torch/csrc/lstm_scan_bwd.cu",
+                      "deeplearning4j_tpu/ops/pallas_kernels.py:799"),
+    "lstm_scan_chunked": ("cuda", "deeplearning4j_tpu_torch/csrc/lstm_scan.cu",
+                          "deeplearning4j_tpu/ops/pallas_kernels.py:1164"),
+    "lstm_scan_chunked_bwd": (
+        "cuda", "deeplearning4j_tpu_torch/csrc/lstm_scan_bwd.cu",
+        "deeplearning4j_tpu/ops/pallas_kernels.py:1241"),
 }
 SOURCES = sorted({os.path.basename(src)[:-len(".cu")]
                   for _, src, _ in KERNELS.values()})
@@ -208,16 +254,19 @@ def device_ms(torch, fn, nbuf: int, iters: int = ITERS) -> float:
 def wrappers():
     """Each kernel's wrapper, which counts its launches."""
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
     from deeplearning4j_tpu_torch.ops import xent_kernel as xk
     from deeplearning4j_tpu_torch.ops.bn_act import bn_act
-    from deeplearning4j_tpu_torch.ops.lstm import lstm_scan
 
     return {"bn_act": bn_act, "flash_attention": fa.flash_attention,
-            "lstm_scan": lstm_scan,
+            "lstm_scan": lstm_ops.lstm_scan,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
             "linear_xent_fwd": xk.linear_xent_fwd,
-            "linear_xent_bwd": xk.linear_xent_bwd}
+            "linear_xent_bwd": xk.linear_xent_bwd,
+            "lstm_scan_bwd": lstm_ops.lstm_scan_bwd,
+            "lstm_scan_chunked": lstm_ops.lstm_scan_chunked,
+            "lstm_scan_chunked_bwd": lstm_ops.lstm_scan_chunked_bwd}
 
 
 def reset_counts():
@@ -678,6 +727,7 @@ LSTM_CASES = [
     (64, 64, 256, True, False),     # TextGenerationLSTM serving, 2 per fwd
     (64, 1, 256, True, False),      # rnn_time_step, 2 per call
     (64, 64, 256, False, False),    # plain cell (LSTM)
+    (32, 50, 256, True, False),     # a tBPTT window of the training path
     (8, 64, 256, True, True),       # ragged lengths, one row fully masked
     (3, 7, 12, True, True),         # ragged small
     (8, 1024, 256, False, False),   # long t (the JAX chunked kernel's)
@@ -1145,6 +1195,11 @@ XENT_CASES = [
     (8192, 512, 8192, "soft", "bfloat16"),
     (1000, 200, 3001, "onehot", "float32"),   # ragged n, d and v
     (1000, 200, 3001, "mixed", "bfloat16"),
+    # the char-RNN training paths: V = 77 is less than one vocabulary tile
+    (4096, 256, 77, "onehot", "float32"),     # BPTT step, 64 x 64
+    (4096, 256, 77, "onehot", "bfloat16"),    # its mixed-precision steps
+    (1600, 256, 77, "onehot", "float32"),     # a tBPTT window, 32 x 50
+    (32768, 256, 77, "onehot", "float32"),    # long sequences, 8 x 4096
 ]
 # each output x max|plain| of that output (1 where the plain output is all
 # zero): forward outputs (float32 for both dtypes: the products are exact in
@@ -1451,6 +1506,521 @@ def phase_refer_train(torch, np):
         f"(tol 1e-4); t = {steps} on both")
 
 
+# ---------------------------------------------------------------- phase 15
+# (b, t, n, peephole, masked): the training paths' shapes first, then the
+# edge cases
+LSTM_BWD_CASES = [
+    (64, 64, 256, True, False),     # BPTT step: 2 of rows 5 and 6 per step
+    (32, 50, 256, True, False),     # one tBPTT window
+    (8, 4096, 256, True, False),    # long sequences: 2 of rows 7 and 8
+    (64, 64, 256, False, False),    # plain cell (LSTM)
+    (8, 64, 256, True, True),       # ragged, one row fully masked, one
+                                    # masked in the middle of its sequence
+    (3, 7, 12, True, True),         # ragged small
+    (8, 1, 256, True, False),       # t = 1
+    (8, 1000, 256, True, False),    # a ragged last chunk: 1000 = 15 x 64 + 40
+    (16, 64, 512, True, False),     # wide n: R read from L2 every step
+    (8, 64, 1024, True, False),     # n at the kernels' cap
+]
+# x max|plain| of each output (1 where it is all zero). Float32 outputs:
+# forward (hs, hT, cT, hck, cck) 1e-5, as lstm_scan; backward (dR, dp, dh0,
+# dc0, float32 dzx) 1e-4: sums over b t terms and two chains of t steps in
+# another order. Bfloat16 outputs: 2e-2 forward, 1e-2 dzx (one rounding of
+# the float32 value apart).
+LSTM_BWD_TOL = {("fwd", "float32"): 1e-5, ("fwd", "bfloat16"): 2e-2,
+                ("bwd", "float32"): 1e-4, ("bwd", "bfloat16"): 1e-2}
+LSTM_PATH_CASES = {"lstm_scan_bwd": LSTM_BWD_CASES[0],
+                   "lstm_scan_chunked": LSTM_BWD_CASES[2],
+                   "lstm_scan_chunked_bwd": LSTM_BWD_CASES[2]}
+
+
+def lstm_bwd_inputs(torch, gen, b, t, n, dtype, peephole, masked):
+    """lstm_case_inputs (one row fully masked when masked, and one more
+    masked in the middle of its sequence), cotangents of order 1 and the
+    chunked forward's hs, hck and cck."""
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+
+    zx, R, p, h0, c0, m = lstm_case_inputs(torch, gen, b, t, n, dtype,
+                                           peephole, masked)
+    if masked:
+        r = min(4, b - 1)
+        m[r] = 1.0
+        m[r, t // 3:2 * t // 3] = 0.0
+    g = tuple(torch.randn(s, generator=gen, device=zx.device).to(dtype)
+              for s in ((b, t, n), (b, n), (b, n)))
+    fwd = lstm_ops.lstm_scan_chunked_forward(zx, R, h0, c0, p, m)
+    return {"zx": zx, "R": R, "p": p, "h0": h0, "c0": c0, "m": m, "g": g,
+            "fwd": fwd}
+
+
+def lstm_disagrees(a, r, tol):
+    """(max abs error, limit) of `a` against `r` at tol x max|r|; the limit
+    is None when they agree."""
+    err = float((a.float() - r.float()).abs().max()) if a.numel() else 0.0
+    mag = (float(r.float().abs().max()) if r.numel() else 0.0) or 1.0
+    ok = a.shape == r.shape and a.dtype == r.dtype and err <= tol * mag
+    return err, None if ok else tol * mag
+
+
+def lstm_bwd_check(kname, names, got, ref, kind, where):
+    """Each output of `got` against `ref`; returns the largest abs error."""
+    worst = 0.0
+    for name, a, r in zip(names, got, ref):
+        if r is None:
+            if a is not None:
+                raise AssertionError(f"{kname} {name}: got a tensor for none")
+            continue
+        tol = LSTM_BWD_TOL[(kind, str(r.dtype)[6:])]
+        err, limit = lstm_disagrees(a, r, tol)
+        if limit is not None:
+            raise AssertionError(
+                f"{kname} {name} disagrees with its plain version at {where}:"
+                f" max err {err:.3g}, limit {limit:.3g} ({a.dtype} "
+                f"{tuple(a.shape)} vs {r.dtype} {tuple(r.shape)})")
+        worst = max(worst, err)
+    return worst
+
+
+def lstm_library_bwd_ms(torch, b, t, n):
+    """torch.nn.LSTM's backward (cuDNN, plain cell, its input projection's
+    backward included) at (b, t, n), input width n, float32, TF32 off:
+    one autograd.grad of its output, hT and cT."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lstm = torch.nn.LSTM(n, n, batch_first=True).to(dev)
+    nbuf = max(1, min(8, math.ceil(2 * L2_BYTES / (b * t * n * 4 * 3))))
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = []
+        for _ in range(nbuf):
+            x = torch.randn((b, t, n), generator=gen, device=dev,
+                            requires_grad=True)
+            h0, c0 = (torch.randn((1, b, n), generator=gen, device=dev,
+                                  requires_grad=True) for _ in range(2))
+            with torch.enable_grad():
+                out, (hT, cT) = lstm(x, (h0, c0))
+            gs = [torch.randn_like(o) for o in (out, hT, cT)]
+            runs.append(([out, hT, cT], [x, h0, c0, *lstm.parameters()], gs))
+        return device_ms(torch, lambda i: torch.autograd.grad(
+            runs[i][0], runs[i][1], runs[i][2], retain_graph=True), nbuf,
+            iters=max(3, min(ITERS, 6400 // t)))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def phase_lstm_bwd(torch, bw, peak):
+    """Rows 6 (lstm_scan_bwd), 7 (lstm_scan_chunked) and 8
+    (lstm_scan_chunked_bwd) against their plain versions at LSTM_BWD_CASES,
+    float32 and bfloat16, from the same inputs (row 6 reads the chunked
+    forward's hs, row 8 its checkpoints). Returns each kernel's float32 row
+    at its path's shape (per launch) and its largest absolute error."""
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names_fwd = ("hs", "hT", "cT", "hck", "cck")
+    names_bwd = ("dzx", "dR", "dp", "dh0", "dc0")
+    rows, worst, checked = {}, dict.fromkeys(LSTM_PATH_CASES, 0.0), 0
+    for case in LSTM_BWD_CASES:
+        b, t, n, peephole, masked = case
+        nt = -(-t // lstm_ops.CHUNK)
+        lib_ms = (lstm_library_bwd_ms(torch, b, t, n)
+                  if case in LSTM_PATH_CASES.values() else None)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            item = torch.empty((), dtype=dtype).element_size()
+            set_bytes = b * t * 7 * n * item + 4 * n * n * item
+            nbuf = max(1, min(16, math.ceil(2 * L2_BYTES / set_bytes)))
+            sets = [lstm_bwd_inputs(torch, gen, b, t, n, dtype, peephole,
+                                    masked) for _ in range(nbuf)]
+
+            def row6(s):
+                return lstm_ops.lstm_scan_bwd(s["zx"], s["R"], s["h0"],
+                                              s["c0"], s["fwd"][0], *s["g"],
+                                              s["p"], s["m"])
+
+            def row7(s):
+                return lstm_ops.lstm_scan_chunked_forward(
+                    s["zx"], s["R"], s["h0"], s["c0"], s["p"], s["m"])
+
+            def row8(s):
+                return lstm_ops.lstm_scan_chunked_bwd(
+                    s["zx"], s["R"], s["fwd"][3], s["fwd"][4], *s["g"],
+                    s["p"], s["m"])
+
+            def plain6(s):
+                return lstm_ops.lstm_scan_backward_reference(
+                    s["zx"], s["R"], s["h0"], s["c0"], s["fwd"][0], *s["g"],
+                    s["p"], s["m"])
+
+            def plain7(s):
+                return lstm_ops.lstm_scan_chunked_reference(
+                    s["zx"], s["R"], s["h0"], s["c0"], s["p"], s["m"])
+
+            def plain8(s):
+                return lstm_ops.lstm_scan_chunked_backward_reference(
+                    s["zx"], s["R"], s["fwd"][3], s["fwd"][4], *s["g"],
+                    s["p"], s["m"])
+
+            s = sets[0]
+            where = (f"b={b} t={t} n={n} peephole={peephole} "
+                     f"masked={masked} {dname}")
+            got6, got8 = row6(s), row8(s)
+            ref6, ref7, ref8 = plain6(s), plain7(s), plain8(s)
+            torch.cuda.synchronize()
+            errs = {
+                "lstm_scan_chunked": lstm_bwd_check(
+                    "lstm_scan_chunked", names_fwd, s["fwd"], ref7, "fwd",
+                    where),
+                "lstm_scan_bwd": lstm_bwd_check(
+                    "lstm_scan_bwd", names_bwd, got6, ref6, "bwd", where),
+                "lstm_scan_chunked_bwd": lstm_bwd_check(
+                    "lstm_scan_chunked_bwd", names_bwd, got8, ref8, "bwd",
+                    where)}
+            for k, e in errs.items():
+                worst[k] = max(worst[k], e)
+            if masked:
+                # the fully masked row passes its carry's cotangent through
+                for got in (got6, got8):
+                    if not (torch.equal(got[3][1], s["g"][1][1].float())
+                            and torch.equal(got[4][1], s["g"][2][1].float())):
+                        raise AssertionError(
+                            "lstm backward: the fully masked row did not "
+                            "pass g_hT, g_cT through to dh0, dc0")
+            if checked == 0:
+                # the comparison must see a broken backward
+                for i, name in ((0, "dzx"), (1, "dR"), (2, "dp")):
+                    zeroed = torch.zeros_like(got6[i])
+                    tol = LSTM_BWD_TOL[("bwd", str(zeroed.dtype)[6:])]
+                    if lstm_disagrees(zeroed, ref6[i], tol)[1] is None:
+                        raise AssertionError(f"kernel-lstm-bwd cannot tell a "
+                                             f"zeroed {name} from the plain "
+                                             f"backward")
+            checked += 1
+            del got6, got8, ref6, ref7, ref8
+
+            k_iters = max(3, min(ITERS, 6400 // t))
+            ms = {"lstm_scan_bwd": device_ms(
+                      torch, lambda i: row6(sets[i]), nbuf, k_iters),
+                  "lstm_scan_chunked": device_ms(
+                      torch, lambda i: row7(sets[i]), nbuf, k_iters),
+                  "lstm_scan_chunked_bwd": device_ms(
+                      torch, lambda i: row8(sets[i]), nbuf, k_iters)}
+            plain_ms = dict.fromkeys(ms)
+            if dtype == torch.float32:
+                # the plain versions launch thousands of small kernels
+                # one at a time: a few calls
+                p_iters = max(1, min(10, 640 // t))
+                for k, fn in (("lstm_scan_bwd", plain6),
+                              ("lstm_scan_chunked", plain7),
+                              ("lstm_scan_chunked_bwd", plain8)):
+                    plain_ms[k] = device_ms(torch, lambda i: fn(sets[i]),
+                                            nbuf, p_iters)
+            # the kernels form every product in float32, for both dtypes
+            fwd_ops = 2 * b * t * n * 4 * n
+            p_bytes = 3 * n * item if peephole else 0
+            m_bytes = 4 * b * t if masked else 0
+            ck_bytes = 2 * nt * b * n * 4
+            common = (b * t * 4 * n + 4 * n * n + b * t * n + 2 * b * n) \
+                * item + p_bytes + m_bytes           # zx, R, g_hs, g_hT/cT
+            grads = b * t * 4 * n * item + (4 * n * n + 3 * n + 2 * b * n) * 4
+            work = {
+                "lstm_scan_bwd": (
+                    3 * fwd_ops, common + (b * t * n + 2 * b * n) * item
+                    + grads),
+                "lstm_scan_chunked": (
+                    fwd_ops, (b * t * 4 * n + 4 * n * n + 2 * b * n) * item
+                    + p_bytes + m_bytes + (b * t * n + 2 * b * n) * item
+                    + ck_bytes),
+                "lstm_scan_chunked_bwd": (
+                    3 * fwd_ops, common + ck_bytes + grads)}
+            for k, (ops, moved) in work.items():
+                b_ms = max(moved / bw, ops / peak) * 1e3
+                by = "bytes" if moved / bw >= ops / peak else "operations"
+                lib = lib_ms if k != "lstm_scan_chunked" else None
+                pl = "-" if plain_ms[k] is None else f"{plain_ms[k]:.4f} ms"
+                lib_s = ("none (peepholes)" if k == "lstm_scan_chunked"
+                         else "-" if lib is None or dtype != torch.float32
+                         else f"{lib:.4f} ms [torch.nn.LSTM backward, cuDNN,"
+                              f" plain cell]")
+                res = lstm_ops.resident(n, backward=k != "lstm_scan_chunked")
+                log(f"[kernel-lstm-bwd] {k:21s} {dname:8s} b={b:2d} "
+                    f"t={t:4d} n={n:4d} {'peephole' if peephole else 'plain   '}"
+                    f" {'masked' if masked else '      '} resident="
+                    f"{int(res)}  max_err="
+                    f"{errs[k]:.3g}  kernel={ms[k]:.4f} ms "
+                    f"({ms[k] * 1e3 / t:.2f} us/step)  plain={pl}  "
+                    f"library={lib_s}  bound={b_ms:.4f} ms ({by})")
+                if dtype == torch.float32 and case == LSTM_PATH_CASES[k]:
+                    rows[k] = {"ms": ms[k], "plain_ms": plain_ms[k],
+                               "library_ms": lib, "bound_ms": b_ms,
+                               "bound_by": by}
+                    if lib is not None:
+                        rows[k]["library_covers"] = (
+                            "torch.nn.LSTM backward (cuDNN): the plain cell, "
+                            "no peepholes, its input projection's backward "
+                            "included")
+            del sets
+        torch.cuda.empty_cache()
+    log(f"[kernel-lstm-bwd] verdict: rows 6, 7 and 8 agree with their plain "
+        f"versions in {checked}/{checked} (shape, dtype) cases, max abs "
+        f"error {worst} (tol float32 1e-5 forward, 1e-4 backward; bfloat16 "
+        f"2e-2 forward, 1e-2 dzx; x max|plain| of each output); a zeroed "
+        f"dzx, dR or dp fails the comparison")
+    return rows, worst
+
+
+# ------------------------------------------------------- phases 16 to 18
+RNN_PER_STEP = {"lstm_scan": 2, "lstm_scan_bwd": 2, "linear_xent_fwd": 1,
+                "linear_xent_bwd": 1}
+RNN_LONG_PER_STEP = {"lstm_scan_chunked": 2, "lstm_scan_chunked_bwd": 2,
+                     "linear_xent_fwd": 1, "linear_xent_bwd": 1}
+RNN_TRAIN_STEPS = 20           # bench.py bench_lstm's batch, repeated
+RNN_TBPTT = (32, 1000, 50)     # rows, characters, tbptt_fwd_length
+# rows, characters, steps: RmsProp(1e-2)'s first steps overshoot (the
+# loss rises for a few steps before it falls below its start), so the long
+# path takes 10 steps where 5 would end above the first score
+RNN_LONG = (8, 4096, 10)
+
+
+def char_batch(np, rng, n, t, vocab):
+    """n x t one-hot characters and their next characters, at bench.py
+    bench_lstm's shapes. The characters are drawn with Zipf frequencies
+    (p proportional to 1 / rank, the skew of text) rather than uniformly,
+    so that the loss can fall below its start within a few RmsProp steps."""
+    zipf = 1.0 / np.arange(1, vocab + 1)
+    ids = rng.choice(vocab, size=(n, t + 1), p=zipf / zipf.sum())
+    eye = np.eye(vocab, dtype=np.float32)
+    return eye[ids[:, :t]], eye[ids[:, 1:]]
+
+
+def rnn_net(torch, t, tbptt=None, device=None):
+    """The zoo TextGenerationLSTM at full width from SEED, over t
+    characters, with tBPTT windows of `tbptt` steps when given."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    conf = TextGenerationLSTM(num_classes=RNN["num_classes"], max_length=t,
+                              seed=SEED).conf()
+    if tbptt:
+        conf.defaults.backprop_type = "tbptt"
+        conf.defaults.tbptt_fwd_length = tbptt
+    return MultiLayerNetwork(conf).init(
+        **({} if device is None else {"device": device}))
+
+
+class ScoreLog:
+    """A listener keeping every iteration's score."""
+
+    def __init__(self):
+        self.scores = []
+
+    def iteration_done(self, net, iteration, score):
+        self.scores.append(score)
+
+
+def check_train(tag, scores, launches, want, start=None):
+    """Exactly `want` launches (0 for every other kernel); every score
+    finite and the last below `start` (else the first)."""
+    want = {k: want.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, want {want}")
+    start = scores[0] if start is None else start
+    if not all(math.isfinite(s) for s in scores) or not scores[-1] < start:
+        raise AssertionError(f"{tag}: scores {scores}, start {start}")
+
+
+def phase_train_rnn(torch, np, card):
+    """Path 1: bench_lstm's 64 x 64 batch, 20 steps, then 5 more of the
+    same network under the mixed policy (which must end below the first
+    step's score). Returns the TF32 run's launches."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    b, t, vocab = RNN_BATCH, RNN["max_length"], RNN["num_classes"]
+    x_np, y_np = char_batch(np, np.random.default_rng(SEED + 5), b, t,
+                            vocab)
+    results, first = {}, None
+    net = rnn_net(torch, t)
+    for mixed, steps in ((False, RNN_TRAIN_STEPS), (True, MIXED_STEPS)):
+        tag = "mixed bf16" if mixed else "TF32"
+        dtypes.set_mixed_precision(mixed)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            reset_counts()
+            runs = train_steps(torch, net, x_np, y_np, steps, DataSet)
+            launches = read_counts()
+        finally:
+            dtypes.set_mixed_precision(False)
+        scores = [s for *_, s in runs]
+        want = {k: steps * v for k, v in RNN_PER_STEP.items()}
+        check_train(f"train-rnn ({tag})", scores, launches, want, first)
+        first = scores[0]
+        steady = sorted(c + r for c, r, _ in runs[1:])
+        step_ms = steady[len(steady) // 2] * 1e3
+        log(f"[train-rnn] {tag}: {steps} BPTT steps of {b} x {t} "
+            f"characters, score {scores[0]:.5f} -> {scores[-1]:.5f}; "
+            f"launches {want} (per step {RNN_PER_STEP})")
+        log(f"[train-rnn] {tag}: median step {step_ms:.3f} ms (batch copy "
+            f"included), {b * t / (step_ms / 1e3):.1f} trained characters/s;"
+            f" first step {(runs[0][0] + runs[0][1]) * 1e3:.2f} ms; peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f}"
+            f" GiB ({card})")
+        results[tag] = launches
+    return results["TF32"]
+
+
+def phase_train_rnn_tbptt(torch, np, card):
+    """Path 2: one batch of 32 x 1000 characters in windows of 50, one
+    iteration per window."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    b, t, window = RNN_TBPTT
+    x_np, y_np = char_batch(np, np.random.default_rng(SEED + 6), b, t,
+                            RNN["num_classes"])
+    windows = -(-t // window)
+    # one window on a network of its own warms the allocator and handles
+    rnn_net(torch, t, tbptt=window).fit(DataSet(x_np[:, :window],
+                                                y_np[:, :window]))
+    net = rnn_net(torch, t, tbptt=window)
+    rec = ScoreLog()
+    net.set_listeners(rec)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    runs = train_steps(torch, net, x_np, y_np, 1, DataSet)
+    launches = read_counts()
+    want = {k: windows * v for k, v in RNN_PER_STEP.items()}
+    check_train("train-rnn-tbptt", rec.scores, launches, want)
+    if len(rec.scores) != windows or net.iteration != windows:
+        raise AssertionError(f"train-rnn-tbptt: {len(rec.scores)} listener "
+                             f"calls, iteration {net.iteration}; want "
+                             f"{windows} windows")
+    wall = runs[0][0] + runs[0][1]
+    log(f"[train-rnn-tbptt] {b} x {t} characters in {windows} windows of "
+        f"{window}: score {rec.scores[0]:.5f} -> {rec.scores[-1]:.5f}; "
+        f"launches {want} (per window {RNN_PER_STEP})")
+    log(f"[train-rnn-tbptt] batch {wall * 1e3:.2f} ms (copy included) = "
+        f"{wall / windows * 1e3:.3f} ms per window, "
+        f"{b * t / wall:.1f} trained characters/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB ({card})")
+    return launches
+
+
+def phase_train_rnn_long(torch, np, card):
+    """Path 3: standard BPTT at 8 x 4096 characters, 10 steps, on the
+    chunked route."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    b, t, steps = RNN_LONG
+    x_np, y_np = char_batch(np, np.random.default_rng(SEED + 7), b, t,
+                            RNN["num_classes"])
+    net = rnn_net(torch, t)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    runs = train_steps(torch, net, x_np, y_np, steps, DataSet)
+    launches = read_counts()
+    scores = [s for *_, s in runs]
+    want = {k: steps * v for k, v in RNN_LONG_PER_STEP.items()}
+    check_train("train-rnn-long", scores, launches, want)
+    steady = sorted(c + r for c, r, _ in runs[1:])
+    step_ms = steady[len(steady) // 2] * 1e3
+    log(f"[train-rnn-long] {steps} BPTT steps of {b} x {t} characters, "
+        f"score {scores[0]:.5f} -> {scores[-1]:.5f}; launches {want} (per "
+        f"step {RNN_LONG_PER_STEP})")
+    log(f"[train-rnn-long] median step {step_ms:.2f} ms (batch copy "
+        f"included), {b * t / (step_ms / 1e3):.1f} trained characters/s; "
+        f"first step {(runs[0][0] + runs[0][1]) * 1e3:.2f} ms; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+        f"({card})")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 19
+def phase_refer_train_rnn(torch, np):
+    """The seeded full-width TextGenerationLSTM on the CPU (plain versions,
+    exact float32) and on the card (TF32 off): 3 BPTT steps at 2 x 64,
+    tBPTT at 2 x 100 in windows of 50, 3 steps at 2 x 1024 (chunked
+    route)."""
+    from deeplearning4j_tpu_torch import dtypes, interop
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.multi_layer_network import flat_items
+
+    lr, decay = 1e-2, 0.95     # the zoo's RmsProp
+    rng = np.random.default_rng(SEED + 8)
+    for label, t, tbptt, steps in (("BPTT", 64, None, 3),
+                                   ("tBPTT", 100, 50, 1),
+                                   ("chunked", 1024, None, 3)):
+        x, y = char_batch(np, rng, 2, t, RNN["num_classes"])
+        nets = {"card": rnn_net(torch, t, tbptt),
+                "cpu": rnn_net(torch, t, tbptt, device="cpu")}
+        logs = {}
+        for k, net in nets.items():
+            logs[k] = ScoreLog()
+            net.set_listeners(logs[k])
+        start = {k: net.get_param_table() for k, net in nets.items()}
+        reset_counts()
+        with dtypes.full_precision():
+            for _ in range(steps):
+                for net in nets.values():
+                    net.fit(DataSet(x, y))
+        launches = read_counts()
+        route = "lstm_scan_chunked" if label == "chunked" else "lstm_scan"
+        if launches[route] == 0 or launches[route + "_bwd"] == 0:
+            raise AssertionError(f"refer-train-rnn ({label}): launches "
+                                 f"{launches}")
+        iters = len(logs["cpu"].scores)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(logs["card"].scores,
+                                                      logs["cpu"].scores))
+        moved = {k: {key: p - start[k][key]
+                     for key, p in net.get_param_table().items()}
+                 for k, net in nets.items()}
+        slots = {k: interop.opt_state_to_jax(net) for k, net in nets.items()}
+        rms = {f"layer_{i}/{path}": np.sqrt(v)
+               for i, s in enumerate(slots["cpu"]) if s
+               for path, v in flat_items(s["g2"])}
+        floor = ZERO_GRAD * max(float(r.max()) for r in rms.values())
+        bound = 1.01 * iters * lr / math.sqrt(1 - decay)
+        p_err, z_move, n_zero, s_err = 0.0, 0.0, 0, 0.0
+        for key, want in moved["cpu"].items():
+            got, zero = moved["card"][key], rms[key] <= floor
+            p_err = max(p_err, float(np.abs(got - want)[~zero].max(
+                initial=0)))
+            z_move = max(z_move, float(np.abs(got)[zero].max(initial=0)),
+                         float(np.abs(want)[zero].max(initial=0)))
+            n_zero += int(np.count_nonzero(zero))
+        for a, b in zip(slots["card"], slots["cpu"]):
+            got = dict(flat_items(a["g2"])) if a else {}
+            for path, want in (flat_items(b["g2"]) if b else ()):
+                s_err = max(s_err, float(np.abs(got[path] - want).max()
+                                         / max(np.abs(want).max(), 1e-30)))
+        finite = all(np.isfinite(a).all() for k in nets
+                     for a in moved[k].values()) and all(
+            math.isfinite(v) for lg in logs.values() for v in lg.scores)
+        same_iters = (len(logs["card"].scores) == iters == steps * (
+            -(-t // tbptt) if tbptt else 1) and nets["card"].iteration
+            == nets["cpu"].iteration == iters)
+        # scores: float32 sums in another order; each element's change
+        # from its start 1e-5 absolute; elements with zero gradient within
+        # RmsProp's bound of lr / sqrt(1 - decay) per iteration; g2 slots
+        # relative to each leaf's largest magnitude
+        if not (rel <= 1e-5 and p_err <= 1e-5 and z_move <= bound
+                and s_err <= 1e-4 and finite and same_iters):
+            raise AssertionError(
+                f"refer-train-rnn ({label}): card and CPU differ: scores "
+                f"{logs['card'].scores} vs {logs['cpu'].scores}, changes "
+                f"{p_err:.3g}, zero-gradient moves {z_move:.3g}, slots "
+                f"{s_err:.3g}, finite {finite}, iterations {iters}")
+        log(f"[refer-train-rnn] {label}: 2 x {t} characters, {iters} RmsProp "
+            f"iterations, card (TF32 off) vs CPU: scores relative "
+            f"{rel:.3g} (tol 1e-5); params' change from their start max "
+            f"|diff| {p_err:.3g} (tol 1e-5); {n_zero} elements with zero "
+            f"gradient (RMS gradient <= {floor:.3g}) move at most "
+            f"{z_move:.3g} (RmsProp's bound {bound:.3g}); g2 max relative "
+            f"{s_err:.3g} (tol 1e-4); card launches {launches}")
+        del nets
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1515,6 +2085,11 @@ def main() -> int:
         xent, xent_err = phase_xent(torch, bw, peak, peak_bf16)
         train_launches = phase_train_lm(torch, np, card)
         phase_refer_train(torch, np)
+        lstm_bwd, lstm_bwd_err = phase_lstm_bwd(torch, bw, peak)
+        rnn_train_launches = phase_train_rnn(torch, np, card)
+        phase_train_rnn_tbptt(torch, np, card)
+        long_launches = phase_train_rnn_long(torch, np, card)
+        phase_refer_train_rnn(torch, np)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
         if leaked:
@@ -1528,7 +2103,9 @@ def main() -> int:
     # of a TransformerLM forward at batch 16, lstm_scan's 2 calls of a
     # TextGenerationLSTM forward at batch 64; per training step of the
     # TransformerLM at batch 16 x 512: 6 dq and 6 dk/dv launches, 1 xent
-    # forward and 1 xent backward
+    # forward and 1 xent backward; per training step of the
+    # TextGenerationLSTM: 2 lstm_scan_bwd at 64 x 64, 2 lstm_scan_chunked and
+    # 2 lstm_scan_chunked_bwd at 8 x 4096
     def per_forward(row, calls):
         return {k: (v * calls if k.endswith("ms") and v is not None else v)
                 for k, v in row.items()}
@@ -1550,6 +2127,16 @@ def main() -> int:
                             xent["fwd"]),
         "linear_xent_bwd": (train_launches["linear_xent_bwd"], xent_err,
                             xent["bwd"]),
+        "lstm_scan_bwd": (rnn_train_launches["lstm_scan_bwd"],
+                          lstm_bwd_err["lstm_scan_bwd"],
+                          per_forward(lstm_bwd["lstm_scan_bwd"], 2)),
+        "lstm_scan_chunked": (long_launches["lstm_scan_chunked"],
+                              lstm_bwd_err["lstm_scan_chunked"],
+                              per_forward(lstm_bwd["lstm_scan_chunked"], 2)),
+        "lstm_scan_chunked_bwd": (
+            long_launches["lstm_scan_chunked_bwd"],
+            lstm_bwd_err["lstm_scan_chunked_bwd"],
+            per_forward(lstm_bwd["lstm_scan_chunked_bwd"], 2)),
     }
     kernels = []
     for kname, (route, source, replaces) in KERNELS.items():

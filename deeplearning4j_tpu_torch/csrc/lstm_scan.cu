@@ -10,6 +10,14 @@
 //   h0, c0 [b, n]   initial carry
 //   mask [b, t]     float32 sequence mask, or null; a step is live iff > 0
 // Outputs in T: hs [b, t, n] at every step, hT and cT [b, n] once at the end.
+// The chunked entry point (`lstm_scan_chunked_launch`, which replaces the TPU
+// kernel `_lstm_chunk_fwd_kernel`, pallas_call in `_lstm_chunked`) also
+// writes float32 checkpoints hck, cck [ceil(t / tc), b, n]: the carry
+// entering steps 0, tc, 2 tc, ... (hck[0] = h0), which the chunked backward
+// (lstm_scan_bwd.cu) recomputes each chunk from. It is the same kernel: the
+// TPU needed a second one only because its full-t kernel kept [bb, t, 4n]
+// resident in VMEM, while here zx and hs stream through device memory at
+// every t.
 //
 // What it computes, as `_lstm_kernel` does: R, p, z_t, h0 and c0 are raised
 // to float32; h and c are carried in float32 across steps; per step
@@ -97,7 +105,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
                      const T* __restrict__ p, const float* __restrict__ mask,
                      const T* __restrict__ h0, const T* __restrict__ c0,
                      T* __restrict__ hs, T* __restrict__ hT,
-                     T* __restrict__ cT, Dims d) {
+                     T* __restrict__ cT, float* __restrict__ hck,
+                     float* __restrict__ cck, int tc, Dims d) {
   cg::cluster_group cluster = cg::this_cluster();
   const int q = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
@@ -187,6 +196,16 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   float* hnext = hbuf1;
   const int n_even = n & ~3;
   for (int s = 0; s < d.t; ++s) {
+    // checkpoint the float32 carry entering each chunk
+    if (hck != nullptr && s % tc == 0) {
+      const int64_t ck = static_cast<int64_t>(s / tc) * d.b * n;
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        if (!pok[i]) continue;
+        hck[ck + static_cast<int64_t>(prow[i]) * n + punit[i]] = hreg[i];
+        cck[ck + static_cast<int64_t>(prow[i]) * n + punit[i]] = creg[i];
+      }
+    }
     // zx and mask of this step, loaded before the product hides their
     // latency behind it
     float zxv[kPairs][4];
@@ -324,8 +343,9 @@ size_t smem_bytes(const Dims& d, bool resident) {
 template <typename T, bool RESIDENT>
 cudaError_t launch_one(const void* zx, const void* R, const void* p,
                        const float* mask, const void* h0, const void* c0,
-                       void* hs, void* hT, void* cT, const Dims& d,
-                       size_t bytes, cudaStream_t stream) {
+                       void* hs, void* hT, void* cT, float* hck, float* cck,
+                       int tc, const Dims& d, size_t bytes,
+                       cudaStream_t stream) {
   // above 48 KB a block's shared memory must be asked for per kernel
   cudaError_t err = cudaFuncSetAttribute(
       lstm_scan_kernel<T, RESIDENT>,
@@ -338,25 +358,26 @@ cudaError_t launch_one(const void* zx, const void* R, const void* p,
       static_cast<const T*>(zx), static_cast<const T*>(R),
       static_cast<const T*>(p), mask, static_cast<const T*>(h0),
       static_cast<const T*>(c0), static_cast<T*>(hs), static_cast<T*>(hT),
-      static_cast<T*>(cT), d);
+      static_cast<T*>(cT), hck, cck, tc, d);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_typed(const void* zx, const void* R, const void* p,
                          const float* mask, const void* h0, const void* c0,
-                         void* hs, void* hT, void* cT, const Dims& d,
-                         int device, cudaStream_t stream) {
+                         void* hs, void* hT, void* cT, float* hck,
+                         float* cck, int tc, const Dims& d, int device,
+                         cudaStream_t stream) {
   int optin = 0;
   cudaError_t err = cudaDeviceGetAttribute(
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
   const size_t resident = smem_bytes(d, true);
   if (resident <= static_cast<size_t>(optin))
-    return launch_one<T, true>(zx, R, p, mask, h0, c0, hs, hT, cT, d,
-                               resident, stream);
-  return launch_one<T, false>(zx, R, p, mask, h0, c0, hs, hT, cT, d,
-                              smem_bytes(d, false), stream);
+    return launch_one<T, true>(zx, R, p, mask, h0, c0, hs, hT, cT, hck,
+                               cck, tc, d, resident, stream);
+  return launch_one<T, false>(zx, R, p, mask, h0, c0, hs, hT, cT, hck, cck,
+                              tc, d, smem_bytes(d, false), stream);
 }
 
 }  // namespace
@@ -373,18 +394,19 @@ int lstm_scan_resident(int64_t n, int device) {
   return smem_bytes(make_dims(1, 1, n), true) <= static_cast<size_t>(optin);
 }
 
-// zx [b, t, 4n], R [n, 4n], p [3, n] or null, h0/c0 [b, n] of `dtype` (0 =
-// float32, 1 = bfloat16); mask float32 [b, t] or null; hs [b, t, n], hT/cT
-// [b, n] of `dtype`; all dense. device: the CUDA device that holds them and
-// owns `stream`. Returns the CUDA error code of the launch (0 = launched);
-// launches nothing for an empty input.
-int lstm_scan_launch(const void* zx, const void* R, const void* p,
-                     const void* mask, const void* h0, const void* c0,
-                     void* hs, void* hT, void* cT, int64_t b, int64_t t,
-                     int64_t n, int dtype, int device, void* stream) {
+// Both entry points: zx [b, t, 4n], R [n, 4n], p [3, n] or null, h0/c0
+// [b, n] of `dtype` (0 = float32, 1 = bfloat16); mask float32 [b, t] or null;
+// hs [b, t, n], hT/cT [b, n] of `dtype`; all dense. device: the CUDA device
+// that holds them and owns `stream`. Return the CUDA error code of the
+// launch (0 = launched); launch nothing for an empty input.
+static int launch_any(const void* zx, const void* R, const void* p,
+                      const void* mask, const void* h0, const void* c0,
+                      void* hs, void* hT, void* cT, float* hck, float* cck,
+                      int64_t b, int64_t t, int64_t n, int64_t tc, int dtype,
+                      int device, void* stream) {
   if (b <= 0 || t <= 0) return 0;
   if (n <= 0 || n > kMaxN || t > 0x7fffffff ||
-      (b + kRows - 1) / kRows > 65535)
+      (b + kRows - 1) / kRows > 65535 || tc <= 0 || tc > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   // this library carries its own CUDA runtime, whose current device is
   // per thread and independent of PyTorch's
@@ -393,13 +415,37 @@ int lstm_scan_launch(const void* zx, const void* R, const void* p,
   const Dims d = make_dims(b, t, n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mask);
+  const int c = static_cast<int>(tc);
   if (dtype == 0)
-    return static_cast<int>(launch_typed<float>(zx, R, p, m, h0, c0, hs, hT,
-                                                cT, d, device, s));
+    return static_cast<int>(launch_typed<float>(
+        zx, R, p, m, h0, c0, hs, hT, cT, hck, cck, c, d, device, s));
   if (dtype == 1)
     return static_cast<int>(launch_typed<__nv_bfloat16>(
-        zx, R, p, m, h0, c0, hs, hT, cT, d, device, s));
+        zx, R, p, m, h0, c0, hs, hT, cT, hck, cck, c, d, device, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int lstm_scan_launch(const void* zx, const void* R, const void* p,
+                     const void* mask, const void* h0, const void* c0,
+                     void* hs, void* hT, void* cT, int64_t b, int64_t t,
+                     int64_t n, int dtype, int device, void* stream) {
+  return launch_any(zx, R, p, mask, h0, c0, hs, hT, cT, nullptr, nullptr, b,
+                    t, n, 1, dtype, device, stream);
+}
+
+// As lstm_scan_launch, and also the float32 checkpoints hck, cck
+// [ceil(t / tc), b, n] of the carry entering every tc-th step.
+int lstm_scan_chunked_launch(const void* zx, const void* R, const void* p,
+                             const void* mask, const void* h0,
+                             const void* c0, void* hs, void* hT, void* cT,
+                             void* hck, void* cck, int64_t b, int64_t t,
+                             int64_t n, int64_t tc, int dtype, int device,
+                             void* stream) {
+  if (hck == nullptr || cck == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_any(zx, R, p, mask, h0, c0, hs, hT, cT,
+                    static_cast<float*>(hck), static_cast<float*>(cck), b, t,
+                    n, tc, dtype, device, stream);
 }
 
 const char* lstm_scan_error_string(int code) {

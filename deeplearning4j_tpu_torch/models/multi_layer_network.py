@@ -20,11 +20,17 @@ IN PLACE (`p -= step`), so the tensors `init` made stay the network's
 params; the updater slots (`opt_state`, one entry per layer with the JAX
 names) are replaced each step. `fit` takes a DataSet, features and labels,
 or a DataSetIterator; batches already on the network's device are used as
-they are. The line-search solvers, tBPTT, layerwise `pretrain` and the JAX
-package's windowed engine (training/engine.py: step windows, TrainingRun's
-resume/save cadence, the stall watchdog, flight bundles, async prefetch) are
-not ported yet; `fit` raises on a configuration that needs them, and on
-dropout or weight noise.
+they are. With `backprop_type="tbptt"` a batch whose features and labels
+are both [b, t, ...] trains window by window (`_fit_tbptt`, the JAX
+package's doTruncatedBPTT): `tbptt_fwd_length` steps per window, each
+window one step of the updater whose backward spans the window, the
+recurrent carries passed on detached; `score_`, `iteration` and the
+listeners advance per window. Any other batch takes the standard step. The
+line-search solvers, layerwise `pretrain` and the JAX package's windowed
+engine (training/engine.py: step windows, TrainingRun's resume/save
+cadence, the stall watchdog, flight bundles, async prefetch) are not ported
+yet; `fit` raises on a configuration that needs them, and on dropout or
+weight noise.
 """
 from __future__ import annotations
 
@@ -164,7 +170,7 @@ class MultiLayerNetwork:
             k = _key(i)
             if carries is not None and isinstance(layer, BaseRecurrent):
                 x, carries[i] = layer.scan(params[k], x, carries[i],
-                                           mask=mask)
+                                           mask=mask, train=train)
             else:
                 x, st = layer.apply(params[k], x, state=self.state[k],
                                     train=train, mask=mask)
@@ -267,17 +273,20 @@ class MultiLayerNetwork:
                             total = total + 0.5 * l2b * (v * v).sum()
         return total
 
-    def _loss(self, params, x, y, fmask=None, lmask=None, train=True):
+    def _loss(self, params, x, y, fmask=None, lmask=None, train=True,
+              carries=None):
         """(score, new_state): the output layer's loss on the last hidden
         activation, under the labels mask (else the propagated features
-        mask), plus the l1/l2 penalty."""
+        mask), plus the l1/l2 penalty. With `carries` the recurrent layers
+        scan from them and leave their new carries there (see `_walk`)."""
         out_layer = self.layers[-1]
         if not isinstance(out_layer, BaseOutputLayer):
             raise TypeError("the last layer must be an output layer "
                             "(Output, RnnOutput, LossLayer)")
         n = len(self.layers)
         h, new_state, cur_mask = self._walk(params, x, train=train,
-                                            mask=fmask, to_layer=n - 1)
+                                            mask=fmask, to_layer=n - 1,
+                                            carries=carries)
         k = _key(n - 1)
         score, _, out_state = out_layer.compute_loss(
             params[k], h, y, state=self.state[k],
@@ -319,8 +328,6 @@ class MultiLayerNetwork:
             raise NotImplementedError(
                 f"optimization_algo={d.optimization_algo!r}: the line-search "
                 f"solvers are not ported yet; fit trains with SGD updaters")
-        if d.backprop_type == "tbptt":
-            raise NotImplementedError("tBPTT is not ported yet (ROADMAP A5)")
         for i, layer in enumerate(self.layers):
             for field in ("dropout", "weight_noise", "attn_dropout"):
                 if getattr(layer, field, None) is not None:
@@ -345,16 +352,20 @@ class MultiLayerNetwork:
         already there is used as it is (no copy)."""
         return None if a is None else _as_tensor(a).to(self.device)
 
-    def _fit_batch(self, ds: DataSet) -> None:
-        x = self._batch(ds.features)
-        y = self._batch(ds.labels)
-        fm = self._batch(ds.features_mask)
-        lm = self._batch(ds.labels_mask)
+    def _step(self, x, y, fm, lm, carries=None) -> None:
+        """One updater step on one batch (or tBPTT window): loss, gradients,
+        updates, then `score_`, `last_batch_size`, `iteration` and the
+        listeners. With `carries` the recurrent layers start from them and
+        leave their new carries there, detached."""
         leaves = self._train_leaves()
         with torch.enable_grad():
-            score, new_state = self._loss(self.params, x, y, fm, lm)
+            score, new_state = self._loss(self.params, x, y, fm, lm,
+                                          carries=carries)
             flat = torch.autograd.grad(score, [t for *_, t in leaves],
                                        allow_unused=True)
+        if carries is not None:
+            carries[:] = [None if c is None else tuple(v.detach() for v in c)
+                          for c in carries]
         grads: Dict[str, dict] = {k: {} for k in self.params}
         for (k, path, t), g in zip(leaves, flat):
             node = grads[k]
@@ -371,6 +382,40 @@ class MultiLayerNetwork:
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration, self.score_)
 
+    def _fit_batch(self, ds: DataSet) -> None:
+        """One updater step on `ds`, or one per window when it trains by
+        tBPTT (`_tbptt_batch`)."""
+        batch = [self._batch(a) for a in (ds.features, ds.labels,
+                                          ds.features_mask, ds.labels_mask)]
+        if self._tbptt_batch(ds):
+            self._fit_tbptt(*batch)
+        else:
+            self._step(*batch)
+
+    def _tbptt_batch(self, ds: DataSet) -> bool:
+        """Whether `ds` trains by tBPTT: the configuration asks for it and
+        features and labels both have a time axis (per-sequence labels
+        cannot be cut into windows; the JAX package's `tbptt_batch`)."""
+        return (self.conf.defaults.backprop_type == "tbptt"
+                and ds.features.ndim == 3 and ds.labels.ndim == 3)
+
+    def _fit_tbptt(self, x, y, fm, lm) -> None:
+        """Truncated BPTT (MultiLayerNetwork.doTruncatedBPTT, the JAX
+        package's `_fit_tbptt`): windows of `tbptt_fwd_length` steps, each
+        one updater step; the recurrent carries start at zero and pass from
+        window to window detached. The backward spans the whole window (the
+        JAX package reads only `tbptt_fwd_length`)."""
+        T, L = x.shape[1], self.conf.defaults.tbptt_fwd_length
+        carries = self._init_carries(x.shape[0])
+
+        def window(a, sl):
+            return None if a is None else a[:, sl].contiguous()
+
+        for t0 in range(0, T, L):
+            sl = slice(t0, min(t0 + L, T))
+            self._step(window(x, sl), window(y, sl), window(fm, sl),
+                       window(lm, sl), carries=carries)
+
     def _as_iterator(self, data, labels=None) -> DataSetIterator:
         if isinstance(data, DataSetIterator):
             return data
@@ -384,8 +429,8 @@ class MultiLayerNetwork:
     def fit(self, data, labels=None, epochs: int = 1) -> "MultiLayerNetwork":
         """fit(DataSetIterator) | fit(DataSet) | fit(features, labels): one
         training step per batch, `epochs` passes (MultiLayerNetwork.fit).
-        After each step `score_` holds the batch's loss (with the l1/l2
-        penalty), `last_batch_size` its rows, and every listener's
+        After each step (each tBPTT window) `score_` holds its loss (with
+        the l1/l2 penalty), `last_batch_size` its rows, and every listener's
         `iteration_done(net, iteration, score)` has run."""
         if self.params is None:
             raise RuntimeError("call init() before fit()")
@@ -424,5 +469,7 @@ class MultiLayerNetwork:
         for i, layer in enumerate(self.layers):
             for path, t in flat_items(self.params[_key(i)]):
                 t = layer.to_interchange(path, t)
-                flat[f"{_key(i)}/{path}"] = t.detach().cpu().numpy()
+                # a copy: fit updates the params in place
+                flat[f"{_key(i)}/{path}"] = t.detach().to(
+                    "cpu", copy=True).numpy()
         return flat

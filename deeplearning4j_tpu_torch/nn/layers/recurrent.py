@@ -6,8 +6,8 @@ slice).
 Layout BTF [batch, time, features]; gate order (i, f, g, o); params W
 [f, 4n], R [n, 4n], b [4n] and, for GravesLSTM, the diagonal peepholes pi,
 pf, po [n], under the JAX package's names. Masked steps carry state through
-unchanged and output zeros. Stateful inference (`rnn_time_step`) threads an
-explicit (h, c) carry through `scan`.
+unchanged and output zeros. Stateful inference (`rnn_time_step`) and tBPTT
+thread an explicit (h, c) carry through `scan`.
 
 Cell math (peephole terms only for GravesLSTM):
     i = gate_act(x Wi + h Ri [+ pi*c_prev] + bi)
@@ -19,11 +19,17 @@ Cell math (peephole terms only for GravesLSTM):
 
 Routing in `_lstm_scan`, the JAX package's: the input projection for all
 timesteps is one matmul (ops/linear.py); a sigmoid/tanh cell in float32 or
-bfloat16 then goes to the fused scan (ops/lstm.py: the CUDA kernel on the
-card at every b, t and n, its plain version on the CPU); any other cell
-(another gate activation, float64) takes a per-step loop with the JAX
-scan's own numerics. The JAX package's TPU admission gates (helper modes,
-VMEM-sized chunk plans) have no counterpart here.
+bfloat16 then goes to a fused scan (ops/lstm.py: the CUDA kernels on the
+card at every b, t and n, their plain versions on the CPU), whose backward
+is a kernel too. Inside `chunked_lstm_auto_regime` (float32, t >= 1024,
+b <= 16, n >= 128), where the JAX package runs its time-chunked kernels by
+default, the chunked family runs (`lstm_scan_chunked`: checkpoints every
+`lstm_ops.CHUNK` steps, backward `lstm_scan_chunked_bwd`); everywhere else
+`lstm_scan` (backward `lstm_scan_bwd`). Both give the same results. Any
+other cell (another gate activation, float64) takes a per-step loop with
+the JAX scan's own numerics, differentiated by autograd. The JAX package's
+helper modes (`DL4J_TPU_PALLAS_LSTM`) and VMEM-sized block and chunk picks
+have no counterpart here.
 """
 from __future__ import annotations
 
@@ -42,9 +48,18 @@ from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
 Carry = Tuple[torch.Tensor, torch.Tensor]
 
 
+def chunked_lstm_auto_regime(batch: int, timesteps: int, n_hidden: int,
+                             dtype) -> bool:
+    """The JAX package's regime for its time-chunked LSTM kernels (its
+    nn/layers/recurrent.py `chunked_lstm_auto_regime`, admitted there by
+    default): float32, t >= 1024, b <= 16, n >= 128. Here it picks the
+    chunked family for inference and training alike."""
+    return (dtype == torch.float32 and timesteps >= 1024
+            and batch <= 16 and n_hidden >= 128)
+
+
 class BaseRecurrent(Layer):
-    """Adds the carry protocol used by rnn_time_step (and tBPTT, with the
-    training slice)."""
+    """Adds the carry protocol used by rnn_time_step and tBPTT."""
 
     # False for bidirectional layers: the backward scan needs the sequence
     # end, so a streaming state carry is ill-defined
@@ -74,12 +89,18 @@ def _lstm_scan(params, x, carry, gate_fn, act_fn, peephole: bool,
         # R joins the compute dtype: under the mixed policy params are f32
         # while activations are bf16
         Rk = R.to(zx.dtype)
+        chunked = chunked_lstm_auto_regime(zx.shape[0], zx.shape[1], n,
+                                           zx.dtype)
         if peephole:
             p = torch.stack([params[prefix + "pi"], params[prefix + "pf"],
                              params[prefix + "po"]]).to(zx.dtype)
-            hs, hT, cT = lstm_ops.lstm_scan_peephole(zx, Rk, p, h0, c0, mask)
+            scan = (lstm_ops.lstm_scan_chunked_peephole if chunked
+                    else lstm_ops.lstm_scan_peephole)
+            hs, hT, cT = scan(zx, Rk, p, h0, c0, mask)
         else:
-            hs, hT, cT = lstm_ops.lstm_scan(zx, Rk, h0, c0, mask)
+            scan = (lstm_ops.lstm_scan_chunked if chunked
+                    else lstm_ops.lstm_scan)
+            hs, hT, cT = scan(zx, Rk, h0, c0, mask)
         return hs, (hT, cT)
 
     m_t = None if mask is None else mask.to(x.dtype)
@@ -163,6 +184,10 @@ class LSTM(BaseRecurrent):
         return {k: v for k, v in params.items() if k in ("W", "R")}
 
     def scan(self, params, x, carry, *, mask=None, train=False):
+        if train and self.dropout is not None:
+            raise NotImplementedError(
+                f"{type(self).__name__} asks for dropout, which training in "
+                f"the port does not apply yet")
         return _lstm_scan(params, x, carry,
                           act_mod.get(self.gate_activation),
                           self.act_fn("tanh"), self._peephole, mask=mask)

@@ -2,12 +2,14 @@
 """Where the time of one served batch goes on the card, for the PyTorch/CUDA
 port (deeplearning4j_tpu_torch): zoo ResNet-50, the zoo TransformerLM with
 `--model transformer`, or the zoo TextGenerationLSTM with `--model lstm`;
-or of one training step of the zoo TransformerLM with `--model train-lm`.
+or of one training step of the zoo TransformerLM with `--model train-lm`,
+or of the zoo TextGenerationLSTM with `--model train-rnn`; or, with
+`--model lstm-routes`, what the two LSTM kernel families cost.
 
     python3 profile_resnet_torch.py [--model resnet50|transformer|lstm|
-                                     train-lm]
-                                    [--batch N] [--iters 20] [--mixed]
-                                    [--out profile_out]
+                                     train-lm|train-rnn|lstm-routes]
+                                    [--batch N] [--length T] [--iters 20]
+                                    [--mixed] [--out profile_out]
 
 Builds the port's model on the card with random weights from a seed
 (ResNet-50: 1000 classes, 224x224x3, batch 32 by default; TransformerLM:
@@ -18,13 +20,25 @@ one-hot float32 input, batch 64 by default), warms it up, then traces
 `net.output`, result back to the host) with torch.profiler. `train-lm`
 traces `--iters` steps of `MultiLayerNetwork.fit` on one repeated batch of
 16 x 512 token ids with one-hot float32 labels (copied from host memory
-every step, as `fit` of a host DataSet does), Adam(3e-4). Prints, beside
+every step, as `fit` of a host DataSet does), Adam(3e-4). `train-rnn`
+traces BPTT steps of the TextGenerationLSTM (RmsProp(1e-2), l2 1e-4) on one
+repeated batch of 64 x 64 one-hot characters by default (`--batch 8
+--length 4096` is the long-sequence path, on the time-chunked kernels).
+Prints, beside
 the card's name and power limit: host wall time per batch, the device's
 busy and idle share of that window, and device time per batch by category
-(the port's kernels, cuDNN convolutions and cuBLAS matmuls, other
-elementwise kernels, pooling/reductions/softmax, copies). The full
-per-kernel table goes to <out>/profile_<resnet|transformer|lstm|train-lm>
-_torch_<mode>.txt.
+(the port's kernels, the LSTM ones split into the forward scan (rows 5
+and 7, one kernel), the backward recurrence (rows 6 and 8) and its dR/dp
+sum; cuDNN convolutions and cuBLAS matmuls, other elementwise kernels,
+pooling/reductions/softmax, copies). The full per-kernel table goes to
+<out>/profile_<resnet|transformer|lstm|train-lm|train-rnn>_torch_<mode>.txt
+(train-rnn at another length than 64: train-rnn-t<T>). `lstm-routes`
+runs one LSTM layer's forward and backward at (batch, length, 256)
+float32, peephole (8 x 4096 by default), through each kernel family: the
+full one (rows 5 and 6, `lstm_scan_peephole`) and the time-chunked one
+(rows 7 and 8, `lstm_scan_chunked_peephole`), whatever
+`chunked_lstm_auto_regime` would pick, and prints each one's time (CUDA
+events, median of 5) and peak device memory above its inputs.
 """
 from __future__ import annotations
 
@@ -43,7 +57,9 @@ CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("flash_attention", ("flash_fwd",)),
     ("flash_attention_bwd", ("flash_bwd",)),
     ("linear_xent", ("xent_",)),
-    ("lstm_scan", ("lstm_scan",)),
+    ("lstm_scan", ("lstm_scan",)),              # rows 5 and 7
+    ("lstm_bwd", ("lstm_bwd_kernel",)),         # rows 6 and 8
+    ("lstm_bwd_reduce", ("lstm_bwd_reduce",)),  # their dR, dp sum
     ("conv/matmul", ("conv", "cudnn", "sm90_xmma", "implicit", "winograd",
                      "gemm", "cutlass", "xmma", "fprop", "nhwc", "nvjet")),
     ("copy", ("memcpy", "memset", "copy")),
@@ -61,14 +77,69 @@ def category(name: str) -> str:
     return "other"
 
 
+def lstm_routes(torch, card, b, t, n=256) -> int:
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+        chunked_lstm_auto_regime,
+    )
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    leaves = [rnd(b, t, 4 * n), rnd(n, 4 * n, scale=(2.0 / (5 * n)) ** 0.5),
+              rnd(3, n, scale=0.3), rnd(b, n, scale=0.5),
+              rnd(b, n, scale=0.5)]
+    leaves = [a.requires_grad_() for a in leaves]
+    gs = (rnd(b, t, n), rnd(b, n), rnd(b, n))
+    chunked = chunked_lstm_auto_regime(b, t, n, torch.float32)
+    print(f"[profile] LSTM routes at b={b} t={t} n={n} float32 peephole "
+          f"({card}); chunked_lstm_auto_regime picks the "
+          f"{'chunked' if chunked else 'full'} family")
+    for name, scan in (("full (rows 5, 6)", lstm_ops.lstm_scan_peephole),
+                       ("chunked (rows 7, 8)",
+                        lstm_ops.lstm_scan_chunked_peephole)):
+        def run():
+            return torch.autograd.grad(scan(*leaves), leaves, gs)
+
+        run()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        print(f"[profile]   {name:19s} forward + backward "
+              f"{sorted(times)[2]:.4f} ms (median of 5, CUDA events); peak "
+              f"memory above the inputs {peak / 2 ** 30:.4f} GiB")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("resnet50", "transformer", "lstm",
-                                        "train-lm"), default="resnet50")
+                                        "train-lm", "train-rnn",
+                                        "lstm-routes"),
+                    default="resnet50")
     ap.add_argument("--batch", type=int, default=None,
                     help="rows per served batch (32 ResNet-50, 16 "
                          "TransformerLM, 64 TextGenerationLSTM) or per "
-                         "training batch (16)")
+                         "training batch (16 train-lm, 64 train-rnn), or "
+                         "for lstm-routes (8)")
+    ap.add_argument("--length", type=int, default=None,
+                    help="characters per row for train-rnn (64) and "
+                         "lstm-routes (4096)")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--mixed", action="store_true",
                     help="bf16 activations (dtypes.set_mixed_precision)")
@@ -97,6 +168,8 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     dtypes.set_mixed_precision(args.mixed)
     rng = np.random.default_rng(0)
+    if args.model == "lstm-routes":
+        return lstm_routes(torch, card, args.batch or 8, args.length or 4096)
     if args.model == "resnet50":
         batch = args.batch or 32
         net = ResNet50(num_classes=1000, input_shape=(224, 224, 3),
@@ -115,6 +188,16 @@ def main() -> int:
         ids = rng.integers(0, RNN["num_classes"], (batch, RNN["max_length"]))
         x = np.eye(RNN["num_classes"], dtype=np.float32)[ids]
         per_row, unit, ops = RNN["max_length"], "chars/s", "TF32 matmuls"
+    elif args.model == "train-rnn":
+        from deeplearning4j_tpu_torch.datasets import DataSet
+
+        batch, t = args.batch or 64, args.length or RNN["max_length"]
+        net = TextGenerationLSTM(num_classes=RNN["num_classes"],
+                                 max_length=t, seed=7).init()
+        ids = rng.integers(0, RNN["num_classes"], (batch, t + 1))
+        eye = np.eye(RNN["num_classes"], dtype=np.float32)
+        x, y = eye[ids[:, :t]], eye[ids[:, 1:]]
+        per_row, unit, ops = t, "trained chars/s", "TF32 matmuls"
     else:
         from deeplearning4j_tpu_torch.datasets import DataSet
 
@@ -128,7 +211,7 @@ def main() -> int:
         per_row, unit, ops = t, "trained tokens/s", "TF32 matmuls"
 
     def serve_once():
-        if args.model == "train-lm":
+        if args.model.startswith("train-"):
             return net.fit(DataSet(x, y)).score_
         return net.output(x).float().cpu().numpy()
 
@@ -160,7 +243,7 @@ def main() -> int:
     mode = "bf16" if args.mixed else "f32"
     tag = f"({card}; {args.model}, batch {batch}, " \
           f"{'bf16 activations' if args.mixed else 'float32, ' + ops})"
-    what = "step" if args.model == "train-lm" else "served batch"
+    what = "step" if args.model.startswith("train-") else "served batch"
     print(f"[profile] untraced wall per {what}: {wall_ms:.3f} ms = "
           f"{batch * per_row / wall_ms * 1e3:.1f} {unit} {tag}")
     if device_us == 0:
@@ -177,6 +260,8 @@ def main() -> int:
               f"{us / device_us * 100:5.1f}% of device time")
     os.makedirs(args.out, exist_ok=True)
     name = "resnet" if args.model == "resnet50" else args.model
+    if args.model == "train-rnn" and per_row != RNN["max_length"]:
+        name += f"-t{per_row}"
     with open(os.path.join(args.out,
                            f"profile_{name}_torch_{mode}.txt"), "w") as f:
         f.write(f"{tag}\n")

@@ -8,7 +8,11 @@ width, the cap on n), the attention layer's routing to the kernel,
 `rnn_time_step` on the card against `output`; the training kernels
 (flash-attention dq and dk/dv, the fused linear + softmax cross-entropy
 forward and backward, including the backward's device-side choice of
-path) and one `fit` step of a small TransformerLM against the CPU.
+path) and one `fit` step of a small TransformerLM against the CPU; the
+recurrent-training kernels (the fused LSTM backward, the time-chunked
+forward and backward: masks, ragged b, t and n, a ragged last chunk, t = 1,
+n at the cap), autograd through both LSTM families on the card, and one
+BPTT and one tBPTT `fit` of a small TextGenerationLSTM against the CPU.
 
 Marked `cuda`; they skip where torch.cuda.is_available() is False. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -24,7 +28,10 @@ P rounded at another running max), lse 1e-5 of its largest magnitude;
 lstm_scan, 1e-5 (float32) or 2e-2 (bfloat16) times max(1, max |plain|) on
 hs, hT and cT (sums in another order; bfloat16 rounds float32 values that
 differ in their last bits); rnn_time_step against output, 1e-5 absolute on
-probabilities with TF32 off.
+probabilities with TF32 off; the LSTM backward and chunked kernels, each
+output against 1e-5 (float32 forward outputs) or 1e-4 (float32 backward
+outputs: sums over b t terms in another order) of its plain version's
+largest magnitude, bfloat16 outputs 2e-2 (forward) or 1e-2 (dzx).
 """
 import pytest
 import torch
@@ -43,8 +50,17 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
 )
 from deeplearning4j_tpu_torch.ops.lstm import (
+    CHUNK,
     MAX_N,
     lstm_scan,
+    lstm_scan_backward_reference,
+    lstm_scan_bwd,
+    lstm_scan_chunked,
+    lstm_scan_chunked_backward_reference,
+    lstm_scan_chunked_bwd,
+    lstm_scan_chunked_forward,
+    lstm_scan_chunked_peephole,
+    lstm_scan_chunked_reference,
     lstm_scan_peephole,
     lstm_scan_reference,
 )
@@ -523,3 +539,163 @@ def test_one_fit_step_on_the_card_matches_the_cpu(cuda):
             got = dict(flat_items(a["m"]))[path].cpu()
             assert float((got - leaf).abs().max()) <= 1e-4 * max(
                 float(leaf.abs().max()), 1e-30)
+
+
+# ------------------------------------------------------ recurrent training
+LSTM_BWD_TOL = {("fwd", torch.float32): 1e-5, ("fwd", torch.bfloat16): 2e-2,
+                ("bwd", torch.float32): 1e-4, ("bwd", torch.bfloat16): 1e-2}
+
+
+def _close_to(kind, names, got, ref):
+    for name, a, r in zip(names, got, ref):
+        if r is None:
+            assert a is None, name
+            continue
+        assert a.dtype == r.dtype and a.shape == r.shape and a.is_cuda, name
+        err = float((a.float() - r.float()).abs().max()) if a.numel() else 0.
+        mag = (float(r.float().abs().max()) if r.numel() else 0.) or 1.0
+        assert err <= LSTM_BWD_TOL[(kind, r.dtype)] * mag, (name, err, mag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,n,peephole,masked", [
+    (64, 64, 256, True, False),    # BPTT step of the TextGenerationLSTM
+    (32, 50, 256, True, False),    # a tBPTT window
+    (64, 64, 256, False, False),   # plain cell
+    (8, 64, 256, True, True),      # ragged lengths, one row fully masked
+    (3, 7, 12, True, True),        # ragged small
+    (8, 1, 256, True, False),      # t = 1
+    (9, 2 * CHUNK + 5, 256, True, True),  # a ragged last chunk, 2 tiles
+    (16, 64, 512, True, False),    # wide n: R read from L2 every step
+    (9, 5, 1024, False, True),     # the cap on n
+    (1, 3, 1, True, False),
+])
+def test_lstm_backward_and_chunked_kernels_match_plain_versions(
+        cuda, b, t, n, peephole, masked, dtype):
+    """Rows 6, 7 and 8 from the same inputs: the chunked forward's outputs
+    and checkpoints, the fused backward from its hs and the chunked
+    backward from its checkpoints, each launching once."""
+    zx, R, p, h0, c0, mask = _lstm_inputs(cuda, b, t, n, dtype, peephole,
+                                          masked, seed=b + t + n + 1)
+    g = torch.Generator(device=cuda).manual_seed(b * t)
+    gs = [torch.randn(s, generator=g, device=cuda).to(dtype)
+          for s in ((b, t, n), (b, n), (b, n))]
+    counters = (lstm_scan_bwd, lstm_scan_chunked, lstm_scan_chunked_bwd)
+    before = [c.launches for c in counters]
+    fwd = lstm_scan_chunked_forward(zx, R, h0, c0, p, mask)
+    d6 = lstm_scan_bwd(zx, R, h0, c0, fwd[0], *gs, p, mask)
+    d8 = lstm_scan_chunked_bwd(zx, R, fwd[3], fwd[4], *gs, p, mask)
+    torch.cuda.synchronize()
+    assert [c.launches - x for c, x in zip(counters, before)] == [1, 1, 1]
+    assert fwd[3].shape == (-(-t // CHUNK), b, n)
+    _close_to("fwd", ("hs", "hT", "cT", "hck", "cck"), fwd,
+              lstm_scan_chunked_reference(zx, R, h0, c0, p, mask))
+    names = ("dzx", "dR", "dp", "dh0", "dc0")
+    _close_to("bwd", names, d6, lstm_scan_backward_reference(
+        zx, R, h0, c0, fwd[0], *gs, p, mask))
+    _close_to("bwd", names, d8, lstm_scan_chunked_backward_reference(
+        zx, R, fwd[3], fwd[4], *gs, p, mask))
+    if masked:
+        row = min(1, b - 1)  # fully masked: the carry's cotangent passes
+        for d in (d6, d8):
+            assert torch.equal(d[3][row], gs[1][row].float())
+            assert torch.equal(d[4][row], gs[2][row].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["hck_shape", "cck_cpu", "g_hs_dtype"])
+def test_lstm_backward_kernels_refuse_what_they_do_not_take(cuda, bad):
+    zx, R, p, h0, c0, _ = _lstm_inputs(cuda, 2, 3, 8, torch.float32, True,
+                                       False)
+    hs, _, _, hck, cck = lstm_scan_chunked_forward(zx, R, h0, c0, p)
+    gs = [torch.ones_like(a) for a in (hs, h0, c0)]
+    if bad == "hck_shape":
+        hck = torch.zeros(2, 2, 8, device=cuda)
+    elif bad == "cck_cpu":
+        cck = cck.cpu()
+    else:
+        gs[0] = gs[0].double()
+    before = (lstm_scan_bwd.launches, lstm_scan_chunked_bwd.launches)
+    with pytest.raises((TypeError, ValueError)):
+        lstm_scan_chunked_bwd(zx, R, hck, cck, *gs, p)
+    if bad == "g_hs_dtype":
+        with pytest.raises((TypeError, ValueError)):
+            lstm_scan_bwd(zx, R, h0, c0, hs, *gs, p)
+    assert (lstm_scan_bwd.launches, lstm_scan_chunked_bwd.launches) == before
+
+
+@pytest.mark.cuda
+def test_lstm_autograd_on_the_card_launches_each_family(cuda):
+    """Gradients through lstm_scan_peephole (rows 5, 6) and
+    lstm_scan_chunked_peephole (rows 7, 8) on the card equal each other and
+    the CPU's plain versions, at a t the chunk length does not divide."""
+    zx, R, p, h0, c0, mask = _lstm_inputs(cuda, 5, CHUNK + 9, 32,
+                                          torch.float32, True, True, seed=4)
+    grads = {}
+    for scan, counter in ((lstm_scan_peephole, lstm_scan_bwd),
+                          (lstm_scan_chunked_peephole, lstm_scan_chunked_bwd)):
+        for dev in (cuda, torch.device("cpu")):
+            args = [a.detach().to(dev).requires_grad_()
+                    for a in (zx, R, p, h0, c0)]
+            before = counter.launches
+            out = scan(*args, mask.to(dev))
+            grads[(scan, dev.type)] = torch.autograd.grad(
+                out[0].sum() + (out[2] * out[2]).sum(), args)
+            assert counter.launches == before + (dev.type == "cuda")
+    ref = grads[(lstm_scan_peephole, "cpu")]
+    for key, got in grads.items():
+        for a, r in zip(got, ref):
+            assert float((a.cpu() - r).abs().max()) <= 1e-4 * max(
+                1.0, float(r.abs().max())), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tbptt", [None, 8])
+def test_rnn_fit_on_the_card_matches_the_cpu(cuda, tbptt):
+    """Two RmsProp iterations of a TextGenerationLSTM cut to n = 32 (TF32
+    off), by BPTT or in tBPTT windows of 8 over t = 16, on the card and on
+    the CPU from the same seed: scores within 1e-5 relative, each param's
+    change within 1e-5, the g2 slots within 1e-4 of each leaf's largest
+    magnitude; each iteration launches rows 5 and 6 twice."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+
+    nets = []
+    for dev in ("cuda", "cpu"):
+        conf = TextGenerationLSTM(num_classes=11, max_length=16,
+                                  seed=5).conf()
+        for layer in conf.layers[:2]:
+            layer.n_out = 32
+        if tbptt:
+            conf.defaults.backprop_type = "tbptt"
+            conf.defaults.tbptt_fwd_length = tbptt
+        nets.append(MultiLayerNetwork(conf).init(device=dev))
+    card, cpu = nets
+    g = torch.Generator().manual_seed(12)
+    ids = torch.randint(0, 11, (8, 17), generator=g)
+    x = torch.nn.functional.one_hot(ids[:, :16], 11).float()
+    y = torch.nn.functional.one_hot(ids[:, 1:], 11).float()
+    start = {k: v.copy() for k, v in cpu.get_param_table().items()}
+    before = (lstm_scan.launches, lstm_scan_bwd.launches)
+    scores = {"card": [], "cpu": []}
+    with dtypes.full_precision():
+        for _ in range(1 if tbptt else 2):
+            card.fit(DataSet(x.to(cuda), y.to(cuda)))
+            scores["card"].append(card.score_)
+            cpu.fit(DataSet(x, y))
+            scores["cpu"].append(cpu.score_)
+    torch.cuda.synchronize()
+    assert card.iteration == cpu.iteration == 2
+    assert (lstm_scan.launches - before[0],
+            lstm_scan_bwd.launches - before[1]) == (4, 4)
+    for a, b in zip(scores["card"], scores["cpu"]):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    tc, tp = card.get_param_table(), cpu.get_param_table()
+    for k in tp:
+        assert float(abs((tc[k] - start[k]) - (tp[k] - start[k])).max()) \
+            <= 1e-5, k
+    for a, b in zip(card.opt_state, cpu.opt_state):
+        for path, leaf in flat_items(b["g2"]):
+            got = dict(flat_items(a["g2"]))[path].cpu()
+            assert float((got - leaf).abs().max()) <= 1e-4 * max(
+                float(leaf.abs().max()), 1e-30), path

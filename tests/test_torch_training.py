@@ -490,6 +490,11 @@ def test_fit_takes_features_and_labels_and_frozen_layers_stay():
 @pytest.mark.parametrize("where", ["block_dropout", "attn_dropout",
                                    "weight_noise", "solver", "tbptt"])
 def test_fit_refuses_what_it_does_not_train(where):
+    """fit refuses what it does not train and leaves the network as it
+    was. The tbptt case is trained now: the TransformerLM feeds [b, t]
+    token ids, which cannot be cut into windows, so a tBPTT configuration
+    takes the standard step, one iteration per batch, as the JAX package's
+    fit does."""
     d = json.loads(_lm_conf_json())
     if where == "block_dropout":
         d["layers"][2]["dropout"] = 0.9
@@ -502,6 +507,16 @@ def test_fit_refuses_what_it_does_not_train(where):
         d["defaults"]["optimization_algo"] = "lbfgs"
     else:
         d["defaults"]["backprop_type"] = "tbptt"
+        d["defaults"]["tbptt_fwd_length"] = 4
+        jnet, tnet = _pair(json.dumps(d))
+        x, y = _lm_batch(0)
+        assert not tnet._tbptt_batch(DataSet(x, y))
+        jnet.fit(jds_mod.DataSet(x, y))
+        tnet.fit(DataSet(x, y))
+        assert tnet.iteration == jnet.iteration == 1
+        assert abs(tnet.score_ - jnet.score_) <= 1e-5 * abs(jnet.score_)
+        _compare_nets(jnet, tnet, param_tol=5e-5)
+        return
     net = MultiLayerNetwork(MultiLayerConfiguration.from_json(d)).init(
         device="cpu")
     before = net.get_param_table()
