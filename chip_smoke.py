@@ -79,8 +79,11 @@ Phases, in order; any failure exits non-zero without the final line:
               dense path), at a ragged shape, at the char-RNN training
               paths' shapes (4096, 1600 and 32768 rows, d 256, 77
               characters: less than one vocabulary tile), float32 and
-              bfloat16; library F.cross_entropy(x @ W + b, idx) forward and
-              backward.
+              bfloat16, and where the 128 x 128 tiles' edges fall (129
+              rows, d 70 and v 333: rows not 16-byte aligned); library
+              F.cross_entropy(x @ W + b, idx) forward and backward. The
+              float32 bound is 3xTF32's three products over the TF32
+              tensor-core rate, the CUDA-core bound beside it on the log.
  13. train-lm     zoo TransformerLM at full width (vocab 8192, 512 tokens,
               d_model 512, 8 heads, 6 blocks), Adam(3e-4), trained by
               MultiLayerNetwork.fit for 20 steps on one repeated batch of
@@ -165,14 +168,15 @@ RNN = dict(num_classes=77, max_length=64)
 RNN_BATCH = 64
 
 # Published rates (NVIDIA data sheets, dense): device-memory bytes/s,
-# float32 operations/s outside the tensor cores, and bfloat16 operations/s
-# on the tensor cores. bn_act's bfloat16 arithmetic runs on the float32
-# units; the flash-attention bound in bfloat16 takes the tensor-core rate.
+# float32 operations/s outside the tensor cores, bfloat16 and TF32
+# operations/s on the tensor cores. bn_act's bfloat16 arithmetic runs on
+# the float32 units; the flash-attention bound in bfloat16 takes the
+# tensor-core rate; linear_xent's float32 products run as 3xTF32.
 CARD_RATES = {
-    "H100 PCIe": (2.0e12, 51e12, 756e12),
-    "H100 NVL": (3.9e12, 60e12, 835e12),
-    "H100": (3.35e12, 67e12, 989e12),      # SXM
-    "H200": (4.8e12, 67e12, 989e12),
+    "H100 PCIe": (2.0e12, 51e12, 756e12, 378e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12, 417.5e12),
+    "H100": (3.35e12, 67e12, 989e12, 495e12),      # SXM
+    "H200": (4.8e12, 67e12, 989e12, 495e12),
 }
 
 # the repo's transformer training batch (bench.py bench_transformer: 16 x
@@ -289,8 +293,11 @@ def phase_build():
         f"{_build.nvcc_path()}")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "ptxas" in line and ("registers" in line or "spill" in line
-                                    or "Compiling" in line):
+            # ptxas -v: the entry, its registers, and (on a line of its
+            # own, without the "ptxas" prefix) its stack frame and spills
+            if ("ptxas" in line and ("registers" in line
+                                     or "Compiling" in line)) \
+                    or "spill" in line:
                 log(f"[build]   {name}: {line.strip()}")
 
 
@@ -1200,6 +1207,9 @@ XENT_CASES = [
     (4096, 256, 77, "onehot", "bfloat16"),    # its mixed-precision steps
     (1600, 256, 77, "onehot", "float32"),     # a tBPTT window, 32 x 50
     (32768, 256, 77, "onehot", "float32"),    # long sequences, 8 x 4096
+    # the 128 x 128 tiles' edges: n past one row tile, rows of x (d = 70)
+    # and W (v = 333) not 16-byte aligned, a ragged last vocabulary tile
+    (129, 70, 333, "mixed", "float32"),
 ]
 # each output x max|plain| of that output (1 where the plain output is all
 # zero): forward outputs (float32 for both dtypes: the products are exact in
@@ -1233,7 +1243,7 @@ def xent_inputs(torch, gen, n, d, v, labels, dtype):
     return x, w, b, t, ids, g
 
 
-def phase_xent(torch, bw, peak, peak_bf16):
+def phase_xent(torch, bw, peak, peak_bf16, peak_tf32):
     """Forward and backward kernels against their plain versions at
     XENT_CASES. Returns the training case's rows and the largest absolute
     error of any case."""
@@ -1308,7 +1318,9 @@ def phase_xent(torch, bw, peak, peak_bf16):
             del lib_out, leaves
         else:
             l_f = l_b = None
-        rate = peak if dtype == torch.float32 else peak_bf16
+        # float32 products run as 3xTF32: three TF32 products each
+        f32 = dtype == torch.float32
+        rate, per_op = (peak_tf32, 3) if f32 else (peak_bf16, 1)
         work = 2 * n * d * v
         ins = (n * d + d * v) * item + 4 * v
         label_bytes = 4 * n * v
@@ -1319,8 +1331,12 @@ def phase_xent(torch, bw, peak, peak_bf16):
                 ("bwd", k_b, p_b, l_b, 2 * work,
                  ins + (4 * n if one else label_bytes) + 4 * 3 * n
                  + (n * d + n * v) * item + 4 * v)):
-            b_ms = max(moved / bw, ops / rate) * 1e3
-            by = "bytes" if moved / bw >= ops / rate else "operations"
+            b_ms = max(moved / bw, per_op * ops / rate) * 1e3
+            by = "bytes" if moved / bw >= per_op * ops / rate else \
+                "operations"
+            core = (f"  cuda-core bound="
+                    f"{max(moved / bw, ops / peak) * 1e3:.4f} ms"
+                    if f32 else "")
             rows[name] = {"ms": ms, "plain_ms": pl_ms, "library_ms": lib_ms,
                           "bound_ms": b_ms, "bound_by": by}
             lib_s = "n/a (soft labels)" if lib_ms is None else \
@@ -1329,7 +1345,7 @@ def phase_xent(torch, bw, peak, peak_bf16):
                 f"{labels:6s}  max_err={max(errs.values()):.3g}  kernel="
                 f"{ms:.4f} ms  plain={pl_ms:.4f} ms  library[F.cross_entropy"
                 f" {'forward' if name == 'fwd' else 'backward'}]={lib_s}  "
-                f"bound={b_ms:.4f} ms ({by})")
+                f"bound={b_ms:.4f} ms ({by}){core}")
         if (n, d, v, labels, dname) == XENT_CASES[0]:
             served = rows
         del x, w, b, t, got, ref, dx, dz, db, rdx, rdz, rdb
@@ -2048,11 +2064,11 @@ def main() -> int:
     try:
         card = card_line()
         name = torch.cuda.get_device_name(0)
-        bw, peak, peak_bf16 = card_rates(name)
+        bw, peak, peak_bf16, peak_tf32 = card_rates(name)
         log(f"[card] {card}; torch {torch.__version__} CUDA "
             f"{torch.version.cuda}; rates used for bounds: {bw / 1e12} TB/s,"
             f" {peak / 1e12} TFLOP/s float32, {peak_bf16 / 1e12} TFLOP/s "
-            f"bfloat16 tensor")
+            f"bfloat16 tensor, {peak_tf32 / 1e12} TFLOP/s TF32 tensor")
         phase_build()
         t0 = time.perf_counter()
         net = ResNet50(num_classes=1000, input_shape=(224, 224, 3),
@@ -2082,7 +2098,7 @@ def main() -> int:
         del rnn
         flash_bwd, flash_bwd_err = phase_flash_bwd(torch, bw, peak,
                                                    peak_bf16)
-        xent, xent_err = phase_xent(torch, bw, peak, peak_bf16)
+        xent, xent_err = phase_xent(torch, bw, peak, peak_bf16, peak_tf32)
         train_launches = phase_train_lm(torch, np, card)
         phase_refer_train(torch, np)
         lstm_bwd, lstm_bwd_err = phase_lstm_bwd(torch, bw, peak)

@@ -175,5 +175,7 @@ class ComputationGraph:
             for pname, t in self.params[name].items():
                 if layer is not None:
                     t = layer.to_interchange(pname, t)
-                flat[f"{name}/{pname}"] = t.detach().cpu().numpy()
+                # a copy: the JAX package's table is a snapshot
+                flat[f"{name}/{pname}"] = t.detach().to(
+                    "cpu", copy=True).numpy()
         return flat

@@ -12,17 +12,25 @@ TransformerLM.
 
 The forward kernel streams the vocabulary through an online logsumexp and
 also returns lse, T, the labels' argmax and a per-row one-hot flag. The
-backward kernel recomputes z per tile and returns dx, db and the dz spill
-(bfloat16 under the mixed-precision policy, as in the JAX package); it reads
+backward recomputes z per tile and returns the dz spill (bfloat16 under
+the mixed-precision policy, as in the JAX package), dx = dz . W^T from the
+spill, and db; it reads
 no [n, v] labels when every row is one-hot, choosing on the device from the
 flag (the JAX package's lax.cond), so the host never waits. dW = x^T . dz
 stays a plain matrix product (`ops.linear.dot`), as the JAX package leaves
 it to XLA. Labels get no gradient.
 
-At the trained shape (n = 8192 rows, d = 512, v = 8192, float32) the kernels
-keep float32 arithmetic on the CUDA cores and are bound by operations over
-67 TFLOP/s on an H100 SXM: forward 68.7 GFLOP (1.03 ms), backward 137 GFLOP
-(2.05 ms). Their design is described in csrc/linear_xent.cu.
+Both products run on the tensor cores (mma.sync, operands streamed by
+cp.async): bfloat16 as bfloat16 products with float32 sums, float32 as
+3xTF32 (each operand split into a TF32 part and the rest, three products
+per step added into float32), so a float32 kernel computes float32
+whatever the precision policy. At the trained shape (n = 8192 rows, d =
+512, v = 8192) the float32 bound is 3 x 68.7 GFLOP over TF32's 495
+TFLOP/s on an H100 SXM: forward 0.42 ms, backward (z and dx) 0.83 ms. z
+reads W through a transposed copy made by the first launch of each call
+(scratch of d v elements); the backward's z and dz and its dx = dz . W^T,
+which reads the spill, are separate launches. Their design is described
+in csrc/linear_xent.cu.
 
 `linear_xent_fwd` and `linear_xent_bwd` launch the kernels for CUDA tensors
 (counting `.launches`) and raise on anything they do not take; CPU tensors
@@ -34,7 +42,6 @@ decisions and are not ported: the kernels take any n, d and v.
 from __future__ import annotations
 
 import ctypes
-import math
 import threading
 
 import torch
@@ -43,8 +50,8 @@ from deeplearning4j_tpu_torch import dtypes
 from deeplearning4j_tpu_torch.ops import linear as ops
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ROWS = 64  # rows per block in both kernels (csrc/linear_xent.cu kBN)
-_COLS = 64  # vocab columns per tile (kBV)
+_ROWS = 128  # rows per block tile (csrc/linear_xent.cu kBM)
+_COLS = 128  # vocab columns per tile (kBN)
 
 _count_lock = threading.Lock()
 _lib = None
@@ -100,10 +107,10 @@ def _kernel():
         lib = _build.load("linear_xent")
         sizes = [ctypes.c_int64] * 3
         tail = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.linear_xent_fwd_launch.argtypes = [ctypes.c_void_p] * 11 + sizes \
+        lib.linear_xent_fwd_launch.argtypes = [ctypes.c_void_p] * 12 + sizes \
             + [ctypes.c_int] + tail
-        lib.linear_xent_bwd_launch.argtypes = [ctypes.c_void_p] * 13 + sizes \
-            + tail
+        lib.linear_xent_bwd_launch.argtypes = [ctypes.c_void_p] * 14 + sizes \
+            + [ctypes.c_int] + tail
         for fn in (lib.linear_xent_fwd_launch, lib.linear_xent_bwd_launch):
             fn.restype = ctypes.c_int
         lib.linear_xent_error_string.argtypes = [ctypes.c_int]
@@ -161,6 +168,17 @@ def _raise(what: str, lib, err: int) -> None:
                        f"(code {err})")
 
 
+def _splits(dev, n, v) -> int:
+    """Vocabulary splits of the z kernels' tiles: one wave of blocks (one
+    per SM: a z kernel's shared memory holds an SM) fills the card, and no
+    split is empty."""
+    row_blocks = -(-n // _ROWS)
+    tiles = -(-v // _COLS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nsplit = max(1, min(tiles, sms // row_blocks))
+    return -(-tiles // -(-tiles // nsplit))
+
+
 def linear_xent_fwd(x, w, b, labels):
     """(per_row, lse, T, idx, onehot) of rows of x against W [d, v], b [v]
     and labels [n, v]: float32 [n] except idx (int32). x and W share a
@@ -179,19 +197,16 @@ def linear_xent_fwd(x, w, b, labels):
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return per_row, lse, ts, idx, oh
-    # split the vocabulary over enough blocks to fill the card
-    row_blocks = -(-n // _ROWS)
-    tiles = -(-v // _COLS)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nsplit = max(1, min(tiles, math.ceil(4 * sms / row_blocks)))
+    nsplit = _splits(dev, n, v)
+    wt = torch.empty((v, d), dtype=x.dtype, device=dev)  # W^T, scratch
     part = torch.empty(6 * nsplit * n, **f32)
     part_idx = torch.empty(nsplit * n, dtype=torch.int32, device=dev)
     lib = _kernel()
     err = lib.linear_xent_fwd_launch(
         x.data_ptr(), w.data_ptr(), bf.data_ptr(), lf.data_ptr(),
-        part.data_ptr(), part_idx.data_ptr(), per_row.data_ptr(),
-        lse.data_ptr(), ts.data_ptr(), idx.data_ptr(), oh.data_ptr(), n, d,
-        v, nsplit, _DTYPE_CODES[x.dtype], dev.index,
+        wt.data_ptr(), part.data_ptr(), part_idx.data_ptr(),
+        per_row.data_ptr(), lse.data_ptr(), ts.data_ptr(), idx.data_ptr(),
+        oh.data_ptr(), n, d, v, nsplit, _DTYPE_CODES[x.dtype], dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         _raise("forward", lib, err)
@@ -204,8 +219,8 @@ def linear_xent_bwd(x, w, b, labels, idx, all_onehot, lse, tsum, g):
     forward's lse, T and idx and the device scalar `all_onehot` (1.0 when
     every row is one-hot: the kernel then reads idx and no labels). dx and
     the dz spill [n, v] are in x's dtype, db float32 [v]. CUDA tensors
-    launch the backward kernel (counting `linear_xent_bwd.launches`); CPU
-    tensors compute the plain version."""
+    launch the backward kernels (z and dz, dx, the db sum; counted once in
+    `linear_xent_bwd.launches`); CPU tensors compute the plain version."""
     _check(x, w, b, labels)
     n = x.shape[0]
     for name, r in (("lse", lse), ("T", tsum), ("g", g), ("idx", idx)):
@@ -231,15 +246,17 @@ def linear_xent_bwd(x, w, b, labels, idx, all_onehot, lse, tsum, g):
     db = torch.zeros(v, dtype=torch.float32, device=dev)
     if n == 0:
         return dx, dz, db
+    wt = torch.empty((v, d), dtype=x.dtype, device=dev)  # W^T, scratch
     db_part = torch.empty(-(-n // _ROWS) * v, dtype=torch.float32,
                           device=dev)
     lib = _kernel()
     err = lib.linear_xent_bwd_launch(
         x.data_ptr(), w.data_ptr(), bf.data_ptr(), lf.data_ptr(),
-        idx.data_ptr(), all_onehot.data_ptr(), lse.data_ptr(),
-        tsum.data_ptr(), g.data_ptr(), dx.data_ptr(), dz.data_ptr(),
-        db_part.data_ptr(), db.data_ptr(), n, d, v, _DTYPE_CODES[x.dtype],
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        wt.data_ptr(), idx.data_ptr(), all_onehot.data_ptr(),
+        lse.data_ptr(), tsum.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        dz.data_ptr(), db_part.data_ptr(), db.data_ptr(), n, d, v,
+        _splits(dev, n, v), _DTYPE_CODES[x.dtype], dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         _raise("backward", lib, err)
     _count(linear_xent_bwd)

@@ -428,7 +428,12 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("labels", ["onehot", "soft", "mixed"])
 @pytest.mark.parametrize("n,d,v", [(512, 128, 2048), (100, 70, 333),
-                                   (64, 512, 8192), (1, 16, 5)])
+                                   (64, 512, 8192), (1, 16, 5),
+                                   # the 128 x 128 tiles' edges: n past one
+                                   # row tile, rows not 16-byte aligned
+                                   # (d = 70, v = 77), v just past one tile
+                                   (129, 70, 77), (129, 64, 129),
+                                   (257, 136, 129)])
 def test_xent_kernels_match_plain_version(cuda, n, d, v, dtype, labels):
     x, w, b, t = _xent_inputs(cuda, n, d, v, dtype, labels, seed=n + v)
     before = (linear_xent_fwd.launches, linear_xent_bwd.launches)
@@ -453,6 +458,25 @@ def test_xent_kernels_match_plain_version(cuda, n, d, v, dtype, labels):
                             ("db", db, rdb, 1e-4)):
         ok, err = _close(a, r, tol)
         assert ok and a.shape == r.shape, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("labels", ["onehot", "mixed"])
+def test_xent_kernels_are_deterministic(cuda, dtype, labels):
+    """No atomics: two calls on the same inputs give the same bits."""
+    x, w, b, t = _xent_inputs(cuda, 300, 96, 1000, dtype, labels, seed=9)
+    g = torch.rand(300, generator=torch.Generator(device=cuda).manual_seed(2),
+                   device=cuda)
+    runs = []
+    for _ in range(2):
+        per_row, lse, ts, idx, oh = linear_xent_fwd(x, w, b, t)
+        dx, dz, db = linear_xent_bwd(x, w, b, t, idx, oh.amin().reshape(()),
+                                     lse, ts, g)
+        runs.append((per_row, lse, dx, dz, db))
+    torch.cuda.synchronize()
+    for name, a, r in zip(("per_row", "lse", "dx", "dz", "db"), *runs):
+        assert torch.equal(a, r), name
 
 
 @pytest.mark.cuda

@@ -141,3 +141,21 @@ def test_params_from_jax_rejects_mismatches(nets, fault):
     with pytest.raises(ValueError):
         interop.params_from_jax(tnet, params, state)
     np.testing.assert_array_equal(tnet.get_param_table()["out/W"], before)
+
+
+def test_graph_param_table_is_a_snapshot():
+    """The table holds copies: params changed in place afterwards (as a
+    step's update does) leave it as it was, as the JAX package's table of
+    immutable arrays stays."""
+    tnet = TResNet50(num_classes=10, input_shape=(32, 32, 3)).init(
+        device="cpu")
+    before = tnet.get_param_table()
+    kept = {k: v.copy() for k, v in before.items()}
+    with torch.no_grad():
+        for vertex in tnet.params.values():
+            for t in vertex.values():
+                t.add_(1.0)
+    for k in kept:
+        np.testing.assert_array_equal(before[k], kept[k], err_msg=k)
+    after = tnet.get_param_table()
+    assert all(not np.array_equal(after[k], kept[k]) for k in kept)
