@@ -1082,10 +1082,22 @@ FLASH_BWD_CASES = [
     (4, 8, 512, 128, True),
     (2, 4, 129, 128, False),
 ]
-# x max(1, max|plain|): float32 sums in another order (dS = P * (dP -
-# delta) cancels; at t = 1 dq is 0 up to rounding), bfloat16 one rounding of
-# the float32 result apart
+# each of dq, dk and dv x its own plain output's largest magnitude: float32
+# sums in another order, bfloat16 one rounding of the float32 result apart.
+# The magnitude is 1 where the plain output is zero: all of it, or in exact
+# arithmetic at t = 1, where one key gives P = 1 and O = V, so dS = dP -
+# delta = 0 and the plain dq and dk are rounding noise.
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def disagrees(a, r, tol, zero=False):
+    """(max abs error, limit) when `a` is not `r` within tol x max|r| (x 1
+    where `r` is all zero, or `zero`: zero in exact arithmetic); None when
+    they agree. NaN disagrees."""
+    err = float((a.float() - r.float()).abs().max())
+    mag = 1.0 if zero else float(r.float().abs().max()) or 1.0
+    bad = a.shape != r.shape or a.dtype != r.dtype or not err <= tol * mag
+    return (err, tol * mag) if bad else None
 
 
 def phase_flash_bwd(torch, bw, peak, peak_bf16):
@@ -1121,21 +1133,37 @@ def phase_flash_bwd(torch, bw, peak, peak_bf16):
             ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
                                                    causal)
             torch.cuda.synchronize()
-            errs = {}
+            tol, errs = FLASH_BWD_TOL[dname], {}
+            where = f"b={b} h={h} t={t} d={d} causal={causal} {dname}"
             for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-                err = float((got.float() - want.float()).abs().max())
-                mag = max(1.0, float(want.float().abs().max()))
-                if got.dtype != dtype or got.shape != want.shape or \
-                        not err <= FLASH_BWD_TOL[dname] * mag:
+                bad = disagrees(got, want, tol, t == 1 and name != "dv")
+                if bad:
                     raise AssertionError(
                         f"flash backward {name} disagrees with its plain "
-                        f"version at b={b} h={h} t={t} d={d} causal={causal}"
-                        f" {dname}: max err {err:.3g} (x max(1, |plain|) "
-                        f"{mag:.3g})")
-                errs[name] = err
-                max_err = max(max_err, err)
-            checked += 1
+                        f"version at {where}: max err {bad[0]:.3g} (limit "
+                        f"{bad[1]:.3g})")
+                errs[name] = float((got.float() - want.float()).abs().max())
+                max_err = max(max_err, errs[name])
+            # the comparison must see a broken backward: each output zeroed
+            # (dq and dk are zero at t = 1) and a dS without its -delta term
             scale = d ** -0.5
+            no_delta = torch.zeros_like(delta)
+            broken = [("a dS without -delta", 0, fa._bwd_plain(
+                q, k, v, do, lse, no_delta, causal, scale, "dq")),
+                ("a dS without -delta", 1, fa._bwd_plain(
+                    q, k, v, do, lse, no_delta, causal, scale, "dkv")[0]),
+                ("a zeroed dv", 2, torch.zeros_like(dv))]
+            if t > 1:
+                broken += [("a zeroed dq", 0, torch.zeros_like(dq)),
+                           ("a zeroed dk", 1, torch.zeros_like(dk))]
+            for name, i, a in broken:
+                if not disagrees(a, ref[i], tol, t == 1 and i < 2):
+                    raise AssertionError(
+                        f"kernel-flash-bwd cannot tell {name} "
+                        f"({('dq', 'dk', 'dv')[i]}) from the plain backward "
+                        f"at {where}")
+            del broken, no_delta
+            checked += 1
             k_dq = device_ms(torch, lambda i: fa.flash_attention_bwd_dq(
                 *sets[i][:4], sets[i][5], sets[i][6], causal), nbuf)
             k_dkv = device_ms(torch, lambda i: fa.flash_attention_bwd_dkv(
@@ -1175,7 +1203,7 @@ def phase_flash_bwd(torch, bw, peak, peak_bf16):
                 log(f"[kernel-flash-bwd] {name:3s} {dname:8s} b={b:2d} h={h} "
                     f"t={t:3d} d={d:3d} {'causal' if causal else 'full  '}  "
                     f"max_err={max(errs[n] for n in (['dq'] if name == 'dq' else ['dk', 'dv'])):.3g} "
-                    f"(tol {FLASH_BWD_TOL[dname]:g} x max(1,|plain|))  "
+                    f"(tol {tol:g} x max|plain|)  "
                     f"kernel={ms:.4f} ms  plain={pl_ms:.4f} ms  "
                     f"bound={b_ms:.4f} ms ({by})")
             log(f"[kernel-flash-bwd] dq + dkv {dname:8s} kernels together "
@@ -1187,8 +1215,10 @@ def phase_flash_bwd(torch, bw, peak, peak_bf16):
             del sets
     log(f"[kernel-flash-bwd] verdict: dq and dk/dv agree with their plain "
         f"versions in {checked}/{checked} (shape, dtype) cases, max abs "
-        f"error {max_err:.3g} (tol float32 1e-4, bfloat16 1e-2, x max(1, "
-        f"max|plain|))")
+        f"error {max_err:.3g} (tol float32 1e-4, bfloat16 1e-2, x max|plain| "
+        f"of each output); a zeroed dv and a dS without -delta fail the "
+        f"comparison in every case, a zeroed dq or dk in every case with "
+        f"t > 1 (at t = 1 both are zero)")
     return served, max_err
 
 
@@ -1218,14 +1248,6 @@ XENT_CASES = [
 # The cotangent is of order 1, so that dx and dz are as large as the
 # label term makes them.
 XENT_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
-
-
-def xent_disagrees(a, r, tol):
-    """(max abs error, limit) when `a` is not `r` within tol x max|r|."""
-    err = float((a.float() - r.float()).abs().max())
-    mag = float(r.float().abs().max()) or 1.0
-    bad = a.shape != r.shape or a.dtype != r.dtype or not err <= tol * mag
-    return (err, tol * mag) if bad else None
 
 
 def xent_inputs(torch, gen, n, d, v, labels, dtype):
@@ -1272,7 +1294,7 @@ def phase_xent(torch, bw, peak, peak_bf16, peak_tf32):
                                                     1e-4),
                 ("T", got[2], ref[2], 1e-4), ("dx", dx, rdx, XENT_TOL[dname]),
                 ("dz", dz, rdz, XENT_TOL[dname]), ("db", db, rdb, 1e-4)):
-            bad = xent_disagrees(a, r, tol)
+            bad = disagrees(a, r, tol)
             if bad:
                 raise AssertionError(
                     f"linear_xent {name} disagrees with its plain version at"
@@ -1286,7 +1308,7 @@ def phase_xent(torch, bw, peak, peak_bf16, peak_tf32):
         for name, a, r in (("dx = 0", torch.zeros_like(dx), rdx),
                            ("dz = 0", torch.zeros_like(dz), rdz),
                            ("dz without the label term", no_label, rdz)):
-            if not xent_disagrees(a, r, XENT_TOL[dname]):
+            if not disagrees(a, r, XENT_TOL[dname]):
                 raise AssertionError(f"kernel-xent cannot tell {name} from "
                                      f"the plain backward ({labels} {dname})")
         del no_label

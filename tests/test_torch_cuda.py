@@ -43,6 +43,7 @@ from deeplearning4j_tpu_torch.nn import inputs as it
 from deeplearning4j_tpu_torch.nn.layers import MultiHeadAttention
 from deeplearning4j_tpu_torch.ops.bn_act import bn_act, bn_act_reference
 from deeplearning4j_tpu_torch.ops.flash_attention import (
+    _bwd_plain,
     flash_attention,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
@@ -329,20 +330,33 @@ def test_rnn_time_step_on_the_card_equals_output(cuda):
 
 
 # ------------------------------------------------ flash-attention backward
-# dq, dk, dv against the plain formulas on the same inputs: float32 1e-4 of
-# max(1, the plain gradient's largest magnitude) (sums over up to t keys or
-# queries in another order, and dS = P * (dP - delta) cancels: at t = 1 dq
-# is 0 up to that rounding), bfloat16 1e-2 (one rounding of the float32
-# result to bfloat16 apart)
+# dq, dk, dv against the plain formulas on the same inputs, each within its
+# tolerance times its own plain output's largest magnitude: float32 1e-4
+# (sums over up to t keys or queries in another order), bfloat16 1e-2 (one
+# rounding of the float32 result to bfloat16 apart). The magnitude is 1
+# where the plain output is zero: all of it, or in exact arithmetic at t = 1,
+# where one key gives P = 1 and O = V, so dS = dP - delta = 0 and the plain
+# dq and dk are rounding noise. NaN fails.
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
-def _flash_bwd_check(cuda, shape, causal, dtype):
-    g = torch.Generator(device=cuda).manual_seed(sum(shape) + 1)
+def _flash_bwd_close(got, want, tol, zero=False):
+    err = float((got.float() - want.float()).abs().max())
+    mag = 1.0 if zero else float(want.float().abs().max()) or 1.0
+    return err <= tol * mag, err
+
+
+def _flash_bwd_inputs(cuda, shape, causal, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     q, k, v, do = (torch.randn(shape, generator=g, device=cuda).to(dtype)
                    for _ in range(4))
     o, lse = flash_attention(q, k, v, causal, return_lse=True)
-    delta = (do.float() * o.float()).sum(-1)
+    return q, k, v, do, o, lse, (do.float() * o.float()).sum(-1)
+
+
+def _flash_bwd_check(cuda, shape, causal, dtype):
+    q, k, v, do, o, lse, delta = _flash_bwd_inputs(cuda, shape, causal, dtype,
+                                                   sum(shape) + 1)
     before = (flash_attention_bwd_dq.launches,
               flash_attention_bwd_dkv.launches)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
@@ -352,11 +366,24 @@ def _flash_bwd_check(cuda, shape, causal, dtype):
     assert (flash_attention_bwd_dq.launches,
             flash_attention_bwd_dkv.launches) == (before[0] + 1,
                                                   before[1] + 1)
+    tol, t = FLASH_BWD_TOL[dtype], shape[2]
     for name, got, want in zip("qkv", (dq, dk, dv), ref):
         assert got.dtype == dtype and got.shape == q.shape and got.is_cuda
-        err = float((got.float() - want.float()).abs().max())
-        mag = max(1.0, float(want.float().abs().max()))
-        assert err <= FLASH_BWD_TOL[dtype] * mag, (name, err, mag)
+        ok, err = _flash_bwd_close(got, want, tol, t == 1 and name != "v")
+        assert ok, (name, err)
+    # the comparison sees a broken backward: a dS without its -delta term,
+    # a zeroed dv, and (where they are not zero) a zeroed dq or dk
+    scale = shape[-1] ** -0.5
+    no_delta = torch.zeros_like(delta)
+    broken = [(0, _bwd_plain(q, k, v, do, lse, no_delta, causal, scale,
+                             "dq")),
+              (1, _bwd_plain(q, k, v, do, lse, no_delta, causal, scale,
+                             "dkv")[0]),
+              (2, torch.zeros_like(dv))]
+    if t > 1:
+        broken += [(0, torch.zeros_like(dq)), (1, torch.zeros_like(dk))]
+    for i, a in broken:
+        assert not _flash_bwd_close(a, ref[i], tol, t == 1 and i < 2)[0], i
 
 
 @pytest.mark.cuda
@@ -373,6 +400,21 @@ def _flash_bwd_check(cuda, shape, causal, dtype):
 ])
 def test_flash_bwd_kernels_match_plain_version(cuda, shape, causal, dtype):
     _flash_bwd_check(cuda, shape, causal, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernels_are_deterministic(cuda, causal, dtype):
+    """No atomics: two launches on the same inputs give the same bits."""
+    q, k, v, do, _, lse, delta = _flash_bwd_inputs(cuda, (2, 4, 300, 64),
+                                                   causal, dtype, seed=9)
+    runs = [(flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
+             *flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, r), name
 
 
 @pytest.mark.cuda
