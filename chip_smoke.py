@@ -69,9 +69,13 @@ Phases, in order; any failure exits non-zero without the final line:
               against their plain formulas on the card at the training
               shape (16, 8, 512, 64) causal and at edge cases (ragged t,
               t = 1, non-causal, head dims 16, 32, 128), float32 and
-              bfloat16: max error against the stated tolerance, kernel /
-              plain / library (the backward of scaled_dot_product_attention
-              through autograd) times and the bound.
+              bfloat16: each output against its tolerance x its own
+              largest magnitude (a zeroed dq, dk or dv and a dS without
+              -delta must fail), kernel / plain / library (the backward of
+              scaled_dot_product_attention through autograd) times and the
+              bound. The float32 bound is 3xTF32's three products over the
+              TF32 tensor-core rate, the CUDA-core bound beside it on the
+              log.
  12. kernel-xent  the fused linear + softmax cross-entropy kernels (forward,
               backward) against their plain versions at the training shape
               (8192 rows, d 512, vocab 8192) with one-hot labels (the
@@ -1100,7 +1104,7 @@ def disagrees(a, r, tol, zero=False):
     return (err, tol * mag) if bad else None
 
 
-def phase_flash_bwd(torch, bw, peak, peak_bf16):
+def phase_flash_bwd(torch, bw, peak, peak_bf16, peak_tf32):
     """dq and dk/dv kernels against their plain formulas at
     FLASH_BWD_CASES, float32 and bfloat16. Returns the training case's
     float32 rows (per launch) and the largest absolute error of any case."""
@@ -1185,15 +1189,24 @@ def phase_flash_bwd(torch, bw, peak, peak_bf16):
                 lib[i][0], lib[i][1], lib[i][2], retain_graph=True), nbuf)
             del lib
             pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
-            rate = peak if dtype == torch.float32 else peak_bf16
             in_bytes = 4 * b * h * t * d * item + 2 * 4 * b * h * t
+            f32 = dtype == torch.float32
             rows = {}
-            for name, ms, pl_ms, ops, out_n in (("dq", k_dq, p_dq, 6, 1),
-                                                ("dkv", k_dkv, p_dkv, 8, 2)):
+            # products of 2 d operations per (q, k) pair: dq 3, dk/dv 4.
+            # float32 runs each as 3xTF32, three TF32 products on the tensor
+            # cores; bfloat16 runs P and dS as hi + lo pairs, two products
+            # each (dq 4, dk/dv 6)
+            for name, ms, pl_ms, ops, bf16_ops, out_n in (
+                    ("dq", k_dq, p_dq, 3, 4, 1),
+                    ("dkv", k_dkv, p_dkv, 4, 6, 2)):
                 moved = in_bytes + out_n * b * h * t * d * item
-                work = ops * d * pairs
+                work = 2 * d * pairs * (3 * ops if f32 else bf16_ops)
+                rate = peak_tf32 if f32 else peak_bf16
                 b_ms = max(moved / bw, work / rate) * 1e3
                 by = "bytes" if moved / bw >= work / rate else "operations"
+                core = (f"  cuda-core bound="
+                        f"{max(moved / bw, 2 * d * pairs * ops / peak) * 1e3:.4f}"
+                        f" ms" if f32 else "")
                 # one library call gives dq, dk and dv: its time is shared
                 # by the pair, not comparable with either kernel alone
                 rows[name] = {"ms": ms, "plain_ms": pl_ms, "library_ms": l_ms,
@@ -1205,7 +1218,8 @@ def phase_flash_bwd(torch, bw, peak, peak_bf16):
                     f"max_err={max(errs[n] for n in (['dq'] if name == 'dq' else ['dk', 'dv'])):.3g} "
                     f"(tol {tol:g} x max|plain|)  "
                     f"kernel={ms:.4f} ms  plain={pl_ms:.4f} ms  "
-                    f"bound={b_ms:.4f} ms ({by})")
+                    f"bound={b_ms:.4f} ms ({by}{', 3xTF32' if f32 else ''})"
+                    f"{core}")
             log(f"[kernel-flash-bwd] dq + dkv {dname:8s} kernels together "
                 f"{k_dq + k_dkv:.4f} ms  library[sdpa backward, dq+dk+dv]="
                 f"{l_ms:.4f} ms")
@@ -2119,7 +2133,7 @@ def main() -> int:
         phase_reference_rnn(torch, np, rnn)
         del rnn
         flash_bwd, flash_bwd_err = phase_flash_bwd(torch, bw, peak,
-                                                   peak_bf16)
+                                                   peak_bf16, peak_tf32)
         xent, xent_err = phase_xent(torch, bw, peak, peak_bf16, peak_tf32)
         train_launches = phase_train_lm(torch, np, card)
         phase_refer_train(torch, np)

@@ -2,10 +2,11 @@
 
 Each kernel is one `csrc/<name>.cu` file with a plain C interface. `nvcc`
 compiles it for Hopper (`sm_90a`) into `build/lib<name>-<hash>.so` inside
-this package (a directory .gitignore lists); the hash of the source and the
-compiler flags names the library, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing here runs at import: the CPU
-tests import every module on a machine with no `nvcc`.
+this package (a directory .gitignore lists); the hash of the source, the
+`csrc/*.cuh` headers it includes and the compiler flags names the library,
+so an edited source or header is rebuilt and an unchanged one is loaded as
+it is. Nothing here runs at import: the CPU tests import every module on a
+machine with no `nvcc`.
 
     lib = _build.load("bn_act")               # build if needed, then dlopen
     logs = _build.build_all(["bn_act", "flash_attention", "lstm_scan"])
@@ -16,11 +17,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Set
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -61,11 +63,29 @@ def _source(name: str) -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _hash_source(path: str, h, seen: Set[str]) -> None:
+    """Adds `path` and, depth first, every header it includes by a quoted
+    `#include` (each once) to the hash `h`."""
+    if path in seen:
+        return
+    seen.add(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    h.update(text)
+    for inc in _INCLUDE.findall(text):
+        header = os.path.join(os.path.dirname(path), inc.decode())
+        if os.path.exists(header):
+            _hash_source(header, h, seen)
+
+
 def library_path(name: str) -> str:
-    """Where the library built from the current source and flags lives."""
+    """Where the library built from the current source, the headers it
+    includes and the flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(_source(name), "rb") as f:
-        h.update(f.read())
+    _hash_source(_source(name), h, set())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 

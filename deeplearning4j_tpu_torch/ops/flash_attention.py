@@ -9,11 +9,13 @@ forward through `MultiHeadAttention.apply` when no key-padding mask is
 given, and a training step the backward pair: 6 launches of each per step
 of the zoo TransformerLM at 6 layers.
 
-The CUDA kernels (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu)
-keep float32 arithmetic on the CUDA cores, so at the trained shape (b=16,
-h=8, t=512, d=64, causal) they are bound by operations over 67 TFLOP/s on
-an H100 SXM: forward 4.30 GFLOP (0.064 ms), dq 6.45 GFLOP (0.096 ms), dk/dv
-8.61 GFLOP (0.128 ms). Their designs are described in the sources.
+At the trained shape (b=16, h=8, t=512, d=64, causal) on an H100 SXM: the
+forward kernel (csrc/flash_attention.cu) keeps float32 arithmetic on the
+CUDA cores, 4.30 GFLOP over 67 TFLOP/s (0.064 ms); the backward kernels
+(csrc/flash_attention_bwd.cu) run their products on the tensor cores,
+bfloat16 directly and float32 as 3xTF32, so in float32 dq's 6.45 GFLOP and
+dk/dv's 8.61 GFLOP take three TF32 products each over 495 TFLOP/s (0.039
+and 0.052 ms). Their designs are described in the sources.
 
 `flash_attention` launches the forward kernel for CUDA tensors and raises on
 anything the kernel does not take; it never copies and never falls back.

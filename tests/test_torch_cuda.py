@@ -340,7 +340,9 @@ def test_rnn_time_step_on_the_card_equals_output(cuda):
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
-def _flash_bwd_close(got, want, tol, zero=False):
+def _close(got, want, tol, zero=False):
+    """(within tol x max|want|, max abs error); the magnitude is 1 where
+    `want` is all zero or `zero` (zero in exact arithmetic)."""
     err = float((got.float() - want.float()).abs().max())
     mag = 1.0 if zero else float(want.float().abs().max()) or 1.0
     return err <= tol * mag, err
@@ -369,7 +371,7 @@ def _flash_bwd_check(cuda, shape, causal, dtype):
     tol, t = FLASH_BWD_TOL[dtype], shape[2]
     for name, got, want in zip("qkv", (dq, dk, dv), ref):
         assert got.dtype == dtype and got.shape == q.shape and got.is_cuda
-        ok, err = _flash_bwd_close(got, want, tol, t == 1 and name != "v")
+        ok, err = _close(got, want, tol, t == 1 and name != "v")
         assert ok, (name, err)
     # the comparison sees a broken backward: a dS without its -delta term,
     # a zeroed dv, and (where they are not zero) a zeroed dq or dk
@@ -383,7 +385,7 @@ def _flash_bwd_check(cuda, shape, causal, dtype):
     if t > 1:
         broken += [(0, torch.zeros_like(dq)), (1, torch.zeros_like(dk))]
     for i, a in broken:
-        assert not _flash_bwd_close(a, ref[i], tol, t == 1 and i < 2)[0], i
+        assert not _close(a, ref[i], tol, t == 1 and i < 2)[0], i
 
 
 @pytest.mark.cuda
@@ -459,11 +461,6 @@ def _xent_inputs(cuda, n, d, v, dtype, labels, seed=0):
         r = min(3, n - 1)
         t[r] = 0.9 * t[r] + 0.1 / v     # one smoothed row
     return x, w, b, t
-
-
-def _close(got, want, tol):
-    err = float((got.float() - want.float()).abs().max())
-    return err <= tol * (float(want.float().abs().max()) or 1.0), err
 
 
 @pytest.mark.cuda

@@ -14,7 +14,14 @@ of the expected gradient:
     bfloat16 at another running max in each program, which moves delta);
   - the backward formulas alone, on the same o and lse: float32 1e-5,
     bfloat16 1e-2 (one bfloat16 rounding of the result apart).
+
+A plain-PyTorch rehearsal of the card kernels' arithmetic (3xTF32 for
+float32, bfloat16 pairs for P and dS) is held against the plain formulas
+at the card checks' tolerances, so that a change of numerics is tried here
+before it is tried on the card.
 """
+import shutil
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -156,3 +163,120 @@ def test_backward_wrappers_refuse_what_they_do_not_take(bad):
     for fn in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
         with pytest.raises(ValueError):
             fn(q, k, v, do, lse, delta)
+
+
+# ------------------------------------------------ the card kernels' numerics
+# A plain-PyTorch rehearsal of the arithmetic csrc/flash_attention_bwd.cu
+# runs on the tensor cores, held against `_bwd_plain` at the card checks'
+# tolerances (float32 1e-4, bfloat16 1e-2, each output against its own
+# largest magnitude). float32: every product as 3xTF32, each operand split
+# into a TF32 part and the rest, both rounded to nearest, the three
+# products of each 8-deep step summed apart and added to a float32
+# accumulator. bfloat16: q, k, v and dO enter as they are, P and dS as a
+# bfloat16 pair hi + lo (two products).
+def _tf32_parts(x):
+    """(hi, lo) of float32 `x`: hi its bits rounded to nearest at the 13th
+    bit from the bottom, lo = x - hi rounded the same way (split_tf32)."""
+    def rnd(a):
+        bits = a.contiguous().numpy().view(np.uint32)
+        return torch.from_numpy(((bits + np.uint32(0x1000))
+                                 & np.uint32(0xffffe000)).view(np.float32))
+    hi = rnd(x)
+    return hi, rnd(x - hi)
+
+
+def _matmul_3xtf32(a, b, parts=_tf32_parts):
+    """a @ b over the last axes, 8-deep steps of three TF32 products each,
+    every step's sum added to the float32 accumulator in order."""
+    (ah, al), (bh, bl) = parts(a), parts(b)
+    acc = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for k0 in range(0, a.shape[-1], 8):
+        s = slice(k0, k0 + 8)
+        acc = acc + (al[..., s] @ bh[..., s, :] + ah[..., s] @ bl[..., s, :]
+                     + ah[..., s] @ bh[..., s, :])
+    return acc
+
+
+def _bf16_pair(x):
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _bwd_card_numerics(q, k, v, do, lse, delta, causal, scale,
+                       parts=_tf32_parts):
+    """dq, dk, dv as the card kernels compute them (see above); `parts`
+    splits a float32 operand into its TF32 parts."""
+    f32 = q.dtype == torch.float32
+    qf, kf, vf, dof = (a.float() for a in (q, k, v, do))
+
+    def mm(a, b):
+        return _matmul_3xtf32(a, b, parts) if f32 else a @ b
+
+    p = torch.exp(mm(qf, kf.transpose(-1, -2)) * scale - lse[..., None])
+    if causal:
+        t = p.shape[-1]
+        p = p.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), 0.0)
+    ds = p * (mm(dof, vf.transpose(-1, -2)) - delta[..., None])
+    if f32:
+        dq = mm(ds, kf) * scale
+        dk = mm(ds.transpose(-1, -2), qf) * scale
+        dv = mm(p.transpose(-1, -2), dof)
+    else:
+        (dsh, dsl), (ph, pl) = _bf16_pair(ds), _bf16_pair(p)
+        dq = (dsh @ kf + dsl @ kf) * scale
+        dk = (dsh.transpose(-1, -2) @ qf + dsl.transpose(-1, -2) @ qf) * scale
+        dv = ph.transpose(-1, -2) @ dof + pl.transpose(-1, -2) @ dof
+    return tuple(a.to(q.dtype) for a in (dq, dk, dv))
+
+
+CARD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def _card_case(dtype, shape, parts=_tf32_parts):
+    """(the rehearsal's, the plain) dq, dk, dv at `shape`, causal."""
+    q, k, v, do = (_t(a, dtype) for a in _arrays(shape, dtype, seed=11))
+    o, lse = fa.flash_attention_reference(q, k, v, True, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    scale = shape[-1] ** -0.5
+    got = _bwd_card_numerics(q, k, v, do, lse, delta, True, scale, parts)
+    want = (fa._bwd_plain(q, k, v, do, lse, delta, True, scale, "dq"),
+            *fa._bwd_plain(q, k, v, do, lse, delta, True, scale, "dkv"))
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(2, 8, 128, 64),    # refer-train's heads
+                                   (1, 2, 512, 64)])   # the training length
+def test_card_numerics_hold_the_card_tolerances(dtype, shape):
+    for name, a, r in zip("qkv", *_card_case(dtype, shape)):
+        assert a.dtype == r.dtype
+        assert _rel(a, r.float().numpy()) <= CARD_TOL[dtype], (
+            name, _rel(a, r.float().numpy()))
+
+
+def test_one_tf32_product_per_step_would_not_hold_float32():
+    """The rehearsal can fail: with the lo parts dropped (one TF32 product
+    per step) every gradient misses 1e-4 (by about 5x)."""
+    got, want = _card_case("float32", (2, 8, 128, 64),
+                           lambda x: (_tf32_parts(x)[0], torch.zeros_like(x)))
+    for name, a, r in zip("qkv", got, want):
+        assert _rel(a, r.float().numpy()) > CARD_TOL["float32"], name
+
+
+def test_library_name_follows_the_headers_a_source_includes(tmp_path,
+                                                             monkeypatch):
+    """An edited csrc header rebuilds every library whose source includes
+    it, and only those."""
+    from deeplearning4j_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    names = ("flash_attention_bwd", "linear_xent", "bn_act")
+    before = {n: _build.library_path(n) for n in names}
+    header = csrc / "hopper_mma.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert after["flash_attention_bwd"] != before["flash_attention_bwd"]
+    assert after["linear_xent"] != before["linear_xent"]
+    assert after["bn_act"] == before["bn_act"]
