@@ -174,8 +174,9 @@ RNN_BATCH = 64
 # Published rates (NVIDIA data sheets, dense): device-memory bytes/s,
 # float32 operations/s outside the tensor cores, bfloat16 and TF32
 # operations/s on the tensor cores. bn_act's bfloat16 arithmetic runs on
-# the float32 units; the flash-attention bound in bfloat16 takes the
-# tensor-core rate; linear_xent's float32 products run as 3xTF32.
+# the float32 units; the flash-attention and linear_xent kernels run their
+# bfloat16 products at the bfloat16 tensor-core rate and their float32
+# products as 3xTF32.
 CARD_RATES = {
     "H100 PCIe": (2.0e12, 51e12, 756e12, 378e12),
     "H100 NVL": (3.9e12, 60e12, 835e12, 417.5e12),
@@ -416,10 +417,55 @@ FLASH_CASES = [
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # x max|o| of the plain
 
 
-def phase_flash(torch, bw, peak, peak_bf16):
+def flash_disagrees(got, ref, dname):
+    """Why flash_attention's (o[, lse]) is not the plain version's within
+    FLASH_TOL x max|o| (lse: 1e-5 x max(1, max|lse|)), or None. NaN
+    disagrees."""
+    o, o_ref = (got[0], ref[0]) if isinstance(ref, tuple) else (got, ref)
+    err = float((o.float() - o_ref.float()).abs().max())
+    mag = float(o_ref.float().abs().max())
+    if o.dtype != o_ref.dtype or o.shape != o_ref.shape \
+            or not err <= FLASH_TOL[dname] * mag:
+        return f"max err {err:.3g} (|o| max {mag:.3g})"
+    if isinstance(ref, tuple):
+        lse_err = float((got[1] - ref[1]).abs().max())
+        if got[1].shape != ref[1].shape or not lse_err <= 1e-5 * max(
+                1.0, float(ref[1].abs().max())):
+            return f"lse err {lse_err:.3g}"
+    return None
+
+
+def flash_broken(torch, q, k, causal, ref):
+    """Outputs the phase must reject, from the plain (o, lse): o zeroed, o
+    not divided by l, lse without its log(l) term. The last two equal the
+    plain ones where every l is 1 (t = 1), and are left out there."""
+    from deeplearning4j_tpu_torch.ops.flash_attention import (
+        NEG_INF, default_scale, scale_in)
+
+    o, lse = ref
+    broken = [("a zeroed o", (torch.zeros_like(o), lse))]
+    t = q.shape[2]
+    if t > 1:
+        sq = scale_in(q.dtype, default_scale(q.shape[-1]))
+        s = torch.matmul((q * torch.tensor(sq, dtype=q.dtype,
+                                           device=q.device)).float(),
+                         k.float().transpose(-1, -2))
+        if causal:
+            keep = torch.ones(t, t, dtype=torch.bool, device=s.device).tril()
+            s = s.masked_fill(~keep, NEG_INF)
+        m = s.amax(-1)  # the plain version's row max: lse = m + log(l)
+        l = torch.exp(lse - m)
+        broken += [("an o not divided by l",
+                    ((o.float() * l[..., None]).to(o.dtype), lse)),
+                   ("an lse without log(l)", (o, m))]
+    return broken
+
+
+def phase_flash(torch, bw, peak, peak_bf16, peak_tf32):
     """flash_attention against its plain version at FLASH_CASES, float32
-    and bfloat16, with and without lse. Returns the served case's float32
-    row (per launch) and the largest absolute error of any case."""
+    and bfloat16, with and without lse, and proof that the comparison
+    rejects a broken output. Returns the served case's float32 row (per
+    launch) and the largest absolute error of any case."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa_library
 
     from deeplearning4j_tpu_torch.ops.flash_attention import (
@@ -429,7 +475,7 @@ def phase_flash(torch, bw, peak, peak_bf16):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     # the library yardstick computes in full float32 too
     torch.backends.cuda.matmul.allow_tf32 = False
-    served, max_err, checked = None, 0.0, 0
+    served, max_err, checked, rejected = None, 0.0, 0, 0
     for b, h, t, d, causal in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype)[6:]
@@ -438,27 +484,30 @@ def phase_flash(torch, bw, peak, peak_bf16):
             nbuf = max(1, min(16, math.ceil(2 * L2_BYTES / set_bytes)))
             qkv = [[torch.randn((b, h, t, d), generator=gen, device=dev)
                     .to(dtype) for _ in range(3)] for _ in range(nbuf)]
+            where = (f"b={b} h={h} t={t} d={d} causal={causal} {dname}")
             for lse in (False, True):
                 got = flash_attention(*qkv[0], causal, return_lse=lse)
                 ref = flash_attention_reference(*qkv[0], causal,
                                                 return_lse=lse)
                 torch.cuda.synchronize()
+                bad = flash_disagrees(got, ref, dname)
+                if bad:
+                    raise AssertionError(
+                        f"flash_attention disagrees with its plain version "
+                        f"at {where} lse={lse}: {bad}")
                 o, o_ref = (got[0], ref[0]) if lse else (got, ref)
                 err = float((o.float() - o_ref.float()).abs().max())
                 mag = float(o_ref.float().abs().max())
-                ok = (o.dtype == dtype and o.shape == o_ref.shape
-                      and err <= FLASH_TOL[dname] * mag)
-                lse_err = 0.0
-                if lse:
-                    lse_err = float((got[1] - ref[1]).abs().max())
-                    ok = ok and lse_err <= 1e-5 * max(
-                        1.0, float(ref[1].abs().max()))
-                if not ok:
-                    raise AssertionError(
-                        f"flash_attention disagrees with its plain version "
-                        f"at b={b} h={h} t={t} d={d} causal={causal} "
-                        f"{dname} lse={lse}: max err {err:.3g} (|o| max "
-                        f"{mag:.3g}), lse err {lse_err:.3g}")
+                lse_err = (float((got[1] - ref[1]).abs().max()) if lse
+                           else 0.0)
+                if lse:  # the comparison must see a broken forward
+                    for name, out in flash_broken(torch, *qkv[0][:2],
+                                                  causal, ref):
+                        if not flash_disagrees(out, ref, dname):
+                            raise AssertionError(
+                                f"kernel cannot tell {name} from the plain "
+                                f"flash_attention at {where}")
+                        rejected += 1
                 max_err = max(max_err, err)
                 checked += 1
                 k_ms = device_ms(torch, lambda i: flash_attention(
@@ -471,25 +520,33 @@ def phase_flash(torch, bw, peak, peak_bf16):
                 ops = 4 * d * pairs
                 moved = 4 * b * h * t * d * item + (4 * b * h * t if lse
                                                     else 0)
-                rate = peak if dtype == torch.float32 else peak_bf16
-                b_ms = max(moved / bw, ops / rate) * 1e3
-                by = "bytes" if moved / bw >= ops / rate else "operations"
+                # float32 runs each product as 3xTF32: three TF32
+                # products on the tensor cores
+                f32 = dtype == torch.float32
+                work, rate = (3 * ops, peak_tf32) if f32 else (ops,
+                                                              peak_bf16)
+                b_ms = max(moved / bw, work / rate) * 1e3
+                by = "bytes" if moved / bw >= work / rate else "operations"
                 log(f"[kernel] flash_attention {dname:8s} b={b:2d} h={h} "
                     f"t={t:3d} d={d:3d} {'causal' if causal else 'full  '} "
                     f"lse={int(lse)}  max_err={err:.3g} (tol "
                     f"{FLASH_TOL[dname]:g} x {mag:.3g})  lse_err="
                     f"{lse_err:.3g}  kernel={k_ms:.4f} ms  plain={p_ms:.4f} "
                     f"ms  library[scaled_dot_product_attention]={l_ms:.4f} "
-                    f"ms  bound={b_ms:.4f} ms ({by})")
+                    f"ms  bound={b_ms:.4f} ms ({by}"
+                    f"{', 3xTF32' if f32 else ''})")
                 if (b, h, t, d, causal) == FLASH_CASES[0] and not lse \
-                        and dtype == torch.float32:
+                        and f32:
                     served = {"ms": k_ms, "plain_ms": p_ms,
                               "library_ms": l_ms, "bound_ms": b_ms,
                               "bound_by": by}
             del qkv
     log(f"[kernel] verdict: flash_attention agrees with its plain version "
         f"in {checked}/{checked} (shape, dtype, lse) cases, max abs error "
-        f"{max_err:.3g} (tol float32 1e-5, bfloat16 2e-2, x max|o|)")
+        f"{max_err:.3g} (tol float32 1e-5, bfloat16 2e-2, x max|o|; lse "
+        f"1e-5 x max(1, |lse|)); {rejected} broken outputs rejected (a "
+        f"zeroed o in every case, an o not divided by l and an lse without "
+        f"log(l) in every case with t > 1)")
     return served, max_err
 
 
@@ -2112,7 +2169,8 @@ def main() -> int:
         log(f"[serve] ResNet-50 ({net.num_params()} params) on "
             f"{net.device} in {time.perf_counter() - t0:.2f} s")
         times, max_err = phase_kernel(torch, bn_cases(net, BATCH), bw, peak)
-        flash, flash_err = phase_flash(torch, bw, peak, peak_bf16)
+        flash, flash_err = phase_flash(torch, bw, peak, peak_bf16,
+                                       peak_tf32)
         launches = phase_serve(torch, np, net, card)
         phase_reference(torch, np, net)
         del net

@@ -10,12 +10,14 @@ given, and a training step the backward pair: 6 launches of each per step
 of the zoo TransformerLM at 6 layers.
 
 At the trained shape (b=16, h=8, t=512, d=64, causal) on an H100 SXM: the
-forward kernel (csrc/flash_attention.cu) keeps float32 arithmetic on the
-CUDA cores, 4.30 GFLOP over 67 TFLOP/s (0.064 ms); the backward kernels
+forward kernel (csrc/flash_attention.cu) and the backward kernels
 (csrc/flash_attention_bwd.cu) run their products on the tensor cores,
-bfloat16 directly and float32 as 3xTF32, so in float32 dq's 6.45 GFLOP and
-dk/dv's 8.61 GFLOP take three TF32 products each over 495 TFLOP/s (0.039
-and 0.052 ms). Their designs are described in the sources.
+bfloat16 directly and float32 as 3xTF32, through the tile helpers both
+include (csrc/flash_tiles.cuh). In float32 the forward's 4.30 GFLOP, dq's
+6.45 GFLOP and dk/dv's 8.61 GFLOP take three TF32 products each over 495
+TFLOP/s (0.026, 0.039 and 0.052 ms); in bfloat16 the forward is bound by
+its 34 MB (0.010 ms at 3.35 TB/s). Their designs are described in the
+sources.
 
 `flash_attention` launches the forward kernel for CUDA tensors and raises on
 anything the kernel does not take; it never copies and never falls back.

@@ -127,11 +127,10 @@ def test_flash_refuses_what_it_does_not_take(bad):
         fa.flash_attention(q, k, v)
 
 
-def test_flash_backward_raises_not_implemented():
-    """Named for the behaviour before the backward was ported; it now holds
-    that the backward runs (no NotImplementedError) and gives jax.grad's
-    gradients through the Pallas kernel in interpret mode. The full parity
-    matrix is tests/test_torch_flash_bwd.py."""
+def test_flash_backward_matches_jax_grad():
+    """The backward runs and gives jax.grad's gradients through the Pallas
+    kernel in interpret mode. The full parity matrix is
+    tests/test_torch_flash_bwd.py."""
     qkv = _qkv((1, 2, 16, 16))
     q, k, v = (_t(a).requires_grad_() for a in qkv)
     o = fa.flash_attention(q, k, v)

@@ -2,7 +2,8 @@
 PyTorch version on a CUDA device, including the paths the served shapes do
 not reach (bn_act: ragged row counts, channel counts that are not a
 multiple of the vector width, unaligned views; flash_attention: ragged t,
-t = 1, non-causal, every head dim, the lse output; lstm_scan: masks with a
+t = 1, non-causal, every head dim, the lse output, unaligned views, the
+same bits from two launches; lstm_scan: masks with a
 fully masked row, ragged b and n, long t, n past the shared-memory resident
 width, the cap on n), the attention layer's routing to the kernel,
 `rnn_time_step` on the card against `output`; the training kernels
@@ -157,6 +158,11 @@ def _flash_check(cuda, shape, causal, dtype, lse):
     g = torch.Generator(device=cuda).manual_seed(sum(shape))
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
                for _ in range(3))
+    _flash_compare(q, k, v, causal, lse)
+
+
+def _flash_compare(q, k, v, causal, lse):
+    shape, dtype = tuple(q.shape), q.dtype
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal, return_lse=lse)
     ref = flash_attention_reference(q, k, v, causal, return_lse=lse)
@@ -187,6 +193,42 @@ def _flash_check(cuda, shape, causal, dtype, lse):
 ])
 def test_flash_kernel_matches_plain_version(cuda, shape, causal, dtype, lse):
     _flash_check(cuda, shape, causal, dtype, lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_is_deterministic(cuda, causal, dtype):
+    """No atomics: two launches on the same inputs give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(2, 4, 300, 64, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    runs = [flash_attention(q, k, v, causal, return_lse=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, r in zip(("o", "lse"), *runs):
+        assert torch.equal(a, r), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("shape,causal", [
+    ((2, 3, 200, 64), True),
+    ((1, 2, 65, 16), False),
+    ((2, 2, 127, 128), True),
+])
+def test_flash_kernel_takes_unaligned_tensors(cuda, shape, causal, dtype,
+                                              lse):
+    """q, k and v as contiguous views one element into larger buffers start
+    off 16 bytes: the kernel copies them by 4-byte cp.async (float32) or
+    plain loads (bfloat16) and still matches the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + 2)
+    n = shape[0] * shape[1] * shape[2] * shape[3]
+    q, k, v = (torch.randn(n + 1, generator=g, device=cuda).to(dtype)[1:]
+               .view(shape) for _ in range(3))
+    assert all(a.is_contiguous() and a.data_ptr() % 16 for a in (q, k, v))
+    _flash_compare(q, k, v, causal, lse)
 
 
 @pytest.mark.cuda

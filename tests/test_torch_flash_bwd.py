@@ -266,17 +266,22 @@ def test_one_tf32_product_per_step_would_not_hold_float32():
 def test_library_name_follows_the_headers_a_source_includes(tmp_path,
                                                              monkeypatch):
     """An edited csrc header rebuilds every library whose source includes
-    it, and only those."""
+    it, directly or through another header, and only those: the flash
+    kernels' tile header renames both flash libraries, the mma header
+    (which the tile header includes) those and linear_xent's."""
     from deeplearning4j_tpu_torch.ops import _build
 
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", str(csrc))
-    names = ("flash_attention_bwd", "linear_xent", "bn_act")
-    before = {n: _build.library_path(n) for n in names}
-    header = csrc / "hopper_mma.cuh"
-    header.write_text(header.read_text() + "// edited\n")
-    after = {n: _build.library_path(n) for n in names}
-    assert after["flash_attention_bwd"] != before["flash_attention_bwd"]
-    assert after["linear_xent"] != before["linear_xent"]
-    assert after["bn_act"] == before["bn_act"]
+    names = ("flash_attention", "flash_attention_bwd", "linear_xent",
+             "bn_act")
+    renamed = {"flash_tiles.cuh": {"flash_attention", "flash_attention_bwd"},
+               "hopper_mma.cuh": {"flash_attention", "flash_attention_bwd",
+                                  "linear_xent"}}
+    for name, want in renamed.items():
+        before = {n: _build.library_path(n) for n in names}
+        header = csrc / name
+        header.write_text(header.read_text() + "// edited\n")
+        after = {n: _build.library_path(n) for n in names}
+        assert {n for n in names if after[n] != before[n]} == want, name
