@@ -111,8 +111,11 @@ Phases, in order; any failure exits non-zero without the final line:
               last chunk at t = 1000, n = 512 and 1024), float32 and
               bfloat16, nonzero h0/c0, cotangents of order 1: each output
               against its tolerance x its largest magnitude (a zeroed dzx,
-              dR or dp must fail), kernel / plain / library (torch.nn.LSTM
-              backward, cuDNN, plain cell) times, us per step, the bound.
+              dR or dp, a dR without one chunk's part and a dzx with one
+              chunk stale must fail), kernel / plain / library
+              (torch.nn.LSTM backward, cuDNN, plain cell) times, us per
+              step, the bound (the backward's products as 3xTF32 on the
+              tensor cores in float32) and the kernel's share of it.
  16. train-rnn    zoo TextGenerationLSTM at full width (two GravesLSTM(256),
               77 characters), RmsProp(1e-2), l2 1e-4, trained by
               MultiLayerNetwork.fit for 20 BPTT steps on one repeated batch
@@ -1718,12 +1721,49 @@ def lstm_library_bwd_ms(torch, b, t, n):
         torch.backends.cudnn.allow_tf32 = prev
 
 
-def phase_lstm_bwd(torch, bw, peak):
+def chunk_dR(torch, s, dz, j, tc):
+    """The part of dR that chunk j's (row, step) pairs add, h_{s-1}^T dz_s,
+    in exact float32 from the forward's hs (the h carry without a mask)."""
+    from deeplearning4j_tpu_torch import dtypes
+
+    hs, h0 = s["fwd"][0].float(), s["h0"].float()
+    s0, s1 = j * tc, min(hs.shape[1], (j + 1) * tc)
+    h = torch.cat([h0[:, None], hs[:, :-1]], dim=1)[:, s0:s1]
+    with dtypes.exact_float32_matmul():
+        return h.reshape(-1, h.shape[-1]).t() @ \
+            dz[:, s0:s1].float().reshape(-1, dz.shape[-1])
+
+
+def lstm_bwd_broken(torch, s, got, ref, tc):
+    """Broken chunked backward outputs that the comparison must reject: a
+    zeroed dzx, dR and dp; a dR without chunk 0's part; a dzx whose chunk
+    0 holds chunk 1's values, as a chunk slot read before it was written
+    again would leave it."""
+    broken = [(0, "zeroed dzx", torch.zeros_like(got[0])),
+              (1, "zeroed dR", torch.zeros_like(got[1])),
+              (2, "zeroed dp", torch.zeros_like(got[2])),
+              (1, "dR without chunk 0", got[1] - chunk_dR(torch, s, got[0],
+                                                          0, tc))]
+    stale = got[0].clone()
+    stale[:, :tc] = got[0][:, tc:2 * tc]
+    broken.append((0, "dzx with chunk 0 stale", stale))
+    for i, what, out in broken:
+        tol = LSTM_BWD_TOL[("bwd", str(out.dtype)[6:])]
+        if lstm_disagrees(out, ref[i], tol)[1] is None:
+            raise AssertionError(f"kernel-lstm-bwd cannot tell a {what} "
+                                 f"from the plain backward")
+    return [what for _, what, _ in broken]
+
+
+def phase_lstm_bwd(torch, bw, peak, peak_tf32):
     """Rows 6 (lstm_scan_bwd), 7 (lstm_scan_chunked) and 8
     (lstm_scan_chunked_bwd) against their plain versions at LSTM_BWD_CASES,
     float32 and bfloat16, from the same inputs (row 6 reads the chunked
     forward's hs, row 8 its checkpoints). Returns each kernel's float32 row
-    at its path's shape (per launch) and its largest absolute error."""
+    at its path's shape (per launch) and its largest absolute error. The
+    backward's bound counts its three products on the tensor cores: as
+    3xTF32 in float32, two TF32 products in bfloat16 (R, or hs, is exact in
+    TF32; h or dz is not); the forward's (row 7) runs on the CUDA cores."""
     from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1806,6 +1846,9 @@ def phase_lstm_bwd(torch, bw, peak):
                         raise AssertionError(f"kernel-lstm-bwd cannot tell a "
                                              f"zeroed {name} from the plain "
                                              f"backward")
+            if case == LSTM_PATH_CASES["lstm_scan_chunked_bwd"]:
+                rejected = lstm_bwd_broken(torch, s, got8, ref8,
+                                           lstm_ops.CHUNK)
             checked += 1
             del got6, got8, ref6, ref7, ref8
 
@@ -1826,27 +1869,30 @@ def phase_lstm_bwd(torch, bw, peak):
                               ("lstm_scan_chunked_bwd", plain8)):
                     plain_ms[k] = device_ms(torch, lambda i: fn(sets[i]),
                                             nbuf, p_iters)
-            # the kernels form every product in float32, for both dtypes
+            # the kernels form every product in float32, for both dtypes:
+            # the backward's on the tensor cores, row 7's on the CUDA cores
             fwd_ops = 2 * b * t * n * 4 * n
+            tf32_parts = 3 if dtype == torch.float32 else 2
             p_bytes = 3 * n * item if peephole else 0
             m_bytes = 4 * b * t if masked else 0
             ck_bytes = 2 * nt * b * n * 4
             common = (b * t * 4 * n + 4 * n * n + b * t * n + 2 * b * n) \
                 * item + p_bytes + m_bytes           # zx, R, g_hs, g_hT/cT
             grads = b * t * 4 * n * item + (4 * n * n + 3 * n + 2 * b * n) * 4
+            bwd_rate = peak_tf32 / tf32_parts
             work = {
                 "lstm_scan_bwd": (
                     3 * fwd_ops, common + (b * t * n + 2 * b * n) * item
-                    + grads),
+                    + grads, bwd_rate),
                 "lstm_scan_chunked": (
                     fwd_ops, (b * t * 4 * n + 4 * n * n + 2 * b * n) * item
                     + p_bytes + m_bytes + (b * t * n + 2 * b * n) * item
-                    + ck_bytes),
+                    + ck_bytes, peak),
                 "lstm_scan_chunked_bwd": (
-                    3 * fwd_ops, common + ck_bytes + grads)}
-            for k, (ops, moved) in work.items():
-                b_ms = max(moved / bw, ops / peak) * 1e3
-                by = "bytes" if moved / bw >= ops / peak else "operations"
+                    3 * fwd_ops, common + ck_bytes + grads, bwd_rate)}
+            for k, (ops, moved, rate) in work.items():
+                b_ms = max(moved / bw, ops / rate) * 1e3
+                by = "bytes" if moved / bw >= ops / rate else "operations"
                 lib = lib_ms if k != "lstm_scan_chunked" else None
                 pl = "-" if plain_ms[k] is None else f"{plain_ms[k]:.4f} ms"
                 lib_s = ("none (peepholes)" if k == "lstm_scan_chunked"
@@ -1854,13 +1900,16 @@ def phase_lstm_bwd(torch, bw, peak):
                          else f"{lib:.4f} ms [torch.nn.LSTM backward, cuDNN,"
                               f" plain cell]")
                 res = lstm_ops.resident(n, backward=k != "lstm_scan_chunked")
+                how = (f"{tf32_parts} TF32 products" if rate == bwd_rate
+                       else "CUDA cores")
                 log(f"[kernel-lstm-bwd] {k:21s} {dname:8s} b={b:2d} "
                     f"t={t:4d} n={n:4d} {'peephole' if peephole else 'plain   '}"
                     f" {'masked' if masked else '      '} resident="
                     f"{int(res)}  max_err="
                     f"{errs[k]:.3g}  kernel={ms[k]:.4f} ms "
                     f"({ms[k] * 1e3 / t:.2f} us/step)  plain={pl}  "
-                    f"library={lib_s}  bound={b_ms:.4f} ms ({by})")
+                    f"library={lib_s}  bound={b_ms:.4f} ms ({by}, {how}; "
+                    f"{100 * b_ms / ms[k]:.1f}% of it)")
                 if dtype == torch.float32 and case == LSTM_PATH_CASES[k]:
                     rows[k] = {"ms": ms[k], "plain_ms": plain_ms[k],
                                "library_ms": lib, "bound_ms": b_ms,
@@ -1872,11 +1921,19 @@ def phase_lstm_bwd(torch, bw, peak):
                             "included")
             del sets
         torch.cuda.empty_cache()
+    for k in ("lstm_scan_bwd", "lstm_scan_chunked_bwd"):
+        r, (b, t, n, _, _) = rows[k], LSTM_PATH_CASES[k]
+        log(f"[kernel-lstm-bwd] {k} at its path's ({b}, {t}, {n}) float32: "
+            f"{r['ms']:.4f} ms per launch ({r['ms'] * 1e3 / t:.3f} us/step),"
+            f" torch.nn.LSTM backward {r['library_ms']:.4f} ms in the same "
+            f"run ({r['library_ms'] / r['ms']:.2f}x the kernel's time), "
+            f"bound {r['bound_ms']:.4f} ms "
+            f"({100 * r['bound_ms'] / r['ms']:.1f}% of it)")
     log(f"[kernel-lstm-bwd] verdict: rows 6, 7 and 8 agree with their plain "
         f"versions in {checked}/{checked} (shape, dtype) cases, max abs "
         f"error {worst} (tol float32 1e-5 forward, 1e-4 backward; bfloat16 "
-        f"2e-2 forward, 1e-2 dzx; x max|plain| of each output); a zeroed "
-        f"dzx, dR or dp fails the comparison")
+        f"2e-2 forward, 1e-2 dzx; x max|plain| of each output); the "
+        f"comparison rejects a {', a '.join(rejected)}")
     return rows, worst
 
 
@@ -2195,7 +2252,7 @@ def main() -> int:
         xent, xent_err = phase_xent(torch, bw, peak, peak_bf16, peak_tf32)
         train_launches = phase_train_lm(torch, np, card)
         phase_refer_train(torch, np)
-        lstm_bwd, lstm_bwd_err = phase_lstm_bwd(torch, bw, peak)
+        lstm_bwd, lstm_bwd_err = phase_lstm_bwd(torch, bw, peak, peak_tf32)
         rnn_train_launches = phase_train_rnn(torch, np, card)
         phase_train_rnn_tbptt(torch, np, card)
         long_launches = phase_train_rnn_long(torch, np, card)

@@ -2,9 +2,10 @@
 // cp.async copies and their ring, ldmatrix, mma.sync in bfloat16 and TF32,
 // the TF32 split of 3xTF32, paired stores, and the host's alignment tests
 // and once-per-device shared-memory attribute. Included by
-// linear_xent.cu and, through flash_tiles.cuh, by flash_attention.cu and
-// flash_attention_bwd.cu; ops/_build.py hashes it into the name of every
-// library whose source includes it.
+// linear_xent.cu, lstm_scan.cu (the attribute), lstm_scan_bwd.cu and,
+// through flash_tiles.cuh, by flash_attention.cu and flash_attention_bwd.cu;
+// ops/_build.py hashes it into the name of every library whose source
+// includes it.
 #pragma once
 
 #include <cuda_bf16.h>

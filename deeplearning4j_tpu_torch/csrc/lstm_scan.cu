@@ -62,6 +62,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_mma.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -344,12 +346,11 @@ template <typename T, bool RESIDENT>
 cudaError_t launch_one(const void* zx, const void* R, const void* p,
                        const float* mask, const void* h0, const void* c0,
                        void* hs, void* hT, void* cT, float* hck, float* cck,
-                       int tc, const Dims& d, size_t bytes,
-                       cudaStream_t stream) {
-  // above 48 KB a block's shared memory must be asked for per kernel
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_scan_kernel<T, RESIDENT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+                       int tc, const Dims& d, size_t bytes, int device,
+                       int optin, cudaStream_t stream) {
+  // above 48 KB a block's shared memory must be asked for, once per kernel
+  // and device: up to the device's limit, which covers every n
+  cudaError_t err = allow_smem<lstm_scan_kernel<T, RESIDENT>>(device, optin);
   if (err != cudaSuccess) return err;
   // the cluster shape is the kernel's own (__cluster_dims__): grid x is
   // exactly one cluster, grid y one cluster per batch tile
@@ -375,9 +376,10 @@ cudaError_t launch_typed(const void* zx, const void* R, const void* p,
   const size_t resident = smem_bytes(d, true);
   if (resident <= static_cast<size_t>(optin))
     return launch_one<T, true>(zx, R, p, mask, h0, c0, hs, hT, cT, hck,
-                               cck, tc, d, resident, stream);
+                               cck, tc, d, resident, device, optin, stream);
   return launch_one<T, false>(zx, R, p, mask, h0, c0, hs, hT, cT, hck, cck,
-                              tc, d, smem_bytes(d, false), stream);
+                              tc, d, smem_bytes(d, false), device, optin,
+                              stream);
 }
 
 }  // namespace

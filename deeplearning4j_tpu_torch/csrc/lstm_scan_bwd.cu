@@ -1,4 +1,4 @@
-// Fused LSTM backward over all timesteps, in one launch, for Hopper (sm_90a).
+// Fused LSTM backward over all timesteps for Hopper (sm_90a).
 //
 // Replaces two TPU kernels of deeplearning4j_tpu/ops/pallas_kernels.py:
 //   row 6  `_lstm_bwd_kernel` (pallas_call in `_lstm_bwd`), the backward of
@@ -16,8 +16,8 @@
 // (a step is live iff > 0). Outputs: dzx [b, t, 4n] in T; dR [n, 4n], dp
 // [3, n], dh0, dc0 [b, n] in float32.
 //
-// What it computes, as the TPU kernels do, in float32 with no TF32 and no
-// fast-math (sigmoid(x) = 1 / (1 + expf(-x))):
+// What it computes, as the TPU kernels do, in float32 (sigmoid(x) = 1 / (1
+// + expf(-x)), no fast-math; products as below):
 //   phase 1, per chunk from its entry carry (h0, c0 or the checkpoint):
 //     z_s = zx_s + h_{s-1} R, the gates, c_s; the h carry is hs_s (row 6,
 //     no mask: the TPU kernel reads hs, rounded to T) or recomputed in
@@ -35,58 +35,78 @@
 //
 // Bound on an H100 SXM at the trained TextGenerationLSTM shape (b=64, t=64,
 // n=256, float32): the z recompute, the dh product and dR are 3 x 2 b t n 4n
-// = 6.44 GFLOP against about 40 MB moved, so operations bind: 0.096 ms per
-// launch. As in the forward, the bound does not count the two serial chains
-// of t dependent steps (phase 1 and phase 2), which set the time at small b.
+// = 6.44 GFLOP; as 3xTF32 on the tensor cores that is 19.3 GFLOP over 495
+// TFLOP/s, 0.039 ms per launch, against about 40 MB moved (0.012 ms). The
+// bound does not count the chain of t dependent steps, which sets the time
+// at small b.
 //
-// Design (the forward's cluster split; simple and right first). A cluster of
-// kCluster = 8 blocks owns a tile of kRows = 8 batch rows; block q owns the
-// hidden units U_q = [q J, (q+1) J), J = ceil(n / 8), and the C = 4 J
-// columns of R that feed their gates, resident in shared memory (row stride
-// C + 4, so that phase 2's column reads are free of bank conflicts) when
-// they fit, else read from L2. Phase 1 is the forward's step (split-k 8 x 4
-// register tile, h exchanged through distributed shared memory, one cluster
-// barrier per step); it stores z and c of its (row, unit) pairs and the h
-// carry entering each step in a float32 workspace, so phase 2 needs no
-// second product for z. Phase 2, per step: each block forms dz for its 8
-// rows x C columns, writes dzx, forms its partial dh_prev = dz[:, C_q]
-// R[:, C_q]^T over all n units (8 rows x 4 units per thread, split over the
-// columns), and reduce-scatters it over the cluster through distributed
-// shared memory: every block receives the 8 partials of its own units and
-// adds them in block order (double-buffered, one cluster barrier per step).
-// After each chunk every block adds h_carry^T dz over the chunk's rows and
-// steps to its columns of a per-tile dR partial, a small product whose
-// operands are staged through shared memory in slabs of 40 (row, step)
-// pairs, 4 x 8 sums per thread (no atomics: each element has one owner); dp is summed per (row, unit) in registers and over the
-// tile's rows in order at the end. A second kernel adds the tiles' partials
-// in tile order. Every sum has a fixed order, so results repeat bit for bit.
-// n is capped at kMaxN = 1024.
+// Design. Every product runs on the tensor cores (`mma.sync` m16n8k8 TF32,
+// hopper_mma.cuh): float32 operands as 3xTF32 with both parts rounded to
+// nearest, the three products of a k8 step in a fresh tile added to the
+// float32 sum (one tensor-core accumulator along K truncates past what the
+// training checks hold); an operand that is bfloat16 at its source is exact
+// in TF32 and enters once (one product when both are, two when one is).
+// The work is split into kernels so that only what is serial stays on the
+// chain, all ordered on the caller's stream and two side streams by events:
+//   prep        R as float32, once per call;
+//   recompute   phase 1 of one chunk, serial (row 8; row 6 with a mask): a
+//               cluster of 8 blocks per 8 batch rows, block q owning hidden
+//               units [q J, (q+1) J), J = ceil(n / 8), and the C = 4 J
+//               columns of R that feed them, resident in shared memory as
+//               float32 (128 KB at n = 256, so TF32 hi and lo parts of it
+//               would not both fit: each warp splits its fragments per step,
+//               which costs integer instructions beside the products). Per
+//               step: z^T = R_q^T h^T on the tensor cores (the 8 batch rows
+//               are N = 8), the cell, h_s split into its TF32 parts by the
+//               pair that forms it and sent to the 8 blocks through
+//               distributed shared memory, one cluster barrier (z, c and
+//               the h carry go to the workspace between its halves);
+//   z product, c scan   phase 1 of row 6 without a mask: the h carry is
+//               hs, so z = zx + H R is one product over b t rows and c is
+//               an elementwise forward scan, both off the chain;
+//   reverse     phase 2 of one chunk, serial: the same cluster split; per
+//               step each block forms dz of its (row, unit) pairs, then its
+//               partial dh^T = R_q dz^T over all n units on the tensor
+//               cores, sends each unit's partial to the block that owns it
+//               (distributed shared memory, double-buffered), one cluster
+//               barrier (arrive; the step's stores and the next step's
+//               loads; wait), and each owner adds the 8 partials in block
+//               order;
+//   dR          dR += H^T DZ over the chunk's (row, step) pairs: a tiled
+//               product over the whole card, its K split into ranges that
+//               a second pass adds in order, chunks added in order;
+//   dp          the per-(row, unit) dp sums added over the rows in order.
+// Row 8 runs the recompute of chunk j - 1 on one side stream while the
+// caller's stream reverses chunk j and the other side stream adds chunk
+// j + 1's dR: a step costs the slower chain, not the sum. The workspace
+// holds two chunk slots (z / dz, c, h carry), so it does not grow with t;
+// its layout and the stage list come from the caller (ops/lstm.py
+// `bwd_plan`). The reverse chain sets the time of both rows, and its
+// product most of each step (profile_resnet_torch.py --model
+// lstm-bwd-split; PERF.md). No atomics: every sum has a fixed order, so
+// results repeat bit for bit. n is capped at kMaxN = 1024: past n = 256
+// or so the R slice does not fit in shared memory and the serial kernels
+// read it from L2 every step, several times slower.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
+#include "hopper_mma.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kCluster = 8;    // blocks per cluster: the column split
-constexpr int kRows = 8;       // batch rows per cluster
+constexpr int kRows = 8;       // batch rows per cluster: the products' N
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxN = 1024;
 constexpr int kPairs = 4;      // max (row, unit) pairs per thread
-constexpr int kCols = 4;       // columns per thread in phase 1's product
-// the dR sum: units and columns per pass (32 x 8 threads, 4 x 8 sums each)
-// and (row, step) pairs per slab staged in shared memory
-constexpr int kDRK = 128;
-constexpr int kDRC = 64;
-constexpr int kSlab = 40;
-constexpr int kBatch = 10;     // slab loads in flight per thread
-static_assert(kThreads == (kDRK / 4) * (kDRC / 8), "one 4 x 8 tile each");
-static_assert(kSlab * kDRK % (kThreads * kBatch) == 0 &&
-                  kSlab * kDRC % (kThreads * kBatch) == 0,
-              "slabs load in whole batches");
 static_assert(kRows * ((kMaxN + kCluster - 1) / kCluster) <=
                   kPairs * kThreads,
               "each thread carries at most kPairs (row, unit) pairs");
@@ -102,600 +122,803 @@ __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
+__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
+
+// the cluster barrier in two halves: work between them overlaps the wait
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One k8 step of a product into a fresh tile t, small terms first: A is
+// split into its TF32 parts here when SA (float32), else exact in TF32
+// (bfloat16 at its source); B comes as its parts, bh and, when BLO, bl.
+template <bool SA, bool BLO>
+__device__ __forceinline__ void k8_parts(float t[4], const uint32_t a[4],
+                                         uint32_t bh0, uint32_t bh1,
+                                         uint32_t bl0, uint32_t bl1) {
+  t[0] = t[1] = t[2] = t[3] = 0.0f;
+  if constexpr (SA) {
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) split_tf32(a[j], ah[j], al[j]);
+    mma_tf32(t, al, bh0, bh1);
+    if constexpr (BLO) mma_tf32(t, ah, bl0, bl1);
+    mma_tf32(t, ah, bh0, bh1);
+  } else {
+    if constexpr (BLO) mma_tf32(t, a, bl0, bl1);
+    mma_tf32(t, a, bh0, bh1);
+  }
+}
+
+// As k8_parts with B's fragment b0, b1 as it is: split here when SB.
+template <bool SA, bool SB>
+__device__ __forceinline__ void k8_step(float t[4], const uint32_t a[4],
+                                        uint32_t b0, uint32_t b1) {
+  if constexpr (SB) {
+    uint32_t bh0, bl0, bh1, bl1;
+    split_tf32(b0, bh0, bl0);
+    split_tf32(b1, bh1, bl1);
+    k8_parts<SA, true>(t, a, bh0, bh1, bl0, bl1);
+  } else {
+    k8_parts<SA, false>(t, a, b0, b1, 0u, 0u);
+  }
+}
+
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
 
 struct Dims {
   int b, t, n;
+  int tw;     // steps a chunk slot holds (min(tc, t))
   int J;      // hidden units per block
   int C;      // 4 * J columns per block
-  int NP;     // n rounded up to 4: h row stride, resident R rows
-  int S;      // row stride of the resident R slice, C + 4
-  int TPG;    // phase 1: threads per k-group, ceil(C / kCols)
-  int KS;     // phase 1: k-groups
-  int KC;     // phase 1: k per group, a multiple of 4
-  int KG;     // phase 2: unit groups (each thread takes 4 strided units)
-  int KP;     // phase 2: 4 * KG, the padded partial row
-  int CS;     // phase 2: column splits
-  int CC;     // phase 2: columns per split, a multiple of 4
-  int CSa;    // phase 2: column splits that hold any column
-  int part;   // floats of the shared partial-sum buffer
-  int tc;     // steps per chunk (t for row 6)
-  int tw;     // steps the workspace holds, min(tc, t)
-  int nt;     // chunks
+  // recompute: z^T [C, 8] = R_q^T [C, n] h^T [n, 8]
+  int CPm;    // C rounded up to 16 (M)
+  int NPk;    // n rounded up to 8 (K)
+  int S1;     // row stride of its R slice [NPk][S1], = 8 mod 16
+  int HP;     // row stride of h [8][n][hi, lo]: 2 n rounded to 32, + 8
+  int ZP;     // row stride of the z tile [8][ZP], = 4 mod 8
+  // reverse: dh^T [n, 8] = R_q [n, C] dz^T [C, 8]
+  int NPm;    // n rounded up to 16 (M)
+  int CPk;    // C rounded up to 8 (K)
+  int S2;     // row stride of its R slice [NPm][S2], = 4 mod 8
+  int DP;     // row stride of dz [8][DP], = 4 mod 8
   int tiles;  // clusters: batch tiles of kRows rows
-  int64_t off_c, off_h, off_r, off_p, total;  // workspace layout, floats
 };
 
-__host__ __device__ inline int64_t round4(int64_t x) { return (x + 3) & ~3LL; }
-
-Dims make_dims(int64_t b, int64_t t, int64_t n, int64_t tc) {
+Dims make_dims(int64_t b, int64_t t, int64_t n, int64_t tw) {
   Dims d;
   d.b = static_cast<int>(b);
   d.t = static_cast<int>(t);
   d.n = static_cast<int>(n);
+  d.tw = static_cast<int>(tw);
   d.J = (d.n + kCluster - 1) / kCluster;
   d.C = 4 * d.J;
-  d.NP = (d.n + 3) & ~3;
-  d.S = d.C + 4;
-  d.TPG = (d.C + kCols - 1) / kCols;
-  d.KS = kThreads / d.TPG;
-  d.KC = (((d.NP + d.KS - 1) / d.KS) + 3) & ~3;
-  d.KG = (d.NP + 3) / 4;
-  d.KP = 4 * d.KG;
-  d.CS = kThreads / d.KG;
-  d.CC = (((d.C + d.CS - 1) / d.CS) + 3) & ~3;
-  d.CSa = (d.C + d.CC - 1) / d.CC;
-  int part = d.KS * kRows * d.C;
-  if (d.CS * kRows * d.KP > part) part = d.CS * kRows * d.KP;
-  if (3 * kRows * d.J > part) part = 3 * kRows * d.J;
-  if (kSlab * (kDRK + kDRC) > part) part = kSlab * (kDRK + kDRC);
-  d.part = part;
-  d.tc = static_cast<int>(tc < t ? tc : t);
-  d.tw = d.tc;
-  d.nt = static_cast<int>((t + d.tc - 1) / d.tc);
+  d.CPm = round_up(d.C, 16);
+  d.NPk = round_up(d.n, 8);
+  d.S1 = d.CPm + 8;
+  d.HP = 2 * round_up(d.n, 16) + 8;
+  d.ZP = d.CPm + 4;
+  d.NPm = round_up(d.n, 16);
+  d.CPk = round_up(d.C, 8);
+  d.S2 = d.CPk + 4;
+  d.DP = d.CPk + 4;
   d.tiles = static_cast<int>((b + kRows - 1) / kRows);
-  const int64_t tiles = d.tiles, tw = d.tw;
-  // z, then dz: [tile][q][r][tw][C]; c: [tile][q][r][tw][J];
-  // h carry entering each step: [tile][r][tw][NP]; dR partial [tile][n][4n];
-  // dp partial [tile][3][n]
-  d.off_c = round4(tiles * kCluster * kRows * tw * d.C);
-  d.off_h = d.off_c + round4(tiles * kCluster * kRows * tw * d.J);
-  d.off_r = d.off_h + round4(tiles * kRows * tw * d.NP);
-  d.off_p = d.off_r + round4(tiles * n * 4 * n);
-  d.total = d.off_p + round4(tiles * 3 * n);
   return d;
 }
 
-// dynamic shared memory of a launch
-size_t smem_bytes(const Dims& d, bool resident) {
-  size_t floats = 2 * static_cast<size_t>(kRows) * d.NP + d.part +
-                  static_cast<size_t>(kRows) * d.C +
-                  2 * static_cast<size_t>(kCluster) * kRows * d.J;
-  if (resident) floats += static_cast<size_t>(d.NP) * d.S;
+size_t recompute_smem(const Dims& d, bool resident) {
+  // h's parts (two buffers), the z tile, the R slice
+  size_t floats = 2 * static_cast<size_t>(kRows) * d.HP +
+                  static_cast<size_t>(kRows) * d.ZP;
+  if (resident) floats += static_cast<size_t>(d.NPk) * d.S1;
   return floats * sizeof(float);
 }
 
-template <typename T, bool RESIDENT>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-    lstm_bwd_kernel(const T* __restrict__ zx, const T* __restrict__ R,
-                    const T* __restrict__ p, const float* __restrict__ mask,
-                    const T* __restrict__ h0, const T* __restrict__ c0,
-                    const T* __restrict__ hs, const float* __restrict__ hck,
-                    const float* __restrict__ cck,
-                    const T* __restrict__ ghs, const T* __restrict__ ghT,
-                    const T* __restrict__ gcT, T* __restrict__ dzx,
-                    float* __restrict__ dh0, float* __restrict__ dc0,
-                    float* ws, Dims d) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int q = static_cast<int>(cluster.block_rank());
-  const int tid = threadIdx.x;
-  const int n = d.n, J = d.J, C = d.C, NP = d.NP, S = d.S, tw = d.tw;
-  const int u0 = q * J;                    // first hidden unit of this block
-  const int tile = blockIdx.y;
-  const int b0 = tile * kRows;             // first batch row of the cluster
-  const int64_t n4 = 4 * static_cast<int64_t>(n);
-  const bool chunked = hck != nullptr;
+size_t reverse_smem(const Dims& d, bool resident) {
+  size_t floats = 2 * static_cast<size_t>(kRows) * d.DP +
+                  2 * static_cast<size_t>(kCluster) * kRows * d.J;
+  if (resident) floats += static_cast<size_t>(d.NPm) * d.S2;
+  return floats * sizeof(float);
+}
 
-  // this block's workspace: z then dz [r][tw][C] and c [r][tw][J] (private),
-  // the cluster's h carries [r][tw][NP] (written by all 8 blocks), the
-  // tile's dR partial [n][4n] and dp partial [3][n]
-  float* zw = ws + (static_cast<int64_t>(tile) * kCluster + q) * kRows * tw * C;
-  float* cw = ws + d.off_c +
-              (static_cast<int64_t>(tile) * kCluster + q) * kRows * tw * J;
-  float* hw = ws + d.off_h + static_cast<int64_t>(tile) * kRows * tw * NP;
-  float* dRp = ws + d.off_r + static_cast<int64_t>(tile) * n * n4;
-  float* dpp = ws + d.off_p + static_cast<int64_t>(tile) * 3 * n;
+// One chunk: steps [s0, s0 + L), its slot's regions of the workspace
+// (float offsets: z then dz [b][tw][4n], c [b][tw][n], the h carry
+// entering each step [b][tw][n]); last: the chunk the reverse walk starts
+// with (the cotangents g_hT, g_cT enter it; dp and dR are written, not
+// added to).
+struct Chunk {
+  int j, s0, L, last;
+  int64_t z, c, h;
+};
 
-  extern __shared__ __align__(16) float smem[];
-  float* hbuf0 = smem;                     // [kRows, NP] h_{s-1}
-  float* hbuf1 = hbuf0 + kRows * NP;       // [kRows, NP] h_s
-  float* part = hbuf1 + kRows * NP;        // partial sums, both products
-  float* dzs = part + d.part;              // [kRows, C] this step's dz
-  float* recv = dzs + kRows * C;           // [2][kCluster][kRows][J]
-  float* Rs = recv + 2 * kCluster * kRows * J;  // [NP][S] resident R slice
+// Column c of block q's slice, as a column of R [n, 4n]; -1 past the edge.
+__device__ __forceinline__ int64_t slice_col(int c, int C, int J, int u0,
+                                             int n) {
+  if (c >= C || u0 + c % J >= n) return -1;
+  return static_cast<int64_t>(c / J) * n + u0 + c % J;
+}
 
-  // ---- set-up: zeroed h buffers, dz and receive buffers, the R slice
-  for (int e = tid; e < 2 * kRows * NP; e += kThreads) smem[e] = 0.0f;
-  for (int e = tid; e < kRows * C + 2 * kCluster * kRows * J; e += kThreads)
-    dzs[e] = 0.0f;
-  if (RESIDENT) {
-    constexpr int kCopy = 16;
-    for (int e0 = tid; e0 < NP * C; e0 += kCopy * kThreads) {
-      float v[kCopy];
-#pragma unroll
-      for (int i = 0; i < kCopy; ++i) {
-        const int e = e0 + i * kThreads;
-        const int k = e / C, c = e % C;
-        const int g = c / J, u = u0 + c % J;
-        v[i] = e < NP * C && k < n && u < n ? to_float(R[k * n4 + g * n + u])
-                                            : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < kCopy; ++i) {
-        const int e = e0 + i * kThreads;
-        if (e < NP * C) Rs[(e / C) * S + e % C] = v[i];
-      }
-    }
-  }
-
-  // ---- phase 1's product tile: k-group kg, columns col0 .. col0 + 3
-  const int kg = tid / d.TPG;
-  const int col0 = (tid % d.TPG) * kCols;
-  const bool tile_ok = kg < d.KS;
-  const int k_lo = kg * d.KC;
-  const int k_hi = min(NP, k_lo + d.KC);
-  int64_t rofs[kCols];  // column offsets into a row of R (global path)
-  bool rok[kCols];
-#pragma unroll
-  for (int i = 0; i < kCols; ++i) {
-    const int c = col0 + i;
-    rok[i] = u0 + c % J < n;
-    rofs[i] = rok[i] ? (c / J) * n + u0 + c % J : 0;
-  }
-  // ---- phase 2's product tile: units kg2 + i KG (i < 4), column split cs2
-  const int kg2 = tid % d.KG;
-  const int cs2 = tid / d.KG;
-  const bool ok2 = cs2 < d.CSa;
-  const int c_lo2 = cs2 * d.CC;
-  const int c_hi2 = min(C, c_lo2 + d.CC);
-
-  // ---- this thread's (row, unit) pairs
-  float pi[kPairs], pf[kPairs], po[kPairs];
-  float hreg[kPairs], creg[kPairs], c_entry[kPairs];
-  float dh[kPairs], dc[kPairs], dpi[kPairs], dpf[kPairs], dpo[kPairs];
+// This thread's (row, unit) pairs of the cluster's tile.
+struct Pairs {
   int prow[kPairs], punit[kPairs], pr[kPairs], pj[kPairs];
   bool pok[kPairs];
+  float pi[kPairs], pf[kPairs], po[kPairs];
+};
+
+template <typename T>
+__device__ __forceinline__ void make_pairs(Pairs& P, const T* p, int b0,
+                                           int u0, const Dims& d) {
 #pragma unroll
   for (int i = 0; i < kPairs; ++i) {
-    const int pidx = tid + i * kThreads;
-    pr[i] = pidx / J;
-    pj[i] = pidx % J;
-    prow[i] = b0 + pr[i];
-    punit[i] = u0 + pj[i];
-    pok[i] = pidx < kRows * J && pr[i] < kRows && prow[i] < d.b &&
-             punit[i] < n;
-    pi[i] = pf[i] = po[i] = 0.0f;
-    hreg[i] = creg[i] = c_entry[i] = 0.0f;
-    dh[i] = dc[i] = dpi[i] = dpf[i] = dpo[i] = 0.0f;
-    if (pok[i]) {
-      const int64_t at = static_cast<int64_t>(prow[i]) * n + punit[i];
-      dh[i] = to_float(ghT[at]);
-      dc[i] = to_float(gcT[at]);
-      if (p != nullptr) {
-        pi[i] = to_float(p[punit[i]]);
-        pf[i] = to_float(p[n + punit[i]]);
-        po[i] = to_float(p[2 * n + punit[i]]);
+    const int pidx = threadIdx.x + i * kThreads;
+    P.pr[i] = pidx / d.J;
+    P.pj[i] = pidx % d.J;
+    P.prow[i] = b0 + P.pr[i];
+    P.punit[i] = u0 + P.pj[i];
+    P.pok[i] = pidx < kRows * d.J && P.pr[i] < kRows && P.prow[i] < d.b &&
+               P.punit[i] < d.n;
+    P.pi[i] = P.pf[i] = P.po[i] = 0.0f;
+    if (P.pok[i] && p != nullptr) {
+      P.pi[i] = to_float(p[P.punit[i]]);
+      P.pf[i] = to_float(p[d.n + P.punit[i]]);
+      P.po[i] = to_float(p[2 * d.n + P.punit[i]]);
+    }
+  }
+}
+
+// rows x cols of a block's slice of Rq (row stride ld) into shared memory
+// (row stride S): 16-byte cp.async copies, all in flight at once (cols, ld
+// and S are multiples of 4). The caller's next barrier publishes them.
+__device__ __forceinline__ void copy_slice(float* Rs, int S, const float* Rg,
+                                           int ld, int rows, int cols) {
+  const int vecs = cols / 4;
+  for (int v = threadIdx.x; v < rows * vecs; v += kThreads) {
+    const int r = v / vecs, c = (v % vecs) * 4;
+    cp_async16(Rs + r * S + c, Rg + r * ld + c, 16);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
+// ------------------------------------------------------------------ prep
+// R as float32 twice: Rf [n][4n] for the z product, and Rq [kCluster][NPm]
+// [CPm], block q's slice [unit][column] zero-padded, which the serial
+// kernels copy to shared memory or, past its size, read from L2 with no
+// index arithmetic but a multiply-add
+template <typename T>
+__global__ void __launch_bounds__(256)
+    lstm_bwd_prep(const T* __restrict__ R, float* __restrict__ Rf,
+                  float* __restrict__ Rq, Dims d) {
+  const int64_t n4 = 4 * static_cast<int64_t>(d.n);
+  const int64_t nf = d.n * n4, nq = int64_t{kCluster} * d.NPm * d.CPm;
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       e < nf + nq; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    if (e < nf) {
+      Rf[e] = to_float(R[e]);
+      continue;
+    }
+    const int64_t i = e - nf;
+    const int c = static_cast<int>(i % d.CPm);
+    const int64_t qk = i / d.CPm;
+    const int k = static_cast<int>(qk % d.NPm);
+    const int q = static_cast<int>(qk / d.NPm);
+    const int64_t col = slice_col(c, d.C, d.J, q * d.J, d.n);
+    Rq[i] = k < d.n && col >= 0 ? to_float(R[k * n4 + col]) : 0.0f;
+  }
+}
+
+// the h carry of row 6 without a mask: h0 at step 0, else hs_{s-1}
+template <typename T>
+__global__ void __launch_bounds__(256)
+    lstm_bwd_carry(const T* __restrict__ h0, const T* __restrict__ hs,
+                   float* __restrict__ ws, Dims d, Chunk ch) {
+  const int64_t count = static_cast<int64_t>(d.b) * ch.L * d.n;
+  float* hw = ws + ch.h;
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       e < count; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t k = e % d.n, rs = e / d.n;
+    const int64_t r = rs / ch.L, ls = rs % ch.L, s = ch.s0 + ls;
+    const float v = s == 0 ? to_float(h0[r * d.n + k])
+                           : to_float(hs[(r * d.t + s - 1) * d.n + k]);
+    hw[(r * d.tw + ls) * d.n + k] = v;
+  }
+}
+
+// c of row 6 without a mask, from the chunk's z (zx + H R): one thread per
+// (row, unit), forward over the steps
+template <typename T>
+__global__ void __launch_bounds__(128)
+    lstm_bwd_cscan(const T* __restrict__ c0, const T* __restrict__ p,
+                   float* __restrict__ ws, Dims d, Chunk ch) {
+  const int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  if (e >= static_cast<int64_t>(d.b) * d.n) return;
+  const int n = d.n;
+  const int64_t r = e / n, u = e % n, n4 = 4 * static_cast<int64_t>(n);
+  const float pi = p != nullptr ? to_float(p[u]) : 0.0f;
+  const float pf = p != nullptr ? to_float(p[n + u]) : 0.0f;
+  const float* zr = ws + ch.z + r * d.tw * n4 + u;
+  float* cr = ws + ch.c + r * d.tw * n + u;
+  float c = to_float(c0[r * n + u]);
+  // the loads of kBatch steps go out before their stores (which the
+  // compiler may not move them past: both point into ws)
+  constexpr int kBatch = 8;
+  for (int l0 = 0; l0 < ch.L; l0 += kBatch) {
+    float zi[kBatch], zf[kBatch], zg[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const float* z = zr + (l0 + k) * n4;
+      const bool in = l0 + k < ch.L;
+      zi[k] = in ? z[0] : 0.0f;
+      zf[k] = in ? z[n] : 0.0f;
+      zg[k] = in ? z[2 * n] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (l0 + k >= ch.L) break;
+      const float ig = sigmoid(zi[k] + pi * c);
+      const float fg = sigmoid(zf[k] + pf * c);
+      c = fg * c + ig * tanhf(zg[k]);
+      cr[(l0 + k) * static_cast<int64_t>(n)] = c;
+    }
+  }
+}
+
+// dp [3, n]: the per-(row, unit) sums [3][b][n] added over rows in order
+__global__ void __launch_bounds__(256)
+    lstm_bwd_dp(const float* __restrict__ dpw, float* __restrict__ dp,
+                int b, int n) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= 3 * n) return;
+  const int g = e / n, u = e % n;
+  float v = 0.0f;
+  for (int r = 0; r < b; ++r)
+    v += dpw[(static_cast<int64_t>(g) * b + r) * n + u];
+  dp[e] = v;
+}
+
+// ------------------------------------------------------- the two products
+// C [M, N] = (accumulate ? C : 0) + (add ? add : 0) + A B on the tensor
+// cores, tiles of 64 x 64 per block of 4 warps (32 x 32 each), K in steps
+// of 16 through a cp.async ring. B is [K][N] (N contiguous). A is [M][K]
+// (the z product: H [b t, n] R) or, A_KM, [K][M] (dR: H^T DZ, K the
+// chunk's (row, step) pairs, whose rows sit at (k / L) tw + k % L). With
+// gridDim.z > 1 (dR, whose 64 x 64 tiles are too few to fill the card)
+// block z takes the z-th range of K and writes its sum to part [z][M][ldc];
+// lstm_bwd_splits adds the ranges in order.
+constexpr int kGM = 64, kGN = 64, kGK = 16, kGThreads = 128, kGDepth = 4;
+constexpr int kAKP = kGM + 8;  // A_KM tile [kGK][kAKP]: = 8 mod 32
+constexpr int kAMP = kGK + 4;  // A tile [kGM][kAMP]: = 4 mod 8
+constexpr int kBP = kGN + 8;   // B tile [kGK][kBP]: = 8 mod 32
+constexpr int kAFloats =
+    kGK * kAKP > kGM * kAMP ? kGK * kAKP : kGM * kAMP;
+constexpr int kStageFloats = kAFloats + kGK * kBP;
+
+struct Gemm {
+  const float* A;
+  const float* B;
+  float* C;
+  const void* add;  // T [M][ldc], or null
+  int M, N, K, lda, ldb, ldc;
+  int L, tw;        // A_KM: the row of pair k is (k / L) tw + k % L
+  int accumulate;
+  float* part;      // gridDim.z > 1: the ranges' sums [gridDim.z][M][ldc]
+};
+
+template <typename T, bool A_KM, bool SA, bool SB>
+__global__ void __launch_bounds__(kGThreads) lstm_bwd_gemm(Gemm g) {
+  __shared__ __align__(16) uint8_t smem[kGDepth * kStageFloats * 4];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
+  const int nk_all = (g.K + kGK - 1) / kGK;
+  const int per = (nk_all + gridDim.z - 1) / gridDim.z;
+  const int kt0 = blockIdx.z * per;
+  const int nk = max(0, min(nk_all, kt0 + per) - kt0);
+  const bool vecA = g.lda % 4 == 0;  // A's rows load as 16-byte copies
+  auto krow = [&](int k) -> int64_t {
+    return A_KM ? static_cast<int64_t>(k / g.L) * g.tw + k % g.L : k;
+  };
+  auto load = [&](int c, uint8_t* st) {
+    float* As = reinterpret_cast<float*>(st);
+    float* Bs = As + kAFloats;
+    const int k0 = (kt0 + c) * kGK;
+    for (int v = tid; v < kGK * kGN / 4; v += kGThreads) {
+      const int kk = v / (kGN / 4), col = (v % (kGN / 4)) * 4;
+      const bool in = k0 + kk < g.K && n0 + col < g.N;
+      const float* src =
+          in ? g.B + krow(k0 + kk) * g.ldb + n0 + col : g.B;
+      cp_async16(Bs + kk * kBP + col, src, in ? 16 : 0);
+    }
+    if constexpr (A_KM) {
+      for (int v = tid; v < kGK * kGM / 4; v += kGThreads) {
+        const int kk = v / (kGM / 4), mm = (v % (kGM / 4)) * 4;
+        const int k = k0 + kk, m = m0 + mm;
+        float* dst = As + kk * kAKP + mm;
+        const float* src = g.A + (k < g.K ? krow(k) * g.lda + m : 0);
+        if (vecA) {
+          const bool in = k < g.K && m < g.M;
+          cp_async16(dst, in ? src : g.A, in ? 16 : 0);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool in = k < g.K && m + e < g.M;
+            cp_async4(dst + e, in ? src + e : g.A, in ? 4 : 0);
+          }
+        }
+      }
+    } else {
+      for (int v = tid; v < kGM * kGK / 4; v += kGThreads) {
+        const int mm = v / (kGK / 4), kk = (v % (kGK / 4)) * 4;
+        const int m = m0 + mm, k = k0 + kk;
+        float* dst = As + mm * kAMP + kk;
+        const float* src =
+            g.A + (m < g.M ? static_cast<int64_t>(m) * g.lda + k : 0);
+        if (vecA) {
+          const bool in = m < g.M && k < g.K;
+          cp_async16(dst, in ? src : g.A, in ? 16 : 0);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool in = m < g.M && k + e < g.K;
+            cp_async4(dst + e, in ? src + e : g.A, in ? 4 : 0);
+          }
+        }
       }
     }
+  };
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  auto consume = [&](int, uint8_t* st) {
+    const float* As = reinterpret_cast<const float*>(st);
+    const float* Bs = As + kAFloats;
+    auto a_at = [&](int m, int k) {
+      return bits(A_KM ? As[k * kAKP + m] : As[m * kAMP + k]);
+    };
+#pragma unroll
+    for (int kk = 0; kk < kGK; kk += 8) {
+      uint32_t a[2][4], b[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int mb = wm * 32 + i * 16 + g8;
+        a[i][0] = a_at(mb, kk + t4);
+        a[i][1] = a_at(mb + 8, kk + t4);
+        a[i][2] = a_at(mb, kk + t4 + 4);
+        a[i][3] = a_at(mb + 8, kk + t4 + 4);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int nb = wn * 32 + j * 8 + g8;
+        b[j][0] = bits(Bs[(kk + t4) * kBP + nb]);
+        b[j][1] = bits(Bs[(kk + t4 + 4) * kBP + nb]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float t[4];
+          k8_step<SA, SB>(t, a[i], b[j][0], b[j][1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
+        }
+    }
+  };
+  ring<kStageFloats * 4, kGDepth>(smem, nk, load, [](int) {}, consume);
+  const T* add = static_cast<const T*>(g.add);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wm * 32 + i * 16 + g8 + (e >> 1) * 8;
+        const int col = n0 + wn * 32 + j * 8 + 2 * t4 + (e & 1);
+        if (m >= g.M || col >= g.N) continue;
+        const int64_t at = static_cast<int64_t>(m) * g.ldc + col;
+        float v = acc[i][j][e];
+        if (gridDim.z > 1) {
+          g.part[blockIdx.z * static_cast<int64_t>(g.M) * g.ldc + at] = v;
+          continue;
+        }
+        if (add != nullptr) v += to_float(add[at]);
+        if (g.accumulate) v += g.C[at];
+        g.C[at] = v;
+      }
+}
+
+// C = (accumulate ? C : 0) + the sum of the K ranges' parts, in order
+__global__ void __launch_bounds__(256)
+    lstm_bwd_splits(const float* __restrict__ part, float* __restrict__ C,
+                    int64_t count, int splits, int accumulate) {
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       e < count; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float v = part[e];
+    for (int z = 1; z < splits; ++z) v += part[z * count + e];
+    C[e] = accumulate ? C[e] + v : v;
+  }
+}
+
+// ------------------------------------------------- phase 1, serial form
+template <typename T, bool RESIDENT>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+    lstm_bwd_recompute(const T* __restrict__ zx, const float* __restrict__ Rq,
+                       const T* __restrict__ p, const float* __restrict__ mask,
+                       const T* __restrict__ h0, const T* __restrict__ c0,
+                       const float* __restrict__ hck,
+                       const float* __restrict__ cck, float* ws, Dims d,
+                       Chunk ch) {
+  constexpr bool kSplitR = sizeof(T) == 4;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int n = d.n, J = d.J, HP = d.HP, ZP = d.ZP, S1 = d.S1;
+  const int u0 = q * J;
+  const int b0 = blockIdx.y * kRows;
+  const int64_t n4 = 4 * static_cast<int64_t>(n);
+  float* zw = ws + ch.z;
+  float* cw = ws + ch.c;
+  float* hw = ws + ch.h;
+
+  extern __shared__ __align__(16) float smem[];
+  // h's TF32 parts [2 buffers][kRows][HP]: unit k's hi, lo at 2 k, 2 k + 1
+  // (one 8-byte load of the product's B, one remote store); the pair that
+  // forms h_s splits it and writes it into every block's next buffer
+  float* hbuf = smem;
+  float* zs = hbuf + 2 * kRows * HP;    // [kRows][ZP] this step's h R
+  float* Rs = zs + kRows * ZP;          // [NPk][S1] R slice, [k][column]
+  const float* Rg = Rq + static_cast<int64_t>(q) * d.NPm * d.CPm;
+
+  const int zero = 2 * kRows * HP + kRows * ZP;
+  for (int e = tid; e < zero; e += kThreads) smem[e] = 0.0f;
+  if (RESIDENT) copy_slice(Rs, S1, Rg, d.CPm, d.NPk, d.CPm);
+  Pairs P;
+  make_pairs(P, p, b0, u0, d);
+  // the chunk's entry carry: every block holds all of h, each pair its own
+  const int64_t ck = static_cast<int64_t>(ch.j) * d.b * n;
+  __syncthreads();
+  for (int e = tid; e < kRows * n; e += kThreads) {
+    const int r = e / n, k = e % n;
+    if (b0 + r >= d.b) continue;
+    const int64_t at = static_cast<int64_t>(b0 + r) * n + k;
+    uint32_t hi, lo;
+    split_tf32(bits(hck != nullptr ? hck[ck + at] : to_float(h0[at])), hi,
+               lo);
+    *reinterpret_cast<float2*>(hbuf + r * HP + 2 * k) =
+        make_float2(__uint_as_float(hi), __uint_as_float(lo));
+  }
+  float hreg[kPairs], creg[kPairs];
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) {
+    hreg[i] = creg[i] = 0.0f;
+    if (!P.pok[i]) continue;
+    const int64_t at = static_cast<int64_t>(P.prow[i]) * n + P.punit[i];
+    hreg[i] = hck != nullptr ? hck[ck + at] : to_float(h0[at]);
+    creg[i] = cck != nullptr ? cck[ck + at] : to_float(c0[at]);
   }
   // every block's buffers are ready before any peer writes into them
   cluster.sync();
 
-  float* hcur = hbuf0;
-  float* hnext = hbuf1;
-  int rbuf = 0;
-  const int rows_valid = min(kRows, d.b - b0);
-  for (int j = d.nt - 1; j >= 0; --j) {
-    const int s0 = j * d.tc;
-    const int s1 = min(d.t, s0 + d.tc);
-
-    // ================= phase 1: the chunk's z, c and h carries ============
-    for (int e = tid; e < kRows * n; e += kThreads) {
-      const int r = e / n, k = e % n;
-      float v = 0.0f;
-      if (b0 + r < d.b) {
-        const int64_t at = static_cast<int64_t>(b0 + r) * n + k;
-        v = chunked ? hck[static_cast<int64_t>(j) * d.b * n + at]
-                    : to_float(h0[at]);
-      }
-      hcur[r * NP + k] = v;
-    }
+  auto r_at = [&](int k, int c) -> uint32_t {
+    return bits(RESIDENT ? Rs[k * S1 + c] : __ldg(Rg + k * d.CPm + c));
+  };
+  float zxv[kPairs][4];
+  bool live[kPairs];
+  auto load_step = [&](int s) {
 #pragma unroll
     for (int i = 0; i < kPairs; ++i) {
-      if (!pok[i]) continue;
-      const int64_t at = static_cast<int64_t>(prow[i]) * n + punit[i];
-      hreg[i] = chunked ? hck[static_cast<int64_t>(j) * d.b * n + at]
-                        : to_float(h0[at]);
-      creg[i] = chunked ? cck[static_cast<int64_t>(j) * d.b * n + at]
-                        : to_float(c0[at]);
-      c_entry[i] = creg[i];
+      live[i] = true;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) zxv[i][g] = 0.0f;
+      if (!P.pok[i]) continue;
+      const int64_t row = (static_cast<int64_t>(P.prow[i]) * d.t + s) * n4;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        zxv[i][g] = to_float(zx[row + g * n + P.punit[i]]);
+      if (mask != nullptr)
+        live[i] = mask[static_cast<int64_t>(P.prow[i]) * d.t + s] > 0.0f;
+    }
+  };
+  load_step(ch.s0);
+
+  float* hcur = hbuf;
+  float* hnext = hbuf + kRows * HP;
+  const int mtiles = d.CPm / 16, ksteps = d.NPk / 8;
+  for (int ls = 0; ls < ch.L; ++ls) {
+    // zs[r][c] = sum_k h[r][k] R[k][c]: z^T = R_q^T h^T, M = columns
+    for (int mt = warp; mt < mtiles; mt += kWarps) {
+      const int m0 = mt * 16;
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+      for (int ks = 0; ks < ksteps; ++ks) {
+        const int k0 = ks * 8;
+        uint32_t a[4];
+        a[0] = r_at(k0 + t4, m0 + g8);
+        a[1] = r_at(k0 + t4, m0 + g8 + 8);
+        a[2] = r_at(k0 + t4 + 4, m0 + g8);
+        a[3] = r_at(k0 + t4 + 4, m0 + g8 + 8);
+        const float2 b0 = *reinterpret_cast<const float2*>(
+            hcur + g8 * HP + 2 * (k0 + t4));
+        const float2 b1 = *reinterpret_cast<const float2*>(
+            hcur + g8 * HP + 2 * (k0 + t4 + 4));
+        float t[4];
+        k8_parts<kSplitR, true>(t, a, bits(b0.x), bits(b1.x), bits(b0.y),
+                                bits(b1.y));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[e] += t[e];
+      }
+      zs[(2 * t4) * ZP + m0 + g8] = acc[0];
+      zs[(2 * t4 + 1) * ZP + m0 + g8] = acc[1];
+      zs[(2 * t4) * ZP + m0 + g8 + 8] = acc[2];
+      zs[(2 * t4 + 1) * ZP + m0 + g8 + 8] = acc[3];
     }
     __syncthreads();
 
-    for (int s = s0; s < s1; ++s) {
-      const int ls = s - s0;
-      float zxv[kPairs][4];
-      bool live[kPairs];
+    // the cell, one thread per (row, unit); z, c and the h carry entering
+    // the step go to the workspace after the barrier's arrive
+    float z[kPairs][4], h_in[kPairs];
 #pragma unroll
-      for (int i = 0; i < kPairs; ++i) {
-        live[i] = true;
+    for (int i = 0; i < kPairs; ++i) {
+      h_in[i] = hreg[i];
+      if (!P.pok[i]) continue;
+      const int r = P.pr[i], jj = P.pj[i];
 #pragma unroll
-        for (int g = 0; g < 4; ++g) zxv[i][g] = 0.0f;
-        if (pok[i]) {
-          const int64_t row = (static_cast<int64_t>(prow[i]) * d.t + s) * n4;
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-            zxv[i][g] = to_float(zx[row + g * n + punit[i]]);
-          if (mask != nullptr)
-            live[i] = mask[static_cast<int64_t>(prow[i]) * d.t + s] > 0.0f;
-          // the h carry entering step s, for dR
-          hw[(static_cast<int64_t>(pr[i]) * tw + ls) * NP + punit[i]] =
-              hreg[i];
-        }
+      for (int g = 0; g < 4; ++g)
+        z[i][g] = zs[r * ZP + g * J + jj] + zxv[i][g];
+      const float c_prev = creg[i];
+      const float ig = sigmoid(z[i][0] + P.pi[i] * c_prev);
+      const float fg = sigmoid(z[i][1] + P.pf[i] * c_prev);
+      const float gg = tanhf(z[i][2]);
+      float c_new = fg * c_prev + ig * gg;
+      const float og = sigmoid(z[i][3] + P.po[i] * c_new);
+      float h_new = og * tanhf(c_new);
+      if (!live[i]) {
+        h_new = hreg[i];
+        c_new = c_prev;
       }
-
-      // part[kg][r][c] = sum over this group's k of h[r][k] * R[k][c]
-      if (tile_ok) {
-        float acc[kRows][kCols];
+      hreg[i] = h_new;
+      creg[i] = c_new;
+      uint32_t hi, lo;
+      split_tf32(bits(h_new), hi, lo);
+      const float2 parts =
+          make_float2(__uint_as_float(hi), __uint_as_float(lo));
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
-#pragma unroll
-          for (int i = 0; i < kCols; ++i) acc[r][i] = 0.0f;
-        for (int k = k_lo; k < k_hi; k += 4) {
-          float4 h4[kRows];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r)
-            h4[r] = *reinterpret_cast<const float4*>(&hcur[r * NP + k]);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            float4 rv;
-            if (RESIDENT) {
-              rv = *reinterpret_cast<const float4*>(&Rs[(k + kk) * S + col0]);
-            } else {
-              const bool in = k + kk < n;
-              const T* row = R + (k + kk) * n4;
-              rv.x = in && rok[0] ? to_float(row[rofs[0]]) : 0.0f;
-              rv.y = in && rok[1] ? to_float(row[rofs[1]]) : 0.0f;
-              rv.z = in && rok[2] ? to_float(row[rofs[2]]) : 0.0f;
-              rv.w = in && rok[3] ? to_float(row[rofs[3]]) : 0.0f;
-            }
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              const float hv = kk == 0   ? h4[r].x
-                               : kk == 1 ? h4[r].y
-                               : kk == 2 ? h4[r].z
-                                         : h4[r].w;
-              acc[r][0] = fmaf(hv, rv.x, acc[r][0]);
-              acc[r][1] = fmaf(hv, rv.y, acc[r][1]);
-              acc[r][2] = fmaf(hv, rv.z, acc[r][2]);
-              acc[r][3] = fmaf(hv, rv.w, acc[r][3]);
-            }
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          *reinterpret_cast<float4*>(&part[(kg * kRows + r) * C + col0]) =
-              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      }
-      __syncthreads();
-
-      // the cell, one thread per (row, unit); z and c go to the workspace
-#pragma unroll
-      for (int i = 0; i < kPairs; ++i) {
-        if (!pok[i]) continue;
-        const int r = pr[i], jj = pj[i];
-        float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        for (int g2 = 0; g2 < d.KS; ++g2) {
-          const float* pz = part + (g2 * kRows + r) * C + jj;
-#pragma unroll
-          for (int g = 0; g < 4; ++g) z[g] += pz[g * J];
-        }
-#pragma unroll
-        for (int g = 0; g < 4; ++g) z[g] += zxv[i][g];
-        const float c_prev = creg[i];
-        const float ig = sigmoid(z[0] + pi[i] * c_prev);
-        const float fg = sigmoid(z[1] + pf[i] * c_prev);
-        const float gg = tanhf(z[2]);
-        float c_new = fg * c_prev + ig * gg;
-        const float og = sigmoid(z[3] + po[i] * c_new);
-        float h_new = og * tanhf(c_new);
-        if (mask != nullptr) {
-          if (!live[i]) {
-            h_new = hreg[i];
-            c_new = c_prev;
-          }
-        } else if (!chunked) {
-          h_new = to_float(
-              hs[(static_cast<int64_t>(prow[i]) * d.t + s) * n + punit[i]]);
-        }
-        float* zrow = zw + (static_cast<int64_t>(r) * tw + ls) * C;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) zrow[g * J + jj] = z[g];
-        cw[(static_cast<int64_t>(r) * tw + ls) * J + jj] = c_new;
-        hreg[i] = h_new;
-        creg[i] = c_new;
-#pragma unroll
-        for (int peer = 0; peer < kCluster; ++peer)
-          cluster.map_shared_rank(hnext, peer)[r * NP + punit[i]] = h_new;
-      }
-      // h_s is in every block's next buffer; part and hcur are free again
-      cluster.sync();
-      float* tmp = hcur;
-      hcur = hnext;
-      hnext = tmp;
+      for (int peer = 0; peer < kCluster; ++peer)
+        *reinterpret_cast<float2*>(cluster.map_shared_rank(hnext, peer) +
+                                   r * HP + 2 * P.punit[i]) = parts;
     }
-
-    // ================= phase 2: the reverse recurrence ====================
-    for (int s = s1 - 1; s >= s0; --s) {
-      const int ls = s - s0;
-      float dh_pass[kPairs], dc_prev[kPairs];
+    // h_s is in every block's next buffer once all have arrived. The
+    // workspace stores and the next step's loads overlap the wait (stores
+    // issued before the arrive would hold up its release)
+    cluster_arrive();
 #pragma unroll
-      for (int i = 0; i < kPairs; ++i) {
-        dh_pass[i] = dc_prev[i] = 0.0f;
-        if (!pok[i]) continue;
-        const int r = pr[i], jj = pj[i];
-        const int64_t rs = static_cast<int64_t>(prow[i]) * d.t + s;
-        const bool lv = mask == nullptr || mask[rs] > 0.0f;
-        float* zrow = zw + (static_cast<int64_t>(r) * tw + ls) * C;
-        const float* crow = cw + static_cast<int64_t>(r) * tw * J + jj;
-        const float c_new = crow[ls * J];
-        const float c_prev = ls > 0 ? crow[(ls - 1) * J] : c_entry[i];
-        float z[4];
+    for (int i = 0; i < kPairs; ++i) {
+      if (!P.pok[i]) continue;
+      const int64_t rs = static_cast<int64_t>(P.prow[i]) * d.tw + ls;
+      float* zrow = zw + rs * n4 + P.punit[i];
 #pragma unroll
-        for (int g = 0; g < 4; ++g) z[g] = zrow[g * J + jj];
-        const float gh = to_float(ghs[rs * n + punit[i]]);
-        const float dh_in = lv ? gh + dh[i] : 0.0f;
-        const float dc_in = lv ? dc[i] : 0.0f;
-        const float ig = sigmoid(z[0] + pi[i] * c_prev);
-        const float fg = sigmoid(z[1] + pf[i] * c_prev);
-        const float gg = tanhf(z[2]);
-        const float og = sigmoid(z[3] + po[i] * c_new);
-        const float tcn = tanhf(c_new);
-        const float dzo = dh_in * tcn * og * (1.0f - og);
-        const float dcc = dh_in * og * (1.0f - tcn * tcn) + dc_in +
-                          po[i] * dzo;
-        const float dzg = dcc * ig * (1.0f - gg * gg);
-        const float dzi = dcc * gg * ig * (1.0f - ig);
-        const float dzf = dcc * c_prev * fg * (1.0f - fg);
-        const float dz[4] = {dzi, dzf, dzg, dzo};
-        T* out = dzx + rs * n4 + punit[i];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          store_as(out + g * n, dz[g]);
-          zrow[g * J + jj] = dz[g];
-          dzs[r * C + g * J + jj] = dz[g];
-        }
-        dpi[i] += dzi * c_prev;
-        dpf[i] += dzf * c_prev;
-        dpo[i] += dzo * c_new;
-        dc_prev[i] = dcc * fg + pi[i] * dzi + pf[i] * dzf +
-                     (lv ? 0.0f : dc[i]);
-        dh_pass[i] = lv ? 0.0f : dh[i];
-      }
-      __syncthreads();
-
-      // part[cs][r][k] = sum over this split's columns c of dz[r][c] R[k][c]
-      if (ok2) {
-        float acc[kRows][4];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[r][i] = 0.0f;
-        for (int c = c_lo2; c < c_hi2; c += 4) {
-          float4 d4[kRows];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r)
-            d4[r] = *reinterpret_cast<const float4*>(&dzs[r * C + c]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int k = kg2 + i * d.KG;
-            float4 rv;
-            if (RESIDENT) {
-              rv = k < NP ? *reinterpret_cast<const float4*>(&Rs[k * S + c])
-                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            } else {
-              float v[4];
-#pragma unroll
-              for (int cc = 0; cc < 4; ++cc) {
-                const int col = c + cc, u = u0 + col % J;
-                v[cc] = k < n && u < n
-                            ? to_float(R[k * n4 + (col / J) * n + u])
-                            : 0.0f;
-              }
-              rv = make_float4(v[0], v[1], v[2], v[3]);
-            }
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              acc[r][i] = fmaf(d4[r].x, rv.x, acc[r][i]);
-              acc[r][i] = fmaf(d4[r].y, rv.y, acc[r][i]);
-              acc[r][i] = fmaf(d4[r].z, rv.z, acc[r][i]);
-              acc[r][i] = fmaf(d4[r].w, rv.w, acc[r][i]);
-            }
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            part[(cs2 * kRows + r) * d.KP + kg2 + i * d.KG] = acc[r][i];
-      }
-      __syncthreads();
-
-      // reduce-scatter: unit k's sum of the splits goes to its owner block
-      float* rb = recv + rbuf * kCluster * kRows * J;
-      for (int k = tid; k < n; k += kThreads) {
-        float* dst =
-            cluster.map_shared_rank(rb, k / J) + q * kRows * J + k % J;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          float v = 0.0f;
-          for (int c2 = 0; c2 < d.CSa; ++c2)
-            v += part[(c2 * kRows + r) * d.KP + k];
-          dst[r * J] = v;
-        }
-      }
-      cluster.sync();
-#pragma unroll
-      for (int i = 0; i < kPairs; ++i) {
-        if (!pok[i]) continue;
-        float v = 0.0f;
-        for (int peer = 0; peer < kCluster; ++peer)
-          v += rb[(peer * kRows + pr[i]) * J + pj[i]];
-        dh[i] = v + dh_pass[i];
-        dc[i] = dc_prev[i];
-      }
-      rbuf ^= 1;
+      for (int g = 0; g < 4; ++g) zrow[g * n] = z[i][g];
+      cw[rs * n + P.punit[i]] = creg[i];
+      hw[rs * n + P.punit[i]] = h_in[i];
     }
-
-    // ================= dR over this chunk =================================
-    // dR[:, C_q] += H^T DZ over the chunk's M = rows x steps (row, step)
-    // pairs, in (row, step) order: slabs of kSlab pairs of the h carries
-    // (all blocks', read from L2 past this SM's L1) and of this block's dz
-    // are staged in `part`; each thread keeps 4 units x 8 columns of sums
-    // in registers (units tk*4 .. +3 of a kDRK block, so that a warp's
-    // float4 reads of the h slab are free of bank conflicts; columns
-    // tc*8 .. +7 of a kDRC block, a broadcast)
-    {
-      const int L = s1 - s0;
-      const int M = rows_valid * L;
-      const bool first = j == d.nt - 1;
-      const int tk = tid % 32, tc = tid / 32;
-      float* hsl = part;                       // [kSlab][kDRK]
-      float* zsl = part + kSlab * kDRK;        // [kSlab][kDRC]
-      for (int kb = 0; kb < n; kb += kDRK) {
-        for (int cb = 0; cb < C; cb += kDRC) {
-          float acc[4][8];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int c = 0; c < 8; ++c) acc[a][c] = 0.0f;
-          for (int m0 = 0; m0 < M; m0 += kSlab) {
-            __syncthreads();  // the previous slab is consumed
-            // kBatch loads in flight per thread before any is stored: one
-            // at a time, each waits out the L2 latency alone
-#pragma unroll
-            for (int i0 = 0; i0 < kSlab * kDRK / kThreads; i0 += kBatch) {
-              float v[kBatch];
-#pragma unroll
-              for (int i = 0; i < kBatch; ++i) {
-                const int e = tid + (i0 + i) * kThreads;
-                const int mm = m0 + e / kDRK, k = kb + e % kDRK;
-                v[i] = mm < M && k < n
-                           ? __ldcg(hw + (static_cast<int64_t>(mm / L) * tw +
-                                          mm % L) * NP + k)
-                           : 0.0f;
-              }
-#pragma unroll
-              for (int i = 0; i < kBatch; ++i)
-                hsl[tid + (i0 + i) * kThreads] = v[i];
-            }
-#pragma unroll
-            for (int i0 = 0; i0 < kSlab * kDRC / kThreads; i0 += kBatch) {
-              float v[kBatch];
-#pragma unroll
-              for (int i = 0; i < kBatch; ++i) {
-                const int e = tid + (i0 + i) * kThreads;
-                const int mm = m0 + e / kDRC, c = cb + e % kDRC;
-                v[i] = mm < M && c < C
-                           ? __ldcg(zw + (static_cast<int64_t>(mm / L) * tw +
-                                          mm % L) * C + c)
-                           : 0.0f;
-              }
-#pragma unroll
-              for (int i = 0; i < kBatch; ++i)
-                zsl[tid + (i0 + i) * kThreads] = v[i];
-            }
-            __syncthreads();
-            for (int mm = 0; mm < kSlab; ++mm) {
-              const float4 hv = *reinterpret_cast<const float4*>(
-                  hsl + mm * kDRK + tk * 4);
-              const float4 za = *reinterpret_cast<const float4*>(
-                  zsl + mm * kDRC + tc * 8);
-              const float4 zb = *reinterpret_cast<const float4*>(
-                  zsl + mm * kDRC + tc * 8 + 4);
-              const float h4[4] = {hv.x, hv.y, hv.z, hv.w};
-              const float zv[8] = {za.x, za.y, za.z, za.w,
-                                   zb.x, zb.y, zb.z, zb.w};
-#pragma unroll
-              for (int a = 0; a < 4; ++a)
-#pragma unroll
-                for (int c = 0; c < 8; ++c)
-                  acc[a][c] = fmaf(h4[a], zv[c], acc[a][c]);
-            }
-          }
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const int k = kb + tk * 4 + a;
-            if (k >= n) continue;
-#pragma unroll
-            for (int c = 0; c < 8; ++c) {
-              const int col = cb + tc * 8 + c;
-              if (col >= C || u0 + col % J >= n) continue;
-              float* at = dRp + k * n4 + (col / J) * n + u0 + col % J;
-              *at = first ? acc[a][c] : *at + acc[a][c];
-            }
-          }
-        }
-      }
-    }
-    // the next chunk's phase 1 overwrites the h carries every block reads
-    cluster.sync();
+    if (ls + 1 < ch.L) load_step(ch.s0 + ls + 1);
+    cluster_wait();
+    float* tmp = hcur;
+    hcur = hnext;
+    hnext = tmp;
   }
+}
 
-  // ---- dh0, dc0 and the tile's dp partial (rows summed in order)
-  __syncthreads();
+// ------------------------------------------------------ phase 2, serial
+template <typename T, bool RESIDENT>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+    lstm_bwd_reverse(const float* __restrict__ Rq, const T* __restrict__ p,
+                     const float* __restrict__ mask, const T* __restrict__ c0,
+                     const float* __restrict__ cck, const T* __restrict__ ghs,
+                     const T* __restrict__ ghT, const T* __restrict__ gcT,
+                     T* __restrict__ dzx, float* __restrict__ dh0,
+                     float* __restrict__ dc0, float* ws,
+                     float* __restrict__ dpw, Dims d, Chunk ch) {
+  constexpr bool kSplitR = sizeof(T) == 4;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int n = d.n, J = d.J, DP = d.DP, S2 = d.S2;
+  const int u0 = q * J;
+  const int b0 = blockIdx.y * kRows;
+  const int64_t n4 = 4 * static_cast<int64_t>(n);
+  float* zw = ws + ch.z;
+  const float* cw = ws + ch.c;
+
+  extern __shared__ __align__(16) float smem[];
+  float* dzh = smem;                    // [kRows][DP] TF32 parts of dz
+  float* dzl = dzh + kRows * DP;
+  float* recv = dzl + kRows * DP;       // [2][kCluster][kRows][J]
+  float* Rs = recv + 2 * kCluster * kRows * J;  // [NPm][S2], [unit][col]
+  const float* Rg = Rq + static_cast<int64_t>(q) * d.NPm * d.CPm;
+
+  for (int e = tid; e < 2 * kRows * DP; e += kThreads) smem[e] = 0.0f;
+  if (RESIDENT) copy_slice(Rs, S2, Rg, d.CPm, d.NPm, d.CPk);
+  Pairs P;
+  make_pairs(P, p, b0, u0, d);
+  float dh[kPairs], dc[kPairs], c_entry[kPairs];
+  float dpi[kPairs], dpf[kPairs], dpo[kPairs];
+  const int64_t ck = static_cast<int64_t>(ch.j) * d.b * n;
 #pragma unroll
   for (int i = 0; i < kPairs; ++i) {
-    if (!pok[i]) continue;
-    const int64_t at = static_cast<int64_t>(prow[i]) * n + punit[i];
+    dh[i] = dc[i] = c_entry[i] = dpi[i] = dpf[i] = dpo[i] = 0.0f;
+    if (!P.pok[i]) continue;
+    const int64_t at = static_cast<int64_t>(P.prow[i]) * n + P.punit[i];
+    dh[i] = ch.last ? to_float(ghT[at]) : dh0[at];
+    dc[i] = ch.last ? to_float(gcT[at]) : dc0[at];
+    c_entry[i] = cck != nullptr ? cck[ck + at] : to_float(c0[at]);
+  }
+  // every block's buffers are ready before any peer writes into them
+  cluster.sync();
+
+  auto r_at = [&](int u, int c) -> uint32_t {
+    return bits(RESIDENT ? Rs[u * S2 + c] : __ldg(Rg + u * d.CPm + c));
+  };
+  // the values of the step about to run, loaded one step ahead
+  float zv[kPairs][4], cn[kPairs], cp[kPairs], gh[kPairs];
+  bool lv[kPairs];
+  auto load_step = [&](int ls) {
+    const int s = ch.s0 + ls;
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      lv[i] = true;
+      cn[i] = cp[i] = gh[i] = 0.0f;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) zv[i][g] = 0.0f;
+      if (!P.pok[i]) continue;
+      const int64_t rs = static_cast<int64_t>(P.prow[i]) * d.tw + ls;
+      const float* zrow = zw + rs * n4 + P.punit[i];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) zv[i][g] = zrow[g * n];
+      cn[i] = cw[rs * n + P.punit[i]];
+      cp[i] = ls > 0 ? cw[(rs - 1) * n + P.punit[i]] : c_entry[i];
+      const int64_t at = static_cast<int64_t>(P.prow[i]) * d.t + s;
+      gh[i] = to_float(ghs[at * n + P.punit[i]]);
+      if (mask != nullptr) lv[i] = mask[at] > 0.0f;
+    }
+  };
+  load_step(ch.L - 1);
+
+  const int mtiles = d.NPm / 16, ksteps = d.CPk / 8;
+  int rbuf = 0;
+  for (int ls = ch.L - 1; ls >= 0; --ls) {
+    const int s = ch.s0 + ls;
+    float dh_pass[kPairs], dc_prev[kPairs], dz[kPairs][4];
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      dh_pass[i] = dc_prev[i] = 0.0f;
+      if (!P.pok[i]) continue;
+      const int r = P.pr[i], jj = P.pj[i];
+      const float c_new = cn[i], c_prev = cp[i];
+      const float dh_in = lv[i] ? gh[i] + dh[i] : 0.0f;
+      const float dc_in = lv[i] ? dc[i] : 0.0f;
+      const float ig = sigmoid(zv[i][0] + P.pi[i] * c_prev);
+      const float fg = sigmoid(zv[i][1] + P.pf[i] * c_prev);
+      const float gg = tanhf(zv[i][2]);
+      const float og = sigmoid(zv[i][3] + P.po[i] * c_new);
+      const float tcn = tanhf(c_new);
+      const float dzo = dh_in * tcn * og * (1.0f - og);
+      const float dcc = dh_in * og * (1.0f - tcn * tcn) + dc_in +
+                        P.po[i] * dzo;
+      const float dzg = dcc * ig * (1.0f - gg * gg);
+      const float dzi = dcc * gg * ig * (1.0f - ig);
+      const float dzf = dcc * c_prev * fg * (1.0f - fg);
+      dz[i][0] = dzi;
+      dz[i][1] = dzf;
+      dz[i][2] = dzg;
+      dz[i][3] = dzo;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        uint32_t hi, lo;
+        split_tf32(bits(dz[i][g]), hi, lo);
+        dzh[r * DP + g * J + jj] = __uint_as_float(hi);
+        dzl[r * DP + g * J + jj] = __uint_as_float(lo);
+      }
+      dpi[i] += dzi * c_prev;
+      dpf[i] += dzf * c_prev;
+      dpo[i] += dzo * c_new;
+      dc_prev[i] = dcc * fg + P.pi[i] * dzi + P.pf[i] * dzf +
+                   (lv[i] ? 0.0f : dc[i]);
+      dh_pass[i] = lv[i] ? 0.0f : dh[i];
+    }
+    __syncthreads();
+
+    // dh^T [units, rows] = R_q dz^T over this block's columns; each unit's
+    // partial goes to the block that owns the unit
+    float* rb = recv + rbuf * kCluster * kRows * J;
+    for (int mt = warp; mt < mtiles; mt += kWarps) {
+      const int m0 = mt * 16;
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+      for (int ks = 0; ks < ksteps; ++ks) {
+        const int k0 = ks * 8;
+        uint32_t a[4];
+        a[0] = r_at(m0 + g8, k0 + t4);
+        a[1] = r_at(m0 + g8 + 8, k0 + t4);
+        a[2] = r_at(m0 + g8, k0 + t4 + 4);
+        a[3] = r_at(m0 + g8 + 8, k0 + t4 + 4);
+        const int db = g8 * DP + k0 + t4;
+        float t[4];
+        k8_parts<kSplitR, true>(t, a, bits(dzh[db]), bits(dzh[db + 4]),
+                                bits(dzl[db]), bits(dzl[db + 4]));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[e] += t[e];
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int u = m0 + g8 + (e >> 1) * 8, r = 2 * t4 + (e & 1);
+        if (u < n)
+          cluster.map_shared_rank(rb, u / J)[(q * kRows + r) * J + u % J] =
+              acc[e];
+      }
+    }
+    // dzx and the workspace's dz after the arrive: stores issued before it
+    // would hold up its release
+    cluster_arrive();
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      if (!P.pok[i]) continue;
+      const int64_t rs = static_cast<int64_t>(P.prow[i]) * d.tw + ls;
+      T* out = dzx + (static_cast<int64_t>(P.prow[i]) * d.t + s) * n4 +
+               P.punit[i];
+      float* zrow = zw + rs * n4 + P.punit[i];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        store_as(out + g * n, dz[i][g]);
+        zrow[g * n] = dz[i][g];
+      }
+    }
+    if (ls > 0) load_step(ls - 1);
+    cluster_wait();
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      if (!P.pok[i]) continue;
+      float v = 0.0f;
+#pragma unroll
+      for (int peer = 0; peer < kCluster; ++peer)
+        v += rb[(peer * kRows + P.pr[i]) * J + P.pj[i]];
+      dh[i] = v + dh_pass[i];
+      dc[i] = dc_prev[i];
+    }
+    rbuf ^= 1;
+  }
+
+  // the carries' cotangents entering the chunk, and its dp sums
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) {
+    if (!P.pok[i]) continue;
+    const int64_t at = static_cast<int64_t>(P.prow[i]) * n + P.punit[i];
     dh0[at] = dh[i];
     dc0[at] = dc[i];
-    float* slot = part + (pr[i] * J + pj[i]) * 3;
-    slot[0] = dpi[i];
-    slot[1] = dpf[i];
-    slot[2] = dpo[i];
-  }
-  __syncthreads();
-  for (int e = tid; e < 3 * J; e += kThreads) {
-    const int g = e / J, jj = e % J;
-    if (u0 + jj >= n) continue;
-    float v = 0.0f;
-    for (int r = 0; r < rows_valid; ++r) v += part[(r * J + jj) * 3 + g];
-    dpp[g * n + u0 + jj] = v;
+    const int64_t bn = static_cast<int64_t>(d.b) * n;
+    float* slot = dpw + at;
+    slot[0] = ch.last ? dpi[i] : slot[0] + dpi[i];
+    slot[bn] = ch.last ? dpf[i] : slot[bn] + dpf[i];
+    slot[2 * bn] = ch.last ? dpo[i] : slot[2 * bn] + dpo[i];
   }
 }
 
-// dR and dp: the tiles' partials added in tile order
-__global__ void __launch_bounds__(256)
-    lstm_bwd_reduce(const float* ws, float* __restrict__ dR,
-                    float* __restrict__ dp, Dims d) {
-  const int64_t nR = static_cast<int64_t>(d.n) * 4 * d.n;
-  const int64_t total = nR + 3 * static_cast<int64_t>(d.n);
-  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                   threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    float v = 0.0f;
-    if (e < nR) {
-      for (int tl = 0; tl < d.tiles; ++tl) v += ws[d.off_r + tl * nR + e];
-      dR[e] = v;
-    } else {
-      const int64_t i = e - nR;
-      for (int tl = 0; tl < d.tiles; ++tl)
-        v += ws[d.off_p + tl * 3 * static_cast<int64_t>(d.n) + i];
-      dp[i] = v;
-    }
-  }
-}
-
+// ------------------------------------------------------------------ host
 struct Args {
   const void *zx, *R, *p, *h0, *c0, *hs, *ghs, *ghT, *gcT;
   const float *mask, *hck, *cck;
@@ -703,33 +926,169 @@ struct Args {
   float *dR, *dp, *dh0, *dc0, *ws;
 };
 
-template <typename T, bool RESIDENT>
-cudaError_t launch_one(const Args& a, const Dims& d, size_t bytes,
-                       cudaStream_t stream) {
-  // above 48 KB a block's shared memory must be asked for per kernel
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_kernel<T, RESIDENT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  // grid x is exactly one cluster (__cluster_dims__), grid y one cluster
-  // per batch tile
-  const dim3 grid(kCluster, d.tiles);
-  lstm_bwd_kernel<T, RESIDENT><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(a.zx), static_cast<const T*>(a.R),
-      static_cast<const T*>(a.p), a.mask, static_cast<const T*>(a.h0),
-      static_cast<const T*>(a.c0), static_cast<const T*>(a.hs), a.hck, a.cck,
-      static_cast<const T*>(a.ghs), static_cast<const T*>(a.ghT),
-      static_cast<const T*>(a.gcT), static_cast<T*>(a.dzx), a.dh0, a.dc0,
-      a.ws, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int64_t total = static_cast<int64_t>(d.n) * 4 * d.n + 3 * d.n;
-  const int blocks = static_cast<int>((total + 255) / 256 < 1024
-                                          ? (total + 255) / 256
-                                          : 1024);
-  lstm_bwd_reduce<<<blocks, 256, 0, stream>>>(a.ws, a.dR, a.dp, d);
-  return cudaGetLastError();
+// Workspace regions, float offsets (ops/lstm.py `bwd_plan`): R as float32
+// [n][4n], and as the blocks' slices [kCluster][NPm][CPm]; dp sums
+// [3][b][n]; kSlots chunk slots of z [b][tw][4n], c and the h carry
+// [b][tw][n] (slot i = slot i % chunks with fewer chunks); dR's K ranges
+// [splits][n][4n]; the total.
+constexpr int kSlots = 2;
+enum Region {
+  kRf, kRq, kDpw, kZ0, kC0, kH0, kZ1, kC1, kH1, kPart, kTotal, kRegions
+};
+
+// The side streams and events of one device, made once.
+struct Streams {
+  cudaStream_t side[2];  // recompute, dR
+  cudaEvent_t start, p2_done, p1_done[kSlots], slot_free[kSlots];
+  bool made;
+};
+
+std::mutex g_streams_lock;
+Streams g_streams[64];
+
+cudaError_t streams_for(int device, Streams** out) {
+  if (device < 0 || device >= 64) return cudaErrorInvalidValue;
+  Streams& s = g_streams[device];
+  if (!s.made) {
+    cudaError_t err = cudaSuccess;
+    for (int i = 0; i < 2 && err == cudaSuccess; ++i)
+      err = cudaStreamCreateWithFlags(&s.side[i], cudaStreamNonBlocking);
+    cudaEvent_t* evs[2 + 2 * kSlots] = {&s.start, &s.p2_done};
+    for (int i = 0; i < kSlots; ++i) {
+      evs[2 + i] = &s.p1_done[i];
+      evs[2 + kSlots + i] = &s.slot_free[i];
+    }
+    for (cudaEvent_t* e : evs)
+      if (err == cudaSuccess)
+        err = cudaEventCreateWithFlags(e, cudaEventDisableTiming);
+    if (err != cudaSuccess) return err;
+    s.made = true;
+  }
+  *out = &s;
+  return cudaSuccess;
 }
+
+int blocks_for(int64_t count, int threads) {
+  const int64_t b = (count + threads - 1) / threads;
+  return static_cast<int>(b < 4096 ? (b > 0 ? b : 1) : 4096);
+}
+
+template <typename T>
+struct Launcher {
+  const Args& a;
+  const Dims& d;
+  const int64_t* lay;
+  int nt, tc, splits;
+  bool res1, res2;
+  cudaStream_t main;
+  Streams* st;
+
+  Chunk chunk(int j) const {
+    const int slot = 3 * (j % kSlots);
+    Chunk ch;
+    ch.j = j;
+    ch.s0 = j * tc;
+    ch.L = (ch.s0 + tc < d.t ? ch.s0 + tc : d.t) - ch.s0;
+    ch.last = j == nt - 1;
+    ch.z = lay[kZ0 + slot];
+    ch.c = lay[kC0 + slot];
+    ch.h = lay[kH0 + slot];
+    return ch;
+  }
+
+  template <bool SA, bool SB, bool A_KM>
+  cudaError_t gemm(const Gemm& g, int z, cudaStream_t s) const {
+    const dim3 grid((g.N + kGN - 1) / kGN, (g.M + kGM - 1) / kGM, z);
+    lstm_bwd_gemm<T, A_KM, SA, SB><<<grid, kGThreads, 0, s>>>(g);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || z == 1) return err;
+    const int64_t count = static_cast<int64_t>(g.M) * g.ldc;
+    lstm_bwd_splits<<<blocks_for(count, 256), 256, 0, s>>>(
+        g.part, g.C, count, z, g.accumulate);
+    return cudaGetLastError();
+  }
+
+  // phase 1 of chunk j into its slot, on stream s
+  cudaError_t recompute(int j, bool products, cudaStream_t s) const {
+    const Chunk ch = chunk(j);
+    const T* h0 = static_cast<const T*>(a.h0);
+    const T* c0 = static_cast<const T*>(a.c0);
+    if (products) {
+      // row 6 without a mask: the h carry is hs, z one product, c a scan
+      const int64_t hn = static_cast<int64_t>(d.b) * ch.L * d.n;
+      lstm_bwd_carry<T><<<blocks_for(hn, 256), 256, 0, s>>>(
+          h0, static_cast<const T*>(a.hs), a.ws, d, ch);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      Gemm g;
+      g.A = a.ws + ch.h;
+      g.B = a.ws + lay[kRf];
+      g.C = a.ws + ch.z;
+      g.add = a.zx;
+      g.M = d.b * d.t;
+      g.N = 4 * d.n;
+      g.K = d.n;
+      g.lda = d.n;
+      g.ldb = g.ldc = 4 * d.n;
+      g.L = g.tw = 1;
+      g.accumulate = 0;
+      g.part = nullptr;
+      constexpr bool kF32 = sizeof(T) == 4;
+      err = gemm<kF32, kF32, false>(g, 1, s);
+      if (err != cudaSuccess) return err;
+      const int64_t bn = static_cast<int64_t>(d.b) * d.n;
+      lstm_bwd_cscan<T><<<blocks_for(bn, 128), 128, 0, s>>>(
+          c0, static_cast<const T*>(a.p), a.ws, d, ch);
+      return cudaGetLastError();
+    }
+    const dim3 grid(kCluster, d.tiles);
+    const size_t bytes = recompute_smem(d, res1);
+    auto kernel = res1 ? lstm_bwd_recompute<T, true>
+                       : lstm_bwd_recompute<T, false>;
+    kernel<<<grid, kThreads, bytes, s>>>(
+        static_cast<const T*>(a.zx), a.ws + lay[kRq],
+        static_cast<const T*>(a.p), a.mask, h0, c0, a.hck, a.cck, a.ws, d,
+        ch);
+    return cudaGetLastError();
+  }
+
+  // phase 2 of chunk j, on the caller's stream
+  cudaError_t reverse(int j) const {
+    const Chunk ch = chunk(j);
+    const dim3 grid(kCluster, d.tiles);
+    const size_t bytes = reverse_smem(d, res2);
+    auto kernel = res2 ? lstm_bwd_reverse<T, true>
+                       : lstm_bwd_reverse<T, false>;
+    kernel<<<grid, kThreads, bytes, main>>>(
+        a.ws + lay[kRq], static_cast<const T*>(a.p), a.mask,
+        static_cast<const T*>(a.c0), a.cck, static_cast<const T*>(a.ghs),
+        static_cast<const T*>(a.ghT), static_cast<const T*>(a.gcT),
+        static_cast<T*>(a.dzx), a.dh0, a.dc0, a.ws, a.ws + lay[kDpw], d, ch);
+    return cudaGetLastError();
+  }
+
+  // dR (+)= H^T DZ over chunk j's pairs, on stream s; H is exact in TF32
+  // where it is bfloat16 hs (row 6 without a mask)
+  cudaError_t dR(int j, bool h_exact, cudaStream_t s) const {
+    const Chunk ch = chunk(j);
+    Gemm g;
+    g.A = a.ws + ch.h;
+    g.B = a.ws + ch.z;
+    g.C = a.dR;
+    g.add = nullptr;
+    g.M = d.n;
+    g.N = 4 * d.n;
+    g.K = d.b * ch.L;
+    g.lda = d.n;
+    g.ldb = g.ldc = 4 * d.n;
+    g.L = ch.L;
+    g.tw = d.tw;
+    g.accumulate = !ch.last;
+    g.part = a.ws + lay[kPart];
+    return h_exact ? gemm<false, true, true>(g, splits, s)
+                   : gemm<true, true, true>(g, splits, s);
+  }
+};
 
 int smem_optin(int device, int* optin) {
   return static_cast<int>(cudaDeviceGetAttribute(
@@ -737,64 +1096,168 @@ int smem_optin(int device, int* optin) {
 }
 
 template <typename T>
-cudaError_t launch_typed(const Args& a, const Dims& d, int device,
-                         cudaStream_t stream) {
+cudaError_t allow_all(int device, int optin, bool res1, bool res2) {
+  cudaError_t err = res1 ? allow_smem<lstm_bwd_recompute<T, true>>(device,
+                                                                   optin)
+                         : allow_smem<lstm_bwd_recompute<T, false>>(device,
+                                                                    optin);
+  if (err != cudaSuccess) return err;
+  return res2 ? allow_smem<lstm_bwd_reverse<T, true>>(device, optin)
+              : allow_smem<lstm_bwd_reverse<T, false>>(device, optin);
+}
+
+// The stages, in order: (chunk to recompute or -1, chunk to reverse or
+// -1). Chunk j's slot is j % kSlots. Reversing j waits for j's recompute;
+// recomputing j waits for the dR of the chunk its slot last held; dR of j
+// waits for its reverse; the caller's stream waits for the last dR.
+template <typename T>
+cudaError_t run(const Args& a, const Dims& d, const int64_t* lay,
+                const int32_t* stages, int nstages, int nt, int tc,
+                int splits, bool products, int device, cudaStream_t main) {
   int optin = 0;
-  const int err = smem_optin(device, &optin);
-  if (err != 0) return static_cast<cudaError_t>(err);
-  const size_t resident = smem_bytes(d, true);
-  if (resident <= static_cast<size_t>(optin))
-    return launch_one<T, true>(a, d, resident, stream);
-  return launch_one<T, false>(a, d, smem_bytes(d, false), stream);
+  cudaError_t err = static_cast<cudaError_t>(smem_optin(device, &optin));
+  if (err != cudaSuccess) return err;
+  const bool res1 = recompute_smem(d, true) <= static_cast<size_t>(optin);
+  const bool res2 = reverse_smem(d, true) <= static_cast<size_t>(optin);
+  err = allow_all<T>(device, optin, res1, res2);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> guard(g_streams_lock);
+  Streams* st = nullptr;
+  err = streams_for(device, &st);
+  if (err != cudaSuccess) return err;
+  Launcher<T> L{a, d, lay, nt, tc, splits, res1, res2, main, st};
+  const bool h_exact = products && sizeof(T) == 2;
+
+  const int64_t nr = 4 * static_cast<int64_t>(d.n) * d.n +
+                     int64_t{kCluster} * d.NPm * d.CPm;
+  lstm_bwd_prep<T><<<blocks_for(nr, 256), 256, 0, main>>>(
+      static_cast<const T*>(a.R), a.ws + lay[kRf], a.ws + lay[kRq], d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // the side streams start after the caller's earlier work and the prep
+  if ((err = cudaEventRecord(st->start, main)) != cudaSuccess) return err;
+  for (cudaStream_t s : st->side)
+    if ((err = cudaStreamWaitEvent(s, st->start, 0)) != cudaSuccess)
+      return err;
+  bool held[kSlots] = {false, false};
+  int last_slot = 0;
+  for (int i = 0; i < nstages; ++i) {
+    const int p1 = stages[2 * i], p2 = stages[2 * i + 1];
+    if (p2 >= 0) {
+      const int slot = p2 % kSlots;
+      if ((err = cudaStreamWaitEvent(main, st->p1_done[slot], 0)) ||
+          (err = L.reverse(p2)) ||
+          (err = cudaEventRecord(st->p2_done, main)) ||
+          (err = cudaStreamWaitEvent(st->side[1], st->p2_done, 0)) ||
+          (err = L.dR(p2, h_exact, st->side[1])) ||
+          (err = cudaEventRecord(st->slot_free[slot], st->side[1])))
+        return err;
+      held[slot] = true;
+      last_slot = slot;
+    }
+    if (p1 >= 0) {
+      const int slot = p1 % kSlots;
+      if (held[slot] &&
+          (err = cudaStreamWaitEvent(st->side[0], st->slot_free[slot], 0)))
+        return err;
+      if ((err = L.recompute(p1, products, st->side[0])) ||
+          (err = cudaEventRecord(st->p1_done[slot], st->side[0])))
+        return err;
+    }
+  }
+  // every recompute was waited for by its reverse; wait for the last dR
+  if ((err = cudaStreamWaitEvent(main, st->slot_free[last_slot], 0)))
+    return err;
+  lstm_bwd_dp<<<(3 * d.n + 255) / 256, 256, 0, main>>>(a.ws + lay[kDpw],
+                                                       a.dp, d.b, d.n);
+  return cudaGetLastError();
+}
+
+// The stage list names every chunk once as recomputed and once as
+// reversed, the reverse after the recompute, and a recompute never before
+// the dR of the chunk that last held its slot.
+bool stages_ok(const int32_t* stages, int nstages, int nt) {
+  if (nstages <= 0 || nt <= 0 || nt > (1 << 24)) return false;
+  int next_rev = nt - 1, next_rec = nt - 1;
+  for (int i = 0; i < nstages; ++i) {
+    const int p1 = stages[2 * i], p2 = stages[2 * i + 1];
+    if (p2 >= 0) {
+      if (p2 != next_rev || p2 <= next_rec) return false;
+      --next_rev;
+    }
+    if (p1 >= 0) {
+      if (p1 != next_rec || p1 < next_rev - 1) return false;
+      --next_rec;
+    }
+  }
+  return next_rev == -1 && next_rec == -1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of float32 workspace a launch at (b, t, n, tc) needs (tc = t for
-// row 6).
-int64_t lstm_scan_bwd_workspace_floats(int64_t b, int64_t t, int64_t n,
-                                       int64_t tc) {
-  if (b <= 0 || t <= 0 || n <= 0 || tc <= 0) return 0;
-  return make_dims(b, t, n, tc).total;
-}
-
-// Whether the backward keeps its slice of R in shared memory at hidden
-// width n (1) or reads it from L2 every step (0); negative on a CUDA error.
+// Whether both serial kernels keep their slice of R in shared memory at
+// hidden width n (1) or read it from L2 every step (0); negative on a CUDA
+// error.
 int lstm_scan_bwd_resident(int64_t n, int device) {
   int optin = 0;
   const int err = smem_optin(device, &optin);
   if (err != 0) return -err;
-  return smem_bytes(make_dims(1, 1, n, 1), true) <=
-         static_cast<size_t>(optin);
+  if (n <= 0 || n > kMaxN) return 0;
+  const Dims d = make_dims(1, 1, n, 1);
+  return recompute_smem(d, true) <= static_cast<size_t>(optin) &&
+         reverse_smem(d, true) <= static_cast<size_t>(optin);
 }
 
 // Row 6 (h0, c0, hs given; hck, cck null; tc = t) or row 8 (hck, cck
-// given; h0, c0, hs null): zx [b, t, 4n], R [n, 4n], p [3, n] or null, h0,
-// c0 [b, n], hs, g_hs [b, t, n], g_hT, g_cT [b, n] and dzx [b, t, 4n] of
-// `dtype` (0 = float32, 1 = bfloat16); mask float32 [b, t] or null; hck, cck
-// float32 [ceil(t / tc), b, n]; dR [n, 4n], dp [3, n], dh0, dc0 [b, n] and
-// ws (lstm_scan_bwd_workspace_floats) float32; all dense. device: the CUDA
-// device that holds them and owns `stream`. Returns the CUDA error code of
-// the launches (0 = launched); launches nothing for an empty input.
+// given; tc the checkpoint interval): zx [b, t, 4n], R [n, 4n], p [3, n]
+// or null, h0, c0 [b, n], hs, g_hs [b, t, n], g_hT, g_cT [b, n] and dzx
+// [b, t, 4n] of `dtype` (0 = float32, 1 = bfloat16); mask float32 [b, t]
+// or null; hck, cck float32 [ceil(t / tc), b, n]; dR [n, 4n], dp [3, n],
+// dh0, dc0 [b, n] and the workspace ws float32; all dense. layout: the
+// workspace's kRegions offsets (floats; the last is its size); stages:
+// nstages pairs (chunk to recompute, chunk to reverse), -1 for none;
+// splits: the K ranges of each chunk's dR product; products: phase 1 as
+// one product and a scan (row 6 without a mask).
+// device: the CUDA device that holds them and owns `stream`. Returns the
+// CUDA error code of the launches (0 = launched).
 int lstm_scan_bwd_launch(const void* zx, const void* R, const void* p,
                          const void* mask, const void* h0, const void* c0,
                          const void* hs, const void* hck, const void* cck,
                          const void* g_hs, const void* g_hT,
                          const void* g_cT, void* dzx, void* dR, void* dp,
                          void* dh0, void* dc0, void* ws,
-                         int64_t b, int64_t t, int64_t n, int64_t tc,
-                         int dtype, int device, void* stream) {
+                         const int64_t* layout, const int32_t* stages,
+                         int nstages, int splits, int products, int64_t b,
+                         int64_t t,
+                         int64_t n, int64_t tc, int dtype, int device,
+                         void* stream) {
   if (b <= 0 || t <= 0) return 0;
   const bool chunked = hck != nullptr;
-  if (n <= 0 || n > kMaxN || t > 0x7fffffff || tc <= 0 ||
-      (b + kRows - 1) / kRows > 65535 || (chunked && cck == nullptr) ||
-      (!chunked && (h0 == nullptr || c0 == nullptr || hs == nullptr)))
+  if (n <= 0 || n > kMaxN || t > 0x7fffffff || tc <= 0 || tc > t ||
+      b * t > 0x7fffffff || (b + kRows - 1) / kRows > 65535 ||
+      (chunked && (cck == nullptr || products)) ||
+      (!chunked && (h0 == nullptr || c0 == nullptr || tc != t)) ||
+      (products && (hs == nullptr || mask != nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = static_cast<int>((t + tc - 1) / tc);
+  const int64_t tw = tc;
+  if (splits < 1 || splits > 64) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t slot = b * tw * n;  // kRq's size is checked below
+  const int64_t sizes[kTotal] = {
+      4 * n * n, 0,        3 * b * n, 4 * slot, slot, slot, 4 * slot, slot,
+      slot,      splits > 1 ? splits * 4 * n * n : 0};
+  for (int i = 0; i < kTotal; ++i)
+    if (layout[i] < 0 || layout[i] % 4 != 0 ||
+        layout[i] + sizes[i] > layout[kTotal])
+      return static_cast<int>(cudaErrorInvalidValue);
+  if (!stages_ok(stages, nstages, nt))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const Dims d = make_dims(b, t, n, chunked ? tc : t);
+  const Dims d = make_dims(b, t, n, tw);
+  if (layout[kRq] + int64_t{kCluster} * d.NPm * d.CPm > layout[kTotal])
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.zx = zx;
   a.R = R;
@@ -815,9 +1278,14 @@ int lstm_scan_bwd_launch(const void* zx, const void* R, const void* p,
   a.dc0 = static_cast<float*>(dc0);
   a.ws = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch_typed<float>(a, d, device, s));
+  const int c = static_cast<int>(tc);
+  if (dtype == 0)
+    return static_cast<int>(run<float>(a, d, layout, stages, nstages, nt, c,
+                                       splits, products != 0, device, s));
   if (dtype == 1)
-    return static_cast<int>(launch_typed<__nv_bfloat16>(a, d, device, s));
+    return static_cast<int>(run<__nv_bfloat16>(a, d, layout, stages, nstages,
+                                               nt, c, splits, products != 0,
+                                               device, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -12,8 +12,9 @@ forward and backward, including the backward's device-side choice of
 path) and one `fit` step of a small TransformerLM against the CPU; the
 recurrent-training kernels (the fused LSTM backward, the time-chunked
 forward and backward: masks, ragged b, t and n, a ragged last chunk, t = 1,
-n at the cap), autograd through both LSTM families on the card, and one
-BPTT and one tBPTT `fit` of a small TextGenerationLSTM against the CPU.
+n at the cap, the same bits from two calls), autograd through both LSTM
+families on the card, and one BPTT and one tBPTT `fit` of a small
+TextGenerationLSTM against the CPU.
 
 Marked `cuda`; they skip where torch.cuda.is_available() is False. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -706,6 +707,36 @@ def test_lstm_backward_and_chunked_kernels_match_plain_versions(
         for d in (d6, d8):
             assert torch.equal(d[3][row], gs[1][row].float())
             assert torch.equal(d[4][row], gs[2][row].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,n,masked", [
+    (64, 64, 256, False),    # row 6 without a mask: z as one product
+    (8, 64, 256, True),      # row 6 with a mask: the serial recompute
+    (8, 1000, 256, False),   # row 8, a ragged last chunk (15 x 64 + 40)
+    (9, 2 * CHUNK + 5, 64, True),
+])
+def test_lstm_backward_kernels_are_deterministic(cuda, b, t, n, masked,
+                                                 dtype):
+    """Rows 6 and 8 give the same bits over two calls on the same inputs:
+    every sum has a fixed order, across the side streams and dR's K
+    ranges too, and no atomics."""
+    zx, R, p, h0, c0, mask = _lstm_inputs(cuda, b, t, n, dtype, True,
+                                          masked, seed=t + n)
+    g = torch.Generator(device=cuda).manual_seed(t)
+    gs = [torch.randn(s, generator=g, device=cuda).to(dtype)
+          for s in ((b, t, n), (b, n), (b, n))]
+    fwd = lstm_scan_chunked_forward(zx, R, h0, c0, p, mask)
+    for run in (lambda: lstm_scan_bwd(zx, R, h0, c0, fwd[0], *gs, p, mask),
+                lambda: lstm_scan_chunked_bwd(zx, R, fwd[3], fwd[4], *gs, p,
+                                              mask)):
+        first = run()
+        torch.cuda.synchronize()
+        again = run()
+        torch.cuda.synchronize()
+        for a, r in zip(again, first):
+            assert torch.equal(a, r)
 
 
 @pytest.mark.cuda
