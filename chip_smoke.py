@@ -1762,8 +1762,9 @@ def phase_lstm_bwd(torch, bw, peak, peak_tf32):
     forward's hs, row 8 its checkpoints). Returns each kernel's float32 row
     at its path's shape (per launch) and its largest absolute error. The
     backward's bound counts its three products on the tensor cores: as
-    3xTF32 in float32, two TF32 products in bfloat16 (R, or hs, is exact in
-    TF32; h or dz is not); the forward's (row 7) runs on the CUDA cores."""
+    3xTF32 in float32, two TF32 products each in bfloat16 (R, or hs, is
+    exact in TF32; h or dz is not) but one for row 6's z without a mask
+    (hs and R); the forward's (row 7) runs on the CUDA cores."""
     from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1870,26 +1871,34 @@ def phase_lstm_bwd(torch, bw, peak, peak_tf32):
                     plain_ms[k] = device_ms(torch, lambda i: fn(sets[i]),
                                             nbuf, p_iters)
             # the kernels form every product in float32, for both dtypes:
-            # the backward's on the tensor cores, row 7's on the CUDA cores
+            # the backward's three (z, dh, dR) on the tensor cores as TF32
+            # products, row 7's on the CUDA cores. Float32 takes 3 per
+            # product; bfloat16 2, as R and hs are exact in TF32 and h (row
+            # 8, and row 6 with a mask) and dz are not, but 1 for row 6's z
+            # without a mask, where hs and R are both exact
             fwd_ops = 2 * b * t * n * 4 * n
-            tf32_parts = 3 if dtype == torch.float32 else 2
+            f32 = dtype == torch.float32
+            tf32_products = {
+                "lstm_scan_bwd": 9 if f32 else 6 if masked else 5,
+                "lstm_scan_chunked_bwd": 9 if f32 else 6}
             p_bytes = 3 * n * item if peephole else 0
             m_bytes = 4 * b * t if masked else 0
             ck_bytes = 2 * nt * b * n * 4
             common = (b * t * 4 * n + 4 * n * n + b * t * n + 2 * b * n) \
                 * item + p_bytes + m_bytes           # zx, R, g_hs, g_hT/cT
             grads = b * t * 4 * n * item + (4 * n * n + 3 * n + 2 * b * n) * 4
-            bwd_rate = peak_tf32 / tf32_parts
             work = {
                 "lstm_scan_bwd": (
-                    3 * fwd_ops, common + (b * t * n + 2 * b * n) * item
-                    + grads, bwd_rate),
+                    tf32_products["lstm_scan_bwd"] * fwd_ops,
+                    common + (b * t * n + 2 * b * n) * item + grads,
+                    peak_tf32),
                 "lstm_scan_chunked": (
                     fwd_ops, (b * t * 4 * n + 4 * n * n + 2 * b * n) * item
                     + p_bytes + m_bytes + (b * t * n + 2 * b * n) * item
                     + ck_bytes, peak),
                 "lstm_scan_chunked_bwd": (
-                    3 * fwd_ops, common + ck_bytes + grads, bwd_rate)}
+                    tf32_products["lstm_scan_chunked_bwd"] * fwd_ops,
+                    common + ck_bytes + grads, peak_tf32)}
             for k, (ops, moved, rate) in work.items():
                 b_ms = max(moved / bw, ops / rate) * 1e3
                 by = "bytes" if moved / bw >= ops / rate else "operations"
@@ -1900,8 +1909,8 @@ def phase_lstm_bwd(torch, bw, peak, peak_tf32):
                          else f"{lib:.4f} ms [torch.nn.LSTM backward, cuDNN,"
                               f" plain cell]")
                 res = lstm_ops.resident(n, backward=k != "lstm_scan_chunked")
-                how = (f"{tf32_parts} TF32 products" if rate == bwd_rate
-                       else "CUDA cores")
+                how = (f"{tf32_products[k]} TF32 products"
+                       if k in tf32_products else "CUDA cores")
                 log(f"[kernel-lstm-bwd] {k:21s} {dname:8s} b={b:2d} "
                     f"t={t:4d} n={n:4d} {'peephole' if peephole else 'plain   '}"
                     f" {'masked' if masked else '      '} resident="

@@ -76,17 +76,19 @@
 //               product over the whole card, its K split into ranges that
 //               a second pass adds in order, chunks added in order;
 //   dp          the per-(row, unit) dp sums added over the rows in order.
-// Row 8 runs the recompute of chunk j - 1 on one side stream while the
-// caller's stream reverses chunk j and the other side stream adds chunk
-// j + 1's dR: a step costs the slower chain, not the sum. The workspace
-// holds two chunk slots (z / dz, c, h carry), so it does not grow with t;
-// its layout and the stage list come from the caller (ops/lstm.py
-// `bwd_plan`). The reverse chain sets the time of both rows, and its
-// product most of each step (profile_resnet_torch.py --model
-// lstm-bwd-split; PERF.md). No atomics: every sum has a fixed order, so
-// results repeat bit for bit. n is capped at kMaxN = 1024: past n = 256
-// or so the R slice does not fit in shared memory and the serial kernels
-// read it from L2 every step, several times slower.
+// With more than one chunk (row 8), the caller's stream reverses chunk j
+// while one side stream first adds chunk j + 1's dR and the other then
+// recomputes chunk j - 1 into the slot that dR frees: a step costs the
+// slower chain, not the sum. The workspace holds two chunk slots (z / dz,
+// c, h carry), so it does not grow with t; `lstm_scan_bwd_workspace_floats`
+// gives its size. One chunk (row 6, and row 8 with t <= tc) has nothing to
+// overlap, so every kernel then runs on the caller's stream, with no event.
+// The reverse chain sets the time of both rows, and its product most of
+// each step (profile_resnet_torch.py --model lstm-bwd-split, which builds
+// this source with the probes below; PERF.md). No atomics: every sum has
+// a fixed order, so results repeat bit for bit. n is capped at kMaxN =
+// 1024: past n = 256 or so the R slice does not fit in shared memory and
+// the serial kernels read it from L2 every step, several times slower.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,6 +100,40 @@
 #include "hopper_mma.cuh"
 
 namespace cg = cooperative_groups;
+
+// Built with -DLSTM_BWD_PROBES (profile_resnet_torch.py --model
+// lstm-bwd-split), thread 0 of the first cluster's block 0 reads clock64 at
+// each phase boundary of the serial kernels' steps, PROBE(i) closing phase
+// i, and PROBE_END adds the cycles to g_probe[first + i], the loop's
+// %globaltimer ns to g_probe[first + 6] and its steps to g_probe[first + 7]
+// (recompute first = 0, reverse 16). Otherwise the probes are empty.
+#ifdef LSTM_BWD_PROBES
+__device__ unsigned long long g_probe[32];
+#define PROBE_START                                                    \
+  const bool probe0 = blockIdx.y == 0 && cluster.block_rank() == 0 && \
+                      threadIdx.x == 0;                               \
+  unsigned long long pacc[8] = {0}, ns0;                              \
+  long long ta = clock64();                                           \
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns0));
+#define PROBE(i)                    \
+  if (probe0) {                     \
+    const long long tb = clock64(); \
+    pacc[i] += tb - ta;             \
+    ta = tb;                        \
+  }
+#define PROBE_END(first, count, steps)                                 \
+  if (probe0) {                                                        \
+    unsigned long long ns1;                                            \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns1));            \
+    for (int i = 0; i < (count); ++i) g_probe[(first) + i] += pacc[i]; \
+    g_probe[(first) + 6] += ns1 - ns0;                                 \
+    g_probe[(first) + 7] += (steps);                                   \
+  }
+#else
+#define PROBE_START
+#define PROBE(i)
+#define PROBE_END(first, count, steps)
+#endif
 
 namespace {
 
@@ -634,6 +670,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
     }
   };
   load_step(ch.s0);
+  PROBE_START
 
   float* hcur = hbuf;
   float* hnext = hbuf + kRows * HP;
@@ -666,7 +703,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
       zs[(2 * t4) * ZP + m0 + g8 + 8] = acc[2];
       zs[(2 * t4 + 1) * ZP + m0 + g8 + 8] = acc[3];
     }
+    PROBE(0)  // the product
     __syncthreads();
+    PROBE(1)  // its barrier
 
     // the cell, one thread per (row, unit); z, c and the h carry entering
     // the step go to the workspace after the barrier's arrive
@@ -701,6 +740,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
         *reinterpret_cast<float2*>(cluster.map_shared_rank(hnext, peer) +
                                    r * HP + 2 * P.punit[i]) = parts;
     }
+    PROBE(2)  // the cell and the DSMEM broadcast
     // h_s is in every block's next buffer once all have arrived. The
     // workspace stores and the next step's loads overlap the wait (stores
     // issued before the arrive would hold up its release)
@@ -716,11 +756,14 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
       hw[rs * n + P.punit[i]] = h_in[i];
     }
     if (ls + 1 < ch.L) load_step(ch.s0 + ls + 1);
+    PROBE(3)  // the arrive, the stores and the next step's loads
     cluster_wait();
+    PROBE(4)  // the cluster wait
     float* tmp = hcur;
     hcur = hnext;
     hnext = tmp;
   }
+  PROBE_END(0, 5, ch.L)
 }
 
 // ------------------------------------------------------ phase 2, serial
@@ -798,6 +841,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
     }
   };
   load_step(ch.L - 1);
+  PROBE_START
 
   const int mtiles = d.NPm / 16, ksteps = d.CPk / 8;
   int rbuf = 0;
@@ -841,7 +885,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
                    (lv[i] ? 0.0f : dc[i]);
       dh_pass[i] = lv[i] ? 0.0f : dh[i];
     }
+    PROBE(0)  // the cell (dz)
     __syncthreads();
+    PROBE(1)  // its barrier
 
     // dh^T [units, rows] = R_q dz^T over this block's columns; each unit's
     // partial goes to the block that owns the unit
@@ -872,6 +918,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
               acc[e];
       }
     }
+    PROBE(2)  // the product and the DSMEM partials
     // dzx and the workspace's dz after the arrive: stores issued before it
     // would hold up its release
     cluster_arrive();
@@ -889,7 +936,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
       }
     }
     if (ls > 0) load_step(ls - 1);
+    PROBE(3)  // the arrive, the stores and the next step's loads
     cluster_wait();
+    PROBE(4)  // the cluster wait
 #pragma unroll
     for (int i = 0; i < kPairs; ++i) {
       if (!P.pok[i]) continue;
@@ -901,7 +950,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
       dc[i] = dc_prev[i];
     }
     rbuf ^= 1;
+    PROBE(5)  // the gather
   }
+  PROBE_END(16, 6, ch.L)
 
   // the carries' cotangents entering the chunk, and its dp sums
 #pragma unroll
@@ -926,15 +977,50 @@ struct Args {
   float *dR, *dp, *dh0, *dc0, *ws;
 };
 
-// Workspace regions, float offsets (ops/lstm.py `bwd_plan`): R as float32
+// Workspace regions, float offsets, each on 128 bytes: R as float32
 // [n][4n], and as the blocks' slices [kCluster][NPm][CPm]; dp sums
-// [3][b][n]; kSlots chunk slots of z [b][tw][4n], c and the h carry
-// [b][tw][n] (slot i = slot i % chunks with fewer chunks); dR's K ranges
-// [splits][n][4n]; the total.
+// [3][b][n]; kSlots chunk slots of z / dz [b][tw][4n], c and the h carry
+// [b][tw][n] (one chunk uses slot 0 only); dR's K ranges [splits][n][4n];
+// the total. Chunk j lives in slot j % kSlots.
 constexpr int kSlots = 2;
 enum Region {
   kRf, kRq, kDpw, kZ0, kC0, kH0, kZ1, kC1, kH1, kPart, kTotal, kRegions
 };
+
+struct Layout {
+  int64_t at[kRegions];
+  int splits;  // the K ranges of a chunk's dR product
+};
+
+// tw: steps per chunk (tc clamped to t). A chunk's dR has too few 64 x 64
+// tiles to fill the card, so its K = b tw (row, step) pairs splits into
+// ranges, enough for about 512 blocks, each at least 128 pairs, at most 8.
+Layout make_layout(int64_t b, int64_t t, int64_t n, int64_t tw) {
+  Layout L;
+  const int64_t tiles = ((n + 63) / 64) * ((4 * n + 63) / 64);
+  int64_t splits = (512 + tiles - 1) / tiles;
+  if (splits > 8) splits = 8;
+  if (splits > b * tw / 128) splits = b * tw / 128;
+  L.splits = static_cast<int>(splits > 1 ? splits : 1);
+  const Dims d = make_dims(b, t, n, tw);
+  const int64_t slot = b * tw * n;
+  const int64_t sizes[kTotal] = {
+      4 * n * n, int64_t{kCluster} * d.NPm * d.CPm, 3 * b * n,
+      4 * slot,  slot, slot, 4 * slot, slot, slot,
+      L.splits > 1 ? L.splits * 4 * n * n : 0};
+  const bool one = tw >= t;
+  int64_t at = 0;
+  for (int i = 0; i < kTotal; ++i) {
+    if (one && i >= kZ1 && i <= kH1) {
+      L.at[i] = L.at[i - 3];
+      continue;
+    }
+    L.at[i] = at;
+    at += (sizes[i] + 31) / 32 * 32;
+  }
+  L.at[kTotal] = at;
+  return L;
+}
 
 // The side streams and events of one device, made once.
 struct Streams {
@@ -981,7 +1067,6 @@ struct Launcher {
   int nt, tc, splits;
   bool res1, res2;
   cudaStream_t main;
-  Streams* st;
 
   Chunk chunk(int j) const {
     const int slot = 3 * (j % kSlots);
@@ -1106,14 +1191,9 @@ cudaError_t allow_all(int device, int optin, bool res1, bool res2) {
               : allow_smem<lstm_bwd_reverse<T, false>>(device, optin);
 }
 
-// The stages, in order: (chunk to recompute or -1, chunk to reverse or
-// -1). Chunk j's slot is j % kSlots. Reversing j waits for j's recompute;
-// recomputing j waits for the dR of the chunk its slot last held; dR of j
-// waits for its reverse; the caller's stream waits for the last dR.
 template <typename T>
-cudaError_t run(const Args& a, const Dims& d, const int64_t* lay,
-                const int32_t* stages, int nstages, int nt, int tc,
-                int splits, bool products, int device, cudaStream_t main) {
+cudaError_t run(const Args& a, const Dims& d, const Layout& lay, int nt,
+                int tc, bool products, int device, cudaStream_t main) {
   int optin = 0;
   cudaError_t err = static_cast<cudaError_t>(smem_optin(device, &optin));
   if (err != cudaSuccess) return err;
@@ -1121,75 +1201,54 @@ cudaError_t run(const Args& a, const Dims& d, const int64_t* lay,
   const bool res2 = reverse_smem(d, true) <= static_cast<size_t>(optin);
   err = allow_all<T>(device, optin, res1, res2);
   if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> guard(g_streams_lock);
-  Streams* st = nullptr;
-  err = streams_for(device, &st);
-  if (err != cudaSuccess) return err;
-  Launcher<T> L{a, d, lay, nt, tc, splits, res1, res2, main, st};
+  Launcher<T> L{a, d, lay.at, nt, tc, lay.splits, res1, res2, main};
   const bool h_exact = products && sizeof(T) == 2;
 
   const int64_t nr = 4 * static_cast<int64_t>(d.n) * d.n +
                      int64_t{kCluster} * d.NPm * d.CPm;
   lstm_bwd_prep<T><<<blocks_for(nr, 256), 256, 0, main>>>(
-      static_cast<const T*>(a.R), a.ws + lay[kRf], a.ws + lay[kRq], d);
+      static_cast<const T*>(a.R), a.ws + lay.at[kRf], a.ws + lay.at[kRq], d);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // the side streams start after the caller's earlier work and the prep
-  if ((err = cudaEventRecord(st->start, main)) != cudaSuccess) return err;
-  for (cudaStream_t s : st->side)
-    if ((err = cudaStreamWaitEvent(s, st->start, 0)) != cudaSuccess)
+  if (nt == 1) {
+    if ((err = L.recompute(0, products, main)) || (err = L.reverse(0)) ||
+        (err = L.dR(0, h_exact, main)))
       return err;
-  bool held[kSlots] = {false, false};
-  int last_slot = 0;
-  for (int i = 0; i < nstages; ++i) {
-    const int p1 = stages[2 * i], p2 = stages[2 * i + 1];
-    if (p2 >= 0) {
-      const int slot = p2 % kSlots;
+  } else {
+    // Reversing chunk j waits for its recompute, and its dR for the
+    // reverse; recomputing chunk j - 1 waits for the dR of chunk j + 1,
+    // which held its slot; the caller's stream waits for the last dR.
+    std::lock_guard<std::mutex> guard(g_streams_lock);
+    Streams* st = nullptr;
+    if ((err = streams_for(device, &st))) return err;
+    cudaStream_t rec = st->side[0], red = st->side[1];
+    // the side streams start after the caller's earlier work and the prep
+    if ((err = cudaEventRecord(st->start, main)) ||
+        (err = cudaStreamWaitEvent(rec, st->start, 0)) ||
+        (err = cudaStreamWaitEvent(red, st->start, 0)) ||
+        (err = L.recompute(nt - 1, products, rec)) ||
+        (err = cudaEventRecord(st->p1_done[(nt - 1) % kSlots], rec)))
+      return err;
+    for (int j = nt - 1; j >= 0; --j) {
+      const int slot = j % kSlots, prev = (j + kSlots - 1) % kSlots;
       if ((err = cudaStreamWaitEvent(main, st->p1_done[slot], 0)) ||
-          (err = L.reverse(p2)) ||
+          (err = L.reverse(j)) ||
           (err = cudaEventRecord(st->p2_done, main)) ||
-          (err = cudaStreamWaitEvent(st->side[1], st->p2_done, 0)) ||
-          (err = L.dR(p2, h_exact, st->side[1])) ||
-          (err = cudaEventRecord(st->slot_free[slot], st->side[1])))
+          (err = cudaStreamWaitEvent(red, st->p2_done, 0)) ||
+          (err = L.dR(j, h_exact, red)) ||
+          (err = cudaEventRecord(st->slot_free[slot], red)))
         return err;
-      held[slot] = true;
-      last_slot = slot;
-    }
-    if (p1 >= 0) {
-      const int slot = p1 % kSlots;
-      if (held[slot] &&
-          (err = cudaStreamWaitEvent(st->side[0], st->slot_free[slot], 0)))
-        return err;
-      if ((err = L.recompute(p1, products, st->side[0])) ||
-          (err = cudaEventRecord(st->p1_done[slot], st->side[0])))
+      if (j == 0) break;
+      if ((j + 1 < nt &&
+           (err = cudaStreamWaitEvent(rec, st->slot_free[prev], 0))) ||
+          (err = L.recompute(j - 1, products, rec)) ||
+          (err = cudaEventRecord(st->p1_done[prev], rec)))
         return err;
     }
+    if ((err = cudaStreamWaitEvent(main, st->slot_free[0], 0))) return err;
   }
-  // every recompute was waited for by its reverse; wait for the last dR
-  if ((err = cudaStreamWaitEvent(main, st->slot_free[last_slot], 0)))
-    return err;
-  lstm_bwd_dp<<<(3 * d.n + 255) / 256, 256, 0, main>>>(a.ws + lay[kDpw],
+  lstm_bwd_dp<<<(3 * d.n + 255) / 256, 256, 0, main>>>(a.ws + lay.at[kDpw],
                                                        a.dp, d.b, d.n);
   return cudaGetLastError();
-}
-
-// The stage list names every chunk once as recomputed and once as
-// reversed, the reverse after the recompute, and a recompute never before
-// the dR of the chunk that last held its slot.
-bool stages_ok(const int32_t* stages, int nstages, int nt) {
-  if (nstages <= 0 || nt <= 0 || nt > (1 << 24)) return false;
-  int next_rev = nt - 1, next_rec = nt - 1;
-  for (int i = 0; i < nstages; ++i) {
-    const int p1 = stages[2 * i], p2 = stages[2 * i + 1];
-    if (p2 >= 0) {
-      if (p2 != next_rev || p2 <= next_rec) return false;
-      --next_rev;
-    }
-    if (p1 >= 0) {
-      if (p1 != next_rec || p1 < next_rev - 1) return false;
-      --next_rec;
-    }
-  }
-  return next_rev == -1 && next_rec == -1;
 }
 
 }  // namespace
@@ -1209,55 +1268,47 @@ int lstm_scan_bwd_resident(int64_t n, int device) {
          reverse_smem(d, true) <= static_cast<size_t>(optin);
 }
 
+// The floats of the workspace a launch at (b, t, n, tc) takes: two chunk
+// slots of tc steps whatever t is (one when tc >= t); 0 for sizes the
+// launch refuses.
+int64_t lstm_scan_bwd_workspace_floats(int64_t b, int64_t t, int64_t n,
+                                       int64_t tc) {
+  if (b <= 0 || t <= 0 || n <= 0 || n > kMaxN || tc <= 0) return 0;
+  return make_layout(b, t, n, tc < t ? tc : t).at[kTotal];
+}
+
 // Row 6 (h0, c0, hs given; hck, cck null; tc = t) or row 8 (hck, cck
 // given; tc the checkpoint interval): zx [b, t, 4n], R [n, 4n], p [3, n]
 // or null, h0, c0 [b, n], hs, g_hs [b, t, n], g_hT, g_cT [b, n] and dzx
 // [b, t, 4n] of `dtype` (0 = float32, 1 = bfloat16); mask float32 [b, t]
 // or null; hck, cck float32 [ceil(t / tc), b, n]; dR [n, 4n], dp [3, n],
-// dh0, dc0 [b, n] and the workspace ws float32; all dense. layout: the
-// workspace's kRegions offsets (floats; the last is its size); stages:
-// nstages pairs (chunk to recompute, chunk to reverse), -1 for none;
-// splits: the K ranges of each chunk's dR product; products: phase 1 as
-// one product and a scan (row 6 without a mask).
-// device: the CUDA device that holds them and owns `stream`. Returns the
-// CUDA error code of the launches (0 = launched).
+// dh0, dc0 [b, n] and the workspace ws float32
+// [lstm_scan_bwd_workspace_floats(b, t, n, tc)]; all dense. Row 6 without
+// a mask forms phase 1 as one product and a scan. device: the CUDA device
+// that holds them and owns `stream`. Returns the CUDA error code of the
+// launches (0 = launched).
 int lstm_scan_bwd_launch(const void* zx, const void* R, const void* p,
                          const void* mask, const void* h0, const void* c0,
                          const void* hs, const void* hck, const void* cck,
                          const void* g_hs, const void* g_hT,
                          const void* g_cT, void* dzx, void* dR, void* dp,
-                         void* dh0, void* dc0, void* ws,
-                         const int64_t* layout, const int32_t* stages,
-                         int nstages, int splits, int products, int64_t b,
-                         int64_t t,
-                         int64_t n, int64_t tc, int dtype, int device,
-                         void* stream) {
+                         void* dh0, void* dc0, void* ws, int64_t b,
+                         int64_t t, int64_t n, int64_t tc, int dtype,
+                         int device, void* stream) {
   if (b <= 0 || t <= 0) return 0;
   const bool chunked = hck != nullptr;
   if (n <= 0 || n > kMaxN || t > 0x7fffffff || tc <= 0 || tc > t ||
       b * t > 0x7fffffff || (b + kRows - 1) / kRows > 65535 ||
-      (chunked && (cck == nullptr || products)) ||
-      (!chunked && (h0 == nullptr || c0 == nullptr || tc != t)) ||
-      (products && (hs == nullptr || mask != nullptr)))
+      (chunked && cck == nullptr) ||
+      (!chunked && (h0 == nullptr || c0 == nullptr || hs == nullptr ||
+                    tc != t)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool products = !chunked && mask == nullptr;
   const int nt = static_cast<int>((t + tc - 1) / tc);
-  const int64_t tw = tc;
-  if (splits < 1 || splits > 64) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t slot = b * tw * n;  // kRq's size is checked below
-  const int64_t sizes[kTotal] = {
-      4 * n * n, 0,        3 * b * n, 4 * slot, slot, slot, 4 * slot, slot,
-      slot,      splits > 1 ? splits * 4 * n * n : 0};
-  for (int i = 0; i < kTotal; ++i)
-    if (layout[i] < 0 || layout[i] % 4 != 0 ||
-        layout[i] + sizes[i] > layout[kTotal])
-      return static_cast<int>(cudaErrorInvalidValue);
-  if (!stages_ok(stages, nstages, nt))
-    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const Dims d = make_dims(b, t, n, tw);
-  if (layout[kRq] + int64_t{kCluster} * d.NPm * d.CPm > layout[kTotal])
-    return static_cast<int>(cudaErrorInvalidValue);
+  const Dims d = make_dims(b, t, n, tc);
+  const Layout lay = make_layout(b, t, n, tc);
   Args a;
   a.zx = zx;
   a.R = R;
@@ -1280,17 +1331,27 @@ int lstm_scan_bwd_launch(const void* zx, const void* R, const void* p,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int c = static_cast<int>(tc);
   if (dtype == 0)
-    return static_cast<int>(run<float>(a, d, layout, stages, nstages, nt, c,
-                                       splits, products != 0, device, s));
+    return static_cast<int>(
+        run<float>(a, d, lay, nt, c, products, device, s));
   if (dtype == 1)
-    return static_cast<int>(run<__nv_bfloat16>(a, d, layout, stages, nstages,
-                                               nt, c, splits, products != 0,
-                                               device, s));
+    return static_cast<int>(
+        run<__nv_bfloat16>(a, d, lay, nt, c, products, device, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* lstm_scan_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#ifdef LSTM_BWD_PROBES
+int lstm_scan_bwd_probe_reset() {
+  const unsigned long long zero[32] = {0};
+  return static_cast<int>(cudaMemcpyToSymbol(g_probe, zero, sizeof(zero)));
+}
+int lstm_scan_bwd_probe_read(unsigned long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_probe, 32 * sizeof(unsigned long long)));
+}
+#endif
 
 }  // extern "C"

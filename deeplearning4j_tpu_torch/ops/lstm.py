@@ -43,7 +43,7 @@ exchanged through distributed shared memory. The backward runs its
 products on the tensor cores (3xTF32 for float32) and keeps off the chain
 what is not serial: dR is one product per chunk over the whole card, row 6
 without a mask forms z for all steps as one product, and row 8 recomputes
-chunk j - 1 while it reverses chunk j (`bwd_plan` gives the order). At the
+chunk j - 1 while it reverses chunk j. At the
 trained shape (b=64, t=64, n=256, float32) row 5 is bound by 2.15 GFLOP of
 recurrent products over 67 TFLOP/s (0.032 ms per launch on an H100 SXM) and
 row 6 by 6.44 GFLOP as 3xTF32 over 495 TFLOP/s (0.039 ms); neither bound
@@ -59,9 +59,8 @@ tensors it computes the plain version the kernel is held against
 from __future__ import annotations
 
 import ctypes
-import functools
 import threading
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -72,15 +71,10 @@ MAX_N = 1024  # the kernels' cap on n (csrc/lstm_scan*.cu kMaxN)
 # checkpoints the float32 carry entering every CHUNK-th step, the backward
 # recomputes one chunk at a time from it. 64 is what the JAX package's
 # `pick_lstm_chunk` gives at its measured long point (b=8, n=256, float32);
-# on the card it sizes the backward's workspace (SLOTS chunk slots of 24 * b
-# * CHUNK * n bytes each), not a fast-memory budget. Any t is taken: the
-# last chunk may be shorter.
+# on the card it sizes the backward's workspace (two chunk slots of 24 * b
+# * CHUNK * n bytes each: csrc/lstm_scan_bwd.cu), not a fast-memory budget.
+# Any t is taken: the last chunk may be shorter.
 CHUNK = 64
-# Chunk slots of the backward's workspace, chunk j in slot j % SLOTS: the
-# recompute of chunk j - 1 fills one while chunk j is reversed from the
-# other (csrc/lstm_scan_bwd.cu kSlots)
-SLOTS = 2
-_ALIGN = 32  # floats: every region of the backward's workspace starts on 128 B
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _count_lock = threading.Lock()
@@ -275,78 +269,6 @@ def lstm_scan_chunked_backward_reference(zx, R, hck, cck, g_hs, g_hT, g_cT,
     return _backward_reference(zx, R, p, mask, g_hs, g_hT, g_cT, spans)
 
 
-# ---------------------------------------------------------- backward plan
-class BwdPlan(NamedTuple):
-    """How one launch of the backward kernels (rows 6, 8) is laid out.
-
-    tc: steps per chunk (t for row 6). layout: the float offsets of the
-    workspace's regions, in csrc/lstm_scan_bwd.cu's order (R as float32
-    [n, 4n], and as the 8 blocks' slices of a cluster, [8, NPm, CPm] with
-    NPm = n and CPm = 4 ceil(n / 8) rounded up to 16; the dp sums [3, b,
-    n]; each of the SLOTS chunk slots' z / dz [b, tc, 4n], c and h carry
-    [b, tc, n], slot i the same as slot i % nt when there are fewer chunks;
-    dR's K ranges [splits, n, 4n], empty for one), then the workspace's
-    size. stages: (chunk to recompute, chunk to reverse) pairs, -1 for
-    none, in the order they are issued; chunk j lives in slot j % SLOTS.
-    splits: the ranges a chunk's dR product splits its K = b tc (row,
-    step) pairs into, so that its 64 x 64 tiles of dR fill the card (about
-    512 blocks), each range at least 128 pairs. products: phase 1 runs as
-    one product and a scan instead of a serial recompute (row 6 without a
-    mask, where the h carry is hs)."""
-    tc: int
-    layout: Tuple[int, ...]
-    stages: Tuple[Tuple[int, int], ...]
-    splits: int
-    products: bool
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _aligned(floats: int) -> int:
-    return _round_up(floats, _ALIGN)
-
-
-def bwd_plan(b: int, t: int, n: int, chunked: bool, masked: bool,
-             tc: int = CHUNK) -> BwdPlan:
-    """The plan of one backward launch at (b, t, n), t > 0: row 8
-    (chunked) walks chunks of tc steps (the checkpoints' interval), row 6
-    one chunk of t. Stage i reverses chunk nt - i while the recompute of
-    chunk nt - i - 1 runs beside it, so the workspace holds SLOTS chunk
-    slots whatever t is."""
-    tc = min(tc, t) if chunked else t
-    nt = -(-t // tc)
-    tiles = -(-n // 64) * -(-4 * n // 64)
-    splits = max(1, min(8, -(-512 // tiles), b * tc // 128))
-    slices = 8 * _round_up(n, 16) * _round_up(4 * -(-n // 8), 16)
-    slot = [b * tc * 4 * n, b * tc * n, b * tc * n]
-    sizes = [4 * n * n, slices, 3 * b * n] + slot * min(SLOTS, nt)
-    layout, at = [], 0
-    for size in sizes:
-        layout.append(at)
-        at += _aligned(size)
-    for i in range(min(SLOTS, nt), SLOTS):
-        layout += layout[3 + 3 * (i % nt):6 + 3 * (i % nt)]
-    layout.append(at)
-    at += _aligned(splits * 4 * n * n) if splits > 1 else 0
-    stages = ([(nt - 1, -1)] + [(j - 1, j) for j in range(nt - 1, 0, -1)]
-              + [(-1, 0)])
-    return BwdPlan(tc, tuple(layout) + (at,), tuple(stages), splits,
-                   not chunked and not masked)
-
-
-@functools.lru_cache(maxsize=64)
-def _plan_args(b, t, n, chunked, masked):
-    """bwd_plan with its layout and stages as the C arrays the launch
-    takes."""
-    plan = bwd_plan(b, t, n, chunked, masked)
-    layout = (ctypes.c_int64 * len(plan.layout))(*plan.layout)
-    flat = [c for stage in plan.stages for c in stage]
-    stages = (ctypes.c_int32 * len(flat))(*flat)
-    return plan, layout, stages
-
-
 # ------------------------------------------------------------------ kernels
 def _load(name: str, setup):
     lib = _libs.get(name)
@@ -375,10 +297,11 @@ def _setup_fwd(lib):
 
 def _setup_bwd(lib):
     sizes = [ctypes.c_int64] * 4
-    lib.lstm_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 20 + [
-        ctypes.c_int] * 3 + sizes + [
+    lib.lstm_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 18 + sizes + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.lstm_scan_bwd_launch.restype = ctypes.c_int
+    lib.lstm_scan_bwd_workspace_floats.argtypes = sizes
+    lib.lstm_scan_bwd_workspace_floats.restype = ctypes.c_int64
     lib.lstm_scan_bwd_resident.argtypes = [ctypes.c_int64, ctypes.c_int]
     lib.lstm_scan_bwd_resident.restype = ctypes.c_int
     lib.lstm_scan_bwd_error_string.argtypes = [ctypes.c_int]
@@ -521,9 +444,10 @@ def _launch_fwd(zx, R, p, h0, c0, mask, checkpoints: bool):
 
 def _launch_bwd(zx, R, p, mask, h0, c0, hs, hck, cck, g_hs, g_hT, g_cT):
     """Rows 6 (hs given) and 8 (checkpoints given): one call, which issues
-    the kernels of `bwd_plan` on the current stream and two side streams
-    that it joins back to the current stream before it returns (so the
-    caching allocator sees every tensor used on the current stream)."""
+    its kernels on the current stream and, with more than one chunk, on two
+    side streams that it joins back to the current stream before it
+    returns (so the caching allocator sees every tensor used on the
+    current stream)."""
     b, t, n4 = zx.shape
     n = n4 // 4
     _cap(n)
@@ -541,18 +465,17 @@ def _launch_bwd(zx, R, p, mask, h0, c0, hs, hck, cck, g_hs, g_hT, g_cT):
     dR = torch.empty((n, n4), dtype=torch.float32, device=dev)
     dp = torch.empty((3, n), dtype=torch.float32, device=dev)
     chunked = hck is not None
-    plan, layout, stages = _plan_args(b, t, n, chunked, mask is not None)
-    ws = torch.empty(plan.layout[-1], dtype=torch.float32, device=dev)
+    tc = min(CHUNK, t) if chunked else t
+    ws = torch.empty(lib.lstm_scan_bwd_workspace_floats(b, t, n, tc),
+                     dtype=torch.float32, device=dev)
     m = _mask_arg(mask)
     err = lib.lstm_scan_bwd_launch(
         zx.data_ptr(), R.data_ptr(), _ptr(p), _ptr(m), _ptr(h0), _ptr(c0),
         _ptr(hs), _ptr(hck), _ptr(cck), g_hs.data_ptr(), g_hT.data_ptr(),
         g_cT.data_ptr(), dzx.data_ptr(), dR.data_ptr(), dp.data_ptr(),
-        dh0.data_ptr(), dc0.data_ptr(), ws.data_ptr(),
-        ctypes.addressof(layout), ctypes.addressof(stages), len(plan.stages),
-        plan.splits, int(plan.products), b, t, n, plan.tc,
-        _DTYPE_CODES[zx.dtype],
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        dh0.data_ptr(), dc0.data_ptr(), ws.data_ptr(), b, t, n, tc,
+        _DTYPE_CODES[zx.dtype], dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"lstm_scan backward kernel launch failed: "

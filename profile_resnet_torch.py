@@ -5,15 +5,13 @@ port (deeplearning4j_tpu_torch): zoo ResNet-50, the zoo TransformerLM with
 or of one training step of the zoo TransformerLM with `--model train-lm`,
 or of the zoo TextGenerationLSTM with `--model train-rnn`; or, with
 `--model lstm-routes`, what the two LSTM kernel families cost; or, with
-`--model lstm-bwd-split [--two-phase SOURCE]`, where a step of the LSTM
-backward kernels goes.
+`--model lstm-bwd-split`, where a step of the LSTM backward kernels goes.
 
     python3 profile_resnet_torch.py [--model resnet50|transformer|lstm|
                                      train-lm|train-rnn|lstm-routes|
                                      lstm-bwd-split]
                                     [--batch N] [--length T] [--iters 20]
                                     [--mixed] [--out profile_out]
-                                    [--two-phase SOURCE]
 
 Builds the port's model on the card with random weights from a seed
 (ResNet-50: 1000 classes, 224x224x3, batch 32 by default; TransformerLM:
@@ -153,180 +151,31 @@ def lstm_routes(torch, card, b, t, n=256) -> int:
 
 
 # ------------------------------------------------- --model lstm-bwd-split
-# Where a step of the LSTM backward kernels goes: an instrumented copy of
-# an LSTM backward source (thread 0 of block 0 of the first cluster reads
-# clock64 at each phase boundary of every step and adds the cycles up),
-# run at the training paths' shapes; per phase, µs per step, the cycles
-# scaled by the loop's own clock (its %globaltimer time over its cycles)
-# or, for the two-phase kernel (one launch per call), so that they add up
-# to the launch's measured time. --two-phase SOURCE takes the earlier
-# single-kernel design (phase 1 recompute, phase 2 reverse and dR in one
-# cluster launch: deeplearning4j_tpu_torch/csrc/lstm_scan_bwd.cu at commit
-# 22c44d5), driven through its own C entry point.
-CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                    "deeplearning4j_tpu_torch", "csrc")
+# Where a step of the LSTM backward kernels goes: csrc/lstm_scan_bwd.cu
+# built with its probes on (-DLSTM_BWD_PROBES: thread 0 of the first
+# cluster's block 0 reads clock64 at each phase boundary of every step of
+# the serial kernels and adds the cycles up), run at the training paths'
+# shapes; per phase, µs per step, the cycles scaled by the loop's own clock
+# (its %globaltimer time over its cycles).
 SPLIT_SHAPES = [((64, 64, 256), False), ((32, 50, 256), False),
-          ((8, 1024, 256), True), ((8, 4096, 256), True)]
-
-COUNTERS = (
-    "__device__ unsigned long long g_prof[32];\n"
-    "#define PT(i) if (PR0) { long long _t = clock64(); "
-    "pacc[i] += _t - ta; ta = _t; }\n")
-START = ("const bool PR0 = blockIdx.y == 0 && {rank} == 0 && "
-         "threadIdx.x == 0;\n  unsigned long long pacc[8] = {{0}}, ns0; "
-         "long long ta = clock64();\n  asm volatile(\"mov.u64 %0, "
-         "%%globaltimer;\" : \"=l\"(ns0));\n")
-READ = ('extern "C" {\nint probe_reset() { unsigned long long z[32] = {0}; '
-        'return cudaMemcpyToSymbol(g_prof, z, sizeof(z)); }\n'
-        'int probe_read(unsigned long long* out) { '
-        'return cudaMemcpyFromSymbol(out, g_prof, 32 * 8); }\n')
+                ((8, 1024, 256), True), ((8, 4096, 256), True)]
+PHASES = (  # (kernel, first g_probe slot, its phases in PROBE order)
+    ("recompute", 0, ("product", "sync", "cell + DSMEM broadcast",
+                      "arrive, stores, next loads", "cluster wait")),
+    ("reverse", 16, ("cell (dz)", "sync", "product + DSMEM partials",
+                     "arrive, stores, next loads", "cluster wait",
+                     "gather")))
 
 
-def _flush(first, count, steps):
-    """Adds the phases' cycles to g_prof[first ...], the loop's ns (by
-    %globaltimer) to g_prof[first + 6] and its steps to g_prof[first + 7]."""
-    return (f"  if (PR0) {{ unsigned long long ns1; asm volatile(\"mov.u64 "
-            f"%0, %%globaltimer;\" : \"=l\"(ns1)); for (int i = 0; i < "
-            f"{count}; ++i) g_prof[{first} + i] += pacc[i]; g_prof[{first} + "
-            f"6] += ns1 - ns0; g_prof[{first} + 7] += {steps}; }}\n")
-
-
-# The current design's phases per kernel, and where PT(i) closes phase i:
-# after an anchor ("edits") or before one ("before"); each anchor occurs once
-CURRENT = {
-    "recompute": ["product", "sync", "cell + DSMEM broadcast",
-                  "arrive, stores, next loads", "cluster wait"],
-    "reverse": ["cell (dz)", "sync", "product + DSMEM partials",
-                "arrive, stores, next loads", "cluster wait", "gather"],
-    "edits": [
-        ("  load_step(ch.s0);\n", START.format(rank="q")),
-        ("      zs[(2 * t4 + 1) * ZP + m0 + g8 + 8] = acc[3];\n    }\n",
-         "    PT(0)\n"),
-        ("      zs[(2 * t4 + 1) * ZP + m0 + g8 + 8] = acc[3];\n    }\n"
-         "    PT(0)\n    __syncthreads();\n", "    PT(1)\n"),
-        ("    hnext = tmp;\n  }\n", _flush(0, 5, "ch.L")),
-        ("  load_step(ch.L - 1);\n", START.format(rank="q")),
-        ("      dh_pass[i] = lv[i] ? 0.0f : dh[i];\n    }\n", "    PT(0)\n"),
-        ("      dh_pass[i] = lv[i] ? 0.0f : dh[i];\n    }\n    PT(0)\n"
-         "    __syncthreads();\n", "    PT(1)\n"),
-        ("    rbuf ^= 1;\n", "    PT(5)\n"),
-        ("    rbuf ^= 1;\n    PT(5)\n  }\n", _flush(16, 6, "ch.L")),
-    ],
-    "before": [
-        ("    cluster_arrive();\n#pragma unroll\n    for (int i = 0; "
-         "i < kPairs; ++i) {\n      if (!P.pok[i]) continue;\n      const "
-         "int64_t rs = static_cast<int64_t>(P.prow[i]) * d.tw + ls;\n      "
-         "float* zrow",
-         "    PT(2)\n"),
-        ("    cluster_wait();\n    float* tmp = hcur;", "    PT(3)\n"),
-        ("    float* tmp = hcur;", "    PT(4)\n"),
-        ("    // dzx and the workspace's dz after the arrive", "    PT(2)\n"),
-        ("    cluster_wait();\n#pragma unroll\n    for (int i = 0; i < kPairs;"
-         " ++i) {\n      if (!P.pok[i]) continue;\n      float v = 0.0f;",
-         "    PT(3)\n"),
-        ("#pragma unroll\n    for (int i = 0; i < kPairs; ++i) {\n      if "
-         "(!P.pok[i]) continue;\n      float v = 0.0f;", "    PT(4)\n"),
-    ],
-}
-TWO_PHASE = {
-    "phases": ["phase 1 product (with the zx loads)", "phase 1 cell + DSMEM",
-               "phase 1 cluster barrier", "phase 2 dz", "phase 2 product",
-               "phase 2 reduce-scatter", "phase 2 cluster barrier",
-               "phase 2 gather", "dR", "chunk-end barrier", "tail", "total"],
-}
-
-
-def _insert(src: str, anchor: str, text: str, before: bool) -> str:
-    if src.count(anchor) != 1:
-        raise SystemExit(f"profile_resnet_torch: the source is not the "
-                         f"design this script instruments ({src.count(anchor)}"
-                         f" matches of {anchor[:60]!r})")
-    at = src.index(anchor) + (0 if before else len(anchor))
-    return src[:at] + text + src[at:]
-
-
-def instrument_current(src: str) -> str:
-    src = _insert(src, "namespace cg = cooperative_groups;\n", COUNTERS,
-                  False)
-    for anchor, text in CURRENT["before"]:
-        src = _insert(src, anchor, text, True)
-    for anchor, text in CURRENT["edits"]:
-        src = _insert(src, anchor, text, False)
-    return _insert(src, 'extern "C" {\n', READ[len('extern "C" {\n'):],
-                   False)
-
-
-def instrument_two_phase(src: str) -> str:
-    """Clock64 at the two-phase kernel's phase boundaries, into a `prof`
-    argument appended to its C entry point."""
-    edits = [
-        ("float* ws, Dims d) {\n  cg::cluster_group cluster = "
-         "cg::this_cluster();",
-         "float* ws, Dims d, unsigned long long* prof) {\n  cg::cluster_group"
-         " cluster = cg::this_cluster();\n  const bool PR0 = prof != nullptr &&"
-         " blockIdx.y == 0 && threadIdx.x == 0 && cluster.block_rank() == 0;"
-         "\n  unsigned long long pacc[12] = {0}; long long T0 = clock64(), "
-         "ta = T0, tb;\n#define SEG(i) tb = clock64(); pacc[i] += tb - ta; "
-         "ta = tb;"),
-        ("    for (int s = s0; s < s1; ++s) {\n      const int ls = s - s0;\n",
-         "    for (int s = s0; s < s1; ++s) {\n      const int ls = s - s0;\n"
-         "      ta = clock64();\n"),
-        ("      __syncthreads();\n\n      // the cell, one thread per",
-         "      __syncthreads();\n      SEG(0)\n\n      // the cell, one "
-         "thread per"),
-        ("      // h_s is in every block's next buffer; part and hcur are free "
-         "again\n      cluster.sync();",
-         "      SEG(1)\n      cluster.sync();\n      SEG(2)"),
-        ("    for (int s = s1 - 1; s >= s0; --s) {\n      const int ls = s - "
-         "s0;\n", "    for (int s = s1 - 1; s >= s0; --s) {\n      const int "
-         "ls = s - s0;\n      ta = clock64();\n"),
-        ("      __syncthreads();\n\n      // part[cs][r][k]",
-         "      __syncthreads();\n      SEG(3)\n\n      // part[cs][r][k]"),
-        ("      __syncthreads();\n\n      // reduce-scatter",
-         "      __syncthreads();\n      SEG(4)\n\n      // reduce-scatter"),
-        ("      cluster.sync();\n#pragma unroll\n      for (int i = 0; i < "
-         "kPairs; ++i) {\n        if (!pok[i]) continue;\n        float v = "
-         "0.0f;", "      SEG(5)\n      cluster.sync();\n      SEG(6)\n"
-         "#pragma unroll\n      for (int i = 0; i < kPairs; ++i) {\n        "
-         "if (!pok[i]) continue;\n        float v = 0.0f;"),
-        ("      rbuf ^= 1;\n    }\n",
-         "      rbuf ^= 1;\n      SEG(7)\n    }\n    ta = clock64();\n"),
-        ("    // the next chunk's phase 1 overwrites the h carries every block "
-         "reads\n    cluster.sync();\n  }\n",
-         "    SEG(8)\n    cluster.sync();\n    SEG(9)\n  }\n  ta = "
-         "clock64();\n"),
-        ("    dpp[g * n + u0 + jj] = v;\n  }\n}\n",
-         "    dpp[g * n + u0 + jj] = v;\n  }\n  SEG(10)\n  if (PR0) { "
-         "pacc[11] = clock64() - T0; for (int i = 0; i < 12; ++i) prof[i] = "
-         "pacc[i]; }\n}\n"),
-        ("a.ws, d);\n  err = cudaGetLastError();",
-         "a.ws, d, a.prof);\n  err = cudaGetLastError();"),
-        ("  float *dR, *dp, *dh0, *dc0, *ws;\n};",
-         "  float *dR, *dp, *dh0, *dc0, *ws;\n  unsigned long long* prof;\n};"),
-        ("int dtype, int device, void* stream) {\n  if (b <= 0 || t <= 0) "
-         "return 0;", "int dtype, int device, void* stream, void* prof) {\n"
-         "  if (b <= 0 || t <= 0) return 0;"),
-        ("  a.ws = static_cast<float*>(ws);\n",
-         "  a.ws = static_cast<float*>(ws);\n  a.prof = static_cast<unsigned "
-         "long long*>(prof);\n"),
-    ]
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise SystemExit(f"profile_resnet_torch: not the two-phase "
-                             f"design ({old[:60]!r})")
-        src = src.replace(old, new)
-    return src
-
-
-def build(src: str, out: str, name: str) -> ctypes.CDLL:
-    os.makedirs(out, exist_ok=True)
-    cu, so = os.path.join(out, f"{name}.cu"), os.path.join(out, f"lib{name}.so")
-    with open(cu, "w") as f:
-        f.write(src)
+def build_probed(out: str) -> ctypes.CDLL:
     from deeplearning4j_tpu_torch.ops import _build
 
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", CSRC,
-                    "-o", so, cu], check=True, capture_output=True)
+    os.makedirs(out, exist_ok=True)
+    so = os.path.join(out, "liblstm_scan_bwd_probed.so")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                    "-DLSTM_BWD_PROBES", "-o", so,
+                    os.path.join(_build.CSRC, "lstm_scan_bwd.cu")],
+                   check=True, capture_output=True)
     return ctypes.CDLL(so)
 
 
@@ -351,12 +200,14 @@ def launch_ms(torch, fn, reps):
     return s.elapsed_time(e) / reps
 
 
-def run_current(torch, lib):
+def lstm_bwd_split(torch, card, args) -> int:
     from deeplearning4j_tpu_torch.ops import lstm as L
 
+    print(card)
+    lib = build_probed(os.path.join(args.out, "lstm_bwd_split"))
     L._setup_bwd(lib)
     L._libs["lstm_scan_bwd"] = lib
-    lib.probe_read.argtypes = [ctypes.c_void_p]
+    lib.lstm_scan_bwd_probe_read.argtypes = [ctypes.c_void_p]
     for (b, t, n), chunked in SPLIT_SHAPES:
         zx, R, p, h0, c0, gs = split_inputs(torch, b, t, n)
         hs, _, _, hck, cck = L.lstm_scan_chunked_forward(zx, R, h0, c0, p)
@@ -364,86 +215,25 @@ def run_current(torch, lib):
               if chunked else
               (lambda: L.lstm_scan_bwd(zx, R, h0, c0, hs, *gs, p)))
         ms = launch_ms(torch, fn, 3 if t > 1000 else 20)
-        lib.probe_reset()
+        lib.lstm_scan_bwd_probe_reset()
         fn()
         torch.cuda.synchronize()
         v = (ctypes.c_uint64 * 32)()
-        lib.probe_read(ctypes.addressof(v))
+        lib.lstm_scan_bwd_probe_read(ctypes.addressof(v))
         print(f"row {8 if chunked else 6} (b, t, n) = ({b}, {t}, {n}) "
               f"float32: {ms:.4f} ms per launch ({ms * 1e3 / t:.3f} us/step)"
               f"; per step, us (cycles at the loop's own clock, by "
               f"%globaltimer):")
-        for kernel, first in (("recompute", 0), ("reverse", 16)):
+        for kernel, first, names in PHASES:
             steps = v[first + 7]
             if not steps:
                 continue
-            names = CURRENT[kernel]
             cycles = sum(v[first:first + len(names)])
             us = v[first + 6] / 1e3 / cycles  # per cycle
             parts = [v[first + i] * us / steps for i in range(len(names))]
             print(f"  {kernel:9s} " + ", ".join(
                 f"{nm} {x:.3f}" for nm, x in zip(names, parts)) +
                 f"; total {sum(parts):.3f} ({1 / us:.0f} MHz)")
-
-
-def run_two_phase(torch, lib):
-    from deeplearning4j_tpu_torch.ops import lstm as L
-
-    lib.lstm_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 18 + [
-        ctypes.c_int64] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                               ctypes.c_void_p]
-    lib.lstm_scan_bwd_workspace_floats.argtypes = [ctypes.c_int64] * 4
-    lib.lstm_scan_bwd_workspace_floats.restype = ctypes.c_int64
-    for (b, t, n), chunked in SPLIT_SHAPES:
-        zx, R, p, h0, c0, gs = split_inputs(torch, b, t, n)
-        hs, _, _, hck, cck = L.lstm_scan_chunked_forward(zx, R, h0, c0, p)
-        tc = L.CHUNK if chunked else t
-        ws = torch.empty(lib.lstm_scan_bwd_workspace_floats(b, t, n, tc),
-                         device="cuda")
-        outs = [torch.empty_like(zx), torch.zeros(n, 4 * n, device="cuda"),
-                torch.zeros(3, n, device="cuda"),
-                torch.empty(b, n, device="cuda"),
-                torch.empty(b, n, device="cuda")]
-        prof = torch.zeros(12, dtype=torch.int64, device="cuda")
-        ptr = lambda x: None if x is None else x.data_ptr()
-
-        def call(pr):
-            err = lib.lstm_scan_bwd_launch(
-                zx.data_ptr(), R.data_ptr(), p.data_ptr(), None,
-                None if chunked else h0.data_ptr(),
-                None if chunked else c0.data_ptr(),
-                None if chunked else hs.data_ptr(),
-                ptr(hck) if chunked else None, ptr(cck) if chunked else None,
-                *[x.data_ptr() for x in gs], *[x.data_ptr() for x in outs],
-                ws.data_ptr(), b, t, n, tc, 0, torch.cuda.current_device(),
-                torch.cuda.current_stream().cuda_stream, pr)
-            if err:
-                raise RuntimeError(f"launch failed: {err}")
-
-        ms = launch_ms(torch, lambda: call(None), 3 if t > 1000 else 20)
-        call(prof.data_ptr())
-        torch.cuda.synchronize()
-        c = prof.cpu().tolist()
-        print(f"row {8 if chunked else 6} (b, t, n) = ({b}, {t}, {n}) "
-              f"float32, two-phase kernel: {ms:.4f} ms per launch "
-              f"({ms * 1e3 / t:.3f} us/step); per step, us (cycles scaled "
-              f"to the launch's time):")
-        for name, x in zip(TWO_PHASE["phases"], c):
-            print(f"  {name:38s} {x * ms * 1e3 / c[11] / t:8.3f}  "
-                  f"({100.0 * x / c[11]:5.2f}%)")
-
-
-def lstm_bwd_split(torch, card, args) -> int:
-    print(card)
-    out = os.path.join(args.out, "lstm_bwd_split")
-    if args.two_phase:
-        with open(args.two_phase) as f:
-            src = instrument_two_phase(f.read())
-        run_two_phase(torch, build(src, out, "two_phase"))
-    else:
-        with open(os.path.join(CSRC, "lstm_scan_bwd.cu")) as f:
-            src = instrument_current(f.read())
-        run_current(torch, build(src, out, "current"))
     return 0
 
 
@@ -465,11 +255,8 @@ def main() -> int:
     ap.add_argument("--mixed", action="store_true",
                     help="bf16 activations (dtypes.set_mixed_precision)")
     ap.add_argument("--out", default="profile_out",
-                    help="directory for the per-kernel table (and the "
-                         "instrumented copy of lstm-bwd-split)")
-    ap.add_argument("--two-phase", metavar="SOURCE",
-                    help="lstm-bwd-split: instrument this earlier "
-                         "single-kernel LSTM backward source instead")
+                    help="directory for the per-kernel table (and "
+                         "lstm-bwd-split's probed build)")
     args = ap.parse_args()
 
     import numpy as np

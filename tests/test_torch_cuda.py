@@ -52,6 +52,7 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_reference,
     flash_attention_reference,
 )
+from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
 from deeplearning4j_tpu_torch.ops.lstm import (
     CHUNK,
     MAX_N,
@@ -721,7 +722,9 @@ def test_lstm_backward_kernels_are_deterministic(cuda, b, t, n, masked,
                                                  dtype):
     """Rows 6 and 8 give the same bits over two calls on the same inputs:
     every sum has a fixed order, across the side streams and dR's K
-    ranges too, and no atomics."""
+    ranges too, and no atomics. Copies made on the current stream right
+    after a call, with no synchronize, hold the same bits: the call joins
+    its side streams back to the current stream before it returns."""
     zx, R, p, h0, c0, mask = _lstm_inputs(cuda, b, t, n, dtype, True,
                                           masked, seed=t + n)
     g = torch.Generator(device=cuda).manual_seed(t)
@@ -732,11 +735,30 @@ def test_lstm_backward_kernels_are_deterministic(cuda, b, t, n, masked,
                 lambda: lstm_scan_chunked_bwd(zx, R, fwd[3], fwd[4], *gs, p,
                                               mask)):
         first = run()
+        read = [x.clone() for x in first]
         torch.cuda.synchronize()
         again = run()
         torch.cuda.synchronize()
-        for a, r in zip(again, first):
+        for a, r, c in zip(again, first, read):
             assert torch.equal(a, r)
+            assert torch.equal(c, r)
+
+
+@pytest.mark.cuda
+def test_lstm_backward_workspace_does_not_grow_with_t(cuda):
+    """Row 8's workspace holds two chunk slots however long the sequence;
+    row 6's holds its whole t (one chunk)."""
+    lib = lstm_ops._bwd_lib()
+    b, n = 8, 256
+    row8 = {lib.lstm_scan_bwd_workspace_floats(b, t, n, CHUNK)
+            for t in (3 * CHUNK, 1000, 4096, 65536)}
+    # R as float32 twice (the blocks' slices are unpadded at n = 256), the
+    # dp sums, two slots of z, c and the h carry, four K ranges of dR
+    slot = b * CHUNK * 6 * n
+    assert row8 == {2 * 4 * n * n + 3 * b * n + 2 * slot + 4 * 4 * n * n}
+    assert lib.lstm_scan_bwd_workspace_floats(64, 64, n, 64) == \
+        2 * 4 * n * n + 3 * 64 * n + 64 * 64 * 6 * n + 8 * 4 * n * n
+    assert lib.lstm_scan_bwd_workspace_floats(b, 4096, MAX_N + 1, CHUNK) == 0
 
 
 @pytest.mark.cuda

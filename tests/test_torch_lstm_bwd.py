@@ -337,83 +337,8 @@ def test_backward_wrappers_refuse_what_they_do_not_take(bad):
                                         a["p"])
 
 
-# ------------------------------------------------- the backward's plan
-def _regions(b, t, n, plan):
-    """(offset, floats) of each workspace region of `plan`."""
-    tw = plan.tc
-    cp = -(-4 * -(-n // 8) // 16) * 16
-    sizes = [4 * n * n, 8 * -(-n // 16) * 16 * cp, 3 * b * n] + [
-        b * tw * 4 * n, b * tw * n, b * tw * n] * tlstm.SLOTS
-    sizes.append(plan.splits * 4 * n * n if plan.splits > 1 else 0)
-    return list(zip(plan.layout[:-1], sizes))
-
-
-@pytest.mark.parametrize("b,t,n,chunked,masked", [
-    (64, 64, 256, False, False), (32, 50, 256, False, True),
-    (8, 4096, 256, True, False), (8, 1000, 256, True, True),
-    (3, 7, 12, True, False), (8, 1, 1024, False, False),
-    (5, 64, 10, True, False), (5, 65, 10, True, False)])
-def test_plan_regions_are_aligned_disjoint_and_inside(b, t, n, chunked,
-                                                      masked):
-    plan = tlstm.bwd_plan(b, t, n, chunked, masked)
-    nt = -(-t // plan.tc)
-    regions = _regions(b, t, n, plan)
-    total = plan.layout[-1]
-    assert all(at % 32 == 0 and at + size <= total for at, size in regions)
-    # slot i is slot i % nt with fewer chunks, else all regions are apart
-    slots = min(nt, tlstm.SLOTS)
-    distinct = regions[:3 + 3 * slots] + regions[3 + 3 * tlstm.SLOTS:]
-    ends = sorted((at, at + size) for at, size in distinct)
-    assert all(e0 <= s1 for (_, e0), (s1, _) in zip(ends, ends[1:]))
-    for i in range(slots, tlstm.SLOTS):
-        j = i % nt
-        assert plan.layout[3 + 3 * i:6 + 3 * i] == \
-            plan.layout[3 + 3 * j:6 + 3 * j]
-    assert plan.tc == (min(tlstm.CHUNK, t) if chunked else t)
-    assert plan.products == (not chunked and not masked)
-    # dR's K ranges: about 512 blocks of 64 x 64 tiles, >= 128 pairs each
-    tiles = -(-n // 64) * -(-4 * n // 64)
-    assert 1 <= plan.splits <= 8
-    assert plan.splits == 1 or (plan.splits * tiles <= 512 + tiles and
-                                b * plan.tc // plan.splits >= 128)
-
-
-def test_chunked_workspace_does_not_grow_with_t():
-    """Row 8 keeps SLOTS chunk slots however long the sequence; row 6 holds
-    all t steps."""
-    b, n = 8, 256
-    sizes = {t: tlstm.bwd_plan(b, t, n, True, False).layout[-1]
-             for t in (3 * tlstm.CHUNK, 1000, 4096, 65536)}
-    slot = b * tlstm.CHUNK * 6 * n
-    # R twice (the slices unpadded at n = 256); four K ranges of dR at b
-    # tc = 512 pairs, eight at b t = 4096
-    assert set(sizes.values()) == {2 * 4 * n * n + 3 * b * n
-                                   + tlstm.SLOTS * slot + 4 * 4 * n * n}
-    assert tlstm.bwd_plan(64, 64, n, False, False).layout[-1] == \
-        2 * 4 * n * n + 3 * 64 * n + 64 * 64 * 6 * n + 8 * 4 * n * n
-
-
-@pytest.mark.parametrize("t", [1, 63, 64, 65, 128, 1000, 4096])
-def test_stages_recompute_one_chunk_ahead_of_the_reverse(t):
-    """Every chunk is recomputed once and reversed once, the reverse in
-    descending order after its recompute; stage i reverses chunk nt - i
-    beside the recompute of chunk nt - i - 1; a chunk is recomputed into
-    its slot (j % SLOTS) only after the chunk that held the slot was
-    reversed in an earlier stage, whose dR the recompute then waits for."""
-    plan = tlstm.bwd_plan(8, t, 256, True, False)
-    nt = -(-t // tlstm.CHUNK)
-    assert len(plan.stages) == nt + 1
-    rec = {p1: i for i, (p1, _) in enumerate(plan.stages) if p1 >= 0}
-    rev = {p2: i for i, (_, p2) in enumerate(plan.stages) if p2 >= 0}
-    assert sorted(rec) == sorted(rev) == list(range(nt))
-    assert [p2 for _, p2 in plan.stages if p2 >= 0] == \
-        list(range(nt - 1, -1, -1))
-    for j in range(nt):
-        assert rec[j] < rev[j] == rec[j] + 1
-        if j + tlstm.SLOTS < nt:
-            assert rev[j + tlstm.SLOTS] < rec[j]
-    for i, (p1, p2) in enumerate(plan.stages[1:-1], 1):
-        assert (p1, p2) == (nt - 1 - i, nt - i)
+# ------------------------------------------- the backward kernels' split
+SLOTS = 2  # chunk slots of csrc/lstm_scan_bwd.cu's workspace (kSlots)
 
 
 def _gates_of(z, c_prev, pv, n):
@@ -421,35 +346,38 @@ def _gates_of(z, c_prev, pv, n):
     return i, f, g, o, c_new
 
 
-def _run_plan(plan, zx, R, p, h0, c0, hs, hck, cck, mask, ghs, ghT, gcT):
+def _run_split(tc, zx, R, p, h0, c0, hs, hck, cck, mask, ghs, ghT, gcT):
     """The split that csrc/lstm_scan_bwd.cu computes, in plain float32
-    (TF32 off), stage by stage in `plan`'s order through SLOTS chunk slots:
-    phase 1 as a serial recompute from the chunk's entry carry, or (plan.
-    products) as one product z = zx + H R over the chunk's (row, step)
-    pairs with H = (h0, hs_0, ...) and a forward scan for c; phase 2 as
-    the reverse recurrence, with dp summed per (row, unit); dR as one
-    product per chunk, added in chunk order. Returns (dzx, dR, dp, dh0,
-    dc0) as the kernels do."""
+    (TF32 off), in its order through SLOTS chunk slots of tc steps: the
+    last chunk recomputed, then, for each chunk j from the last, its
+    reverse, its dR, and the recompute of chunk j - 1 into the slot that
+    chunk j + 1's dR freed. Phase 1 is a serial recompute from the chunk's
+    entry carry or, for row 6 (hs given) without a mask, one product z =
+    zx + H R over the chunk's (row, step) pairs with H = (h0, hs_0, ...)
+    and a forward scan for c; phase 2 the reverse recurrence, with dp
+    summed per (row, unit); dR one product per chunk, added in chunk order.
+    Returns (dzx, dR, dp, dh0, dc0) as the kernels do."""
     b, t, n4 = zx.shape
     n = n4 // 4
     zf, Rf = zx.float(), R.float()
     pv = tlstm._peepholes(p, n, zx)
     live = None if mask is None else mask > 0
-    nt = -(-t // plan.tc)
+    products = hs is not None and mask is None
+    nt = -(-t // tc)
     slots, dzx = {}, torch.zeros((b, t, n4))
     dR, dpw = None, torch.zeros((3, b, n))
     dh, dc = ghT.float(), gcT.float()
 
     def span(j):
-        s0 = j * plan.tc
-        return s0, min(t, s0 + plan.tc)
+        s0 = j * tc
+        return s0, min(t, s0 + tc)
 
     def recompute(j):
         s0, s1 = span(j)
-        held = slots.get(j % tlstm.SLOTS)
+        held = slots.get(j % SLOTS)
         assert held is None or held["dR"], "a slot overwritten before its dR"
         c_entry = cck[j] if hck is not None else c0.float()
-        if plan.products:
+        if products:
             H = torch.stack([h0.float() if s == 0 else hs[:, s - 1].float()
                              for s in range(s0, s1)], dim=1)
             Z = zf[:, s0:s1] + (H.reshape(-1, n) @ Rf).reshape(b, -1, n4)
@@ -475,12 +403,12 @@ def _run_plan(plan, zx, R, p, h0, c0, hs, hck, cck, mask, ghs, ghT, gcT):
                 Z.append(z)
                 C.append(c)
             H, Z, C = (torch.stack(x, dim=1) for x in (H, Z, C))
-        slots[j % tlstm.SLOTS] = dict(j=j, H=H, Z=Z, C=C, c_entry=c_entry,
+        slots[j % SLOTS] = dict(j=j, H=H, Z=Z, C=C, c_entry=c_entry,
                                       dR=False)
 
     def reverse(j):
         nonlocal dh, dc
-        slot = slots[j % tlstm.SLOTS]
+        slot = slots[j % SLOTS]
         assert slot["j"] == j
         s0, s1 = span(j)
         pi, pf, po = pv
@@ -510,19 +438,19 @@ def _run_plan(plan, zx, R, p, h0, c0, hs, hck, cck, mask, ghs, ghT, gcT):
 
     def add_dR(j):
         nonlocal dR
-        slot = slots[j % tlstm.SLOTS]
+        slot = slots[j % SLOTS]
         part = slot["H"].reshape(-1, n).t() @ slot["DZ"].reshape(-1, n4)
         dR = part if j == nt - 1 else dR + part
         slot["dR"] = True
 
     from deeplearning4j_tpu_torch import dtypes
     with dtypes.exact_float32_matmul():
-        for p1, p2 in plan.stages:
-            if p2 >= 0:
-                reverse(p2)
-                add_dR(p2)
-            if p1 >= 0:
-                recompute(p1)
+        recompute(nt - 1)
+        for j in range(nt - 1, -1, -1):
+            reverse(j)
+            add_dR(j)
+            if j:
+                recompute(j - 1)
     return (dzx.to(zx.dtype), dR, None if p is None else dpw.sum(1), dh,
             dc)
 
@@ -542,8 +470,7 @@ def test_planned_split_matches_the_pallas_backward(peephole, masked, dtype):
                         (jnp.asarray(ghs), jnp.asarray(ghT),
                          jnp.asarray(gcT)), interpret=True, p=J[2],
                         mask=J[5])
-    plan = tlstm.bwd_plan(12, 10, 16, False, masked)
-    got = _run_plan(plan, _t(zx), _t(R), _t(p), _t(h0), _t(c0),
+    got = _run_split(10, _t(zx), _t(R), _t(p), _t(h0), _t(c0),
                     _t(np.asarray(hs)), None, None, _t(mask), _t(ghs),
                     _t(ghT), _t(gcT))
     _compare(got, want, dtype)
@@ -568,20 +495,13 @@ def test_planned_chunked_split_matches_the_pallas_backward(peephole, masked,
                                 (jnp.asarray(ghs), jnp.asarray(ghT),
                                  jnp.asarray(gcT)), 8, tc, True, p=J[2],
                                 mask=J[5])
-    plan = tlstm.bwd_plan(12, t, 16, True, masked, tc=tc)
-    assert len(plan.stages) == 4
-    got = _run_plan(plan, _t(zx), _t(R), _t(p), _t(h0), _t(c0), None,
+    got = _run_split(tc, _t(zx), _t(R), _t(p), _t(h0), _t(c0), None,
                     _t(np.asarray(jf[3])), _t(np.asarray(jf[4])), _t(mask),
                     _t(ghs), _t(ghT), _t(gcT))
     _compare(got, want, dtype)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-def test_planned_chunked_split_takes_a_ragged_last_chunk(masked):
-    """t = 14 in chunks of 4 (the JAX kernel takes only whole chunks):
-    the planned split against the port's plain chunked backward, which the
-    tests above hold against the Pallas kernel."""
-    tc, t = 4, 14
+def _chunked_split_matches_the_plain_backward(masked, t, tc=4):
     zx, R, p, h0, c0, mask, ghs, ghT, gcT = _inputs(
         12, t, 16, seed=11, masked=masked)
     args = [_t(a) for a in (zx, R, h0, c0, p, mask)]
@@ -589,8 +509,24 @@ def test_planned_chunked_split_takes_a_ragged_last_chunk(masked):
     want = tlstm.lstm_scan_chunked_backward_reference(
         args[0], args[1], fwd[3], fwd[4], _t(ghs), _t(ghT), _t(gcT),
         args[4], args[5], tc=tc)
-    plan = tlstm.bwd_plan(12, t, 16, True, masked, tc=tc)
-    assert len(plan.stages) == 5
-    got = _run_plan(plan, args[0], args[1], args[4], args[2], args[3], None,
-                    fwd[3], fwd[4], args[5], _t(ghs), _t(ghT), _t(gcT))
+    got = _run_split(tc, args[0], args[1], args[4], args[2], args[3], None,
+                     fwd[3], fwd[4], args[5], _t(ghs), _t(ghT), _t(gcT))
     _compare(got, [w.numpy() for w in want], "float32")
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_planned_chunked_split_takes_a_ragged_last_chunk(masked):
+    """t = 14 in chunks of 4 (the JAX kernel takes only whole chunks):
+    the split against the port's plain chunked backward, which the tests
+    above hold against the Pallas kernel."""
+    _chunked_split_matches_the_plain_backward(masked, 14)
+
+
+@pytest.mark.parametrize("t", [1, 3, 4, 5, 7, 8, 9, 12])
+@pytest.mark.parametrize("masked", [False, True])
+def test_planned_chunked_split_takes_any_number_of_chunks(masked, t):
+    """One to three chunks of 4, whole or with a ragged last one, so that
+    the split runs with one chunk (no second slot), fills both slots, and
+    reuses a slot after its dR: against the port's plain chunked
+    backward."""
+    _chunked_split_matches_the_plain_backward(masked, t)
