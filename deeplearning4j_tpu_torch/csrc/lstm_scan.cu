@@ -66,6 +66,40 @@
 
 namespace cg = cooperative_groups;
 
+// Built with -DLSTM_FWD_PROBES (profile_resnet_torch.py --model
+// lstm-split), thread 0 of the first cluster's block 0 reads clock64 at each
+// phase boundary of every step, PROBE(i) closing phase i, and PROBE_END
+// adds the cycles to g_probe[i], the loop's %globaltimer ns to g_probe[14]
+// and its steps to g_probe[15]; lstm_scan_probe_names() names the phases.
+// Otherwise the probes are empty.
+#ifdef LSTM_FWD_PROBES
+__device__ unsigned long long g_probe[16];
+#define PROBE_START                                                    \
+  const bool probe0 = blockIdx.y == 0 && cluster.block_rank() == 0 && \
+                      threadIdx.x == 0;                               \
+  unsigned long long pacc[14] = {0}, ns0;                             \
+  long long ta = clock64();                                           \
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns0));
+#define PROBE(i)                    \
+  if (probe0) {                     \
+    const long long tb = clock64(); \
+    pacc[i] += tb - ta;             \
+    ta = tb;                        \
+  }
+#define PROBE_END(count, steps)                               \
+  if (probe0) {                                               \
+    unsigned long long ns1;                                   \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns1));   \
+    for (int i = 0; i < (count); ++i) g_probe[i] += pacc[i];  \
+    g_probe[14] += ns1 - ns0;                                 \
+    g_probe[15] += (steps);                                   \
+  }
+#else
+#define PROBE_START
+#define PROBE(i)
+#define PROBE_END(count, steps)
+#endif
+
 namespace {
 
 constexpr int kCluster = 8;    // blocks per cluster: the column split
@@ -194,9 +228,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   // every block's buffers are ready before any peer writes into them
   cluster.sync();
 
+  PROBE_START
   float* hcur = hbuf0;
   float* hnext = hbuf1;
-  const int n_even = n & ~3;
   for (int s = 0; s < d.t; ++s) {
     // checkpoint the float32 carry entering each chunk
     if (hck != nullptr && s % tc == 0) {
@@ -226,6 +260,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
           live[i] = mask[static_cast<int64_t>(prow[i]) * d.t + s] > 0.0f;
       }
     }
+    PROBE(0)  // checkpoints, zx and mask loads issued
 
     // (1) part[kg][r][c] = sum over this group's k of h[r][k] * R[k][c]
     if (tile_ok) {
@@ -270,11 +305,15 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
         *reinterpret_cast<float4*>(&part[(kg * kRows + r) * C + col0]) =
             make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
     }
+    PROBE(1)  // the product
     __syncthreads();
+    PROBE(2)  // its barrier
 
     // (2) the cell, one thread per (row, unit)
+    float h_out[kPairs];
 #pragma unroll
     for (int i = 0; i < kPairs; ++i) {
+      h_out[i] = 0.0f;
       if (!pok[i]) continue;
       const int pidx = tid + i * kThreads;
       const int r = pidx / J, j = pidx % J;
@@ -291,26 +330,40 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
       float c_new = fg * c_prev + ig * gg;
       const float og = sigmoid(zxv[i][3] + z[3] + po[i] * c_new);
       float h_new = og * tanhf(c_new);
-      float h_out = h_new;
+      h_out[i] = h_new;
       if (!live[i]) {
-        h_out = 0.0f;
+        h_out[i] = 0.0f;
         h_new = hreg[i];
         c_new = c_prev;
       }
       hreg[i] = h_new;
       creg[i] = c_new;
-      store_as(hs + (static_cast<int64_t>(prow[i]) * d.t + s) * n + punit[i],
-               h_out);
+    }
+    PROBE(3)  // partial sums and the cell
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i)
+      if (pok[i])
+        store_as(hs + (static_cast<int64_t>(prow[i]) * d.t + s) * n +
+                     punit[i],
+                 h_out[i]);
+    PROBE(4)  // hs stores
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      if (!pok[i]) continue;
+      const int r = (tid + i * kThreads) / J;
 #pragma unroll
       for (int peer = 0; peer < kCluster; ++peer)
-        cluster.map_shared_rank(hnext, peer)[r * NP + punit[i]] = h_new;
+        cluster.map_shared_rank(hnext, peer)[r * NP + punit[i]] = hreg[i];
     }
+    PROBE(5)  // the DSMEM broadcast
     // (3) h_t is in every block's next buffer; part and hcur are free again
     cluster.sync();
+    PROBE(6)  // the cluster barrier
     float* tmp = hcur;
     hcur = hnext;
     hnext = tmp;
   }
+  PROBE_END(7, d.t)
 
 #pragma unroll
   for (int i = 0; i < kPairs; ++i) {
@@ -453,5 +506,20 @@ int lstm_scan_chunked_launch(const void* zx, const void* R, const void* p,
 const char* lstm_scan_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#ifdef LSTM_FWD_PROBES
+const char* lstm_scan_probe_names() {
+  return "checkpoints, zx loads;product;sync;partial sums + cell;hs stores;"
+         "DSMEM broadcast;cluster barrier";
+}
+int lstm_scan_probe_reset() {
+  const unsigned long long zero[16] = {0};
+  return static_cast<int>(cudaMemcpyToSymbol(g_probe, zero, sizeof(zero)));
+}
+int lstm_scan_probe_read(unsigned long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_probe, 16 * sizeof(unsigned long long)));
+}
+#endif
 
 }  // extern "C"

@@ -5,11 +5,11 @@ port (deeplearning4j_tpu_torch): zoo ResNet-50, the zoo TransformerLM with
 or of one training step of the zoo TransformerLM with `--model train-lm`,
 or of the zoo TextGenerationLSTM with `--model train-rnn`; or, with
 `--model lstm-routes`, what the two LSTM kernel families cost; or, with
-`--model lstm-bwd-split`, where a step of the LSTM backward kernels goes.
+`--model lstm-split`, where a step of the LSTM kernels goes.
 
     python3 profile_resnet_torch.py [--model resnet50|transformer|lstm|
                                      train-lm|train-rnn|lstm-routes|
-                                     lstm-bwd-split]
+                                     lstm-split]
                                     [--batch N] [--length T] [--iters 20]
                                     [--mixed] [--out profile_out]
 
@@ -44,6 +44,11 @@ full one (rows 5 and 6, `lstm_scan_peephole`) and the time-chunked one
 (rows 7 and 8, `lstm_scan_chunked_peephole`), whatever
 `chunked_lstm_auto_regime` would pick, and prints each one's time (CUDA
 events, median of 5) and peak device memory above its inputs.
+`lstm-split` builds csrc/lstm_scan.cu and csrc/lstm_scan_bwd.cu with their
+probes on (`-DLSTM_FWD_PROBES`, `-DLSTM_BWD_PROBES`) and prints, float32,
+for rows 5 and 7 at (64, 64, 256) and (8, 4096, 256) and for rows 6 and 8
+at the training paths' shapes, the µs per step of each phase of the serial
+kernels' steps.
 """
 from __future__ import annotations
 
@@ -150,16 +155,18 @@ def lstm_routes(torch, card, b, t, n=256) -> int:
     return 0
 
 
-# ------------------------------------------------- --model lstm-bwd-split
-# Where a step of the LSTM backward kernels goes: csrc/lstm_scan_bwd.cu
-# built with its probes on (-DLSTM_BWD_PROBES: thread 0 of the first
-# cluster's block 0 reads clock64 at each phase boundary of every step of
-# the serial kernels and adds the cycles up), run at the training paths'
-# shapes; per phase, µs per step, the cycles scaled by the loop's own clock
-# (its %globaltimer time over its cycles).
-SPLIT_SHAPES = [((64, 64, 256), False), ((32, 50, 256), False),
-                ((8, 1024, 256), True), ((8, 4096, 256), True)]
-PHASES = (  # (kernel, first g_probe slot, its phases in PROBE order)
+# ----------------------------------------------------- --model lstm-split
+# Where a step of the LSTM kernels goes: csrc/lstm_scan.cu built with its
+# probes on (-DLSTM_FWD_PROBES) and csrc/lstm_scan_bwd.cu with its own
+# (-DLSTM_BWD_PROBES): thread 0 of the first cluster's block 0 reads clock64
+# at each phase boundary of every step of the serial kernels and adds the
+# cycles up. Run at the paths' shapes, float32, peephole; per phase, µs per
+# step, the cycles scaled by the loop's own clock (its %globaltimer time
+# over its cycles).
+FWD_SPLIT_SHAPES = [((64, 64, 256), False), ((8, 4096, 256), True)]
+BWD_SPLIT_SHAPES = [((64, 64, 256), False), ((32, 50, 256), False),
+                    ((8, 1024, 256), True), ((8, 4096, 256), True)]
+BWD_PHASES = (  # (kernel, first g_probe slot, its phases in PROBE order)
     ("recompute", 0, ("product", "sync", "cell + DSMEM broadcast",
                       "arrive, stores, next loads", "cluster wait")),
     ("reverse", 16, ("cell (dz)", "sync", "product + DSMEM partials",
@@ -167,14 +174,13 @@ PHASES = (  # (kernel, first g_probe slot, its phases in PROBE order)
                      "gather")))
 
 
-def build_probed(out: str) -> ctypes.CDLL:
+def build_probed(out: str, name: str, macro: str) -> ctypes.CDLL:
     from deeplearning4j_tpu_torch.ops import _build
 
     os.makedirs(out, exist_ok=True)
-    so = os.path.join(out, "liblstm_scan_bwd_probed.so")
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
-                    "-DLSTM_BWD_PROBES", "-o", so,
-                    os.path.join(_build.CSRC, "lstm_scan_bwd.cu")],
+    so = os.path.join(out, f"lib{name}_probed.so")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, f"-D{macro}",
+                    "-o", so, os.path.join(_build.CSRC, f"{name}.cu")],
                    check=True, capture_output=True)
     return ctypes.CDLL(so)
 
@@ -200,40 +206,68 @@ def launch_ms(torch, fn, reps):
     return s.elapsed_time(e) / reps
 
 
-def lstm_bwd_split(torch, card, args) -> int:
+def probed_run(torch, lib, prefix, slots, fn, t):
+    """Time `fn` (probes on), then run it once more with the probe sums
+    cleared; returns (ms per launch, the probe sums)."""
+    ms = launch_ms(torch, fn, 3 if t > 1000 else 20)
+    getattr(lib, prefix + "_probe_reset")()
+    fn()
+    torch.cuda.synchronize()
+    v = (ctypes.c_uint64 * slots)()
+    getattr(lib, prefix + "_probe_read")(ctypes.addressof(v))
+    return ms, v
+
+
+def print_phases(kernel, names, v, first, ns_slot, steps_slot):
+    steps = v[steps_slot]
+    if not steps:
+        return
+    cycles = sum(v[first:first + len(names)])
+    us = v[ns_slot] / 1e3 / cycles  # per cycle
+    parts = [v[first + i] * us / steps for i in range(len(names))]
+    print(f"  {kernel:9s} " + ", ".join(
+        f"{nm} {x:.3f}" for nm, x in zip(names, parts)) +
+        f"; total {sum(parts):.3f} ({1 / us:.0f} MHz)")
+
+
+def lstm_split(torch, card, args) -> int:
     from deeplearning4j_tpu_torch.ops import lstm as L
 
     print(card)
-    lib = build_probed(os.path.join(args.out, "lstm_bwd_split"))
-    L._setup_bwd(lib)
-    L._libs["lstm_scan_bwd"] = lib
-    lib.lstm_scan_bwd_probe_read.argtypes = [ctypes.c_void_p]
-    for (b, t, n), chunked in SPLIT_SHAPES:
+    out = os.path.join(args.out, "lstm_split")
+    fwd = build_probed(out, "lstm_scan", "LSTM_FWD_PROBES")
+    bwd = build_probed(out, "lstm_scan_bwd", "LSTM_BWD_PROBES")
+    L._setup_fwd(fwd)
+    L._setup_bwd(bwd)
+    L._libs["lstm_scan"], L._libs["lstm_scan_bwd"] = fwd, bwd
+    fwd.lstm_scan_probe_names.restype = ctypes.c_char_p
+    fwd.lstm_scan_probe_read.argtypes = [ctypes.c_void_p]
+    bwd.lstm_scan_bwd_probe_read.argtypes = [ctypes.c_void_p]
+    fwd_names = fwd.lstm_scan_probe_names().decode().split(";")
+    for (b, t, n), chunked in FWD_SPLIT_SHAPES:
+        zx, R, p, h0, c0, _ = split_inputs(torch, b, t, n)
+        fn = ((lambda: L.lstm_scan_chunked_forward(zx, R, h0, c0, p))
+              if chunked else
+              (lambda: L.lstm_scan_peephole(zx, R, p, h0, c0)))
+        ms, v = probed_run(torch, fwd, "lstm_scan", 16, fn, t)
+        print(f"row {7 if chunked else 5} (b, t, n) = ({b}, {t}, {n}) "
+              f"float32: {ms:.4f} ms per launch ({ms * 1e3 / t:.3f} us/step,"
+              f" probes on); per step, us (cycles at the loop's own clock, "
+              f"by %globaltimer):")
+        print_phases("forward", fwd_names, v, 0, 14, 15)
+    for (b, t, n), chunked in BWD_SPLIT_SHAPES:
         zx, R, p, h0, c0, gs = split_inputs(torch, b, t, n)
         hs, _, _, hck, cck = L.lstm_scan_chunked_forward(zx, R, h0, c0, p)
         fn = ((lambda: L.lstm_scan_chunked_bwd(zx, R, hck, cck, *gs, p))
               if chunked else
               (lambda: L.lstm_scan_bwd(zx, R, h0, c0, hs, *gs, p)))
-        ms = launch_ms(torch, fn, 3 if t > 1000 else 20)
-        lib.lstm_scan_bwd_probe_reset()
-        fn()
-        torch.cuda.synchronize()
-        v = (ctypes.c_uint64 * 32)()
-        lib.lstm_scan_bwd_probe_read(ctypes.addressof(v))
+        ms, v = probed_run(torch, bwd, "lstm_scan_bwd", 32, fn, t)
         print(f"row {8 if chunked else 6} (b, t, n) = ({b}, {t}, {n}) "
-              f"float32: {ms:.4f} ms per launch ({ms * 1e3 / t:.3f} us/step)"
-              f"; per step, us (cycles at the loop's own clock, by "
+              f"float32: {ms:.4f} ms per launch ({ms * 1e3 / t:.3f} us/step"
+              f"); per step, us (cycles at the loop's own clock, by "
               f"%globaltimer):")
-        for kernel, first, names in PHASES:
-            steps = v[first + 7]
-            if not steps:
-                continue
-            cycles = sum(v[first:first + len(names)])
-            us = v[first + 6] / 1e3 / cycles  # per cycle
-            parts = [v[first + i] * us / steps for i in range(len(names))]
-            print(f"  {kernel:9s} " + ", ".join(
-                f"{nm} {x:.3f}" for nm, x in zip(names, parts)) +
-                f"; total {sum(parts):.3f} ({1 / us:.0f} MHz)")
+        for kernel, first, names in BWD_PHASES:
+            print_phases(kernel, names, v, first, first + 6, first + 7)
     return 0
 
 
@@ -241,7 +275,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("resnet50", "transformer", "lstm",
                                         "train-lm", "train-rnn",
-                                        "lstm-routes", "lstm-bwd-split"),
+                                        "lstm-routes", "lstm-split"),
                     default="resnet50")
     ap.add_argument("--batch", type=int, default=None,
                     help="rows per served batch (32 ResNet-50, 16 "
@@ -256,7 +290,7 @@ def main() -> int:
                     help="bf16 activations (dtypes.set_mixed_precision)")
     ap.add_argument("--out", default="profile_out",
                     help="directory for the per-kernel table (and "
-                         "lstm-bwd-split's probed build)")
+                         "lstm-split's probed builds)")
     args = ap.parse_args()
 
     import numpy as np
@@ -282,8 +316,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     if args.model == "lstm-routes":
         return lstm_routes(torch, card, args.batch or 8, args.length or 4096)
-    if args.model == "lstm-bwd-split":
-        return lstm_bwd_split(torch, card, args)
+    if args.model == "lstm-split":
+        return lstm_split(torch, card, args)
     if args.model == "resnet50":
         batch = args.batch or 32
         net = ResNet50(num_classes=1000, input_shape=(224, 224, 3),
