@@ -21,46 +21,75 @@
 //
 // What it computes, as `_lstm_kernel` does: R, p, z_t, h0 and c0 are raised
 // to float32; h and c are carried in float32 across steps; per step
-//   z = z_t + h @ R                          (float32 FMAs, no TF32)
+//   z = z_t + h @ R
 //   i = sigmoid(z_i + pi*c), f = sigmoid(z_f + pf*c), g = tanh(z_g)
 //   c' = f*c + i*g,  o = sigmoid(z_o + po*c'),  h' = o * tanh(c')
 // and a masked step outputs 0 and carries h and c through unchanged. Only
 // hs, hT and cT are rounded to T. sigmoid(x) = 1 / (1 + expf(-x)); the
-// build has no fast-math.
+// build has no fast-math. The product h @ R runs on the tensor cores
+// (`mma.sync` m16n8k8 TF32, hopper_mma.cuh): in float32 as 3xTF32, both
+// operands split into TF32 hi and lo parts rounded to nearest, the three
+// products of each k8 step in a fresh tile added to the float32 sum (one
+// tensor-core accumulator along K truncates past what the training checks
+// hold); in bfloat16 R is exact in TF32 and h enters as its two parts.
 //
 // Bound on an H100 SXM at the served TextGenerationLSTM shape (b=64, t=64,
-// n=256, float32): 2*b*n*4n*t = 2.15 GFLOP of recurrent products against
-// 22.3 MB moved, so operations bind: 2.15e9 / 67e12 = 0.032 ms per launch.
-// The bound does not count the chain of t dependent steps, each of which
-// needs the whole previous h: that latency, not the FMA rate, is what a
-// small-batch recurrence pays.
+// n=256, float32): 2*b*n*4n*t = 2.15 GFLOP of recurrent products, as 3xTF32
+// 6.44 GFLOP over 495 TFLOP/s = 0.0130 ms per launch (0.032 ms on the
+// CUDA cores), against 22.3 MB moved (0.0067 ms). The bound does not count
+// the chain of t dependent steps, each of which needs the whole previous h:
+// that latency, not the tensor cores' rate, is what a small-batch
+// recurrence pays.
 //
-// Design (column split over a thread-block cluster; simple and right first,
-// wgmma/TMA/multicast are later work). R [n, 4n] is 1 MiB at n=256 in
-// float32, more than one SM's shared memory, and every step needs all of h
-// against all of R. So a cluster of kCluster = 8 blocks shares one batch
-// tile of kRows = 8 rows: block q owns hidden units [q*J, (q+1)*J), J =
-// ceil(n/8), and the C = 4J columns of R that feed their gates. Its slice
-// of R stays resident in shared memory for all t steps (as float32, [k][C])
-// when it fits (n up to about 290), else it is read from L2 every step.
-// Each step: (1) every block forms z for its C columns and 8 rows from the
-// full h_{t-1} in its own shared memory, split over k: KS groups of threads
-// each take a range of k, and each thread keeps an 8-row x 4-column tile of
-// sums in registers, so one broadcast float4 of h and one float4 of R feed
-// 16 FMAs and shared-memory loads do not bound the product; the KS partial
-// sums go to shared memory; (2) one thread per (row, unit) adds the partials
-// and zx, applies the cell, keeps c and h in registers, writes hs, and
-// stores h_t into the next h buffer of all 8 blocks of the cluster
-// (distributed shared memory); (3) one cluster barrier. The h buffers are
-// double-buffered, so that barrier is the only one across blocks per step.
-// Batch tiles run as independent clusters along grid y. n is capped at
-// kMaxN = 1024 (each thread keeps at most 4 (row, unit) carries in
-// registers).
+// Design: a column split over a thread-block cluster. Every step needs all
+// of h against all of R (1 MiB at n = 256 in float32), so a cluster of cl
+// blocks shares one batch tile of rows = 8 or 16 rows (one or two of mma's
+// N = 8 tiles): block q owns hidden units [q J, (q + 1) J), J the power of
+// two >= 4 that covers n with cl blocks, and the C = 4 J columns of R that
+// feed their gates (column g J + j is gate g of unit q J + j). The host's
+// plan (plan_for) picks per shape:
+//   cl    8 for n <= 128, else 16 (a cluster of 16 is non-portable): at
+//         n = 256 each block holds a 64 KB float32 slice of R, so its TF32
+//         hi and lo parts both fit, in registers;
+//   rows  8 where the batch tiles of 8 rows all run at once (the card's
+//         count of co-resident clusters, asked once per device), else 16;
+//         tiles beyond that count wait for a second wave;
+//   R     split once, at the start of the launch, into the A fragments of
+//         mma (z^T = R_q^T h^T: the block's columns are M, the batch rows
+//         N) held in registers for all t steps when n <= 256 (each warp
+//         owns one 16-column tile and a share of K, at most 16 k8 steps);
+//         past n = 256 the slice does not fit on chip and is read from L2
+//         and split on every step, several times slower.
+// Each block holds an SM of its own (its shared memory is asked for at more
+// than half of an SM's), so that no two blocks share tensor cores. A step:
+//   (1) wait for h_{s-1}: each block's mbarrier counts the bytes that the
+//       cl blocks' st.async stores bring into its receive buffer;
+//   (2) split h_{s-1} into its TF32 parts once per block (8 or 16 x n
+//       values), one __syncthreads;
+//   (3) the product: each warp's K share of its column tile for the 8 or
+//       16 rows, partial sums to shared memory in a fixed order (K split
+//       over warps, so results repeat bit for bit), one __syncthreads;
+//   (4) the cell, one thread per (row, unit): partials + zx, h and c
+//       carried in registers;
+//   (5) h_s to the cl blocks' other receive buffer: four lanes gather four
+//       units of a row into one 16-byte st.async per peer, which completes
+//       on that peer's mbarrier (h is sent once, as float32: splitting it
+//       before the send would double the bytes, which set the exchange's
+//       time);
+//   (6) hs, the chunk checkpoints and the next step's zx and mask loads,
+//       all off the chain: the exchange's latency covers them.
+// The receive buffers and mbarriers are double-buffered: a block sends
+// h_{s+1} only after it received h_s from every block, which each sent only
+// after it had read h_{s-1}, so no buffer is overwritten while it is read
+// and no mbarrier phase sees the next step's bytes. Batch tiles run as
+// independent clusters along grid y. n is capped at kMaxN = 1024.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "hopper_mma.cuh"
 
@@ -102,14 +131,16 @@ __device__ unsigned long long g_probe[16];
 
 namespace {
 
-constexpr int kCluster = 8;    // blocks per cluster: the column split
-constexpr int kRows = 8;       // batch rows per cluster
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxN = 1024;
-constexpr int kPairs = 4;      // max (row, unit) pairs per thread
-static_assert(kRows * ((kMaxN + kCluster - 1) / kCluster) <=
-                  kPairs * kThreads,
-              "each thread carries at most kPairs (row, unit) pairs");
+constexpr int kRegN = 256;     // widest n whose R slices fit in registers
+constexpr int kSmallN = 128;   // widest n that a cluster of 8 blocks takes
+constexpr int kFrags = 16;     // k8 steps of R a warp holds in registers
+// a block's least shared memory: more than half of an SM's 228 KB
+constexpr size_t kOwnSm = 116 * 1024;
+
+std::atomic<int> g_queries[2];  // attribute calls, occupancy queries
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -122,97 +153,243 @@ __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
+__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
+__device__ __forceinline__ float value(uint32_t x) {
+  return __uint_as_float(x);
+}
 
-constexpr int kCols = 4;       // columns per thread in the product tile
+// ------------------------------------------------------------------ PTX
+// the cluster barrier in two halves
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// p's address in the shared memory of cluster block `rank`
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// the initialised mbarriers are seen by the cluster's other blocks
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// the phase's one arrival, expecting `bytes` from st.async stores
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Waits for the phase of `parity` to complete. A phase that never does (a
+// lost exchange) ends the launch with an error after 2^34 cycles, about ten
+// seconds, rather than holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+// 16 bytes into a cluster block's shared memory, counted on its mbarrier
+__device__ __forceinline__ void st_async4(uint32_t addr, float4 v,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "r"(bits(v.x)), "r"(bits(v.y)), "r"(bits(v.z)), "r"(bits(v.w)),
+      "r"(bar)
+      : "memory");
+}
 
 struct Dims {
-  int b, t, n;
-  int J;      // hidden units per block
-  int C;      // 4 * J columns per block
-  int NP;     // n rounded up to 4: h row stride, resident R rows
-  int TPG;    // threads per k-group: ceil(C / kCols)
-  int KS;     // k-groups (kThreads / TPG)
-  int KC;     // k per group, a multiple of 4
+  int b, t, n, tc;
+  int cl;     // blocks per cluster
+  int J;      // hidden units per block, a power of two >= 4
+  int C;      // 4 J columns per block, gate-major
+  int HW;     // cl J >= n: units in a row of h
+  int HP;     // row stride of h's TF32 parts [row][unit][hi, lo]: 2 HW + 8
+  int CP;     // row stride of the partial sums: C + 4
+  int KS;     // k8 steps: ceil(n / 8)
+  int MT;     // 16-column tiles: C / 16
+  int KW;     // K shares: warps per column tile (resident), else 1
+  int KPW;    // k8 steps per share
 };
 
-template <typename T, bool RESIDENT>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+struct Plan {
+  int cl, rows, tiles, active;
+  bool resident;
+};
+
+// The plan for (b, n) on a card that runs `active8` clusters of 8 blocks or
+// `active16` of 16 at once (at one block per SM)
+Plan plan_for(int64_t b, int64_t n, int active8, int active16) {
+  Plan pl;
+  pl.resident = n <= kRegN;
+  pl.cl = n <= kSmallN ? 8 : 16;
+  pl.active = pl.cl == 8 ? active8 : active16;
+  pl.rows = pl.resident && (b + 7) / 8 > pl.active ? 16 : 8;
+  pl.tiles = static_cast<int>((b + pl.rows - 1) / pl.rows);
+  return pl;
+}
+
+Dims make_dims(int64_t b, int64_t t, int64_t n, int64_t tc, const Plan& pl) {
+  Dims d;
+  d.b = static_cast<int>(b);
+  d.t = static_cast<int>(t);
+  d.n = static_cast<int>(n);
+  d.tc = static_cast<int>(tc);
+  d.cl = pl.cl;
+  d.J = 4;
+  while (d.J * d.cl < d.n) d.J *= 2;
+  d.C = 4 * d.J;
+  d.HW = d.cl * d.J;
+  d.HP = 2 * d.HW + 8;
+  d.CP = d.C + 4;
+  d.KS = (d.n + 7) / 8;
+  d.MT = d.C / 16;
+  d.KW = pl.resident ? kWarps / d.MT : 1;
+  d.KPW = (d.KS + d.KW - 1) / d.KW;
+  return d;
+}
+
+size_t smem_bytes(const Dims& d, int rows) {
+  const size_t floats = 2 * static_cast<size_t>(rows) * d.HW +
+                        static_cast<size_t>(rows) * d.HP +
+                        static_cast<size_t>(d.KW) * rows * d.CP;
+  return floats * sizeof(float) > kOwnSm ? floats * sizeof(float) : kOwnSm;
+}
+
+// One k8 step at k0 of z^T += R_q^T h^T into a fresh tile added to acc,
+// small terms first: A as its TF32 parts (a_lo unused when R is exact in
+// TF32), B from this lane's row hr of h's parts [unit][hi, lo]
+template <bool kSplitR>
+__device__ __forceinline__ void k8_step(float acc[4], const uint32_t a_hi[4],
+                                        const uint32_t a_lo[4],
+                                        const float* hr, int k0, int t4) {
+  const float2 b0 = *reinterpret_cast<const float2*>(hr + 2 * (k0 + t4));
+  const float2 b1 = *reinterpret_cast<const float2*>(hr + 2 * (k0 + t4) + 8);
+  float tt[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (kSplitR) mma_tf32(tt, a_lo, bits(b0.x), bits(b1.x));
+  mma_tf32(tt, a_hi, bits(b0.y), bits(b1.y));
+  mma_tf32(tt, a_hi, bits(b0.x), bits(b1.x));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += tt[e];
+}
+
+// NT: mma N tiles of 8 batch rows; RESIDENT: R's TF32 parts in registers
+template <typename T, int NT, bool RESIDENT>
+__global__ void __launch_bounds__(kThreads, 1)
     lstm_scan_kernel(const T* __restrict__ zx, const T* __restrict__ R,
                      const T* __restrict__ p, const float* __restrict__ mask,
                      const T* __restrict__ h0, const T* __restrict__ c0,
                      T* __restrict__ hs, T* __restrict__ hT,
                      T* __restrict__ cT, float* __restrict__ hck,
-                     float* __restrict__ cck, int tc, Dims d) {
+                     float* __restrict__ cck, Dims d) {
+  constexpr int kRows = 8 * NT;
+  constexpr bool kSplitR = sizeof(T) == 4;  // bfloat16 is exact in TF32
+  constexpr int kPairs = RESIDENT ? 1 : 2;  // (row, unit) pairs per thread
+  constexpr int kF = RESIDENT ? kFrags : 1;
   cg::cluster_group cluster = cg::this_cluster();
   const int q = static_cast<int>(cluster.block_rank());
-  const int tid = threadIdx.x;
-  const int n = d.n, J = d.J, C = d.C, NP = d.NP;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int n = d.n, J = d.J, HW = d.HW, HP = d.HP, CP = d.CP;
   const int u0 = q * J;                    // first hidden unit of this block
   const int b0 = blockIdx.y * kRows;       // first batch row of the cluster
   const int64_t n4 = 4 * static_cast<int64_t>(n);
 
   extern __shared__ __align__(16) float smem[];
-  float* hbuf0 = smem;                     // [kRows, NP] h_{t-1}
-  float* hbuf1 = hbuf0 + kRows * NP;       // [kRows, NP] h_t
-  float* part = hbuf1 + kRows * NP;        // [KS, kRows, C] partial sums
-  float* Rs = part + d.KS * kRows * C;     // [NP, C] resident R slice
+  __shared__ uint64_t bars[2];             // one per receive buffer
+  float* hrecv = smem;                     // [2][kRows][HW] h as received
+  float* hpart = hrecv + 2 * kRows * HW;   // [kRows][HP] its TF32 parts
+  float* part = hpart + kRows * HP;        // [KW][kRows][CP] partial z
+  // the bytes that arrive per step: every block's kRows x J values
+  const int bytes = kRows * HW * static_cast<int>(sizeof(float));
 
-  // ---- set-up: zeroed h buffers (the pad columns stay 0), h0, R slice
-  for (int e = tid; e < 2 * kRows * NP; e += kThreads) smem[e] = 0.0f;
+  // ---- set-up: zeroed buffers (pad units stay 0), h0, the mbarriers
+  const int zero = 2 * kRows * HW + kRows * HP + d.KW * kRows * CP;
+  for (int e = tid; e < zero; e += kThreads) smem[e] = 0.0f;
   __syncthreads();
   for (int e = tid; e < kRows * n; e += kThreads) {
     const int r = e / n, k = e % n;
     if (b0 + r < d.b)
-      hbuf0[r * NP + k] =
-          to_float(h0[static_cast<int64_t>(b0 + r) * n + k]);
+      hrecv[r * HW + k] = to_float(h0[static_cast<int64_t>(b0 + r) * n + k]);
   }
-  if (RESIDENT) {
-    // kCopy loads in flight per thread: one at a time, the copy of a 128 KB
-    // slice waits on memory latency for tens of microseconds
-    constexpr int kCopy = 16;
-    for (int e0 = tid; e0 < NP * C; e0 += kCopy * kThreads) {
-      float v[kCopy];
-#pragma unroll
-      for (int i = 0; i < kCopy; ++i) {
-        const int e = e0 + i * kThreads;
-        const int k = e / C, c = e % C;
-        const int g = c / J, u = u0 + c % J;
-        v[i] = e < NP * C && k < n && u < n
-                   ? to_float(R[k * n4 + g * n + u])
-                   : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < kCopy; ++i)
-        if (e0 + i * kThreads < NP * C) Rs[e0 + i * kThreads] = v[i];
-    }
+  if (tid == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    mbar_init_fence();
+    mbar_expect(&bars[0], bytes);
+    mbar_expect(&bars[1], bytes);
   }
 
-  // ---- this thread's product tile: k-group kg, columns col0 .. col0 + 3
-  const int kg = tid / d.TPG;
-  const int col0 = (tid % d.TPG) * kCols;
-  const bool tile_ok = kg < d.KS;
-  const int k_lo = kg * d.KC;
-  const int k_hi = min(NP, k_lo + d.KC);
-  int64_t rofs[kCols];  // column offsets into a row of R (global path)
-  bool rok[kCols];
+  // R_q^T [C][k] at column c (gate c / J, unit u0 + c % J) and row k
+  auto r_at = [&](int k, int c) -> float {
+    const int u = u0 + (c & (J - 1));
+    return k < n && u < n ? to_float(R[k * n4 + (c / J) * n + u]) : 0.0f;
+  };
+  // this warp's column tile and K share; resident: its A fragments, split
+  // once into TF32 hi and lo parts
+  const int mt = RESIDENT ? warp % d.MT : 0;
+  const int kw = RESIDENT ? warp / d.MT : 0;
+  const int ks0 = kw * d.KPW;
+  const int kc = RESIDENT ? max(0, min(d.KPW, d.KS - ks0)) : 0;
+  uint32_t ah[kF][4], al[kF][4];
+  if (RESIDENT) {
 #pragma unroll
-  for (int i = 0; i < kCols; ++i) {
-    const int c = col0 + i;
-    rok[i] = u0 + c % J < n;
-    rofs[i] = rok[i] ? (c / J) * n + u0 + c % J : 0;
+    for (int f = 0; f < kF; ++f) {
+      const int k0 = (ks0 + f) * 8, m0 = mt * 16;
+      float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (f < kc) {
+        a[0] = r_at(k0 + t4, m0 + g8);
+        a[1] = r_at(k0 + t4, m0 + g8 + 8);
+        a[2] = r_at(k0 + t4 + 4, m0 + g8);
+        a[3] = r_at(k0 + t4 + 4, m0 + g8 + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (kSplitR) {
+          split_tf32(bits(a[j]), ah[f][j], al[f][j]);
+        } else {
+          ah[f][j] = bits(a[j]);
+          al[f][j] = 0u;
+        }
+      }
+    }
   }
 
   // ---- this thread's (row, unit) pairs: carries and peepholes in registers
   float hreg[kPairs], creg[kPairs], pi[kPairs], pf[kPairs], po[kPairs];
-  int prow[kPairs], punit[kPairs];
-  bool pok[kPairs];
+  int prow[kPairs], punit[kPairs], pr[kPairs], pj[kPairs];
+  bool pin[kPairs], pok[kPairs];
 #pragma unroll
   for (int i = 0; i < kPairs; ++i) {
     const int pidx = tid + i * kThreads;
-    const int r = pidx / J, j = pidx % J;
-    prow[i] = b0 + r;
-    punit[i] = u0 + j;
-    pok[i] = pidx < kRows * J && r < kRows && b0 + r < d.b && u0 + j < n;
+    // a warp's pairs are all in or all out: kRows J is a multiple of 32
+    pin[i] = pidx < kRows * J;
+    pr[i] = pidx / J;
+    pj[i] = pidx % J;
+    prow[i] = b0 + pr[i];
+    punit[i] = u0 + pj[i];
+    pok[i] = pin[i] && prow[i] < d.b && punit[i] < n;
     hreg[i] = creg[i] = pi[i] = pf[i] = po[i] = 0.0f;
     if (pok[i]) {
       const int64_t at = static_cast<int64_t>(prow[i]) * n + punit[i];
@@ -223,103 +400,127 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
         pf[i] = to_float(p[n + punit[i]]);
         po[i] = to_float(p[2 * n + punit[i]]);
       }
-    }
-  }
-  // every block's buffers are ready before any peer writes into them
-  cluster.sync();
-
-  PROBE_START
-  float* hcur = hbuf0;
-  float* hnext = hbuf1;
-  for (int s = 0; s < d.t; ++s) {
-    // checkpoint the float32 carry entering each chunk
-    if (hck != nullptr && s % tc == 0) {
-      const int64_t ck = static_cast<int64_t>(s / tc) * d.b * n;
-#pragma unroll
-      for (int i = 0; i < kPairs; ++i) {
-        if (!pok[i]) continue;
-        hck[ck + static_cast<int64_t>(prow[i]) * n + punit[i]] = hreg[i];
-        cck[ck + static_cast<int64_t>(prow[i]) * n + punit[i]] = creg[i];
+      if (hck != nullptr) {  // the carry entering chunk 0
+        hck[at] = hreg[i];
+        cck[at] = creg[i];
       }
     }
-    // zx and mask of this step, loaded before the product hides their
-    // latency behind it
-    float zxv[kPairs][4];
-    bool live[kPairs];
+  }
+  float zxv[kPairs][4];
+  bool live[kPairs];
+  auto load_step = [&](int s) {
 #pragma unroll
     for (int i = 0; i < kPairs; ++i) {
       live[i] = true;
 #pragma unroll
       for (int g = 0; g < 4; ++g) zxv[i][g] = 0.0f;
-      if (pok[i]) {
-        const int64_t row = (static_cast<int64_t>(prow[i]) * d.t + s) * n4;
+      if (!pok[i]) continue;
+      const int64_t row = (static_cast<int64_t>(prow[i]) * d.t + s) * n4;
 #pragma unroll
-        for (int g = 0; g < 4; ++g)
-          zxv[i][g] = to_float(zx[row + g * n + punit[i]]);
-        if (mask != nullptr)
-          live[i] = mask[static_cast<int64_t>(prow[i]) * d.t + s] > 0.0f;
-      }
+      for (int g = 0; g < 4; ++g)
+        zxv[i][g] = to_float(zx[row + g * n + punit[i]]);
+      if (mask != nullptr)
+        live[i] = mask[static_cast<int64_t>(prow[i]) * d.t + s] > 0.0f;
     }
-    PROBE(0)  // checkpoints, zx and mask loads issued
+  };
+  load_step(0);
+  // every block's buffers and mbarriers are ready before any peer sends
+  cluster.sync();
+  PROBE_START
 
-    // (1) part[kg][r][c] = sum over this group's k of h[r][k] * R[k][c]
-    if (tile_ok) {
-      float acc[kRows][kCols];
+  for (int s = 0; s < d.t; ++s) {
+    const int buf = s & 1;
+    const float* hin = hrecv + buf * kRows * HW;
+    // (1) h_{s-1} from every block (h0 was loaded by each block itself)
+    if (s > 0) mbar_wait(&bars[buf], ((s - 1) >> 1) & 1);
+    PROBE(0)  // waiting for h
+    // (2) its TF32 parts, [row][unit][hi, lo]
+    for (int e = 4 * tid; e < kRows * HW; e += 4 * kThreads) {
+      const float4 v = *reinterpret_cast<const float4*>(hin + e);
+      uint32_t hi[4], lo[4];
+      split_tf32(bits(v.x), hi[0], lo[0]);
+      split_tf32(bits(v.y), hi[1], lo[1]);
+      split_tf32(bits(v.z), hi[2], lo[2]);
+      split_tf32(bits(v.w), hi[3], lo[3]);
+      float4* dst = reinterpret_cast<float4*>(hpart + (e / HW) * HP +
+                                              2 * (e % HW));
+      dst[0] = make_float4(value(hi[0]), value(lo[0]), value(hi[1]),
+                           value(lo[1]));
+      dst[1] = make_float4(value(hi[2]), value(lo[2]), value(hi[3]),
+                           value(lo[3]));
+    }
+    __syncthreads();
+    // every thread is past the wait: the mbarrier's next phase may start
+    if (s > 0 && tid == 0) mbar_expect(&bars[buf], bytes);
+    PROBE(1)  // the split and its barrier
+
+    // (3) part[kw][r][c] = sum over this share's k of h[r][k] R[k][c]
+    auto put = [&](float acc[NT][4], int share, int m0) {
+      float* pw = part + share * kRows * CP + m0 + g8;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
+      for (int nt = 0; nt < NT; ++nt) {
+        const int r = nt * 8 + 2 * t4;
+        pw[r * CP] = acc[nt][0];
+        pw[(r + 1) * CP] = acc[nt][1];
+        pw[r * CP + 8] = acc[nt][2];
+        pw[(r + 1) * CP + 8] = acc[nt][3];
+      }
+    };
+    if (RESIDENT) {
+      float acc[NT][4] = {};
 #pragma unroll
-        for (int i = 0; i < kCols; ++i) acc[r][i] = 0.0f;
-      for (int k = k_lo; k < k_hi; k += 4) {
-        float4 h4[kRows];
+      for (int f = 0; f < kF; ++f) {
+        if (f < kc) {
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          h4[r] = *reinterpret_cast<const float4*>(&hcur[r * NP + k]);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          float4 rv;
-          if (RESIDENT) {
-            rv = *reinterpret_cast<const float4*>(&Rs[(k + kk) * C + col0]);
-          } else {
-            const bool in = k + kk < n;
-            const T* row = R + (k + kk) * n4;
-            rv.x = in && rok[0] ? to_float(row[rofs[0]]) : 0.0f;
-            rv.y = in && rok[1] ? to_float(row[rofs[1]]) : 0.0f;
-            rv.z = in && rok[2] ? to_float(row[rofs[2]]) : 0.0f;
-            rv.w = in && rok[3] ? to_float(row[rofs[3]]) : 0.0f;
-          }
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float hv = kk == 0   ? h4[r].x
-                             : kk == 1 ? h4[r].y
-                             : kk == 2 ? h4[r].z
-                                       : h4[r].w;
-            acc[r][0] = fmaf(hv, rv.x, acc[r][0]);
-            acc[r][1] = fmaf(hv, rv.y, acc[r][1]);
-            acc[r][2] = fmaf(hv, rv.z, acc[r][2]);
-            acc[r][3] = fmaf(hv, rv.w, acc[r][3]);
-          }
+          for (int nt = 0; nt < NT; ++nt)
+            k8_step<kSplitR>(acc[nt], ah[f], al[f],
+                             hpart + (nt * 8 + g8) * HP, (ks0 + f) * 8, t4);
         }
       }
+      put(acc, kw, mt * 16);
+    } else {
+      for (int m = warp; m < d.MT; m += kWarps) {
+        const int m0 = m * 16;
+        float acc[NT][4] = {};
+#pragma unroll 2
+        for (int ks = 0; ks < d.KS; ++ks) {
+          const int k0 = ks * 8;
+          float a[4];
+          a[0] = r_at(k0 + t4, m0 + g8);
+          a[1] = r_at(k0 + t4, m0 + g8 + 8);
+          a[2] = r_at(k0 + t4 + 4, m0 + g8);
+          a[3] = r_at(k0 + t4 + 4, m0 + g8 + 8);
+          uint32_t a_hi[4], a_lo[4];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        *reinterpret_cast<float4*>(&part[(kg * kRows + r) * C + col0]) =
-            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+          for (int j = 0; j < 4; ++j) {
+            if (kSplitR) {
+              split_tf32(bits(a[j]), a_hi[j], a_lo[j]);
+            } else {
+              a_hi[j] = bits(a[j]);
+              a_lo[j] = 0u;
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            k8_step<kSplitR>(acc[nt], a_hi, a_lo,
+                             hpart + (nt * 8 + g8) * HP, k0, t4);
+        }
+        put(acc, 0, m0);
+      }
     }
-    PROBE(1)  // the product
+    PROBE(2)  // the product
     __syncthreads();
-    PROBE(2)  // its barrier
+    PROBE(3)  // its barrier
 
-    // (2) the cell, one thread per (row, unit)
+    // (4) the cell, one thread per (row, unit)
     float h_out[kPairs];
 #pragma unroll
     for (int i = 0; i < kPairs; ++i) {
       h_out[i] = 0.0f;
       if (!pok[i]) continue;
-      const int pidx = tid + i * kThreads;
-      const int r = pidx / J, j = pidx % J;
       float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int g2 = 0; g2 < d.KS; ++g2) {
-        const float* pz = part + (g2 * kRows + r) * C + j;
+      for (int w = 0; w < d.KW; ++w) {
+        const float* pz = part + (w * kRows + pr[i]) * CP + pj[i];
 #pragma unroll
         for (int g = 0; g < 4; ++g) z[g] += pz[g * J];
       }
@@ -339,29 +540,44 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
       hreg[i] = h_new;
       creg[i] = c_new;
     }
-    PROBE(3)  // partial sums and the cell
+    PROBE(4)  // the cell
+
+    // (5) h_s to every block of the cluster (none needs the last step's)
+    if (s + 1 < d.t) {
+      float* next = hrecv + (buf ^ 1) * kRows * HW;
 #pragma unroll
-    for (int i = 0; i < kPairs; ++i)
-      if (pok[i])
-        store_as(hs + (static_cast<int64_t>(prow[i]) * d.t + s) * n +
-                     punit[i],
-                 h_out[i]);
-    PROBE(4)  // hs stores
+      for (int i = 0; i < kPairs; ++i) {
+        if (!pin[i]) continue;
+        const int base = lane & ~3;
+        const float4 v = make_float4(
+            __shfl_sync(0xffffffffu, hreg[i], base),
+            __shfl_sync(0xffffffffu, hreg[i], base + 1),
+            __shfl_sync(0xffffffffu, hreg[i], base + 2),
+            __shfl_sync(0xffffffffu, hreg[i], base + 3));
+        const float* dst = next + pr[i] * HW + u0 + (pj[i] & ~3);
+        for (int peer = t4; peer < d.cl; peer += 4)
+          st_async4(peer_addr(dst, peer), v,
+                    peer_addr(&bars[buf ^ 1], peer));
+      }
+    }
+    PROBE(5)  // the sends
+
+    // (6) outputs and the next step's loads, while h_s travels
 #pragma unroll
     for (int i = 0; i < kPairs; ++i) {
       if (!pok[i]) continue;
-      const int r = (tid + i * kThreads) / J;
-#pragma unroll
-      for (int peer = 0; peer < kCluster; ++peer)
-        cluster.map_shared_rank(hnext, peer)[r * NP + punit[i]] = hreg[i];
+      store_as(hs + (static_cast<int64_t>(prow[i]) * d.t + s) * n + punit[i],
+               h_out[i]);
+      if (hck != nullptr && (s + 1) % d.tc == 0 && s + 1 < d.t) {
+        const int64_t at =
+            (static_cast<int64_t>((s + 1) / d.tc) * d.b + prow[i]) * n +
+            punit[i];
+        hck[at] = hreg[i];
+        cck[at] = creg[i];
+      }
     }
-    PROBE(5)  // the DSMEM broadcast
-    // (3) h_t is in every block's next buffer; part and hcur are free again
-    cluster.sync();
-    PROBE(6)  // the cluster barrier
-    float* tmp = hcur;
-    hcur = hnext;
-    hnext = tmp;
+    if (s + 1 < d.t) load_step(s + 1);
+    PROBE(6)  // stores and the next step's loads
   }
   PROBE_END(7, d.t)
 
@@ -372,81 +588,175 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
     store_as(hT + at, hreg[i]);
     store_as(cT + at, creg[i]);
   }
+  // no block leaves while a peer may still address its shared memory
+  cluster_arrive();
+  cluster_wait();
 }
 
-Dims make_dims(int64_t b, int64_t t, int64_t n) {
-  Dims d;
-  d.b = static_cast<int>(b);
-  d.t = static_cast<int>(t);
-  d.n = static_cast<int>(n);
-  d.J = (d.n + kCluster - 1) / kCluster;
-  d.C = 4 * d.J;
-  d.NP = (d.n + 3) & ~3;
-  d.TPG = (d.C + kCols - 1) / kCols;
-  d.KS = kThreads / d.TPG;
-  d.KC = (((d.NP + d.KS - 1) / d.KS) + 3) & ~3;
-  return d;
+// Above 48 KB a block's shared memory must be asked for, and a cluster of
+// 16 blocks allowed, per kernel and device. The calls cost host time, and a
+// training step of the char-RNN is host-bound: ask once.
+template <auto kKernel>
+cudaError_t prepare(int device, int optin) {
+  static std::atomic<bool> done[64];
+  if (device >= 0 && device < 64 && done[device].load()) return cudaSuccess;
+  g_queries[0] += 2;
+  cudaError_t err = cudaFuncSetAttribute(
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kKernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && device >= 0 && device < 64) done[device] = true;
+  return err;
 }
 
-size_t smem_bytes(const Dims& d, bool resident) {
-  size_t floats = 2 * static_cast<size_t>(kRows) * d.NP +
-                  static_cast<size_t>(d.KS) * kRows * d.C;
-  if (resident) floats += static_cast<size_t>(d.NP) * d.C;
-  return floats * sizeof(float);
+cudaLaunchConfig_t config(int cl, int tiles, size_t bytes,
+                          cudaStream_t stream, cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cl;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, tiles);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
-template <typename T, bool RESIDENT>
+// How many clusters of 8 and of 16 blocks the card runs at once, every
+// block on an SM of its own: asked once per device (of the resident
+// kernel; every launch takes an SM per block, so the count holds for all)
+cudaError_t active_clusters(int device, int optin, int* a8, int* a16) {
+  static std::atomic<int> known[64][2];  // count + 1, 0 until asked
+  if (device >= 0 && device < 64 && known[device][0].load() > 0 &&
+      known[device][1].load() > 0) {
+    *a8 = known[device][0].load() - 1;
+    *a16 = known[device][1].load() - 1;
+    return cudaSuccess;
+  }
+  constexpr auto kernel = lstm_scan_kernel<float, 1, true>;
+  cudaError_t err = prepare<kernel>(device, optin);
+  int got[2] = {0, 0};
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        config(8 << i, 1, kOwnSm, nullptr, &attr);
+    g_queries[1] += 1;
+    err = cudaOccupancyMaxActiveClusters(&got[i], kernel, &cfg);
+  }
+  if (err != cudaSuccess) return err;
+  if (device >= 0 && device < 64) {
+    known[device][0] = got[0] + 1;
+    known[device][1] = got[1] + 1;
+  }
+  *a8 = got[0];
+  *a16 = got[1];
+  return cudaSuccess;
+}
+
+template <typename T, int NT, bool RESIDENT>
 cudaError_t launch_one(const void* zx, const void* R, const void* p,
                        const float* mask, const void* h0, const void* c0,
                        void* hs, void* hT, void* cT, float* hck, float* cck,
-                       int tc, const Dims& d, size_t bytes, int device,
+                       const Dims& d, int tiles, size_t bytes, int device,
                        int optin, cudaStream_t stream) {
-  // above 48 KB a block's shared memory must be asked for, once per kernel
-  // and device: up to the device's limit, which covers every n
-  cudaError_t err = allow_smem<lstm_scan_kernel<T, RESIDENT>>(device, optin);
+  constexpr auto kernel = lstm_scan_kernel<T, NT, RESIDENT>;
+  cudaError_t err = prepare<kernel>(device, optin);
   if (err != cudaSuccess) return err;
-  // the cluster shape is the kernel's own (__cluster_dims__): grid x is
-  // exactly one cluster, grid y one cluster per batch tile
-  const dim3 grid(kCluster, (d.b + kRows - 1) / kRows);
-  lstm_scan_kernel<T, RESIDENT><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(zx), static_cast<const T*>(R),
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(d.cl, tiles, bytes, stream, &attr);
+  return cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(zx), static_cast<const T*>(R),
       static_cast<const T*>(p), mask, static_cast<const T*>(h0),
       static_cast<const T*>(c0), static_cast<T*>(hs), static_cast<T*>(hT),
-      static_cast<T*>(cT), hck, cck, tc, d);
-  return cudaGetLastError();
+      static_cast<T*>(cT), hck, cck, d);
+}
+
+cudaError_t device_plan(int64_t b, int64_t n, int device, int* optin,
+                        Plan* pl) {
+  cudaError_t err = cudaDeviceGetAttribute(
+      optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  int a8 = 0, a16 = 0;
+  if (err == cudaSuccess) err = active_clusters(device, *optin, &a8, &a16);
+  if (err == cudaSuccess) *pl = plan_for(b, n, a8, a16);
+  return err;
 }
 
 template <typename T>
 cudaError_t launch_typed(const void* zx, const void* R, const void* p,
                          const float* mask, const void* h0, const void* c0,
                          void* hs, void* hT, void* cT, float* hck,
-                         float* cck, int tc, const Dims& d, int device,
-                         cudaStream_t stream) {
+                         float* cck, int64_t b, int64_t t, int64_t n,
+                         int64_t tc, int device, cudaStream_t stream) {
   int optin = 0;
-  cudaError_t err = cudaDeviceGetAttribute(
-      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  Plan pl;
+  cudaError_t err = device_plan(b, n, device, &optin, &pl);
   if (err != cudaSuccess) return err;
-  const size_t resident = smem_bytes(d, true);
-  if (resident <= static_cast<size_t>(optin))
-    return launch_one<T, true>(zx, R, p, mask, h0, c0, hs, hT, cT, hck,
-                               cck, tc, d, resident, device, optin, stream);
-  return launch_one<T, false>(zx, R, p, mask, h0, c0, hs, hT, cT, hck, cck,
-                              tc, d, smem_bytes(d, false), device, optin,
-                              stream);
+  if (pl.active < 1 || pl.tiles > 65535) return cudaErrorInvalidValue;
+  const Dims d = make_dims(b, t, n, tc, pl);
+  const size_t bytes = smem_bytes(d, pl.rows);
+  if (bytes > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+  if (!pl.resident)
+    return launch_one<T, 1, false>(zx, R, p, mask, h0, c0, hs, hT, cT, hck,
+                                   cck, d, pl.tiles, bytes, device, optin,
+                                   stream);
+  if (pl.rows == 16)
+    return launch_one<T, 2, true>(zx, R, p, mask, h0, c0, hs, hT, cT, hck,
+                                  cck, d, pl.tiles, bytes, device, optin,
+                                  stream);
+  return launch_one<T, 1, true>(zx, R, p, mask, h0, c0, hs, hT, cT, hck, cck,
+                                d, pl.tiles, bytes, device, optin, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Whether the launch for (n, dtype) keeps its slice of R in shared memory
-// (1) or reads it from L2 every step (0); negative on a CUDA error.
+// Whether the plan for width n keeps R's slices on chip (in registers) for
+// all steps (1) or reads them from L2 every step (0).
 int lstm_scan_resident(int64_t n, int device) {
+  (void)device;
+  return n <= kRegN;
+}
+
+// The plan for (b, n) on a card that runs `active8` clusters of 8 blocks and
+// `active16` of 16 at once: out = {blocks per cluster, batch rows per
+// cluster, batch tiles (clusters), R resident, clusters of that size the
+// card runs at once}.
+void lstm_scan_plan_for(int64_t b, int64_t n, int active8, int active16,
+                        int* out) {
+  const Plan pl = plan_for(b, n, active8, active16);
+  out[0] = pl.cl;
+  out[1] = pl.rows;
+  out[2] = pl.tiles;
+  out[3] = pl.resident;
+  out[4] = pl.active;
+}
+
+// As lstm_scan_plan_for, with the counts of `device` (asked once per
+// device); returns the CUDA error code.
+int lstm_scan_plan(int64_t b, int64_t n, int device, int* out) {
   int optin = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(
-      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  return smem_bytes(make_dims(1, 1, n), true) <= static_cast<size_t>(optin);
+  Plan pl;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const cudaError_t err = device_plan(b, n, device, &optin, &pl);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = pl.cl;
+  out[1] = pl.rows;
+  out[2] = pl.tiles;
+  out[3] = pl.resident;
+  out[4] = pl.active;
+  return 0;
+}
+
+// How often this library has called cudaFuncSetAttribute (kind 0) and
+// cudaOccupancyMaxActiveClusters (kind 1) since it was loaded.
+int lstm_scan_queries(int kind) {
+  return kind == 0 || kind == 1 ? g_queries[kind].load() : -1;
 }
 
 // Both entry points: zx [b, t, 4n], R [n, 4n], p [3, n] or null, h0/c0
@@ -460,23 +770,21 @@ static int launch_any(const void* zx, const void* R, const void* p,
                       int64_t b, int64_t t, int64_t n, int64_t tc, int dtype,
                       int device, void* stream) {
   if (b <= 0 || t <= 0) return 0;
-  if (n <= 0 || n > kMaxN || t > 0x7fffffff ||
-      (b + kRows - 1) / kRows > 65535 || tc <= 0 || tc > 0x7fffffff)
+  if (n <= 0 || n > kMaxN || t > 0x7fffffff || b > 0x7fffffff || tc <= 0 ||
+      tc > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   // this library carries its own CUDA runtime, whose current device is
   // per thread and independent of PyTorch's
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const Dims d = make_dims(b, t, n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mask);
-  const int c = static_cast<int>(tc);
   if (dtype == 0)
     return static_cast<int>(launch_typed<float>(
-        zx, R, p, m, h0, c0, hs, hT, cT, hck, cck, c, d, device, s));
+        zx, R, p, m, h0, c0, hs, hT, cT, hck, cck, b, t, n, tc, device, s));
   if (dtype == 1)
     return static_cast<int>(launch_typed<__nv_bfloat16>(
-        zx, R, p, m, h0, c0, hs, hT, cT, hck, cck, c, d, device, s));
+        zx, R, p, m, h0, c0, hs, hT, cT, hck, cck, b, t, n, tc, device, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -485,7 +793,7 @@ int lstm_scan_launch(const void* zx, const void* R, const void* p,
                      void* hs, void* hT, void* cT, int64_t b, int64_t t,
                      int64_t n, int dtype, int device, void* stream) {
   return launch_any(zx, R, p, mask, h0, c0, hs, hT, cT, nullptr, nullptr, b,
-                    t, n, 1, dtype, device, stream);
+                    t, n, t, dtype, device, stream);
 }
 
 // As lstm_scan_launch, and also the float32 checkpoints hck, cck
@@ -509,8 +817,8 @@ const char* lstm_scan_error_string(int code) {
 
 #ifdef LSTM_FWD_PROBES
 const char* lstm_scan_probe_names() {
-  return "checkpoints, zx loads;product;sync;partial sums + cell;hs stores;"
-         "DSMEM broadcast;cluster barrier";
+  return "wait for h;split h + sync;product;sync;cell;send h;"
+         "stores, next loads";
 }
 int lstm_scan_probe_reset() {
   const unsigned long long zero[16] = {0};

@@ -288,8 +288,16 @@ def _setup_fwd(lib):
     lib.lstm_scan_chunked_launch.argtypes = [ctypes.c_void_p] * 11 + sizes \
         + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.lstm_scan_resident.argtypes = [ctypes.c_int64, ctypes.c_int]
+    lib.lstm_scan_plan.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                                   ctypes.c_int, ctypes.c_void_p]
+    lib.lstm_scan_plan_for.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p]
+    lib.lstm_scan_plan_for.restype = None
+    lib.lstm_scan_queries.argtypes = [ctypes.c_int]
     for fn in (lib.lstm_scan_launch, lib.lstm_scan_chunked_launch,
-               lib.lstm_scan_resident):
+               lib.lstm_scan_resident, lib.lstm_scan_plan,
+               lib.lstm_scan_queries):
         fn.restype = ctypes.c_int
     lib.lstm_scan_error_string.argtypes = [ctypes.c_int]
     lib.lstm_scan_error_string.restype = ctypes.c_char_p
@@ -318,8 +326,9 @@ def _bwd_lib():
 
 def resident(n: int, device=None, backward: bool = False) -> bool:
     """Whether the forward (or, with backward=True, the backward) kernel
-    keeps its slice of R in shared memory for all steps at hidden width n
-    (else it reads R from L2 every step)."""
+    keeps its slice of R on chip for all steps at hidden width n (the
+    forward in registers, the backward in shared memory; else it reads R
+    from L2 every step)."""
     dev = torch.device("cuda" if device is None else device)
     got = (_bwd_lib().lstm_scan_bwd_resident if backward
            else _fwd_lib().lstm_scan_resident)(n, dev.index or 0)
@@ -327,6 +336,28 @@ def resident(n: int, device=None, backward: bool = False) -> bool:
         raise RuntimeError(f"lstm_scan: CUDA error {-got} reading the "
                            f"device's shared-memory limit")
     return bool(got)
+
+
+PLAN_KEYS = ("cluster", "rows", "tiles", "resident", "active")
+
+
+def plan(b: int, n: int, device=None, active=None) -> dict:
+    """The forward kernel's launch plan for b rows of width n: blocks per
+    cluster, batch rows per cluster, batch tiles (clusters), whether R's
+    slices stay on chip, and how many clusters of that size the card runs
+    at once. `active` = (clusters of 8, clusters of 16) the card runs at
+    once, asked of the device (once per device) when None."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    lib = _fwd_lib()
+    if active is None:
+        dev = torch.device("cuda" if device is None else device)
+        err = lib.lstm_scan_plan(b, n, dev.index or 0, out)
+        if err != 0:
+            raise RuntimeError(f"lstm_scan: CUDA error {err} asking the "
+                               f"device's cluster occupancy")
+    else:
+        lib.lstm_scan_plan_for(b, n, active[0], active[1], out)
+    return dict(zip(PLAN_KEYS, out))
 
 
 def _check_like(name, x, shape, like, dtype=None):
