@@ -42,13 +42,21 @@ Phases, in order; any failure exits non-zero without the final line:
   7. kernel-lstm  lstm_scan against its plain version on the card at the
               TextGenerationLSTM path's shapes (served and trained (64, 64,
               256) peephole, rnn_time_step (64, 1, 256), the tBPTT window
-              (32, 50, 256)) and at edge cases
-              (plain cell, masked with a fully masked row, ragged (3, 7,
-              12), long t (8, 1024, 256), wide n (16, 64, 512)), float32
-              and bfloat16, nonzero h0/c0: max error against the stated
-              tolerance, kernel / plain / library times, the bound; and
-              the port's LSTM layer (projection + kernel) beside
-              torch.nn.LSTM (cuDNN) for the plain cell.
+              (32, 50, 256)), at edge cases (plain cell, masked with a
+              fully masked row, ragged (3, 7, 12), long t (8, 1024, 256),
+              wide n (16, 64, 512)) and at the launch plan's edges (b = 200:
+              batch tiles beyond one wave; n = 1000: not a multiple of 16,
+              R read from L2; b = 3 at n = 256; the plain cell at (8, 4096,
+              256)), float32 and bfloat16, nonzero h0/c0: each case's plan
+              (blocks per cluster, rows per cluster, clusters, R resident),
+              max error against the stated tolerance, kernel / plain times,
+              us per step, the bound (the recurrent products on the tensor
+              cores: 3xTF32 in float32, two TF32 products in bfloat16, the
+              CUDA-core bound beside it on the log) and the kernel's share
+              of it; torch.nn.LSTM's forward (cuDNN, plain cell, input
+              projection included, TF32 off) at (64, 64, 256) as the
+              library time; and the port's LSTM layer (projection + kernel)
+              beside torch.nn.LSTM for the plain cell.
   8. serve-rnn    zoo TextGenerationLSTM (77 characters, 64 steps, two
               GravesLSTM(256), random weights from a seed) behind
               InferenceServer (batch_limit 64), warmed up, answering
@@ -111,11 +119,14 @@ Phases, in order; any failure exits non-zero without the final line:
               last chunk at t = 1000, n = 512 and 1024), float32 and
               bfloat16, nonzero h0/c0, cotangents of order 1: each output
               against its tolerance x its largest magnitude (a zeroed dzx,
-              dR or dp, a dR without one chunk's part and a dzx with one
-              chunk stale must fail), kernel / plain / library
-              (torch.nn.LSTM backward, cuDNN, plain cell) times, us per
-              step, the bound (the backward's products as 3xTF32 on the
-              tensor cores in float32) and the kernel's share of it.
+              dR or dp, a dR without one chunk's part, a dzx with one chunk
+              stale, an hs whose units of one block lag one step, an hck
+              holding the next chunk's checkpoint and a cT from the last
+              step of a masked row must fail), kernel / plain / library
+              (torch.nn.LSTM, cuDNN, plain cell: its forward for the
+              chunked forward, its backward for the backward kernels)
+              times, us per step, the bound (every product on the tensor
+              cores: 3xTF32 in float32) and the kernel's share of it.
  16. train-rnn    zoo TextGenerationLSTM at full width (two GravesLSTM(256),
               77 characters), RmsProp(1e-2), l2 1e-4, trained by
               MultiLayerNetwork.fit for 20 BPTT steps on one repeated batch
@@ -803,6 +814,11 @@ LSTM_CASES = [
     (3, 7, 12, True, True),         # ragged small
     (8, 1024, 256, False, False),   # long t (the JAX chunked kernel's)
     (16, 64, 512, True, False),     # wide n: R read from L2 every step
+    # the launch plan's edges
+    (200, 32, 256, True, False),    # batch tiles beyond one wave
+    (8, 64, 1000, True, False),     # n not a multiple of 16, R from L2
+    (3, 64, 256, True, False),      # one tile, mostly pad rows
+    (8, 4096, 256, False, False),   # plain cell at the long path's shape
 ]
 LSTM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # x max(1, max|plain|)
 
@@ -826,7 +842,27 @@ def lstm_case_inputs(torch, gen, b, t, n, dtype, peephole, masked):
     return zx, R, p, h0, c0, mask
 
 
-def phase_lstm(torch, bw, peak, peak_bf16):
+def lstm_plan_text(lstm_ops, b, n):
+    pl = lstm_ops.plan(b, n)
+    return (f"plan {pl['cluster']} blocks x {pl['units']} units, "
+            f"{pl['rows']} rows, {pl['tiles']} clusters of {pl['active']} "
+            f"at once, R {'in registers' if pl['resident'] else 'from L2'}")
+
+
+def lstm_fwd_bound(b, t, n, dtype, bw, peak, peak_tf32, moved):
+    """(bound ms, bound_by, basis, CUDA-core bound ms) of the forward: its
+    recurrent products on the tensor cores, three TF32 products each in
+    float32 (3xTF32), two in bfloat16 (R is exact in TF32, h is not)."""
+    ops = 2 * b * n * 4 * n * t
+    products = 3 if dtype == "float32" else 2
+    tensor = products * ops / peak_tf32
+    b_ms = max(moved / bw, tensor) * 1e3
+    by = "bytes" if moved / bw >= tensor else "operations"
+    return (b_ms, by, f"{products} TF32 products",
+            max(moved / bw, ops / peak) * 1e3)
+
+
+def phase_lstm(torch, bw, peak, peak_tf32):
     """lstm_scan against its plain version at LSTM_CASES, float32 and
     bfloat16. Returns the served case's float32 row (per launch) and the
     largest absolute error of any case."""
@@ -834,7 +870,13 @@ def phase_lstm(torch, bw, peak, peak_bf16):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     served, max_err, checked = None, 0.0, 0
+    b, t, n = LSTM_CASES[0][:3]
+    lib_ms = lstm_library_fwd_ms(torch, b, t, n)
+    log(f"[kernel-lstm] library: torch.nn.LSTM forward (cuDNN, plain cell, "
+        f"input projection included, TF32 off) at ({b}, {t}, {n}) float32 "
+        f"{lib_ms:.4f} ms ({lib_ms * 1e3 / t:.2f} us/step)")
     for b, t, n, peephole, masked in LSTM_CASES:
+        log(f"[kernel-lstm] b={b} n={n}: {lstm_plan_text(lstm_ops, b, n)}")
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype)[6:]
             item = torch.empty((), dtype=dtype).element_size()
@@ -876,34 +918,63 @@ def phase_lstm(torch, bw, peak, peak_bf16):
                                      "not keep its carry")
             max_err = max(max_err, err)
             checked += 1
-            k_ms = device_ms(torch, kernel, nbuf)
+            k_ms = device_ms(torch, kernel, nbuf,
+                             iters=max(3, min(ITERS, 6400 // t)))
             p_ms = device_ms(torch, plain, nbuf,
                              iters=max(2, min(ITERS, 3200 // t)))
             moved = (b * t * 5 * n + 4 * n * n + 4 * b * n
                      + (3 * n if peephole else 0)) * item \
                 + (4 * b * t if masked else 0)
-            ops = 2 * b * n * 4 * n * t
-            rate = peak if dtype == torch.float32 else peak_bf16
-            b_ms = max(moved / bw, ops / rate) * 1e3
-            by = "bytes" if moved / bw >= ops / rate else "operations"
-            log(f"[kernel-lstm] lstm_scan {dname:8s} b={b:2d} t={t:4d} "
-                f"n={n:3d} {'peephole' if peephole else 'plain   '} "
-                f"{'masked' if masked else '      '} resident="
-                f"{int(lstm_ops.resident(n))}  max_err={err:.3g} (tol "
-                f"{LSTM_TOL[dname]:g} x {mag:.3g})  kernel={k_ms:.4f} ms  "
-                f"plain={p_ms:.4f} ms  library=none{' (peepholes)' if peephole else ''}"
-                f"  bound={b_ms:.4f} ms ({by})")
-            if (b, t, n, peephole, masked) == LSTM_CASES[0] and \
-                    dtype == torch.float32:
-                served = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None,
-                          "bound_ms": b_ms, "bound_by": by}
+            b_ms, by, basis, core_ms = lstm_fwd_bound(b, t, n, dname, bw,
+                                                      peak, peak_tf32, moved)
+            served_case = (b, t, n, peephole, masked) == LSTM_CASES[0]
+            lib = (f"{lib_ms:.4f} ms [torch.nn.LSTM forward, plain cell]"
+                   if served_case and dtype == torch.float32 else "-")
+            log(f"[kernel-lstm] lstm_scan {dname:8s} b={b:3d} t={t:4d} "
+                f"n={n:4d} {'peephole' if peephole else 'plain   '} "
+                f"{'masked' if masked else '      '}  max_err={err:.3g} (tol "
+                f"{LSTM_TOL[dname]:g} x {mag:.3g})  kernel={k_ms:.4f} ms "
+                f"({k_ms * 1e3 / t:.2f} us/step)  plain={p_ms:.4f} ms  "
+                f"library={lib}  bound={b_ms:.4f} ms ({by}, {basis}; "
+                f"{100 * b_ms / k_ms:.1f}% of it; CUDA-core bound "
+                f"{core_ms:.4f} ms)")
+            if served_case and dtype == torch.float32:
+                served = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                          "bound_ms": b_ms, "bound_by": by,
+                          "library_covers": (
+                              "torch.nn.LSTM forward (cuDNN): the plain "
+                              "cell, no peepholes, its input projection "
+                              "included")}
             del sets
     log(f"[kernel-lstm] verdict: lstm_scan agrees with its plain version in "
         f"{checked}/{checked} (shape, dtype) cases, max abs error "
         f"{max_err:.3g} (tol float32 1e-5, bfloat16 2e-2, x max(1, "
-        f"max|plain|))")
+        f"max|plain|)); at (64, 64, 256) float32 {served['ms']:.4f} ms per "
+        f"launch ({served['ms'] * 1e3 / 64:.3f} us/step), torch.nn.LSTM "
+        f"forward {lib_ms:.4f} ms, bound {served['bound_ms']:.4f} ms "
+        f"({100 * served['bound_ms'] / served['ms']:.1f}% of it)")
     phase_lstm_library(torch)
     return served, max_err
+
+
+def lstm_library_fwd_ms(torch, b, t, n):
+    """torch.nn.LSTM's forward (cuDNN, plain cell, its input projection
+    included) at (b, t, n), input width n, float32, TF32 off."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lstm = torch.nn.LSTM(n, n, batch_first=True).to(dev)
+    nbuf = max(1, min(8, math.ceil(2 * L2_BYTES / (b * t * n * 4 * 2))))
+    runs = [(torch.randn((b, t, n), generator=gen, device=dev),
+             tuple(torch.randn((1, b, n), generator=gen, device=dev)
+                   for _ in range(2))) for _ in range(nbuf)]
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            return device_ms(torch, lambda i: lstm(*runs[i]), nbuf,
+                             iters=max(3, min(ITERS, 6400 // t)))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 def phase_lstm_library(torch):
@@ -1755,16 +1826,55 @@ def lstm_bwd_broken(torch, s, got, ref, tc):
     return [what for _, what, _ in broken]
 
 
+def lstm_fwd_reject(what, out, ref):
+    tol = LSTM_BWD_TOL[("fwd", str(ref.dtype)[6:])]
+    if lstm_disagrees(out, ref, tol)[1] is None:
+        raise AssertionError(f"kernel-lstm-bwd cannot tell a {what} from "
+                             f"the plain forward")
+    return what
+
+
+def lstm_fwd_broken(torch, lstm_ops, s, ref):
+    """Broken chunked forward outputs that the comparison must reject: hs
+    whose units of one block (the plan's second) lag one step, as a block
+    that read last step's h would give; hck whose chunk 0 holds chunk 1's
+    checkpoint."""
+    hs, hck = s["fwd"][0], s["fwd"][3]
+    b, t, n = hs.shape
+    j = lstm_ops.plan(b, n)["units"]
+    lag = hs.clone()
+    lag[:, 1:, j:2 * j] = hs[:, :-1, j:2 * j]
+    stale = hck.clone()
+    stale[0] = hck[1]
+    return [lstm_fwd_reject("hs whose units of block 1 lag one step", lag,
+                            ref[0]),
+            lstm_fwd_reject("hck holding the next chunk's checkpoint", stale,
+                            ref[3])]
+
+
+def lstm_masked_cT_broken(torch, lstm_ops, s, ref):
+    """A cT that took the last step of a masked row (the carry run on
+    through its masked steps) must be rejected."""
+    rows = [r for r in range(s["m"].shape[0]) if not bool(s["m"][r, -1] > 0)]
+    if not rows:
+        return []
+    live = lstm_ops.lstm_scan_chunked_reference(
+        s["zx"], s["R"], s["h0"], s["c0"], s["p"], None)
+    cT = s["fwd"][2].clone()
+    cT[rows] = live[2][rows]
+    return [lstm_fwd_reject("cT from the last step of a masked row", cT,
+                            ref[2])]
+
+
 def phase_lstm_bwd(torch, bw, peak, peak_tf32):
     """Rows 6 (lstm_scan_bwd), 7 (lstm_scan_chunked) and 8
     (lstm_scan_chunked_bwd) against their plain versions at LSTM_BWD_CASES,
     float32 and bfloat16, from the same inputs (row 6 reads the chunked
     forward's hs, row 8 its checkpoints). Returns each kernel's float32 row
     at its path's shape (per launch) and its largest absolute error. The
-    backward's bound counts its three products on the tensor cores: as
-    3xTF32 in float32, two TF32 products each in bfloat16 (R, or hs, is
-    exact in TF32; h or dz is not) but one for row 6's z without a mask
-    (hs and R); the forward's (row 7) runs on the CUDA cores."""
+    bounds count every product on the tensor cores: as 3xTF32 in float32,
+    two TF32 products each in bfloat16 (R, or hs, is exact in TF32; h or dz
+    is not) but one for row 6's z without a mask (hs and R)."""
     from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1772,11 +1882,15 @@ def phase_lstm_bwd(torch, bw, peak, peak_tf32):
     names_fwd = ("hs", "hT", "cT", "hck", "cck")
     names_bwd = ("dzx", "dR", "dp", "dh0", "dc0")
     rows, worst, checked = {}, dict.fromkeys(LSTM_PATH_CASES, 0.0), 0
+    rejected_c = []
     for case in LSTM_BWD_CASES:
         b, t, n, peephole, masked = case
         nt = -(-t // lstm_ops.CHUNK)
         lib_ms = (lstm_library_bwd_ms(torch, b, t, n)
                   if case in LSTM_PATH_CASES.values() else None)
+        lib_fwd_ms = (lstm_library_fwd_ms(torch, b, t, n)
+                      if case == LSTM_PATH_CASES["lstm_scan_chunked"]
+                      else None)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype)[6:]
             item = torch.empty((), dtype=dtype).element_size()
@@ -1850,6 +1964,9 @@ def phase_lstm_bwd(torch, bw, peak, peak_tf32):
             if case == LSTM_PATH_CASES["lstm_scan_chunked_bwd"]:
                 rejected = lstm_bwd_broken(torch, s, got8, ref8,
                                            lstm_ops.CHUNK)
+                rejected += lstm_fwd_broken(torch, lstm_ops, s, ref7)
+            if masked and dtype == torch.float32:
+                rejected_c = lstm_masked_cT_broken(torch, lstm_ops, s, ref7)
             checked += 1
             del got6, got8, ref6, ref7, ref8
 
@@ -1870,16 +1987,16 @@ def phase_lstm_bwd(torch, bw, peak, peak_tf32):
                               ("lstm_scan_chunked_bwd", plain8)):
                     plain_ms[k] = device_ms(torch, lambda i: fn(sets[i]),
                                             nbuf, p_iters)
-            # the kernels form every product in float32, for both dtypes:
-            # the backward's three (z, dh, dR) on the tensor cores as TF32
-            # products, row 7's on the CUDA cores. Float32 takes 3 per
-            # product; bfloat16 2, as R and hs are exact in TF32 and h (row
-            # 8, and row 6 with a mask) and dz are not, but 1 for row 6's z
-            # without a mask, where hs and R are both exact
+            # the kernels form every product in float32, for both dtypes,
+            # on the tensor cores as TF32 products: the backward's three (z,
+            # dh, dR), row 7's one. Float32 takes 3 per product; bfloat16 2,
+            # as R and hs are exact in TF32 and h and dz are not, but 1 for
+            # row 6's z without a mask, where hs and R are both exact
             fwd_ops = 2 * b * t * n * 4 * n
             f32 = dtype == torch.float32
             tf32_products = {
                 "lstm_scan_bwd": 9 if f32 else 6 if masked else 5,
+                "lstm_scan_chunked": 3 if f32 else 2,
                 "lstm_scan_chunked_bwd": 9 if f32 else 6}
             p_bytes = 3 * n * item if peephole else 0
             m_bytes = 4 * b * t if masked else 0
@@ -1893,24 +2010,28 @@ def phase_lstm_bwd(torch, bw, peak, peak_tf32):
                     common + (b * t * n + 2 * b * n) * item + grads,
                     peak_tf32),
                 "lstm_scan_chunked": (
-                    fwd_ops, (b * t * 4 * n + 4 * n * n + 2 * b * n) * item
+                    tf32_products["lstm_scan_chunked"] * fwd_ops,
+                    (b * t * 4 * n + 4 * n * n + 2 * b * n) * item
                     + p_bytes + m_bytes + (b * t * n + 2 * b * n) * item
-                    + ck_bytes, peak),
+                    + ck_bytes, peak_tf32),
                 "lstm_scan_chunked_bwd": (
                     tf32_products["lstm_scan_chunked_bwd"] * fwd_ops,
                     common + ck_bytes + grads, peak_tf32)}
             for k, (ops, moved, rate) in work.items():
                 b_ms = max(moved / bw, ops / rate) * 1e3
                 by = "bytes" if moved / bw >= ops / rate else "operations"
-                lib = lib_ms if k != "lstm_scan_chunked" else None
+                fwd = k == "lstm_scan_chunked"
+                lib = lib_fwd_ms if fwd else lib_ms
                 pl = "-" if plain_ms[k] is None else f"{plain_ms[k]:.4f} ms"
-                lib_s = ("none (peepholes)" if k == "lstm_scan_chunked"
-                         else "-" if lib is None or dtype != torch.float32
-                         else f"{lib:.4f} ms [torch.nn.LSTM backward, cuDNN,"
-                              f" plain cell]")
-                res = lstm_ops.resident(n, backward=k != "lstm_scan_chunked")
-                how = (f"{tf32_products[k]} TF32 products"
-                       if k in tf32_products else "CUDA cores")
+                lib_s = ("-" if lib is None or dtype != torch.float32
+                         else f"{lib:.4f} ms [torch.nn.LSTM "
+                              f"{'forward' if fwd else 'backward'}, cuDNN, "
+                              f"plain cell]")
+                res = lstm_ops.resident(n, backward=not fwd)
+                how = f"{tf32_products[k]} TF32 products"
+                if fwd:
+                    how += (f"; CUDA-core bound "
+                            f"{max(moved / bw, fwd_ops / peak) * 1e3:.4f} ms")
                 log(f"[kernel-lstm-bwd] {k:21s} {dname:8s} b={b:2d} "
                     f"t={t:4d} n={n:4d} {'peephole' if peephole else 'plain   '}"
                     f" {'masked' if masked else '      '} resident="
@@ -1925,16 +2046,20 @@ def phase_lstm_bwd(torch, bw, peak, peak_tf32):
                                "bound_by": by}
                     if lib is not None:
                         rows[k]["library_covers"] = (
+                            "torch.nn.LSTM forward (cuDNN): the plain cell, "
+                            "no peepholes, its input projection included"
+                            if fwd else
                             "torch.nn.LSTM backward (cuDNN): the plain cell, "
                             "no peepholes, its input projection's backward "
                             "included")
             del sets
         torch.cuda.empty_cache()
-    for k in ("lstm_scan_bwd", "lstm_scan_chunked_bwd"):
+    for k in ("lstm_scan_chunked", "lstm_scan_bwd", "lstm_scan_chunked_bwd"):
         r, (b, t, n, _, _) = rows[k], LSTM_PATH_CASES[k]
+        what = "forward" if k == "lstm_scan_chunked" else "backward"
         log(f"[kernel-lstm-bwd] {k} at its path's ({b}, {t}, {n}) float32: "
             f"{r['ms']:.4f} ms per launch ({r['ms'] * 1e3 / t:.3f} us/step),"
-            f" torch.nn.LSTM backward {r['library_ms']:.4f} ms in the same "
+            f" torch.nn.LSTM {what} {r['library_ms']:.4f} ms in the same "
             f"run ({r['library_ms'] / r['ms']:.2f}x the kernel's time), "
             f"bound {r['bound_ms']:.4f} ms "
             f"({100 * r['bound_ms'] / r['ms']:.1f}% of it)")
@@ -1942,7 +2067,7 @@ def phase_lstm_bwd(torch, bw, peak, peak_tf32):
         f"versions in {checked}/{checked} (shape, dtype) cases, max abs "
         f"error {worst} (tol float32 1e-5 forward, 1e-4 backward; bfloat16 "
         f"2e-2 forward, 1e-2 dzx; x max|plain| of each output); the "
-        f"comparison rejects a {', a '.join(rejected)}")
+        f"comparison rejects a {', a '.join(rejected + rejected_c)}")
     return rows, worst
 
 
@@ -2247,7 +2372,7 @@ def main() -> int:
         lm_launches = phase_serve_lm(torch, np, lm, card)
         phase_reference_lm(torch, np, lm)
         del lm
-        lstm, lstm_err = phase_lstm(torch, bw, peak, peak_bf16)
+        lstm, lstm_err = phase_lstm(torch, bw, peak, peak_tf32)
         t0 = time.perf_counter()
         rnn = TextGenerationLSTM(**RNN, seed=SEED).init()
         log(f"[serve-rnn] TextGenerationLSTM {RNN} ({rnn.num_params()} "

@@ -131,14 +131,16 @@ __device__ unsigned long long g_probe[16];
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxN = 1024;
 constexpr int kRegN = 256;     // widest n whose R slices fit in registers
 constexpr int kSmallN = 128;   // widest n that a cluster of 8 blocks takes
-constexpr int kFrags = 16;     // k8 steps of R a warp holds in registers
+constexpr int kShares = 4;     // resident: K shares, each 4 warps (J = 16)
+constexpr int kFrags = 8;      // k8 steps of R a warp holds in registers
 // a block's least shared memory: more than half of an SM's 228 KB
 constexpr size_t kOwnSm = 116 * 1024;
+constexpr int kBarFloats = 4;  // the mbarriers at the start of it
 
 std::atomic<int> g_queries[2];  // attribute calls, occupancy queries
 
@@ -223,9 +225,10 @@ struct Dims {
   int b, t, n, tc;
   int cl;     // blocks per cluster
   int J;      // hidden units per block, a power of two >= 4
+  int LJ;     // log2 J
   int C;      // 4 J columns per block, gate-major
   int HW;     // cl J >= n: units in a row of h
-  int HP;     // row stride of h's TF32 parts [row][unit][hi, lo]: 2 HW + 8
+  int RS;     // floats of an h buffer: rows HW
   int CP;     // row stride of the partial sums: C + 4
   int KS;     // k8 steps: ceil(n / 8)
   int MT;     // 16-column tiles: C / 16
@@ -235,6 +238,7 @@ struct Dims {
 
 struct Plan {
   int cl, rows, tiles, active;
+  int J;  // hidden units per block
   bool resident;
 };
 
@@ -247,6 +251,10 @@ Plan plan_for(int64_t b, int64_t n, int active8, int active16) {
   pl.active = pl.cl == 8 ? active8 : active16;
   pl.rows = pl.resident && (b + 7) / 8 > pl.active ? 16 : 8;
   pl.tiles = static_cast<int>((b + pl.rows - 1) / pl.rows);
+  // resident: 16 units, so every warp of the 4 K shares owns one of the 4
+  // column tiles; else the power of two >= 4 that covers n
+  pl.J = pl.resident ? 16 : 4;
+  while (pl.J * pl.cl < n) pl.J *= 2;
   return pl;
 }
 
@@ -257,41 +265,102 @@ Dims make_dims(int64_t b, int64_t t, int64_t n, int64_t tc, const Plan& pl) {
   d.n = static_cast<int>(n);
   d.tc = static_cast<int>(tc);
   d.cl = pl.cl;
-  d.J = 4;
-  while (d.J * d.cl < d.n) d.J *= 2;
+  d.J = pl.J;
+  d.LJ = 0;
+  while ((1 << d.LJ) < d.J) ++d.LJ;
   d.C = 4 * d.J;
   d.HW = d.cl * d.J;
-  d.HP = 2 * d.HW + 8;
+  d.RS = pl.rows * d.HW;
   d.CP = d.C + 4;
   d.KS = (d.n + 7) / 8;
   d.MT = d.C / 16;
-  d.KW = pl.resident ? kWarps / d.MT : 1;
+  d.KW = pl.resident ? kShares : 1;
   d.KPW = (d.KS + d.KW - 1) / d.KW;
   return d;
 }
 
 size_t smem_bytes(const Dims& d, int rows) {
-  const size_t floats = 2 * static_cast<size_t>(rows) * d.HW +
-                        static_cast<size_t>(rows) * d.HP +
-                        static_cast<size_t>(d.KW) * rows * d.CP;
+  // two receive buffers and h's two TF32 parts, the partial sums
+  size_t floats = kBarFloats + 4 * static_cast<size_t>(d.RS) +
+                  static_cast<size_t>(d.KW) * rows * d.CP;
+#ifdef XP_WGMMA_SS
+  floats += 2 * static_cast<size_t>(d.KS) * 8 * 64;
+#endif
   return floats * sizeof(float) > kOwnSm ? floats * sizeof(float) : kOwnSm;
 }
 
-// One k8 step at k0 of z^T += R_q^T h^T into a fresh tile added to acc,
-// small terms first: A as its TF32 parts (a_lo unused when R is exact in
-// TF32), B from this lane's row hr of h's parts [unit][hi, lo]
+// One k8 step of z^T += R_q^T h^T on mma.sync into a fresh tile added to
+// acc, small terms first: A as its TF32 parts (a_lo unused when R is exact
+// in TF32), B as h's parts bh, bl
 template <bool kSplitR>
 __device__ __forceinline__ void k8_step(float acc[4], const uint32_t a_hi[4],
-                                        const uint32_t a_lo[4],
-                                        const float* hr, int k0, int t4) {
-  const float2 b0 = *reinterpret_cast<const float2*>(hr + 2 * (k0 + t4));
-  const float2 b1 = *reinterpret_cast<const float2*>(hr + 2 * (k0 + t4) + 8);
+                                        const uint32_t a_lo[4], uint32_t bh0,
+                                        uint32_t bh1, uint32_t bl0,
+                                        uint32_t bl1) {
   float tt[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (kSplitR) mma_tf32(tt, a_lo, bits(b0.x), bits(b1.x));
-  mma_tf32(tt, a_hi, bits(b0.y), bits(b1.y));
-  mma_tf32(tt, a_hi, bits(b0.x), bits(b1.x));
+  if (kSplitR) mma_tf32(tt, a_lo, bh0, bh1);
+  mma_tf32(tt, a_hi, bl0, bl1);
+  mma_tf32(tt, a_hi, bh0, bh1);
 #pragma unroll
   for (int e = 0; e < 4; ++e) acc[e] += tt[e];
+}
+
+// ---------------------------------------------------------------- wgmma
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// the registers of x are not touched across this point
+__device__ __forceinline__ void wg_hold(float x[4]) {
+  asm volatile("" : "+f"(x[0]), "+f"(x[1]), "+f"(x[2]), "+f"(x[3])::"memory");
+}
+// generic-proxy writes to shared memory are seen by wgmma's reads
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// The descriptor of an unswizzled K-major B tile (8 rows of N, 8 of K) at
+// shared address `addr`: two core matrices of 8 rows x 16 bytes, the
+// second (k 4..7) `kstride` bytes after the first. N has one core matrix,
+// so the stride along it is never read: both offset fields hold kstride.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr, uint32_t kstride) {
+  const uint64_t off = (kstride >> 4) & 0x3fff;
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) | off << 16 |
+         off << 32;
+}
+#ifdef XP_WGMMA_SS
+__device__ __forceinline__ uint64_t desc2(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3fff) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3fff) << 32;
+}
+__device__ __forceinline__ void wgmma_ss(float d[4], uint64_t adesc,
+                                         uint64_t bdesc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(adesc), "l"(bdesc), "r"(scale_d));
+}
+#endif
+// d = (scale_d ? d : 0) + A B, m64n8k8 TF32: A [64 x 8] from registers
+// (each warp 16 rows, mma.m16n8k8's A layout), B [8 x 8] by descriptor;
+// d in mma's C layout for the warp's 16 rows
+__device__ __forceinline__ void wgmma_tf32(float d[4], const uint32_t a[4],
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
 }
 
 // NT: mma N tiles of 8 batch rows; RESIDENT: R's TF32 parts in registers
@@ -305,55 +374,72 @@ __global__ void __launch_bounds__(kThreads, 1)
                      float* __restrict__ cck, Dims d) {
   constexpr int kRows = 8 * NT;
   constexpr bool kSplitR = sizeof(T) == 4;  // bfloat16 is exact in TF32
-  constexpr int kPairs = RESIDENT ? 1 : 2;  // (row, unit) pairs per thread
   constexpr int kF = RESIDENT ? kFrags : 1;
+  constexpr int kKW = RESIDENT ? kShares : 1;  // = d.KW
   cg::cluster_group cluster = cg::this_cluster();
   const int q = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, t4 = lane & 3;
-  const int n = d.n, J = d.J, HW = d.HW, HP = d.HP, CP = d.CP;
+  const int n = d.n, J = d.J, CP = d.CP;
   const int u0 = q * J;                    // first hidden unit of this block
   const int b0 = blockIdx.y * kRows;       // first batch row of the cluster
   const int64_t n4 = 4 * static_cast<int64_t>(n);
 
   extern __shared__ __align__(16) float smem[];
-  __shared__ uint64_t bars[2];             // one per receive buffer
-  float* hrecv = smem;                     // [2][kRows][HW] h as received
-  float* hpart = hrecv + 2 * kRows * HW;   // [kRows][HP] its TF32 parts
-  float* part = hpart + kRows * HP;        // [KW][kRows][CP] partial z
+  // kBarFloats: two mbarriers, one per receive buffer (dynamic shared
+  // memory, so that all of it may be asked for)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  // h buffers of RS floats, each in mma's K-major core-matrix order
+  // [k / 4][row][k % 4] (hoff): four units of a row are 16 contiguous bytes
+  float* hrecv = smem + kBarFloats;        // [2] h as received
+  float* hhi = hrecv + 2 * d.RS;           // h's TF32 parts
+  float* hlo = hhi + d.RS;
+  float* part = hlo + d.RS;                // [KW][kRows][CP] partial z
+#ifdef XP_WGMMA_SS
+  // R_q^T's TF32 parts [k / 4][column 0..63][k % 4], KS * 8 k
+  float* ahs = part + d.KW * kRows * CP;
+  float* als = ahs + d.KS * 8 * 64;
+#endif
+  auto hoff = [&](int r, int k) {
+    return ((k >> 2) * kRows + r) * 4 + (k & 3);
+  };
   // the bytes that arrive per step: every block's kRows x J values
-  const int bytes = kRows * HW * static_cast<int>(sizeof(float));
+  const int bytes = d.RS * static_cast<int>(sizeof(float));
 
   // ---- set-up: zeroed buffers (pad units stay 0), h0, the mbarriers
-  const int zero = 2 * kRows * HW + kRows * HP + d.KW * kRows * CP;
-  for (int e = tid; e < zero; e += kThreads) smem[e] = 0.0f;
+  const int zero = 4 * d.RS + d.KW * kRows * CP;
+  for (int e = tid; e < zero; e += kThreads) hrecv[e] = 0.0f;
   __syncthreads();
   for (int e = tid; e < kRows * n; e += kThreads) {
     const int r = e / n, k = e % n;
     if (b0 + r < d.b)
-      hrecv[r * HW + k] = to_float(h0[static_cast<int64_t>(b0 + r) * n + k]);
+      hrecv[hoff(r, k)] = to_float(h0[static_cast<int64_t>(b0 + r) * n + k]);
   }
   if (tid == 0) {
-    mbar_init(&bars[0]);
-    mbar_init(&bars[1]);
+    mbar_init(bars);
+    mbar_init(bars + 1);
     mbar_init_fence();
-    mbar_expect(&bars[0], bytes);
-    mbar_expect(&bars[1], bytes);
+    mbar_expect(bars, bytes);
+    mbar_expect(bars + 1, bytes);
   }
 
   // R_q^T [C][k] at column c (gate c / J, unit u0 + c % J) and row k
   auto r_at = [&](int k, int c) -> float {
     const int u = u0 + (c & (J - 1));
-    return k < n && u < n ? to_float(R[k * n4 + (c / J) * n + u]) : 0.0f;
+    return k < n && u < n ? to_float(R[k * n4 + (c >> d.LJ) * n + u]) : 0.0f;
   };
   // this warp's column tile and K share; resident: its A fragments, split
-  // once into TF32 hi and lo parts
-  const int mt = RESIDENT ? warp % d.MT : 0;
-  const int kw = RESIDENT ? warp / d.MT : 0;
+  // once into TF32 hi and lo parts (zero past its share's end)
+  const int mt = RESIDENT ? warp % 4 : 0;
+  const int kw = RESIDENT ? warp / 4 : 0;
   const int ks0 = kw * d.KPW;
   const int kc = RESIDENT ? max(0, min(d.KPW, d.KS - ks0)) : 0;
   uint32_t ah[kF][4], al[kF][4];
+#ifdef XP_WGMMA_SS
+  if (false) {
+#else
   if (RESIDENT) {
+#endif
 #pragma unroll
     for (int f = 0; f < kF; ++f) {
       const int k0 = (ks0 + f) * 8, m0 = mt * 16;
@@ -376,52 +462,49 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 
-  // ---- this thread's (row, unit) pairs: carries and peepholes in registers
-  float hreg[kPairs], creg[kPairs], pi[kPairs], pf[kPairs], po[kPairs];
-  int prow[kPairs], punit[kPairs], pr[kPairs], pj[kPairs];
-  bool pin[kPairs], pok[kPairs];
-#pragma unroll
-  for (int i = 0; i < kPairs; ++i) {
-    const int pidx = tid + i * kThreads;
-    // a warp's pairs are all in or all out: kRows J is a multiple of 32
-    pin[i] = pidx < kRows * J;
-    pr[i] = pidx / J;
-    pj[i] = pidx % J;
-    prow[i] = b0 + pr[i];
-    punit[i] = u0 + pj[i];
-    pok[i] = pin[i] && prow[i] < d.b && punit[i] < n;
-    hreg[i] = creg[i] = pi[i] = pf[i] = po[i] = 0.0f;
-    if (pok[i]) {
-      const int64_t at = static_cast<int64_t>(prow[i]) * n + punit[i];
-      hreg[i] = to_float(h0[at]);
-      creg[i] = to_float(c0[at]);
-      if (p != nullptr) {
-        pi[i] = to_float(p[punit[i]]);
-        pf[i] = to_float(p[n + punit[i]]);
-        po[i] = to_float(p[2 * n + punit[i]]);
-      }
-      if (hck != nullptr) {  // the carry entering chunk 0
-        hck[at] = hreg[i];
-        cck[at] = creg[i];
-      }
+#ifdef XP_WGMMA_SS
+  if (RESIDENT) {
+    for (int e = tid; e < d.KS * 8 * 64; e += kThreads) {
+      const int k = (e >> 8) * 4 + (e & 3), c = (e >> 2) & 63;
+      uint32_t hi, lo;
+      split_tf32(bits(r_at(k, c)), hi, lo);
+      ahs[e] = value(kSplitR ? hi : bits(r_at(k, c)));
+      als[e] = value(kSplitR ? lo : 0u);
+    }
+    proxy_fence();
+  }
+#endif
+  // ---- this thread's (row, unit) pair: its carry and peepholes in
+  // registers. A warp's threads all have one or none (kRows J, at most
+  // kThreads, is a multiple of 32); pad rows and units carry zeros
+  const bool pin = tid < kRows * J;
+  const int pr = tid >> d.LJ, pj = tid & (J - 1);
+  const int prow = b0 + pr, punit = u0 + pj;
+  const bool pok = pin && prow < d.b && punit < n;
+  float hreg = 0.0f, creg = 0.0f, pi = 0.0f, pf = 0.0f, po = 0.0f;
+  if (pok) {
+    const int64_t at = static_cast<int64_t>(prow) * n + punit;
+    hreg = to_float(h0[at]);
+    creg = to_float(c0[at]);
+    if (p != nullptr) {
+      pi = to_float(p[punit]);
+      pf = to_float(p[n + punit]);
+      po = to_float(p[2 * n + punit]);
+    }
+    if (hck != nullptr) {  // the carry entering chunk 0
+      hck[at] = hreg;
+      cck[at] = creg;
     }
   }
-  float zxv[kPairs][4];
-  bool live[kPairs];
+  float zxv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  bool live = true;
   auto load_step = [&](int s) {
+    if (!pok) return;
+    const int64_t row = (static_cast<int64_t>(prow) * d.t + s) * n4;
 #pragma unroll
-    for (int i = 0; i < kPairs; ++i) {
-      live[i] = true;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) zxv[i][g] = 0.0f;
-      if (!pok[i]) continue;
-      const int64_t row = (static_cast<int64_t>(prow[i]) * d.t + s) * n4;
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        zxv[i][g] = to_float(zx[row + g * n + punit[i]]);
-      if (mask != nullptr)
-        live[i] = mask[static_cast<int64_t>(prow[i]) * d.t + s] > 0.0f;
-    }
+    for (int g = 0; g < 4; ++g) zxv[g] = to_float(zx[row + g * n + punit]);
+    if (mask != nullptr)
+      live = mask[static_cast<int64_t>(prow) * d.t + s] > 0.0f;
   };
   load_step(0);
   // every block's buffers and mbarriers are ready before any peer sends
@@ -430,28 +513,31 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int s = 0; s < d.t; ++s) {
     const int buf = s & 1;
-    const float* hin = hrecv + buf * kRows * HW;
     // (1) h_{s-1} from every block (h0 was loaded by each block itself)
-    if (s > 0) mbar_wait(&bars[buf], ((s - 1) >> 1) & 1);
+    if (s > 0) mbar_wait(bars + buf, ((s - 1) >> 1) & 1);
     PROBE(0)  // waiting for h
-    // (2) its TF32 parts, [row][unit][hi, lo]
-    for (int e = 4 * tid; e < kRows * HW; e += 4 * kThreads) {
-      const float4 v = *reinterpret_cast<const float4*>(hin + e);
-      uint32_t hi[4], lo[4];
-      split_tf32(bits(v.x), hi[0], lo[0]);
-      split_tf32(bits(v.y), hi[1], lo[1]);
-      split_tf32(bits(v.z), hi[2], lo[2]);
-      split_tf32(bits(v.w), hi[3], lo[3]);
-      float4* dst = reinterpret_cast<float4*>(hpart + (e / HW) * HP +
-                                              2 * (e % HW));
-      dst[0] = make_float4(value(hi[0]), value(lo[0]), value(hi[1]),
-                           value(lo[1]));
-      dst[1] = make_float4(value(hi[2]), value(lo[2]), value(hi[3]),
-                           value(lo[3]));
+    // (2) its TF32 parts, once per block, for the product's B
+    {
+      const float4* in = reinterpret_cast<const float4*>(hrecv + buf * d.RS);
+      for (int e = tid; e < d.RS / 4; e += kThreads) {
+        const float4 v = in[e];
+        uint32_t hi[4], lo[4];
+        split_tf32(bits(v.x), hi[0], lo[0]);
+        split_tf32(bits(v.y), hi[1], lo[1]);
+        split_tf32(bits(v.z), hi[2], lo[2]);
+        split_tf32(bits(v.w), hi[3], lo[3]);
+        reinterpret_cast<float4*>(hhi)[e] = make_float4(
+            value(hi[0]), value(hi[1]), value(hi[2]), value(hi[3]));
+        reinterpret_cast<float4*>(hlo)[e] = make_float4(
+            value(lo[0]), value(lo[1]), value(lo[2]), value(lo[3]));
+      }
+#ifdef XP_WGMMA_SS
+      if (RESIDENT) proxy_fence();  // wgmma reads them
+#endif
     }
     __syncthreads();
     // every thread is past the wait: the mbarrier's next phase may start
-    if (s > 0 && tid == 0) mbar_expect(&bars[buf], bytes);
+    if (s > 0 && tid == 0) mbar_expect(bars + buf, bytes);
     PROBE(1)  // the split and its barrier
 
     // (3) part[kw][r][c] = sum over this share's k of h[r][k] R[k][c]
@@ -467,17 +553,61 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     };
     if (RESIDENT) {
+#ifdef XP_WGMMA_SS
       float acc[NT][4] = {};
+      const uint32_t kstride = kRows * 16;
 #pragma unroll
-      for (int f = 0; f < kF; ++f) {
-        if (f < kc) {
+      for (int nt = 0; nt < NT; ++nt) {
+        float tile[kF][4];
+        wg_fence();
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            k8_step<kSplitR>(acc[nt], ah[f], al[f],
-                             hpart + (nt * 8 + g8) * HP, (ks0 + f) * 8, t4);
+        for (int f = 0; f < kF; ++f) {
+          const int k0 = min(ks0 + f, d.KS - 1) * 8;
+          const uint32_t at = static_cast<uint32_t>(hoff(nt * 8, k0)) * 4;
+          const uint64_t bh = b_desc(smem_u32(hhi) + at, kstride);
+          const uint64_t bl = b_desc(smem_u32(hlo) + at, kstride);
+          const uint32_t aa = (k0 / 4) * 1024;
+#ifdef XP_SWAP
+          const uint64_t ah_ = desc2(smem_u32(ahs) + aa, 128, 1024);
+          const uint64_t al_ = desc2(smem_u32(als) + aa, 128, 1024);
+#else
+          const uint64_t ah_ = desc2(smem_u32(ahs) + aa, 1024, 128);
+          const uint64_t al_ = desc2(smem_u32(als) + aa, 1024, 128);
+#endif
+          if (kSplitR) {
+            wgmma_ss(tile[f], al_, bh, 0);
+            wgmma_ss(tile[f], ah_, bl, 1);
+          } else {
+            wgmma_ss(tile[f], ah_, bl, 0);
+          }
+          wgmma_ss(tile[f], ah_, bh, 1);
+        }
+        wg_commit();
+        wg_wait_all();
+#pragma unroll
+        for (int f = 0; f < kF; ++f) {
+          wg_hold(tile[f]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] += tile[f][e];
         }
       }
       put(acc, kw, mt * 16);
+#else
+      float acc[NT][4] = {};
+#pragma unroll
+      for (int f = 0; f < kF; ++f) {
+        // past the share's end the fragments are 0: read any valid k
+        const int k0 = min(ks0 + f, d.KS - 1) * 8;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int i0 = hoff(nt * 8 + g8, k0 + t4);
+          const int i1 = hoff(nt * 8 + g8, k0 + t4 + 4);
+          k8_step<kSplitR>(acc[nt], ah[f], al[f], bits(hhi[i0]),
+                           bits(hhi[i1]), bits(hlo[i0]), bits(hlo[i1]));
+        }
+      }
+      put(acc, kw, mt * 16);
+#endif
     } else {
       for (int m = warp; m < d.MT; m += kWarps) {
         const int m0 = m * 16;
@@ -501,9 +631,12 @@ __global__ void __launch_bounds__(kThreads, 1)
             }
           }
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            k8_step<kSplitR>(acc[nt], a_hi, a_lo,
-                             hpart + (nt * 8 + g8) * HP, k0, t4);
+          for (int nt = 0; nt < NT; ++nt) {
+            const int i0 = hoff(nt * 8 + g8, k0 + t4);
+            const int i1 = hoff(nt * 8 + g8, k0 + t4 + 4);
+            k8_step<kSplitR>(acc[nt], a_hi, a_lo, bits(hhi[i0]),
+                             bits(hhi[i1]), bits(hlo[i0]), bits(hlo[i1]));
+          }
         }
         put(acc, 0, m0);
       }
@@ -512,81 +645,77 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     PROBE(3)  // its barrier
 
-    // (4) the cell, one thread per (row, unit)
-    float h_out[kPairs];
+    // (3) the cell, one thread per (row, unit)
+    float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (pok) {
+      // the K shares' partials, loaded together and added in order
+      float zp[kKW][4];
 #pragma unroll
-    for (int i = 0; i < kPairs; ++i) {
-      h_out[i] = 0.0f;
-      if (!pok[i]) continue;
-      float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int w = 0; w < d.KW; ++w) {
-        const float* pz = part + (w * kRows + pr[i]) * CP + pj[i];
+      for (int w = 0; w < kKW; ++w)
 #pragma unroll
-        for (int g = 0; g < 4; ++g) z[g] += pz[g * J];
-      }
-      const float c_prev = creg[i];
-      const float ig = sigmoid(zxv[i][0] + z[0] + pi[i] * c_prev);
-      const float fg = sigmoid(zxv[i][1] + z[1] + pf[i] * c_prev);
-      const float gg = tanhf(zxv[i][2] + z[2]);
+        for (int g = 0; g < 4; ++g)
+          zp[w][g] = part[(w * kRows + pr) * CP + g * J + pj];
+#pragma unroll
+      for (int w = 0; w < kKW; ++w)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) z[g] += zp[w][g];
+    }
+    PROBE(4)  // the partial sums
+    float h_out = 0.0f;
+    if (pok) {
+      const float c_prev = creg;
+      const float ig = sigmoid(zxv[0] + z[0] + pi * c_prev);
+      const float fg = sigmoid(zxv[1] + z[1] + pf * c_prev);
+      const float gg = tanhf(zxv[2] + z[2]);
       float c_new = fg * c_prev + ig * gg;
-      const float og = sigmoid(zxv[i][3] + z[3] + po[i] * c_new);
+      const float og = sigmoid(zxv[3] + z[3] + po * c_new);
       float h_new = og * tanhf(c_new);
-      h_out[i] = h_new;
-      if (!live[i]) {
-        h_out[i] = 0.0f;
-        h_new = hreg[i];
+      h_out = h_new;
+      if (!live) {
+        h_out = 0.0f;
+        h_new = hreg;
         c_new = c_prev;
       }
-      hreg[i] = h_new;
-      creg[i] = c_new;
+      hreg = h_new;
+      creg = c_new;
     }
-    PROBE(4)  // the cell
+    PROBE(5)  // the cell
 
-    // (5) h_s to every block of the cluster (none needs the last step's)
-    if (s + 1 < d.t) {
-      float* next = hrecv + (buf ^ 1) * kRows * HW;
-#pragma unroll
-      for (int i = 0; i < kPairs; ++i) {
-        if (!pin[i]) continue;
-        const int base = lane & ~3;
-        const float4 v = make_float4(
-            __shfl_sync(0xffffffffu, hreg[i], base),
-            __shfl_sync(0xffffffffu, hreg[i], base + 1),
-            __shfl_sync(0xffffffffu, hreg[i], base + 2),
-            __shfl_sync(0xffffffffu, hreg[i], base + 3));
-        const float* dst = next + pr[i] * HW + u0 + (pj[i] & ~3);
-        for (int peer = t4; peer < d.cl; peer += 4)
-          st_async4(peer_addr(dst, peer), v,
-                    peer_addr(&bars[buf ^ 1], peer));
-      }
+    // (4) h_s to every block of the cluster (none needs the last step's):
+    // lanes 4a .. 4a + 3 hold units j .. j + 3 of one row
+    if (s + 1 < d.t && pin) {
+      const int base = lane & ~3;
+      const float4 v =
+          make_float4(__shfl_sync(0xffffffffu, hreg, base),
+                      __shfl_sync(0xffffffffu, hreg, base + 1),
+                      __shfl_sync(0xffffffffu, hreg, base + 2),
+                      __shfl_sync(0xffffffffu, hreg, base + 3));
+      const float* dst =
+          hrecv + (buf ^ 1) * d.RS + hoff(pr, u0 + (pj & ~3));
+      for (int peer = t4; peer < d.cl; peer += 4)
+        st_async4(peer_addr(dst, peer), v, peer_addr(bars + (buf ^ 1), peer));
     }
-    PROBE(5)  // the sends
+    PROBE(6)  // the sends
 
-    // (6) outputs and the next step's loads, while h_s travels
-#pragma unroll
-    for (int i = 0; i < kPairs; ++i) {
-      if (!pok[i]) continue;
-      store_as(hs + (static_cast<int64_t>(prow[i]) * d.t + s) * n + punit[i],
-               h_out[i]);
+    // (5) outputs and the next step's loads, while h_s travels
+    if (pok) {
+      store_as(hs + (static_cast<int64_t>(prow) * d.t + s) * n + punit, h_out);
       if (hck != nullptr && (s + 1) % d.tc == 0 && s + 1 < d.t) {
         const int64_t at =
-            (static_cast<int64_t>((s + 1) / d.tc) * d.b + prow[i]) * n +
-            punit[i];
-        hck[at] = hreg[i];
-        cck[at] = creg[i];
+            (static_cast<int64_t>((s + 1) / d.tc) * d.b + prow) * n + punit;
+        hck[at] = hreg;
+        cck[at] = creg;
       }
     }
     if (s + 1 < d.t) load_step(s + 1);
-    PROBE(6)  // stores and the next step's loads
+    PROBE(7)  // stores and the next step's loads
   }
-  PROBE_END(7, d.t)
+  PROBE_END(8, d.t)
 
-#pragma unroll
-  for (int i = 0; i < kPairs; ++i) {
-    if (!pok[i]) continue;
-    const int64_t at = static_cast<int64_t>(prow[i]) * n + punit[i];
-    store_as(hT + at, hreg[i]);
-    store_as(cT + at, creg[i]);
+  if (pok) {
+    const int64_t at = static_cast<int64_t>(prow) * n + punit;
+    store_as(hT + at, hreg);
+    store_as(cT + at, creg);
   }
   // no block leaves while a peer may still address its shared memory
   cluster_arrive();
@@ -722,18 +851,22 @@ int lstm_scan_resident(int64_t n, int device) {
   return n <= kRegN;
 }
 
-// The plan for (b, n) on a card that runs `active8` clusters of 8 blocks and
-// `active16` of 16 at once: out = {blocks per cluster, batch rows per
-// cluster, batch tiles (clusters), R resident, clusters of that size the
-// card runs at once}.
-void lstm_scan_plan_for(int64_t b, int64_t n, int active8, int active16,
-                        int* out) {
-  const Plan pl = plan_for(b, n, active8, active16);
+static void plan_out(const Plan& pl, int* out) {
   out[0] = pl.cl;
   out[1] = pl.rows;
   out[2] = pl.tiles;
   out[3] = pl.resident;
   out[4] = pl.active;
+  out[5] = pl.J;
+}
+
+// The plan for (b, n) on a card that runs `active8` clusters of 8 blocks and
+// `active16` of 16 at once: out = {blocks per cluster, batch rows per
+// cluster, batch tiles (clusters), R resident, clusters of that size the
+// card runs at once, hidden units per block}.
+void lstm_scan_plan_for(int64_t b, int64_t n, int active8, int active16,
+                        int* out) {
+  plan_out(plan_for(b, n, active8, active16), out);
 }
 
 // As lstm_scan_plan_for, with the counts of `device` (asked once per
@@ -745,11 +878,7 @@ int lstm_scan_plan(int64_t b, int64_t n, int device, int* out) {
   if (set != cudaSuccess) return static_cast<int>(set);
   const cudaError_t err = device_plan(b, n, device, &optin, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = pl.cl;
-  out[1] = pl.rows;
-  out[2] = pl.tiles;
-  out[3] = pl.resident;
-  out[4] = pl.active;
+  plan_out(pl, out);
   return 0;
 }
 
@@ -817,7 +946,7 @@ const char* lstm_scan_error_string(int code) {
 
 #ifdef LSTM_FWD_PROBES
 const char* lstm_scan_probe_names() {
-  return "wait for h;split h + sync;product;sync;cell;send h;"
+  return "wait for h;split h + sync;product;sync;partial sums;cell;send h;"
          "stores, next loads";
 }
 int lstm_scan_probe_reset() {

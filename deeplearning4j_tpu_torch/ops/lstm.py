@@ -338,14 +338,14 @@ def resident(n: int, device=None, backward: bool = False) -> bool:
     return bool(got)
 
 
-PLAN_KEYS = ("cluster", "rows", "tiles", "resident", "active")
+PLAN_KEYS = ("cluster", "rows", "tiles", "resident", "active", "units")
 
 
 def plan(b: int, n: int, device=None, active=None) -> dict:
     """The forward kernel's launch plan for b rows of width n: blocks per
     cluster, batch rows per cluster, batch tiles (clusters), whether R's
-    slices stay on chip, and how many clusters of that size the card runs
-    at once. `active` = (clusters of 8, clusters of 16) the card runs at
+    slices stay on chip, how many clusters of that size the card runs at
+    once, and hidden units per block. `active` = (clusters of 8, clusters of 16) the card runs at
     once, asked of the device (once per device) when None."""
     out = (ctypes.c_int * len(PLAN_KEYS))()
     lib = _fwd_lib()

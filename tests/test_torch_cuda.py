@@ -330,6 +330,120 @@ def test_lstm_kernel_matches_plain_version(cuda, b, t, n, peephole, masked,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,n,peephole,masked", [
+    (200, 9, 256, True, False),    # 16-row tiles beyond one wave
+    (24, 9, 256, True, True),      # 8-row tiles, one wave of 16 blocks
+    (3, 9, 256, False, False),     # one tile, pad rows
+    (40, 9, 128, True, True),      # clusters of 8 blocks
+    (9, 9, 100, True, False),      # n not a multiple of 16, cluster of 8
+    (5, 9, 300, True, True),       # R read from L2, n not a power of two
+    (8, 9, 1000, False, False),    # R read from L2, n not a multiple of 16
+])
+def test_lstm_kernel_plans_match_plain_version(cuda, b, t, n, peephole,
+                                               masked, dtype):
+    """Each launch plan (blocks per cluster, rows per cluster, R in
+    registers or read from L2) at its edges, through both entry points."""
+    plan = lstm_ops.plan(b, n)
+    assert plan["resident"] == (n <= 256)
+    assert plan["cluster"] == (8 if n <= 128 else 16)
+    assert plan["tiles"] == -(-b // plan["rows"])
+    assert plan["cluster"] * plan["units"] >= n
+    _lstm_check(cuda, b, t, n, dtype, peephole, masked)
+    zx, R, p, h0, c0, mask = _lstm_inputs(cuda, b, t, n, dtype, peephole,
+                                          masked, seed=b + t + n)
+    _close_to("fwd", ("hs", "hT", "cT", "hck", "cck"),
+              lstm_scan_chunked_forward(zx, R, h0, c0, p, mask),
+              lstm_scan_chunked_reference(zx, R, h0, c0, p, mask))
+
+
+@pytest.mark.cuda
+def test_lstm_plan_rule_from_stated_occupancy(cuda):
+    """The plan from stated counts of co-resident clusters: 8-row tiles
+    where they all fit at once, else 16-row ones (in more than one wave if
+    need be); clusters of 8 blocks up to n = 128, of 16 past it; R from L2
+    past n = 256, always in 8-row tiles."""
+    def plan(b, n, a8, a16):
+        return lstm_ops.plan(b, n, active=(a8, a16))
+
+    assert plan(64, 256, 15, 7) == dict(cluster=16, rows=16, tiles=4,
+                                        resident=1, active=7, units=16)
+    assert plan(64, 256, 15, 8)["rows"] == 8
+    assert plan(56, 256, 15, 7)["rows"] == 8
+    assert plan(57, 256, 15, 7)["rows"] == 16
+    assert plan(200, 256, 15, 7)["tiles"] == 13
+    assert plan(64, 128, 15, 7) == dict(cluster=8, rows=8, tiles=8,
+                                        resident=1, active=15, units=16)
+    assert plan(128, 128, 15, 7)["rows"] == 16
+    assert plan(8, 257, 15, 7) == dict(cluster=16, rows=8, tiles=1,
+                                       resident=0, active=7, units=32)
+    assert plan(64, 1024, 15, 7)["rows"] == 8
+    assert plan(1, 1000, 15, 7)["units"] == 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,n,masked", [
+    (64, 64, 256, False),    # row 5's served shape: 16-row tiles
+    (8, 200, 256, True),     # row 7's: one cluster, a ragged last chunk
+    (9, 70, 64, True),       # clusters of 8 blocks
+    (16, 20, 512, False),    # R read from L2
+])
+def test_lstm_forward_kernels_are_deterministic(cuda, b, t, n, masked,
+                                                dtype):
+    """Rows 5 and 7 give the same bits over two calls, in copies made on the
+    current stream right after each call with no synchronize (every sum
+    has a fixed order: the K shares' partials are added in order, no
+    atomics), and the chunked and full entry points give the same hs, hT
+    and cT bit for bit."""
+    zx, R, p, h0, c0, mask = _lstm_inputs(cuda, b, t, n, dtype, True,
+                                          masked, seed=t + n)
+    runs = []
+    for _ in range(2):
+        full = lstm_scan_peephole(zx, R, p, h0, c0, mask)
+        full_copy = [x.clone() for x in full]
+        chunked = lstm_scan_chunked_forward(zx, R, h0, c0, p, mask)
+        chunked_copy = [x.clone() for x in chunked]
+        runs.append((full_copy, chunked_copy))
+    torch.cuda.synchronize()
+    (f1, c1), (f2, c2) = runs
+    for a, r in zip(f1 + c1, f2 + c2):
+        assert torch.equal(a, r)
+    for a, r in zip(f1, c1[:3]):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+def test_lstm_forward_asks_the_device_once(cuda):
+    """The forward sets its kernels' attributes (shared memory, clusters of
+    16) once per kernel and device, and asks the card's cluster occupancy
+    once per device: launches at other shapes, dtypes and plans, and plan
+    queries, ask nothing more once each kernel has run."""
+    lib = lstm_ops._fwd_lib()
+    shapes = [(64, 256), (8, 256), (8, 64), (8, 512)]
+
+    def launch_all():
+        for b, n in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                zx, R, p, h0, c0, _ = _lstm_inputs(cuda, b, 3, n, dtype,
+                                                   True, False)
+                lstm_scan_peephole(zx, R, p, h0, c0)
+                lstm_scan_chunked_forward(zx, R, h0, c0, p)
+            lstm_ops.plan(b, n)
+
+    launch_all()
+    torch.cuda.synchronize()
+    asked = (lib.lstm_scan_queries(0), lib.lstm_scan_queries(1))
+    assert asked[1] == 2  # clusters of 8 and of 16, once per device
+    # 6 kernels at most (2 dtypes x 16 rows, 8 rows, R from L2), two
+    # attributes each
+    assert 0 < asked[0] <= 12 and asked[0] % 2 == 0
+    launch_all()
+    torch.cuda.synchronize()
+    assert (lib.lstm_scan_queries(0), lib.lstm_scan_queries(1)) == asked
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["noncontig", "float16", "n_over_cap",
                                  "cpu_R", "shape"])
 def test_lstm_kernel_refuses_what_it_does_not_take(cuda, bad):
