@@ -44,45 +44,48 @@
 // Design: a column split over a thread-block cluster. Every step needs all
 // of h against all of R (1 MiB at n = 256 in float32), so a cluster of cl
 // blocks shares one batch tile of rows = 8 or 16 rows (one or two of mma's
-// N = 8 tiles): block q owns hidden units [q J, (q + 1) J), J the power of
-// two >= 4 that covers n with cl blocks, and the C = 4 J columns of R that
-// feed their gates (column g J + j is gate g of unit q J + j). The host's
-// plan (plan_for) picks per shape:
-//   cl    8 for n <= 128, else 16 (a cluster of 16 is non-portable): at
-//         n = 256 each block holds a 64 KB float32 slice of R, so its TF32
-//         hi and lo parts both fit, in registers;
+// N = 8 tiles): block q owns hidden units [q J, (q + 1) J) and the C = 4 J
+// columns of R that feed their gates (column g J + j is gate g of unit
+// q J + j). The host's plan (plan_for, printed by chip_smoke.py) picks per
+// shape:
+//   cl    8 for n <= 128, else 16 (a cluster of 16 is non-portable);
 //   rows  8 where the batch tiles of 8 rows all run at once (the card's
-//         count of co-resident clusters, asked once per device), else 16;
-//         tiles beyond that count wait for a second wave;
-//   R     split once, at the start of the launch, into the A fragments of
-//         mma (z^T = R_q^T h^T: the block's columns are M, the batch rows
-//         N) held in registers for all t steps when n <= 256 (each warp
-//         owns one 16-column tile and a share of K, at most 16 k8 steps);
-//         past n = 256 the slice does not fit on chip and is read from L2
-//         and split on every step, several times slower.
+//         count of co-resident clusters, asked once per device: 7 of 16
+//         blocks on an H100 SXM, 15 of 8), else 16; tiles past that count
+//         wait for a second wave;
+//   R     resident for n <= 256: J = 16, so a block's 64 columns are 4
+//         16-column tiles (mma's M: z^T = R_q^T h^T) and its 16 warps 4 K
+//         shares of 4 warps; each warp splits its tile's share of R (at
+//         most 8 k8 steps) once, at the start of the launch, into TF32 hi
+//         and lo A fragments held in registers for all t steps. Past
+//         n = 256 the slice does not fit on chip: J is the power of two
+//         that covers n, and R is read from L2 and split on every step,
+//         several times slower.
 // Each block holds an SM of its own (its shared memory is asked for at more
 // than half of an SM's), so that no two blocks share tensor cores. A step:
 //   (1) wait for h_{s-1}: each block's mbarrier counts the bytes that the
 //       cl blocks' st.async stores bring into its receive buffer;
-//   (2) split h_{s-1} into its TF32 parts once per block (8 or 16 x n
-//       values), one __syncthreads;
-//   (3) the product: each warp's K share of its column tile for the 8 or
-//       16 rows, partial sums to shared memory in a fixed order (K split
-//       over warps, so results repeat bit for bit), one __syncthreads;
-//   (4) the cell, one thread per (row, unit): partials + zx, h and c
-//       carried in registers;
-//   (5) h_s to the cl blocks' other receive buffer: four lanes gather four
+//   (2) the product: each warp's K share of its column tile for the 8 or
+//       16 rows on mma.sync, h split into its TF32 parts as each warp reads
+//       it; the shares' partial sums to shared memory, one __syncthreads;
+//   (3) the cell, one thread per (row, unit): the 4 partials added in order
+//       (so results repeat bit for bit), + zx; h and c carried in
+//       registers;
+//   (4) h_s to the cl blocks' other receive buffer: four lanes gather four
 //       units of a row into one 16-byte st.async per peer, which completes
-//       on that peer's mbarrier (h is sent once, as float32: splitting it
-//       before the send would double the bytes, which set the exchange's
-//       time);
-//   (6) hs, the chunk checkpoints and the next step's zx and mask loads,
-//       all off the chain: the exchange's latency covers them.
+//       on that peer's mbarrier (h goes as float32, once: sending its TF32
+//       parts would double the bytes, and the exchange is bound by them);
+//   (5) hs, the chunk checkpoints and the next step's zx and mask loads,
+//       off the chain: the exchange's latency covers them.
 // The receive buffers and mbarriers are double-buffered: a block sends
 // h_{s+1} only after it received h_s from every block, which each sent only
 // after it had read h_{s-1}, so no buffer is overwritten while it is read
 // and no mbarrier phase sees the next step's bytes. Batch tiles run as
 // independent clusters along grid y. n is capped at kMaxN = 1024.
+// What sets the step (profile_resnet_torch.py --model lstm-split builds
+// this source with the probes below; PERF.md): the product's chain of
+// dependent mma.sync per warp, then the exchange and the cell; wgmma (TF32,
+// N = 8, A from registers or shared memory) was slower here.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -136,8 +139,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxN = 1024;
 constexpr int kRegN = 256;     // widest n whose R slices fit in registers
 constexpr int kSmallN = 128;   // widest n that a cluster of 8 blocks takes
-constexpr int kShares = 4;     // resident: K shares, each 4 warps (J = 16)
-constexpr int kFrags = 8;      // k8 steps of R a warp holds in registers
+// resident (J = 16: 4 column tiles of 16): each warp owns one of them over
+// one of kShares K shares, at most kFrags k8 steps (n <= 256)
+constexpr int kShares = kWarps / 4;
+constexpr int kFrags = 32 / kShares;
 // a block's least shared memory: more than half of an SM's 228 KB
 constexpr size_t kOwnSm = 116 * 1024;
 constexpr int kBarFloats = 4;  // the mbarriers at the start of it
@@ -228,7 +233,7 @@ struct Dims {
   int LJ;     // log2 J
   int C;      // 4 J columns per block, gate-major
   int HW;     // cl J >= n: units in a row of h
-  int RS;     // floats of an h buffer: rows HW
+  int RS;     // floats of a receive buffer [rows][HW + 4]
   int CP;     // row stride of the partial sums: C + 4
   int KS;     // k8 steps: ceil(n / 8)
   int MT;     // 16-column tiles: C / 16
@@ -270,7 +275,7 @@ Dims make_dims(int64_t b, int64_t t, int64_t n, int64_t tc, const Plan& pl) {
   while ((1 << d.LJ) < d.J) ++d.LJ;
   d.C = 4 * d.J;
   d.HW = d.cl * d.J;
-  d.RS = pl.rows * d.HW;
+  d.RS = pl.rows * (d.HW + 4);
   d.CP = d.C + 4;
   d.KS = (d.n + 7) / 8;
   d.MT = d.C / 16;
@@ -280,18 +285,15 @@ Dims make_dims(int64_t b, int64_t t, int64_t n, int64_t tc, const Plan& pl) {
 }
 
 size_t smem_bytes(const Dims& d, int rows) {
-  // two receive buffers and h's two TF32 parts, the partial sums
-  size_t floats = kBarFloats + 4 * static_cast<size_t>(d.RS) +
-                  static_cast<size_t>(d.KW) * rows * d.CP;
-#ifdef XP_WGMMA_SS
-  floats += 2 * static_cast<size_t>(d.KS) * 8 * 64;
-#endif
+  const size_t floats = kBarFloats + 2 * static_cast<size_t>(d.RS) +
+                        static_cast<size_t>(d.KW) * rows * d.CP;
   return floats * sizeof(float) > kOwnSm ? floats * sizeof(float) : kOwnSm;
 }
 
-// One k8 step of z^T += R_q^T h^T on mma.sync into a fresh tile added to
-// acc, small terms first: A as its TF32 parts (a_lo unused when R is exact
-// in TF32), B as h's parts bh, bl
+// One k8 step of z^T += R_q^T h^T into a fresh tile added to acc, small
+// terms first: A as its TF32 parts (a_lo unused when R is exact in TF32),
+// B as this lane's h values' parts: units k0 + t4 (bh0, bl0) and k0 + t4 + 4
+// (bh1, bl1)
 template <bool kSplitR>
 __device__ __forceinline__ void k8_step(float acc[4], const uint32_t a_hi[4],
                                         const uint32_t a_lo[4], uint32_t bh0,
@@ -303,64 +305,6 @@ __device__ __forceinline__ void k8_step(float acc[4], const uint32_t a_hi[4],
   mma_tf32(tt, a_hi, bh0, bh1);
 #pragma unroll
   for (int e = 0; e < 4; ++e) acc[e] += tt[e];
-}
-
-// ---------------------------------------------------------------- wgmma
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// the registers of x are not touched across this point
-__device__ __forceinline__ void wg_hold(float x[4]) {
-  asm volatile("" : "+f"(x[0]), "+f"(x[1]), "+f"(x[2]), "+f"(x[3])::"memory");
-}
-// generic-proxy writes to shared memory are seen by wgmma's reads
-__device__ __forceinline__ void proxy_fence() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// The descriptor of an unswizzled K-major B tile (8 rows of N, 8 of K) at
-// shared address `addr`: two core matrices of 8 rows x 16 bytes, the
-// second (k 4..7) `kstride` bytes after the first. N has one core matrix,
-// so the stride along it is never read: both offset fields hold kstride.
-__device__ __forceinline__ uint64_t b_desc(uint32_t addr, uint32_t kstride) {
-  const uint64_t off = (kstride >> 4) & 0x3fff;
-  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) | off << 16 |
-         off << 32;
-}
-#ifdef XP_WGMMA_SS
-__device__ __forceinline__ uint64_t desc2(uint32_t addr, uint32_t lbo,
-                                          uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3fff) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3fff) << 32;
-}
-__device__ __forceinline__ void wgmma_ss(float d[4], uint64_t adesc,
-                                         uint64_t bdesc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(adesc), "l"(bdesc), "r"(scale_d));
-}
-#endif
-// d = (scale_d ? d : 0) + A B, m64n8k8 TF32: A [64 x 8] from registers
-// (each warp 16 rows, mma.m16n8k8's A layout), B [8 x 8] by descriptor;
-// d in mma's C layout for the warp's 16 rows
-__device__ __forceinline__ void wgmma_tf32(float d[4], const uint32_t a[4],
-                                           uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(scale_d));
 }
 
 // NT: mma N tiles of 8 batch rows; RESIDENT: R's TF32 parts in registers
@@ -389,25 +333,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   // kBarFloats: two mbarriers, one per receive buffer (dynamic shared
   // memory, so that all of it may be asked for)
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
-  // h buffers of RS floats, each in mma's K-major core-matrix order
-  // [k / 4][row][k % 4] (hoff): four units of a row are 16 contiguous bytes
-  float* hrecv = smem + kBarFloats;        // [2] h as received
-  float* hhi = hrecv + 2 * d.RS;           // h's TF32 parts
-  float* hlo = hhi + d.RS;
-  float* part = hlo + d.RS;                // [KW][kRows][CP] partial z
-#ifdef XP_WGMMA_SS
-  // R_q^T's TF32 parts [k / 4][column 0..63][k % 4], KS * 8 k
-  float* ahs = part + d.KW * kRows * CP;
-  float* als = ahs + d.KS * 8 * 64;
-#endif
-  auto hoff = [&](int r, int k) {
-    return ((k >> 2) * kRows + r) * 4 + (k & 3);
-  };
+  float* hrecv = smem + kBarFloats;        // [2][kRows][HW + 4] h
+  float* part = hrecv + 2 * d.RS;          // [KW][kRows][CP] partial z
+  const int HWP = d.HW + 4;
+  auto hoff = [&](int r, int k) { return r * HWP + k; };  // h[r][k]
   // the bytes that arrive per step: every block's kRows x J values
-  const int bytes = d.RS * static_cast<int>(sizeof(float));
+  const int bytes = kRows * d.HW * static_cast<int>(sizeof(float));
 
   // ---- set-up: zeroed buffers (pad units stay 0), h0, the mbarriers
-  const int zero = 4 * d.RS + d.KW * kRows * CP;
+  const int zero = 2 * d.RS + d.KW * kRows * CP;
   for (int e = tid; e < zero; e += kThreads) hrecv[e] = 0.0f;
   __syncthreads();
   for (int e = tid; e < kRows * n; e += kThreads) {
@@ -435,11 +369,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int ks0 = kw * d.KPW;
   const int kc = RESIDENT ? max(0, min(d.KPW, d.KS - ks0)) : 0;
   uint32_t ah[kF][4], al[kF][4];
-#ifdef XP_WGMMA_SS
-  if (false) {
-#else
   if (RESIDENT) {
-#endif
 #pragma unroll
     for (int f = 0; f < kF; ++f) {
       const int k0 = (ks0 + f) * 8, m0 = mt * 16;
@@ -462,18 +392,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 
-#ifdef XP_WGMMA_SS
-  if (RESIDENT) {
-    for (int e = tid; e < d.KS * 8 * 64; e += kThreads) {
-      const int k = (e >> 8) * 4 + (e & 3), c = (e >> 2) & 63;
-      uint32_t hi, lo;
-      split_tf32(bits(r_at(k, c)), hi, lo);
-      ahs[e] = value(kSplitR ? hi : bits(r_at(k, c)));
-      als[e] = value(kSplitR ? lo : 0u);
-    }
-    proxy_fence();
-  }
-#endif
   // ---- this thread's (row, unit) pair: its carry and peepholes in
   // registers. A warp's threads all have one or none (kRows J, at most
   // kThreads, is a multiple of 32); pad rows and units carry zeros
@@ -513,34 +431,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int s = 0; s < d.t; ++s) {
     const int buf = s & 1;
+    const float* hin = hrecv + buf * d.RS;
     // (1) h_{s-1} from every block (h0 was loaded by each block itself)
     if (s > 0) mbar_wait(bars + buf, ((s - 1) >> 1) & 1);
     PROBE(0)  // waiting for h
-    // (2) its TF32 parts, once per block, for the product's B
-    {
-      const float4* in = reinterpret_cast<const float4*>(hrecv + buf * d.RS);
-      for (int e = tid; e < d.RS / 4; e += kThreads) {
-        const float4 v = in[e];
-        uint32_t hi[4], lo[4];
-        split_tf32(bits(v.x), hi[0], lo[0]);
-        split_tf32(bits(v.y), hi[1], lo[1]);
-        split_tf32(bits(v.z), hi[2], lo[2]);
-        split_tf32(bits(v.w), hi[3], lo[3]);
-        reinterpret_cast<float4*>(hhi)[e] = make_float4(
-            value(hi[0]), value(hi[1]), value(hi[2]), value(hi[3]));
-        reinterpret_cast<float4*>(hlo)[e] = make_float4(
-            value(lo[0]), value(lo[1]), value(lo[2]), value(lo[3]));
-      }
-#ifdef XP_WGMMA_SS
-      if (RESIDENT) proxy_fence();  // wgmma reads them
-#endif
-    }
-    __syncthreads();
-    // every thread is past the wait: the mbarrier's next phase may start
-    if (s > 0 && tid == 0) mbar_expect(bars + buf, bytes);
-    PROBE(1)  // the split and its barrier
 
-    // (3) part[kw][r][c] = sum over this share's k of h[r][k] R[k][c]
+    // (2) part[kw][r][c] = sum over this share's k of h[r][k] R[k][c], h
+    // split into its TF32 parts as it is read
     auto put = [&](float acc[NT][4], int share, int m0) {
       float* pw = part + share * kRows * CP + m0 + g8;
 #pragma unroll
@@ -552,47 +449,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         pw[(r + 1) * CP + 8] = acc[nt][3];
       }
     };
+    // this lane's h values at units k0 + t4, k0 + t4 + 4 of row r, split
+    auto b_parts = [&](int r, int k0, uint32_t b[4]) {
+      split_tf32(bits(hin[hoff(r, k0 + t4)]), b[0], b[2]);
+      split_tf32(bits(hin[hoff(r, k0 + t4 + 4)]), b[1], b[3]);
+    };
     if (RESIDENT) {
-#ifdef XP_WGMMA_SS
-      float acc[NT][4] = {};
-      const uint32_t kstride = kRows * 16;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        float tile[kF][4];
-        wg_fence();
-#pragma unroll
-        for (int f = 0; f < kF; ++f) {
-          const int k0 = min(ks0 + f, d.KS - 1) * 8;
-          const uint32_t at = static_cast<uint32_t>(hoff(nt * 8, k0)) * 4;
-          const uint64_t bh = b_desc(smem_u32(hhi) + at, kstride);
-          const uint64_t bl = b_desc(smem_u32(hlo) + at, kstride);
-          const uint32_t aa = (k0 / 4) * 1024;
-#ifdef XP_SWAP
-          const uint64_t ah_ = desc2(smem_u32(ahs) + aa, 128, 1024);
-          const uint64_t al_ = desc2(smem_u32(als) + aa, 128, 1024);
-#else
-          const uint64_t ah_ = desc2(smem_u32(ahs) + aa, 1024, 128);
-          const uint64_t al_ = desc2(smem_u32(als) + aa, 1024, 128);
-#endif
-          if (kSplitR) {
-            wgmma_ss(tile[f], al_, bh, 0);
-            wgmma_ss(tile[f], ah_, bl, 1);
-          } else {
-            wgmma_ss(tile[f], ah_, bl, 0);
-          }
-          wgmma_ss(tile[f], ah_, bh, 1);
-        }
-        wg_commit();
-        wg_wait_all();
-#pragma unroll
-        for (int f = 0; f < kF; ++f) {
-          wg_hold(tile[f]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[nt][e] += tile[f][e];
-        }
-      }
-      put(acc, kw, mt * 16);
-#else
       float acc[NT][4] = {};
 #pragma unroll
       for (int f = 0; f < kF; ++f) {
@@ -600,14 +462,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int k0 = min(ks0 + f, d.KS - 1) * 8;
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          const int i0 = hoff(nt * 8 + g8, k0 + t4);
-          const int i1 = hoff(nt * 8 + g8, k0 + t4 + 4);
-          k8_step<kSplitR>(acc[nt], ah[f], al[f], bits(hhi[i0]),
-                           bits(hhi[i1]), bits(hlo[i0]), bits(hlo[i1]));
+          uint32_t b[4];
+          b_parts(nt * 8 + g8, k0, b);
+          k8_step<kSplitR>(acc[nt], ah[f], al[f], b[0], b[1], b[2], b[3]);
         }
       }
       put(acc, kw, mt * 16);
-#endif
     } else {
       for (int m = warp; m < d.MT; m += kWarps) {
         const int m0 = m * 16;
@@ -632,18 +492,19 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
-            const int i0 = hoff(nt * 8 + g8, k0 + t4);
-            const int i1 = hoff(nt * 8 + g8, k0 + t4 + 4);
-            k8_step<kSplitR>(acc[nt], a_hi, a_lo, bits(hhi[i0]),
-                             bits(hhi[i1]), bits(hlo[i0]), bits(hlo[i1]));
+            uint32_t b[4];
+            b_parts(nt * 8 + g8, k0, b);
+            k8_step<kSplitR>(acc[nt], a_hi, a_lo, b[0], b[1], b[2], b[3]);
           }
         }
         put(acc, 0, m0);
       }
     }
-    PROBE(2)  // the product
+    PROBE(1)  // the product
     __syncthreads();
-    PROBE(3)  // its barrier
+    // every thread is past the wait: the mbarrier's next phase may start
+    if (s > 0 && tid == 0) mbar_expect(bars + buf, bytes);
+    PROBE(2)  // its barrier
 
     // (3) the cell, one thread per (row, unit)
     float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -660,7 +521,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int g = 0; g < 4; ++g) z[g] += zp[w][g];
     }
-    PROBE(4)  // the partial sums
+    PROBE(3)  // the partial sums
     float h_out = 0.0f;
     if (pok) {
       const float c_prev = creg;
@@ -679,7 +540,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       hreg = h_new;
       creg = c_new;
     }
-    PROBE(5)  // the cell
+    PROBE(4)  // the cell
 
     // (4) h_s to every block of the cluster (none needs the last step's):
     // lanes 4a .. 4a + 3 hold units j .. j + 3 of one row
@@ -695,7 +556,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int peer = t4; peer < d.cl; peer += 4)
         st_async4(peer_addr(dst, peer), v, peer_addr(bars + (buf ^ 1), peer));
     }
-    PROBE(6)  // the sends
+    PROBE(5)  // the sends
 
     // (5) outputs and the next step's loads, while h_s travels
     if (pok) {
@@ -708,9 +569,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     if (s + 1 < d.t) load_step(s + 1);
-    PROBE(7)  // stores and the next step's loads
+    PROBE(6)  // stores and the next step's loads
   }
-  PROBE_END(8, d.t)
+  PROBE_END(7, d.t)
 
   if (pok) {
     const int64_t at = static_cast<int64_t>(prow) * n + punit;
@@ -946,7 +807,7 @@ const char* lstm_scan_error_string(int code) {
 
 #ifdef LSTM_FWD_PROBES
 const char* lstm_scan_probe_names() {
-  return "wait for h;split h + sync;product;sync;partial sums;cell;send h;"
+  return "wait for h;product;sync;partial sums;cell;send h;"
          "stores, next loads";
 }
 int lstm_scan_probe_reset() {

@@ -48,7 +48,9 @@ events, median of 5) and peak device memory above its inputs.
 probes on (`-DLSTM_FWD_PROBES`, `-DLSTM_BWD_PROBES`) and prints, float32,
 for rows 5 and 7 at (64, 64, 256) and (8, 4096, 256) and for rows 6 and 8
 at the training paths' shapes, the µs per step of each phase of the serial
-kernels' steps.
+kernels' steps; with `--parent DIR` (a checkout of another commit) it
+first times rows 5 and 7 without probes against DIR's forward kernel, in
+turns.
 """
 from __future__ import annotations
 
@@ -230,10 +232,54 @@ def print_phases(kernel, names, v, first, ns_slot, steps_slot):
         f"; total {sum(parts):.3f} ({1 / us:.0f} MHz)")
 
 
+def fwd_against_parent(torch, L, parent):
+    """Rows 5 and 7 at their paths' shapes, float32 and bfloat16, peephole:
+    this checkout's forward kernel and the one in `parent` (a checkout of
+    another commit), both built without probes, timed in turns (parent,
+    change, change, parent; CUDA events)."""
+    from deeplearning4j_tpu_torch.ops import _build
+
+    libs = {"change": L._fwd_lib()}
+    so = os.path.join(parent, "liblstm_scan_parent.so")
+    csrc = os.path.join(parent, "deeplearning4j_tpu_torch", "csrc")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so,
+                    os.path.join(csrc, "lstm_scan.cu")], check=True,
+                   capture_output=True)
+    libs["parent"] = ctypes.CDLL(so)
+    sizes = [ctypes.c_int64] * 3
+    libs["parent"].lstm_scan_launch.argtypes = (
+        [ctypes.c_void_p] * 9 + sizes + [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p])
+    libs["parent"].lstm_scan_error_string.restype = ctypes.c_char_p
+    libs["parent"].lstm_scan_chunked_launch.argtypes = (
+        [ctypes.c_void_p] * 11 + sizes + [ctypes.c_int64, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_void_p])
+    for (b, t, n), chunked in FWD_SPLIT_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            zx, R, p, h0, c0 = (x.to(dtype)
+                                for x in split_inputs(torch, b, t, n)[:5])
+            fn = ((lambda: L.lstm_scan_chunked_forward(zx, R, h0, c0, p))
+                  if chunked else
+                  (lambda: L.lstm_scan_peephole(zx, R, p, h0, c0)))
+            got = {"parent": [], "change": []}
+            for who in ("parent", "change", "change", "parent"):
+                L._libs["lstm_scan"] = libs[who]
+                got[who].append(launch_ms(torch, fn, 5 if t > 1000 else 50))
+            L._libs["lstm_scan"] = libs["change"]
+            print(f"row {7 if chunked else 5} (b, t, n) = ({b}, {t}, {n}) "
+                  f"{str(dtype)[6:]}: ms per launch, parent "
+                  f"{', '.join(f'{x:.4f}' for x in got['parent'])}; change "
+                  f"{', '.join(f'{x:.4f}' for x in got['change'])} "
+                  f"({min(got['change']) * 1e3 / t:.3f} us/step; parent "
+                  f"{min(got['parent']) * 1e3 / t:.3f})")
+
+
 def lstm_split(torch, card, args) -> int:
     from deeplearning4j_tpu_torch.ops import lstm as L
 
     print(card)
+    if args.parent:
+        fwd_against_parent(torch, L, args.parent)
     out = os.path.join(args.out, "lstm_split")
     fwd = build_probed(out, "lstm_scan", "LSTM_FWD_PROBES")
     bwd = build_probed(out, "lstm_scan_bwd", "LSTM_BWD_PROBES")
@@ -288,6 +334,9 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--mixed", action="store_true",
                     help="bf16 activations (dtypes.set_mixed_precision)")
+    ap.add_argument("--parent", default=None,
+                    help="lstm-split: also time the forward kernel against "
+                         "the one in this checkout of another commit")
     ap.add_argument("--out", default="profile_out",
                     help="directory for the per-kernel table (and "
                          "lstm-split's probed builds)")
