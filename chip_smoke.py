@@ -50,10 +50,11 @@ Phases, in order; any failure exits non-zero without the final line:
               256)), float32 and bfloat16, nonzero h0/c0: each case's plan
               (blocks per cluster, rows per cluster, clusters, R resident),
               max error against the stated tolerance, kernel / plain times,
-              us per step, the bound (the recurrent products on the tensor
-              cores: 3xTF32 in float32, two TF32 products in bfloat16, the
-              CUDA-core bound beside it on the log) and the kernel's share
-              of it; torch.nn.LSTM's forward (cuDNN, plain cell, input
+              us per step, the bound (the recurrent products as float32
+              FMAs on the CUDA cores for n <= 256, else on the tensor cores
+              as 3xTF32 in float32 and two TF32 products in bfloat16; the
+              other units' bound beside it on the log) and the kernel's
+              share of it; torch.nn.LSTM's forward (cuDNN, plain cell, input
               projection included, TF32 off) at (64, 64, 256) as the
               library time; and the port's LSTM layer (projection + kernel)
               beside torch.nn.LSTM for the plain cell.
@@ -125,8 +126,9 @@ Phases, in order; any failure exits non-zero without the final line:
               step of a masked row must fail), kernel / plain / library
               (torch.nn.LSTM, cuDNN, plain cell: its forward for the
               chunked forward, its backward for the backward kernels)
-              times, us per step, the bound (every product on the tensor
-              cores: 3xTF32 in float32) and the kernel's share of it.
+              times, us per step, the bound (the backward's products on the
+              tensor cores, 3xTF32 in float32; the chunked forward's as
+              phase 7 counts them) and the kernel's share of it.
  16. train-rnn    zoo TextGenerationLSTM at full width (two GravesLSTM(256),
               77 characters), RmsProp(1e-2), l2 1e-4, trained by
               MultiLayerNetwork.fit for 20 BPTT steps on one repeated batch
@@ -850,16 +852,22 @@ def lstm_plan_text(lstm_ops, b, n):
 
 
 def lstm_fwd_bound(b, t, n, dtype, bw, peak, peak_tf32, moved):
-    """(bound ms, bound_by, basis, CUDA-core bound ms) of the forward: its
-    recurrent products on the tensor cores, three TF32 products each in
-    float32 (3xTF32), two in bfloat16 (R is exact in TF32, h is not)."""
+    """(bound ms, bound_by, basis, tensor-core bound ms) of the forward: its
+    recurrent products as float32 FMAs on the CUDA cores where R's slices
+    stay in registers (n <= 256, both dtypes), else on the tensor cores
+    (three TF32 products each in float32, two in bfloat16, where R is
+    exact in TF32); the other one's bound beside it."""
     ops = 2 * b * n * 4 * n * t
-    products = 3 if dtype == "float32" else 2
-    tensor = products * ops / peak_tf32
-    b_ms = max(moved / bw, tensor) * 1e3
-    by = "bytes" if moved / bw >= tensor else "operations"
-    return (b_ms, by, f"{products} TF32 products",
-            max(moved / bw, ops / peak) * 1e3)
+    cores = ops / peak
+    tensor = (3 if dtype == "float32" else 2) * ops / peak_tf32
+    on_cores = n <= 256
+    work = cores if on_cores else tensor
+    b_ms = max(moved / bw, work) * 1e3
+    by = "bytes" if moved / bw >= work else "operations"
+    basis = ("float32 FMAs" if on_cores else
+             f"{3 if dtype == 'float32' else 2} TF32 products")
+    other = max(moved / bw, tensor if on_cores else cores) * 1e3
+    return b_ms, by, basis, other
 
 
 def phase_lstm(torch, bw, peak, peak_tf32):
@@ -936,7 +944,7 @@ def phase_lstm(torch, bw, peak, peak_tf32):
                 f"{LSTM_TOL[dname]:g} x {mag:.3g})  kernel={k_ms:.4f} ms "
                 f"({k_ms * 1e3 / t:.2f} us/step)  plain={p_ms:.4f} ms  "
                 f"library={lib}  bound={b_ms:.4f} ms ({by}, {basis}; "
-                f"{100 * b_ms / k_ms:.1f}% of it; CUDA-core bound "
+                f"{100 * b_ms / k_ms:.1f}% of it; the other units' bound "
                 f"{core_ms:.4f} ms)")
             if served_case and dtype == torch.float32:
                 served = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
@@ -1872,9 +1880,10 @@ def phase_lstm_bwd(torch, bw, peak, peak_tf32):
     float32 and bfloat16, from the same inputs (row 6 reads the chunked
     forward's hs, row 8 its checkpoints). Returns each kernel's float32 row
     at its path's shape (per launch) and its largest absolute error. The
-    bounds count every product on the tensor cores: as 3xTF32 in float32,
-    two TF32 products each in bfloat16 (R, or hs, is exact in TF32; h or dz
-    is not) but one for row 6's z without a mask (hs and R)."""
+    backward's bounds count its products on the tensor cores: as 3xTF32 in
+    float32, two TF32 products each in bfloat16 (R, or hs, is exact in
+    TF32; h or dz is not) but one for row 6's z without a mask (hs and R);
+    row 7's is lstm_fwd_bound's."""
     from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1987,16 +1996,17 @@ def phase_lstm_bwd(torch, bw, peak, peak_tf32):
                               ("lstm_scan_chunked_bwd", plain8)):
                     plain_ms[k] = device_ms(torch, lambda i: fn(sets[i]),
                                             nbuf, p_iters)
-            # the kernels form every product in float32, for both dtypes,
-            # on the tensor cores as TF32 products: the backward's three (z,
-            # dh, dR), row 7's one. Float32 takes 3 per product; bfloat16 2,
-            # as R and hs are exact in TF32 and h and dz are not, but 1 for
-            # row 6's z without a mask, where hs and R are both exact
+            # the kernels form every product in float32, for both dtypes:
+            # the backward's three (z, dh, dR) on the tensor cores as TF32
+            # products, 3 per product in float32; bfloat16 2, as R and hs
+            # are exact in TF32 and h and dz are not, but 1 for row 6's z
+            # without a mask, where hs and R are both exact. Row 7's one
+            # (lstm_fwd_bound): float32 FMAs on the CUDA cores, or TF32
+            # products past n = 256
             fwd_ops = 2 * b * t * n * 4 * n
             f32 = dtype == torch.float32
             tf32_products = {
                 "lstm_scan_bwd": 9 if f32 else 6 if masked else 5,
-                "lstm_scan_chunked": 3 if f32 else 2,
                 "lstm_scan_chunked_bwd": 9 if f32 else 6}
             p_bytes = 3 * n * item if peephole else 0
             m_bytes = 4 * b * t if masked else 0
@@ -2010,17 +2020,20 @@ def phase_lstm_bwd(torch, bw, peak, peak_tf32):
                     common + (b * t * n + 2 * b * n) * item + grads,
                     peak_tf32),
                 "lstm_scan_chunked": (
-                    tf32_products["lstm_scan_chunked"] * fwd_ops,
-                    (b * t * 4 * n + 4 * n * n + 2 * b * n) * item
+                    None, (b * t * 4 * n + 4 * n * n + 2 * b * n) * item
                     + p_bytes + m_bytes + (b * t * n + 2 * b * n) * item
-                    + ck_bytes, peak_tf32),
+                    + ck_bytes, None),
                 "lstm_scan_chunked_bwd": (
                     tf32_products["lstm_scan_chunked_bwd"] * fwd_ops,
                     common + ck_bytes + grads, peak_tf32)}
             for k, (ops, moved, rate) in work.items():
-                b_ms = max(moved / bw, ops / rate) * 1e3
-                by = "bytes" if moved / bw >= ops / rate else "operations"
                 fwd = k == "lstm_scan_chunked"
+                if fwd:
+                    b_ms, by, basis, other_ms = lstm_fwd_bound(
+                        b, t, n, dname, bw, peak, peak_tf32, moved)
+                else:
+                    b_ms = max(moved / bw, ops / rate) * 1e3
+                    by = "bytes" if moved / bw >= ops / rate else "operations"
                 lib = lib_fwd_ms if fwd else lib_ms
                 pl = "-" if plain_ms[k] is None else f"{plain_ms[k]:.4f} ms"
                 lib_s = ("-" if lib is None or dtype != torch.float32
@@ -2028,10 +2041,8 @@ def phase_lstm_bwd(torch, bw, peak, peak_tf32):
                               f"{'forward' if fwd else 'backward'}, cuDNN, "
                               f"plain cell]")
                 res = lstm_ops.resident(n, backward=not fwd)
-                how = f"{tf32_products[k]} TF32 products"
-                if fwd:
-                    how += (f"; CUDA-core bound "
-                            f"{max(moved / bw, fwd_ops / peak) * 1e3:.4f} ms")
+                how = (f"{basis}; the other units' bound {other_ms:.4f} ms"
+                       if fwd else f"{tf32_products[k]} TF32 products")
                 log(f"[kernel-lstm-bwd] {k:21s} {dname:8s} b={b:2d} "
                     f"t={t:4d} n={n:4d} {'peephole' if peephole else 'plain   '}"
                     f" {'masked' if masked else '      '} resident="

@@ -26,55 +26,55 @@
 //   c' = f*c + i*g,  o = sigmoid(z_o + po*c'),  h' = o * tanh(c')
 // and a masked step outputs 0 and carries h and c through unchanged. Only
 // hs, hT and cT are rounded to T. sigmoid(x) = 1 / (1 + expf(-x)); the
-// build has no fast-math. The product h @ R runs on the tensor cores
-// (`mma.sync` m16n8k8 TF32, hopper_mma.cuh): in float32 as 3xTF32, both
-// operands split into TF32 hi and lo parts rounded to nearest, the three
-// products of each k8 step in a fresh tile added to the float32 sum (one
-// tensor-core accumulator along K truncates past what the training checks
-// hold); in bfloat16 R is exact in TF32 and h enters as its two parts.
+// build has no fast-math. For n <= 256, h @ R is float32 FMAs on the CUDA
+// cores in a fixed order: K in 8 groups of n / 8 units (n rounded up to
+// the cluster's units), k ascending within a group from 0, the groups'
+// sums added in order. The tensor cores were tried for it and left: as
+// 3xTF32 on mma.sync (three products per k8 step, in a fresh tile or in
+// three, with and without lo x lo) the step was faster, but every
+// arrangement moved chip_smoke.py's chunked training check against the
+// CPU (three RmsProp steps at 2 x 1024) past its 1e-5, which this order
+// holds; wgmma at N = 8 was slower than mma.sync. Past n = 256 the product
+// runs on mma.sync as 3xTF32 (hopper_mma.cuh; in bfloat16 R is exact in
+// TF32 and h enters as its two parts).
 //
 // Bound on an H100 SXM at the served TextGenerationLSTM shape (b=64, t=64,
-// n=256, float32): 2*b*n*4n*t = 2.15 GFLOP of recurrent products, as 3xTF32
-// 6.44 GFLOP over 495 TFLOP/s = 0.0130 ms per launch (0.032 ms on the
-// CUDA cores), against 22.3 MB moved (0.0067 ms). The bound does not count
-// the chain of t dependent steps, each of which needs the whole previous h:
-// that latency, not the tensor cores' rate, is what a small-batch
-// recurrence pays.
+// n=256, float32): 2*b*n*4n*t = 2.15 GFLOP of recurrent products over 67
+// TFLOP/s of float32 FMAs, 0.032 ms per launch, against 22.3 MB moved
+// (0.0067 ms). The bound does not count the chain of t dependent steps,
+// each of which needs the whole previous h: that latency, not the FMA
+// rate, is what a small-batch recurrence pays.
 //
 // Design: a column split over a thread-block cluster. Every step needs all
 // of h against all of R (1 MiB at n = 256 in float32), so a cluster of cl
-// blocks shares one batch tile of rows = 8 or 16 rows (one or two of mma's
-// N = 8 tiles): block q owns hidden units [q J, (q + 1) J) and the C = 4 J
-// columns of R that feed their gates (column g J + j is gate g of unit
-// q J + j). The host's plan (plan_for, printed by chip_smoke.py) picks per
-// shape:
-//   cl    8 for n <= 128, else 16 (a cluster of 16 is non-portable);
+// blocks shares one batch tile of rows = 8 or 16 rows: block q owns hidden
+// units [q J, (q + 1) J) and the C = 4 J columns of R that feed their gates
+// (column g J + j is gate g of unit q J + j). The host's plan (plan_for,
+// printed by chip_smoke.py) picks per shape:
+//   cl    8 for n <= 128, else 16 (a cluster of 16 is non-portable), so a
+//         block's slice of R is at most 64 KB at n <= 256;
 //   rows  8 where the batch tiles of 8 rows all run at once (the card's
 //         count of co-resident clusters, asked once per device: 7 of 16
 //         blocks on an H100 SXM, 15 of 8), else 16; tiles past that count
 //         wait for a second wave;
-//   R     resident for n <= 256: J = 16, so a block's 64 columns are 4
-//         16-column tiles (mma's M: z^T = R_q^T h^T) and its 16 warps 4 K
-//         shares of 4 warps; each warp splits its tile's share of R (at
-//         most 8 k8 steps) once, at the start of the launch, into TF32 hi
-//         and lo A fragments held in registers for all t steps. Past
-//         n = 256 the slice does not fit on chip: J is the power of two
-//         that covers n, and R is read from L2 and split on every step,
-//         several times slower.
+//   R     resident for n <= 256: J = 16, so a block has 64 columns; each of
+//         its 256 threads owns 4 columns for half the batch rows over one
+//         of the 8 K groups, and holds that part of R (at most 32 x 4
+//         floats) in registers for all t steps: one 16-byte load of h
+//         feeds 16 FMAs. Past n = 256 the slice does not fit on chip: R is
+//         read from L2 every step, several times slower.
 // Each block holds an SM of its own (its shared memory is asked for at more
-// than half of an SM's), so that no two blocks share tensor cores. A step:
+// than half of an SM's). A step:
 //   (1) wait for h_{s-1}: each block's mbarrier counts the bytes that the
 //       cl blocks' st.async stores bring into its receive buffer;
-//   (2) the product: each warp's K share of its column tile for the 8 or
-//       16 rows on mma.sync, h split into its TF32 parts as each warp reads
-//       it; the shares' partial sums to shared memory, one __syncthreads;
-//   (3) the cell, one thread per (row, unit): the 4 partials added in order
-//       (so results repeat bit for bit), + zx; h and c carried in
+//   (2) the product into shared memory (resident: one partial sum per K
+//       group), one __syncthreads;
+//   (3) the cell, one thread per (row, unit): the partials added in group
+//       order (so results repeat bit for bit), + zx; h and c carried in
 //       registers;
 //   (4) h_s to the cl blocks' other receive buffer: four lanes gather four
 //       units of a row into one 16-byte st.async per peer, which completes
-//       on that peer's mbarrier (h goes as float32, once: sending its TF32
-//       parts would double the bytes, and the exchange is bound by them);
+//       on that peer's mbarrier (no cluster barrier per step);
 //   (5) hs, the chunk checkpoints and the next step's zx and mask loads,
 //       off the chain: the exchange's latency covers them.
 // The receive buffers and mbarriers are double-buffered: a block sends
@@ -82,10 +82,8 @@
 // after it had read h_{s-1}, so no buffer is overwritten while it is read
 // and no mbarrier phase sees the next step's bytes. Batch tiles run as
 // independent clusters along grid y. n is capped at kMaxN = 1024.
-// What sets the step (profile_resnet_torch.py --model lstm-split builds
-// this source with the probes below; PERF.md): the product's chain of
-// dependent mma.sync per warp, then the exchange and the cell; wgmma (TF32,
-// N = 8, A from registers or shared memory) was slower here.
+// profile_resnet_torch.py --model lstm-split builds this source with the
+// probes below and splits a step by phase (PERF.md).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,15 +132,16 @@ __device__ unsigned long long g_probe[16];
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxN = 1024;
 constexpr int kRegN = 256;     // widest n whose R slices fit in registers
 constexpr int kSmallN = 128;   // widest n that a cluster of 8 blocks takes
-// resident (J = 16: 4 column tiles of 16): each warp owns one of them over
-// one of kShares K shares, at most kFrags k8 steps (n <= 256)
-constexpr int kShares = kWarps / 4;
-constexpr int kFrags = 32 / kShares;
+// resident: J = 16 units, so 64 columns per block; each thread of the
+// product owns 4 of them for half the batch rows over one of kShares K
+// shares of at most kShareK units (n <= 256)
+constexpr int kShares = 8;
+constexpr int kShareK = 32;
 // a block's least shared memory: more than half of an SM's 228 KB
 constexpr size_t kOwnSm = 116 * 1024;
 constexpr int kBarFloats = 4;  // the mbarriers at the start of it
@@ -229,16 +228,18 @@ __device__ __forceinline__ void st_async4(uint32_t addr, float4 v,
 struct Dims {
   int b, t, n, tc;
   int cl;     // blocks per cluster
-  int J;      // hidden units per block, a power of two >= 4
+  int J;      // hidden units per block, a power of two (16 when resident)
   int LJ;     // log2 J
   int C;      // 4 J columns per block, gate-major
   int HW;     // cl J >= n: units in a row of h
-  int RS;     // floats of a receive buffer [rows][HW + 4]
+  int SK;     // resident: units of a K share, HW / kShares
+  int HWP;    // row stride of a receive buffer: resident kShares (SK + 4),
+              // else HW + 4
+  int RS;     // floats of a receive buffer [rows][HWP]
   int CP;     // row stride of the partial sums: C + 4
-  int KS;     // k8 steps: ceil(n / 8)
-  int MT;     // 16-column tiles: C / 16
-  int KW;     // K shares: warps per column tile (resident), else 1
-  int KPW;    // k8 steps per share
+  int KW;     // partial sums per z: kShares (resident), else 1
+  int KS;     // L2 path: k8 steps, ceil(n / 8)
+  int MT;     // L2 path: 16-column tiles, C / 16
 };
 
 struct Plan {
@@ -256,8 +257,8 @@ Plan plan_for(int64_t b, int64_t n, int active8, int active16) {
   pl.active = pl.cl == 8 ? active8 : active16;
   pl.rows = pl.resident && (b + 7) / 8 > pl.active ? 16 : 8;
   pl.tiles = static_cast<int>((b + pl.rows - 1) / pl.rows);
-  // resident: 16 units, so every warp of the 4 K shares owns one of the 4
-  // column tiles; else the power of two >= 4 that covers n
+  // resident: 16 units, so a block's 64 columns fill its 512 threads' 8 K
+  // shares; else the power of two >= 4 that covers n
   pl.J = pl.resident ? 16 : 4;
   while (pl.J * pl.cl < n) pl.J *= 2;
   return pl;
@@ -275,25 +276,27 @@ Dims make_dims(int64_t b, int64_t t, int64_t n, int64_t tc, const Plan& pl) {
   while ((1 << d.LJ) < d.J) ++d.LJ;
   d.C = 4 * d.J;
   d.HW = d.cl * d.J;
-  d.RS = pl.rows * (d.HW + 4);
+  d.SK = d.HW / kShares;
+  d.HWP = pl.resident ? kShares * (d.SK + 4) : d.HW + 4;
+  d.RS = pl.rows * d.HWP;
   d.CP = d.C + 4;
+  d.KW = pl.resident ? kShares : 1;
   d.KS = (d.n + 7) / 8;
   d.MT = d.C / 16;
-  d.KW = pl.resident ? kShares : 1;
-  d.KPW = (d.KS + d.KW - 1) / d.KW;
   return d;
 }
 
 size_t smem_bytes(const Dims& d, int rows) {
+  // the mbarriers, two receive buffers, the partial sums
   const size_t floats = kBarFloats + 2 * static_cast<size_t>(d.RS) +
                         static_cast<size_t>(d.KW) * rows * d.CP;
   return floats * sizeof(float) > kOwnSm ? floats * sizeof(float) : kOwnSm;
 }
 
-// One k8 step of z^T += R_q^T h^T into a fresh tile added to acc, small
-// terms first: A as its TF32 parts (a_lo unused when R is exact in TF32),
-// B as this lane's h values' parts: units k0 + t4 (bh0, bl0) and k0 + t4 + 4
-// (bh1, bl1)
+// L2 path: one k8 step of z^T += R_q^T h^T into a fresh tile added to acc,
+// small terms first: A as its TF32 parts (a_lo unused when R is exact in
+// TF32), B as this lane's h values' parts: units k0 + t4 (bh0, bl0) and
+// k0 + t4 + 4 (bh1, bl1)
 template <bool kSplitR>
 __device__ __forceinline__ void k8_step(float acc[4], const uint32_t a_hi[4],
                                         const uint32_t a_lo[4], uint32_t bh0,
@@ -307,7 +310,7 @@ __device__ __forceinline__ void k8_step(float acc[4], const uint32_t a_hi[4],
   for (int e = 0; e < 4; ++e) acc[e] += tt[e];
 }
 
-// NT: mma N tiles of 8 batch rows; RESIDENT: R's TF32 parts in registers
+// NT: mma N tiles of 8 batch rows; RESIDENT: R's slice in registers
 template <typename T, int NT, bool RESIDENT>
 __global__ void __launch_bounds__(kThreads, 1)
     lstm_scan_kernel(const T* __restrict__ zx, const T* __restrict__ R,
@@ -318,13 +321,13 @@ __global__ void __launch_bounds__(kThreads, 1)
                      float* __restrict__ cck, Dims d) {
   constexpr int kRows = 8 * NT;
   constexpr bool kSplitR = sizeof(T) == 4;  // bfloat16 is exact in TF32
-  constexpr int kF = RESIDENT ? kFrags : 1;
+  constexpr int kPairs = RESIDENT ? 1 : 2;  // (row, unit) pairs per thread
   constexpr int kKW = RESIDENT ? kShares : 1;  // = d.KW
   cg::cluster_group cluster = cg::this_cluster();
   const int q = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, t4 = lane & 3;
-  const int n = d.n, J = d.J, CP = d.CP;
+  const int n = d.n, J = d.J, CP = d.CP, HWP = d.HWP, SK = d.SK;
   const int u0 = q * J;                    // first hidden unit of this block
   const int b0 = blockIdx.y * kRows;       // first batch row of the cluster
   const int64_t n4 = 4 * static_cast<int64_t>(n);
@@ -333,16 +336,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   // kBarFloats: two mbarriers, one per receive buffer (dynamic shared
   // memory, so that all of it may be asked for)
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
-  float* hrecv = smem + kBarFloats;        // [2][kRows][HW + 4] h
+  float* hrecv = smem + kBarFloats;        // [2][kRows][HWP] h
   float* part = hrecv + 2 * d.RS;          // [KW][kRows][CP] partial z
-  const int HWP = d.HW + 4;
-  auto hoff = [&](int r, int k) { return r * HWP + k; };  // h[r][k]
+  // h[r][k]: resident, [kShares][SK + 4] per row, so that two K shares'
+  // 16-byte loads fall in distinct banks; else [HW + 4]
+  auto hoff = [&](int r, int k) {
+    return RESIDENT ? r * HWP + (k / SK) * (SK + 4) + k % SK : r * HWP + k;
+  };
   // the bytes that arrive per step: every block's kRows x J values
   const int bytes = kRows * d.HW * static_cast<int>(sizeof(float));
 
   // ---- set-up: zeroed buffers (pad units stay 0), h0, the mbarriers
-  const int zero = 2 * d.RS + d.KW * kRows * CP;
-  for (int e = tid; e < zero; e += kThreads) hrecv[e] = 0.0f;
+  for (int e = tid; e < 2 * d.RS + kKW * kRows * CP; e += kThreads)
+    hrecv[e] = 0.0f;
   __syncthreads();
   for (int e = tid; e < kRows * n; e += kThreads) {
     const int r = e / n, k = e % n;
@@ -362,67 +368,66 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int u = u0 + (c & (J - 1));
     return k < n && u < n ? to_float(R[k * n4 + (c >> d.LJ) * n + u]) : 0.0f;
   };
-  // this warp's column tile and K share; resident: its A fragments, split
-  // once into TF32 hi and lo parts (zero past its share's end)
-  const int mt = RESIDENT ? warp % 4 : 0;
-  const int kw = RESIDENT ? warp / 4 : 0;
-  const int ks0 = kw * d.KPW;
-  const int kc = RESIDENT ? max(0, min(d.KPW, d.KS - ks0)) : 0;
-  uint32_t ah[kF][4], al[kF][4];
+  // resident: this thread's rows kHalf fr .. kHalf fr + kHalf - 1, K share
+  // fks and columns 4 fcq .. 4 fcq + 3, their part of R in registers
+  constexpr int kHalf = kRows / 2;
+  const int fr = tid >> 7, fks = (tid >> 4) & 7, fcq = tid & 15;
+  float rr[RESIDENT ? kShareK : 1][4];
   if (RESIDENT) {
 #pragma unroll
-    for (int f = 0; f < kF; ++f) {
-      const int k0 = (ks0 + f) * 8, m0 = mt * 16;
-      float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (f < kc) {
-        a[0] = r_at(k0 + t4, m0 + g8);
-        a[1] = r_at(k0 + t4, m0 + g8 + 8);
-        a[2] = r_at(k0 + t4 + 4, m0 + g8);
-        a[3] = r_at(k0 + t4 + 4, m0 + g8 + 8);
-      }
+    for (int i = 0; i < kShareK; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (kSplitR) {
-          split_tf32(bits(a[j]), ah[f][j], al[f][j]);
-        } else {
-          ah[f][j] = bits(a[j]);
-          al[f][j] = 0u;
-        }
-      }
-    }
+      for (int c = 0; c < 4; ++c)
+        rr[i][c] = i < SK ? r_at(fks * SK + i, 4 * fcq + c) : 0.0f;
   }
 
-  // ---- this thread's (row, unit) pair: its carry and peepholes in
-  // registers. A warp's threads all have one or none (kRows J, at most
-  // kThreads, is a multiple of 32); pad rows and units carry zeros
-  const bool pin = tid < kRows * J;
-  const int pr = tid >> d.LJ, pj = tid & (J - 1);
-  const int prow = b0 + pr, punit = u0 + pj;
-  const bool pok = pin && prow < d.b && punit < n;
-  float hreg = 0.0f, creg = 0.0f, pi = 0.0f, pf = 0.0f, po = 0.0f;
-  if (pok) {
-    const int64_t at = static_cast<int64_t>(prow) * n + punit;
-    hreg = to_float(h0[at]);
-    creg = to_float(c0[at]);
-    if (p != nullptr) {
-      pi = to_float(p[punit]);
-      pf = to_float(p[n + punit]);
-      po = to_float(p[2 * n + punit]);
-    }
-    if (hck != nullptr) {  // the carry entering chunk 0
-      hck[at] = hreg;
-      cck[at] = creg;
+  // ---- this thread's (row, unit) pairs: carries and peepholes in
+  // registers. A warp's threads all have a pair i or none (kRows J is a
+  // multiple of 32); pad rows and units carry zeros
+  float hreg[kPairs], creg[kPairs], pi[kPairs], pf[kPairs], po[kPairs];
+  int prow[kPairs], punit[kPairs], pr[kPairs], pj[kPairs];
+  bool pin[kPairs], pok[kPairs];
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) {
+    const int pidx = tid + i * kThreads;
+    pin[i] = pidx < kRows * J;
+    pr[i] = pidx >> d.LJ;
+    pj[i] = pidx & (J - 1);
+    prow[i] = b0 + pr[i];
+    punit[i] = u0 + pj[i];
+    pok[i] = pin[i] && prow[i] < d.b && punit[i] < n;
+    hreg[i] = creg[i] = pi[i] = pf[i] = po[i] = 0.0f;
+    if (pok[i]) {
+      const int64_t at = static_cast<int64_t>(prow[i]) * n + punit[i];
+      hreg[i] = to_float(h0[at]);
+      creg[i] = to_float(c0[at]);
+      if (p != nullptr) {
+        pi[i] = to_float(p[punit[i]]);
+        pf[i] = to_float(p[n + punit[i]]);
+        po[i] = to_float(p[2 * n + punit[i]]);
+      }
+      if (hck != nullptr) {  // the carry entering chunk 0
+        hck[at] = hreg[i];
+        cck[at] = creg[i];
+      }
     }
   }
-  float zxv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  bool live = true;
+  float zxv[kPairs][4];
+  bool live[kPairs];
   auto load_step = [&](int s) {
-    if (!pok) return;
-    const int64_t row = (static_cast<int64_t>(prow) * d.t + s) * n4;
 #pragma unroll
-    for (int g = 0; g < 4; ++g) zxv[g] = to_float(zx[row + g * n + punit]);
-    if (mask != nullptr)
-      live = mask[static_cast<int64_t>(prow) * d.t + s] > 0.0f;
+    for (int i = 0; i < kPairs; ++i) {
+      live[i] = true;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) zxv[i][g] = 0.0f;
+      if (!pok[i]) continue;
+      const int64_t row = (static_cast<int64_t>(prow[i]) * d.t + s) * n4;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        zxv[i][g] = to_float(zx[row + g * n + punit[i]]);
+      if (mask != nullptr)
+        live[i] = mask[static_cast<int64_t>(prow[i]) * d.t + s] > 0.0f;
+    }
   };
   load_step(0);
   // every block's buffers and mbarriers are ready before any peer sends
@@ -436,39 +441,42 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (s > 0) mbar_wait(bars + buf, ((s - 1) >> 1) & 1);
     PROBE(0)  // waiting for h
 
-    // (2) part[kw][r][c] = sum over this share's k of h[r][k] R[k][c], h
-    // split into its TF32 parts as it is read
-    auto put = [&](float acc[NT][4], int share, int m0) {
-      float* pw = part + share * kRows * CP + m0 + g8;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int r = nt * 8 + 2 * t4;
-        pw[r * CP] = acc[nt][0];
-        pw[(r + 1) * CP] = acc[nt][1];
-        pw[r * CP + 8] = acc[nt][2];
-        pw[(r + 1) * CP + 8] = acc[nt][3];
-      }
-    };
-    // this lane's h values at units k0 + t4, k0 + t4 + 4 of row r, split
-    auto b_parts = [&](int r, int k0, uint32_t b[4]) {
-      split_tf32(bits(hin[hoff(r, k0 + t4)]), b[0], b[2]);
-      split_tf32(bits(hin[hoff(r, k0 + t4 + 4)]), b[1], b[3]);
-    };
+    // (2) part[w][r][c] = sum over K share w's k of h[r][k] R[k][c]
     if (RESIDENT) {
-      float acc[NT][4] = {};
+      // float32 FMAs, k ascending: one float4 of h feeds 16 of them
+      {
+        float acc[kHalf][4];
 #pragma unroll
-      for (int f = 0; f < kF; ++f) {
-        // past the share's end the fragments are 0: read any valid k
-        const int k0 = min(ks0 + f, d.KS - 1) * 8;
+        for (int r = 0; r < kHalf; ++r)
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          uint32_t b[4];
-          b_parts(nt * 8 + g8, k0, b);
-          k8_step<kSplitR>(acc[nt], ah[f], al[f], b[0], b[1], b[2], b[3]);
+          for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+        const float* hk = hin + (kHalf * fr) * HWP + fks * (SK + 4);
+#pragma unroll
+        for (int i = 0; i < kShareK; i += 4) {
+          if (i < SK) {
+#pragma unroll
+            for (int r = 0; r < kHalf; ++r) {
+              const float4 h4 =
+                  *reinterpret_cast<const float4*>(hk + r * HWP + i);
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                acc[r][c] = fmaf(h4.x, rr[i][c], acc[r][c]);
+                acc[r][c] = fmaf(h4.y, rr[i + 1][c], acc[r][c]);
+                acc[r][c] = fmaf(h4.z, rr[i + 2][c], acc[r][c]);
+                acc[r][c] = fmaf(h4.w, rr[i + 3][c], acc[r][c]);
+              }
+            }
+          }
         }
+#pragma unroll
+        for (int r = 0; r < kHalf; ++r)
+          *reinterpret_cast<float4*>(
+              part + (fks * kRows + kHalf * fr + r) * CP + 4 * fcq) =
+              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
       }
-      put(acc, kw, mt * 16);
     } else {
+      // mma.sync, 3xTF32: R read from L2 and split every step, h split as
+      // each warp reads it
       for (int m = warp; m < d.MT; m += kWarps) {
         const int m0 = m * 16;
         float acc[NT][4] = {};
@@ -492,12 +500,22 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
-            uint32_t b[4];
-            b_parts(nt * 8 + g8, k0, b);
-            k8_step<kSplitR>(acc[nt], a_hi, a_lo, b[0], b[1], b[2], b[3]);
+            const int r = nt * 8 + g8;
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(bits(hin[hoff(r, k0 + t4)]), bh0, bl0);
+            split_tf32(bits(hin[hoff(r, k0 + t4 + 4)]), bh1, bl1);
+            k8_step<kSplitR>(acc[nt], a_hi, a_lo, bh0, bh1, bl0, bl1);
           }
         }
-        put(acc, 0, m0);
+        float* zw = part + m0 + g8;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int r = nt * 8 + 2 * t4;
+          zw[r * CP] = acc[nt][0];
+          zw[(r + 1) * CP] = acc[nt][1];
+          zw[r * CP + 8] = acc[nt][2];
+          zw[(r + 1) * CP + 8] = acc[nt][3];
+        }
       }
     }
     PROBE(1)  // the product
@@ -506,77 +524,84 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (s > 0 && tid == 0) mbar_expect(bars + buf, bytes);
     PROBE(2)  // its barrier
 
-    // (3) the cell, one thread per (row, unit)
-    float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (pok) {
-      // the K shares' partials, loaded together and added in order
-      float zp[kKW][4];
+    // (3) the cell, one thread per (row, unit): the K shares' partial sums
+    // added in order
+    float h_out[kPairs];
 #pragma unroll
-      for (int w = 0; w < kKW; ++w)
+    for (int i = 0; i < kPairs; ++i) {
+      h_out[i] = 0.0f;
+      if (!pok[i]) continue;
+      float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-        for (int g = 0; g < 4; ++g)
-          zp[w][g] = part[(w * kRows + pr) * CP + g * J + pj];
+      for (int w = 0; w < kKW; ++w) {
+        const float* pz = part + (w * kRows + pr[i]) * CP + pj[i];
 #pragma unroll
-      for (int w = 0; w < kKW; ++w)
-#pragma unroll
-        for (int g = 0; g < 4; ++g) z[g] += zp[w][g];
-    }
-    PROBE(3)  // the partial sums
-    float h_out = 0.0f;
-    if (pok) {
-      const float c_prev = creg;
-      const float ig = sigmoid(zxv[0] + z[0] + pi * c_prev);
-      const float fg = sigmoid(zxv[1] + z[1] + pf * c_prev);
-      const float gg = tanhf(zxv[2] + z[2]);
+        for (int g = 0; g < 4; ++g) z[g] += pz[g * J];
+      }
+      const float c_prev = creg[i];
+      const float ig = sigmoid(zxv[i][0] + z[0] + pi[i] * c_prev);
+      const float fg = sigmoid(zxv[i][1] + z[1] + pf[i] * c_prev);
+      const float gg = tanhf(zxv[i][2] + z[2]);
       float c_new = fg * c_prev + ig * gg;
-      const float og = sigmoid(zxv[3] + z[3] + po * c_new);
+      const float og = sigmoid(zxv[i][3] + z[3] + po[i] * c_new);
       float h_new = og * tanhf(c_new);
-      h_out = h_new;
-      if (!live) {
-        h_out = 0.0f;
-        h_new = hreg;
+      h_out[i] = h_new;
+      if (!live[i]) {
+        h_out[i] = 0.0f;
+        h_new = hreg[i];
         c_new = c_prev;
       }
-      hreg = h_new;
-      creg = c_new;
+      hreg[i] = h_new;
+      creg[i] = c_new;
     }
-    PROBE(4)  // the cell
+    PROBE(3)  // the cell
 
     // (4) h_s to every block of the cluster (none needs the last step's):
-    // lanes 4a .. 4a + 3 hold units j .. j + 3 of one row
-    if (s + 1 < d.t && pin) {
-      const int base = lane & ~3;
-      const float4 v =
-          make_float4(__shfl_sync(0xffffffffu, hreg, base),
-                      __shfl_sync(0xffffffffu, hreg, base + 1),
-                      __shfl_sync(0xffffffffu, hreg, base + 2),
-                      __shfl_sync(0xffffffffu, hreg, base + 3));
-      const float* dst =
-          hrecv + (buf ^ 1) * d.RS + hoff(pr, u0 + (pj & ~3));
-      for (int peer = t4; peer < d.cl; peer += 4)
-        st_async4(peer_addr(dst, peer), v, peer_addr(bars + (buf ^ 1), peer));
+    // lanes 4a .. 4a + 3 hold units j .. j + 3 of one row, in one K share
+    if (s + 1 < d.t) {
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        if (!pin[i]) continue;
+        const int base = lane & ~3;
+        const float4 v =
+            make_float4(__shfl_sync(0xffffffffu, hreg[i], base),
+                        __shfl_sync(0xffffffffu, hreg[i], base + 1),
+                        __shfl_sync(0xffffffffu, hreg[i], base + 2),
+                        __shfl_sync(0xffffffffu, hreg[i], base + 3));
+        const float* dst =
+            hrecv + (buf ^ 1) * d.RS + hoff(pr[i], u0 + (pj[i] & ~3));
+        for (int peer = t4; peer < d.cl; peer += 4)
+          st_async4(peer_addr(dst, peer), v,
+                    peer_addr(bars + (buf ^ 1), peer));
+      }
     }
-    PROBE(5)  // the sends
+    PROBE(4)  // the sends
 
     // (5) outputs and the next step's loads, while h_s travels
-    if (pok) {
-      store_as(hs + (static_cast<int64_t>(prow) * d.t + s) * n + punit, h_out);
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      if (!pok[i]) continue;
+      store_as(hs + (static_cast<int64_t>(prow[i]) * d.t + s) * n + punit[i],
+               h_out[i]);
       if (hck != nullptr && (s + 1) % d.tc == 0 && s + 1 < d.t) {
         const int64_t at =
-            (static_cast<int64_t>((s + 1) / d.tc) * d.b + prow) * n + punit;
-        hck[at] = hreg;
-        cck[at] = creg;
+            (static_cast<int64_t>((s + 1) / d.tc) * d.b + prow[i]) * n +
+            punit[i];
+        hck[at] = hreg[i];
+        cck[at] = creg[i];
       }
     }
     if (s + 1 < d.t) load_step(s + 1);
-    PROBE(6)  // stores and the next step's loads
+    PROBE(5)  // stores and the next step's loads
   }
-  PROBE_END(7, d.t)
+  PROBE_END(6, d.t)
 
-  if (pok) {
-    const int64_t at = static_cast<int64_t>(prow) * n + punit;
-    store_as(hT + at, hreg);
-    store_as(cT + at, creg);
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) {
+    if (!pok[i]) continue;
+    const int64_t at = static_cast<int64_t>(prow[i]) * n + punit[i];
+    store_as(hT + at, hreg[i]);
+    store_as(cT + at, creg[i]);
   }
   // no block leaves while a peer may still address its shared memory
   cluster_arrive();
@@ -807,8 +832,7 @@ const char* lstm_scan_error_string(int code) {
 
 #ifdef LSTM_FWD_PROBES
 const char* lstm_scan_probe_names() {
-  return "wait for h;product;sync;partial sums;cell;send h;"
-         "stores, next loads";
+  return "wait for h;product;sync;cell;send h;stores, next loads";
 }
 int lstm_scan_probe_reset() {
   const unsigned long long zero[16] = {0};

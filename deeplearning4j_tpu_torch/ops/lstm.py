@@ -25,7 +25,8 @@ bfloat16) and contiguous; an optional mask [b, t] of any numeric dtype
 ("live" = > 0; a masked step outputs zeros and carries h and c through).
 R, p, z_t, h0 and c0 are raised to float32, h and c are carried in float32
 and every product is formed to float32 accuracy (the plain versions with
-TF32 off, the kernels on the tensor cores as 3xTF32); hs, hT, cT and dzx come
+TF32 off; the kernels as float32 FMAs or as 3xTF32 on the tensor cores);
+hs, hT, cT and dzx come
 back in zx's dtype, the checkpoints hck, cck [ceil(t / CHUNK), b, n] (the
 carry entering each chunk, hck[0] = h0) and dR, dp, dh0, dc0 in float32.
 
@@ -40,17 +41,18 @@ same reverse step. The mask gets no gradient.
 The CUDA kernels (csrc/lstm_scan.cu: rows 5 and 7; csrc/lstm_scan_bwd.cu:
 rows 6 and 8) run the serial steps in thread-block clusters, R split by
 columns over the blocks, h (forward) and the dh partial sums (backward)
-exchanged through distributed shared memory, every product on the tensor
-cores (3xTF32 for float32). The forward's cluster (8 or 16 blocks) and
-batch rows per cluster (8 or 16) follow a plan per shape (`plan`), R's TF32
-parts held in registers for n <= 256. The backward keeps off the chain what
-is not serial: dR is one product per chunk over the whole card, row 6
-without a mask forms z for all steps as one product, and row 8 recomputes
-chunk j - 1 while it reverses chunk j. At the trained shape (b=64, t=64,
-n=256, float32) row 5 is bound by 2.15 GFLOP of recurrent products as
-3xTF32 over 495 TFLOP/s (0.013 ms per launch on an H100 SXM) and row 6 by
-6.44 GFLOP as 3xTF32 (0.039 ms); neither bound counts the serial chain of t
-dependent steps.
+exchanged through distributed shared memory. The forward's cluster (8 or
+16 blocks) and batch rows per cluster (8 or 16) follow a plan per shape
+(`plan`); for n <= 256 its slice of R stays in registers and its product
+is float32 FMAs on the CUDA cores, past that 3xTF32 on the tensor cores.
+The backward runs every product on the tensor cores (3xTF32 for float32)
+and keeps off the chain what is not serial: dR is one product per chunk
+over the whole card, row 6 without a mask forms z for all steps as one
+product, and row 8 recomputes chunk j - 1 while it reverses chunk j. At
+the trained shape (b=64, t=64, n=256, float32) row 5 is bound by 2.15
+GFLOP of recurrent products over 67 TFLOP/s (0.032 ms per launch on an
+H100 SXM) and row 6 by 6.44 GFLOP as 3xTF32 over 495 TFLOP/s (0.039 ms);
+neither bound counts the serial chain of t dependent steps.
 
 Each wrapper launches its kernel for CUDA tensors (counting `.launches` on
 `lstm_scan`, `lstm_scan_bwd`, `lstm_scan_chunked`, `lstm_scan_chunked_bwd`)
