@@ -819,7 +819,7 @@ LSTM_CASES = [
     # the launch plan's edges
     (200, 32, 256, True, False),    # batch tiles beyond one wave
     (8, 64, 1000, True, False),     # n not a multiple of 16, R from L2
-    (3, 64, 256, True, False),      # one tile, mostly pad rows
+    (3, 64, 256, True, False),      # one-row tiles
     (8, 4096, 256, False, False),   # plain cell at the long path's shape
 ]
 LSTM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # x max(1, max|plain|)

@@ -47,16 +47,18 @@
 //
 // Design: a column split over a thread-block cluster. Every step needs all
 // of h against all of R (1 MiB at n = 256 in float32), so a cluster of cl
-// blocks shares one batch tile of rows = 8 or 16 rows: block q owns hidden
+// blocks shares one batch tile of rows batch rows: block q owns hidden
 // units [q J, (q + 1) J) and the C = 4 J columns of R that feed their gates
 // (column g J + j is gate g of unit q J + j). The host's plan (plan_for,
 // printed by chip_smoke.py) picks per shape:
 //   cl    8 for n <= 128, else 16 (a cluster of 16 is non-portable), so a
 //         block's slice of R is at most 64 KB at n <= 256;
-//   rows  8 where the batch tiles of 8 rows all run at once (the card's
-//         count of co-resident clusters, asked once per device: 7 of 16
-//         blocks on an H100 SXM, 15 of 8), else 16; tiles past that count
-//         wait for a second wave;
+//   rows  the fewest batch rows per cluster, at most 16, with which every
+//         batch tile runs at once (the card's count of co-resident
+//         clusters, asked once per device: 7 of 16 blocks on an H100 SXM,
+//         15 of 8), so that each block's products and exchange shrink with
+//         b; past 16 rows the tiles wait for a second wave. The L2 path
+//         takes 8 rows (one mma N tile);
 //   R     resident for n <= 256: J = 16, so a block has 64 columns; each of
 //         its 256 threads owns 4 columns for half the batch rows over one
 //         of the 8 K groups, and holds that part of R (at most 32 x 4
@@ -90,6 +92,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <atomic>
 
 #include "hopper_mma.cuh"
@@ -160,9 +163,6 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 __device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
-__device__ __forceinline__ float value(uint32_t x) {
-  return __uint_as_float(x);
-}
 
 // ------------------------------------------------------------------ PTX
 // the cluster barrier in two halves
@@ -227,6 +227,7 @@ __device__ __forceinline__ void st_async4(uint32_t addr, float4 v,
 
 struct Dims {
   int b, t, n, tc;
+  int rows;   // batch rows per cluster
   int cl;     // blocks per cluster
   int J;      // hidden units per block, a power of two (16 when resident)
   int LJ;     // log2 J
@@ -255,9 +256,15 @@ Plan plan_for(int64_t b, int64_t n, int active8, int active16) {
   pl.resident = n <= kRegN;
   pl.cl = n <= kSmallN ? 8 : 16;
   pl.active = pl.cl == 8 ? active8 : active16;
-  pl.rows = pl.resident && (b + 7) / 8 > pl.active ? 16 : 8;
+  // resident: the fewest rows (at most 16) with which every batch tile runs
+  // at once; the L2 path's product takes 8, one mma N tile
+  pl.rows = 8;
+  if (pl.resident && pl.active > 0)
+    pl.rows = static_cast<int>(
+        std::min<int64_t>(16, std::max<int64_t>(1, (b + pl.active - 1) /
+                                                       pl.active)));
   pl.tiles = static_cast<int>((b + pl.rows - 1) / pl.rows);
-  // resident: 16 units, so a block's 64 columns fill its 512 threads' 8 K
+  // resident: 16 units, so a block's 64 columns fill its 256 threads' 8 K
   // shares; else the power of two >= 4 that covers n
   pl.J = pl.resident ? 16 : 4;
   while (pl.J * pl.cl < n) pl.J *= 2;
@@ -270,6 +277,7 @@ Dims make_dims(int64_t b, int64_t t, int64_t n, int64_t tc, const Plan& pl) {
   d.t = static_cast<int>(t);
   d.n = static_cast<int>(n);
   d.tc = static_cast<int>(tc);
+  d.rows = pl.rows;
   d.cl = pl.cl;
   d.J = pl.J;
   d.LJ = 0;
@@ -286,10 +294,10 @@ Dims make_dims(int64_t b, int64_t t, int64_t n, int64_t tc, const Plan& pl) {
   return d;
 }
 
-size_t smem_bytes(const Dims& d, int rows) {
+size_t smem_bytes(const Dims& d) {
   // the mbarriers, two receive buffers, the partial sums
   const size_t floats = kBarFloats + 2 * static_cast<size_t>(d.RS) +
-                        static_cast<size_t>(d.KW) * rows * d.CP;
+                        static_cast<size_t>(d.KW) * d.rows * d.CP;
   return floats * sizeof(float) > kOwnSm ? floats * sizeof(float) : kOwnSm;
 }
 
@@ -310,8 +318,9 @@ __device__ __forceinline__ void k8_step(float acc[4], const uint32_t a_hi[4],
   for (int e = 0; e < 4; ++e) acc[e] += tt[e];
 }
 
-// NT: mma N tiles of 8 batch rows; RESIDENT: R's slice in registers
-template <typename T, int NT, bool RESIDENT>
+// RESIDENT: R's slice in registers, FMAs for d.rows <= 16 batch rows; else
+// R from L2, mma.sync for 8 rows
+template <typename T, bool RESIDENT>
 __global__ void __launch_bounds__(kThreads, 1)
     lstm_scan_kernel(const T* __restrict__ zx, const T* __restrict__ R,
                      const T* __restrict__ p, const float* __restrict__ mask,
@@ -319,7 +328,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                      T* __restrict__ hs, T* __restrict__ hT,
                      T* __restrict__ cT, float* __restrict__ hck,
                      float* __restrict__ cck, Dims d) {
-  constexpr int kRows = 8 * NT;
+  constexpr int NT = 1;  // the L2 path's mma N tiles of 8 rows
   constexpr bool kSplitR = sizeof(T) == 4;  // bfloat16 is exact in TF32
   constexpr int kPairs = RESIDENT ? 1 : 2;  // (row, unit) pairs per thread
   constexpr int kKW = RESIDENT ? kShares : 1;  // = d.KW
@@ -329,28 +338,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int g8 = lane >> 2, t4 = lane & 3;
   const int n = d.n, J = d.J, CP = d.CP, HWP = d.HWP, SK = d.SK;
   const int u0 = q * J;                    // first hidden unit of this block
-  const int b0 = blockIdx.y * kRows;       // first batch row of the cluster
+  const int rows = d.rows;
+  const int b0 = blockIdx.y * rows;        // first batch row of the cluster
   const int64_t n4 = 4 * static_cast<int64_t>(n);
 
   extern __shared__ __align__(16) float smem[];
   // kBarFloats: two mbarriers, one per receive buffer (dynamic shared
   // memory, so that all of it may be asked for)
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
-  float* hrecv = smem + kBarFloats;        // [2][kRows][HWP] h
-  float* part = hrecv + 2 * d.RS;          // [KW][kRows][CP] partial z
+  float* hrecv = smem + kBarFloats;        // [2][rows][HWP] h
+  float* part = hrecv + 2 * d.RS;          // [KW][rows][CP] partial z
   // h[r][k]: resident, [kShares][SK + 4] per row, so that two K shares'
   // 16-byte loads fall in distinct banks; else [HW + 4]
   auto hoff = [&](int r, int k) {
     return RESIDENT ? r * HWP + (k / SK) * (SK + 4) + k % SK : r * HWP + k;
   };
-  // the bytes that arrive per step: every block's kRows x J values
-  const int bytes = kRows * d.HW * static_cast<int>(sizeof(float));
+  // the bytes that arrive per step: every block's rows x J values
+  const int bytes = rows * d.HW * static_cast<int>(sizeof(float));
 
   // ---- set-up: zeroed buffers (pad units stay 0), h0, the mbarriers
-  for (int e = tid; e < 2 * d.RS + kKW * kRows * CP; e += kThreads)
+  for (int e = tid; e < 2 * d.RS + kKW * rows * CP; e += kThreads)
     hrecv[e] = 0.0f;
   __syncthreads();
-  for (int e = tid; e < kRows * n; e += kThreads) {
+  for (int e = tid; e < rows * n; e += kThreads) {
     const int r = e / n, k = e % n;
     if (b0 + r < d.b)
       hrecv[hoff(r, k)] = to_float(h0[static_cast<int64_t>(b0 + r) * n + k]);
@@ -368,10 +378,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int u = u0 + (c & (J - 1));
     return k < n && u < n ? to_float(R[k * n4 + (c >> d.LJ) * n + u]) : 0.0f;
   };
-  // resident: this thread's rows kHalf fr .. kHalf fr + kHalf - 1, K share
-  // fks and columns 4 fcq .. 4 fcq + 3, their part of R in registers
-  constexpr int kHalf = kRows / 2;
+  // resident: this thread's nr rows from half fr, K share fks and columns
+  // 4 fcq .. 4 fcq + 3, their part of R in registers
   const int fr = tid >> 7, fks = (tid >> 4) & 7, fcq = tid & 15;
+  const int half = (rows + 1) / 2, nr = min(half, rows - fr * half);
   float rr[RESIDENT ? kShareK : 1][4];
   if (RESIDENT) {
 #pragma unroll
@@ -382,15 +392,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // ---- this thread's (row, unit) pairs: carries and peepholes in
-  // registers. A warp's threads all have a pair i or none (kRows J is a
-  // multiple of 32); pad rows and units carry zeros
+  // registers; pad rows and units carry zeros. Four lanes 4a .. 4a + 3
+  // all have a pair i or none (rows J is a multiple of 4)
   float hreg[kPairs], creg[kPairs], pi[kPairs], pf[kPairs], po[kPairs];
   int prow[kPairs], punit[kPairs], pr[kPairs], pj[kPairs];
   bool pin[kPairs], pok[kPairs];
 #pragma unroll
   for (int i = 0; i < kPairs; ++i) {
     const int pidx = tid + i * kThreads;
-    pin[i] = pidx < kRows * J;
+    pin[i] = pidx < rows * J;
     pr[i] = pidx >> d.LJ;
     pj[i] = pidx & (J - 1);
     prow[i] = b0 + pr[i];
@@ -443,36 +453,39 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // (2) part[w][r][c] = sum over K share w's k of h[r][k] R[k][c]
     if (RESIDENT) {
-      // float32 FMAs, k ascending: one float4 of h feeds 16 of them
-      {
-        float acc[kHalf][4];
-#pragma unroll
-        for (int r = 0; r < kHalf; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
-        const float* hk = hin + (kHalf * fr) * HWP + fks * (SK + 4);
+      // float32 FMAs, k ascending, two rows at a time: eight chains, and
+      // one float4 of h feeds 16 FMAs
+      const float* hk = hin + (half * fr) * HWP + fks * (SK + 4);
+      float* pw = part + (fks * rows + half * fr) * CP + 4 * fcq;
+      for (int r = 0; r < nr; r += 2) {
+        const bool two = r + 1 < nr;
+        const float* hx = hk + r * HWP;
+        const float* hy = hk + (two ? r + 1 : r) * HWP;
+        float ax[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float ay[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
         for (int i = 0; i < kShareK; i += 4) {
           if (i < SK) {
+            const float4 x = *reinterpret_cast<const float4*>(hx + i);
+            const float4 y = *reinterpret_cast<const float4*>(hy + i);
 #pragma unroll
-            for (int r = 0; r < kHalf; ++r) {
-              const float4 h4 =
-                  *reinterpret_cast<const float4*>(hk + r * HWP + i);
-#pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                acc[r][c] = fmaf(h4.x, rr[i][c], acc[r][c]);
-                acc[r][c] = fmaf(h4.y, rr[i + 1][c], acc[r][c]);
-                acc[r][c] = fmaf(h4.z, rr[i + 2][c], acc[r][c]);
-                acc[r][c] = fmaf(h4.w, rr[i + 3][c], acc[r][c]);
-              }
+            for (int c = 0; c < 4; ++c) {
+              ax[c] = fmaf(x.x, rr[i][c], ax[c]);
+              ay[c] = fmaf(y.x, rr[i][c], ay[c]);
+              ax[c] = fmaf(x.y, rr[i + 1][c], ax[c]);
+              ay[c] = fmaf(y.y, rr[i + 1][c], ay[c]);
+              ax[c] = fmaf(x.z, rr[i + 2][c], ax[c]);
+              ay[c] = fmaf(y.z, rr[i + 2][c], ay[c]);
+              ax[c] = fmaf(x.w, rr[i + 3][c], ax[c]);
+              ay[c] = fmaf(y.w, rr[i + 3][c], ay[c]);
             }
           }
         }
-#pragma unroll
-        for (int r = 0; r < kHalf; ++r)
-          *reinterpret_cast<float4*>(
-              part + (fks * kRows + kHalf * fr + r) * CP + 4 * fcq) =
-              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        *reinterpret_cast<float4*>(pw + r * CP) =
+            make_float4(ax[0], ax[1], ax[2], ax[3]);
+        if (two)
+          *reinterpret_cast<float4*>(pw + (r + 1) * CP) =
+              make_float4(ay[0], ay[1], ay[2], ay[3]);
       }
     } else {
       // mma.sync, 3xTF32: R read from L2 and split every step, h split as
@@ -534,7 +547,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int w = 0; w < kKW; ++w) {
-        const float* pz = part + (w * kRows + pr[i]) * CP + pj[i];
+        const float* pz = part + (w * rows + pr[i]) * CP + pj[i];
 #pragma unroll
         for (int g = 0; g < 4; ++g) z[g] += pz[g * J];
       }
@@ -561,13 +574,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (s + 1 < d.t) {
 #pragma unroll
       for (int i = 0; i < kPairs; ++i) {
-        if (!pin[i]) continue;
         const int base = lane & ~3;
         const float4 v =
             make_float4(__shfl_sync(0xffffffffu, hreg[i], base),
                         __shfl_sync(0xffffffffu, hreg[i], base + 1),
                         __shfl_sync(0xffffffffu, hreg[i], base + 2),
                         __shfl_sync(0xffffffffu, hreg[i], base + 3));
+        if (!pin[i]) continue;
         const float* dst =
             hrecv + (buf ^ 1) * d.RS + hoff(pr[i], u0 + (pj[i] & ~3));
         for (int peer = t4; peer < d.cl; peer += 4)
@@ -652,7 +665,7 @@ cudaError_t active_clusters(int device, int optin, int* a8, int* a16) {
     *a16 = known[device][1].load() - 1;
     return cudaSuccess;
   }
-  constexpr auto kernel = lstm_scan_kernel<float, 1, true>;
+  constexpr auto kernel = lstm_scan_kernel<float, true>;
   cudaError_t err = prepare<kernel>(device, optin);
   int got[2] = {0, 0};
   for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
@@ -672,13 +685,13 @@ cudaError_t active_clusters(int device, int optin, int* a8, int* a16) {
   return cudaSuccess;
 }
 
-template <typename T, int NT, bool RESIDENT>
+template <typename T, bool RESIDENT>
 cudaError_t launch_one(const void* zx, const void* R, const void* p,
                        const float* mask, const void* h0, const void* c0,
                        void* hs, void* hT, void* cT, float* hck, float* cck,
                        const Dims& d, int tiles, size_t bytes, int device,
                        int optin, cudaStream_t stream) {
-  constexpr auto kernel = lstm_scan_kernel<T, NT, RESIDENT>;
+  constexpr auto kernel = lstm_scan_kernel<T, RESIDENT>;
   cudaError_t err = prepare<kernel>(device, optin);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
@@ -712,18 +725,11 @@ cudaError_t launch_typed(const void* zx, const void* R, const void* p,
   if (err != cudaSuccess) return err;
   if (pl.active < 1 || pl.tiles > 65535) return cudaErrorInvalidValue;
   const Dims d = make_dims(b, t, n, tc, pl);
-  const size_t bytes = smem_bytes(d, pl.rows);
+  const size_t bytes = smem_bytes(d);
   if (bytes > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
-  if (!pl.resident)
-    return launch_one<T, 1, false>(zx, R, p, mask, h0, c0, hs, hT, cT, hck,
-                                   cck, d, pl.tiles, bytes, device, optin,
-                                   stream);
-  if (pl.rows == 16)
-    return launch_one<T, 2, true>(zx, R, p, mask, h0, c0, hs, hT, cT, hck,
-                                  cck, d, pl.tiles, bytes, device, optin,
-                                  stream);
-  return launch_one<T, 1, true>(zx, R, p, mask, h0, c0, hs, hT, cT, hck, cck,
-                                d, pl.tiles, bytes, device, optin, stream);
+  return (pl.resident ? launch_one<T, true> : launch_one<T, false>)(
+      zx, R, p, mask, h0, c0, hs, hT, cT, hck, cck, d, pl.tiles, bytes,
+      device, optin, stream);
 }
 
 }  // namespace

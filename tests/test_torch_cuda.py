@@ -333,9 +333,10 @@ def test_lstm_kernel_matches_plain_version(cuda, b, t, n, peephole, masked,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,n,peephole,masked", [
     (200, 9, 256, True, False),    # 16-row tiles beyond one wave
-    (24, 9, 256, True, True),      # 8-row tiles, one wave of 16 blocks
-    (3, 9, 256, False, False),     # one tile, pad rows
-    (40, 9, 128, True, True),      # clusters of 8 blocks
+    (64, 9, 256, True, True),      # 10-row tiles (the served batch)
+    (24, 9, 256, True, True),      # 4-row tiles
+    (3, 9, 256, False, False),     # one-row tiles: half the threads idle
+    (40, 9, 128, True, True),      # clusters of 8 blocks, 3-row tiles
     (9, 9, 100, True, False),      # n not a multiple of 16, cluster of 8
     (5, 9, 300, True, True),       # R read from L2, n not a power of two
     (8, 9, 1000, False, False),    # R read from L2, n not a multiple of 16
@@ -349,6 +350,7 @@ def test_lstm_kernel_plans_match_plain_version(cuda, b, t, n, peephole,
     assert plan["cluster"] == (8 if n <= 128 else 16)
     assert plan["tiles"] == -(-b // plan["rows"])
     assert plan["cluster"] * plan["units"] >= n
+    assert plan["rows"] <= 16
     _lstm_check(cuda, b, t, n, dtype, peephole, masked)
     zx, R, p, h0, c0, mask = _lstm_inputs(cuda, b, t, n, dtype, peephole,
                                           masked, seed=b + t + n)
@@ -359,22 +361,25 @@ def test_lstm_kernel_plans_match_plain_version(cuda, b, t, n, peephole,
 
 @pytest.mark.cuda
 def test_lstm_plan_rule_from_stated_occupancy(cuda):
-    """The plan from stated counts of co-resident clusters: 8-row tiles
-    where they all fit at once, else 16-row ones (in more than one wave if
-    need be); clusters of 8 blocks up to n = 128, of 16 past it; R from L2
-    past n = 256, always in 8-row tiles."""
+    """The plan from stated counts of co-resident clusters: the fewest rows
+    per cluster (at most 16) with which every batch tile runs at once,
+    more than one wave only past 16 rows; clusters of 8 blocks up to
+    n = 128, of 16 past it; R from L2 past n = 256, always in 8-row
+    tiles."""
     def plan(b, n, a8, a16):
         return lstm_ops.plan(b, n, active=(a8, a16))
 
-    assert plan(64, 256, 15, 7) == dict(cluster=16, rows=16, tiles=4,
+    assert plan(64, 256, 15, 7) == dict(cluster=16, rows=10, tiles=7,
                                         resident=1, active=7, units=16)
     assert plan(64, 256, 15, 8)["rows"] == 8
-    assert plan(56, 256, 15, 7)["rows"] == 8
-    assert plan(57, 256, 15, 7)["rows"] == 16
+    assert plan(8, 256, 15, 7)["rows"] == 2
+    assert plan(3, 256, 15, 7) == dict(cluster=16, rows=1, tiles=3,
+                                       resident=1, active=7, units=16)
+    assert plan(112, 256, 15, 7)["rows"] == 16
+    assert plan(113, 256, 15, 7)["tiles"] == 8    # a second wave
     assert plan(200, 256, 15, 7)["tiles"] == 13
-    assert plan(64, 128, 15, 7) == dict(cluster=8, rows=8, tiles=8,
+    assert plan(64, 128, 15, 7) == dict(cluster=8, rows=5, tiles=13,
                                         resident=1, active=15, units=16)
-    assert plan(128, 128, 15, 7)["rows"] == 16
     assert plan(8, 257, 15, 7) == dict(cluster=16, rows=8, tiles=1,
                                        resident=0, active=7, units=32)
     assert plan(64, 1024, 15, 7)["rows"] == 8
@@ -384,8 +389,8 @@ def test_lstm_plan_rule_from_stated_occupancy(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,n,masked", [
-    (64, 64, 256, False),    # row 5's served shape: 16-row tiles
-    (8, 200, 256, True),     # row 7's: one cluster, a ragged last chunk
+    (64, 64, 256, False),    # row 5's served shape: 10-row tiles
+    (8, 200, 256, True),     # row 7's: 2-row tiles, a ragged last chunk
     (9, 70, 64, True),       # clusters of 8 blocks
     (16, 20, 512, False),    # R read from L2
 ])
@@ -435,9 +440,9 @@ def test_lstm_forward_asks_the_device_once(cuda):
     torch.cuda.synchronize()
     asked = (lib.lstm_scan_queries(0), lib.lstm_scan_queries(1))
     assert asked[1] == 2  # clusters of 8 and of 16, once per device
-    # 6 kernels at most (2 dtypes x 16 rows, 8 rows, R from L2), two
-    # attributes each
-    assert 0 < asked[0] <= 12 and asked[0] % 2 == 0
+    # 4 kernels at most (2 dtypes x R resident or from L2), two attributes
+    # each
+    assert 0 < asked[0] <= 8 and asked[0] % 2 == 0
     launch_all()
     torch.cuda.synchronize()
     assert (lib.lstm_scan_queries(0), lib.lstm_scan_queries(1)) == asked
