@@ -50,7 +50,7 @@ for rows 5 and 7 at (64, 64, 256) and (8, 4096, 256) and for rows 6 and 8
 at the training paths' shapes, the µs per step of each phase of the serial
 kernels' steps; with `--parent DIR` (a checkout of another commit) it
 first times rows 5 and 7 without probes against DIR's forward kernel, in
-turns.
+turns, and says whether their outputs have the same bits.
 """
 from __future__ import annotations
 
@@ -236,7 +236,8 @@ def fwd_against_parent(torch, L, parent):
     """Rows 5 and 7 at their paths' shapes, float32 and bfloat16, peephole:
     this checkout's forward kernel and the one in `parent` (a checkout of
     another commit), both built without probes, timed in turns (parent,
-    change, change, parent; CUDA events)."""
+    change, change, parent; CUDA events), and whether their outputs have
+    the same bits."""
     from deeplearning4j_tpu_torch.ops import _build
 
     libs = {"change": L._fwd_lib()}
@@ -261,17 +262,21 @@ def fwd_against_parent(torch, L, parent):
             fn = ((lambda: L.lstm_scan_chunked_forward(zx, R, h0, c0, p))
                   if chunked else
                   (lambda: L.lstm_scan_peephole(zx, R, p, h0, c0)))
-            got = {"parent": [], "change": []}
+            got, outs = {"parent": [], "change": []}, {}
             for who in ("parent", "change", "change", "parent"):
                 L._libs["lstm_scan"] = libs[who]
                 got[who].append(launch_ms(torch, fn, 5 if t > 1000 else 50))
+                outs[who] = fn()
             L._libs["lstm_scan"] = libs["change"]
+            same = all(torch.equal(a, b_) for a, b_ in
+                       zip(outs["parent"], outs["change"]))
             print(f"row {7 if chunked else 5} (b, t, n) = ({b}, {t}, {n}) "
                   f"{str(dtype)[6:]}: ms per launch, parent "
                   f"{', '.join(f'{x:.4f}' for x in got['parent'])}; change "
                   f"{', '.join(f'{x:.4f}' for x in got['change'])} "
                   f"({min(got['change']) * 1e3 / t:.3f} us/step; parent "
-                  f"{min(got['parent']) * 1e3 / t:.3f})")
+                  f"{min(got['parent']) * 1e3 / t:.3f}); outputs "
+                  f"{'the same bits' if same else 'differ'}")
 
 
 def lstm_split(torch, card, args) -> int:
