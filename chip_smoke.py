@@ -852,11 +852,11 @@ def lstm_plan_text(lstm_ops, b, n):
 
 
 def lstm_fwd_bound(b, t, n, dtype, bw, peak, peak_tf32, moved):
-    """(bound ms, bound_by, basis, tensor-core bound ms) of the forward: its
-    recurrent products as float32 FMAs on the CUDA cores where R's slices
-    stay in registers (n <= 256, both dtypes), else on the tensor cores
-    (three TF32 products each in float32, two in bfloat16, where R is
-    exact in TF32); the other one's bound beside it."""
+    """(bound ms, bound_by, basis, the other units' bound ms) of the
+    forward: its recurrent products as float32 FMAs on the CUDA cores where
+    R's slices stay in registers (n <= 256, both dtypes), else on the
+    tensor cores (three TF32 products each in float32, two in bfloat16,
+    where R is exact in TF32); the other units' bound beside it."""
     ops = 2 * b * n * 4 * n * t
     cores = ops / peak
     tensor = (3 if dtype == "float32" else 2) * ops / peak_tf32
@@ -933,8 +933,8 @@ def phase_lstm(torch, bw, peak, peak_tf32):
             moved = (b * t * 5 * n + 4 * n * n + 4 * b * n
                      + (3 * n if peephole else 0)) * item \
                 + (4 * b * t if masked else 0)
-            b_ms, by, basis, core_ms = lstm_fwd_bound(b, t, n, dname, bw,
-                                                      peak, peak_tf32, moved)
+            b_ms, by, basis, other_ms = lstm_fwd_bound(b, t, n, dname, bw,
+                                                       peak, peak_tf32, moved)
             served_case = (b, t, n, peephole, masked) == LSTM_CASES[0]
             lib = (f"{lib_ms:.4f} ms [torch.nn.LSTM forward, plain cell]"
                    if served_case and dtype == torch.float32 else "-")
@@ -945,7 +945,7 @@ def phase_lstm(torch, bw, peak, peak_tf32):
                 f"({k_ms * 1e3 / t:.2f} us/step)  plain={p_ms:.4f} ms  "
                 f"library={lib}  bound={b_ms:.4f} ms ({by}, {basis}; "
                 f"{100 * b_ms / k_ms:.1f}% of it; the other units' bound "
-                f"{core_ms:.4f} ms)")
+                f"{other_ms:.4f} ms)")
             if served_case and dtype == torch.float32:
                 served = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
                           "bound_ms": b_ms, "bound_by": by,
@@ -1842,7 +1842,7 @@ def lstm_fwd_reject(what, out, ref):
     return what
 
 
-def lstm_fwd_broken(torch, lstm_ops, s, ref):
+def lstm_fwd_broken(lstm_ops, s, ref):
     """Broken chunked forward outputs that the comparison must reject: hs
     whose units of one block (the plan's second) lag one step, as a block
     that read last step's h would give; hck whose chunk 0 holds chunk 1's
@@ -1860,7 +1860,7 @@ def lstm_fwd_broken(torch, lstm_ops, s, ref):
                             ref[3])]
 
 
-def lstm_masked_cT_broken(torch, lstm_ops, s, ref):
+def lstm_masked_cT_broken(lstm_ops, s, ref):
     """A cT that took the last step of a masked row (the carry run on
     through its masked steps) must be rejected."""
     rows = [r for r in range(s["m"].shape[0]) if not bool(s["m"][r, -1] > 0)]
@@ -1973,9 +1973,9 @@ def phase_lstm_bwd(torch, bw, peak, peak_tf32):
             if case == LSTM_PATH_CASES["lstm_scan_chunked_bwd"]:
                 rejected = lstm_bwd_broken(torch, s, got8, ref8,
                                            lstm_ops.CHUNK)
-                rejected += lstm_fwd_broken(torch, lstm_ops, s, ref7)
+                rejected += lstm_fwd_broken(lstm_ops, s, ref7)
             if masked and dtype == torch.float32:
-                rejected_c = lstm_masked_cT_broken(torch, lstm_ops, s, ref7)
+                rejected_c = lstm_masked_cT_broken(lstm_ops, s, ref7)
             checked += 1
             del got6, got8, ref6, ref7, ref8
 

@@ -42,7 +42,7 @@ The CUDA kernels (csrc/lstm_scan.cu: rows 5 and 7; csrc/lstm_scan_bwd.cu:
 rows 6 and 8) run the serial steps in thread-block clusters, R split by
 columns over the blocks, h (forward) and the dh partial sums (backward)
 exchanged through distributed shared memory. The forward's cluster (8 or
-16 blocks) and batch rows per cluster (8 or 16) follow a plan per shape
+16 blocks) and batch rows per cluster (1-16) follow a plan per shape
 (`plan`); for n <= 256 its slice of R stays in registers and its product
 is float32 FMAs on the CUDA cores, past that 3xTF32 on the tensor cores.
 The backward runs every product on the tensor cores (3xTF32 for float32)
@@ -350,8 +350,9 @@ def plan(b: int, n: int, device=None, active=None) -> dict:
     """The forward kernel's launch plan for b rows of width n: blocks per
     cluster, batch rows per cluster, batch tiles (clusters), whether R's
     slices stay on chip, how many clusters of that size the card runs at
-    once, and hidden units per block. `active` = (clusters of 8, clusters of 16) the card runs at
-    once, asked of the device (once per device) when None."""
+    once, and hidden units per block. `active` is how many clusters of 8
+    and of 16 blocks the card runs at once, asked of the device (once per
+    device) when None."""
     out = (ctypes.c_int * len(PLAN_KEYS))()
     lib = _fwd_lib()
     if active is None:
