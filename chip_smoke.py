@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero without the final line:
               together), with the build time and ptxas' resource report.
   2. kernel   each kernel against its plain PyTorch version on the card:
               bn_act at every (shape, activation) the ResNet-50 path gives
-              it at the serving batch, flash_attention at the TransformerLM
+              it at the serving batch (float32, bfloat16) and at the
+              training batch of 64 (bfloat16), flash_attention at the TransformerLM
               path's shape (16, 8, 512, 64) causal with and without lse and
               at edge cases (ragged t, t=1, non-causal, head dims 16, 32,
               128), in float32 and bfloat16: max error against the stated
@@ -91,7 +92,9 @@ Phases, in order; any failure exits non-zero without the final line:
               backward's index path), soft labels and one smoothed row (the
               dense path), at a ragged shape, at the char-RNN training
               paths' shapes (4096, 1600 and 32768 rows, d 256, 77
-              characters: less than one vocabulary tile), float32 and
+              characters: less than one vocabulary tile), at the image
+              training paths' (64 rows: ResNet-50's d 2048, 1000 classes,
+              LeNet's d 500, 10 classes), float32 and
               bfloat16, and where the 128 x 128 tiles' edges fall (129
               rows, d 70 and v 333: rows not 16-byte aligned); library
               F.cross_entropy(x @ W + b, idx) forward and backward. The
@@ -149,6 +152,31 @@ Phases, in order; any failure exits non-zero without the final line:
               2 x 64, tBPTT at 2 x 100 in windows of 50, 3 steps at 2 x
               1024 on the chunked route; scores, each param's change and
               the RmsProp slots within the stated tolerances.
+
+ 20. train-resnet  zoo ResNet-50 at full width (1000 classes, 224x224x3),
+              its own config (Nesterovs(0.1, 0.9), l2 1e-4), trained by
+              ComputationGraph.fit for 20 steps under the mixed policy on
+              one repeated batch of 64 bfloat16 images made on the card
+              (bench.py bench_resnet50's input) with one-hot float32
+              labels, then 5 steps under the float32 / TF32 policy on the
+              same images in float32: every score finite, the median of
+              the last 5 mixed scores below the first; per step 53
+              bn_act, 1 xent forward, 1 xent backward and nothing else;
+              median step ms, trained images/s, peak memory; the copy of
+              one such batch from pageable host memory, timed apart.
+ 21. refer-train-resnet  the same seeded ResNet-50 at full width on the CPU
+              (plain versions, exact float32) and on the card (TF32 off):
+              3 Nesterovs steps at batch 4, each from the same point (the
+              CPU network takes the card's params, state and slots after
+              each step); per-step scores, each param's change, the BN
+              running stats and the Nesterovs slots within the stated
+              tolerances.
+ 22. train-lenet  zoo LeNet trained by MultiLayerNetwork.fit on
+              MnistDataSetIterator(batch=64) (its seeded synthetic sample
+              where no MNIST files are present), Adam(1e-3), 20 steps:
+              scores finite and falling, per step 1 xent forward and 1
+              xent backward and nothing else; then 3 steps on the CPU and
+              on the card (TF32 off) agreeing as refer-train's do.
 
 The characters the training phases learn are drawn with Zipf frequencies,
 so that a falling loss shows learning; their shapes are bench.py
@@ -342,7 +370,12 @@ def bn_cases(net, batch):
     return [(r, c, a, n) for (r, c, a), n in cases.items()]
 
 
-def phase_kernel(torch, cases, bw, peak):
+def phase_kernel(torch, cases, bw, peak, batch=BATCH, dtypes=None,
+                 what="forward"):
+    """bn_act against its plain version at every (rows, c, act) of
+    `cases`, for a ResNet-50 forward at `batch` rows, in each of `dtypes`
+    (float32 and bfloat16 by default). Returns the per-forward totals by
+    dtype and the largest error."""
     from deeplearning4j_tpu_torch.ops.bn_act import bn_act, bn_act_reference
 
     dev = torch.device("cuda")
@@ -351,14 +384,14 @@ def phase_kernel(torch, cases, bw, peak):
     rows_out = {}
     max_err = 0.0
     checked = 0
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
         totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                   "bound_ms": 0.0}
         for rows, c, act, calls in cases:
             item = torch.empty((), dtype=dtype).element_size()
             nbytes = rows * c * item
             nbuf = max(1, min(64, math.ceil(2 * L2_BYTES / nbytes)))
-            xs = [torch.randn((BATCH, rows // BATCH, c), generator=gen,
+            xs = [torch.randn((batch, rows // batch, c), generator=gen,
                               device=dev).to(dtype) for _ in range(nbuf)]
             scale = torch.rand(c, generator=gen, device=dev) + 0.5
             shift = torch.randn(c, generator=gen, device=dev)
@@ -408,8 +441,8 @@ def phase_kernel(torch, cases, bw, peak):
                 totals[key] += calls * v
             del xs
         rows_out[dtype] = totals
-        log(f"[kernel] bn_act {str(dtype)[6:]} per ResNet-50 forward at "
-            f"batch {BATCH} (53 calls): kernel={totals['ms']:.4f} ms  "
+        log(f"[kernel] bn_act {str(dtype)[6:]} per ResNet-50 {what} at "
+            f"batch {batch} (53 calls): kernel={totals['ms']:.4f} ms  "
             f"plain={totals['plain_ms']:.4f} ms  "
             f"library={totals['library_ms']:.4f} ms  "
             f"bound={totals['bound_ms']:.4f} ms")
@@ -1390,6 +1423,12 @@ XENT_CASES = [
     (4096, 256, 77, "onehot", "bfloat16"),    # its mixed-precision steps
     (1600, 256, 77, "onehot", "float32"),     # a tBPTT window, 32 x 50
     (32768, 256, 77, "onehot", "float32"),    # long sequences, 8 x 4096
+    # the image training paths at batch 64: ResNet-50's Output (2048 ->
+    # 1000) and LeNet's (500 -> 10), both policies
+    (64, 2048, 1000, "onehot", "float32"),
+    (64, 2048, 1000, "onehot", "bfloat16"),
+    (64, 500, 10, "onehot", "float32"),
+    (64, 500, 10, "onehot", "bfloat16"),
     # the 128 x 128 tiles' edges: n past one row tile, rows of x (d = 70)
     # and W (v = 333) not 16-byte aligned, a ragged last vocabulary tile
     (129, 70, 333, "mixed", "float32"),
@@ -2332,6 +2371,316 @@ def phase_refer_train_rnn(torch, np):
         del nets
 
 
+# ---------------------------------------------------------------- phase 20
+RESNET_TRAIN = (64, 20, 5)  # batch, mixed steps, float32 / TF32 steps
+RESNET_SHAPE = (224, 224, 3)
+RESNET_PER_STEP = {"bn_act": 53, "linear_xent_fwd": 1, "linear_xent_bwd": 1}
+
+
+def resnet_net(torch, device=None):
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    return ResNet50(num_classes=1000, input_shape=RESNET_SHAPE,
+                    seed=SEED).init(**({} if device is None
+                                       else {"device": device}))
+
+
+def timed_fits(torch, net, data, steps):
+    """`steps` fit calls on one batch already on the card. Returns
+    [(seconds, score)] per step."""
+    out = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(data)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0, net.score_))
+    return out
+
+
+def phase_train_resnet(torch, np, card):
+    """bench_resnet50's training step: 20 steps under the mixed policy on
+    bfloat16 images, 5 under the float32 / TF32 policy on the same images
+    in float32, one network throughout. Returns the mixed run's
+    launches."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    b, mixed_steps, f32_steps = RESNET_TRAIN
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    x = torch.randn((b, *RESNET_SHAPE), generator=gen, device=dev).to(
+        torch.bfloat16)
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 1000, (b,), generator=gen, device=dev), 1000).float()
+    # the same batch's copy from pageable host memory (numpy has no
+    # bfloat16: its bits as int16), timed apart from the step
+    bits = x.view(torch.int16).cpu().numpy()
+    y_np = y.cpu().numpy()
+    copies = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(bits).to(dev).view(torch.bfloat16)
+        torch.from_numpy(y_np).to(dev)
+        torch.cuda.synchronize()
+        copies.append(time.perf_counter() - t0)
+    copy_ms = sorted(copies)[2] * 1e3
+    t0 = time.perf_counter()
+    net = resnet_net(torch)
+    log(f"[train-resnet] ResNet-50 ({net.num_params()} params) on "
+        f"{net.device} in {time.perf_counter() - t0:.2f} s")
+    results = {}
+    for mixed, steps, data in ((True, mixed_steps, DataSet(x, y)),
+                               (False, f32_steps, DataSet(x.float(), y))):
+        tag = "mixed bf16" if mixed else "TF32"
+        dtypes.set_mixed_precision(mixed)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            reset_counts()
+            runs = timed_fits(torch, net, data, steps)
+            launches = read_counts()
+        finally:
+            dtypes.set_mixed_precision(False)
+        scores = [sc for _, sc in runs]
+        want = {k: steps * RESNET_PER_STEP.get(k, 0) for k in launches}
+        if launches != want:
+            raise AssertionError(f"train-resnet ({tag}): launches "
+                                 f"{launches}, want {want}")
+        if not all(math.isfinite(sc) for sc in scores):
+            raise AssertionError(f"train-resnet ({tag}): scores {scores}")
+        if mixed and not sorted(scores[-5:])[2] < scores[0]:
+            raise AssertionError(f"train-resnet ({tag}): the median of the "
+                                 f"last 5 scores is not below the first: "
+                                 f"{scores}")
+        steady = sorted(t for t, _ in runs[1:])
+        step_ms = steady[len(steady) // 2] * 1e3
+        log(f"[train-resnet] {tag}: {steps} steps of {b} images, scores "
+            f"{', '.join(f'{sc:.5f}' for sc in scores)}; launches {want} "
+            f"(per step {RESNET_PER_STEP})")
+        log(f"[train-resnet] {tag}: median step {step_ms:.3f} ms, "
+            f"{b / (step_ms / 1e3):.1f} trained images/s; first step "
+            f"{runs[0][0] * 1e3:.2f} ms; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB ({card})")
+        results[tag] = launches
+    log(f"[train-resnet] one batch ({bits.nbytes / 1e6:.1f} MB of bfloat16 "
+        f"images, {y_np.nbytes / 1e6:.3f} MB of labels) copied from "
+        f"pageable host memory: {copy_ms:.3f} ms (median of 5; not part "
+        f"of the steps above, whose batch is on the card) ({card})")
+    del net
+    torch.cuda.empty_cache()
+    return results["mixed bf16"]
+
+
+# ---------------------------------------------------------------- phase 21
+def leaf_rel(a, b):
+    """max |a - b| / max |b| over one leaf (numpy arrays)."""
+    return float(abs(a - b).max() / max(float(abs(b).max()), 1e-30))
+
+
+def slot_items(slots):
+    """(entry/slot/path, numpy leaf) of every dict slot of an
+    `interop.opt_state_to_jax` result (a list or a dict of entries)."""
+    from deeplearning4j_tpu_torch.models._training import flat_items
+
+    entries = slots.items() if isinstance(slots, dict) else enumerate(slots)
+    for key, entry in entries:
+        for slot, tree in (entry.items() if entry else ()):
+            if isinstance(tree, dict):
+                for path, leaf in flat_items(tree):
+                    yield f"{key}/{slot}/{path}", leaf
+
+
+def copy_net(dst, src):
+    """dst (a ComputationGraph) takes src's params (in place), running
+    state and updater slots, on dst's device."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.updaters import tree_map
+
+    with torch.no_grad():
+        for name, p in src.params.items():
+            for k, t in p.items():
+                dst.params[name][k].copy_(t)
+    dst.state = tree_map(lambda t: t.to(dst.device), src.state)
+    dst.opt_state = tree_map(lambda t: t.to(dst.device), src.opt_state)
+
+
+# card - CPU, per step from the same point: the score relative; each
+# param's change and each Nesterovs slot in relative L2 norm per leaf; the
+# BN running stats relative to each leaf's largest magnitude. Scores and
+# stats hold refer-train's 1e-5 and 1e-4 (measured on an H100 80GB HBM3
+# against the CPU: 5.6e-6 and 6.7e-6); changes and slots measured 0.024
+# at worst (a BN beta of s2 in the first step): at batch 4 single relu
+# inputs near zero change sign between the two programs, and each flip
+# moves the gradient of every earlier leaf by percents, so 0.05
+REFER_RESNET_TOL = {"score": 1e-5, "change": 0.05, "slot": 0.05, "bn": 1e-4}
+
+
+def phase_refer_train_resnet(torch, np):
+    """3 Nesterovs steps at batch 4 on the card (TF32 off) and on the CPU,
+    each from the same point: after each step the CPU network takes the
+    card's params, state and slots. A train-mode ResNet-50 at batch 4 is
+    chaotic (the first step sends the score from 8.4 to 104 two steps
+    later), so steps from points that drifted apart would compare two
+    trajectories rather than two steps."""
+    from deeplearning4j_tpu_torch import dtypes, interop
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    steps, b = 3, 4
+    rng = np.random.default_rng(SEED + 10)
+    x = rng.standard_normal((b, *RESNET_SHAPE)).astype(np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, b)]
+    nets = {"card": resnet_net(torch), "cpu": resnet_net(torch, "cpu")}
+    per_step = []
+    reset_counts()
+    for step in range(steps):
+        start = nets["cpu"].get_param_table()
+        with dtypes.full_precision():
+            for net in nets.values():
+                net.fit(DataSet(x, y))
+        moved = {k: {key: p - start[key]
+                     for key, p in net.get_param_table().items()}
+                 for k, net in nets.items()}
+        slots = {k: dict(slot_items(interop.opt_state_to_jax(net)))
+                 for k, net in nets.items()}
+
+        def norm_rel(a, c):
+            return float(np.linalg.norm(a - c) / max(np.linalg.norm(c),
+                                                     1e-30))
+
+        change = {key: norm_rel(moved["card"][key], w)
+                  for key, w in moved["cpu"].items()}
+        errs = {
+            "score": abs(nets["card"].score_ - nets["cpu"].score_)
+            / abs(nets["cpu"].score_),
+            "change": max(change.values()),
+            "slot": max(norm_rel(slots["card"][k], v)
+                        for k, v in slots["cpu"].items()),
+            "bn": max(leaf_rel(nets["card"].state[name][s].cpu().numpy(),
+                               v.numpy())
+                      for name, st in nets["cpu"].state.items()
+                      for s, v in st.items()),
+        }
+        worst = sorted(change, key=change.get)[-2:]
+        median = sorted(change.values())[len(change) // 2]
+        elementwise = max(leaf_rel(moved["card"][key], w)
+                          for key, w in moved["cpu"].items())
+        log(f"[refer-train-resnet] step {step + 1}: scores "
+            f"{nets['card'].score_:.7f} (card) {nets['cpu'].score_:.7f} "
+            f"(CPU); " + ", ".join(f"{k} {v:.3g} (tol "
+                                   f"{REFER_RESNET_TOL[k]:g})"
+                                   for k, v in errs.items())
+            + f"; worst changes {[(k, f'{change[k]:.3g}') for k in worst]},"
+              f" median {median:.3g} over {len(change)} leaves; largest "
+              f"element error of a change {elementwise:.3g} of its leaf's "
+              f"largest")
+        per_step.append(errs)
+        copy_net(nets["cpu"], nets["card"])
+    launches = read_counts()
+    if launches["bn_act"] != 53 * steps:
+        raise AssertionError(f"refer-train-resnet: launches {launches}")
+    bad = [(i + 1, k, v) for i, errs in enumerate(per_step)
+           for k, v in errs.items()
+           if not (math.isfinite(v) and v <= REFER_RESNET_TOL[k])]
+    if bad:
+        raise AssertionError(f"refer-train-resnet: card and CPU differ: "
+                             f"{bad}")
+    del nets
+
+
+# ---------------------------------------------------------------- phase 22
+LENET_PER_STEP = {"linear_xent_fwd": 1, "linear_xent_bwd": 1}
+LENET_TRAIN = (64, 20)  # batch, steps
+
+
+def phase_train_lenet(torch, np, card):
+    """Zoo LeNet on MnistDataSetIterator: 20 Adam steps on the card, then
+    3 steps on the card and on the CPU (TF32 off) compared. Returns the
+    card run's launches."""
+    from deeplearning4j_tpu_torch import dtypes, interop
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models._training import flat_items
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    b, steps = LENET_TRAIN
+    data = MnistDataSetIterator(batch=b, num_examples=b * steps, seed=SEED)
+    net = LeNet(seed=SEED).init()
+
+    class Timed(ScoreLog):
+        def __init__(self):
+            super().__init__()
+            self.times = []
+
+        def iteration_done(self, net, iteration, score):
+            super().iteration_done(net, iteration, score)
+            self.times.append(time.perf_counter())  # score_ waited
+
+    rec = Timed()
+    net.set_listeners(rec)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    net.fit(data)
+    launches = read_counts()
+    want = {k: steps * v for k, v in LENET_PER_STEP.items()}
+    check_train("train-lenet", rec.scores, launches, want)
+    gaps = sorted(np.diff([t0] + rec.times)[1:])
+    step_ms = gaps[len(gaps) // 2] * 1e3
+    log(f"[train-lenet] {steps} Adam steps of {b} MNIST images "
+        f"({'synthetic sample' if data.synthetic else 'idx files'}), score "
+        f"{rec.scores[0]:.5f} -> {rec.scores[-1]:.5f}; launches {want} (per "
+        f"step {LENET_PER_STEP})")
+    log(f"[train-lenet] median step {step_ms:.3f} ms (host batch copy "
+        f"included), {b / (step_ms / 1e3):.1f} trained images/s; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} "
+        f"MiB ({card})")
+
+    lr, n = 1e-3, 3
+    nets = {"card": LeNet(seed=SEED).init(),
+            "cpu": LeNet(seed=SEED).init(device="cpu")}
+    logs = {k: ScoreLog() for k in nets}
+    start = {k: net.get_param_table() for k, net in nets.items()}
+    with dtypes.full_precision():
+        for k, net in nets.items():
+            net.set_listeners(logs[k])
+            net.fit(MnistDataSetIterator(batch=b, num_examples=b * n,
+                                         seed=SEED))
+    rel = max(abs(a - c) / abs(c) for a, c in zip(logs["card"].scores,
+                                                  logs["cpu"].scores))
+    slots = {k: interop.opt_state_to_jax(net) for k, net in nets.items()}
+    rms = {f"layer_{i}/{path}": np.sqrt(v)
+           for i, s in enumerate(slots["cpu"]) if s["m"]
+           for path, v in flat_items(s["v"])}
+    floor = ZERO_GRAD * max(float(r.max()) for r in rms.values())
+    p_err, z_move = 0.0, 0.0
+    for key, p in nets["cpu"].get_param_table().items():
+        want = p - start["cpu"][key]
+        got = nets["card"].get_param_table()[key] - start["card"][key]
+        zero = rms[key] <= floor
+        p_err = max(p_err, float(np.abs(got - want)[~zero].max(initial=0)))
+        z_move = max(z_move, float(np.abs(got)[zero].max(initial=0)))
+    cpu_slots = dict(slot_items(slots["cpu"]))
+    s_errs = {k: leaf_rel(v, cpu_slots[k])
+              for k, v in slot_items(slots["card"])}
+    s_worst = max(s_errs, key=s_errs.get)
+    s_err = s_errs[s_worst]
+    # slots 2e-4: the first conv's bias gradient sums 64 x 28 x 28 terms
+    # of both signs per channel, and its m differs by 1.51e-4 of the
+    # leaf's largest (on an H100 80GB HBM3 against the CPU, the same in
+    # three runs)
+    ok = (len(logs["cpu"].scores) == n and rel <= 1e-5 and p_err <= 1e-5
+          and z_move <= 1.01 * n * lr and s_err <= 2e-4)
+    log(f"[train-lenet] {n} Adam steps, card (TF32 off) vs CPU: scores "
+        f"relative {rel:.3g} (tol 1e-5); params' change max |diff| "
+        f"{p_err:.3g} (tol 1e-5); zero-gradient elements move at most "
+        f"{z_move:.3g} (Adam's bound {1.01 * n * lr:.3g}); Adam m, v max "
+        f"relative {s_err:.3g} ({s_worst}; tol 2e-4)")
+    if not ok:
+        raise AssertionError("train-lenet: card and CPU differ")
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2371,6 +2720,11 @@ def main() -> int:
         log(f"[serve] ResNet-50 ({net.num_params()} params) on "
             f"{net.device} in {time.perf_counter() - t0:.2f} s")
         times, max_err = phase_kernel(torch, bn_cases(net, BATCH), bw, peak)
+        bn_b = RESNET_TRAIN[0]
+        _, train_err = phase_kernel(torch, bn_cases(net, bn_b), bw, peak,
+                                    batch=bn_b, dtypes=(torch.bfloat16,),
+                                    what="training forward")
+        max_err = max(max_err, train_err)
         flash, flash_err = phase_flash(torch, bw, peak, peak_bf16,
                                        peak_tf32)
         launches = phase_serve(torch, np, net, card)
@@ -2402,6 +2756,9 @@ def main() -> int:
         phase_train_rnn_tbptt(torch, np, card)
         long_launches = phase_train_rnn_long(torch, np, card)
         phase_refer_train_rnn(torch, np)
+        phase_train_resnet(torch, np, card)
+        phase_refer_train_resnet(torch, np)
+        phase_train_lenet(torch, np, card)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
         if leaked:

@@ -1,7 +1,13 @@
-"""In-memory datasets and iterators of the port (counterpart of
-deeplearning4j_tpu/datasets/, the part the training slice uses)."""
-from deeplearning4j_tpu_torch.datasets.dataset import DataSet  # noqa: F401
+"""Datasets and iterators of the port (counterpart of
+deeplearning4j_tpu/datasets/, the part the training slices use)."""
+from deeplearning4j_tpu_torch.datasets.dataset import (  # noqa: F401
+    DataSet,
+    MultiDataSet,
+)
 from deeplearning4j_tpu_torch.datasets.iterators import (  # noqa: F401
     DataSetIterator,
     ListDataSetIterator,
+)
+from deeplearning4j_tpu_torch.datasets.fetchers import (  # noqa: F401
+    MnistDataSetIterator,
 )

@@ -1,15 +1,16 @@
-"""DataSet container (counterpart of deeplearning4j_tpu/datasets/dataset.py;
-ND4J's DataSet: features, labels, featuresMask, labelsMask), the currency
-of every iterator and fit() call.
+"""DataSet and MultiDataSet containers (counterpart of
+deeplearning4j_tpu/datasets/dataset.py; ND4J's DataSet: features, labels,
+featuresMask, labelsMask), the currency of every iterator and fit() call.
+A MultiDataSet holds a list of each, one entry per graph input or output
+(ComputationGraph's currency).
 
 The arrays may be numpy arrays or torch tensors, on the host or already on
-the card: `MultiLayerNetwork.fit` moves a host array to the network's
-device and takes a tensor that is already there as it is, without a copy.
-MultiDataSet comes with the ComputationGraph training slice.
+the card: `fit` moves a host array to the network's device and takes a
+tensor that is already there as it is, without a copy.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -62,6 +63,27 @@ class DataSet:
             _cat([d.labels for d in sets]),
             _cat([d.features_mask for d in sets]),
             _cat([d.labels_mask for d in sets]),
+        )
+
+
+@dataclass
+class MultiDataSet:
+    """Multiple input/output arrays (ComputationGraph currency)."""
+
+    features: List[object] = field(default_factory=list)
+    labels: List[object] = field(default_factory=list)
+    features_masks: Optional[List[Optional[object]]] = None
+    labels_masks: Optional[List[Optional[object]]] = None
+
+    def num_examples(self) -> int:
+        return int(self.features[0].shape[0])
+
+    @staticmethod
+    def from_dataset(ds: DataSet) -> "MultiDataSet":
+        return MultiDataSet(
+            [ds.features], [ds.labels],
+            [ds.features_mask] if ds.features_mask is not None else None,
+            [ds.labels_mask] if ds.labels_mask is not None else None,
         )
 
 

@@ -14,11 +14,14 @@ Each layer converts from the interchange layout to its own once (Conv2D:
 HWIO -> OIHW channels_last), by the param's '/'-joined path. Afterwards
 both packages compute the same function.
 
-`opt_state_from_jax(net, opt_state)` carries a JAX MultiLayerNetwork's
-updater slots across (one entry per layer, the JAX names: Adam's "m" and
-"v" nested like the layer's params, its step count "t"), so a run started
-in the JAX package resumes in the port; `opt_state_to_jax(net)` is the
-reverse, as numpy arrays in the interchange layout.
+`opt_state_from_jax(net, opt_state)` carries a JAX network's updater slots
+across, so a run started in the JAX package resumes in the port: a
+MultiLayerNetwork's list with one entry per layer, a ComputationGraph's
+dict with one entry per vertex name, each under the JAX names (Adam's "m"
+and "v" nested like the layer's params, its step count "t"; Nesterovs'
+"v"). Slots that mirror params convert like params (a Conv2D kernel's HWIO
+to the port's OIHW channels_last). `opt_state_to_jax(net)` is the reverse,
+as numpy arrays in the interchange layout, in the network's own container.
 
 Names, shapes and the set of entries must match exactly at every level of
 nesting; anything else raises, so a half-loaded network cannot run.
@@ -30,7 +33,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.models.multi_layer_network import flat_items
+from deeplearning4j_tpu_torch.models._training import flat_items
 
 Arrays = Mapping[str, Mapping[str, object]]
 
@@ -122,20 +125,37 @@ def _layer_slots_from_jax(layer, have, incoming, device, where: str):
     return out
 
 
+def _entries(net):
+    """(key, layer or None) of each updater-state entry: vertex names of a
+    ComputationGraph, layer indices of a MultiLayerNetwork."""
+    if isinstance(net.opt_state, dict):
+        return [(name, net.layer(name)) for name in net.opt_state]
+    return list(enumerate(net.layers))
+
+
 def opt_state_from_jax(net, opt_state):
-    """Replace an initialized MultiLayerNetwork's updater slots with a JAX
-    network's `opt_state` (a list with one entry per layer, numpy or JAX
-    arrays). Returns `net`."""
+    """Replace an initialized network's updater slots with a JAX network's
+    `opt_state` (numpy or JAX arrays): a list with one entry per layer for
+    a MultiLayerNetwork, a dict keyed by vertex name for a
+    ComputationGraph. Returns `net`."""
     if net.opt_state is None:
         raise RuntimeError("init() the port network before loading slots")
-    if len(opt_state) != len(net.opt_state):
+    if isinstance(net.opt_state, dict):
+        if not isinstance(opt_state, Mapping) or \
+                set(opt_state) != set(net.opt_state):
+            got = sorted(opt_state) if isinstance(opt_state, Mapping) \
+                else type(opt_state).__name__
+            raise ValueError(f"opt_state entries differ: expected vertices "
+                             f"{sorted(net.opt_state)}, got {got}")
+    elif len(opt_state) != len(net.opt_state):
         raise ValueError(f"opt_state has {len(opt_state)} layers, the port "
                          f"network {len(net.opt_state)}")
-    new = [_layer_slots_from_jax(net.layers[i], have, incoming, net.device,
-                                 f"opt_state[{i}]")
-           for i, (have, incoming) in enumerate(zip(net.opt_state,
-                                                    opt_state))]
-    net.opt_state = new
+    new = {key: _layer_slots_from_jax(layer, net.opt_state[key],
+                                      opt_state[key], net.device,
+                                      f"opt_state[{key!r}]")
+           for key, layer in _entries(net)}
+    net.opt_state = (new if isinstance(net.opt_state, dict)
+                     else [new[i] for i in range(len(new))])
     return net
 
 
@@ -146,20 +166,24 @@ def _to_interchange(layer, tree, prefix: str = ""):
         if isinstance(t, dict):
             out[key] = _to_interchange(layer, t, path + "/")
         else:
-            out[key] = layer.to_interchange(path, t).detach().cpu().numpy()
+            if layer is not None:
+                t = layer.to_interchange(path, t)
+            out[key] = t.detach().cpu().numpy()
     return out
 
 
-def opt_state_to_jax(net) -> list:
+def opt_state_to_jax(net):
     """The port network's updater slots as the JAX package keeps them: one
-    entry per layer, dict slots as nested numpy arrays in the interchange
-    layout, scalar slots as numpy scalars of their dtype, () as ()."""
-    out = []
-    for layer, st in zip(net.layers, net.opt_state):
+    entry per layer (a list) or per vertex (a dict), dict slots as nested
+    numpy arrays in the interchange layout, scalar slots as numpy scalars
+    of their dtype, () as ()."""
+    out = {}
+    for key, layer in _entries(net):
+        st = net.opt_state[key]
         if isinstance(st, tuple):
-            out.append(())
+            out[key] = ()
             continue
-        out.append({slot: (_to_interchange(layer, v) if isinstance(v, dict)
+        out[key] = {slot: (_to_interchange(layer, v) if isinstance(v, dict)
                            else v.detach().cpu().numpy())
-                    for slot, v in st.items()})
-    return out
+                    for slot, v in st.items()}
+    return out if isinstance(net.opt_state, dict) else list(out.values())

@@ -1,0 +1,154 @@
+"""The parts of a training step that MultiLayerNetwork and ComputationGraph
+share: param trees, gradients over them, the l1/l2 penalty of one layer and
+one layer's update, each as the JAX package's two runtimes compute it.
+
+Params are nested dicts of tensors keyed by a layer key ("layer_3") or a
+vertex name; `value_and_grad` turns them into leaves that record gradients
+and hands back a gradient tree of the same structure.
+"""
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.nn import updaters as upd_mod
+from deeplearning4j_tpu_torch.nn.regularization import apply_constraints
+
+
+def as_tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x
+    x = np.asarray(x)
+    # torch.from_numpy cannot share a read-only buffer
+    return torch.from_numpy(x if x.flags.writeable else x.copy())
+
+
+def to_device(tree, device):
+    """A (nested) dict of tensors moved to `device`."""
+    return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def detach(tree):
+    return {k: detach(v) if isinstance(v, dict) else v.detach()
+            for k, v in tree.items()}
+
+
+def flat_items(tree, prefix: str = ""):
+    """(path, tensor) pairs of a nested param dict, paths joined by '/'
+    ("attn/Wqkv"), in insertion order."""
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            yield from flat_items(v, path + "/")
+        else:
+            yield path, v
+
+
+def value_and_grad(loss, params):
+    """(score, aux, grads) of `loss() -> (score, aux)`, differentiated with
+    respect to every tensor in `params` (a dict of nested param dicts),
+    each made a leaf that records gradients first. `grads` mirrors
+    `params`, zeros where the score does not depend on a param."""
+    leaves = []
+    for k, p in params.items():
+        for path, t in flat_items(p):
+            if not t.requires_grad:
+                t.requires_grad_(True)
+            leaves.append((k, path, t))
+    with torch.enable_grad():
+        score, aux = loss()
+        flat = torch.autograd.grad(score, [t for *_, t in leaves],
+                                   allow_unused=True)
+    grads = {k: {} for k in params}
+    for (k, path, t), g in zip(leaves, flat):
+        node = grads[k]
+        *parents, name = path.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[name] = torch.zeros_like(t) if g is None else g
+    return score, aux, grads
+
+
+def layer_updater(layer, default) -> upd_mod.Updater:
+    """A layer's updater: its own, else the network default `default`, with
+    the layer's learning-rate override applied to a copy. `layer` is None
+    for a graph vertex that is not a layer."""
+    own = layer.updater if layer is not None else None
+    u = upd_mod.get(own if own is not None else default)
+    if layer is not None and layer.learning_rate is not None:
+        u = copy.copy(u)
+        u.learning_rate = layer.learning_rate
+    return u
+
+
+def layer_penalty(layer, p, defaults, biases: bool, total):
+    """`total` plus one layer's l1/l2 penalty (BaseLayer.calcL1/calcL2):
+    l1 * sum|w| + 0.5 * l2 * sum w^2 over its `regularizable` params and,
+    with `biases`, the bias terms over its params named "b*" (the JAX
+    MultiLayerNetwork counts them, its ComputationGraph does not)."""
+    l1 = layer.l1 if layer.l1 is not None else defaults.l1
+    l2 = layer.l2 if layer.l2 is not None else defaults.l2
+    if l1 or l2:
+        for v in upd_mod.tree_leaves(layer.regularizable(p)):
+            if l1:
+                total = total + l1 * v.abs().sum()
+            if l2:
+                total = total + 0.5 * l2 * (v * v).sum()
+    if biases:
+        l1b = layer.l1_bias if layer.l1_bias is not None else defaults.l1_bias
+        l2b = layer.l2_bias if layer.l2_bias is not None else defaults.l2_bias
+        for name, v in p.items():
+            if name.startswith("b"):
+                if l1b:
+                    total = total + l1b * v.abs().sum()
+                if l2b:
+                    total = total + 0.5 * l2b * (v * v).sum()
+    return total
+
+
+def update_layer(layer, defaults, updater, params, grads, slots,
+                 iteration: int):
+    """One layer's update, in place under no_grad: gradient normalization
+    (the layer's, else the network default), the updater rule at the
+    scheduled learning rate, params -= step, then the layer's constraints.
+    `layer` is None for a graph vertex that is not a layer (the defaults
+    apply). Returns the new updater slots."""
+    d = defaults
+
+    def pick(field):
+        own = getattr(layer, field) if layer is not None else None
+        return own if own is not None else getattr(d, field)
+
+    g = upd_mod.normalize_gradients(
+        grads, pick("gradient_normalization"),
+        pick("gradient_normalization_threshold"))
+    lr = (d.lr_schedule(updater.learning_rate, iteration) if d.lr_schedule
+          else updater.learning_rate)
+    steps, slots = updater.apply(g, slots, lr)
+    upd_mod.tree_map(lambda p, s: p.sub_(s), params, steps)
+    if layer is not None and layer.constraints:
+        upd_mod.tree_map(lambda p, c: p.copy_(c), params,
+                         apply_constraints(params, layer.constraints))
+    return slots
+
+
+def check_trainable(defaults, layers) -> None:
+    """Refuse what training in the port does not apply yet: the
+    line-search solvers, dropout and weight noise. `layers` is (where,
+    Layer) pairs."""
+    if defaults.optimization_algo not in ("stochastic_gradient_descent",
+                                          "sgd"):
+        raise NotImplementedError(
+            f"optimization_algo={defaults.optimization_algo!r}: the "
+            f"line-search solvers are not ported yet; fit trains with SGD "
+            f"updaters")
+    for where, layer in layers:
+        for field in ("dropout", "weight_noise", "attn_dropout"):
+            if getattr(layer, field, None) is not None:
+                raise NotImplementedError(
+                    f"{where} ({type(layer).__name__}) asks for {field}, "
+                    f"which training in the port does not apply yet; "
+                    f"refusing to train without it")

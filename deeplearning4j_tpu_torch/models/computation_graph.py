@@ -1,13 +1,30 @@
-"""ComputationGraph — DAG network runtime, inference part (counterpart of
-deeplearning4j_tpu/models/computation_graph.py; fit, losses and tBPTT come
-with later slices).
+"""ComputationGraph — DAG network runtime: inference, stateful RNN
+streaming and the training step (counterpart of
+deeplearning4j_tpu/models/computation_graph.py; masks and tBPTT through the
+graph come with later slices).
 
 The topological order is computed once from the config; a forward walks it
-eagerly, vertex by vertex, under `torch.inference_mode()`. Params and
-running state are plain dicts of tensors per vertex name, with the JAX
-package's names, on the device `init` was given. `rnn_time_step` streams
-through the DAG: each recurrent vertex's (h, c) carry is kept between calls
-(ComputationGraph.rnnTimeStep).
+eagerly, vertex by vertex. Params and running state are plain dicts of
+tensors per vertex name, with the JAX package's names, on the device `init`
+was given. Inference runs under `torch.inference_mode()`; `rnn_time_step`
+streams through the DAG: each recurrent vertex's (h, c) carry is kept
+between calls (ComputationGraph.rnnTimeStep).
+
+Training (`fit`) is the JAX package's train step, run eagerly: the forward
+with `train=True` up to the output vertices, each of which hands its input
+to its layer's loss; the sum of the losses plus the l1/l2 penalty
+(`_loss`); `torch.autograd.grad` over the param leaves; then under
+`torch.no_grad()` per vertex: gradient normalization, the updater rule at
+the scheduled learning rate, the step and the constraints
+(`_apply_updates`). Params are updated IN PLACE (`p -= step`), so the
+tensors `init` made stay the network's params; the updater slots
+(`opt_state`, one entry per vertex with the JAX names) and the running
+state (BatchNorm's EMA) are replaced each step. `fit` takes a MultiDataSet,
+a DataSet, a DataSetIterator, or features and labels (lists for several
+inputs or outputs); batches already on the network's device are used as
+they are. Masks, tBPTT, the line-search solvers, dropout, weight noise and
+the JAX package's windowed engine, FSDP and remat are not ported yet; `fit`
+raises on a batch or configuration that needs them.
 """
 from __future__ import annotations
 
@@ -17,19 +34,15 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import device as device_mod
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.datasets.iterators import DataSetIterator
+from deeplearning4j_tpu_torch.models import _training as tr
 from deeplearning4j_tpu_torch.nn.graph_conf import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.graph_vertices import LayerVertex
+from deeplearning4j_tpu_torch.nn.layers.output import BaseOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrent
 
 Params = Dict[str, torch.Tensor]
-
-
-def _as_tensor(x) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x
-    x = np.asarray(x)
-    # torch.from_numpy cannot share a read-only buffer
-    return torch.from_numpy(x if x.flags.writeable else x.copy())
 
 
 class ComputationGraph:
@@ -41,7 +54,16 @@ class ComputationGraph:
         self.params: Optional[Dict[str, Params]] = None
         self.state: Optional[Dict[str, Params]] = None
         self.device: Optional[torch.device] = None
+        self.opt_state: Optional[Dict[str, object]] = None
+        self.iteration: int = 0
+        self.epoch: int = 0
+        self.listeners: List = []
+        self.score_: float = float("nan")
+        self.last_batch_size: int = 0
         self._vin_types = {name: self._in_types(name) for name in self.topo}
+        self._updaters = {name: tr.layer_updater(self.layer(name),
+                                                 conf.defaults.updater)
+                          for name in self.topo}
         self._rnn_carries: Optional[Dict[str, tuple]] = None
 
     def _in_types(self, name):
@@ -52,8 +74,9 @@ class ComputationGraph:
     def init(self, device=None) -> "ComputationGraph":
         """Random params from `conf.defaults.seed` (one CPU torch.Generator
         drawn in topological order, so a seed gives the same weights on
-        every device), running state at its defaults, all on `device`
-        (default: the CUDA card; pass device="cpu" for the CPU)."""
+        every device), running state at its defaults and zeroed updater
+        slots, all on `device` (default: the CUDA card; pass device="cpu"
+        for the CPU)."""
         self.device = device_mod.resolve(device)
         gen = torch.Generator().manual_seed(int(self.conf.defaults.seed))
         self.params, self.state = {}, {}
@@ -64,6 +87,8 @@ class ComputationGraph:
             self.params[name] = {k: t.to(self.device) for k, t in p.items()}
             self.state[name] = {k: t.to(self.device)
                                 for k, t in v.init_state(in_types).items()}
+        self.opt_state = {name: self._updaters[name].init_state(
+            self.params[name]) for name in self.topo}
         return self
 
     def layer(self, name: str):
@@ -78,27 +103,42 @@ class ComputationGraph:
     def _as_inputs(self, inputs) -> List[torch.Tensor]:
         if self.params is None:
             raise RuntimeError("call init() before running the network")
-        return [_as_tensor(x).to(self.device) for x in inputs]
+        return [self._batch(x) for x in inputs]
 
-    def _forward(self, inputs: Sequence[torch.Tensor],
-                 carries: Optional[Dict[str, tuple]] = None
-                 ) -> Dict[str, torch.Tensor]:
-        """Inference forward over the DAG: every vertex's activation (masks
-        are not ported yet). With `carries` (see `_init_carries`) a
-        recurrent vertex scans from its entry and the entry is replaced by
-        its new carry, in place."""
-        acts: Dict[str, torch.Tensor] = dict(zip(self.conf.network_inputs,
-                                                 inputs))
+    def _batch(self, a):
+        """An array as a tensor on the network's device: a tensor already
+        there is used as it is (no copy)."""
+        return None if a is None else tr.as_tensor(a).to(self.device)
+
+    def _forward(self, params, inputs: Sequence[torch.Tensor], *,
+                 train: bool = False, stop_at_outputs: bool = False,
+                 carries: Optional[Dict[str, tuple]] = None):
+        """Forward over the DAG with `params`. Returns (acts, new_state):
+        every vertex's activation and the running state after the walk
+        (updated by vertices that track statistics when `train`). With
+        `stop_at_outputs` an output vertex's activation is its input, for
+        its loss. With `carries` (see `_init_carries`) a recurrent vertex
+        scans from its entry and the entry is replaced by its new carry, in
+        place. Masks are not ported yet."""
+        acts: Dict[str, object] = dict(zip(self.conf.network_inputs, inputs))
+        new_state = dict(self.state)
+        outputs = set(self.conf.network_outputs)
         for name in self.topo:
             v = self.conf.vertices[name]
             vin = [acts[x] for x in self.conf.vertex_inputs[name]]
+            if stop_at_outputs and name in outputs and \
+                    isinstance(self.layer(name), BaseOutputLayer):
+                acts[name] = vin[0] if len(vin) == 1 else vin
+                continue
             if carries is not None and name in carries:
                 acts[name], carries[name] = v.layer.scan(
-                    self.params[name], vin[0], carries[name])
+                    params[name], vin[0], carries[name], train=train)
             else:
-                acts[name], _ = v.apply(self.params[name], vin,
-                                        state=self.state[name], train=False)
-        return acts
+                acts[name], st = v.apply(params[name], vin,
+                                         state=self.state[name], train=train)
+                if train:
+                    new_state[name] = st
+        return acts, new_state
 
     def output(self, *inputs):
         """Forward to all output vertices. Inputs are arrays or tensors in
@@ -106,7 +146,7 @@ class ComputationGraph:
         network's device. Returns a tensor on that device (a list when the
         graph has several outputs)."""
         with torch.inference_mode():
-            acts = self._forward(self._as_inputs(inputs))
+            acts, _ = self._forward(self.params, self._as_inputs(inputs))
         outs = [acts[o] for o in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
 
@@ -115,7 +155,7 @@ class ComputationGraph:
         inference mode, as in the JAX package."""
         with torch.inference_mode():
             arrs = self._as_inputs(inputs)
-            acts = self._forward(arrs)
+            acts, _ = self._forward(self.params, arrs)
         return list(arrs) + [acts[name] for name in self.topo]
 
     # ---- stateful RNN inference (rnnTimeStep) ----
@@ -159,12 +199,131 @@ class ComputationGraph:
                 carries = self._init_carries(arrs[0].shape[0],
                                              for_streaming=True)
             carries = dict(carries)  # a failed call keeps the old state
-            acts = self._forward(arrs, carries=carries)
+            acts, _ = self._forward(self.params, arrs, carries=carries)
             self._rnn_carries = carries
         outs = [acts[o] for o in self.conf.network_outputs]
         if single:
             outs = [o[:, 0] if o.dim() == 3 else o for o in outs]
         return outs[0] if len(outs) == 1 else outs
+
+    # ---- training (the JAX package's train step, eagerly) ----
+    def _reg_score(self, params) -> torch.Tensor:
+        """The l1/l2 penalty over every layer vertex's `regularizable`
+        params (the JAX ComputationGraph counts no bias terms)."""
+        total = torch.zeros((), device=self.device)
+        for name, v in self.conf.vertices.items():
+            if isinstance(v, LayerVertex) and params[name]:
+                total = tr.layer_penalty(v.layer, params[name],
+                                         self.conf.defaults, biases=False,
+                                         total=total)
+        return total
+
+    def _loss(self, params, inputs, labels, train: bool = True):
+        """(score, new_state): the sum over the output vertices of each
+        one's loss on its input, plus the l1/l2 penalty."""
+        acts, new_state = self._forward(params, inputs, train=train,
+                                        stop_at_outputs=True)
+        total = torch.zeros((), device=self.device)
+        for name, y in zip(self.conf.network_outputs, labels):
+            layer = self.layer(name)
+            if not isinstance(layer, BaseOutputLayer):
+                raise TypeError(f"output vertex {name!r} must wrap an output "
+                                f"layer (Output, RnnOutput, LossLayer)")
+            score, _, new_state[name] = layer.compute_loss(
+                params[name], acts[name], y, state=self.state[name])
+            total = total + score
+        return total + self._reg_score(params), new_state
+
+    def _apply_updates(self, grads, iteration: int) -> None:
+        """Per vertex with params, in place: gradient normalization, the
+        updater rule at the scheduled learning rate, params -= step,
+        constraints (`_training.update_layer`)."""
+        for name in self.topo:
+            if grads[name]:
+                self.opt_state[name] = tr.update_layer(
+                    self.layer(name), self.conf.defaults,
+                    self._updaters[name], self.params[name], grads[name],
+                    self.opt_state[name], iteration)
+
+    def _check_trainable(self) -> None:
+        tr.check_trainable(self.conf.defaults,
+                           [(f"vertex {name!r}", self.layer(name))
+                            for name in self.topo
+                            if self.layer(name) is not None])
+
+    def _fit_mds(self, mds: MultiDataSet) -> None:
+        """One updater step on one batch: loss, gradients, updates, then
+        `score_`, `last_batch_size`, `iteration` and the listeners."""
+        if mds.features_masks is not None or mds.labels_masks is not None:
+            raise NotImplementedError(
+                "masks through the ComputationGraph are not ported yet")
+        if (self.conf.defaults.backprop_type == "tbptt"
+                and np.ndim(mds.features[0]) == 3
+                and all(np.ndim(y) == 3 for y in mds.labels)):
+            raise NotImplementedError(
+                "tBPTT through the ComputationGraph is not ported yet")
+        inputs = [self._batch(x) for x in mds.features]
+        labels = [self._batch(y) for y in mds.labels]
+        score, new_state, grads = tr.value_and_grad(
+            lambda: self._loss(self.params, inputs, labels), self.params)
+        with torch.no_grad():
+            self._apply_updates(grads, self.iteration)
+            self.state = {k: tr.detach(v) for k, v in new_state.items()}
+        self.score_ = float(score.detach())
+        self.last_batch_size = int(inputs[0].shape[0])
+        self.iteration += 1
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration, self.score_)
+
+    @staticmethod
+    def _as_batches(data, labels=None):
+        """A function giving one pass of MultiDataSets over `data`."""
+        if isinstance(data, MultiDataSet):
+            return lambda: iter([data])
+        if isinstance(data, DataSet):
+            return lambda: iter([MultiDataSet.from_dataset(data)])
+        if isinstance(data, DataSetIterator):
+            return lambda: (MultiDataSet.from_dataset(ds) for ds in data)
+        if labels is not None:
+            many = isinstance(data, (list, tuple))
+            mds = MultiDataSet(
+                list(data) if many else [data],
+                list(labels) if isinstance(labels, (list, tuple))
+                else [labels])
+            return lambda: iter([mds])
+        raise TypeError(f"Cannot iterate {type(data)}")
+
+    def fit(self, data, labels=None, epochs: int = 1) -> "ComputationGraph":
+        """fit(MultiDataSet | DataSet | DataSetIterator | (features,
+        labels)): one training step per batch, `epochs` passes
+        (ComputationGraph.fit). After each step `score_` holds its loss
+        (with the l1/l2 penalty), `last_batch_size` its rows, and every
+        listener's `iteration_done(net, iteration, score)` has run."""
+        if self.params is None:
+            raise RuntimeError("call init() before fit()")
+        self._check_trainable()
+        batches = self._as_batches(data, labels)
+        for _ in range(epochs):
+            for mds in batches():
+                self._fit_mds(mds)
+            self.epoch += 1
+        return self
+
+    def score(self, data) -> float:
+        """The loss on a DataSet or MultiDataSet with the running
+        statistics (train=False), penalty included (score(DataSet))."""
+        mds = (MultiDataSet.from_dataset(data) if isinstance(data, DataSet)
+               else data)
+        with torch.no_grad():
+            s, _ = self._loss(self.params,
+                              [self._batch(x) for x in mds.features],
+                              [self._batch(y) for y in mds.labels],
+                              train=False)
+        return float(s)
+
+    def set_listeners(self, *listeners) -> "ComputationGraph":
+        self.listeners = list(listeners)
+        return self
 
     def get_param_table(self) -> Dict[str, np.ndarray]:
         """"vertex/param" -> numpy array in the interchange layout (the JAX

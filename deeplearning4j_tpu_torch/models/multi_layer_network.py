@@ -34,7 +34,6 @@ weight noise.
 """
 from __future__ import annotations
 
-import copy
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -46,41 +45,19 @@ from deeplearning4j_tpu_torch.datasets.iterators import (
     DataSetIterator,
     ListDataSetIterator,
 )
-from deeplearning4j_tpu_torch.models.computation_graph import _as_tensor
+from deeplearning4j_tpu_torch.models import _training as tr
+from deeplearning4j_tpu_torch.models._training import flat_items  # noqa: F401 (its users import it from here)
 from deeplearning4j_tpu_torch.nn import updaters as upd_mod
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
 from deeplearning4j_tpu_torch.nn.layers.output import BaseOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrent
-from deeplearning4j_tpu_torch.nn.regularization import apply_constraints
 
 Params = Dict[str, object]
 
 
 def _key(i: int) -> str:
     return f"layer_{i}"
-
-
-def _to(tree, device):
-    """A (nested) dict of tensors moved to `device`."""
-    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
-
-
-def _detach(tree):
-    return {k: _detach(v) if isinstance(v, dict) else v.detach()
-            for k, v in tree.items()}
-
-
-def flat_items(tree, prefix: str = ""):
-    """(path, tensor) pairs of a nested param dict, paths joined by '/'
-    ("attn/Wqkv"), in insertion order."""
-    for k, v in tree.items():
-        path = f"{prefix}{k}"
-        if isinstance(v, dict):
-            yield from flat_items(v, path + "/")
-        else:
-            yield path, v
 
 
 class MultiLayerNetwork:
@@ -107,15 +84,8 @@ class MultiLayerNetwork:
     def _resolve_updaters(self) -> List[upd_mod.Updater]:
         """Each layer's updater (its own, else the network default), with
         the layer's learning-rate override applied to a copy."""
-        out = []
-        for layer in self.layers:
-            u = upd_mod.get(layer.updater if layer.updater is not None
-                            else self.conf.defaults.updater)
-            if layer.learning_rate is not None:
-                u = copy.copy(u)
-                u.learning_rate = layer.learning_rate
-            out.append(u)
-        return out
+        return [tr.layer_updater(layer, self.conf.defaults.updater)
+                for layer in self.layers]
 
     def init(self, device=None) -> "MultiLayerNetwork":
         """Random params from `conf.defaults.seed` (one CPU torch.Generator
@@ -129,8 +99,9 @@ class MultiLayerNetwork:
         for i, layer in enumerate(self.layers):
             in_type = self._input_types[i]
             p = layer.init_params(gen, in_type) if layer.has_params() else {}
-            self.params[_key(i)] = _to(p, self.device)
-            self.state[_key(i)] = _to(layer.init_state(in_type), self.device)
+            self.params[_key(i)] = tr.to_device(p, self.device)
+            self.state[_key(i)] = tr.to_device(layer.init_state(in_type),
+                                               self.device)
         self.opt_state = [u.init_state(self.params[_key(i)])
                           for i, u in enumerate(self._updaters)]
         return self
@@ -148,7 +119,7 @@ class MultiLayerNetwork:
         integers for the embedding's index."""
         if self.params is None:
             raise RuntimeError("call init() before running the network")
-        return _as_tensor(x).to(self.device)
+        return tr.as_tensor(x).to(self.device)
 
     def _walk(self, params, x: torch.Tensor, *, train: bool = False,
               mask: Optional[torch.Tensor] = None,
@@ -249,28 +220,11 @@ class MultiLayerNetwork:
         l1 * sum|w| + 0.5 * l2 * sum w^2 over each layer's `regularizable`
         params, and the bias terms over its params named "b*"."""
         total = torch.zeros((), device=self.device)
-        d = self.conf.defaults
         for i, layer in enumerate(self.layers):
             p = params[_key(i)]
-            if not p:
-                continue
-            l1 = layer.l1 if layer.l1 is not None else d.l1
-            l2 = layer.l2 if layer.l2 is not None else d.l2
-            l1b = layer.l1_bias if layer.l1_bias is not None else d.l1_bias
-            l2b = layer.l2_bias if layer.l2_bias is not None else d.l2_bias
-            if l1 or l2:
-                for v in upd_mod.tree_leaves(layer.regularizable(p)):
-                    if l1:
-                        total = total + l1 * v.abs().sum()
-                    if l2:
-                        total = total + 0.5 * l2 * (v * v).sum()
-            if l1b or l2b:
-                for name, v in p.items():
-                    if name.startswith("b"):
-                        if l1b:
-                            total = total + l1b * v.abs().sum()
-                        if l2b:
-                            total = total + 0.5 * l2b * (v * v).sum()
+            if p:
+                total = tr.layer_penalty(layer, p, self.conf.defaults,
+                                         biases=True, total=total)
         return total
 
     def _loss(self, params, x, y, fmask=None, lmask=None, train=True,
@@ -295,87 +249,43 @@ class MultiLayerNetwork:
         return score + self._reg_score(params), new_state
 
     def _apply_updates(self, grads, iteration: int) -> None:
-        """Per layer: gradient normalization, the updater rule at the
-        scheduled learning rate, params -= step (in place), constraints.
-        Frozen layers and layers without params are left alone."""
-        d = self.conf.defaults
-        schedule = d.lr_schedule
+        """Per layer, in place: gradient normalization, the updater rule at
+        the scheduled learning rate, params -= step, constraints
+        (`_training.update_layer`). Frozen layers and layers without params
+        are left alone."""
         for i, layer in enumerate(self.layers):
             k = _key(i)
             g = grads.get(k)
             if not g or getattr(layer, "frozen", False):
                 continue
-            gn = (layer.gradient_normalization
-                  if layer.gradient_normalization is not None
-                  else d.gradient_normalization)
-            thr = (layer.gradient_normalization_threshold
-                   if layer.gradient_normalization_threshold is not None
-                   else d.gradient_normalization_threshold)
-            g = upd_mod.normalize_gradients(g, gn, thr)
-            u = self._updaters[i]
-            lr = (schedule(u.learning_rate, iteration) if schedule
-                  else u.learning_rate)
-            steps, self.opt_state[i] = u.apply(g, self.opt_state[i], lr)
-            upd_mod.tree_map(lambda p, s: p.sub_(s), self.params[k], steps)
-            if layer.constraints:
-                upd_mod.tree_map(
-                    lambda p, c: p.copy_(c), self.params[k],
-                    apply_constraints(self.params[k], layer.constraints))
+            self.opt_state[i] = tr.update_layer(
+                layer, self.conf.defaults, self._updaters[i], self.params[k],
+                g, self.opt_state[i], iteration)
 
     def _check_trainable(self) -> None:
-        d = self.conf.defaults
-        if d.optimization_algo not in ("stochastic_gradient_descent", "sgd"):
-            raise NotImplementedError(
-                f"optimization_algo={d.optimization_algo!r}: the line-search "
-                f"solvers are not ported yet; fit trains with SGD updaters")
-        for i, layer in enumerate(self.layers):
-            for field in ("dropout", "weight_noise", "attn_dropout"):
-                if getattr(layer, field, None) is not None:
-                    raise NotImplementedError(
-                        f"layer {i} ({type(layer).__name__}) asks for "
-                        f"{field}, which training in the port does not "
-                        f"apply yet; refusing to train without it")
-
-    def _train_leaves(self):
-        """[(layer key, path, tensor)] of every param, each made a leaf
-        that records gradients."""
-        leaves = []
-        for k, p in self.params.items():
-            for path, t in flat_items(p):
-                if not t.requires_grad:
-                    t.requires_grad_(True)
-                leaves.append((k, path, t))
-        return leaves
+        tr.check_trainable(self.conf.defaults,
+                           [(f"layer {i}", l) for i, l in
+                            enumerate(self.layers)])
 
     def _batch(self, a):
         """A batch array as a tensor on the network's device: a tensor
         already there is used as it is (no copy)."""
-        return None if a is None else _as_tensor(a).to(self.device)
+        return None if a is None else tr.as_tensor(a).to(self.device)
 
     def _step(self, x, y, fm, lm, carries=None) -> None:
         """One updater step on one batch (or tBPTT window): loss, gradients,
         updates, then `score_`, `last_batch_size`, `iteration` and the
         listeners. With `carries` the recurrent layers start from them and
         leave their new carries there, detached."""
-        leaves = self._train_leaves()
-        with torch.enable_grad():
-            score, new_state = self._loss(self.params, x, y, fm, lm,
-                                          carries=carries)
-            flat = torch.autograd.grad(score, [t for *_, t in leaves],
-                                       allow_unused=True)
+        score, new_state, grads = tr.value_and_grad(
+            lambda: self._loss(self.params, x, y, fm, lm, carries=carries),
+            self.params)
         if carries is not None:
             carries[:] = [None if c is None else tuple(v.detach() for v in c)
                           for c in carries]
-        grads: Dict[str, dict] = {k: {} for k in self.params}
-        for (k, path, t), g in zip(leaves, flat):
-            node = grads[k]
-            *parents, name = path.split("/")
-            for part in parents:
-                node = node.setdefault(part, {})
-            node[name] = torch.zeros_like(t) if g is None else g
         with torch.no_grad():
             self._apply_updates(grads, self.iteration)
-            self.state = {k: _detach(v) for k, v in new_state.items()}
+            self.state = {k: tr.detach(v) for k, v in new_state.items()}
         self.score_ = float(score.detach())
         self.last_batch_size = int(x.shape[0])
         self.iteration += 1

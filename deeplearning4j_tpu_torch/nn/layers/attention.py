@@ -13,10 +13,13 @@ Weights are [n_in, n_out] like Dense, q/k/v fused into one [f, 3f] matmul.
 Attention routing in MultiHeadAttention.apply, as in the JAX package minus
 its sequence-parallel ring branch (no sequence-parallel context in the port
 yet): `attention_impl="blockwise"` takes ops.attention.blockwise; with no
-mask and `attention_impl` "auto" or "pallas" the flash-attention forward
-(ops/flash_attention.py: the CUDA kernel on the card, at every length, its
-plain version on the CPU); anything else, and every masked call, takes
-ops.attention.sdpa, since the kernel takes no mask. The flash path is
+mask, `attention_impl` "auto" or "pallas" and a head dim in the kernel's
+set `fa.HEAD_DIMS`, the flash-attention forward (ops/flash_attention.py:
+the CUDA kernel on the card, at every length, its plain version on the
+CPU); anything else takes ops.attention.sdpa: every masked call, since the
+kernel takes no mask, and every other head dim, as the JAX layer sends the
+shapes its kernel does not take to sdpa. The route depends on the shape
+alone, so the CPU takes the one the card takes. The flash path is
 differentiable through the backward kernels; dropout (`attn_dropout`,
 TransformerBlock's `dropout`) is not ported yet, so `fit` refuses a network
 that asks for it.
@@ -168,7 +171,8 @@ class MultiHeadAttention(Layer):
         if self.attention_impl == "blockwise":
             return att.blockwise(q, k, v, mask=mask, causal=self.causal,
                                  block_size=self.block_size)
-        if mask is None and self.attention_impl in ("auto", "pallas"):
+        if (mask is None and self.attention_impl in ("auto", "pallas")
+                and q.shape[-1] in fa.HEAD_DIMS):
             # the kernel takes [b, h, t, d] contiguous: copy the head-split
             # views here, once each, rather than inside the wrapper
             return fa.flash_attention(q.contiguous(), k.contiguous(),

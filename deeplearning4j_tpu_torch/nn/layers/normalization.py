@@ -1,13 +1,18 @@
-"""BatchNorm, inference mode (counterpart of
-deeplearning4j_tpu/nn/layers/normalization.py; batch statistics, the EMA
-update and LRN come with the training slice).
+"""BatchNorm (counterpart of deeplearning4j_tpu/nn/layers/normalization.py;
+LRN comes with a later slice).
 
-Running stats are STATE. The normalize + gamma/beta affine folds into one
-per-channel float32 scale and shift, exactly as the JAX package folds them,
-and the epilogue y = act(x * scale + shift) for relu/identity is the
-hand-written CUDA kernel `ops.bn_act` on a CUDA tensor (its plain version on
-a CPU tensor). Other activations take the plain epilogue, as in the JAX
-package.
+Running stats are STATE. In training (`train=True`) the batch statistics
+over every axis but the last are taken in float32 (a bfloat16 x is widened
+inside the reduction) in the stable two-reduce form E[(x - mean)^2], and the
+new running stats are the EMA `decay * old + (1 - decay) * batch` (biased
+variance), detached; at inference the running stats are used. Either way
+the normalize + gamma/beta affine folds into one per-channel float32 scale
+and shift, in the JAX package's order of operations, and the epilogue
+y = act(x * scale + shift) for relu/identity on a float32 or bfloat16 x is
+the hand-written CUDA kernel `ops.bn_act` on a CUDA tensor (its plain
+version on a CPU tensor); its gradients reach x, gamma, beta and the batch
+statistics through the plain epilogue. Other activations and dtypes take
+the plain epilogue, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn import inputs as it
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
-from deeplearning4j_tpu_torch.ops.bn_act import bn_act
+from deeplearning4j_tpu_torch.ops import bn_act as bn_ops
 
 
 @register_layer
@@ -55,11 +60,11 @@ class BatchNorm(Layer):
         n = self._nf(input_type)
         return {"mean": torch.zeros(n), "var": torch.ones(n)}
 
-    def fold(self, params, state):
-        """Per-channel (scale, shift) of the inference epilogue, in the JAX
-        package's order of operations."""
-        inv = 1.0 / torch.sqrt(state["var"] + self.eps)
-        scale, shift = inv, -state["mean"] * inv
+    def fold(self, params, mean, var):
+        """Per-channel (scale, shift) of the epilogue from the statistics
+        `mean`, `var`, in the JAX package's order of operations."""
+        inv = 1.0 / torch.sqrt(var + self.eps)
+        scale, shift = inv, -mean * inv
         if not self.lock_gamma_beta:
             scale = scale * params["gamma"]
             shift = shift * params["gamma"] + params["beta"]
@@ -68,17 +73,33 @@ class BatchNorm(Layer):
     def regularizable(self, params):
         return {}
 
+    def batch_stats(self, x):
+        """(mean, biased var) over every axis but the last, float32 for a
+        bfloat16 x, in the two-reduce form."""
+        dims = tuple(range(x.dim() - 1))
+        acc = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+        mean = x.mean(dims, dtype=acc)
+        var = ((x.to(acc) - mean) ** 2).mean(dims)
+        return mean, var
+
     def apply(self, params, x, *, state, train, mask=None):
         if train:
-            raise NotImplementedError(
-                "BatchNorm batch statistics come with the training slice; "
-                "the port runs inference (train=False)")
-        scale, shift = self.fold(params, state)
-        return self._affine_act(x, scale, shift), state
+            mean, var = self.batch_stats(x)
+            d = self.decay
+            new_state = {
+                "mean": (d * state["mean"] + (1 - d) * mean).detach(),
+                "var": (d * state["var"] + (1 - d) * var).detach(),
+            }
+        else:
+            mean, var = state["mean"], state["var"]
+            new_state = state
+        scale, shift = self.fold(params, mean, var)
+        return self._affine_act(x, scale, shift), new_state
 
     def _affine_act(self, x, scale, shift):
         act = self.activation if self.activation is not None else "identity"
-        if act in ("relu", "identity") and x.dim() >= 2:
-            return bn_act(x, scale, shift, act)
+        if act in ("relu", "identity") and x.dim() >= 2 and \
+                x.dtype in bn_ops.DTYPES:
+            return bn_ops.bn_act(x, scale, shift, act)
         y = x * scale.to(x.dtype) + shift.to(x.dtype)
         return self.act_fn("identity")(y)

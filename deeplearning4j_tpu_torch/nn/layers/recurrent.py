@@ -19,15 +19,18 @@ Cell math (peephole terms only for GravesLSTM):
 
 Routing in `_lstm_scan`, the JAX package's: the input projection for all
 timesteps is one matmul (ops/linear.py); a sigmoid/tanh cell in float32 or
-bfloat16 then goes to a fused scan (ops/lstm.py: the CUDA kernels on the
-card at every b, t and n, their plain versions on the CPU), whose backward
-is a kernel too. Inside `chunked_lstm_auto_regime` (float32, t >= 1024,
+bfloat16 with n <= `lstm_ops.MAX_N` (the kernels' cap) then goes to a fused
+scan (ops/lstm.py: the CUDA kernels on the card at every b and t, their
+plain versions on the CPU), whose backward is a kernel too. Inside `chunked_lstm_auto_regime` (float32, t >= 1024,
 b <= 16, n >= 128), where the JAX package runs its time-chunked kernels by
 default, the chunked family runs (`lstm_scan_chunked`: checkpoints every
 `lstm_ops.CHUNK` steps, backward `lstm_scan_chunked_bwd`); everywhere else
 `lstm_scan` (backward `lstm_scan_bwd`). Both give the same results. Any
-other cell (another gate activation, float64) takes a per-step loop with
-the JAX scan's own numerics, differentiated by autograd. The JAX package's
+other cell (another gate activation, float64, n past `MAX_N`) takes a
+per-step loop with the JAX scan's own numerics, differentiated by
+autograd, as the JAX layer sends the shapes its kernels do not take to
+`lax.scan`. The route depends on shape and dtype alone, so the CPU takes
+the one the card takes. The JAX package's
 helper modes (`DL4J_TPU_PALLAS_LSTM`) and VMEM-sized block and chunk picks
 have no counterpart here.
 """
@@ -83,7 +86,7 @@ def _lstm_scan(params, x, carry, gate_fn, act_fn, peephole: bool,
     zx = ops.bias_add(ops.dot(x, params[prefix + "W"]),
                       params[prefix + "b"])  # [b, t, 4n]
     h0, c0 = (c.to(zx.dtype) for c in carry)
-    if (zx.dtype in (torch.float32, torch.bfloat16)
+    if (zx.dtype in (torch.float32, torch.bfloat16) and n <= lstm_ops.MAX_N
             and gate_fn is act_mod.get("sigmoid")
             and act_fn is act_mod.get("tanh")):
         # R joins the compute dtype: under the mixed policy params are f32

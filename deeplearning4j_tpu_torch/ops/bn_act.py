@@ -28,6 +28,7 @@ import torch
 
 ACTS = ("relu", "identity")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = tuple(_DTYPE_CODES)  # the x dtypes the kernel takes
 
 _count_lock = threading.Lock()
 _lib = None

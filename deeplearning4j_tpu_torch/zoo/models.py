@@ -1,6 +1,7 @@
-"""Model zoo, the part ported so far: ZooModel, ResNet50,
-TextGenerationLSTM and TransformerLM (counterpart of deeplearning4j_tpu/zoo/models.py; the other architectures
-and the checksummed pretrained cache come with later slices).
+"""Model zoo, the part ported so far: ZooModel, LeNet, ResNet50,
+TextGenerationLSTM and TransformerLM (counterpart of
+deeplearning4j_tpu/zoo/models.py; the other architectures and the
+checksummed pretrained cache come with later slices).
 
 Each ZooModel builds a fresh config via `conf()` and an initialized network
 via `init(device=...)`.
@@ -20,6 +21,7 @@ from deeplearning4j_tpu_torch.nn.layers import (
     Activation,
     BatchNorm,
     Conv2D,
+    Dense,
     EmbeddingSequence,
     GlobalPooling,
     GravesLSTM,
@@ -49,6 +51,35 @@ class ZooModel:
         if isinstance(c, ComputationGraphConfiguration):
             return ComputationGraph(c).init(device)
         return MultiLayerNetwork(c).init(device)
+
+
+@dataclass
+class LeNet(ZooModel):
+    """LeNet-5 on MNIST-sized input (zoo/model/LeNet.java:129), the JAX
+    package's zoo LeNet: the same layers and config JSON. Dense flattens
+    its convolutional input itself, so the config has no preprocessors."""
+
+    num_classes: int = 10
+    input_shape: Tuple[int, int, int] = (28, 28, 1)
+
+    def conf(self):
+        h, w, c = self.input_shape
+        return NeuralNetConfiguration(
+            seed=self.seed, updater=updaters.Adam(learning_rate=1e-3),
+            weight_init="xavier", activation="identity",
+        ).list([
+            Conv2D(kernel_size=(5, 5), stride=(1, 1), n_out=20,
+                   activation="identity", convolution_mode="same"),
+            Subsampling2D(kernel_size=(2, 2), stride=(2, 2),
+                          pooling_type="max"),
+            Conv2D(kernel_size=(5, 5), stride=(1, 1), n_out=50,
+                   activation="identity", convolution_mode="same"),
+            Subsampling2D(kernel_size=(2, 2), stride=(2, 2),
+                          pooling_type="max"),
+            Dense(n_out=500, activation="relu"),
+            Output(n_out=self.num_classes, loss="mcxent",
+                   activation="softmax"),
+        ]).set_input_type(it.convolutional(h, w, c))
 
 
 @dataclass

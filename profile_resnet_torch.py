@@ -3,13 +3,14 @@
 port (deeplearning4j_tpu_torch): zoo ResNet-50, the zoo TransformerLM with
 `--model transformer`, or the zoo TextGenerationLSTM with `--model lstm`;
 or of one training step of the zoo TransformerLM with `--model train-lm`,
-or of the zoo TextGenerationLSTM with `--model train-rnn`; or, with
+of the zoo TextGenerationLSTM with `--model train-rnn`, or of zoo ResNet-50
+with `--model train-resnet`; or, with
 `--model lstm-routes`, what the two LSTM kernel families cost; or, with
 `--model lstm-split`, where a step of the LSTM kernels goes.
 
     python3 profile_resnet_torch.py [--model resnet50|transformer|lstm|
-                                     train-lm|train-rnn|lstm-routes|
-                                     lstm-split]
+                                     train-lm|train-rnn|train-resnet|
+                                     lstm-routes|lstm-split]
                                     [--batch N] [--length T] [--iters 20]
                                     [--mixed] [--out profile_out]
 
@@ -26,7 +27,14 @@ every step, as `fit` of a host DataSet does), Adam(3e-4). `train-rnn`
 traces BPTT steps of the TextGenerationLSTM (RmsProp(1e-2), l2 1e-4) on one
 repeated batch of 64 x 64 one-hot characters by default (`--batch 8
 --length 4096` is the long-sequence path, on the time-chunked kernels).
-Prints, beside
+`train-resnet` traces `ComputationGraph.fit` steps of ResNet-50 (its own
+Nesterovs(0.1, 0.9), l2 1e-4) on one repeated batch of 64 images on the
+card with one-hot float32 labels (bfloat16 images under `--mixed`, as
+bench.py bench_resnet50 feeds them), and splits the kernel time by the
+operation that launched each kernel: convolutions forward and backward,
+bn_act and its backward through the plain epilogue, the BatchNorm
+statistics' reductions forward and backward, linear_xent, the updater, the
+rest by kernel name. Prints, beside
 the card's name and power limit: host wall time per batch, the device's
 busy and idle share of that window (busy: the union of its kernels'
 intervals, as the LSTM backward runs kernels on three streams at once),
@@ -84,6 +92,11 @@ CATEGORIES = (  # first match wins, on the lower-cased kernel name
 )
 
 
+# profiler ranges this script opens (train-resnet); the trace also shows
+# each as a span on the device, which is not device work
+RANGES = ("bn_stats", "updater")
+
+
 def busy_us(prof, torch) -> float:
     """The union of the device's kernel and copy intervals in the trace:
     kernels on side streams overlap, so their summed time can exceed the
@@ -91,6 +104,7 @@ def busy_us(prof, torch) -> float:
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name not in RANGES
                    and e.time_range.end > e.time_range.start)
     total, end = 0.0, float("-inf")
     for lo, hi in spans:
@@ -322,17 +336,71 @@ def lstm_split(torch, card, args) -> int:
     return 0
 
 
+# train-resnet: a kernel's category from the operations that launched it
+# (the launching op and its enclosing ranges, innermost first), then from
+# its own name; "bn_stats" and "updater" are ranges this script opens
+OP_CATEGORIES = (
+    ("updater", ("updater",)),
+    ("conv backward", ("ConvolutionBackward",)),
+    ("bn_act backward (plain epilogue)", ("_BnActBackward",)),
+    ("BN statistics backward", ("MeanBackward", "PowBackward",
+                                "SubBackward", "ToCopyBackward")),
+    ("BN statistics forward", ("bn_stats",)),
+    ("conv forward", ("aten::convolution",)),
+)
+
+
+def attribute_by_op(torch):
+    """Open a profiler range around each BatchNorm's batch statistics and
+    each layer's update, so their kernels can be told apart."""
+    from deeplearning4j_tpu_torch.models import _training
+    from deeplearning4j_tpu_torch.nn.layers import BatchNorm
+
+    def ranged(fn, name):
+        def run(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return run
+
+    BatchNorm.batch_stats = ranged(BatchNorm.batch_stats, RANGES[0])
+    _training.update_layer = ranged(_training.update_layer, RANGES[1])
+
+
+def by_launching_op(prof) -> dict:
+    """Kernel time (us) by OP_CATEGORIES of the CPU operation that
+    launched each kernel, the port's kernels and the rest by kernel
+    name."""
+    out = {}
+    for ev in prof.events():
+        kernels = getattr(ev, "kernels", None) or ()
+        if not kernels:
+            continue
+        chain, p = [], ev
+        while p is not None:
+            chain.append(p.name)
+            p = p.cpu_parent
+        for k in kernels:
+            cat = category(k.name)
+            if cat not in ("bn_act", "linear_xent"):
+                cat = next((c for c, keys in OP_CATEGORIES
+                            if any(key in n for n in chain for key in keys)),
+                           cat)
+            out[cat] = out.get(cat, 0.0) + k.duration
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("resnet50", "transformer", "lstm",
                                         "train-lm", "train-rnn",
-                                        "lstm-routes", "lstm-split"),
+                                        "train-resnet", "lstm-routes",
+                                        "lstm-split"),
                     default="resnet50")
     ap.add_argument("--batch", type=int, default=None,
                     help="rows per served batch (32 ResNet-50, 16 "
                          "TransformerLM, 64 TextGenerationLSTM) or per "
-                         "training batch (16 train-lm, 64 train-rnn), or "
-                         "for lstm-routes (8)")
+                         "training batch (16 train-lm, 64 train-rnn, 64 "
+                         "train-resnet), or for lstm-routes (8)")
     ap.add_argument("--length", type=int, default=None,
                     help="characters per row for train-rnn (64) and "
                          "lstm-routes (4096)")
@@ -400,6 +468,21 @@ def main() -> int:
         eye = np.eye(RNN["num_classes"], dtype=np.float32)
         x, y = eye[ids[:, :t]], eye[ids[:, 1:]]
         per_row, unit, ops = t, "trained chars/s", "TF32 matmuls"
+    elif args.model == "train-resnet":
+        from deeplearning4j_tpu_torch.datasets import DataSet
+
+        batch = args.batch or 64
+        net = ResNet50(num_classes=1000, input_shape=(224, 224, 3),
+                       seed=7).init()
+        gen = torch.Generator(device=net.device).manual_seed(0)
+        x = torch.randn((batch, 224, 224, 3), generator=gen,
+                        device=net.device)
+        if args.mixed:
+            x = x.to(torch.bfloat16)
+        y = torch.nn.functional.one_hot(torch.randint(
+            0, 1000, (batch,), generator=gen, device=net.device),
+            1000).float()
+        per_row, unit, ops = 1, "trained img/s", "TF32 convs"
     else:
         from deeplearning4j_tpu_torch.datasets import DataSet
 
@@ -426,6 +509,8 @@ def main() -> int:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / args.iters * 1e3
 
+    if args.model == "train-resnet":
+        attribute_by_op(torch)  # for the traced steps only
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
@@ -437,11 +522,19 @@ def main() -> int:
     by_cat, device_us = {}, 0.0
     for ev in prof.key_averages():
         us = ev.self_device_time_total
-        if us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+        if us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA \
+                or ev.key in RANGES:
             continue
         device_us += us
         cat = category(ev.key)
         by_cat[cat] = by_cat.get(cat, 0.0) + us
+    if args.model == "train-resnet":
+        by_cat = by_launching_op(prof)
+        attributed = sum(by_cat.values())
+        if abs(attributed - device_us) > 0.01 * device_us:
+            print(f"[profile] kernels attributed to their launching "
+                  f"operations sum to {attributed / 1e3:.3f} ms of "
+                  f"{device_us / 1e3:.3f} ms: the split below is partial")
     mode = "bf16" if args.mixed else "f32"
     tag = f"({card}; {args.model}, batch {batch}, " \
           f"{'bf16 activations' if args.mixed else 'float32, ' + ops})"

@@ -364,11 +364,12 @@ def flash_calls(monkeypatch):
 
 
 def _mha_call(impl, t, mask):
+    """Two heads of dim 16, a head dim the kernel takes."""
     layer = tlayers_att.MultiHeadAttention(n_heads=2, causal=True,
                                            attention_impl=impl)
     gen = torch.Generator().manual_seed(0)
-    params = layer.init_params(gen, tit.recurrent(8, t))
-    x = torch.from_numpy(_btf((2, t, 8)))
+    params = layer.init_params(gen, tit.recurrent(32, t))
+    x = torch.from_numpy(_btf((2, t, 32)))
     m = None if mask is None else torch.from_numpy(mask)
     y, _ = layer.apply(params, x, state={}, train=False, mask=m)
     return y
@@ -376,9 +377,11 @@ def _mha_call(impl, t, mask):
 
 @pytest.mark.parametrize("t", [1, 13, 64])
 def test_unmasked_attention_always_takes_the_flash_entry(flash_calls, t):
+    """At every length, for a head dim in the kernel's set (other head
+    dims take sdpa: tests/test_torch_routes.py)."""
     _mha_call("auto", t, None)
     _mha_call("pallas", t, None)
-    assert flash_calls == [(2, 2, t, 4)] * 2
+    assert flash_calls == [(2, 2, t, 16)] * 2
 
 
 def test_masked_and_blockwise_attention_do_not_take_the_flash_entry(

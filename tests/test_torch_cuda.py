@@ -976,3 +976,96 @@ def test_rnn_fit_on_the_card_matches_the_cpu(cuda, tbptt):
             got = dict(flat_items(a["g2"]))[path].cpu()
             assert float((got - leaf).abs().max()) <= 1e-4 * max(
                 float(leaf.abs().max()), 1e-30), path
+
+
+# ------------------------------------------------ routes and graph training
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["attention", "lstm"])
+def test_shapes_the_kernels_refuse_run_on_the_card(cuda, kind):
+    """A TransformerBlock of head dim 96 (outside flash_attention's head
+    dims) and an LSTM of 1032 units (past the LSTM kernels' cap) run on
+    the card, TF32 off, through sdpa and the per-step loop: the output and
+    one SGD step agree with the CPU (outputs 1e-5 of their largest
+    magnitude, scores 1e-5 relative, params 1e-5 absolute), and neither
+    kernel family is launched."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import LSTM, RnnOutput, \
+        TransformerBlock
+
+    hidden, f = ((TransformerBlock(n_heads=1, causal=True), 96)
+                 if kind == "attention"
+                 else (LSTM(n_out=1032, activation="tanh"), 4))
+    conf = NeuralNetConfiguration(seed=4, updater="sgd").list([
+        hidden, RnnOutput(n_out=5, loss="mcxent", activation="softmax"),
+    ]).set_input_type(it.recurrent(f, 6))
+    nets = [MultiLayerNetwork(conf).init(device=d) for d in (cuda, "cpu")]
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 6, f, generator=g)
+    y = torch.nn.functional.one_hot(torch.randint(0, 5, (2, 6),
+                                                  generator=g), 5).float()
+    kernels = (flash_attention, lstm_scan, lstm_scan_chunked)
+    before = [k.launches for k in kernels]
+    with dtypes.full_precision():
+        outs = [n.output(x.to(n.device)).cpu() for n in nets]
+        for n in nets:
+            n.fit(DataSet(x.to(n.device), y.to(n.device)))
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == before
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-5 * float(
+        outs[1].abs().max())
+    assert abs(nets[0].score_ - nets[1].score_) <= 1e-5 * abs(nets[1].score_)
+    tc, tp = (n.get_param_table() for n in nets)
+    for k in tp:
+        assert float(abs(tc[k] - tp[k]).max()) <= 1e-5, k
+
+
+@pytest.mark.cuda
+def test_graph_fit_step_on_the_card_matches_the_cpu(cuda):
+    """One Nesterovs step (TF32 off) of the small ResNet-shaped graph
+    (tests/torch_graphs.py) on the card and on the CPU from the same seed:
+    score within 1e-5 relative, each param's change within 1e-5 absolute,
+    the BN running stats and the Nesterovs slots within 1e-4 of each
+    leaf's largest magnitude. The step launches bn_act once per BatchNorm
+    (8) and the fused cross-entropy's forward and backward once each; the
+    conv kernels' slots keep their channels_last layout."""
+    from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.graph_conf import (
+        ComputationGraphConfiguration,
+    )
+    from torch_graphs import small_resnet_json
+
+    conf = ComputationGraphConfiguration.from_json(small_resnet_json())
+    card = ComputationGraph(conf).init(device=cuda)
+    cpu = ComputationGraph(conf).init(device="cpu")
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(4, 16, 16, 3, generator=g)
+    y = torch.nn.functional.one_hot(torch.randint(0, 5, (4,), generator=g),
+                                    5).float()
+    start = cpu.get_param_table()
+    counters = (bn_act, linear_xent_fwd, linear_xent_bwd)
+    before = [c.launches for c in counters]
+    with dtypes.full_precision():
+        card.fit(DataSet(x.to(cuda), y.to(cuda)))
+        cpu.fit(DataSet(x, y))
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [8, 1, 1]
+    assert abs(card.score_ - cpu.score_) <= 1e-5 * abs(cpu.score_)
+    tc, tp = card.get_param_table(), cpu.get_param_table()
+    for k in tp:
+        got, want = tc[k] - start[k], tp[k] - start[k]
+        assert float(abs(got - want).max()) <= 1e-5, k
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+
+    for name, st in cpu.state.items():
+        for k, v in st.items():
+            assert rel(card.state[name][k], v) <= 1e-4, (name, k)
+    for name, slots in cpu.opt_state.items():
+        for path, v in flat_items(slots["v"]):
+            assert rel(dict(flat_items(card.opt_state[name]["v"]))[path],
+                       v) <= 1e-4, (name, path)
+    assert card.opt_state["stem_conv"]["v"]["W"].is_contiguous(
+        memory_format=torch.channels_last)
