@@ -177,6 +177,24 @@ Phases, in order; any failure exits non-zero without the final line:
               scores finite and falling, per step 1 xent forward and 1
               xent backward and nothing else; then 3 steps on the CPU and
               on the card (TF32 off) agreeing as refer-train's do.
+ 23. kernel-inception  a Keras InceptionV3 file (299x299x3, 1000 classes,
+              random weights from the seed) written by the port's
+              write_inception_v3_h5 into a temporary directory and imported
+              onto the card by import_keras_model_and_weights (both timed;
+              94 bias-free Conv2D, 94 BatchNorm, 15 MergeVertex, more than
+              21e6 parameters); bn_act against its plain version at the 18
+              (h, w, c) shapes of its 94 BatchNorms at the serving batch of
+              32 (identity: Keras puts the ReLU in its own Activation),
+              float32 and bfloat16, with kernel / plain / library (addcmul)
+              times and the byte bound per forward.
+ 24. serve-inception  the imported InceptionV3 behind InferenceServer
+              (batch_limit 32), as phase 3 serves ResNet-50, on
+              inception_preprocess images: softmax rows, the server equal to
+              net.output, bn_act 94 times per dispatched batch.
+ 25. refer-inception  the same file imported on the CPU (plain epilogue,
+              exact float32) against the card with TF32 off, vertex by
+              vertex on 2 images (relative 1e-4), and the softmax with TF32
+              on.
 
 The characters the training phases learn are drawn with Zipf frequencies,
 so that a falling loss shows learning; their shapes are bench.py
@@ -195,6 +213,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -371,9 +390,9 @@ def bn_cases(net, batch):
 
 
 def phase_kernel(torch, cases, bw, peak, batch=BATCH, dtypes=None,
-                 what="forward"):
+                 what="forward", model="ResNet-50", tag="kernel"):
     """bn_act against its plain version at every (rows, c, act) of
-    `cases`, for a ResNet-50 forward at `batch` rows, in each of `dtypes`
+    `cases`, for a `model` forward at `batch` rows, in each of `dtypes`
     (float32 and bfloat16 by default). Returns the per-forward totals by
     dtype and the largest error."""
     from deeplearning4j_tpu_torch.ops.bn_act import bn_act, bn_act_reference
@@ -431,7 +450,7 @@ def phase_kernel(torch, cases, bw, peak, batch=BATCH, dtypes=None,
             ops = rows * c * (3 if act == "relu" else 2)
             b_ms = max(moved / bw, ops / peak) * 1e3
             by = "bytes" if moved / bw >= ops / peak else "operations"
-            log(f"[kernel] bn_act {str(dtype)[6:]:8s} rows={rows:6d} "
+            log(f"[{tag}] bn_act {str(dtype)[6:]:8s} rows={rows:6d} "
                 f"c={c:4d} {act:8s} x{calls:2d}/fwd  max_err={e:.3g} "
                 f"(tol 1 ulp)  kernel={k_ms:.4f} ms  plain={p_ms:.4f} ms  "
                 f"library[{lib_name}]={l_ms:.4f} ms  bound={b_ms:.4f} ms "
@@ -441,12 +460,13 @@ def phase_kernel(torch, cases, bw, peak, batch=BATCH, dtypes=None,
                 totals[key] += calls * v
             del xs
         rows_out[dtype] = totals
-        log(f"[kernel] bn_act {str(dtype)[6:]} per ResNet-50 {what} at "
-            f"batch {batch} (53 calls): kernel={totals['ms']:.4f} ms  "
+        log(f"[{tag}] bn_act {str(dtype)[6:]} per {model} {what} at "
+            f"batch {batch} ({sum(n for *_, n in cases)} calls): "
+            f"kernel={totals['ms']:.4f} ms  "
             f"plain={totals['plain_ms']:.4f} ms  "
             f"library={totals['library_ms']:.4f} ms  "
             f"bound={totals['bound_ms']:.4f} ms")
-    log(f"[kernel] verdict: bn_act agrees with its plain version in "
+    log(f"[{tag}] verdict: bn_act agrees with its plain version in "
         f"{checked}/{checked} (shape, activation, dtype) cases, max error "
         f"{max_err:.3g} (tol 1 ulp)")
     return rows_out, max_err
@@ -600,7 +620,11 @@ def phase_flash(torch, bw, peak, peak_bf16, peak_tf32):
 
 
 # ---------------------------------------------------------------- phase 3
-def phase_serve(torch, np, net, card):
+def phase_serve(torch, np, net, card, bn_per_forward=53, rows=None,
+                tag="serve"):
+    """`net` behind InferenceServer(batch_limit=BATCH); `rows(rng, n)` makes
+    n input rows (standard normal by default). bn_act must run
+    `bn_per_forward` times per dispatched batch."""
     from deeplearning4j_tpu_torch.serving import InferenceServer
 
     rng = np.random.default_rng(SEED)
@@ -616,10 +640,11 @@ def phase_serve(torch, np, net, card):
     shape = (t_in.height, t_in.width, t_in.channels)
     classes = net.vertex_types[net.conf.network_outputs[0]].size
     sizes = (1, 3, 8, 32)
-    xs = [rng.standard_normal((n, *shape)).astype(np.float32)
-          for n in sizes]
-    stream = [rng.standard_normal((BATCH, *shape)).astype(np.float32)
-              for _ in range(4)]
+    if rows is None:
+        def rows(rng, n):
+            return rng.standard_normal((n, *shape)).astype(np.float32)
+    xs = [rows(rng, n) for n in sizes]
+    stream = [rows(rng, BATCH) for _ in range(4)]
 
     def timed(x):
         t0 = time.perf_counter()
@@ -632,7 +657,7 @@ def phase_serve(torch, np, net, card):
     try:
         server.warmup(xs[0])
         torch.cuda.synchronize()
-        log(f"[serve] warmup of buckets {server.buckets.sizes} took "
+        log(f"[{tag}] warmup of buckets {server.buckets.sizes} took "
             f"{time.perf_counter() - t0:.2f} s")
         with ThreadPoolExecutor(len(sizes)) as pool:
             first = list(pool.map(timed, xs))
@@ -647,12 +672,12 @@ def phase_serve(torch, np, net, card):
         net.output = direct
     launches = read_counts()
     per_forward = sum(n for *_, n in bn_cases(net, 1))
-    log(f"[serve] {forwards[0]} batches dispatched, launches {launches} "
+    log(f"[{tag}] {forwards[0]} batches dispatched, launches {launches} "
         f"(bn_act {per_forward} per forward)")
-    if per_forward != 53 or launches["bn_act"] != 53 * forwards[0] \
-            or forwards[0] == 0:
+    if per_forward != bn_per_forward or forwards[0] == 0 or \
+            launches["bn_act"] != per_forward * forwards[0]:
         raise AssertionError(
-            f"bn_act launches {launches['bn_act']} != 53 x "
+            f"bn_act launches {launches['bn_act']} != {bn_per_forward} x "
             f"{forwards[0]} dispatched batches")
 
     for x, (out, lat) in zip(xs, first):
@@ -670,14 +695,14 @@ def phase_serve(torch, np, net, card):
         if diff > 2e-3 or (out.argmax(1) != ref.argmax(1)).any():
             raise AssertionError(f"request of {n} rows: server and "
                                  f"net.output differ by {diff}")
-        log(f"[serve] request rows={n:2d} latency={lat * 1e3:.2f} ms  "
+        log(f"[{tag}] request rows={n:2d} latency={lat * 1e3:.2f} ms  "
             f"max |server - net.output| = {diff:.3g}  ({card})")
     lats = sorted(lat for _, lat in streamed)
     for out, _ in streamed:
         if out.shape != (BATCH, classes) or not np.isfinite(out).all():
             raise AssertionError("streamed request: bad output")
     img_s = n_stream * BATCH / wall
-    log(f"[serve] stream: {n_stream} requests x {BATCH} rows in "
+    log(f"[{tag}] stream: {n_stream} requests x {BATCH} rows in "
         f"{wall:.3f} s = {img_s:.1f} img/s, latency p50 "
         f"{lats[len(lats) // 2] * 1e3:.2f} ms, max {lats[-1] * 1e3:.2f} ms "
         f"({card})")
@@ -685,15 +710,20 @@ def phase_serve(torch, np, net, card):
 
 
 # ---------------------------------------------------------------- phase 4
-def phase_reference(torch, np, net):
+def phase_reference(torch, np, net, cpu_net=None, x=None, tag="refer"):
+    """`net` on the card with TF32 off against `cpu_net` (default: the same
+    config and seed on the CPU) at every vertex, on `x` (default: 2
+    standard normal rows)."""
     from deeplearning4j_tpu_torch import dtypes
     from deeplearning4j_tpu_torch.models import ComputationGraph
 
-    # same config, same seed: the same weights, drawn on the CPU
-    cpu_net = ComputationGraph(net.conf).init(device="cpu")
+    if cpu_net is None:
+        # same config, same seed: the same weights, drawn on the CPU
+        cpu_net = ComputationGraph(net.conf).init(device="cpu")
     t_in = net.conf.input_types[0]
-    x = np.random.default_rng(SEED + 1).standard_normal(
-        (2, t_in.height, t_in.width, t_in.channels)).astype(np.float32)
+    if x is None:
+        x = np.random.default_rng(SEED + 1).standard_normal(
+            (2, t_in.height, t_in.width, t_in.channels)).astype(np.float32)
     with dtypes.full_precision():
         gpu_acts = net.feed_forward(x)
     cpu_acts = cpu_net.feed_forward(x)
@@ -702,12 +732,12 @@ def phase_reference(torch, np, net):
         a, b = a.cpu().numpy(), b.numpy()
         rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
         worst = max(worst, rel)
-        # float32 sums in another order on each device, over ~50 layers
+        # float32 sums in another order on each device, over 50-100 layers
         if a.shape != b.shape or not rel <= 1e-4:
             raise AssertionError(f"vertex {name}: card and CPU differ, "
                                  f"relative {rel:.3g}")
     tf32 = net.output(x).cpu().numpy()
-    log(f"[refer] {len(cpu_acts)} activations, card (TF32 off) vs CPU: worst "
+    log(f"[{tag}] {len(cpu_acts)} activations, card (TF32 off) vs CPU: worst "
         f"relative difference {worst:.3g} (tol 1e-4); softmax with TF32 on "
         f"vs CPU: max {float(np.abs(tf32 - cpu_acts[-1].numpy()).max()):.3g}")
 
@@ -2681,6 +2711,71 @@ def phase_train_lenet(torch, np, card):
     return launches
 
 
+# ------------------------------------------------------------ phases 23-25
+INCEPTION = dict(input_shape=(299, 299, 3), classes=1000)
+INCEPTION_BN = 94  # BatchNorms per forward, one bn_act launch each
+
+
+def inception_images(np):
+    from deeplearning4j_tpu_torch.modelimport.trainedmodels import (
+        inception_preprocess,
+    )
+
+    h, w, c = INCEPTION["input_shape"]
+    return lambda rng, n: inception_preprocess(
+        rng.integers(0, 256, (n, h, w, c)))
+
+
+def import_inception(path):
+    """Writes the InceptionV3 file at `path` and imports it onto the card;
+    checks the imported graph's shape."""
+    from deeplearning4j_tpu_torch.modelimport import (
+        import_keras_model_and_weights,
+    )
+    from deeplearning4j_tpu_torch.modelimport.trainedmodels import (
+        write_inception_v3_h5,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import BatchNorm, Conv2D
+
+    t0 = time.perf_counter()
+    write_inception_v3_h5(path, seed=SEED, **INCEPTION)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net = import_keras_model_and_weights(path)
+    t_import = time.perf_counter() - t0
+    layers = [net.layer(n) for n in net.topo]
+    convs = [l for l in layers if isinstance(l, Conv2D)]
+    merges = [n for n in net.topo
+              if type(net.conf.vertices[n]).__name__ == "MergeVertex"]
+    bns = [l for l in layers if isinstance(l, BatchNorm)]
+    if len(convs) != 94 or any(l.has_bias for l in convs) or \
+            len(bns) != INCEPTION_BN or len(merges) != 15 or \
+            net.num_params() <= 21e6 or net.device.type != "cuda":
+        raise AssertionError(
+            f"imported InceptionV3: {len(convs)} Conv2D, {len(bns)} "
+            f"BatchNorm, {len(merges)} MergeVertex, {net.num_params()} "
+            f"params on {net.device}")
+    log(f"[serve-inception] wrote {os.path.getsize(path)} bytes of "
+        f"InceptionV3 .h5 in {t_write:.2f} s, imported onto {net.device} "
+        f"in {t_import:.2f} s: {len(convs)} bias-free Conv2D, {len(bns)} "
+        f"BatchNorm, {len(merges)} MergeVertex, {net.num_params()} params")
+    return net
+
+
+def phase_refer_inception(torch, np, net, path):
+    from deeplearning4j_tpu_torch.modelimport import (
+        import_keras_model_and_weights,
+    )
+
+    t0 = time.perf_counter()
+    cpu_net = import_keras_model_and_weights(path, device="cpu")
+    log(f"[refer-inception] imported on the CPU in "
+        f"{time.perf_counter() - t0:.2f} s")
+    x = inception_images(np)(np.random.default_rng(SEED + 1), 2)
+    phase_reference(torch, np, net, cpu_net=cpu_net, x=x,
+                    tag="refer-inception")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2705,6 +2800,7 @@ def main() -> int:
         TransformerLM,
     )
 
+    t_start = time.perf_counter()
     try:
         card = card_line()
         name = torch.cuda.get_device_name(0)
@@ -2759,6 +2855,21 @@ def main() -> int:
         phase_train_resnet(torch, np, card)
         phase_refer_train_resnet(torch, np)
         phase_train_lenet(torch, np, card)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "inception_v3.h5")
+            iv3 = import_inception(path)
+            iv3_times, iv3_err = phase_kernel(
+                torch, bn_cases(iv3, BATCH), bw, peak, model="InceptionV3",
+                tag="kernel-inception")
+            max_err = max(max_err, iv3_err)
+            iv3_launches = phase_serve(
+                torch, np, iv3, card, bn_per_forward=INCEPTION_BN,
+                rows=inception_images(np), tag="serve-inception")
+            phase_refer_inception(torch, np, iv3, path)
+            del iv3
+        log(f"[refer-inception] the InceptionV3 phases (write, import, "
+            f"kernel, serve, refer) took {time.perf_counter() - t0:.1f} s")
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
         if leaked:
@@ -2768,7 +2879,9 @@ def main() -> int:
         return 1
 
     # float32 times per forward of each kernel's own path: bn_act's 53
-    # calls of a ResNet-50 forward at batch 32, flash_attention's 6 calls
+    # calls of a ResNet-50 forward at batch 32 (its launches count
+    # InceptionV3's serving too; that forward's 94 calls' times are under
+    # "inception_v3_forward"), flash_attention's 6 calls
     # of a TransformerLM forward at batch 16, lstm_scan's 2 calls of a
     # TextGenerationLSTM forward at batch 64; per training step of the
     # TransformerLM at batch 16 x 512: 6 dq and 6 dk/dv launches, 1 xent
@@ -2780,8 +2893,9 @@ def main() -> int:
                 for k, v in row.items()}
 
     rows = {
-        "bn_act": (launches["bn_act"], max_err,
-                   dict(times[torch.float32], bound_by="bytes")),
+        "bn_act": (launches["bn_act"] + iv3_launches["bn_act"], max_err,
+                   dict(times[torch.float32], bound_by="bytes",
+                        inception_v3_forward=iv3_times[torch.float32])),
         "flash_attention": (lm_launches["flash_attention"], flash_err,
                             per_forward(flash, LM["n_layers"])),
         "lstm_scan": (rnn_launches["lstm_scan"], lstm_err,
@@ -2816,7 +2930,9 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            **{k: t[k] for k in ("library_covers",) if k in t}})
+            **{k: t[k] for k in ("library_covers", "inception_v3_forward")
+               if k in t}})
+    log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,9 @@ InferenceServer):
     csrc/       CUDA C++ sources, built at first use by ops/_build.py
     models/     ComputationGraph and MultiLayerNetwork inference runtimes
     zoo/        ResNet50, TransformerLM
+    modelimport/  Keras .h5 import (keras.py), InceptionV3 and its
+                preprocessing (trainedmodels.py), an HDF5 reader and
+                writer in plain Python (hdf5.py)
     interop.py  carries JAX-package weights into a port network
     serving/    InferenceServer with admission, shedding, circuit breaking
 

@@ -1,7 +1,7 @@
 """Configuration DSL: NeuralNetConfiguration (the network-wide defaults) and
 MultiLayerConfiguration (the sequential network description); counterpart
 of deeplearning4j_tpu/nn/conf.py. The fluent NeuralNetConfigurationBuilder
-and the input preprocessors (nn/preprocessors.py) come with later slices.
+comes with a later slice.
 
 "Config is data": every config round-trips through JSON, and the JSON of a
 config is the same in both packages.
@@ -17,12 +17,13 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Union
+from typing import Dict, List, Optional, Union
 
 from deeplearning4j_tpu_torch.nn import inputs as it
 from deeplearning4j_tpu_torch.nn import schedules as sched_mod
 from deeplearning4j_tpu_torch.nn import updaters as upd_mod
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.nn.preprocessors import InputPreProcessor
 
 
 @dataclass
@@ -115,23 +116,23 @@ def resolve_first_input_type(conf: "MultiLayerConfiguration") -> it.InputType:
 class MultiLayerConfiguration:
     """Sequential network description (MultiLayerConfiguration.java).
 
-    `input_preprocessors` maps a layer index to an input preprocessor
-    (an object with `output_type(input_type)`, `transform(x, mask)` and
-    `to_json()`). The port has no preprocessor types yet, so a config whose
-    JSON names one does not load.
+    `input_preprocessors` maps a layer index to the InputPreProcessor
+    applied to that layer's input (nn/preprocessors.py).
     """
 
     defaults: NeuralNetConfiguration = field(
         default_factory=NeuralNetConfiguration)
     layers: List[Layer] = field(default_factory=list)
     input_type: Optional[it.InputType] = None
-    input_preprocessors: Dict[int, Any] = field(default_factory=dict)
+    input_preprocessors: Dict[int, InputPreProcessor] = field(
+        default_factory=dict)
 
     def layer(self, l: Layer) -> "MultiLayerConfiguration":
         self.layers.append(l)
         return self
 
-    def input_preprocessor(self, idx: int, p) -> "MultiLayerConfiguration":
+    def input_preprocessor(self, idx: int, p: InputPreProcessor
+                           ) -> "MultiLayerConfiguration":
         self.input_preprocessors[int(idx)] = p
         return self
 
@@ -187,15 +188,15 @@ class MultiLayerConfiguration:
     @classmethod
     def from_json(cls, s: Union[str, dict]) -> "MultiLayerConfiguration":
         d = json.loads(s) if isinstance(s, str) else s
-        if d.get("input_preprocessors"):
-            raise ValueError(
-                f"input preprocessors are not ported yet; the config has "
-                f"them at layers {sorted(d['input_preprocessors'])}")
         return cls(
             defaults=NeuralNetConfiguration.from_json(d["defaults"]),
             layers=[Layer.from_json(ld) for ld in d["layers"]],
             input_type=(it.from_json(d["input_type"]) if d.get("input_type")
                         else None),
+            input_preprocessors={
+                int(k): InputPreProcessor.from_json(v)
+                for k, v in (d.get("input_preprocessors") or {}).items()
+            },
         )
 
     # ---- resolved per-layer hyperparameters ----

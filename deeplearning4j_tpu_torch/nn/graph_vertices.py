@@ -1,20 +1,24 @@
-"""Graph vertices for ComputationGraph, the part ResNet-50 runs: GraphVertex,
-LayerVertex and ElementWiseVertex (counterpart of
-deeplearning4j_tpu/nn/graph_vertices.py; Merge, Subset, Stack and the other
+"""Graph vertices for ComputationGraph: GraphVertex, LayerVertex,
+ElementWiseVertex, and the three the Keras importer creates: MergeVertex,
+ReshapeVertex and PreprocessorVertex (counterpart of
+deeplearning4j_tpu/nn/graph_vertices.py; Subset, Stack and the other
 combinators come with later slices).
 
 A vertex is a function of its input tensors; a LayerVertex wraps any Layer
-config (the graph analogue of a layer in MultiLayerConfiguration).
+config (the graph analogue of a layer in MultiLayerConfiguration), a
+PreprocessorVertex an InputPreProcessor. Both nest their object's JSON in
+the vertex's.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Sequence
 
 import torch
 
 from deeplearning4j_tpu_torch.nn import inputs as it
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.nn.preprocessors import InputPreProcessor
 
 _TYPES: Dict[str, type] = {}
 
@@ -46,7 +50,7 @@ class GraphVertex:
     def to_json(self) -> dict:
         d = {"type": type(self).__name__}
         for k, v in self.__dict__.items():
-            if isinstance(v, Layer):
+            if isinstance(v, (Layer, InputPreProcessor)):
                 v = v.to_json()
             d[k] = v
         return d
@@ -61,6 +65,10 @@ class GraphVertex:
         cls = _TYPES[t]
         if cls is LayerVertex and isinstance(d.get("layer"), dict):
             d["layer"] = Layer.from_json(d["layer"])
+        if cls is PreprocessorVertex and isinstance(d.get("preprocessor"),
+                                                    dict):
+            d["preprocessor"] = InputPreProcessor.from_json(
+                d["preprocessor"])
         return cls(**d)
 
 
@@ -118,3 +126,60 @@ class ElementWiseVertex(GraphVertex):
         else:
             raise ValueError(f"Unknown elementwise op {self.op}")
         return out, state
+
+
+@register_vertex
+@dataclass
+class MergeVertex(GraphVertex):
+    """Concatenate along the last axis: the channels of NHWC, the features
+    of BTF and [b, f] (nn/conf/graph/MergeVertex.java)."""
+
+    def output_type(self, input_types):
+        t0 = input_types[0]
+        if isinstance(t0, it.Convolutional):
+            return it.Convolutional(t0.height, t0.width,
+                                    sum(t.channels for t in input_types))
+        if isinstance(t0, it.Recurrent):
+            return it.Recurrent(sum(t.size for t in input_types),
+                                t0.timesteps)
+        return it.FeedForward(sum(t.arity() for t in input_types))
+
+    def apply(self, params, inputs, *, state, train, masks=None):
+        return torch.cat(inputs, dim=-1), state
+
+
+@register_vertex
+@dataclass
+class ReshapeVertex(GraphVertex):
+    """Reshape to [batch, *new_shape] (nn/conf/graph/ReshapeVertex.java)."""
+
+    new_shape: Sequence[int] = field(default_factory=tuple)
+
+    def output_type(self, input_types):
+        s = tuple(self.new_shape)
+        if len(s) == 1:
+            return it.FeedForward(s[0])
+        if len(s) == 2:
+            return it.Recurrent(s[1], s[0])
+        if len(s) == 3:
+            return it.Convolutional(s[0], s[1], s[2])
+        raise ValueError(f"Bad reshape {s}")
+
+    def apply(self, params, inputs, *, state, train, masks=None):
+        x = inputs[0]
+        return x.reshape((x.shape[0],) + tuple(self.new_shape)), state
+
+
+@register_vertex
+@dataclass
+class PreprocessorVertex(GraphVertex):
+    """Applies an InputPreProcessor (nn/conf/graph/PreprocessorVertex.java);
+    the Keras importer makes one of a Flatten."""
+
+    preprocessor: InputPreProcessor = None
+
+    def output_type(self, input_types):
+        return self.preprocessor.output_type(input_types[0])
+
+    def apply(self, params, inputs, *, state, train, masks=None):
+        return self.preprocessor.transform(inputs[0]), state

@@ -11,6 +11,7 @@ from deeplearning4j_tpu_torch.nn.layers.convolution import Conv2D, Subsampling2D
 from deeplearning4j_tpu_torch.nn.layers.dense import (  # noqa: F401
     Activation,
     Dense,
+    DropoutLayer,
     Embedding,
     EmbeddingSequence,
 )

@@ -1,7 +1,6 @@
-"""Feed-forward layers, the part the served paths run: Dense, Activation,
-Embedding and EmbeddingSequence (counterpart of
-deeplearning4j_tpu/nn/layers/dense.py; ElementWiseMultiplication and
-DropoutLayer come with later slices).
+"""Feed-forward layers: Dense, Activation, DropoutLayer, Embedding and
+EmbeddingSequence (counterpart of deeplearning4j_tpu/nn/layers/dense.py;
+ElementWiseMultiplication comes with a later slice).
 
 Params follow DL4J naming: W [nIn, nOut], b [nOut] — the same layout in
 both packages.
@@ -79,6 +78,27 @@ class Activation(Layer):
 
     def apply(self, params, x, *, state, train, mask=None):
         return self.act_fn("identity")(x), state
+
+
+@register_layer
+@dataclass
+class DropoutLayer(Layer):
+    """Standalone dropout (nn/conf/layers/DropoutLayer.java); `dropout`
+    holds the retain probability, DL4J-style. Inference only: at
+    train=False it is the identity, and training with a `dropout` set raises
+    (fit refuses it first) until dropout is ported."""
+
+    def output_type(self, input_type):
+        return input_type
+
+    def has_params(self):
+        return False
+
+    def apply(self, params, x, *, state, train, mask=None):
+        if train and self.dropout is not None:
+            raise NotImplementedError(
+                "DropoutLayer in training: dropout is not ported yet")
+        return x, state
 
 
 def _lookup(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

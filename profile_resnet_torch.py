@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of one served batch goes on the card, for the PyTorch/CUDA
 port (deeplearning4j_tpu_torch): zoo ResNet-50, the zoo TransformerLM with
-`--model transformer`, or the zoo TextGenerationLSTM with `--model lstm`;
+`--model transformer`, the zoo TextGenerationLSTM with `--model lstm`, or
+a Keras InceptionV3 file imported by `import_keras_model_and_weights`
+with `--model serve-inception`;
 or of one training step of the zoo TransformerLM with `--model train-lm`,
 of the zoo TextGenerationLSTM with `--model train-rnn`, or of zoo ResNet-50
 with `--model train-resnet`; or, with
@@ -9,6 +11,7 @@ with `--model train-resnet`; or, with
 `--model lstm-split`, where a step of the LSTM kernels goes.
 
     python3 profile_resnet_torch.py [--model resnet50|transformer|lstm|
+                                     serve-inception|
                                      train-lm|train-rnn|train-resnet|
                                      lstm-routes|lstm-split]
                                     [--batch N] [--length T] [--iters 20]
@@ -18,7 +21,10 @@ Builds the port's model on the card with random weights from a seed
 (ResNet-50: 1000 classes, 224x224x3, batch 32 by default; TransformerLM:
 vocab 8192, 512 tokens, d_model 512, 8 heads, 6 blocks, batch 16 by
 default; TextGenerationLSTM: 77 characters, 64 steps, two GravesLSTM(256),
-one-hot float32 input, batch 64 by default), warms it up, then traces
+one-hot float32 input, batch 64 by default; InceptionV3: 1000 classes,
+299x299x3, its .h5 written with random weights from a seed by the port's
+`write_inception_v3_h5` into a temporary directory, then imported, batch
+32 by default, `inception_preprocess` images), warms it up, then traces
 `--iters` forwards of the serving path's dispatch (host array in,
 `net.output`, result back to the host) with torch.profiler. `train-lm`
 traces `--iters` steps of `MultiLayerNetwork.fit` on one repeated batch of
@@ -44,7 +50,7 @@ kernel), the backward's serial chains (rows 6 and 8: recompute, reverse)
 and what runs beside them (dR, the z product, the c scan, R's copies);
 cuDNN convolutions and cuBLAS matmuls, other elementwise kernels,
 pooling/reductions/softmax, copies). The full per-kernel table goes to
-<out>/profile_<resnet|transformer|lstm|train-lm|train-rnn>_torch_<mode>.txt
+<out>/profile_<resnet|transformer|lstm|serve-inception|train-lm|train-rnn>_torch_<mode>.txt
 (train-rnn at another length than 64: train-rnn-t<T>). `lstm-routes`
 runs one LSTM layer's forward and backward at (batch, length, 256)
 float32, peephole (8 x 4096 by default), through each kernel family: the
@@ -67,6 +73,7 @@ import ctypes
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 LM = dict(num_classes=8192, max_length=512, d_model=512, n_heads=8,
@@ -392,13 +399,15 @@ def by_launching_op(prof) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("resnet50", "transformer", "lstm",
+                                        "serve-inception",
                                         "train-lm", "train-rnn",
                                         "train-resnet", "lstm-routes",
                                         "lstm-split"),
                     default="resnet50")
     ap.add_argument("--batch", type=int, default=None,
-                    help="rows per served batch (32 ResNet-50, 16 "
-                         "TransformerLM, 64 TextGenerationLSTM) or per "
+                    help="rows per served batch (32 ResNet-50 and "
+                         "InceptionV3, 16 TransformerLM, 64 "
+                         "TextGenerationLSTM) or per "
                          "training batch (16 train-lm, 64 train-rnn, 64 "
                          "train-resnet), or for lstm-routes (8)")
     ap.add_argument("--length", type=int, default=None,
@@ -445,6 +454,22 @@ def main() -> int:
         net = ResNet50(num_classes=1000, input_shape=(224, 224, 3),
                        seed=7).init()
         x = rng.standard_normal((batch, 224, 224, 3)).astype(np.float32)
+        per_row, unit, ops = 1, "img/s", "TF32 convs"
+    elif args.model == "serve-inception":
+        from deeplearning4j_tpu_torch.modelimport import (
+            import_keras_model_and_weights,
+        )
+        from deeplearning4j_tpu_torch.modelimport.trainedmodels import (
+            inception_preprocess,
+            write_inception_v3_h5,
+        )
+
+        batch = args.batch or 32
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "inception_v3.h5")
+            write_inception_v3_h5(path, seed=7)
+            net = import_keras_model_and_weights(path)
+        x = inception_preprocess(rng.integers(0, 256, (batch, 299, 299, 3)))
         per_row, unit, ops = 1, "img/s", "TF32 convs"
     elif args.model == "transformer":
         batch = args.batch or 16

@@ -14,7 +14,8 @@ recurrent-training kernels (the fused LSTM backward, the time-chunked
 forward and backward: masks, ragged b, t and n, a ragged last chunk, t = 1,
 n at the cap, the same bits from two calls), autograd through both LSTM
 families on the card, and one BPTT and one tBPTT `fit` of a small
-TextGenerationLSTM against the CPU.
+TextGenerationLSTM against the CPU; a Keras InceptionV3 file imported onto
+the card against its CPU import.
 
 Marked `cuda`; they skip where torch.cuda.is_available() is False. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -1069,3 +1070,41 @@ def test_graph_fit_step_on_the_card_matches_the_cpu(cuda):
                        v) <= 1e-4, (name, path)
     assert card.opt_state["stem_conv"]["v"]["W"].is_contiguous(
         memory_format=torch.channels_last)
+
+
+@pytest.mark.cuda
+def test_keras_inception_v3_imported_onto_the_card_equals_the_cpu_import(
+        cuda, tmp_path):
+    """A 75x75 InceptionV3 file written by the port's writer and imported
+    by import_keras_model_and_weights onto the card (the default) and onto
+    the CPU: the same weights, every vertex within 1e-4 of its largest
+    magnitude with TF32 off, and bn_act launched 94 times per forward."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.modelimport import (
+        import_keras_model_and_weights,
+    )
+    from deeplearning4j_tpu_torch.modelimport.trainedmodels import (
+        inception_preprocess,
+        write_inception_v3_h5,
+    )
+
+    path = str(tmp_path / "iv3.h5")
+    write_inception_v3_h5(path, (75, 75, 3), classes=10, seed=3)
+    card = import_keras_model_and_weights(path)
+    cpu = import_keras_model_and_weights(path, device="cpu")
+    assert card.device.type == "cuda"
+    tc, tp = card.get_param_table(), cpu.get_param_table()
+    for k in tp:
+        assert (tc[k] == tp[k]).all(), k
+    x = inception_preprocess(np.random.default_rng(4).integers(
+        0, 256, (2, 75, 75, 3)))
+    before = bn_act.launches
+    with dtypes.full_precision():
+        got = card.feed_forward(x)
+    torch.cuda.synchronize()
+    assert bn_act.launches - before == 94
+    want = cpu.feed_forward(x)
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * max(
+            float(w.abs().max()), 1e-30)

@@ -233,7 +233,12 @@ def test_multi_layer_configuration_validates_and_infers_types():
         NeuralNetConfiguration().list([Dense(n_out=3)]).validate()
     with pytest.raises(ValueError, match="name no layer"):
         conf.input_preprocessor(5, object()).validate()
-    with pytest.raises(ValueError, match="not ported"):
+    # preprocessors are ported: from_json reads them
+    read = MultiLayerConfiguration.from_json({
+        "defaults": {}, "layers": [], "input_type": None,
+        "input_preprocessors": {"0": {"type": "RnnToFeedForward"}}})
+    assert type(read.input_preprocessors[0]).__name__ == "RnnToFeedForward"
+    with pytest.raises(KeyError, match="NoSuchPreprocessor"):
         MultiLayerConfiguration.from_json({
             "defaults": {}, "layers": [], "input_type": None,
-            "input_preprocessors": {"0": {"type": "RnnToFeedForward"}}})
+            "input_preprocessors": {"0": {"type": "NoSuchPreprocessor"}}})
