@@ -195,13 +195,43 @@ Phases, in order; any failure exits non-zero without the final line:
               exact float32) against the card with TF32 off, vertex by
               vertex on 2 images (relative 1e-4), and the softmax with TF32
               on.
+ 26. dl4j-write  the BASELINE char-RNN (zoo TextGenerationLSTM at full
+              width: 77 characters, two GravesLSTM(256), 888,653 params)
+              written as a DL4J ModelSerializer zip into a temporary
+              directory by this script's own writer (configuration.json in
+              DL4J's form: legacy RMSPROP at 1e-2, rmsDecay 0.95, l2 1e-4,
+              TruncatedBPTT 50/50, iterationCount 1000; coefficients.bin of
+              seeded float32 values; updaterState.bin, one RMSProp block of
+              seeded values in [1e-4, 1e-3]): its size and write time.
+ 27. dl4j-charrnn  the zip restored by modelimport's
+              restore_multi_layer_network(load_updater=True) onto the card
+              and onto the CPU (both timed): the output on 32 x 200 one-hot
+              characters and 3 fit calls on 32 x 200 (12 tBPTT windows of
+              50) on the card (TF32 off) against the CPU, as
+              refer-train-rnn compares them; net.iteration 1000 -> 1012;
+              ms per window (median of 12); launches: per window 2
+              lstm_scan, 2 lstm_scan_bwd, 1 + 1 xent, plus 2 lstm_scan per
+              output call, nothing else.
+ 28. checkpoint-resume  the trained card network written by
+              models.serialization.write_model and restored onto the card:
+              params, running state, RMSProp slots, iteration and epoch bit
+              for bit; one more tBPTT window from each, bit for bit; then
+              200 characters for 32 streams sampled by rnn_time_step with a
+              seeded generator from each, the same characters and last
+              probabilities; ms per character step.
+ 29. dl4j-fixtures  the six committed DL4J zips (tests/fixtures/dl4j/)
+              and the three committed checkpoint zips the port reads
+              (cg_branch_merge, mln_graves_lstm, mln_vit) restored onto the
+              card, each against its committed output (1e-5, TF32 off);
+              conv_pool_bn launches bn_act once.
 
 The characters the training phases learn are drawn with Zipf frequencies,
 so that a falling loss shows learning; their shapes are bench.py
 bench_lstm's.
 
 Every kernel's launch count is set to 0 just before each serve phase, the
-generation run and each training run, and read just after. The last lines are the kernels
+generation run, each training run and the restore-and-resume runs, and
+read just after. The last lines are the kernels
 JSON, the card's name and power limit, and {"ok": true, "device": {...}}.
 Exits non-zero when no CUDA device is available, and when the port's
 package is not beside this script.
@@ -2317,16 +2347,56 @@ def phase_train_rnn_long(torch, np, card):
 
 
 # ---------------------------------------------------------------- phase 19
+def rmsprop_agreement(np, nets, logs, start, iters, lr=1e-2, decay=0.95):
+    """How far the card's char-RNN ("card" in `nets`, TF32 off) is from the
+    CPU's ("cpu") after the same fit calls from the same point: scores
+    (ScoreLogs `logs`) relative; each param's change from `start` (param
+    tables) absolute, over elements whose RMS gradient (the CPU's RmsProp
+    g2) is above ZERO_GRAD of the largest; the move of the others, which
+    RmsProp's bound of lr / sqrt(1 - decay) per iteration holds; the g2
+    slots relative to each leaf's largest magnitude. Returns (scores,
+    changes, zero-gradient moves, zero count, slots, floor, bound,
+    finite)."""
+    from deeplearning4j_tpu_torch import interop
+    from deeplearning4j_tpu_torch.models.multi_layer_network import flat_items
+
+    rel = max(abs(a - b) / abs(b) for a, b in zip(logs["card"].scores,
+                                                  logs["cpu"].scores))
+    moved = {k: {key: p - start[k][key]
+                 for key, p in net.get_param_table().items()}
+             for k, net in nets.items()}
+    slots = {k: interop.opt_state_to_jax(net) for k, net in nets.items()}
+    rms = {f"layer_{i}/{path}": np.sqrt(v)
+           for i, s in enumerate(slots["cpu"]) if s
+           for path, v in flat_items(s["g2"])}
+    floor = ZERO_GRAD * max(float(r.max()) for r in rms.values())
+    bound = 1.01 * iters * lr / math.sqrt(1 - decay)
+    p_err, z_move, n_zero, s_err = 0.0, 0.0, 0, 0.0
+    for key, want in moved["cpu"].items():
+        got, zero = moved["card"][key], rms[key] <= floor
+        p_err = max(p_err, float(np.abs(got - want)[~zero].max(initial=0)))
+        z_move = max(z_move, float(np.abs(got)[zero].max(initial=0)),
+                     float(np.abs(want)[zero].max(initial=0)))
+        n_zero += int(np.count_nonzero(zero))
+    for a, b in zip(slots["card"], slots["cpu"]):
+        got = dict(flat_items(a["g2"])) if a else {}
+        for path, want in (flat_items(b["g2"]) if b else ()):
+            s_err = max(s_err, float(np.abs(got[path] - want).max()
+                                     / max(np.abs(want).max(), 1e-30)))
+    finite = all(np.isfinite(a).all() for k in nets
+                 for a in moved[k].values()) and all(
+        math.isfinite(v) for lg in logs.values() for v in lg.scores)
+    return rel, p_err, z_move, n_zero, s_err, floor, bound, finite
+
+
 def phase_refer_train_rnn(torch, np):
     """The seeded full-width TextGenerationLSTM on the CPU (plain versions,
     exact float32) and on the card (TF32 off): 3 BPTT steps at 2 x 64,
     tBPTT at 2 x 100 in windows of 50, 3 steps at 2 x 1024 (chunked
     route)."""
-    from deeplearning4j_tpu_torch import dtypes, interop
+    from deeplearning4j_tpu_torch import dtypes
     from deeplearning4j_tpu_torch.datasets import DataSet
-    from deeplearning4j_tpu_torch.models.multi_layer_network import flat_items
 
-    lr, decay = 1e-2, 0.95     # the zoo's RmsProp
     rng = np.random.default_rng(SEED + 8)
     for label, t, tbptt, steps in (("BPTT", 64, None, 3),
                                    ("tBPTT", 100, 50, 1),
@@ -2350,33 +2420,8 @@ def phase_refer_train_rnn(torch, np):
             raise AssertionError(f"refer-train-rnn ({label}): launches "
                                  f"{launches}")
         iters = len(logs["cpu"].scores)
-        rel = max(abs(a - b) / abs(b) for a, b in zip(logs["card"].scores,
-                                                      logs["cpu"].scores))
-        moved = {k: {key: p - start[k][key]
-                     for key, p in net.get_param_table().items()}
-                 for k, net in nets.items()}
-        slots = {k: interop.opt_state_to_jax(net) for k, net in nets.items()}
-        rms = {f"layer_{i}/{path}": np.sqrt(v)
-               for i, s in enumerate(slots["cpu"]) if s
-               for path, v in flat_items(s["g2"])}
-        floor = ZERO_GRAD * max(float(r.max()) for r in rms.values())
-        bound = 1.01 * iters * lr / math.sqrt(1 - decay)
-        p_err, z_move, n_zero, s_err = 0.0, 0.0, 0, 0.0
-        for key, want in moved["cpu"].items():
-            got, zero = moved["card"][key], rms[key] <= floor
-            p_err = max(p_err, float(np.abs(got - want)[~zero].max(
-                initial=0)))
-            z_move = max(z_move, float(np.abs(got)[zero].max(initial=0)),
-                         float(np.abs(want)[zero].max(initial=0)))
-            n_zero += int(np.count_nonzero(zero))
-        for a, b in zip(slots["card"], slots["cpu"]):
-            got = dict(flat_items(a["g2"])) if a else {}
-            for path, want in (flat_items(b["g2"]) if b else ()):
-                s_err = max(s_err, float(np.abs(got[path] - want).max()
-                                         / max(np.abs(want).max(), 1e-30)))
-        finite = all(np.isfinite(a).all() for k in nets
-                     for a in moved[k].values()) and all(
-            math.isfinite(v) for lg in logs.values() for v in lg.scores)
+        rel, p_err, z_move, n_zero, s_err, floor, bound, finite = \
+            rmsprop_agreement(np, nets, logs, start, iters)
         same_iters = (len(logs["card"].scores) == iters == steps * (
             -(-t // tbptt) if tbptt else 1) and nets["card"].iteration
             == nets["cpu"].iteration == iters)
@@ -2776,6 +2821,390 @@ def phase_refer_inception(torch, np, net, path):
                     tag="refer-inception")
 
 
+# ------------------------------------------------------------ phases 26-29
+# The BASELINE char-RNN (BASELINE.md:21, zoo TextGenerationLSTM at full
+# width) as DL4J's ModelSerializer writes it: legacy RMSPROP, l2 on every
+# layer, TruncatedBPTT 50/50, and a training clock (iterationCount) that
+# the restore carries into net.iteration
+CHAR_RNN = dict(vocab=77, hidden=256, lr=1e-2, rms_decay=0.95, l2=1e-4,
+                tbptt=50, iteration=1000)
+CHAR_RNN_PARAMS = 888653  # 342,784 + 526,080 + 19,789
+
+
+def char_rnn_dl4j_conf(seed=SEED):
+    """configuration.json of the char-RNN in DL4J's form (legacy per-layer
+    updater fields, WRAPPER_OBJECT layer and activation names), as
+    tests/make_dl4j_fixtures.py writes its fixtures."""
+    c = CHAR_RNN
+    common = {"updater": "RMSPROP", "learningRate": c["lr"],
+              "rmsDecay": c["rms_decay"], "l2": c["l2"], "l1": 0.0,
+              "weightInit": "XAVIER", "biasInit": 0.0}
+
+    def lstm(n_in):
+        return {"gravesLSTM": dict(
+            common, activationFn={"TanH": {}},
+            gateActivationFn={"Sigmoid": {}}, nin=n_in, nout=c["hidden"],
+            forgetGateBiasInit=1.0)}
+
+    layers = [lstm(c["vocab"]), lstm(c["hidden"]), {"rnnoutput": dict(
+        common, activationFn={"Softmax": {}}, lossFunction="MCXENT",
+        nin=c["hidden"], nout=c["vocab"])}]
+    return {
+        "backprop": True, "pretrain": False,
+        "backpropType": "TruncatedBPTT", "tbpttFwdLength": c["tbptt"],
+        "tbpttBackLength": c["tbptt"],
+        "confs": [{"iterationCount": c["iteration"], "miniBatch": True,
+                   "numIterations": 1, "seed": seed,
+                   "optimizationAlgo": "STOCHASTIC_GRADIENT_DESCENT",
+                   "layer": layer} for layer in layers],
+    }
+
+
+def write_char_rnn_zip(np, path, seed=SEED):
+    """The char-RNN as a DL4J zip at `path`: configuration.json,
+    coefficients.bin (seeded float32 values, normal with std 0.08, in the
+    reference's flat layout) and updaterState.bin (one RMSProp block over
+    every parameter: seeded values in [1e-4, 1e-3], so a misplaced slot
+    shows). Returns the coefficient vector and the state vector."""
+    import io
+    import zipfile
+
+    from deeplearning4j_tpu_torch.modelimport.dl4j import write_nd4j_array
+
+    rng = np.random.default_rng(seed)
+    flat = rng.normal(0.0, 0.08, CHAR_RNN_PARAMS).astype(np.float32)
+    g2 = rng.uniform(1e-4, 1e-3, CHAR_RNN_PARAMS).astype(np.float32)
+    with zipfile.ZipFile(path, "w") as zf:
+        zf.writestr("configuration.json",
+                    json.dumps(char_rnn_dl4j_conf(seed), indent=2))
+        for name, vec in (("coefficients.bin", flat),
+                          ("updaterState.bin", g2)):
+            buf = io.BytesIO()
+            # the reference writes a network's flat vectors as [1, n] rows
+            write_nd4j_array(buf, vec[None, :], order="f")
+            zf.writestr(name, buf.getvalue())
+    return flat, g2
+
+
+CHAR_RNN_RUN = (32, 200, 3)  # rows, characters, fit calls (4 windows each)
+SAMPLE_CHARS = 200
+
+
+class TimedScoreLog(ScoreLog):
+    """A ScoreLog that also stamps each iteration's end on the host clock
+    (after the score's read, which waits for the card)."""
+
+    def __init__(self):
+        super().__init__()
+        self.stamps = []
+
+    def iteration_done(self, net, iteration, score):
+        super().iteration_done(net, iteration, score)
+        self.stamps.append(time.perf_counter())
+
+
+def phase_dl4j_charrnn(torch, np, tmp, card):
+    """dl4j-write and dl4j-charrnn: the char-RNN written as a DL4J zip,
+    restored onto the card and the CPU with its RmsProp state, output on 32
+    x 200 one-hot characters and 3 tBPTT fit calls (12 windows of 50)
+    compared card (TF32 off) against CPU, as refer-train-rnn compares them.
+    Returns the trained card network and its launches."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.modelimport import (
+        restore_multi_layer_network,
+    )
+
+    path = os.path.join(tmp, "char_rnn_dl4j.zip")
+    t0 = time.perf_counter()
+    flat, g2 = write_char_rnn_zip(np, path)
+    t_write = time.perf_counter() - t0
+    log(f"[dl4j-write] DL4J zip of the char-RNN ({flat.size} params, "
+        f"{g2.size} RMSProp values, iterationCount {CHAR_RNN['iteration']}, "
+        f"tBPTT {CHAR_RNN['tbptt']}/{CHAR_RNN['tbptt']}): "
+        f"{os.path.getsize(path)} bytes written in {t_write:.3f} s")
+
+    nets, t_import = {}, {}
+    for k, dev in (("card", None), ("cpu", "cpu")):
+        if dev is None:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nets[k] = restore_multi_layer_network(
+            path, load_updater=True, **({} if dev is None else
+                                        {"device": dev}))
+        if dev is None:
+            torch.cuda.synchronize()
+        t_import[k] = time.perf_counter() - t0
+    net = nets["card"]
+    if net.device.type != "cuda" or net.num_params() != CHAR_RNN_PARAMS or \
+            net.iteration != CHAR_RNN["iteration"] or \
+            net.conf.defaults.tbptt_fwd_length != CHAR_RNN["tbptt"]:
+        raise AssertionError(
+            f"dl4j-charrnn: restored {net.num_params()} params on "
+            f"{net.device}, iteration {net.iteration}, tBPTT "
+            f"{net.conf.defaults.tbptt_fwd_length}")
+    g2_card = np.concatenate([
+        t.detach().cpu().numpy().ravel() for s in net.opt_state if s
+        for t in s["g2"].values()])
+    if not (g2_card.size == g2.size and g2_card.min() == g2.min()
+            and g2_card.max() == g2.max()
+            and np.isclose(g2_card.sum(dtype=np.float64),
+                           g2.sum(dtype=np.float64), rtol=1e-12)):
+        raise AssertionError("dl4j-charrnn: the RMSProp state did not come "
+                             "across whole")
+    log(f"[dl4j-charrnn] restored with its RMSProp state onto {net.device} "
+        f"in {t_import['card']:.3f} s, onto the CPU in "
+        f"{t_import['cpu']:.3f} s")
+
+    b, t, calls = CHAR_RNN_RUN
+    rng = np.random.default_rng(SEED + 13)
+    x_out = one_hot_rows(np, rng, b, t, CHAR_RNN["vocab"])
+    batches = [char_batch(np, rng, b, t, CHAR_RNN["vocab"])
+               for _ in range(calls)]
+    on_card = [tuple(torch.from_numpy(a).to(net.device) for a in xy)
+               for xy in batches]
+    windows = calls * -(-t // CHAR_RNN["tbptt"])
+    logs = {"card": TimedScoreLog(), "cpu": ScoreLog()}
+    for k, n in nets.items():
+        n.set_listeners(logs[k])
+    start = {k: n.get_param_table() for k, n in nets.items()}
+    torch.cuda.synchronize()
+    reset_counts()
+    with dtypes.full_precision():
+        got = net.output(x_out).cpu().numpy()
+        begins = []
+        for xy in on_card:
+            torch.cuda.synchronize()
+            begins.append(time.perf_counter())
+            net.fit(DataSet(*xy))
+        torch.cuda.synchronize()
+        launches = read_counts()
+    want = nets["cpu"].output(x_out).numpy()
+    for xy in batches:
+        nets["cpu"].fit(DataSet(*xy))
+    out_rel = float(np.abs(got - want).max() / np.abs(want).max())
+    rel, p_err, z_move, n_zero, s_err, floor, bound, finite = \
+        rmsprop_agreement(np, nets, logs, start, windows)
+    per_window = {k: v * windows for k, v in RNN_PER_STEP.items()}
+    per_window["lstm_scan"] += 2  # the output call
+    want_launches = {k: per_window.get(k, 0) for k in launches}
+    iters = CHAR_RNN["iteration"] + windows
+    ok = (out_rel <= 1e-5 and rel <= 1e-5 and p_err <= 1e-5
+          and z_move <= bound and s_err <= 1e-4 and finite
+          and launches == want_launches
+          and len(logs["card"].scores) == len(logs["cpu"].scores) == windows
+          and net.iteration == nets["cpu"].iteration == iters)
+    # window times: from the end of the one before (or the fit call's
+    # start) to the end of this one; 4 windows per call
+    stamps, ms = logs["card"].stamps, []
+    per_call = windows // calls
+    for c in range(calls):
+        prev = begins[c]
+        for w in stamps[c * per_call:(c + 1) * per_call]:
+            ms.append((w - prev) * 1e3)
+            prev = w
+    log(f"[dl4j-charrnn] output on {b} x {t} one-hot characters, card (TF32 "
+        f"off) vs CPU: max relative {out_rel:.3g} (tol 1e-5)")
+    log(f"[dl4j-charrnn] {calls} fit calls of {b} x {t} characters = "
+        f"{windows} tBPTT windows of {CHAR_RNN['tbptt']} resumed from "
+        f"iteration {CHAR_RNN['iteration']} (now {net.iteration}): score "
+        f"{logs['card'].scores[0]:.5f} -> {logs['card'].scores[-1]:.5f}; "
+        f"card (TF32 off) vs CPU: scores relative {rel:.3g} (tol 1e-5), "
+        f"params' change max |diff| {p_err:.3g} (tol 1e-5), {n_zero} "
+        f"elements with RMS gradient <= {floor:.3g} move at most "
+        f"{z_move:.3g} (bound {bound:.3g}), g2 max relative {s_err:.3g} "
+        f"(tol 1e-4)")
+    log(f"[dl4j-charrnn] ms per tBPTT window on the card (untraced, TF32 "
+        f"off, batches already there): median {sorted(ms)[len(ms) // 2]:.3f}"
+        f" of {len(ms)} (min {min(ms):.3f}, max {max(ms):.3f}); launches "
+        f"{launches} (want {want_launches}: per window {RNN_PER_STEP}, "
+        f"2 lstm_scan per output call) ({card})")
+    if not ok:
+        raise AssertionError("dl4j-charrnn: the restored char-RNN failed "
+                             "its checks (see the lines above)")
+    net.set_listeners()
+    return net, launches
+
+
+def same_bits(a, b, what):
+    """Two nested containers of tensors equal bit for bit (dtype, shape,
+    values); raises naming the first that is not."""
+    import torch
+
+    if isinstance(a, dict):
+        if sorted(a) != sorted(b):
+            raise AssertionError(f"{what}: keys {sorted(a)} vs {sorted(b)}")
+        for k in a:
+            same_bits(a[k], b[k], f"{what}/{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: {len(a)} vs {len(b)} entries")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_bits(x, y, f"{what}/{i}")
+    elif not (a.dtype == b.dtype and a.shape == b.shape
+              and torch.equal(a, b)):
+        raise AssertionError(f"{what}: not bit-equal")
+
+
+def sample_chars(torch, net, n_chars, seed):
+    """`n_chars` characters for each of 32 streams, generated by
+    rnn_time_step from character 0, each drawn from the softmax with a
+    seeded generator on the card and fed back one-hot.
+    Returns (ids [rows, n_chars], the last step's probabilities, seconds
+    per character)."""
+    rows, vocab = CHAR_RNN_RUN[0], CHAR_RNN["vocab"]
+    gen = torch.Generator(device=net.device).manual_seed(seed)
+    eye = torch.eye(vocab, device=net.device)
+    net.rnn_clear_previous_state()
+    ids = torch.zeros(rows, dtype=torch.long, device=net.device)
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_chars):
+        probs = net.rnn_time_step(eye[ids])
+        ids = torch.multinomial(probs, 1, generator=gen)[:, 0]
+        out.append(ids)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_chars
+    net.rnn_clear_previous_state()
+    return torch.stack(out, 1), probs, dt
+
+
+def phase_checkpoint_resume(torch, np, net, tmp, card):
+    """checkpoint-resume: the trained card network written by
+    models.serialization.write_model and restored onto the card: params,
+    running state, updater slots, iteration and epoch bit for bit; one more
+    tBPTT window from each, then 200 sampled characters from each, equal
+    bit for bit."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models import serialization
+
+    path = os.path.join(tmp, "char_rnn_checkpoint.zip")
+    t0 = time.perf_counter()
+    serialization.write_model(net, path)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = serialization.restore_multi_layer_network(path)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    same_bits(net.params, back.params, "params")
+    same_bits(net.state, back.state, "state")
+    same_bits(net.opt_state, back.opt_state, "opt_state")
+    if (back.iteration, back.epoch) != (net.iteration, net.epoch) or \
+            back.device != net.device:
+        raise AssertionError(f"checkpoint-resume: iteration/epoch "
+                             f"{back.iteration}/{back.epoch} on "
+                             f"{back.device}, want {net.iteration}/"
+                             f"{net.epoch} on {net.device}")
+    log(f"[checkpoint-resume] checkpoint of the trained char-RNN: "
+        f"{os.path.getsize(path)} bytes written in {t_write:.3f} s, "
+        f"restored onto {back.device} in {t_restore:.3f} s; params, state, "
+        f"RMSProp slots, iteration {back.iteration} and epoch {back.epoch} "
+        f"equal bit for bit")
+    b, window = CHAR_RNN_RUN[0], CHAR_RNN["tbptt"]
+    x, y = char_batch(np, np.random.default_rng(SEED + 14), b, window,
+                      CHAR_RNN["vocab"])
+    reset_counts()
+    scores = []
+    for n in (net, back):
+        n.fit(DataSet(x, y))
+        scores.append(n.score_)
+    same_bits(net.params, back.params, "params after one more window")
+    same_bits(net.opt_state, back.opt_state, "slots after one more window")
+    if scores[0] != scores[1]:
+        raise AssertionError(f"checkpoint-resume: window scores {scores}")
+    ids, probs, dt = {}, {}, {}
+    for k, n in (("unsaved", net), ("restored", back)):
+        ids[k], probs[k], dt[k] = sample_chars(torch, n, SAMPLE_CHARS,
+                                               SEED + 15)
+    launches = read_counts()
+    same_bits(ids["unsaved"], ids["restored"], "sampled characters")
+    same_bits(probs["unsaved"], probs["restored"], "last probabilities")
+    want = {k: 2 * v for k, v in RNN_PER_STEP.items()}
+    want["lstm_scan"] += 2 * 2 * SAMPLE_CHARS
+    want = {k: want.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"checkpoint-resume: launches {launches}, "
+                             f"want {want}")
+    log(f"[checkpoint-resume] one more window of {b} x {window} from each: "
+        f"score {scores[0]:.6f} from both, params and slots bit-equal; "
+        f"{SAMPLE_CHARS} characters for {b} streams sampled by rnn_time_step"
+        f" (seeded generator) from each: the same {ids['restored'].numel()} "
+        f"characters, {len(set(ids['restored'].flatten().tolist()))} "
+        f"distinct; {dt['restored'] * 1e3:.3f} ms per character step "
+        f"(unsaved {dt['unsaved'] * 1e3:.3f}); launches {launches} ({card})")
+    return launches
+
+
+# the committed DL4J zips: fixture -> (input, output, input type)
+DL4J_FIXTURES = {
+    "mlp_nesterovs": ("mlp_x", "mlp_y", None),
+    "mlp_half": ("mlp_x", "mlp_y", None),
+    "mlp_with_normalizer": ("mlp_x", "mlp_y", None),
+    "conv_pool_bn": ("conv_x", "conv_y", (5, 5, 2)),
+    "graves_lstm": ("lstm_x", "lstm_y", None),
+    "graph_diamond": ("graph_x", "graph_y", None),
+}
+CHECKPOINT_FIXTURES = ("cg_branch_merge", "mln_graves_lstm", "mln_vit")
+
+
+def phase_dl4j_fixtures(torch, np):
+    """dl4j-fixtures: every committed DL4J zip (tests/fixtures/dl4j/) and
+    the three committed checkpoint zips the port reads, restored onto the
+    card, each against its committed output at 1e-5 (TF32 off); the
+    BatchNorm fixture launches bn_act."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.modelimport import (
+        restore_computation_graph,
+        restore_multi_layer_network,
+        restore_normalizer,
+    )
+    from deeplearning4j_tpu_torch.models import restore_model
+    from deeplearning4j_tpu_torch.nn import inputs as it
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures")
+    exp = np.load(os.path.join(here, "dl4j", "expected_outputs.npz"))
+    results = []
+    for name, (xk, yk, shape) in DL4J_FIXTURES.items():
+        path = os.path.join(here, "dl4j", name + ".zip")
+        if name.startswith("graph"):
+            net = restore_computation_graph(path, load_updater=True)
+        else:
+            net = restore_multi_layer_network(
+                path, it.convolutional(*shape) if shape else None,
+                load_updater=True)
+        before = read_counts()
+        with dtypes.full_precision():
+            got = net.output(exp[xk]).cpu().numpy()
+        bn = read_counts()["bn_act"] - before["bn_act"]
+        err = float(np.abs(got - exp[yk]).max())
+        results.append((name, err, bn))
+        if net.device.type != "cuda" or not err <= 1e-5 or \
+                (name == "conv_pool_bn") != (bn == 1):
+            raise AssertionError(f"dl4j-fixtures: {name} on {net.device}: "
+                                 f"max |diff| {err:.3g}, bn_act {bn}")
+    norm = restore_normalizer(os.path.join(here, "dl4j",
+                                           "mlp_with_normalizer.zip"))
+    if norm.mean.tolist() != [0.5, -1.0, 2.0]:
+        raise AssertionError(f"dl4j-fixtures: normalizer mean {norm.mean}")
+    cexp = np.load(os.path.join(here, "expected_outputs.npz"))
+    for name in CHECKPOINT_FIXTURES:
+        net = restore_model(os.path.join(here, name + ".zip"))
+        with dtypes.full_precision():
+            got = net.output(cexp[name + "_in"]).cpu().numpy()
+        err = float(np.abs(got - cexp[name + "_out"]).max())
+        results.append((name, err, None))
+        if net.device.type != "cuda" or not err <= 1e-5:
+            raise AssertionError(f"dl4j-fixtures: checkpoint {name} on "
+                                 f"{net.device}: max |diff| {err:.3g}")
+    log("[dl4j-fixtures] restored onto the card, max |diff| from the "
+        "committed output (tol 1e-5, TF32 off): " + ", ".join(
+            f"{n} {e:.3g}" + (f" (bn_act {b})" if b else "")
+            for n, e, b in results) + "; normalizer.bin mean "
+        f"{norm.mean.tolist()}")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2870,6 +3299,18 @@ def main() -> int:
             del iv3
         log(f"[refer-inception] the InceptionV3 phases (write, import, "
             f"kernel, serve, refer) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            char_rnn, restore_launches = phase_dl4j_charrnn(torch, np, tmp,
+                                                            card)
+            resume = phase_checkpoint_resume(torch, np, char_rnn, tmp, card)
+            resume_launches = {k: v + resume[k]
+                               for k, v in restore_launches.items()}
+            del char_rnn
+        phase_dl4j_fixtures(torch, np)
+        log(f"[dl4j-fixtures] the persistence phases (dl4j-write, "
+            f"dl4j-charrnn, checkpoint-resume, dl4j-fixtures) took "
+            f"{time.perf_counter() - t0:.1f} s")
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
         if leaked:
@@ -2931,7 +3372,10 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             **{k: t[k] for k in ("library_covers", "inception_v3_forward")
-               if k in t}})
+               if k in t},
+            # launches on the char-RNN's DL4J restore and resume path
+            # (dl4j-charrnn and checkpoint-resume)
+            "dl4j_resume_launches": resume_launches[kname]})
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

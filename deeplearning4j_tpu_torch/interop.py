@@ -14,6 +14,9 @@ Each layer converts from the interchange layout to its own once (Conv2D:
 HWIO -> OIHW channels_last), by the param's '/'-joined path. Afterwards
 both packages compute the same function.
 
+`params_to_jax(net)` is the reverse, numpy arrays in the interchange
+layout.
+
 `opt_state_from_jax(net, opt_state)` carries a JAX network's updater slots
 across, so a run started in the JAX package resumes in the port: a
 MultiLayerNetwork's list with one entry per layer, a ComputationGraph's
@@ -48,7 +51,9 @@ def layer_params_from_jax(layer, params: Mapping[str, object], device=None,
         if isinstance(arr, Mapping):
             out[key] = layer_params_from_jax(layer, arr, device, path + "/")
             continue
-        t = torch.from_numpy(np.array(arr, dtype=np.float32))
+        # C order: a Fortran-ordered array (DL4J's flat views) would give a
+        # tensor with column-major strides
+        t = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
         t = t if layer is None else layer.from_interchange(path, t)
         out[key] = t.to("cpu" if device is None else device)
     return out
@@ -170,6 +175,16 @@ def _to_interchange(layer, tree, prefix: str = ""):
                 t = layer.to_interchange(path, t)
             out[key] = t.detach().cpu().numpy()
     return out
+
+
+def params_to_jax(net):
+    """(params, state) of the port network as the JAX package keeps them:
+    nested dicts of numpy arrays in the interchange layout, under the
+    network's own keys (the inverse of `params_from_jax`)."""
+    params = {name: _to_interchange(net.layer(name), p)
+              for name, p in net.params.items()}
+    return params, {name: _to_interchange(None, s)
+                    for name, s in net.state.items()}
 
 
 def opt_state_to_jax(net):

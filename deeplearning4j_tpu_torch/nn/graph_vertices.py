@@ -1,8 +1,10 @@
 """Graph vertices for ComputationGraph: GraphVertex, LayerVertex,
-ElementWiseVertex, and the three the Keras importer creates: MergeVertex,
-ReshapeVertex and PreprocessorVertex (counterpart of
-deeplearning4j_tpu/nn/graph_vertices.py; Subset, Stack and the other
-combinators come with later slices).
+ElementWiseVertex, MergeVertex, ReshapeVertex, PreprocessorVertex and the
+combinators the DL4J importer creates: SubsetVertex, StackVertex,
+UnstackVertex, L2Vertex, L2NormalizeVertex, ScaleVertex, ShiftVertex and
+PoolHelperVertex (counterpart of deeplearning4j_tpu/nn/graph_vertices.py;
+LastTimeStepVertex and DuplicateToTimeSeriesVertex need the graph's masks
+and come with them).
 
 A vertex is a function of its input tensors; a LayerVertex wraps any Layer
 config (the graph analogue of a layer in MultiLayerConfiguration), a
@@ -183,3 +185,133 @@ class PreprocessorVertex(GraphVertex):
 
     def apply(self, params, inputs, *, state, train, masks=None):
         return self.preprocessor.transform(inputs[0]), state
+
+
+@register_vertex
+@dataclass
+class SubsetVertex(GraphVertex):
+    """Features [from_idx, to_idx], both ends included, of the last axis
+    (nn/conf/graph/SubsetVertex.java)."""
+
+    from_idx: int = 0
+    to_idx: int = 0
+
+    def output_type(self, input_types):
+        n = self.to_idx - self.from_idx + 1
+        t0 = input_types[0]
+        if isinstance(t0, it.Recurrent):
+            return it.Recurrent(n, t0.timesteps)
+        if isinstance(t0, it.Convolutional):
+            return it.Convolutional(t0.height, t0.width, n)
+        return it.FeedForward(n)
+
+    def apply(self, params, inputs, *, state, train, masks=None):
+        return inputs[0][..., self.from_idx:self.to_idx + 1], state
+
+
+@register_vertex
+@dataclass
+class StackVertex(GraphVertex):
+    """Concatenation along the batch axis (nn/conf/graph/StackVertex.java)."""
+
+    def output_type(self, input_types):
+        return input_types[0]
+
+    def apply(self, params, inputs, *, state, train, masks=None):
+        return torch.cat(inputs, dim=0), state
+
+
+@register_vertex
+@dataclass
+class UnstackVertex(GraphVertex):
+    """Batch segment `from_idx` of `stack_size` equal parts
+    (nn/conf/graph/UnstackVertex.java)."""
+
+    from_idx: int = 0
+    stack_size: int = 1
+
+    def output_type(self, input_types):
+        return input_types[0]
+
+    def apply(self, params, inputs, *, state, train, masks=None):
+        x = inputs[0]
+        step = x.shape[0] // self.stack_size
+        return x[self.from_idx * step:(self.from_idx + 1) * step], state
+
+
+@register_vertex
+@dataclass
+class L2Vertex(GraphVertex):
+    """Euclidean distance between two inputs, per example: [b, 1]
+    (nn/conf/graph/L2Vertex.java)."""
+
+    eps: float = 1e-8
+
+    def output_type(self, input_types):
+        return it.FeedForward(1)
+
+    def apply(self, params, inputs, *, state, train, masks=None):
+        a = inputs[0].reshape(inputs[0].shape[0], -1)
+        b = inputs[1].reshape(inputs[1].shape[0], -1)
+        d = a - b
+        return torch.sqrt((d * d).sum(-1, keepdim=True) + self.eps), state
+
+
+@register_vertex
+@dataclass
+class L2NormalizeVertex(GraphVertex):
+    """x / ||x||_2 over every axis but the batch
+    (nn/conf/graph/L2NormalizeVertex.java)."""
+
+    eps: float = 1e-8
+
+    def output_type(self, input_types):
+        return input_types[0]
+
+    def apply(self, params, inputs, *, state, train, masks=None):
+        x = inputs[0]
+        flat = x.reshape(x.shape[0], -1)
+        norm = torch.sqrt((flat * flat).sum(-1) + self.eps)
+        return x / norm.reshape((x.shape[0],) + (1,) * (x.dim() - 1)), state
+
+
+@register_vertex
+@dataclass
+class ScaleVertex(GraphVertex):
+    """x * scale_factor (nn/conf/graph/ScaleVertex.java)."""
+
+    scale_factor: float = 1.0
+
+    def output_type(self, input_types):
+        return input_types[0]
+
+    def apply(self, params, inputs, *, state, train, masks=None):
+        return inputs[0] * self.scale_factor, state
+
+
+@register_vertex
+@dataclass
+class ShiftVertex(GraphVertex):
+    """x + shift_factor (nn/conf/graph/ShiftVertex.java)."""
+
+    shift_factor: float = 0.0
+
+    def output_type(self, input_types):
+        return input_types[0]
+
+    def apply(self, params, inputs, *, state, train, masks=None):
+        return inputs[0] + self.shift_factor, state
+
+
+@register_vertex
+@dataclass
+class PoolHelperVertex(GraphVertex):
+    """Drops the first row and column of NHWC activations (the legacy
+    GoogLeNet import shim, nn/conf/graph/PoolHelperVertex.java)."""
+
+    def output_type(self, input_types):
+        t = input_types[0]
+        return it.Convolutional(t.height - 1, t.width - 1, t.channels)
+
+    def apply(self, params, inputs, *, state, train, masks=None):
+        return inputs[0][:, 1:, 1:, :], state

@@ -15,7 +15,7 @@ from deeplearning4j_tpu_torch.nn.layers.dense import (  # noqa: F401
     Embedding,
     EmbeddingSequence,
 )
-from deeplearning4j_tpu_torch.nn.layers.normalization import BatchNorm  # noqa: F401
+from deeplearning4j_tpu_torch.nn.layers.normalization import BatchNorm, LRN  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.output import (  # noqa: F401
     BaseOutputLayer,
     LossLayer,

@@ -1,5 +1,5 @@
-"""BatchNorm (counterpart of deeplearning4j_tpu/nn/layers/normalization.py;
-LRN comes with a later slice).
+"""BatchNorm and LRN (counterpart of
+deeplearning4j_tpu/nn/layers/normalization.py).
 
 Running stats are STATE. In training (`train=True`) the batch statistics
 over every axis but the last are taken in float32 (a bfloat16 x is widened
@@ -13,6 +13,10 @@ the hand-written CUDA kernel `ops.bn_act` on a CUDA tensor (its plain
 version on a CPU tensor); its gradients reach x, gamma, beta and the batch
 statistics through the plain epilogue. Other activations and dtypes take
 the plain epilogue, as in the JAX package.
+
+LRN, the cross-channel local response normalization of AlexNet-era nets
+(the DL4J importer creates it), is plain PyTorch on NHWC with the JAX
+package's order of operations; it has no kernel.
 """
 from __future__ import annotations
 
@@ -103,3 +107,33 @@ class BatchNorm(Layer):
             return bn_ops.bn_act(x, scale, shift, act)
         y = x * scale.to(x.dtype) + shift.to(x.dtype)
         return self.act_fn("identity")(y)
+
+
+@register_layer
+@dataclass
+class LRN(Layer):
+    """Local response normalization across channels
+    (nn/conf/layers/LocalResponseNormalization.java; DL4J defaults k=2, n=5,
+    alpha=1e-4, beta=0.75): x / (k + alpha * sum of x^2 over the `n`
+    channels centred on each one) ** beta, channels last."""
+
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def has_params(self):
+        return False
+
+    def output_type(self, input_type):
+        return input_type
+
+    def apply(self, params, x, *, state, train, mask=None):
+        half = int(self.n) // 2
+        c = x.shape[-1]
+        padded = torch.nn.functional.pad(x * x, (half, half))
+        # the window's terms added one by one, as the JAX package adds them
+        acc = torch.zeros_like(x)
+        for i in range(int(self.n)):
+            acc = acc + padded[..., i:i + c]
+        return x / (self.k + self.alpha * acc) ** self.beta, state

@@ -15,7 +15,8 @@ forward and backward: masks, ragged b, t and n, a ragged last chunk, t = 1,
 n at the cap, the same bits from two calls), autograd through both LSTM
 families on the card, and one BPTT and one tBPTT `fit` of a small
 TextGenerationLSTM against the CPU; a Keras InceptionV3 file imported onto
-the card against its CPU import.
+the card against its CPU import; a DL4J zip and a checkpoint zip restored
+onto the card by default (and refused where there is no card).
 
 Marked `cuda`; they skip where torch.cuda.is_available() is False. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -36,6 +37,8 @@ output against 1e-5 (float32 forward outputs) or 1e-4 (float32 backward
 outputs: sums over b t terms in another order) of its plain version's
 largest magnitude, bfloat16 outputs 2e-2 (forward) or 1e-2 (dzx).
 """
+import os
+
 import pytest
 import torch
 
@@ -1108,3 +1111,60 @@ def test_keras_inception_v3_imported_onto_the_card_equals_the_cpu_import(
     for g, w in zip(got, want):
         assert float((g.cpu() - w).abs().max()) <= 1e-4 * max(
             float(w.abs().max()), 1e-30)
+
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures")
+
+
+@pytest.mark.cuda
+def test_dl4j_zip_and_checkpoint_restore_onto_the_card(cuda):
+    """Without device=, a DL4J zip (with its updater state) and a
+    checkpoint zip land on the card, params, state and slots there, and
+    give their committed outputs (TF32 off)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.modelimport import (
+        restore_multi_layer_network,
+    )
+    from deeplearning4j_tpu_torch.models import restore_model
+
+    dl4j = os.path.join(FIXTURES, "dl4j")
+    exp = np.load(os.path.join(dl4j, "expected_outputs.npz"))
+    net = restore_multi_layer_network(
+        os.path.join(dl4j, "conv_pool_bn.zip"), it.convolutional(5, 5, 2),
+        load_updater=True)
+    ckpt = restore_model(os.path.join(FIXTURES, "mln_graves_lstm.zip"))
+    cexp = np.load(os.path.join(FIXTURES, "expected_outputs.npz"))
+    for n in (net, ckpt):
+        assert n.device.type == "cuda"
+        tensors = [t for p in (n.params, n.state) for v in p.values()
+                   for _, t in flat_items(v)]
+        tensors += [t for s in n.opt_state if s for _, t in flat_items(s)]
+        assert tensors and all(t.is_cuda for t in tensors)
+    before = bn_act.launches
+    with dtypes.full_precision():
+        got = net.output(exp["conv_x"]).cpu().numpy()
+        got_c = ckpt.output(cexp["mln_graves_lstm_in"]).cpu().numpy()
+    assert bn_act.launches == before + 1
+    assert np.abs(got - exp["conv_y"]).max() <= 1e-5
+    assert np.abs(got_c - cexp["mln_graves_lstm_out"]).max() <= 1e-5
+
+
+def test_restore_onto_cuda_without_a_card_raises():
+    """device="cuda" where torch.cuda.is_available() is False raises, for
+    both restore paths."""
+    from deeplearning4j_tpu_torch.modelimport import (
+        restore_multi_layer_network,
+    )
+    from deeplearning4j_tpu_torch.models import restore_model
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restore_multi_layer_network(
+            os.path.join(FIXTURES, "dl4j", "mlp_nesterovs.zip"),
+            device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restore_model(os.path.join(FIXTURES, "mln_graves_lstm.zip"),
+                      device="cuda")
