@@ -131,7 +131,10 @@ Phases, in order; any failure exits non-zero without the final line:
               chunked forward, its backward for the backward kernels)
               times, us per step, the bound (the backward's products on the
               tensor cores, 3xTF32 in float32; the chunked forward's as
-              phase 7 counts them) and the kernel's share of it.
+              phase 7 counts them) and the kernel's share of it; then
+              torch.nn.LSTM (cuDNN) in bfloat16 at rows 5-8's path shapes,
+              forward and backward: the bfloat16 rows' library times (a
+              refusal by cuDNN is logged as such).
  16. train-rnn    zoo TextGenerationLSTM at full width (two GravesLSTM(256),
               77 characters), RmsProp(1e-2), l2 1e-4, trained by
               MultiLayerNetwork.fit for 20 BPTT steps on one repeated batch
@@ -220,10 +223,39 @@ Phases, in order; any failure exits non-zero without the final line:
               seeded generator from each, the same characters and last
               probabilities; ms per character step.
  29. dl4j-fixtures  the six committed DL4J zips (tests/fixtures/dl4j/)
-              and the three committed checkpoint zips the port reads
-              (cg_branch_merge, mln_graves_lstm, mln_vit) restored onto the
-              card, each against its committed output (1e-5, TF32 off);
-              conv_pool_bn launches bn_act once.
+              and the five committed checkpoint zips the port reads
+              (cg_branch_merge, mln_graves_lstm, mln_vit, mln_conv_bn_noise,
+              mln_scheduled_dropout) restored onto the card, each against
+              its committed output (1e-5, TF32 off); conv_pool_bn launches
+              bn_act once. The two with dropout and weight noise
+              (AlphaDropout + DropConnect after a BatchNorm; scheduled
+              Dropout, DropConnect and GaussianNoise) then take 3 fit steps
+              on the card against their CPU restore, each from the same
+              point, the card's masks and noise replayed on the CPU:
+              scores, param changes, Adam slots and BN running stats within
+              the stated tolerances; per step bn_act 1 (the BatchNorm
+              fixture) and 1 + 1 xent.
+ 30. kernel-vgg  the fused linear + softmax cross-entropy kernels at zoo
+              VGG16's Output (64 rows, d 4096, 1000 classes), float32 and
+              bfloat16, as phase 12 checks and times them.
+ 31. train-vgg16  zoo VGG16 at full width (224x224x3, 1000 classes,
+              138,357,544 params; 13 convs, two Dense(4096) with dropout
+              0.5, Nesterovs(1e-2, 0.9)) trained by MultiLayerNetwork.fit
+              for 20 steps under the mixed policy on one repeated batch of
+              64 bfloat16 images made on the card, then 5 under the float32
+              / TF32 policy on the same images in float32: scores finite,
+              the median of the last 5 mixed scores below the first; per
+              step 1 xent forward and 1 xent backward and nothing else; the
+              first step's two dropout masks keep p = 0.5 of their units
+              within 0.01; median step ms, trained images/s, peak memory.
+ 32. refer-train-vgg16  the same seeded VGG16 at full width on the card
+              (TF32 off), on the CPU (plain versions, float32) and on the
+              CPU in float64: 3 Nesterovs steps at batch 2, each from the
+              same point, the card's dropout masks replayed on the CPU (the
+              two generators differ); the scores within 1e-5, and the
+              card's farthest change or slot leaf from float64 at most 3
+              times as far as the CPU float32's farthest (no float32
+              program holds the 13 convs' gradients to 1e-4 of another).
 
 The characters the training phases learn are drawn with Zipf frequencies,
 so that a falling loss shows learning; their shapes are bench.py
@@ -1058,15 +1090,17 @@ def phase_lstm(torch, bw, peak, peak_tf32):
     return served, max_err
 
 
-def lstm_library_fwd_ms(torch, b, t, n):
+def lstm_library_fwd_ms(torch, b, t, n, dtype=None):
     """torch.nn.LSTM's forward (cuDNN, plain cell, its input projection
-    included) at (b, t, n), input width n, float32, TF32 off."""
+    included) at (b, t, n), input width n, float32 (or `dtype`), TF32
+    off."""
     dev = torch.device("cuda")
+    dtype = dtype or torch.float32
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    lstm = torch.nn.LSTM(n, n, batch_first=True).to(dev)
+    lstm = torch.nn.LSTM(n, n, batch_first=True).to(dev, dtype)
     nbuf = max(1, min(8, math.ceil(2 * L2_BYTES / (b * t * n * 4 * 2))))
-    runs = [(torch.randn((b, t, n), generator=gen, device=dev),
-             tuple(torch.randn((1, b, n), generator=gen, device=dev)
+    runs = [(torch.randn((b, t, n), generator=gen, device=dev).to(dtype),
+             tuple(torch.randn((1, b, n), generator=gen, device=dev).to(dtype)
                    for _ in range(2))) for _ in range(nbuf)]
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -1517,18 +1551,19 @@ def xent_inputs(torch, gen, n, d, v, labels, dtype):
     return x, w, b, t, ids, g
 
 
-def phase_xent(torch, bw, peak, peak_bf16, peak_tf32):
+def phase_xent(torch, bw, peak, peak_bf16, peak_tf32, cases=XENT_CASES,
+               tag="kernel-xent"):
     """Forward and backward kernels against their plain versions at
-    XENT_CASES. Returns the training case's rows and the largest absolute
-    error of any case."""
+    `cases`. Returns each case's rows ({case: {"fwd": ..., "bwd": ...}})
+    and the largest absolute error of any case."""
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.ops import xent_kernel as xk
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     torch.backends.cuda.matmul.allow_tf32 = False
-    served, max_err = {}, 0.0
-    for n, d, v, labels, dname in XENT_CASES:
+    by_case, max_err = {}, 0.0
+    for n, d, v, labels, dname in cases:
         dtype = getattr(torch, dname)
         item = torch.empty((), dtype=dtype).element_size()
         x, w, b, t, ids, g = xent_inputs(torch, gen, n, d, v, labels, dtype)
@@ -1561,7 +1596,7 @@ def phase_xent(torch, bw, peak, peak_bf16, peak_tf32):
                            ("dz = 0", torch.zeros_like(dz), rdz),
                            ("dz without the label term", no_label, rdz)):
             if not disagrees(a, r, XENT_TOL[dname]):
-                raise AssertionError(f"kernel-xent cannot tell {name} from "
+                raise AssertionError(f"{tag} cannot tell {name} from "
                                      f"the plain backward ({labels} {dname})")
         del no_label
         one = labels == "onehot"
@@ -1615,21 +1650,20 @@ def phase_xent(torch, bw, peak, peak_bf16, peak_tf32):
                           "bound_ms": b_ms, "bound_by": by}
             lib_s = "n/a (soft labels)" if lib_ms is None else \
                 f"{lib_ms:.4f} ms"
-            log(f"[kernel-xent] {name} {dname:8s} n={n} d={d} v={v} "
+            log(f"[{tag}] {name} {dname:8s} n={n} d={d} v={v} "
                 f"{labels:6s}  max_err={max(errs.values()):.3g}  kernel="
                 f"{ms:.4f} ms  plain={pl_ms:.4f} ms  library[F.cross_entropy"
                 f" {'forward' if name == 'fwd' else 'backward'}]={lib_s}  "
                 f"bound={b_ms:.4f} ms ({by}){core}")
-        if (n, d, v, labels, dname) == XENT_CASES[0]:
-            served = rows
+        by_case[(n, d, v, labels, dname)] = rows
         del x, w, b, t, got, ref, dx, dz, db, rdx, rdz, rdb
         torch.cuda.empty_cache()
-    log(f"[kernel-xent] verdict: forward and backward agree with their plain"
-        f" versions in {len(XENT_CASES)}/{len(XENT_CASES)} cases, max abs "
+    log(f"[{tag}] verdict: forward and backward agree with their plain"
+        f" versions in {len(cases)}/{len(cases)} cases, max abs "
         f"error {max_err:.3g} (tol 1e-4, bfloat16 dx/dz 1e-2, x max|plain| "
         f"of each output); a zeroed dx, a zeroed dz and a dz without its "
         f"label term fail the comparison in every case")
-    return served, max_err
+    return by_case, max_err
 
 
 # ---------------------------------------------------------------- phase 13
@@ -1871,13 +1905,14 @@ def lstm_bwd_check(kname, names, got, ref, kind, where):
     return worst
 
 
-def lstm_library_bwd_ms(torch, b, t, n):
+def lstm_library_bwd_ms(torch, b, t, n, dtype=None):
     """torch.nn.LSTM's backward (cuDNN, plain cell, its input projection's
-    backward included) at (b, t, n), input width n, float32, TF32 off:
-    one autograd.grad of its output, hT and cT."""
+    backward included) at (b, t, n), input width n, float32 (or `dtype`),
+    TF32 off: one autograd.grad of its output, hT and cT."""
     dev = torch.device("cuda")
+    dtype = dtype or torch.float32
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    lstm = torch.nn.LSTM(n, n, batch_first=True).to(dev)
+    lstm = torch.nn.LSTM(n, n, batch_first=True).to(dev, dtype)
     nbuf = max(1, min(8, math.ceil(2 * L2_BYTES / (b * t * n * 4 * 3))))
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -1885,9 +1920,10 @@ def lstm_library_bwd_ms(torch, b, t, n):
         runs = []
         for _ in range(nbuf):
             x = torch.randn((b, t, n), generator=gen, device=dev,
-                            requires_grad=True)
+                            dtype=dtype, requires_grad=True)
             h0, c0 = (torch.randn((1, b, n), generator=gen, device=dev,
-                                  requires_grad=True) for _ in range(2))
+                                  dtype=dtype, requires_grad=True)
+                      for _ in range(2))
             with torch.enable_grad():
                 out, (hT, cT) = lstm(x, (h0, c0))
             gs = [torch.randn_like(o) for o in (out, hT, cT)]
@@ -1897,6 +1933,27 @@ def lstm_library_bwd_ms(torch, b, t, n):
             iters=max(3, min(ITERS, 6400 // t)))
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+def phase_lstm_library_bf16(torch):
+    """torch.nn.LSTM (cuDNN, plain cell, input projection included) in
+    bfloat16 at the LSTM rows' path shapes: rows 5 and 6 at (64, 64,
+    256), rows 7 and 8 at (8, 4096, 256), forward and backward; the
+    library times of the bfloat16 rows. A refusal by cuDNN is logged as
+    such."""
+    for rows, (b, t, n) in (("5, 6", (64, 64, 256)),
+                            ("7, 8", (8, 4096, 256))):
+        try:
+            f_ms = lstm_library_fwd_ms(torch, b, t, n, torch.bfloat16)
+            b_ms = lstm_library_bwd_ms(torch, b, t, n, torch.bfloat16)
+        except RuntimeError as e:
+            log(f"[kernel-lstm-bwd] library bfloat16 (rows {rows}) at "
+                f"({b}, {t}, {n}): torch.nn.LSTM refuses bfloat16: {e}")
+            continue
+        log(f"[kernel-lstm-bwd] library bfloat16 (rows {rows}): "
+            f"torch.nn.LSTM (cuDNN, plain cell, input projection included) "
+            f"at ({b}, {t}, {n}): forward {f_ms:.4f} ms, backward "
+            f"{b_ms:.4f} ms")
 
 
 def chunk_dR(torch, s, dz, j, tc):
@@ -2566,19 +2623,29 @@ def slot_items(slots):
                     yield f"{key}/{slot}/{path}", leaf
 
 
-def copy_net(dst, src):
-    """dst (a ComputationGraph) takes src's params (in place), running
-    state and updater slots, on dst's device."""
+def copy_state(dst, src):
+    """dst takes src's params (in place), running state and updater slots
+    (a list of entries for a MultiLayerNetwork, a dict for a graph), on
+    dst's device."""
     import torch
 
-    from deeplearning4j_tpu_torch.nn.updaters import tree_map
+    from deeplearning4j_tpu_torch.models._training import flat_items
+
+    def moved(tree):
+        if isinstance(tree, dict):
+            return {k: moved(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(moved(v) for v in tree)
+        return tree.to(dst.device) if isinstance(tree, torch.Tensor) \
+            else tree
 
     with torch.no_grad():
         for name, p in src.params.items():
-            for k, t in p.items():
-                dst.params[name][k].copy_(t)
-    dst.state = tree_map(lambda t: t.to(dst.device), src.state)
-    dst.opt_state = tree_map(lambda t: t.to(dst.device), src.opt_state)
+            mine = dict(flat_items(dst.params[name]))
+            for path, t in flat_items(p):
+                mine[path].copy_(t)
+    dst.state = moved(src.state)
+    dst.opt_state = moved(src.opt_state)
 
 
 # card - CPU, per step from the same point: the score relative; each
@@ -2651,7 +2718,7 @@ def phase_refer_train_resnet(torch, np):
               f"element error of a change {elementwise:.3g} of its leaf's "
               f"largest")
         per_step.append(errs)
-        copy_net(nets["cpu"], nets["card"])
+        copy_state(nets["cpu"], nets["card"])
     launches = read_counts()
     if launches["bn_act"] != 53 * steps:
         raise AssertionError(f"refer-train-resnet: launches {launches}")
@@ -3145,14 +3212,25 @@ DL4J_FIXTURES = {
     "graves_lstm": ("lstm_x", "lstm_y", None),
     "graph_diamond": ("graph_x", "graph_y", None),
 }
-CHECKPOINT_FIXTURES = ("cg_branch_merge", "mln_graves_lstm", "mln_vit")
+CHECKPOINT_FIXTURES = ("cg_branch_merge", "mln_graves_lstm", "mln_vit",
+                       "mln_conv_bn_noise", "mln_scheduled_dropout")
+# the checkpoint fixtures with dropout and weight noise, trained further on
+# the card against the CPU: name -> launches per step
+DROPOUT_FIXTURES = {
+    "mln_conv_bn_noise": {"bn_act": 1, "linear_xent_fwd": 1,
+                          "linear_xent_bwd": 1},
+    "mln_scheduled_dropout": {"linear_xent_fwd": 1, "linear_xent_bwd": 1},
+}
 
 
 def phase_dl4j_fixtures(torch, np):
     """dl4j-fixtures: every committed DL4J zip (tests/fixtures/dl4j/) and
-    the three committed checkpoint zips the port reads, restored onto the
+    the five committed checkpoint zips the port reads, restored onto the
     card, each against its committed output at 1e-5 (TF32 off); the
-    BatchNorm fixture launches bn_act."""
+    BatchNorm fixture launches bn_act. The two with dropout and weight
+    noise then take 3 fit steps on the card against their CPU restore,
+    each from the same point with the card's masks replayed on the CPU.
+    Returns those steps' launches."""
     from deeplearning4j_tpu_torch import dtypes
     from deeplearning4j_tpu_torch.modelimport import (
         restore_computation_graph,
@@ -3203,6 +3281,335 @@ def phase_dl4j_fixtures(torch, np):
             f"{n} {e:.3g}" + (f" (bn_act {b})" if b else "")
             for n, e, b in results) + "; normalizer.bin mean "
         f"{norm.mean.tolist()}")
+    steps, fit_launches = 3, {}
+    for name, per_step in DROPOUT_FIXTURES.items():
+        path = os.path.join(here, name + ".zip")
+        nets = {"card": restore_model(path),
+                "cpu": restore_model(path, device="cpu")}
+        x = cexp[name + "_in"]
+        n_out = cexp[name + "_out"].shape[-1]
+        y = np.eye(n_out, dtype=np.float32)[
+            np.random.default_rng(SEED).integers(0, n_out, len(x))]
+        layers = [f"{type(l).__name__}({type(l.dropout).__name__}, "
+                  f"{type(l.weight_noise).__name__})"
+                  for l in nets["card"].layers
+                  if l.dropout is not None or l.weight_noise is not None]
+        log(f"[dl4j-fixtures] {name}: {', '.join(layers)}; iteration "
+            f"{nets['card'].iteration}; {steps} fit steps, card vs CPU")
+        reset_counts()
+        refer_fit_steps(torch, np, "dl4j-fixtures", nets, (x, y), steps,
+                        REFER_DROPOUT_TOL, what=f"{name} ")
+        launches = read_counts()
+        want = {k: steps * per_step.get(k, 0) for k in launches}
+        if launches != want:
+            raise AssertionError(f"dl4j-fixtures: {name} launches "
+                                 f"{launches}, want {want}")
+        fit_launches = {k: fit_launches.get(k, 0) + v
+                        for k, v in launches.items()}
+    return fit_launches
+
+
+# ------------------------------------------------------------ phases 30-32
+VGG_SHAPE = (224, 224, 3)
+VGG_PARAMS = 138_357_544
+VGG_TRAIN = (64, 20, 5)  # batch, mixed steps, float32 / TF32 steps
+VGG_PER_STEP = {"linear_xent_fwd": 1, "linear_xent_bwd": 1}
+# VGG16's Output: 64 rows of the last Dense's 4096 into 1000 classes
+VGG_XENT_CASES = [(64, 4096, 1000, "onehot", "float32"),
+                  (64, 4096, 1000, "onehot", "bfloat16")]
+# card against CPU per step from the same point, TF32 off (refer_fit_steps'
+# measures): the score relative 1e-5, each element's change 1e-5
+# absolute and the slots 1e-4 of each leaf's largest magnitude, as
+# refer-train holds them; BN running stats 1e-4
+REFER_DROPOUT_TOL = {"score": 1e-5, "change": 1e-5, "slot": 1e-4,
+                     "state": 1e-4}
+# VGG16: no float32 program gets its 13 convs' changes within 1e-4 of
+# each other. Through the relus, at random init, each conv leaf's change
+# and slot is 1e-3 to 7.4e-3 away (in L2 norm) from the same step in
+# float64 on the CPU port and 1e-3 to 8.2e-3 on the card (an NVIDIA H100
+# 80GB HBM3, 700 W; the Dense leaves 1.2e-4 to 8e-8 on both), so the card
+# and the CPU differ by up to 1.7e-2 in a slot and 2.3e-5 in an element's
+# change there, and a leaf's distance moves by up to 1.7x between runs of
+# the card. The changes and slots are held against float64 instead: the
+# card's farthest leaf at most 3 times as far as the CPU float32's
+# farthest (measured 0.24 to 1.63 times over six steps in two runs; a
+# wrong dropout mask put a slot at 1.66, 1353 times, in a mutation check
+# on the CPU at 32x32). The score as refer-train holds it
+REFER_VGG_TOL = {"score": 1e-5, "exact": 3.0}
+
+
+def vgg_net(torch, device=None):
+    from deeplearning4j_tpu_torch.zoo import VGG16
+
+    return VGG16(num_classes=1000, input_shape=VGG_SHAPE, seed=SEED).init(
+        **({} if device is None else {"device": device}))
+
+
+class DrawTape:
+    """Stands in for a network's dropout draws (`nn.dropout.Draws`). A
+    recording tape passes every call on to `inner` and keeps each mask and
+    noise sample it hands out; a replaying tape hands the kept samples out
+    again, in order, on its own device, and fails on a call that does not
+    match the recorded one. So a CPU network trains with the card's
+    masks."""
+
+    def __init__(self, inner, tape, device=None):
+        self.inner, self.tape, self.device = inner, tape, device
+
+    @classmethod
+    def record(cls, inner):
+        return cls(inner, [])
+
+    @classmethod
+    def replay(cls, taken, device):
+        import collections
+
+        return cls(None, collections.deque(taken), device)
+
+    def _child(self, inner):
+        return DrawTape(inner, self.tape, self.device)
+
+    def step(self):
+        return self._child(self.inner and self.inner.step())
+
+    def split(self, n):
+        if self.inner is None:
+            return [self] * n
+        return [self._child(d) for d in self.inner.split(n)]
+
+    def fold_in(self, data):
+        return self._child(self.inner and self.inner.fold_in(data))
+
+    def _take(self, what, shape, draw):
+        if self.inner is not None:
+            t = draw(self.inner)
+            self.tape.append((what, t))
+            return t
+        if not self.tape:
+            raise AssertionError(f"replayed draws exhausted at {what}")
+        got, t = self.tape.popleft()
+        if got != what or tuple(t.shape) != tuple(shape):
+            raise AssertionError(f"replayed draws out of step: recorded "
+                                 f"{got} {tuple(t.shape)}, asked {what} "
+                                 f"{tuple(shape)}")
+        return t.to(self.device)
+
+    def bernoulli(self, p, shape):
+        return self._take(("bernoulli", p), shape,
+                          lambda d: d.bernoulli(p, shape))
+
+    def normal(self, shape, dtype):
+        return self._take(("normal", str(dtype)), shape,
+                          lambda d: d.normal(shape, dtype))
+
+    def keep_rates(self):
+        """(p, kept share) of each recorded mask."""
+        return [(what[1], float(t.float().mean())) for what, t in self.tape
+                if what[0] == "bernoulli"]
+
+
+def as_float64(net):
+    """`net` (on the CPU) with its params and updater slots in float64."""
+    import torch
+
+    def widened(tree):
+        if isinstance(tree, dict):
+            return {k: widened(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(widened(v) for v in tree)
+        if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+            return tree.double()
+        return tree
+
+    with torch.no_grad():
+        net.params = widened(net.params)
+    net.opt_state = widened(net.opt_state)
+    return net
+
+
+def refer_fit_steps(torch, np, tag, nets, data, steps, tol, what=""):
+    """`steps` fit calls of nets["card"] (TF32 off) and of the CPU networks
+    (nets["cpu"] in float32 and, where given, nets["f64"], the same network
+    in float64) on `data` (features, labels), each from the same point: the
+    card's dropout masks and noise are recorded and replayed on the CPU,
+    and after each step the CPU networks take the card's params, state and
+    slots. Measures per step: "score" |card - cpu| / |cpu|; "change" the
+    largest |card - cpu| over the params' changes; "slot" each updater
+    slot's largest |card - cpu| over its leaf's largest magnitude; "state"
+    the running state's likewise; with "f64", "exact": the card's largest
+    distance from float64 over every change and slot leaf (in L2 norm,
+    relative) over the CPU float32's largest (at least 1e-5). Gates the
+    measures named in `tol`; returns the worst of each over the steps."""
+    from deeplearning4j_tpu_torch import dtypes, interop
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    def norm_rel(a, c):
+        return float(np.linalg.norm(a - c) / max(np.linalg.norm(c), 1e-30))
+
+    x, y = data
+    batches = {k: DataSet(x.astype(np.float64), y.astype(np.float64))
+               if k == "f64" else DataSet(x, y) for k in nets}
+    base = nets["card"].draws
+    worst = {}
+    for step in range(steps):
+        start = nets["cpu"].get_param_table()
+        rec = DrawTape.record(base)
+        nets["card"].draws = rec
+        with dtypes.full_precision():
+            nets["card"].fit(batches["card"])
+            for k, net in nets.items():
+                if k != "card":
+                    net.draws = DrawTape.replay(rec.tape, "cpu")
+                    net.fit(batches[k])
+                    if net.draws.tape:
+                        raise AssertionError(
+                            f"{tag}: {len(net.draws.tape)} recorded draws "
+                            f"left over")
+        moved = {k: {key: p - start[key]
+                     for key, p in net.get_param_table().items()}
+                 for k, net in nets.items()}
+        slots = {k: dict(slot_items(interop.opt_state_to_jax(net)))
+                 for k, net in nets.items()}
+        states = [(nets["card"].state[k][s], v)
+                  for k, st in nets["cpu"].state.items()
+                  for s, v in st.items()]
+        errs = {
+            "score": abs(nets["card"].score_ - nets["cpu"].score_)
+            / abs(nets["cpu"].score_),
+            "change": max(float(np.abs(moved["card"][k] - w).max())
+                          for k, w in moved["cpu"].items()),
+            "slot": max(leaf_rel(slots["card"][k], v)
+                        for k, v in slots["cpu"].items()),
+            "state": max((leaf_rel(a.cpu().numpy(), b.numpy())
+                          for a, b in states), default=0.0),
+        }
+        note = ""
+        if "f64" in nets:
+            dist = {}
+            for k in ("card", "cpu"):
+                dist[k] = {**{f"change {key}": norm_rel(moved[k][key], w)
+                              for key, w in moved["f64"].items()},
+                           **{f"slot {key}": norm_rel(slots[k][key], w)
+                              for key, w in slots["f64"].items()}}
+            far = {k: max(d, key=d.get) for k, d in dist.items()}
+            errs["exact"] = dist["card"][far["card"]] / max(
+                dist["cpu"][far["cpu"]], 1e-5)
+            note = "; against float64 the farthest leaf " + ", ".join(
+                f"{k} {far[k]} {dist[k][far[k]]:.3g}" for k in far)
+        log(f"[{tag}] {what}step {step + 1}: scores "
+            f"{nets['card'].score_:.7f} (card) {nets['cpu'].score_:.7f} "
+            f"(CPU); " + ", ".join(
+                f"{k} {v:.3g}" + (f" (tol {tol[k]:g})" if k in tol else "")
+                for k, v in errs.items())
+            + f"{note}; {len(rec.tape)} draws replayed")
+        worst = {k: max(worst.get(k, v), v) for k, v in errs.items()}
+        for k, net in nets.items():
+            if k != "card":
+                copy_state(net, nets["card"])
+        if "f64" in nets:
+            as_float64(nets["f64"])
+    nets["card"].draws = base
+    bad = {k: worst[k] for k in tol
+           if not (math.isfinite(worst[k]) and worst[k] <= tol[k])}
+    if bad:
+        raise AssertionError(f"{tag}: card and CPU differ: {bad}")
+    return worst
+
+
+def phase_train_vgg16(torch, np, card):
+    """Zoo VGG16 at full width trained by MultiLayerNetwork.fit: 20 steps
+    under the mixed policy on one repeated batch of 64 bfloat16 images made
+    on the card, then 5 under the float32 / TF32 policy on the same images
+    in float32, one network throughout. Returns the mixed run's
+    launches."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    b, mixed_steps, f32_steps = VGG_TRAIN
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    x = torch.randn((b, *VGG_SHAPE), generator=gen, device=dev).to(
+        torch.bfloat16)
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 1000, (b,), generator=gen, device=dev), 1000).float()
+    t0 = time.perf_counter()
+    net = vgg_net(torch)
+    if net.num_params() != VGG_PARAMS:
+        raise AssertionError(f"train-vgg16: {net.num_params()} params")
+    log(f"[train-vgg16] VGG16 ({net.num_params()} params, dropout "
+        f"{[l.dropout for l in net.layers if l.dropout]}) on {net.device} "
+        f"in {time.perf_counter() - t0:.2f} s; draws on "
+        f"{net.draws.generator.device}")
+    results = {}
+    for mixed, steps, data in ((True, mixed_steps, DataSet(x, y)),
+                               (False, f32_steps, DataSet(x.float(), y))):
+        tag = "mixed bf16" if mixed else "TF32"
+        dtypes.set_mixed_precision(mixed)
+        torch.cuda.reset_peak_memory_stats()
+        base = net.draws
+        tape = DrawTape.record(base)
+        try:
+            reset_counts()
+            net.draws = tape
+            first = timed_fits(torch, net, data, 1)
+            net.draws = base
+            runs = first + timed_fits(torch, net, data, steps - 1)
+            launches = read_counts()
+        finally:
+            net.draws = base
+            dtypes.set_mixed_precision(False)
+        scores = [sc for _, sc in runs]
+        want = {k: steps * VGG_PER_STEP.get(k, 0) for k in launches}
+        if launches != want:
+            raise AssertionError(f"train-vgg16 ({tag}): launches "
+                                 f"{launches}, want {want}")
+        if not all(math.isfinite(sc) for sc in scores):
+            raise AssertionError(f"train-vgg16 ({tag}): scores {scores}")
+        if mixed and not sorted(scores[-5:])[2] < scores[0]:
+            raise AssertionError(f"train-vgg16 ({tag}): the median of the "
+                                 f"last 5 scores is not below the first: "
+                                 f"{scores}")
+        keep = tape.keep_rates()
+        if len(keep) != 2 or any(abs(k - p) > 0.01 for p, k in keep):
+            raise AssertionError(f"train-vgg16 ({tag}): dropout masks "
+                                 f"(p, kept) {keep}")
+        steady = sorted(t for t, _ in runs[1:])
+        step_ms = steady[len(steady) // 2] * 1e3
+        log(f"[train-vgg16] {tag}: {steps} steps of {b} images, scores "
+            f"{', '.join(f'{sc:.5f}' for sc in scores)}; launches {want} "
+            f"(per step {VGG_PER_STEP}); first step's dropout masks (p, "
+            f"kept share) {[(p, round(k, 5)) for p, k in keep]}")
+        log(f"[train-vgg16] {tag}: median step {step_ms:.3f} ms, "
+            f"{b / (step_ms / 1e3):.1f} trained images/s; first step "
+            f"{runs[0][0] * 1e3:.2f} ms; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB ({card})")
+        results[tag] = launches
+    del net
+    torch.cuda.empty_cache()
+    return results["mixed bf16"]
+
+
+def phase_refer_train_vgg16(torch, np):
+    """3 Nesterovs steps of VGG16 at full width and batch 2 on the card
+    (TF32 off), on the CPU and on the CPU in float64, each from the same
+    point, the card's dropout masks replayed on the CPU."""
+
+    steps, b = 3, 2
+    rng = np.random.default_rng(SEED + 12)
+    x = rng.standard_normal((b, *VGG_SHAPE)).astype(np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, b)]
+    nets = {"card": vgg_net(torch), "cpu": vgg_net(torch, "cpu"),
+            "f64": as_float64(vgg_net(torch, "cpu"))}
+    reset_counts()
+    refer_fit_steps(torch, np, "refer-train-vgg16", nets, (x, y), steps,
+                    REFER_VGG_TOL)
+    launches = read_counts()
+    want = {k: steps * VGG_PER_STEP.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"refer-train-vgg16: launches {launches}, "
+                             f"want {want}")
+    del nets
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3274,9 +3681,11 @@ def main() -> int:
         flash_bwd, flash_bwd_err = phase_flash_bwd(torch, bw, peak,
                                                    peak_bf16, peak_tf32)
         xent, xent_err = phase_xent(torch, bw, peak, peak_bf16, peak_tf32)
+        xent = xent[XENT_CASES[0]]
         train_launches = phase_train_lm(torch, np, card)
         phase_refer_train(torch, np)
         lstm_bwd, lstm_bwd_err = phase_lstm_bwd(torch, bw, peak, peak_tf32)
+        phase_lstm_library_bf16(torch)
         rnn_train_launches = phase_train_rnn(torch, np, card)
         phase_train_rnn_tbptt(torch, np, card)
         long_launches = phase_train_rnn_long(torch, np, card)
@@ -3307,9 +3716,18 @@ def main() -> int:
             resume_launches = {k: v + resume[k]
                                for k, v in restore_launches.items()}
             del char_rnn
-        phase_dl4j_fixtures(torch, np)
+        fixture_launches = phase_dl4j_fixtures(torch, np)
         log(f"[dl4j-fixtures] the persistence phases (dl4j-write, "
             f"dl4j-charrnn, checkpoint-resume, dl4j-fixtures) took "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        vgg_xent, vgg_err = phase_xent(torch, bw, peak, peak_bf16, peak_tf32,
+                                       cases=VGG_XENT_CASES, tag="kernel-vgg")
+        xent_err = max(xent_err, vgg_err)
+        vgg_launches = phase_train_vgg16(torch, np, card)
+        phase_refer_train_vgg16(torch, np)
+        log(f"[refer-train-vgg16] the VGG16 phases (kernel-vgg, "
+            f"train-vgg16, refer-train-vgg16) took "
             f"{time.perf_counter() - t0:.1f} s")
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
@@ -3329,6 +3747,10 @@ def main() -> int:
     # forward and 1 xent backward; per training step of the
     # TextGenerationLSTM: 2 lstm_scan_bwd at 64 x 64, 2 lstm_scan_chunked and
     # 2 lstm_scan_chunked_bwd at 8 x 4096
+    def vgg_rows(name):
+        # per launch at VGG16's Output, (64, 4096, 1000), both policies
+        return {case[-1]: vgg_xent[case][name] for case in VGG_XENT_CASES}
+
     def per_forward(row, calls):
         return {k: (v * calls if k.endswith("ms") and v is not None else v)
                 for k, v in row.items()}
@@ -3348,9 +3770,9 @@ def main() -> int:
             train_launches["flash_attention_bwd_dkv"], flash_bwd_err,
             per_forward(flash_bwd["dkv"], LM["n_layers"])),
         "linear_xent_fwd": (train_launches["linear_xent_fwd"], xent_err,
-                            xent["fwd"]),
+                            dict(xent["fwd"], vgg16_output=vgg_rows("fwd"))),
         "linear_xent_bwd": (train_launches["linear_xent_bwd"], xent_err,
-                            xent["bwd"]),
+                            dict(xent["bwd"], vgg16_output=vgg_rows("bwd"))),
         "lstm_scan_bwd": (rnn_train_launches["lstm_scan_bwd"],
                           lstm_bwd_err["lstm_scan_bwd"],
                           per_forward(lstm_bwd["lstm_scan_bwd"], 2)),
@@ -3371,11 +3793,15 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            **{k: t[k] for k in ("library_covers", "inception_v3_forward")
-               if k in t},
+            **{k: t[k] for k in ("library_covers", "inception_v3_forward",
+                                 "vgg16_output") if k in t},
             # launches on the char-RNN's DL4J restore and resume path
             # (dl4j-charrnn and checkpoint-resume)
-            "dl4j_resume_launches": resume_launches[kname]})
+            "dl4j_resume_launches": resume_launches[kname],
+            # launches in train-vgg16's 20 mixed steps and in the dropout
+            # fixtures' 3 + 3 card steps (dl4j-fixtures)
+            "vgg16_launches": vgg_launches[kname],
+            "dropout_fixture_launches": fixture_launches[kname]})
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

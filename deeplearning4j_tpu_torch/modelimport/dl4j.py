@@ -308,8 +308,8 @@ def _common_kwargs(node: dict) -> dict:
     if u is not None:
         kw["updater"] = u
     # training semantics: dropping these would fine-tune with other
-    # regularization than the reference net had (fit refuses dropout until
-    # it is ported, ROADMAP A.4)
+    # regularization than the reference net had (a float dropOut is the
+    # retain probability, which fit applies as Dropout(p))
     drop = node.get("dropOut")
     if drop not in (None, 0, 0.0, 1.0):
         kw["dropout"] = float(drop)

@@ -189,7 +189,8 @@ class KerasLayerTranslator:
         return Activation(activation=f"leakyrelu:{alpha}")
 
     def t_dropout(self, cfg):
-        # keras rate = drop prob; our field stores retain prob (DL4J style)
+        # keras rate = drop prob; our field stores retain prob (DL4J style),
+        # which fit applies as inverted dropout
         return DropoutLayer(dropout=1.0 - float(cfg.get("rate", 0.5)))
 
     def t_flatten(self, cfg):

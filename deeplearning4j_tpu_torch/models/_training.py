@@ -135,20 +135,12 @@ def update_layer(layer, defaults, updater, params, grads, slots,
     return slots
 
 
-def check_trainable(defaults, layers) -> None:
+def check_trainable(defaults) -> None:
     """Refuse what training in the port does not apply yet: the
-    line-search solvers, dropout and weight noise. `layers` is (where,
-    Layer) pairs."""
+    line-search solvers."""
     if defaults.optimization_algo not in ("stochastic_gradient_descent",
                                           "sgd"):
         raise NotImplementedError(
             f"optimization_algo={defaults.optimization_algo!r}: the "
             f"line-search solvers are not ported yet; fit trains with SGD "
             f"updaters")
-    for where, layer in layers:
-        for field in ("dropout", "weight_noise", "attn_dropout"):
-            if getattr(layer, field, None) is not None:
-                raise NotImplementedError(
-                    f"{where} ({type(layer).__name__}) asks for {field}, "
-                    f"which training in the port does not apply yet; "
-                    f"refusing to train without it")

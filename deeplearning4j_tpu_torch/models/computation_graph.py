@@ -22,9 +22,17 @@ tensors `init` made stay the network's params; the updater slots
 state (BatchNorm's EMA) are replaced each step. `fit` takes a MultiDataSet,
 a DataSet, a DataSetIterator, or features and labels (lists for several
 inputs or outputs); batches already on the network's device are used as
-they are. Masks, tBPTT, the line-search solvers, dropout, weight noise and
-the JAX package's windowed engine, FSDP and remat are not ported yet; `fit`
-raises on a batch or configuration that needs them.
+they are. Masks, tBPTT, the line-search solvers and the JAX package's
+windowed engine, FSDP and remat are not ported yet; `fit` raises on a batch
+or configuration that needs them.
+
+Dropout and weight noise draw from `draws` (an `nn.dropout.Draws` on the
+network's device, seeded from `conf.defaults.seed` by `init`): each step
+takes `draws.step()` under `iteration_scope(iteration)`; the vertex at
+position i of the topological order gets `split(len(topo))[i]` (a
+LayerVertex applies its layer's weight noise with it, folded with 997, and
+the layer's dropout), and an output vertex's weight noise folds the step's
+draws themselves, as the JAX package does with its keys.
 """
 from __future__ import annotations
 
@@ -37,8 +45,11 @@ from deeplearning4j_tpu_torch import device as device_mod
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterators import DataSetIterator
 from deeplearning4j_tpu_torch.models import _training as tr
+from deeplearning4j_tpu_torch.nn import weightnoise as wn_mod
+from deeplearning4j_tpu_torch.nn.dropout import Draws
 from deeplearning4j_tpu_torch.nn.graph_conf import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.graph_vertices import LayerVertex
+from deeplearning4j_tpu_torch.nn.layers.base import iteration_scope
 from deeplearning4j_tpu_torch.nn.layers.output import BaseOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrent
 
@@ -55,6 +66,7 @@ class ComputationGraph:
         self.state: Optional[Dict[str, Params]] = None
         self.device: Optional[torch.device] = None
         self.opt_state: Optional[Dict[str, object]] = None
+        self.draws: Optional[Draws] = None
         self.iteration: int = 0
         self.epoch: int = 0
         self.listeners: List = []
@@ -74,9 +86,9 @@ class ComputationGraph:
     def init(self, device=None) -> "ComputationGraph":
         """Random params from `conf.defaults.seed` (one CPU torch.Generator
         drawn in topological order, so a seed gives the same weights on
-        every device), running state at its defaults and zeroed updater
-        slots, all on `device` (default: the CUDA card; pass device="cpu"
-        for the CPU)."""
+        every device), running state at its defaults, zeroed updater slots
+        and the dropout draws' generator, all on `device` (default: the
+        CUDA card; pass device="cpu" for the CPU)."""
         self.device = device_mod.resolve(device)
         gen = torch.Generator().manual_seed(int(self.conf.defaults.seed))
         self.params, self.state = {}, {}
@@ -89,6 +101,7 @@ class ComputationGraph:
                                 for k, t in v.init_state(in_types).items()}
         self.opt_state = {name: self._updaters[name].init_state(
             self.params[name]) for name in self.topo}
+        self.draws = Draws.seeded(self.conf.defaults.seed, self.device)
         return self
 
     def layer(self, name: str):
@@ -112,18 +125,22 @@ class ComputationGraph:
 
     def _forward(self, params, inputs: Sequence[torch.Tensor], *,
                  train: bool = False, stop_at_outputs: bool = False,
-                 carries: Optional[Dict[str, tuple]] = None):
+                 carries: Optional[Dict[str, tuple]] = None, rng=None):
         """Forward over the DAG with `params`. Returns (acts, new_state):
         every vertex's activation and the running state after the walk
         (updated by vertices that track statistics when `train`). With
         `stop_at_outputs` an output vertex's activation is its input, for
         its loss. With `carries` (see `_init_carries`) a recurrent vertex
         scans from its entry and the entry is replaced by its new carry, in
-        place. Masks are not ported yet."""
+        place. With `rng` (a step's draws) and `train`, the vertex at
+        position i of `topo` takes `rng.split(len(topo))[i]`. Masks are not
+        ported yet."""
         acts: Dict[str, object] = dict(zip(self.conf.network_inputs, inputs))
         new_state = dict(self.state)
         outputs = set(self.conf.network_outputs)
-        for name in self.topo:
+        rngs = (rng.split(len(self.topo)) if rng is not None
+                else [None] * len(self.topo))
+        for name, r in zip(self.topo, rngs):
             v = self.conf.vertices[name]
             vin = [acts[x] for x in self.conf.vertex_inputs[name]]
             if stop_at_outputs and name in outputs and \
@@ -131,11 +148,13 @@ class ComputationGraph:
                 acts[name] = vin[0] if len(vin) == 1 else vin
                 continue
             if carries is not None and name in carries:
+                p = wn_mod.maybe_transform(v.layer, params[name], r, train)
                 acts[name], carries[name] = v.layer.scan(
-                    params[name], vin[0], carries[name], train=train)
+                    p, vin[0], carries[name], train=train, rng=r)
             else:
                 acts[name], st = v.apply(params[name], vin,
-                                         state=self.state[name], train=train)
+                                         state=self.state[name], train=train,
+                                         rng=r)
                 if train:
                     new_state[name] = st
         return acts, new_state
@@ -218,19 +237,21 @@ class ComputationGraph:
                                          total=total)
         return total
 
-    def _loss(self, params, inputs, labels, train: bool = True):
+    def _loss(self, params, inputs, labels, train: bool = True, rng=None):
         """(score, new_state): the sum over the output vertices of each
-        one's loss on its input, plus the l1/l2 penalty."""
+        one's loss on its input (its weight noise from `rng` folded), plus
+        the l1/l2 penalty."""
         acts, new_state = self._forward(params, inputs, train=train,
-                                        stop_at_outputs=True)
+                                        stop_at_outputs=True, rng=rng)
         total = torch.zeros((), device=self.device)
         for name, y in zip(self.conf.network_outputs, labels):
             layer = self.layer(name)
             if not isinstance(layer, BaseOutputLayer):
                 raise TypeError(f"output vertex {name!r} must wrap an output "
                                 f"layer (Output, RnnOutput, LossLayer)")
+            p_out = wn_mod.maybe_transform(layer, params[name], rng, train)
             score, _, new_state[name] = layer.compute_loss(
-                params[name], acts[name], y, state=self.state[name])
+                p_out, acts[name], y, state=self.state[name])
             total = total + score
         return total + self._reg_score(params), new_state
 
@@ -246,10 +267,7 @@ class ComputationGraph:
                     self.opt_state[name], iteration)
 
     def _check_trainable(self) -> None:
-        tr.check_trainable(self.conf.defaults,
-                           [(f"vertex {name!r}", self.layer(name))
-                            for name in self.topo
-                            if self.layer(name) is not None])
+        tr.check_trainable(self.conf.defaults)
 
     def _fit_mds(self, mds: MultiDataSet) -> None:
         """One updater step on one batch: loss, gradients, updates, then
@@ -264,8 +282,11 @@ class ComputationGraph:
                 "tBPTT through the ComputationGraph is not ported yet")
         inputs = [self._batch(x) for x in mds.features]
         labels = [self._batch(y) for y in mds.labels]
-        score, new_state, grads = tr.value_and_grad(
-            lambda: self._loss(self.params, inputs, labels), self.params)
+        rng = self.draws.step()
+        with iteration_scope(self.iteration):
+            score, new_state, grads = tr.value_and_grad(
+                lambda: self._loss(self.params, inputs, labels, rng=rng),
+                self.params)
         with torch.no_grad():
             self._apply_updates(grads, self.iteration)
             self.state = {k: tr.detach(v) for k, v in new_state.items()}

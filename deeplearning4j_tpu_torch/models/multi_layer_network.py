@@ -29,8 +29,16 @@ listeners advance per window. Any other batch takes the standard step. The
 line-search solvers, layerwise `pretrain` and the JAX package's windowed
 engine (training/engine.py: step windows, TrainingRun's resume/save
 cadence, the stall watchdog, flight bundles, async prefetch) are not ported
-yet; `fit` raises on a configuration that needs them, and on dropout or
-weight noise.
+yet; `fit` raises on a configuration that needs them.
+
+Dropout and weight noise draw from `draws` (an `nn.dropout.Draws` on the
+network's device, seeded from `conf.defaults.seed` by `init`). Each step
+(each tBPTT window) takes `draws.step()` and runs under
+`iteration_scope(iteration)`, so schedules see the step: layer i of the L
+gets `split(L - 1)[i]` for its dropout and, folded with 997, for its weight
+noise; the output layer's weight noise folds the step's draws themselves
+(not in a tBPTT window), as the JAX package does with its keys. Inference
+never draws.
 """
 from __future__ import annotations
 
@@ -48,8 +56,10 @@ from deeplearning4j_tpu_torch.datasets.iterators import (
 from deeplearning4j_tpu_torch.models import _training as tr
 from deeplearning4j_tpu_torch.models._training import flat_items  # noqa: F401 (its users import it from here)
 from deeplearning4j_tpu_torch.nn import updaters as upd_mod
+from deeplearning4j_tpu_torch.nn import weightnoise as wn_mod
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
-from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.nn.dropout import Draws
+from deeplearning4j_tpu_torch.nn.layers.base import Layer, iteration_scope
 from deeplearning4j_tpu_torch.nn.layers.output import BaseOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrent
 
@@ -72,6 +82,7 @@ class MultiLayerNetwork:
         self.state: Optional[Dict[str, Params]] = None
         self.device: Optional[torch.device] = None
         self.opt_state: Optional[list] = None
+        self.draws: Optional[Draws] = None
         self.iteration: int = 0
         self.epoch: int = 0
         self.listeners: List = []
@@ -90,9 +101,9 @@ class MultiLayerNetwork:
     def init(self, device=None) -> "MultiLayerNetwork":
         """Random params from `conf.defaults.seed` (one CPU torch.Generator
         drawn layer by layer, so a seed gives the same weights on every
-        device), running state at its defaults and zeroed updater slots,
-        all on `device` (default: the CUDA card; pass device="cpu" for the
-        CPU)."""
+        device), running state at its defaults, zeroed updater slots and
+        the dropout draws' generator, all on `device` (default: the CUDA
+        card; pass device="cpu" for the CPU)."""
         self.device = device_mod.resolve(device)
         gen = torch.Generator().manual_seed(int(self.conf.defaults.seed))
         self.params, self.state = {}, {}
@@ -104,6 +115,7 @@ class MultiLayerNetwork:
                                                self.device)
         self.opt_state = [u.init_state(self.params[_key(i)])
                           for i, u in enumerate(self._updaters)]
+        self.draws = Draws.seeded(self.conf.defaults.seed, self.device)
         return self
 
     def layer(self, key: str) -> Layer:
@@ -124,27 +136,31 @@ class MultiLayerNetwork:
     def _walk(self, params, x: torch.Tensor, *, train: bool = False,
               mask: Optional[torch.Tensor] = None,
               to_layer: Optional[int] = None, acts: Optional[list] = None,
-              carries: Optional[list] = None):
+              carries: Optional[list] = None, rng=None):
         """Forward through layers [0, to_layer) with `params`. Returns (x,
         new_state, mask): the activation, the running state after the walk
         (updated by layers that track statistics when `train`) and the mask
         the next layer would see. Appends each activation to `acts` when
         given. With `carries` (one entry per layer, see `_init_carries`) a
         recurrent layer scans from its entry and the entry is replaced by
-        its new carry, in place."""
+        its new carry, in place. With `rng` (a step's draws) and `train`,
+        layer i takes `rng.split(to_layer)[i]` for its weight noise and
+        dropout."""
         n = len(self.layers) if to_layer is None else to_layer
+        rngs = rng.split(n) if rng is not None else [None] * n
         new_state = dict(self.state)
         for i in range(n):
             layer = self.layers[i]
             if i in self.conf.input_preprocessors:
                 x = self.conf.input_preprocessors[i].transform(x, mask)
             k = _key(i)
+            p = wn_mod.maybe_transform(layer, params[k], rngs[i], train)
             if carries is not None and isinstance(layer, BaseRecurrent):
-                x, carries[i] = layer.scan(params[k], x, carries[i],
-                                           mask=mask, train=train)
+                x, carries[i] = layer.scan(p, x, carries[i], mask=mask,
+                                           train=train, rng=rngs[i])
             else:
-                x, st = layer.apply(params[k], x, state=self.state[k],
-                                    train=train, mask=mask)
+                x, st = layer.apply(p, x, state=self.state[k], train=train,
+                                    mask=mask, rng=rngs[i])
                 if train:
                     new_state[k] = st
             if acts is not None:
@@ -228,11 +244,14 @@ class MultiLayerNetwork:
         return total
 
     def _loss(self, params, x, y, fmask=None, lmask=None, train=True,
-              carries=None):
+              carries=None, rng=None):
         """(score, new_state): the output layer's loss on the last hidden
         activation, under the labels mask (else the propagated features
         mask), plus the l1/l2 penalty. With `carries` the recurrent layers
-        scan from them and leave their new carries there (see `_walk`)."""
+        scan from them and leave their new carries there (see `_walk`).
+        `rng` is the step's draws; the output layer's weight noise takes
+        them folded, except in a tBPTT window (with `carries`), where the
+        JAX package applies none."""
         out_layer = self.layers[-1]
         if not isinstance(out_layer, BaseOutputLayer):
             raise TypeError("the last layer must be an output layer "
@@ -240,10 +259,13 @@ class MultiLayerNetwork:
         n = len(self.layers)
         h, new_state, cur_mask = self._walk(params, x, train=train,
                                             mask=fmask, to_layer=n - 1,
-                                            carries=carries)
+                                            carries=carries, rng=rng)
         k = _key(n - 1)
+        p_out = params[k]
+        if carries is None:
+            p_out = wn_mod.maybe_transform(out_layer, p_out, rng, train)
         score, _, out_state = out_layer.compute_loss(
-            params[k], h, y, state=self.state[k],
+            p_out, h, y, state=self.state[k],
             mask=lmask if lmask is not None else cur_mask)
         new_state[k] = out_state
         return score + self._reg_score(params), new_state
@@ -263,9 +285,7 @@ class MultiLayerNetwork:
                 g, self.opt_state[i], iteration)
 
     def _check_trainable(self) -> None:
-        tr.check_trainable(self.conf.defaults,
-                           [(f"layer {i}", l) for i, l in
-                            enumerate(self.layers)])
+        tr.check_trainable(self.conf.defaults)
 
     def _batch(self, a):
         """A batch array as a tensor on the network's device: a tensor
@@ -276,10 +296,14 @@ class MultiLayerNetwork:
         """One updater step on one batch (or tBPTT window): loss, gradients,
         updates, then `score_`, `last_batch_size`, `iteration` and the
         listeners. With `carries` the recurrent layers start from them and
-        leave their new carries there, detached."""
-        score, new_state, grads = tr.value_and_grad(
-            lambda: self._loss(self.params, x, y, fm, lm, carries=carries),
-            self.params)
+        leave their new carries there, detached. Dropout and weight noise
+        draw from `draws.step()`, schedules at the step's iteration."""
+        rng = self.draws.step()
+        with iteration_scope(self.iteration):
+            score, new_state, grads = tr.value_and_grad(
+                lambda: self._loss(self.params, x, y, fm, lm,
+                                   carries=carries, rng=rng),
+                self.params)
         if carries is not None:
             carries[:] = [None if c is None else tuple(v.detach() for v in c)
                           for c in carries]
@@ -353,12 +377,16 @@ class MultiLayerNetwork:
         return self
 
     def score(self, ds: DataSet, training: bool = False) -> float:
-        """The loss on a dataset (score(DataSet)), penalty included."""
+        """The loss on a dataset (score(DataSet)), penalty included. With
+        `training`, dropout and weight noise draw from a generator seeded
+        with 0 (the JAX package's fixed PRNGKey(0)), not from `draws`."""
+        rng = Draws.seeded(0, self.device) if training else None
         with torch.no_grad():
             s, _ = self._loss(self.params, self._batch(ds.features),
                               self._batch(ds.labels),
                               self._batch(ds.features_mask),
-                              self._batch(ds.labels_mask), train=training)
+                              self._batch(ds.labels_mask), train=training,
+                              rng=rng)
         return float(s)
 
     def set_listeners(self, *listeners) -> "MultiLayerNetwork":

@@ -26,8 +26,8 @@ from its configuration on `device` (None: the card) and loads every array
 through its layer's interchange hook (`interop`), checking names and
 shapes.
 
-A configuration that names a layer, vertex, dropout or weight-noise class
-the port has not ported yet raises NotImplementedError naming the class and
+A configuration that names a layer or vertex class the port has not
+ported yet raises NotImplementedError naming the class and
 the ROADMAP item that brings it.
 """
 from __future__ import annotations
@@ -46,8 +46,6 @@ FORMAT_VERSION = 1
 # classes of the JAX package a checkpoint may name that the port has not
 # ported yet -> the ROADMAP item that brings them
 _NOT_PORTED = {
-    **dict.fromkeys(("Dropout", "AlphaDropout", "GaussianDropout",
-                     "GaussianNoise", "DropConnect", "WeightNoise"), "A.4"),
     **dict.fromkeys(("GravesBidirectionalLSTM", "SimpleRnn", "LastTimeStep",
                      "LastTimeStepVertex", "DuplicateToTimeSeriesVertex"),
                     "A.6"),

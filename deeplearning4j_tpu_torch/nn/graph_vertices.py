@@ -19,6 +19,7 @@ from typing import Dict, List, Sequence
 import torch
 
 from deeplearning4j_tpu_torch.nn import inputs as it
+from deeplearning4j_tpu_torch.nn import weightnoise as wn_mod
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
 from deeplearning4j_tpu_torch.nn.preprocessors import InputPreProcessor
 
@@ -46,7 +47,7 @@ class GraphVertex:
         return False
 
     def apply(self, params, inputs: List[torch.Tensor], *, state, train,
-              masks=None):
+              masks=None, rng=None):
         raise NotImplementedError
 
     def to_json(self) -> dict:
@@ -93,10 +94,14 @@ class LayerVertex(GraphVertex):
     def has_params(self):
         return self.layer.has_params()
 
-    def apply(self, params, inputs, *, state, train, masks=None):
+    def apply(self, params, inputs, *, state, train, masks=None,
+              rng=None):
+        """The layer on the first input, its weight noise on its params
+        first at train time (as the JAX package's LayerVertex)."""
         mask = masks[0] if masks else None
+        params = wn_mod.maybe_transform(self.layer, params, rng, train)
         return self.layer.apply(params, inputs[0], state=state, train=train,
-                                mask=mask)
+                                mask=mask, rng=rng)
 
 
 @register_vertex
@@ -109,7 +114,8 @@ class ElementWiseVertex(GraphVertex):
     def output_type(self, input_types):
         return input_types[0]
 
-    def apply(self, params, inputs, *, state, train, masks=None):
+    def apply(self, params, inputs, *, state, train, masks=None,
+              rng=None):
         op = self.op.lower()
         if op == "add":
             out = sum(inputs[1:], inputs[0])
@@ -146,7 +152,8 @@ class MergeVertex(GraphVertex):
                                 t0.timesteps)
         return it.FeedForward(sum(t.arity() for t in input_types))
 
-    def apply(self, params, inputs, *, state, train, masks=None):
+    def apply(self, params, inputs, *, state, train, masks=None,
+              rng=None):
         return torch.cat(inputs, dim=-1), state
 
 
@@ -167,7 +174,8 @@ class ReshapeVertex(GraphVertex):
             return it.Convolutional(s[0], s[1], s[2])
         raise ValueError(f"Bad reshape {s}")
 
-    def apply(self, params, inputs, *, state, train, masks=None):
+    def apply(self, params, inputs, *, state, train, masks=None,
+              rng=None):
         x = inputs[0]
         return x.reshape((x.shape[0],) + tuple(self.new_shape)), state
 
@@ -183,7 +191,8 @@ class PreprocessorVertex(GraphVertex):
     def output_type(self, input_types):
         return self.preprocessor.output_type(input_types[0])
 
-    def apply(self, params, inputs, *, state, train, masks=None):
+    def apply(self, params, inputs, *, state, train, masks=None,
+              rng=None):
         return self.preprocessor.transform(inputs[0]), state
 
 
@@ -205,7 +214,8 @@ class SubsetVertex(GraphVertex):
             return it.Convolutional(t0.height, t0.width, n)
         return it.FeedForward(n)
 
-    def apply(self, params, inputs, *, state, train, masks=None):
+    def apply(self, params, inputs, *, state, train, masks=None,
+              rng=None):
         return inputs[0][..., self.from_idx:self.to_idx + 1], state
 
 
@@ -217,7 +227,8 @@ class StackVertex(GraphVertex):
     def output_type(self, input_types):
         return input_types[0]
 
-    def apply(self, params, inputs, *, state, train, masks=None):
+    def apply(self, params, inputs, *, state, train, masks=None,
+              rng=None):
         return torch.cat(inputs, dim=0), state
 
 
@@ -233,7 +244,8 @@ class UnstackVertex(GraphVertex):
     def output_type(self, input_types):
         return input_types[0]
 
-    def apply(self, params, inputs, *, state, train, masks=None):
+    def apply(self, params, inputs, *, state, train, masks=None,
+              rng=None):
         x = inputs[0]
         step = x.shape[0] // self.stack_size
         return x[self.from_idx * step:(self.from_idx + 1) * step], state
@@ -250,7 +262,8 @@ class L2Vertex(GraphVertex):
     def output_type(self, input_types):
         return it.FeedForward(1)
 
-    def apply(self, params, inputs, *, state, train, masks=None):
+    def apply(self, params, inputs, *, state, train, masks=None,
+              rng=None):
         a = inputs[0].reshape(inputs[0].shape[0], -1)
         b = inputs[1].reshape(inputs[1].shape[0], -1)
         d = a - b
@@ -268,7 +281,8 @@ class L2NormalizeVertex(GraphVertex):
     def output_type(self, input_types):
         return input_types[0]
 
-    def apply(self, params, inputs, *, state, train, masks=None):
+    def apply(self, params, inputs, *, state, train, masks=None,
+              rng=None):
         x = inputs[0]
         flat = x.reshape(x.shape[0], -1)
         norm = torch.sqrt((flat * flat).sum(-1) + self.eps)
@@ -285,7 +299,8 @@ class ScaleVertex(GraphVertex):
     def output_type(self, input_types):
         return input_types[0]
 
-    def apply(self, params, inputs, *, state, train, masks=None):
+    def apply(self, params, inputs, *, state, train, masks=None,
+              rng=None):
         return inputs[0] * self.scale_factor, state
 
 
@@ -299,7 +314,8 @@ class ShiftVertex(GraphVertex):
     def output_type(self, input_types):
         return input_types[0]
 
-    def apply(self, params, inputs, *, state, train, masks=None):
+    def apply(self, params, inputs, *, state, train, masks=None,
+              rng=None):
         return inputs[0] + self.shift_factor, state
 
 
@@ -313,5 +329,6 @@ class PoolHelperVertex(GraphVertex):
         t = input_types[0]
         return it.Convolutional(t.height - 1, t.width - 1, t.channels)
 
-    def apply(self, params, inputs, *, state, train, masks=None):
+    def apply(self, params, inputs, *, state, train, masks=None,
+              rng=None):
         return inputs[0][:, 1:, 1:, :], state

@@ -20,9 +20,11 @@ CPU); anything else takes ops.attention.sdpa: every masked call, since the
 kernel takes no mask, and every other head dim, as the JAX layer sends the
 shapes its kernel does not take to sdpa. The route depends on the shape
 alone, so the CPU takes the one the card takes. The flash path is
-differentiable through the backward kernels; dropout (`attn_dropout`,
-TransformerBlock's `dropout`) is not ported yet, so `fit` refuses a network
-that asks for it.
+differentiable through the backward kernels. Dropout sits outside the
+kernels: MultiHeadAttention's `attn_dropout` on the output projection,
+TransformerBlock's `dropout` on the FFN hidden layer, both at train time
+only (the block's attention takes no `attn_dropout`, as in the JAX
+package).
 """
 from __future__ import annotations
 
@@ -33,7 +35,11 @@ import torch
 
 from deeplearning4j_tpu_torch.nn import initializers as init_mod
 from deeplearning4j_tpu_torch.nn import inputs as it
-from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+from deeplearning4j_tpu_torch.nn.layers.base import (
+    Layer,
+    apply_dropout,
+    register_layer,
+)
 from deeplearning4j_tpu_torch.ops import attention as att
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.ops import linear as ops
@@ -70,7 +76,7 @@ class LayerNorm(Layer):
     def regularizable(self, params):
         return {}
 
-    def apply(self, params, x, *, state, train, mask=None):
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
         return layer_norm(x, params["gamma"], params["beta"], self.eps), state
 
 
@@ -115,7 +121,7 @@ class PositionEmbedding(Layer):
             emb = torch.nn.functional.pad(emb, (0, f - emb.shape[-1]))
         return emb
 
-    def apply(self, params, x, *, state, train, mask=None):
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
         b, t, f = x.shape
         if self.mode == "learned":
             if t > self.max_len:
@@ -179,7 +185,7 @@ class MultiHeadAttention(Layer):
                                       v.contiguous(), self.causal)
         return att.sdpa(q, k, v, mask=mask, causal=self.causal)
 
-    def apply(self, params, x, *, state, train, mask=None):
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
         b, t, f = x.shape
         h = self.n_heads
         d = f // h
@@ -192,6 +198,7 @@ class MultiHeadAttention(Layer):
         o = self.attend(q, k, v, mask)
         o = o.transpose(1, 2).reshape(b, t, f)
         y = ops.bias_add(ops.dot(o, params["Wo"]), params["bo"])
+        y = apply_dropout(y, self.attn_dropout, train, rng)
         if mask is not None:
             y = y * mask[..., None].to(y.dtype)
         return y, state
@@ -247,16 +254,17 @@ class TransformerBlock(Layer):
                     if k.startswith("W")})
         return out
 
-    def apply(self, params, x, *, state, train, mask=None):
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
         f = x.shape[-1]
         ln1, ln2 = params["ln1"], params["ln2"]
         a, _ = self._sub(f).apply(
             params["attn"], layer_norm(x, ln1["gamma"], ln1["beta"], self.eps),
-            state={}, train=train, mask=mask)
+            state={}, train=train, mask=mask, rng=rng)
         x = x + a
         hn = layer_norm(x, ln2["gamma"], ln2["beta"], self.eps)
         hid = self.act_fn("gelu")(ops.bias_add(ops.dot(hn, params["W1"]),
                                                params["b1"]))
+        hid = apply_dropout(hid, self.dropout, train, rng)
         y = x + ops.bias_add(ops.dot(hid, params["W2"]), params["b2"])
         if mask is not None:
             y = y * mask[..., None].to(y.dtype)

@@ -8,8 +8,13 @@ methods compute on tensors:
     init_params(gen, input)       dict of CPU float32 tensors, in the port's
                                   layout, drawn from a torch.Generator
     init_state(input)             running state (BN stats); {} if none
-    apply(params, x, *, state, train, mask) -> (y, new_state)
+    apply(params, x, *, state, train, mask, rng) -> (y, new_state)
     propagate_mask(mask, input)   the mask the next layer sees
+
+`rng` is the layer's `nn.dropout.Draws` in a training step (None
+elsewhere): a layer with `dropout` set applies it to its output through
+`apply_dropout`; weight noise is applied to its params by the runtime
+before `apply` (`nn.weightnoise.maybe_transform`).
 
 Params are held as plain dicts of tensors per vertex, keyed by the JAX
 package's names ("W", "b", "gamma", ...); a layer made of sublayers
@@ -21,14 +26,17 @@ for cuDNN, the interchange form is HWIO), the layer converts in
 from __future__ import annotations
 
 import dataclasses
+import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.nn import activations as act_mod
+from deeplearning4j_tpu_torch.nn import dropout as drop_mod
 from deeplearning4j_tpu_torch.nn import inputs as it
 from deeplearning4j_tpu_torch.nn import updaters as upd_mod
+from deeplearning4j_tpu_torch.nn import weightnoise as wn_mod
 
 Params = Dict[str, torch.Tensor]
 
@@ -45,9 +53,8 @@ def register_layer(cls):
 class Layer:
     """Base layer config. The fields are the JAX package's, so a config's
     JSON reads the same in both packages. Training reads the updater,
-    learning rate, l1/l2, gradient normalization and constraints; dropout
-    and weight noise are not ported yet (fit refuses a network that asks
-    for them), remat is carried for the JAX package."""
+    learning rate, l1/l2, gradient normalization, constraints, dropout and
+    weight noise; remat is carried for the JAX package."""
 
     # --- per-layer overrides (None = inherit from NeuralNetConfiguration) ---
     name: Optional[str] = None
@@ -80,7 +87,7 @@ class Layer:
         return {}
 
     def apply(self, params: Params, x: torch.Tensor, *, state: Params,
-              train: bool, mask: Optional[torch.Tensor] = None
+              train: bool, mask: Optional[torch.Tensor] = None, rng=None
               ) -> Tuple[torch.Tensor, Params]:
         raise NotImplementedError
 
@@ -134,6 +141,10 @@ class Layer:
         target = _LAYER_TYPES[t]
         if isinstance(d.get("updater"), dict):
             d["updater"] = upd_mod.from_json(d["updater"])
+        if isinstance(d.get("dropout"), dict):
+            d["dropout"] = drop_mod.from_json(d["dropout"])
+        if isinstance(d.get("weight_noise"), dict):
+            d["weight_noise"] = wn_mod.from_json(d["weight_noise"])
         field_names = {f.name for f in dataclasses.fields(target)}
         kwargs = {k: v for k, v in d.items() if k in field_names}
         obj = target(**kwargs)
@@ -143,3 +154,44 @@ class Layer:
             if isinstance(v, list) and f.name in ("kernel_size", "stride", "padding", "dilation", "size", "pooling_dimensions"):
                 setattr(obj, f.name, tuple(v))
         return obj
+
+
+_ITERATION = threading.local()
+
+
+class iteration_scope:
+    """Makes a training step's iteration visible to the transforms that
+    take probability schedules (dropout p, weight-noise p;
+    IDropout.applyDropout(input, iteration, epoch) in the reference), so
+    `apply` signatures stay free of the clock. Thread-local, as in the JAX
+    package."""
+
+    def __init__(self, iteration: int):
+        self.iteration = iteration
+
+    def __enter__(self):
+        self._prev = getattr(_ITERATION, "value", None)
+        _ITERATION.value = self.iteration
+        return self
+
+    def __exit__(self, *exc):
+        _ITERATION.value = self._prev
+        return False
+
+
+def current_iteration() -> Optional[int]:
+    """The iteration of the enclosing training step, or None outside one."""
+    return getattr(_ITERATION, "value", None)
+
+
+def apply_dropout(x: torch.Tensor, dropout, train: bool, rng) -> torch.Tensor:
+    """A layer's `dropout` on its output at train time: a float keeps
+    each activation with that probability and scales it by 1/p (inverted
+    dropout), an IDropout applies its own transform; the identity at
+    inference or without draws."""
+    if not train or dropout is None or rng is None:
+        return x
+    obj = drop_mod.resolve(dropout)
+    if obj is None:
+        return x
+    return obj.apply(x, rng, iteration=current_iteration())

@@ -17,7 +17,11 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn import initializers as init_mod
 from deeplearning4j_tpu_torch.nn import inputs as it
-from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+from deeplearning4j_tpu_torch.nn.layers.base import (
+    Layer,
+    apply_dropout,
+    register_layer,
+)
 from deeplearning4j_tpu_torch.ops import linear as ops
 
 
@@ -93,13 +97,14 @@ class Conv2D(_ConvBase):
             return value.permute(2, 3, 1, 0).contiguous()
         return value
 
-    def apply(self, params, x, *, state, train, mask=None):
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
         pad = _conv_padding(self.convolution_mode, self.padding)
         z = ops.conv2d(x, params["W"], _pair(self.stride), pad,
                        _pair(self.dilation))
         if self.has_bias:
             z = ops.bias_add(z, params["b"])
-        return self.act_fn("identity")(z), state
+        y = self.act_fn("identity")(z)
+        return apply_dropout(y, self.dropout, train, rng), state
 
 
 @register_layer
@@ -128,7 +133,7 @@ class Subsampling2D(Layer):
         ow = it.conv_output_size(input_type.width, kw, sw, pw, self.convolution_mode)
         return it.Convolutional(oh, ow, input_type.channels)
 
-    def apply(self, params, x, *, state, train, mask=None):
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
         k = _pair(self.kernel_size)
         s = _pair(self.stride)
         pt = self.pooling_type.lower()

@@ -14,7 +14,11 @@ import torch
 
 from deeplearning4j_tpu_torch.nn import initializers as init_mod
 from deeplearning4j_tpu_torch.nn import inputs as it
-from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+from deeplearning4j_tpu_torch.nn.layers.base import (
+    Layer,
+    apply_dropout,
+    register_layer,
+)
 from deeplearning4j_tpu_torch.ops import linear as ops
 
 
@@ -61,8 +65,9 @@ class Dense(Layer):
             z = ops.bias_add(z, params["b"])
         return z
 
-    def apply(self, params, x, *, state, train, mask=None):
-        return self.act_fn("sigmoid")(self.preout(params, x)), state
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
+        y = self.act_fn("sigmoid")(self.preout(params, x))
+        return apply_dropout(y, self.dropout, train, rng), state
 
 
 @register_layer
@@ -76,17 +81,16 @@ class Activation(Layer):
     def has_params(self):
         return False
 
-    def apply(self, params, x, *, state, train, mask=None):
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
         return self.act_fn("identity")(x), state
 
 
 @register_layer
 @dataclass
 class DropoutLayer(Layer):
-    """Standalone dropout (nn/conf/layers/DropoutLayer.java); `dropout`
-    holds the retain probability, DL4J-style. Inference only: at
-    train=False it is the identity, and training with a `dropout` set raises
-    (fit refuses it first) until dropout is ported."""
+    """Standalone dropout (nn/conf/layers/DropoutLayer.java): `dropout`
+    (a retain probability, DL4J-style, or an IDropout) on its input at train
+    time, the identity at inference."""
 
     def output_type(self, input_type):
         return input_type
@@ -94,11 +98,8 @@ class DropoutLayer(Layer):
     def has_params(self):
         return False
 
-    def apply(self, params, x, *, state, train, mask=None):
-        if train and self.dropout is not None:
-            raise NotImplementedError(
-                "DropoutLayer in training: dropout is not ported yet")
-        return x, state
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
+        return apply_dropout(x, self.dropout, train, rng), state
 
 
 def _lookup(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -137,7 +138,7 @@ class Embedding(Layer):
             p["b"] = torch.full((self.n_out,), float(self.bias_init or 0.0))
         return p
 
-    def apply(self, params, x, *, state, train, mask=None):
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
         if x.dim() == 2 and x.shape[-1] == 1:
             x = x[:, 0]
         y = _lookup(params["W"], x)
@@ -167,7 +168,7 @@ class EmbeddingSequence(Layer):
             p["b"] = torch.zeros(self.n_out)
         return p
 
-    def apply(self, params, x, *, state, train, mask=None):
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
         y = _lookup(params["W"], x)
         if self.has_bias:
             y = ops.bias_add(y, params["b"])

@@ -86,7 +86,7 @@ class BatchNorm(Layer):
         var = ((x.to(acc) - mean) ** 2).mean(dims)
         return mean, var
 
-    def apply(self, params, x, *, state, train, mask=None):
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
         if train:
             mean, var = self.batch_stats(x)
             d = self.decay
@@ -128,7 +128,7 @@ class LRN(Layer):
     def output_type(self, input_type):
         return input_type
 
-    def apply(self, params, x, *, state, train, mask=None):
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
         half = int(self.n) // 2
         c = x.shape[-1]
         padded = torch.nn.functional.pad(x * x, (half, half))

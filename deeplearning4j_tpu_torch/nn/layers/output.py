@@ -53,7 +53,7 @@ class Output(Dense, BaseOutputLayer):
     def _act(self):
         return self.act_fn("softmax")
 
-    def apply(self, params, x, *, state, train, mask=None):
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
         return self._act()(self.preout(params, x)), state
 
     def _fused_xent_per_example(self, params, x, labels):
@@ -130,7 +130,7 @@ class LossLayer(BaseOutputLayer, Layer):
     def has_params(self):
         return False
 
-    def apply(self, params, x, *, state, train, mask=None):
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
         return self.act_fn("identity")(x), state
 
     def compute_loss(self, params, x, labels, *, state, mask=None):

@@ -28,7 +28,7 @@ class GlobalPooling(Layer):
             return it.FeedForward(input_type.size)
         return input_type
 
-    def apply(self, params, x, *, state, train, mask=None):
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
         if x.dim() == 4:
             dims = (1, 2)
         elif x.dim() == 3:

@@ -44,7 +44,11 @@ import torch
 from deeplearning4j_tpu_torch.nn import activations as act_mod
 from deeplearning4j_tpu_torch.nn import initializers as init_mod
 from deeplearning4j_tpu_torch.nn import inputs as it
-from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+from deeplearning4j_tpu_torch.nn.layers.base import (
+    Layer,
+    apply_dropout,
+    register_layer,
+)
 from deeplearning4j_tpu_torch.ops import linear as ops
 from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
 
@@ -71,8 +75,9 @@ class BaseRecurrent(Layer):
     def init_carry(self, batch: int, device=None) -> Carry:
         raise NotImplementedError
 
-    def scan(self, params, x, carry, *, mask=None, train=False):
-        """x [b, t, f] -> (y [b, t, n], carry_out)."""
+    def scan(self, params, x, carry, *, mask=None, train=False, rng=None):
+        """x [b, t, f] -> (y [b, t, n], carry_out); the layer's dropout on
+        y at train time."""
         raise NotImplementedError
 
 
@@ -186,18 +191,16 @@ class LSTM(BaseRecurrent):
     def regularizable(self, params):
         return {k: v for k, v in params.items() if k in ("W", "R")}
 
-    def scan(self, params, x, carry, *, mask=None, train=False):
-        if train and self.dropout is not None:
-            raise NotImplementedError(
-                f"{type(self).__name__} asks for dropout, which training in "
-                f"the port does not apply yet")
-        return _lstm_scan(params, x, carry,
-                          act_mod.get(self.gate_activation),
-                          self.act_fn("tanh"), self._peephole, mask=mask)
+    def scan(self, params, x, carry, *, mask=None, train=False, rng=None):
+        y, carry_out = _lstm_scan(params, x, carry,
+                                  act_mod.get(self.gate_activation),
+                                  self.act_fn("tanh"), self._peephole,
+                                  mask=mask)
+        return apply_dropout(y, self.dropout, train, rng), carry_out
 
-    def apply(self, params, x, *, state, train, mask=None):
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
         y, _ = self.scan(params, x, self.init_carry(x.shape[0], x.device),
-                         mask=mask, train=train)
+                         mask=mask, train=train, rng=rng)
         return y, state
 
 

@@ -1,5 +1,5 @@
-"""Model zoo, the part ported so far: ZooModel, LeNet, ResNet50,
-TextGenerationLSTM and TransformerLM (counterpart of
+"""Model zoo, the part ported so far: ZooModel, LeNet, SimpleCNN, AlexNet,
+VGG16, VGG19, ResNet50, TextGenerationLSTM and TransformerLM (counterpart of
 deeplearning4j_tpu/zoo/models.py; the other architectures and the
 checksummed pretrained cache come with later slices).
 
@@ -18,6 +18,7 @@ from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.graph_conf import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.graph_vertices import ElementWiseVertex
 from deeplearning4j_tpu_torch.nn.layers import (
+    LRN,
     Activation,
     BatchNorm,
     Conv2D,
@@ -80,6 +81,122 @@ class LeNet(ZooModel):
             Output(n_out=self.num_classes, loss="mcxent",
                    activation="softmax"),
         ]).set_input_type(it.convolutional(h, w, c))
+
+
+@dataclass
+class SimpleCNN(ZooModel):
+    """Compact CNN (zoo/model/SimpleCNN.java:152), the JAX package's zoo
+    SimpleCNN: three conv + BatchNorm + max-pool stages, a Dense of 256
+    with dropout 0.5 and a softmax output."""
+
+    num_classes: int = 10
+    input_shape: Tuple[int, int, int] = (48, 48, 3)
+
+    def conf(self):
+        h, w, c = self.input_shape
+        return NeuralNetConfiguration(
+            seed=self.seed, updater=updaters.AdaDelta(),
+            activation="relu", weight_init="relu",
+        ).list([
+            Conv2D(kernel_size=(7, 7), n_out=16, convolution_mode="same",
+                   activation="relu"),
+            BatchNorm(),
+            Subsampling2D(kernel_size=(2, 2), pooling_type="max"),
+            Conv2D(kernel_size=(5, 5), n_out=32, convolution_mode="same",
+                   activation="relu"),
+            BatchNorm(),
+            Subsampling2D(kernel_size=(2, 2), pooling_type="max"),
+            Conv2D(kernel_size=(3, 3), n_out=64, convolution_mode="same",
+                   activation="relu"),
+            BatchNorm(),
+            Subsampling2D(kernel_size=(2, 2), pooling_type="max"),
+            Dense(n_out=256, activation="relu", dropout=0.5),
+            Output(n_out=self.num_classes, loss="mcxent"),
+        ]).set_input_type(it.convolutional(h, w, c))
+
+
+@dataclass
+class AlexNet(ZooModel):
+    """AlexNet (zoo/model/AlexNet.java:157), the JAX package's zoo AlexNet:
+    five convs with LRN and max pools, two Dense of 4096 with dropout 0.5,
+    Nesterovs with l2."""
+
+    def conf(self):
+        h, w, c = self.input_shape
+        return NeuralNetConfiguration(
+            seed=self.seed,
+            updater=updaters.Nesterovs(learning_rate=1e-2, momentum=0.9),
+            weight_init="normal", l2=5e-4,
+        ).list([
+            Conv2D(kernel_size=(11, 11), stride=(4, 4), n_out=96,
+                   activation="relu"),
+            LRN(),
+            Subsampling2D(kernel_size=(3, 3), stride=(2, 2),
+                          pooling_type="max"),
+            Conv2D(kernel_size=(5, 5), n_out=256, convolution_mode="same",
+                   activation="relu", bias_init=1.0),
+            LRN(),
+            Subsampling2D(kernel_size=(3, 3), stride=(2, 2),
+                          pooling_type="max"),
+            Conv2D(kernel_size=(3, 3), n_out=384, convolution_mode="same",
+                   activation="relu"),
+            Conv2D(kernel_size=(3, 3), n_out=384, convolution_mode="same",
+                   activation="relu", bias_init=1.0),
+            Conv2D(kernel_size=(3, 3), n_out=256, convolution_mode="same",
+                   activation="relu", bias_init=1.0),
+            Subsampling2D(kernel_size=(3, 3), stride=(2, 2),
+                          pooling_type="max"),
+            Dense(n_out=4096, activation="relu", dropout=0.5, bias_init=1.0),
+            Dense(n_out=4096, activation="relu", dropout=0.5, bias_init=1.0),
+            Output(n_out=self.num_classes, loss="mcxent"),
+        ]).set_input_type(it.convolutional(h, w, c))
+
+
+def _vgg_blocks(spec):
+    """(convs, channels) per block -> 3x3 'same' relu convs, each block
+    closed by a 2x2 max pool."""
+    layers = []
+    for n_convs, channels in spec:
+        for _ in range(n_convs):
+            layers.append(Conv2D(kernel_size=(3, 3), n_out=channels,
+                                 convolution_mode="same", activation="relu"))
+        layers.append(Subsampling2D(kernel_size=(2, 2), stride=(2, 2),
+                                    pooling_type="max"))
+    return layers
+
+
+def _vgg_conf(zoo, spec):
+    h, w, c = zoo.input_shape
+    layers = _vgg_blocks(spec) + [
+        Dense(n_out=4096, activation="relu", dropout=0.5),
+        Dense(n_out=4096, activation="relu", dropout=0.5),
+        Output(n_out=zoo.num_classes, loss="mcxent"),
+    ]
+    return NeuralNetConfiguration(
+        seed=zoo.seed,
+        updater=updaters.Nesterovs(learning_rate=1e-2, momentum=0.9),
+    ).list(layers).set_input_type(it.convolutional(h, w, c))
+
+
+@dataclass
+class VGG16(ZooModel):
+    """VGG-16 (zoo/model/VGG16.java:181), the JAX package's zoo VGG16: 13
+    convs in five blocks, two Dense of 4096 with dropout 0.5, Nesterovs;
+    138,357,544 params at 224x224x3 and 1000 classes."""
+
+    def conf(self):
+        return _vgg_conf(self, [(2, 64), (2, 128), (3, 256), (3, 512),
+                                (3, 512)])
+
+
+@dataclass
+class VGG19(ZooModel):
+    """VGG-19 (zoo/model/VGG19.java:172), the JAX package's zoo VGG19: as
+    VGG16 with 16 convs."""
+
+    def conf(self):
+        return _vgg_conf(self, [(2, 64), (2, 128), (4, 256), (4, 512),
+                                (4, 512)])
 
 
 @dataclass

@@ -16,7 +16,9 @@ n at the cap, the same bits from two calls), autograd through both LSTM
 families on the card, and one BPTT and one tBPTT `fit` of a small
 TextGenerationLSTM against the CPU; a Keras InceptionV3 file imported onto
 the card against its CPU import; a DL4J zip and a checkpoint zip restored
-onto the card by default (and refused where there is no card).
+onto the card by default (and refused where there is no card); dropout
+draws on the card repeating from the network's seed, and a DropConnect
+Output layer through the fused cross-entropy.
 
 Marked `cuda`; they skip where torch.cuda.is_available() is False. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -1073,6 +1075,66 @@ def test_graph_fit_step_on_the_card_matches_the_cpu(cuda):
                        v) <= 1e-4, (name, path)
     assert card.opt_state["stem_conv"]["v"]["W"].is_contiguous(
         memory_format=torch.channels_last)
+
+
+def _dropout_net(device, seed=3):
+    """A small MultiLayerNetwork with dropout on a Dense layer and
+    DropConnect on its Output, on `device`."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import Dense, Output
+    from deeplearning4j_tpu_torch.nn.weightnoise import DropConnect
+
+    conf = NeuralNetConfiguration(seed=seed).list([
+        Dense(n_out=64, activation="relu", dropout=0.6),
+        Output(n_out=10, loss="mcxent", weight_noise=DropConnect(0.8)),
+    ]).set_input_type(it.feed_forward(32)).build()
+    return MultiLayerNetwork(conf).init(device=device)
+
+
+def _dropout_batch(device):
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(16, 32, generator=g)
+    y = torch.nn.functional.one_hot(torch.randint(0, 10, (16,), generator=g),
+                                    10).float()
+    return DataSet(x.to(device), y.to(device))
+
+
+@pytest.mark.cuda
+def test_dropout_draws_on_the_card_repeat_from_the_network_seed(cuda):
+    """The draws' generator lives on the card; two networks of one seed
+    take the same masks (the same params bit for bit after 3 steps),
+    another seed other masks."""
+    nets = [_dropout_net(cuda), _dropout_net(cuda), _dropout_net(cuda, 4)]
+    with torch.no_grad():
+        for name, p in nets[0].params.items():
+            for k, t in p.items():
+                nets[2].params[name][k].copy_(t)
+    assert nets[0].draws.generator.device.type == cuda.type
+    data = _dropout_batch(cuda)
+    with dtypes.full_precision():
+        for net in nets:
+            for _ in range(3):
+                net.fit(data)
+    t = [net.get_param_table() for net in nets]
+    assert all((t[0][k] == t[1][k]).all() for k in t[0])
+    assert any((t[0][k] != t[2][k]).any() for k in t[0])
+
+
+@pytest.mark.cuda
+def test_dropconnect_output_launches_linear_xent_once_each_way(cuda):
+    """A DropConnect Output layer on the card: its noisy W goes through
+    the fused cross-entropy, one forward and one backward launch per
+    step, and the raw W moves."""
+    net = _dropout_net(cuda)
+    data = _dropout_batch(cuda)
+    before_w = net.params["layer_1"]["W"].clone()
+    counters = (linear_xent_fwd, linear_xent_bwd)
+    before = [c.launches for c in counters]
+    net.fit(data)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1]
+    assert not torch.equal(net.params["layer_1"]["W"], before_w)
 
 
 @pytest.mark.cuda

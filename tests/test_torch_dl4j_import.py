@@ -557,7 +557,8 @@ def test_masked_vertices_name_their_roadmap_item(vertex):
 
 def test_dropout_field_builds_as_jax_and_fit_refuses():
     """A dropOut field builds the layer with its retain probability, as
-    JAX does; fit refuses it until dropout is ported (ROADMAP A.4)."""
+    JAX does, and fit trains with it: 3 steps with the JAX network's keys
+    replayed into the port's draws equal the JAX fit."""
     text = json.dumps({"confs": [
         {"layer": {"dense": {"activationFn": {"ReLU": {}}, "nin": 3,
                              "nout": 4, "dropOut": 0.5,
@@ -571,9 +572,28 @@ def test_dropout_field_builds_as_jax_and_fit_refuses():
     tconf = td.configuration_from_json(text)
     jconf = jd.configuration_from_json(text)
     assert tconf.layers[0].to_json() == jconf.layers[0].to_json()
+    import jax
+
+    from deeplearning4j_tpu.models import MultiLayerNetwork as JMLN
+    from torch_keys import JaxKeys
+
     net = MultiLayerNetwork(tconf).init("cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        net.fit(np.ones((2, 3), np.float32), np.eye(2, dtype=np.float32))
+    jnet = JMLN(jconf).init()
+    interop.params_from_jax(net, jax.tree_util.tree_map(np.asarray,
+                                                        jnet.params),
+                            jax.tree_util.tree_map(np.asarray, jnet.state))
+    net.draws = JaxKeys.for_net(jconf.defaults.seed)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((8, 3)).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[rng.integers(0, 2, 8)]
+    for _ in range(3):
+        net.fit(x, y)
+        jnet.fit(x, y)
+        assert abs(net.score_ - jnet.score_) <= 1e-5 * abs(jnet.score_)
+    got = net.get_param_table()
+    for k, v in jnet.get_param_table().items():
+        np.testing.assert_allclose(got[k], np.asarray(v), rtol=0, atol=1e-5,
+                                   err_msg=k)
 
 
 def test_normalizer_bin_restores_and_feeds_the_network():

@@ -48,6 +48,7 @@ from deeplearning4j_tpu_torch.nn.layers import BatchNorm
 from deeplearning4j_tpu_torch.ops import bn_act as bn_ops
 from deeplearning4j_tpu_torch.zoo import ResNet50
 from torch_graphs import small_resnet_json as _small_graph_json
+from torch_keys import JaxKeys
 
 
 def _rel(got, want):
@@ -463,8 +464,11 @@ def test_graph_opt_state_round_trips_and_a_jax_run_resumes_in_the_port():
 @pytest.mark.parametrize("where", ["dropout", "weight_noise", "solver",
                                    "masks", "tbptt"])
 def test_graph_fit_refuses_what_it_does_not_train(where):
-    """fit refuses what it does not train and leaves the network as it
-    was."""
+    """fit refuses what it does not train (the line-search solvers, masks
+    and tBPTT through the graph) and leaves the network as it was. Dropout
+    on a conv vertex and DropConnect on the Output vertex train now: 3
+    steps with the JAX graph's keys replayed into the port's draws, against
+    the JAX fit."""
     d = json.loads(_small_graph_json())
     x, y = _batch(0)
     data = DataSet(x, y)
@@ -477,6 +481,23 @@ def test_graph_fit_refuses_what_it_does_not_train(where):
         d["defaults"]["optimization_algo"] = "lbfgs"
     elif where == "masks":
         data = DataSet(x, y, None, np.ones((4, 1), np.float32))
+    if where in ("dropout", "weight_noise"):
+        jnet, tnet = _pair(json.dumps(d))
+        tnet.draws = JaxKeys.for_net(d["defaults"]["seed"])
+        for step in range(3):
+            x, y = _batch(30 + step)
+            jnet.fit(jds.DataSet(x, y))
+            tnet.fit(DataSet(x, y))
+            assert abs(tnet.score_ - jnet.score_) <= 1e-5 * abs(
+                jnet.score_), (step, tnet.score_, jnet.score_)
+        jt, tt = jnet.get_param_table(), tnet.get_param_table()
+        worst = max(float(np.abs(tt[k] - np.asarray(jt[k])).max())
+                    for k in jt)
+        assert worst <= 1e-5, worst
+        assert _state_err(jnet, tnet) <= 1e-4
+        assert max(_slot_errs(jnet, tnet).values()) <= 1e-4
+        assert tnet.iteration == jnet.iteration == 3
+        return
     net = ComputationGraph(
         ComputationGraphConfiguration.from_json(json.dumps(d))).init(
         device="cpu")

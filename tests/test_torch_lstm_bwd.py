@@ -265,16 +265,45 @@ def test_layer_routes_to_the_chunked_family_in_the_regime(monkeypatch, t,
 
 
 def test_layer_refuses_dropout_in_training():
+    """An LSTM layer with dropout: the identity at inference; at train time
+    its sequence output takes the dropout after the scan, with the JAX
+    layer's mask (its key replayed into the port's draws), and gradients
+    through the mask equal JAX's."""
     from deeplearning4j_tpu_torch.nn import inputs as it
     from deeplearning4j_tpu_torch.nn.layers import LSTM
+    from torch_keys import JaxKeys
 
     layer = LSTM(n_out=4, activation="tanh", dropout=0.5)
+    jlayer = jrec.LSTM(n_out=4, activation="tanh", dropout=0.5)
     params = layer.init_params(torch.Generator().manual_seed(0),
                                it.recurrent(3, 5))
-    x = torch.zeros(2, 5, 3)
-    layer.scan(params, x, layer.init_carry(2), train=False)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        layer.scan(params, x, layer.init_carry(2), train=True)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 5, 3)).astype(np.float32))
+    plain, _ = layer.scan(params, x, layer.init_carry(2), train=False)
+    same, _ = layer.scan(params, x, layer.init_carry(2), train=True)
+    torch.testing.assert_close(same, plain, rtol=0, atol=0)
+    key = jax.random.PRNGKey(3)
+    jp = {k: jnp.asarray(v.numpy()) for k, v in params.items()}
+    cot = np.random.default_rng(4).standard_normal((2, 5, 4)).astype(
+        np.float32)
+
+    def jfn(p):
+        return jlayer.scan(p, jnp.asarray(x.numpy()), jlayer.init_carry(2),
+                           train=True, rng=key)[0]
+
+    want, vjp = jax.vjp(jfn, jp)
+    (jg,) = vjp(jnp.asarray(cot))
+    tp = {k: v.clone().requires_grad_() for k, v in params.items()}
+    got, _ = layer.scan(tp, x, layer.init_carry(2), train=True,
+                        rng=JaxKeys(key))
+    assert int((got == 0).sum()) > 0
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-6)
+    grads = torch.autograd.grad(got, list(tp.values()),
+                                torch.from_numpy(cot))
+    for (k, _), g in zip(tp.items(), grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg[k]), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
 
 
 # ------------------------------------------------------------ contract

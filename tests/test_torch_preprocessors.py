@@ -20,6 +20,7 @@ from deeplearning4j_tpu.nn import graph_vertices as jgv
 from deeplearning4j_tpu.nn import inputs as jit_
 from deeplearning4j_tpu.nn import layers as jlayers
 from deeplearning4j_tpu.nn import preprocessors as jpp
+from deeplearning4j_tpu.nn.conf import MultiLayerConfiguration as JMLC
 from deeplearning4j_tpu.nn.conf import NeuralNetConfiguration as JNNC
 from deeplearning4j_tpu.nn.graph_conf import (
     ComputationGraphConfiguration as JCGC,
@@ -248,9 +249,13 @@ def test_graph_json_round_trips_the_new_vertices():
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
-# ---- DropoutLayer (inference only) ----
+# ---- DropoutLayer ----
 
 def test_dropout_layer_is_the_identity_at_inference_and_matches_jax_json():
+    """The identity at inference; at train time the JAX layer's mask (its
+    key replayed into the port's draws) scaled by 1/p, equal to JAX's."""
+    from torch_keys import JaxKeys
+
     jl = jlayers.DropoutLayer(dropout=0.75)
     tl = Layer.from_json(jl.to_json())
     assert isinstance(tl, DropoutLayer) and tl.to_json() == jl.to_json()
@@ -260,20 +265,43 @@ def test_dropout_layer_is_the_identity_at_inference_and_matches_jax_json():
     want, _ = jl.apply({}, jnp.asarray(x), state={}, train=False, rng=None)
     got, _ = tl.apply({}, torch.from_numpy(x), state={}, train=False)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tl.apply({}, torch.from_numpy(x), state={}, train=True)
+    key = jax.random.PRNGKey(4)
+    want, _ = jl.apply({}, jnp.asarray(x), state={}, train=True, rng=key)
+    got, _ = tl.apply({}, torch.from_numpy(x), state={}, train=True,
+                      rng=JaxKeys(key))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-7)
+    assert 0 < int((got == 0).sum()) < x.size
 
 
 def test_fit_refuses_a_network_with_a_dropout_layer():
+    """A network with a DropoutLayer trains: 3 steps with the JAX
+    network's keys replayed into the port's draws equal the JAX fit."""
     from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
     from deeplearning4j_tpu_torch.nn.layers import Dense, Output
+    from torch_keys import JaxKeys
 
     conf = NeuralNetConfiguration(seed=1).list([
         Dense(n_out=4, activation="relu"), DropoutLayer(dropout=0.5),
         Output(n_out=2, activation="softmax")]).set_input_type(
         tit.feed_forward(3))
-    net = MultiLayerNetwork(conf.build()).init(device="cpu")
-    x = np.ones((2, 3), np.float32)
-    assert net.output(x).shape == (2, 2)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        net.fit(x, np.eye(2, dtype=np.float32))
+    text = conf.build().to_json()
+    net = MultiLayerNetwork(MultiLayerConfiguration.from_json(text)).init(
+        device="cpu")
+    jnet = JMLN(JMLC.from_json(text)).init()
+    interop.params_from_jax(
+        net, jax.tree_util.tree_map(np.asarray, jnet.params),
+        jax.tree_util.tree_map(np.asarray, jnet.state))
+    net.draws = JaxKeys.for_net(1)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((6, 3)).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[rng.integers(0, 2, 6)]
+    assert net.output(x).shape == (6, 2)
+    for _ in range(3):
+        net.fit(x, y)
+        jnet.fit(x, y)
+        assert abs(net.score_ - jnet.score_) <= 1e-5 * abs(jnet.score_)
+    got = net.get_param_table()
+    for k, v in jnet.get_param_table().items():
+        np.testing.assert_allclose(got[k], np.asarray(v), rtol=0, atol=1e-5,
+                                   err_msg=k)

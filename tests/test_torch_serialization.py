@@ -6,9 +6,10 @@ members, the same npz keys and arrays (dtypes included), the same params,
 running state and updater slots bit for bit, and outputs within 1e-5 of
 each other (float32 on both sides). The committed checkpoint fixtures the
 port can build restore against tests/fixtures/expected_outputs.npz at 1e-5
-and keep training as the JAX package's copy does; the three that name
-classes the port has not ported yet raise NotImplementedError naming the
-ROADMAP item that brings them.
+and keep training as the JAX package's copy does (dropout and weight
+noise with the JAX network's keys replayed into the port's draws); the one
+that names a class the port has not ported yet raises NotImplementedError
+naming the ROADMAP item that brings it.
 """
 import io
 import json
@@ -52,14 +53,20 @@ from deeplearning4j_tpu_torch.nn.layers import (
     Subsampling2D,
 )
 from torch_graphs import small_resnet_json
+from torch_keys import JaxKeys
 
 FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "fixtures")
 EXPECTED = np.load(os.path.join(FIXDIR, "expected_outputs.npz"))
-READABLE = ["cg_branch_merge", "mln_graves_lstm", "mln_vit"]
-REFUSED = {"mln_conv_bn_noise": ("AlphaDropout", "A.4"),
-           "mln_scheduled_dropout": ("Dropout", "A.4"),
-           "mln_bidir_lstm": ("GravesBidirectionalLSTM", "A.6")}
+READABLE = ["cg_branch_merge", "mln_graves_lstm", "mln_vit",
+            "mln_conv_bn_noise", "mln_scheduled_dropout"]
+REFUSED = {"mln_bidir_lstm": ("GravesBidirectionalLSTM", "A.6")}
+# refused until their classes were ported (ROADMAP A.4): fixture -> the
+# (layer, dropout, weight noise) class names its layers name
+ONCE_REFUSED = {
+    "mln_conv_bn_noise": [(3, "AlphaDropout", "DropConnect")],
+    "mln_scheduled_dropout": [(0, "Dropout", "DropConnect"),
+                              (1, "GaussianNoise", None)]}
 JCONF = {JMLN: JConf, JCG: JGConf}
 TCONF = {MultiLayerNetwork: MultiLayerConfiguration,
          ComputationGraph: ComputationGraphConfiguration}
@@ -242,6 +249,7 @@ def test_committed_fixture_keeps_training_as_jax_does(name):
     path = os.path.join(FIXDIR, name + ".zip")
     tnet = restore_model(path, device="cpu")
     jnet = jser.restore_model(path)
+    tnet.draws = JaxKeys.for_net(tnet.conf.defaults.seed)
     x = EXPECTED[name + "_in"]
     out_shape = EXPECTED[name + "_out"].shape
     n_out = out_shape[-1]
@@ -262,11 +270,26 @@ def test_committed_fixture_keeps_training_as_jax_does(name):
     assert tnet.iteration == 2
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED))
+@pytest.mark.parametrize("name", sorted({**REFUSED, **ONCE_REFUSED}))
 def test_fixtures_naming_unported_classes_raise(name):
-    cls, item = REFUSED[name]
-    with pytest.raises(NotImplementedError, match=rf"{cls}\b.*item {item}"):
-        restore_model(os.path.join(FIXDIR, name + ".zip"), device="cpu")
+    """A fixture naming an unported class raises with its ROADMAP item;
+    the dropout and weight-noise fixtures restore now, each layer's
+    objects revived as the port's classes with their schedules."""
+    path = os.path.join(FIXDIR, name + ".zip")
+    if name in REFUSED:
+        cls, item = REFUSED[name]
+        with pytest.raises(NotImplementedError,
+                           match=rf"{cls}\b.*item {item}"):
+            restore_model(path, device="cpu")
+        return
+    net = restore_model(path, device="cpu")
+    jnet = jser.restore_model(path)
+    for i, drop, noise in ONCE_REFUSED[name]:
+        layer = net.layers[i]
+        assert type(layer.dropout).__name__ == drop
+        assert (type(layer.weight_noise).__name__ if noise else None) == noise
+        assert layer.to_json() == jnet.layers[i].to_json()
+    assert net.conf.to_json() == jnet.conf.to_json()
 
 
 def test_missing_array_and_wrong_shape_refuse(tmp_path, rng):
@@ -315,3 +338,53 @@ def test_scores_continue_after_restore(tmp_path, rng):
     write_model(net, path)
     back = restore_model(path, device="cpu")
     assert back.score(DataSet(x, y)) == net.score(DataSet(x, y))
+
+
+def test_zips_with_dropout_and_weight_noise_cross_between_the_packages(
+        tmp_path, rng):
+    """A network with dropout and weight-noise objects and schedules,
+    trained in the JAX package and written there: the port restores it and
+    writes the same members; the port's own trained copy (the same keys
+    replayed) written by the port is restored by the JAX package with the
+    same params and outputs."""
+    from deeplearning4j_tpu_torch.nn import dropout as tdrop
+    from deeplearning4j_tpu_torch.nn import schedules as tsched
+    from deeplearning4j_tpu_torch.nn import weightnoise as twn
+
+    conf_json = NeuralNetConfiguration(
+        seed=9, updater=updaters.Adam(learning_rate=1e-2)).list([
+            Conv2D(kernel_size=(3, 3), n_out=4, convolution_mode="same",
+                   activation="relu", weight_noise=twn.DropConnect(
+                       0.9, p_schedule=tsched.ExponentialSchedule(0.99))),
+            Subsampling2D(kernel_size=(2, 2), stride=(2, 2)),
+            Dense(n_out=6, activation="selu",
+                  dropout=tdrop.AlphaDropout(0.9),
+                  weight_noise=twn.WeightNoise(stddev=0.01)),
+            Dense(n_out=5, activation="tanh", dropout=tdrop.GaussianDropout(
+                0.2, rate_schedule=tsched.MapSchedule({1: 0.1}))),
+            Output(n_out=3, loss="mcxent"),
+        ]).set_input_type(it.convolutional(6, 6, 2)).to_json()
+    x, y = _data(rng, (4, 6, 6, 2), 3)
+    jnet = JMLN(JConf.from_json(conf_json)).init()
+    tnet = MultiLayerNetwork(MultiLayerConfiguration.from_json(
+        conf_json)).init("cpu")
+    interop.params_from_jax(tnet, jnet.params, jnet.state)
+    tnet.draws = JaxKeys.for_net(9)
+    for _ in range(2):
+        jnet.fit(x, y)
+        tnet.fit(x, y)
+    jpath, tpath = tmp_path / "jax.zip", tmp_path / "port.zip"
+    jser.write_model(jnet, str(jpath))
+    restored = restore_model(str(jpath), device="cpu")
+    write_model(restored, str(tpath))
+    _same_members(tpath, jpath)
+    write_model(tnet, str(tmp_path / "port_trained.zip"))
+    back = jser.restore_model(str(tmp_path / "port_trained.zip"))
+    assert back.conf.to_json() == jnet.conf.to_json()
+    tt = tnet.get_param_table()
+    for k, v in back.get_param_table().items():
+        np.testing.assert_array_equal(np.asarray(v), tt[k], err_msg=k)
+        np.testing.assert_allclose(tt[k], np.asarray(
+            jnet.get_param_table()[k]), atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(np.asarray(back.output(x)),
+                               tnet.output(x).numpy(), atol=1e-5)
