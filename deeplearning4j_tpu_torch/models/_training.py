@@ -4,7 +4,10 @@ one layer's update, each as the JAX package's two runtimes compute it.
 
 Params are nested dicts of tensors keyed by a layer key ("layer_3") or a
 vertex name; `value_and_grad` turns them into leaves that record gradients
-and hands back a gradient tree of the same structure.
+and hands back a gradient tree of the same structure. Under
+`parallel.ParallelWrapper` (an `nn.shard` shard installed) it computes the
+rank's share of the global batch's loss and hands back the global score
+and gradients, summed over the ranks.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import copy
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.nn import shard as shard_mod
 from deeplearning4j_tpu_torch.nn import updaters as upd_mod
 from deeplearning4j_tpu_torch.nn.regularization import apply_constraints
 
@@ -51,25 +55,38 @@ def value_and_grad(loss, params):
     """(score, aux, grads) of `loss() -> (score, aux)`, differentiated with
     respect to every tensor in `params` (a dict of nested param dicts),
     each made a leaf that records gradients first. `grads` mirrors
-    `params`, zeros where the score does not depend on a param."""
+    `params`, zeros where the score does not depend on a param. With a
+    data-parallel shard installed, `loss` runs with it active (`nn.shard`)
+    and the score and gradients are summed over the ranks."""
     leaves = []
     for k, p in params.items():
         for path, t in flat_items(p):
             if not t.requires_grad:
                 t.requires_grad_(True)
             leaves.append((k, path, t))
-    with torch.enable_grad():
+    with torch.enable_grad(), shard_mod.active() as shard:
         score, aux = loss()
         flat = torch.autograd.grad(score, [t for *_, t in leaves],
                                    allow_unused=True)
+    flat = [torch.zeros_like(t) if g is None else g
+            for (*_, t), g in zip(leaves, flat)]
+    if shard is not None:
+        score, flat = shard.reduce(score, flat)
     grads = {k: {} for k in params}
     for (k, path, t), g in zip(leaves, flat):
         node = grads[k]
         *parents, name = path.split("/")
         for part in parents:
             node = node.setdefault(part, {})
-        node[name] = torch.zeros_like(t) if g is None else g
+        node[name] = g
     return score, aux, grads
+
+
+def batch_rows(x) -> int:
+    """The rows a step reports (`last_batch_size`): the global batch's
+    before padding under the data-parallel wrapper, else x's."""
+    shard = shard_mod.installed_shard()
+    return shard.unpadded if shard is not None else int(x.shape[0])
 
 
 def layer_updater(layer, default) -> upd_mod.Updater:
@@ -88,7 +105,12 @@ def layer_penalty(layer, p, defaults, biases: bool, total):
     """`total` plus one layer's l1/l2 penalty (BaseLayer.calcL1/calcL2):
     l1 * sum|w| + 0.5 * l2 * sum w^2 over its `regularizable` params and,
     with `biases`, the bias terms over its params named "b*" (the JAX
-    MultiLayerNetwork counts them, its ComputationGraph does not)."""
+    MultiLayerNetwork counts them, its ComputationGraph does not). Under
+    the data-parallel wrapper only rank 0 adds it, so the ranks' summed
+    scores and gradients count it once."""
+    shard = shard_mod.current()
+    if shard is not None and not shard.counts_penalty():
+        return total
     l1 = layer.l1 if layer.l1 is not None else defaults.l1
     l2 = layer.l2 if layer.l2 is not None else defaults.l2
     if l1 or l2:

@@ -291,7 +291,7 @@ class ComputationGraph:
             self._apply_updates(grads, self.iteration)
             self.state = {k: tr.detach(v) for k, v in new_state.items()}
         self.score_ = float(score.detach())
-        self.last_batch_size = int(inputs[0].shape[0])
+        self.last_batch_size = tr.batch_rows(inputs[0])
         self.iteration += 1
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration, self.score_)

@@ -311,7 +311,7 @@ class MultiLayerNetwork:
             self._apply_updates(grads, self.iteration)
             self.state = {k: tr.detach(v) for k, v in new_state.items()}
         self.score_ = float(score.detach())
-        self.last_batch_size = int(x.shape[0])
+        self.last_batch_size = tr.batch_rows(x)
         self.iteration += 1
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration, self.score_)

@@ -35,6 +35,7 @@ import torch
 from deeplearning4j_tpu_torch.nn import activations as act_mod
 from deeplearning4j_tpu_torch.nn import dropout as drop_mod
 from deeplearning4j_tpu_torch.nn import inputs as it
+from deeplearning4j_tpu_torch.nn import shard as shard_mod
 from deeplearning4j_tpu_torch.nn import updaters as upd_mod
 from deeplearning4j_tpu_torch.nn import weightnoise as wn_mod
 
@@ -188,10 +189,16 @@ def apply_dropout(x: torch.Tensor, dropout, train: bool, rng) -> torch.Tensor:
     """A layer's `dropout` on its output at train time: a float keeps
     each activation with that probability and scales it by 1/p (inverted
     dropout), an IDropout applies its own transform; the identity at
-    inference or without draws."""
+    inference or without draws. This is the one seam of activation draws:
+    in a data-parallel step each is drawn for the global batch and the
+    rank keeps its rows (`nn.shard.RowDraws`); weight noise draws alike on
+    every rank and does not pass here."""
     if not train or dropout is None or rng is None:
         return x
     obj = drop_mod.resolve(dropout)
     if obj is None:
         return x
+    shard = shard_mod.current()
+    if shard is not None:
+        rng = shard.rows_of(rng)
     return obj.apply(x, rng, iteration=current_iteration())

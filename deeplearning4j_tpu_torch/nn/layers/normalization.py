@@ -5,7 +5,9 @@ Running stats are STATE. In training (`train=True`) the batch statistics
 over every axis but the last are taken in float32 (a bfloat16 x is widened
 inside the reduction) in the stable two-reduce form E[(x - mean)^2], and the
 new running stats are the EMA `decay * old + (1 - decay) * batch` (biased
-variance), detached; at inference the running stats are used. Either way
+variance), detached; at inference the running stats are used. Under the
+data-parallel wrapper the batch statistics are the global batch's
+(`batch_stats`), so the running stats move alike on every rank. Either way
 the normalize + gamma/beta affine folds into one per-channel float32 scale
 and shift, in the JAX package's order of operations, and the epilogue
 y = act(x * scale + shift) for relu/identity on a float32 or bfloat16 x is
@@ -25,6 +27,7 @@ from dataclasses import dataclass
 import torch
 
 from deeplearning4j_tpu_torch.nn import inputs as it
+from deeplearning4j_tpu_torch.nn import shard as shard_mod
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 from deeplearning4j_tpu_torch.ops import bn_act as bn_ops
 
@@ -79,11 +82,19 @@ class BatchNorm(Layer):
 
     def batch_stats(self, x):
         """(mean, biased var) over every axis but the last, float32 for a
-        bfloat16 x, in the two-reduce form."""
+        bfloat16 x, in the two-reduce form. In a data-parallel step they
+        are the global batch's: each sum is all-reduced, differentiably, so
+        the statistics' gradients reach every rank's rows."""
         dims = tuple(range(x.dim() - 1))
         acc = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
-        mean = x.mean(dims, dtype=acc)
-        var = ((x.to(acc) - mean) ** 2).mean(dims)
+        shard = shard_mod.current()
+        if shard is None:
+            mean = x.mean(dims, dtype=acc)
+            var = ((x.to(acc) - mean) ** 2).mean(dims)
+            return mean, var
+        n = x.numel() // x.shape[-1] * shard.world
+        mean = shard.all_sum_grad(x.sum(dims, dtype=acc)) / n
+        var = shard.all_sum_grad(((x.to(acc) - mean) ** 2).sum(dims)) / n
         return mean, var
 
     def apply(self, params, x, *, state, train, mask=None, rng=None):

@@ -13,13 +13,16 @@ negativeloglikelihood on a softmax output use a fused log-softmax.
 
 Masking: a mask broadcastable to per_example zeroes masked slots and the
 mean divides by the active count (at least 1), as DL4J's masked averaging
-does.
+does. In a data-parallel step (`nn.shard.current()`) the count is the
+global batch's, so each rank's score is its share of the global mean.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Union
 
 import torch
+
+from deeplearning4j_tpu_torch.nn import shard as shard_mod
 
 EPS = 1e-7
 
@@ -179,7 +182,9 @@ def reduce_score(per_example: torch.Tensor,
                  mask: Optional[torch.Tensor] = None):
     """Masked mean of per-example scores: the shared tail of `compute`,
     also used by the fused loss path, which gives per-example scores
-    without a [.., features] tensor."""
+    without a [.., features] tensor. In a data-parallel step the mean is
+    over the global batch's slots (every rank holds as many rows)."""
+    shard = shard_mod.current()
     if mask is not None:
         m = mask
         # drop trailing singleton feature axes ([b, t, 1] masks)
@@ -187,7 +192,11 @@ def reduce_score(per_example: torch.Tensor,
             m = m[..., 0]
         m = torch.broadcast_to(m, per_example.shape).to(per_example.dtype)
         per_example = per_example * m
-        return per_example.sum() / m.sum().clamp_min(1.0), per_example
+        count = m.sum() if shard is None else shard.all_sum(m.sum())
+        return per_example.sum() / count.clamp_min(1.0), per_example
+    if shard is not None:
+        return (per_example.sum() / (per_example.numel() * shard.world),
+                per_example)
     # mean over all example slots (batch, and time for RNN outputs)
     return per_example.mean(), per_example
 

@@ -1,0 +1,270 @@
+"""The data-parallel shard of a training step: which rows of the global
+batch this process holds, and the process group that joins it to the
+ranks holding the others (the state `parallel.ParallelWrapper` gives the
+step; the JAX package gets the same from GSPMD over its mesh).
+
+A rank-per-process step equals the single-process step on the global batch
+only where every quantity that spans the batch is taken over the global
+batch. The layers that take one ask `current()`, which is the wrapper's
+shard while a training step's loss and gradients are computed
+(`models._training.value_and_grad`) and None everywhere else, so nothing
+changes without the wrapper, nor in a listener's `score` inside a fit:
+
+- a loss's masked mean divides by the global active count
+  (`nn.losses.reduce_score`): each rank's loss is its share of the global
+  mean, and the shares sum to it;
+- BatchNorm's batch statistics are the global batch's, through a
+  differentiable all-reduce (`all_sum_grad`), so their gradients reach
+  every rank's rows;
+- an activation's dropout mask is drawn for the global batch and the
+  rank keeps its rows (`rows_of`), so every rank's mask is its rows of the
+  single-process mask; weight noise is drawn alike on every rank;
+- the l1/l2 penalty counts on rank 0 only (`counts_penalty`);
+- the gradients are summed across ranks in flat buckets, the score with
+  them (`reduce`), so the updater sees the global batch's gradient.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import torch
+
+# The gradients go to the all-reduce in flat buffers of about this many
+# bytes (DistributedDataParallel's default bucket size).
+BUCKET_BYTES = 25 * 2 ** 20
+
+
+@dataclass
+class ReduceStats:
+    """What the gradient reduce moved: bytes all-reduced, collectives
+    launched and reduced steps. With `events` a list, each bucket's pack
+    and all-reduce is bracketed by CUDA events (a pair per bucket) or, on
+    the CPU, by the host clock (seconds), for `seconds()`."""
+
+    bytes: int = 0
+    collectives: int = 0
+    steps: int = 0
+    events: Optional[list] = None
+
+    def seconds(self) -> float:
+        """Time inside the timed buckets' pack and all-reduce (waits for
+        the device)."""
+        total = 0.0
+        for a, b in self.events or ():
+            if isinstance(a, torch.cuda.Event):
+                b.synchronize()
+                total += a.elapsed_time(b) / 1e3
+            else:
+                total += b - a
+        return total
+
+
+class _AllSum(torch.autograd.Function):
+    """The sum of a tensor over the group's ranks, with its gradient: the
+    backward all-reduces the cotangent, since every rank's loss depends on
+    every rank's term."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.contiguous().clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        torch.distributed.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class RowDraws:
+    """An activation's draws on one rank: each mask or noise sample is
+    drawn for the global batch (`rows` rows) from `inner` and the rank's
+    block [lo, hi) is kept."""
+
+    def __init__(self, inner, rows: int, lo: int, hi: int):
+        self.inner, self.rows, self.lo, self.hi = inner, rows, lo, hi
+
+    def _whole(self, shape):
+        if shape[0] != self.hi - self.lo:
+            raise ValueError(f"an activation of {shape[0]} rows on a rank "
+                             f"that holds {self.hi - self.lo}")
+        return (self.rows, *shape[1:])
+
+    def bernoulli(self, p, shape):
+        return self.inner.bernoulli(p, self._whole(shape))[self.lo:self.hi]
+
+    def normal(self, shape, dtype):
+        return self.inner.normal(self._whole(shape), dtype)[self.lo:self.hi]
+
+
+@dataclass
+class BatchShard:
+    """Rank `rank` of `world` in `group` holds rows [lo, hi) of a global
+    batch of `rows` rows (padded to a multiple of `world`; `unpadded`
+    before the padding)."""
+
+    group: object
+    rank: int
+    world: int
+    rows: int
+    unpadded: int
+    stats: ReduceStats = field(default_factory=ReduceStats)
+
+    @property
+    def lo(self) -> int:
+        return self.rank * (self.rows // self.world)
+
+    @property
+    def hi(self) -> int:
+        return self.lo + self.rows // self.world
+
+    def all_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of `t` over the ranks (no gradient)."""
+        out = t.detach().contiguous().clone()
+        torch.distributed.all_reduce(out, group=self.group)
+        return out
+
+    def all_sum_grad(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of `t` over the ranks, differentiable."""
+        return _AllSum.apply(t, self.group)
+
+    def rows_of(self, draws):
+        return RowDraws(draws, self.rows, self.lo, self.hi)
+
+    def counts_penalty(self) -> bool:
+        return self.rank == 0
+
+    def reduce(self, score: torch.Tensor, grads: List[torch.Tensor]):
+        """(global score, global gradients): `grads` and the score summed
+        over the ranks, packed into flat buckets of at most BUCKET_BYTES
+        per dtype, one all-reduce each. Each gradient returned is a view
+        of its bucket with the strides of the gradient it replaces (a
+        channels-last conv gradient stays channels-last)."""
+        leaves = list(grads) + [score.detach().reshape(1).float()]
+        out: List[Optional[torch.Tensor]] = [None] * len(leaves)
+        for idx in _buckets(leaves):
+            dtype, device = leaves[idx[0]].dtype, leaves[idx[0]].device
+            n = sum(leaves[i].numel() for i in idx)
+            timed = self.stats.events is not None
+            if timed:
+                start = _mark(device)
+            flat = torch.empty(n, dtype=dtype, device=device)
+            views, off = [], 0
+            for i in idx:
+                v = _view_like(flat, off, leaves[i])
+                v.copy_(leaves[i])
+                views.append(v)
+                off += leaves[i].numel()
+            torch.distributed.all_reduce(flat, group=self.group)
+            if timed:
+                self.stats.events.append((start, _mark(device)))
+            for i, v in zip(idx, views):
+                out[i] = v
+            self.stats.bytes += n * flat.element_size()
+            self.stats.collectives += 1
+        self.stats.steps += 1
+        return out[-1].reshape(()), out[:-1]
+
+
+def broadcast(tensors: List[torch.Tensor], src: int, group) -> None:
+    """Every tensor set in place to rank `src`'s, through flat buckets (one
+    broadcast each)."""
+    for idx in _buckets(tensors):
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        torch.distributed.broadcast(flat, src=src, group=group)
+        off = 0
+        for i in idx:
+            t = tensors[i]
+            t.copy_(flat[off:off + t.numel()].view(t.shape))
+            off += t.numel()
+
+
+def _mark(device):
+    if device.type == "cuda":
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+    return time.perf_counter()
+
+
+def _buckets(leaves):
+    """Index lists of `leaves` grouped by (dtype, device), in order, each
+    at most BUCKET_BYTES (a larger leaf alone)."""
+    groups = {}
+    for i, t in enumerate(leaves):
+        groups.setdefault((t.dtype, t.device), []).append(i)
+    out = []
+    for idx in groups.values():
+        cur, size = [], 0
+        for i in idx:
+            nbytes = leaves[i].numel() * leaves[i].element_size()
+            if cur and size + nbytes > BUCKET_BYTES:
+                out.append(cur)
+                cur, size = [], 0
+            cur.append(i)
+            size += nbytes
+        out.append(cur)
+    return out
+
+
+def _view_like(flat, off, t):
+    """flat[off:off + t.numel()] as a tensor of t's shape and memory
+    format (channels-last for a channels-last 4-d t)."""
+    chunk = flat[off:off + t.numel()]
+    if t.dim() == 4 and not t.is_contiguous() and t.is_contiguous(
+            memory_format=torch.channels_last):
+        n, c, h, w = t.shape
+        return chunk.view(n, h, w, c).permute(0, 3, 1, 2)
+    return chunk.view(t.shape)
+
+
+_STATE = threading.local()
+
+
+class installed:
+    """Makes `shard` the data-parallel shard of the training steps run in
+    this block (thread-local); `active` turns it on around a step's loss
+    and gradients."""
+
+    def __init__(self, shard: BatchShard):
+        self.shard = shard
+
+    def __enter__(self):
+        self._prev = getattr(_STATE, "installed", None)
+        _STATE.installed = self.shard
+        return self.shard
+
+    def __exit__(self, *exc):
+        _STATE.installed = self._prev
+        return False
+
+
+def installed_shard() -> Optional[BatchShard]:
+    """The shard the wrapper installed around this batch, or None."""
+    return getattr(_STATE, "installed", None)
+
+
+class active:
+    """Inside: `current()` is the installed shard (if any)."""
+
+    def __enter__(self):
+        self._prev = getattr(_STATE, "active", False)
+        _STATE.active = True
+        return installed_shard()
+
+    def __exit__(self, *exc):
+        _STATE.active = self._prev
+        return False
+
+
+def current() -> Optional[BatchShard]:
+    """The shard of the training step being computed, or None (no wrapper,
+    or outside the step's loss and gradients)."""
+    if not getattr(_STATE, "active", False):
+        return None
+    return installed_shard()

@@ -8,12 +8,14 @@ or of one training step of the zoo TransformerLM with `--model train-lm`,
 of the zoo TextGenerationLSTM with `--model train-rnn`, or of zoo ResNet-50
 with `--model train-resnet`; or, with
 `--model lstm-routes`, what the two LSTM kernel families cost; or, with
-`--model lstm-split`, where a step of the LSTM kernels goes.
+`--model lstm-split`, where a step of the LSTM kernels goes; or, with
+`--model dp-resnet`, what ParallelWrapper's collectives add to a ResNet-50
+step at world size 1 over NCCL.
 
     python3 profile_resnet_torch.py [--model resnet50|transformer|lstm|
                                      serve-inception|
                                      train-lm|train-rnn|train-resnet|
-                                     lstm-routes|lstm-split]
+                                     lstm-routes|lstm-split|dp-resnet]
                                     [--batch N] [--length T] [--iters 20]
                                     [--mixed] [--out profile_out]
 
@@ -357,6 +359,100 @@ OP_CATEGORIES = (
 )
 
 
+def dp_resnet(torch, card, args) -> int:
+    """ResNet-50 steps at batch 64 (--mixed: bfloat16 images) in turns,
+    `--iters` rounds of 8 steps each: `fit`; the same network through
+    ParallelWrapper at world size 1 over NCCL; and the wrapper with every
+    all-reduce made a no-op, which at world size 1 computes the same step
+    (each all-reduce is the identity there), so the difference is what the
+    collectives cost. Then the host time of one NCCL all-reduce of 256
+    floats on an idle card (mean of 1000) and queued behind a 0.2 s sleep
+    kernel (median of 5)."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec,
+        ParallelWrapper,
+        init_process_group,
+    )
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    batch = args.batch or 64
+    with tempfile.TemporaryDirectory() as tmp:
+        init_process_group(f"file://{tmp}/rdv", 0, 1)
+        try:
+            net = ResNet50(num_classes=1000, input_shape=(224, 224, 3),
+                           seed=7).init()
+            gen = torch.Generator(device=net.device).manual_seed(0)
+            x = torch.randn((batch, 224, 224, 3), generator=gen,
+                            device=net.device)
+            y = torch.nn.functional.one_hot(torch.randint(
+                0, 1000, (batch,), generator=gen, device=net.device),
+                1000).float()
+            data = DataSet(x.to(torch.bfloat16) if args.mixed else x, y)
+            pw = ParallelWrapper(net, mesh_spec=MeshSpec(data=1))
+            real = dist.all_reduce
+
+            def noop(t, op=None, group=None, async_op=False):
+                return None
+
+            def median_step(fit, n=8):
+                out = []
+                for _ in range(n):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fit(data)
+                    torch.cuda.synchronize()
+                    out.append(time.perf_counter() - t0)
+                return sorted(out)[n // 2] * 1e3
+
+            kinds = ("fit", "wrapper", "wrapper, no-op all-reduces")
+            rounds = {k: [] for k in kinds}
+            pw.fit(data)
+            net.fit(data)
+            for _ in range(args.iters):
+                for kind in kinds:
+                    dist.all_reduce = noop if kind.endswith("reduces") \
+                        else real
+                    try:
+                        rounds[kind].append(median_step(
+                            net.fit if kind == "fit" else pw.fit))
+                    finally:
+                        dist.all_reduce = real
+            steps = pw.stats.steps
+            mode = "bf16 images" if args.mixed else "float32, TF32 convs"
+            for kind, ms in rounds.items():
+                print(f"[dp-resnet] {kind}: median step "
+                      f"{sorted(ms)[len(ms) // 2]:.3f} ms over "
+                      f"{len(ms)} rounds ({', '.join(f'{v:.3f}' for v in ms)}"
+                      f") ({card}; batch {batch}, {mode})")
+            print(f"[dp-resnet] the wrapper's all-reduces per step: "
+                  f"{pw.stats.collectives / steps:g} gradient buckets, "
+                  f"{2 * 2 * 53} BatchNorm statistics (2 forward, 2 "
+                  f"backward, 53 BatchNorms)")
+            t = torch.randn(256, device=net.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                dist.all_reduce(t)
+            idle = (time.perf_counter() - t0) / 1000 * 1e3
+            busy = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                torch.cuda._sleep(400_000_000)
+                t0 = time.perf_counter()
+                dist.all_reduce(t)
+                busy.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+            print(f"[dp-resnet] host time of one NCCL all-reduce of 256 "
+                  f"floats: {idle:.4f} ms on an idle card, "
+                  f"{sorted(busy)[2]:.4f} ms behind a sleep kernel ({card})")
+        finally:
+            dist.destroy_process_group()
+    return 0
+
+
 def attribute_by_op(torch):
     """Open a profiler range around each BatchNorm's batch statistics and
     each layer's update, so their kernels can be told apart."""
@@ -402,7 +498,7 @@ def main() -> int:
                                         "serve-inception",
                                         "train-lm", "train-rnn",
                                         "train-resnet", "lstm-routes",
-                                        "lstm-split"),
+                                        "lstm-split", "dp-resnet"),
                     default="resnet50")
     ap.add_argument("--batch", type=int, default=None,
                     help="rows per served batch (32 ResNet-50 and "
@@ -449,6 +545,8 @@ def main() -> int:
         return lstm_routes(torch, card, args.batch or 8, args.length or 4096)
     if args.model == "lstm-split":
         return lstm_split(torch, card, args)
+    if args.model == "dp-resnet":
+        return dp_resnet(torch, card, args)
     if args.model == "resnet50":
         batch = args.batch or 32
         net = ResNet50(num_classes=1000, input_shape=(224, 224, 3),

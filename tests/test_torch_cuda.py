@@ -18,7 +18,8 @@ TextGenerationLSTM against the CPU; a Keras InceptionV3 file imported onto
 the card against its CPU import; a DL4J zip and a checkpoint zip restored
 onto the card by default (and refused where there is no card); dropout
 draws on the card repeating from the network's seed, and a DropConnect
-Output layer through the fused cross-entropy.
+Output layer through the fused cross-entropy; ParallelWrapper at world
+size 1 over NCCL against fit on the card.
 
 Marked `cuda`; they skip where torch.cuda.is_available() is False. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -1230,3 +1231,69 @@ def test_restore_onto_cuda_without_a_card_raises():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         restore_model(os.path.join(FIXTURES, "mln_graves_lstm.zip"),
                       device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["graph", "dropout"])
+def test_parallel_wrapper_over_nccl_at_world_size_1_matches_fit(
+        cuda, tmp_path, kind):
+    """ParallelWrapper at world size 1 over NCCL on the card against fit on
+    the card, 3 steps from one seed, TF32 off: the small BatchNorm graph
+    (global statistics through the differentiable all-reduce) and the
+    dropout net (activation masks through the wrapper's rows, DropConnect
+    alike); scores and params within 1e-5, running stats 1e-5 of each
+    leaf's largest magnitude. Every step all-reduces every gradient and the
+    score, one float32 bucket here."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.graph_conf import (
+        ComputationGraphConfiguration,
+    )
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec,
+        ParallelWrapper,
+        init_process_group,
+    )
+    from torch_graphs import small_resnet_json
+
+    if kind == "graph":
+        def make():
+            return ComputationGraph(ComputationGraphConfiguration.from_json(
+                small_resnet_json())).init(device=cuda)
+
+        g = torch.Generator().manual_seed(5)
+        data = DataSet(torch.randn(8, 16, 16, 3, generator=g).to(cuda),
+                       torch.nn.functional.one_hot(torch.randint(
+                           0, 5, (8,), generator=g), 5).float().to(cuda))
+    else:
+        def make():
+            return _dropout_net(cuda)
+
+        data = _dropout_batch(cuda)
+    single, wrapped = make(), make()
+    init_process_group(f"file://{tmp_path}/rdv", 0, 1)
+    try:
+        pw = ParallelWrapper(wrapped, mesh_spec=MeshSpec(data=1))
+        assert pw.mesh.backend == "nccl" and pw.mesh.size == 1
+        with dtypes.full_precision():
+            for _ in range(3):
+                single.fit(data)
+                pw.fit(data)
+                assert abs(wrapped.score_ - single.score_) <= 1e-5 * abs(
+                    single.score_)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    a, b = single.get_param_table(), wrapped.get_param_table()
+    for k in a:
+        assert abs(b[k] - a[k]).max() <= 1e-5 * max(abs(a[k]).max(), 1), k
+    for name, st in single.state.items():
+        for k, v in st.items():
+            w = wrapped.state[name][k]
+            assert (w - v).abs().max() <= 1e-5 * v.abs().max(), (name, k)
+    n = sum(v.size for v in a.values())
+    assert pw.stats.steps == 3
+    assert pw.stats.bytes == 3 * 4 * (n + 1)
+    assert wrapped.iteration == 3
+    assert wrapped.last_batch_size == data.num_examples()
