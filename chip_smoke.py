@@ -223,18 +223,20 @@ Phases, in order; any failure exits non-zero without the final line:
               seeded generator from each, the same characters and last
               probabilities; ms per character step.
  29. dl4j-fixtures  the six committed DL4J zips (tests/fixtures/dl4j/)
-              and the five committed checkpoint zips the port reads
-              (cg_branch_merge, mln_graves_lstm, mln_vit, mln_conv_bn_noise,
-              mln_scheduled_dropout) restored onto the card, each against
-              its committed output (1e-5, TF32 off); conv_pool_bn launches
-              bn_act once. The two with dropout and weight noise
-              (AlphaDropout + DropConnect after a BatchNorm; scheduled
-              Dropout, DropConnect and GaussianNoise) then take 3 fit steps
-              on the card against their CPU restore, each from the same
-              point, the card's masks and noise replayed on the CPU:
-              scores, param changes, Adam slots and BN running stats within
-              the stated tolerances; per step bn_act 1 (the BatchNorm
-              fixture) and 1 + 1 xent.
+              and the six committed checkpoint zips (cg_branch_merge,
+              mln_graves_lstm, mln_vit, mln_conv_bn_noise,
+              mln_scheduled_dropout, mln_bidir_lstm) restored onto the
+              card, each against its committed output (1e-5, TF32 off);
+              conv_pool_bn launches bn_act once. The two with dropout and
+              weight noise (AlphaDropout + DropConnect after a BatchNorm;
+              scheduled Dropout, DropConnect and GaussianNoise) and the
+              GravesBidirectionalLSTM one then take 3 fit steps on the card
+              against their CPU restore, each from the same point, the
+              card's masks and noise replayed on the CPU: scores, param
+              changes, Adam slots and BN running stats within the stated
+              tolerances; per step bn_act 1 (the BatchNorm fixture), 2
+              lstm_scan and 2 lstm_scan_bwd (the bidirectional one: both
+              halves) and 1 + 1 xent.
  30. kernel-vgg  the fused linear + softmax cross-entropy kernels at zoo
               VGG16's Output (64 rows, d 4096, 1000 classes), float32 and
               bfloat16, as phase 12 checks and times them.
@@ -273,13 +275,55 @@ Phases, in order; any failure exits non-zero without the final line:
               gloo (this script with --dp-rank), TF32 off, deterministic
               cuDNN, against this process's fit on the same global batches
               and draws: a conv + BatchNorm + dropout + Dense + Output
-              network (3 Nesterovs steps at 8 images) and a tBPTT
+              network (3 Nesterovs steps at 8 images), a tBPTT
               GravesLSTM char-RNN (4 sequences of 24 characters in windows
-              of 8, one row's labels masked from step 13): the ranks'
-              params, slots and running stats bit-identical after every
-              step; scores, params, slots and running stats within 1e-5 of
-              the single process; per step and process 1 bn_act and 1 + 1
-              xent, per window 1 lstm_scan, 1 lstm_scan_bwd and 1 + 1 xent.
+              of 8, one row's labels masked from step 13) and the same
+              char-RNN as a ComputationGraph with features and labels
+              masked alike: the ranks' params, slots and running stats
+              bit-identical after every step; scores, params, slots and
+              running stats within 1e-5 of the single process; per step
+              and process 1 bn_act and 1 + 1 xent, per window 1 lstm_scan,
+              1 lstm_scan_bwd and 1 + 1 xent.
+ 36. kernel-bidir  rows 5-8 (lstm_scan, lstm_scan_bwd, lstm_scan_chunked,
+              lstm_scan_chunked_bwd) on the inputs the backward half of
+              GravesBidirectionalLSTM gives them: zx and a right-padded
+              mask flipped in time, so a row's dead steps lead, one row
+              wholly dead, h0 and c0 nonzero; at train-bidir's (32, 1000,
+              256) and at (8, 1024, 256) (inside chunked_lstm_auto_regime),
+              float32, against their plain versions (the dead row's carry
+              and cotangent bit for bit; a forward that ran the leading
+              dead steps as live must fail); rows 5 and 6 timed at (32,
+              1000, 256) with their bounds over the live (row, step) pairs
+              and torch.nn.LSTM's; then the xent kernels at train-bidir's
+              Output (32 rows, d 512, 77 characters), as phase 12.
+ 37. train-cg-rnn  the char-RNN as a ComputationGraph at full width (in ->
+              GravesLSTM(256) -> GravesLSTM(256) -> RnnOutput(77), seed 7,
+              RmsProp(1e-2), l2 1e-4, tBPTT 50/50) trained by
+              ComputationGraph.fit on one batch of 32 x 1000 Zipf
+              characters with features mask = labels mask (row 0 live for
+              1000 steps, row 1 for 510, the others for lengths drawn in
+              [500, 1000]): 20 windows, per window 2 lstm_scan, 2
+              lstm_scan_bwd, 1 + 1 xent and nothing else; ms per window,
+              trained characters per second, peak memory. Then the last 3
+              windows again on the graph and on the port's MLN
+              TextGenerationLSTM carrying the graph's params and slots,
+              each from the same point, TF32 off: scores 1e-5 relative,
+              params 1e-5 absolute.
+ 38. train-bidir  the same width and batch as a classifier: in ->
+              GravesBidirectionalLSTM(256) -> LastTimeStepVertex and
+              GlobalPooling(avg) -> MergeVertex -> Output(77), RmsProp(1e-3)
+              (at 1e-2 whole-sequence BPTT through 1000 steps diverges to
+              NaN, on the card and the CPU alike), labelled
+              with the character after each row's live span (2-D labels:
+              whole-sequence BPTT under the same tBPTT configuration); 20
+              steps, per step 2 lstm_scan (the forward half and the reverse
+              half), 2 lstm_scan_bwd, 1 + 1 xent; ms per step, sequences
+              per second, peak memory.
+ 39. refer-train-cg  both graphs on the card (TF32 off) and on the CPU
+              (plain versions, exact float32) from the seed: the char graph
+              on 8 x 200 masked characters in 4 windows of 50 (one row
+              wholly masked in the last window), the classifier on 8 x 120
+              for 3 steps; refer-train-rnn's gates.
 
 The characters the training phases learn are drawn with Zipf frequencies,
 so that a falling loss shows learning; their shapes are bench.py
@@ -2429,8 +2473,9 @@ def phase_train_rnn_long(torch, np, card):
 
 # ---------------------------------------------------------------- phase 19
 def rmsprop_agreement(np, nets, logs, start, iters, lr=1e-2, decay=0.95):
-    """How far the card's char-RNN ("card" in `nets`, TF32 off) is from the
-    CPU's ("cpu") after the same fit calls from the same point: scores
+    """How far the card's char-RNN ("card" in `nets`, TF32 off; a
+    MultiLayerNetwork or a ComputationGraph) is from the CPU's ("cpu")
+    after the same fit calls from the same point: scores
     (ScoreLogs `logs`) relative; each param's change from `start` (param
     tables) absolute, over elements whose RMS gradient (the CPU's RmsProp
     g2) is above ZERO_GRAD of the largest; the move of the others, which
@@ -2441,15 +2486,22 @@ def rmsprop_agreement(np, nets, logs, start, iters, lr=1e-2, decay=0.95):
     from deeplearning4j_tpu_torch import interop
     from deeplearning4j_tpu_torch.models.multi_layer_network import flat_items
 
+    def g2(net):
+        # "layer_i/path" (a MultiLayerNetwork's list) or "vertex/path" (a
+        # graph's dict), as the param tables name the leaves
+        slots = interop.opt_state_to_jax(net)
+        entries = (slots.items() if isinstance(slots, dict)
+                   else ((f"layer_{i}", s) for i, s in enumerate(slots)))
+        return {f"{k}/{path}": v for k, s in entries if s
+                for path, v in flat_items(s["g2"])}
+
     rel = max(abs(a - b) / abs(b) for a, b in zip(logs["card"].scores,
                                                   logs["cpu"].scores))
     moved = {k: {key: p - start[k][key]
                  for key, p in net.get_param_table().items()}
              for k, net in nets.items()}
-    slots = {k: interop.opt_state_to_jax(net) for k, net in nets.items()}
-    rms = {f"layer_{i}/{path}": np.sqrt(v)
-           for i, s in enumerate(slots["cpu"]) if s
-           for path, v in flat_items(s["g2"])}
+    slots = {k: g2(net) for k, net in nets.items()}
+    rms = {key: np.sqrt(v) for key, v in slots["cpu"].items()}
     floor = ZERO_GRAD * max(float(r.max()) for r in rms.values())
     bound = 1.01 * iters * lr / math.sqrt(1 - decay)
     p_err, z_move, n_zero, s_err = 0.0, 0.0, 0, 0.0
@@ -2459,11 +2511,9 @@ def rmsprop_agreement(np, nets, logs, start, iters, lr=1e-2, decay=0.95):
         z_move = max(z_move, float(np.abs(got)[zero].max(initial=0)),
                      float(np.abs(want)[zero].max(initial=0)))
         n_zero += int(np.count_nonzero(zero))
-    for a, b in zip(slots["card"], slots["cpu"]):
-        got = dict(flat_items(a["g2"])) if a else {}
-        for path, want in (flat_items(b["g2"]) if b else ()):
-            s_err = max(s_err, float(np.abs(got[path] - want).max()
-                                     / max(np.abs(want).max(), 1e-30)))
+    for key, want in slots["cpu"].items():
+        s_err = max(s_err, float(np.abs(slots["card"][key] - want).max()
+                                 / max(np.abs(want).max(), 1e-30)))
     finite = all(np.isfinite(a).all() for k in nets
                  for a in moved[k].values()) and all(
         math.isfinite(v) for lg in logs.values() for v in lg.scores)
@@ -3245,24 +3295,29 @@ DL4J_FIXTURES = {
     "graph_diamond": ("graph_x", "graph_y", None),
 }
 CHECKPOINT_FIXTURES = ("cg_branch_merge", "mln_graves_lstm", "mln_vit",
-                       "mln_conv_bn_noise", "mln_scheduled_dropout")
-# the checkpoint fixtures with dropout and weight noise, trained further on
-# the card against the CPU: name -> launches per step
-DROPOUT_FIXTURES = {
+                       "mln_conv_bn_noise", "mln_scheduled_dropout",
+                       "mln_bidir_lstm")
+# the checkpoint fixtures trained further on the card against the CPU (the
+# two with dropout and weight noise, and the GravesBidirectionalLSTM one:
+# its tanh cells run both halves on rows 5 and 6): name -> launches per
+# step
+TRAINED_FIXTURES = {
     "mln_conv_bn_noise": {"bn_act": 1, "linear_xent_fwd": 1,
                           "linear_xent_bwd": 1},
     "mln_scheduled_dropout": {"linear_xent_fwd": 1, "linear_xent_bwd": 1},
+    "mln_bidir_lstm": {"lstm_scan": 2, "lstm_scan_bwd": 2,
+                       "linear_xent_fwd": 1, "linear_xent_bwd": 1},
 }
 
 
 def phase_dl4j_fixtures(torch, np):
     """dl4j-fixtures: every committed DL4J zip (tests/fixtures/dl4j/) and
-    the five committed checkpoint zips the port reads, restored onto the
-    card, each against its committed output at 1e-5 (TF32 off); the
-    BatchNorm fixture launches bn_act. The two with dropout and weight
-    noise then take 3 fit steps on the card against their CPU restore,
-    each from the same point with the card's masks replayed on the CPU.
-    Returns those steps' launches."""
+    the six committed checkpoint zips, restored onto the card, each against
+    its committed output at 1e-5 (TF32 off); the BatchNorm fixture launches
+    bn_act. TRAINED_FIXTURES (the two with dropout and weight noise, and
+    the bidirectional one) then take 3 fit steps on the card against their
+    CPU restore, each from the same point with the card's masks replayed on
+    the CPU. Returns those steps' launches."""
     from deeplearning4j_tpu_torch import dtypes
     from deeplearning4j_tpu_torch.modelimport import (
         restore_computation_graph,
@@ -3314,18 +3369,20 @@ def phase_dl4j_fixtures(torch, np):
             for n, e, b in results) + "; normalizer.bin mean "
         f"{norm.mean.tolist()}")
     steps, fit_launches = 3, {}
-    for name, per_step in DROPOUT_FIXTURES.items():
+    for name, per_step in TRAINED_FIXTURES.items():
         path = os.path.join(here, name + ".zip")
         nets = {"card": restore_model(path),
                 "cpu": restore_model(path, device="cpu")}
         x = cexp[name + "_in"]
-        n_out = cexp[name + "_out"].shape[-1]
-        y = np.eye(n_out, dtype=np.float32)[
-            np.random.default_rng(SEED).integers(0, n_out, len(x))]
+        out_shape = cexp[name + "_out"].shape
+        y = np.eye(out_shape[-1], dtype=np.float32)[
+            np.random.default_rng(SEED).integers(0, out_shape[-1],
+                                                 out_shape[:-1])]
         layers = [f"{type(l).__name__}({type(l.dropout).__name__}, "
                   f"{type(l.weight_noise).__name__})"
                   for l in nets["card"].layers
-                  if l.dropout is not None or l.weight_noise is not None]
+                  if l.dropout is not None or l.weight_noise is not None] \
+            or [type(l).__name__ for l in nets["card"].layers]
         log(f"[dl4j-fixtures] {name}: {', '.join(layers)}; iteration "
             f"{nets['card'].iteration}; {steps} fit steps, card vs CPU")
         reset_counts()
@@ -3751,14 +3808,21 @@ DP_REFER_PER_STEP = {
     "conv_bn": {"bn_act": 1, "linear_xent_fwd": 1, "linear_xent_bwd": 1},
     "char_rnn": {"lstm_scan": 1, "lstm_scan_bwd": 1, "linear_xent_fwd": 1,
                  "linear_xent_bwd": 1}}
+DP_REFER_PER_STEP["masked_graph"] = DP_REFER_PER_STEP["char_rnn"]
 
 
 def dp_refer_nets():
-    """The two refer-dp networks on the card, from SEED."""
-    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    """The three refer-dp networks on the card, from SEED."""
+    from deeplearning4j_tpu_torch.models import (
+        ComputationGraph,
+        MultiLayerNetwork,
+    )
     from deeplearning4j_tpu_torch.nn import inputs as it
     from deeplearning4j_tpu_torch.nn import updaters
     from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.graph_conf import (
+        ComputationGraphConfiguration,
+    )
     from deeplearning4j_tpu_torch.nn.layers import (
         BatchNorm,
         Conv2D,
@@ -3785,8 +3849,19 @@ def dp_refer_nets():
     ).list([GravesLSTM(n_out=c["hidden"], activation="tanh"),
             RnnOutput(n_out=c["vocab"], loss="mcxent")]
            ).set_input_type(it.recurrent(c["vocab"], c["length"]))
+    graph = ComputationGraphConfiguration(defaults=NeuralNetConfiguration(
+        seed=SEED, updater=updaters.Nesterovs(learning_rate=0.1,
+                                              momentum=0.9),
+        backprop_type="tbptt", tbptt_fwd_length=c["window"])) \
+        .add_inputs("in") \
+        .add_layer("lstm", GravesLSTM(n_out=c["hidden"], activation="tanh"),
+                   "in") \
+        .add_layer("out", RnnOutput(n_out=c["vocab"], loss="mcxent"), "lstm") \
+        .set_outputs("out") \
+        .set_input_types(it.recurrent(c["vocab"], c["length"]))
     return {"conv_bn": MultiLayerNetwork(conv).init(),
-            "char_rnn": MultiLayerNetwork(rnn).init()}
+            "char_rnn": MultiLayerNetwork(rnn).init(),
+            "masked_graph": ComputationGraph(graph).init()}
 
 
 def dp_refer_data(np):
@@ -3803,7 +3878,13 @@ def dp_refer_data(np):
     x, y = char_batch(np, rng, c["rows"], c["length"], c["vocab"])
     lm = np.ones((c["rows"], c["length"]), np.float32)
     lm[0, 13:] = 0.0
-    return {"conv_bn": conv, "char_rnn": [DataSet(x, y, None, lm)]}
+    # the graph: features and labels masked alike, row 0 wholly masked in
+    # the last window
+    gx, gy = char_batch(np, rng, c["rows"], c["length"], c["vocab"])
+    gm = np.ones((c["rows"], c["length"]), np.float32)
+    gm[0, 13:] = 0.0
+    return {"conv_bn": conv, "char_rnn": [DataSet(x, y, None, lm)],
+            "masked_graph": [DataSet(gx, gy, gm, gm.copy())]}
 
 
 class Snapshots:
@@ -3942,6 +4023,455 @@ def phase_refer_dp(torch, np):
     log(f"[refer-dp] took {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------ phases 36-40
+# masks and tBPTT through the ComputationGraph, at train-rnn-tbptt's width
+# and batch: row 1's live length, and the least any other row's may be
+CG_RNN_LIVE = (510, 500)
+CG_RNN_MLN_WINDOWS = 3         # last windows run again beside the MLN
+BIDIR_STEPS = 20
+# the classifier's RmsProp rate: at the char-RNN's 1e-2 its first step
+# moves every weight by lr / sqrt(1 - decay) = 0.045, and whole-sequence
+# BPTT through 1000 steps of both halves then diverges to NaN from step 5,
+# on the card (an NVIDIA H100 80GB HBM3 at 700 W) and in the same phase
+# run on the CPU alike; at 1e-3 the loss falls from 4.41 to 2.36 in 20
+# steps on both
+BIDIR_LR = 1e-3
+# the reverse half's inputs at train-bidir's shape (rows 5 and 6) and
+# inside chunked_lstm_auto_regime (rows 7 and 8)
+BIDIR_KERNEL_CASES = [(32, 1000, 256), (8, 1024, 256)]
+# train-bidir's Output: 32 rows of the merged 512 features, 77 characters
+BIDIR_XENT_CASES = [(32, 512, 77, "onehot", "float32")]
+# refer-train-cg: (rows, characters, window, fit calls) of the char graph,
+# (rows, characters, steps) of the bidirectional classifier
+REFER_CG = ((8, 200, 50, 1), (8, 120, 3))
+
+
+def masked_char_batch(np, rng, n, t, vocab, row1, least):
+    """char_batch and its right-padded mask (the features mask and the
+    labels mask): row 0 live for all t characters, row 1 for `row1`, the
+    others for lengths drawn from `rng` in [least, t]. Returns x, y, the
+    mask and the lengths."""
+    x, y = char_batch(np, rng, n, t, vocab)
+    lengths = rng.integers(least, t + 1, n)
+    lengths[0], lengths[1] = t, row1
+    mask = (np.arange(t)[None] < lengths[:, None]).astype(np.float32)
+    return x, y, mask, lengths
+
+
+def cg_rnn_net(torch, t, window, device=None, bidir=False):
+    """The char-RNN as a ComputationGraph at full width from SEED
+    (RmsProp(1e-2), l2 1e-4, tBPTT windows of `window`): in -> l0
+    GravesLSTM(256) -> l1 GravesLSTM(256) -> out RnnOutput(77), or with
+    `bidir` the classifier in -> bi GravesBidirectionalLSTM(256); last
+    (LastTimeStepVertex) and pool (GlobalPooling avg) of bi -> merge
+    (MergeVertex) -> out Output(77), at RmsProp(BIDIR_LR)."""
+    from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.nn import inputs as it
+    from deeplearning4j_tpu_torch.nn import updaters
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.graph_conf import (
+        ComputationGraphConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.graph_vertices import (
+        LastTimeStepVertex,
+        MergeVertex,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        GlobalPooling,
+        GravesBidirectionalLSTM,
+        GravesLSTM,
+        Output,
+        RnnOutput,
+    )
+
+    vocab, n = RNN["num_classes"], CHAR_RNN["hidden"]
+    lr = BIDIR_LR if bidir else 1e-2
+    g = ComputationGraphConfiguration(defaults=NeuralNetConfiguration(
+        seed=SEED, updater=updaters.RmsProp(learning_rate=lr), l2=1e-4,
+        backprop_type="tbptt", tbptt_fwd_length=window)).add_inputs("in")
+    if bidir:
+        g = (g.add_layer("bi", GravesBidirectionalLSTM(
+                n_out=n, activation="tanh"), "in")
+             .add_vertex("last", LastTimeStepVertex(mask_input="in"), "bi")
+             .add_layer("pool", GlobalPooling(pooling_type="avg"), "bi")
+             .add_vertex("merge", MergeVertex(), "last", "pool")
+             .add_layer("out", Output(n_out=vocab, loss="mcxent",
+                                      activation="softmax"), "merge"))
+    else:
+        g = (g.add_layer("l0", GravesLSTM(n_out=n, activation="tanh"), "in")
+             .add_layer("l1", GravesLSTM(n_out=n, activation="tanh"), "l0")
+             .add_layer("out", RnnOutput(n_out=vocab, loss="mcxent",
+                                         activation="softmax"), "l1"))
+    conf = g.set_outputs("out").set_input_types(it.recurrent(vocab, t))
+    return ComputationGraph(conf).init(
+        **({} if device is None else {"device": device}))
+
+
+def bidir_labels(np, y, lengths):
+    """The character after each row's live span, one-hot [n, vocab]."""
+    return y[np.arange(len(lengths)), lengths - 1]
+
+
+def flipped_lstm_inputs(torch, gen, b, t, n):
+    """lstm_case_inputs (float32, peepholes, nonzero h0 and c0) as the
+    backward half of GravesBidirectionalLSTM gives them to the kernels: zx
+    and a right-padded mask flipped in time, so each row's dead steps lead
+    (row 0 live throughout, row 1 wholly dead, the others live for at
+    least t / 2); cotangents of order 1 and the chunked forward's outputs,
+    as lstm_bwd_inputs."""
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+
+    zx, R, p, h0, c0, _ = lstm_case_inputs(torch, gen, b, t, n,
+                                           torch.float32, True, False)
+    dev = zx.device
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=gen, device=dev)
+    lengths[0], lengths[1] = t, 0
+    mask = (torch.arange(t, device=dev)[None] < lengths[:, None]).float()
+    zx, m = torch.flip(zx, dims=(1,)).contiguous(), torch.flip(mask, (1,))
+    g = tuple(torch.randn(s, generator=gen, device=dev)
+              for s in ((b, t, n), (b, n), (b, n)))
+    fwd = lstm_ops.lstm_scan_chunked_forward(zx, R, h0, c0, p, m)
+    return {"zx": zx, "R": R, "p": p, "h0": h0, "c0": c0, "m": m, "g": g,
+            "fwd": fwd}
+
+
+def phase_kernel_bidir(torch, bw, peak, peak_tf32):
+    """kernel-bidir: rows 5-8 on the reverse half's inputs (leading dead
+    steps, a wholly dead row, nonzero h0 and c0) at BIDIR_KERNEL_CASES,
+    float32, against their plain versions: h0 and c0 must pass through the
+    leading dead steps in the forward, dh and dc through them to dh0 and
+    dc0 in the backward. Times rows 5 and 6 at train-bidir's (32, 1000,
+    256) with their bounds (the products of the live (row, step) pairs
+    only) and torch.nn.LSTM's. Returns ({"lstm_scan": row, "lstm_scan_bwd":
+    row}, {kernel: largest absolute error})."""
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names_fwd = ("hs", "hT", "cT", "hck", "cck")
+    names_bwd = ("dzx", "dR", "dp", "dh0", "dc0")
+    worst = dict.fromkeys(("lstm_scan", "lstm_scan_bwd", "lstm_scan_chunked",
+                           "lstm_scan_chunked_bwd"), 0.0)
+    rows = {}
+    for b, t, n in BIDIR_KERNEL_CASES:
+        s = flipped_lstm_inputs(torch, gen, b, t, n)
+        where = f"b={b} t={t} n={n} leading dead steps float32"
+
+        def row5(s=s):
+            return lstm_ops.lstm_scan_peephole(s["zx"], s["R"], s["p"],
+                                               s["h0"], s["c0"], s["m"])
+
+        def row6(s=s, hs=None):
+            return lstm_ops.lstm_scan_bwd(s["zx"], s["R"], s["h0"], s["c0"],
+                                          s["fwd"][0] if hs is None else hs,
+                                          *s["g"], s["p"], s["m"])
+
+        def plain5(s=s):
+            return lstm_ops.lstm_scan_reference(s["zx"], s["R"], s["h0"],
+                                                s["c0"], s["p"], s["m"])
+
+        def plain6(s=s):
+            return lstm_ops.lstm_scan_backward_reference(
+                s["zx"], s["R"], s["h0"], s["c0"], s["fwd"][0], *s["g"],
+                s["p"], s["m"])
+
+        got5, ref5 = row5(), plain5()
+        got6, ref6 = row6(hs=got5[0]), plain6()
+        got8 = lstm_ops.lstm_scan_chunked_bwd(
+            s["zx"], s["R"], s["fwd"][3], s["fwd"][4], *s["g"], s["p"],
+            s["m"])
+        ref7 = lstm_ops.lstm_scan_chunked_reference(
+            s["zx"], s["R"], s["h0"], s["c0"], s["p"], s["m"])
+        ref8 = lstm_ops.lstm_scan_chunked_backward_reference(
+            s["zx"], s["R"], s["fwd"][3], s["fwd"][4], *s["g"], s["p"],
+            s["m"])
+        torch.cuda.synchronize()
+        for k, names, got, ref, kind in (
+                ("lstm_scan", names_fwd[:3], got5, ref5, "fwd"),
+                ("lstm_scan_bwd", names_bwd, got6, ref6, "bwd"),
+                ("lstm_scan_chunked", names_fwd, s["fwd"], ref7, "fwd"),
+                ("lstm_scan_chunked_bwd", names_bwd, got8, ref8, "bwd")):
+            worst[k] = max(worst[k], lstm_bwd_check(k, names, got, ref, kind,
+                                                    where))
+        # the wholly dead row keeps its carry and passes its cotangent
+        for what, fwd in (("lstm_scan", got5), ("lstm_scan_chunked",
+                                                 s["fwd"])):
+            if not (torch.equal(fwd[1][1], s["h0"][1])
+                    and torch.equal(fwd[2][1], s["c0"][1])
+                    and not fwd[0][1].abs().any()):
+                raise AssertionError(f"kernel-bidir: {what} did not carry "
+                                     f"h0, c0 through a wholly dead row")
+        for what, got in (("lstm_scan_bwd", got6),
+                          ("lstm_scan_chunked_bwd", got8)):
+            if not (torch.equal(got[3][1], s["g"][1][1])
+                    and torch.equal(got[4][1], s["g"][2][1])):
+                raise AssertionError(f"kernel-bidir: {what} did not pass "
+                                     f"g_hT, g_cT through a wholly dead row")
+        # a forward that ran the leading dead steps as live ones must fail
+        live = lstm_ops.lstm_scan_reference(s["zx"], s["R"], s["h0"],
+                                            s["c0"], s["p"], None)
+        lstm_fwd_reject("hT from a row's leading dead steps run as live",
+                        live[1], ref5[1])
+        log(f"[kernel-bidir] rows 5-8 at ({b}, {t}, {n}) float32, the "
+            f"reverse half's mask (leading dead steps, row 1 wholly dead, "
+            f"h0/c0 nonzero): max abs error row 5 "
+            f"{worst['lstm_scan']:.3g}, row 6 {worst['lstm_scan_bwd']:.3g}, "
+            f"row 7 {worst['lstm_scan_chunked']:.3g}, row 8 "
+            f"{worst['lstm_scan_chunked_bwd']:.3g}; the dead row's carry and "
+            f"cotangent pass through bit for bit")
+        del got5, ref5, got6, ref6, got8, ref7, ref8, live
+        if (b, t, n) == BIDIR_KERNEL_CASES[0]:
+            pairs = int(s["m"].sum())
+            k5 = device_ms(torch, lambda i: row5(), 1, iters=5)
+            k6 = device_ms(torch, lambda i: row6(), 1, iters=5)
+            p5 = device_ms(torch, lambda i: plain5(), 1, iters=1)
+            p6 = device_ms(torch, lambda i: plain6(), 1, iters=1)
+            lib5 = lstm_library_fwd_ms(torch, b, t, n)
+            lib6 = lstm_library_bwd_ms(torch, b, t, n)
+            # the products of the live (row, step) pairs only: n <= 256,
+            # so row 5's run as float32 FMAs (lstm_fwd_bound), row 6's three
+            # as 3xTF32 (phase_lstm_bwd)
+            fwd_ops = 2 * pairs * n * 4 * n
+            moved5 = (b * t * 5 * n + 4 * n * n + 4 * b * n + 3 * n) * 4 \
+                + 4 * b * t
+            b5 = max(moved5 / bw, fwd_ops / peak) * 1e3
+            by5 = "bytes" if moved5 / bw >= fwd_ops / peak else "operations"
+            moved6 = ((b * t * 4 * n + 4 * n * n + b * t * n + 2 * b * n)
+                      * 4 + 3 * n * 4 + 4 * b * t + (b * t * n + 2 * b * n)
+                      * 4 + b * t * 4 * n * 4
+                      + (4 * n * n + 3 * n + 2 * b * n) * 4)
+            ops6 = 9 * fwd_ops
+            b6 = max(moved6 / bw, ops6 / peak_tf32) * 1e3
+            by6 = "bytes" if moved6 / bw >= ops6 / peak_tf32 else \
+                "operations"
+            rows["lstm_scan"] = {"ms": k5, "plain_ms": p5, "library_ms": lib5,
+                                 "bound_ms": b5, "bound_by": by5}
+            rows["lstm_scan_bwd"] = {"ms": k6, "plain_ms": p6,
+                                     "library_ms": lib6, "bound_ms": b6,
+                                     "bound_by": by6}
+            for k, r, what in (("lstm_scan", rows["lstm_scan"],
+                                "float32 FMAs"),
+                               ("lstm_scan_bwd", rows["lstm_scan_bwd"],
+                                "3 products as 3xTF32")):
+                log(f"[kernel-bidir] {k} at ({b}, {t}, {n}) float32, the "
+                    f"reverse half ({pairs} live (row, step) pairs of "
+                    f"{b * t}): kernel {r['ms']:.4f} ms ({r['ms'] * 1e3 / t:.2f}"
+                    f" us/step), plain {r['plain_ms']:.4f} ms, library "
+                    f"{r['library_ms']:.4f} ms [torch.nn.LSTM "
+                    f"{'forward' if k == 'lstm_scan' else 'backward'}, cuDNN,"
+                    f" plain cell, no mask], bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']}, {what}; "
+                    f"{100 * r['bound_ms'] / r['ms']:.1f}% of it)")
+        del s
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def phase_train_cg_rnn(torch, np, card):
+    """train-cg-rnn: the char graph (cg_rnn_net) trained by
+    ComputationGraph.fit on one masked batch of 32 x 1000 characters
+    (masked_char_batch: features mask = labels mask) in tBPTT windows of
+    50: 20 iterations, per window 2 lstm_scan, 2 lstm_scan_bwd, 1 + 1 xent
+    and nothing else; ms per window, trained characters per second, peak
+    memory. Then its last CG_RNN_MLN_WINDOWS windows again, each from the
+    same point, on the graph and on the port's MLN TextGenerationLSTM
+    carrying the graph's params and RmsProp slots (TF32 off): scores 1e-5
+    relative, params 1e-5 absolute. Returns the 20 windows' launches."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import DataSet, MultiDataSet
+
+    b, t, window = RNN_TBPTT
+    x, y, m, lengths = masked_char_batch(
+        np, np.random.default_rng(SEED + 14), b, t, RNN["num_classes"],
+        *CG_RNN_LIVE)
+    windows = -(-t // window)
+    sl0 = slice(0, window)
+    # one window on a graph of its own warms the allocator and handles
+    cg_rnn_net(torch, t, window).fit(MultiDataSet(
+        [x[:, sl0]], [y[:, sl0]], [m[:, sl0]], [m[:, sl0]]))
+    net = cg_rnn_net(torch, t, window)
+    rec = ScoreLog()
+    net.set_listeners(rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    net.fit(MultiDataSet([x], [y], [m], [m]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    want = {k: windows * v for k, v in RNN_PER_STEP.items()}
+    check_train("train-cg-rnn", rec.scores, launches, want)
+    if len(rec.scores) != windows or net.iteration != windows:
+        raise AssertionError(f"train-cg-rnn: {len(rec.scores)} listener "
+                             f"calls, iteration {net.iteration}; want "
+                             f"{windows} windows")
+    per_window = m.reshape(b, windows, window).sum(axis=2)
+    dead = [w for w in range(windows) if (per_window[:, w] == 0).any()]
+    partial = [w for w in range(windows)
+               if ((per_window[:, w] > 0) & (per_window[:, w] < window)).any()]
+    if not dead or not partial:
+        raise AssertionError(f"train-cg-rnn: no window with a wholly masked "
+                             f"row ({dead}) or a partly masked one "
+                             f"({partial})")
+    live = int(m.sum())
+    log(f"[train-cg-rnn] ComputationGraph in -> l0 GravesLSTM(256) -> l1 "
+        f"GravesLSTM(256) -> out RnnOutput(77) ({net.num_params()} params),"
+        f" {b} x {t} characters, {live} live (rows live for {lengths[0]}, "
+        f"{lengths[1]} and {lengths[2:].min()}-{lengths[2:].max()}), in "
+        f"{windows} windows of {window} (partly masked rows from window "
+        f"{partial[0]}, wholly masked rows from window {dead[0]}): score "
+        f"{rec.scores[0]:.5f} -> {rec.scores[-1]:.5f}; launches {want} (per "
+        f"window {RNN_PER_STEP})")
+    log(f"[train-cg-rnn] batch {wall * 1e3:.2f} ms (copy included) = "
+        f"{wall / windows * 1e3:.3f} ms per window, {live / wall:.1f} "
+        f"trained (live) characters/s, {b * t / wall:.1f} character slots/s;"
+        f" peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB ({card})")
+    mln = rnn_net(torch, window, tbptt=window)
+    names = {"l0": "layer_0", "l1": "layer_1", "out": "layer_2"}
+    rel, err = 0.0, 0.0
+    with dtypes.full_precision():
+        for w in range(windows - CG_RNN_MLN_WINDOWS, windows):
+            with torch.no_grad():
+                for k, key in names.items():
+                    for p, v in net.params[k].items():
+                        mln.params[key][p].copy_(v)
+            mln.opt_state = [{s: {p: v.clone() for p, v in tree.items()}
+                              for s, tree in net.opt_state[k].items()}
+                             for k in names]
+            mln.iteration = net.iteration
+            sl = slice(w * window, (w + 1) * window)
+            net.fit(MultiDataSet([x[:, sl]], [y[:, sl]], [m[:, sl]],
+                                 [m[:, sl]]))
+            mln.fit(DataSet(x[:, sl], y[:, sl], m[:, sl], m[:, sl]))
+            rel = max(rel, abs(net.score_ - mln.score_) / abs(mln.score_))
+            got = net.get_param_table()
+            for key, v in mln.get_param_table().items():
+                layer, p = key.split("/", 1)
+                g = got[{v_: k_ for k_, v_ in names.items()}[layer] + "/" + p]
+                err = max(err, float(np.abs(g - v).max()))
+    if not (rel <= 1e-5 and err <= 1e-5):
+        raise AssertionError(f"train-cg-rnn: the graph and the MLN differ: "
+                             f"scores {rel:.3g}, params {err:.3g}")
+    log(f"[train-cg-rnn] the same windows {windows - CG_RNN_MLN_WINDOWS}-"
+        f"{windows - 1} on the graph and on the MLN TextGenerationLSTM, each"
+        f" from the graph's params and slots (TF32 off): scores relative "
+        f"{rel:.3g} (tol 1e-5), params max |diff| {err:.3g} (tol 1e-5)")
+    return launches
+
+
+def phase_train_bidir(torch, np, card):
+    """train-bidir: the bidirectional classifier (cg_rnn_net bidir) on
+    train-cg-rnn's masked batch, labelled with the character after each
+    row's live span (2-D labels, so whole-sequence BPTT under the tBPTT
+    configuration), BIDIR_STEPS steps: per step 2 lstm_scan (the forward
+    half, and the reverse half on flipped zx and mask), 2 lstm_scan_bwd,
+    1 + 1 xent and nothing else; scores finite and falling; ms per step,
+    sequences per second, peak memory. Returns the launches."""
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+
+    b, t, window = RNN_TBPTT
+    x, y, m, lengths = masked_char_batch(
+        np, np.random.default_rng(SEED + 14), b, t, RNN["num_classes"],
+        *CG_RNN_LIVE)
+    mds = MultiDataSet([x], [bidir_labels(np, y, lengths)], [m], None)
+    net = cg_rnn_net(torch, t, window, bidir=True)
+    rec = ScoreLog()
+    net.set_listeners(rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for _ in range(BIDIR_STEPS):
+        t0 = time.perf_counter()
+        net.fit(mds)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read_counts()
+    want = {k: BIDIR_STEPS * v for k, v in RNN_PER_STEP.items()}
+    check_train("train-bidir", rec.scores, launches, want)
+    if net.iteration != BIDIR_STEPS:
+        raise AssertionError(f"train-bidir: iteration {net.iteration}")
+    steady = sorted(times[1:])
+    step_ms = steady[len(steady) // 2] * 1e3
+    log(f"[train-bidir] ComputationGraph in -> bi GravesBidirectionalLSTM("
+        f"256) -> last (LastTimeStepVertex), pool (GlobalPooling avg) -> "
+        f"merge -> out Output(77) ({net.num_params()} params), {b} "
+        f"sequences of {t} characters ({int(m.sum())} live), labels 2-D: "
+        f"{BIDIR_STEPS} BPTT steps, score {rec.scores[0]:.5f} -> "
+        f"{rec.scores[-1]:.5f}; launches {want} (per step {RNN_PER_STEP})")
+    log(f"[train-bidir] median step {step_ms:.3f} ms (batch copy "
+        f"included), {b / (step_ms / 1e3):.1f} sequences/s, "
+        f"{int(m.sum()) / (step_ms / 1e3):.1f} live characters/s; first "
+        f"step {times[0] * 1e3:.2f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB ({card})")
+    return launches
+
+
+def phase_refer_train_cg(torch, np):
+    """refer-train-cg: the two graphs at a cut length on the card (TF32
+    off) and on the CPU (plain versions, exact float32), from SEED: the
+    char graph on 8 x 200 masked characters in 4 windows of 50 (row 1
+    wholly masked in the last window), the bidirectional classifier on 8 x
+    120 for 3 steps; refer-train-rnn's gates (rmsprop_agreement)."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+
+    rng = np.random.default_rng(SEED + 16)
+    vocab = RNN["num_classes"]
+    (b, t, window, calls), (bb, bt, bsteps) = REFER_CG
+    # row 1 wholly masked in the last window
+    x, y, m, _ = masked_char_batch(np, rng, b, t, vocab, t - window, t // 2)
+    bx, by, bm, blen = masked_char_batch(np, rng, bb, bt, vocab, bt // 3,
+                                         bt // 2)
+    cases = (("char graph", t, False, MultiDataSet([x], [y], [m], [m]),
+              calls, calls * -(-t // window)),
+             ("bidirectional", bt, True,
+              MultiDataSet([bx], [bidir_labels(np, by, blen)], [bm], None),
+              bsteps, bsteps))
+    for label, tt, bidir, mds, fits, iters in cases:
+        nets = {"card": cg_rnn_net(torch, tt, window, bidir=bidir),
+                "cpu": cg_rnn_net(torch, tt, window, device="cpu",
+                                  bidir=bidir)}
+        logs = {}
+        for k, net in nets.items():
+            logs[k] = ScoreLog()
+            net.set_listeners(logs[k])
+        start = {k: net.get_param_table() for k, net in nets.items()}
+        reset_counts()
+        with dtypes.full_precision():
+            for _ in range(fits):
+                for net in nets.values():
+                    net.fit(mds)
+        launches = read_counts()
+        if launches["lstm_scan"] == 0 or launches["lstm_scan_bwd"] == 0:
+            raise AssertionError(f"refer-train-cg ({label}): launches "
+                                 f"{launches}")
+        rel, p_err, z_move, n_zero, s_err, floor, bound, finite = \
+            rmsprop_agreement(np, nets, logs, start, iters,
+                              lr=BIDIR_LR if bidir else 1e-2)
+        same_iters = (len(logs["card"].scores) == len(logs["cpu"].scores)
+                      == iters == nets["card"].iteration
+                      == nets["cpu"].iteration)
+        if not (rel <= 1e-5 and p_err <= 1e-5 and z_move <= bound
+                and s_err <= 1e-4 and finite and same_iters):
+            raise AssertionError(
+                f"refer-train-cg ({label}): card and CPU differ: scores "
+                f"{logs['card'].scores} vs {logs['cpu'].scores}, changes "
+                f"{p_err:.3g}, zero-gradient moves {z_move:.3g}, slots "
+                f"{s_err:.3g}, finite {finite}, iterations {iters}")
+        log(f"[refer-train-cg] {label}: {mds.features[0].shape[0]} x {tt} "
+            f"masked characters, {iters} RmsProp iterations, card (TF32 "
+            f"off) vs CPU: scores relative {rel:.3g} (tol 1e-5); params' "
+            f"change from their start max |diff| {p_err:.3g} (tol 1e-5); "
+            f"{n_zero} elements with zero gradient (RMS gradient <= "
+            f"{floor:.3g}) move at most {z_move:.3g} (RmsProp's bound "
+            f"{bound:.3g}); g2 max relative {s_err:.3g} (tol 1e-4); card "
+            f"launches {launches}")
+        del nets
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4010,8 +4540,11 @@ def main() -> int:
         del rnn
         flash_bwd, flash_bwd_err = phase_flash_bwd(torch, bw, peak,
                                                    peak_bf16, peak_tf32)
-        xent, xent_err = phase_xent(torch, bw, peak, peak_bf16, peak_tf32)
-        xent = xent[XENT_CASES[0]]
+        xent_cases, xent_err = phase_xent(torch, bw, peak, peak_bf16,
+                                          peak_tf32)
+        xent = xent_cases[XENT_CASES[0]]
+        # rows 9 and 10 at a window of train-rnn-tbptt and train-cg-rnn
+        xent_window = xent_cases[(1600, 256, 77, "onehot", "float32")]
         train_launches = phase_train_lm(torch, np, card)
         phase_refer_train(torch, np)
         lstm_bwd, lstm_bwd_err = phase_lstm_bwd(torch, bw, peak, peak_tf32)
@@ -4082,6 +4615,23 @@ def main() -> int:
         phase_refer_dp(torch, np)
         log(f"[refer-dp] the data-parallel phases (dp-vgg16, dp-resnet, "
             f"refer-dp) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bidir_rows, bidir_err = phase_kernel_bidir(torch, bw, peak,
+                                                   peak_tf32)
+        lstm_err = max(lstm_err, bidir_err["lstm_scan"])
+        lstm_bwd_err = {k: max(v, bidir_err[k])
+                        for k, v in lstm_bwd_err.items()}
+        bidir_xent, bidir_xent_err = phase_xent(
+            torch, bw, peak, peak_bf16, peak_tf32, cases=BIDIR_XENT_CASES,
+            tag="kernel-bidir")
+        bidir_xent = bidir_xent[BIDIR_XENT_CASES[0]]
+        xent_err = max(xent_err, bidir_xent_err)
+        cg_launches = phase_train_cg_rnn(torch, np, card)
+        bidir_launches = phase_train_bidir(torch, np, card)
+        phase_refer_train_cg(torch, np)
+        log(f"[refer-train-cg] the graph recurrent phases (kernel-bidir, "
+            f"train-cg-rnn, train-bidir, refer-train-cg) took "
+            f"{time.perf_counter() - t0:.1f} s")
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
         if leaked:
@@ -4115,7 +4665,8 @@ def main() -> int:
         "flash_attention": (lm_launches["flash_attention"], flash_err,
                             per_forward(flash, LM["n_layers"])),
         "lstm_scan": (rnn_launches["lstm_scan"], lstm_err,
-                      per_forward(lstm, 2)),
+                      dict(per_forward(lstm, 2),
+                           bidir_shape=bidir_rows["lstm_scan"])),
         "flash_attention_bwd_dq": (
             train_launches["flash_attention_bwd_dq"], flash_bwd_err,
             per_forward(flash_bwd["dq"], LM["n_layers"])),
@@ -4123,12 +4674,17 @@ def main() -> int:
             train_launches["flash_attention_bwd_dkv"], flash_bwd_err,
             per_forward(flash_bwd["dkv"], LM["n_layers"])),
         "linear_xent_fwd": (train_launches["linear_xent_fwd"], xent_err,
-                            dict(xent["fwd"], vgg16_output=vgg_rows("fwd"))),
+                            dict(xent["fwd"], vgg16_output=vgg_rows("fwd"),
+                                 tbptt_window=xent_window["fwd"],
+                                 bidir_output=bidir_xent["fwd"])),
         "linear_xent_bwd": (train_launches["linear_xent_bwd"], xent_err,
-                            dict(xent["bwd"], vgg16_output=vgg_rows("bwd"))),
+                            dict(xent["bwd"], vgg16_output=vgg_rows("bwd"),
+                                 tbptt_window=xent_window["bwd"],
+                                 bidir_output=bidir_xent["bwd"])),
         "lstm_scan_bwd": (rnn_train_launches["lstm_scan_bwd"],
                           lstm_bwd_err["lstm_scan_bwd"],
-                          per_forward(lstm_bwd["lstm_scan_bwd"], 2)),
+                          dict(per_forward(lstm_bwd["lstm_scan_bwd"], 2),
+                               bidir_shape=bidir_rows["lstm_scan_bwd"])),
         "lstm_scan_chunked": (long_launches["lstm_scan_chunked"],
                               lstm_bwd_err["lstm_scan_chunked"],
                               per_forward(lstm_bwd["lstm_scan_chunked"], 2)),
@@ -4146,8 +4702,12 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            # per launch: rows 5 and 6 at train-bidir's (32, 1000, 256) on
+            # the reverse half's mask; rows 9 and 10 at a tBPTT window
+            # (1600, 256, 77) and at train-bidir's Output (32, 512, 77)
             **{k: t[k] for k in ("library_covers", "inception_v3_forward",
-                                 "vgg16_output") if k in t},
+                                 "vgg16_output", "bidir_shape",
+                                 "tbptt_window", "bidir_output") if k in t},
             # launches on the char-RNN's DL4J restore and resume path
             # (dl4j-charrnn and checkpoint-resume)
             "dl4j_resume_launches": resume_launches[kname],
@@ -4157,7 +4717,13 @@ def main() -> int:
             # launches in dp-vgg16's and dp-resnet's 20 + 20 mixed steps
             # through ParallelWrapper
             "dp_launches": dp_launches[kname],
-            "dropout_fixture_launches": fixture_launches[kname]})
+            # launches in the trained checkpoint fixtures' 3 + 3 + 3 card
+            # steps (dl4j-fixtures: the dropout ones and mln_bidir_lstm)
+            "fixture_launches": fixture_launches[kname],
+            # launches in train-cg-rnn's 20 tBPTT windows of the masked
+            # graph and in train-bidir's 20 steps
+            "cg_rnn_launches": cg_launches[kname],
+            "bidir_launches": bidir_launches[kname]})
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

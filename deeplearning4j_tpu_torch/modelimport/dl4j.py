@@ -44,10 +44,10 @@ Every array is sliced into the interchange layout (the JAX package's: HWIO
 conv kernels, (i, f, g, o) gates) and goes into the network through its
 layer's `from_interchange` (`interop.layer_params_from_jax`), float32 on the
 network's device; BatchNorm's mean and var become its running state.
-The two vertices the JAX importer translates that need masks through the
-graph (LastTimeStepVertex, DuplicateToTimeSeriesVertex) raise
-NotImplementedError naming the ROADMAP item that brings them; a type
-neither importer translates raises ValueError.
+A vertex type neither importer translates raises ValueError. Like the JAX
+importer, DuplicateToTimeSeriesVertex is translated with no fields: the
+reference's one-input vertex names its time source by `inputName`, which
+both importers drop (ROADMAP C.10).
 """
 from __future__ import annotations
 
@@ -672,11 +672,11 @@ _VERTEX_TYPES = {
     "L2NormalizeVertex": ("L2NormalizeVertex", {}),
     "ScaleVertex": ("ScaleVertex", {"scaleFactor": "scale_factor"}),
     "ShiftVertex": ("ShiftVertex", {"shiftFactor": "shift_factor"}),
+    "LastTimeStepVertex": ("LastTimeStepVertex",
+                           {"maskArrayInputName": "mask_input"}),
+    "DuplicateToTimeSeriesVertex": ("DuplicateToTimeSeriesVertex", {}),
     "PoolHelperVertex": ("PoolHelperVertex", {}),
 }
-# vertices the JAX importer translates that need the graph's masks, which
-# the port's graph runtime does not have yet
-_MASKED_VERTICES = ("LastTimeStepVertex", "DuplicateToTimeSeriesVertex")
 
 
 def _translate_vertex(type_name: str, body: dict):
@@ -689,10 +689,6 @@ def _translate_vertex(type_name: str, body: dict):
         return gv.PreprocessorVertex(
             preprocessor=_translate_preprocessor(body.get("preProcessor"))
         ), None
-    if type_name in _MASKED_VERTICES:
-        raise NotImplementedError(
-            f"DL4J graph vertex {type_name!r} needs masks through the graph, "
-            f"which the port has not ported yet (ROADMAP A, item A.6)")
     if type_name not in _VERTEX_TYPES:
         raise ValueError(
             f"DL4J graph vertex {type_name!r} is not supported by the "

@@ -56,6 +56,7 @@ from deeplearning4j_tpu_torch.nn.layers import (
     EmbeddingSequence,
     GlobalPooling,
     Output,
+    SimpleRnn,
     Subsampling2D,
 )
 from deeplearning4j_tpu_torch.nn.preprocessors import (
@@ -282,6 +283,9 @@ class KerasLayerTranslator:
                         cfg.get("recurrent_activation", "sigmoid"), "sigmoid"),
                     forget_gate_bias_init=1.0 if cfg.get("unit_forget_bias", True) else 0.0)
 
+    def t_simple_r_n_n(self, cfg):
+        return SimpleRnn(n_out=int(cfg["units"]), activation=_act(cfg))
+
     # ---- merges ----
     def t_add(self, cfg):
         return ElementWiseVertex(op="add")
@@ -327,7 +331,6 @@ _NOT_PORTED = {
     "ZeroPadding2D": ("ZeroPadding2D", "A.8"),
     "UpSampling1D": ("Upsampling1D", "A.8"),
     "UpSampling2D": ("Upsampling2D", "A.8"),
-    "SimpleRNN": ("SimpleRnn", "A.6"),
 }
 
 
@@ -484,6 +487,10 @@ def _set_layer_weights(layer, params: dict, w: List[np.ndarray]) -> dict:
             params["R"] = w[1]
             if len(w) > 2:
                 params["b"] = w[2]
+    elif t == "SimpleRnn":
+        params["W"], params["R"] = w[0], w[1]
+        if len(w) > 2:
+            params["b"] = w[2]
     return params
 
 

@@ -40,6 +40,14 @@ def detach(tree):
             for k, v in tree.items()}
 
 
+def detach_carry(carry):
+    """A recurrent carry detached: a tensor (SimpleRnn's h), an (h, c)
+    pair, or nested pairs (GravesBidirectionalLSTM's); None stays None."""
+    if isinstance(carry, (tuple, list)):
+        return type(carry)(detach_carry(c) for c in carry)
+    return None if carry is None else carry.detach()
+
+
 def flat_items(tree, prefix: str = ""):
     """(path, tensor) pairs of a nested param dict, paths joined by '/'
     ("attn/Wqkv"), in insertion order."""

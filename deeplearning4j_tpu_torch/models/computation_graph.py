@@ -1,7 +1,6 @@
 """ComputationGraph — DAG network runtime: inference, stateful RNN
-streaming and the training step (counterpart of
-deeplearning4j_tpu/models/computation_graph.py; masks and tBPTT through the
-graph come with later slices).
+streaming and the training step, with time masks and truncated BPTT
+(counterpart of deeplearning4j_tpu/models/computation_graph.py).
 
 The topological order is computed once from the config; a forward walks it
 eagerly, vertex by vertex. Params and running state are plain dicts of
@@ -22,9 +21,21 @@ tensors `init` made stay the network's params; the updater slots
 state (BatchNorm's EMA) are replaced each step. `fit` takes a MultiDataSet,
 a DataSet, a DataSetIterator, or features and labels (lists for several
 inputs or outputs); batches already on the network's device are used as
-they are. Masks, tBPTT, the line-search solvers and the JAX package's
-windowed engine, FSDP and remat are not ported yet; `fit` raises on a batch
-or configuration that needs them.
+they are. The line-search solvers and the JAX package's windowed engine,
+FSDP and remat are not ported yet; `fit` raises on a configuration that
+needs them.
+
+Masks: each network input takes its features mask, each vertex gets its
+inputs' masks (a LayerVertex hands the first to its layer) and gives its
+output the mask of its `propagate_mask`; an output vertex's loss takes its
+labels mask, else the mask that reached its input. With
+`backprop_type="tbptt"` a batch whose first features and every label are
+[b, t, ...] trains window by window (`_fit_tbptt`, the JAX package's
+`_tbptt_mds` predicate): `tbptt_fwd_length` steps per window, the masks
+sliced with it, each window one updater step whose backward spans it, the
+recurrent vertices' carries passed on detached (a bidirectional layer's
+backward half restarts in every window, with one warning per network); a
+batch with 2-D labels trains by whole-sequence BPTT.
 
 Dropout and weight noise draw from `draws` (an `nn.dropout.Draws` on the
 network's device, seeded from `conf.defaults.seed` by `init`): each step
@@ -45,13 +56,19 @@ from deeplearning4j_tpu_torch import device as device_mod
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterators import DataSetIterator
 from deeplearning4j_tpu_torch.models import _training as tr
+from deeplearning4j_tpu_torch.models.multi_layer_network import (
+    warn_bidir_tbptt,
+)
 from deeplearning4j_tpu_torch.nn import weightnoise as wn_mod
 from deeplearning4j_tpu_torch.nn.dropout import Draws
 from deeplearning4j_tpu_torch.nn.graph_conf import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.graph_vertices import LayerVertex
 from deeplearning4j_tpu_torch.nn.layers.base import iteration_scope
 from deeplearning4j_tpu_torch.nn.layers.output import BaseOutputLayer
-from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrent
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+    BaseRecurrent,
+    LastTimeStep,
+)
 
 Params = Dict[str, torch.Tensor]
 
@@ -77,6 +94,7 @@ class ComputationGraph:
                                                  conf.defaults.updater)
                           for name in self.topo}
         self._rnn_carries: Optional[Dict[str, tuple]] = None
+        self._checked_bidir_tbptt = False
 
     def _in_types(self, name):
         types = dict(zip(self.conf.network_inputs, self.conf.input_types))
@@ -125,17 +143,21 @@ class ComputationGraph:
 
     def _forward(self, params, inputs: Sequence[torch.Tensor], *,
                  train: bool = False, stop_at_outputs: bool = False,
-                 carries: Optional[Dict[str, tuple]] = None, rng=None):
-        """Forward over the DAG with `params`. Returns (acts, new_state):
-        every vertex's activation and the running state after the walk
-        (updated by vertices that track statistics when `train`). With
-        `stop_at_outputs` an output vertex's activation is its input, for
-        its loss. With `carries` (see `_init_carries`) a recurrent vertex
+                 carries: Optional[Dict[str, tuple]] = None, rng=None,
+                 masks: Optional[Sequence] = None):
+        """Forward over the DAG with `params`. Returns (acts, new_state,
+        mask_map): every vertex's activation, the running state after the
+        walk (updated by vertices that track statistics when `train`) and
+        every vertex's output mask, the network inputs' being `masks` (one
+        per input, None for none). With `stop_at_outputs` an output
+        vertex's activation is its input, for its loss, and its mask its
+        input's. With `carries` (see `_init_carries`) a recurrent vertex
         scans from its entry and the entry is replaced by its new carry, in
         place. With `rng` (a step's draws) and `train`, the vertex at
-        position i of `topo` takes `rng.split(len(topo))[i]`. Masks are not
-        ported yet."""
+        position i of `topo` takes `rng.split(len(topo))[i]`."""
         acts: Dict[str, object] = dict(zip(self.conf.network_inputs, inputs))
+        mask_map: Dict[str, Optional[torch.Tensor]] = dict(zip(
+            self.conf.network_inputs, masks or [None] * len(inputs)))
         new_state = dict(self.state)
         outputs = set(self.conf.network_outputs)
         rngs = (rng.split(len(self.topo)) if rng is not None
@@ -143,21 +165,25 @@ class ComputationGraph:
         for name, r in zip(self.topo, rngs):
             v = self.conf.vertices[name]
             vin = [acts[x] for x in self.conf.vertex_inputs[name]]
+            vmasks = [mask_map.get(x) for x in self.conf.vertex_inputs[name]]
             if stop_at_outputs and name in outputs and \
                     isinstance(self.layer(name), BaseOutputLayer):
                 acts[name] = vin[0] if len(vin) == 1 else vin
+                mask_map[name] = vmasks[0] if vmasks else None
                 continue
             if carries is not None and name in carries:
                 p = wn_mod.maybe_transform(v.layer, params[name], r, train)
                 acts[name], carries[name] = v.layer.scan(
-                    p, vin[0], carries[name], train=train, rng=r)
+                    p, vin[0], carries[name], mask=vmasks[0], train=train,
+                    rng=r)
             else:
                 acts[name], st = v.apply(params[name], vin,
                                          state=self.state[name], train=train,
-                                         rng=r)
+                                         masks=vmasks, rng=r)
                 if train:
                     new_state[name] = st
-        return acts, new_state
+            mask_map[name] = v.propagate_mask(vmasks, self._vin_types[name])
+        return acts, new_state, mask_map
 
     def output(self, *inputs):
         """Forward to all output vertices. Inputs are arrays or tensors in
@@ -165,7 +191,7 @@ class ComputationGraph:
         network's device. Returns a tensor on that device (a list when the
         graph has several outputs)."""
         with torch.inference_mode():
-            acts, _ = self._forward(self.params, self._as_inputs(inputs))
+            acts, *_ = self._forward(self.params, self._as_inputs(inputs))
         outs = [acts[o] for o in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
 
@@ -174,7 +200,7 @@ class ComputationGraph:
         inference mode, as in the JAX package."""
         with torch.inference_mode():
             arrs = self._as_inputs(inputs)
-            acts, _ = self._forward(self.params, arrs)
+            acts, *_ = self._forward(self.params, arrs)
         return list(arrs) + [acts[name] for name in self.topo]
 
     # ---- stateful RNN inference (rnnTimeStep) ----
@@ -182,7 +208,9 @@ class ComputationGraph:
         """The LayerVertex names whose layer is recurrent, in topological
         order. for_streaming (rnn_time_step) rejects a layer that is not
         streamable: a bidirectional layer's backward scan needs the
-        sequence end."""
+        sequence end (tBPTT takes it: its backward half restarts in every
+        window). Both reject a LastTimeStep around a recurrent layer,
+        whose state no carry reaches."""
         out = []
         for name in self.topo:
             layer = self.layer(name)
@@ -193,6 +221,13 @@ class ComputationGraph:
                         f"bidirectional: rnnTimeStep needs a forward-only "
                         f"state carry")
                 out.append(name)
+            elif (isinstance(layer, LastTimeStep)
+                  and isinstance(layer._inner, BaseRecurrent)):
+                raise ValueError(
+                    f"vertex {name!r} wraps a recurrent layer in "
+                    f"LastTimeStep: its inner state cannot be carried "
+                    f"across rnnTimeStep/tBPTT chunks; restructure as a "
+                    f"recurrent layer + LastTimeStepVertex")
         return out
 
     def _init_carries(self, batch: int, for_streaming: bool = False
@@ -218,7 +253,7 @@ class ComputationGraph:
                 carries = self._init_carries(arrs[0].shape[0],
                                              for_streaming=True)
             carries = dict(carries)  # a failed call keeps the old state
-            acts, _ = self._forward(self.params, arrs, carries=carries)
+            acts, *_ = self._forward(self.params, arrs, carries=carries)
             self._rnn_carries = carries
         outs = [acts[o] for o in self.conf.network_outputs]
         if single:
@@ -237,21 +272,29 @@ class ComputationGraph:
                                          total=total)
         return total
 
-    def _loss(self, params, inputs, labels, train: bool = True, rng=None):
+    def _loss(self, params, inputs, labels, fmasks=None, lmasks=None,
+              train: bool = True, rng=None, carries=None):
         """(score, new_state): the sum over the output vertices of each
-        one's loss on its input (its weight noise from `rng` folded), plus
-        the l1/l2 penalty."""
-        acts, new_state = self._forward(params, inputs, train=train,
-                                        stop_at_outputs=True, rng=rng)
+        one's loss on its input (its weight noise from `rng` folded) under
+        its labels mask, else the mask that reached its input, plus the
+        l1/l2 penalty. `fmasks` / `lmasks`: one per network input / output
+        (None for none), or None. With `carries` the recurrent vertices
+        scan from them and leave their new carries there."""
+        acts, new_state, mask_map = self._forward(
+            params, inputs, train=train, stop_at_outputs=True, rng=rng,
+            masks=fmasks, carries=carries)
         total = torch.zeros((), device=self.device)
-        for name, y in zip(self.conf.network_outputs, labels):
+        for i, (name, y) in enumerate(zip(self.conf.network_outputs, labels)):
             layer = self.layer(name)
             if not isinstance(layer, BaseOutputLayer):
                 raise TypeError(f"output vertex {name!r} must wrap an output "
                                 f"layer (Output, RnnOutput, LossLayer)")
+            lmask = lmasks[i] if lmasks is not None else None
+            if lmask is None:
+                lmask = mask_map.get(name)
             p_out = wn_mod.maybe_transform(layer, params[name], rng, train)
             score, _, new_state[name] = layer.compute_loss(
-                p_out, acts[name], y, state=self.state[name])
+                p_out, acts[name], y, state=self.state[name], mask=lmask)
             total = total + score
         return total + self._reg_score(params), new_state
 
@@ -269,24 +312,66 @@ class ComputationGraph:
     def _check_trainable(self) -> None:
         tr.check_trainable(self.conf.defaults)
 
-    def _fit_mds(self, mds: MultiDataSet) -> None:
-        """One updater step on one batch: loss, gradients, updates, then
-        `score_`, `last_batch_size`, `iteration` and the listeners."""
-        if mds.features_masks is not None or mds.labels_masks is not None:
-            raise NotImplementedError(
-                "masks through the ComputationGraph are not ported yet")
-        if (self.conf.defaults.backprop_type == "tbptt"
+    def _masks(self, masks):
+        return None if masks is None else [self._batch(m) for m in masks]
+
+    def _tbptt_mds(self, mds: MultiDataSet) -> bool:
+        """Whether `mds` trains by tBPTT: the configuration asks for it,
+        the first features and every label have a time axis (per-sequence
+        labels cannot be cut into windows; the JAX package's
+        `_tbptt_mds`)."""
+        return (self.conf.defaults.backprop_type == "tbptt"
                 and np.ndim(mds.features[0]) == 3
-                and all(np.ndim(y) == 3 for y in mds.labels)):
-            raise NotImplementedError(
-                "tBPTT through the ComputationGraph is not ported yet")
-        inputs = [self._batch(x) for x in mds.features]
-        labels = [self._batch(y) for y in mds.labels]
+                and all(np.ndim(y) == 3 for y in mds.labels))
+
+    def _fit_mds(self, mds: MultiDataSet) -> None:
+        """One updater step on one batch, or one per window when it trains
+        by tBPTT (`_tbptt_mds`)."""
+        batch = ([self._batch(x) for x in mds.features],
+                 [self._batch(y) for y in mds.labels],
+                 self._masks(mds.features_masks),
+                 self._masks(mds.labels_masks))
+        if self._tbptt_mds(mds):
+            self._fit_tbptt(*batch)
+        else:
+            self._step(*batch)
+
+    def _fit_tbptt(self, inputs, labels, fmasks, lmasks) -> None:
+        """Truncated BPTT through the DAG (the JAX package's `_fit_tbptt`):
+        windows of `tbptt_fwd_length` steps of every input, label and
+        mask, each one updater step; the recurrent vertices' carries start
+        at zero and pass from window to window detached."""
+        if not self._checked_bidir_tbptt:
+            warn_bidir_tbptt([n for n in self._recurrent_vertices()
+                              if not self.layer(n).streamable])
+            self._checked_bidir_tbptt = True
+        T, L = inputs[0].shape[1], self.conf.defaults.tbptt_fwd_length
+        carries = self._init_carries(inputs[0].shape[0])
+
+        def window(arrays, sl):
+            return None if arrays is None else [
+                None if a is None else a[:, sl].contiguous() for a in arrays]
+
+        for t0 in range(0, T, L):
+            sl = slice(t0, min(t0 + L, T))
+            self._step(window(inputs, sl), window(labels, sl),
+                       window(fmasks, sl), window(lmasks, sl),
+                       carries=carries)
+
+    def _step(self, inputs, labels, fmasks, lmasks, carries=None) -> None:
+        """One updater step on one batch (or tBPTT window): loss,
+        gradients, updates, then `score_`, `last_batch_size`, `iteration`
+        and the listeners. With `carries` the recurrent vertices start
+        from them and leave their new carries there, detached."""
         rng = self.draws.step()
         with iteration_scope(self.iteration):
             score, new_state, grads = tr.value_and_grad(
-                lambda: self._loss(self.params, inputs, labels, rng=rng),
+                lambda: self._loss(self.params, inputs, labels, fmasks,
+                                   lmasks, rng=rng, carries=carries),
                 self.params)
+        if carries is not None:
+            for name, c in carries.items():
+                carries[name] = tr.detach_carry(c)
         with torch.no_grad():
             self._apply_updates(grads, self.iteration)
             self.state = {k: tr.detach(v) for k, v in new_state.items()}
@@ -332,14 +417,16 @@ class ComputationGraph:
 
     def score(self, data) -> float:
         """The loss on a DataSet or MultiDataSet with the running
-        statistics (train=False), penalty included (score(DataSet))."""
+        statistics (train=False), under its masks, penalty included
+        (score(DataSet))."""
         mds = (MultiDataSet.from_dataset(data) if isinstance(data, DataSet)
                else data)
         with torch.no_grad():
             s, _ = self._loss(self.params,
                               [self._batch(x) for x in mds.features],
                               [self._batch(y) for y in mds.labels],
-                              train=False)
+                              self._masks(mds.features_masks),
+                              self._masks(mds.labels_masks), train=False)
         return float(s)
 
     def set_listeners(self, *listeners) -> "ComputationGraph":

@@ -42,6 +42,7 @@ never draws.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -70,6 +71,22 @@ def _key(i: int) -> str:
     return f"layer_{i}"
 
 
+def warn_bidir_tbptt(bidir: list) -> None:
+    """One warning when bidirectional layers (`bidir`: their names) train
+    by tBPTT, which the reference refuses
+    (GravesBidirectionalLSTM.java:89-93): here, as in the JAX package, the
+    backward half restarts at every window, so its gradients see the
+    future only up to the window's end. Shared by MultiLayerNetwork and
+    ComputationGraph, each of which calls it once."""
+    if not bidir:
+        return
+    warnings.warn(
+        f"tBPTT with bidirectional layer(s) {bidir}: the backward scan "
+        f"restarts at each chunk boundary, so future context is truncated "
+        f"to the tbptt window (the reference rejects this configuration)",
+        stacklevel=3)
+
+
 class MultiLayerNetwork:
     """Construction computes the per-layer input types; `init` allocates
     params (MultiLayerNetwork.init)."""
@@ -91,6 +108,7 @@ class MultiLayerNetwork:
         self._input_types = conf.layer_input_types()
         self._updaters = self._resolve_updaters()
         self._rnn_carries: Optional[list] = None
+        self._checked_bidir_tbptt = False
 
     def _resolve_updaters(self) -> List[upd_mod.Updater]:
         """Each layer's updater (its own, else the network default), with
@@ -305,8 +323,7 @@ class MultiLayerNetwork:
                                    carries=carries, rng=rng),
                 self.params)
         if carries is not None:
-            carries[:] = [None if c is None else tuple(v.detach() for v in c)
-                          for c in carries]
+            carries[:] = [tr.detach_carry(c) for c in carries]
         with torch.no_grad():
             self._apply_updates(grads, self.iteration)
             self.state = {k: tr.detach(v) for k, v in new_state.items()}
@@ -337,8 +354,15 @@ class MultiLayerNetwork:
         """Truncated BPTT (MultiLayerNetwork.doTruncatedBPTT, the JAX
         package's `_fit_tbptt`): windows of `tbptt_fwd_length` steps, each
         one updater step; the recurrent carries start at zero and pass from
-        window to window detached. The backward spans the whole window (the
-        JAX package reads only `tbptt_fwd_length`)."""
+        window to window detached (a bidirectional layer's backward half
+        restarts in every window, with one warning per network). The
+        backward spans the whole window (the JAX package reads only
+        `tbptt_fwd_length`)."""
+        if not self._checked_bidir_tbptt:
+            warn_bidir_tbptt([type(l).__name__ for l in self.layers
+                              if isinstance(l, BaseRecurrent)
+                              and not l.streamable])
+            self._checked_bidir_tbptt = True
         T, L = x.shape[1], self.conf.defaults.tbptt_fwd_length
         carries = self._init_carries(x.shape[0])
 

@@ -46,9 +46,6 @@ FORMAT_VERSION = 1
 # classes of the JAX package a checkpoint may name that the port has not
 # ported yet -> the ROADMAP item that brings them
 _NOT_PORTED = {
-    **dict.fromkeys(("GravesBidirectionalLSTM", "SimpleRnn", "LastTimeStep",
-                     "LastTimeStepVertex", "DuplicateToTimeSeriesVertex"),
-                    "A.6"),
     "Frozen": "A.7",
     **dict.fromkeys(("AutoEncoder", "RBM", "VariationalAutoencoder",
                      "CenterLossOutput", "Conv1D", "Deconv2D",

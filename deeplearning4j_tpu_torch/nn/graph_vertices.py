@@ -1,26 +1,29 @@
 """Graph vertices for ComputationGraph: GraphVertex, LayerVertex,
 ElementWiseVertex, MergeVertex, ReshapeVertex, PreprocessorVertex and the
 combinators the DL4J importer creates: SubsetVertex, StackVertex,
-UnstackVertex, L2Vertex, L2NormalizeVertex, ScaleVertex, ShiftVertex and
-PoolHelperVertex (counterpart of deeplearning4j_tpu/nn/graph_vertices.py;
-LastTimeStepVertex and DuplicateToTimeSeriesVertex need the graph's masks
-and come with them).
+UnstackVertex, L2Vertex, L2NormalizeVertex, ScaleVertex, ShiftVertex,
+PoolHelperVertex and the recurrent LastTimeStepVertex and
+DuplicateToTimeSeriesVertex (counterpart of
+deeplearning4j_tpu/nn/graph_vertices.py).
 
 A vertex is a function of its input tensors; a LayerVertex wraps any Layer
 config (the graph analogue of a layer in MultiLayerConfiguration), a
 PreprocessorVertex an InputPreProcessor. Both nest their object's JSON in
-the vertex's.
+the vertex's. `propagate_mask` gives the time mask of a vertex's output
+from its inputs' masks (None where there is none): by default the first
+input's that has one.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from deeplearning4j_tpu_torch.nn import inputs as it
 from deeplearning4j_tpu_torch.nn import weightnoise as wn_mod
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.nn.layers.recurrent import last_step
 from deeplearning4j_tpu_torch.nn.preprocessors import InputPreProcessor
 
 _TYPES: Dict[str, type] = {}
@@ -49,6 +52,12 @@ class GraphVertex:
     def apply(self, params, inputs: List[torch.Tensor], *, state, train,
               masks=None, rng=None):
         raise NotImplementedError
+
+    def propagate_mask(self, masks, input_types):
+        for m in (masks or []):
+            if m is not None:
+                return m
+        return None
 
     def to_json(self) -> dict:
         d = {"type": type(self).__name__}
@@ -102,6 +111,10 @@ class LayerVertex(GraphVertex):
         params = wn_mod.maybe_transform(self.layer, params, rng, train)
         return self.layer.apply(params, inputs[0], state=state, train=train,
                                 mask=mask, rng=rng)
+
+    def propagate_mask(self, masks, input_types):
+        m = masks[0] if masks else None
+        return self.layer.propagate_mask(m, input_types[0])
 
 
 @register_vertex
@@ -332,3 +345,54 @@ class PoolHelperVertex(GraphVertex):
     def apply(self, params, inputs, *, state, train, masks=None,
               rng=None):
         return inputs[0][:, 1:, 1:, :], state
+
+
+@register_vertex
+@dataclass
+class LastTimeStepVertex(GraphVertex):
+    """RNN [b, t, f] -> the last live step [b, f]
+    (nn/conf/graph/rnn/LastTimeStepVertex.java), by its input's propagated
+    mask (`recurrent.last_step`). `mask_input` names a graph input, as in
+    the JAX package, which stores it and reads it nowhere: the runtime
+    hands the vertex its input's mask (ROADMAP C.9)."""
+
+    mask_input: Optional[str] = None
+
+    def output_type(self, input_types):
+        return it.FeedForward(input_types[0].size)
+
+    def apply(self, params, inputs, *, state, train, masks=None,
+              rng=None):
+        return last_step(inputs[0], masks[0] if masks else None), state
+
+    def propagate_mask(self, masks, input_types):
+        return None
+
+
+@register_vertex
+@dataclass
+class DuplicateToTimeSeriesVertex(GraphVertex):
+    """[b, f] -> [b, t, f], repeated over the time axis of the second input
+    (nn/conf/graph/rnn/DuplicateToTimeSeriesVertex.java), whose mask the
+    output takes."""
+
+    def output_type(self, input_types):
+        if len(input_types) != 2:
+            # the JAX package's graph analyzer refuses it with a ValueError
+            # too: the reference's one-input form (`inputName`) is not
+            # translated (ROADMAP C.10)
+            raise ValueError(
+                f"DuplicateToTimeSeriesVertex takes 2 input(s) but is wired "
+                f"to {len(input_types)}")
+        t = (input_types[1].timesteps
+             if isinstance(input_types[1], it.Recurrent) else -1)
+        return it.Recurrent(input_types[0].arity(), t)
+
+    def apply(self, params, inputs, *, state, train, masks=None,
+              rng=None):
+        x, ref = inputs
+        return x[:, None, :].expand(x.shape[0], ref.shape[1],
+                                    x.shape[-1]), state
+
+    def propagate_mask(self, masks, input_types):
+        return masks[1] if masks and len(masks) > 1 else None

@@ -26,5 +26,8 @@ from deeplearning4j_tpu_torch.nn.layers.pooling import GlobalPooling  # noqa: F4
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (  # noqa: F401
     LSTM,
     BaseRecurrent,
+    GravesBidirectionalLSTM,
     GravesLSTM,
+    LastTimeStep,
+    SimpleRnn,
 )

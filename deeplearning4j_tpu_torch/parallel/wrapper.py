@@ -15,8 +15,9 @@ whole replica of the network, and computes the same step on purpose:
   mask zeroed where there is one), and each rank takes its contiguous
   block of rows;
 - the network's own step runs on those rows (`MultiLayerNetwork.
-  _fit_batch`, the standard step or its tBPTT windows, or
-  `ComputationGraph._fit_mds`) with an `nn.shard.BatchShard` installed:
+  _fit_batch` or `ComputationGraph._fit_mds`: the standard step or its
+  tBPTT windows, masks sliced with the rows) with an `nn.shard.BatchShard`
+  installed:
   each rank's loss is its share of the global mean, BatchNorm's
   statistics and dropout's masks are the global batch's, the l1/l2
   penalty counts once, and the gradients and the score are summed over

@@ -546,13 +546,93 @@ def test_count_mismatch_and_non_model_zips_refuse(tmp_path):
         restore_multi_layer_network(str(notmodel), device="cpu")
 
 
-@pytest.mark.parametrize("vertex", ["LastTimeStepVertex",
-                                    "DuplicateToTimeSeriesVertex"])
-def test_masked_vertices_name_their_roadmap_item(vertex):
-    conf = {"networkInputs": ["in"], "networkOutputs": ["v"],
-            "vertices": {"v": {vertex: {}}}, "vertexInputs": {"v": ["in"]}}
-    with pytest.raises(NotImplementedError, match="A.6"):
-        td.graph_configuration_from_json(json.dumps(conf))
+def _dl4j_vertex(kind, n_i, n_o, **extra):
+    return {"LayerVertex": {"layerConf": {"layer": {kind: dict(
+        nin=n_i, nout=n_o, updater="SGD", learningRate=0.1, **extra)}},
+        "preProcessor": None}}
+
+
+def test_graph_with_last_time_step_vertex_imports_as_jax(tmp_path):
+    """in -> gravesLSTM(4 -> 5) -> LastTimeStepVertex (maskArrayInputName
+    "in") -> output(5 -> 2) as a DL4J zip: both importers build the same
+    configuration, the same params from the flat vector, and the same
+    output; then 2 SGD steps on a masked batch (the last step taken at
+    each row's live length) agree."""
+    conf = {"networkInputs": ["in"], "networkOutputs": ["out"],
+            "vertices": {
+                "lstm": _dl4j_vertex("gravesLSTM", 4, 5,
+                                     activationFn={"TanH": {}},
+                                     gateActivationFn={"Sigmoid": {}},
+                                     forgetGateBiasInit=1.0),
+                "last": {"LastTimeStepVertex": {"maskArrayInputName": "in"}},
+                "out": _dl4j_vertex("output", 5, 2,
+                                    activationFn={"Softmax": {}},
+                                    lossFunction="MCXENT")},
+            "vertexInputs": {"lstm": ["in"], "last": ["lstm"],
+                             "out": ["last"]}}
+    rng = np.random.default_rng(9)
+    flat = rng.normal(0, 0.5, 4 * 20 + 5 * 23 + 20 + 5 * 2 + 2).astype(
+        np.float32)
+    path = tmp_path / "g.zip"
+    buf = io.BytesIO()
+    td.write_nd4j_array(buf, flat[None, :], order="f")
+    with zipfile.ZipFile(path, "w") as zf:
+        zf.writestr("configuration.json", json.dumps(conf))
+        zf.writestr("coefficients.bin", buf.getvalue())
+    tnet = td.restore_computation_graph(str(path), device="cpu")
+    jnet = jd.restore_computation_graph(str(path))
+    assert tnet.conf.to_json() == jnet.conf.to_json()
+    assert tnet.conf.vertices["last"].mask_input == "in"
+    jt = jnet.get_param_table()
+    for k, v in tnet.get_param_table().items():
+        np.testing.assert_array_equal(v, np.asarray(jt[k]), err_msg=k)
+    x = rng.standard_normal((3, 6, 4)).astype(np.float32)
+    np.testing.assert_allclose(tnet.output(x).numpy(),
+                               np.asarray(jnet.output(x)), atol=1e-6)
+    fm = (np.arange(6)[None] < np.array([[6], [2], [4]])).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[[0, 1, 1]]
+    from deeplearning4j_tpu.datasets.dataset import MultiDataSet as JMDS
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    for _ in range(2):
+        tnet.fit(MultiDataSet([x], [y], [fm], None))
+        jnet.fit(JMDS([x], [y], [fm], None))
+        assert abs(tnet.score_ - jnet.score_) <= 1e-5 * abs(jnet.score_)
+    jt = jnet.get_param_table()
+    for k, v in tnet.get_param_table().items():
+        np.testing.assert_allclose(v, np.asarray(jt[k]), atol=1e-5,
+                                   err_msg=k)
+
+
+def test_one_input_duplicate_to_time_series_vertex_as_jax():
+    """ROADMAP C.10: the reference's DuplicateToTimeSeriesVertex has one
+    input and names its time source by `inputName`; both importers drop
+    the field and keep the one wire, and both refuse the network with a
+    ValueError: the vertex takes two inputs."""
+    conf = {"networkInputs": ["in", "dec"], "networkOutputs": ["out"],
+            "vertices": {
+                "a": _dl4j_vertex("dense", 4, 6,
+                                  activationFunction="tanh"),
+                "dup": {"DuplicateToTimeSeriesVertex": {"inputName": "dec"}},
+                "out": _dl4j_vertex("rnnoutput", 6, 2,
+                                    activationFunction="softmax",
+                                    lossFunction="MCXENT")},
+            "vertexInputs": {"a": ["in"], "dup": ["a"], "out": ["dup"]}}
+    from deeplearning4j_tpu.models import ComputationGraph as JCG
+
+    tconf, _ = td.graph_configuration_from_json(
+        json.dumps(conf), [it.feed_forward(4), it.recurrent(3, 5)])
+    jconf, _ = jd.graph_configuration_from_json(
+        json.dumps(conf), [jit.feed_forward(4), jit.recurrent(3, 5)])
+    assert tconf.vertices["dup"].to_json() == \
+        jconf.vertices["dup"].to_json() == \
+        {"type": "DuplicateToTimeSeriesVertex"}
+    assert tconf.vertex_inputs["dup"] == jconf.vertex_inputs["dup"] == ["a"]
+    with pytest.raises(ValueError, match="takes 2 input"):
+        ComputationGraph(tconf)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the JAX analyzer's DLA004
+        with pytest.raises(ValueError, match="takes 2 input"):
+            JCG(jconf)
 
 
 def test_dropout_field_builds_as_jax_and_fit_refuses():

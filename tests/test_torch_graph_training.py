@@ -464,9 +464,10 @@ def test_graph_opt_state_round_trips_and_a_jax_run_resumes_in_the_port():
 @pytest.mark.parametrize("where", ["dropout", "weight_noise", "solver",
                                    "masks", "tbptt"])
 def test_graph_fit_refuses_what_it_does_not_train(where):
-    """fit refuses what it does not train (the line-search solvers, masks
-    and tBPTT through the graph) and leaves the network as it was. Dropout
-    on a conv vertex and DropConnect on the Output vertex train now: 3
+    """fit refuses what it does not train (the line-search solvers) and
+    leaves the network as it was. Dropout on a conv vertex, DropConnect on
+    the Output vertex, a labels mask (one row out of the loss) and a tBPTT
+    configuration (whose 2-D labels train the whole batch) train now: 3
     steps with the JAX graph's keys replayed into the port's draws, against
     the JAX fit."""
     d = json.loads(_small_graph_json())
@@ -479,32 +480,45 @@ def test_graph_fit_refuses_what_it_does_not_train(where):
             "type": "DropConnect", "p": 0.5}
     elif where == "solver":
         d["defaults"]["optimization_algo"] = "lbfgs"
-    elif where == "masks":
-        data = DataSet(x, y, None, np.ones((4, 1), np.float32))
-    if where in ("dropout", "weight_noise"):
+    elif where == "tbptt":
+        d["defaults"]["backprop_type"] = "tbptt"
+    lm = None
+    if where == "masks":
+        lm = np.ones((4, 1), np.float32)
+        lm[1] = 0.0
+    if where != "solver":
         jnet, tnet = _pair(json.dumps(d))
         tnet.draws = JaxKeys.for_net(d["defaults"]["seed"])
         for step in range(3):
             x, y = _batch(30 + step)
-            jnet.fit(jds.DataSet(x, y))
-            tnet.fit(DataSet(x, y))
+            jnet.fit(jds.DataSet(x, y, None, lm))
+            tnet.fit(DataSet(x, y, None, lm))
             assert abs(tnet.score_ - jnet.score_) <= 1e-5 * abs(
                 jnet.score_), (step, tnet.score_, jnet.score_)
+        assert tnet.iteration == jnet.iteration == 3
+        if where == "tbptt":
+            # the standard step, bit for bit: the same graph without the
+            # tBPTT configuration on the same batches (whose params are
+            # 1.1e-5 from JAX's after these 3 train-mode steps, ROADMAP
+            # C.4; test_small_graph_fit_matches_jax_step_by_step holds
+            # that step to JAX)
+            _, plain = _pair(_small_graph_json())
+            for step in range(3):
+                plain.fit(DataSet(*_batch(30 + step)))
+            want = plain.get_param_table()
+            for k, v in tnet.get_param_table().items():
+                np.testing.assert_array_equal(v, want[k], err_msg=k)
+            return
         jt, tt = jnet.get_param_table(), tnet.get_param_table()
         worst = max(float(np.abs(tt[k] - np.asarray(jt[k])).max())
                     for k in jt)
         assert worst <= 1e-5, worst
         assert _state_err(jnet, tnet) <= 1e-4
         assert max(_slot_errs(jnet, tnet).values()) <= 1e-4
-        assert tnet.iteration == jnet.iteration == 3
         return
     net = ComputationGraph(
         ComputationGraphConfiguration.from_json(json.dumps(d))).init(
         device="cpu")
-    if where == "tbptt":
-        net.conf.defaults.backprop_type = "tbptt"
-        data = MultiDataSet([np.zeros((2, 3, 4), np.float32)],
-                            [np.zeros((2, 3, 5), np.float32)])
     before = net.get_param_table()
     with pytest.raises(NotImplementedError):
         net.fit(data)

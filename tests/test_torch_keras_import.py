@@ -292,6 +292,44 @@ def test_unported_keras_layers_raise_not_implemented(cls):
         tkeras.KerasLayerTranslator().translate(cls, dict(cfg))
 
 
+@pytest.mark.parametrize("return_sequences", [True, False])
+def test_simple_rnn_written_by_the_port_imports_as_jax(tmp_path, rng,
+                                                       return_sequences):
+    """A Keras SimpleRNN(6, tanh) over [7, 5] and a softmax Dense, written
+    by the port's HDF5 writer: both packages import the same layers and
+    params and compute the same activations. Neither importer reads
+    return_sequences, so both give [b, 7, 2] either way."""
+    from deeplearning4j_tpu_torch.modelimport import hdf5
+
+    layers = [{"class_name": "SimpleRNN",
+               "config": {"name": "rnn", "units": 6, "activation": "tanh",
+                          "return_sequences": return_sequences,
+                          "batch_input_shape": [None, 7, 5]}},
+              {"class_name": "Dense",
+               "config": {"name": "out", "units": 2,
+                          "activation": "softmax"}}]
+    weights = {"rnn": [("kernel:0", rng.standard_normal((5, 6))),
+                       ("recurrent_kernel:0", rng.standard_normal((6, 6))),
+                       ("bias:0", rng.standard_normal(6))],
+               "out": [("kernel:0", rng.standard_normal((6, 2))),
+                       ("bias:0", rng.standard_normal(2))]}
+    p = tmp_path / "rnn.h5"
+    with hdf5.File(p, "w") as f:
+        f.attrs["model_config"] = json.dumps(
+            {"class_name": "Sequential", "config": {"layers": layers}})
+        for name, ws in weights.items():
+            jk._write_weights(f, name, [(n, a.astype(np.float32) * 0.5)
+                                        for n, a in ws])
+    tnet, jnet = _both(p)
+    assert [type(l).__name__ for l in tnet.layers] == \
+        [type(l).__name__ for l in jnet.layers] == ["SimpleRnn", "Output"]
+    assert tnet.conf.to_json() == jnet.conf.to_json()
+    _same_params(tnet, jnet)
+    x = rng.standard_normal((3, 7, 5)).astype(np.float32)
+    assert tnet.output(x).shape == (3, 7, 2)
+    assert _worst_activation(tnet, jnet, x) <= 1e-5
+
+
 def test_unported_layer_in_a_file_raises_not_implemented(tmp_path, rng):
     """SeparableConv2D (test_keras_import's layout case) imports in the JAX
     package and stops the port's import loudly."""

@@ -269,4 +269,4 @@ def test_layer_json_round_trips_through_both_packages():
 
 def test_unported_layer_type_is_named():
     with pytest.raises(ValueError, match="not ported"):
-        TLayer.from_json(jlayers.SimpleRnn(n_out=4).to_json())
+        TLayer.from_json(jlayers.Conv1D(n_out=4).to_json())

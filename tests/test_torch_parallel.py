@@ -56,7 +56,13 @@ from deeplearning4j_tpu_torch.nn.conf import (
 )
 from deeplearning4j_tpu_torch.nn.graph_conf import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.graph_vertices import MergeVertex
-from deeplearning4j_tpu_torch.nn.layers import LSTM, Dense, Output, RnnOutput
+from deeplearning4j_tpu_torch.nn.layers import (
+    LSTM,
+    Dense,
+    GravesLSTM,
+    Output,
+    RnnOutput,
+)
 from deeplearning4j_tpu_torch.parallel import (
     MeshSpec,
     build_mesh,
@@ -256,6 +262,18 @@ def _merge_graph_conf():
         .set_outputs("out").set_input_types(it.feed_forward(8)).to_json()
 
 
+def _masked_graph_conf():
+    """in -> GravesLSTM(24) -> RnnOutput(10), tBPTT windows of 8."""
+    return ComputationGraphConfiguration(
+        defaults=NeuralNetConfiguration(
+            seed=9, updater=updaters.Adam(learning_rate=5e-3),
+            backprop_type="tbptt", tbptt_fwd_length=8)) \
+        .add_inputs("in") \
+        .add_layer("lstm", GravesLSTM(n_out=24, activation="tanh"), "in") \
+        .add_layer("out", RnnOutput(n_out=10, loss="mcxent"), "lstm") \
+        .set_outputs("out").set_input_types(it.recurrent(10, 32)).to_json()
+
+
 def run_case(tmp_path, kind, conf, world, data, batch, epochs,
              shuffle=False, **extra):
     """The port's `world` ranks (spawned), the JAX wrapper and the port's
@@ -336,6 +354,28 @@ def test_tbptt_char_rnn_matches_jax(tmp_path):
     lm[0, 20:] = 0.0
     ranks, jr, js, tr_, ts = run_case(tmp_path, "mln", _tbptt_conf(), 2,
                                       (x, y, None, lm), 16, 2)
+    r0 = ranks[0]
+    assert len(r0["scores"]) == len(js) == len(ts) == 8  # 4 windows x 2
+    np.testing.assert_allclose(r0["scores"], js, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(r0["scores"], ts, rtol=2e-4, atol=2e-5)
+    assert max_err(r0, jr, "param/") <= 3e-5
+    assert max_err(r0, tr_, "param/") <= 3e-5
+    assert int(r0["iteration"]) == 8 and int(r0["last_batch_size"]) == 16
+
+
+def test_masked_graph_tbptt_matches_jax(tmp_path):
+    """A masked graph through the wrapper: a GravesLSTM graph at 2 ranks,
+    16 sequences of 32 steps in windows of 8, row 0 live for 20 steps
+    (features and labels masks; wholly masked in the last window), 2
+    epochs; against the JAX wrapper and the port's single process at
+    test_tbptt_char_rnn_matches_jax's tolerances."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((16, 32, 10)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, (16, 32))]
+    m = np.ones((16, 32), np.float32)
+    m[0, 20:] = 0.0
+    ranks, jr, js, tr_, ts = run_case(tmp_path, "cg", _masked_graph_conf(),
+                                      2, (x, y, m, m.copy()), 16, 2)
     r0 = ranks[0]
     assert len(r0["scores"]) == len(js) == len(ts) == 8  # 4 windows x 2
     np.testing.assert_allclose(r0["scores"], js, rtol=2e-4, atol=2e-5)

@@ -7,9 +7,7 @@ running state and updater slots bit for bit, and outputs within 1e-5 of
 each other (float32 on both sides). The committed checkpoint fixtures the
 port can build restore against tests/fixtures/expected_outputs.npz at 1e-5
 and keep training as the JAX package's copy does (dropout and weight
-noise with the JAX network's keys replayed into the port's draws); the one
-that names a class the port has not ported yet raises NotImplementedError
-naming the ROADMAP item that brings it.
+noise with the JAX network's keys replayed into the port's draws).
 """
 import io
 import json
@@ -20,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from deeplearning4j_tpu.datasets import dataset as jds_mod
 from deeplearning4j_tpu.models import ComputationGraph as JCG
 from deeplearning4j_tpu.models import MultiLayerNetwork as JMLN
 from deeplearning4j_tpu.models import serialization as jser
@@ -59,8 +58,7 @@ FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "fixtures")
 EXPECTED = np.load(os.path.join(FIXDIR, "expected_outputs.npz"))
 READABLE = ["cg_branch_merge", "mln_graves_lstm", "mln_vit",
-            "mln_conv_bn_noise", "mln_scheduled_dropout"]
-REFUSED = {"mln_bidir_lstm": ("GravesBidirectionalLSTM", "A.6")}
+            "mln_conv_bn_noise", "mln_scheduled_dropout", "mln_bidir_lstm"]
 # refused until their classes were ported (ROADMAP A.4): fixture -> the
 # (layer, dropout, weight noise) class names its layers name
 ONCE_REFUSED = {
@@ -270,18 +268,12 @@ def test_committed_fixture_keeps_training_as_jax_does(name):
     assert tnet.iteration == 2
 
 
-@pytest.mark.parametrize("name", sorted({**REFUSED, **ONCE_REFUSED}))
+@pytest.mark.parametrize("name", sorted(ONCE_REFUSED))
 def test_fixtures_naming_unported_classes_raise(name):
-    """A fixture naming an unported class raises with its ROADMAP item;
-    the dropout and weight-noise fixtures restore now, each layer's
-    objects revived as the port's classes with their schedules."""
+    """The dropout and weight-noise fixtures, once refused, restore: each
+    layer's objects revived as the port's classes with their
+    schedules."""
     path = os.path.join(FIXDIR, name + ".zip")
-    if name in REFUSED:
-        cls, item = REFUSED[name]
-        with pytest.raises(NotImplementedError,
-                           match=rf"{cls}\b.*item {item}"):
-            restore_model(path, device="cpu")
-        return
     net = restore_model(path, device="cpu")
     jnet = jser.restore_model(path)
     for i, drop, noise in ONCE_REFUSED[name]:
@@ -290,6 +282,38 @@ def test_fixtures_naming_unported_classes_raise(name):
         assert (type(layer.weight_noise).__name__ if noise else None) == noise
         assert layer.to_json() == jnet.layers[i].to_json()
     assert net.conf.to_json() == jnet.conf.to_json()
+
+
+def test_bidirectional_fixture_trains_three_steps_as_jax_does():
+    """mln_bidir_lstm (GravesBidirectionalLSTM(10) with tanh cells, so
+    rows 5 and 6's plain versions for both halves, and an RnnOutput; Adam)
+    restored with its Adam slots in both packages: 3 fit steps on its
+    committed input with row 1 masked from its middle on, scores, params
+    and slots as JAX's."""
+    path = os.path.join(FIXDIR, "mln_bidir_lstm.zip")
+    tnet, jnet = restore_model(path, device="cpu"), jser.restore_model(path)
+    assert type(tnet.layers[0]).__name__ == "GravesBidirectionalLSTM"
+    x = EXPECTED["mln_bidir_lstm_in"]
+    b, t = x.shape[:2]
+    y = np.eye(4, dtype=np.float32)[
+        np.random.default_rng(1).integers(0, 4, (b, t))]
+    fm = np.ones((b, t), np.float32)
+    fm[-1, t // 2:] = 0.0
+    for _ in range(3):
+        tnet.fit(DataSet(x, y, fm, fm))
+        jnet.fit(jds_mod.DataSet(x, y, fm, fm))
+        assert abs(tnet.score_ - jnet.score_) <= 1e-5 * abs(jnet.score_)
+    jt = {f"{name}/{k}": v for name, p in jnet.params.items()
+          for k, v in tser._key_parts(p)}
+    for k, v in tnet.get_param_table().items():
+        np.testing.assert_allclose(v, np.asarray(jt[k]), atol=1e-5,
+                                   err_msg=k)
+    got = dict(tser._key_parts(interop.opt_state_to_jax(tnet)))
+    for k, want in tser._key_parts(jnet.opt_state):
+        want = np.asarray(want, np.float64)
+        assert np.abs(got[k] - want).max() <= 1e-4 * max(
+            np.abs(want).max(), 1e-30), k
+    assert tnet.iteration == jnet.iteration == 4
 
 
 def test_missing_array_and_wrong_shape_refuse(tmp_path, rng):
