@@ -324,20 +324,63 @@ Phases, in order; any failure exits non-zero without the final line:
               on 8 x 200 masked characters in 4 windows of 50 (one row
               wholly masked in the last window), the classifier on 8 x 120
               for 3 steps; refer-train-rnn's gates.
+ 40. eval-cg-rnn  train-cg-rnn's graph after its windows evaluated
+              (ComputationGraph.evaluate) on its own masked batch: the
+              live steps counted exactly, the accuracy numpy's over the
+              masked argmax of the pass's output; 2 lstm_scan and nothing
+              else.
+ 41. eval-resnet  zoo ResNet-50 (224x224x3, 1000 classes, seed 7, TF32):
+              one do_evaluation pass over 16 batches of 32 from
+              BenchmarkDataSetIterator through AsyncDataSetIterator into
+              Evaluation, ROCMultiClass(100) and EvaluationCalibration:
+              the confusion matrix numpy's count of (label, argmax) over
+              the pass's outputs (512), each class's calibration counts
+              512; bn_act 53 per batch and nothing else; evaluated images
+              per second against output alone on the same batches.
+ 42. es-charrnn   the BASELINE char-RNN (zoo TextGenerationLSTM, tBPTT 50,
+              RmsProp(1e-2), l2 1e-4) by EarlyStoppingTrainer on 4 batches
+              of 32 x 1000 Zipf characters, held-out loss on a batch from
+              another seed, MaxEpochsTerminationCondition(3), a
+              LocalFileModelSaver; listeners: the events 3 x (on_fit_start,
+              on_epoch_start, 80 iteration_done, on_epoch_end, on_fit_end);
+              per window 2 + 2 LSTM and 1 + 1 xent, per held-out score 2
+              lstm_scan and 1 xent forward; get_best() onto the card bit for
+              bit the best epoch's params; then fit(epochs=2,
+              checkpoint_manager=m) and a fresh network's fit(epochs=3,
+              checkpoint_manager=m): one epoch trained, params within 1e-6
+              of an unbroken 3-epoch fit, every checkpoint verified.
+ 43. kernel-transfer  the xent kernels at the fine-tuned VGG16's Output
+              (64 rows, d 4096, 5 classes), float32 and bfloat16, as phase
+              12 checks and times them.
+ 44. transfer-vgg16  zoo VGG16 (seed 7) fine-tuned as dl4j-examples'
+              EditLastLayerOthersFrozen: FineTuneConfiguration(Nesterovs(
+              5e-5, 0.9), seed 7), the layers up to fc2 frozen, a new
+              Output(5); 20 mixed steps at batch 64 on distinct seeded
+              images: frozen params bit for bit, the Output moved, 1 + 1
+              xent per step and nothing else;
+              TransferLearningHelper.featurize + fit_featurized over the
+              same batches give the frozen fit's Output params (1e-5);
+              predict the argmax of output; ms per step against
+              train-vgg16's, peak memory.
+ 45. refer-transfer  the same transferred VGG16 on the card (TF32 off),
+              on the CPU and on the CPU in float64, 3 steps at batch 4,
+              each from the same point; refer-train-vgg16's gates.
 
 The characters the training phases learn are drawn with Zipf frequencies,
 so that a falling loss shows learning; their shapes are bench.py
 bench_lstm's.
 
 Every kernel's launch count is set to 0 just before each serve phase, the
-generation run, each training run (the data-parallel ones too) and the
-restore-and-resume runs, and read just after. The last lines are the kernels
-JSON, the card's name and power limit, and {"ok": true, "device": {...}}.
+generation run, each training run (the data-parallel ones too), the
+restore-and-resume runs and each evaluation pass, and read just after. The
+last lines are the kernels JSON, the card's name and power limit, and
+{"ok": true, "device": {...}}.
 Exits non-zero when no CUDA device is available, and when the port's
 package is not beside this script.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -469,6 +512,21 @@ def wrappers():
             "lstm_scan_bwd": lstm_ops.lstm_scan_bwd,
             "lstm_scan_chunked": lstm_ops.lstm_scan_chunked,
             "lstm_scan_chunked_bwd": lstm_ops.lstm_scan_chunked_bwd}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms (no autotuning) inside the block,
+    for the refer phases whose later steps start from the card's earlier
+    ones: the default weight-gradient algorithms sum in an order that
+    changes from run to run."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
 
 
 def reset_counts():
@@ -2747,15 +2805,37 @@ def phase_refer_train_resnet(torch, np):
     card's params, state and slots. A train-mode ResNet-50 at batch 4 is
     chaotic (the first step sends the score from 8.4 to 104 two steps
     later), so steps from points that drifted apart would compare two
-    trajectories rather than two steps."""
-    from deeplearning4j_tpu_torch import dtypes, interop
-    from deeplearning4j_tpu_torch.datasets import DataSet
-
+    trajectories rather than two steps. cuDNN runs deterministic here, as
+    in refer-train-vgg16: with its default weight-gradient algorithms the
+    card's first step lands on another point in every run, and step 2's
+    score error read 0 to 4.21e-06 in eight runs of the phase and 1.07e-05
+    in a ninth, on the same commit and its parent alike (an NVIDIA H100
+    80GB HBM3, 700 W)."""
     steps, b = 3, 4
     rng = np.random.default_rng(SEED + 10)
     x = rng.standard_normal((b, *RESNET_SHAPE)).astype(np.float32)
     y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, b)]
     nets = {"card": resnet_net(torch), "cpu": resnet_net(torch, "cpu")}
+    with deterministic_cudnn(torch):
+        per_step = refer_resnet_steps(torch, np, nets, x, y, steps)
+    launches = read_counts()
+    if launches["bn_act"] != 53 * steps:
+        raise AssertionError(f"refer-train-resnet: launches {launches}")
+    bad = [(i + 1, k, v) for i, errs in enumerate(per_step)
+           for k, v in errs.items()
+           if not (math.isfinite(v) and v <= REFER_RESNET_TOL[k])]
+    if bad:
+        raise AssertionError(f"refer-train-resnet: card and CPU differ: "
+                             f"{bad}")
+    del nets
+
+
+def refer_resnet_steps(torch, np, nets, x, y, steps):
+    """refer-train-resnet's steps, each from the same point; returns each
+    step's measures."""
+    from deeplearning4j_tpu_torch import dtypes, interop
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
     per_step = []
     reset_counts()
     for step in range(steps):
@@ -2801,16 +2881,7 @@ def phase_refer_train_resnet(torch, np):
               f"largest")
         per_step.append(errs)
         copy_state(nets["cpu"], nets["card"])
-    launches = read_counts()
-    if launches["bn_act"] != 53 * steps:
-        raise AssertionError(f"refer-train-resnet: launches {launches}")
-    bad = [(i + 1, k, v) for i, errs in enumerate(per_step)
-           for k, v in errs.items()
-           if not (math.isfinite(v) and v <= REFER_RESNET_TOL[k])]
-    if bad:
-        raise AssertionError(f"refer-train-resnet: card and CPU differ: "
-                             f"{bad}")
-    del nets
+    return per_step
 
 
 # ---------------------------------------------------------------- phase 22
@@ -3610,7 +3681,7 @@ def phase_train_vgg16(torch, np, card):
     under the mixed policy on one repeated batch of 64 bfloat16 images made
     on the card, then 5 under the float32 / TF32 policy on the same images
     in float32, one network throughout. Returns the mixed run's
-    launches and its first score."""
+    launches, its first score and its median step ms."""
     from deeplearning4j_tpu_torch import dtypes
     from deeplearning4j_tpu_torch.datasets import DataSet
 
@@ -3667,7 +3738,7 @@ def phase_train_vgg16(torch, np, card):
             f"{b / (step_ms / 1e3):.1f} trained images/s; first step "
             f"{runs[0][0] * 1e3:.2f} ms; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB ({card})")
-        results[tag] = launches, scores[0]
+        results[tag] = launches, scores[0], step_ms
     del net
     torch.cuda.empty_cache()
     return results["mixed bf16"]
@@ -3690,16 +3761,11 @@ def phase_refer_train_vgg16(torch, np):
     y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, b)]
     nets = {"card": vgg_net(torch), "cpu": vgg_net(torch, "cpu"),
             "f64": as_float64(vgg_net(torch, "cpu"))}
-    cudnn = torch.backends.cudnn
-    saved = cudnn.deterministic, cudnn.benchmark
-    cudnn.deterministic, cudnn.benchmark = True, False
-    try:
+    with deterministic_cudnn(torch):
         reset_counts()
         refer_fit_steps(torch, np, "refer-train-vgg16", nets, (x, y), steps,
                         REFER_VGG_TOL)
         launches = read_counts()
-    finally:
-        cudnn.deterministic, cudnn.benchmark = saved
     want = {k: steps * VGG_PER_STEP.get(k, 0) for k in launches}
     if launches != want:
         raise AssertionError(f"refer-train-vgg16: launches {launches}, "
@@ -4276,7 +4342,8 @@ def phase_train_cg_rnn(torch, np, card):
     memory. Then its last CG_RNN_MLN_WINDOWS windows again, each from the
     same point, on the graph and on the port's MLN TextGenerationLSTM
     carrying the graph's params and RmsProp slots (TF32 off): scores 1e-5
-    relative, params 1e-5 absolute. Returns the 20 windows' launches."""
+    relative, params 1e-5 absolute. Returns the 20 windows' launches, the
+    graph and its batch (x, y, mask) for eval-cg-rnn."""
     from deeplearning4j_tpu_torch import dtypes
     from deeplearning4j_tpu_torch.datasets import DataSet, MultiDataSet
 
@@ -4358,7 +4425,7 @@ def phase_train_cg_rnn(torch, np, card):
         f"{windows - 1} on the graph and on the MLN TextGenerationLSTM, each"
         f" from the graph's params and slots (TF32 off): scores relative "
         f"{rel:.3g} (tol 1e-5), params max |diff| {err:.3g} (tol 1e-5)")
-    return launches
+    return launches, net, (x, y, m)
 
 
 def phase_train_bidir(torch, np, card):
@@ -4470,6 +4537,506 @@ def phase_refer_train_cg(torch, np):
             f"{bound:.3g}); g2 max relative {s_err:.3g} (tol 1e-4); card "
             f"launches {launches}")
         del nets
+
+
+# ------------------------------------------------------------ phases 40-45
+# evaluation, the fit lifecycle, early stopping and transfer learning
+EVAL_RESNET = (32, 16)     # batch (the serving batch), batches per pass
+EVAL_ROC_STEPS = 100
+# es-charrnn: training batches of 32 x 1000 per epoch, epochs, windows
+ES_BATCHES, ES_EPOCHS = 4, 3
+# transfer-vgg16: classes of the new Output, steps at batch 64, its
+# fine-tune updater's rate and momentum, refer-transfer's batch and steps
+TRANSFER = dict(classes=5, steps=20, lr=5e-5, momentum=0.9,
+                refer_batch=4, refer_steps=3)
+# VGG16's new Output: 64 rows of fc2's 4096 into 5 classes, both policies
+TRANSFER_XENT_CASES = [(64, 4096, 5, "onehot", "float32"),
+                       (64, 4096, 5, "onehot", "bfloat16")]
+
+
+class EventLog:
+    """Every lifecycle event of a fit, in order."""
+
+    def __init__(self):
+        self.events = []
+
+    def on_fit_start(self, model):
+        self.events.append("on_fit_start")
+
+    def on_epoch_start(self, model, epoch):
+        self.events.append("on_epoch_start")
+
+    def on_epoch_end(self, model, epoch):
+        self.events.append("on_epoch_end")
+
+    def on_fit_end(self, model):
+        self.events.append("on_fit_end")
+
+    def iteration_done(self, model, iteration, score):
+        self.events.append("iteration_done")
+
+
+def phase_eval_resnet(torch, np, card):
+    """eval-resnet: zoo ResNet-50 (224x224x3, 1000 classes, seed 7, TF32)
+    evaluated by ComputationGraph.do_evaluation over EVAL_RESNET[1] batches
+    of 32 from a BenchmarkDataSetIterator (seed 7) wrapped in
+    AsyncDataSetIterator, feeding Evaluation, ROCMultiClass(100) and
+    EvaluationCalibration in one pass: the confusion matrix equals numpy's
+    count of (label, argmax) over the outputs of the pass, 512 in all; each
+    class's calibration counts sum to 512; bn_act 53 times per batch and
+    nothing else; images per second of the pass against `output` alone on
+    the same batches. Returns the pass's launches."""
+    from deeplearning4j_tpu_torch import eval as ev_mod
+    from deeplearning4j_tpu_torch.datasets import (
+        AsyncDataSetIterator,
+        BenchmarkDataSetIterator,
+    )
+
+    b, n = EVAL_RESNET
+    net = resnet_net(torch)
+    bench = BenchmarkDataSetIterator((b, *RESNET_SHAPE), 1000,
+                                     total_batches=n, seed=SEED)
+    x, y = bench._ds.features, bench._ds.labels
+    net.output(x)  # warm: cuDNN's algorithm choices, the allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        net.output(x).cpu()
+    t_out = time.perf_counter() - t0
+    outs, output = [], net.output
+
+    def recorded(*inputs):
+        outs.append(output(*inputs))
+        return outs[-1]
+
+    net.output = recorded  # the pass's own outputs, for numpy's count
+    evs = (ev_mod.Evaluation(), ev_mod.ROCMultiClass(EVAL_ROC_STEPS),
+           ev_mod.EvaluationCalibration())
+    it_ = AsyncDataSetIterator(bench)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        net.do_evaluation(it_, *evs)
+        t_eval = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        it_.shutdown()
+        del net.output
+    want = {k: (n * 53 if k == "bn_act" else 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"eval-resnet: launches {launches}, want {want}")
+    if len(outs) != n:
+        raise AssertionError(f"eval-resnet: {len(outs)} outputs, want {n}")
+    count = np.zeros((1000, 1000), np.int64)
+    for o in outs:
+        np.add.at(count, (y.argmax(-1), o.float().cpu().numpy().argmax(-1)),
+                  1)
+    ev, roc, cal = evs
+    if not (np.array_equal(ev.confusion.matrix, count)
+            and int(ev.confusion.matrix.sum()) == b * n == ev.total):
+        raise AssertionError(f"eval-resnet: the confusion matrix differs "
+                             f"from numpy's count ({ev.total} counted)")
+    per_class = cal.bin_count.sum(axis=1)
+    if not (per_class == b * n).all():
+        raise AssertionError(f"eval-resnet: calibration counts per class "
+                             f"{sorted(set(per_class.tolist()))}, want "
+                             f"{b * n}")
+    auc = roc.calculate_average_auc()
+    if not math.isfinite(auc):
+        raise AssertionError(f"eval-resnet: average AUC {auc}")
+    log(f"[eval-resnet] ResNet-50 (TF32), {n} batches of {b} from "
+        f"BenchmarkDataSetIterator through AsyncDataSetIterator, one "
+        f"do_evaluation pass into Evaluation, ROCMultiClass("
+        f"{EVAL_ROC_STEPS}) and EvaluationCalibration: {ev.total} counted "
+        f"(confusion matrix = numpy's count), accuracy {ev.accuracy():.5f}, "
+        f"average AUC {auc:.5f}, calibration counts {b * n} per class; "
+        f"launches {want} (bn_act 53 per batch)")
+    log(f"[eval-resnet] the pass {t_eval * 1e3:.1f} ms = "
+        f"{b * n / t_eval:.1f} evaluated images/s; output alone on the same "
+        f"batches (copied to the host) {t_out * 1e3:.1f} ms = "
+        f"{b * n / t_out:.1f} images/s: the evaluators on the host cost "
+        f"{(t_eval - t_out) / n * 1e3:.1f} ms per batch ({card})")
+    del net, outs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_eval_cg_rnn(torch, np, net, batch, card):
+    """eval-cg-rnn: train-cg-rnn's masked char graph, after its windows,
+    evaluated on its own batch (labels mask = its features mask): the
+    evaluation counts exactly the live steps, its accuracy equals numpy's
+    over the masked argmax of the pass's output, 2 lstm_scan launches for
+    the one forward and nothing else (inference takes no xent kernel).
+    Returns the launches."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    x, y, m = batch
+    outs, output = [], net.output
+
+    def recorded(*inputs):
+        outs.append(output(*inputs))
+        return outs[-1]
+
+    net.output = recorded
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        ev = net.evaluate([DataSet(x, y, m, m)])
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        del net.output
+    want = {k: (2 if k == "lstm_scan" else 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"eval-cg-rnn: launches {launches}, want {want}")
+    out = outs[0].float().cpu().numpy()
+    live = m.reshape(-1) > 0
+    hits = (out.reshape(-1, out.shape[-1])[live].argmax(-1)
+            == y.reshape(-1, y.shape[-1])[live].argmax(-1))
+    if ev.total != int(live.sum()) or ev.accuracy() != float(
+            hits.sum() / live.sum()):
+        raise AssertionError(f"eval-cg-rnn: counted {ev.total} of "
+                             f"{int(live.sum())} live steps, accuracy "
+                             f"{ev.accuracy()} vs numpy's "
+                             f"{hits.sum() / live.sum()}")
+    log(f"[eval-cg-rnn] the masked char graph after train-cg-rnn: "
+        f"evaluate on its {x.shape[0]} x {x.shape[1]} batch counted "
+        f"{ev.total} live steps (the mask's {int(live.sum())}), accuracy "
+        f"{ev.accuracy():.5f} = numpy's over the masked argmax; "
+        f"{wall * 1e3:.1f} ms; launches {want} ({card})")
+    return launches
+
+
+def phase_es_charrnn(torch, np, tmp, card):
+    """es-charrnn: the BASELINE char-RNN (zoo TextGenerationLSTM, tBPTT 50)
+    trained by EarlyStoppingTrainer on ES_BATCHES batches of 32 x 1000
+    Zipf characters, held-out loss on one batch from another seed
+    (DataSetLossCalculator: the whole 1000 steps, unwindowed), stopped by
+    MaxEpochsTerminationCondition(3), with listeners and a
+    LocalFileModelSaver; then the fit(checkpoint_manager=...) resume
+    contract. Returns the early-stopped run's launches."""
+    from deeplearning4j_tpu_torch import earlystopping as es
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.optimize import (
+        CollectScoresListener,
+        PerformanceListener,
+        ScoreIterationListener,
+        TrainingListener,
+    )
+    from deeplearning4j_tpu_torch.resilience import CheckpointManager
+
+    b, t, window = RNN_TBPTT
+    vocab = RNN["num_classes"]
+    x, y = char_batch(np, np.random.default_rng(SEED + 20), b * ES_BATCHES,
+                      t, vocab)
+    hx, hy = char_batch(np, np.random.default_rng(SEED + 21), b, t, vocab)
+    windows = ES_BATCHES * -(-t // window)
+
+    def train_it():
+        return ListDataSetIterator(DataSet(x, y), batch=b)
+
+    net = rnn_net(torch, t, tbptt=window)
+    events, scores = EventLog(), CollectScoresListener(1)
+    printed = []
+    snapshots = {}
+
+    class Snapshot(TrainingListener):
+        """Each epoch's params as the trainer scores and saves them."""
+
+        def on_epoch_end(self, model, epoch):
+            snapshots[epoch] = {f"{k}/{p}": v.clone()
+                                for k, ps in model.params.items()
+                                for p, v in ps.items()}
+
+    class WindowClock(TrainingListener):
+        """The host clock at every window's end."""
+
+        def __init__(self):
+            self.stamps = []
+
+        def on_epoch_start(self, model, epoch):
+            self.stamps.append([])
+
+        def iteration_done(self, model, iteration, score):
+            self.stamps[-1].append(time.perf_counter())
+
+    clock = WindowClock()
+    perf = PerformanceListener(windows, report_etl=False,
+                               print_fn=printed.append)
+    net.set_listeners(ScoreIterationListener(windows, printed.append),
+                      scores, perf, events, Snapshot(), clock)
+    cfg = es.EarlyStoppingConfiguration(
+        score_calculator=es.DataSetLossCalculator(
+            ListDataSetIterator(DataSet(hx, hy), batch=b)),
+        model_saver=es.LocalFileModelSaver(os.path.join(tmp, "es")),
+        epoch_termination_conditions=[
+            es.MaxEpochsTerminationCondition(ES_EPOCHS),
+            es.ScoreImprovementEpochTerminationCondition(
+                max_epochs_without_improvement=ES_EPOCHS)],
+        iteration_termination_conditions=[
+            es.InvalidScoreIterationTerminationCondition()])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    result = es.EarlyStoppingTrainer(cfg, net, train_it()).fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    per_epoch = ["on_fit_start", "on_epoch_start"] + \
+        ["iteration_done"] * windows + ["on_epoch_end", "on_fit_end"]
+    if events.events != per_epoch * ES_EPOCHS:
+        raise AssertionError(f"es-charrnn: events {events.events[:5]} ... "
+                             f"({len(events.events)}), want "
+                             f"{ES_EPOCHS} x {len(per_epoch)}")
+    if (result.termination_reason, result.termination_details) != (
+            "EpochTerminationCondition", "MaxEpochsTerminationCondition") \
+            or result.total_epochs != ES_EPOCHS:
+        raise AssertionError(f"es-charrnn: stopped by "
+                             f"{result.termination_reason} / "
+                             f"{result.termination_details} after "
+                             f"{result.total_epochs} epochs")
+    n_win = ES_EPOCHS * windows
+    want = {k: 0 for k in launches}
+    want.update({"lstm_scan": 2 * n_win + 2 * ES_EPOCHS,
+                 "lstm_scan_bwd": 2 * n_win,
+                 "linear_xent_fwd": n_win + ES_EPOCHS,
+                 "linear_xent_bwd": n_win})
+    if launches != want:
+        raise AssertionError(f"es-charrnn: launches {launches}, want {want}")
+    held = [result.score_vs_epoch[e] for e in range(ES_EPOCHS)]
+    if not all(math.isfinite(s) for s in held) or not all(
+            math.isfinite(s) for _, s in scores.scores):
+        raise AssertionError(f"es-charrnn: held-out {held}")
+    best = result.get_best_model()
+    if best.device != net.device:
+        raise AssertionError(f"es-charrnn: best model on {best.device}")
+    want_best = snapshots[result.best_model_epoch]
+    for k, v in best.params.items():
+        for p, tv in v.items():
+            if not torch.equal(tv, want_best[f"{k}/{p}"]):
+                raise AssertionError(f"es-charrnn: get_best()'s {k}/{p} "
+                                     f"is not epoch "
+                                     f"{result.best_model_epoch}'s")
+    log(f"[es-charrnn] TextGenerationLSTM (tBPTT {window}) by "
+        f"EarlyStoppingTrainer: {ES_EPOCHS} epochs of {ES_BATCHES} batches "
+        f"of {b} x {t} ({windows} windows each), stopped by "
+        f"{result.termination_details}; held-out loss per epoch "
+        f"{', '.join(f'{s:.5f}' for s in held)}, best epoch "
+        f"{result.best_model_epoch}; training score "
+        f"{scores.scores[0][1]:.5f} -> {scores.scores[-1][1]:.5f}; events "
+        f"{ES_EPOCHS} x (on_fit_start, on_epoch_start, {windows} x "
+        f"iteration_done, on_epoch_end, on_fit_end); launches {want}")
+    gaps = sorted(b_ - a for st in clock.stamps for a, b_ in zip(st, st[1:]))
+    window_ms = gaps[len(gaps) // 2] * 1e3
+    log(f"[es-charrnn] median window {window_ms:.3f} ms (between listener "
+        f"calls within an epoch), {b * window / window_ms * 1e3:.1f} trained "
+        f"characters/s; {wall:.2f} s in all = {wall / n_win * 1e3:.3f} ms per "
+        f"window with the held-out scores, best-model saves and restore; "
+        f"get_best() onto the card = epoch {result.best_model_epoch}'s "
+        f"params bit for bit; listeners printed {printed[:2]} ({card})")
+    # the resume contract: 2 epochs, then a fresh network to 3 epochs
+    mgr = CheckpointManager(os.path.join(tmp, "ckpt"), keep_last=5)
+    first = rnn_net(torch, t, tbptt=window)
+    first.fit(train_it(), epochs=2, checkpoint_manager=mgr)
+    resumed = rnn_net(torch, t, tbptt=window)
+    log_r = EventLog()
+    resumed.set_listeners(log_r)
+    reset_counts()
+    t0 = time.perf_counter()
+    resumed.fit(train_it(), epochs=3, checkpoint_manager=mgr)
+    torch.cuda.synchronize()
+    t_resume = time.perf_counter() - t0
+    resume_launches = read_counts()
+    straight = rnn_net(torch, t, tbptt=window)
+    straight.fit(train_it(), epochs=3)
+    iters = log_r.events.count("iteration_done")
+    if iters != windows or resumed.epoch != 3 or \
+            resumed.iteration != 3 * windows:
+        raise AssertionError(f"es-charrnn resume: {iters} windows trained, "
+                             f"epoch {resumed.epoch}, iteration "
+                             f"{resumed.iteration}")
+    if resume_launches["lstm_scan_bwd"] != 2 * windows:
+        raise AssertionError(f"es-charrnn resume: launches "
+                             f"{resume_launches}")
+    worst, exact = 0.0, True
+    with torch.no_grad():
+        for k, v in straight.params.items():
+            for p, tv in v.items():
+                got = resumed.params[k][p]
+                exact = exact and torch.equal(got, tv)
+                worst = max(worst, float((got - tv).abs().max()))
+    if worst > 1e-6:
+        raise AssertionError(f"es-charrnn resume: params differ from the "
+                             f"unbroken 3-epoch fit by {worst:.3g}")
+    steps = mgr.list_steps()
+    bad = [s for s in steps if not mgr.verify(s)[0]]
+    if steps != [windows * e for e in (1, 2, 3)] or bad:
+        raise AssertionError(f"es-charrnn resume: checkpoints {steps}, "
+                             f"failing verify {bad}")
+    log(f"[es-charrnn] resume: fit(epochs=2, checkpoint_manager=m), then a "
+        f"fresh network fit(epochs=3, checkpoint_manager=m) restored epoch 2 "
+        f"and trained {iters} windows in {t_resume:.2f} s; its params equal "
+        f"an unbroken 3-epoch fit "
+        f"{'bit for bit' if exact else f'within {worst:.3g}'}"
+        f"; checkpoints {steps} each pass verify ({card})")
+    del net, first, resumed, straight, best
+    torch.cuda.empty_cache()
+    return {k: v + resume_launches[k] for k, v in launches.items()}
+
+
+def transfer_net(torch, src):
+    """The DL4J example EditLastLayerOthersFrozen on zoo VGG16 `src`:
+    FineTuneConfiguration(Nesterovs(5e-5, 0.9), seed 7), the layers up to
+    fc2 frozen, the Output replaced by Output(5, mcxent, softmax)."""
+    from deeplearning4j_tpu_torch.models.transfer import (
+        FineTuneConfiguration,
+        TransferLearning,
+    )
+    from deeplearning4j_tpu_torch.nn import updaters
+    from deeplearning4j_tpu_torch.nn.layers import Output
+
+    fc2 = len(src.layers) - 2
+    return (TransferLearning(src)
+            .fine_tune_configuration(FineTuneConfiguration(
+                updater=updaters.Nesterovs(
+                    learning_rate=TRANSFER["lr"],
+                    momentum=TRANSFER["momentum"]), seed=SEED))
+            .set_feature_extractor(fc2)
+            .remove_output_layer()
+            .add_layer(Output(n_out=TRANSFER["classes"], loss="mcxent",
+                              activation="softmax"))
+            .build())
+
+
+def phase_transfer_vgg16(torch, np, card, vgg_step_ms):
+    """transfer-vgg16: zoo VGG16 (seed 7) fine-tuned with the layers up to
+    fc2 frozen and a new 5-class Output, TRANSFER["steps"] steps at batch
+    64 under the mixed policy on distinct seeded images: the frozen params
+    bit-identical after the steps, the Output's moved, 1 + 1 xent per step
+    and nothing else; TransferLearningHelper.featurize then fit_featurized
+    over the same batches gives the same Output params (1e-5); predict
+    equals the argmax of output. Returns the frozen fit's launches."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet,
+        ExistingDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models.transfer import (
+        TransferLearningHelper,
+    )
+
+    b, steps, classes = VGG_TRAIN[0], TRANSFER["steps"], TRANSFER["classes"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    batches = []
+    for _ in range(steps):
+        x = torch.randn((b, *VGG_SHAPE), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        y = torch.nn.functional.one_hot(torch.randint(
+            0, classes, (b,), generator=gen, device="cuda"), classes).float()
+        batches.append(DataSet(x, y))
+    t0 = time.perf_counter()
+    src = vgg_net(torch)
+    net = transfer_net(torch, src)
+    del src
+    frozen = [i for i, l in enumerate(net.layers)
+              if getattr(l, "frozen", False)]
+    head = f"layer_{len(net.layers) - 1}"
+    log(f"[transfer-vgg16] VGG16 -> {len(frozen)} Frozen layers (0-"
+        f"{frozen[-1]}) + Output({classes}) built on {net.device} in "
+        f"{time.perf_counter() - t0:.2f} s; {net.num_params()} params")
+    before = {f"layer_{i}": {p: v.clone()
+                             for p, v in net.params[f"layer_{i}"].items()}
+              for i in frozen}
+    head0 = {p: v.clone() for p, v in net.params[head].items()}
+    helper_net = transfer_net(torch, vgg_net(torch))
+    dtypes.set_mixed_precision(True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        reset_counts()
+        for ds in batches:
+            runs += timed_fits(torch, net, ds, 1)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        helper = TransferLearningHelper(helper_net)
+        t0 = time.perf_counter()
+        feats = [helper.featurize(ds) for ds in batches]
+        helper.fit_featurized(ExistingDataSetIterator(feats))
+        torch.cuda.synchronize()
+        t_helper = time.perf_counter() - t0
+    finally:
+        dtypes.set_mixed_precision(False)
+    want = {k: steps * VGG_PER_STEP.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"transfer-vgg16: launches {launches}, want "
+                             f"{want}")
+    for k, ps in before.items():
+        same_bits(ps, net.params[k], f"transfer-vgg16 frozen {k}")
+        if any(v.requires_grad for v in net.params[k].values()):
+            raise AssertionError(f"transfer-vgg16: {k} records gradients")
+    with torch.no_grad():
+        moved = max(float((net.params[head][p] - v).abs().max())
+                    for p, v in head0.items())
+        diff = max(float((helper_net.params[head][p] - v).abs().max())
+                   for p, v in net.params[head].items())
+    scores = [sc for _, sc in runs]
+    if not moved > 0 or not all(math.isfinite(sc) for sc in scores):
+        raise AssertionError(f"transfer-vgg16: Output moved {moved}, "
+                             f"scores {scores}")
+    if not diff <= 1e-5:
+        raise AssertionError(f"transfer-vgg16: featurize + fit_featurized "
+                             f"differs from the frozen fit by {diff:.3g}")
+    x0 = batches[0].features.float()
+    if not np.array_equal(net.predict(x0),
+                          net.output(x0).float().argmax(-1).cpu().numpy()):
+        raise AssertionError("transfer-vgg16: predict is not the argmax of "
+                             "output")
+    steady = sorted(t_ for t_, _ in runs[1:])
+    step_ms = steady[len(steady) // 2] * 1e3
+    log(f"[transfer-vgg16] {steps} mixed steps of {b} images (distinct "
+        f"batches), scores {scores[0]:.5f} -> {scores[-1]:.5f}; the "
+        f"{len(frozen)} Frozen layers' params bit-identical, the Output's "
+        f"moved by up to {moved:.3g}; launches {want} (per step "
+        f"{VGG_PER_STEP}); featurize + fit_featurized over the same batches "
+        f"= the frozen fit's Output within {diff:.3g} (tol 1e-5), "
+        f"{t_helper * 1e3:.1f} ms; predict = argmax of output")
+    log(f"[transfer-vgg16] median step {step_ms:.3f} ms "
+        f"({b / step_ms * 1e3:.1f} images/s) against train-vgg16's {vgg_step_ms:.3f} ms in this run "
+        f"({vgg_step_ms / step_ms:.2f}x); peak device memory {peak:.3f} GiB "
+        f"({card})")
+    del net, helper_net, helper, feats, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_refer_transfer(torch, np):
+    """refer-transfer: the transferred VGG16 on the card (TF32 off,
+    deterministic cuDNN), on the CPU and on the CPU in float64, 3
+    Nesterovs steps at batch 4, each from the same point; refer-train-
+    vgg16's gates (REFER_VGG_TOL)."""
+    steps, b = TRANSFER["refer_steps"], TRANSFER["refer_batch"]
+    rng = np.random.default_rng(SEED + 23)
+    x = rng.standard_normal((b, *VGG_SHAPE)).astype(np.float32)
+    y = np.eye(TRANSFER["classes"], dtype=np.float32)[rng.integers(
+        0, TRANSFER["classes"], b)]
+    nets = {"card": transfer_net(torch, vgg_net(torch)),
+            "cpu": transfer_net(torch, vgg_net(torch, "cpu")),
+            "f64": as_float64(transfer_net(torch, vgg_net(torch, "cpu")))}
+    with deterministic_cudnn(torch):
+        reset_counts()
+        worst = refer_fit_steps(torch, np, "refer-transfer", nets, (x, y),
+                                steps, REFER_VGG_TOL)
+        launches = read_counts()
+    want = {k: steps * VGG_PER_STEP.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"refer-transfer: launches {launches}, want "
+                             f"{want}")
+    log(f"[refer-transfer] {steps} steps at batch {b}, card vs CPU: worst "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f" (gates {REFER_VGG_TOL}); launches {want}")
+    del nets
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -4587,7 +5154,8 @@ def main() -> int:
         vgg_xent, vgg_err = phase_xent(torch, bw, peak, peak_bf16, peak_tf32,
                                        cases=VGG_XENT_CASES, tag="kernel-vgg")
         xent_err = max(xent_err, vgg_err)
-        vgg_launches, vgg_first = phase_train_vgg16(torch, np, card)
+        vgg_launches, vgg_first, vgg_step_ms = phase_train_vgg16(torch, np,
+                                                                 card)
         phase_refer_train_vgg16(torch, np)
         log(f"[refer-train-vgg16] the VGG16 phases (kernel-vgg, "
             f"train-vgg16, refer-train-vgg16) took "
@@ -4626,11 +5194,28 @@ def main() -> int:
             tag="kernel-bidir")
         bidir_xent = bidir_xent[BIDIR_XENT_CASES[0]]
         xent_err = max(xent_err, bidir_xent_err)
-        cg_launches = phase_train_cg_rnn(torch, np, card)
+        cg_launches, cg_net, cg_batch = phase_train_cg_rnn(torch, np, card)
         bidir_launches = phase_train_bidir(torch, np, card)
         phase_refer_train_cg(torch, np)
         log(f"[refer-train-cg] the graph recurrent phases (kernel-bidir, "
             f"train-cg-rnn, train-bidir, refer-train-cg) took "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        eval_cg = phase_eval_cg_rnn(torch, np, cg_net, cg_batch, card)
+        del cg_net
+        eval_launches = phase_eval_resnet(torch, np, card)
+        eval_launches = {k: v + eval_cg[k] for k, v in eval_launches.items()}
+        with tempfile.TemporaryDirectory() as tmp:
+            es_launches = phase_es_charrnn(torch, np, tmp, card)
+        transfer_xent, transfer_err = phase_xent(
+            torch, bw, peak, peak_bf16, peak_tf32, cases=TRANSFER_XENT_CASES,
+            tag="kernel-transfer")
+        xent_err = max(xent_err, transfer_err)
+        transfer_launches = phase_transfer_vgg16(torch, np, card, vgg_step_ms)
+        phase_refer_transfer(torch, np)
+        log(f"[refer-transfer] the evaluation, early-stopping and transfer "
+            f"phases (eval-cg-rnn, eval-resnet, es-charrnn, kernel-transfer, "
+            f"transfer-vgg16, refer-transfer) took "
             f"{time.perf_counter() - t0:.1f} s")
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
@@ -4654,6 +5239,11 @@ def main() -> int:
         # per launch at VGG16's Output, (64, 4096, 1000), both policies
         return {case[-1]: vgg_xent[case][name] for case in VGG_XENT_CASES}
 
+    def transfer_rows(name):
+        # per launch at the fine-tuned VGG16's Output, (64, 4096, 5)
+        return {case[-1]: transfer_xent[case][name]
+                for case in TRANSFER_XENT_CASES}
+
     def per_forward(row, calls):
         return {k: (v * calls if k.endswith("ms") and v is not None else v)
                 for k, v in row.items()}
@@ -4676,11 +5266,13 @@ def main() -> int:
         "linear_xent_fwd": (train_launches["linear_xent_fwd"], xent_err,
                             dict(xent["fwd"], vgg16_output=vgg_rows("fwd"),
                                  tbptt_window=xent_window["fwd"],
-                                 bidir_output=bidir_xent["fwd"])),
+                                 bidir_output=bidir_xent["fwd"],
+                                 transfer_output=transfer_rows("fwd"))),
         "linear_xent_bwd": (train_launches["linear_xent_bwd"], xent_err,
                             dict(xent["bwd"], vgg16_output=vgg_rows("bwd"),
                                  tbptt_window=xent_window["bwd"],
-                                 bidir_output=bidir_xent["bwd"])),
+                                 bidir_output=bidir_xent["bwd"],
+                                 transfer_output=transfer_rows("bwd"))),
         "lstm_scan_bwd": (rnn_train_launches["lstm_scan_bwd"],
                           lstm_bwd_err["lstm_scan_bwd"],
                           dict(per_forward(lstm_bwd["lstm_scan_bwd"], 2),
@@ -4707,7 +5299,8 @@ def main() -> int:
             # (1600, 256, 77) and at train-bidir's Output (32, 512, 77)
             **{k: t[k] for k in ("library_covers", "inception_v3_forward",
                                  "vgg16_output", "bidir_shape",
-                                 "tbptt_window", "bidir_output") if k in t},
+                                 "tbptt_window", "bidir_output",
+                                 "transfer_output") if k in t},
             # launches on the char-RNN's DL4J restore and resume path
             # (dl4j-charrnn and checkpoint-resume)
             "dl4j_resume_launches": resume_launches[kname],
@@ -4723,7 +5316,13 @@ def main() -> int:
             # launches in train-cg-rnn's 20 tBPTT windows of the masked
             # graph and in train-bidir's 20 steps
             "cg_rnn_launches": cg_launches[kname],
-            "bidir_launches": bidir_launches[kname]})
+            "bidir_launches": bidir_launches[kname],
+            # launches in eval-resnet's and eval-cg-rnn's passes, in
+            # es-charrnn's early-stopped run with its resumed epoch, and in
+            # transfer-vgg16's 20 frozen-base steps
+            "eval_launches": eval_launches[kname],
+            "es_launches": es_launches[kname],
+            "transfer_launches": transfer_launches[kname]})
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,8 +6,17 @@ from deeplearning4j_tpu_torch.datasets.dataset import (  # noqa: F401
     MultiDataSet,
 )
 from deeplearning4j_tpu_torch.datasets.iterators import (  # noqa: F401
+    AsyncDataSetIterator,
+    AsyncMultiDataSetIterator,
+    AsyncShieldDataSetIterator,
+    AsyncShieldMultiDataSetIterator,
+    BenchmarkDataSetIterator,
     DataSetIterator,
+    EarlyTerminationDataSetIterator,
+    ExistingDataSetIterator,
     ListDataSetIterator,
+    MultipleEpochsIterator,
+    SamplingDataSetIterator,
 )
 from deeplearning4j_tpu_torch.datasets.fetchers import (  # noqa: F401
     MnistDataSetIterator,

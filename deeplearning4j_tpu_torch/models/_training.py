@@ -35,6 +35,16 @@ def to_device(tree, device):
             for k, v in tree.items()}
 
 
+def clone_tree(tree):
+    """A copy of nested dicts, lists and tuples of tensors, every tensor
+    cloned (detached) on its device; other leaves kept."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
+
+
 def detach(tree):
     return {k: detach(v) if isinstance(v, dict) else v.detach()
             for k, v in tree.items()}
@@ -59,23 +69,29 @@ def flat_items(tree, prefix: str = ""):
             yield path, v
 
 
-def value_and_grad(loss, params):
+def value_and_grad(loss, params, frozen=frozenset()):
     """(score, aux, grads) of `loss() -> (score, aux)`, differentiated with
-    respect to every tensor in `params` (a dict of nested param dicts),
-    each made a leaf that records gradients first. `grads` mirrors
-    `params`, zeros where the score does not depend on a param. With a
-    data-parallel shard installed, `loss` runs with it active (`nn.shard`)
-    and the score and gradients are summed over the ranks."""
+    respect to every tensor in `params` (a dict of nested param dicts)
+    outside the keys in `frozen`, each made a leaf that records gradients
+    first. The params under `frozen` record none, so the backward does
+    not reach them (it ends at the first layer that trains), and their
+    entries in `grads` are empty. `grads` mirrors `params`, zeros where
+    the score does not depend on a param. With a data-parallel shard
+    installed, `loss` runs with it active (`nn.shard`) and the score and
+    gradients are summed over the ranks."""
     leaves = []
     for k, p in params.items():
         for path, t in flat_items(p):
+            if k in frozen:
+                t.requires_grad_(False)
+                continue
             if not t.requires_grad:
                 t.requires_grad_(True)
             leaves.append((k, path, t))
     with torch.enable_grad(), shard_mod.active() as shard:
         score, aux = loss()
         flat = torch.autograd.grad(score, [t for *_, t in leaves],
-                                   allow_unused=True)
+                                   allow_unused=True) if leaves else []
     flat = [torch.zeros_like(t) if g is None else g
             for (*_, t), g in zip(leaves, flat)]
     if shard is not None:

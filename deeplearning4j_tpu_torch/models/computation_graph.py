@@ -21,9 +21,20 @@ tensors `init` made stay the network's params; the updater slots
 state (BatchNorm's EMA) are replaced each step. `fit` takes a MultiDataSet,
 a DataSet, a DataSetIterator, or features and labels (lists for several
 inputs or outputs); batches already on the network's device are used as
-they are. The line-search solvers and the JAX package's windowed engine,
-FSDP and remat are not ported yet; `fit` raises on a configuration that
-needs them.
+they are. `fit` is the JAX package's thin facade over `training.engine.
+TrainingRun` (the listeners' lifecycle events, `checkpoint_manager=`
+resume and epoch-end saves, `epochs` the total target); an iterator is
+wrapped in `AsyncDataSetIterator` for each epoch where it allows it. A
+Frozen layer in a graph runs with train=False but is updated, as in the
+JAX package (whose graph step has no frozen check; ROADMAP C.11). The
+line-search solvers and the JAX engine's step windows, FSDP and remat are
+not ported yet; `fit` raises on a configuration that needs them.
+
+Evaluation: `do_evaluation` feeds one pass of a single-output graph to
+several evaluators, `evaluate_outputs` each output of a multi-output graph
+to its own, and the `evaluate*` family wraps `do_evaluation`; `output`
+runs on the device, the evaluators on the host (`eval.host`). `summary`
+prints the JAX package's table.
 
 Masks: each network input takes its features mask, each vertex gets its
 inputs' masks (a LayerVertex hands the first to its layer) and gives its
@@ -54,7 +65,10 @@ import torch
 
 from deeplearning4j_tpu_torch import device as device_mod
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
-from deeplearning4j_tpu_torch.datasets.iterators import DataSetIterator
+from deeplearning4j_tpu_torch.datasets.iterators import (
+    DataSetIterator,
+    prefetching,
+)
 from deeplearning4j_tpu_torch.models import _training as tr
 from deeplearning4j_tpu_torch.models.multi_layer_network import (
     warn_bidir_tbptt,
@@ -130,6 +144,31 @@ class ComputationGraph:
     def num_params(self) -> int:
         return int(sum(t.numel() for p in self.params.values()
                        for t in p.values()))
+
+    def summary(self) -> str:
+        """The vertex table (ComputationGraph.summary()): the JAX package's
+        columns, names, shapes and parameter counts."""
+        lines = ["=" * 78]
+        lines.append(f"{'vertex':<22}{'type':<24}{'out shape':<20}"
+                     f"{'params':>10}")
+        lines.append("-" * 78)
+        for name in self.conf.network_inputs:
+            t = self.vertex_types.get(name)
+            shape = str(t.shape()) if t is not None else ""
+            lines.append(f"{name:<22}{'Input':<24}{shape:<20}{0:>10}")
+        for name in self.topo:
+            v = self.conf.vertices[name]
+            kind = (type(v.layer).__name__
+                    if isinstance(v, LayerVertex) else type(v).__name__)
+            t = self.vertex_types.get(name)
+            shape = str(t.shape()) if t is not None else ""
+            n = (sum(x.numel() for x in self.params[name].values())
+                 if self.params else 0)
+            lines.append(f"{name:<22}{kind:<24}{shape:<20}{n:>10}")
+        lines.append("-" * 78)
+        lines.append(f"total params: {self.num_params() if self.params else 0}")
+        lines.append("=" * 78)
+        return "\n".join(lines)
 
     def _as_inputs(self, inputs) -> List[torch.Tensor]:
         if self.params is None:
@@ -383,13 +422,24 @@ class ComputationGraph:
 
     @staticmethod
     def _as_batches(data, labels=None):
-        """A function giving one pass of MultiDataSets over `data`."""
+        """A function giving one pass of MultiDataSets over `data`; a
+        DataSetIterator is wrapped in AsyncDataSetIterator for the pass
+        where it allows it (the JAX package's `_as_mds_iter`), the
+        producer shut down when the pass ends or is abandoned."""
         if isinstance(data, MultiDataSet):
             return lambda: iter([data])
         if isinstance(data, DataSet):
             return lambda: iter([MultiDataSet.from_dataset(data)])
         if isinstance(data, DataSetIterator):
-            return lambda: (MultiDataSet.from_dataset(ds) for ds in data)
+            def one_pass():
+                it_ = prefetching(data)
+                try:
+                    for ds in it_:
+                        yield MultiDataSet.from_dataset(ds)
+                finally:
+                    if it_ is not data:
+                        it_.shutdown()
+            return one_pass
         if labels is not None:
             many = isinstance(data, (list, tuple))
             mds = MultiDataSet(
@@ -399,21 +449,37 @@ class ComputationGraph:
             return lambda: iter([mds])
         raise TypeError(f"Cannot iterate {type(data)}")
 
-    def fit(self, data, labels=None, epochs: int = 1) -> "ComputationGraph":
+    def fit(self, data, labels=None, epochs: int = 1,
+            **attachments) -> "ComputationGraph":
         """fit(MultiDataSet | DataSet | DataSetIterator | (features,
-        labels)): one training step per batch, `epochs` passes
-        (ComputationGraph.fit). After each step `score_` holds its loss
-        (with the l1/l2 penalty), `last_batch_size` its rows, and every
-        listener's `iteration_done(net, iteration, score)` has run."""
+        labels)): one training step per batch (per tBPTT window), `epochs`
+        passes (ComputationGraph.fit), through `training.engine.
+        TrainingRun`: `checkpoint_manager=` resumes from its newest
+        checkpoint first (`epochs` is the total target) and saves at each
+        epoch end; the listeners see on_fit_start, on_epoch_start /
+        on_epoch_end and on_fit_end around the steps. After each step
+        `score_` holds its loss (with the l1/l2 penalty),
+        `last_batch_size` its rows, and every listener's
+        `iteration_done(net, iteration, score)` has run."""
+        from deeplearning4j_tpu_torch.training.engine import TrainingRun
+
         if self.params is None:
             raise RuntimeError("call init() before fit()")
+        run = TrainingRun(self, epochs=epochs, **attachments)
         self._check_trainable()
-        batches = self._as_batches(data, labels)
-        for _ in range(epochs):
-            for mds in batches():
+        return run.execute(self._run_epoch, self._as_batches(data, labels))
+
+    def _run_epoch(self, batches) -> None:
+        """One pass of `fit`: a step (or tBPTT windows) per MultiDataSet;
+        the pass is closed even when a step raises, which stops its
+        prefetch producer."""
+        try:
+            for mds in batches:
                 self._fit_mds(mds)
-            self.epoch += 1
-        return self
+        finally:
+            close = getattr(batches, "close", None)
+            if close is not None:
+                close()
 
     def score(self, data) -> float:
         """The loss on a DataSet or MultiDataSet with the running
@@ -428,6 +494,92 @@ class ComputationGraph:
                               self._masks(mds.features_masks),
                               self._masks(mds.labels_masks), train=False)
         return float(s)
+
+    # ---- evaluation (the JAX package's doEvaluation family) ----
+    @staticmethod
+    def _as_eval_mds(item):
+        return (MultiDataSet.from_dataset(item) if isinstance(item, DataSet)
+                else item)
+
+    def do_evaluation(self, iterator, *evaluations):
+        """One pass over a DataSet or MultiDataSet iterator feeding every
+        evaluator (ComputationGraph.doEvaluation). Graphs with several
+        inputs are fine; the graph must have one output (the reference's
+        rule): `evaluate_outputs` takes several."""
+        from deeplearning4j_tpu_torch.eval import host, mask_aware_feeder
+
+        if len(self.conf.network_outputs) != 1:
+            raise ValueError(
+                "do_evaluation requires a single-output graph "
+                f"(have {len(self.conf.network_outputs)}); use "
+                "evaluate_outputs() for per-output evaluation")
+        feeders = [mask_aware_feeder(ev) for ev in evaluations]
+        for item in iterator:
+            mds = self._as_eval_mds(item)
+            out = host(self.output(*mds.features))
+            lmask = (mds.labels_masks[0]
+                     if mds.labels_masks is not None else None)
+            for feed in feeders:
+                feed(mds.labels[0], out, lmask)
+        return list(evaluations)
+
+    def evaluate_outputs(self, iterator, evaluations):
+        """Each output of a multi-output graph evaluated in one pass:
+        `evaluations` maps an output vertex name (or index) to an
+        evaluator or a list of them; each is fed its output's predictions,
+        labels and labels mask per batch. Returns `evaluations`."""
+        from deeplearning4j_tpu_torch.eval import host, mask_aware_feeder
+
+        names = list(self.conf.network_outputs)
+        by_idx: Dict[int, list] = {}
+        for key, evs in evaluations.items():
+            idx = key if isinstance(key, int) else names.index(key)
+            if not 0 <= idx < len(names):
+                raise ValueError(f"no output #{idx} (outputs: {names})")
+            evs = evs if isinstance(evs, (list, tuple)) else [evs]
+            by_idx[idx] = [mask_aware_feeder(ev) for ev in evs]
+        for item in iterator:
+            mds = self._as_eval_mds(item)
+            outs = self.output(*mds.features)
+            if len(names) == 1:
+                outs = [outs]
+            for idx, feeders in by_idx.items():
+                out = host(outs[idx])
+                lmask = (mds.labels_masks[idx]
+                         if mds.labels_masks is not None else None)
+                for feed in feeders:
+                    feed(mds.labels[idx], out, lmask)
+        return evaluations
+
+    def _eval_with(self, iterator, ev):
+        return self.do_evaluation(iterator, ev)[0]
+
+    def evaluate(self, iterator):
+        from deeplearning4j_tpu_torch.eval import Evaluation
+
+        return self._eval_with(iterator, Evaluation())
+
+    def evaluate_regression(self, iterator):
+        from deeplearning4j_tpu_torch.eval import RegressionEvaluation
+
+        return self._eval_with(iterator, RegressionEvaluation())
+
+    def evaluate_roc(self, iterator, threshold_steps: int = 0):
+        from deeplearning4j_tpu_torch.eval import ROC
+
+        return self._eval_with(iterator, ROC(threshold_steps))
+
+    def evaluate_roc_multi_class(self, iterator, threshold_steps: int = 0):
+        from deeplearning4j_tpu_torch.eval import ROCMultiClass
+
+        return self._eval_with(iterator, ROCMultiClass(threshold_steps))
+
+    def evaluate_calibration(self, iterator, reliability_bins: int = 10,
+                             histogram_bins: int = 50):
+        from deeplearning4j_tpu_torch.eval import EvaluationCalibration
+
+        return self._eval_with(
+            iterator, EvaluationCalibration(reliability_bins, histogram_bins))
 
     def set_listeners(self, *listeners) -> "ComputationGraph":
         self.listeners = list(listeners)

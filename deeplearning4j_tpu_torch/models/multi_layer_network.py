@@ -25,11 +25,22 @@ are both [b, t, ...] trains window by window (`_fit_tbptt`, the JAX
 package's doTruncatedBPTT): `tbptt_fwd_length` steps per window, each
 window one step of the updater whose backward spans the window, the
 recurrent carries passed on detached; `score_`, `iteration` and the
-listeners advance per window. Any other batch takes the standard step. The
-line-search solvers, layerwise `pretrain` and the JAX package's windowed
-engine (training/engine.py: step windows, TrainingRun's resume/save
-cadence, the stall watchdog, flight bundles, async prefetch) are not ported
-yet; `fit` raises on a configuration that needs them.
+listeners advance per window. Any other batch takes the standard step.
+`fit` itself is the JAX package's thin facade over `training.engine.
+TrainingRun` (the listeners' lifecycle events, `checkpoint_manager=`
+resume and epoch-end saves, `epochs` the total target); an iterator is
+wrapped in `AsyncDataSetIterator` where it allows it. A frozen layer
+(`nn.layers.misc.Frozen`) takes no update, and its params are no leaves of
+the gradient, so the backward ends at the first trainable layer. The
+line-search solvers, layerwise `pretrain` and the JAX engine's step
+windows are not ported yet; `fit` raises on a configuration that needs
+them.
+
+Evaluation (`evaluate`, `evaluate_regression`, `evaluate_roc`,
+`evaluate_roc_multi_class`, `evaluate_calibration`) runs `output` on the
+device and the evaluators on the host (`eval.eval_over`); `predict` gives
+the argmax class ids as numpy. `summary`, `clone` and `set_param_table`
+are the JAX package's.
 
 Dropout and weight noise draw from `draws` (an `nn.dropout.Draws` on the
 network's device, seeded from `conf.defaults.seed` by `init`). Each step
@@ -53,6 +64,7 @@ from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterators import (
     DataSetIterator,
     ListDataSetIterator,
+    prefetching,
 )
 from deeplearning4j_tpu_torch.models import _training as tr
 from deeplearning4j_tpu_torch.models._training import flat_items  # noqa: F401 (its users import it from here)
@@ -143,6 +155,23 @@ class MultiLayerNetwork:
     def num_params(self) -> int:
         return int(sum(t.numel() for p in self.params.values()
                        for _, t in flat_items(p)))
+
+    def summary(self) -> str:
+        """The layer table (MultiLayerNetwork.summary()): the JAX package's
+        columns, names, shapes and parameter counts."""
+        lines = ["=" * 70]
+        lines.append(f"{'idx':<4}{'layer':<28}{'in -> out':<26}{'params':>10}")
+        lines.append("-" * 70)
+        types = self._input_types
+        for i, l in enumerate(self.layers):
+            n = (sum(t.numel() for _, t in flat_items(self.params[_key(i)]))
+                 if self.params else 0)
+            shapes = f"{types[i].shape()}->{types[i + 1].shape()}"
+            lines.append(f"{i:<4}{type(l).__name__:<28}{shapes:<26}{n:>10}")
+        lines.append("-" * 70)
+        lines.append(f"total params: {self.num_params() if self.params else 0}")
+        lines.append("=" * 70)
+        return "\n".join(lines)
 
     def _as_input(self, x) -> torch.Tensor:
         """x on the network's device in its own dtype: token ids stay
@@ -305,6 +334,11 @@ class MultiLayerNetwork:
     def _check_trainable(self) -> None:
         tr.check_trainable(self.conf.defaults)
 
+    def _frozen_keys(self) -> frozenset:
+        """The param keys of frozen layers: no leaves of the gradient."""
+        return frozenset(_key(i) for i, l in enumerate(self.layers)
+                         if getattr(l, "frozen", False))
+
     def _batch(self, a):
         """A batch array as a tensor on the network's device: a tensor
         already there is used as it is (no copy)."""
@@ -321,7 +355,7 @@ class MultiLayerNetwork:
             score, new_state, grads = tr.value_and_grad(
                 lambda: self._loss(self.params, x, y, fm, lm,
                                    carries=carries, rng=rng),
-                self.params)
+                self.params, frozen=self._frozen_keys())
         if carries is not None:
             carries[:] = [tr.detach_carry(c) for c in carries]
         with torch.no_grad():
@@ -375,8 +409,11 @@ class MultiLayerNetwork:
                        window(lm, sl), carries=carries)
 
     def _as_iterator(self, data, labels=None) -> DataSetIterator:
+        """An iterator over `data`: a DataSetIterator wrapped in
+        AsyncDataSetIterator where it allows it (the JAX package's
+        `_as_iterator`), a DataSet or (features, labels) as one batch."""
         if isinstance(data, DataSetIterator):
-            return data
+            return prefetching(data)
         if isinstance(data, DataSet):
             return ListDataSetIterator(data, batch=data.num_examples())
         if labels is not None:
@@ -384,21 +421,33 @@ class MultiLayerNetwork:
             return ListDataSetIterator(ds, batch=ds.num_examples())
         raise TypeError(f"Cannot build iterator from {type(data)}")
 
-    def fit(self, data, labels=None, epochs: int = 1) -> "MultiLayerNetwork":
+    def fit(self, data, labels=None, epochs: int = 1,
+            **attachments) -> "MultiLayerNetwork":
         """fit(DataSetIterator) | fit(DataSet) | fit(features, labels): one
-        training step per batch, `epochs` passes (MultiLayerNetwork.fit).
-        After each step (each tBPTT window) `score_` holds its loss (with
-        the l1/l2 penalty), `last_batch_size` its rows, and every listener's
-        `iteration_done(net, iteration, score)` has run."""
+        training step per batch (per tBPTT window), `epochs` passes
+        (MultiLayerNetwork.fit), through `training.engine.TrainingRun`:
+        `checkpoint_manager=` resumes from its newest checkpoint first
+        (`epochs` is the total target) and saves at each epoch end; the
+        listeners see on_fit_start, on_epoch_start / on_epoch_end and
+        on_fit_end around the steps. After each step `score_` holds its
+        loss (with the l1/l2 penalty), `last_batch_size` its rows, and
+        every listener's `iteration_done(net, iteration, score)` has
+        run."""
+        from deeplearning4j_tpu_torch.training.engine import TrainingRun
+
         if self.params is None:
             raise RuntimeError("call init() before fit()")
+        run = TrainingRun(self, epochs=epochs, **attachments)
         self._check_trainable()
         iterator = self._as_iterator(data, labels)
-        for _ in range(epochs):
-            for ds in iterator:
+
+        def run_epoch(batches):
+            for ds in batches:
                 self._fit_batch(ds)
-            self.epoch += 1
-        return self
+
+        # a prefetch producer started here is stopped here
+        return run.execute(run_epoch, iterator, cleanup=getattr(
+            iterator, "shutdown", None) if iterator is not data else None)
 
     def score(self, ds: DataSet, training: bool = False) -> float:
         """The loss on a dataset (score(DataSet)), penalty included. With
@@ -412,6 +461,50 @@ class MultiLayerNetwork:
                               self._batch(ds.labels_mask), train=training,
                               rng=rng)
         return float(s)
+
+    # ---- evaluation (the JAX package's evaluate* family) ----
+    def predict(self, x) -> np.ndarray:
+        """Argmax class ids of `output` as numpy (predict)."""
+        return self.output(x).argmax(dim=-1).cpu().numpy()
+
+    def evaluate(self, iterator, metric: str = "classification"):
+        """Classification evaluation over an iterator (evaluate)."""
+        from deeplearning4j_tpu_torch.eval import Evaluation, eval_over
+
+        return eval_over(self.output, iterator, Evaluation())
+
+    def evaluate_regression(self, iterator):
+        from deeplearning4j_tpu_torch.eval import (
+            RegressionEvaluation,
+            eval_over,
+        )
+
+        return eval_over(self.output, iterator, RegressionEvaluation())
+
+    def evaluate_roc(self, iterator, threshold_steps: int = 0):
+        from deeplearning4j_tpu_torch.eval import ROC, eval_over
+
+        return eval_over(self.output, iterator, ROC(threshold_steps))
+
+    def evaluate_roc_multi_class(self, iterator, threshold_steps: int = 0):
+        """One-vs-all ROC per class (evaluateROCMultiClass)."""
+        from deeplearning4j_tpu_torch.eval import ROCMultiClass, eval_over
+
+        return eval_over(self.output, iterator,
+                         ROCMultiClass(threshold_steps))
+
+    def evaluate_calibration(self, iterator, reliability_bins: int = 10,
+                             histogram_bins: int = 50):
+        """Reliability diagrams and probability histograms (doEvaluation
+        with EvaluationCalibration)."""
+        from deeplearning4j_tpu_torch.eval import (
+            EvaluationCalibration,
+            eval_over,
+        )
+
+        return eval_over(self.output, iterator,
+                         EvaluationCalibration(reliability_bins,
+                                               histogram_bins))
 
     def set_listeners(self, *listeners) -> "MultiLayerNetwork":
         self.listeners = list(listeners)
@@ -435,3 +528,35 @@ class MultiLayerNetwork:
                 flat[f"{_key(i)}/{path}"] = t.detach().to(
                     "cpu", copy=True).numpy()
         return flat
+
+    def set_param_table(self, table: Dict[str, np.ndarray]) -> None:
+        """Load "layer_i/name" arrays in the interchange layout (the
+        inverse of `get_param_table`; setParamTable), each onto the
+        network's device in its layer's layout, nested names by '/'."""
+        for full, v in table.items():
+            k, path = full.split("/", 1)
+            layer = self.layer(k)
+            t = layer.from_interchange(path, tr.as_tensor(np.asarray(
+                v, np.float32))).to(self.device)
+            node = self.params[k]
+            *parents, name = path.split("/")
+            for part in parents:
+                node = node[part]
+            node[name] = t
+
+    def clone(self) -> "MultiLayerNetwork":
+        """An independent copy on the same device (clone): the
+        configuration through its JSON, every param, running state and
+        updater slot copied, the counters and the dropout generator's
+        state carried."""
+        other = MultiLayerNetwork(
+            MultiLayerConfiguration.from_json(self.conf.to_json()))
+        other.init(self.device)
+        other.params = tr.clone_tree(self.params)
+        other.state = tr.clone_tree(self.state)
+        other.opt_state = tr.clone_tree(self.opt_state)
+        other.iteration, other.epoch = self.iteration, self.epoch
+        gen = getattr(self.draws, "generator", None)
+        if gen is not None:
+            other.draws.generator.set_state(gen.get_state())
+        return other

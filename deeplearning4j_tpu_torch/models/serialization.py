@@ -45,14 +45,11 @@ FORMAT_VERSION = 1
 
 # classes of the JAX package a checkpoint may name that the port has not
 # ported yet -> the ROADMAP item that brings them
-_NOT_PORTED = {
-    "Frozen": "A.7",
-    **dict.fromkeys(("AutoEncoder", "RBM", "VariationalAutoencoder",
-                     "CenterLossOutput", "Conv1D", "Deconv2D",
-                     "SeparableConv2D", "Subsampling1D", "Upsampling1D",
-                     "Upsampling2D", "ZeroPadding1D", "ZeroPadding2D",
-                     "ElementWiseMultiplication", "Yolo2Output"), "A.8"),
-}
+_NOT_PORTED = dict.fromkeys(
+    ("AutoEncoder", "RBM", "VariationalAutoencoder", "CenterLossOutput",
+     "Conv1D", "Deconv2D", "SeparableConv2D", "Subsampling1D",
+     "Upsampling1D", "Upsampling2D", "ZeroPadding1D", "ZeroPadding2D",
+     "ElementWiseMultiplication", "Yolo2Output"), "A.8")
 
 
 def _key_parts(tree, prefix=""):

@@ -44,7 +44,11 @@ import torch
 import torch.distributed as dist
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
-from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
+from deeplearning4j_tpu_torch.datasets.iterators import (
+    DataSetIterator,
+    ListDataSetIterator,
+    prefetching,
+)
 from deeplearning4j_tpu_torch.models import _training as tr
 from deeplearning4j_tpu_torch.models.computation_graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn import shard as shard_mod
@@ -62,11 +66,12 @@ class ParallelWrapper:
 
     Every rank runs the same calls. `mesh` is a `parallel.mesh.DataGroup`
     (default: `build_mesh(mesh_spec)`, or every rank on the data axis).
-    `averaging_frequency`, `prefetch_buffer`, `report_score_after_averaging`
-    and `microbatches` keep the JAX signature: the gradients are summed at
-    every step, as there (`averaging_frequency` 1), and fit iterates in the
-    caller's thread. `stats` counts the gradient reduce's bytes and
-    collectives (and times them when `stats.events` is a list)."""
+    `averaging_frequency`, `report_score_after_averaging` and
+    `microbatches` keep the JAX signature: the gradients are summed at
+    every step, as there (`averaging_frequency` 1). `prefetch_buffer` is
+    the depth of the AsyncDataSetIterator that fit wraps an iterator in.
+    `stats` counts the gradient reduce's bytes and collectives (and times
+    them when `stats.events` is a list)."""
 
     def __init__(self, model, mesh: Optional[mesh_mod.DataGroup] = None,
                  mesh_spec: Optional[mesh_mod.MeshSpec] = None,
@@ -123,22 +128,37 @@ class ParallelWrapper:
         if gen is not None:
             gen.set_state(gen_state.cpu())
 
-    def fit(self, iterator, epochs: int = 1):
+    def fit(self, iterator, epochs: int = 1, **attachments):
         """`epochs` passes over `iterator` (a DataSetIterator, or a DataSet
         as one batch): one step per global batch, each equal to the
-        single-process step on it. Returns the wrapped network."""
+        single-process step on it, through `training.engine.TrainingRun`
+        (the wrapped network's listeners' lifecycle events;
+        `checkpoint_manager=` restores the wrapped network before any step,
+        `epochs` the total target; every rank saves to its own manager).
+        An iterator is wrapped in AsyncDataSetIterator (depth
+        `prefetch_buffer`) where it allows it. Returns the wrapped
+        network."""
+        from deeplearning4j_tpu_torch.training.engine import TrainingRun
+
         model = self.model
+        run = TrainingRun(model, epochs=epochs, **attachments)
         model._check_trainable()
+        batches = iterator
         if isinstance(iterator, DataSet):
-            iterator = ListDataSetIterator(iterator,
-                                           batch=iterator.num_examples())
-        for _ in range(epochs):
-            for i, ds in enumerate(iterator):
+            batches = ListDataSetIterator(iterator,
+                                          batch=iterator.num_examples())
+        elif isinstance(iterator, DataSetIterator):
+            batches = prefetching(iterator, self.prefetch_buffer)
+
+        def run_epoch(epoch_batches):
+            for i, ds in enumerate(epoch_batches):
                 if i == 0:
                     self._check_ranks_agree(ds)
                 self._fit_global(ds)
-            model.epoch += 1
-        return model
+
+        # a prefetch producer started here is stopped here
+        return run.execute(run_epoch, batches, cleanup=getattr(
+            batches, "shutdown", None) if batches is not iterator else None)
 
     def _fit_global(self, ds: DataSet) -> None:
         b, n = ds.num_examples(), self.mesh.size

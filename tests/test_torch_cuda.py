@@ -19,7 +19,9 @@ the card against its CPU import; a DL4J zip and a checkpoint zip restored
 onto the card by default (and refused where there is no card); dropout
 draws on the card repeating from the network's seed, and a DropConnect
 Output layer through the fused cross-entropy; ParallelWrapper at world
-size 1 over NCCL against fit on the card.
+size 1 over NCCL against fit on the card; fit over a host iterator through
+the prefetch thread, a step with frozen layers and evaluate on a network
+on the card, each against the CPU.
 
 Marked `cuda`; they skip where torch.cuda.is_available() is False. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -1297,3 +1299,110 @@ def test_parallel_wrapper_over_nccl_at_world_size_1_matches_fit(
     assert pw.stats.bytes == 3 * 4 * (n + 1)
     assert wrapped.iteration == 3
     assert wrapped.last_batch_size == data.num_examples()
+
+
+def _ff_net(device, seed=3):
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn import updaters
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import Dense, Output
+
+    return MultiLayerNetwork(NeuralNetConfiguration(
+        seed=seed, updater=updaters.Nesterovs(learning_rate=0.05,
+                                              momentum=0.9)).list([
+            Dense(n_out=32, activation="relu"),
+            Dense(n_out=16, activation="tanh"),
+            Output(n_out=5, loss="mcxent")]).set_input_type(
+        it.feed_forward(12))).init(device=device)
+
+
+def _ff_data(n=64, seed=4):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (n, 12)).astype(np.float32)
+    return x, np.eye(5, dtype=np.float32)[rng.integers(0, 5, n)]
+
+
+@pytest.mark.cuda
+def test_async_iterator_fit_on_the_card(cuda):
+    """fit over a host iterator on the card: the prefetch thread hands
+    host batches, each goes to the card in the step, and the result is the
+    CPU fit's (TF32 off, 1e-5); no prefetch thread survives fit."""
+    import threading
+
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+
+    data = DataSet(*_ff_data())
+    card, cpu = _ff_net(cuda), _ff_net("cpu")
+    names = []
+
+    class Source(ListDataSetIterator):
+        def __next__(self):
+            names.append(threading.current_thread().name)
+            return ListDataSetIterator.__next__(self)
+
+    with dtypes.full_precision():
+        card.fit(Source(data, batch=16), epochs=2)
+        cpu.fit(ListDataSetIterator(data, batch=16), epochs=2)
+    torch.cuda.synchronize()
+    assert card.iteration == cpu.iteration == 8
+    assert names and all("prefetch" in n for n in names)
+    assert not [t for t in threading.enumerate() if "prefetch" in t.name]
+    a, b = card.get_param_table(), cpu.get_param_table()
+    for k in a:
+        assert abs(a[k] - b[k]).max() <= 1e-5 * max(abs(b[k]).max(), 1), k
+
+
+@pytest.mark.cuda
+def test_frozen_layer_step_on_the_card(cuda):
+    """A network with its first two layers frozen by TransferLearning, 3
+    steps on the card: the frozen params keep their bits and record no
+    gradient, the Output's move as the CPU's do (TF32 off, 1e-5)."""
+    from deeplearning4j_tpu_torch.models.transfer import TransferLearning
+
+    data = DataSet(*_ff_data())
+    card = TransferLearning(_ff_net(cuda)).set_feature_extractor(1).build()
+    cpu = TransferLearning(_ff_net("cpu")).set_feature_extractor(1).build()
+    assert card.device.type == "cuda"
+    before = card.get_param_table()
+    with dtypes.full_precision():
+        for _ in range(3):
+            card.fit(data)
+            cpu.fit(data)
+    torch.cuda.synchronize()
+    after, ref = card.get_param_table(), cpu.get_param_table()
+    for k in ("layer_0/W", "layer_0/b", "layer_1/W", "layer_1/b"):
+        assert (after[k] == before[k]).all(), k
+        assert not card.params[k.split("/")[0]][k.split("/")[1]].requires_grad
+    assert not (after["layer_2/W"] == before["layer_2/W"]).all()
+    for k in after:
+        assert abs(after[k] - ref[k]).max() <= 1e-5 * max(
+            abs(ref[k]).max(), 1), k
+
+
+@pytest.mark.cuda
+def test_evaluate_on_a_cuda_network(cuda):
+    """evaluate, predict and the ROC / calibration family on a network on
+    the card equal the CPU network's where no row's top two probabilities
+    lie within 1e-4 (TF32 off)."""
+    import numpy as np
+
+    x, y = _ff_data(n=96)
+    card, cpu = _ff_net(cuda), _ff_net("cpu")
+    with dtypes.full_precision():
+        p = cpu.output(x).numpy()
+        top2 = np.sort(p, axis=-1)[:, -2:]
+        keep = (top2[:, 1] - top2[:, 0]) >= 1e-4
+        x, y = x[keep], y[keep]
+        batches = [DataSet(x[i:i + 16], y[i:i + 16])
+                   for i in range(0, len(x), 16)]
+        ev_card, ev_cpu = card.evaluate(batches), cpu.evaluate(batches)
+        assert ev_card.to_json() == ev_cpu.to_json()
+        assert (card.predict(x) == cpu.predict(x)).all()
+        roc_card = card.evaluate_roc_multi_class(batches, threshold_steps=50)
+        roc_cpu = cpu.evaluate_roc_multi_class(batches, threshold_steps=50)
+        assert abs(roc_card.calculate_average_auc()
+                   - roc_cpu.calculate_average_auc()) <= 1e-3
+        cal = card.evaluate_calibration(batches)
+        assert int(cal.bin_count.sum()) == len(x) * 5

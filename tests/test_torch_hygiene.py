@@ -16,8 +16,13 @@ import torch
 import deeplearning4j_tpu_torch
 from deeplearning4j_tpu_torch import device as device_mod
 from deeplearning4j_tpu_torch import dtypes
-from deeplearning4j_tpu_torch.models import ComputationGraph
+from deeplearning4j_tpu_torch.earlystopping import LocalFileModelSaver
+from deeplearning4j_tpu_torch.models import ComputationGraph, MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn import inputs as it
+from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+from deeplearning4j_tpu_torch.nn.layers import Output
 from deeplearning4j_tpu_torch.ops import linear
+from deeplearning4j_tpu_torch.resilience import CheckpointManager
 from deeplearning4j_tpu_torch.zoo import ResNet50
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,7 +58,7 @@ def test_no_source_file_names_jax_or_the_jax_package():
     assert len(files) > 20 and hits == []
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         device_mod.resolve()
@@ -65,6 +70,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert device_mod.resolve("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         device_mod.resolve("meta")
+    # what makes networks from checkpoints and early-stopping savers
+    net = MultiLayerNetwork(NeuralNetConfiguration(seed=1).list([
+        Output(n_out=2, loss="mcxent")]).set_input_type(
+        it.feed_forward(3))).init(device="cpu")
+    manager = CheckpointManager(str(tmp_path / "ckpt"))
+    manager.save(net)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        manager.restore_latest()
+    assert manager.restore_latest(device="cpu")[0].device.type == "cpu"
+    LocalFileModelSaver(str(tmp_path / "es")).save_best(net)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LocalFileModelSaver(str(tmp_path / "es")).get_best()
+    assert LocalFileModelSaver(str(tmp_path / "es")).get_best(
+        device="cpu").device.type == "cpu"
 
 
 def test_network_used_before_init_raises():
