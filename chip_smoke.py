@@ -365,6 +365,65 @@ Phases, in order; any failure exits non-zero without the final line:
  45. refer-transfer  the same transferred VGG16 on the card (TF32 off),
               on the CPU and on the CPU in float64, 3 steps at batch 4,
               each from the same point; refer-train-vgg16's gates.
+ 46. solver-charrnn  the BASELINE char-RNN (TextGenerationLSTM, 77
+              characters, two GravesLSTM(256)) at 64 x 64 by BPTT under
+              each line-search solver: LBFGS, conjugate gradient and line
+              gradient descent, 10 fit calls on one batch each (max 5
+              line-search trials): every post-step score no higher than
+              its pre-step score, the last below the first; launches
+              exactly 2 value-and-gradient passes per iteration plus 1
+              forward per trial (the trials counted); ms per iteration,
+              trials per iteration.
+ 47. solver-lenet  zoo LeNet on the MNIST sample by conjugate gradient,
+              10 batches of 64, one iteration each; the same checks.
+ 48. refer-solver  a char-RNN of GravesLSTM(32) at 8 x 16 by LBFGS and
+              LeNet at batch 8 by conjugate gradient, card (TF32 off;
+              LeNet's convolutions without cuDNN) against the CPU port, 3
+              iterations each from the CPU's params and solver state:
+              the accepted alpha equal, the params within 1e-5 of the
+              largest.
+ 49. window-rnn  the char-RNN at 64 x 64 over 24 seeded batches, 2
+              epochs, at DL4J_TPU_STEP_WINDOW 1, 8, and 8 with
+              DL4J_TPU_DEVICE_PREFETCH=1, each from the seed's weights:
+              scores, params and slots equal bit for bit, launches 2 + 2 +
+              1 + 1 per step; median ms per step of each.
+ 50. window-resnet  ResNet-50 by ComputationGraph.fit, batch 64, mixed,
+              12 batches for 2 epochs, at K = 1 and K = 4 under
+              deterministic cuDNN: bit for bit, 53 bn_act per step; ms per
+              step of each.
+ 51. sentry-charrnn  window-rnn's K = 8 run with a DivergenceSentry
+              (policy rollback, a CheckpointManager that a
+              CheckpointListener saves to at each window's end, no
+              in-memory snapshot) and a NaN batch at position 3 of the
+              second window: one divergence, one rollback through the
+              checkpoint of iteration 8, the iterations the listeners see those pinned
+              against JAX in tests/test_torch_sentry.py, the params finite;
+              policy warn detects and carries on; a CheckpointListener
+              every 5 iterations saves at the window ends, and the resume
+              from one equals the unbroken run bit for bit.
+ 52. records-charrnn  2 shards of 32 CSV sequence files (77 one-hot
+              columns and the next character's id, Zipf characters,
+              lengths log-uniform in 64-1000, ordered by length) written
+              to a temporary directory, read by CSVSequenceRecordReader ->
+              SequenceRecordReaderDataSetIterator(batch 16) ->
+              JointParallelDataSetIterator -> BucketSequenceIterator(128,
+              256, 512, 1024) -> fit by masked BPTT at K = 4 with device
+              prefetch: the lengths within the buckets, the windows flushed
+              at each change of length, per bucket the padded batch's
+              score within 1e-5 of the unpadded one's (TF32 off), the
+              1024 bucket of 16 rows on the chunked kernels (rows 7, 8);
+              parse seconds, live characters per second. Before the
+              sentry phase, kernel-records holds rows 5-8 at this path's
+              shapes, (16, 512, 256) and (16, 1024, 256) with right-padded
+              masks, forward and backward, against the plain scan (float32,
+              TF32 off, the tolerances of phase 15, kernel-lstm-bwd).
+ 53. records-lenet  2048 MNIST sample images written as P6 PPM files in
+              10 class directories, read by ImageRecordReader(28, 28, 1)
+              -> RecordReaderDataSetIterator(batch 64, label_index=-1,
+              num_classes=10) (NHWC by its pre-processor) ->
+              prefetch_to_device -> LeNet, one epoch: bit for bit fit on
+              the same arrays; images per second from files and from
+              arrays.
 
 The characters the training phases learn are drawn with Zipf frequencies,
 so that a falling loss shows learning; their shapes are bench.py
@@ -372,7 +431,8 @@ bench_lstm's.
 
 Every kernel's launch count is set to 0 just before each serve phase, the
 generation run, each training run (the data-parallel ones too), the
-restore-and-resume runs and each evaluation pass, and read just after. The
+restore-and-resume runs, each evaluation pass and each solver, window,
+sentry and records run, and read just after. The
 last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 Exits non-zero when no CUDA device is available, and when the port's
@@ -527,6 +587,22 @@ def deterministic_cudnn(torch):
         yield
     finally:
         cudnn.deterministic, cudnn.benchmark = saved
+
+
+@contextlib.contextmanager
+def without_cudnn(torch):
+    """The CUDA convolutions without cuDNN inside the block."""
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved
+
+
+def card_device(torch):
+    """The card the phases run on (a CPU rehearsal replaces it)."""
+    return torch.device("cuda")
 
 
 def reset_counts():
@@ -2665,7 +2741,7 @@ def timed_fits(torch, net, data, steps, fit=None):
 def image_batch(torch, seed, b, shape):
     """b bfloat16 images made on the card from `seed` and their one-hot
     float32 labels of 1000 classes (bench.py bench_resnet50's input)."""
-    dev = torch.device("cuda")
+    dev = card_device(torch)
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((b, *shape), generator=gen, device=dev).to(
         torch.bfloat16)
@@ -4201,6 +4277,48 @@ def flipped_lstm_inputs(torch, gen, b, t, n):
             "fwd": fwd}
 
 
+LSTM_ROWS = ("lstm_scan", "lstm_scan_bwd", "lstm_scan_chunked",
+             "lstm_scan_chunked_bwd")
+
+
+def lstm_rows_check(torch, s, where, worst):
+    """Rows 5-8 on the inputs `s` (lstm_bwd_inputs' keys, the chunked
+    forward's outputs in s["fwd"]) against their plain versions at
+    LSTM_BWD_TOL: row 5's forward, row 6's backward on row 5's hs, row 7's
+    forward, row 8's backward on row 7's checkpoints. Raises on a
+    disagreement, raises `worst` (kernel -> largest abs error) to this
+    case's errors, and returns (row 5's outputs, its plain outputs, row
+    6's, row 8's)."""
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+
+    names_fwd = ("hs", "hT", "cT", "hck", "cck")
+    names_bwd = ("dzx", "dR", "dp", "dh0", "dc0")
+    got5 = lstm_ops.lstm_scan_peephole(s["zx"], s["R"], s["p"], s["h0"],
+                                       s["c0"], s["m"])
+    ref5 = lstm_ops.lstm_scan_reference(s["zx"], s["R"], s["h0"], s["c0"],
+                                        s["p"], s["m"])
+    got6 = lstm_ops.lstm_scan_bwd(s["zx"], s["R"], s["h0"], s["c0"],
+                                  got5[0], *s["g"], s["p"], s["m"])
+    ref6 = lstm_ops.lstm_scan_backward_reference(
+        s["zx"], s["R"], s["h0"], s["c0"], s["fwd"][0], *s["g"], s["p"],
+        s["m"])
+    got8 = lstm_ops.lstm_scan_chunked_bwd(
+        s["zx"], s["R"], s["fwd"][3], s["fwd"][4], *s["g"], s["p"], s["m"])
+    ref7 = lstm_ops.lstm_scan_chunked_reference(
+        s["zx"], s["R"], s["h0"], s["c0"], s["p"], s["m"])
+    ref8 = lstm_ops.lstm_scan_chunked_backward_reference(
+        s["zx"], s["R"], s["fwd"][3], s["fwd"][4], *s["g"], s["p"], s["m"])
+    torch.cuda.synchronize()
+    for k, names, got, ref, kind in (
+            ("lstm_scan", names_fwd[:3], got5, ref5, "fwd"),
+            ("lstm_scan_bwd", names_bwd, got6, ref6, "bwd"),
+            ("lstm_scan_chunked", names_fwd, s["fwd"], ref7, "fwd"),
+            ("lstm_scan_chunked_bwd", names_bwd, got8, ref8, "bwd")):
+        worst[k] = max(worst[k], lstm_bwd_check(k, names, got, ref, kind,
+                                                where))
+    return got5, ref5, got6, got8
+
+
 def phase_kernel_bidir(torch, bw, peak, peak_tf32):
     """kernel-bidir: rows 5-8 on the reverse half's inputs (leading dead
     steps, a wholly dead row, nonzero h0 and c0) at BIDIR_KERNEL_CASES,
@@ -4214,10 +4332,7 @@ def phase_kernel_bidir(torch, bw, peak, peak_tf32):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
     torch.backends.cuda.matmul.allow_tf32 = False
-    names_fwd = ("hs", "hT", "cT", "hck", "cck")
-    names_bwd = ("dzx", "dR", "dp", "dh0", "dc0")
-    worst = dict.fromkeys(("lstm_scan", "lstm_scan_bwd", "lstm_scan_chunked",
-                           "lstm_scan_chunked_bwd"), 0.0)
+    worst = dict.fromkeys(LSTM_ROWS, 0.0)
     rows = {}
     for b, t, n in BIDIR_KERNEL_CASES:
         s = flipped_lstm_inputs(torch, gen, b, t, n)
@@ -4227,10 +4342,10 @@ def phase_kernel_bidir(torch, bw, peak, peak_tf32):
             return lstm_ops.lstm_scan_peephole(s["zx"], s["R"], s["p"],
                                                s["h0"], s["c0"], s["m"])
 
-        def row6(s=s, hs=None):
+        def row6(s=s):
             return lstm_ops.lstm_scan_bwd(s["zx"], s["R"], s["h0"], s["c0"],
-                                          s["fwd"][0] if hs is None else hs,
-                                          *s["g"], s["p"], s["m"])
+                                          s["fwd"][0], *s["g"], s["p"],
+                                          s["m"])
 
         def plain5(s=s):
             return lstm_ops.lstm_scan_reference(s["zx"], s["R"], s["h0"],
@@ -4241,24 +4356,7 @@ def phase_kernel_bidir(torch, bw, peak, peak_tf32):
                 s["zx"], s["R"], s["h0"], s["c0"], s["fwd"][0], *s["g"],
                 s["p"], s["m"])
 
-        got5, ref5 = row5(), plain5()
-        got6, ref6 = row6(hs=got5[0]), plain6()
-        got8 = lstm_ops.lstm_scan_chunked_bwd(
-            s["zx"], s["R"], s["fwd"][3], s["fwd"][4], *s["g"], s["p"],
-            s["m"])
-        ref7 = lstm_ops.lstm_scan_chunked_reference(
-            s["zx"], s["R"], s["h0"], s["c0"], s["p"], s["m"])
-        ref8 = lstm_ops.lstm_scan_chunked_backward_reference(
-            s["zx"], s["R"], s["fwd"][3], s["fwd"][4], *s["g"], s["p"],
-            s["m"])
-        torch.cuda.synchronize()
-        for k, names, got, ref, kind in (
-                ("lstm_scan", names_fwd[:3], got5, ref5, "fwd"),
-                ("lstm_scan_bwd", names_bwd, got6, ref6, "bwd"),
-                ("lstm_scan_chunked", names_fwd, s["fwd"], ref7, "fwd"),
-                ("lstm_scan_chunked_bwd", names_bwd, got8, ref8, "bwd")):
-            worst[k] = max(worst[k], lstm_bwd_check(k, names, got, ref, kind,
-                                                    where))
+        got5, ref5, got6, got8 = lstm_rows_check(torch, s, where, worst)
         # the wholly dead row keeps its carry and passes its cotangent
         for what, fwd in (("lstm_scan", got5), ("lstm_scan_chunked",
                                                  s["fwd"])):
@@ -4285,7 +4383,7 @@ def phase_kernel_bidir(torch, bw, peak, peak_tf32):
             f"row 7 {worst['lstm_scan_chunked']:.3g}, row 8 "
             f"{worst['lstm_scan_chunked_bwd']:.3g}; the dead row's carry and "
             f"cotangent pass through bit for bit")
-        del got5, ref5, got6, ref6, got8, ref7, ref8, live
+        del got5, ref5, got6, got8, live
         if (b, t, n) == BIDIR_KERNEL_CASES[0]:
             pairs = int(s["m"].sum())
             k5 = device_ms(torch, lambda i: row5(), 1, iters=5)
@@ -5039,6 +5137,875 @@ def phase_refer_transfer(torch, np):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phases 46-53
+SOLVER_ITERS = 10
+SOLVER_ALGOS = ("lbfgs", "conjugate_gradient", "line_gradient_descent")
+SOLVER_LINE_SEARCH = 5       # max_num_line_search_iterations
+WINDOW_BATCHES = 24          # window-rnn's seeded batches per epoch
+WINDOW_K = 8
+RESNET_WINDOW = (64, 12, 4)  # batch, batches per epoch, K
+SENTRY_NAN_AT = 11           # position 3 of the second window of 8
+RECORD_SHARDS, RECORD_FILES, RECORD_BATCH = 2, 32, 16
+RECORD_BUCKETS = (128, 256, 512, 1024)
+RECORD_LENGTHS = (64, 1000)  # log-uniform sequence lengths
+RECORD_EPOCHS, RECORD_K = 2, 4
+# rows 5-8 at the records path's batch of 16: a 512 bucket (rows 5, 6) and
+# the 1024 bucket (rows 7, 8, in chunked_lstm_auto_regime; rows 5, 6 there
+# too, which the unpadded batch of that bucket runs in the score check)
+RECORD_KERNEL_CASES = [(16, 512, 256), (16, 1024, 256)]
+LENET_FILES = 2048
+WINDOW_GATE = "DL4J_TPU_STEP_WINDOW"
+PREFETCH_GATE = "DL4J_TPU_DEVICE_PREFETCH"
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    """The environment variables set (None: unset) inside the block."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def expect_launches(tag, launches, want):
+    """Exactly `want` launches, 0 for every other kernel."""
+    want = {k: want.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, want {want}")
+
+
+def add_counts(*counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def median(values):
+    v = sorted(values)
+    return v[len(v) // 2]
+
+
+def solver_net(torch, algo, conf, device):
+    """A MultiLayerNetwork of `conf` trained by the line-search `algo`."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+
+    conf.defaults.optimization_algo = algo
+    conf.defaults.max_num_line_search_iterations = SOLVER_LINE_SEARCH
+    return MultiLayerNetwork(conf).init(device=device)
+
+
+def char_rnn_conf(t, n=None, vocab=None):
+    """The zoo TextGenerationLSTM's config (BASELINE config #3), its
+    GravesLSTM width cut to n when given."""
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    conf = TextGenerationLSTM(num_classes=vocab or RNN["num_classes"],
+                              max_length=t, seed=SEED).conf()
+    if n:
+        for layer in conf.layers[:2]:
+            layer.n_out = n
+    return conf
+
+
+def solver_want(iters, trials, rnn):
+    """A solver iteration's launches: 2 value-and-gradient passes (the
+    pre-step and the post-step point) and 1 forward per line-search
+    trial."""
+    want = {"linear_xent_fwd": 2 * iters + trials,
+            "linear_xent_bwd": 2 * iters}
+    if rnn:
+        want.update(lstm_scan=4 * iters + 2 * trials,
+                    lstm_scan_bwd=4 * iters)
+    return want
+
+
+def solver_record(opt):
+    """The last iteration of a ConvexOptimizer: pre-step and post-step
+    score, alpha, line-search trials."""
+    return {"score0": opt.last_score0, "score": opt.score,
+            "alpha": opt.last_alpha, "trials": opt.last_trials}
+
+
+def check_solver(tag, history):
+    """Each post-step score no higher than its pre-step score; the last
+    below the first pre-step score (`history`: one `solver_record` per
+    iteration)."""
+    for i, h in enumerate(history):
+        if not (math.isfinite(h["score"]) and h["score"] <= h["score0"]):
+            raise AssertionError(f"{tag}: iteration {i + 1} went from "
+                                 f"{h['score0']} to {h['score']}")
+    if not history[-1]["score"] < history[0]["score0"]:
+        raise AssertionError(f"{tag}: {history[0]['score0']} -> "
+                             f"{history[-1]['score']}")
+
+
+def phase_solver_charrnn(torch, np, card):
+    """solver-charrnn: the BASELINE char-RNN at 64 x 64 by BPTT, 10 fit
+    calls on one batch under each line-search solver (LBFGS, then
+    conjugate gradient, then line gradient descent, each from the seed's
+    weights). Returns the three runs' launches."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    dev = card_device(torch)
+    b, t, vocab = RNN_BATCH, RNN["max_length"], RNN["num_classes"]
+    x, y = char_batch(np, np.random.default_rng(SEED + 30), b, t, vocab)
+    data = DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+    runs = []
+    for algo in SOLVER_ALGOS:
+        net = solver_net(torch, algo, char_rnn_conf(t), dev)
+        times, hist = [], []
+        torch.cuda.synchronize()
+        reset_counts()
+        for _ in range(SOLVER_ITERS):
+            t0 = time.perf_counter()
+            net.fit(data)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            hist.append(solver_record(net._solver.optimizer))
+        launches = read_counts()
+        trials = sum(h["trials"] for h in hist)
+        tag = f"solver-charrnn ({algo})"
+        check_solver(tag, hist)
+        expect_launches(tag, launches, solver_want(SOLVER_ITERS, trials,
+                                                   rnn=True))
+        log(f"[solver-charrnn] {algo}: {SOLVER_ITERS} iterations on {b} x "
+            f"{t} characters, score {hist[0]['score0']:.5f} -> "
+            f"{hist[-1]['score']:.5f}; alphas "
+            f"{', '.join(format(h['alpha'], 'g') for h in hist)}; "
+            f"{trials / SOLVER_ITERS:.1f} line-search trials per iteration "
+            f"({trials} host reads); median {median(times[1:]) * 1e3:.3f} "
+            f"ms per iteration, first {times[0] * 1e3:.1f} ms ({card})")
+        runs.append(launches)
+        del net
+    return add_counts(*runs)
+
+
+def phase_solver_lenet(torch, np, card):
+    """solver-lenet: zoo LeNet (BASELINE config #1) by conjugate gradient
+    on the MNIST sample, 10 batches of 64, one iteration each. Returns the
+    launches."""
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    dev = card_device(torch)
+    b = LENET_TRAIN[0]
+    net = solver_net(torch, "conjugate_gradient", LeNet(seed=SEED).conf(),
+                     dev)
+    data = MnistDataSetIterator(batch=b, num_examples=b * SOLVER_ITERS,
+                                seed=SEED)
+    stamps, hist = [], []
+
+    class Clock:
+        def iteration_done(self, model, iteration, score):
+            stamps.append(time.perf_counter())
+            hist.append(solver_record(model._solver.optimizer))
+
+    net.set_listeners(Clock())
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    net.fit(data)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    trials = sum(h["trials"] for h in hist)
+    check_solver("solver-lenet", hist)
+    expect_launches("solver-lenet", launches,
+                    solver_want(SOLVER_ITERS, trials, rnn=False))
+    gaps = np.diff([t0] + stamps)
+    log(f"[solver-lenet] conjugate_gradient: {SOLVER_ITERS} iterations on "
+        f"batches of {b} MNIST images "
+        f"({'synthetic sample' if data.synthetic else 'idx files'}), score "
+        f"{hist[0]['score0']:.5f} -> {hist[-1]['score']:.5f}; "
+        f"{trials / SOLVER_ITERS:.1f} trials per iteration; median "
+        f"{median(gaps[1:]) * 1e3:.3f} ms per iteration (host batch copy "
+        f"included) ({card})")
+    return launches
+
+
+def solver_state_to(torch, state, device):
+    """A solver's state (CG's list, LBFGS's dict) on `device`."""
+    if isinstance(state, dict):
+        return {k: solver_state_to(torch, v, device)
+                for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(solver_state_to(torch, v, device) for v in state)
+    return state.to(device) if torch.is_tensor(state) else state
+
+
+def phase_refer_solver(torch, np):
+    """refer-solver: a small char-RNN (GravesLSTM(32), 8 x 16, LBFGS) and
+    LeNet at batch 8 (conjugate gradient), the card (TF32 off) against the
+    CPU port, 3 iterations, each started
+    from the CPU's params and solver state: the accepted alpha equal,
+    the params after the step within 1e-5 of the largest. A solver's step
+    is the whole gradient (alpha 1, no learning rate), so the gradient is
+    held to 1e-5: LeNet's images are seeded Gaussian noise (0.3 standard
+    deviation, where conjugate gradient takes steps of 1, 0 and 1/16 from
+    the seed's weights) rather than the MNIST sample, whose flat stripes
+    tie in the max pooling, and its card side runs the CUDA convolutions
+    without cuDNN: cuDNN's weight gradient of the first convolution (one
+    input channel) reads 8.0e-4 of its largest from the CPU's with TF32
+    off and deterministic algorithms, the convolutions without cuDNN
+    6.2e-7 (on an H100 80GB HBM3)."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    dev = card_device(torch)
+    x, y = char_batch(np, np.random.default_rng(SEED + 32), 8, 16,
+                      RNN["num_classes"])
+    rng = np.random.default_rng(SEED + 33)
+    images = (0.3 * rng.standard_normal((8, 28, 28, 1))).astype(np.float32)
+    digits = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 8)]
+    cases = (("char-RNN", "lbfgs", lambda: char_rnn_conf(16, n=32),
+              (x, y)),
+             ("LeNet", "conjugate_gradient", lambda: LeNet(seed=SEED).conf(),
+              (images, digits)))
+    for name, algo, conf, (fx, fy) in cases:
+        card = solver_net(torch, algo, conf(), dev)
+        cpu = solver_net(torch, algo, conf(), "cpu")
+        worst, alphas = 0.0, []
+        with dtypes.full_precision(), without_cudnn(torch):
+            for i in range(3):
+                card.set_param_table(cpu.get_param_table())
+                if cpu._solver is not None:
+                    card._solver.optimizer._solver_state = solver_state_to(
+                        torch, cpu._solver.optimizer._solver_state, dev)
+                cpu.fit(fx, fy)
+                card.fit(fx, fy)
+                torch.cuda.synchronize()
+                a_card = card._solver.optimizer.last_alpha
+                a_cpu = cpu._solver.optimizer.last_alpha
+                alphas.append(a_cpu)
+                if a_card != a_cpu:
+                    raise AssertionError(f"refer-solver ({name}): iteration "
+                                         f"{i + 1} alpha {a_card} on the "
+                                         f"card, {a_cpu} on the CPU")
+                got, want = card.get_param_table(), cpu.get_param_table()
+                top = max(float(abs(v).max()) for v in want.values())
+                err = max(float(abs(got[k] - want[k]).max())
+                          for k in want) / top
+                worst = max(worst, err)
+                if err > 1e-5:
+                    raise AssertionError(f"refer-solver ({name}): iteration "
+                                         f"{i + 1} params {err:.3g} of the "
+                                         f"largest from the CPU's")
+        log(f"[refer-solver] {name} by {algo}: 3 iterations card (TF32 off) "
+            f"vs CPU, each from the CPU's params and state: alphas "
+            f"{alphas} equal; params within {worst:.3g} of the largest "
+            f"(tol 1e-5)")
+
+
+class StepClock:
+    """The host clock per step: a stamp at each window's end (at each step
+    without windows), each gap divided by the steps it covers; per
+    epoch."""
+
+    def __init__(self):
+        self.epochs = []
+        self._pending = 0
+
+    def on_epoch_start(self, model, epoch):
+        self.epochs.append([(time.perf_counter(), 0)])
+
+    def iteration_done(self, model, iteration, score):
+        self._pending += 1
+        if not getattr(model, "_window_replay", False):
+            self._mark()
+
+    def on_window_end(self, model):
+        self._mark()
+
+    def _mark(self):
+        self.epochs[-1].append((time.perf_counter(), self._pending))
+        self._pending = 0
+
+    def step_ms(self, epoch=-1):
+        """The median over the epoch's windows of ms per step."""
+        marks = self.epochs[epoch]
+        return median([(b[0] - a[0]) * 1e3 / b[1]
+                       for a, b in zip(marks, marks[1:]) if b[1]])
+
+
+class WindowLog:
+    """Each window's first and last iteration (exclusive)."""
+
+    def __init__(self):
+        self.windows = []
+
+    def iteration_done(self, model, iteration, score):
+        pass
+
+    def on_window_start(self, model):
+        self.windows.append([model.iteration, None])
+
+    def on_window_end(self, model):
+        self.windows[-1][1] = model.iteration
+
+
+def net_bits(net):
+    """A network's params and updater slots, as numpy arrays by name."""
+    from deeplearning4j_tpu_torch import interop
+
+    out = {f"param/{k}": v for k, v in net.get_param_table().items()}
+    out.update((f"slot/{k}", v) for k, v in slot_items(
+        interop.opt_state_to_jax(net)))
+    for key, st in net.state.items():
+        for name, t in st.items():
+            out[f"state/{key}/{name}"] = t.detach().float().cpu().numpy()
+    return out
+
+
+def same_run(tag, a, b):
+    """Bit for bit: the scores and every param, slot and state array."""
+    if a["scores"] != b["scores"]:
+        raise AssertionError(f"{tag}: scores differ")
+    for k, v in a["bits"].items():
+        if not (v == b["bits"][k]).all():
+            raise AssertionError(f"{tag}: {k} differs")
+
+
+def phase_window_rnn(torch, np, card):
+    """window-rnn: the char-RNN at 64 x 64 by BPTT over 24 seeded batches,
+    2 epochs, at K = 1, K = 8 and K = 8 with DL4J_TPU_DEVICE_PREFETCH=1,
+    each from the seed's weights: bit for bit the same run. Returns the
+    three runs' launches and the data."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.optimize import CollectScoresListener
+
+    dev = card_device(torch)
+    b, t, vocab = RNN_BATCH, RNN["max_length"], RNN["num_classes"]
+    x, y = char_batch(np, np.random.default_rng(SEED + 31),
+                      b * WINDOW_BATCHES, t, vocab)
+    runs, all_launches = {}, []
+    for tag, k, prefetch in (("K=1", 1, None), (f"K={WINDOW_K}", WINDOW_K,
+                                                None),
+                             (f"K={WINDOW_K} + device prefetch", WINDOW_K,
+                              1)):
+        with env_vars(**{WINDOW_GATE: k, PREFETCH_GATE: prefetch}):
+            net = rnn_net(torch, t, device=dev)
+            col, clock, wins = CollectScoresListener(), StepClock(), WindowLog()
+            net.set_listeners(col, clock, wins)
+            torch.cuda.synchronize()
+            reset_counts()
+            net.fit(ListDataSetIterator(DataSet(x, y), batch=b), epochs=2)
+            torch.cuda.synchronize()
+            launches = read_counts()
+        steps = 2 * WINDOW_BATCHES
+        expect_launches(f"window-rnn ({tag})", launches,
+                        {k_: steps * v for k_, v in RNN_PER_STEP.items()})
+        if len(wins.windows) != (0 if k == 1 else 2 * WINDOW_BATCHES // k):
+            raise AssertionError(f"window-rnn ({tag}): windows "
+                                 f"{wins.windows}")
+        runs[tag] = dict(scores=[s for _, s in col.scores],
+                         bits=net_bits(net), ms=clock.step_ms())
+        all_launches.append(launches)
+        del net
+    (ta, a), *rest = runs.items()
+    for tb, b_ in rest:
+        same_run(f"window-rnn ({tb} against {ta})", b_, a)
+    log(f"[window-rnn] {2 * WINDOW_BATCHES} BPTT steps of {b} x {t} "
+        f"characters at K=1, K={WINDOW_K} and K={WINDOW_K} with device "
+        f"prefetch: scores, params and RmsProp slots equal bit for bit "
+        f"(score {a['scores'][0]:.5f} -> {a['scores'][-1]:.5f}); launches "
+        f"per step {RNN_PER_STEP} in each")
+    log(f"[window-rnn] median ms per step in the second epoch: "
+        + "; ".join(f"{tag} {r['ms']:.3f}" for tag, r in runs.items())
+        + f" ({card})")
+    return add_counts(*all_launches), (x, y)
+
+
+def phase_window_resnet(torch, np, card):
+    """window-resnet: ResNet-50 by ComputationGraph.fit, batch 64, mixed,
+    12 batches for 2 epochs, at K = 1 and K = 4 under deterministic cuDNN:
+    bit for bit the same run. Returns the two runs' launches."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet,
+        ExistingDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.optimize import CollectScoresListener
+
+    dev = card_device(torch)
+    b, n, k4 = RESNET_WINDOW
+    batches = [DataSet(*image_batch(torch, SEED + 40 + i, b, RESNET_SHAPE))
+               for i in range(n)]
+    runs, all_launches = {}, []
+    for k in (1, k4):
+        tag = f"K={k}"
+        with env_vars(**{WINDOW_GATE: k, PREFETCH_GATE: None}), \
+                deterministic_cudnn(torch):
+            net = resnet_net(torch, device=dev)
+            col, clock = CollectScoresListener(), StepClock()
+            net.set_listeners(col, clock)
+            dtypes.set_mixed_precision(True)
+            try:
+                torch.cuda.synchronize()
+                reset_counts()
+                net.fit(ExistingDataSetIterator(batches), epochs=2)
+                torch.cuda.synchronize()
+                launches = read_counts()
+            finally:
+                dtypes.set_mixed_precision(False)
+        expect_launches(f"window-resnet ({tag})", launches,
+                        {k_: 2 * n * v for k_, v in RESNET_PER_STEP.items()})
+        runs[tag] = dict(scores=[s for _, s in col.scores],
+                         bits=net_bits(net), ms=clock.step_ms())
+        all_launches.append(launches)
+        del net
+        torch.cuda.empty_cache()
+    same_run("window-resnet", runs[f"K={k4}"], runs["K=1"])
+    s = runs["K=1"]["scores"]
+    log(f"[window-resnet] ResNet-50 fit, {2 * n} mixed steps of {b} images "
+        f"at K=1 and K={k4} (deterministic cuDNN): scores, params, slots "
+        f"and BatchNorm state equal bit for bit (score {s[0]:.5f} -> "
+        f"{s[-1]:.5f}); {RESNET_PER_STEP} launches per step")
+    log(f"[window-resnet] median ms per step in the second epoch: "
+        + "; ".join(f"{tag} {r['ms']:.3f} ({b / r['ms'] * 1e3:.1f} images/s)"
+                    for tag, r in runs.items()) + f" ({card})")
+    return add_counts(*all_launches)
+
+
+def nan_at(underlying, positions):
+    """`underlying` with NaN features in the batches at `positions`
+    (counted from 1), synchronous: the port's chaos fault points are not
+    ported yet."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet, DataSetIterator
+
+    class NanAt(DataSetIterator):
+        def __init__(self):
+            self.count = 0
+
+        def reset(self):
+            underlying.reset()
+
+        def __iter__(self):
+            self.reset()
+            return self
+
+        def __next__(self):
+            ds = next(underlying)
+            self.count += 1
+            if self.count in positions:
+                ds = DataSet(np.full_like(np.asarray(ds.features), np.nan),
+                             ds.labels, ds.features_mask, ds.labels_mask)
+            return ds
+
+        def async_supported(self):
+            return False
+
+    return NanAt()
+
+
+def phase_sentry_charrnn(torch, np, tmp, card, data):
+    """sentry-charrnn: window-rnn's K = 8 run over its 24 batches with
+    DivergenceSentry(policy="rollback", checkpoint_manager=...,
+    snapshot_every=0) beside a CheckpointListener saving to that manager
+    every 8 iterations, and a NaN batch at position 3 of the second
+    window: the sentry keeps no in-memory snapshot, so the trip restores
+    the checkpoint of iteration 8 through the manager. Then
+    policy="warn" on the same data; then a CheckpointListener every 5
+    iterations under K = 8 and the resume from its save at 16. Returns
+    the launches."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.optimize import CollectScoresListener
+    from deeplearning4j_tpu_torch.resilience import (
+        CheckpointListener,
+        CheckpointManager,
+        DivergenceSentry,
+        tree_all_finite,
+    )
+
+    dev = card_device(torch)
+    x, y = data
+    b, t = RNN_BATCH, RNN["max_length"]
+    runs = []
+    with env_vars(**{WINDOW_GATE: WINDOW_K, PREFETCH_GATE: None}):
+        for policy in ("rollback", "warn"):
+            net = rnn_net(torch, t, device=dev)
+            col = CollectScoresListener()
+            if policy == "rollback":
+                cm = CheckpointManager(os.path.join(tmp, "sentry-rollback"))
+                sentry = DivergenceSentry(policy=policy, max_rollbacks=2,
+                                          checkpoint_manager=cm,
+                                          snapshot_every=0)
+                net.set_listeners(col, CheckpointListener(
+                    cm, save_every_n_iterations=WINDOW_K), sentry)
+            else:
+                sentry = DivergenceSentry(policy=policy)
+                net.set_listeners(col, sentry)
+            torch.cuda.synchronize()
+            reset_counts()
+            net.fit(nan_at(ListDataSetIterator(DataSet(x, y), batch=b),
+                           (SENTRY_NAN_AT,)))
+            torch.cuda.synchronize()
+            launches = read_counts()
+            runs.append(launches)
+            expect_launches(f"sentry-charrnn ({policy})", launches,
+                            {k: WINDOW_BATCHES * v
+                             for k, v in RNN_PER_STEP.items()})
+            its = [i for i, _ in col.scores]
+            if policy == "rollback":
+                want = (list(range(1, SENTRY_NAN_AT + 1))
+                        + list(range(WINDOW_K + 1, 2 * WINDOW_K + 1)))
+                saves = [m["step"] for m in cm.manifests()]
+                ok = ((sentry.divergences, sentry.rollbacks) == (1, 1)
+                      and sentry._snapshot is None
+                      and saves == [WINDOW_K, 2 * WINDOW_K]
+                      and its == want and net.iteration == 2 * WINDOW_K
+                      and tree_all_finite(net.params)
+                      and math.isfinite(net.score_))
+                log(f"[sentry-charrnn] rollback at K={WINDOW_K}: NaN batch "
+                    f"{SENTRY_NAN_AT}; divergences {sentry.divergences}, "
+                    f"rollbacks {sentry.rollbacks}, restored from the "
+                    f"checkpoint of iteration {WINDOW_K} (no snapshot "
+                    f"kept); saves at {saves}; iterations seen {its}; "
+                    f"final iteration {net.iteration}, params finite "
+                    f"{tree_all_finite(net.params)}")
+            else:
+                ok = (sentry.divergences >= 1 and sentry.rollbacks == 0
+                      and net.iteration == WINDOW_BATCHES)
+                log(f"[sentry-charrnn] warn at K={WINDOW_K}: divergences "
+                    f"{sentry.divergences}, rollbacks {sentry.rollbacks}, "
+                    f"final iteration {net.iteration}")
+            if not ok:
+                raise AssertionError(f"sentry-charrnn ({policy}) failed")
+            del net
+        cm = CheckpointManager(os.path.join(tmp, "sentry-listener"))
+        net = rnn_net(torch, t, device=dev)
+        net.set_listeners(CheckpointListener(cm, save_every_n_iterations=5))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        net.fit(ListDataSetIterator(DataSet(x, y), batch=b))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = [m["step"] for m in cm.manifests()]
+        if steps != [8, 16, 24]:
+            raise AssertionError(f"sentry-charrnn: saves at {steps}, want "
+                                 f"the window ends 8, 16, 24")
+        resumed, manifest = cm.restore(16, device=dev)
+        resumed.fit(ListDataSetIterator(DataSet(x[16 * b:], y[16 * b:]),
+                                        batch=b))
+        torch.cuda.synchronize()
+        runs.append(read_counts())
+        want, got = net_bits(net), net_bits(resumed)
+        for k, v in want.items():
+            if not (got[k] == v).all():
+                raise AssertionError(f"sentry-charrnn: the resume from 16 "
+                                     f"differs in {k}")
+        log(f"[sentry-charrnn] CheckpointListener every 5 iterations at "
+            f"K={WINDOW_K}: saves at {steps} (the window ends), "
+            f"{wall:.2f} s for {WINDOW_BATCHES} steps with the saves; the "
+            f"resume from 16 equals the unbroken run bit for bit ({card})")
+    return add_counts(*runs)
+
+
+def phase_kernel_records(torch):
+    """kernel-records: rows 5-8 at the shapes records-charrnn gives them,
+    RECORD_KERNEL_CASES, float32 (TF32 off), on lstm_bwd_inputs' masked
+    inputs (right-padded rows, as a bucket pads them, one row wholly dead,
+    one masked in the middle), forward and backward against their plain
+    versions at LSTM_BWD_TOL. Returns {kernel: largest absolute error}."""
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+        chunked_lstm_auto_regime,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = dict.fromkeys(LSTM_ROWS, 0.0)
+    try:
+        for b, t, n in RECORD_KERNEL_CASES:
+            chunked = chunked_lstm_auto_regime(b, t, n, torch.float32)
+            if chunked != (t == max(RECORD_BUCKETS)):
+                raise AssertionError(f"kernel-records: ({b}, {t}, {n}) is "
+                                     f"{'' if chunked else 'not '}in the "
+                                     f"chunked regime")
+            s = lstm_bwd_inputs(torch, gen, b, t, n, torch.float32, True,
+                                True)
+            case = dict.fromkeys(LSTM_ROWS, 0.0)
+            lstm_rows_check(torch, s, f"b={b} t={t} n={n} right-padded "
+                            f"mask float32", case)
+            for k, v in case.items():
+                worst[k] = max(worst[k], v)
+            log(f"[kernel-records] rows 5-8 at ({b}, {t}, {n}) float32, "
+                f"right-padded mask ({int(s['m'].sum())} live (row, step) "
+                f"pairs of {b * t}; the path runs rows "
+                f"{'7, 8' if chunked else '5, 6'} here), forward and "
+                f"backward against the plain scan: max abs error row 5 "
+                f"{case['lstm_scan']:.3g}, row 6 {case['lstm_scan_bwd']:.3g}, "
+                f"row 7 {case['lstm_scan_chunked']:.3g}, row 8 "
+                f"{case['lstm_scan_chunked_bwd']:.3g}")
+            del s
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return worst
+
+
+def write_char_shards(np, root):
+    """RECORD_SHARDS directories of RECORD_FILES CSV sequence files: per
+    line the 77-column one-hot character and the next character's id, Zipf
+    characters, lengths log-uniform in RECORD_LENGTHS, each shard's files
+    named in order of length."""
+    vocab = RNN["num_classes"]
+    rng = np.random.default_rng(SEED + 50)
+    zipf = 1.0 / np.arange(1, vocab + 1)
+    onehot = [",".join("1" if j == c else "0" for j in range(vocab))
+              for c in range(vocab)]
+    lo, hi = (math.log(v) for v in RECORD_LENGTHS)
+    for s in range(RECORD_SHARDS):
+        d = os.path.join(root, f"shard{s}")
+        os.makedirs(d)
+        lengths = sorted(int(math.exp(rng.uniform(lo, hi)))
+                         for _ in range(RECORD_FILES))
+        for i, t in enumerate(lengths):
+            ids = rng.choice(vocab, size=t + 1, p=zipf / zipf.sum())
+            with open(os.path.join(d, f"{i:03d}.csv"), "w") as f:
+                f.write("\n".join(f"{onehot[a]},{n}"
+                                  for a, n in zip(ids[:-1], ids[1:])))
+                f.write("\n")
+
+
+def char_pipeline(root):
+    """The records pipeline: a CSVSequenceRecordReader per shard, each
+    through SequenceRecordReaderDataSetIterator(batch 16), both joined by
+    JointParallelDataSetIterator, bucketed by BucketSequenceIterator.
+    Returns (joint, bucketed)."""
+    from deeplearning4j_tpu_torch.datasets import (
+        BucketSequenceIterator,
+        CSVSequenceRecordReader,
+        JointParallelDataSetIterator,
+        SequenceRecordReaderDataSetIterator,
+    )
+
+    joint = JointParallelDataSetIterator(*[
+        SequenceRecordReaderDataSetIterator(
+            CSVSequenceRecordReader(os.path.join(root, f"shard{s}",
+                                                 "*.csv")),
+            batch=RECORD_BATCH, label_index=-1,
+            num_classes=RNN["num_classes"])
+        for s in range(RECORD_SHARDS)])
+    return joint, BucketSequenceIterator(joint, buckets=RECORD_BUCKETS)
+
+
+def phase_records_charrnn(torch, np, tmp, card):
+    """records-charrnn: the char-RNN fed from CSV sequence files on disk,
+    by masked BPTT at K = 4 with device prefetch (see char_pipeline).
+    Returns the launches."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import (
+        BucketSequenceIterator,
+        ExistingDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+        chunked_lstm_auto_regime,
+    )
+
+    dev = card_device(torch)
+    root = os.path.join(tmp, "char_shards")
+    t0 = time.perf_counter()
+    write_char_shards(np, root)
+    write_s = time.perf_counter() - t0
+    joint, bucketed = char_pipeline(root)
+    try:
+        t0 = time.perf_counter()
+        raw = list(joint)
+        parse_s = time.perf_counter() - t0
+        emitted = [ds.features.shape[1] for ds in bucketed]
+        if not set(emitted) <= set(RECORD_BUCKETS) or len(emitted) != len(
+                raw):
+            raise AssertionError(f"records-charrnn: emitted lengths "
+                                 f"{emitted}, buckets {RECORD_BUCKETS}")
+        live = sum(float(ds.labels_mask.sum()) for ds in raw)
+        seen = []
+        bucketed.set_pre_processor(
+            lambda ds: seen.append(ds.features.shape[1]) or ds)
+        with env_vars(**{WINDOW_GATE: RECORD_K, PREFETCH_GATE: 1}):
+            net = rnn_net(torch, max(RECORD_BUCKETS), device=dev)
+        n = net.layers[0].n_out
+        per_step = []
+        for tb in emitted:
+            chunked = chunked_lstm_auto_regime(RECORD_BATCH, tb, n,
+                                               torch.float32)
+            per_step.append(
+                {"lstm_scan_chunked": 2, "lstm_scan_chunked_bwd": 2}
+                if chunked else {"lstm_scan": 2, "lstm_scan_bwd": 2})
+        want = {"linear_xent_fwd": RECORD_EPOCHS * len(emitted),
+                "linear_xent_bwd": RECORD_EPOCHS * len(emitted)}
+        for d in per_step:
+            for k, v in d.items():
+                want[k] = want.get(k, 0) + RECORD_EPOCHS * v
+        with env_vars(**{WINDOW_GATE: RECORD_K, PREFETCH_GATE: 1}):
+            wins, clock = WindowLog(), StepClock()
+            net.set_listeners(wins, clock)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            net.fit(bucketed, epochs=RECORD_EPOCHS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+        expect_launches("records-charrnn", launches, want)
+        if seen != emitted * RECORD_EPOCHS:
+            raise AssertionError(f"records-charrnn: steps on lengths {seen}")
+        for a, e in wins.windows:
+            lens = seen[a:e]
+            ends_epoch = e % len(emitted) == 0
+            if (len(set(lens)) != 1 or len(lens) > RECORD_K
+                    or (len(lens) < RECORD_K and not ends_epoch
+                        and seen[e] == lens[0])):
+                raise AssertionError(f"records-charrnn: window {a}-{e} on "
+                                     f"lengths {lens} ({seen})")
+        # per bucket, one batch's masked score against the unpadded one
+        errs = {}
+        with dtypes.full_precision():
+            for ds in raw:
+                tb = BucketSequenceIterator(
+                    ExistingDataSetIterator([]),
+                    buckets=RECORD_BUCKETS).bucket_for(ds.features.shape[1])
+                if tb in errs:
+                    continue
+                padded = next(iter(BucketSequenceIterator(
+                    ExistingDataSetIterator([ds]), buckets=RECORD_BUCKETS)))
+                a, p = net.score(ds), net.score(padded)
+                errs[tb] = abs(a - p) / abs(a)
+        if max(errs.values()) > 1e-5:
+            raise AssertionError(f"records-charrnn: padded against unpadded "
+                                 f"scores {errs}")
+    finally:
+        joint.shutdown()
+    log(f"[records-charrnn] {RECORD_SHARDS} x {RECORD_FILES} CSV sequence "
+        f"files (lengths {RECORD_LENGTHS[0]}-{RECORD_LENGTHS[1]}, "
+        f"log-uniform) written in {write_s:.2f} s; parsed into "
+        f"{len(raw)} batches of {RECORD_BATCH} in {parse_s:.3f} s "
+        f"({live:.0f} live characters); bucket lengths per epoch {emitted}; "
+        f"windows {wins.windows}")
+    log(f"[records-charrnn] masked BPTT at K={RECORD_K} with device "
+        f"prefetch, {RECORD_EPOCHS} epochs in {wall:.3f} s: "
+        f"{RECORD_EPOCHS * live / wall:.1f} live characters/s; the "
+        f"parse alone {parse_s:.3f} s per epoch against "
+        f"{wall / RECORD_EPOCHS:.3f} s per epoch of the fit, which parses "
+        f"on the streams' producer threads; padded against unpadded score "
+        f"per bucket (TF32 off) "
+        + ", ".join(f"{k}: {v:.3g}" for k, v in sorted(errs.items()))
+        + f" (tol 1e-5); launches {want} ({card})")
+    return launches
+
+
+def mnist_u8(np, n):
+    """n MNIST sample images as uint8 [n, 28, 28] and their labels: the
+    idx files under $DL4J_TPU_DATA_DIR where MnistDataSetIterator finds
+    them, else its seeded synthetic sample."""
+    from deeplearning4j_tpu_torch.datasets import fetchers
+
+    img, lbl = fetchers.MnistDataSetIterator.FILES_TRAIN
+    img_path, lbl_path = fetchers._find(img), fetchers._find(lbl)
+    if img_path is None or lbl_path is None:
+        return fetchers._synthetic_images(n, 28, 28, 10, SEED)
+    return fetchers.read_idx(img_path)[:n], fetchers.read_idx(lbl_path)[:n]
+
+
+def write_ppm(np, path, img):
+    """uint8 [h, w] as a binary (P6) PPM, the gray repeated to 3
+    channels."""
+    img = np.repeat(np.asarray(img, np.uint8)[:, :, None], 3, axis=2)
+    h, w = img.shape[:2]
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (w, h))
+        f.write(img.tobytes())
+
+
+def phase_records_lenet(torch, np, tmp, card):
+    """records-lenet: 2048 MNIST sample images written as P6 PPM files in
+    10 class directories, read by ImageRecordReader(28, 28, 1) through
+    RecordReaderDataSetIterator(batch 64, label_index=-1, num_classes=10)
+    (a pre-processor reshapes to NHWC) and prefetch_to_device into LeNet,
+    one epoch; against fit on the same arrays. Returns the launches."""
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet,
+        ImageRecordReader,
+        ListDataSetIterator,
+        RecordReaderDataSetIterator,
+        prefetch_to_device,
+    )
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    dev = card_device(torch)
+    u8, ids = mnist_u8(np, LENET_FILES)
+    root = os.path.join(tmp, "mnist_ppm")
+    index = {}
+    t0 = time.perf_counter()
+    for c in range(10):
+        os.makedirs(os.path.join(root, str(c)))
+    for i in range(len(u8)):
+        path = os.path.join(root, str(int(ids[i])), f"{i:05d}.ppm")
+        write_ppm(np, path, u8[i])
+        index[path] = i
+    write_s = time.perf_counter() - t0
+    b = LENET_TRAIN[0]
+    reader = ImageRecordReader(28, 28, 1, root=root)
+    source = RecordReaderDataSetIterator(reader, batch=b, label_index=-1,
+                                         num_classes=10)
+    source.set_pre_processor(
+        lambda ds: DataSet(ds.features.reshape(-1, 28, 28, 1), ds.labels))
+    t0 = time.perf_counter()
+    parsed = sum(ds.num_examples() for ds in source)
+    parse_s = time.perf_counter() - t0
+    order = [index[p] for p in reader.paths]
+    x = (u8[order].astype(np.float32) / 255.0).reshape(-1, 28, 28, 1)
+    y = np.eye(10, dtype=np.float32)[ids[order].astype(int)]
+    with deterministic_cudnn(torch):
+        # warm-up: the first step's cuDNN and allocator set-up is timed
+        # in neither run
+        LeNet(seed=SEED).init(device=dev).fit(x[:b], y[:b])
+        files = LeNet(seed=SEED).init(device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for ds in prefetch_to_device(source, size=2, device=dev):
+            files.fit(ds)
+        torch.cuda.synchronize()
+        files_s = time.perf_counter() - t0
+        launches = read_counts()
+        arrays = LeNet(seed=SEED).init(device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arrays.fit(ListDataSetIterator(DataSet(x, y), batch=b))
+        torch.cuda.synchronize()
+        arrays_s = time.perf_counter() - t0
+    steps = -(-len(u8) // b)
+    expect_launches("records-lenet", launches,
+                    {k: steps * v for k, v in LENET_PER_STEP.items()})
+    got, want = net_bits(files), net_bits(arrays)
+    for k, v in want.items():
+        if not (got[k] == v).all():
+            raise AssertionError(f"records-lenet: {k} differs from fit on "
+                                 f"the same arrays")
+    if files.iteration != steps or arrays.iteration != steps or \
+            parsed != len(u8):
+        raise AssertionError(f"records-lenet: {files.iteration} and "
+                             f"{arrays.iteration} steps, want {steps}")
+    log(f"[records-lenet] {len(u8)} PPM files in 10 class directories "
+        f"written in {write_s:.2f} s; ImageRecordReader -> "
+        f"RecordReaderDataSetIterator -> prefetch_to_device -> LeNet, "
+        f"{steps} Adam steps: equal bit for bit to fit on the same arrays; "
+        f"{len(u8) / files_s:.1f} images/s from files, "
+        f"{len(u8) / arrays_s:.1f} from arrays; the readers alone "
+        f"{parse_s:.3f} s for the {len(u8)} files, the fit from files "
+        f"{files_s:.3f} s, from arrays {arrays_s:.3f} s ({card})")
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -5217,6 +6184,28 @@ def main() -> int:
             f"phases (eval-cg-rnn, eval-resnet, es-charrnn, kernel-transfer, "
             f"transfer-vgg16, refer-transfer) took "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        solver_launches = add_counts(phase_solver_charrnn(torch, np, card),
+                                     phase_solver_lenet(torch, np, card))
+        phase_refer_solver(torch, np)
+        window_rnn, char_data = phase_window_rnn(torch, np, card)
+        window_launches = add_counts(window_rnn,
+                                     phase_window_resnet(torch, np, card))
+        records_err = phase_kernel_records(torch)
+        lstm_err = max(lstm_err, records_err["lstm_scan"])
+        lstm_bwd_err = {k: max(v, records_err[k])
+                        for k, v in lstm_bwd_err.items()}
+        with tempfile.TemporaryDirectory() as tmp:
+            sentry_launches = phase_sentry_charrnn(torch, np, tmp, card,
+                                                   char_data)
+            records_launches = add_counts(
+                phase_records_charrnn(torch, np, tmp, card),
+                phase_records_lenet(torch, np, tmp, card))
+        log(f"[records-lenet] the solver, window, sentry and records phases "
+            f"(solver-charrnn, solver-lenet, refer-solver, window-rnn, "
+            f"window-resnet, kernel-records, sentry-charrnn, "
+            f"records-charrnn, records-lenet) took "
+            f"{time.perf_counter() - t0:.1f} s")
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
         if leaked:
@@ -5322,7 +6311,15 @@ def main() -> int:
             # transfer-vgg16's 20 frozen-base steps
             "eval_launches": eval_launches[kname],
             "es_launches": es_launches[kname],
-            "transfer_launches": transfer_launches[kname]})
+            "transfer_launches": transfer_launches[kname],
+            # launches in solver-charrnn's and solver-lenet's line-search
+            # iterations, window-rnn's and window-resnet's runs,
+            # sentry-charrnn's three fits and the resume, and the records
+            # phases' fits from files
+            "solver_launches": solver_launches[kname],
+            "window_launches": window_launches[kname],
+            "sentry_launches": sentry_launches[kname],
+            "records_launches": records_launches[kname]})
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -86,12 +86,20 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
 // of a.b. (cvt.rna.tf32.f32 rounds the same but issues at a quarter of
 // the rate; truncating instead, hi = a & mask, left errors of 2^-20 that
 // the training checks against the CPU did not hold.) lo is 0 for a value
-// that is already TF32-exact.
+// that is already TF32-exact. NaN: the add carries a NaN whose mantissa
+// is all ones (0x7fffffff, the NaN the card's arithmetic makes) into the
+// sign bit, so hi may become -0.0; lo = a - hi is then the card's NaN
+// (0x7fffffff, whatever a's sign and payload), and the min() keeps it
+// one through lo's add (0x7fffefff is a NaN), so the
+// product stays NaN (an infinite a gives NaN too: its lo is inf - inf).
+// Finite values keep their bits. The min() costs 1-5% of the xent and
+// flash kernels (profile_split_tf32.py); clamping hi as well cost more.
 __device__ __forceinline__ void split_tf32(uint32_t a, uint32_t& hi,
                                            uint32_t& lo) {
   hi = (a + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(__uint_as_float(a) - __uint_as_float(hi));
-  lo = (lo + 0x1000u) & 0xffffe000u;
+  lo = (static_cast<uint32_t>(min(static_cast<int>(lo), 0x7fffefff)) +
+        0x1000u) & 0xffffe000u;
 }
 
 // ---------------------------------------------------------------- copies

@@ -1,6 +1,5 @@
-"""Datasets and iterators of the port (counterpart of
-deeplearning4j_tpu/datasets/, the part the training and checkpoint slices
-use)."""
+"""Datasets, iterators and record readers of the port (counterpart of
+deeplearning4j_tpu/datasets)."""
 from deeplearning4j_tpu_torch.datasets.dataset import (  # noqa: F401
     DataSet,
     MultiDataSet,
@@ -11,12 +10,15 @@ from deeplearning4j_tpu_torch.datasets.iterators import (  # noqa: F401
     AsyncShieldDataSetIterator,
     AsyncShieldMultiDataSetIterator,
     BenchmarkDataSetIterator,
+    BucketSequenceIterator,
     DataSetIterator,
     EarlyTerminationDataSetIterator,
     ExistingDataSetIterator,
+    JointParallelDataSetIterator,
     ListDataSetIterator,
     MultipleEpochsIterator,
     SamplingDataSetIterator,
+    prefetch_to_device,
 )
 from deeplearning4j_tpu_torch.datasets.fetchers import (  # noqa: F401
     MnistDataSetIterator,
@@ -26,4 +28,14 @@ from deeplearning4j_tpu_torch.datasets.normalizers import (  # noqa: F401
     Normalizer,
     NormalizerMinMaxScaler,
     NormalizerStandardize,
+)
+from deeplearning4j_tpu_torch.datasets.records import (  # noqa: F401
+    CollectionRecordReader,
+    CSVRecordReader,
+    CSVSequenceRecordReader,
+    ImageRecordReader,
+    RecordReader,
+    RecordReaderDataSetIterator,
+    SequenceRecordReader,
+    SequenceRecordReaderDataSetIterator,
 )

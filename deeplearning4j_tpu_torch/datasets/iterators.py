@@ -4,12 +4,17 @@ the background-thread prefetch AsyncDataSetIterator (and its MultiDataSet
 form) that both runtimes' `fit` wrap around an iterator as the JAX package's
 do, the AsyncShield markers that opt out of it, MultipleEpochsIterator,
 EarlyTerminationDataSetIterator, SamplingDataSetIterator and
-BenchmarkDataSetIterator.
+BenchmarkDataSetIterator, and the parallel and sequence iterators:
+JointParallelDataSetIterator (one stream per consumer, round-robin),
+BucketSequenceIterator (sequence lengths padded up to a few buckets) and
+`prefetch_to_device`.
 
-The prefetch producer yields host batches and touches no CUDA state: a
-batch goes to the network's device on the consumer, in the runtime's
-`_batch`. (The JAX package's device prefetch, a producer-side
-`device_put`, is not ported yet.)
+Without a `place` the prefetch producer yields host batches and touches no
+CUDA state: a batch goes to the network's device on the consumer, in the
+runtime's `_batch`. With one (`training.engine.device_prefetch_place`, the
+JAX package's `DL4J_TPU_DEVICE_PREFETCH`) the producer starts each batch's
+copy to the card on its own stream, and the consumer waits for it
+(`arrive`) before handing the batch out.
 """
 from __future__ import annotations
 
@@ -138,10 +143,28 @@ class ExistingDataSetIterator(DataSetIterator):
         return self._src[0].num_examples() if self._src else 0
 
 
+def arrive(ds):
+    """`ds` ready for the consumer's stream: a batch placed on the card by
+    a producer (`training.engine.to_device_async`) carries `on_arrival`,
+    which makes the current stream wait for its copy and ties its tensors
+    to that stream; it runs once, on the consumer's thread."""
+    cb = getattr(ds, "on_arrival", None)
+    if cb is not None:
+        ds.on_arrival = None
+        cb()
+    return ds
+
+
 class AsyncDataSetIterator(DataSetIterator):
     """Background-thread prefetch with a bounded queue
     (AsyncDataSetIterator.java:30-64). Wraps any DataSetIterator; `fit`
     wraps one automatically, as MultiLayerNetwork.fit does.
+
+    `place` (optional, DataSet -> DataSet) runs on the PRODUCER thread
+    before each batch is queued: the device prefetch hook, so batch t+1's
+    copy to the card is under way while the consumer computes batch t. A
+    raising `place` comes out on the consumer like any producer error;
+    the teardown is unchanged (batches in flight are dropped).
 
     The producer thread is named (``AsyncDataSetIterator-prefetch-N``) and
     daemonized. Each producer carries a stop event: ``reset()`` and
@@ -156,9 +179,10 @@ class AsyncDataSetIterator(DataSetIterator):
     _ids = itertools.count()
 
     def __init__(self, underlying: DataSetIterator,
-                 queue_size: Optional[int] = None):
+                 queue_size: Optional[int] = None, place=None):
         self.underlying = underlying
         self.queue_size = queue_size
+        self.place = place
         self._q: Optional[queue.Queue] = None
         self._thread: Optional[threading.Thread] = None
         self._stop: Optional[threading.Event] = None
@@ -180,6 +204,8 @@ class AsyncDataSetIterator(DataSetIterator):
         def worker():
             try:
                 for d in self.underlying:
+                    if self.place is not None:
+                        d = self.place(d)
                     while not stop.is_set():
                         try:
                             q.put(d, timeout=0.1)
@@ -253,7 +279,7 @@ class AsyncDataSetIterator(DataSetIterator):
             if self._error is not None:
                 raise self._error
             raise StopIteration
-        return item
+        return arrive(item)
 
     def batch_size(self):
         return self.underlying.batch_size()
@@ -262,12 +288,13 @@ class AsyncDataSetIterator(DataSetIterator):
         return self.underlying.total_outcomes()
 
 
-def prefetching(it: DataSetIterator,
-                queue_size: Optional[int] = None) -> DataSetIterator:
-    """`it` wrapped in AsyncDataSetIterator where it allows it and is not
-    one already (the rule of the JAX package's fit paths); else `it`."""
+def prefetching(it: DataSetIterator, queue_size: Optional[int] = None,
+                place=None) -> DataSetIterator:
+    """`it` wrapped in AsyncDataSetIterator (its producer running `place`)
+    where it allows it and is not one already (the rule of the JAX
+    package's fit paths); else `it`."""
     if it.async_supported() and not isinstance(it, AsyncDataSetIterator):
-        return AsyncDataSetIterator(it, queue_size)
+        return AsyncDataSetIterator(it, queue_size, place=place)
     return it
 
 
@@ -430,3 +457,164 @@ class AsyncShieldDataSetIterator(DataSetIterator):
 class AsyncShieldMultiDataSetIterator(AsyncShieldDataSetIterator):
     """MultiDataSet form of the async shield
     (AsyncShieldMultiDataSetIterator.java)."""
+
+
+class JointParallelDataSetIterator(DataSetIterator):
+    """One stream per consumer (datasets/iterator/parallel/
+    JointParallelDataSetIterator.java, parallelism/MagicQueue.java): N
+    underlying iterators, each behind its own AsyncDataSetIterator (depth
+    `prefetch`); `next_for(i)` serves consumer i from its own stream, and
+    plain `next()` takes the streams in turn, skipping exhausted ones
+    (INTERLEAVE mode), until all are done."""
+
+    def __init__(self, *iterators: DataSetIterator, prefetch: int = 2):
+        if not iterators:
+            raise ValueError("need at least one underlying iterator")
+        self.streams = [AsyncDataSetIterator(u, prefetch) for u in iterators]
+        self._pos = 0
+
+    def attached(self) -> int:
+        return len(self.streams)
+
+    def next_for(self, consumer: int) -> DataSet:
+        ds = next(self.streams[consumer % len(self.streams)])
+        # this path bypasses the wrapped __next__: apply the pre-processor
+        pp = self.pre_processor
+        if pp is not None:
+            ds = pp.transform(ds) if hasattr(pp, "transform") else pp(ds)
+        return ds
+
+    def reset(self):
+        for s in self.streams:
+            s.reset()
+        self._pos = 0
+
+    def shutdown(self):
+        """Stop every stream's producer (idempotent)."""
+        for s in self.streams:
+            s.shutdown()
+
+    def __iter__(self):
+        self.reset()
+        return self
+
+    def __next__(self):
+        n = len(self.streams)
+        for _ in range(n):  # skip exhausted streams (uneven lengths)
+            i = self._pos % n
+            self._pos += 1
+            try:
+                return next(self.streams[i])
+            except StopIteration:
+                continue
+        raise StopIteration
+
+    def batch_size(self):
+        return self.streams[0].batch_size()
+
+    def total_outcomes(self):
+        return self.streams[0].total_outcomes()
+
+
+class BucketSequenceIterator(DataSetIterator):
+    """Ragged sequence batches padded up to a few lengths (the JAX
+    package's recompile protection; here it bounds the shapes the kernels
+    and the allocator see, and lets step windows fill). Each batch's time
+    axis is padded to the smallest bucket that holds it (powers of two up
+    to `max_length` by default, or `buckets`), with zeros; a features mask
+    is always built (ones where the source had none), so every batch of a
+    bucket has one structure, and the padded steps are dead. Labels with
+    the features' time axis are padded alongside, their mask only where
+    the source had one (else the loss falls back to the features mask);
+    per-sequence labels pass through. A batch longer than the largest
+    bucket, or not a sequence, passes through unchanged."""
+
+    def __init__(self, underlying: DataSetIterator, buckets=None,
+                 max_length: int = 4096):
+        self.underlying = underlying
+        if buckets is not None:
+            self.buckets = sorted(int(b) for b in buckets)
+        else:
+            self.buckets = []
+            p = 1
+            while p < max_length:
+                p *= 2
+                self.buckets.append(p)
+        self._emitted: set = set()
+        self._it = iter(underlying)
+
+    def bucket_for(self, t: int) -> int:
+        for b in self.buckets:
+            if t <= b:
+                return b
+        return t  # beyond the largest bucket: unpadded
+
+    def emitted_lengths(self) -> set:
+        """The distinct padded lengths produced so far."""
+        return set(self._emitted)
+
+    @staticmethod
+    def _pad_time(a: np.ndarray, t_new: int) -> np.ndarray:
+        pad = [(0, 0)] * a.ndim
+        pad[1] = (0, t_new - a.shape[1])
+        return np.pad(a, pad)
+
+    def __next__(self):
+        ds = next(self._it)
+        f = np.asarray(ds.features)
+        if f.ndim != 3:
+            return ds
+        t = f.shape[1]
+        tb = self.bucket_for(t)
+        self._emitted.add(tb)
+        if tb == t and (not self.buckets or t > self.buckets[-1]):
+            return ds
+        fm = (np.asarray(ds.features_mask) if ds.features_mask is not None
+              else np.ones((f.shape[0], t), np.float32))
+        out_f = self._pad_time(f, tb)
+        out_fm = self._pad_time(fm, tb)
+        labels = ds.labels if ds.labels is None else np.asarray(ds.labels)
+        lm = ds.labels_mask
+        if labels is not None and labels.ndim == 3 and labels.shape[1] == t:
+            labels = self._pad_time(labels, tb)
+            if lm is not None:
+                lm = self._pad_time(np.asarray(lm), tb)
+        return DataSet(out_f, labels, out_fm, lm)
+
+    def __iter__(self):
+        self.reset()
+        return self
+
+    def reset(self):
+        self._it = iter(self.underlying)
+
+    def batch_size(self):
+        return self.underlying.batch_size()
+
+    def total_outcomes(self):
+        return self.underlying.total_outcomes()
+
+    def input_columns(self):
+        return self.underlying.input_columns()
+
+
+def prefetch_to_device(iterator, size: int = 2, device=None):
+    """A generator of `iterator`'s batches already on `device` (default:
+    the card), `size` of them in flight: each batch's copy starts (through
+    pinned memory on a side stream, `training.engine.to_device_async`)
+    `size` - 1 batches before it is yielded, and the consumer's stream
+    waits for it at the yield (the JAX package's `prefetch_to_device`,
+    with `device` in place of its sharding)."""
+    import collections
+
+    from deeplearning4j_tpu_torch import device as device_mod
+    from deeplearning4j_tpu_torch.training.engine import to_device_async
+
+    place = to_device_async(device_mod.resolve(device))
+    buf = collections.deque()
+    for ds in iter(iterator):
+        buf.append(place(ds))
+        if len(buf) >= size:
+            yield arrive(buf.popleft())
+    while buf:
+        yield arrive(buf.popleft())

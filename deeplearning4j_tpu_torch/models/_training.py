@@ -179,14 +179,3 @@ def update_layer(layer, defaults, updater, params, grads, slots,
         upd_mod.tree_map(lambda p, c: p.copy_(c), params,
                          apply_constraints(params, layer.constraints))
     return slots
-
-
-def check_trainable(defaults) -> None:
-    """Refuse what training in the port does not apply yet: the
-    line-search solvers."""
-    if defaults.optimization_algo not in ("stochastic_gradient_descent",
-                                          "sgd"):
-        raise NotImplementedError(
-            f"optimization_algo={defaults.optimization_algo!r}: the "
-            f"line-search solvers are not ported yet; fit trains with SGD "
-            f"updaters")

@@ -26,9 +26,12 @@ TrainingRun` (the listeners' lifecycle events, `checkpoint_manager=`
 resume and epoch-end saves, `epochs` the total target); an iterator is
 wrapped in `AsyncDataSetIterator` for each epoch where it allows it. A
 Frozen layer in a graph runs with train=False but is updated, as in the
-JAX package (whose graph step has no frozen check; ROADMAP C.11). The
-line-search solvers and the JAX engine's step windows, FSDP and remat are
-not ported yet; `fit` raises on a configuration that needs them.
+JAX package (whose graph step has no frozen check; ROADMAP C.11). As in
+the JAX package, a line-search `optimization_algo` trains with the SGD
+updater step here (its graph has no solver path). A step is split into
+`_device_step` and `_bookkeep`, so the engine's step windows
+(`DL4J_TPU_STEP_WINDOW`) run K device steps with one host read; tBPTT
+batches run their windows per step. FSDP and remat are not ported yet.
 
 Evaluation: `do_evaluation` feeds one pass of a single-output graph to
 several evaluators, `evaluate_outputs` each output of a multi-output graph
@@ -109,6 +112,7 @@ class ComputationGraph:
                           for name in self.topo}
         self._rnn_carries: Optional[Dict[str, tuple]] = None
         self._checked_bidir_tbptt = False
+        self._window_replay = False  # set by a step window's replay
 
     def _in_types(self, name):
         types = dict(zip(self.conf.network_inputs, self.conf.input_types))
@@ -348,9 +352,6 @@ class ComputationGraph:
                     self._updaters[name], self.params[name], grads[name],
                     self.opt_state[name], iteration)
 
-    def _check_trainable(self) -> None:
-        tr.check_trainable(self.conf.defaults)
-
     def _masks(self, masks):
         return None if masks is None else [self._batch(m) for m in masks]
 
@@ -363,13 +364,18 @@ class ComputationGraph:
                 and np.ndim(mds.features[0]) == 3
                 and all(np.ndim(y) == 3 for y in mds.labels))
 
+    def _stage(self, mds: MultiDataSet):
+        """(inputs, labels, fmasks, lmasks) of `mds` on the device."""
+        return ([self._batch(x) for x in mds.features],
+                [self._batch(y) for y in mds.labels],
+                self._masks(mds.features_masks),
+                self._masks(mds.labels_masks))
+
     def _fit_mds(self, mds: MultiDataSet) -> None:
         """One updater step on one batch, or one per window when it trains
-        by tBPTT (`_tbptt_mds`)."""
-        batch = ([self._batch(x) for x in mds.features],
-                 [self._batch(y) for y in mds.labels],
-                 self._masks(mds.features_masks),
-                 self._masks(mds.labels_masks))
+        by tBPTT (`_tbptt_mds`). A line-search `optimization_algo` trains
+        with the SGD updater step here, as the JAX package's graph does."""
+        batch = self._stage(mds)
         if self._tbptt_mds(mds):
             self._fit_tbptt(*batch)
         else:
@@ -397,13 +403,17 @@ class ComputationGraph:
                        window(fmasks, sl), window(lmasks, sl),
                        carries=carries)
 
-    def _step(self, inputs, labels, fmasks, lmasks, carries=None) -> None:
-        """One updater step on one batch (or tBPTT window): loss,
-        gradients, updates, then `score_`, `last_batch_size`, `iteration`
-        and the listeners. With `carries` the recurrent vertices start
-        from them and leave their new carries there, detached."""
+    def _device_step(self, inputs, labels, fmasks, lmasks, carries=None,
+                     iteration: Optional[int] = None) -> torch.Tensor:
+        """The device half of one updater step: loss, gradients, updates
+        and running state, with no host read; returns the score as a 0-d
+        device tensor. `iteration` (default `self.iteration`) is the
+        step's for the schedules and `iteration_scope` (a step window
+        passes it0 + j). With `carries` the recurrent vertices start from
+        them and leave their new carries there, detached."""
+        it = self.iteration if iteration is None else iteration
         rng = self.draws.step()
-        with iteration_scope(self.iteration):
+        with iteration_scope(it):
             score, new_state, grads = tr.value_and_grad(
                 lambda: self._loss(self.params, inputs, labels, fmasks,
                                    lmasks, rng=rng, carries=carries),
@@ -412,27 +422,59 @@ class ComputationGraph:
             for name, c in carries.items():
                 carries[name] = tr.detach_carry(c)
         with torch.no_grad():
-            self._apply_updates(grads, self.iteration)
+            self._apply_updates(grads, it)
             self.state = {k: tr.detach(v) for k, v in new_state.items()}
-        self.score_ = float(score.detach())
-        self.last_batch_size = tr.batch_rows(inputs[0])
+        return score.detach()
+
+    def _bookkeep(self, score: float, rows: int) -> None:
+        """The host half of a step: `score_`, `last_batch_size`,
+        `iteration` and the listeners."""
+        self.score_ = score
+        self.last_batch_size = rows
         self.iteration += 1
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration, self.score_)
 
+    def _step(self, inputs, labels, fmasks, lmasks, carries=None) -> None:
+        """One updater step on one batch (or tBPTT window): the device
+        step, one host read of its score, the bookkeeping."""
+        score = self._device_step(inputs, labels, fmasks, lmasks, carries)
+        self._bookkeep(float(score), tr.batch_rows(inputs[0]))
+
+    def _engine_loop(self):
+        """This graph's wiring of `training.engine.WindowedFitLoop`: a
+        batch that does not train by tBPTT is staged on the device for a
+        step window, the device step is `_device_step`."""
+        from deeplearning4j_tpu_torch.training.engine import WindowedFitLoop
+
+        def to_mds(ds):
+            return (ds if isinstance(ds, MultiDataSet)
+                    else MultiDataSet.from_dataset(ds))
+
+        def stage(ds):
+            mds = to_mds(ds)
+            if self._tbptt_mds(mds):
+                return None
+            batch = self._stage(mds)
+            return tuple(batch), int(batch[0][0].shape[0])
+
+        return WindowedFitLoop(self, raw_step=self._device_step, stage=stage,
+                               exec_one=lambda ds: self._fit_mds(to_mds(ds)))
+
     @staticmethod
-    def _as_batches(data, labels=None):
+    def _as_batches(data, labels=None, place=None):
         """A function giving one pass of MultiDataSets over `data`; a
         DataSetIterator is wrapped in AsyncDataSetIterator for the pass
-        where it allows it (the JAX package's `_as_mds_iter`), the
-        producer shut down when the pass ends or is abandoned."""
+        where it allows it (the JAX package's `_as_mds_iter`; its
+        producer runs `place`), the producer shut down when the pass ends
+        or is abandoned."""
         if isinstance(data, MultiDataSet):
             return lambda: iter([data])
         if isinstance(data, DataSet):
             return lambda: iter([MultiDataSet.from_dataset(data)])
         if isinstance(data, DataSetIterator):
             def one_pass():
-                it_ = prefetching(data)
+                it_ = prefetching(data, place=place)
                 try:
                     for ds in it_:
                         yield MultiDataSet.from_dataset(ds)
@@ -460,22 +502,30 @@ class ComputationGraph:
         on_epoch_end and on_fit_end around the steps. After each step
         `score_` holds its loss (with the l1/l2 penalty),
         `last_batch_size` its rows, and every listener's
-        `iteration_done(net, iteration, score)` has run."""
-        from deeplearning4j_tpu_torch.training.engine import TrainingRun
+        `iteration_done(net, iteration, score)` has run.
+        `DL4J_TPU_STEP_WINDOW` > 1 runs the standard steps in windows of
+        that many with one host read each; `DL4J_TPU_DEVICE_PREFETCH`
+        copies an iterator's batches to the card on its producer."""
+        from deeplearning4j_tpu_torch.training.engine import (
+            TrainingRun,
+            device_prefetch_place,
+        )
 
         if self.params is None:
             raise RuntimeError("call init() before fit()")
         run = TrainingRun(self, epochs=epochs, **attachments)
-        self._check_trainable()
-        return run.execute(self._run_epoch, self._as_batches(data, labels))
+        loop = self._engine_loop()
+        return run.execute(
+            lambda batches: self._run_epoch(batches, loop),
+            self._as_batches(data, labels,
+                             place=device_prefetch_place(self.device)))
 
-    def _run_epoch(self, batches) -> None:
-        """One pass of `fit`: a step (or tBPTT windows) per MultiDataSet;
-        the pass is closed even when a step raises, which stops its
-        prefetch producer."""
+    def _run_epoch(self, batches, loop) -> None:
+        """One pass of `fit` through the engine loop `loop`: a step (or
+        tBPTT windows) per MultiDataSet; the pass is closed even when a
+        step raises, which stops its prefetch producer."""
         try:
-            for mds in batches:
-                self._fit_mds(mds)
+            loop.run_epoch(batches)
         finally:
             close = getattr(batches, "close", None)
             if close is not None:

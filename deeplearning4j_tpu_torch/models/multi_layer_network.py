@@ -31,10 +31,18 @@ TrainingRun` (the listeners' lifecycle events, `checkpoint_manager=`
 resume and epoch-end saves, `epochs` the total target); an iterator is
 wrapped in `AsyncDataSetIterator` where it allows it. A frozen layer
 (`nn.layers.misc.Frozen`) takes no update, and its params are no leaves of
-the gradient, so the backward ends at the first trainable layer. The
-line-search solvers, layerwise `pretrain` and the JAX engine's step
-windows are not ported yet; `fit` raises on a configuration that needs
-them.
+the gradient, so the backward ends at the first trainable layer.
+
+A step is split as the JAX package's is: `_device_step` (loss, gradients,
+updates, running state; the score stays a 0-d device tensor) and
+`_bookkeep` (`score_`, `last_batch_size`, `iteration`, the listeners), so
+the engine's step windows (`DL4J_TPU_STEP_WINDOW`) run K device steps with
+one host read. A line-search `optimization_algo` (conjugate_gradient,
+lbfgs, line_gradient_descent) takes one solver iteration per batch that
+does not train by tBPTT (`_fit_batch_solver`, `optimize.solvers`); tBPTT
+batches and ParallelWrapper take the SGD updater step with the JAX
+package's warning, once per network. Layerwise `pretrain` is not ported
+yet.
 
 Evaluation (`evaluate`, `evaluate_regression`, `evaluate_roc`,
 `evaluate_roc_multi_class`, `evaluate_calibration`) runs `output` on the
@@ -75,6 +83,7 @@ from deeplearning4j_tpu_torch.nn.dropout import Draws
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, iteration_scope
 from deeplearning4j_tpu_torch.nn.layers.output import BaseOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrent
+from deeplearning4j_tpu_torch.nn.regularization import apply_constraints
 
 Params = Dict[str, object]
 
@@ -121,6 +130,9 @@ class MultiLayerNetwork:
         self._updaters = self._resolve_updaters()
         self._rnn_carries: Optional[list] = None
         self._checked_bidir_tbptt = False
+        self._solver = None  # the line-search solver, built at first use
+        self._warned_sgd_fallback = False
+        self._window_replay = False  # set by a step window's replay
 
     def _resolve_updaters(self) -> List[upd_mod.Updater]:
         """Each layer's updater (its own, else the network default), with
@@ -331,9 +343,6 @@ class MultiLayerNetwork:
                 layer, self.conf.defaults, self._updaters[i], self.params[k],
                 g, self.opt_state[i], iteration)
 
-    def _check_trainable(self) -> None:
-        tr.check_trainable(self.conf.defaults)
-
     def _frozen_keys(self) -> frozenset:
         """The param keys of frozen layers: no leaves of the gradient."""
         return frozenset(_key(i) for i, l in enumerate(self.layers)
@@ -344,14 +353,18 @@ class MultiLayerNetwork:
         already there is used as it is (no copy)."""
         return None if a is None else tr.as_tensor(a).to(self.device)
 
-    def _step(self, x, y, fm, lm, carries=None) -> None:
-        """One updater step on one batch (or tBPTT window): loss, gradients,
-        updates, then `score_`, `last_batch_size`, `iteration` and the
-        listeners. With `carries` the recurrent layers start from them and
-        leave their new carries there, detached. Dropout and weight noise
-        draw from `draws.step()`, schedules at the step's iteration."""
+    def _device_step(self, x, y, fm, lm, carries=None,
+                     iteration: Optional[int] = None) -> torch.Tensor:
+        """The device half of one updater step: loss, gradients, updates
+        and running state, with no host read. Returns the score as a 0-d
+        tensor on the device. `iteration` (default `self.iteration`) is
+        the step's for the schedules and `iteration_scope`; a step window
+        passes it0 + j. With `carries` the recurrent layers start from
+        them and leave their new carries there, detached. Dropout and
+        weight noise draw from `draws.step()`."""
+        it = self.iteration if iteration is None else iteration
         rng = self.draws.step()
-        with iteration_scope(self.iteration):
+        with iteration_scope(it):
             score, new_state, grads = tr.value_and_grad(
                 lambda: self._loss(self.params, x, y, fm, lm,
                                    carries=carries, rng=rng),
@@ -359,23 +372,129 @@ class MultiLayerNetwork:
         if carries is not None:
             carries[:] = [tr.detach_carry(c) for c in carries]
         with torch.no_grad():
-            self._apply_updates(grads, self.iteration)
+            self._apply_updates(grads, it)
             self.state = {k: tr.detach(v) for k, v in new_state.items()}
-        self.score_ = float(score.detach())
-        self.last_batch_size = tr.batch_rows(x)
+        return score.detach()
+
+    def _bookkeep(self, score: float, rows: int) -> None:
+        """The host half of a step: `score_`, `last_batch_size`,
+        `iteration` and the listeners."""
+        self.score_ = score
+        self.last_batch_size = rows
         self.iteration += 1
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration, self.score_)
 
-    def _fit_batch(self, ds: DataSet) -> None:
-        """One updater step on `ds`, or one per window when it trains by
-        tBPTT (`_tbptt_batch`)."""
+    def _step(self, x, y, fm, lm, carries=None) -> None:
+        """One updater step on one batch (or tBPTT window): the device
+        step, one host read of its score, the bookkeeping."""
+        score = self._device_step(x, y, fm, lm, carries)
+        self._bookkeep(float(score), tr.batch_rows(x))
+
+    def _uses_solver(self) -> bool:
+        return self.conf.defaults.optimization_algo not in (
+            "stochastic_gradient_descent", "sgd")
+
+    def _fit_batch(self, ds: DataSet, solver: bool = True) -> None:
+        """One step on `ds`: per window when it trains by tBPTT
+        (`_tbptt_batch`), one solver iteration when the configuration
+        names a line-search solver (and `solver`; ParallelWrapper passes
+        False and takes the SGD step, as the JAX package's does), else
+        one updater step."""
         batch = [self._batch(a) for a in (ds.features, ds.labels,
                                           ds.features_mask, ds.labels_mask)]
         if self._tbptt_batch(ds):
             self._fit_tbptt(*batch)
+        elif solver and self._uses_solver():
+            self._fit_batch_solver(*batch)
         else:
             self._step(*batch)
+
+    def _warn_sgd_fallback(self) -> None:
+        """The JAX package's warning, once per network, where a path takes
+        the SGD updater step although the configuration names a
+        line-search solver (tBPTT, ParallelWrapper)."""
+        if self._uses_solver() and not self._warned_sgd_fallback:
+            self._warned_sgd_fallback = True
+            warnings.warn(
+                f"optimization_algo={self.conf.defaults.optimization_algo!r}"
+                " is only honored by MultiLayerNetwork.fit on 2D batches; "
+                "this path (tBPTT / ParallelWrapper / prebuilt train step) "
+                "uses the SGD updater step instead.", stacklevel=3)
+
+    def _fit_batch_solver(self, x, y, fm, lm) -> None:
+        """One iteration of the line-search solver named by
+        `optimization_algo` (Solver.java: ConjugateGradient, LBFGS,
+        LineGradientDescent; the JAX package's `_fit_batch_solver`). The
+        solver's curvature state persists across batches. Frozen layers
+        are left out of the optimized vector; per-layer gradient
+        normalization applies inside the value-and-gradient; after the
+        step the new params are copied into the live tensors, constraints
+        apply, and one more training forward at the new params refreshes
+        the running state (BatchNorm) where there is any. Every
+        evaluation of the iteration sees the same dropout masks and weight
+        noise (`nn.dropout.repeatable`), as the JAX package's one key."""
+        from deeplearning4j_tpu_torch.nn.dropout import repeatable
+
+        draws = repeatable(self.draws.step())
+        frozen = self._frozen_keys()
+        if self._solver is None:
+            self._solver = self._build_solver()
+        train_p = {k: v for k, v in self.params.items() if k not in frozen}
+        frozen_p = {k: v for k, v in self.params.items() if k in frozen}
+        for p in frozen_p.values():
+            for _, t in flat_items(p):
+                t.requires_grad_(False)
+        new_p, score = self._solver.optimize(train_p, frozen_p, x, y, fm,
+                                             lm, draws)
+        with torch.no_grad():
+            for k, p in new_p.items():
+                upd_mod.tree_map(lambda live, new: live.copy_(new),
+                                 self.params[k], p)
+                layer = self.layer(k)
+                if layer.constraints:
+                    upd_mod.tree_map(
+                        lambda live, c: live.copy_(c), self.params[k],
+                        apply_constraints(self.params[k], layer.constraints))
+            if any(self.state.values()):
+                _, new_state = self._loss(self.params, x, y, fm, lm,
+                                          train=True, rng=draws())
+                self.state = {k: tr.detach(v) for k, v in new_state.items()}
+        self._bookkeep(float(score), tr.batch_rows(x))
+
+    def _build_solver(self):
+        """The Solver of `optimization_algo` over the trainable params:
+        its value-and-gradient applies each layer's gradient
+        normalization, its line-search trials score under no_grad."""
+        from deeplearning4j_tpu_torch.optimize import solvers
+
+        d = self.conf.defaults
+
+        def loss(tp, fp, x, y, fm, lm, draws):
+            return self._loss({**fp, **tp}, x, y, fm, lm, train=True,
+                              rng=draws())
+
+        def value_and_grad(tp, fp, x, y, fm, lm, draws):
+            score, _, grads = tr.value_and_grad(
+                lambda: loss(tp, fp, x, y, fm, lm, draws), tp)
+            normed = {}
+            for k, g in grads.items():
+                layer = self.layer(k)
+                gn = (layer.gradient_normalization
+                      if layer.gradient_normalization is not None
+                      else d.gradient_normalization)
+                thr = (layer.gradient_normalization_threshold
+                       if layer.gradient_normalization_threshold is not None
+                       else d.gradient_normalization_threshold)
+                normed[k] = upd_mod.normalize_gradients(g, gn, thr)
+            return score, normed
+
+        lr = (d.updater.learning_rate if d.learning_rate is None
+              else d.learning_rate)
+        return solvers.Solver(
+            d.optimization_algo, value_and_grad, learning_rate=lr,
+            max_line_search_iterations=d.max_num_line_search_iterations,
+            score_fn=lambda *a: loss(*a)[0])
 
     def _tbptt_batch(self, ds: DataSet) -> bool:
         """Whether `ds` trains by tBPTT: the configuration asks for it and
@@ -408,12 +527,36 @@ class MultiLayerNetwork:
             self._step(window(x, sl), window(y, sl), window(fm, sl),
                        window(lm, sl), carries=carries)
 
+    def _engine_loop(self):
+        """This network's wiring of `training.engine.WindowedFitLoop`:
+        `stage` moves a batch to the device for a step window (None for a
+        tBPTT or solver batch, which runs through `_fit_batch` after the
+        pending window), the device step is `_device_step`."""
+        from deeplearning4j_tpu_torch.training.engine import WindowedFitLoop
+
+        def stage(ds):
+            if self._tbptt_batch(ds) or self._uses_solver():
+                return None
+            batch = tuple(self._batch(a) for a in (
+                ds.features, ds.labels, ds.features_mask, ds.labels_mask))
+            return batch, int(batch[0].shape[0])
+
+        return WindowedFitLoop(self, raw_step=self._device_step, stage=stage,
+                               exec_one=self._fit_batch)
+
     def _as_iterator(self, data, labels=None) -> DataSetIterator:
         """An iterator over `data`: a DataSetIterator wrapped in
         AsyncDataSetIterator where it allows it (the JAX package's
-        `_as_iterator`), a DataSet or (features, labels) as one batch."""
+        `_as_iterator`; its producer copies each batch to the card when
+        `DL4J_TPU_DEVICE_PREFETCH` is on), a DataSet or (features, labels)
+        as one batch."""
         if isinstance(data, DataSetIterator):
-            return prefetching(data)
+            from deeplearning4j_tpu_torch.training.engine import (
+                device_prefetch_place,
+            )
+
+            return prefetching(data, place=device_prefetch_place(
+                self.device))
         if isinstance(data, DataSet):
             return ListDataSetIterator(data, batch=data.num_examples())
         if labels is not None:
@@ -432,22 +575,23 @@ class MultiLayerNetwork:
         on_fit_end around the steps. After each step `score_` holds its
         loss (with the l1/l2 penalty), `last_batch_size` its rows, and
         every listener's `iteration_done(net, iteration, score)` has
-        run."""
+        run. `DL4J_TPU_STEP_WINDOW` > 1 runs the standard steps in
+        windows of that many with one host read each (`training.engine.
+        WindowedFitLoop`); a line-search `optimization_algo` takes one
+        solver iteration per batch that is not trained by tBPTT."""
         from deeplearning4j_tpu_torch.training.engine import TrainingRun
 
         if self.params is None:
             raise RuntimeError("call init() before fit()")
         run = TrainingRun(self, epochs=epochs, **attachments)
-        self._check_trainable()
+        if self.conf.defaults.backprop_type == "tbptt":
+            self._warn_sgd_fallback()
         iterator = self._as_iterator(data, labels)
-
-        def run_epoch(batches):
-            for ds in batches:
-                self._fit_batch(ds)
-
         # a prefetch producer started here is stopped here
-        return run.execute(run_epoch, iterator, cleanup=getattr(
-            iterator, "shutdown", None) if iterator is not data else None)
+        return run.execute(
+            self._engine_loop().run_epoch, iterator,
+            cleanup=(getattr(iterator, "shutdown", None)
+                     if iterator is not data else None))
 
     def score(self, ds: DataSet, training: bool = False) -> float:
         """The loss on a dataset (score(DataSet)), penalty included. With

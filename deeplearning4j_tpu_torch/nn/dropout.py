@@ -68,6 +68,25 @@ class Draws:
         return torch.randn(shape, generator=g, device=g.device, dtype=dtype)
 
 
+def repeatable(rng):
+    """A function returning `rng` (a step's draws) so that every call draws
+    the same masks and noise: a line-search solver evaluates one
+    iteration several times, and the JAX package hands every evaluation
+    the same key. For a `Draws` the generator is set back to its state at
+    this call before each return; a stand-in without a `generator` (the
+    JAX keys replayed) already draws the same from one step's object."""
+    gen = getattr(rng, "generator", None)
+    if gen is None:
+        return lambda: rng
+    start = gen.get_state()
+
+    def again():
+        gen.set_state(start)
+        return rng
+
+    return again
+
+
 def register_dropout(cls):
     _DROPOUT_TYPES[cls.__name__] = cls
     return cls

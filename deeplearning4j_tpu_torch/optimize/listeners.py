@@ -295,7 +295,17 @@ class CheckpointListener(TrainingListener):
 
     def iteration_done(self, model, iteration: int, score: float):
         if self.every_iter and iteration and iteration % self.every_iter == 0:
+            if getattr(model, "_window_replay", False):
+                # a step window's replay: the params are the window's end
+                # while `iteration` is inside it; save at the window's end
+                self._pending_iter = True
+                return
             self._save(model, f"iter_{iteration}")
+
+    def on_window_end(self, model):
+        if getattr(self, "_pending_iter", False):
+            self._pending_iter = False
+            self._save(model, f"iter_{model.iteration}")
 
     def on_epoch_end(self, model, epoch: int):
         if self.every_epoch and (epoch + 1) % self.every_epoch == 0:

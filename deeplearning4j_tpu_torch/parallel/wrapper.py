@@ -30,7 +30,12 @@ whole replica of the network, and computes the same step on purpose:
 
 So after each step every rank holds the same params, and `score_`,
 `last_batch_size` (the unpadded global batch) and the listeners see what a
-single-process `fit` on the global batch gives. Only the data axis is
+single-process `fit` on the global batch gives. A line-search
+`optimization_algo` takes the SGD updater step here, with the JAX
+package's warning once per network. Under `DL4J_TPU_STEP_WINDOW` = K > 1
+the engine's window stages K global batches, each rank's rows on the
+device with the batch's `BatchShard`, runs each one's shard step under its
+shard, and every rank reads the window's scores once. Only the data axis is
 ported (`parallel/mesh.py`); the model, seq, pipe and fsdp axes raise for
 ROADMAP A.9. The reduce waits for the whole backward (its overlap with the
 backward is queued as perf work).
@@ -138,29 +143,42 @@ class ParallelWrapper:
         An iterator is wrapped in AsyncDataSetIterator (depth
         `prefetch_buffer`) where it allows it. Returns the wrapped
         network."""
-        from deeplearning4j_tpu_torch.training.engine import TrainingRun
+        from deeplearning4j_tpu_torch.training.engine import (
+            TrainingRun,
+            WindowedFitLoop,
+            device_prefetch_place,
+        )
 
         model = self.model
         run = TrainingRun(model, epochs=epochs, **attachments)
-        model._check_trainable()
+        if not isinstance(model, ComputationGraph):
+            model._warn_sgd_fallback()
         batches = iterator
         if isinstance(iterator, DataSet):
             batches = ListDataSetIterator(iterator,
                                           batch=iterator.num_examples())
         elif isinstance(iterator, DataSetIterator):
-            batches = prefetching(iterator, self.prefetch_buffer)
+            batches = prefetching(iterator, self.prefetch_buffer,
+                                  place=device_prefetch_place(model.device))
+        loop = WindowedFitLoop(model, raw_step=self._shard_step,
+                               stage=self._stage, exec_one=self._fit_global)
 
         def run_epoch(epoch_batches):
-            for i, ds in enumerate(epoch_batches):
-                if i == 0:
-                    self._check_ranks_agree(ds)
-                self._fit_global(ds)
+            def checked():
+                for i, ds in enumerate(epoch_batches):
+                    if i == 0:
+                        self._check_ranks_agree(ds)
+                    yield ds
+
+            loop.run_epoch(checked())
 
         # a prefetch producer started here is stopped here
         return run.execute(run_epoch, batches, cleanup=getattr(
             batches, "shutdown", None) if batches is not iterator else None)
 
-    def _fit_global(self, ds: DataSet) -> None:
+    def _local(self, ds: DataSet):
+        """(this rank's rows of `ds` padded to a multiple of the ranks,
+        the batch's BatchShard)."""
         b, n = ds.num_examples(), self.mesh.size
         if b % n:
             ds = pad_batch(ds, n - b % n)
@@ -170,11 +188,45 @@ class ParallelWrapper:
         local = DataSet(*(None if a is None else a[shard.lo:shard.hi]
                           for a in (ds.features, ds.labels,
                                     ds.features_mask, ds.labels_mask)))
+        return local, shard
+
+    def _tbptt(self, ds) -> bool:
+        model = self.model
+        if isinstance(model, ComputationGraph):
+            return model._tbptt_mds(MultiDataSet.from_dataset(ds))
+        return model._tbptt_batch(ds)
+
+    def _fit_global(self, ds: DataSet) -> None:
+        """One step (or tBPTT windows) of the wrapped network on the
+        global batch `ds`, this rank's rows under its shard."""
+        local, shard = self._local(ds)
         with shard_mod.installed(shard):
             if isinstance(self.model, ComputationGraph):
                 self.model._fit_mds(MultiDataSet.from_dataset(local))
             else:
-                self.model._fit_batch(local)
+                self.model._fit_batch(local, solver=False)
+
+    def _stage(self, ds: DataSet):
+        """A step window's staging of a global batch: this rank's rows on
+        the device with the batch's shard, reporting the unpadded rows;
+        None for a tBPTT batch (its windows run through `_fit_global`)."""
+        if self._tbptt(ds):
+            return None
+        local, shard = self._local(ds)
+        model = self.model
+        if isinstance(model, ComputationGraph):
+            args = tuple(model._stage(MultiDataSet.from_dataset(local)))
+        else:
+            args = tuple(model._batch(a) for a in (
+                local.features, local.labels, local.features_mask,
+                local.labels_mask))
+        return (shard, args), shard.unpadded
+
+    def _shard_step(self, shard, args, iteration: int):
+        """The wrapped network's device step on staged rows, under their
+        shard (the gradients and the score summed over the ranks)."""
+        with shard_mod.installed(shard):
+            return self.model._device_step(*args, iteration=iteration)
 
     def _check_ranks_agree(self, ds: DataSet) -> None:
         """Raises ValueError unless every rank holds the same batch: per

@@ -375,6 +375,7 @@ class CheckpointListener(TrainingListener):
         self.every_epoch = max(0, int(save_every_n_epochs))
         self.every_seconds = float(save_every_n_seconds)
         self._last_save_time = time.monotonic()
+        self._pending: Optional[str] = None
         self.saved_paths: List[str] = []
 
     def _save(self, model, extra: Optional[Dict[str, Any]] = None) -> None:
@@ -394,7 +395,22 @@ class CheckpointListener(TrainingListener):
             trigger = "time"
         if trigger is None:
             return
+        if getattr(model, "_window_replay", False):
+            # a step window's replay: the params are the window's end
+            # while `iteration` is inside it, and a resume from that pair
+            # would apply the window's remaining steps twice. Save at the
+            # window's end (training/engine.py fires on_window_end)
+            self._pending = trigger
+            return
         self._save(model, extra={"trigger": trigger})
+
+    def on_window_end(self, model):
+        """A step window's end: (iteration, params) agree again; make the
+        save deferred from inside the window. The cadence rounds up to
+        the window's end; a resume equals the unbroken run."""
+        pending, self._pending = self._pending, None
+        if pending is not None and np.isfinite(model.score_):
+            self._save(model, extra={"trigger": pending})
 
     def on_epoch_end(self, model, epoch: int):
         if self.every_epoch and (epoch + 1) % self.every_epoch == 0:

@@ -1,8 +1,36 @@
-"""The outer fit lifecycle (counterpart of the `TrainingRun` half of
-deeplearning4j_tpu/training/engine.py). MultiLayerNetwork.fit,
-ComputationGraph.fit and ParallelWrapper.fit are thin facades: each hands
-its per-epoch loop (one `_fit_batch` / `_fit_mds` per batch) to a
-`TrainingRun`, which owns
+"""The fit loop and its lifecycle (counterpart of
+deeplearning4j_tpu/training/engine.py): step windows, device prefetch and
+`TrainingRun`.
+
+**Step windows.** `DL4J_TPU_STEP_WINDOW` = K > 1 rolls K standard steps
+into one window with one host read. `WindowedFitLoop` stages each batch on
+the device (`stage`), keeps staging while the batches' signature (shapes,
+dtypes, which masks are None) stays the same, and at K batches, at a
+change of signature, before a batch that takes its own path (a tBPTT or
+solver batch, through `exec_one`) and at the epoch's end flushes: every
+listener's `on_window_start`, the K device steps one after another with no
+host read (the torch counterpart of the JAX package's scan: step j gets
+iteration it0 + j for its schedules and `iteration_scope` and takes its
+own `draws.step()` in order, so a window of K equals K single steps bit
+for bit), one read of the K scores (`torch.stack(...).cpu()`), the replay
+of the scores through `iteration_done` with `model._window_replay` set
+(`score_`, `last_batch_size` and `iteration` advance per step; the replay
+stops when a listener rewinds `iteration`, as a sentry rollback does, so
+no listener sees the discarded steps), then `on_window_end`. Batches
+staged before an exception in the middle of an epoch are dropped. K = 1
+(the default) is the per-step loop: each batch through `exec_one`, one
+host read per step. The steps are not captured in a CUDA graph.
+
+**Device prefetch.** `DL4J_TPU_DEVICE_PREFETCH` on: `device_prefetch_place
+(device)` is the placer an AsyncDataSetIterator's producer runs. On a card
+it copies each array into pinned host memory, then to the card with
+`non_blocking=True` on a side stream owned by the producer, and records an
+event; the consumer (`datasets.iterators.arrive`) makes its current stream
+wait on the event and calls `record_stream` on each tensor before the
+batch is used, so no step reads a half-copied batch and the allocator
+does not hand the buffers out again while the step still reads them.
+
+**TrainingRun** owns the lifecycle of one fit() call:
 
   - resume and save cadence: `checkpoint_manager=` (a
     resilience.CheckpointManager, the one keyword every fit forwards here
@@ -21,30 +49,231 @@ its per-epoch loop (one `_fit_batch` / `_fit_mds` per batch) to a
   - a `cleanup` the facade passes (the prefetch producer it started is
     shut down whatever happens).
 
-The JAX engine's step windows (`DL4J_TPU_STEP_WINDOW` > 1) and device
-prefetch are not ported yet: a window above 1 raises NotImplementedError
-(ROADMAP A.7); unset or 1 is the per-step loop. Its telemetry, health,
-introspection, tuner and flight-recorder calls, and the fit-phase name
-(`phase`) that labels them, are not ported either (ROADMAP A.11).
+The JAX engine's telemetry spans, step histograms, health beats, tuner
+signals and flight records, `run_partition` and `master_session` are not
+ported (ROADMAP A.11); nor is `scan_carry_specs` (the fsdp layout, A.9).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from deeplearning4j_tpu_torch.optimize.listeners import fire_lifecycle
 from deeplearning4j_tpu_torch.util import envflags
 
 _WINDOW_GATE = "DL4J_TPU_STEP_WINDOW"
+_PREFETCH_GATE = "DL4J_TPU_DEVICE_PREFETCH"
 
 _ATTACHMENTS = ("checkpoint_manager",)
 
 
 def window_size(default: int = 1) -> int:
-    """Steps rolled into one dispatch (`DL4J_TPU_STEP_WINDOW`): 1 (the
+    """Steps rolled into one window (`DL4J_TPU_STEP_WINDOW`): 1 (the
     default, unset or unparsable) is the per-step loop."""
     return max(1, envflags.int_value(_WINDOW_GATE, default))
+
+
+def place_batch(ds, put: Callable):
+    """`put` applied to every array of a DataSet or MultiDataSet (masks
+    included, None passed through); any other value is `put` itself."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
+
+    def p(a):
+        return None if a is None else put(a)
+
+    if isinstance(ds, DataSet):
+        return DataSet(p(ds.features), p(ds.labels),
+                       p(ds.features_mask), p(ds.labels_mask))
+    if isinstance(ds, MultiDataSet):
+        return MultiDataSet(
+            [p(f) for f in ds.features], [p(l) for l in ds.labels],
+            ([p(m) for m in ds.features_masks]
+             if ds.features_masks is not None else None),
+            ([p(m) for m in ds.labels_masks]
+             if ds.labels_masks is not None else None))
+    return put(ds)
+
+
+def batch_tensors(ds) -> List[torch.Tensor]:
+    """The tensors of a DataSet or MultiDataSet (None skipped)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+
+    if isinstance(ds, MultiDataSet):
+        arrays = list(ds.features) + list(ds.labels) + list(
+            ds.features_masks or []) + list(ds.labels_masks or [])
+    else:
+        arrays = [ds.features, ds.labels, ds.features_mask, ds.labels_mask]
+    return [a for a in arrays if isinstance(a, torch.Tensor)]
+
+
+def to_device_async(device) -> Callable:
+    """A placer (DataSet -> DataSet) copying every array to `device`. On a
+    CUDA device: each array through pinned host memory onto the card with
+    `non_blocking=True`, on a side stream the placer owns, then an event;
+    the result carries `on_arrival`, which the consumer calls before it
+    uses the batch (`datasets.iterators.arrive`): its current stream waits
+    on the event and every tensor is `record_stream`-ed on it. On the CPU:
+    each array as a tensor, no arrival hook."""
+    from deeplearning4j_tpu_torch.models._training import as_tensor
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return lambda ds: place_batch(ds, lambda a: as_tensor(a).to(device))
+    side = []
+
+    def put(a):
+        t = as_tensor(a)
+        if t.device.type == "cpu":
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
+
+    def place(ds):
+        if not side:
+            side.append(torch.cuda.Stream(device))
+        stream = side[0]
+        with torch.cuda.stream(stream):
+            out = place_batch(ds, put)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        tensors = batch_tensors(out)
+
+        def on_arrival():
+            cur = torch.cuda.current_stream(device)
+            cur.wait_event(ready)
+            for t in tensors:
+                t.record_stream(cur)
+
+        out.on_arrival = on_arrival
+        return out
+
+    return place
+
+
+def device_prefetch_place(device=None) -> Optional[Callable]:
+    """The producer-side placer of `DL4J_TPU_DEVICE_PREFETCH` (default
+    off: None, batches stay on the host until the step copies them):
+    `to_device_async(device)`, `device` defaulting to the card."""
+    if not envflags.enabled(_PREFETCH_GATE, False):
+        return None
+    from deeplearning4j_tpu_torch import device as device_mod
+
+    return to_device_async(device_mod.resolve(device))
+
+
+def _signature(args) -> tuple:
+    """A hashable key of a staged batch: its structure with each tensor's
+    shape and dtype and each None in place. Batches window together only
+    when their keys are equal."""
+    if isinstance(args, (list, tuple)):
+        return (type(args).__name__,) + tuple(_signature(a) for a in args)
+    if isinstance(args, torch.Tensor):
+        return (tuple(args.shape), str(args.dtype), str(args.device))
+    return (args if args is None or isinstance(args, (int, float, str))
+            else type(args).__name__)
+
+
+class WindowedFitLoop:
+    """The inner epoch loop every fit path shares (the JAX package's).
+
+      exec_one(ds)      the path's own step on one batch (listeners fired
+                        inside): the K = 1 path and the fallback for
+                        batches `stage` refuses.
+      stage(ds)         -> (args, report_batch): the step's arguments on
+                        the device and the rows the step reports; None
+                        routes the batch through `exec_one` after the
+                        pending window.
+      raw_step(*args, iteration=it)
+                        the device step on staged args at iteration `it`:
+                        returns the score as a 0-d device tensor and
+                        leaves the bookkeeping to the loop.
+    """
+
+    def __init__(self, model, *, raw_step: Callable, stage: Callable,
+                 exec_one: Callable):
+        self.model = model
+        self.window = window_size()
+        self.raw_step = raw_step
+        self.stage = stage
+        self.exec_one = exec_one
+        self._buf: List[Tuple[tuple, int]] = []
+        self._buf_sig = None
+
+    def run_epoch(self, batches) -> None:
+        """One pass over `batches`; the pending window flushes before it
+        returns, so epoch-end hooks see every step applied. An exception
+        from the iterator or a step drops the staged batches (never
+        applied: a resumed fit replays the epoch from its checkpoint)."""
+        try:
+            for ds in batches:
+                self._consume(ds)
+        except BaseException:
+            self._buf = []
+            raise
+        self.flush()
+
+    def _consume(self, ds) -> None:
+        if self.window == 1:
+            self.exec_one(ds)
+            return
+        staged = self.stage(ds)
+        if staged is None:
+            # a batch of its own kind: apply the pending window first, so
+            # the steps keep their order
+            self.flush()
+            self.exec_one(ds)
+            return
+        args, report_batch = staged
+        sig = _signature(args)
+        if self._buf and sig != self._buf_sig:
+            self.flush()
+        self._buf.append((args, report_batch))
+        self._buf_sig = sig
+        if len(self._buf) >= self.window:
+            self.flush()
+
+    def flush(self) -> None:
+        """Run the pending window (a no-op when empty): `on_window_start`,
+        the steps, one read of their scores, the replay, `on_window_end`.
+        A window shorter than K (the epoch's tail, a change of signature)
+        runs at its own length."""
+        if not self._buf:
+            return
+        batch, self._buf = self._buf, []
+        m = self.model
+        for lst in m.listeners:
+            cb = getattr(lst, "on_window_start", None)
+            if cb is not None:
+                cb(m)
+        it0 = m.iteration
+        scores = [self.raw_step(*args, iteration=it0 + j)
+                  for j, (args, _) in enumerate(batch)]
+        # the window's one host read
+        host = torch.stack(scores).cpu().tolist()
+        # during the replay the params are the window's end while
+        # `iteration` walks through the steps: listeners that persist
+        # (iteration, params) pairs defer to on_window_end
+        m._window_replay = True
+        try:
+            expected = m.iteration
+            for (_, rows), s in zip(batch, host):
+                m.score_ = float(s)
+                m.last_batch_size = rows
+                m.iteration += 1
+                expected += 1
+                for lst in m.listeners:
+                    lst.iteration_done(m, m.iteration, m.score_)
+                if m.iteration != expected:
+                    # a listener rewound the network (a rollback): the
+                    # remaining scores are of discarded steps
+                    break
+        finally:
+            m._window_replay = False
+        for lst in m.listeners:
+            cb = getattr(lst, "on_window_end", None)
+            if cb is not None:
+                cb(m)
 
 
 def _fire_epoch(listeners, event: str, model) -> None:
@@ -63,11 +292,6 @@ class TrainingRun:
             raise TypeError(
                 f"fit() got unexpected keyword argument(s): {unknown}; "
                 f"engine attachments are {list(_ATTACHMENTS)}")
-        if window_size() > 1:
-            raise NotImplementedError(
-                f"{_WINDOW_GATE}={window_size()}: step windows are not "
-                f"ported yet (ROADMAP A.7); unset it or set 1 for the "
-                f"per-step loop")
         self.model = model
         self.manager = attachments.get("checkpoint_manager")
         if self.manager is not None:
@@ -82,8 +306,9 @@ class TrainingRun:
 
     def execute(self, run_epoch: Callable, batches, *,
                 cleanup: Optional[Callable] = None):
-        """Run the fit: `run_epoch(batches)` trains one pass, where
-        `batches` is the epoch's iterable or a zero-argument callable that
+        """Run the fit: `run_epoch` trains one pass of `batches` (a
+        WindowedFitLoop's `run_epoch`, or a function around one),
+        `batches` the epoch's iterable or a zero-argument callable that
         makes one per epoch. Returns the model."""
         m = self.model
         fire_lifecycle(m.listeners, "on_fit_start", m)

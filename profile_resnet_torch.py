@@ -10,14 +10,17 @@ with `--model train-resnet`; or, with
 `--model lstm-routes`, what the two LSTM kernel families cost; or, with
 `--model lstm-split`, where a step of the LSTM kernels goes; or, with
 `--model dp-resnet`, what ParallelWrapper's collectives add to a ResNet-50
-step at world size 1 over NCCL.
+step at world size 1 over NCCL; or, with `--model split-tf32`, what the
+kernels that split float32 into TF32 parts cost.
 
     python3 profile_resnet_torch.py [--model resnet50|transformer|lstm|
                                      serve-inception|
                                      train-lm|train-rnn|train-resnet|
-                                     lstm-routes|lstm-split|dp-resnet]
+                                     lstm-routes|lstm-split|dp-resnet|
+                                     split-tf32]
                                     [--batch N] [--length T] [--iters 20]
-                                    [--mixed] [--out profile_out]
+                                    [--mixed] [--parent DIR]
+                                    [--out profile_out]
 
 Builds the port's model on the card with random weights from a seed
 (ResNet-50: 1000 classes, 224x224x3, batch 32 by default; TransformerLM:
@@ -66,7 +69,17 @@ for rows 5 and 7 at (64, 64, 256) and (8, 4096, 256) and for rows 6 and 8
 at the training paths' shapes, the µs per step of each phase of the serial
 kernels' steps; with `--parent DIR` (a checkout of another commit) it
 first times rows 5 and 7 without probes against DIR's forward kernel, in
-turns, and says whether their outputs have the same bits.
+turns, and says whether their outputs have the same bits. `split-tf32`
+times the kernels that split float32 into TF32 parts (csrc/hopper_mma.cuh
+`split_tf32`): linear_xent's forward and backward at the TransformerLM's
+(8192, 512, 8192) and flash attention's forward, dq and dk/dv at (16, 8,
+512, 64) causal, float32 (3xTF32), device ms per call by CUDA events
+(chip_smoke.py `device_ms`), and feeds linear_xent two rows holding the
+NaNs the card's arithmetic makes (0x7fffffff and 0xffffffff), printing
+which rows come out NaN; with `--parent DIR` (for example `git archive
+<parent> | tar -x -C DIR`) it runs DIR, this checkout, this checkout, DIR,
+each in a process of its own with its kernels built from its sources, one
+line per run.
 """
 from __future__ import annotations
 
@@ -492,13 +505,81 @@ def by_launching_op(prof) -> dict:
     return out
 
 
+# ----------------------------------------------------- --model split-tf32
+def split_tf32(args) -> int:
+    """Runs `split_tf32_tree` on `args.tree`, or in a process of its own
+    on each of DIR, this checkout, this checkout, DIR (`--parent DIR`;
+    this checkout alone without it)."""
+    if args.tree is not None:
+        split_tf32_tree(os.path.abspath(args.tree))
+        return 0
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = ([args.parent, here, here, args.parent] if args.parent
+             else [here])
+    for tree in trees:
+        rc = subprocess.call([sys.executable, os.path.abspath(__file__),
+                              "--model", "split-tf32", "--tree", tree])
+        if rc:
+            return rc
+    return 0
+
+
+def split_tf32_tree(tree: str) -> None:
+    """The split-tf32 times and NaN rows of the kernels in `tree`."""
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    import torch
+
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.ops import _build
+
+    _build.build_all(["linear_xent", "flash_attention", "flash_attention_bwd"])
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import xent_kernel as xk
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    n, d, v = 8192, 512, 8192
+    x = torch.randn(n, d, generator=g, device=dev)
+    w = torch.randn(d, v, generator=g, device=dev) * d ** -0.5
+    b = torch.randn(v, generator=g, device=dev) * 0.1
+    lab = torch.nn.functional.one_hot(
+        torch.randint(0, v, (n,), generator=g, device=dev), v).float()
+    _, lse, ts, idx, oh = xk.linear_xent_fwd(x, w, b, lab)
+    gg = torch.ones(n, device=dev)
+    all_onehot = oh.min()
+    q, k, vv, do = (torch.randn(16, 8, 512, 64, generator=g, device=dev)
+                    for _ in range(4))
+    o, l = fa.flash_attention(q, k, vv, causal=True, return_lse=True)
+    delta = (do * o).sum(-1)
+    calls = {
+        "xent_fwd": lambda i: xk.linear_xent_fwd(x, w, b, lab),
+        "xent_bwd": lambda i: xk.linear_xent_bwd(x, w, b, lab, idx,
+                                                 all_onehot, lse, ts, gg),
+        "flash_fwd": lambda i: fa.flash_attention(q, k, vv, causal=True),
+        "flash_dq": lambda i: fa.flash_attention_bwd_dq(q, k, vv, do, l,
+                                                        delta),
+        "flash_dkv": lambda i: fa.flash_attention_bwd_dkv(q, k, vv, do, l,
+                                                          delta)}
+    ms = {name: cs.device_ms(torch, fn, 1, iters=50)
+          for name, fn in calls.items()}
+    xn = x[:64].clone()
+    xn.view(torch.int32)[3, 5] = 0x7fffffff
+    xn.view(torch.int32)[9, 0] = -1  # 0xffffffff
+    nan_rows = torch.isnan(xk.linear_xent_fwd(xn, w, b, lab[:64])[0])
+    print(f"{tree}: " + " ".join(f"{k} {t:.4f} ms" for k, t in ms.items())
+          + f"; NaN rows {nan_rows.nonzero().flatten().tolist()} of [3, 9] "
+          f"({cs.card_line()})", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("resnet50", "transformer", "lstm",
                                         "serve-inception",
                                         "train-lm", "train-rnn",
                                         "train-resnet", "lstm-routes",
-                                        "lstm-split", "dp-resnet"),
+                                        "lstm-split", "dp-resnet",
+                                        "split-tf32"),
                     default="resnet50")
     ap.add_argument("--batch", type=int, default=None,
                     help="rows per served batch (32 ResNet-50 and "
@@ -514,7 +595,10 @@ def main() -> int:
                     help="bf16 activations (dtypes.set_mixed_precision)")
     ap.add_argument("--parent", default=None,
                     help="lstm-split: also time the forward kernel against "
-                         "the one in this checkout of another commit")
+                         "the one in this checkout of another commit; "
+                         "split-tf32: time that checkout in turns with "
+                         "this one")
+    ap.add_argument("--tree", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default="profile_out",
                     help="directory for the per-kernel table (and "
                          "lstm-split's probed builds)")
@@ -527,6 +611,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_resnet_torch: no CUDA device", file=sys.stderr)
         return 2
+    if args.model == "split-tf32":
+        return split_tf32(args)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deeplearning4j_tpu_torch import dtypes
     from deeplearning4j_tpu_torch.zoo import (

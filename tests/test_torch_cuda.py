@@ -1406,3 +1406,158 @@ def test_evaluate_on_a_cuda_network(cuda):
                    - roc_cpu.calculate_average_auc()) <= 1e-3
         cal = card.evaluate_calibration(batches)
         assert int(cal.bin_count.sum()) == len(x) * 5
+
+
+def _char_rnn(device, t=24):
+    """The zoo TextGenerationLSTM at a cut width (GravesLSTM(32)), on
+    `device`: rows 5, 6, 9 and 10 on the card."""
+    conf = TextGenerationLSTM(num_classes=11, max_length=t, seed=3).conf()
+    for layer in conf.layers[:2]:
+        layer.n_out = 32
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+
+    return MultiLayerNetwork(conf).init(device=device)
+
+
+def _char_data(n=48, t=24, seed=6):
+    import numpy as np
+
+    ids = np.random.default_rng(seed).integers(0, 11, (n, t + 1))
+    eye = np.eye(11, dtype=np.float32)
+    return eye[ids[:, :t]], eye[ids[:, 1:]]
+
+
+@pytest.mark.cuda
+def test_step_window_on_the_card_equals_single_steps(cuda, monkeypatch):
+    """DL4J_TPU_STEP_WINDOW=4 on the card: the char-RNN's 6 steps per
+    epoch (a window of 4 and one of 2) equal the per-step loop's bit for
+    bit, params, slots and scores, with the kernels launched as often."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.optimize import CollectScoresListener
+
+    data = DataSet(*_char_data())
+    runs = []
+    for window in ("1", "4"):
+        monkeypatch.setenv("DL4J_TPU_STEP_WINDOW", window)
+        net, col = _char_rnn(cuda), CollectScoresListener()
+        net.set_listeners(col)
+        lstm_ops.lstm_scan.launches = 0
+        net.fit(ListDataSetIterator(data, batch=8), epochs=2)
+        torch.cuda.synchronize()
+        runs.append((net, col.scores, lstm_ops.lstm_scan.launches))
+    (a, sa, la), (b, sb, lb) = runs
+    assert sa == sb and len(sa) == 12 and la == lb == 24
+    ta, tb = a.get_param_table(), b.get_param_table()
+    for k in ta:
+        assert (ta[k] == tb[k]).all(), k
+    for x, y in zip(a.opt_state, b.opt_state):
+        for (p, u), (_, v) in zip(flat_items(x["g2"]), flat_items(y["g2"])):
+            assert torch.equal(u, v), p
+
+
+@pytest.mark.cuda
+def test_device_prefetch_side_stream_matches_a_synchronous_copy(
+        cuda, monkeypatch):
+    """The producer's copies (pinned memory, a side stream, an event the
+    consumer's stream waits on) hand the consumer the same bits as a
+    synchronous copy, while the consumer's stream is kept busy; and a fit
+    under DL4J_TPU_DEVICE_PREFETCH=1 equals one without, bit for bit."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import (
+        AsyncDataSetIterator,
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.training import engine
+
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(64, 256, 64)).astype(np.float32)
+    y = rng.normal(size=(64, 8)).astype(np.float32)
+    ait = AsyncDataSetIterator(ListDataSetIterator(DataSet(x, y), batch=8),
+                               queue_size=3,
+                               place=engine.to_device_async(cuda))
+    got = []
+    for ds in ait:
+        assert ds.features.is_cuda and ds.on_arrival is None
+        torch.cuda._sleep(1_000_000)  # the consumer's stream stays busy
+        got.append((ds.features * 1.0, ds.labels.clone()))
+    ait.shutdown()
+    torch.cuda.synchronize()
+    assert len(got) == 8
+    for i, (f, l) in enumerate(got):
+        assert torch.equal(f.cpu(), torch.from_numpy(x[8 * i:8 * i + 8]))
+        assert torch.equal(l.cpu(), torch.from_numpy(y[8 * i:8 * i + 8]))
+    data = DataSet(*_char_data(seed=9))
+    nets = []
+    for gate in ("0", "1"):
+        monkeypatch.setenv("DL4J_TPU_DEVICE_PREFETCH", gate)
+        net = _char_rnn(cuda)
+        net.fit(ListDataSetIterator(data, batch=8), epochs=2)
+        nets.append(net.get_param_table())
+    torch.cuda.synchronize()
+    for k in nets[0]:
+        assert (nets[0][k] == nets[1][k]).all(), k
+
+
+@pytest.mark.cuda
+def test_lbfgs_iteration_on_the_card_matches_the_cpu(cuda):
+    """Two LBFGS iterations of the char-RNN on the card (TF32 off), each
+    started from the CPU's params and solver state: the accepted alpha
+    equal, the params within 1e-5 of the largest."""
+    import json
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+
+    d = json.loads(_char_rnn("cpu").conf.to_json())
+    d["defaults"]["optimization_algo"] = "lbfgs"
+    card = MultiLayerNetwork(MultiLayerConfiguration.from_json(d)).init(
+        device=cuda)
+    cpu = MultiLayerNetwork(MultiLayerConfiguration.from_json(d)).init(
+        device="cpu")
+    x, y = _char_data(n=8)
+    with dtypes.full_precision():
+        for _ in range(2):
+            card.set_param_table(cpu.get_param_table())
+            if cpu._solver is not None:
+                card._solver.optimizer._solver_state = {
+                    k: v.to(cuda) if torch.is_tensor(v) else v
+                    for k, v in cpu._solver.optimizer._solver_state.items()}
+            cpu.fit(x, y)
+            card.fit(x, y)
+            torch.cuda.synchronize()
+            assert (card._solver.optimizer.last_alpha
+                    == cpu._solver.optimizer.last_alpha)
+            a, b = card.get_param_table(), cpu.get_param_table()
+            top = max(abs(v).max() for v in b.values())
+            for k in a:
+                assert abs(a[k] - b[k]).max() <= 1e-5 * top, k
+
+
+@pytest.mark.cuda
+def test_tf32_split_keeps_the_cards_nan(cuda):
+    """The NaN the card's arithmetic makes (0x7fffffff) in x keeps its
+    row's loss NaN through linear_xent's 3xTF32 products (it used to round
+    to -0.0 there and read as zero), and the char-RNN's score on a batch
+    of NaN features is NaN on the card, as on the CPU."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.ops import xent_kernel as xk
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(64, 256, generator=g, device=cuda)
+    bits = x.view(torch.int32)
+    bits[3, 5] = 0x7fffffff
+    bits[9, 0] = -1  # 0xffffffff
+    w = torch.randn(256, 77, generator=g, device=cuda) * 0.05
+    b = torch.zeros(77, device=cuda)
+    labels = torch.nn.functional.one_hot(
+        torch.arange(64, device=cuda) % 77, 77).float()
+    per_row = xk.linear_xent_fwd(x, w, b, labels)[0]
+    torch.cuda.synchronize()
+    nan = torch.isnan(per_row).cpu()
+    assert nan[3] and nan[9] and int(nan.sum()) == 2
+    for device in (cuda, "cpu"):
+        net = _char_rnn(device)
+        x, y = _char_data(n=8)
+        assert np.isnan(net.score(DataSet(np.full_like(x, np.nan), y)))

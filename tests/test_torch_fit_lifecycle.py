@@ -1,7 +1,7 @@
 """The fit lifecycle slice against the JAX package: the listeners' events in
 JAX's order (MultiLayerNetwork, tBPTT, ComputationGraph, ParallelWrapper
-at one rank), on_fit_end on a failing step, the engine's keyword and
-window refusals, the standard listeners, CheckpointManager resume and
+at one rank), on_fit_end on a failing step, the engine's keyword
+refusal and its step windows, the standard listeners, CheckpointManager resume and
 checkpoints crossing the packages in both directions, and the iterators
 (AsyncDataSetIterator's teardown: early break, reset mid-epoch, a producer
 that raises).
@@ -308,13 +308,20 @@ def test_unknown_fit_keyword_raises_jax_type_error(graph):
 
 
 def test_step_window_above_one_is_refused(monkeypatch):
+    """Step windows are ported now (tests/test_torch_engine_windows.py):
+    DL4J_TPU_STEP_WINDOW=4 is no longer refused and gives the per-step
+    loop's params bit for bit; 1 is the per-step loop."""
     _, net = _pair(_dense_json())
+    _, control = _pair(_dense_json())
     monkeypatch.setenv("DL4J_TPU_STEP_WINDOW", "4")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        net.fit(*_ff_data())
+    net.fit(ListDataSetIterator(DataSet(*_ff_data()), batch=5))
+    assert net.iteration == 6 and tengine.window_size() == 4
     monkeypatch.setenv("DL4J_TPU_STEP_WINDOW", "1")
-    net.fit(*_ff_data())
-    assert net.iteration == 1 and tengine.window_size() == 1
+    control.fit(ListDataSetIterator(DataSet(*_ff_data()), batch=5))
+    assert control.iteration == 6 and tengine.window_size() == 1
+    want = control.get_param_table()
+    for k, v in net.get_param_table().items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
 
 
 # ---------------------------------------------------------------- listeners

@@ -464,15 +464,14 @@ def test_graph_opt_state_round_trips_and_a_jax_run_resumes_in_the_port():
 @pytest.mark.parametrize("where", ["dropout", "weight_noise", "solver",
                                    "masks", "tbptt"])
 def test_graph_fit_refuses_what_it_does_not_train(where):
-    """fit refuses what it does not train (the line-search solvers) and
-    leaves the network as it was. Dropout on a conv vertex, DropConnect on
-    the Output vertex, a labels mask (one row out of the loss) and a tBPTT
-    configuration (whose 2-D labels train the whole batch) train now: 3
-    steps with the JAX graph's keys replayed into the port's draws, against
-    the JAX fit."""
+    """Each of these trains as the JAX graph does, so fit refuses none of
+    them: dropout on a conv vertex, DropConnect on the Output vertex, a
+    line-search optimization_algo (the JAX graph has no solver path and
+    takes its SGD updater step, as the port's does), a labels mask (one
+    row out of the loss) and a tBPTT configuration (whose 2-D labels train
+    the whole batch): 3 steps with the JAX graph's keys replayed into the
+    port's draws, against the JAX fit."""
     d = json.loads(_small_graph_json())
-    x, y = _batch(0)
-    data = DataSet(x, y)
     if where == "dropout":
         d["vertices"]["b0_a_conv"]["layer"]["dropout"] = 0.9
     elif where == "weight_noise":
@@ -486,45 +485,34 @@ def test_graph_fit_refuses_what_it_does_not_train(where):
     if where == "masks":
         lm = np.ones((4, 1), np.float32)
         lm[1] = 0.0
-    if where != "solver":
-        jnet, tnet = _pair(json.dumps(d))
-        tnet.draws = JaxKeys.for_net(d["defaults"]["seed"])
+    jnet, tnet = _pair(json.dumps(d))
+    tnet.draws = JaxKeys.for_net(d["defaults"]["seed"])
+    for step in range(3):
+        x, y = _batch(30 + step)
+        jnet.fit(jds.DataSet(x, y, None, lm))
+        tnet.fit(DataSet(x, y, None, lm))
+        assert abs(tnet.score_ - jnet.score_) <= 1e-5 * abs(
+            jnet.score_), (step, tnet.score_, jnet.score_)
+    assert tnet.iteration == jnet.iteration == 3
+    if where in ("tbptt", "solver"):
+        # the standard step, bit for bit: the same graph without the
+        # tBPTT or solver configuration on the same batches (whose params are
+        # 1.1e-5 from JAX's after these 3 train-mode steps, ROADMAP
+        # C.4; test_small_graph_fit_matches_jax_step_by_step holds
+        # that step to JAX)
+        _, plain = _pair(_small_graph_json())
         for step in range(3):
-            x, y = _batch(30 + step)
-            jnet.fit(jds.DataSet(x, y, None, lm))
-            tnet.fit(DataSet(x, y, None, lm))
-            assert abs(tnet.score_ - jnet.score_) <= 1e-5 * abs(
-                jnet.score_), (step, tnet.score_, jnet.score_)
-        assert tnet.iteration == jnet.iteration == 3
-        if where == "tbptt":
-            # the standard step, bit for bit: the same graph without the
-            # tBPTT configuration on the same batches (whose params are
-            # 1.1e-5 from JAX's after these 3 train-mode steps, ROADMAP
-            # C.4; test_small_graph_fit_matches_jax_step_by_step holds
-            # that step to JAX)
-            _, plain = _pair(_small_graph_json())
-            for step in range(3):
-                plain.fit(DataSet(*_batch(30 + step)))
-            want = plain.get_param_table()
-            for k, v in tnet.get_param_table().items():
-                np.testing.assert_array_equal(v, want[k], err_msg=k)
-            return
-        jt, tt = jnet.get_param_table(), tnet.get_param_table()
-        worst = max(float(np.abs(tt[k] - np.asarray(jt[k])).max())
-                    for k in jt)
-        assert worst <= 1e-5, worst
-        assert _state_err(jnet, tnet) <= 1e-4
-        assert max(_slot_errs(jnet, tnet).values()) <= 1e-4
+            plain.fit(DataSet(*_batch(30 + step)))
+        want = plain.get_param_table()
+        for k, v in tnet.get_param_table().items():
+            np.testing.assert_array_equal(v, want[k], err_msg=k)
         return
-    net = ComputationGraph(
-        ComputationGraphConfiguration.from_json(json.dumps(d))).init(
-        device="cpu")
-    before = net.get_param_table()
-    with pytest.raises(NotImplementedError):
-        net.fit(data)
-    after = net.get_param_table()
-    assert all(np.array_equal(before[k], after[k]) for k in before)
-    assert net.iteration == 0
+    jt, tt = jnet.get_param_table(), tnet.get_param_table()
+    worst = max(float(np.abs(tt[k] - np.asarray(jt[k])).max())
+                for k in jt)
+    assert worst <= 1e-5, worst
+    assert _state_err(jnet, tnet) <= 1e-4
+    assert max(_slot_errs(jnet, tnet).values()) <= 1e-4
 
 
 def test_graph_config_json_matches_jax_and_penalty_skips_biases():

@@ -491,8 +491,8 @@ def test_fit_takes_features_and_labels_and_frozen_layers_stay():
 @pytest.mark.parametrize("where", ["block_dropout", "attn_dropout",
                                    "weight_noise", "solver", "tbptt"])
 def test_fit_refuses_what_it_does_not_train(where):
-    """fit refuses what it does not train (the line-search solvers) and
-    leaves the network as it was. The other cases train now. The
+    """fit refuses none of these: each trains as the JAX package's does.
+    solver: 2 LBFGS iterations (one per batch) against the JAX fit. The
     TransformerBlock's FFN dropout, a MultiHeadAttention's attn_dropout and
     DropConnect on a block's weights: 3 Adam steps with the JAX network's
     keys replayed into the port's draws, against the JAX fit. tbptt: the
@@ -534,11 +534,13 @@ def test_fit_refuses_what_it_does_not_train(where):
         assert abs(tnet.score_ - jnet.score_) <= 1e-5 * abs(jnet.score_)
         _compare_nets(jnet, tnet, param_tol=5e-5)
         return
-    net = MultiLayerNetwork(MultiLayerConfiguration.from_json(d)).init(
-        device="cpu")
-    before = net.get_param_table()
-    with pytest.raises(NotImplementedError):
-        net.fit(DataSet(*_lm_batch(0)))
-    after = net.get_param_table()
-    assert all(np.array_equal(before[k], after[k]) for k in before)
-    assert net.iteration == 0
+    # solver: the line-search solvers train now (tests/test_torch_solvers
+    # .py): 2 LBFGS iterations against the JAX network's solver path
+    jnet, tnet = _pair(json.dumps(d))
+    for step in range(2):
+        x, y = _lm_batch(20 + step)
+        jnet.fit(jds_mod.DataSet(x, y))
+        tnet.fit(DataSet(x, y))
+        assert abs(tnet.score_ - jnet.score_) <= 1e-5 * abs(
+            jnet.score_), (step, tnet.score_, jnet.score_)
+    _compare_nets(jnet, tnet, param_tol=5e-5)

@@ -11,7 +11,8 @@ network's), the data (.npz: x, y and optional fm, lm), the iterator's
 batch and epochs, an optional tape of draws to replay, and where to write
 what the rank ends with (.npz): its param table ("param/..."), updater
 slots ("slot/..."), running state ("state/..."), per-step scores,
-iteration, epoch and last_batch_size, and the wrapper's reduce counts.
+iteration, epoch and last_batch_size, the wrapper's reduce counts and
+the step windows it ran (the environment's DL4J_TPU_STEP_WINDOW).
 
 Variants, for the tests that must see a fault: "per_rank_bn" takes
 BatchNorm's statistics over the rank's rows only (what a wrapper without
@@ -163,9 +164,13 @@ def dataset(spec):
 class Scores:
     def __init__(self):
         self.scores = []
+        self.windows = 0  # step windows run (DL4J_TPU_STEP_WINDOW > 1)
 
     def iteration_done(self, net, iteration, score):
         self.scores.append(score)
+
+    def on_window_start(self, net):
+        self.windows += 1
 
 
 def results(net, scores, stats=None):
@@ -240,7 +245,8 @@ def main(spec_path):
         if spec.get("tape") and net.draws.tape:
             raise AssertionError(f"{len(net.draws.tape)} recorded draws "
                                  f"left over")
-        np.savez(spec["out"], **results(net, log.scores, pw.stats))
+        np.savez(spec["out"], windows=log.windows,
+                 **results(net, log.scores, pw.stats))
     finally:
         torch.distributed.destroy_process_group()
 
