@@ -424,6 +424,50 @@ Phases, in order; any failure exits non-zero without the final line:
               prefetch_to_device -> LeNet, one epoch: bit for bit fit on
               the same arrays; images per second from files and from
               arrays.
+ 54. layers-a8  each layer of ROADMAP A.8's first half (Deconv2D in both
+              modes at k 2, 3, 4, stride 1, 2, pad 0, 1; SeparableConv2D
+              with depth multiplier 2, "same", stride 2, dilation 2;
+              Conv1D "same" at stride 2; pnorm pooling over a window of
+              zeros; sum and 1-D pools; upsampling; zero padding;
+              ElementWiseMultiplication), forward and gradients on the card
+              (TF32 off, deterministic cuDNN) against the CPU port at
+              small shapes, 1e-5 of the largest magnitude, NaN gradients
+              at the same positions.
+ 55. keras-a8  two Keras files written with the port's HDF5 writer
+              (Conv2D -> ZeroPadding2D -> SeparableConv2D -> UpSampling2D
+              -> Conv2DTranspose; Conv1D -> MaxPooling1D -> UpSampling1D ->
+              ZeroPadding1D) imported onto the card and the CPU, the card's
+              served through InferenceServer (batch limit 8): every answer
+              within 1e-5 of the CPU import (TF32 off).
+ 56. train-tinyyolo, serve-tinyyolo, refer-tinyyolo  zoo TinyYOLO (20
+              classes, 416x416x3, 13x13 grid, 5 anchors) trained by fit at
+              batch 16 with Adam on seeded images with 1-4 boxes each (10
+              mixed, 5 TF32 steps; step ms, images/s), served through
+              InferenceServer (batch limit 16; answers against net.output;
+              decode with the threshold on the host and on the card, NMS on
+              the host, ms per batch), then 3 steps at batch 4 card (TF32
+              off, deterministic cuDNN) vs CPU, each from the same point.
+              No TPU kernel runs here (leaky BatchNorm takes the plain
+              epilogue).
+ 57. train-googlenet  zoo GoogLeNet (224x224x3, 1000 classes, dropout 0.4,
+              two LRNs) at batch 64, 10 mixed and 5 TF32 steps; rows 9 and
+              10 once each per step at (64, 1024, 1000).
+ 58. kernel-vit, train-vit  rows 2-4 non-causal at ViT's (256, 4, 64, 32)
+              and rows 9-10 at (64, 1024, 1000) and (256, 128, 10) against
+              their plain versions (kernel / plain / library / bound ms);
+              zoo VisionTransformer (32x32x3, patch 4, d_model 128, 4
+              heads, 4 blocks, 10 classes) at batch 256, 20 mixed and 5
+              TF32 steps, per step 4 flash forward, 4 dq, 4 dk/dv, 1 + 1
+              xent.
+ 59. train-facenet  zoo FaceNetNN4Small2 (96x96x3, 1000 classes, a
+              128-wide embedding into CenterLossOutput) at batch 64, 10
+              Adam steps under TF32; the centers of the batch's classes
+              move and no other; then 3 steps card (TF32 off) vs CPU from
+              the same point: score, changes, Adam slots and centers.
+ 60. serve-darknet19, serve-irv1  zoo Darknet19 and InceptionResNetV1 at
+              224x224x3 behind InferenceServer (batch limit 32), softmax
+              rows against net.output, then one TF32-off forward at 2 rows
+              against the CPU port, every activation within 1e-4.
 
 The characters the training phases learn are drawn with Zipf frequencies,
 so that a falling loss shows learning; their shapes are bench.py
@@ -432,7 +476,8 @@ bench_lstm's.
 Every kernel's launch count is set to 0 just before each serve phase, the
 generation run, each training run (the data-parallel ones too), the
 restore-and-resume runs, each evaluation pass and each solver, window,
-sentry and records run, and read just after. The
+sentry and records run, and each serving or training run of A.8's paths,
+and read just after. The
 last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 Exits non-zero when no CUDA device is available, and when the port's
@@ -794,11 +839,12 @@ def flash_broken(torch, q, k, causal, ref):
     return broken
 
 
-def phase_flash(torch, bw, peak, peak_bf16, peak_tf32):
-    """flash_attention against its plain version at FLASH_CASES, float32
-    and bfloat16, with and without lse, and proof that the comparison
-    rejects a broken output. Returns the served case's float32 row (per
-    launch) and the largest absolute error of any case."""
+def phase_flash(torch, bw, peak, peak_bf16, peak_tf32, cases=FLASH_CASES,
+                tag="kernel"):
+    """flash_attention against its plain version at `cases`, float32 and
+    bfloat16, with and without lse, and proof that the comparison rejects
+    a broken output. Returns the first case's float32 row (per launch) and
+    the largest absolute error of any case."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa_library
 
     from deeplearning4j_tpu_torch.ops.flash_attention import (
@@ -809,7 +855,7 @@ def phase_flash(torch, bw, peak, peak_bf16, peak_tf32):
     # the library yardstick computes in full float32 too
     torch.backends.cuda.matmul.allow_tf32 = False
     served, max_err, checked, rejected = None, 0.0, 0, 0
-    for b, h, t, d, causal in FLASH_CASES:
+    for b, h, t, d, causal in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype)[6:]
             item = torch.empty((), dtype=dtype).element_size()
@@ -860,7 +906,7 @@ def phase_flash(torch, bw, peak, peak_bf16, peak_tf32):
                                                               peak_bf16)
                 b_ms = max(moved / bw, work / rate) * 1e3
                 by = "bytes" if moved / bw >= work / rate else "operations"
-                log(f"[kernel] flash_attention {dname:8s} b={b:2d} h={h} "
+                log(f"[{tag}] flash_attention {dname:8s} b={b:2d} h={h} "
                     f"t={t:3d} d={d:3d} {'causal' if causal else 'full  '} "
                     f"lse={int(lse)}  max_err={err:.3g} (tol "
                     f"{FLASH_TOL[dname]:g} x {mag:.3g})  lse_err="
@@ -868,13 +914,13 @@ def phase_flash(torch, bw, peak, peak_bf16, peak_tf32):
                     f"ms  library[scaled_dot_product_attention]={l_ms:.4f} "
                     f"ms  bound={b_ms:.4f} ms ({by}"
                     f"{', 3xTF32' if f32 else ''})")
-                if (b, h, t, d, causal) == FLASH_CASES[0] and not lse \
+                if (b, h, t, d, causal) == cases[0] and not lse \
                         and f32:
                     served = {"ms": k_ms, "plain_ms": p_ms,
                               "library_ms": l_ms, "bound_ms": b_ms,
                               "bound_by": by}
             del qkv
-    log(f"[kernel] verdict: flash_attention agrees with its plain version "
+    log(f"[{tag}] verdict: flash_attention agrees with its plain version "
         f"in {checked}/{checked} (shape, dtype, lse) cases, max abs error "
         f"{max_err:.3g} (tol float32 1e-5, bfloat16 2e-2, x max|o|; lse "
         f"1e-5 x max(1, |lse|)); {rejected} broken outputs rejected (a "
@@ -884,11 +930,21 @@ def phase_flash(torch, bw, peak, peak_bf16, peak_tf32):
 
 
 # ---------------------------------------------------------------- phase 3
-def phase_serve(torch, np, net, card, bn_per_forward=53, rows=None,
-                tag="serve"):
-    """`net` behind InferenceServer(batch_limit=BATCH); `rows(rng, n)` makes
-    n input rows (standard normal by default). bn_act must run
-    `bn_per_forward` times per dispatched batch."""
+def phase_serve(torch, np, net, card, rows=None, tag="serve", limit=BATCH,
+                per_batch=None, rel_tol=None, softmax=True, n_stream=96):
+    """`net` behind InferenceServer(batch_limit=limit): warmed up,
+    concurrent requests of 1, 3, 8 and `limit` rows, then a stream of
+    `n_stream` `limit`-row requests from 4 threads. `rows(rng, n)` makes n
+    input rows (standard normal at the graph's input type by default).
+    Each dispatched batch must launch `per_batch` (kernel -> launches;
+    default bn_act's 53 of a ResNet-50 forward, which must be the
+    network's own count of bn_act calls). Every answer is finite, of
+    net.output's shape, and within 2e-3 of net.output on the same rows
+    with the same argmax or, with `rel_tol`, within `rel_tol` of its
+    largest magnitude (TF32 convolutions: cuDNN may pick another
+    algorithm for the padded bucket than for n rows alone); with
+    `softmax`, its rows sum to 1. Returns (launches, [(x, answer)] of the
+    first requests)."""
     from deeplearning4j_tpu_torch.serving import InferenceServer
 
     rng = np.random.default_rng(SEED)
@@ -900,15 +956,17 @@ def phase_serve(torch, np, net, card, bn_per_forward=53, rows=None,
         return direct(x)
 
     net.output = counted_output  # counts the server's dispatched batches
-    t_in = net.conf.input_types[0]
-    shape = (t_in.height, t_in.width, t_in.channels)
-    classes = net.vertex_types[net.conf.network_outputs[0]].size
-    sizes = (1, 3, 8, 32)
+    if per_batch is None:
+        per_batch = {"bn_act": 53}
+    sizes = (1, 3, 8, limit)
     if rows is None:
+        t_in = net.conf.input_types[0]
+        shape = (t_in.height, t_in.width, t_in.channels)
+
         def rows(rng, n):
             return rng.standard_normal((n, *shape)).astype(np.float32)
     xs = [rows(rng, n) for n in sizes]
-    stream = [rows(rng, BATCH) for _ in range(4)]
+    stream = [rows(rng, limit) for _ in range(4)]
 
     def timed(x):
         t0 = time.perf_counter()
@@ -917,7 +975,7 @@ def phase_serve(torch, np, net, card, bn_per_forward=53, rows=None,
 
     reset_counts()
     t0 = time.perf_counter()
-    server = InferenceServer(model=net, batch_limit=BATCH)
+    server = InferenceServer(model=net, batch_limit=limit)
     try:
         server.warmup(xs[0])
         torch.cuda.synchronize()
@@ -925,7 +983,6 @@ def phase_serve(torch, np, net, card, bn_per_forward=53, rows=None,
             f"{time.perf_counter() - t0:.2f} s")
         with ThreadPoolExecutor(len(sizes)) as pool:
             first = list(pool.map(timed, xs))
-        n_stream = 96
         t1 = time.perf_counter()
         with ThreadPoolExecutor(4) as pool:
             streamed = list(pool.map(timed, [stream[i % len(stream)]
@@ -935,75 +992,87 @@ def phase_serve(torch, np, net, card, bn_per_forward=53, rows=None,
         server.shutdown()
         net.output = direct
     launches = read_counts()
-    per_forward = sum(n for *_, n in bn_cases(net, 1))
-    log(f"[{tag}] {forwards[0]} batches dispatched, launches {launches} "
-        f"(bn_act {per_forward} per forward)")
-    if per_forward != bn_per_forward or forwards[0] == 0 or \
-            launches["bn_act"] != per_forward * forwards[0]:
-        raise AssertionError(
-            f"bn_act launches {launches['bn_act']} != {bn_per_forward} x "
-            f"{forwards[0]} dispatched batches")
+    log(f"[{tag}] {forwards[0]} batches dispatched (warmup included), "
+        f"launches {launches} ({per_batch} per forward)")
+    if "bn_act" in per_batch:
+        own = sum(n for *_, n in bn_cases(net, 1))
+        if own != per_batch["bn_act"]:
+            raise AssertionError(f"{tag}: the network makes {own} bn_act "
+                                 f"calls per forward, not "
+                                 f"{per_batch['bn_act']}")
+    if forwards[0] == 0:
+        raise AssertionError(f"{tag}: no batch dispatched")
+    expect_launches(tag, launches, {k: v * forwards[0]
+                                    for k, v in per_batch.items()})
 
     for x, (out, lat) in zip(xs, first):
         n = x.shape[0]
-        if out.shape != (n, classes) or not np.isfinite(out).all():
-            raise AssertionError(f"request of {n} rows: bad output "
-                                 f"{out.shape}")
-        if np.abs(out.sum(axis=1) - 1.0).max() > 1e-4:
-            raise AssertionError(f"request of {n} rows: softmax rows do "
-                                 f"not sum to 1")
         ref = direct(x).cpu().numpy()
+        if out.shape != ref.shape or not np.isfinite(out).all():
+            raise AssertionError(f"{tag}: request of {n} rows: bad output "
+                                 f"{out.shape}, net.output {ref.shape}")
+        if softmax and np.abs(out.sum(axis=1) - 1.0).max() > 1e-4:
+            raise AssertionError(f"{tag}: request of {n} rows: softmax "
+                                 f"rows do not sum to 1")
         diff = float(np.abs(out - ref).max())
-        # TF32 convolutions: cuDNN may pick another algorithm for the
-        # padded bucket than for n rows alone
-        if diff > 2e-3 or (out.argmax(1) != ref.argmax(1)).any():
-            raise AssertionError(f"request of {n} rows: server and "
-                                 f"net.output differ by {diff}")
+        if rel_tol is None:
+            what = f"max |server - net.output| = {diff:.3g}"
+            bad = diff > 2e-3 or (out.argmax(1) != ref.argmax(1)).any()
+        else:
+            rel = diff / max(float(np.abs(ref).max()), 1e-30)
+            what = (f"|server - net.output| {rel:.3g} of its largest (tol "
+                    f"{rel_tol:g})")
+            bad = not rel <= rel_tol
+        if bad:
+            raise AssertionError(f"{tag}: request of {n} rows: server and "
+                                 f"net.output differ: {what}")
         log(f"[{tag}] request rows={n:2d} latency={lat * 1e3:.2f} ms  "
-            f"max |server - net.output| = {diff:.3g}  ({card})")
+            f"{what}  ({card})")
     lats = sorted(lat for _, lat in streamed)
     for out, _ in streamed:
-        if out.shape != (BATCH, classes) or not np.isfinite(out).all():
-            raise AssertionError("streamed request: bad output")
-    img_s = n_stream * BATCH / wall
-    log(f"[{tag}] stream: {n_stream} requests x {BATCH} rows in "
+        if out.shape[0] != limit or not np.isfinite(out).all():
+            raise AssertionError(f"{tag}: streamed request: bad output")
+    img_s = n_stream * limit / wall
+    log(f"[{tag}] stream: {n_stream} requests x {limit} rows in "
         f"{wall:.3f} s = {img_s:.1f} img/s, latency p50 "
         f"{lats[len(lats) // 2] * 1e3:.2f} ms, max {lats[-1] * 1e3:.2f} ms "
         f"({card})")
-    return launches
+    return launches, [(x, out) for x, (out, _) in zip(xs, first)]
 
 
 # ---------------------------------------------------------------- phase 4
 def phase_reference(torch, np, net, cpu_net=None, x=None, tag="refer"):
     """`net` on the card with TF32 off against `cpu_net` (default: the same
-    config and seed on the CPU) at every vertex, on `x` (default: 2
-    standard normal rows)."""
+    graph config and seed on the CPU) at every activation of feed_forward,
+    on `x` (default: 2 standard normal rows of the graph's input type)."""
     from deeplearning4j_tpu_torch import dtypes
     from deeplearning4j_tpu_torch.models import ComputationGraph
 
     if cpu_net is None:
         # same config, same seed: the same weights, drawn on the CPU
         cpu_net = ComputationGraph(net.conf).init(device="cpu")
-    t_in = net.conf.input_types[0]
     if x is None:
+        t_in = net.conf.input_types[0]
         x = np.random.default_rng(SEED + 1).standard_normal(
             (2, t_in.height, t_in.width, t_in.channels)).astype(np.float32)
     with dtypes.full_precision():
         gpu_acts = net.feed_forward(x)
     cpu_acts = cpu_net.feed_forward(x)
+    names = ["in"] + getattr(net, "topo", list(range(len(cpu_acts) - 1)))
     worst = 0.0
-    for name, a, b in zip(["in"] + net.topo, gpu_acts, cpu_acts):
-        a, b = a.cpu().numpy(), b.numpy()
+    for name, a, b in zip(names, gpu_acts, cpu_acts):
+        a, b = a.float().cpu().numpy(), b.numpy()
         rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
         worst = max(worst, rel)
         # float32 sums in another order on each device, over 50-100 layers
         if a.shape != b.shape or not rel <= 1e-4:
-            raise AssertionError(f"vertex {name}: card and CPU differ, "
-                                 f"relative {rel:.3g}")
+            raise AssertionError(f"{tag}: activation {name}: card and CPU "
+                                 f"differ, relative {rel:.3g}")
     tf32 = net.output(x).cpu().numpy()
-    log(f"[{tag}] {len(cpu_acts)} activations, card (TF32 off) vs CPU: worst "
-        f"relative difference {worst:.3g} (tol 1e-4); softmax with TF32 on "
-        f"vs CPU: max {float(np.abs(tf32 - cpu_acts[-1].numpy()).max()):.3g}")
+    log(f"[{tag}] {len(cpu_acts)} activations at {x.shape[0]} rows, card "
+        f"(TF32 off) vs CPU: worst relative difference {worst:.3g} (tol "
+        f"1e-4); output with TF32 on vs CPU: max "
+        f"{float(np.abs(tf32 - cpu_acts[-1].numpy()).max()):.3g}")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1572,10 +1641,11 @@ def disagrees(a, r, tol, zero=False):
     return (err, tol * mag) if bad else None
 
 
-def phase_flash_bwd(torch, bw, peak, peak_bf16, peak_tf32):
-    """dq and dk/dv kernels against their plain formulas at
-    FLASH_BWD_CASES, float32 and bfloat16. Returns the training case's
-    float32 rows (per launch) and the largest absolute error of any case."""
+def phase_flash_bwd(torch, bw, peak, peak_bf16, peak_tf32,
+                    cases=FLASH_BWD_CASES, tag="kernel-flash-bwd"):
+    """dq and dk/dv kernels against their plain formulas at `cases`,
+    float32 and bfloat16. Returns the first case's float32 rows (per
+    launch) and the largest absolute error of any case."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa_library
 
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
@@ -1584,7 +1654,7 @@ def phase_flash_bwd(torch, bw, peak, peak_bf16, peak_tf32):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     torch.backends.cuda.matmul.allow_tf32 = False
     served, max_err, checked = {}, 0.0, 0
-    for b, h, t, d, causal in FLASH_BWD_CASES:
+    for b, h, t, d, causal in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype)[6:]
             item = torch.empty((), dtype=dtype).element_size()
@@ -1631,7 +1701,7 @@ def phase_flash_bwd(torch, bw, peak, peak_bf16, peak_tf32):
             for name, i, a in broken:
                 if not disagrees(a, ref[i], tol, t == 1 and i < 2):
                     raise AssertionError(
-                        f"kernel-flash-bwd cannot tell {name} "
+                        f"{tag} cannot tell {name} "
                         f"({('dq', 'dk', 'dv')[i]}) from the plain backward "
                         f"at {where}")
             del broken, no_delta
@@ -1681,21 +1751,21 @@ def phase_flash_bwd(torch, bw, peak, peak_bf16, peak_tf32):
                               "library_covers": "dq, dk and dv: shared by "
                               "flash_attention_bwd_dq and _dkv",
                               "bound_ms": b_ms, "bound_by": by}
-                log(f"[kernel-flash-bwd] {name:3s} {dname:8s} b={b:2d} h={h} "
+                log(f"[{tag}] {name:3s} {dname:8s} b={b:2d} h={h} "
                     f"t={t:3d} d={d:3d} {'causal' if causal else 'full  '}  "
                     f"max_err={max(errs[n] for n in (['dq'] if name == 'dq' else ['dk', 'dv'])):.3g} "
                     f"(tol {tol:g} x max|plain|)  "
                     f"kernel={ms:.4f} ms  plain={pl_ms:.4f} ms  "
                     f"bound={b_ms:.4f} ms ({by}{', 3xTF32' if f32 else ''})"
                     f"{core}")
-            log(f"[kernel-flash-bwd] dq + dkv {dname:8s} kernels together "
+            log(f"[{tag}] dq + dkv {dname:8s} kernels together "
                 f"{k_dq + k_dkv:.4f} ms  library[sdpa backward, dq+dk+dv]="
                 f"{l_ms:.4f} ms")
-            if (b, h, t, d, causal) == FLASH_BWD_CASES[0] and \
+            if (b, h, t, d, causal) == cases[0] and \
                     dtype == torch.float32:
                 served = rows
             del sets
-    log(f"[kernel-flash-bwd] verdict: dq and dk/dv agree with their plain "
+    log(f"[{tag}] verdict: dq and dk/dv agree with their plain "
         f"versions in {checked}/{checked} (shape, dtype) cases, max abs "
         f"error {max_err:.3g} (tol float32 1e-4, bfloat16 1e-2, x max|plain| "
         f"of each output); a zeroed dv and a dS without -delta fail the "
@@ -2897,18 +2967,26 @@ def phase_refer_train_resnet(torch, np):
     launches = read_counts()
     if launches["bn_act"] != 53 * steps:
         raise AssertionError(f"refer-train-resnet: launches {launches}")
-    bad = [(i + 1, k, v) for i, errs in enumerate(per_step)
-           for k, v in errs.items()
-           if not (math.isfinite(v) and v <= REFER_RESNET_TOL[k])]
-    if bad:
-        raise AssertionError(f"refer-train-resnet: card and CPU differ: "
-                             f"{bad}")
+    check_refer("refer-train-resnet", per_step)
     del nets
 
 
-def refer_resnet_steps(torch, np, nets, x, y, steps):
-    """refer-train-resnet's steps, each from the same point; returns each
-    step's measures."""
+def check_refer(tag, per_step):
+    """Fails when a step's measure is not finite or exceeds its
+    REFER_RESNET_TOL."""
+    tol = REFER_RESNET_TOL
+    bad = [(i + 1, k, v) for i, errs in enumerate(per_step)
+           for k, v in errs.items() if not (math.isfinite(v) and v <= tol[k])]
+    if bad:
+        raise AssertionError(f"{tag}: card and CPU differ: {bad}")
+
+
+def refer_resnet_steps(torch, np, nets, x, y, steps,
+                       tag="refer-train-resnet"):
+    """refer-train-resnet's steps (logged under `tag` beside
+    REFER_RESNET_TOL), each from the same point; returns each step's
+    measures."""
+    tol = REFER_RESNET_TOL
     from deeplearning4j_tpu_torch import dtypes, interop
     from deeplearning4j_tpu_torch.datasets import DataSet
 
@@ -2946,10 +3024,10 @@ def refer_resnet_steps(torch, np, nets, x, y, steps):
         median = sorted(change.values())[len(change) // 2]
         elementwise = max(leaf_rel(moved["card"][key], w)
                           for key, w in moved["cpu"].items())
-        log(f"[refer-train-resnet] step {step + 1}: scores "
+        log(f"[{tag}] step {step + 1}: scores "
             f"{nets['card'].score_:.7f} (card) {nets['cpu'].score_:.7f} "
             f"(CPU); " + ", ".join(f"{k} {v:.3g} (tol "
-                                   f"{REFER_RESNET_TOL[k]:g})"
+                                   f"{tol[k]:g})"
                                    for k, v in errs.items())
             + f"; worst changes {[(k, f'{change[k]:.3g}') for k in worst]},"
               f" median {median:.3g} over {len(change)} leaves; largest "
@@ -6006,6 +6084,537 @@ def phase_records_lenet(torch, np, tmp, card):
     return launches
 
 
+# ---------------------------------------------------------------- A.8
+# layers-a8: each layer of A.8's first half, forward and the gradients of
+# sum(out * w) (w seeded) on the card (TF32 off, deterministic cuDNN)
+# against the CPU port, at small shapes: (label, layer config, input
+# shape, a window of zeros in the input)
+A8_LAYER_CASES = (
+    [(f"Deconv2D {m} k={k} s={s} p={p}",
+      dict(type="Deconv2D", kernel_size=(k, k), stride=(s, s),
+           padding=(p, p), convolution_mode=m, n_out=5, activation="tanh"),
+      (2, 7, 6, 3), False)
+     for m in ("truncate", "same") for k in (2, 3, 4) for s in (1, 2)
+     for p in (0, 1)]
+    + [("SeparableConv2D dm=2 same s=2 d=2",
+        dict(type="SeparableConv2D", kernel_size=(3, 3), stride=(2, 2),
+             dilation=(2, 2), depth_multiplier=2, convolution_mode="same",
+             n_out=6, activation="relu"), (2, 11, 10, 3), False),
+       ("Conv1D same s=2 k=3", dict(type="Conv1D", kernel_size=3, stride=2,
+                                    convolution_mode="same", n_out=6,
+                                    activation="tanh"), (3, 17, 4), False),
+       ("Conv1D same s=2 k=4", dict(type="Conv1D", kernel_size=4, stride=2,
+                                    convolution_mode="same", n_out=6),
+        (3, 17, 4), False),
+       ("Subsampling2D pnorm zero window",
+        dict(type="Subsampling2D", kernel_size=(2, 2), stride=(2, 2),
+             pooling_type="pnorm", pnorm=2), (2, 6, 6, 3), True),
+       ("Subsampling2D sum same", dict(type="Subsampling2D",
+                                       kernel_size=(3, 3), stride=(2, 2),
+                                       pooling_type="sum",
+                                       convolution_mode="same"),
+        (2, 7, 7, 3), False),
+       ("Subsampling1D avg same", dict(type="Subsampling1D", kernel_size=3,
+                                       stride=2, pooling_type="avg",
+                                       convolution_mode="same"),
+        (2, 9, 4), False),
+       ("Upsampling2D", dict(type="Upsampling2D", size=(2, 3)),
+        (2, 3, 4, 2), False),
+       ("Upsampling1D", dict(type="Upsampling1D", size=3), (2, 5, 2),
+        False),
+       ("ZeroPadding2D", dict(type="ZeroPadding2D", pad=(0, 1, 2, 3)),
+        (2, 3, 4, 2), False),
+       ("ZeroPadding1D", dict(type="ZeroPadding1D", pad=(1, 2)), (2, 5, 2),
+        False),
+       ("ElementWiseMultiplication",
+        dict(type="ElementWiseMultiplication", n_out=6,
+             activation="tanh"), (4, 6), False)])
+A8_LAYER_TOL = 1e-5  # x the CPU value's largest magnitude
+
+
+def a8_in_type(shape):
+    from deeplearning4j_tpu_torch.nn import inputs as it
+
+    if len(shape) == 4:
+        return it.convolutional(*shape[1:])
+    if len(shape) == 3:
+        return it.recurrent(shape[2], shape[1])
+    return it.feed_forward(shape[1])
+
+
+def a8_layer_run(torch, np, cfg, shape, zero_window, device):
+    """(output, input gradient, {param: gradient in the interchange
+    layout}) of one layer, as numpy, its params made on the CPU from SEED
+    (biases drawn nonzero)."""
+    from deeplearning4j_tpu_torch.nn.layers.base import Layer
+
+    layer = Layer.from_json(cfg)
+    rng = np.random.default_rng(SEED)
+    params = layer.init_params(torch.Generator().manual_seed(SEED),
+                               a8_in_type(shape))
+    if "b" in params:
+        params["b"] = torch.from_numpy(
+            rng.standard_normal(params["b"].shape).astype(np.float32))
+    if "W" in params and cfg["type"] == "ElementWiseMultiplication":
+        params["W"] = torch.from_numpy(
+            rng.standard_normal(params["W"].shape).astype(np.float32))
+    x = rng.standard_normal(shape).astype(np.float32)
+    if zero_window:
+        x[0, :2, :2, 0] = 0.0
+    p = {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+    tx = torch.tensor(x, device=device, requires_grad=True)
+    out, _ = layer.apply(p, tx, state={}, train=False)
+    w = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(
+        np.float32)).to(device)
+    (out * w).sum().backward()
+    return (out.detach().cpu().numpy(), tx.grad.cpu().numpy(),
+            {k: layer.to_interchange(k, v.grad).cpu().numpy()
+             for k, v in p.items()})
+
+
+def a8_disagreement(np, got, want):
+    """Relative error of `got` to `want` over the finite entries, inf where
+    their NaN positions or shapes differ."""
+    if got.shape != want.shape or \
+            (np.isnan(got) != np.isnan(want)).any():
+        return float("inf")
+    live = ~np.isnan(want)
+    if not live.any():
+        return 0.0
+    return float(np.abs(got[live] - want[live]).max()
+                 / max(np.abs(want[live]).max(), 1e-30))
+
+
+def phase_layers_a8(torch, np):
+    """layers-a8: A8_LAYER_CASES on the card against the CPU port."""
+    from deeplearning4j_tpu_torch import dtypes
+
+    dev = card_device(torch)
+    worst, nan_cases = 0.0, 0
+    for label, cfg, shape, zero_window in A8_LAYER_CASES:
+        cpu = a8_layer_run(torch, np, cfg, shape, zero_window, "cpu")
+        with dtypes.full_precision(), deterministic_cudnn(torch):
+            card = a8_layer_run(torch, np, cfg, shape, zero_window, dev)
+        errs = {"out": a8_disagreement(np, card[0], cpu[0]),
+                "dx": a8_disagreement(np, card[1], cpu[1]),
+                **{f"d{k}": a8_disagreement(np, card[2][k], cpu[2][k])
+                   for k in cpu[2]}}
+        bad = {k: v for k, v in errs.items() if not v <= A8_LAYER_TOL}
+        if bad:
+            raise AssertionError(f"layers-a8: {label}: card and CPU differ "
+                                 f"{bad} (tol {A8_LAYER_TOL:g})")
+        if zero_window:
+            if not np.isnan(cpu[1]).any():
+                raise AssertionError(f"layers-a8: {label}: no NaN gradient "
+                                     f"over the zero window")
+            nan_cases += 1
+        worst = max(worst, *errs.values())
+        log(f"[layers-a8] {label:40s} in {shape} -> out "
+            f"{tuple(cpu[0].shape)}: " + ", ".join(
+                f"{k} {v:.3g}" for k, v in errs.items()))
+    log(f"[layers-a8] verdict: {len(A8_LAYER_CASES)} cases agree, card "
+        f"(TF32 off, deterministic cuDNN) vs CPU, worst relative error "
+        f"{worst:.3g} (tol {A8_LAYER_TOL:g}); NaN gradients at the same "
+        f"positions in {nan_cases} zero-window case(s)")
+
+
+def write_keras_a8_h5(np, path, kind, seed=SEED):
+    """A Keras Sequential .h5 written with the port's HDF5 writer: "2d"
+    Conv2D -> ZeroPadding2D -> SeparableConv2D -> UpSampling2D ->
+    Conv2DTranspose on 12x12x3, or "1d" Conv1D -> MaxPooling1D ->
+    UpSampling1D -> ZeroPadding1D on 20 steps of 5; random weights from
+    `seed`. Returns the input shape without the batch axis."""
+    from deeplearning4j_tpu_torch.modelimport import hdf5
+
+    if kind == "2d":
+        shape = (12, 12, 3)
+        layers = [
+            ("Conv2D", dict(name="conv", filters=8, kernel_size=[3, 3],
+                            padding="same", activation="relu"),
+             [("kernel:0", (3, 3, 3, 8)), ("bias:0", (8,))]),
+            ("ZeroPadding2D", dict(name="pad", padding=[[1, 0], [0, 1]]),
+             []),
+            ("SeparableConv2D", dict(name="sep", filters=12,
+                                     kernel_size=[3, 3], strides=[2, 2],
+                                     padding="same", depth_multiplier=2,
+                                     activation="relu"),
+             [("depthwise_kernel:0", (3, 3, 8, 2)),
+              ("pointwise_kernel:0", (1, 1, 16, 12)), ("bias:0", (12,))]),
+            ("UpSampling2D", dict(name="up", size=[2, 2]), []),
+            ("Conv2DTranspose", dict(name="deconv", filters=4,
+                                     kernel_size=[3, 3], strides=[2, 2],
+                                     padding="same", activation="linear"),
+             [("kernel:0", (3, 3, 4, 12)), ("bias:0", (4,))])]
+    else:
+        shape = (20, 5)
+        layers = [
+            ("Conv1D", dict(name="conv", filters=8, kernel_size=[3],
+                            strides=[2], padding="same", activation="relu"),
+             [("kernel:0", (3, 5, 8)), ("bias:0", (8,))]),
+            ("MaxPooling1D", dict(name="pool", pool_size=[2]), []),
+            ("UpSampling1D", dict(name="up", size=3), []),
+            ("ZeroPadding1D", dict(name="pad", padding=[1, 2]), [])]
+    rng = np.random.default_rng(seed)
+    cfg = [{"class_name": cls, "config": dict(c)} for cls, c, _ in layers]
+    cfg[0]["config"]["batch_input_shape"] = [None, *shape]
+    with hdf5.File(path, "w") as f:
+        f.attrs["model_config"] = json.dumps(
+            {"class_name": "Sequential", "config": {"layers": cfg}})
+        mw = f.require_group("model_weights")
+        for _, c, weights in layers:
+            g = mw.require_group(c["name"])
+            names = []
+            for wname, wshape in weights:
+                fan_in = int(np.prod(wshape[:-1])) if len(wshape) > 1 else 1
+                arr = rng.normal(0, (2.0 / fan_in) ** 0.5, wshape)
+                g.create_dataset(wname, data=arr.astype(np.float32))
+                names.append(f"{c['name']}/{wname}".encode())
+            g.attrs["weight_names"] = names
+    return shape
+
+
+def phase_keras_a8(torch, np, tmp, card):
+    """keras-a8: the two files of write_keras_a8_h5 imported onto the card
+    and onto the CPU; the card's import served through InferenceServer
+    (batch limit 8), every answer against the CPU import's output (the
+    server and a direct forward under TF32 off)."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.modelimport import (
+        import_keras_sequential_model_and_weights as load)
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+
+    rng = np.random.default_rng(SEED + 60)
+    for kind in ("2d", "1d"):
+        path = os.path.join(tmp, f"keras_a8_{kind}.h5")
+        shape = write_keras_a8_h5(np, path, kind)
+        net, cpu = load(path, device=card_device(torch)), load(
+            path, device="cpu")
+        names = [type(l).__name__ for l in net.layers]
+        if net.device.type != card_device(torch).type or \
+                net.conf.to_json() != cpu.conf.to_json():
+            raise AssertionError(f"keras-a8 ({kind}): imports differ")
+        xs = [rng.standard_normal((n, *shape)).astype(np.float32)
+              for n in (1, 3, 8, 5)]
+        reset_counts()
+        with dtypes.full_precision(), deterministic_cudnn(torch):
+            server = InferenceServer(model=net, batch_limit=8)
+            try:
+                server.warmup(xs[0])
+                with ThreadPoolExecutor(len(xs)) as pool:
+                    answers = list(pool.map(server.output, xs))
+            finally:
+                server.shutdown()
+            direct = [net.output(x).cpu().numpy() for x in xs]
+        expect_launches(f"keras-a8 ({kind})", read_counts(), {})
+        worst = 0.0
+        for x, a, d in zip(xs, answers, direct):
+            want = cpu.output(x).numpy()
+            for got in (a, d):
+                err = a8_disagreement(np, np.asarray(got), want)
+                if not err <= 1e-5:
+                    raise AssertionError(f"keras-a8 ({kind}): {x.shape[0]} "
+                                         f"rows differ from the CPU import "
+                                         f"by {err:.3g} (tol 1e-5)")
+                worst = max(worst, err)
+        log(f"[keras-a8] {kind}: {' -> '.join(names)} imported onto "
+            f"{net.device} and the CPU; {len(xs)} requests of "
+            f"{[x.shape[0] for x in xs]} rows served, out "
+            f"{tuple(direct[0].shape[1:])}; worst relative difference "
+            f"from the CPU import {worst:.3g} (tol 1e-5, TF32 off)")
+
+
+def train_zoo(torch, np, tag, net, x, y, runs, per_step, card):
+    """`net` trained by fit on one batch (x, y tensors on the card) for
+    each (mixed, steps) of `runs`: launches exactly `per_step` x steps,
+    finite scores, and in the first run the median of the last 5 scores
+    below the first. Returns {policy: (launches, scores, median step
+    ms)}."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    out = {}
+    b = x.shape[0]
+    for i, (mixed, steps) in enumerate(runs):
+        policy = "mixed bf16" if mixed else "TF32"
+        data = DataSet(x.to(torch.bfloat16) if mixed else x.float(), y)
+        dtypes.set_mixed_precision(mixed)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            reset_counts()
+            timed = timed_fits(torch, net, data, steps)
+            launches = read_counts()
+        finally:
+            dtypes.set_mixed_precision(False)
+        expect_launches(f"{tag} ({policy})", launches,
+                        {k: steps * v for k, v in per_step.items()})
+        scores = [sc for _, sc in timed]
+        if not all(math.isfinite(sc) for sc in scores):
+            raise AssertionError(f"{tag} ({policy}): scores {scores}")
+        if i == 0 and not median(scores[-5:]) < scores[0]:
+            raise AssertionError(f"{tag} ({policy}): the median of the last "
+                                 f"5 scores is not below the first: "
+                                 f"{scores}")
+        step_ms = median([t for t, _ in timed[1:]]) * 1e3
+        log(f"[{tag}] {policy}: {steps} steps of {b}, scores "
+            f"{', '.join(f'{sc:.5f}' for sc in scores)}; launches per step "
+            f"{per_step}")
+        log(f"[{tag}] {policy}: median step {step_ms:.3f} ms, "
+            f"{b / (step_ms / 1e3):.1f} trained images/s; first step "
+            f"{timed[0][0] * 1e3:.2f} ms; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB ({card})")
+        out[policy] = launches, scores, step_ms
+    return out
+
+
+TINYYOLO = dict(num_classes=20, input_shape=(416, 416, 3))
+TINYYOLO_TRAIN = (16, 10, 5)     # batch, mixed steps, TF32 steps
+TINYYOLO_SERVE = 16              # InferenceServer's batch limit
+ZOO_STREAM = 24                  # streamed requests of the zoo servers
+TINYYOLO_REFER = (4, 3)          # batch, steps card vs CPU
+YOLO_THRESHOLD = 0.5             # objectness (the JAX package's default)
+YOLO_NMS_IOU = 0.5
+YOLO_CANDIDATES = 200            # anchors kept by the second threshold
+
+
+def yolo_batch(np, rng, b, grid, classes):
+    """b seeded 416x416 images and Yolo2Output labels of 1-4 boxes each,
+    each written into the cell of its center."""
+    h, w, c = TINYYOLO["input_shape"]
+    x = rng.standard_normal((b, h, w, c)).astype(np.float32)
+    y = np.zeros((b, grid, grid, 4 + classes), np.float32)
+    for i in range(b):
+        for _ in range(rng.integers(1, 5)):
+            cx, cy = rng.uniform(0.05, 0.95, 2)
+            bw_, bh = rng.uniform(0.05, 0.5, 2)
+            r, col = min(int(cy * grid), grid - 1), min(int(cx * grid),
+                                                        grid - 1)
+            y[i, r, col, :4] = [cx - bw_ / 2, cy - bh / 2, cx + bw_ / 2,
+                                cy + bh / 2]
+            y[i, r, col, 4:] = 0.0
+            y[i, r, col, 4 + rng.integers(classes)] = 1.0
+    return x, y
+
+
+def zoo_net(torch, name, device=None, **kw):
+    from deeplearning4j_tpu_torch import zoo
+
+    return getattr(zoo, name)(seed=SEED, **kw).init(
+        card_device(torch) if device is None else device)
+
+
+def phase_tinyyolo(torch, np, card):
+    """train-tinyyolo, serve-tinyyolo and refer-tinyyolo: zoo TinyYOLO (20
+    classes, 416x416x3, a 13x13 grid of 5 anchors) trained by fit at batch
+    16 with Adam, mixed then TF32; the trained network behind
+    InferenceServer, each answer decoded (get_predicted_objects, the
+    threshold on the card) and non-max suppressed on the host; then card
+    (TF32 off, deterministic cuDNN) against the CPU port, 3 steps at
+    batch 4, each from the same point. No TPU kernel runs on this path:
+    leaky BatchNorm takes the plain epilogue in both packages."""
+    from deeplearning4j_tpu_torch.nn.layers.objdetect import (
+        get_predicted_objects, non_max_suppression)
+
+    b, mixed_steps, f32_steps = TINYYOLO_TRAIN
+    classes = TINYYOLO["num_classes"]
+    t0 = time.perf_counter()
+    net = zoo_net(torch, "TinyYOLO", **TINYYOLO)
+    grid = int(net.output(np.zeros((1, *TINYYOLO["input_shape"]),
+                                   np.float32)).shape[1])
+    log(f"[train-tinyyolo] TinyYOLO ({net.num_params()} params, grid "
+        f"{grid}x{grid}, 5 anchors, {classes} classes) on {net.device} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED + 62)
+    x, y = yolo_batch(np, rng, b, grid, classes)
+    dev = card_device(torch)
+    train_zoo(torch, np, "train-tinyyolo", net, torch.from_numpy(x).to(dev),
+              torch.from_numpy(y).to(dev),
+              [(True, mixed_steps), (False, f32_steps)], {}, card)
+
+    layer = net.layers[-1]
+
+    def rows(rng, n):
+        return rng.standard_normal((n, *TINYYOLO["input_shape"])).astype(
+            np.float32)
+
+    _, answers = phase_serve(torch, np, net, card, rows=rows,
+                             tag="serve-tinyyolo", limit=TINYYOLO_SERVE,
+                             per_batch={}, rel_tol=1e-2, softmax=False,
+                             n_stream=ZOO_STREAM)
+    x_full, out_full = answers[-1]
+    # a trained detector keeps a few candidates per image before NMS: the
+    # second threshold keeps the answer's 200 most confident anchors
+    # (about 12 per image), whatever the training did
+    conf = layer._pred_boxes(torch.as_tensor(out_full))[4].flatten()
+    top = float(conf.kthvalue(conf.numel() - YOLO_CANDIDATES).values)
+    for threshold in (YOLO_THRESHOLD, top):
+        for where, out in (("host", out_full),
+                           ("card", net.output(x_full))):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                objs = get_predicted_objects(layer, out, threshold)
+                t2 = time.perf_counter()
+                kept = non_max_suppression(objs, YOLO_NMS_IOU)
+                times.append((t2 - t1, time.perf_counter() - t2))
+            for o in kept:
+                if not (0 <= o.example < x_full.shape[0]
+                        and 0 <= o.predicted_class < classes
+                        and o.confidence > threshold):
+                    raise AssertionError(f"serve-tinyyolo: bad detection "
+                                         f"{o}")
+            log(f"[serve-tinyyolo] decode of a {x_full.shape[0]}-image "
+                f"answer on the {where} at objectness > {threshold:.4f}: "
+                f"{len(objs)} anchors in "
+                f"{median([t for t, _ in times]) * 1e3:.3f} ms, NMS (IoU "
+                f"{YOLO_NMS_IOU}) keeps {len(kept)} in "
+                f"{median([t for _, t in times]) * 1e3:.3f} ms on the host "
+                f"(median of 3; {card})")
+            if where == "host" and threshold == top and \
+                    len(objs) != YOLO_CANDIDATES:
+                raise AssertionError(f"serve-tinyyolo: {len(objs)} anchors "
+                                     f"above the threshold of the "
+                                     f"{YOLO_CANDIDATES} most confident")
+    del net, answers
+    torch.cuda.empty_cache()
+
+    rb, steps = TINYYOLO_REFER
+    x, y = yolo_batch(np, np.random.default_rng(SEED + 63), rb, grid,
+                      classes)
+    nets = {"card": zoo_net(torch, "TinyYOLO", **TINYYOLO),
+            "cpu": zoo_net(torch, "TinyYOLO", "cpu", **TINYYOLO)}
+    with deterministic_cudnn(torch):
+        per_step = refer_resnet_steps(torch, np, nets, x, y, steps,
+                                      tag="refer-tinyyolo")
+    expect_launches("refer-tinyyolo", read_counts(), {})
+    check_refer("refer-tinyyolo", per_step)
+    del nets
+
+
+GOOGLENET_TRAIN = (64, 10, 5)  # batch, mixed steps, TF32 steps
+GOOGLENET_SHAPE = (224, 224, 3)
+ZOO_SERVE_SHAPE = (224, 224, 3)  # serve-darknet19, serve-irv1
+XENT_PER_STEP = {"linear_xent_fwd": 1, "linear_xent_bwd": 1}
+VIT = dict(num_classes=10, input_shape=(32, 32, 3), patch_size=4,
+           d_model=128, n_heads=4, n_layers=4)
+VIT_TRAIN = (256, 20, 5)       # batch, mixed steps, TF32 steps
+VIT_PER_STEP = {"flash_attention": 4, "flash_attention_bwd_dq": 4,
+                "flash_attention_bwd_dkv": 4, **XENT_PER_STEP}
+# rows 2-4 at ViT's attention: 256 images x 4 heads x 64 patches x 32
+VIT_FLASH_CASES = [(256, 4, 64, 32, False)]
+# rows 9 and 10 at GoogLeNet's Output (64, 1024, 1000) and ViT's (256,
+# 128, 10)
+A8_XENT_CASES = [(64, 1024, 1000, "onehot", "float32"),
+                 (64, 1024, 1000, "onehot", "bfloat16"),
+                 (256, 128, 10, "onehot", "float32"),
+                 (256, 128, 10, "onehot", "bfloat16")]
+FACENET = dict(num_classes=1000, embedding_size=128,
+               input_shape=(96, 96, 3))
+FACENET_TRAIN = (64, 10)       # batch, TF32 steps (Adam)
+FACENET_REFER = 3              # steps card vs CPU, at the training batch
+
+
+def labelled_images(torch, seed, b, shape, classes):
+    """b float32 images made on the card from `seed` and one-hot labels."""
+    dev = card_device(torch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, *shape), generator=gen, device=dev)
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, classes, (b,), generator=gen, device=dev), classes).float()
+    return x, y
+
+
+def phase_train_googlenet(torch, np, card):
+    """train-googlenet: zoo GoogLeNet (224x224x3, 1000 classes, dropout 0.4
+    before the Output, two LRNs) at batch 64, mixed then TF32; rows 9 and
+    10 run at (64, 1024, 1000), one of each per step."""
+    b, mixed_steps, f32_steps = GOOGLENET_TRAIN
+    net = zoo_net(torch, "GoogLeNet", num_classes=1000,
+                  input_shape=GOOGLENET_SHAPE)
+    log(f"[train-googlenet] GoogLeNet ({net.num_params()} params) on "
+        f"{net.device}")
+    x, y = labelled_images(torch, SEED + 64, b, GOOGLENET_SHAPE, 1000)
+    res = train_zoo(torch, np, "train-googlenet", net, x, y,
+                    [(True, mixed_steps), (False, f32_steps)],
+                    XENT_PER_STEP, card)
+    del net
+    torch.cuda.empty_cache()
+    return add_counts(res["mixed bf16"][0], res["TF32"][0])
+
+
+def phase_train_vit(torch, np, card):
+    """train-vit: zoo VisionTransformer at the JAX defaults at batch 256,
+    mixed then TF32: per step 4 non-causal flash forward, 4 dq, 4 dk/dv
+    launches at (256, 4, 64, 32) and one of each xent at (256, 128, 10)."""
+    b, mixed_steps, f32_steps = VIT_TRAIN
+    net = zoo_net(torch, "VisionTransformer", **VIT)
+    log(f"[train-vit] VisionTransformer {VIT} ({net.num_params()} params) "
+        f"on {net.device}")
+    x, y = labelled_images(torch, SEED + 65, b, VIT["input_shape"],
+                           VIT["num_classes"])
+    res = train_zoo(torch, np, "train-vit", net, x, y,
+                    [(True, mixed_steps), (False, f32_steps)],
+                    VIT_PER_STEP, card)
+    del net
+    torch.cuda.empty_cache()
+    return add_counts(res["mixed bf16"][0], res["TF32"][0])
+
+
+def phase_train_facenet(torch, np, card):
+    """train-facenet: zoo FaceNetNN4Small2 (96x96x3, 1000 classes, a
+    128-wide L2-normalized embedding into CenterLossOutput) at batch 64
+    with Adam under TF32; then 3 steps card (TF32 off, deterministic
+    cuDNN) against the CPU port, each from the same point: the score,
+    each leaf's change and Adam slots, and the centers."""
+    b, steps = FACENET_TRAIN
+    net = zoo_net(torch, "FaceNetNN4Small2", **FACENET)
+    log(f"[train-facenet] FaceNetNN4Small2 ({net.num_params()} params) on "
+        f"{net.device}")
+    x, y = labelled_images(torch, SEED + 66, b, FACENET["input_shape"],
+                           FACENET["num_classes"])
+    train_zoo(torch, np, "train-facenet", net, x, y, [(False, steps)], {},
+              card)
+    centers = net.state["out"]["centers"]
+    moved = int((centers.abs().sum(dim=1) > 0).sum())
+    if moved != int(y.sum(0).gt(0).sum()):
+        raise AssertionError(f"train-facenet: {moved} centers moved, the "
+                             f"batch has {int(y.sum(0).gt(0).sum())} classes")
+    log(f"[train-facenet] centers of the {moved} classes in the batch moved"
+        f" (norms {float(centers.norm(dim=1).max()):.4f} at most)")
+    del net
+    torch.cuda.empty_cache()
+    nets = {"card": zoo_net(torch, "FaceNetNN4Small2", **FACENET),
+            "cpu": zoo_net(torch, "FaceNetNN4Small2", "cpu", **FACENET)}
+    xs, ys = x.cpu().numpy(), y.cpu().numpy()
+    with deterministic_cudnn(torch):
+        per_step = refer_resnet_steps(torch, np, nets, xs, ys,
+                                      FACENET_REFER, tag="train-facenet")
+    # the CenterLossOutput's centers are running state: "bn" holds them
+    check_refer("train-facenet", per_step)
+    del nets
+
+
+def phase_serve_zoo(torch, np, card, name, tag, limit=32):
+    """serve-darknet19 / serve-irv1: zoo `name` at 224x224x3 behind
+    InferenceServer (batch limit 32), softmax rows within 2e-3 of
+    net.output's largest (no TPU kernel runs); then one TF32-off forward
+    against the CPU port at 2 rows."""
+    shape = ZOO_SERVE_SHAPE
+    net = zoo_net(torch, name, input_shape=shape)
+    log(f"[{tag}] {name} ({net.num_params()} params) on {net.device}")
+
+    def rows(rng, n):
+        return rng.standard_normal((n, *shape)).astype(np.float32)
+
+    phase_serve(torch, np, net, card, rows=rows, tag=tag, limit=limit,
+                per_batch={}, rel_tol=2e-3, n_stream=ZOO_STREAM)
+    phase_reference(torch, np, net, cpu_net=zoo_net(
+        torch, name, "cpu", input_shape=shape),
+        x=rows(np.random.default_rng(SEED + 67), 2), tag=tag)
+    del net
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -6053,7 +6662,7 @@ def main() -> int:
         max_err = max(max_err, train_err)
         flash, flash_err = phase_flash(torch, bw, peak, peak_bf16,
                                        peak_tf32)
-        launches = phase_serve(torch, np, net, card)
+        launches, _ = phase_serve(torch, np, net, card)
         phase_reference(torch, np, net)
         del net
         t0 = time.perf_counter()
@@ -6098,9 +6707,9 @@ def main() -> int:
                 torch, bn_cases(iv3, BATCH), bw, peak, model="InceptionV3",
                 tag="kernel-inception")
             max_err = max(max_err, iv3_err)
-            iv3_launches = phase_serve(
-                torch, np, iv3, card, bn_per_forward=INCEPTION_BN,
-                rows=inception_images(np), tag="serve-inception")
+            iv3_launches, _ = phase_serve(
+                torch, np, iv3, card, rows=inception_images(np),
+                tag="serve-inception", per_batch={"bn_act": INCEPTION_BN})
             phase_refer_inception(torch, np, iv3, path)
             del iv3
         log(f"[refer-inception] the InceptionV3 phases (write, import, "
@@ -6206,6 +6815,33 @@ def main() -> int:
             f"window-resnet, kernel-records, sentry-charrnn, "
             f"records-charrnn, records-lenet) took "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_layers_a8(torch, np)
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_keras_a8(torch, np, tmp, card)
+        phase_tinyyolo(torch, np, card)
+        googlenet_launches = phase_train_googlenet(torch, np, card)
+        vit_flash, vit_flash_err = phase_flash(
+            torch, bw, peak, peak_bf16, peak_tf32, cases=VIT_FLASH_CASES,
+            tag="kernel-vit")
+        flash_err = max(flash_err, vit_flash_err)
+        vit_bwd, vit_bwd_err = phase_flash_bwd(
+            torch, bw, peak, peak_bf16, peak_tf32, cases=VIT_FLASH_CASES,
+            tag="kernel-vit")
+        flash_bwd_err = max(flash_bwd_err, vit_bwd_err)
+        a8_xent, a8_xent_err = phase_xent(
+            torch, bw, peak, peak_bf16, peak_tf32, cases=A8_XENT_CASES,
+            tag="kernel-vit")
+        xent_err = max(xent_err, a8_xent_err)
+        vit_launches = phase_train_vit(torch, np, card)
+        phase_train_facenet(torch, np, card)
+        phase_serve_zoo(torch, np, card, "Darknet19", "serve-darknet19")
+        phase_serve_zoo(torch, np, card, "InceptionResNetV1", "serve-irv1")
+        a8_launches = add_counts(googlenet_launches, vit_launches)
+        log(f"[serve-irv1] the A.8 phases (layers-a8, keras-a8, "
+            f"train/serve/refer-tinyyolo, train-googlenet, kernel-vit, "
+            f"train-vit, train-facenet, serve-darknet19, serve-irv1) took "
+            f"{time.perf_counter() - t0:.1f} s")
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
         if leaked:
@@ -6233,6 +6869,11 @@ def main() -> int:
         return {case[-1]: transfer_xent[case][name]
                 for case in TRANSFER_XENT_CASES}
 
+    def a8_rows(name, n, d, v):
+        # per launch at an A.8 Output, both policies
+        return {case[-1]: a8_xent[case][name] for case in A8_XENT_CASES
+                if case[:3] == (n, d, v)}
+
     def per_forward(row, calls):
         return {k: (v * calls if k.endswith("ms") and v is not None else v)
                 for k, v in row.items()}
@@ -6242,26 +6883,35 @@ def main() -> int:
                    dict(times[torch.float32], bound_by="bytes",
                         inception_v3_forward=iv3_times[torch.float32])),
         "flash_attention": (lm_launches["flash_attention"], flash_err,
-                            per_forward(flash, LM["n_layers"])),
+                            dict(per_forward(flash, LM["n_layers"]),
+                                 vit_shape=vit_flash)),
         "lstm_scan": (rnn_launches["lstm_scan"], lstm_err,
                       dict(per_forward(lstm, 2),
                            bidir_shape=bidir_rows["lstm_scan"])),
         "flash_attention_bwd_dq": (
             train_launches["flash_attention_bwd_dq"], flash_bwd_err,
-            per_forward(flash_bwd["dq"], LM["n_layers"])),
+            dict(per_forward(flash_bwd["dq"], LM["n_layers"]),
+                 vit_shape=vit_bwd["dq"])),
         "flash_attention_bwd_dkv": (
             train_launches["flash_attention_bwd_dkv"], flash_bwd_err,
-            per_forward(flash_bwd["dkv"], LM["n_layers"])),
+            dict(per_forward(flash_bwd["dkv"], LM["n_layers"]),
+                 vit_shape=vit_bwd["dkv"])),
         "linear_xent_fwd": (train_launches["linear_xent_fwd"], xent_err,
                             dict(xent["fwd"], vgg16_output=vgg_rows("fwd"),
                                  tbptt_window=xent_window["fwd"],
                                  bidir_output=bidir_xent["fwd"],
-                                 transfer_output=transfer_rows("fwd"))),
+                                 transfer_output=transfer_rows("fwd"),
+                                 googlenet_output=a8_rows("fwd", 64, 1024,
+                                                          1000),
+                                 vit_output=a8_rows("fwd", 256, 128, 10))),
         "linear_xent_bwd": (train_launches["linear_xent_bwd"], xent_err,
                             dict(xent["bwd"], vgg16_output=vgg_rows("bwd"),
                                  tbptt_window=xent_window["bwd"],
                                  bidir_output=bidir_xent["bwd"],
-                                 transfer_output=transfer_rows("bwd"))),
+                                 transfer_output=transfer_rows("bwd"),
+                                 googlenet_output=a8_rows("bwd", 64, 1024,
+                                                          1000),
+                                 vit_output=a8_rows("bwd", 256, 128, 10))),
         "lstm_scan_bwd": (rnn_train_launches["lstm_scan_bwd"],
                           lstm_bwd_err["lstm_scan_bwd"],
                           dict(per_forward(lstm_bwd["lstm_scan_bwd"], 2),
@@ -6289,7 +6939,9 @@ def main() -> int:
             **{k: t[k] for k in ("library_covers", "inception_v3_forward",
                                  "vgg16_output", "bidir_shape",
                                  "tbptt_window", "bidir_output",
-                                 "transfer_output") if k in t},
+                                 "transfer_output", "vit_shape",
+                                 "googlenet_output", "vit_output")
+               if k in t},
             # launches on the char-RNN's DL4J restore and resume path
             # (dl4j-charrnn and checkpoint-resume)
             "dl4j_resume_launches": resume_launches[kname],
@@ -6319,7 +6971,11 @@ def main() -> int:
             "solver_launches": solver_launches[kname],
             "window_launches": window_launches[kname],
             "sentry_launches": sentry_launches[kname],
-            "records_launches": records_launches[kname]})
+            "records_launches": records_launches[kname],
+            # launches in train-googlenet's and train-vit's 15 + 25 steps
+            # (A.8's training paths; TinyYOLO, FaceNet, Darknet19 and
+            # InceptionResNetV1 run none of these kernels)
+            "a8_launches": a8_launches[kname]})
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

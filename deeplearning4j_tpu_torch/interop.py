@@ -10,9 +10,11 @@ built from the same config, under the same names:
     layer nests sublayers (TransformerBlock: "ln1", "attn" with "Wqkv",
     "bqkv", "Wo", "bo", "ln2", "W1", "b1", "W2", "b2").
 
-Each layer converts from the interchange layout to its own once (Conv2D:
-HWIO -> OIHW channels_last), by the param's '/'-joined path. Afterwards
-both packages compute the same function.
+Each layer converts from the interchange layout to its own once (Conv2D's
+and Conv1D's W, SeparableConv2D's dW and pW: HWIO -> OIHW channels_last;
+Deconv2D keeps its HWIO W), by the param's '/'-joined path. Running state
+(BatchNorm's "mean" and "var", CenterLossOutput's "centers") is carried as
+it is. Afterwards both packages compute the same function.
 
 `params_to_jax(net)` is the reverse, numpy arrays in the interchange
 layout.

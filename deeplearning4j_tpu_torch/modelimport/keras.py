@@ -21,9 +21,8 @@ channels_last) never meet a Keras array; each array must have the shape of
 the slot it fills. BatchNormalization's moving mean and variance become
 the vertex's running state.
 
-Every Keras class the JAX importer translates is known here. One whose
-port layer does not exist yet raises NotImplementedError naming the class
-and the ROADMAP item that brings it; an unknown class raises ValueError.
+Every Keras class the JAX importer translates is translated here into the
+layer the JAX importer gives; an unknown class raises ValueError.
 """
 from __future__ import annotations
 
@@ -50,14 +49,22 @@ from deeplearning4j_tpu_torch.nn.layers import (
     LSTM,
     Activation,
     BatchNorm,
+    Conv1D,
     Conv2D,
+    Deconv2D,
     Dense,
     DropoutLayer,
     EmbeddingSequence,
     GlobalPooling,
     Output,
+    SeparableConv2D,
     SimpleRnn,
+    Subsampling1D,
     Subsampling2D,
+    Upsampling1D,
+    Upsampling2D,
+    ZeroPadding1D,
+    ZeroPadding2D,
 )
 from deeplearning4j_tpu_torch.nn.preprocessors import (
     CnnToFeedForward,
@@ -123,6 +130,18 @@ def _pair(v):
     if isinstance(v, (list, tuple)):
         return tuple(int(x) for x in v)
     return (int(v), int(v))
+
+
+def _first(v) -> int:
+    """An int, or the first of a list of ints (Keras 1-D sizes)."""
+    return int(v[0] if isinstance(v, (list, tuple)) else v)
+
+
+def _pool1d(cfg, pooling_type: str):
+    """MaxPooling1D / AveragePooling1D as Subsampling1D."""
+    p = _first(cfg.get("pool_size", 2))
+    return Subsampling1D(kernel_size=p, stride=_first(cfg.get("strides") or p),
+                         pooling_type=pooling_type)
 
 
 def _padding_mode(cfg) -> str:
@@ -218,6 +237,43 @@ class KerasLayerTranslator:
         cfg.setdefault("dilation_rate", cfg.get("atrous_rate", 1))
         return self.t_conv2_d(cfg)
 
+    def t_atrous_convolution1_d(self, cfg):
+        cfg = dict(cfg)
+        rate = cfg.get("atrous_rate", cfg.get("dilation_rate", 1))
+        rate = rate[0] if isinstance(rate, (list, tuple)) else rate
+        out = self.t_conv1_d(cfg)
+        out.dilation = int(rate)
+        return out
+
+    def t_conv1_d(self, cfg):
+        return Conv1D(kernel_size=_first(cfg["kernel_size"]),
+                      stride=_first(cfg.get("strides", 1)),
+                      n_out=int(cfg["filters"]),
+                      convolution_mode=_padding_mode(cfg),
+                      activation=_act(cfg), weight_init=_init(cfg),
+                      has_bias=bool(cfg.get("use_bias", True)))
+
+    def t_conv2_d_transpose(self, cfg):
+        return Deconv2D(
+            kernel_size=_pair(cfg["kernel_size"]),
+            stride=_pair(cfg.get("strides", 1)),
+            n_out=int(cfg["filters"]),
+            convolution_mode=_padding_mode(cfg),
+            activation=_act(cfg), weight_init=_init(cfg),
+            has_bias=bool(cfg.get("use_bias", True)),
+        )
+
+    def t_separable_conv2_d(self, cfg):
+        return SeparableConv2D(
+            kernel_size=_pair(cfg["kernel_size"]),
+            stride=_pair(cfg.get("strides", 1)),
+            n_out=int(cfg["filters"]),
+            depth_multiplier=int(cfg.get("depth_multiplier", 1)),
+            convolution_mode=_padding_mode(cfg),
+            activation=_act(cfg),
+            has_bias=bool(cfg.get("use_bias", True)),
+        )
+
     def t_time_distributed(self, cfg):
         # TimeDistributed(inner): per-timestep application is native for
         # Dense-like layers on [b,t,f]; anything else needs real support,
@@ -249,6 +305,32 @@ class KerasLayerTranslator:
                              stride=_pair(cfg.get("strides") or cfg.get("pool_size", 2)),
                              convolution_mode=_padding_mode(cfg),
                              pooling_type="avg")
+
+    def t_max_pooling1_d(self, cfg):
+        return _pool1d(cfg, "max")
+
+    def t_average_pooling1_d(self, cfg):
+        return _pool1d(cfg, "avg")
+
+    def t_zero_padding2_d(self, cfg):
+        p = cfg.get("padding", 1)
+        if isinstance(p, int):
+            pad = (p, p, p, p)
+        elif isinstance(p[0], (list, tuple)):
+            pad = (p[0][0], p[0][1], p[1][0], p[1][1])
+        else:
+            pad = (p[0], p[0], p[1], p[1])
+        return ZeroPadding2D(pad=pad)
+
+    def t_zero_padding1_d(self, cfg):
+        p = cfg.get("padding", 1)
+        return ZeroPadding1D(pad=p if isinstance(p, int) else tuple(p))
+
+    def t_up_sampling2_d(self, cfg):
+        return Upsampling2D(size=_pair(cfg.get("size", 2)))
+
+    def t_up_sampling1_d(self, cfg):
+        return Upsampling1D(size=_first(cfg.get("size", 2)))
 
     def t_global_max_pooling2_d(self, cfg):
         return GlobalPooling(pooling_type="max")
@@ -316,40 +398,12 @@ class KerasLayerTranslator:
         return ElementWiseVertex(op=ops[mode])
 
 
-# Keras classes the JAX importer translates into layers the port has not
-# ported yet: class name -> (the JAX package's layer, ROADMAP item)
-_NOT_PORTED = {
-    "Conv1D": ("Conv1D", "A.8"),
-    "Convolution1D": ("Conv1D", "A.8"),
-    "AtrousConvolution1D": ("Conv1D", "A.8"),
-    "Conv2DTranspose": ("Deconv2D", "A.8"),
-    "Deconvolution2D": ("Deconv2D", "A.8"),
-    "SeparableConv2D": ("SeparableConv2D", "A.8"),
-    "MaxPooling1D": ("Subsampling1D", "A.8"),
-    "AveragePooling1D": ("Subsampling1D", "A.8"),
-    "ZeroPadding1D": ("ZeroPadding1D", "A.8"),
-    "ZeroPadding2D": ("ZeroPadding2D", "A.8"),
-    "UpSampling1D": ("Upsampling1D", "A.8"),
-    "UpSampling2D": ("Upsampling2D", "A.8"),
-}
-
-
-def _not_ported(class_name: str, layer: str, item: str):
-    def translate(self, cfg):
-        raise NotImplementedError(
-            f"Keras layer '{class_name}' needs the {layer} layer, which the "
-            f"port has not ported yet (ROADMAP A, item {item})")
-    return translate
-
-
-for _cls, (_layer, _item) in _NOT_PORTED.items():
-    setattr(KerasLayerTranslator, f"t_{_camel_to_snake(_cls)}",
-            _not_ported(_cls, _layer, _item))
-del _cls, _layer, _item
-
 # keras-1 class names (Keras1LayerConfiguration vocabulary): Convolution2D
 # etc.; field renames are handled by _normalize_keras1
 KerasLayerTranslator.t_convolution2_d = KerasLayerTranslator.t_conv2_d
+KerasLayerTranslator.t_convolution1_d = KerasLayerTranslator.t_conv1_d
+KerasLayerTranslator.t_deconvolution2_d = \
+    KerasLayerTranslator.t_conv2_d_transpose
 
 _TRANSLATOR = KerasLayerTranslator()
 
@@ -461,10 +515,25 @@ def _set_layer_weights(layer, params: dict, w: List[np.ndarray]) -> dict:
     if not w:
         return params
     params = dict(params)
-    if t in ("Dense", "Output", "Conv2D", "EmbeddingSequence", "RnnOutput"):
+    if t in ("Dense", "Output", "Conv2D", "Conv1D", "Deconv2D",
+             "EmbeddingSequence", "RnnOutput"):
         params["W"] = w[0]
+        if t == "Conv1D" and w[0].ndim == 3:
+            # keras conv1d kernel [k, cin, cout] -> [k, 1, cin, cout]
+            params["W"] = w[0][:, None, :, :]
+        if t == "Deconv2D" and w[0].ndim == 4:
+            # keras Conv2DTranspose kernel [kh, kw, cout, cin] -> HWIO
+            params["W"] = np.transpose(w[0], (0, 1, 3, 2))
         if len(w) > 1 and "b" in params:
             params["b"] = w[1]
+    elif t == "SeparableConv2D":
+        # keras depthwise kernel [kh, kw, cin, dm] -> the grouped conv's
+        # [kh, kw, 1, cin * dm]
+        kh, kw, cin, dm = w[0].shape
+        params["dW"] = w[0].reshape(kh, kw, 1, cin * dm)
+        params["pW"] = w[1]
+        if len(w) > 2 and "b" in params:
+            params["b"] = w[2]
     elif t == "BatchNorm":
         # keras order: [gamma if scale] [beta if center] mean var
         i = 0

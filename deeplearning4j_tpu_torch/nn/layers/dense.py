@@ -1,6 +1,6 @@
-"""Feed-forward layers: Dense, Activation, DropoutLayer, Embedding and
-EmbeddingSequence (counterpart of deeplearning4j_tpu/nn/layers/dense.py;
-ElementWiseMultiplication comes with a later slice).
+"""Feed-forward layers: Dense, ElementWiseMultiplication, Activation,
+DropoutLayer, Embedding and EmbeddingSequence (counterpart of
+deeplearning4j_tpu/nn/layers/dense.py).
 
 Params follow DL4J naming: W [nIn, nOut], b [nOut] — the same layout in
 both packages.
@@ -68,6 +68,26 @@ class Dense(Layer):
     def apply(self, params, x, *, state, train, mask=None, rng=None):
         y = self.act_fn("sigmoid")(self.preout(params, x))
         return apply_dropout(y, self.dropout, train, rng), state
+
+
+@register_layer
+@dataclass
+class ElementWiseMultiplication(Layer):
+    """y = act(x * W + b), W and b shaped [n_out] (nn/conf/layers/misc/
+    ElementWiseMultiplicationLayer.java); W starts at ones, b at zeros."""
+
+    n_in: Optional[int] = None
+    n_out: int = 0
+
+    def output_type(self, input_type):
+        return it.FeedForward(self.n_out or input_type.arity())
+
+    def init_params(self, gen, input_type):
+        n = self.n_out or input_type.arity()
+        return {"W": torch.ones(n), "b": torch.zeros(n)}
+
+    def apply(self, params, x, *, state, train, mask=None, rng=None):
+        return self.act_fn("identity")(x * params["W"] + params["b"]), state
 
 
 @register_layer

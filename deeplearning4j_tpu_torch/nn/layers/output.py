@@ -1,6 +1,5 @@
-"""Output and loss layers: Output, RnnOutput, LossLayer (counterpart of
-deeplearning4j_tpu/nn/layers/output.py; CenterLossOutput comes with a later
-slice).
+"""Output and loss layers: Output, RnnOutput, LossLayer, CenterLossOutput
+(counterpart of deeplearning4j_tpu/nn/layers/output.py).
 
 An output layer is a Dense layer plus a loss contract:
     compute_loss(params, x, labels, *, state, mask) ->
@@ -15,7 +14,8 @@ cast. The JAX package also asks `xk.plan` (TPU VMEM budgets and tiling)
 and the `DL4J_TPU_PALLAS_XENT` gate; neither is ported, as the char-RNN
 slice dropped the LSTM kernel's gates: on a CUDA tensor the kernel always
 runs, on a CPU tensor its plain version does. Anything else takes
-`losses.compute` over the materialized pre-activation.
+`losses.compute` over the materialized pre-activation, and so does
+CenterLossOutput, whose JAX counterpart calls it directly.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn import inputs as it
 from deeplearning4j_tpu_torch.nn import losses as loss_mod
+from deeplearning4j_tpu_torch.nn import shard as shard_mod
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 from deeplearning4j_tpu_torch.nn.layers.dense import Dense, _flatten_if_needed
 from deeplearning4j_tpu_torch.ops import linear as ops
@@ -137,3 +138,53 @@ class LossLayer(BaseOutputLayer, Layer):
         score, per_ex = loss_mod.compute(self.loss or "mcxent", labels, x,
                                          self.act_fn("identity"), mask=mask)
         return score, per_ex, state
+
+
+@register_layer
+@dataclass
+class CenterLossOutput(Output):
+    """Output layer with a center-loss term (nn/conf/layers/
+    CenterLossOutputLayer.java):
+
+        score = loss + lambda_ * 0.5 * mean_i ||x_i - c_{y_i}||^2
+
+    The centers [n_out, n_in] are running state, not trained by the
+    gradient: each step moves the center of every class in the batch by
+    alpha times the mean of (x - c) over its rows (an EMA scatter-mean
+    outside the gradient); classes absent from the batch keep theirs. The
+    new centers leave through `compute_loss`'s new state."""
+
+    alpha: float = 0.05
+    lambda_: float = 2e-4
+
+    def init_state(self, input_type):
+        return {"centers": torch.zeros(self.n_out,
+                                       self.resolve_n_in(input_type))}
+
+    def compute_loss(self, params, x, labels, *, state, mask=None):
+        x2 = _flatten_if_needed(x)
+        score, per_ex = loss_mod.compute(
+            self._loss_name(), labels, self.preout(params, x2), self._act(),
+            mask=mask)
+        centers = state["centers"]
+        cls = torch.argmax(labels, dim=-1)
+        diff = x2 - centers[cls]
+        shard = shard_mod.current()
+        sq = torch.sum(diff * diff, dim=-1)
+        # the mean over the rows and the scatter-mean over the global batch
+        # in a data-parallel step: this rank's share of the mean, and every
+        # rank's rows in each class's sum and count
+        rows = sq.numel() * (1 if shard is None else shard.world)
+        center_l = 0.5 * sq.sum() / rows
+        with torch.no_grad():
+            num = torch.zeros_like(centers).index_add_(
+                0, cls, diff.detach().to(centers.dtype))
+            cnt = torch.zeros(centers.shape[0], dtype=centers.dtype,
+                              device=centers.device).index_add_(
+                0, cls, torch.ones_like(cls, dtype=centers.dtype))
+            if shard is not None:
+                num, cnt = shard.all_sum(num), shard.all_sum(cnt)
+            new_centers = centers + self.alpha * num / cnt.clamp_min(
+                1.0)[:, None]
+        return (score + self.lambda_ * center_l, per_ex,
+                {"centers": new_centers})

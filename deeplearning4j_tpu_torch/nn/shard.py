@@ -12,7 +12,11 @@ changes without the wrapper, nor in a listener's `score` inside a fit:
 
 - a loss's masked mean divides by the global active count
   (`nn.losses.reduce_score`): each rank's loss is its share of the global
-  mean, and the shares sum to it;
+  mean, and the shares sum to it (Yolo2Output's mean over the images
+  too);
+- CenterLossOutput's center term is each rank's share of the global
+  mean, and its centers move by the global batch's per-class sums and
+  counts (`all_sum`), so every rank's centers stay the same;
 - BatchNorm's batch statistics are the global batch's, through a
   differentiable all-reduce (`all_sum_grad`), so their gradients reach
   every rank's rows;

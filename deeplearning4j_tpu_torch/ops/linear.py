@@ -6,6 +6,8 @@ activation is handed to cuDNN as a `permute(0, 3, 1, 2)` view of the NHWC
 memory, which is already channels_last, so no copy is made on the way in,
 and the result permuted back is NHWC-contiguous again.
 
+`conv2d_transpose` takes the HWIO kernel of the interchange layout.
+
 Precision follows `dtypes`: each call sets PyTorch's TF32 switches for
 cuDNN convolutions and matmuls from the policy first (TF32 allowed by
 default, off under `dtypes.full_precision()`); under
@@ -102,4 +104,47 @@ def conv2d(
                  dilation, groups)
     # cuDNN writes channels_last for a channels_last input, so this is a
     # view; contiguous() only copies if a backend chose another layout
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv_transpose_padding(kernel: int, stride: int, padding) -> Tuple[int, int]:
+    """lax.conv_transpose's (lo, hi) pads of the stride-dilated input for
+    one axis: 'SAME' (output size * stride), 'VALID', or an explicit
+    (lo, hi), which lax puts onto the dilated input as it is."""
+    if padding == "SAME":
+        total = kernel + stride - 2
+        lo = kernel - 1 if stride > kernel - 1 else -(-total // 2)
+        return lo, total - lo
+    if padding == "VALID":
+        return kernel - 1, stride - 1 + max(kernel - stride, 0)
+    return int(padding[0]), int(padding[1])
+
+
+def conv2d_transpose(
+    x: torch.Tensor,
+    kernel: torch.Tensor,
+    stride: Tuple[int, int],
+    padding: Padding,
+) -> torch.Tensor:
+    """NHWC transposed conv (Deconvolution2D) with an HWIO [kh, kw, cin,
+    cout] kernel -> NHWC-contiguous, as the JAX package's
+    `lax.conv_transpose` (transpose_kernel=False): a correlation of the
+    stride-dilated input, padded by `conv_transpose_padding`, with the
+    kernel as it is. cuDNN's transposed conv correlates with the kernel
+    flipped in both spatial axes and pads the dilated input by k - 1 on
+    each side, so it is given the flipped kernel as [cin, cout, kh, kw]
+    and its result is cropped (or zero-padded) to lax's pads."""
+    x, kernel = _mixed_cast(x, kernel)
+    _apply_precision()
+    kh, kw = kernel.shape[0], kernel.shape[1]
+    if isinstance(padding, str):
+        pads = [conv_transpose_padding(kh, stride[0], padding),
+                conv_transpose_padding(kw, stride[1], padding)]
+    else:
+        pads = [tuple(p) for p in padding]
+    w = kernel.permute(2, 3, 0, 1).flip(2, 3)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, None, stride)
+    (hl, hh), (wl, wh) = pads
+    # F.pad crops where a pad is negative
+    y = F.pad(y, (wl - kw + 1, wh - kw + 1, hl - kh + 1, hh - kh + 1))
     return y.permute(0, 2, 3, 1).contiguous()

@@ -21,7 +21,11 @@ draws on the card repeating from the network's seed, and a DropConnect
 Output layer through the fused cross-entropy; ParallelWrapper at world
 size 1 over NCCL against fit on the card; fit over a host iterator through
 the prefetch thread, a step with frozen layers and evaluate on a network
-on the card, each against the CPU.
+on the card, each against the CPU; the layers of ROADMAP A.8's first half
+(chip_smoke.py's layers-a8 cases: Deconv2D, SeparableConv2D, Conv1D,
+pnorm over a zero window, the 1-D and resampling layers), Yolo2Output's
+loss, gradient and decode (the threshold taken on the card) and
+CenterLossOutput's steps, each against the CPU.
 
 Marked `cuda`; they skip where torch.cuda.is_available() is False. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -1561,3 +1565,116 @@ def test_tf32_split_keeps_the_cards_nan(cuda):
         net = _char_rnn(device)
         x, y = _char_data(n=8)
         assert np.isnan(net.score(DataSet(np.full_like(x, np.nan), y)))
+
+
+def _a8_cases():
+    import chip_smoke
+
+    return chip_smoke.A8_LAYER_CASES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(35))
+def test_a8_layer_on_the_card_matches_the_cpu(cuda, case):
+    """chip_smoke.py's layers-a8 case `case`: forward and gradients on the
+    card (TF32 off, deterministic cuDNN) within 1e-5 of the CPU's largest
+    magnitude, NaN gradients at the same positions."""
+    import numpy as np
+
+    import chip_smoke
+
+    cases = _a8_cases()
+    assert len(cases) == 35
+    label, cfg, shape, zero_window = cases[case]
+    cpu = chip_smoke.a8_layer_run(torch, np, cfg, shape, zero_window, "cpu")
+    with dtypes.full_precision(), chip_smoke.deterministic_cudnn(torch):
+        card = chip_smoke.a8_layer_run(torch, np, cfg, shape, zero_window,
+                                       cuda)
+    pairs = [(card[0], cpu[0]), (card[1], cpu[1])] + [
+        (card[2][k], cpu[2][k]) for k in cpu[2]]
+    for got, want in pairs:
+        assert chip_smoke.a8_disagreement(np, got, want) <= 1e-5, label
+
+
+@pytest.mark.cuda
+def test_yolo_loss_gradient_and_decode_on_the_card(cuda):
+    """Yolo2Output's loss and gradient on the card within 1e-5 of the CPU's
+    (relative); get_predicted_objects on a card tensor (threshold taken
+    there) gives the CPU's list, in the same order."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nn.layers.objdetect import (
+        Yolo2Output,
+        get_predicted_objects,
+    )
+
+    layer = Yolo2Output(boxes=[[1.0, 1.5], [1.0, 1.5], [2.5, 1.2]],
+                        num_classes=3)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((4, 5, 6, 24)).astype(np.float32)
+    y = np.zeros((4, 5, 6, 7), np.float32)
+    for i, r, c in ((0, 1, 2), (0, 3, 3), (2, 4, 5), (3, 0, 0)):
+        cx, cy = (c + 0.5) / 6, (r + 0.5) / 5
+        y[i, r, c, :4] = [cx - 0.1, cy - 0.1, cx + 0.2, cy + 0.1]
+        y[i, r, c, 4 + (i + r) % 3] = 1.0
+    out = {}
+    for dev in ("cpu", cuda):
+        tx = torch.tensor(x, device=dev, requires_grad=True)
+        score, _, _ = layer.compute_loss({}, tx, torch.tensor(y, device=dev),
+                                         state={})
+        score.backward()
+        out[str(dev)] = (score.item(), tx.grad.cpu().numpy(),
+                         get_predicted_objects(layer, tx.detach(), 0.6))
+    (s_cpu, g_cpu, o_cpu), (s_card, g_card, o_card) = out.values()
+    assert abs(s_card - s_cpu) <= 1e-5 * abs(s_cpu)
+    assert np.abs(g_card - g_cpu).max() <= 1e-5 * np.abs(g_cpu).max()
+    assert len(o_cpu) > 3
+    assert [(o.example, o.predicted_class) for o in o_card] == \
+        [(o.example, o.predicted_class) for o in o_cpu]
+    for a, b in zip(o_card, o_cpu):
+        assert abs(a.confidence - b.confidence) <= 1e-6
+        assert abs(a.center_x - b.center_x) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_center_loss_output_step_on_the_card(cuda):
+    """Three fit steps of a Dense -> CenterLossOutput network on the card
+    (TF32 off) and on the CPU: scores 1e-5 relative, params and centers
+    1e-5 absolute; the second batch lacks class 2, whose center stays."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn import updaters
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import CenterLossOutput, Dense
+
+    def net(dev):
+        return MultiLayerNetwork(NeuralNetConfiguration(
+            seed=3, updater=updaters.Adam(learning_rate=1e-2)).list([
+                Dense(n_out=8, activation="tanh"),
+                CenterLossOutput(n_out=4, loss="mcxent", alpha=0.5,
+                                 lambda_=0.1)]).set_input_type(
+            it.feed_forward(6))).init(dev)
+
+    nets = {"card": net(cuda), "cpu": net("cpu")}
+    rng = np.random.default_rng(1)
+    for step in range(3):
+        x = rng.standard_normal((16, 6)).astype(np.float32)
+        cls = rng.integers(0, 4, 16)
+        if step == 1:
+            cls[cls == 2] = 0
+        y = np.eye(4, dtype=np.float32)[cls]
+        before = nets["card"].state["layer_1"]["centers"].clone()
+        with dtypes.full_precision():
+            for n in nets.values():
+                n.fit(DataSet(x, y))
+        assert abs(nets["card"].score_ - nets["cpu"].score_) <= \
+            1e-5 * abs(nets["cpu"].score_)
+        c_card = nets["card"].state["layer_1"]["centers"]
+        c_cpu = nets["cpu"].state["layer_1"]["centers"]
+        assert (c_card.cpu() - c_cpu).abs().max() <= 1e-5
+        if step == 1:
+            assert torch.equal(c_card[2], before[2])
+    ta, tb = nets["card"].get_param_table(), nets["cpu"].get_param_table()
+    for k in tb:
+        assert abs(ta[k] - tb[k]).max() <= 1e-5, k

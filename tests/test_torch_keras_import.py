@@ -277,19 +277,30 @@ def test_unknown_keras_class_raises_value_error(tmp_path):
         import_keras_sequential_model_and_weights(p, device="cpu")
 
 
-@pytest.mark.parametrize("cls", sorted(tkeras._NOT_PORTED))
+# the Keras classes whose port layers came with ROADMAP A.8, each with
+# the layer the JAX importer translates it into
+A8_CLASSES = {
+    "AtrousConvolution1D": "Conv1D", "AveragePooling1D": "Subsampling1D",
+    "Conv1D": "Conv1D", "Conv2DTranspose": "Deconv2D",
+    "Convolution1D": "Conv1D", "Deconvolution2D": "Deconv2D",
+    "MaxPooling1D": "Subsampling1D", "SeparableConv2D": "SeparableConv2D",
+    "UpSampling1D": "Upsampling1D", "UpSampling2D": "Upsampling2D",
+    "ZeroPadding1D": "ZeroPadding1D", "ZeroPadding2D": "ZeroPadding2D"}
+
+
+@pytest.mark.parametrize("cls", sorted(A8_CLASSES))
 def test_unported_keras_layers_raise_not_implemented(cls):
-    """Each Keras class whose port layer does not exist yet names itself
-    and the ROADMAP item that brings it; the JAX package translates it."""
+    """Each of the twelve Keras classes the port once refused (until
+    ROADMAP A.8) now translates into the layer the JAX importer gives,
+    with the same JSON."""
     from deeplearning4j_tpu.modelimport.keras import KerasLayerTranslator as J
 
     cfg = {"name": "x", "filters": 2, "kernel_size": 3, "units": 2,
            "pool_size": 2, "padding": 1, "size": 2, "atrous_rate": 2}
-    assert J().translate(cls, dict(cfg)) is not None
-    layer, item = tkeras._NOT_PORTED[cls]
-    with pytest.raises(NotImplementedError,
-                       match=f"'{cls}'.*{layer}.*item {item}"):
-        tkeras.KerasLayerTranslator().translate(cls, dict(cfg))
+    want = J().translate(cls, dict(cfg))
+    got = tkeras.KerasLayerTranslator().translate(cls, dict(cfg))
+    assert type(got).__name__ == type(want).__name__ == A8_CLASSES[cls]
+    assert json.dumps(got.to_json()) == json.dumps(want.to_json())
 
 
 @pytest.mark.parametrize("return_sequences", [True, False])
@@ -331,8 +342,10 @@ def test_simple_rnn_written_by_the_port_imports_as_jax(tmp_path, rng,
 
 
 def test_unported_layer_in_a_file_raises_not_implemented(tmp_path, rng):
-    """SeparableConv2D (test_keras_import's layout case) imports in the JAX
-    package and stops the port's import loudly."""
+    """SeparableConv2D (test_keras_import's layout case), once refused,
+    imports as the JAX package imports it: the depthwise kernel [3, 3, 2,
+    2] reshaped to the grouped conv's [3, 3, 1, 4], the same params and
+    activations within 1e-5."""
     p = tmp_path / "sep.h5"
     _model_h5(p, [
         {"class_name": "SeparableConv2D",
@@ -345,10 +358,17 @@ def test_unported_layer_in_a_file_raises_not_implemented(tmp_path, rng):
         {"sep": [("depthwise_kernel:0",
                   rng.standard_normal((3, 3, 2, 2)).astype(np.float32)),
                  ("pointwise_kernel:0",
-                  rng.standard_normal((1, 1, 4, 6)).astype(np.float32))]})
-    assert jax_import_seq(p) is not None
-    with pytest.raises(NotImplementedError, match="SeparableConv2D"):
-        import_keras_sequential_model_and_weights(p, device="cpu")
+                  rng.standard_normal((1, 1, 4, 6)).astype(np.float32))],
+         "fc": [("kernel:0",
+                 rng.standard_normal((216, 3)).astype(np.float32) * 0.1),
+                ("bias:0", rng.standard_normal(3).astype(np.float32))]})
+    tnet, jnet = _both(p)
+    assert [type(l).__name__ for l in tnet.layers] == \
+        [type(l).__name__ for l in jnet.layers]
+    assert tnet.conf.to_json() == jnet.conf.to_json()
+    _same_params(tnet, jnet)
+    x = rng.standard_normal((3, 6, 6, 2)).astype(np.float32)
+    assert _worst_activation(tnet, jnet, x) <= 1e-5
 
 
 def _square_conv_h5(path, rng):
@@ -528,3 +548,25 @@ def jk_seq_json(tmp_path, rng):
     with h5py.File(p, "r") as f:
         out.write_text(f.attrs["model_config"])
     return out
+
+
+@pytest.mark.parametrize("kind", ["2d", "1d"])
+def test_a8_keras_files_import_as_jax(tmp_path, rng, kind):
+    """chip_smoke.py keras-a8's files, written by the port's HDF5 writer
+    (Conv2D -> ZeroPadding2D -> SeparableConv2D -> UpSampling2D ->
+    Conv2DTranspose; Conv1D -> MaxPooling1D -> UpSampling1D ->
+    ZeroPadding1D): both packages import the same layers, JSON and params
+    (Conv2DTranspose's kernel turned to HWIO, Conv1D's given its unit
+    axis, the depthwise kernel regrouped) and compute the same
+    activations within 1e-5."""
+    import chip_smoke
+
+    p = tmp_path / f"a8_{kind}.h5"
+    shape = chip_smoke.write_keras_a8_h5(np, str(p), kind)
+    tnet, jnet = _both(p)
+    assert [type(l).__name__ for l in tnet.layers] == \
+        [type(l).__name__ for l in jnet.layers]
+    assert tnet.conf.to_json() == jnet.conf.to_json()
+    _same_params(tnet, jnet)
+    x = rng.standard_normal((3, *shape)).astype(np.float32)
+    assert _worst_activation(tnet, jnet, x) <= 1e-5

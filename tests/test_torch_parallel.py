@@ -58,10 +58,15 @@ from deeplearning4j_tpu_torch.nn.graph_conf import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.graph_vertices import MergeVertex
 from deeplearning4j_tpu_torch.nn.layers import (
     LSTM,
+    BatchNorm,
+    CenterLossOutput,
+    Conv2D,
     Dense,
     GravesLSTM,
     Output,
     RnnOutput,
+    Subsampling2D,
+    Yolo2Output,
 )
 from deeplearning4j_tpu_torch.parallel import (
     MeshSpec,
@@ -274,6 +279,53 @@ def _masked_graph_conf():
         .set_outputs("out").set_input_types(it.recurrent(10, 32)).to_json()
 
 
+YOLO_BOXES, YOLO_CLASSES = [[1.0, 1.5], [2.5, 1.2]], 3
+
+
+def _yolo_conf():
+    """conv + leaky BatchNorm + pool + 1x1 conv into Yolo2Output: a 4x5
+    grid of 2 anchors at 8x10x3."""
+    n_out = len(YOLO_BOXES) * (5 + YOLO_CLASSES)
+    return NeuralNetConfiguration(
+        seed=6, updater=updaters.Adam(learning_rate=1e-2)).list([
+            Conv2D(kernel_size=(3, 3), n_out=6, convolution_mode="same",
+                   has_bias=False),
+            BatchNorm(activation="leakyrelu"),
+            Subsampling2D(kernel_size=(2, 2), stride=(2, 2)),
+            Conv2D(kernel_size=(1, 1), n_out=n_out, convolution_mode="same"),
+            Yolo2Output(boxes=YOLO_BOXES, num_classes=YOLO_CLASSES),
+        ]).set_input_type(it.convolutional(8, 10, 3)).to_json()
+
+
+def _yolo_data(seed, n, grid=(4, 5)):
+    """n seeded 8x10x3 images and Yolo2Output labels of one box each,
+    written into the cell of its center."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 8, 10, 3)).astype(np.float32)
+    H, W = grid
+    y = np.zeros((n, H, W, 4 + YOLO_CLASSES), np.float32)
+    for i in range(n):
+        cx, cy = rng.uniform(0.05, 0.95, 2)
+        w, h = rng.uniform(0.1, 0.5, 2)
+        r, c = min(int(cy * H), H - 1), min(int(cx * W), W - 1)
+        y[i, r, c, :4] = [cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2]
+        y[i, r, c, 4 + rng.integers(YOLO_CLASSES)] = 1.0
+    return x, y
+
+
+def _center_loss_graph_conf():
+    """in -> Dense(12, tanh) -> CenterLossOutput(3): a one-in, one-out
+    graph, as zoo FaceNetNN4Small2 is."""
+    return ComputationGraphConfiguration(
+        defaults=NeuralNetConfiguration(
+            seed=5, updater=updaters.Adam(learning_rate=0.02))) \
+        .add_inputs("in") \
+        .add_layer("emb", Dense(n_out=12, activation="tanh"), "in") \
+        .add_layer("out", CenterLossOutput(n_out=3, loss="mcxent",
+                                           alpha=0.5, lambda_=0.1), "emb") \
+        .set_outputs("out").set_input_types(it.feed_forward(8)).to_json()
+
+
 def run_case(tmp_path, kind, conf, world, data, batch, epochs,
              shuffle=False, **extra):
     """The port's `world` ranks (spawned), the JAX wrapper and the port's
@@ -430,6 +482,43 @@ def test_batchnorm_graph_takes_global_batch_statistics(tmp_path):
                    "slot/", rel=True) <= 1e-4
     assert max_err(per_rank[0], jr, "state/", rel=True) > 1e-4
     assert max_err(per_rank[0], jr, "param/") > 1e-5
+
+
+def test_yolo_network_takes_the_global_batch_mean(tmp_path):
+    """Yolo2Output through the wrapper at 2 ranks, 3 steps of 8 images:
+    each rank's score is its share of the global mean over the images, so
+    the summed scores and gradients are the single process's and the JAX
+    wrapper's (a rank's own mean would double both)."""
+    ranks, jr, js, tr_, ts = run_case(tmp_path, "mln", _yolo_conf(), 2,
+                                      (*_yolo_data(7, 24), None, None), 8,
+                                      1)
+    r0 = ranks[0]
+    assert len(r0["scores"]) == len(js) == len(ts) == 3
+    np.testing.assert_allclose(r0["scores"], js, rtol=1e-5)
+    np.testing.assert_allclose(r0["scores"], ts, rtol=1e-5)
+    for ref in (jr, tr_):
+        assert max_err(r0, ref, "param/") <= 1e-5
+        assert max_err(r0, ref, "state/", rel=True) <= 1e-4
+    assert max_err(r0, tr_, "slot/", rel=True) <= 1e-4
+
+
+def test_center_loss_graph_takes_global_centers(tmp_path):
+    """CenterLossOutput in a graph through the wrapper at 2 ranks, 3 epochs
+    of one batch of 32 rows: the center term is each rank's share of the
+    global mean and the centers move by the global batch's per-class sums
+    and counts, so every rank ends with the single process's and the JAX
+    wrapper's centers, scores and params."""
+    ranks, jr, js, tr_, ts = run_case(tmp_path, "cg",
+                                      _center_loss_graph_conf(), 2,
+                                      (*_ff_data(9, 32), None, None), 32, 3)
+    r0 = ranks[0]
+    np.testing.assert_allclose(r0["scores"], js, rtol=1e-5)
+    np.testing.assert_allclose(r0["scores"], ts, rtol=1e-5)
+    for ref in (jr, tr_):
+        assert max_err(r0, ref, "param/") <= 2e-5
+        assert max_err(r0, ref, "state/", rel=True) <= 1e-4
+    assert max_err(r0, tr_, "slot/", rel=True) <= 1e-4
+    assert np.abs(r0["state/out/centers"]).min(axis=1).max() > 0
 
 
 def test_vgg16_step_with_replayed_dropout_keys(tmp_path):
