@@ -468,6 +468,38 @@ Phases, in order; any failure exits non-zero without the final line:
               224x224x3 behind InferenceServer (batch limit 32), softmax
               rows against net.output, then one TF32-off forward at 2 rows
               against the CPU port, every activation within 1e-4.
+ 61. pretrain-dbn  Hinton, Osindero & Teh's DBN on MNIST flattened to 784
+              (the port's MnistDataSetIterator): RBMs 784-500-500-2000
+              (binary, CD-1) pretrained by MultiLayerNetwork.pretrain_layer
+              for 20 batches of 128 each (ms per batch per layer, the
+              one-step reconstruction error lower after each pass, no TPU
+              kernel), then an Output softmax/mcxent 2000 -> 10 fine-tuned
+              by fit for 20 steps (ms per step, images/s; rows 9 and 10 once
+              each per step at (128, 2000, 10)); memory_report(conf).
+              training_bytes(128) beside the card's peak allocation in a
+              fit step (reported); a fit step under nan_checks passes and
+              one on a batch with a NaN pixel raises FloatingPointError.
+ 62. pretrain-sda  a stacked denoising autoencoder, AutoEncoders
+              784-1000-500-250-30 at corruption 0.3, pretrained and
+              fine-tuned as pretrain-dbn (each layer's loss lower at the
+              end; rows 9 and 10 at (128, 30, 10)).
+ 63. pretrain-vae  DL4J's VariationalAutoEncoderExample (784 -> 256, 256 ->
+              2 -> 256, 256, bernoulli, leakyrelu, RmsProp 1e-3) pretrained
+              for 20 batches (-ELBO lower at the end), then
+              reconstruction_probability of 1024 held-out images with 16
+              samples each as an anomaly score (ms, scores/s; finite, at
+              most 0, digits above uniform noise). No TPU kernel runs.
+ 64. refer-pretrain  card (TF32 off) vs CPU from the same point, the
+              card's draws replayed on the CPU: 3 pretrain batches each of
+              an AutoEncoder (784 -> 1000), RBMs 784 -> 500 (binary CD-1,
+              gaussian-visible CD-2) and both VAEs (score, changes and
+              slots; reconstruction probabilities with the same normals);
+              one fit step of the fine-tuned DBN; check_gradients on
+              float64 AutoEncoder, RBM and VAE networks on the card.
+ 65. kernel-a8b  rows 9 and 10 at (128, 2000, 10) and (128, 30, 10) (the
+              latter's 120-byte rows take the unaligned copies), float32
+              and bfloat16, against their plain versions (kernel / plain /
+              library / bound ms).
 
 The characters the training phases learn are drawn with Zipf frequencies,
 so that a falling loss shows learning; their shapes are bench.py
@@ -476,8 +508,8 @@ bench_lstm's.
 Every kernel's launch count is set to 0 just before each serve phase, the
 generation run, each training run (the data-parallel ones too), the
 restore-and-resume runs, each evaluation pass and each solver, window,
-sentry and records run, and each serving or training run of A.8's paths,
-and read just after. The
+sentry and records run, each serving or training run of A.8's paths, and
+each pretraining and fine-tuning run, and read just after. The
 last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 Exits non-zero when no CUDA device is available, and when the port's
@@ -3660,12 +3692,14 @@ def vgg_net(torch, device=None):
 
 
 class DrawTape:
-    """Stands in for a network's dropout draws (`nn.dropout.Draws`). A
-    recording tape passes every call on to `inner` and keeps each mask and
-    noise sample it hands out; a replaying tape hands the kept samples out
-    again, in order, on its own device, and fails on a call that does not
-    match the recorded one. So a CPU network trains with the card's
-    masks."""
+    """Stands in for a network's draws (`nn.dropout.Draws`). A recording
+    tape passes every call on to `inner` and keeps each mask and noise
+    sample it hands out (dropout masks, weight noise, and in layerwise
+    pretraining the corruption masks, the Gibbs chain's samples from a
+    tensor of probabilities and the VAE's normals); a replaying tape hands
+    the kept samples out again, in order, on its own device, and fails on
+    a call that does not match the recorded one. So a CPU network trains
+    with the card's masks."""
 
     def __init__(self, inner, tape, device=None):
         self.inner, self.tape, self.device = inner, tape, device
@@ -3709,7 +3743,10 @@ class DrawTape:
         return t.to(self.device)
 
     def bernoulli(self, p, shape):
-        return self._take(("bernoulli", p), shape,
+        # a tensor of probabilities (the RBM's Gibbs samples) is recorded
+        # as "tensor": the replaying side computes its own p
+        key = "tensor" if hasattr(p, "shape") else p
+        return self._take(("bernoulli", key), shape,
                           lambda d: d.bernoulli(p, shape))
 
     def normal(self, shape, dtype):
@@ -3719,7 +3756,7 @@ class DrawTape:
     def keep_rates(self):
         """(p, kept share) of each recorded mask."""
         return [(what[1], float(t.float().mean())) for what, t in self.tape
-                if what[0] == "bernoulli"]
+                if what[0] == "bernoulli" and what[1] != "tensor"]
 
 
 def as_float64(net):
@@ -6615,6 +6652,540 @@ def phase_serve_zoo(torch, np, card, name, tag, limit=32):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------- A.8's second half, A.2
+# MNIST flattened to 784, batch 128: pretrain batches per layer, fit steps
+PRETRAIN = (128, 20, 20)
+# Hinton, Osindero & Teh 2006: RBMs 784-500-500-2000, then 10 classes
+DBN_WIDTHS = (500, 500, 2000)
+# Hinton & Salakhutdinov 2006's encoder widths, denoising at 0.3
+SDA_WIDTHS = (1000, 500, 250, 30)
+SDA_CORRUPTION = 0.3
+# DL4J's VariationalAutoEncoderExample: 784 -> 256, 256 -> 2 -> 256, 256
+VAE_EXAMPLE = dict(n_out=2, encoder_layer_sizes=[256, 256],
+                   decoder_layer_sizes=[256, 256],
+                   reconstruction_distribution="bernoulli",
+                   pzx_activation="identity", activation="leakyrelu")
+VAE_HELD_OUT = (1024, 16)      # held-out images, samples per image
+# rows 9 and 10 at the DBN's Output (128, 2000, 10) and the stacked
+# denoising autoencoder's (128, 30, 10)
+PRETRAIN_XENT_CASES = [(128, 2000, 10, "onehot", "float32"),
+                       (128, 2000, 10, "onehot", "bfloat16"),
+                       (128, 30, 10, "onehot", "float32"),
+                       (128, 30, 10, "onehot", "bfloat16")]
+# refer-pretrain: each layer under an Output(10), 3 pretrain batches of
+# 128 card (TF32 off) vs CPU with the card's draws replayed: (label,
+# layer config, updater, learning rate). Gaussian visible units take a
+# hundredth of the binary units' rate (Hinton's practical guide, section
+# 13.2): at 0.05 the free energy reaches 1e8 in 3 batches.
+PRETRAIN_REFER_CASES = [
+    ("autoencoder", dict(type="AutoEncoder", n_out=1000,
+                         corruption_level=SDA_CORRUPTION), "nesterovs", 0.05),
+    ("rbm-binary-cd1", dict(type="RBM", n_out=500), "nesterovs", 0.05),
+    ("rbm-gaussian-cd2", dict(type="RBM", n_out=500, visible_unit="gaussian",
+                              cd_k=2), "nesterovs", 5e-4),
+    ("vae-bernoulli", dict(type="VariationalAutoencoder", **VAE_EXAMPLE),
+     "rmsprop", 1e-3),
+    ("vae-gaussian", dict(type="VariationalAutoencoder",
+                          **dict(VAE_EXAMPLE,
+                                 reconstruction_distribution="gaussian")),
+     "rmsprop", 1e-3),
+]
+PRETRAIN_REFER_BATCHES = 3
+# card against CPU after 3 pretrain batches from the same point: the last
+# batch's score relative (the RBM's CD surrogate, a difference of two free
+# energies, relative to the data's mean free energy), each param's change
+# and each slot in relative L2 norm per leaf as refer-tinyyolo holds them;
+# reconstruction_probability with the same normals relative per row
+PRETRAIN_REFER_TOL = {"score": 1e-5, "change": 0.05, "slot": 0.05,
+                      "recon_prob": 1e-5}
+
+
+def pretrain_updater(kind, lr=None):
+    """RmsProp (the VAE example's, 1e-3) or Nesterovs (0.05, momentum
+    0.9), at `lr` where given."""
+    from deeplearning4j_tpu_torch.nn import updaters
+
+    if kind == "rmsprop":
+        return updaters.RmsProp(learning_rate=lr or 1e-3)
+    return updaters.Nesterovs(learning_rate=lr or 0.05, momentum=0.9)
+
+
+def pretrain_conf(kind):
+    """The DBN, the stacked denoising autoencoder or DL4J's VAE example
+    (MNIST flattened to 784, weights from SEED)."""
+    from deeplearning4j_tpu_torch.nn import inputs
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import (
+        RBM,
+        AutoEncoder,
+        Output,
+        VariationalAutoencoder,
+    )
+
+    out = Output(n_out=10, loss="mcxent", activation="softmax")
+    if kind == "dbn":
+        layers = [RBM(n_out=w) for w in DBN_WIDTHS] + [out]
+    elif kind == "sda":
+        layers = [AutoEncoder(n_out=w, corruption_level=SDA_CORRUPTION)
+                  for w in SDA_WIDTHS] + [out]
+    else:
+        layers = [VariationalAutoencoder(**VAE_EXAMPLE)]
+    return (NeuralNetConfiguration(
+        seed=SEED, updater=pretrain_updater(
+            "rmsprop" if kind == "vae" else "nesterovs"),
+        l2=1e-4 if kind == "vae" else 0.0)
+        .list(layers).set_input_type(inputs.feed_forward(784)))
+
+
+def mnist_flat(torch, np, n, train=True):
+    """n MNIST images flattened to 784 (the port's MnistDataSetIterator:
+    the idx files where there are any, else its seeded sample) and their
+    one-hot labels, on the card; and whether they are the sample."""
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+
+    it = MnistDataSetIterator(batch=n, train=train, num_examples=n,
+                              seed=SEED, shuffle=False)
+    ds = next(iter(it))
+    dev = card_device(torch)
+    x = torch.from_numpy(np.asarray(ds.features).reshape(n, -1)).to(dev)
+    return x, torch.from_numpy(np.asarray(ds.labels)).to(dev), it.synthetic
+
+
+def score_tap(torch, net, x, y, batch):
+    """A DataSetIterator over (x, y) in batches of `batch` rows that keeps
+    net.score_ and the seconds of each batch as pretraining consumes it
+    (no prefetch thread)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, DataSetIterator
+
+    class Tap(DataSetIterator):
+        def __init__(self):
+            self.scores, self.seconds, self._i, self._t0 = [], [], 0, None
+
+        def async_supported(self):
+            return False
+
+        def reset(self):
+            self._i = 0
+
+        def __next__(self):
+            torch.cuda.synchronize()
+            if self._t0 is not None:
+                self.seconds.append(time.perf_counter() - self._t0)
+                self.scores.append(net.score_)
+                self._t0 = None
+            lo = self._i * batch
+            if lo >= x.shape[0]:
+                raise StopIteration
+            self._i += 1
+            self._t0 = time.perf_counter()
+            return DataSet(x[lo:lo + batch], y[lo:lo + batch])
+
+        def batch_size(self):
+            return batch
+
+    return Tap()
+
+
+def pretrain_run(torch, np, tag, net, x, y, card):
+    """net.pretrain_layer of every layer with an objective, in order, over
+    PRETRAIN[1] batches of PRETRAIN[0] rows of (x, y): no TPU kernel
+    launches; every score finite; the AutoEncoder's and the VAE's loss
+    (median of the last 5) below the first batch's; an RBM's one-step
+    mean-field reconstruction error of the first batch lower after its
+    pass. Logs ms per pretrain batch per layer. Returns {layer: median
+    ms}."""
+    from deeplearning4j_tpu_torch.nn.layers import RBM
+
+    b, batches, _ = PRETRAIN
+    xs, ys = x[:b * batches], y[:b * batches]
+    out = {}
+    reset_counts()
+    for i, layer in enumerate(net.layers):
+        if not hasattr(layer, "pretrain_loss"):
+            continue
+        with torch.no_grad():
+            h = net._walk(net.params, xs[:b], to_layer=i)[0]
+
+        def recon(_i=i, _layer=layer, _h=h):
+            with torch.no_grad():
+                pv = _layer.gibbs_chain(net.params[f"layer_{_i}"], _h, None,
+                                        k=1)
+                return float(((pv - _h) ** 2).sum(dim=-1).mean())
+
+        before = recon() if isinstance(layer, RBM) else None
+        tap = score_tap(torch, net, xs, ys, b)
+        net.pretrain_layer(i, tap)
+        scores = tap.scores
+        if len(scores) != batches or \
+                not all(math.isfinite(s) for s in scores):
+            raise AssertionError(f"{tag}: layer {i} scores {scores}")
+        ms = median(tap.seconds[1:]) * 1e3
+        note = ""
+        if before is not None:
+            after = recon()
+            note = (f"; one-step reconstruction error of the first batch "
+                    f"{before:.4f} -> {after:.4f}")
+            if not after < before:
+                raise AssertionError(f"{tag}: layer {i} reconstruction "
+                                     f"error {before} -> {after}")
+        elif not median(scores[-5:]) < scores[0]:
+            raise AssertionError(f"{tag}: layer {i} the median of the last "
+                                 f"5 losses is not below the first: "
+                                 f"{scores}")
+        log(f"[{tag}] pretrain layer {i} {type(layer).__name__} "
+            f"{tuple(h.shape)} -> {layer.n_out}: {batches} batches of {b}, "
+            f"scores {', '.join(f'{s:.4f}' for s in scores)}{note}")
+        log(f"[{tag}] pretrain layer {i}: median {ms:.3f} ms per batch, "
+            f"{b / (ms / 1e3):.1f} images/s; first batch "
+            f"{tap.seconds[0] * 1e3:.2f} ms ({card})")
+        out[i] = ms
+    expect_launches(f"{tag} (pretrain)", read_counts(), {})
+    return out
+
+
+def phase_pretrain_stack(torch, np, card, kind, tag, data):
+    """pretrain-dbn / pretrain-sda: the stack pretrained layer by layer
+    (pretrain_run), then PRETRAIN[2] fit steps on one batch (rows 9 and
+    10 once each per step at its Output). Returns the fit's launches and
+    the network."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+
+    x, y = data
+    net = MultiLayerNetwork(pretrain_conf(kind)).init(card_device(torch))
+    log(f"[{tag}] {[type(l).__name__ for l in net.layers]} "
+        f"({net.num_params()} params) on {net.device}")
+    pretrain_run(torch, np, tag, net, x, y, card)
+    b, _, steps = PRETRAIN
+    res = train_zoo(torch, np, tag, net, x[:b], y[:b], [(False, steps)],
+                    XENT_PER_STEP, card)
+    return res["TF32"][0], net
+
+
+def phase_memory_and_nans(torch, np, net, data, card):
+    """On the fine-tuned DBN: memory_report(conf).training_bytes(128)
+    beside the card's peak allocation in one fit step (reported, not
+    gated); then two fit steps under nan_checks on finite data (the
+    kernels' outputs pass the checks) and a fit and an output on a batch
+    with one NaN pixel, each of which raises FloatingPointError."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.memory import memory_report
+    from deeplearning4j_tpu_torch.util.debugging import nan_checks
+
+    b = PRETRAIN[0]
+    x, y = data[0][:b], data[1][:b]
+    report = memory_report(net.conf)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    net.fit(DataSet(x, y))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    mib = 2 ** 20
+    log(f"[pretrain-dbn] memory_report: {report.total_params} params, "
+        f"training_bytes(128) {report.training_bytes(b) / mib:.2f} MiB, "
+        f"inference_bytes(128) {report.inference_bytes(b) / mib:.2f} MiB; "
+        f"one fit step's peak allocation {peak / mib:.2f} MiB "
+        f"({before / mib:.2f} MiB allocated before it; reported, not "
+        f"gated) ({card})")
+    bad = x.clone()
+    bad[3, 400] = float("nan")
+    finite_ms = []
+    with nan_checks():
+        for _ in range(2):  # the first pays one-time costs of the checks
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit(DataSet(x, y))
+            torch.cuda.synchronize()
+            finite_ms.append((time.perf_counter() - t0) * 1e3)
+        caught = []
+        for run in (lambda: net.fit(DataSet(bad, y)),
+                    lambda: net.output(bad)):
+            try:
+                run()
+            except FloatingPointError as e:
+                caught.append(str(e))
+            else:
+                raise AssertionError("pretrain-dbn: nan_checks let a NaN "
+                                     "batch through")
+    if not math.isfinite(net.score(DataSet(x, y))):
+        raise AssertionError("pretrain-dbn: the network is not finite "
+                             "after the refused step")
+    log(f"[pretrain-dbn] nan_checks: finite fit steps pass "
+        f"({finite_ms[0]:.1f} ms, then {finite_ms[1]:.1f} ms, with every op "
+        f"checked); the NaN batch raises "
+        f"FloatingPointError in fit ({caught[0]}: the batch's slice, as "
+        f"JAX's dynamic_slice would) and in output ({caught[1]})")
+
+
+def phase_pretrain_vae(torch, np, card, data):
+    """pretrain-vae: DL4J's VariationalAutoEncoderExample pretrained for
+    PRETRAIN[1] batches; then reconstruction_probability of VAE_HELD_OUT
+    held-out images with 16 samples each as an anomaly score (ms and
+    scores/s): finite, at most 0 (log p of a bernoulli), and the held-out
+    digits more probable on average than as many uniform-noise images."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+
+    x, y = data
+    net = MultiLayerNetwork(pretrain_conf("vae")).init(card_device(torch))
+    log(f"[pretrain-vae] VariationalAutoencoder {VAE_EXAMPLE} "
+        f"({net.num_params()} params) on {net.device}")
+    pretrain_run(torch, np, "pretrain-vae", net, x, y, card)
+    n, samples = VAE_HELD_OUT
+    x_test, _, synthetic = mnist_flat(torch, np, n, train=False)
+    gen = torch.Generator(device=card_device(torch)).manual_seed(SEED + 70)
+    noise = torch.rand((n, 784), generator=gen, device=card_device(torch))
+    layer, p = net.layers[0], net.params["layer_0"]
+    reset_counts()
+    times = []
+    with torch.no_grad():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = layer.reconstruction_probability(
+                p, x_test, net.draws.step(), num_samples=samples)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        noise_scores = layer.reconstruction_probability(
+            p, noise, net.draws.step(), num_samples=samples)
+    expect_launches("pretrain-vae", read_counts(), {})
+    s = scores.cpu().numpy()
+    s_noise = noise_scores.cpu().numpy()
+    if s.shape != (n,) or not np.isfinite(s).all() or (s > 0).any():
+        raise AssertionError(f"pretrain-vae: scores {s[:8]} shape "
+                             f"{s.shape}")
+    if not s.mean() > s_noise.mean():
+        raise AssertionError(f"pretrain-vae: held-out digits "
+                             f"{s.mean():.2f} not above noise "
+                             f"{s_noise.mean():.2f}")
+    ms = median(times) * 1e3
+    log(f"[pretrain-vae] reconstruction_probability of {n} held-out "
+        f"images ({'synthetic sample' if synthetic else 'MNIST test'}), "
+        f"{samples} samples each: {ms:.3f} ms (median of 3), "
+        f"{n / (ms / 1e3):.1f} scores/s; mean log p {s.mean():.2f} "
+        f"(min {s.min():.2f}) against {s_noise.mean():.2f} for uniform "
+        f"noise ({card})")
+    del net
+
+
+class SlotTap:
+    """Stands in for a layer's updater in pretrain_layer and keeps the
+    slots of its last step."""
+
+    def __init__(self, inner):
+        self.inner, self.slots = inner, None
+        self.learning_rate = inner.learning_rate
+
+    def init_state(self, params):
+        return self.inner.init_state(params)
+
+    def apply(self, grads, slots, lr):
+        steps, self.slots = self.inner.apply(grads, slots, lr)
+        return steps, self.slots
+
+
+def pretrain_refer_net(torch, cfg, updater, lr, device):
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn import inputs
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import Output
+    from deeplearning4j_tpu_torch.nn.layers.base import Layer
+
+    conf = (NeuralNetConfiguration(seed=SEED,
+                                   updater=pretrain_updater(updater, lr))
+            .list([Layer.from_json(cfg), Output(n_out=10, loss="mcxent")])
+            .set_input_type(inputs.feed_forward(784)))
+    return MultiLayerNetwork(conf).init(device)
+
+
+def pretrain_refer_run(torch, np, case, x, y, device, tape=None):
+    """PRETRAIN_REFER_CASES[case]'s layer under an Output(10) pretrained
+    on (x, y) in batches of PRETRAIN[0] on `device`, its draws recorded
+    (tape None) or replayed from `tape`; with a VAE, then
+    reconstruction_probability of the first batch with 4 samples. Returns
+    (params as numpy, the last slots as numpy, score_, the recorded tape,
+    the reconstruction probabilities or None)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.models._training import flat_items
+
+    _, cfg, updater, lr = PRETRAIN_REFER_CASES[case]
+    net = pretrain_refer_net(torch, cfg, updater, lr, device)
+    net.draws = (DrawTape.record(net.draws) if tape is None
+                 else DrawTape.replay(tape, device))
+    net._updaters[0] = SlotTap(net._updaters[0])
+    x, y = x.to(device), y.to(device)
+    net.pretrain_layer(0, ListDataSetIterator(DataSet(x, y),
+                                              batch=PRETRAIN[0]))
+    layer, p = net.layers[0], net.params["layer_0"]
+    probs = None
+    if hasattr(layer, "reconstruction_probability"):
+        with torch.no_grad():
+            probs = layer.reconstruction_probability(
+                p, x[:PRETRAIN[0]], net.draws.step(), num_samples=4)
+        probs = probs.cpu().numpy()
+    if tape is not None and net.draws.tape:
+        raise AssertionError(f"refer-pretrain: {len(net.draws.tape)} "
+                             f"recorded draws left over")
+
+    def numpy_tree(tree):
+        return {k: t.detach().cpu().numpy() for k, t in flat_items(tree)
+                if hasattr(t, "shape") and t.dim()}
+
+    slots = {}
+    for slot, tree in net._updaters[0].slots.items():
+        if isinstance(tree, dict):
+            slots.update({f"{slot}/{k}": v
+                          for k, v in numpy_tree(tree).items()})
+    return (numpy_tree(p), slots, net.score_,
+            None if tape is not None else net.draws.tape, probs)
+
+
+def pretrain_refer_case(torch, np, case, x, y):
+    """PRETRAIN_REFER_CASES[case] pretrained on (x, y) (card tensors) on
+    the card (TF32 off) and on the CPU from the same params, the card's
+    draws replayed on the CPU. Returns (measures beside
+    PRETRAIN_REFER_TOL, a log line)."""
+    from deeplearning4j_tpu_torch import dtypes
+
+    label, cfg, updater, lr = PRETRAIN_REFER_CASES[case]
+    start = {k: t.detach().numpy() for k, t in
+             pretrain_refer_net(torch, cfg, updater, lr, "cpu")
+             .params["layer_0"].items()}
+    with dtypes.full_precision():
+        card_p, card_s, card_score, tape, card_probs = pretrain_refer_run(
+            torch, np, case, x, y, card_device(torch))
+        n_draws = len(tape)
+        cpu_p, cpu_s, cpu_score, _, cpu_probs = pretrain_refer_run(
+            torch, np, case, x.cpu(), y.cpu(), "cpu", tape=tape)
+    scale = abs(cpu_score)
+    if cfg["type"] == "RBM":
+        layer = pretrain_refer_net(torch, cfg, updater, lr, "cpu").layers[0]
+        with torch.no_grad():
+            fe = layer.free_energy(
+                {k: torch.from_numpy(v) for k, v in cpu_p.items()},
+                x[-PRETRAIN[0]:].cpu())
+        scale = max(scale, float(fe.abs().mean()))
+
+    def norm_rel(a, c):
+        return float(np.linalg.norm(a - c) / max(np.linalg.norm(c), 1e-30))
+
+    errs = {
+        "score": abs(card_score - cpu_score) / scale,
+        "change": max(norm_rel(card_p[k] - start[k], v - start[k])
+                      for k, v in cpu_p.items()),
+        "slot": max(norm_rel(card_s[k], v) for k, v in cpu_s.items()),
+    }
+    if card_probs is not None:
+        errs["recon_prob"] = float(np.abs(card_probs - cpu_probs).max()
+                                   / np.abs(cpu_probs).max())
+    elementwise = max(leaf_rel(card_p[k] - start[k], v - start[k])
+                      for k, v in cpu_p.items())
+    line = (f"{label}: {x.shape[0] // PRETRAIN[0]} batches of "
+            f"{PRETRAIN[0]}, scores {card_score:.7f} (card) "
+            f"{cpu_score:.7f} (CPU); "
+            + ", ".join(f"{k} {v:.3g} (tol {PRETRAIN_REFER_TOL[k]:g})"
+                        for k, v in errs.items())
+            + f"; largest element error of a change {elementwise:.3g} of "
+              f"its leaf's largest; {n_draws} draws replayed")
+    return errs, line
+
+
+def phase_refer_pretrain(torch, np, dbn, data):
+    """refer-pretrain: each PRETRAIN_REFER_CASES layer pretrained for 3
+    batches on the card (TF32 off) and on the CPU from the same params,
+    the card's corruption masks, Gibbs samples and normals replayed on
+    the CPU (pretrain_refer_case): the last score, each param's change and
+    each slot within PRETRAIN_REFER_TOL; the VAEs' reconstruction
+    probabilities with the same normals within 1e-5. Then one fit step of
+    the fine-tuned DBN card vs CPU (REFER_DROPOUT_TOL), and
+    check_gradients on float64 AutoEncoder, RBM and VAE networks on the
+    card."""
+    x, y = data
+    n = PRETRAIN[0] * PRETRAIN_REFER_BATCHES
+    for case, (label, *_) in enumerate(PRETRAIN_REFER_CASES):
+        reset_counts()
+        errs, line = pretrain_refer_case(torch, np, case, x[:n], y[:n])
+        expect_launches("refer-pretrain", read_counts(), {})
+        log(f"[refer-pretrain] {line}")
+        bad = {k: v for k, v in errs.items()
+               if not (math.isfinite(v) and v <= PRETRAIN_REFER_TOL[k])}
+        if bad:
+            raise AssertionError(f"refer-pretrain: {label}: card and CPU "
+                                 f"differ: {bad}")
+    # one fit step of the fine-tuned DBN, card vs CPU from the same point
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+
+    cpu = MultiLayerNetwork(pretrain_conf("dbn")).init("cpu")
+    copy_state(cpu, dbn)
+    b = PRETRAIN[0]
+    reset_counts()
+    refer_fit_steps(torch, np, "refer-pretrain",
+                    {"card": dbn, "cpu": cpu},
+                    (x[:b].cpu().numpy(), y[:b].cpu().numpy()), 1,
+                    REFER_DROPOUT_TOL, what="fine-tuned DBN ")
+    expect_launches("refer-pretrain (DBN step)", read_counts(),
+                    XENT_PER_STEP)
+    del cpu
+    phase_gradient_checks(torch, np)
+
+
+def gradient_check_nets():
+    """(label, [layer]) of the card's gradient checks: one layer of each
+    class, put under an Output in a small float64 network."""
+    from deeplearning4j_tpu_torch.nn.layers import (
+        RBM,
+        AutoEncoder,
+        Output,
+        VariationalAutoencoder,
+    )
+
+    return [("AutoEncoder", [AutoEncoder(n_out=5, activation="tanh")]),
+            ("RBM", [RBM(n_out=5, visible_unit="gaussian")]),
+            ("VariationalAutoencoder", [VariationalAutoencoder(
+                n_out=3, encoder_layer_sizes=[5, 4], decoder_layer_sizes=[4],
+                pzx_activation="tanh")])]
+
+
+def phase_gradient_checks(torch, np):
+    """check_gradients on the card: each gradient_check_nets network in
+    float64 (the layers' plain versions) passes, and its analytic gradient
+    is within 1e-10 of the CPU's (relative to each leaf's largest)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn import inputs
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import Output
+    from deeplearning4j_tpu_torch.util.gradientcheck import (
+        analytic_gradients,
+        check_gradients,
+    )
+
+    rng = np.random.default_rng(SEED + 71)
+    ds = DataSet(rng.standard_normal((8, 6)),
+                 np.eye(3)[rng.integers(0, 3, 8)])
+    for label, layers in gradient_check_nets():
+        conf = (NeuralNetConfiguration(seed=42).list(
+            layers + [Output(n_out=3, loss="mcxent")])
+            .set_input_type(inputs.feed_forward(6)))
+        nets = [MultiLayerNetwork(conf).init(d)
+                for d in (card_device(torch), "cpu")]
+        t0 = time.perf_counter()
+        if not check_gradients(nets[0], ds):
+            raise AssertionError(f"refer-pretrain: check_gradients fails "
+                                 f"the {label} network on the card")
+        seconds = time.perf_counter() - t0
+        card_g, cpu_g = (analytic_gradients(n, ds) for n in nets)
+        worst = max(float(np.abs(card_g[k] - g).max()
+                          / max(np.abs(g).max(), 1e-30))
+                    for k, g in cpu_g.items())
+        if not worst <= 1e-10:
+            raise AssertionError(f"refer-pretrain: {label}'s analytic "
+                                 f"gradient on the card is {worst:.3g} "
+                                 f"from the CPU's")
+        log(f"[refer-pretrain] check_gradients of a float64 {label} -> "
+            f"Output network on {nets[0].device}: passes in {seconds:.2f} "
+            f"s; analytic gradient {worst:.3g} from the CPU's")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -6842,6 +7413,29 @@ def main() -> int:
             f"train/serve/refer-tinyyolo, train-googlenet, kernel-vit, "
             f"train-vit, train-facenet, serve-darknet19, serve-irv1) took "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mnist = mnist_flat(torch, np, PRETRAIN[0] * PRETRAIN[1])
+        log(f"[pretrain-dbn] {mnist[0].shape[0]} MNIST images flattened to "
+            f"784 ({'the seeded sample' if mnist[2] else 'idx files'})")
+        mnist = mnist[:2]
+        dbn_launches, dbn = phase_pretrain_stack(torch, np, card, "dbn",
+                                                 "pretrain-dbn", mnist)
+        phase_memory_and_nans(torch, np, dbn, mnist, card)
+        sda_launches, sda = phase_pretrain_stack(torch, np, card, "sda",
+                                                 "pretrain-sda", mnist)
+        del sda
+        phase_pretrain_vae(torch, np, card, mnist)
+        phase_refer_pretrain(torch, np, dbn, mnist)
+        del dbn
+        torch.cuda.empty_cache()
+        pretrain_xent, pretrain_xent_err = phase_xent(
+            torch, bw, peak, peak_bf16, peak_tf32, cases=PRETRAIN_XENT_CASES,
+            tag="kernel-a8b")
+        xent_err = max(xent_err, pretrain_xent_err)
+        pretrain_launches = add_counts(dbn_launches, sda_launches)
+        log(f"[kernel-a8b] the pretraining phases (pretrain-dbn, "
+            f"pretrain-sda, pretrain-vae, refer-pretrain, kernel-a8b) took "
+            f"{time.perf_counter() - t0:.1f} s")
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
         if leaked:
@@ -6874,6 +7468,11 @@ def main() -> int:
         return {case[-1]: a8_xent[case][name] for case in A8_XENT_CASES
                 if case[:3] == (n, d, v)}
 
+    def pretrain_rows(name, d):
+        # per launch at the DBN's (d 2000) or the SDA's (d 30) Output
+        return {case[-1]: pretrain_xent[case][name]
+                for case in PRETRAIN_XENT_CASES if case[1] == d}
+
     def per_forward(row, calls):
         return {k: (v * calls if k.endswith("ms") and v is not None else v)
                 for k, v in row.items()}
@@ -6903,7 +7502,9 @@ def main() -> int:
                                  transfer_output=transfer_rows("fwd"),
                                  googlenet_output=a8_rows("fwd", 64, 1024,
                                                           1000),
-                                 vit_output=a8_rows("fwd", 256, 128, 10))),
+                                 vit_output=a8_rows("fwd", 256, 128, 10),
+                                 dbn_output=pretrain_rows("fwd", 2000),
+                                 sda_output=pretrain_rows("fwd", 30))),
         "linear_xent_bwd": (train_launches["linear_xent_bwd"], xent_err,
                             dict(xent["bwd"], vgg16_output=vgg_rows("bwd"),
                                  tbptt_window=xent_window["bwd"],
@@ -6911,7 +7512,9 @@ def main() -> int:
                                  transfer_output=transfer_rows("bwd"),
                                  googlenet_output=a8_rows("bwd", 64, 1024,
                                                           1000),
-                                 vit_output=a8_rows("bwd", 256, 128, 10))),
+                                 vit_output=a8_rows("bwd", 256, 128, 10),
+                                 dbn_output=pretrain_rows("bwd", 2000),
+                                 sda_output=pretrain_rows("bwd", 30))),
         "lstm_scan_bwd": (rnn_train_launches["lstm_scan_bwd"],
                           lstm_bwd_err["lstm_scan_bwd"],
                           dict(per_forward(lstm_bwd["lstm_scan_bwd"], 2),
@@ -6940,7 +7543,8 @@ def main() -> int:
                                  "vgg16_output", "bidir_shape",
                                  "tbptt_window", "bidir_output",
                                  "transfer_output", "vit_shape",
-                                 "googlenet_output", "vit_output")
+                                 "googlenet_output", "vit_output",
+                                 "dbn_output", "sda_output")
                if k in t},
             # launches on the char-RNN's DL4J restore and resume path
             # (dl4j-charrnn and checkpoint-resume)
@@ -6975,7 +7579,10 @@ def main() -> int:
             # launches in train-googlenet's and train-vit's 15 + 25 steps
             # (A.8's training paths; TinyYOLO, FaceNet, Darknet19 and
             # InceptionResNetV1 run none of these kernels)
-            "a8_launches": a8_launches[kname]})
+            "a8_launches": a8_launches[kname],
+            # launches in pretrain-dbn's and pretrain-sda's 20 + 20
+            # fine-tuning steps (layerwise pretraining runs none)
+            "pretrain_launches": pretrain_launches[kname]})
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

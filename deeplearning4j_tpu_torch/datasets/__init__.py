@@ -21,7 +21,14 @@ from deeplearning4j_tpu_torch.datasets.iterators import (  # noqa: F401
     prefetch_to_device,
 )
 from deeplearning4j_tpu_torch.datasets.fetchers import (  # noqa: F401
+    CifarDataSetIterator,
+    EmnistDataSetIterator,
+    IrisDataSetIterator,
+    LfwDataSetIterator,
     MnistDataSetIterator,
+    SvhnDataSetIterator,
+    TinyImageNetDataSetIterator,
+    UciSequenceDataSetIterator,
 )
 from deeplearning4j_tpu_torch.datasets.normalizers import (  # noqa: F401
     ImagePreProcessingScaler,

@@ -50,6 +50,13 @@ def full_precision():
         _reduced_matmul = prev
 
 
+def set_bf16_matmuls(enabled: bool) -> None:
+    """Allow (True) or forbid reduced-precision contractions globally: the
+    JAX package's bf16 matmul flag, TF32 on the card."""
+    global _reduced_matmul
+    _reduced_matmul = bool(enabled)
+
+
 @contextlib.contextmanager
 def exact_float32_matmul():
     """float32 matmuls in full float32 on the card (TF32 off), whatever the
@@ -75,6 +82,13 @@ def set_mixed_precision(enabled: bool) -> None:
     """bf16 activations / f32 params+stats+loss (a la AMP)."""
     global _mixed_activations
     _mixed_activations = bool(enabled)
+
+
+def policy_fingerprint():
+    """Identity of the global precision policy, (mixed activations,
+    reduced-precision contractions), as the JAX package's
+    (_mixed_activations, _bf16_matmul)."""
+    return (_mixed_activations, _reduced_matmul)
 
 
 @contextlib.contextmanager

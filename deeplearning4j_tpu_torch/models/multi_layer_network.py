@@ -41,8 +41,15 @@ one host read. A line-search `optimization_algo` (conjugate_gradient,
 lbfgs, line_gradient_descent) takes one solver iteration per batch that
 does not train by tBPTT (`_fit_batch_solver`, `optimize.solvers`); tBPTT
 batches and ParallelWrapper take the SGD updater step with the JAX
-package's warning, once per network. Layerwise `pretrain` is not ported
-yet.
+package's warning, once per network.
+
+Layerwise pretraining (`pretrain`, `pretrain_layer`; the JAX package's
+greedy layer-by-layer pass) trains each layer that has a `pretrain_loss`
+(AutoEncoder, RBM, VariationalAutoencoder) on the inference-mode
+activations of the layers below it: a fresh slot state from the layer's
+own updater, one draw of `draws.step()` per batch, the raw updater step at
+the updater's learning rate (no l1/l2, no gradient normalization, no
+iteration count, as there), `score_` read per batch.
 
 Evaluation (`evaluate`, `evaluate_regression`, `evaluate_roc`,
 `evaluate_roc_multi_class`, `evaluate_calibration`) runs `output` on the
@@ -592,6 +599,57 @@ class MultiLayerNetwork:
             self._engine_loop().run_epoch, iterator,
             cleanup=(getattr(iterator, "shutdown", None)
                      if iterator is not data else None))
+
+    # ---- layerwise pretraining (MultiLayerNetwork.pretrain /
+    # pretrainLayer) ----
+    def pretrain(self, iterator, epochs: int = 1) -> "MultiLayerNetwork":
+        """Greedy layerwise unsupervised pretraining: every layer with a
+        `pretrain_loss` (AutoEncoder, RBM, VariationalAutoencoder) is
+        trained in turn on the activations of the layers below it."""
+        for i, layer in enumerate(self.layers):
+            if hasattr(layer, "pretrain_loss"):
+                self.pretrain_layer(i, iterator, epochs=epochs)
+        return self
+
+    def pretrain_layer(self, layer_idx: int, iterator,
+                       epochs: int = 1) -> "MultiLayerNetwork":
+        """`epochs` passes over `iterator` minimizing layer `layer_idx`'s
+        `pretrain_loss`, as the JAX package does: a fresh slot state from
+        the layer's updater; per batch the activations below the layer in
+        inference mode (without the layer's own preprocessor), one
+        `draws.step()` for the loss's draws, the gradient of the loss, the
+        updater's raw step at its learning rate (no l1/l2, gradient
+        normalization or iteration), params updated in place, `score_`
+        the batch's loss. Raises ValueError for a layer without an
+        objective."""
+        layer = self.layers[layer_idx]
+        if not hasattr(layer, "pretrain_loss"):
+            raise ValueError(f"layer {layer_idx} has no pretrain objective")
+        if self.params is None:
+            raise RuntimeError("call init() before pretrain()")
+        k = _key(layer_idx)
+        u = self._updaters[layer_idx]
+        p = self.params[k]
+        opt = u.init_state(p)
+        it_ = self._as_iterator(iterator, None)
+        try:
+            for _ in range(epochs):
+                for ds in it_:
+                    rng = self.draws.step()
+                    with torch.no_grad():
+                        h = self._walk(self.params, self._batch(ds.features),
+                                       to_layer=layer_idx)[0]
+                    score, _, grads = tr.value_and_grad(
+                        lambda: (layer.pretrain_loss(p, h, rng), None),
+                        {k: p})
+                    with torch.no_grad():
+                        steps, opt = u.apply(grads[k], opt, u.learning_rate)
+                        upd_mod.tree_map(lambda a, s: a.sub_(s), p, steps)
+                    self.score_ = float(score.detach())
+        finally:
+            if it_ is not iterator and hasattr(it_, "shutdown"):
+                it_.shutdown()
+        return self
 
     def score(self, ds: DataSet, training: bool = False) -> float:
         """The loss on a dataset (score(DataSet)), penalty included. With

@@ -24,11 +24,8 @@ counts, Conv2D kernels HWIO), so nothing in a zip shows which package wrote
 it. Writing copies every tensor to the host; restoring builds the network
 from its configuration on `device` (None: the card) and loads every array
 through its layer's interchange hook (`interop`), checking names and
-shapes.
-
-A configuration that names a layer or vertex class the port has not
-ported yet raises NotImplementedError naming the class and
-the ROADMAP item that brings it.
+shapes. Every layer and vertex class of the JAX package is ported, so
+any of its checkpoints restores.
 """
 from __future__ import annotations
 
@@ -42,11 +39,6 @@ import numpy as np
 from deeplearning4j_tpu_torch import __version__, interop
 
 FORMAT_VERSION = 1
-
-# classes of the JAX package a checkpoint may name that the port has not
-# ported yet -> the ROADMAP item that brings them
-_NOT_PORTED = dict.fromkeys(
-    ("AutoEncoder", "RBM", "VariationalAutoencoder"), "A.8, second half")
 
 
 def _key_parts(tree, prefix=""):
@@ -142,26 +134,9 @@ def restore_normalizer(path):
         return None
 
 
-def _refuse_not_ported(node, where: str = "configuration") -> None:
-    """Raise NotImplementedError at the first class in a checkpoint's
-    configuration that the port has not ported yet."""
-    if isinstance(node, dict):
-        t = node.get("type")
-        if isinstance(t, str) and t in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{where} names {t}, which the port has not ported yet "
-                f"(ROADMAP A, item {_NOT_PORTED[t]})")
-        for k, v in node.items():
-            _refuse_not_ported(v, f"{where}/{k}")
-    elif isinstance(node, list):
-        for i, v in enumerate(node):
-            _refuse_not_ported(v, f"{where}/{i}")
-
-
 def _restore(path, conf_cls, net_cls, load_updater: bool, device):
     with zipfile.ZipFile(path, "r") as z:
         raw = z.read("configuration.json").decode()
-        _refuse_not_ported(json.loads(raw))
         net = net_cls(conf_cls.from_json(raw)).init(device)
         meta = json.loads(z.read("metadata.json").decode())
         coeff = _load_npz(z, "coefficients.npz")

@@ -1,7 +1,7 @@
 """Configuration DSL: NeuralNetConfiguration (the network-wide defaults) and
 MultiLayerConfiguration (the sequential network description); counterpart
-of deeplearning4j_tpu/nn/conf.py. The fluent NeuralNetConfigurationBuilder
-comes with a later slice.
+of deeplearning4j_tpu/nn/conf.py, with its DL4J-style fluent
+NeuralNetConfigurationBuilder (`NeuralNetConfiguration.builder()`).
 
 "Config is data": every config round-trips through JSON, and the JSON of a
 config is the same in both packages.
@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 from deeplearning4j_tpu_torch.nn import inputs as it
 from deeplearning4j_tpu_torch.nn import schedules as sched_mod
@@ -69,6 +69,10 @@ class NeuralNetConfiguration:
 
         return ComputationGraphConfiguration(defaults=self)
 
+    @staticmethod
+    def builder() -> "NeuralNetConfigurationBuilder":
+        return NeuralNetConfigurationBuilder()
+
     # ---- serde ----
     def to_json(self) -> dict:
         d = {}
@@ -88,6 +92,42 @@ class NeuralNetConfiguration:
             d["lr_schedule"] = sched_mod.from_json(d["lr_schedule"])
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})
+
+
+class NeuralNetConfigurationBuilder:
+    """DL4J-style fluent builder (NeuralNetConfiguration.Builder): any
+    `.name(value)` sets that NeuralNetConfiguration field (a bare `.name()`
+    sets True); `iterations` and `use_drop_connect` are DL4J's legacy
+    no-ops."""
+
+    def __init__(self):
+        self._kw: Dict[str, Any] = {}
+
+    def __getattr__(self, name):
+        def setter(value=True):
+            key = {
+                "iterations": None,  # DL4J legacy no-op
+                "use_drop_connect": None,
+            }.get(name, name)
+            if key is not None:
+                self._kw[key] = value
+            return self
+
+        return setter
+
+    def seed(self, s):
+        self._kw["seed"] = int(s)
+        return self
+
+    def updater(self, u):
+        self._kw["updater"] = u
+        return self
+
+    def build(self) -> NeuralNetConfiguration:
+        return NeuralNetConfiguration(**self._kw)
+
+    def list(self, layers=None) -> "MultiLayerConfiguration":
+        return self.build().list(layers)
 
 
 # sequence-first layer types: with no explicit input_type, an n_in on one
@@ -140,6 +180,12 @@ class MultiLayerConfiguration:
                        ) -> "MultiLayerConfiguration":
         self.input_type = input_type
         return self
+
+    # DL4J-style aliases (pretrain and backprop are no-ops: layerwise
+    # pretraining is MultiLayerNetwork.pretrain)
+    setInputType = set_input_type
+    backprop = lambda self, *a, **k: self  # noqa: E731
+    pretrain = lambda self, *a, **k: self  # noqa: E731
 
     def build(self) -> "MultiLayerConfiguration":
         self.validate()

@@ -57,9 +57,15 @@ class Draws:
         """JAX: `fold_in(key, data)`."""
         return self
 
-    def bernoulli(self, p: float, shape) -> torch.Tensor:
-        """A bool mask, True with probability p (`uniform < p`)."""
+    def bernoulli(self, p, shape) -> torch.Tensor:
+        """A bool mask, True with probability p (`uniform < p`). `p` is a
+        number, or a tensor of probabilities of the mask's shape, each
+        entry compared with its own uniform drawn in p's dtype (JAX:
+        `bernoulli(key, p)` with an array p; the RBM's Gibbs samples)."""
         g = self.generator
+        if isinstance(p, torch.Tensor):
+            return torch.rand(shape, generator=g, device=g.device,
+                              dtype=p.dtype) < p
         return torch.rand(shape, generator=g, device=g.device) < p
 
     def normal(self, shape, dtype) -> torch.Tensor:

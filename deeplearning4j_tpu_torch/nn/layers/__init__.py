@@ -6,6 +6,11 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (  # noqa: F401
     PositionEmbedding,
     TransformerBlock,
 )
+from deeplearning4j_tpu_torch.nn.layers.autoencoder import (  # noqa: F401
+    RBM,
+    AutoEncoder,
+    VariationalAutoencoder,
+)
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.convolution import (  # noqa: F401
     Conv1D,

@@ -51,6 +51,15 @@ def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the JAX package's plain `@` computes it: both operands in
+    their promoted dtype (bfloat16 @ float32 is float32), no mixed cast;
+    the TF32 switch set from the policy, as for `dot`."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    _apply_precision()
+    return torch.matmul(a.to(dt), b.to(dt))
+
+
 def same_padding(size: int, kernel: int, stride: int,
                  dilation: int = 1) -> Tuple[int, int]:
     """XLA 'SAME' padding for one spatial axis: output ceil(size/stride),

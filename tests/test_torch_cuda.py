@@ -25,7 +25,11 @@ on the card, each against the CPU; the layers of ROADMAP A.8's first half
 (chip_smoke.py's layers-a8 cases: Deconv2D, SeparableConv2D, Conv1D,
 pnorm over a zero window, the 1-D and resampling layers), Yolo2Output's
 loss, gradient and decode (the threshold taken on the card) and
-CenterLossOutput's steps, each against the CPU.
+CenterLossOutput's steps, each against the CPU; layerwise pretraining of
+each autoencoder-family case of chip_smoke.py's refer-pretrain
+(AutoEncoder, binary and gaussian-visible RBMs, both VAEs) with the card's
+draws replayed on the CPU, check_gradients in float64 on the card, and
+nan_checks around a step that launches the cross-entropy kernels.
 
 Marked `cuda`; they skip where torch.cuda.is_available() is False. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -1678,3 +1682,70 @@ def test_center_loss_output_step_on_the_card(cuda):
     ta, tb = nets["card"].get_param_table(), nets["cpu"].get_param_table()
     for k in tb:
         assert abs(ta[k] - tb[k]).max() <= 1e-5, k
+
+
+def _pretrain_refer_cases():
+    import chip_smoke
+
+    return chip_smoke.PRETRAIN_REFER_CASES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(5))
+def test_pretrain_layer_on_the_card_matches_the_cpu(cuda, case):
+    """chip_smoke.py's refer-pretrain case `case` at full width on 3
+    batches of 128 seeded rows in [0, 1): card (TF32 off) vs CPU from the
+    same params with the card's draws replayed, within
+    chip_smoke.PRETRAIN_REFER_TOL."""
+    import numpy as np
+
+    import chip_smoke
+
+    assert len(_pretrain_refer_cases()) == 5
+    rng = np.random.default_rng(case)
+    n = chip_smoke.PRETRAIN[0] * chip_smoke.PRETRAIN_REFER_BATCHES
+    x = torch.tensor(rng.random((n, 784), dtype=np.float32), device=cuda)
+    y = torch.nn.functional.one_hot(
+        torch.tensor(rng.integers(0, 10, n), device=cuda), 10).float()
+    errs, line = chip_smoke.pretrain_refer_case(torch, np, case, x, y)
+    for k, v in errs.items():
+        assert v <= chip_smoke.PRETRAIN_REFER_TOL[k], line
+
+
+@pytest.mark.cuda
+def test_check_gradients_on_the_card(cuda):
+    """check_gradients passes on float64 AutoEncoder, RBM and VAE networks
+    on the card, their analytic gradients within 1e-10 of the CPU's."""
+    import numpy as np
+
+    import chip_smoke
+
+    chip_smoke.phase_gradient_checks(torch, np)
+
+
+@pytest.mark.cuda
+def test_nan_checks_around_the_cross_entropy_kernels(cuda):
+    """A fit step of an RBM -> Output network on the card (the xent
+    kernels launched once each way) passes under nan_checks; a NaN input
+    raises FloatingPointError in output."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import RBM, Output
+    from deeplearning4j_tpu_torch.util.debugging import nan_checks
+
+    net = MultiLayerNetwork(NeuralNetConfiguration(seed=1).list([
+        RBM(n_out=32), Output(n_out=10, loss="mcxent")]).set_input_type(
+        it.feed_forward(40))).init(cuda)
+    rng = np.random.default_rng(0)
+    x = rng.random((16, 40)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 16)]
+    before = (linear_xent_fwd.launches, linear_xent_bwd.launches)
+    with nan_checks():
+        net.fit(DataSet(x, y))
+        assert (linear_xent_fwd.launches, linear_xent_bwd.launches) == \
+            (before[0] + 1, before[1] + 1)
+        x[2, 5] = np.nan
+        with pytest.raises(FloatingPointError):
+            net.output(x)

@@ -268,8 +268,9 @@ def test_layer_json_round_trips_through_both_packages():
 
 
 def test_unported_layer_type_is_named():
-    """A layer class the port lacks (AutoEncoder, ROADMAP A.8's second
-    half; Conv1D was the example until A.8's first half ported it) is named
-    in the error."""
-    with pytest.raises(ValueError, match="not ported"):
-        TLayer.from_json(jlayers.AutoEncoder(n_out=4).to_json())
+    """A layer class the port lacks is named in the error. Every layer
+    class of the JAX package is ported since A.8's second half (Conv1D,
+    then AutoEncoder were the examples before), so the JSON names one that
+    neither package has."""
+    with pytest.raises(ValueError, match="'NoSuchLayer' is not ported"):
+        TLayer.from_json({"type": "NoSuchLayer", "n_out": 4})

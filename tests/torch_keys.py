@@ -5,7 +5,9 @@ stand-in for its `nn.dropout.Draws` that asks jax.random for every mask and
 every noise sample, key for key as the JAX package's train step derives
 them: `step` splits the network key (`self._rng, sub = split(self._rng)`),
 `split` and `fold_in` are jax.random's. A port network given
-`JaxKeys.for_net(seed)` as its `draws` then sees the JAX network's masks.
+`JaxKeys.for_net(seed)` as its `draws` then sees the JAX network's masks
+(and, in layerwise pretraining, its corruption masks, Gibbs samples and
+VAE noise).
 """
 import jax
 import jax.numpy as jnp
@@ -37,6 +39,12 @@ class JaxKeys:
         return self._child(jax.random.fold_in(self.key, data))
 
     def bernoulli(self, p, shape):
+        if isinstance(p, torch.Tensor):
+            # bernoulli(key, p) with an array p is uniform(key, p.shape,
+            # p.dtype) < p: JAX's uniforms against the port's own p
+            jdt = jnp.float64 if p.dtype == torch.float64 else jnp.float32
+            u = np.array(jax.random.uniform(self.key, tuple(shape), jdt))
+            return torch.from_numpy(u).to(p.device, p.dtype) < p
         keep = np.array(jax.random.bernoulli(self.key, p, tuple(shape)))
         return torch.from_numpy(keep).to(self.device)
 
