@@ -500,6 +500,38 @@ Phases, in order; any failure exits non-zero without the final line:
               latter's 120-byte rows take the unaligned copies), float32
               and bfloat16, against their plain versions (kernel / plain /
               library / bound ms).
+ 66. train-inception  (after refer-inception, on its network) bn_act at
+              the InceptionV3 training batch of 32 in bfloat16 and rows 9
+              and 10 at its Output (32, 2048, 1000) against their plain
+              versions (kernel-inception), then ComputationGraph.fit on
+              the imported InceptionV3: 20 mixed and 5 TF32 steps of 32
+              seeded images, the loss from the file's training_config,
+              94 + 1 + 1 launches per step, every BatchNorm's running mean
+              moved (ms per step, images/s, peak memory).
+ 67. refer-train-inception  the file written at 107x107, 10 classes,
+              imported on the card and the CPU, 3 Sgd steps at batch 4
+              each from the same point (TF32 off, deterministic cuDNN),
+              then step 1 again with TF32 on, which must fail the score
+              gate (the control).
+ 68. kernel-tp  rows 2-4 at a model-split TransformerLM's local shape
+              (16, 4, 512, 64) causal, float32 and bfloat16.
+ 69. tp-transformer  the full-width TransformerLM on two gloo ranks of
+              the one card at MeshSpec(model=2) (chip_smoke.py --a9-rank),
+              5 mixed steps beside this process's 5: scores, ms per step,
+              collectives and bytes per step, 4 heads per rank.
+ 70. fsdp-vgg16  zoo VGG16 at train-vgg16's batch on two ranks at
+              MeshSpec(fsdp=2): bytes of params and slots at rest against
+              the replicated, peak memory, ms per step, the first score
+              train-vgg16's.
+ 71. refer-tp-fsdp  four ranks at MeshSpec(fsdp=2, model=2), TF32 off,
+              deterministic cuDNN: a small TransformerLM, VGG16 at 32x32
+              and the char-RNN, each step from the same point against this
+              process; the ranks bit-identical after every step.
+ 72. remat-transformer  the full-width TransformerLM under each remat
+              policy, 3 float32 steps: peak memory, ms per step, scores
+              against 'none'.
+ 73. compress  EncodingHandler over a seeded 2.4M-entry gradient tree for
+              4 rounds on the card against the CPU port (no kernel).
 
 The characters the training phases learn are drawn with Zipf frequencies,
 so that a falling loss shows learning; their shapes are bench.py
@@ -508,8 +540,9 @@ bench_lstm's.
 Every kernel's launch count is set to 0 just before each serve phase, the
 generation run, each training run (the data-parallel ones too), the
 restore-and-resume runs, each evaluation pass and each solver, window,
-sentry and records run, each serving or training run of A.8's paths, and
-each pretraining and fine-tuning run, and read just after. The
+sentry and records run, each serving or training run of A.8's paths,
+each pretraining and fine-tuning run, and each training run of A.3's rest
+and A.9 (in the ranks' processes too), and read just after. The
 last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 Exits non-zero when no CUDA device is available, and when the port's
@@ -3003,10 +3036,9 @@ def phase_refer_train_resnet(torch, np):
     del nets
 
 
-def check_refer(tag, per_step):
-    """Fails when a step's measure is not finite or exceeds its
-    REFER_RESNET_TOL."""
-    tol = REFER_RESNET_TOL
+def check_refer(tag, per_step, tol=REFER_RESNET_TOL):
+    """Fails when a step's measure is not finite or exceeds its `tol`
+    (REFER_RESNET_TOL)."""
     bad = [(i + 1, k, v) for i, errs in enumerate(per_step)
            for k, v in errs.items() if not (math.isfinite(v) and v <= tol[k])]
     if bad:
@@ -3014,11 +3046,12 @@ def check_refer(tag, per_step):
 
 
 def refer_resnet_steps(torch, np, nets, x, y, steps,
-                       tag="refer-train-resnet"):
-    """refer-train-resnet's steps (logged under `tag` beside
-    REFER_RESNET_TOL), each from the same point; returns each step's
-    measures."""
-    tol = REFER_RESNET_TOL
+                       tag="refer-train-resnet", tol=REFER_RESNET_TOL,
+                       precision=None):
+    """refer-train-resnet's steps (logged under `tag` beside `tol`), each
+    from the same point, under `precision` (a context; default TF32 off);
+    returns each step's measures (a network without updater slots, as
+    under Sgd, measures them as 0)."""
     from deeplearning4j_tpu_torch import dtypes, interop
     from deeplearning4j_tpu_torch.datasets import DataSet
 
@@ -3026,7 +3059,7 @@ def refer_resnet_steps(torch, np, nets, x, y, steps,
     reset_counts()
     for step in range(steps):
         start = nets["cpu"].get_param_table()
-        with dtypes.full_precision():
+        with (precision or dtypes.full_precision)():
             for net in nets.values():
                 net.fit(DataSet(x, y))
         moved = {k: {key: p - start[key]
@@ -3045,8 +3078,8 @@ def refer_resnet_steps(torch, np, nets, x, y, steps,
             "score": abs(nets["card"].score_ - nets["cpu"].score_)
             / abs(nets["cpu"].score_),
             "change": max(change.values()),
-            "slot": max(norm_rel(slots["card"][k], v)
-                        for k, v in slots["cpu"].items()),
+            "slot": max((norm_rel(slots["card"][k], v)
+                         for k, v in slots["cpu"].items()), default=0.0),
             "bn": max(leaf_rel(nets["card"].state[name][s].cpu().numpy(),
                                v.numpy())
                       for name, st in nets["cpu"].state.items()
@@ -7186,6 +7219,634 @@ def phase_gradient_checks(torch, np):
             f"s; analytic gradient {worst:.3g} from the CPU's")
 
 
+# ------------------------------------------------------------ A.3's rest, A.9
+# train-inception: ComputationGraph.fit on the imported InceptionV3 at full
+# width (the serve-inception network); per step its 94 BatchNorms launch
+# bn_act once each and its Output the two xent rows at (32, 2048, 1000)
+INCEPTION_TRAIN = (32, 20, 5)  # batch, mixed steps, TF32 steps
+INCEPTION_PER_STEP = {"bn_act": INCEPTION_BN, "linear_xent_fwd": 1,
+                      "linear_xent_bwd": 1}
+INCEPTION_XENT_CASES = [(32, 2048, 1000, "onehot", "float32"),
+                        (32, 2048, 1000, "onehot", "bfloat16")]
+# refer-train-inception: the same file's network at 107x107, 10 classes,
+# card (TF32 off, deterministic cuDNN) against the CPU port, each step
+# from the same point. 107x107 leaves the last blocks 2x2 maps, 16 values
+# per channel's statistics at batch 4 (at 75x75, 4: single relu flips
+# then move whole channels). Measured on an H100 80GB HBM3 (700 W): the
+# first step's score 1.82e-05 relative (the forward alone: float32
+# rounding renormalized by 94 train-mode BatchNorms; the CPU tests
+# measured 3.3e-05 between the port and the JAX package), changes 0.0416
+# at worst, running stats 6.26e-05; Sgd keeps no slots. The same step
+# with TF32 left on (the control, logged and checked to fail the gate)
+# read a score error of 0.00566
+INCEPTION_REFER = dict(input_shape=(107, 107, 3), classes=10, batch=4,
+                       steps=3)
+REFER_INCEPTION_TOL = {"score": 5e-5, "change": 0.1, "slot": 0.1,
+                       "bn": 1e-4}
+
+# tp-transformer: the TransformerLM at train-lm's width on two gloo ranks
+# of the one card, MeshSpec(model=2), 5 mixed steps beside this process's
+# 5 on the same batch; each rank launches rows 2-4 on 4 of the 8 heads and
+# rows 9-10 on the gathered vocabulary, as the single process does per
+# step
+TP_STEPS = 5
+# ranks against one process, each of the 5 scores relative: bf16
+# activations, the row-split products summed in another order, after
+# 1-4 Adam steps (measured 1.44e-05 on an H100 80GB HBM3, 700 W)
+TP_SCORE_TOL = 1e-4
+TP_FLASH_CASES = [(LM_BATCH, LM["n_heads"] // 2, LM["max_length"],
+                   LM["d_model"] // LM["n_heads"], True)]
+# fsdp-vgg16: zoo VGG16 at 224x224, batch 64, MeshSpec(fsdp=2), 5 mixed
+# steps; each rank holds half of every kernel that splits at rest
+FSDP_STEPS = 5
+# refer-tp-fsdp: four ranks, MeshSpec(fsdp=2, model=2), TF32 off and
+# deterministic cuDNN, against this process, each step from the same
+# point: a small TransformerLM, VGG16 at 32x32 and the char-RNN (BPTT:
+# fsdp does not compose with tBPTT)
+REFER_A9 = dict(lm=dict(num_classes=128, max_length=32, d_model=64,
+                        n_heads=4, n_layers=2), lm_batch=4,
+                vgg=dict(num_classes=10, input_shape=(32, 32, 3)),
+                vgg_batch=4, rnn_batch=8, rnn_length=64, steps=3)
+# remat-transformer: the full-width TransformerLM under each remat policy,
+# 3 float32 steps each (TF32 off); 'full' and 'dots_saveable' recompute
+# each block's forward in the backward, so the forward rows launch twice
+REMAT_STEPS = 3
+REMAT_FLASH = {"none": 1, "dots_saveable": 2, "full": 2, "offload": 1}
+# compress: EncodingHandler over a seeded gradient tree, card against CPU
+COMPRESS = dict(leaves=((512, 1536), (2048, 512), (512,), (8192, 64)),
+                rounds=4, threshold=0.05, capacity_fraction=0.02)
+
+
+def a9_rank_main(case: str, rank: int, world: int, tmp: str) -> int:
+    """One rank of an A.9 phase (this script run with --a9-rank CASE RANK
+    WORLD DIR): joins the gloo group of `world` ranks on the card through
+    DIR, runs the case and writes its results to DIR/CASE_rankRANK.npz."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch.parallel import init_process_group
+
+    init_process_group(f"file://{tmp}/rdv_{case}", rank, world,
+                       backend="gloo", device=card_device(torch))
+    try:
+        out = {"tp": tp_rank, "fsdp": fsdp_rank,
+               "refer": refer_a9_rank}[case](torch, np)
+        np.savez(os.path.join(tmp, f"{case}_rank{rank}.npz"), **out)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def a9_spawn(case, world, tmp):
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--a9-rank", case,
+         str(r), str(world), tmp], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for r in range(world)]
+
+
+def a9_wait(tag, case, procs, tmp, timeout=600):
+    """Each rank's results; raises with a failed rank's log."""
+    import numpy as np
+
+    try:
+        logs = [p.communicate(timeout=timeout)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{tag}: rank {r} exited {p.returncode}:\n"
+                                 f"{text[-4000:]}")
+    return [dict(np.load(os.path.join(tmp, f"{case}_rank{r}.npz")))
+            for r in range(len(procs))]
+
+
+def coll_totals(pw):
+    """(collectives, bytes) so far over every axis of a wrapper's grid."""
+    st = pw.collective_stats()
+    return (sum(v["collectives"] for v in st.values()),
+            sum(v["bytes"] for v in st.values()))
+
+
+def wrapper_steps(torch, pw, data, steps):
+    """`steps` fit calls of the wrapper on one batch on the card: per step
+    (seconds, score), and the collectives and bytes moved per step."""
+    c0, b0 = coll_totals(pw)
+    runs = timed_fits(torch, pw.model, data, steps, fit=pw.fit)
+    c1, b1 = coll_totals(pw)
+    return runs, (c1 - c0) / steps, (b1 - b0) / steps
+
+
+def tp_rank(torch, np):
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.parallel import MeshSpec, ParallelWrapper
+    from deeplearning4j_tpu_torch.zoo import TransformerLM
+
+    x, y = lm_batch(np, np.random.default_rng(SEED + 3), LM_BATCH,
+                    LM["max_length"], LM["num_classes"])
+    dev = card_device(torch)
+    data = DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+    net = TransformerLM(**LM, seed=SEED).init()
+    pw = ParallelWrapper(net, mesh_spec=MeshSpec(model=2))
+    heads = net.params["layer_2"]["attn"]["Wqkv"].shape[1] // 3 // (
+        LM["d_model"] // LM["n_heads"])
+    dtypes.set_mixed_precision(True)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_counts()
+        runs, colls, nbytes = wrapper_steps(torch, pw, data, TP_STEPS)
+        launches = read_counts()
+    finally:
+        dtypes.set_mixed_precision(False)
+    return dict(seconds=[t for t, _ in runs], scores=[s for _, s in runs],
+                collectives=colls, bytes=nbytes, heads=heads,
+                peak=torch.cuda.max_memory_allocated(),
+                **{f"launches/{k}": v for k, v in launches.items()})
+
+
+def at_rest_bytes(net):
+    """Bytes of the params and of the updater slots this rank holds."""
+    from deeplearning4j_tpu_torch.models._training import flat_items
+
+    params = sum(t.numel() * t.element_size() for p in net.params.values()
+                 for _, t in flat_items(p))
+    entries = (net.opt_state.values() if isinstance(net.opt_state, dict)
+               else net.opt_state)
+    slots = sum(t.numel() * t.element_size() for e in entries
+                if isinstance(e, dict) for v in e.values()
+                for t in ([v] if not isinstance(v, dict)
+                          else [t for _, t in flat_items(v)]))
+    return params, slots
+
+
+def fsdp_rank(torch, np):
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.parallel import MeshSpec, ParallelWrapper
+
+    x, y = image_batch(torch, SEED + 11, VGG_TRAIN[0], VGG_SHAPE)
+    net = vgg_net(torch)
+    whole = at_rest_bytes(net)
+    pw = ParallelWrapper(net, mesh_spec=MeshSpec(fsdp=2))
+    held = at_rest_bytes(net)
+    torch.cuda.empty_cache()
+    dtypes.set_mixed_precision(True)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_counts()
+        runs, colls, nbytes = wrapper_steps(torch, pw, DataSet(x, y),
+                                            FSDP_STEPS)
+        launches = read_counts()
+    finally:
+        dtypes.set_mixed_precision(False)
+    return dict(seconds=[t for t, _ in runs], scores=[s for _, s in runs],
+                collectives=colls, bytes=nbytes, whole=whole, held=held,
+                peak=torch.cuda.max_memory_allocated(),
+                **{f"launches/{k}": v for k, v in launches.items()})
+
+
+def refer_a9_nets(torch, device=None):
+    """refer-tp-fsdp's three networks from SEED, each with Nesterovs(0.01,
+    0.9) in place of its zoo updater: as in refer-dp, its step is linear
+    in the gradient, where Adam's and RMSProp's is about lr whatever the
+    gradient's size, so the rounding of a near-zero gradient (the
+    attention key bias, to which softmax is invariant) would move a param
+    by up to lr."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn import updaters
+    from deeplearning4j_tpu_torch.zoo import (
+        VGG16,
+        TextGenerationLSTM,
+        TransformerLM,
+    )
+
+    c = REFER_A9
+    confs = {"lm": TransformerLM(**c["lm"], seed=SEED).conf(),
+             "vgg16": VGG16(**c["vgg"], seed=SEED).conf(),
+             "char_rnn": TextGenerationLSTM(
+                 num_classes=RNN["num_classes"], max_length=c["rnn_length"],
+                 seed=SEED).conf()}
+    out = {}
+    for name, conf in confs.items():
+        conf.defaults.updater = updaters.Nesterovs(learning_rate=1e-2,
+                                                   momentum=0.9)
+        out[name] = MultiLayerNetwork(conf).init(
+            **({} if device is None else {"device": device}))
+    return out
+
+
+def refer_a9_data(np):
+    c, rng = REFER_A9, np.random.default_rng(SEED + 21)
+    lm = c["lm"]
+    vgg = c["vgg"]
+    return {
+        "lm": lm_batch(np, rng, c["lm_batch"], lm["max_length"],
+                       lm["num_classes"]),
+        "vgg16": (rng.standard_normal((c["vgg_batch"], *vgg["input_shape"])
+                                      ).astype(np.float32),
+                  np.eye(vgg["num_classes"], dtype=np.float32)[
+                      rng.integers(0, vgg["num_classes"], c["vgg_batch"])]),
+        "char_rnn": char_batch(np, rng, c["rnn_batch"], c["rnn_length"],
+                               RNN["num_classes"])}
+
+
+def refer_a9_rank(torch, np):
+    """Each refer-tp-fsdp network through the wrapper at fsdp=2 x model=2,
+    TF32 off and deterministic cuDNN; its snapshots after every step."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.parallel import MeshSpec, ParallelWrapper
+
+    out = {}
+    data = refer_a9_data(np)
+    with deterministic_cudnn(torch), dtypes.full_precision():
+        for name, net in refer_a9_nets(torch).items():
+            snaps = Snapshots()
+            net.set_listeners(snaps)
+            pw = ParallelWrapper(net, mesh_spec=MeshSpec(fsdp=2, model=2))
+            x, y = data[name]
+            reset_counts()
+            for _ in range(REFER_A9["steps"]):
+                pw.fit(DataSet(x, y))
+            out.update({f"launches/{name}/{k}": v
+                        for k, v in read_counts().items()})
+            for i, snap in enumerate(snaps.steps):
+                out.update({f"{name}/{i}/{k}": np.asarray(v)
+                            for k, v in snap.items()})
+    return out
+
+
+def phase_train_inception(torch, np, card, net):
+    """The imported InceptionV3 trained by ComputationGraph.fit: 20 mixed
+    steps, then 5 TF32 steps, on one batch of 32 seeded images (its
+    training_config's loss, batch statistics in its 94 BatchNorms).
+    Returns the mixed run's launches."""
+    b, mixed_steps, f32_steps = INCEPTION_TRAIN
+    out = net.layer(net.conf.network_outputs[0])
+    if out.loss != "mcxent":
+        raise AssertionError(f"train-inception: loss {out.loss}")
+    x, y = image_batch(torch, SEED + 17, b, INCEPTION["input_shape"])
+    means = {n: st["mean"].clone() for n, st in net.state.items() if st}
+    runs = train_zoo(torch, np, "train-inception", net, x, y,
+                     [(True, mixed_steps), (False, f32_steps)],
+                     INCEPTION_PER_STEP, card)
+    moved = sum(not net.state[n]["mean"].equal(m) for n, m in means.items())
+    if moved != INCEPTION_BN:
+        raise AssertionError(f"train-inception: {moved} of {len(means)} "
+                             f"BatchNorms moved their running means")
+    log(f"[train-inception] loss {out.loss} (the file's training_config); "
+        f"{moved} BatchNorms moved their running means")
+    return runs["mixed bf16"][0]
+
+
+def phase_refer_train_inception(torch, np, tmp):
+    """The InceptionV3 file at 107x107 and 10 classes, imported on the card
+    and on the CPU: 3 Sgd steps at batch 4, each from the same point, TF32
+    off and cuDNN deterministic (refer-train-resnet's pattern)."""
+    from deeplearning4j_tpu_torch.modelimport import (
+        import_keras_model_and_weights,
+    )
+    from deeplearning4j_tpu_torch.modelimport.trainedmodels import (
+        write_inception_v3_h5,
+    )
+
+    c = INCEPTION_REFER
+    path = os.path.join(tmp, "inception_v3_small.h5")
+    write_inception_v3_h5(path, input_shape=c["input_shape"],
+                          classes=c["classes"], seed=SEED)
+    nets = {"card": import_keras_model_and_weights(path),
+            "cpu": import_keras_model_and_weights(path, device="cpu")}
+    rng = np.random.default_rng(SEED + 19)
+    x = rng.standard_normal((c["batch"], *c["input_shape"])).astype(
+        np.float32)
+    y = np.eye(c["classes"], dtype=np.float32)[
+        rng.integers(0, c["classes"], c["batch"])]
+    with deterministic_cudnn(torch):
+        per_step = refer_resnet_steps(torch, np, nets, x, y, c["steps"],
+                                      tag="refer-train-inception",
+                                      tol=REFER_INCEPTION_TOL)
+    launches = read_counts()
+    expect_launches("refer-train-inception", launches,
+                    {k: c["steps"] * v for k, v in
+                     INCEPTION_PER_STEP.items()})
+    check_refer("refer-train-inception", per_step, REFER_INCEPTION_TOL)
+    # the control: step 1 from the same start with TF32 left on, to show
+    # where the score gate sits between float32 rounding and TF32's
+    control = {"card": import_keras_model_and_weights(path),
+               "cpu": import_keras_model_and_weights(path, device="cpu")}
+    with deterministic_cudnn(torch):
+        tf32 = refer_resnet_steps(torch, np, control, x, y, 1,
+                                  tag="refer-train-inception TF32 control",
+                                  tol=REFER_INCEPTION_TOL,
+                                  precision=contextlib.nullcontext)[0]
+    log(f"[refer-train-inception] step 1's score error "
+        f"{per_step[0]['score']:.3g} with TF32 off, {tf32['score']:.3g} "
+        f"with TF32 on (the control); the gate "
+        f"{REFER_INCEPTION_TOL['score']:g}")
+    if not tf32["score"] > REFER_INCEPTION_TOL["score"]:
+        raise AssertionError(
+            f"refer-train-inception: the score gate "
+            f"{REFER_INCEPTION_TOL['score']:g} passes the TF32 control "
+            f"({tf32['score']:.3g}): it cannot tell float32 from TF32")
+
+
+def phase_tp_transformer(torch, np, card, tmp):
+    """tp-transformer: this process's 5 mixed steps first, then the two
+    ranks' (MeshSpec(model=2), gloo on the one card). Gates: the ranks'
+    scores equal, each within TP_SCORE_TOL of this process's, 4 heads per
+    rank, the single process's launches per step on each rank. Returns
+    rank 0's launches."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.zoo import TransformerLM
+
+    x, y = lm_batch(np, np.random.default_rng(SEED + 3), LM_BATCH,
+                    LM["max_length"], LM["num_classes"])
+    dev = card_device(torch)
+    data = DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+    net = TransformerLM(**LM, seed=SEED).init()
+    dtypes.set_mixed_precision(True)
+    try:
+        single = timed_fits(torch, net, data, TP_STEPS)
+    finally:
+        dtypes.set_mixed_precision(False)
+    del net, data
+    torch.cuda.empty_cache()
+    ranks = a9_wait("tp-transformer", "tp", a9_spawn("tp", 2, tmp), tmp)
+    want = {k: TP_STEPS * v for k, v in LM_PER_STEP.items()}
+    for r, res in enumerate(ranks):
+        got = {k[len("launches/"):]: int(v) for k, v in res.items()
+               if k.startswith("launches/")}
+        expect_launches(f"tp-transformer rank {r}", got, want)
+        if int(res["heads"]) != LM["n_heads"] // 2:
+            raise AssertionError(f"tp-transformer: {res['heads']} heads")
+    if not np.array_equal(ranks[0]["scores"], ranks[1]["scores"]):
+        raise AssertionError(f"tp-transformer: the ranks' scores differ: "
+                             f"{ranks[0]['scores']} {ranks[1]['scores']}")
+    s_single = np.array([s for _, s in single])
+    rel = np.abs(ranks[0]["scores"] - s_single) / np.abs(s_single)
+    r_ms = median(ranks[0]["seconds"][1:]) * 1e3
+    s_ms = median([t for t, _ in single[1:]]) * 1e3
+    log(f"[tp-transformer] TransformerLM {LM}, {LM_BATCH} x "
+        f"{LM['max_length']} tokens, {TP_STEPS} mixed steps: scores "
+        f"(rank 0) {', '.join(f'{s:.5f}' for s in ranks[0]['scores'])}, "
+        f"one process {', '.join(f'{s:.5f}' for s in s_single)}: worst "
+        f"{rel.max():.3g} relative (tol {TP_SCORE_TOL:g}); launches per "
+        f"rank {want}, "
+        f"{int(ranks[0]['heads'])} heads per rank")
+    log(f"[tp-transformer] median step {r_ms:.3f} ms on each of 2 ranks "
+        f"(gloo on one card) against {s_ms:.3f} ms in one process; "
+        f"{float(ranks[0]['collectives']):g} collectives and "
+        f"{float(ranks[0]['bytes']) / 1e6:.3f} MB per step per rank; peak "
+        f"device memory per rank "
+        f"{float(ranks[0]['peak']) / 2 ** 30:.3f} GiB ({card})")
+    if not (np.isfinite(rel).all() and rel.max() <= TP_SCORE_TOL):
+        raise AssertionError(f"tp-transformer: scores {ranks[0]['scores']} "
+                             f"against {s_single}")
+    return {k[len("launches/"):]: int(v) for k, v in ranks[0].items()
+            if k.startswith("launches/")}
+
+
+def phase_fsdp_vgg16(torch, np, card, tmp, first):
+    """fsdp-vgg16: two ranks, MeshSpec(fsdp=2), 5 mixed steps of
+    train-vgg16's batch; each rank holds about half of the params and
+    slots at rest, its first score is train-vgg16's (the same rows, the
+    same masks) to DP_FIRST_TOL. Returns rank 0's launches."""
+    ranks = a9_wait("fsdp-vgg16", "fsdp", a9_spawn("fsdp", 2, tmp), tmp)
+    want = {k: FSDP_STEPS * v for k, v in VGG_PER_STEP.items()}
+    for r, res in enumerate(ranks):
+        got = {k[len("launches/"):]: int(v) for k, v in res.items()
+               if k.startswith("launches/")}
+        expect_launches(f"fsdp-vgg16 rank {r}", got, want)
+        held, whole = res["held"], res["whole"]
+        if not (held[0] < 0.55 * whole[0] and held[1] < 0.55 * whole[1]):
+            raise AssertionError(f"fsdp-vgg16 rank {r}: at rest {held} of "
+                                 f"{whole} bytes")
+    scores = ranks[0]["scores"]
+    rel = abs(scores[0] - first) / abs(first)
+    if not (np.isfinite(scores).all() and rel <= DP_FIRST_TOL["dp-vgg16"]):
+        raise AssertionError(f"fsdp-vgg16: scores {scores}, first of "
+                             f"train-vgg16 {first}")
+    r0 = ranks[0]
+    log(f"[fsdp-vgg16] VGG16 at {VGG_SHAPE}, batch {VGG_TRAIN[0]}, "
+        f"{FSDP_STEPS} mixed steps on 2 ranks (gloo, one card): scores "
+        f"{', '.join(f'{s:.5f}' for s in scores)}; first {rel:.3g} from "
+        f"train-vgg16's (tol {DP_FIRST_TOL['dp-vgg16']:g}); launches per "
+        f"rank {want}")
+    log(f"[fsdp-vgg16] at rest per rank: params {r0['held'][0] / 2 ** 20:.1f}"
+        f" MiB, slots {r0['held'][1] / 2 ** 20:.1f} MiB, against "
+        f"{r0['whole'][0] / 2 ** 20:.1f} and {r0['whole'][1] / 2 ** 20:.1f} "
+        f"MiB replicated; peak device memory per rank "
+        f"{float(r0['peak']) / 2 ** 30:.3f} GiB; median step "
+        f"{median(r0['seconds'][1:]) * 1e3:.3f} ms; "
+        f"{float(r0['collectives']):g} collectives and "
+        f"{float(r0['bytes']) / 1e6:.1f} MB per step per rank ({card})")
+    return {k[len("launches/"):]: int(v) for k, v in r0.items()
+            if k.startswith("launches/")}
+
+
+# rank vs this process, each step from the same point: the score
+# relative, each param's change and each slot in relative L2 norm per leaf
+# (measured on an H100 80GB HBM3, 700 W: scores 0, changes 8.28e-05 at
+# worst, a conv kernel of VGG16 whose cout slices take other cuDNN
+# algorithms, slots 3.04e-06)
+REFER_A9_TOL = {"score": 1e-6, "change": 5e-4, "slot": 1e-4}
+
+
+def phase_refer_tp_fsdp(torch, np, tmp):
+    """refer-tp-fsdp: four ranks (fsdp=2 x model=2, gloo on the one card)
+    train each network REFER_A9['steps'] steps; this process takes each
+    step from the rank's point before it and compares the step's score,
+    changes and slots (REFER_A9_TOL), the ranks bit-identical after every
+    step."""
+    from deeplearning4j_tpu_torch import dtypes, interop
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    procs = a9_spawn("refer", 4, tmp)
+    ranks = a9_wait("refer-tp-fsdp", "refer", procs, tmp)
+    data = refer_a9_data(np)
+    nets = refer_a9_nets(torch)
+    for name, net in nets.items():
+        x, y = data[name]
+        keys = sorted(k for k in ranks[0] if k.startswith(f"{name}/0/"))
+        for k in ranks[0]:
+            if k.startswith(f"{name}/") and any(
+                    not np.array_equal(r[k], ranks[0][k]) for r in ranks):
+                raise AssertionError(f"refer-tp-fsdp: the ranks differ in "
+                                     f"{k}")
+        worst = {}
+        for i in range(REFER_A9["steps"]):
+            if i:
+                prev = {k.split("/", 2)[2]: ranks[0][k] for k in ranks[0]
+                        if k.startswith(f"{name}/{i - 1}/")}
+                net.set_param_table({k[len("param/"):]: v
+                                     for k, v in prev.items()
+                                     if k.startswith("param/")})
+                set_slots(interop, net, {k[len("slot/"):]: v
+                                         for k, v in prev.items()
+                                         if k.startswith("slot/")})
+            start = net.get_param_table()
+            with deterministic_cudnn(torch), dtypes.full_precision():
+                net.fit(DataSet(x, y))
+            got = {k.split("/", 2)[2]: ranks[0][k] for k in ranks[0]
+                   if k.startswith(f"{name}/{i}/")}
+            mine = net.get_param_table()
+            slots = dict(slot_items(interop.opt_state_to_jax(net)))
+
+            def rel_l2(a, c):
+                return float(np.linalg.norm(a - c) / max(np.linalg.norm(c),
+                                                         1e-30))
+
+            change = {k: rel_l2(got[f"param/{k}"] - start[k], v - start[k])
+                      for k, v in mine.items()}
+            errs = {"score": abs(float(got["score"]) - net.score_)
+                    / abs(net.score_),
+                    "change": max(change.values()),
+                    "slot": max((rel_l2(got[f"slot/{k}"], v)
+                                 for k, v in slots.items()), default=0.0)}
+            for k, v in errs.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+            leaf = max(change, key=change.get)
+            if change[leaf] >= worst["change"]:
+                worst_leaf = (i + 1, leaf)
+        launches = {k.split("/")[-1]: int(v) for k, v in ranks[0].items()
+                    if k.startswith(f"launches/{name}/") and v}
+        log(f"[refer-tp-fsdp] {name}: {REFER_A9['steps']} steps on 4 ranks "
+            f"(fsdp=2 x model=2, gloo, one card), bit-identical after each; "
+            f"against one process from the same point, worst "
+            + ", ".join(f"{k} {v:.3g} (tol {REFER_A9_TOL[k]:g})"
+                        for k, v in worst.items())
+            + f" (the change's at step {worst_leaf[0]}, {worst_leaf[1]}); "
+              f"rank 0's launches {launches}; {len(keys)} leaves")
+        bad = {k: v for k, v in worst.items()
+               if not (math.isfinite(v) and v <= REFER_A9_TOL[k])}
+        if bad:
+            raise AssertionError(f"refer-tp-fsdp {name}: {bad}")
+    del nets
+
+
+def set_slots(interop, net, flat):
+    """The updater slots from snapshot entries "entry/slot/path"."""
+    tree = interop.opt_state_to_jax(net)
+    entries = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, entry in entries:
+        for slot, sub in (entry.items() if entry else ()):
+            if not isinstance(sub, dict):
+                continue
+            for path in [p for p in _paths(sub)]:
+                node = sub
+                *parents, leaf = path.split("/")
+                for part in parents:
+                    node = node[part]
+                node[leaf] = flat[f"{key}/{slot}/{path}"]
+    interop.opt_state_from_jax(net, tree)
+
+
+def _paths(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}"
+
+
+def phase_remat_transformer(torch, np, card):
+    """The full-width TransformerLM under each remat policy: 3 float32
+    steps (TF32 off) from the same seed on train-lm's batch; peak memory
+    and median step per policy; the scores within 1e-6 of 'none' (float32
+    rounding; logged whether bit for bit). Returns the launches of the
+    four runs."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.parallel import layout as layout_mod
+    from deeplearning4j_tpu_torch.zoo import TransformerLM
+
+    x, y = lm_batch(np, np.random.default_rng(SEED + 3), LM_BATCH,
+                    LM["max_length"], LM["num_classes"])
+    dev = card_device(torch)
+    data = DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+    out, total = {}, None
+    for pol in layout_mod.REMAT_POLICY_NAMES:
+        net = TransformerLM(**LM, remat=pol, seed=SEED).init()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with dtypes.full_precision():
+            reset_counts()
+            runs = timed_fits(torch, net, data, REMAT_STEPS)
+            launches = read_counts()
+        per = dict(LM_PER_STEP)
+        per["flash_attention"] = LM["n_layers"] * REMAT_FLASH[pol]
+        expect_launches(f"remat-transformer ({pol})", launches,
+                        {k: REMAT_STEPS * v for k, v in per.items()})
+        out[pol] = ([s for _, s in runs], median([t for t, _ in runs[1:]]),
+                    torch.cuda.max_memory_allocated())
+        total = launches if total is None else add_counts(total, launches)
+        del net
+    base = out["none"][0]
+    for pol, (scores, sec, peak) in out.items():
+        rel = max(abs(a - b) / abs(b) for a, b in zip(scores, base))
+        log(f"[remat-transformer] {pol}: scores "
+            f"{', '.join(f'{s:.7f}' for s in scores)} ({rel:.3g} from "
+            f"'none', {'bit for bit' if scores == base else 'not bitwise'}"
+            f"); median step {sec * 1e3:.3f} ms; peak device memory "
+            f"{peak / 2 ** 30:.3f} GiB; flash forward launches per step "
+            f"{LM['n_layers'] * REMAT_FLASH[pol]} ({card})")
+        if not rel <= 1e-6:
+            raise AssertionError(f"remat-transformer {pol}: scores {scores} "
+                                 f"against {base}")
+    return total
+
+
+def phase_compress(torch, np, card):
+    """EncodingHandler over a seeded gradient tree, COMPRESS['rounds']
+    rounds on the card and on the CPU: the indices sent equal, the values,
+    deltas and residuals within 1e-6, the thresholds equal; ms per round
+    on the card. No kernel: torch's sort and index_add on the card."""
+    from deeplearning4j_tpu_torch.parallel.compression import EncodingHandler
+
+    c = COMPRESS
+    rng = np.random.default_rng(SEED + 23)
+    kw = dict(threshold=c["threshold"],
+              capacity_fraction=c["capacity_fraction"])
+    card_h, cpu_h = EncodingHandler(**kw), EncodingHandler(**kw)
+    dev = card_device(torch)
+    worst, times, sent = 0.0, [], 0
+    for _ in range(c["rounds"]):
+        grads = {f"leaf{i}": (0.05 * rng.standard_normal(s)).astype(
+            np.float32) for i, s in enumerate(c["leaves"])}
+        on_card = {k: torch.from_numpy(v).to(dev) for k, v in grads.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        msgs, deltas = card_h.encode_tree(on_card)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        cmsgs, cdeltas = cpu_h.encode_tree(
+            {k: torch.from_numpy(v) for k, v in grads.items()})
+        for k, (idx, vals, size) in msgs.items():
+            cidx, cvals, _ = cmsgs[k]
+            if not torch.equal(idx.cpu(), cidx):
+                raise AssertionError(f"compress: indices of {k} differ")
+            sent += int((cidx >= 0).sum())
+            for a, b in ((vals, cvals), (deltas[k], cdeltas[k]),
+                         (card_h._residuals[k], cpu_h._residuals[k])):
+                worst = max(worst, float((a.cpu() - b).abs().max()))
+        if card_h.threshold != cpu_h.threshold:
+            raise AssertionError(f"compress: thresholds "
+                                 f"{card_h.threshold} {cpu_h.threshold}")
+    n = sum(int(np.prod(s)) for s in c["leaves"])
+    log(f"[compress] EncodingHandler, {c['rounds']} rounds of {n} gradient "
+        f"entries: indices equal on the card and the CPU, values, deltas "
+        f"and residuals within {worst:.3g} (tol 1e-6), {sent} entries sent "
+        f"in all, threshold {card_h.threshold:.6g}; median round "
+        f"{median(times[1:]) * 1e3:.3f} ms on the card ({card})")
+    if not worst <= 1e-6:
+        raise AssertionError(f"compress: card and CPU differ by {worst}")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -7282,9 +7943,22 @@ def main() -> int:
                 torch, np, iv3, card, rows=inception_images(np),
                 tag="serve-inception", per_batch={"bn_act": INCEPTION_BN})
             phase_refer_inception(torch, np, iv3, path)
+            _, iv3_train_err = phase_kernel(
+                torch, bn_cases(iv3, INCEPTION_TRAIN[0]), bw, peak,
+                batch=INCEPTION_TRAIN[0], dtypes=(torch.bfloat16,),
+                what="training forward", model="InceptionV3",
+                tag="kernel-inception")
+            max_err = max(max_err, iv3_train_err)
+            inception_xent, inception_xent_err = phase_xent(
+                torch, bw, peak, peak_bf16, peak_tf32,
+                cases=INCEPTION_XENT_CASES, tag="kernel-inception")
+            inception_launches = phase_train_inception(torch, np, card, iv3)
             del iv3
-        log(f"[refer-inception] the InceptionV3 phases (write, import, "
-            f"kernel, serve, refer) took {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+            phase_refer_train_inception(torch, np, tmp)
+        log(f"[refer-train-inception] the InceptionV3 phases (write, "
+            f"import, kernel, serve, refer, train, refer-train) took "
+            f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             char_rnn, restore_launches = phase_dl4j_charrnn(torch, np, tmp,
@@ -7436,6 +8110,28 @@ def main() -> int:
         log(f"[kernel-a8b] the pretraining phases (pretrain-dbn, "
             f"pretrain-sda, pretrain-vae, refer-pretrain, kernel-a8b) took "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        tp_flash, tp_flash_err = phase_flash(
+            torch, bw, peak, peak_bf16, peak_tf32, cases=TP_FLASH_CASES,
+            tag="kernel-tp")
+        flash_err = max(flash_err, tp_flash_err)
+        tp_bwd, tp_bwd_err = phase_flash_bwd(
+            torch, bw, peak, peak_bf16, peak_tf32, cases=TP_FLASH_CASES,
+            tag="kernel-tp")
+        flash_bwd_err = max(flash_bwd_err, tp_bwd_err)
+        xent_err = max(xent_err, inception_xent_err)
+        with tempfile.TemporaryDirectory() as tmp:
+            tp_launches = phase_tp_transformer(torch, np, card, tmp)
+            fsdp_launches = phase_fsdp_vgg16(torch, np, card, tmp,
+                                             vgg_first)
+            phase_refer_tp_fsdp(torch, np, tmp)
+        remat_launches = phase_remat_transformer(torch, np, card)
+        phase_compress(torch, np, card)
+        a9_launches = add_counts(inception_launches, tp_launches,
+                                 fsdp_launches, remat_launches)
+        log(f"[compress] the A.9 phases (kernel-tp, tp-transformer, "
+            f"fsdp-vgg16, refer-tp-fsdp, remat-transformer, compress) took "
+            f"{time.perf_counter() - t0:.1f} s")
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
         if leaked:
@@ -7473,6 +8169,11 @@ def main() -> int:
         return {case[-1]: pretrain_xent[case][name]
                 for case in PRETRAIN_XENT_CASES if case[1] == d}
 
+    def inception_rows(name):
+        # per launch at the trained InceptionV3's Output, (32, 2048, 1000)
+        return {case[-1]: inception_xent[case][name]
+                for case in INCEPTION_XENT_CASES}
+
     def per_forward(row, calls):
         return {k: (v * calls if k.endswith("ms") and v is not None else v)
                 for k, v in row.items()}
@@ -7483,18 +8184,18 @@ def main() -> int:
                         inception_v3_forward=iv3_times[torch.float32])),
         "flash_attention": (lm_launches["flash_attention"], flash_err,
                             dict(per_forward(flash, LM["n_layers"]),
-                                 vit_shape=vit_flash)),
+                                 vit_shape=vit_flash, tp_shape=tp_flash)),
         "lstm_scan": (rnn_launches["lstm_scan"], lstm_err,
                       dict(per_forward(lstm, 2),
                            bidir_shape=bidir_rows["lstm_scan"])),
         "flash_attention_bwd_dq": (
             train_launches["flash_attention_bwd_dq"], flash_bwd_err,
             dict(per_forward(flash_bwd["dq"], LM["n_layers"]),
-                 vit_shape=vit_bwd["dq"])),
+                 vit_shape=vit_bwd["dq"], tp_shape=tp_bwd["dq"])),
         "flash_attention_bwd_dkv": (
             train_launches["flash_attention_bwd_dkv"], flash_bwd_err,
             dict(per_forward(flash_bwd["dkv"], LM["n_layers"]),
-                 vit_shape=vit_bwd["dkv"])),
+                 vit_shape=vit_bwd["dkv"], tp_shape=tp_bwd["dkv"])),
         "linear_xent_fwd": (train_launches["linear_xent_fwd"], xent_err,
                             dict(xent["fwd"], vgg16_output=vgg_rows("fwd"),
                                  tbptt_window=xent_window["fwd"],
@@ -7504,7 +8205,8 @@ def main() -> int:
                                                           1000),
                                  vit_output=a8_rows("fwd", 256, 128, 10),
                                  dbn_output=pretrain_rows("fwd", 2000),
-                                 sda_output=pretrain_rows("fwd", 30))),
+                                 sda_output=pretrain_rows("fwd", 30),
+                                 inception_output=inception_rows("fwd"))),
         "linear_xent_bwd": (train_launches["linear_xent_bwd"], xent_err,
                             dict(xent["bwd"], vgg16_output=vgg_rows("bwd"),
                                  tbptt_window=xent_window["bwd"],
@@ -7514,7 +8216,8 @@ def main() -> int:
                                                           1000),
                                  vit_output=a8_rows("bwd", 256, 128, 10),
                                  dbn_output=pretrain_rows("bwd", 2000),
-                                 sda_output=pretrain_rows("bwd", 30))),
+                                 sda_output=pretrain_rows("bwd", 30),
+                                 inception_output=inception_rows("bwd"))),
         "lstm_scan_bwd": (rnn_train_launches["lstm_scan_bwd"],
                           lstm_bwd_err["lstm_scan_bwd"],
                           dict(per_forward(lstm_bwd["lstm_scan_bwd"], 2),
@@ -7544,7 +8247,8 @@ def main() -> int:
                                  "tbptt_window", "bidir_output",
                                  "transfer_output", "vit_shape",
                                  "googlenet_output", "vit_output",
-                                 "dbn_output", "sda_output")
+                                 "dbn_output", "sda_output", "tp_shape",
+                                 "inception_output")
                if k in t},
             # launches on the char-RNN's DL4J restore and resume path
             # (dl4j-charrnn and checkpoint-resume)
@@ -7582,7 +8286,11 @@ def main() -> int:
             "a8_launches": a8_launches[kname],
             # launches in pretrain-dbn's and pretrain-sda's 20 + 20
             # fine-tuning steps (layerwise pretraining runs none)
-            "pretrain_launches": pretrain_launches[kname]})
+            "pretrain_launches": pretrain_launches[kname],
+            # launches in train-inception's 20 mixed steps, tp-transformer's
+            # and fsdp-vgg16's rank 0 (5 steps each) and remat-transformer's
+            # 4 x 3 steps (A.3's rest and A.9's model and fsdp axes)
+            "a9_launches": a9_launches[kname]})
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -7595,4 +8303,7 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":
         sys.exit(dp_rank_main(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 6 and sys.argv[1] == "--a9-rank":
+        sys.exit(a9_rank_main(sys.argv[2], int(sys.argv[3]),
+                              int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -30,6 +30,11 @@ as numpy arrays in the interchange layout, in the network's own container.
 
 Names, shapes and the set of entries must match exactly at every level of
 nesting; anything else raises, so a half-loaded network cannot run.
+
+Both directions take whole params and slots. On a network that
+ParallelWrapper shards (fsdp or model axis) they are collective: the
+`_to_jax` side gathers, the `_from_jax` side checks against the whole
+shapes and keeps this rank's slices.
 """
 from __future__ import annotations
 
@@ -38,7 +43,11 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.models._training import flat_items
+from deeplearning4j_tpu_torch.models._training import (
+    flat_items,
+    whole_params,
+    whole_slots,
+)
 
 Arrays = Mapping[str, Mapping[str, object]]
 
@@ -94,9 +103,13 @@ def params_from_jax(net, params: Arrays, state: Arrays):
     must be initialized; returns it."""
     if net.params is None:
         raise RuntimeError("init() the port network before loading weights")
-    new_params = _load("params", net.params, params, net)
+    arr = net._shard_layout
+    new_params = _load("params", {k: whole_params(net, k)
+                                  for k in net.params}, params, net)
     new_state = _load("state", net.state, state, net)
     net.params, net.state = new_params, new_state
+    if arr is not None:
+        arr.place(net, slots=False)
     return net
 
 
@@ -157,13 +170,20 @@ def opt_state_from_jax(net, opt_state):
     elif len(opt_state) != len(net.opt_state):
         raise ValueError(f"opt_state has {len(opt_state)} layers, the port "
                          f"network {len(net.opt_state)}")
-    new = {key: _layer_slots_from_jax(layer, net.opt_state[key],
-                                      opt_state[key], net.device,
-                                      f"opt_state[{key!r}]")
-           for key, layer in _entries(net)}
+    new = {key: _layer_slots_from_jax(
+        layer, _whole_entry(net, key), opt_state[key], net.device,
+        f"opt_state[{key!r}]") for key, layer in _entries(net)}
     net.opt_state = (new if isinstance(net.opt_state, dict)
                      else [new[i] for i in range(len(new))])
+    if net._shard_layout is not None:
+        net._shard_layout.place(net, params=False)
     return net
+
+
+def _whole_entry(net, key):
+    st = net.opt_state[key]
+    return st if isinstance(st, tuple) else whole_slots(
+        net, _param_key(net, key), st)
 
 
 def _to_interchange(layer, tree, prefix: str = ""):
@@ -183,10 +203,17 @@ def params_to_jax(net):
     """(params, state) of the port network as the JAX package keeps them:
     nested dicts of numpy arrays in the interchange layout, under the
     network's own keys (the inverse of `params_from_jax`)."""
-    params = {name: _to_interchange(net.layer(name), p)
-              for name, p in net.params.items()}
+    params = {name: _to_interchange(net.layer(name),
+                                    whole_params(net, name))
+              for name in net.params}
     return params, {name: _to_interchange(None, s)
                     for name, s in net.state.items()}
+
+
+def _param_key(net, key):
+    """The params key of an updater-state entry (a list index for a
+    MultiLayerNetwork)."""
+    return f"layer_{key}" if isinstance(key, int) else key
 
 
 def opt_state_to_jax(net):
@@ -196,7 +223,7 @@ def opt_state_to_jax(net):
     of their dtype, () as ()."""
     out = {}
     for key, layer in _entries(net):
-        st = net.opt_state[key]
+        st = _whole_entry(net, key)
         if isinstance(st, tuple):
             out[key] = ()
             continue

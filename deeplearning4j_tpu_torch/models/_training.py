@@ -18,6 +18,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn import shard as shard_mod
 from deeplearning4j_tpu_torch.nn import updaters as upd_mod
+from deeplearning4j_tpu_torch.nn import weightnoise as wn_mod
 from deeplearning4j_tpu_torch.nn.regularization import apply_constraints
 
 
@@ -125,57 +126,121 @@ def layer_updater(layer, default) -> upd_mod.Updater:
     return u
 
 
-def layer_penalty(layer, p, defaults, biases: bool, total):
+def layer_forward(layer, state, train, p, x, mask, rng=None):
+    """One layer's forward on `p` with its weight noise drawn from `rng`
+    (a network's function for `parallel.layout.apply_layer`)."""
+    return layer.apply(wn_mod.maybe_transform(layer, p, rng, train), x,
+                       state=state, train=train, mask=mask, rng=rng)
+
+
+def layer_scan(layer, train, p, x, carry, mask, rng=None):
+    """A recurrent layer's scan from `carry`, as `layer_forward`."""
+    return layer.scan(wn_mod.maybe_transform(layer, p, rng, train), x,
+                      carry, mask=mask, train=train, rng=rng)
+
+
+def layer_loss(layer, state, train, p, h, y, mask, rng=None):
+    """An output layer's loss on `h`, as `layer_forward` (`rng` only for
+    its weight noise)."""
+    return layer.compute_loss(wn_mod.maybe_transform(layer, p, rng, train),
+                              h, y, state=state, mask=mask)
+
+
+def whole_params(net, key: str):
+    """The whole params of `key` (gathered from the ranks' slices where
+    the network is sharded; else its own dict)."""
+    arr = net._shard_layout
+    p = net.params[key]
+    return p if arr is None else arr.whole(key, p)
+
+
+def whole_slots(net, key, slots):
+    """One layer's updater slots whole: a slot that mirrors the params is
+    gathered as they are; scalars stay."""
+    arr = net._shard_layout
+    if arr is None or not isinstance(slots, dict):
+        return slots
+    return {k: arr.whole(key, v) if isinstance(v, dict) else v
+            for k, v in slots.items()}
+
+
+def layer_penalty(layer, p, defaults, biases: bool, total, key=None,
+                  arr=None):
     """`total` plus one layer's l1/l2 penalty (BaseLayer.calcL1/calcL2):
     l1 * sum|w| + 0.5 * l2 * sum w^2 over its `regularizable` params and,
     with `biases`, the bias terms over its params named "b*" (the JAX
     MultiLayerNetwork counts them, its ComputationGraph does not). Under
     the data-parallel wrapper only rank 0 adds it, so the ranks' summed
-    scores and gradients count it once."""
+    scores and gradients count it once; on a sharded network (`arr`, its
+    arrangement; `key`, the layer's params key) each slice counts once."""
     shard = shard_mod.current()
     if shard is not None and not shard.counts_penalty():
         return total
+    terms = {}
+
+    def add(path, v, l1, l2):
+        t = terms.get(path)
+        if l1:
+            t = l1 * v.abs().sum() if t is None else t + l1 * v.abs().sum()
+        if l2:
+            t2 = 0.5 * l2 * (v * v).sum()
+            t = t2 if t is None else t + t2
+        if t is not None:
+            terms[path] = t
+
     l1 = layer.l1 if layer.l1 is not None else defaults.l1
     l2 = layer.l2 if layer.l2 is not None else defaults.l2
     if l1 or l2:
-        for v in upd_mod.tree_leaves(layer.regularizable(p)):
-            if l1:
-                total = total + l1 * v.abs().sum()
-            if l2:
-                total = total + 0.5 * l2 * (v * v).sum()
+        for path, v in flat_items(layer.regularizable(p)):
+            add(path, v, l1, l2)
     if biases:
         l1b = layer.l1_bias if layer.l1_bias is not None else defaults.l1_bias
         l2b = layer.l2_bias if layer.l2_bias is not None else defaults.l2_bias
-        for name, v in p.items():
-            if name.startswith("b"):
-                if l1b:
-                    total = total + l1b * v.abs().sum()
-                if l2b:
-                    total = total + 0.5 * l2b * (v * v).sum()
-    return total
+        if l1b or l2b:
+            for name, v in p.items():
+                if name.startswith("b"):
+                    add(name, v, l1b, l2b)
+    if not terms:
+        return total
+    if arr is None:
+        for t in terms.values():
+            total = total + t
+        return total
+    return total + arr.global_sum(key, terms)
 
 
 def update_layer(layer, defaults, updater, params, grads, slots,
-                 iteration: int):
+                 iteration: int, key=None, arr=None):
     """One layer's update, in place under no_grad: gradient normalization
     (the layer's, else the network default), the updater rule at the
     scheduled learning rate, params -= step, then the layer's constraints.
     `layer` is None for a graph vertex that is not a layer (the defaults
-    apply). Returns the new updater slots."""
+    apply). On a sharded network (`arr`, its arrangement; `key`, the
+    layer's params key) the norms span every slice and the constraints act
+    on the whole params. Returns the new updater slots."""
     d = defaults
 
     def pick(field):
         own = getattr(layer, field) if layer is not None else None
         return own if own is not None else getattr(d, field)
 
+    norm = None
+    if arr is not None:
+        def norm(tree):
+            sq = {path: (g * g).sum()
+                  for path, g in flat_items(tree)}
+            return arr.global_sum(key, sq).sqrt()
     g = upd_mod.normalize_gradients(
         grads, pick("gradient_normalization"),
-        pick("gradient_normalization_threshold"))
+        pick("gradient_normalization_threshold"), norm=norm)
     lr = (d.lr_schedule(updater.learning_rate, iteration) if d.lr_schedule
           else updater.learning_rate)
     steps, slots = updater.apply(g, slots, lr)
     upd_mod.tree_map(lambda p, s: p.sub_(s), params, steps)
     if layer is not None and layer.constraints:
-        upd_mod.tree_map(lambda p, c: p.copy_(c), params,
-                         apply_constraints(params, layer.constraints))
+        whole = params if arr is None else arr.whole(key, params)
+        fixed = apply_constraints(whole, layer.constraints)
+        if arr is not None:
+            fixed = arr.scatter(key, fixed)
+        upd_mod.tree_map(lambda p, c: p.copy_(c), params, fixed)
     return slots

@@ -31,7 +31,12 @@ the JAX package, a line-search `optimization_algo` trains with the SGD
 updater step here (its graph has no solver path). A step is split into
 `_device_step` and `_bookkeep`, so the engine's step windows
 (`DL4J_TPU_STEP_WINDOW`) run K device steps with one host read; tBPTT
-batches run their windows per step. FSDP and remat are not ported yet.
+batches run their windows per step. Each LayerVertex runs under its
+layer's `remat` policy (`parallel.layout.maybe_remat`) at train time, and
+under ParallelWrapper's fsdp or model axis its params, sharded at rest
+(`_shard_layout`), are gathered on use inside that scope
+(`parallel.layout.apply_layer`), so a policy's backward gathers again;
+`get_param_table` gives them whole.
 
 Evaluation: `do_evaluation` feeds one pass of a single-output graph to
 several evaluators, `evaluate_outputs` each output of a multi-output graph
@@ -61,6 +66,7 @@ draws themselves, as the JAX package does with its keys.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -76,7 +82,6 @@ from deeplearning4j_tpu_torch.models import _training as tr
 from deeplearning4j_tpu_torch.models.multi_layer_network import (
     warn_bidir_tbptt,
 )
-from deeplearning4j_tpu_torch.nn import weightnoise as wn_mod
 from deeplearning4j_tpu_torch.nn.dropout import Draws
 from deeplearning4j_tpu_torch.nn.graph_conf import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.graph_vertices import LayerVertex
@@ -90,7 +95,17 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
 Params = Dict[str, torch.Tensor]
 
 
+def _vertex_forward(vertex, state, train, p, xs, masks, rng=None):
+    """One vertex's forward on `p` (for `parallel.layout.apply_layer`)."""
+    return vertex.apply(p, xs, state=state, train=train, masks=masks,
+                        rng=rng)
+
+
 class ComputationGraph:
+    #: where the params live sharded, a `parallel.layout.FsdpArrangement`
+    #: (ParallelWrapper's fsdp or model axis), else None
+    _shard_layout = None
+
     def __init__(self, conf: ComputationGraphConfiguration):
         conf.validate()
         self.conf = conf
@@ -205,6 +220,12 @@ class ComputationGraph:
         outputs = set(self.conf.network_outputs)
         rngs = (rng.split(len(self.topo)) if rng is not None
                 else [None] * len(self.topo))
+        from deeplearning4j_tpu_torch.parallel import layout as layout_mod
+
+        # params sharded at rest (ParallelWrapper's fsdp or model axis):
+        # each vertex's are gathered right before use, inside its remat
+        # scope, so a remat policy's backward gathers again
+        arr = self._shard_layout
         for name, r in zip(self.topo, rngs):
             v = self.conf.vertices[name]
             vin = [acts[x] for x in self.conf.vertex_inputs[name]]
@@ -214,15 +235,19 @@ class ComputationGraph:
                 acts[name] = vin[0] if len(vin) == 1 else vin
                 mask_map[name] = vmasks[0] if vmasks else None
                 continue
+            layer = self.layer(name)
             if carries is not None and name in carries:
-                p = wn_mod.maybe_transform(v.layer, params[name], r, train)
-                acts[name], carries[name] = v.layer.scan(
-                    p, vin[0], carries[name], mask=vmasks[0], train=train,
-                    rng=r)
+                acts[name], carries[name] = layout_mod.apply_layer(
+                    arr, name, layer, params[name],
+                    functools.partial(tr.layer_scan, layer, train), vin[0],
+                    carries[name], vmasks[0], rng=r)
             else:
-                acts[name], st = v.apply(params[name], vin,
-                                         state=self.state[name], train=train,
-                                         masks=vmasks, rng=r)
+                acts[name], st = layout_mod.apply_layer(
+                    arr, name, layer, params[name],
+                    functools.partial(_vertex_forward, v, self.state[name],
+                                      train), vin, vmasks,
+                    remat=(layer.remat if train and layer is not None
+                           else None), rng=r)
                 if train:
                     new_state[name] = st
             mask_map[name] = v.propagate_mask(vmasks, self._vin_types[name])
@@ -312,7 +337,8 @@ class ComputationGraph:
             if isinstance(v, LayerVertex) and params[name]:
                 total = tr.layer_penalty(v.layer, params[name],
                                          self.conf.defaults, biases=False,
-                                         total=total)
+                                         total=total, key=name,
+                                         arr=self._shard_layout)
         return total
 
     def _loss(self, params, inputs, labels, fmasks=None, lmasks=None,
@@ -335,9 +361,14 @@ class ComputationGraph:
             lmask = lmasks[i] if lmasks is not None else None
             if lmask is None:
                 lmask = mask_map.get(name)
-            p_out = wn_mod.maybe_transform(layer, params[name], rng, train)
-            score, _, new_state[name] = layer.compute_loss(
-                p_out, acts[name], y, state=self.state[name], mask=lmask)
+            from deeplearning4j_tpu_torch.parallel import (
+                layout as layout_mod,
+            )
+
+            score, _, new_state[name] = layout_mod.apply_layer(
+                self._shard_layout, name, layer, params[name],
+                functools.partial(tr.layer_loss, layer, self.state[name],
+                                  train), acts[name], y, lmask, rng=rng)
             total = total + score
         return total + self._reg_score(params), new_state
 
@@ -350,7 +381,8 @@ class ComputationGraph:
                 self.opt_state[name] = tr.update_layer(
                     self.layer(name), self.conf.defaults,
                     self._updaters[name], self.params[name], grads[name],
-                    self.opt_state[name], iteration)
+                    self.opt_state[name], iteration, key=name,
+                    arr=self._shard_layout)
 
     def _masks(self, masks):
         return None if masks is None else [self._batch(m) for m in masks]
@@ -641,7 +673,7 @@ class ComputationGraph:
         flat = {}
         for name in self.topo:
             layer = self.layer(name)
-            for pname, t in self.params[name].items():
+            for pname, t in tr.whole_params(self, name).items():
                 if layer is not None:
                     t = layer.to_interchange(pname, t)
                 # a copy: the JAX package's table is a snapshot

@@ -33,6 +33,18 @@ wrapped in `AsyncDataSetIterator` where it allows it. A frozen layer
 (`nn.layers.misc.Frozen`) takes no update, and its params are no leaves of
 the gradient, so the backward ends at the first trainable layer.
 
+Each layer runs under its `remat` policy at train time
+(`parallel.layout.maybe_remat`: no checkpoint, the whole layer recomputed
+in the backward, products and convolutions saved, or the saved
+activations in host memory; a recompute replays the forward's draws).
+Under ParallelWrapper's fsdp or model axis the params live sharded
+(`_shard_layout`, a `parallel.layout.FsdpArrangement`): each layer's are
+gathered on use inside its remat scope (`parallel.layout.apply_layer`, the
+one seam of both), so the backward gathers again,
+and a layer that computes on its model shards runs inside
+`nn.shard.splitting`; `get_param_table`, saves and checkpoints give the
+whole params (collectively).
+
 A step is split as the JAX package's is: `_device_step` (loss, gradients,
 updates, running state; the score stays a 0-d device tensor) and
 `_bookkeep` (`score_`, `last_batch_size`, `iteration`, the listeners), so
@@ -68,6 +80,7 @@ never draws.
 """
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Dict, List, Optional
 
@@ -84,7 +97,6 @@ from deeplearning4j_tpu_torch.datasets.iterators import (
 from deeplearning4j_tpu_torch.models import _training as tr
 from deeplearning4j_tpu_torch.models._training import flat_items  # noqa: F401 (its users import it from here)
 from deeplearning4j_tpu_torch.nn import updaters as upd_mod
-from deeplearning4j_tpu_torch.nn import weightnoise as wn_mod
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.dropout import Draws
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, iteration_scope
@@ -118,6 +130,10 @@ def warn_bidir_tbptt(bidir: list) -> None:
 class MultiLayerNetwork:
     """Construction computes the per-layer input types; `init` allocates
     params (MultiLayerNetwork.init)."""
+
+    #: where the params live sharded, a `parallel.layout.FsdpArrangement`
+    #: (ParallelWrapper's fsdp or model axis), else None
+    _shard_layout = None
 
     def __init__(self, conf: MultiLayerConfiguration):
         conf.validate()
@@ -212,21 +228,31 @@ class MultiLayerNetwork:
         its new carry, in place. With `rng` (a step's draws) and `train`,
         layer i takes `rng.split(to_layer)[i]` for its weight noise and
         dropout."""
+        from deeplearning4j_tpu_torch.parallel import layout as layout_mod
+
         n = len(self.layers) if to_layer is None else to_layer
         rngs = rng.split(n) if rng is not None else [None] * n
         new_state = dict(self.state)
+        # params sharded at rest (ParallelWrapper's fsdp or model axis):
+        # each layer's are gathered right before use, inside its remat
+        # scope, so a remat policy's backward gathers again
+        arr = self._shard_layout
         for i in range(n):
             layer = self.layers[i]
             if i in self.conf.input_preprocessors:
                 x = self.conf.input_preprocessors[i].transform(x, mask)
             k = _key(i)
-            p = wn_mod.maybe_transform(layer, params[k], rngs[i], train)
             if carries is not None and isinstance(layer, BaseRecurrent):
-                x, carries[i] = layer.scan(p, x, carries[i], mask=mask,
-                                           train=train, rng=rngs[i])
+                x, carries[i] = layout_mod.apply_layer(
+                    arr, k, layer, params[k],
+                    functools.partial(tr.layer_scan, layer, train), x,
+                    carries[i], mask, rng=rngs[i])
             else:
-                x, st = layer.apply(p, x, state=self.state[k], train=train,
-                                    mask=mask, rng=rngs[i])
+                x, st = layout_mod.apply_layer(
+                    arr, k, layer, params[k],
+                    functools.partial(tr.layer_forward, layer,
+                                      self.state[k], train), x, mask,
+                    remat=layer.remat if train else None, rng=rngs[i])
                 if train:
                     new_state[k] = st
             if acts is not None:
@@ -306,7 +332,9 @@ class MultiLayerNetwork:
             p = params[_key(i)]
             if p:
                 total = tr.layer_penalty(layer, p, self.conf.defaults,
-                                         biases=True, total=total)
+                                         biases=True, total=total,
+                                         key=_key(i),
+                                         arr=self._shard_layout)
         return total
 
     def _loss(self, params, x, y, fmask=None, lmask=None, train=True,
@@ -326,13 +354,15 @@ class MultiLayerNetwork:
         h, new_state, cur_mask = self._walk(params, x, train=train,
                                             mask=fmask, to_layer=n - 1,
                                             carries=carries, rng=rng)
+        from deeplearning4j_tpu_torch.parallel import layout as layout_mod
+
         k = _key(n - 1)
-        p_out = params[k]
-        if carries is None:
-            p_out = wn_mod.maybe_transform(out_layer, p_out, rng, train)
-        score, _, out_state = out_layer.compute_loss(
-            p_out, h, y, state=self.state[k],
-            mask=lmask if lmask is not None else cur_mask)
+        wn_rng = rng if carries is None else None
+        score, _, out_state = layout_mod.apply_layer(
+            self._shard_layout, k, out_layer, params[k],
+            functools.partial(tr.layer_loss, out_layer, self.state[k],
+                              train),
+            h, y, lmask if lmask is not None else cur_mask, rng=wn_rng)
         new_state[k] = out_state
         return score + self._reg_score(params), new_state
 
@@ -348,7 +378,8 @@ class MultiLayerNetwork:
                 continue
             self.opt_state[i] = tr.update_layer(
                 layer, self.conf.defaults, self._updaters[i], self.params[k],
-                g, self.opt_state[i], iteration)
+                g, self.opt_state[i], iteration, key=k,
+                arr=self._shard_layout)
 
     def _frozen_keys(self) -> frozenset:
         """The param keys of frozen layers: no leaves of the gradient."""
@@ -724,7 +755,7 @@ class MultiLayerNetwork:
         gives exactly this table."""
         flat = {}
         for i, layer in enumerate(self.layers):
-            for path, t in flat_items(self.params[_key(i)]):
+            for path, t in flat_items(tr.whole_params(self, _key(i))):
                 t = layer.to_interchange(path, t)
                 # a copy: fit updates the params in place
                 flat[f"{_key(i)}/{path}"] = t.detach().to(
@@ -734,12 +765,16 @@ class MultiLayerNetwork:
     def set_param_table(self, table: Dict[str, np.ndarray]) -> None:
         """Load "layer_i/name" arrays in the interchange layout (the
         inverse of `get_param_table`; setParamTable), each onto the
-        network's device in its layer's layout, nested names by '/'."""
+        network's device in its layer's layout, nested names by '/'. The
+        arrays are whole; a sharded network keeps this rank's slices."""
+        arr = self._shard_layout
         for full, v in table.items():
             k, path = full.split("/", 1)
             layer = self.layer(k)
             t = layer.from_interchange(path, tr.as_tensor(np.asarray(
                 v, np.float32))).to(self.device)
+            if arr is not None:
+                t = arr.placement(k, path).local(t, arr.mesh)
             node = self.params[k]
             *parents, name = path.split("/")
             for part in parents:
@@ -749,14 +784,18 @@ class MultiLayerNetwork:
     def clone(self) -> "MultiLayerNetwork":
         """An independent copy on the same device (clone): the
         configuration through its JSON, every param, running state and
-        updater slot copied, the counters and the dropout generator's
-        state carried."""
+        updater slot copied (whole, from a sharded network), the counters
+        and the dropout generator's state carried."""
         other = MultiLayerNetwork(
             MultiLayerConfiguration.from_json(self.conf.to_json()))
         other.init(self.device)
-        other.params = tr.clone_tree(self.params)
+        # whole params and slots: a sharded network's are gathered
+        other.params = tr.clone_tree({k: tr.whole_params(self, k)
+                                      for k in self.params})
         other.state = tr.clone_tree(self.state)
-        other.opt_state = tr.clone_tree(self.opt_state)
+        other.opt_state = tr.clone_tree(
+            [tr.whole_slots(self, k, s)
+             for k, s in zip(self.params, self.opt_state)])
         other.iteration, other.epoch = self.iteration, self.epoch
         gen = getattr(self.draws, "generator", None)
         if gen is not None:

@@ -74,6 +74,53 @@ class Draws:
         return torch.randn(shape, generator=g, device=g.device, dtype=dtype)
 
 
+class Recorded:
+    """A step's draws that a recompute replays: the first pass through
+    `inner` keeps every mask and noise sample it hands out; after
+    `rewound()` the same calls get the same samples again, in order, and
+    calls past the recorded ones draw anew (recorded too). A remat
+    policy's checkpoint (`parallel.layout.maybe_remat`) reruns a layer's
+    forward in the backward: torch.utils.checkpoint restores the default
+    generators but not a network's own, so without the replay the
+    recompute's masks would differ from the forward's."""
+
+    def __init__(self, inner, tape=None):
+        self.inner = inner
+        self.tape = tape if tape is not None else {"samples": [], "pos": 0}
+
+    def rewound(self) -> "Recorded":
+        self.tape["pos"] = 0
+        return self
+
+    def _child(self, inner) -> "Recorded":
+        return Recorded(inner, self.tape)
+
+    def step(self):
+        return self._child(self.inner.step())
+
+    def split(self, n: int):
+        return [self._child(d) for d in self.inner.split(n)]
+
+    def fold_in(self, data: int):
+        return self._child(self.inner.fold_in(data))
+
+    def _take(self, draw):
+        t = self.tape
+        if t["pos"] < len(t["samples"]):
+            out = t["samples"][t["pos"]]
+        else:
+            out = draw()
+            t["samples"].append(out)
+        t["pos"] += 1
+        return out
+
+    def bernoulli(self, p, shape) -> torch.Tensor:
+        return self._take(lambda: self.inner.bernoulli(p, shape))
+
+    def normal(self, shape, dtype) -> torch.Tensor:
+        return self._take(lambda: self.inner.normal(shape, dtype))
+
+
 def repeatable(rng):
     """A function returning `rng` (a step's draws) so that every call draws
     the same masks and noise: a line-search solver evaluates one

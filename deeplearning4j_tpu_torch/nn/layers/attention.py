@@ -25,6 +25,15 @@ kernels: MultiHeadAttention's `attn_dropout` on the output projection,
 TransformerBlock's `dropout` on the FFN hidden layer, both at train time
 only (the block's attention takes no `attn_dropout`, as in the JAX
 package).
+
+Under the model axis (Megatron-LM's split): MultiHeadAttention holds its
+heads' q, k and v columns of Wqkv and bqkv (three interleaved blocks,
+`split_blocks`) and its heads' rows of Wo; it runs the attention on
+n_heads / model heads per rank (the flash kernels at local shapes), sums
+the ranks' output products (`AxisGroup.reduce`) and adds the whole bo
+once. TransformerBlock's FFN holds W1's and b1's columns and W2's rows,
+draws its hidden dropout as its columns of the whole mask and sums its
+output products before the whole b2.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn import initializers as init_mod
 from deeplearning4j_tpu_torch.nn import inputs as it
+from deeplearning4j_tpu_torch.nn import shard as shard_mod
 from deeplearning4j_tpu_torch.nn.layers.base import (
     Layer,
     apply_dropout,
@@ -154,6 +164,24 @@ class MultiHeadAttention(Layer):
     block_size: int = 512
     attn_dropout: Optional[float] = None  # retain prob, DL4J convention
 
+    computes_model_shards = True
+
+    def tensor_partition_specs(self, params, model_axis="model", model_size=1):
+        """Wqkv and bqkv column-split by heads, Wo row-split, bo whole
+        (added after the sum), when the heads and the width divide;
+        otherwise everything replicates."""
+        specs = {k: () for k in params}
+        f = params["Wqkv"].shape[0]
+        if (model_size > 1 and self.n_heads % model_size == 0
+                and f % model_size == 0):
+            specs["Wqkv"] = (None, model_axis)
+            specs["bqkv"] = (model_axis,)
+            specs["Wo"] = (model_axis, None)
+        return specs
+
+    def split_blocks(self, path):
+        return 3 if path in ("Wqkv", "bqkv") else 1
+
     def output_type(self, input_type):
         f = self.n_out or input_type.size
         return it.Recurrent(f, getattr(input_type, "timesteps", -1))
@@ -187,17 +215,24 @@ class MultiHeadAttention(Layer):
 
     def apply(self, params, x, *, state, train, mask=None, rng=None):
         b, t, f = x.shape
-        h = self.n_heads
-        d = f // h
+        d = f // self.n_heads
+        fl = params["Wqkv"].shape[1] // 3  # this rank's heads' width
+        tp = shard_mod.model_split() if fl != f else None
+        h = fl // d
+        if tp is not None:
+            x = tp.copy(x)
         qkv = ops.bias_add(ops.dot(x, params["Wqkv"]), params["bqkv"])
 
-        def heads(a):  # [b, t, f] -> [b, h, t, d]
+        def heads(a):  # [b, t, fl] -> [b, h, t, d]
             return a.reshape(b, t, h, d).transpose(1, 2)
 
-        q, k, v = (heads(a) for a in qkv.split(f, dim=-1))
+        q, k, v = (heads(a) for a in qkv.split(fl, dim=-1))
         o = self.attend(q, k, v, mask)
-        o = o.transpose(1, 2).reshape(b, t, f)
-        y = ops.bias_add(ops.dot(o, params["Wo"]), params["bo"])
+        o = o.transpose(1, 2).reshape(b, t, fl)
+        z = ops.dot(o, params["Wo"])
+        if tp is not None:
+            z = tp.reduce(z)
+        y = ops.bias_add(z, params["bo"])
         y = apply_dropout(y, self.attn_dropout, train, rng)
         if mask is not None:
             y = y * mask[..., None].to(y.dtype)
@@ -219,6 +254,28 @@ class TransformerBlock(Layer):
     causal: bool = False
     attention_impl: str = "auto"
     eps: float = 1e-5
+
+    computes_model_shards = True
+
+    def tensor_partition_specs(self, params, model_axis="model", model_size=1):
+        """Attention by MultiHeadAttention's rule; the FFN Megatron's way:
+        W1 and b1 column-split, W2 row-split, b2 whole."""
+        f, hid = params["W1"].shape
+        specs = {
+            "ln1": {k: () for k in params["ln1"]},
+            "attn": self._sub(f).tensor_partition_specs(
+                params["attn"], model_axis, model_size),
+            "ln2": {k: () for k in params["ln2"]},
+            "W1": (), "b1": (), "W2": (), "b2": (),
+        }
+        if model_size > 1 and hid % model_size == 0:
+            specs["W1"] = (None, model_axis)
+            specs["b1"] = (model_axis,)
+            specs["W2"] = (model_axis, None)
+        return specs
+
+    def split_blocks(self, path):
+        return 3 if path in ("attn/Wqkv", "attn/bqkv") else 1
 
     def __post_init__(self):
         if self.activation is None:
@@ -262,10 +319,20 @@ class TransformerBlock(Layer):
             state={}, train=train, mask=mask, rng=rng)
         x = x + a
         hn = layer_norm(x, ln2["gamma"], ln2["beta"], self.eps)
+        whole = self.ffn_mult * f
+        tp = (shard_mod.model_split() if params["W1"].shape[1] != whole
+              else None)
+        if tp is not None:
+            hn = tp.copy(hn)
+            if rng is not None:
+                rng = tp.columns_of(rng, whole)
         hid = self.act_fn("gelu")(ops.bias_add(ops.dot(hn, params["W1"]),
                                                params["b1"]))
         hid = apply_dropout(hid, self.dropout, train, rng)
-        y = x + ops.bias_add(ops.dot(hid, params["W2"]), params["b2"])
+        z = ops.dot(hid, params["W2"])
+        if tp is not None:
+            z = tp.reduce(z)
+        y = x + ops.bias_add(z, params["b2"])
         if mask is not None:
             y = y * mask[..., None].to(y.dtype)
         return y, state

@@ -11,6 +11,18 @@ methods compute on tensors:
     apply(params, x, *, state, train, mask, rng) -> (y, new_state)
     propagate_mask(mask, input)   the mask the next layer sees
 
+Tensor parallelism (the model axis of `parallel.ParallelWrapper`): a
+layer declares how its params split with `tensor_partition_specs` (the
+JAX package's rule, as tuples of axis names over the interchange layout;
+replicate by default). A layer with `computes_model_shards` runs on its
+shards when one of them is split: `nn.shard.model_split()` gives it the
+model axis inside `apply`, and it returns the whole output (Dense,
+convolutions and embeddings gather their output slice; attention and the
+FFN sum row-split products). Any other layer gets its split params
+gathered whole before `apply` (the LSTMs, whose recurrence needs every
+unit of h at every step, and the output layers, whose fused loss walks
+the whole vocabulary).
+
 `rng` is the layer's `nn.dropout.Draws` in a training step (None
 elsewhere): a layer with `dropout` set applies it to its output through
 `apply_dropout`; weight noise is applied to its params by the runtime
@@ -54,8 +66,12 @@ def register_layer(cls):
 class Layer:
     """Base layer config. The fields are the JAX package's, so a config's
     JSON reads the same in both packages. Training reads the updater,
-    learning rate, l1/l2, gradient normalization, constraints, dropout and
-    weight noise; remat is carried for the JAX package."""
+    learning rate, l1/l2, gradient normalization, constraints, dropout,
+    weight noise and the remat policy (`parallel.layout.maybe_remat`)."""
+
+    # runs on its model shards (see the module docstring); False: its
+    # split params are gathered whole before `apply`
+    computes_model_shards = False
 
     # --- per-layer overrides (None = inherit from NeuralNetConfiguration) ---
     name: Optional[str] = None
@@ -106,6 +122,29 @@ class Layer:
         default passthrough."""
         return mask
 
+    # ---- tensor parallelism ----
+    def tensor_partition_specs(self, params: Params, model_axis: str = "model",
+                               model_size: int = 1):
+        """How the params split over the model axis: a tree of tuples (a
+        JAX PartitionSpec's entries) over each param's interchange layout,
+        the same structure as `params`. Default: replicate everything."""
+        return upd_mod.tree_map(lambda _: (), params)
+
+    def interchange_dims(self, path: str):
+        """The port dim each interchange dim of param `path` is held in;
+        None where the layouts agree."""
+        return None
+
+    def split_blocks(self, path: str) -> int:
+        """The interleaved blocks of param `path`'s model-split dim (see
+        `nn.shard.split_part`); 1 is a contiguous split."""
+        return 1
+
+    def interchange(self, params: Params) -> Params:
+        """`params` in the interchange layout (the JAX package's)."""
+        return {k: self.interchange(v) if isinstance(v, dict)
+                else self.to_interchange(k, v) for k, v in params.items()}
+
     # ---- param layout (interchange form = the JAX package's layout) ----
     def from_interchange(self, key: str, value: torch.Tensor) -> torch.Tensor:
         """A param in the interchange layout -> the layout `apply` uses."""
@@ -155,6 +194,25 @@ class Layer:
             if isinstance(v, list) and f.name in ("kernel_size", "stride", "padding", "dilation", "size", "pooling_dimensions"):
                 setattr(obj, f.name, tuple(v))
         return obj
+
+
+def column_parallel_specs(params: Params, model_axis: str,
+                          model_size: int):
+    """Megatron's column-parallel rule for W[..., n_out] / b[n_out] param
+    dicts in the interchange layout (Dense and its kin): the output
+    feature axis over the model axis when it divides and is at least
+    twice the axis; the bias follows its weight; everything else
+    replicates."""
+    specs = {k: () for k in params}
+    w = params.get("W")
+    if model_size > 1 and w is not None and w.dim() >= 2:
+        n_out = w.shape[-1]
+        if n_out % model_size == 0 and n_out >= 2 * model_size:
+            specs["W"] = (None,) * (w.dim() - 1) + (model_axis,)
+            b = params.get("b")
+            if b is not None and b.shape[-1] == n_out:
+                specs["b"] = (model_axis,)
+    return specs
 
 
 _ITERATION = threading.local()

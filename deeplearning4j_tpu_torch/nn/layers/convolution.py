@@ -6,6 +6,11 @@ ConvolutionMode semantics (Strict/Truncate/Same) follow
 inputs.conv_output_size; 'same' is XLA 'SAME', which pads the odd pixel on
 the high side (ops/linear.same_padding). 1-D layers work on [b, t, c] as
 width-one 2-D ones.
+
+Under the model axis a convolution holds its output channels' slice of
+the kernel and bias (the Megatron column rule on HWIO's cout), convolves
+the whole input into them and gathers the channels; SeparableConv2D
+splits only its pointwise kernel, the depthwise one stays whole.
 """
 from __future__ import annotations
 
@@ -17,9 +22,11 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn import initializers as init_mod
 from deeplearning4j_tpu_torch.nn import inputs as it
+from deeplearning4j_tpu_torch.nn import shard as shard_mod
 from deeplearning4j_tpu_torch.nn.layers.base import (
     Layer,
     apply_dropout,
+    column_parallel_specs,
     register_layer,
 )
 from deeplearning4j_tpu_torch.ops import linear as ops
@@ -49,6 +56,23 @@ def _held_to_hwio(value):
     return value.permute(2, 3, 1, 0).contiguous()
 
 
+# where each interchange (HWIO) dim of a held OIHW kernel is
+HWIO_IN_OIHW = (2, 3, 1, 0)
+
+
+def _split_out(z):
+    """A convolution's output on a model split: this rank's channels
+    gathered (the last dim of NHWC / BTC); the whole output otherwise."""
+    tp = shard_mod.model_split()
+    return z if tp is None else tp.gather(z, -1)
+
+
+def _split_in(x):
+    """The input of a model-split convolution: Megatron's f."""
+    tp = shard_mod.model_split()
+    return x if tp is None else tp.copy(x)
+
+
 @dataclass
 class _ConvBase(Layer):
     kernel_size: Tuple[int, int] = (1, 1)
@@ -59,6 +83,14 @@ class _ConvBase(Layer):
     n_in: Optional[int] = None
     n_out: int = 0
     has_bias: bool = True
+
+    computes_model_shards = True
+
+    def tensor_partition_specs(self, params, model_axis="model", model_size=1):
+        """The output-channel split: HWIO's last axis is cout, so the
+        column rule applies as it stands (Conv2D, Conv1D, Deconv2D)."""
+        return column_parallel_specs(self.interchange(params), model_axis,
+                                     model_size)
 
     def _spatial_out(self, h, w):
         kh, kw = _pair(self.kernel_size)
@@ -102,13 +134,16 @@ class Conv2D(_ConvBase):
     def to_interchange(self, key, value):
         return _held_to_hwio(value) if key == "W" else value
 
+    def interchange_dims(self, path):
+        return HWIO_IN_OIHW if path == "W" else None
+
     def apply(self, params, x, *, state, train, mask=None, rng=None):
         pad = _conv_padding(self.convolution_mode, self.padding)
-        z = ops.conv2d(x, params["W"], _pair(self.stride), pad,
+        z = ops.conv2d(_split_in(x), params["W"], _pair(self.stride), pad,
                        _pair(self.dilation))
         if self.has_bias:
             z = ops.bias_add(z, params["b"])
-        y = self.act_fn("identity")(z)
+        y = self.act_fn("identity")(_split_out(z))
         return apply_dropout(y, self.dropout, train, rng), state
 
 
@@ -144,10 +179,11 @@ class Conv1D(Conv2D):
     def apply(self, params, x, *, state, train, mask=None, rng=None):
         k, s, p, d = self._1d()
         pad = "SAME" if self.convolution_mode == "same" else [(p, p), (0, 0)]
-        z = ops.conv2d(x[:, :, None, :], params["W"], (s, 1), pad, (d, 1))
+        z = ops.conv2d(_split_in(x)[:, :, None, :], params["W"], (s, 1), pad,
+                       (d, 1))
         if self.has_bias:
             z = ops.bias_add(z, params["b"])
-        y = self.act_fn("identity")(z[:, :, 0, :])
+        y = self.act_fn("identity")(_split_out(z[:, :, 0, :]))
         return apply_dropout(y, self.dropout, train, rng), state
 
 
@@ -191,10 +227,11 @@ class Deconv2D(_ConvBase):
             pad = "SAME"
         else:
             pad = [(ph, ph), (pw, pw)] if (ph or pw) else "VALID"
-        z = ops.conv2d_transpose(x, params["W"], _pair(self.stride), pad)
+        z = ops.conv2d_transpose(_split_in(x), params["W"],
+                                 _pair(self.stride), pad)
         if self.has_bias:
             z = ops.bias_add(z, params["b"])
-        return self.act_fn("identity")(z), state
+        return self.act_fn("identity")(_split_out(z)), state
 
 
 @register_layer
@@ -234,6 +271,22 @@ class SeparableConv2D(_ConvBase):
     def to_interchange(self, key, value):
         return _held_to_hwio(value) if key in ("dW", "pW") else value
 
+    def interchange_dims(self, path):
+        return HWIO_IN_OIHW if path in ("dW", "pW") else None
+
+    def tensor_partition_specs(self, params, model_axis="model", model_size=1):
+        """The pointwise 1x1 mix (where the FLOPs are) split on its output
+        channels, the bias with it; the depthwise kernel stays whole."""
+        specs = {k: () for k in params}
+        pw = params.get("pW")
+        if model_size > 1 and pw is not None:
+            n_out = pw.shape[0]  # held OIHW: cout leads
+            if n_out % model_size == 0 and n_out >= 2 * model_size:
+                specs["pW"] = (None, None, None, model_axis)
+                if "b" in params:
+                    specs["b"] = (model_axis,)
+        return specs
+
     def regularizable(self, params):
         return {k: v for k, v in params.items() if k in ("dW", "pW")}
 
@@ -241,10 +294,10 @@ class SeparableConv2D(_ConvBase):
         pad = _conv_padding(self.convolution_mode, self.padding)
         z = ops.conv2d(x, params["dW"], _pair(self.stride), pad,
                        _pair(self.dilation), groups=x.shape[-1])
-        z = ops.conv2d(z, params["pW"], (1, 1), "VALID")
+        z = ops.conv2d(_split_in(z), params["pW"], (1, 1), "VALID")
         if self.has_bias:
             z = ops.bias_add(z, params["b"])
-        return self.act_fn("identity")(z), state
+        return self.act_fn("identity")(_split_out(z)), state
 
 
 def _pool_nhwc(x, k, s, pads, pooling_type: str, pnorm: int = 2):

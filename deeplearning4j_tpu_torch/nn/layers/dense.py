@@ -3,7 +3,9 @@ DropoutLayer, Embedding and EmbeddingSequence (counterpart of
 deeplearning4j_tpu/nn/layers/dense.py).
 
 Params follow DL4J naming: W [nIn, nOut], b [nOut] — the same layout in
-both packages.
+both packages. Under the model axis Dense, Embedding and EmbeddingSequence
+hold a column slice of W and b (`column_parallel_specs`), compute their
+output slice and gather it before the activation (`nn.shard`).
 """
 from __future__ import annotations
 
@@ -14,9 +16,11 @@ import torch
 
 from deeplearning4j_tpu_torch.nn import initializers as init_mod
 from deeplearning4j_tpu_torch.nn import inputs as it
+from deeplearning4j_tpu_torch.nn import shard as shard_mod
 from deeplearning4j_tpu_torch.nn.layers.base import (
     Layer,
     apply_dropout,
+    column_parallel_specs,
     register_layer,
 )
 from deeplearning4j_tpu_torch.ops import linear as ops
@@ -38,6 +42,11 @@ class Dense(Layer):
     n_in: Optional[int] = None
     n_out: int = 0
     has_bias: bool = True
+
+    computes_model_shards = True
+
+    def tensor_partition_specs(self, params, model_axis="model", model_size=1):
+        return column_parallel_specs(params, model_axis, model_size)
 
     def output_type(self, input_type):
         if isinstance(input_type, it.Recurrent):
@@ -66,7 +75,12 @@ class Dense(Layer):
         return z
 
     def apply(self, params, x, *, state, train, mask=None, rng=None):
-        y = self.act_fn("sigmoid")(self.preout(params, x))
+        tp = shard_mod.model_split()
+        if tp is None:
+            z = self.preout(params, x)
+        else:  # W's column slice: this rank's output features, gathered
+            z = tp.gather(self.preout(params, tp.copy(x)), -1)
+        y = self.act_fn("sigmoid")(z)
         return apply_dropout(y, self.dropout, train, rng), state
 
 
@@ -147,6 +161,13 @@ class Embedding(Layer):
     n_out: int = 0
     has_bias: bool = True
 
+    computes_model_shards = True
+
+    def tensor_partition_specs(self, params, model_axis="model", model_size=1):
+        # the embedding dim split: a lookup keeps rows whole, each rank
+        # holds its slice of every row
+        return column_parallel_specs(params, model_axis, model_size)
+
     def output_type(self, input_type):
         return it.FeedForward(self.n_out)
 
@@ -161,10 +182,17 @@ class Embedding(Layer):
     def apply(self, params, x, *, state, train, mask=None, rng=None):
         if x.dim() == 2 and x.shape[-1] == 1:
             x = x[:, 0]
-        y = _lookup(params["W"], x)
-        if self.has_bias:
-            y = ops.bias_add(y, params["b"])
-        return self.act_fn("identity")(y), state
+        return self.act_fn("identity")(_embed(self, params, x)), state
+
+
+def _embed(layer, params, x):
+    """The lookup plus bias; on a model split, this rank's columns
+    gathered."""
+    y = _lookup(params["W"], x)
+    if layer.has_bias:
+        y = ops.bias_add(y, params["b"])
+    tp = shard_mod.model_split()
+    return y if tp is None else tp.gather(y, -1)
 
 
 @register_layer
@@ -175,6 +203,11 @@ class EmbeddingSequence(Layer):
     n_in: Optional[int] = None
     n_out: int = 0
     has_bias: bool = False
+
+    computes_model_shards = True
+
+    def tensor_partition_specs(self, params, model_axis="model", model_size=1):
+        return column_parallel_specs(params, model_axis, model_size)
 
     def output_type(self, input_type):
         t = input_type.timesteps if isinstance(input_type, it.Recurrent) else -1
@@ -189,7 +222,4 @@ class EmbeddingSequence(Layer):
         return p
 
     def apply(self, params, x, *, state, train, mask=None, rng=None):
-        y = _lookup(params["W"], x)
-        if self.has_bias:
-            y = ops.bias_add(y, params["b"])
-        return self.act_fn("identity")(y), state
+        return self.act_fn("identity")(_embed(self, params, x)), state

@@ -48,6 +48,10 @@ class Output(Dense, BaseOutputLayer):
 
     loss: Optional[str] = None  # loss function name
 
+    # W and b split as Dense's, gathered whole on use: the fused loss
+    # walks the whole vocabulary per row
+    computes_model_shards = False
+
     def _loss_name(self):
         return self.loss or "mcxent"
 

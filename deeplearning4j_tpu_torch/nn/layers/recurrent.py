@@ -17,6 +17,11 @@ Cell math (peephole terms only for GravesLSTM):
     o = gate_act(x Wo + h Ro [+ po*c] + bo)
     h = o * act(c)
 
+Under the model axis the LSTMs split their gate axis (W, R and b, and the
+peepholes; `_lstm_partition_specs`) and SimpleRnn its units, as the JAX
+package places them, and gather them whole on use: the recurrence needs
+every unit of h at every step, and the scan kernels keep h on chip.
+
 Routing in `_lstm_scan` / `_lstm_recurrence`, the JAX package's: the
 input projection for all timesteps is one matmul (ops/linear.py); a
 sigmoid/tanh cell in float32 or bfloat16 with n <= `lstm_ops.MAX_N` (the
@@ -52,6 +57,7 @@ from deeplearning4j_tpu_torch.nn import inputs as it
 from deeplearning4j_tpu_torch.nn.layers.base import (
     Layer,
     apply_dropout,
+    column_parallel_specs,
     register_layer,
 )
 from deeplearning4j_tpu_torch.ops import linear as ops
@@ -162,6 +168,23 @@ def _lstm_recurrence(params, zx, carry, gate_fn, act_fn, peephole: bool,
     return y, (h_prev, c_prev)
 
 
+def _lstm_partition_specs(params, model_axis, model_size, n_out,
+                          prefixes=("",)):
+    """The gate-block column split of LSTM params: W [f, 4n], R [n, 4n]
+    and b [4n] over their gate axis, the peepholes [n] with them, when
+    model_size divides n_out and n_out is at least twice it."""
+    specs = {k: () for k in params}
+    if model_size > 1 and n_out % model_size == 0 and n_out >= 2 * model_size:
+        for pre in prefixes:
+            for k in ("W", "R"):
+                if pre + k in params:
+                    specs[pre + k] = (None, model_axis)
+            for k in ("b", "pi", "pf", "po"):
+                if pre + k in params:
+                    specs[pre + k] = (model_axis,)
+    return specs
+
+
 def _init_lstm_params(gen, n_in, n_out, weight_init, dist, forget_bias,
                       peephole: bool, prefix: str = ""):
     wi = weight_init or "xavier"
@@ -211,6 +234,10 @@ class LSTM(BaseRecurrent):
 
     def regularizable(self, params):
         return {k: v for k, v in params.items() if k in ("W", "R")}
+
+    def tensor_partition_specs(self, params, model_axis="model", model_size=1):
+        return _lstm_partition_specs(params, model_axis, model_size,
+                                     self.n_out)
 
     def scan(self, params, x, carry, *, mask=None, train=False, rng=None):
         y, carry_out = _lstm_scan(params, x, carry,
@@ -267,6 +294,10 @@ class GravesBidirectionalLSTM(BaseRecurrent):
         return {k: v for k, v in params.items()
                 if k.endswith("W") or k.endswith("R")}
 
+    def tensor_partition_specs(self, params, model_axis="model", model_size=1):
+        return _lstm_partition_specs(params, model_axis, model_size,
+                                     self.n_out, prefixes=("f_", "b_"))
+
     def init_carry(self, batch, device=None):
         def z():
             return torch.zeros((batch, self.n_out), device=device)
@@ -318,6 +349,13 @@ class SimpleRnn(BaseRecurrent):
                                distribution=self.dist),
             "b": torch.zeros(self.n_out),
         }
+
+    def tensor_partition_specs(self, params, model_axis="model", model_size=1):
+        """Dense's column rule on W; R's output axis follows a split W."""
+        specs = column_parallel_specs(params, model_axis, model_size)
+        if specs.get("W"):
+            specs["R"] = (None, model_axis)
+        return specs
 
     def regularizable(self, params):
         return {k: v for k, v in params.items() if k in ("W", "R")}
@@ -378,6 +416,12 @@ class LastTimeStep(Layer):
 
     def has_params(self):
         return self._inner.has_params() if self._inner else False
+
+    def tensor_partition_specs(self, params, model_axis="model", model_size=1):
+        if self._inner is not None:
+            return self._inner.tensor_partition_specs(params, model_axis,
+                                                      model_size)
+        return super().tensor_partition_specs(params, model_axis, model_size)
 
     def propagate_mask(self, mask, input_type):
         return None

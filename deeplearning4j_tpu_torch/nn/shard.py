@@ -26,6 +26,36 @@ changes without the wrapper, nor in a listener's `score` inside a fit:
 - the l1/l2 penalty counts on rank 0 only (`counts_penalty`);
 - the gradients are summed across ranks in flat buckets, the score with
   them (`reduce`), so the updater sees the global batch's gradient.
+
+On a grid of several axes (`parallel.mesh.build_mesh`) the shard's group
+is the data axis's sub-group: the model and fsdp ranks of one data
+coordinate hold the same rows, so the row blocks, the global counts and
+statistics and the gradient reduce span the data axis only, as the JAX
+package splits its batch over 'data' alone.
+
+The model axis (tensor parallelism) and the fsdp axis (parameters sharded
+at rest) run through `AxisGroup`, one sub-group of the grid, and four
+autograd Functions around its collectives (Megatron-LM's):
+
+- `AxisGroup.copy` (*f*): the identity forward, an all-reduce of the
+  cotangent backward; it enters a layer that computes a slice of its
+  output from a replicated input, whose gradient each rank holds a part
+  of;
+- `AxisGroup.reduce` (*g*): an all-reduce forward, the identity backward;
+  it sums the partial outputs of a row-split product;
+- `AxisGroup.gather`: an all-gather along a dim (a column-split
+  activation, or a sharded param gathered on use), whose backward keeps
+  this rank's slice of the cotangent. The ranks of the group compute on
+  the same rows, so the cotangent of the gathered tensor is the same on
+  each and nothing is summed: the data axis's reduce sums it later;
+- `AxisGroup.slice`: this rank's slice of a whole tensor (no collective).
+
+A dim may be split in `blocks` interleaved blocks: rank r holds the r-th
+part of each block (MultiHeadAttention's Wqkv keeps its heads' q, k and v
+columns). A layer that computes on its model shards runs inside
+`splitting(group)`, and `model_split()` gives it the group there.
+The collectives are those that gloo and NCCL both take on CUDA tensors
+(all_reduce, all_gather, broadcast), so one code path serves both.
 """
 from __future__ import annotations
 
@@ -83,6 +113,168 @@ class _AllSum(torch.autograd.Function):
         g = g.contiguous().clone()
         torch.distributed.all_reduce(g, group=ctx.group)
         return g, None
+
+
+class _Copy(torch.autograd.Function):
+    """Megatron's f: the identity forward, the cotangent summed over the
+    group backward."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_sum(g), None
+
+
+class _Reduce(torch.autograd.Function):
+    """Megatron's g: the sum over the group forward, the identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        return axis.all_sum(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """The pieces of the group's ranks joined along `dim`; backward, this
+    rank's slice of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, t, axis, dim, blocks):
+        ctx.axis, ctx.dim, ctx.blocks = axis, dim, blocks
+        return axis.all_gather(t, dim, blocks)
+
+    @staticmethod
+    def backward(ctx, g):
+        a = ctx.axis
+        return split_part(g, ctx.dim, ctx.blocks, a.size, a.rank), None, \
+            None, None
+
+
+def split_part(t: torch.Tensor, dim: int, blocks: int, n: int,
+               r: int) -> torch.Tensor:
+    """Part `r` of `n` of `t` along `dim`, the dim read as `blocks`
+    interleaved blocks (r's part of each, concatenated); contiguous, a
+    4-d channels-last tensor kept channels-last."""
+    dim = dim % t.dim()
+    size = t.shape[dim]
+    if size % (blocks * n):
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"into {blocks} blocks of {n} parts")
+    c = size // (blocks * n)
+    v = t.reshape(*t.shape[:dim], blocks, n, c, *t.shape[dim + 1:])
+    out = v.select(dim + 1, r).reshape(
+        *t.shape[:dim], blocks * c, *t.shape[dim + 1:])
+    # a copy, never a view: a slice must not keep the whole tensor alive
+    return out.clone(memory_format=_format(t))
+
+
+def join_parts(parts: List[torch.Tensor], dim: int,
+               blocks: int) -> torch.Tensor:
+    """The inverse of `split_part` over every rank's part, in rank
+    order."""
+    t0 = parts[0]
+    dim = dim % t0.dim()
+    c = t0.shape[dim] // blocks
+    v = torch.stack([p.reshape(*p.shape[:dim], blocks, c, *p.shape[dim + 1:])
+                     for p in parts], dim=dim + 1)
+    out = v.reshape(*t0.shape[:dim], blocks * len(parts) * c,
+                    *t0.shape[dim + 1:])
+    return out.contiguous(memory_format=_format(t0))
+
+
+def _format(t):
+    """channels_last for a 4-d channels-last tensor, else contiguous."""
+    if t.dim() == 4 and not t.is_contiguous() and t.is_contiguous(
+            memory_format=torch.channels_last):
+        return torch.channels_last
+    return torch.contiguous_format
+
+
+@dataclass(eq=False)
+class AxisGroup:
+    """One axis of the grid seen from this rank: the sub-group of the
+    ranks that differ from it on that axis only, this rank's coordinate
+    on it (`rank`) and the axis's size. `stats` counts the collectives
+    launched through it and their bytes."""
+
+    name: str
+    group: object
+    rank: int
+    size: int
+    stats: ReduceStats = field(default_factory=ReduceStats)
+
+    def _count(self, t: torch.Tensor, times: int = 1) -> None:
+        self.stats.collectives += 1
+        self.stats.bytes += t.numel() * t.element_size() * times
+
+    def all_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the group (no autograd)."""
+        out = t.detach().contiguous().clone()
+        if self.size > 1:
+            self._count(out)
+            torch.distributed.all_reduce(out, group=self.group)
+        return out
+
+    def all_gather(self, t: torch.Tensor, dim: int,
+                   blocks: int = 1) -> torch.Tensor:
+        """Every rank's `t` joined along `dim` (no autograd)."""
+        t = t.detach()
+        if self.size == 1:
+            return t
+        fmt = _format(t)
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        self._count(t, self.size)
+        torch.distributed.all_gather(parts, t, group=self.group)
+        return join_parts(parts, dim, blocks).contiguous(memory_format=fmt)
+
+    def copy(self, t: torch.Tensor) -> torch.Tensor:
+        return _Copy.apply(t, self) if self.size > 1 else t
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return _Reduce.apply(t, self) if self.size > 1 else t
+
+    def gather(self, t: torch.Tensor, dim: int,
+               blocks: int = 1) -> torch.Tensor:
+        return _Gather.apply(t, self, dim, blocks) if self.size > 1 else t
+
+    def slice(self, t: torch.Tensor, dim: int,
+              blocks: int = 1) -> torch.Tensor:
+        return (split_part(t, dim, blocks, self.size, self.rank)
+                if self.size > 1 else t)
+
+    def columns_of(self, draws, width: int):
+        """Draws for an activation split along its last dim: each sample
+        drawn at the whole `width` and this rank's columns kept, so the
+        ranks together hold the single process's sample."""
+        return ColumnDraws(draws, self, width)
+
+
+class ColumnDraws:
+    """An activation's draws on one rank of a split last dim (see
+    `AxisGroup.columns_of`)."""
+
+    def __init__(self, inner, axis: AxisGroup, width: int):
+        self.inner, self.axis, self.width = inner, axis, width
+
+    def _whole(self, shape):
+        return (*shape[:-1], self.width)
+
+    def bernoulli(self, p, shape):
+        return self.axis.slice(self.inner.bernoulli(p, self._whole(shape)),
+                               -1)
+
+    def normal(self, shape, dtype):
+        return self.axis.slice(self.inner.normal(self._whole(shape), dtype),
+                               -1)
 
 
 class RowDraws:
@@ -246,6 +438,29 @@ class installed:
     def __exit__(self, *exc):
         _STATE.installed = self._prev
         return False
+
+
+class splitting:
+    """Inside: `model_split()` is `axis` (a layer computing on its model
+    shards; None for a layer that does not)."""
+
+    def __init__(self, axis: Optional[AxisGroup]):
+        self.axis = axis
+
+    def __enter__(self):
+        self._prev = getattr(_STATE, "split", None)
+        _STATE.split = self.axis
+        return self.axis
+
+    def __exit__(self, *exc):
+        _STATE.split = self._prev
+        return False
+
+
+def model_split() -> Optional[AxisGroup]:
+    """The model axis of the layer being applied when its params are split
+    over it and it computes on its shards, else None."""
+    return getattr(_STATE, "split", None)
 
 
 def installed_shard() -> Optional[BatchShard]:

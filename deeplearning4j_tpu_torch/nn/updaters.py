@@ -296,29 +296,40 @@ def _total_norm(leaves) -> torch.Tensor:
 
 
 def normalize_gradients(grads: Tree, mode: Optional[str],
-                        threshold: float = 1.0) -> Tree:
+                        threshold: float = 1.0, norm=None) -> Tree:
     """DL4J GradientNormalization over ONE layer's gradient tree: per-layer
     modes act on all its leaves together, per-param-type modes leaf by
-    leaf."""
+    leaf. `norm(tree)` is the L2 norm of a subtree (default: of its
+    leaves; a sharded network passes one that spans every rank's slice)."""
     if not mode or mode == "None":
         return grads
+    if norm is None:
+        def norm(tree):
+            return _total_norm(tree_leaves(tree))
+
+    def per_param(fn):
+        def walk(tree, prefix=""):
+            return {k: walk(v, f"{prefix}{k}/") if isinstance(v, dict)
+                    else fn(v, norm({f"{prefix}{k}": v}))
+                    for k, v in tree.items()}
+
+        return walk(grads)
+
     if mode == "RenormalizeL2PerLayer":
-        scale = 1.0 / _total_norm(tree_leaves(grads)).clamp_min(1e-12)
+        scale = 1.0 / norm(grads).clamp_min(1e-12)
         return tree_map(lambda g: g * scale, grads)
     if mode == "RenormalizeL2PerParamType":
-        return tree_map(lambda g: g / _total_norm([g]).clamp_min(1e-12),
-                        grads)
+        return per_param(lambda g, n: g / n.clamp_min(1e-12))
     if mode == "ClipElementWiseAbsoluteValue":
         return tree_map(lambda g: g.clamp(-threshold, threshold), grads)
 
-    def clip_scale(norm):
-        return torch.where(norm > threshold,
-                           threshold / norm.clamp_min(1e-12),
-                           torch.ones_like(norm))
+    def clip_scale(n):
+        return torch.where(n > threshold, threshold / n.clamp_min(1e-12),
+                           torch.ones_like(n))
 
     if mode == "ClipL2PerLayer":
-        scale = clip_scale(_total_norm(tree_leaves(grads)))
+        scale = clip_scale(norm(grads))
         return tree_map(lambda g: g * scale, grads)
     if mode == "ClipL2PerParamType":
-        return tree_map(lambda g: g * clip_scale(_total_norm([g])), grads)
+        return per_param(lambda g, n: g * clip_scale(n))
     raise ValueError(f"Unknown gradient normalization '{mode}'")

@@ -1,9 +1,15 @@
-"""Data-parallel training of the port on torch.distributed (counterpart of
-deeplearning4j_tpu/parallel/: its data axis; the other axes, gradient
-compression, ParallelInference and ring attention are queued in ROADMAP
-A.9)."""
+"""Parallel training of the port on torch.distributed (counterpart of
+deeplearning4j_tpu/parallel/): ParallelWrapper over the data, model and
+fsdp axes of a grid of ranks (`mesh`), the fsdp param layout and the remat
+policies (`layout`), and threshold gradient compression (`compression`).
+The seq (ring attention) and pipe axes, ShardedTransformerLM,
+ParallelInference and the dcn and expert axes are queued in ROADMAP A.9's
+rest."""
+from deeplearning4j_tpu_torch.parallel.compression import (  # noqa: F401
+    EncodingHandler,
+)
 from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: F401
-    DataGroup,
+    Grid,
     MeshSpec,
     build_mesh,
     init_process_group,

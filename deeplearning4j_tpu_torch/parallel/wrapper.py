@@ -1,44 +1,56 @@
-"""ParallelWrapper's data axis on torch.distributed (counterpart of
-deeplearning4j_tpu/parallel/wrapper.py; the reference's
+"""ParallelWrapper over torch.distributed: the data, model and fsdp axes
+(counterpart of deeplearning4j_tpu/parallel/wrapper.py; the reference's
 ParallelWrapper.java:59-73 trains replicas on several devices).
 
 The JAX wrapper runs one SPMD program over its mesh: the global batch is
-sharded over 'data' and GSPMD turns the step into the single-device step
-on the global batch. The port runs one process per rank, each holding a
-whole replica of the network, and computes the same step on purpose:
+sharded over 'data', params are placed by the layers' partition specs
+(and over 'fsdp'), and GSPMD turns the step into the single-device step
+on the global batch. The port runs one process per rank on a grid of
+ranks (`parallel.mesh.build_mesh`) and computes the same step on purpose:
 
 - every rank iterates the same iterator (the port's ListDataSetIterator
   shuffles from its seed and the epoch, so the ranks agree; a checksum of
   the first batch of each epoch, all-reduced, raises if they do not); the
-  global batch is padded to a multiple of the ranks as the JAX
+  global batch is padded to a multiple of the data axis as the JAX
   `_pad_batch` pads it (the last row repeated, the padded rows' labels
-  mask zeroed where there is one), and each rank takes its contiguous
-  block of rows;
+  mask zeroed where there is one), and each rank takes its data
+  coordinate's contiguous block of rows: the model and fsdp ranks of one
+  data coordinate hold the same rows, as the JAX wrapper splits its batch
+  over 'data' only;
 - the network's own step runs on those rows (`MultiLayerNetwork.
   _fit_batch` or `ComputationGraph._fit_mds`: the standard step or its
   tBPTT windows, masks sliced with the rows) with an `nn.shard.BatchShard`
-  installed:
-  each rank's loss is its share of the global mean, BatchNorm's
-  statistics and dropout's masks are the global batch's, the l1/l2
-  penalty counts once, and the gradients and the score are summed over
-  the ranks in flat buckets after the backward, before gradient
-  normalization and the updater (`nn/shard.py`). The reduce runs at
-  world size 1 too;
+  of the data axis installed: each rank's loss is its share of the global
+  mean, BatchNorm's statistics and dropout's masks are the global
+  batch's, the l1/l2 penalty counts once, and the gradients and the score
+  are summed over the data axis in flat buckets after the backward,
+  before gradient normalization and the updater (`nn/shard.py`). The
+  reduce runs at world size 1 too;
+- on the model and fsdp axes the params live sharded (`_place_params`:
+  the layers' `tensor_partition_specs`, with the fsdp axis composed on by
+  `parallel.layout`), the updater slots mirror them and scalars
+  replicate; each layer gathers its fsdp slices on use, and computes on
+  its model slices or gathers them (`nn.layers.base`), so every rank's
+  step is the single process's (`parallel/layout.py`);
 - construction broadcasts rank 0's params, updater slots, running state,
   counters and dropout generator to every rank, as
-  DistributedDataParallel broadcasts its module.
+  DistributedDataParallel broadcasts its module, then cuts each rank's
+  slices.
 
-So after each step every rank holds the same params, and `score_`,
-`last_batch_size` (the unpadded global batch) and the listeners see what a
-single-process `fit` on the global batch gives. A line-search
-`optimization_algo` takes the SGD updater step here, with the JAX
-package's warning once per network. Under `DL4J_TPU_STEP_WINDOW` = K > 1
-the engine's window stages K global batches, each rank's rows on the
-device with the batch's `BatchShard`, runs each one's shard step under its
-shard, and every rank reads the window's scores once. Only the data axis is
-ported (`parallel/mesh.py`); the model, seq, pipe and fsdp axes raise for
-ROADMAP A.9. The reduce waits for the whole backward (its overlap with the
-backward is queued as perf work).
+So after each step the ranks hold the single process's params between
+them, and `score_`, `last_batch_size` (the unpadded global batch) and the
+listeners see what a single-process `fit` on the global batch gives.
+`get_param_table`, saves and checkpoints give whole params on every rank
+(collectively), and a checkpoint restores into any factorization of the
+grid. A line-search `optimization_algo` takes the SGD updater step here,
+with the JAX package's warning once per network. Under
+`DL4J_TPU_STEP_WINDOW` = K > 1 the engine's window stages K global
+batches, each rank's rows on the device with the batch's `BatchShard`,
+runs each one's shard step under its shard, and every rank reads the
+window's scores once. The seq, pipe, dcn and expert axes raise for
+ROADMAP A.9's rest; fsdp does not compose with seq, pipe or tBPTT, nor
+pipe with model, as in the JAX package. The reduce waits for the whole
+backward (its overlap with the backward is queued as perf work).
 """
 from __future__ import annotations
 
@@ -63,31 +75,37 @@ from deeplearning4j_tpu_torch.parallel import mesh as mesh_mod
 
 class ParallelWrapper:
     """Wraps a MultiLayerNetwork, or a ComputationGraph with one input and
-    one output, for data-parallel training over the process group:
+    one output, for training over the process group:
 
         mesh.init_process_group("file:///tmp/rdv", rank, world_size)
         pw = ParallelWrapper(net, mesh_spec=MeshSpec(data=world_size))
+        pw = ParallelWrapper(net, mesh_spec=MeshSpec(data=2, model=2))
+        pw = ParallelWrapper(net, mesh_spec=MeshSpec(fsdp=2, model=2))
         pw.fit(iterator, epochs=2)
 
-    Every rank runs the same calls. `mesh` is a `parallel.mesh.DataGroup`
+    Every rank runs the same calls. `mesh` is a `parallel.mesh.Grid`
     (default: `build_mesh(mesh_spec)`, or every rank on the data axis).
     `averaging_frequency`, `report_score_after_averaging` and
     `microbatches` keep the JAX signature: the gradients are summed at
     every step, as there (`averaging_frequency` 1). `prefetch_buffer` is
     the depth of the AsyncDataSetIterator that fit wraps an iterator in.
     `stats` counts the gradient reduce's bytes and collectives (and times
-    them when `stats.events` is a list)."""
+    them when `stats.events` is a list); `collective_stats()` adds the
+    model and fsdp axes'."""
 
-    def __init__(self, model, mesh: Optional[mesh_mod.DataGroup] = None,
+    def __init__(self, model, mesh: Optional[mesh_mod.Grid] = None,
                  mesh_spec: Optional[mesh_mod.MeshSpec] = None,
                  workers: Optional[int] = None,
                  averaging_frequency: int = 1, prefetch_buffer: int = 4,
                  report_score_after_averaging: bool = True,
                  microbatches: Optional[int] = None):
         self.model = model
+        spec = (mesh.spec if mesh is not None
+                else mesh_spec or mesh_mod.MeshSpec.data_parallel(workers))
+        _refuse(spec, getattr(model.conf.defaults, "backprop_type", None)
+                == "tbptt")
         if mesh is None:
-            mesh = mesh_mod.build_mesh(
-                mesh_spec or mesh_mod.MeshSpec.data_parallel(workers))
+            mesh = mesh_mod.build_mesh(spec)
         self.mesh = mesh
         self.averaging_frequency = max(1, averaging_frequency)
         self.prefetch_buffer = prefetch_buffer
@@ -96,6 +114,7 @@ class ParallelWrapper:
         self.stats = shard_mod.ReduceStats()
         self._check_model()
         self._broadcast_from_rank0()
+        self._place_params()
 
     def _check_model(self) -> None:
         model, mesh = self.model, self.mesh
@@ -115,8 +134,10 @@ class ParallelWrapper:
     def _broadcast_from_rank0(self) -> None:
         """Every rank takes rank 0's params (in place), running state,
         updater slots, iteration and epoch, and the state of its dropout
-        generator where it is a `Draws`."""
+        generator where it is a `Draws`. A network sharded by an earlier
+        wrapper is made whole first."""
         model = self.model
+        _unshard(model)
         counters = torch.tensor([model.iteration, model.epoch],
                                 dtype=torch.int64, device=model.device)
         tensors = (_leaves(model.params) + _leaves(model.state)
@@ -127,11 +148,37 @@ class ParallelWrapper:
             gen_state = gen.get_state().to(model.device)
             tensors.append(gen_state)
         with torch.no_grad():
-            shard_mod.broadcast(tensors, dist.get_global_rank(
-                self.mesh.group, 0), self.mesh.group)
+            shard_mod.broadcast(tensors, 0, self.mesh.group)
         model.iteration, model.epoch = (int(v) for v in counters.tolist())
         if gen is not None:
             gen.set_state(gen_state.cpu())
+
+    def _place_params(self) -> None:
+        """Params placed by the layers' tensor-parallel specs composed with
+        the fsdp axis (`parallel.layout.fsdp_param_specs`): each rank keeps
+        its slices, the updater slots that mirror a layer's params keep
+        the same slices, scalars (Adam's t) and running state stay whole.
+        Where nothing splits (data axis only, or no layer that splits) the
+        network is left as it is."""
+        from deeplearning4j_tpu_torch.parallel import layout as layout_mod
+
+        model, mesh = self.model, self.mesh
+        if mesh.model.size == 1 and mesh.fsdp.size == 1:
+            return
+        specs = layout_mod.fsdp_param_specs(mesh, model)
+        if not any(pl.axes for tree in specs.values()
+                   for pl in tree.values()):
+            return
+        layout_mod.FsdpArrangement(mesh, specs).place(model)
+
+    def collective_stats(self) -> dict:
+        """Collectives launched and bytes moved so far: the data axis's
+        gradient reduce, and the model, fsdp and shard groups'."""
+        out = {"data": self.stats}
+        for name in ("model", "fsdp", "shard"):
+            out[name] = self.mesh.axis(name).stats
+        return {k: {"collectives": v.collectives, "bytes": v.bytes}
+                for k, v in out.items()}
 
     def fit(self, iterator, epochs: int = 1, **attachments):
         """`epochs` passes over `iterator` (a DataSetIterator, or a DataSet
@@ -151,6 +198,9 @@ class ParallelWrapper:
 
         model = self.model
         run = TrainingRun(model, epochs=epochs, **attachments)
+        if model._shard_layout is None:
+            # whole again after sync_to_host (a no-op where nothing splits)
+            self._place_params()
         if not isinstance(model, ComputationGraph):
             model._warn_sgd_fallback()
         batches = iterator
@@ -179,15 +229,14 @@ class ParallelWrapper:
     def _local(self, ds: DataSet):
         """(this rank's rows of `ds` padded to a multiple of the ranks,
         the batch's BatchShard)."""
-        b, n = ds.num_examples(), self.mesh.size
+        data = self.mesh.data
+        b, n = ds.num_examples(), data.size
         if b % n:
             ds = pad_batch(ds, n - b % n)
-        m = self.mesh
-        shard = shard_mod.BatchShard(m.group, m.rank, n, ds.num_examples(),
-                                     b, self.stats)
-        local = DataSet(*(None if a is None else a[shard.lo:shard.hi]
-                          for a in (ds.features, ds.labels,
-                                    ds.features_mask, ds.labels_mask)))
+        shard = shard_mod.BatchShard(data.group, data.rank, n,
+                                     ds.num_examples(), b, self.stats)
+        local = DataSet(*mesh_mod.shard_batch_tree(self.mesh, [
+            ds.features, ds.labels, ds.features_mask, ds.labels_mask]))
         return local, shard
 
     def _tbptt(self, ds) -> bool:
@@ -254,8 +303,11 @@ class ParallelWrapper:
                 f"over the ranks): every rank must iterate the same data")
 
     def sync_to_host(self):
-        """The wrapped network, once the device has finished its work
-        (every rank already holds the params)."""
+        """The wrapped network with whole params and updater slots on every
+        rank (gathered from the ranks' slices, collectively), no longer
+        sharded, once the device has finished its work. A later `fit`
+        places them again."""
+        _unshard(self.model)
         if self.model.device.type == "cuda":
             torch.cuda.synchronize(self.model.device)
         return self.model
@@ -268,6 +320,53 @@ class ParallelWrapper:
 
     def stop_fit(self):
         pass
+
+
+def _refuse(spec: mesh_mod.MeshSpec, tbptt: bool) -> None:
+    """The JAX wrapper's refusals of axis compositions (ValueError), ahead
+    of the axes the port does not run yet (NotImplementedError, from
+    `mesh.check_spec`)."""
+    sizes = spec.axis_sizes()
+    sp, pp = sizes["seq"] > 1, sizes["pipe"] > 1
+    if sizes["fsdp"] > 1 and (sp or pp or tbptt):
+        raise ValueError(
+            "fsdp composes with data/model axes only: the seq/pipe paths "
+            "pin params replicated and tbptt threads host carries through "
+            "per-chunk steps, so an fsdp-sharded param tree would be "
+            "gathered per chunk instead of per layer; use "
+            "MeshSpec(data=..., fsdp=..., model=...)")
+    if tbptt and (sp or pp):
+        raise ValueError(
+            "truncated BPTT threads RNN carries chunk-by-chunk through "
+            "time, which cannot compose with a sharded sequence axis or "
+            "pipeline stages; train tbptt nets under data/tensor meshes")
+    if pp and sp:
+        raise ValueError(
+            "pipe x seq factorization is not supported by ParallelWrapper; "
+            "use parallel.transformer.ShardedTransformerLM for pp x sp")
+    if pp and sizes["model"] > 1:
+        raise ValueError(
+            "pipe x model factorization is not supported by "
+            "ParallelWrapper; use parallel.transformer.ShardedTransformerLM "
+            "for pp x tp")
+    mesh_mod.check_spec(spec)
+
+
+def _unshard(model) -> None:
+    """Whole params and updater slots in place of a sharded network's
+    slices (collective over its axes); the arrangement dropped."""
+    if model._shard_layout is None:
+        return
+    keys = list(model.params)
+    with torch.no_grad():
+        model.params = {k: tr.whole_params(model, k) for k in keys}
+        if isinstance(model.opt_state, dict):
+            model.opt_state = {k: tr.whole_slots(model, k, v)
+                               for k, v in model.opt_state.items()}
+        else:
+            model.opt_state = [tr.whole_slots(model, k, v)
+                               for k, v in zip(keys, model.opt_state)]
+    model._shard_layout = None
 
 
 def pad_batch(ds: DataSet, pad: int) -> DataSet:

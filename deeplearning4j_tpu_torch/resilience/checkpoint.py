@@ -328,17 +328,23 @@ class CheckpointManager:
     def restore_into(self, model, load_updater: bool = True):
         """Resume `model` in place from the newest valid checkpoint, on the
         model's device: params, state, updater slots, iteration/epoch
-        counters and the dropout generator's state. Returns the manifest,
-        or None when the directory holds nothing restorable (model
-        untouched)."""
+        counters and the dropout generator's state (a network sharded by
+        ParallelWrapper keeps its slices of the whole params). Returns the
+        manifest, or None when the directory holds nothing restorable
+        (model untouched)."""
         saved, manifest = self.restore_latest(load_updater=load_updater,
                                               device=model.device)
         if saved is None:
             return None
         model.params = saved.params
         model.state = saved.state
-        if load_updater and saved.opt_state is not None:
+        slots = load_updater and saved.opt_state is not None
+        if slots:
             model.opt_state = saved.opt_state
+        if model._shard_layout is not None:
+            # whole params restored into a sharded network (any grid
+            # factorization): this rank keeps its slices
+            model._shard_layout.place(model, slots=slots)
         model.iteration = int(manifest.get("iteration", saved.iteration))
         model.epoch = int(manifest.get("epoch", saved.epoch))
         _restore_generator(model, manifest)

@@ -49,9 +49,18 @@ does not hand the buffers out again while the step still reads them.
   - a `cleanup` the facade passes (the prefetch producer it started is
     shut down whatever happens).
 
+**Sharded carries.** Under ParallelWrapper's fsdp or model axis a
+network's params live sharded at rest (`parallel.layout.FsdpArrangement`)
+through a window's K steps: each step gathers on use and updates the
+slices in place. `scan_carry_specs(model)` gives the placement a window
+takes its params in (the sharded-at-rest specs) and the one the update
+leaves them in (`extend(drop_fsdp(spec))` over the whole shape), per key;
+the two agree for every layout `parallel.layout` makes, which is what
+lets the K steps run on the slices.
+
 The JAX engine's telemetry spans, step histograms, health beats, tuner
 signals and flight records, `run_partition` and `master_session` are not
-ported (ROADMAP A.11); nor is `scan_carry_specs` (the fsdp layout, A.9).
+ported (ROADMAP A.11).
 """
 from __future__ import annotations
 
@@ -73,6 +82,40 @@ def window_size(default: int = 1) -> int:
     """Steps rolled into one window (`DL4J_TPU_STEP_WINDOW`): 1 (the
     default, unset or unparsable) is the per-step loop."""
     return max(1, envflags.int_value(_WINDOW_GATE, default))
+
+
+def scan_carry_specs(model):
+    """(in_specs, out_specs) of a window's param carry, {key: {path: spec
+    tuple}}, or None when the model carries no sharded layout: the
+    sharded-at-rest specs a window starts from, and where the layout
+    would place the updated params, `extend(drop_fsdp(spec))` over each
+    param's whole interchange shape."""
+    from deeplearning4j_tpu_torch.parallel import layout as layout_mod
+
+    arr = model._shard_layout
+    params = model.params
+    if arr is None or not params:
+        return None
+    layout = arr.layout
+    sizes = arr.mesh.shape
+    fsdp_size = sizes.get(layout.fsdp_axis, 1)
+    in_specs, out_specs = {}, {}
+    for key, spec_tree in arr.specs.items():
+        if key not in params:
+            continue
+        in_specs[key] = spec_tree
+        out_specs[key] = {}
+        for path, spec in spec_tree.items():
+            pl = arr.placement(key, path)
+            t = layout_mod.mesh_mod.leaf_at(params[key], path)
+            shape = []
+            for i in range(t.dim()):
+                d = i if pl.dims is None else pl.dims[i]
+                axis = spec[i] if i < len(spec) else None
+                shape.append(t.shape[d] * (sizes[axis] if axis else 1))
+            out_specs[key][path] = layout.extend(
+                layout.drop_fsdp(spec), tuple(shape), fsdp_size)
+    return in_specs, out_specs
 
 
 def place_batch(ds, put: Callable):

@@ -1749,3 +1749,216 @@ def test_nan_checks_around_the_cross_entropy_kernels(cuda):
         x[2, 5] = np.nan
         with pytest.raises(FloatingPointError):
             net.output(x)
+
+
+# ---------------------------------------------- the model and fsdp axes
+def _spawn_worker_ranks(tmp_path, world, cases):
+    """`world` ranks of tests/torch_dp_worker.py on the card (gloo with
+    CUDA tensors: NCCL refuses two ranks on one device) running `cases`
+    ({name: spec}) in one process group; each rank's results per case."""
+    import json
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "torch_dp_worker.py")
+    procs = []
+    for r in range(world):
+        spec = {"rank": r, "world": world, "init": f"file://{tmp_path}/rdv",
+                "cases": [dict(c, device="cuda",
+                               out=str(tmp_path / f"{n}_rank{r}.npz"))
+                          for n, c in cases.items()]}
+        path = tmp_path / f"spec{r}.json"
+        path.write_text(json.dumps(spec))
+        procs.append(subprocess.Popen([sys.executable, worker, str(path)],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT))
+    try:
+        logs = [p.communicate(timeout=600)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [f"rank {r}:\n{log[-3000:]}"
+              for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
+    assert not failed, "\n".join(failed)
+    return {n: [dict(np.load(tmp_path / f"{n}_rank{r}.npz"))
+                for r in range(world)] for n in cases}
+
+
+@pytest.mark.cuda
+def test_gloo_collectives_and_model_axis_functions_on_the_card(cuda,
+                                                               tmp_path):
+    """Two ranks on the one card over gloo: all_gather and all_reduce of
+    CUDA tensors, and the gradients through Megatron's f (copy: the
+    cotangent summed over the ranks), g (reduce: the sum forward, the
+    cotangent as it is) and the gather (this rank's slice of the
+    cotangent), exactly, each against what one process computes."""
+    import numpy as np
+
+    ranks = _spawn_worker_ranks(tmp_path, 2, {"probe": {"probe": True}})[
+        "probe"]
+    w = np.arange(8, dtype=np.float32) + 1
+    for r, res in enumerate(ranks):
+        assert str(res["device"]).startswith("cuda")
+        np.testing.assert_array_equal(
+            res["all_gather"], np.concatenate([np.arange(4),
+                                               np.arange(4) + 10]))
+        np.testing.assert_array_equal(res["all_reduce"],
+                                      2 * np.arange(4) + 10)
+        np.testing.assert_array_equal(res["copy/grad"], 3 * w)
+        np.testing.assert_array_equal(res["reduce/y"], 3 * np.arange(8))
+        np.testing.assert_array_equal(res["reduce/grad"], (r + 1) * w)
+        np.testing.assert_array_equal(res["gather/y"],
+                                      np.arange(8) * np.repeat([1, 2], 4))
+        np.testing.assert_array_equal(res["gather/grad"],
+                                      (r + 1) * w[4 * r:4 * r + 4])
+
+
+@pytest.mark.cuda
+def test_model_axis_on_the_card_matches_one_process(cuda, tmp_path):
+    """Two ranks at MeshSpec(model=2) on the card (gloo), TF32 off, 3
+    steps of a Dense MLP, a small TransformerLM (2 of its 4 heads per
+    rank through the flash rows, the Output gathered for rows 9 and 10)
+    and an LSTM (W, R, b gathered for rows 5 and 6), against fit in this
+    process on the card: scores 1e-5 relative, params 1e-5 absolute; the
+    ranks bit-identical; each rank launches what one process launches."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn import updaters
+    from deeplearning4j_tpu_torch.nn.conf import (
+        MultiLayerConfiguration,
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        LSTM,
+        Dense,
+        Output,
+        RnnOutput,
+    )
+    from torch_dp_worker import launch_counts
+
+    rng = np.random.default_rng(3)
+    confs = {
+        "mlp": NeuralNetConfiguration(
+            seed=11, updater=updaters.Adam(learning_rate=5e-3)).list([
+                Dense(n_out=32, activation="relu"),
+                Output(n_out=4, loss="mcxent")]).set_input_type(
+            it.feed_forward(8)),
+        "lm": TransformerLM(num_classes=64, max_length=32, d_model=64,
+                            n_heads=4, n_layers=2, seed=5).conf(),
+        "lstm": NeuralNetConfiguration(
+            seed=5, updater=updaters.Adam(learning_rate=5e-3)).list([
+                LSTM(n_out=32, activation="tanh"),
+                RnnOutput(n_out=12, loss="mcxent")]).set_input_type(
+            it.recurrent(12, 10)),
+    }
+    data = {
+        "mlp": (rng.standard_normal((8, 8)).astype(np.float32),
+                np.eye(4, dtype=np.float32)[rng.integers(0, 4, 8)]),
+        "lm": (rng.integers(0, 64, (4, 32)).astype(np.float32),
+               np.eye(64, dtype=np.float32)[rng.integers(0, 64, (4, 32))]),
+        "lstm": (rng.standard_normal((8, 10, 12)).astype(np.float32),
+                 np.eye(12, dtype=np.float32)[rng.integers(0, 12,
+                                                           (8, 10))]),
+    }
+    cases = {}
+    for name, conf in confs.items():
+        path = str(tmp_path / f"{name}.npz")
+        np.savez(path, x=data[name][0], y=data[name][1])
+        cases[name] = dict(kind="mln", conf=conf.to_json(), data=path,
+                           batch=data[name][0].shape[0], epochs=3,
+                           mesh={"model": 2}, full_precision=True)
+    ranks = _spawn_worker_ranks(tmp_path, 2, cases)
+    for name, conf in confs.items():
+        net = MultiLayerNetwork(MultiLayerConfiguration.from_json(
+            conf.to_json())).init(cuda)
+        before = launch_counts()
+        scores = []
+        with dtypes.full_precision():
+            for _ in range(3):
+                net.fit(DataSet(*data[name]))
+                scores.append(net.score_)
+        launches = {k: v - before[k] for k, v in launch_counts().items()}
+        r0, r1 = ranks[name]
+        for k in r0:
+            if k.startswith(("param/", "slot/", "scores")):
+                np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
+        np.testing.assert_allclose(r0["scores"], scores, rtol=1e-5)
+        for k, v in net.get_param_table().items():
+            np.testing.assert_allclose(r0[f"param/{k}"], v, atol=1e-5,
+                                       err_msg=f"{name} {k}")
+        assert {k[len("launches/"):]: int(v) for k, v in r0.items()
+                if k.startswith("launches/")} == launches, name
+        assert launches["linear_xent_fwd"] == 3
+    assert any(int(v) < ranks["lm"][0][f"param/{k[len('local/param/'):]}"]
+               .size for k, v in ranks["lm"][0].items()
+               if k.startswith("local/param/"))
+
+
+@pytest.mark.cuda
+def test_remat_under_the_data_axis_on_the_card_matches_no_remat(cuda,
+                                                                 tmp_path):
+    """Two ranks at MeshSpec(data=2) on the card (gloo), TF32 off, 3 steps
+    of an MLP with BatchNorm (global statistics through all_sum_grad),
+    scheduled dropout (each rank's rows of the whole-batch mask, p moving
+    with the iteration) and scheduled DropConnect, every layer at remat
+    'full' and 'dots_saveable' against 'none'. On the card the backward,
+    and so the recompute, runs on autograd's device thread: it must take
+    the step's batch shard and iteration. Scores, params and running
+    state 1e-6."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nn import dropout as tdrop
+    from deeplearning4j_tpu_torch.nn import schedules as tsched
+    from deeplearning4j_tpu_torch.nn import updaters
+    from deeplearning4j_tpu_torch.nn import weightnoise as twn
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import BatchNorm, Dense, Output
+
+    conf = NeuralNetConfiguration(
+        seed=9, updater=updaters.Adam(learning_rate=5e-3)).list([
+            Dense(n_out=64, activation="identity",
+                  dropout=tdrop.Dropout(
+                      p=0.8, p_schedule=tsched.MapSchedule({1: 0.6})),
+                  weight_noise=twn.DropConnect(
+                      p=0.9, p_schedule=tsched.ExponentialSchedule(0.9))),
+            BatchNorm(activation="relu"),
+            Dense(n_out=32, activation="tanh", dropout=0.7),
+            Output(n_out=8, loss="mcxent")]).set_input_type(
+        it.feed_forward(16))
+    rng = np.random.default_rng(4)
+    data = str(tmp_path / "mlp.npz")
+    np.savez(data, x=rng.standard_normal((32, 16)).astype(np.float32),
+             y=np.eye(8, dtype=np.float32)[rng.integers(0, 8, 32)])
+    case = dict(kind="mln", conf=conf.to_json(), data=data, batch=32,
+                epochs=3, mesh={"data": 2}, full_precision=True)
+    ranks = _spawn_worker_ranks(tmp_path, 2, {
+        pol: dict(case, remat=pol) for pol in ("none", "full",
+                                               "dots_saveable")})
+    plain = ranks["none"][0]
+    assert np.isfinite(plain["scores"]).all()
+    for pol in ("full", "dots_saveable"):
+        for r, got in enumerate(ranks[pol]):
+            np.testing.assert_allclose(got["scores"], plain["scores"],
+                                       rtol=1e-6, err_msg=f"{pol} {r}")
+            for k in plain:
+                if k.startswith(("param/", "state/")):
+                    np.testing.assert_allclose(got[k], plain[k], atol=1e-6,
+                                               err_msg=f"{pol} {r} {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 4, 512, 64), (4, 2, 32, 16)])
+def test_flash_rows_on_half_the_heads_match_plain_version(cuda, shape,
+                                                          dtype):
+    """Rows 2-4 at the local shapes of a model-split attention (n_heads /
+    2 heads per rank: the full-width TransformerLM's 4 of 8, and the card
+    test's 2 of 4), causal, against their plain versions."""
+    _flash_check(cuda, shape, True, dtype, True)
+    _flash_bwd_check(cuda, shape, True, dtype)

@@ -556,11 +556,13 @@ def test_vgg16_step_with_replayed_dropout_keys(tmp_path):
 
 
 def test_refusals(tmp_path):
-    """Other mesh axes raise for ROADMAP A.9 (here, before any group
-    exists); in a group of 2, a data axis of 3 and a model axis raise, and
-    ranks that iterate different data raise on every rank."""
-    for spec in (MeshSpec(model=2), MeshSpec(data=2, seq=2),
-                 MeshSpec(pipe=2), MeshSpec(fsdp=2)):
+    """The axes still queued raise for ROADMAP A.9's rest (here, before
+    any group exists; the model and fsdp axes run,
+    tests/test_torch_tensor_parallel.py); in a group of 2, a data axis of
+    3 and a seq axis raise, and ranks that iterate different data raise
+    on every rank."""
+    for spec in (MeshSpec(dcn=2), MeshSpec(data=2, seq=2),
+                 MeshSpec(pipe=2), MeshSpec(expert=2)):
         with pytest.raises(NotImplementedError, match="A.9"):
             build_mesh(spec)
     with pytest.raises(ValueError, match="rendezvous"):

@@ -18,8 +18,30 @@ Variants, for the tests that must see a fault: "per_rank_bn" takes
 BatchNorm's statistics over the rank's rows only (what a wrapper without
 the global reduce would do); "refusals" checks the wrapper's refusals and
 feeds rank 1 a batch that differs from rank 0's.
+
+On the card (tests/test_torch_cuda.py): "device" "cuda" builds the
+networks there and joins gloo with CUDA tensors, "full_precision" turns
+TF32 off, each case's results add its kernel launches ("launches/..."),
+and a "probe" case checks the collectives and the model axis's autograd
+Functions on the device instead of fitting.
+
+The model and fsdp axes (tests/test_torch_tensor_parallel.py): "mesh"
+names the MeshSpec's axes (default: every rank on the data axis),
+"remat" sets every layer's remat policy, "window" sets
+DL4J_TPU_STEP_WINDOW for the case, "resume" fits in two parts through a
+CheckpointManager under the given directory, one per rank (the second
+part a new network and wrapper restored from it, on "resume_mesh" where
+given), beside an unbroken run; "sync" adds the params after
+`sync_to_host` ("synced/...") and whether every rank then holds them
+whole, then fits one epoch more ("refit_sliced", "refit_score"); "table" (.npz of a whole param table) is loaded by
+`set_param_table` into the wrapped network before it fits. Each rank also
+writes how many elements of each param and updater slot it holds at rest
+("local/...") and the collectives of every axis ("coll/<axis>"). A spec
+with "cases" runs several such specs in one process group, one after
+another.
 """
 import collections
+import contextlib
 import json
 import os
 import sys
@@ -31,7 +53,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from deeplearning4j_tpu_torch import interop  # noqa: E402
+from deeplearning4j_tpu_torch import dtypes, interop  # noqa: E402
 from deeplearning4j_tpu_torch.datasets import (  # noqa: E402
     DataSet,
     ListDataSetIterator,
@@ -131,14 +153,21 @@ def unflatten(flat):
 
 def build(spec):
     """The port network of the spec on the CPU, with the given weights,
-    running state and draws."""
+    running state and draws (a "keras" spec imports its .h5 instead)."""
+    if spec.get("keras"):
+        from deeplearning4j_tpu_torch.modelimport import (
+            import_keras_sequential_model_and_weights,
+        )
+
+        return import_keras_sequential_model_and_weights(
+            spec["keras"], device=spec.get("device", "cpu"))
     if spec["kind"] == "cg":
         net = ComputationGraph(ComputationGraphConfiguration.from_json(
             spec["conf"]))
     else:
         net = MultiLayerNetwork(MultiLayerConfiguration.from_json(
             spec["conf"]))
-    net.init(device="cpu")
+    net.init(device=spec.get("device", "cpu"))
     if spec.get("weights"):
         z = np.load(spec["weights"])
         params = unflatten({k[len("param/"):]: z[k] for k in z.files
@@ -187,7 +216,7 @@ def results(net, scores, stats=None):
                 out[f"slot/{key}/{slot}/{path}"] = np.asarray(leaf)
     for key, st in net.state.items():
         for name, t in st.items():
-            out[f"state/{key}/{name}"] = t.detach().numpy()
+            out[f"state/{key}/{name}"] = t.detach().cpu().numpy()
     out.update(scores=np.asarray(scores, np.float64),
                iteration=net.iteration, epoch=net.epoch,
                last_batch_size=net.last_batch_size)
@@ -202,7 +231,7 @@ def refusals(spec, net):
     seen = {}
     for name, ms, exc in (("world", MeshSpec(data=spec["world"] + 1),
                            ValueError),
-                          ("axis", MeshSpec(data=spec["world"], model=2),
+                          ("axis", MeshSpec(data=spec["world"], seq=2),
                            NotImplementedError)):
         try:
             ParallelWrapper(net, mesh_spec=ms)
@@ -220,33 +249,168 @@ def refusals(spec, net):
     return seen
 
 
+def at_rest(net):
+    """Elements of each param and updater slot this rank holds."""
+    out = {}
+    for key, p in net.params.items():
+        for path, t in flat_items(p):
+            out[f"local/param/{key}/{path}"] = t.numel()
+    entries = (net.opt_state.items() if isinstance(net.opt_state, dict)
+               else zip(net.params, net.opt_state))
+    for key, entry in entries:
+        for slot, tree in (entry if isinstance(entry, dict) else {}).items():
+            leaves = (flat_items(tree) if isinstance(tree, dict)
+                      else [("", tree)])
+            for path, t in leaves:
+                out[f"local/slot/{key}/{slot}/{path}"] = t.numel()
+    return out
+
+
+def fit_case(spec):
+    """One case: its network fitted through the wrapper on its mesh;
+    returns the .npz entries."""
+    net = build(spec)
+    if spec.get("remat"):
+        layers = (net.layers if hasattr(net, "layers") else
+                  [net.layer(n) for n in net.topo if net.layer(n)])
+        for layer in layers:
+            layer.remat = spec["remat"]
+    mesh = MeshSpec(**spec.get("mesh", {"data": spec["world"]}))
+
+    def fit(net, epochs, mesh=mesh, **att):
+        log = Scores()
+        net.set_listeners(log)
+        pw = ParallelWrapper(net, mesh_spec=mesh)
+        if spec.get("table"):
+            net.set_param_table(dict(np.load(spec["table"])))
+        pw.fit(ListDataSetIterator(dataset(spec), batch=spec["batch"],
+                                   shuffle_each_epoch=spec.get("shuffle",
+                                                               False)),
+               epochs=epochs, **att)
+        return log, pw
+
+    old = os.environ.get("DL4J_TPU_STEP_WINDOW")
+    if spec.get("window"):
+        os.environ["DL4J_TPU_STEP_WINDOW"] = str(spec["window"])
+    precision = (dtypes.full_precision() if spec.get("full_precision")
+                 else contextlib.nullcontext())
+    before = launch_counts()
+    try:
+        precision.__enter__()
+        extra = {}
+        if spec.get("resume"):
+            from deeplearning4j_tpu_torch.resilience import CheckpointManager
+
+            # every rank saves to a manager of its own
+            own = os.path.join(spec["resume"], f"rank{spec['rank']}")
+            fit(net, spec["epochs"] // 2,
+                checkpoint_manager=CheckpointManager(own))
+            net = build(spec)
+            log, pw = fit(net, spec["epochs"], mesh=MeshSpec(
+                **spec.get("resume_mesh", spec.get("mesh"))),
+                checkpoint_manager=CheckpointManager(own))
+            control = build(spec)
+            clog, _ = fit(control, spec["epochs"])
+            extra = {f"control/{k}": v for k, v in results(
+                control, clog.scores).items()}
+        else:
+            log, pw = fit(net, spec["epochs"])
+    finally:
+        precision.__exit__(None, None, None)
+        if old is None:
+            os.environ.pop("DL4J_TPU_STEP_WINDOW", None)
+        else:
+            os.environ["DL4J_TPU_STEP_WINDOW"] = old
+    if spec.get("tape") and net.draws.tape:
+        raise AssertionError(f"{len(net.draws.tape)} recorded draws "
+                             f"left over")
+    out = dict(at_rest(net), windows=log.windows, **extra)
+    out.update({f"launches/{k}": v - before[k]
+                for k, v in launch_counts().items()})
+    for axis, st in pw.collective_stats().items():
+        out[f"coll/{axis}"] = st["collectives"]
+    out.update(results(net, log.scores, pw.stats))
+    if spec.get("sync"):
+        pw.sync_to_host()
+        whole = at_rest(net)
+        out["synced_whole"] = all(
+            whole[k] == out[f"param/{k[len('local/param/'):]}"].size
+            for k in whole if k.startswith("local/param/"))
+        out.update({f"synced/{k}": v
+                    for k, v in net.get_param_table().items()})
+        # one epoch more: the wrapper places the whole params again
+        pw.fit(ListDataSetIterator(dataset(spec), batch=spec["batch"]))
+        again = at_rest(net)
+        out["refit_sliced"] = any(
+            again[k] < out[f"param/{k[len('local/param/'):]}"].size
+            for k in again if k.startswith("local/param/"))
+        out["refit_score"] = net.score_
+    return out
+
+
+def launch_counts():
+    """The kernels' launch counters (they count on CUDA tensors only)."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+    from deeplearning4j_tpu_torch.ops import xent_kernel as xk
+
+    return {"flash_attention": fa.flash_attention.launches,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
+            "lstm_scan": lstm_ops.lstm_scan.launches,
+            "lstm_scan_bwd": lstm_ops.lstm_scan_bwd.launches,
+            "linear_xent_fwd": xk.linear_xent_fwd.launches}
+
+
+def probe(spec):
+    """The collectives and the model axis's Functions on the device: an
+    all-gather and an all-reduce of each rank's tensor, and the gradients
+    through AxisGroup.copy (f), reduce (g) and gather, for this rank's
+    slice of x = arange(8) scaled by rank + 1."""
+    from deeplearning4j_tpu_torch.parallel import MeshSpec, build_mesh
+
+    grid = build_mesh(MeshSpec(model=spec["world"]))
+    axis, r = grid.model, grid.rank
+    dev = torch.device(spec.get("device", "cpu"))
+    t = torch.arange(4, dtype=torch.float32, device=dev) + 10 * r
+    out = {"all_gather": axis.all_gather(t, 0).cpu().numpy(),
+           "all_reduce": axis.all_sum(t).cpu().numpy()}
+    w = torch.arange(8, dtype=torch.float32, device=dev) + 1
+    for name, fn in (("copy", lambda x: axis.copy(x) * (r + 1)),
+                     ("reduce", lambda x: axis.reduce(x * (r + 1))),
+                     ("gather", lambda x: axis.gather(x * (r + 1), 0))):
+        x = (torch.arange(8, dtype=torch.float32, device=dev)
+             if name != "gather" else axis.slice(
+                 torch.arange(8, dtype=torch.float32, device=dev), 0))
+        x.requires_grad_(True)
+        y = fn(x)
+        ww = w if y.shape[0] == 8 else axis.slice(w, 0)
+        (y * ww).sum().backward()
+        out[f"{name}/y"] = y.detach().cpu().numpy()
+        out[f"{name}/grad"] = x.grad.cpu().numpy()
+    out["device"] = str(t.device)
+    return out
+
+
 def main(spec_path):
     with open(spec_path) as f:
         spec = json.load(f)
     torch.set_num_threads(spec.get("threads", 2))
     init_process_group(spec["init"], spec["rank"], spec["world"],
-                       backend="gloo", device="cpu")
+                       backend="gloo", device=spec.get("device", "cpu"))
     try:
-        net = build(spec)
-        if spec.get("refusals"):
-            with open(spec["out"], "w") as f:
-                json.dump(refusals(spec, net), f)
-            return
-        if spec.get("per_rank_bn"):
-            normalization.shard_mod = types.SimpleNamespace(
-                current=lambda: None)
-        log = Scores()
-        net.set_listeners(log)
-        pw = ParallelWrapper(net, mesh_spec=MeshSpec(data=spec["world"]))
-        pw.fit(ListDataSetIterator(dataset(spec), batch=spec["batch"],
-                                   shuffle_each_epoch=spec.get("shuffle",
-                                                               False)),
-               epochs=spec["epochs"])
-        if spec.get("tape") and net.draws.tape:
-            raise AssertionError(f"{len(net.draws.tape)} recorded draws "
-                                 f"left over")
-        np.savez(spec["out"], windows=log.windows,
-                 **results(net, log.scores, pw.stats))
+        for case in spec.get("cases", [spec]):
+            case = dict(case, rank=spec["rank"], world=spec["world"])
+            if case.get("refusals"):
+                with open(case["out"], "w") as f:
+                    json.dump(refusals(case, build(case)), f)
+                continue
+            if case.get("probe"):
+                np.savez(case["out"], **probe(case))
+                continue
+            if case.get("per_rank_bn"):
+                normalization.shard_mod = types.SimpleNamespace(
+                    current=lambda: None)
+            np.savez(case["out"], **fit_case(case))
     finally:
         torch.distributed.destroy_process_group()
 
