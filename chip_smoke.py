@@ -532,6 +532,28 @@ Phases, in order; any failure exits non-zero without the final line:
               against 'none'.
  73. compress  EncodingHandler over a seeded 2.4M-entry gradient tree for
               4 rounds on the card against the CPU port (no kernel).
+ 74. kernel-ring  rows 2-4 at a ring hop's shape (2, 8, 1024, 64), causal
+              (the diagonal hop) and full (an earlier block), float32 and
+              bfloat16.
+ 75. ring-attention  seq = 4 on four gloo ranks of the one card at
+              (2, 8, 4096, 64) global, causal and full, float32 and
+              bfloat16: each rank's ring (`parallel.ring.ring_attention`)
+              against one process's rows 2-4 over the whole sequence,
+              output and dq, dk, dv; launches per call r + 1 (causal) and
+              4 (full); a skipped hop and dK/dV one rank off their owner
+              rejected; ms per call against one process's.
+ 76. sp-transformer, pp-transformer  the full-width TransformerLM through
+              ParallelWrapper on two gloo ranks at MeshSpec(seq=2) and at
+              MeshSpec(pipe=2) with microbatches=4: 5 mixed and 3 float32
+              steps each against this process's, step by step; launches
+              per rank (the ring's r + 1 hops per block, a stage's blocks
+              per microbatch, the Output on the last stage).
+ 77. sharded-lm  ShardedTransformerLM at the TransformerConfig defaults,
+              8 x 2048 tokens: one process (a one-rank grid) 5 float32
+              steps (ms, tokens/s, peak memory), four ranks at
+              data=2 x seq=2 and model=2 x seq=2 and the MoE config at
+              pipe=2 x expert=2, 3 steps each against one process; the
+              grid's checkpoint restored here, logits compared.
 
 The characters the training phases learn are drawn with Zipf frequencies,
 so that a falling loss shows learning; their shapes are bench.py
@@ -541,8 +563,9 @@ Every kernel's launch count is set to 0 just before each serve phase, the
 generation run, each training run (the data-parallel ones too), the
 restore-and-resume runs, each evaluation pass and each solver, window,
 sentry and records run, each serving or training run of A.8's paths,
-each pretraining and fine-tuning run, and each training run of A.3's rest
-and A.9 (in the ranks' processes too), and read just after. The
+each pretraining and fine-tuning run, each training run of A.3's rest
+and A.9 and each ring call (in the ranks' processes too), and read just
+after. The
 last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 Exits non-zero when no CUDA device is available, and when the port's
@@ -551,6 +574,8 @@ package is not beside this script.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 import json
 import math
 import os
@@ -7290,8 +7315,9 @@ def a9_rank_main(case: str, rank: int, world: int, tmp: str) -> int:
     init_process_group(f"file://{tmp}/rdv_{case}", rank, world,
                        backend="gloo", device=card_device(torch))
     try:
-        out = {"tp": tp_rank, "fsdp": fsdp_rank,
-               "refer": refer_a9_rank}[case](torch, np)
+        out = {"tp": tp_rank, "fsdp": fsdp_rank, "refer": refer_a9_rank,
+               "ring": ring_rank, "sppp": sppp_rank,
+               "lm4": functools.partial(lm4_rank, tmp=tmp)}[case](torch, np)
         np.savez(os.path.join(tmp, f"{case}_rank{rank}.npz"), **out)
     finally:
         torch.distributed.destroy_process_group()
@@ -7847,6 +7873,538 @@ def phase_compress(torch, np, card):
         raise AssertionError(f"compress: card and CPU differ by {worst}")
 
 
+# ring-attention: seq = 4 on four gloo ranks of the one card, the global
+# (b, h, t, d) below split 1024 tokens a rank; each rank's ring against one
+# process's rows 2-4 over the whole sequence on the same inputs, forward and
+# dq, dk, dv, causal and not, float32 and bfloat16, at the flash phases'
+# tolerances (x max|plain| of each output)
+RING = dict(b=2, h=8, t=4096, d=64, world=4)
+RING_REPS = 3              # timed ring calls after one warm-up
+# sp-transformer and pp-transformer: the full-width TransformerLM through
+# ParallelWrapper on two gloo ranks of the one card, MeshSpec(seq=2) and
+# MeshSpec(pipe=2) with microbatches=4: 5 mixed steps, then 3 float32
+# steps (TF32 off) from a fresh network, each against this process's
+SPPP = dict(steps=5, f32_steps=3, microbatches=4)
+# ranks against one process, each score relative: the mixed steps round
+# activations to bfloat16 (the ring merges each hop's bfloat16 o), the
+# float32 steps sum in another order (ring merges, microbatch sums, the
+# gradient reduce)
+# (measured 1.2e-05 mixed and 1.12e-07 float32 on an NVIDIA H100 80GB
+# HBM3, 700 W)
+SPPP_TOL = {"mixed": 1e-4, "float32": 1e-6}
+# sharded-lm: ShardedTransformerLM at the TransformerConfig defaults, batch
+# 8 x 2048 tokens; one process 5 float32 steps (TF32 off), four ranks at
+# data=2 x seq=2 and model=2 x seq=2 for 3 steps each against it, the MoE
+# config (4 experts) at pipe=2 x expert=2 against its own one-process run;
+# the data=2 x seq=2 ranks' checkpoint restored in this process, logits
+# on 4 x 256 tokens compared
+SLM = dict(batch=8, t=2048, steps=5, grid_steps=3, logits=(4, 256))
+# relative: losses against one process (float32 sums in another order:
+# ring merges, microbatch and gradient sums; measured 6.55e-07), the
+# restored logits x the grid's largest (measured 2.98e-06 absolute of
+# 2.53, 1.2e-06); on an NVIDIA H100 80GB HBM3, 700 W
+SLM_TOL = {"loss": 1e-5, "logits": 1e-5}
+# rows 2-4 at a ring hop's shape: ring-attention's (b 2, h 8, 1024 tokens
+# a rank, d 64), the diagonal hop causal, an earlier one full
+RING_FLASH_CASES = [(RING["b"], RING["h"], RING["t"] // RING["world"],
+                     RING["d"], True),
+                    (RING["b"], RING["h"], RING["t"] // RING["world"],
+                     RING["d"], False)]
+
+
+def ring_inputs(torch, dtype, seed):
+    """The ring phase's global q, k, v and dO on the card (the same on
+    every rank)."""
+    r = RING
+    gen = torch.Generator(device=card_device(torch)).manual_seed(seed)
+    return [torch.randn((r["b"], r["h"], r["t"], r["d"]), generator=gen,
+                        device=card_device(torch)).to(dtype)
+            for _ in range(4)]
+
+
+def ring_rank(torch, np):
+    """One rank of ring-attention: per (causal, dtype) the ring's output
+    and gradients against one process's rows 2-4 on the whole sequence,
+    its launches per call, two broken rings the comparison must reject (a
+    skipped hop; dK/dV left one rank off their owner), and ms per ring
+    call (forward, forward + backward)."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import MeshSpec, build_mesh
+    from deeplearning4j_tpu_torch.parallel import ring
+
+    grid = build_mesh(MeshSpec(seq=RING["world"]))
+    seq, n = grid.seq, RING["world"]
+    t_loc = RING["t"] // n
+    out = {}
+    for causal in (True, False):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{'causal' if causal else 'full'}_{str(dtype)[6:]}"
+            dname = str(dtype)[6:]
+            q, k, v, do = ring_inputs(torch, dtype, SEED + 31)
+            o_ref, lse = fa.flash_attention(q, k, v, causal,
+                                            return_lse=True)
+            ref = (o_ref,) + fa.flash_attention_bwd(q, k, v, o_ref, lse, do,
+                                                    causal)
+            leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+            torch.cuda.synchronize()
+            reset_counts()
+            o = ring.ring_attention(*leaves, grid, causal=causal)
+            o.backward(do)
+            torch.cuda.synchronize()
+            got = (o.detach(),) + tuple(a.grad for a in leaves)
+            counts = read_counts()
+            tols = (FLASH_TOL[dname],) + (FLASH_BWD_TOL[dname],) * 3
+            for name, a, r_, tol in zip(("o", "dq", "dk", "dv"), got, ref,
+                                        tols):
+                err = float((a.float() - r_.float()).abs().max())
+                out[f"{tag}/err/{name}"] = err
+                out[f"{tag}/lim/{name}"] = tol * float(
+                    r_.float().abs().max())
+            for name in ("flash_attention", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv"):
+                out[f"{tag}/launches/{name}"] = counts[name]
+            # broken rings: one hop skipped (every rank but a causal rank
+            # 0 drops its block src = rank - 1), and dk one block off
+            runs = ring._runs
+            ring._runs = lambda c, src, idx: runs(c, src, idx) and \
+                src != (idx - 1) % n
+            try:
+                with torch.no_grad():
+                    o_bad = ring.ring_attention(q, k, v, grid, causal=causal)
+            finally:
+                ring._runs = runs
+            out[f"{tag}/rejects/skipped_hop"] = bool(disagrees(
+                o_bad, ref[0], FLASH_TOL[dname]))
+            out[f"{tag}/rejects/dk_off_owner"] = bool(disagrees(
+                torch.roll(got[2], -t_loc, dims=2), ref[2],
+                FLASH_BWD_TOL[dname]))
+            # ms per call of the layer's function on this rank's blocks
+            lq, lk, lv, ldo = (a[:, :, seq.rank * t_loc:
+                                 (seq.rank + 1) * t_loc].contiguous()
+                               for a in (q, k, v, do))
+            for mode in ("fwd", "fwd_bwd"):
+                times = []
+                for rep in range(RING_REPS + 1):
+                    xs = [a.clone().requires_grad_(mode == "fwd_bwd")
+                          for a in (lq, lk, lv)]
+                    torch.distributed.barrier()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    o_l = ring.ring_attention_sharded(*xs, axis=seq,
+                                                      causal=causal)
+                    if mode == "fwd_bwd":
+                        o_l.backward(ldo)
+                    torch.cuda.synchronize()
+                    if rep:
+                        times.append(time.perf_counter() - t0)
+                out[f"{tag}/ms/{mode}"] = median(times) * 1e3
+            del q, k, v, do, ref, got, leaves
+    out["hops"] = seq.stats.collectives
+    return out
+
+
+def phase_ring_attention(torch, np, card, tmp):
+    """ring-attention (see RING): one process's forward and forward +
+    backward times at the global shape here, then the four ranks. Gates:
+    every rank's output and gradients within the flash phases'
+    tolerances, launches per call r + 1 (causal) and n (not), both broken
+    rings rejected on every rank. Returns (per-rank launches per call,
+    {tag: ms}) for the kernels line."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    single = {}
+    for causal in (True, False):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{'causal' if causal else 'full'}_{str(dtype)[6:]}"
+            q, k, v, do = ring_inputs(torch, dtype, SEED + 31)
+
+            def fwd(i, q=q, k=k, v=v, causal=causal):
+                fa.flash_attention(q, k, v, causal)
+
+            def fwd_bwd(i, q=q, k=k, v=v, do=do, causal=causal):
+                o, lse = fa.flash_attention(q, k, v, causal,
+                                            return_lse=True)
+                fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+
+            single[tag] = {"fwd": device_ms(torch, fwd, 1, 10),
+                           "fwd_bwd": device_ms(torch, fwd_bwd, 1, 10)}
+            del q, k, v, do
+    torch.cuda.empty_cache()
+    ranks = a9_wait("ring-attention", "ring", a9_spawn(
+        "ring", RING["world"], tmp), tmp)
+    n = RING["world"]
+    per_rank = {}
+    for r, res in enumerate(ranks):
+        for tag in single:
+            causal = tag.startswith("causal")
+            want = r + 1 if causal else n
+            got = {k.split("/")[-1]: int(v) for k, v in res.items()
+                   if k.startswith(f"{tag}/launches/")}
+            expect_launches(f"ring-attention rank {r} {tag}", got, {
+                k: want for k in got})
+            per_rank.setdefault(tag, []).append(got["flash_attention"])
+            for name in ("o", "dq", "dk", "dv"):
+                err = float(res[f"{tag}/err/{name}"])
+                lim = float(res[f"{tag}/lim/{name}"])
+                if not err <= lim:
+                    raise AssertionError(
+                        f"ring-attention rank {r} {tag}: {name} error "
+                        f"{err:.3g} over {lim:.3g}")
+            for what in ("skipped_hop", "dk_off_owner"):
+                if not bool(res[f"{tag}/rejects/{what}"]):
+                    raise AssertionError(
+                        f"ring-attention rank {r} {tag}: the comparison "
+                        f"does not reject a ring with a {what}")
+    r0 = ranks[0]
+    ms = {}
+    for tag in single:
+        worst = {name: max(float(res[f"{tag}/err/{name}"]) for res in ranks)
+                 for name in ("o", "dq", "dk", "dv")}
+        errs = ", ".join(f"{name} {err:.3g} (tol "
+                         f"{float(r0[f'{tag}/lim/{name}']):.3g})"
+                         for name, err in worst.items())
+        ms[tag] = {m: float(r0[f"{tag}/ms/{m}"]) for m in ("fwd", "fwd_bwd")}
+        log(f"[ring-attention] seq={n} on {n} gloo ranks of one card, "
+            f"global (b={RING['b']}, h={RING['h']}, t={RING['t']}, "
+            f"d={RING['d']}) {tag}: worst over ranks {errs}; rows 2-4 "
+            f"launches per ring call by rank {per_rank[tag]}; ms per ring "
+            f"call (rank 0, its {RING['t'] // n} tokens) forward "
+            f"{ms[tag]['fwd']:.3f}, forward + backward "
+            f"{ms[tag]['fwd_bwd']:.3f}; one process on the whole sequence "
+            f"forward {single[tag]['fwd']:.3f}, forward + backward "
+            f"{single[tag]['fwd_bwd']:.3f} ({card})")
+    log(f"[ring-attention] verdict: the ring agrees with one process's rows "
+        f"2-4 on every rank in 4/4 (causal, dtype) cases; a skipped hop and "
+        f"dK/dV one rank off their owner are rejected on every rank; "
+        f"{int(r0['hops'])} seq-axis messages on rank 0")
+    return per_rank, ms, single
+
+
+@contextlib.contextmanager
+def mixed_policy():
+    """The mixed-precision policy inside the block."""
+    from deeplearning4j_tpu_torch import dtypes
+
+    dtypes.set_mixed_precision(True)
+    try:
+        yield
+    finally:
+        dtypes.set_mixed_precision(False)
+
+
+def lm_rank_steps(torch, np, pw, data, precision, steps):
+    """`steps` wrapper steps under `precision` (a context): per step
+    (seconds, score), and the collectives and bytes per step."""
+    with precision():
+        return wrapper_steps(torch, pw, data, steps)
+
+
+def sppp_rank(torch, np):
+    """One rank of sp-transformer then pp-transformer (see SPPP)."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.layers import TransformerBlock
+    from deeplearning4j_tpu_torch.parallel import MeshSpec, ParallelWrapper
+    from deeplearning4j_tpu_torch.zoo import TransformerLM
+
+    x, y = lm_batch(np, np.random.default_rng(SEED + 3), LM_BATCH,
+                    LM["max_length"], LM["num_classes"])
+    dev = card_device(torch)
+    data = DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+    out = {}
+    for tag, spec, micro in (("sp", MeshSpec(seq=2), None),
+                             ("pp", MeshSpec(pipe=2), SPPP["microbatches"])):
+        net = TransformerLM(**LM, seed=SEED).init()
+        pw = ParallelWrapper(net, mesh_spec=spec, microbatches=micro)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        runs, colls, nbytes = lm_rank_steps(torch, np, pw, data,
+                                            mixed_policy, SPPP["steps"])
+        launches = read_counts()
+        out[f"{tag}/peak"] = torch.cuda.max_memory_allocated()
+        del net, pw
+        torch.cuda.empty_cache()
+        net = TransformerLM(**LM, seed=SEED).init()
+        pw = ParallelWrapper(net, mesh_spec=spec, microbatches=micro)
+        f32, _, _ = lm_rank_steps(torch, np, pw, data, dtypes.full_precision,
+                                  SPPP["f32_steps"])
+        if tag == "pp":
+            lo, hi = pw._pp_bounds[pw.mesh.pipe.rank]
+            out["pp/blocks"] = sum(isinstance(net.layers[i],
+                                              TransformerBlock)
+                                   for i in range(lo, hi))
+            out["pp/last"] = pw.mesh.pipe.rank == pw.mesh.pipe.size - 1
+        del net, pw
+        torch.cuda.empty_cache()
+        out.update({f"{tag}/seconds": [t for t, _ in runs],
+                    f"{tag}/scores": [s for _, s in runs],
+                    f"{tag}/f32": [s for _, s in f32],
+                    f"{tag}/collectives": colls, f"{tag}/bytes": nbytes})
+        out.update({f"{tag}/launches/{k}": v for k, v in launches.items()})
+    return out
+
+
+def phase_sp_pp_transformer(torch, np, card, tmp):
+    """sp-transformer and pp-transformer (see SPPP): this process's 5
+    mixed steps and 3 float32 steps first, then the two ranks of each
+    mesh. Gates: the ranks' scores equal, each within SPPP_TOL of this
+    process's, step by step; per rank and step, rows 2-4 6 x (r + 1) on
+    seq rank r (its causal ring over the 6 blocks) and blocks x
+    microbatches on a pipe stage, rows 9-10 once on every seq rank and on
+    the last stage. Returns each rank's launches of each."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.zoo import TransformerLM
+
+    x, y = lm_batch(np, np.random.default_rng(SEED + 3), LM_BATCH,
+                    LM["max_length"], LM["num_classes"])
+    dev = card_device(torch)
+    data = DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+    net = TransformerLM(**LM, seed=SEED).init()
+    dtypes.set_mixed_precision(True)
+    try:
+        single = timed_fits(torch, net, data, SPPP["steps"])
+    finally:
+        dtypes.set_mixed_precision(False)
+    net = TransformerLM(**LM, seed=SEED).init()
+    with dtypes.full_precision():
+        single_f32 = [s for _, s in timed_fits(torch, net, data,
+                                               SPPP["f32_steps"])]
+    del net, data
+    torch.cuda.empty_cache()
+    ranks = a9_wait("sp-transformer", "sppp", a9_spawn("sppp", 2, tmp), tmp)
+    s_mixed = np.array([s for _, s in single])
+    s_ms = median([t for t, _ in single[1:]]) * 1e3
+    rows = ("flash_attention", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")
+    out = {}
+    for tag in ("sp", "pp"):
+        name = f"{tag}-transformer"
+        for r, res in enumerate(ranks):
+            got = {k.split("/")[-1]: int(v) for k, v in res.items()
+                   if k.startswith(f"{tag}/launches/")}
+            if tag == "sp":
+                per = {k: LM["n_layers"] * (r + 1) for k in rows}
+                per.update(linear_xent_fwd=1, linear_xent_bwd=1)
+            else:
+                per = {k: int(res["pp/blocks"]) * SPPP["microbatches"]
+                       for k in rows}
+                last = int(bool(res["pp/last"]))
+                per.update(linear_xent_fwd=last, linear_xent_bwd=last)
+            expect_launches(f"{name} rank {r}", got, {
+                k: SPPP["steps"] * v for k, v in per.items()})
+            out.setdefault(tag, []).append(got)
+        for what in ("scores", "f32"):
+            if not np.array_equal(ranks[0][f"{tag}/{what}"],
+                                  ranks[1][f"{tag}/{what}"]):
+                raise AssertionError(
+                    f"{name}: the ranks' {what} differ: "
+                    f"{ranks[0][f'{tag}/{what}']} "
+                    f"{ranks[1][f'{tag}/{what}']}")
+        r0 = ranks[0]
+        rel = np.abs(r0[f"{tag}/scores"] - s_mixed) / np.abs(s_mixed)
+        rel32 = (np.abs(r0[f"{tag}/f32"] - np.array(single_f32))
+                 / np.abs(np.array(single_f32)))
+        r_ms = median(list(r0[f"{tag}/seconds"][1:])) * 1e3
+        mesh = ("MeshSpec(seq=2)" if tag == "sp" else
+                f"MeshSpec(pipe=2), microbatches={SPPP['microbatches']}")
+        log(f"[{name}] TransformerLM {LM}, {LM_BATCH} x {LM['max_length']} "
+            f"tokens on 2 gloo ranks of one card ({mesh}): "
+            f"{SPPP['steps']} mixed steps' scores (rank 0) "
+            f"{', '.join(f'{s:.5f}' for s in r0[f'{tag}/scores'])}, one "
+            f"process {', '.join(f'{s:.5f}' for s in s_mixed)}: worst "
+            f"{rel.max():.3g} relative (tol {SPPP_TOL['mixed']:g}); "
+            f"{SPPP['f32_steps']} float32 steps (TF32 off) worst "
+            f"{rel32.max():.3g} relative (tol {SPPP_TOL['float32']:g}); "
+            f"launches per rank {out[tag]}")
+        log(f"[{name}] median mixed step {r_ms:.3f} ms on each of 2 ranks "
+            f"against {s_ms:.3f} ms in one process; "
+            f"{float(r0[f'{tag}/collectives']):g} messages and "
+            f"{float(r0[f'{tag}/bytes']) / 1e6:.3f} MB per step on rank 0 "
+            f"(gradient reduce, {'ring hops' if tag == 'sp' else 'stage hops'}"
+            f"); peak device memory per rank "
+            f"{float(r0[f'{tag}/peak']) / 2 ** 30:.3f} GiB ({card})")
+        if not (np.isfinite(rel).all() and rel.max() <= SPPP_TOL["mixed"]
+                and np.isfinite(rel32).all()
+                and rel32.max() <= SPPP_TOL["float32"]):
+            raise AssertionError(f"{name}: scores {r0[f'{tag}/scores']} "
+                                 f"{r0[f'{tag}/f32']} against {s_mixed} "
+                                 f"{single_f32}")
+    return out
+
+
+def slm_batch(np, seed, b, t):
+    """b x t token ids and their next tokens over the default config's
+    vocabulary."""
+    from deeplearning4j_tpu_torch.parallel import TransformerConfig
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, TransformerConfig().vocab, (b, t + 1)).astype(
+        np.int32)
+    return ids[:, :t], ids[:, 1:]
+
+
+def slm_steps(torch, lm, ids, tgt, steps):
+    """`steps` fit_batch calls: (seconds, loss) per step."""
+    out = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = lm.fit_batch(ids, tgt)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0, loss))
+    return out
+
+
+def lm4_rank(torch, np, tmp):
+    """One rank of sharded-lm's grids (see SLM)."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec,
+        ShardedTransformerLM,
+        TransformerConfig,
+        build_mesh,
+    )
+
+    ids, tgt = slm_batch(np, SEED + 41, SLM["batch"], SLM["t"])
+    small = slm_batch(np, SEED + 43, *SLM["logits"])[0]
+    out = {}
+    for tag, spec, experts in (("dp_sp", MeshSpec(data=2, seq=2), 0),
+                               ("tp_sp", MeshSpec(model=2, seq=2), 0),
+                               ("moe_pp_ep", MeshSpec(pipe=2, expert=2), 4)):
+        grid = build_mesh(spec)
+        lm = ShardedTransformerLM(TransformerConfig(n_experts=experts),
+                                  grid, device=card_device(torch)).init(
+            seed=SEED)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with dtypes.full_precision():
+            runs = slm_steps(torch, lm, ids, tgt, SLM["grid_steps"])
+        out.update({f"{tag}/seconds": [t for t, _ in runs],
+                    f"{tag}/losses": [s for _, s in runs],
+                    f"{tag}/peak": torch.cuda.max_memory_allocated()})
+        out.update({f"{tag}/launches/{k}": v
+                    for k, v in read_counts().items()})
+        if tag == "dp_sp":
+            lm.save(os.path.join(tmp, "sharded_lm.zip"))
+            with dtypes.full_precision():
+                out["dp_sp/logits"] = lm.logits(small)
+        del lm
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_lm(torch, np, card, tmp):
+    """sharded-lm (see SLM): one process (a grid of one rank) 5 float32
+    steps with ms per step, tokens/s and peak memory, and the MoE config's
+    3 steps; then the four ranks. Gates: each grid's losses within
+    SLM_TOL of the one-process run step by step, rows 2-4 launched on
+    every rank, the restored checkpoint's logits within SLM_TOL of the
+    grid's. Returns the one-process run's launches per step."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec,
+        ShardedTransformerLM,
+        TransformerConfig,
+        build_mesh,
+        init_process_group,
+    )
+
+    ids, tgt = slm_batch(np, SEED + 41, SLM["batch"], SLM["t"])
+    small = slm_batch(np, SEED + 43, *SLM["logits"])[0]
+    init_process_group(f"file://{tmp}/rdv_slm1", 0, 1)  # NCCL, the card
+    try:
+        grid = build_mesh(MeshSpec())
+        one = {}
+        for tag, experts, steps in (("dense", 0, SLM["steps"]),
+                                    ("moe", 4, SLM["grid_steps"])):
+            lm = ShardedTransformerLM(TransformerConfig(n_experts=experts),
+                                      grid).init(seed=SEED)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            with dtypes.full_precision():
+                runs = slm_steps(torch, lm, ids, tgt, steps)
+            one[tag] = (runs, read_counts(), torch.cuda.max_memory_allocated(),
+                        lm.config)
+            del lm
+            torch.cuda.empty_cache()
+        ranks = a9_wait("sharded-lm", "lm4", a9_spawn("lm4", 4, tmp), tmp)
+        restored = ShardedTransformerLM.restore(
+            os.path.join(tmp, "sharded_lm.zip"), grid)
+        with dtypes.full_precision():
+            logits = restored.logits(small)
+        del restored
+    finally:
+        torch.distributed.destroy_process_group()
+    runs, launches, peak, cfg = one["dense"]
+    sec = median([t for t, _ in runs[1:]])
+    tokens = SLM["batch"] * SLM["t"]
+    per_step = {k: v // SLM["steps"] for k, v in launches.items()}
+    log(f"[sharded-lm] ShardedTransformerLM {dataclasses.asdict(cfg)} in one "
+        f"process, {SLM['batch']} x {SLM['t']} tokens, {SLM['steps']} "
+        f"float32 steps (TF32 off): losses "
+        f"{', '.join(f'{s:.6f}' for _, s in runs)}; median step "
+        f"{sec * 1e3:.3f} ms, {tokens / sec:.1f} tokens/s, peak device "
+        f"memory {peak / 2 ** 30:.3f} GiB; launches per step {per_step} "
+        f"({card})")
+    want = {"flash_attention": cfg.n_layers,
+            "flash_attention_bwd_dq": cfg.n_layers,
+            "flash_attention_bwd_dkv": cfg.n_layers}
+    # remat 'full' recomputes each block's forward in the backward
+    want["flash_attention"] *= 2
+    expect_launches("sharded-lm one process", {
+        k: v for k, v in launches.items() if k in want},
+        {k: SLM["steps"] * v for k, v in want.items()})
+    worst = 0.0
+    for tag, ref in (("dp_sp", "dense"), ("tp_sp", "dense"),
+                     ("moe_pp_ep", "moe")):
+        base = np.array([s for _, s in one[ref][0][:SLM["grid_steps"]]])
+        for r, res in enumerate(ranks):
+            if not np.array_equal(res[f"{tag}/losses"],
+                                  ranks[0][f"{tag}/losses"]):
+                raise AssertionError(f"sharded-lm {tag}: ranks' losses "
+                                     f"differ")
+            got = {k.split("/")[-1]: int(v) for k, v in res.items()
+                   if k.startswith(f"{tag}/launches/")}
+            # per step: the causal ring's r_seq + 1 hops on each of the
+            # n_layers blocks on seq rank r_seq (ranks row-major (data or
+            # model, seq)); on the pipe grid each stage's n_layers / 2
+            # blocks on 2 microbatches; remat doubles the forward
+            hops = (r % 2 + 1) if tag != "moe_pp_ep" else 1
+            per = {"flash_attention": 2 * cfg.n_layers * hops,
+                   "flash_attention_bwd_dq": cfg.n_layers * hops,
+                   "flash_attention_bwd_dkv": cfg.n_layers * hops}
+            expect_launches(f"sharded-lm {tag} rank {r}", {
+                k: v for k, v in got.items() if k in per},
+                {k: SLM["grid_steps"] * v for k, v in per.items()})
+        r0 = ranks[0]
+        rel = np.abs(r0[f"{tag}/losses"] - base) / np.abs(base)
+        worst = max(worst, float(rel.max()))
+        log(f"[sharded-lm] {tag} on 4 gloo ranks of one card: losses "
+            f"{', '.join(f'{s:.6f}' for s in r0[f'{tag}/losses'])} against "
+            f"one process {', '.join(f'{s:.6f}' for s in base)}: worst "
+            f"{rel.max():.3g} relative (tol {SLM_TOL['loss']:g}); median "
+            f"step {median(list(r0[f'{tag}/seconds'][1:])) * 1e3:.3f} ms; "
+            f"peak device memory per rank "
+            f"{float(r0[f'{tag}/peak']) / 2 ** 30:.3f} GiB; rows 2-4 "
+            f"launches by rank "
+            f"{[int(res[f'{tag}/launches/flash_attention']) for res in ranks]}"
+            f" ({card})")
+        if not (np.isfinite(rel).all() and rel.max() <= SLM_TOL["loss"]):
+            raise AssertionError(f"sharded-lm {tag}: losses "
+                                 f"{r0[f'{tag}/losses']} against {base}")
+    want_lg = ranks[0]["dp_sp/logits"]
+    err = float(np.abs(logits - want_lg).max())
+    lim = SLM_TOL["logits"] * float(np.abs(want_lg).max())
+    log(f"[sharded-lm] the data=2 x seq=2 checkpoint restored in one "
+        f"process: logits on {SLM['logits'][0]} x {SLM['logits'][1]} tokens "
+        f"within {err:.3g} of the grid's (tol {lim:.3g})")
+    if not err <= lim:
+        raise AssertionError(f"sharded-lm: restored logits off by {err}")
+    return per_step
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -8132,6 +8690,22 @@ def main() -> int:
         log(f"[compress] the A.9 phases (kernel-tp, tp-transformer, "
             f"fsdp-vgg16, refer-tp-fsdp, remat-transformer, compress) took "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ring_flash, ring_flash_err = phase_flash(
+            torch, bw, peak, peak_bf16, peak_tf32, cases=RING_FLASH_CASES,
+            tag="kernel-ring")
+        flash_err = max(flash_err, ring_flash_err)
+        ring_bwd, ring_bwd_err = phase_flash_bwd(
+            torch, bw, peak, peak_bf16, peak_tf32, cases=RING_FLASH_CASES,
+            tag="kernel-ring")
+        flash_bwd_err = max(flash_bwd_err, ring_bwd_err)
+        with tempfile.TemporaryDirectory() as tmp:
+            ring_per_rank, _, _ = phase_ring_attention(torch, np, card, tmp)
+            sppp_launches = phase_sp_pp_transformer(torch, np, card, tmp)
+            slm_per_step = phase_sharded_lm(torch, np, card, tmp)
+        log(f"[sharded-lm] the seq, pipe and expert phases (kernel-ring, "
+            f"ring-attention, sp-transformer, pp-transformer, sharded-lm) "
+            f"took {time.perf_counter() - t0:.1f} s")
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
         if leaked:
@@ -8184,18 +8758,21 @@ def main() -> int:
                         inception_v3_forward=iv3_times[torch.float32])),
         "flash_attention": (lm_launches["flash_attention"], flash_err,
                             dict(per_forward(flash, LM["n_layers"]),
-                                 vit_shape=vit_flash, tp_shape=tp_flash)),
+                                 vit_shape=vit_flash, tp_shape=tp_flash,
+                                 ring_shape=ring_flash)),
         "lstm_scan": (rnn_launches["lstm_scan"], lstm_err,
                       dict(per_forward(lstm, 2),
                            bidir_shape=bidir_rows["lstm_scan"])),
         "flash_attention_bwd_dq": (
             train_launches["flash_attention_bwd_dq"], flash_bwd_err,
             dict(per_forward(flash_bwd["dq"], LM["n_layers"]),
-                 vit_shape=vit_bwd["dq"], tp_shape=tp_bwd["dq"])),
+                 vit_shape=vit_bwd["dq"], tp_shape=tp_bwd["dq"],
+                 ring_shape=ring_bwd["dq"])),
         "flash_attention_bwd_dkv": (
             train_launches["flash_attention_bwd_dkv"], flash_bwd_err,
             dict(per_forward(flash_bwd["dkv"], LM["n_layers"]),
-                 vit_shape=vit_bwd["dkv"], tp_shape=tp_bwd["dkv"])),
+                 vit_shape=vit_bwd["dkv"], tp_shape=tp_bwd["dkv"],
+                 ring_shape=ring_bwd["dkv"])),
         "linear_xent_fwd": (train_launches["linear_xent_fwd"], xent_err,
                             dict(xent["fwd"], vgg16_output=vgg_rows("fwd"),
                                  tbptt_window=xent_window["fwd"],
@@ -8248,7 +8825,7 @@ def main() -> int:
                                  "transfer_output", "vit_shape",
                                  "googlenet_output", "vit_output",
                                  "dbn_output", "sda_output", "tp_shape",
-                                 "inception_output")
+                                 "inception_output", "ring_shape")
                if k in t},
             # launches on the char-RNN's DL4J restore and resume path
             # (dl4j-charrnn and checkpoint-resume)
@@ -8290,7 +8867,21 @@ def main() -> int:
             # launches in train-inception's 20 mixed steps, tp-transformer's
             # and fsdp-vgg16's rank 0 (5 steps each) and remat-transformer's
             # 4 x 3 steps (A.3's rest and A.9's model and fsdp axes)
-            "a9_launches": a9_launches[kname]})
+            "a9_launches": a9_launches[kname],
+            # A.9's seq, pipe and expert axes: rows 2-4 per ring call on
+            # each of ring-attention's 4 ranks (causal: r + 1 each, full:
+            # 4) and per ShardedTransformerLM step in one process (6
+            # blocks, remat: 12 forward, 6 + 6 backward); every row's
+            # launches on each rank in sp-transformer's and
+            # pp-transformer's 5 mixed steps (seq ranks 0 and 1; pipe
+            # stages 0 and 1, the Output on the last)
+            **({"ring_launches_per_call": {
+                "causal": ring_per_rank["causal_float32"],
+                "full": ring_per_rank["full_float32"]},
+                "sharded_lm_launches_per_step": slm_per_step[kname]}
+               if kname.startswith("flash_attention") else {}),
+            "sp_launches": [r[kname] for r in sppp_launches["sp"]],
+            "pp_launches": [r[kname] for r in sppp_launches["pp"]]})
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -31,6 +31,13 @@ as numpy arrays in the interchange layout, in the network's own container.
 Names, shapes and the set of entries must match exactly at every level of
 nesting; anything else raises, so a half-loaded network cannot run.
 
+`sharded_lm_params_from_jax(lm, params, opt_state=None)` carries a JAX
+`parallel.transformer.ShardedTransformerLM`'s params ("embed", "pos", the
+stacked "blocks", "lnf", in its layout) and, where given, its updater
+state (Adam's "m" and "v" nested like the params, its step count "t")
+into the port's ShardedTransformerLM of the same config: every rank keeps
+its slices of the port's grid.
+
 Both directions take whole params and slots. On a network that
 ParallelWrapper shards (fsdp or model axis) they are collective: the
 `_to_jax` side gathers, the `_from_jax` side checks against the whole
@@ -231,3 +238,10 @@ def opt_state_to_jax(net):
                            else v.detach().cpu().numpy())
                     for slot, v in st.items()}
     return out if isinstance(net.opt_state, dict) else list(out.values())
+
+
+def sharded_lm_params_from_jax(lm, params: Arrays, opt_state=None) -> None:
+    """A JAX ShardedTransformerLM's whole params (and updater state), nested
+    dicts of arrays, into the port's `lm` (names and shapes checked; each
+    rank keeps its slices)."""
+    lm.load_params(params, opt_state)

@@ -107,6 +107,13 @@ def value_and_grad(loss, params, frozen=frozenset()):
     return score, aux, grads
 
 
+def step_draws(draws):
+    """A training step's draws: the network's, or as the installed shard
+    takes them (a seq shard folds them by its index)."""
+    shard = shard_mod.installed_shard()
+    return draws if shard is None else shard.step_draws(draws)
+
+
 def batch_rows(x) -> int:
     """The rows a step reports (`last_batch_size`): the global batch's
     before padding under the data-parallel wrapper, else x's."""

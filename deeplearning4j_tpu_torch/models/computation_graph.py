@@ -444,7 +444,7 @@ class ComputationGraph:
         passes it0 + j). With `carries` the recurrent vertices start from
         them and leave their new carries there, detached."""
         it = self.iteration if iteration is None else iteration
-        rng = self.draws.step()
+        rng = tr.step_draws(self.draws.step())
         with iteration_scope(it):
             score, new_state, grads = tr.value_and_grad(
                 lambda: self._loss(self.params, inputs, labels, fmasks,

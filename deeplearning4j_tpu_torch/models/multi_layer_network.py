@@ -401,7 +401,7 @@ class MultiLayerNetwork:
         them and leave their new carries there, detached. Dropout and
         weight noise draw from `draws.step()`."""
         it = self.iteration if iteration is None else iteration
-        rng = self.draws.step()
+        rng = tr.step_draws(self.draws.step())
         with iteration_scope(it):
             score, new_state, grads = tr.value_and_grad(
                 lambda: self._loss(self.params, x, y, fm, lm,

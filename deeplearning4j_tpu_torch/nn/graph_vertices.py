@@ -37,6 +37,13 @@ def register_vertex(cls):
 class GraphVertex:
     """Combinator: apply(params, inputs, ...) -> (out, new_state)."""
 
+    #: True when the vertex computes per timestep or per feature, so the
+    #: seq axis may shard its time axis; time-structural vertices
+    #: (LastTimeStep, DuplicateToTimeSeries, Reshape, Stack/Unstack,
+    #: preprocessors) keep False and are refused. LayerVertex defers to
+    #: its layer's sp_safe.
+    sp_safe = False
+
     def output_type(self, input_types: Sequence[it.InputType]) -> it.InputType:
         raise NotImplementedError
 
@@ -122,6 +129,8 @@ class LayerVertex(GraphVertex):
 class ElementWiseVertex(GraphVertex):
     """Add | Subtract | Product | Average | Max over same-shaped inputs."""
 
+    sp_safe = True  # elementwise
+
     op: str = "add"
 
     def output_type(self, input_types):
@@ -154,6 +163,8 @@ class ElementWiseVertex(GraphVertex):
 class MergeVertex(GraphVertex):
     """Concatenate along the last axis: the channels of NHWC, the features
     of BTF and [b, f] (nn/conf/graph/MergeVertex.java)."""
+
+    sp_safe = True  # feature-axis concat
 
     def output_type(self, input_types):
         t0 = input_types[0]
@@ -214,6 +225,8 @@ class PreprocessorVertex(GraphVertex):
 class SubsetVertex(GraphVertex):
     """Features [from_idx, to_idx], both ends included, of the last axis
     (nn/conf/graph/SubsetVertex.java)."""
+
+    sp_safe = True  # feature-axis slice
 
     from_idx: int = 0
     to_idx: int = 0
@@ -307,6 +320,8 @@ class L2NormalizeVertex(GraphVertex):
 class ScaleVertex(GraphVertex):
     """x * scale_factor (nn/conf/graph/ScaleVertex.java)."""
 
+    sp_safe = True  # elementwise
+
     scale_factor: float = 1.0
 
     def output_type(self, input_types):
@@ -321,6 +336,8 @@ class ScaleVertex(GraphVertex):
 @dataclass
 class ShiftVertex(GraphVertex):
     """x + shift_factor (nn/conf/graph/ShiftVertex.java)."""
+
+    sp_safe = True  # elementwise
 
     shift_factor: float = 0.0
 

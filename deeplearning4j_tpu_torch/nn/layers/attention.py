@@ -10,9 +10,12 @@ All BTF [batch, time, features]:
 
 Weights are [n_in, n_out] like Dense, q/k/v fused into one [f, 3f] matmul.
 
-Attention routing in MultiHeadAttention.apply, as in the JAX package minus
-its sequence-parallel ring branch (no sequence-parallel context in the port
-yet): `attention_impl="blockwise"` takes ops.attention.blockwise; with no
+Attention routing in MultiHeadAttention.apply, as in the JAX package: under
+a sequence-parallel context (`parallel.ring.sequence_parallel`, the seq
+axis of ParallelWrapper's step) ring attention over the axis
+(`parallel.ring.ring_attention_sharded`: without a mask and at a kernel
+head dim its hops run the flash kernels, else the online hop); outside
+one, `attention_impl="blockwise"` takes ops.attention.blockwise; with no
 mask, `attention_impl` "auto" or "pallas" and a head dim in the kernel's
 set `fa.HEAD_DIMS`, the flash-attention forward (ops/flash_attention.py:
 the CUDA kernel on the card, at every length, its plain version on the
@@ -33,7 +36,13 @@ n_heads / model heads per rank (the flash kernels at local shapes), sums
 the ranks' output products (`AxisGroup.reduce`) and adds the whole bo
 once. TransformerBlock's FFN holds W1's and b1's columns and W2's rows,
 draws its hidden dropout as its columns of the whole mask and sums its
-output products before the whole b2.
+output products before the whole b2. Under both axes (tp x sp) the ring
+runs on the rank's local heads.
+
+Every layer here declares `sp_safe` (the JAX package's values): each
+computes per timestep or is ring-aware, so the seq axis may shard its
+time axis; PositionEmbedding then indexes its table at the shard's global
+offset and refuses a global length past `max_len`.
 """
 from __future__ import annotations
 
@@ -55,6 +64,12 @@ from deeplearning4j_tpu_torch.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.ops import linear as ops
 
 
+def _ring():
+    # lazy: parallel.* imports models, which import nn.layers (this package)
+    from deeplearning4j_tpu_torch.parallel import ring
+    return ring
+
+
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float) -> torch.Tensor:
     """(x - mean) / sqrt(var + eps) * gamma + beta over the last axis, with
@@ -74,6 +89,8 @@ class LayerNorm(Layer):
     """y = gamma * (x - mean) / sqrt(var + eps) + beta over the last axis."""
 
     eps: float = 1e-5
+
+    sp_safe = True  # normalizes the feature axis only
 
     def output_type(self, input_type):
         return input_type
@@ -97,10 +114,14 @@ class PositionEmbedding(Layer):
 
     mode="learned": trainable [max_len, f] table (GPT-style).
     mode="sincos":  fixed sinusoidal encodings (Vaswani et al.), no params.
+    Under sequence parallelism the time axis is sharded; the table is
+    indexed at the shard's global offset.
     """
 
     max_len: int = 512
     mode: str = "learned"  # learned | sincos
+
+    sp_safe = True  # indexes the table at global offsets under seq sharding
 
     def output_type(self, input_type):
         return input_type
@@ -133,15 +154,25 @@ class PositionEmbedding(Layer):
 
     def apply(self, params, x, *, state, train, mask=None, rng=None):
         b, t, f = x.shape
+        axis = _ring().active_sequence_axis()
+        off = 0 if axis is None else axis.rank * t
+        t_global = t if axis is None else t * axis.size
         if self.mode == "learned":
-            if t > self.max_len:
-                # slicing would silently give a shorter table
+            if t_global > self.max_len:
+                # slicing would silently give a shorter table; under
+                # sequence parallelism the GLOBAL length must fit
                 raise ValueError(
-                    f"sequence length {t} exceeds PositionEmbedding "
+                    f"sequence length {t_global} exceeds PositionEmbedding "
                     f"max_len={self.max_len}")
-            pe = params["pos"][:t]
+            pe = params["pos"][off:off + t]
         else:
-            pe = self.sincos(t, f, x.dtype, x.device)
+            if axis is not None and t_global > self.max_len:
+                raise ValueError(
+                    f"sequence length {t_global} exceeds PositionEmbedding "
+                    f"max_len={self.max_len} (sincos under seq sharding)")
+            full = self.sincos(t if axis is None else self.max_len, f,
+                               x.dtype, x.device)
+            pe = full[off:off + t]
         return x + pe.to(x.dtype)[None], state
 
 
@@ -165,6 +196,7 @@ class MultiHeadAttention(Layer):
     attn_dropout: Optional[float] = None  # retain prob, DL4J convention
 
     computes_model_shards = True
+    sp_safe = True  # dispatches to ring attention under sequence_parallel
 
     def tensor_partition_specs(self, params, model_axis="model", model_size=1):
         """Wqkv and bqkv column-split by heads, Wo row-split, bo whole
@@ -202,6 +234,11 @@ class MultiHeadAttention(Layer):
 
     def attend(self, q, k, v, mask):
         """[b, h, t, d] heads -> [b, h, t, d] attention output."""
+        axis = _ring().active_sequence_axis()
+        if axis is not None:
+            return _ring().ring_attention_sharded(
+                q, k, v, axis=axis, mask=mask, causal=self.causal,
+                block_size=self.block_size)
         if self.attention_impl == "blockwise":
             return att.blockwise(q, k, v, mask=mask, causal=self.causal,
                                  block_size=self.block_size)
@@ -256,6 +293,7 @@ class TransformerBlock(Layer):
     eps: float = 1e-5
 
     computes_model_shards = True
+    sp_safe = True  # MHA rings, LN/FFN are per-timestep
 
     def tensor_partition_specs(self, params, model_axis="model", model_size=1):
         """Attention by MultiHeadAttention's rule; the FFN Megatron's way:

@@ -73,6 +73,12 @@ class Layer:
     # split params are gathered whole before `apply`
     computes_model_shards = False
 
+    # True when the layer computes per timestep (or is ring-aware), so the
+    # seq axis of ParallelWrapper may shard its time axis and the result
+    # is the unsharded one; layers that reduce or scan over time (LSTM,
+    # pooling, 1-d convolutions) keep False and the wrapper refuses them
+    sp_safe = False
+
     # --- per-layer overrides (None = inherit from NeuralNetConfiguration) ---
     name: Optional[str] = None
     activation: Optional[str] = None

@@ -39,6 +39,8 @@ def _flatten_if_needed(x):
 class Dense(Layer):
     """Fully connected: y = act(x @ W + b)."""
 
+    sp_safe = True  # per-timestep matmul: time sharding is transparent
+
     n_in: Optional[int] = None
     n_out: int = 0
     has_bias: bool = True
@@ -90,6 +92,8 @@ class ElementWiseMultiplication(Layer):
     """y = act(x * W + b), W and b shaped [n_out] (nn/conf/layers/misc/
     ElementWiseMultiplicationLayer.java); W starts at ones, b at zeros."""
 
+    sp_safe = True  # elementwise
+
     n_in: Optional[int] = None
     n_out: int = 0
 
@@ -109,6 +113,8 @@ class ElementWiseMultiplication(Layer):
 class Activation(Layer):
     """Parameterless activation layer (nn/conf/layers/ActivationLayer.java)."""
 
+    sp_safe = True  # elementwise
+
     def output_type(self, input_type):
         return input_type
 
@@ -125,6 +131,8 @@ class DropoutLayer(Layer):
     """Standalone dropout (nn/conf/layers/DropoutLayer.java): `dropout`
     (a retain probability, DL4J-style, or an IDropout) on its input at train
     time, the identity at inference."""
+
+    sp_safe = True  # elementwise
 
     def output_type(self, input_type):
         return input_type
@@ -199,6 +207,8 @@ def _embed(layer, params, x):
 @dataclass
 class EmbeddingSequence(Layer):
     """Sequence embedding: ids [b, t] -> [b, t, n_out] (BTF layout)."""
+
+    sp_safe = True  # per-token gather
 
     n_in: Optional[int] = None
     n_out: int = 0

@@ -127,6 +127,8 @@ class LossLayer(BaseOutputLayer, Layer):
     """Loss without params: activation + loss on its input
     (nn/conf/layers/LossLayer.java)."""
 
+    sp_safe = True  # per-slot loss; the seq step's counts span the shards
+
     loss: Optional[str] = None
 
     def output_type(self, input_type):
@@ -157,6 +159,8 @@ class CenterLossOutput(Output):
     alpha times the mean of (x - c) over its rows (an EMA scatter-mean
     outside the gradient); classes absent from the batch keep theirs. The
     new centers leave through `compute_loss`'s new state."""
+
+    sp_safe = False
 
     alpha: float = 0.05
     lambda_: float = 2e-4

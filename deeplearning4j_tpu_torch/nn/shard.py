@@ -56,13 +56,34 @@ columns). A layer that computes on its model shards runs inside
 `splitting(group)`, and `model_split()` gives it the group there.
 The collectives are those that gloo and NCCL both take on CUDA tensors
 (all_reduce, all_gather, broadcast), so one code path serves both.
+
+The seq and pipe axes move tensors point to point (`lax.ppermute` in the
+JAX package):
+
+- `AxisGroup.shift(t, offset)`: rank j sends `t` to rank (j + offset) mod
+  n and returns what rank (j - offset) mod n sent (ring attention's K/V
+  hop);
+- `AxisGroup.shift_grad`: its autograd form, whose backward shifts the
+  cotangent back by -offset (the inverse permutation);
+- `AxisGroup.send` / `recv`: the non-wrapping stage-to-stage hop, one
+  message to or from one rank of the group (a pipeline stage's boundary
+  activation to the next stage, its cotangent back; heterogeneous shapes
+  included, the receiver giving the shape).
+
+gloo's send and recv take a host pointer (they hand the tensor's raw
+buffer to the TCP transport, which reads it on the host), so on gloo a
+CUDA tensor is staged explicitly through a host buffer on each side: the
+tensor leaves and lands on the card, the bytes cross on the host. NCCL
+sends CUDA tensors directly. A ring shift goes out as one batch of a send
+and a receive per rank (`batch_isend_irecv`, which NCCL needs for a
+cycle); `stats` counts each hop and its bytes.
 """
 from __future__ import annotations
 
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -142,6 +163,20 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+class _Shift(torch.autograd.Function):
+    """`AxisGroup.shift` by `offset` forward; backward, the cotangent
+    shifted by -offset (the inverse permutation)."""
+
+    @staticmethod
+    def forward(ctx, t, axis, offset):
+        ctx.axis, ctx.offset = axis, offset
+        return axis.shift(t, offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.shift(g.contiguous(), -ctx.offset), None, None
+
+
 class _Gather(torch.autograd.Function):
     """The pieces of the group's ranks joined along `dim`; backward, this
     rank's slice of the cotangent."""
@@ -210,10 +245,72 @@ class AxisGroup:
     rank: int
     size: int
     stats: ReduceStats = field(default_factory=ReduceStats)
+    #: the global ranks of the group's members, in group-rank order (the
+    #: peers of a point-to-point hop)
+    members: Tuple[int, ...] = ()
 
     def _count(self, t: torch.Tensor, times: int = 1) -> None:
         self.stats.collectives += 1
         self.stats.bytes += t.numel() * t.element_size() * times
+
+    def _host(self, device: torch.device) -> bool:
+        """Whether a point-to-point message on `device` goes through a
+        host buffer (a CUDA tensor on gloo)."""
+        return device.type == "cuda" and torch.distributed.get_backend(
+            self.group) == "gloo"
+
+    def _peer(self, r: int) -> int:
+        return self.members[r] if self.members else r
+
+    def shift(self, t: torch.Tensor, offset: int = 1) -> torch.Tensor:
+        """What rank (j - offset) mod n sent, where each rank j sends `t`
+        to rank (j + offset) mod n (no autograd): every rank sends and
+        receives one message, as one batch."""
+        n, j = self.size, self.rank
+        if offset % n == 0:
+            return t.detach()
+        send = t.detach().contiguous()
+        device = send.device
+        host = self._host(device)
+        if host:
+            send = send.cpu()
+        recv = torch.empty_like(send)
+        self._count(send)
+        ops = [torch.distributed.P2POp(torch.distributed.isend, send,
+                                       self._peer((j + offset) % n),
+                                       self.group),
+               torch.distributed.P2POp(torch.distributed.irecv, recv,
+                                       self._peer((j - offset) % n),
+                                       self.group)]
+        for req in torch.distributed.batch_isend_irecv(ops):
+            req.wait()
+        return recv.to(device) if host else recv
+
+    def shift_grad(self, t: torch.Tensor, offset: int = 1) -> torch.Tensor:
+        """`shift` (wrapping) with autograd: the backward sends the
+        cotangent back by -offset."""
+        return _Shift.apply(t, self, offset) if self.size > 1 else t
+
+    def send(self, t: torch.Tensor, to: int):
+        """Starts sending `t` to group rank `to`; returns a handle whose
+        `wait()` ends the send (the tensor, or its host copy, is kept
+        alive by the handle)."""
+        buf = t.detach().contiguous()
+        if self._host(buf.device):
+            buf = buf.cpu()
+        self._count(buf)
+        return _Sent(torch.distributed.isend(buf, self._peer(to),
+                                             group=self.group), buf)
+
+    def recv(self, shape: Sequence[int], dtype: torch.dtype, device,
+             frm: int) -> torch.Tensor:
+        """The tensor that group rank `frm` sends (blocking)."""
+        device = torch.device(device)
+        host = self._host(device)
+        buf = torch.empty(tuple(shape), dtype=dtype,
+                          device="cpu" if host else device)
+        torch.distributed.recv(buf, self._peer(frm), group=self.group)
+        return buf.to(device) if host else buf
 
     def all_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over the group (no autograd)."""
@@ -256,6 +353,17 @@ class AxisGroup:
         drawn at the whole `width` and this rank's columns kept, so the
         ranks together hold the single process's sample."""
         return ColumnDraws(draws, self, width)
+
+
+class _Sent:
+    """An isend in flight and the buffer it reads."""
+
+    def __init__(self, work, buf):
+        self.work, self.buf = work, buf
+
+    def wait(self):
+        self.work.wait()
+        self.buf = None
 
 
 class ColumnDraws:
@@ -332,6 +440,11 @@ class BatchShard:
     def rows_of(self, draws):
         return RowDraws(draws, self.rows, self.lo, self.hi)
 
+    def step_draws(self, draws):
+        """A training step's draws on this rank (the data axis: the
+        network's own, each activation's mask then cut to the rows)."""
+        return draws
+
     def counts_penalty(self) -> bool:
         return self.rank == 0
 
@@ -365,6 +478,48 @@ class BatchShard:
             self.stats.collectives += 1
         self.stats.steps += 1
         return out[-1].reshape(()), out[:-1]
+
+
+@dataclass
+class KeyedShard(BatchShard):
+    """A shard that draws its own masks, as the JAX wrapper's seq and pipe
+    steps fold their key, instead of cutting its rows from a global mask
+    (`rows_of` keeps its draws). Under the seq axis rank `rank` = d *
+    n_seq + s of the `world` = data x seq ranks of `group` holds the data
+    axis's rows block d and the time block s of every array of the batch
+    (the JAX package's shard_map over (data, seq)); the loss's global
+    counts, the penalty's one count and the gradient reduce span the
+    group, and the step's draws are folded by the index (`step_draws`).
+    Under the pipe axis it is the data axis's shard, and the pipeline
+    folds the draws per (data shard, microbatch) itself."""
+
+    def rows_of(self, draws):
+        return draws
+
+    def step_draws(self, draws):
+        """The step's draws folded by this shard's index."""
+        return fold_draws(draws, self.rank)
+
+
+def fold_draws(draws, *idx, salt: int = 0):
+    """`draws.fold_in(i)` for each of `idx` (the JAX package's per-shard
+    keys). The port's own `nn.dropout.Draws` folds to itself (one stream),
+    so for it the result is a generator of its own, seeded from one draw
+    of `draws`' stream, the indices and `salt`: independent draws per
+    index, and the shared stream advances by one draw per call alike on
+    every rank."""
+    from deeplearning4j_tpu_torch.nn.dropout import Draws
+
+    if not isinstance(draws, Draws):
+        for i in idx:
+            draws = draws.fold_in(i)
+        return draws
+    g = draws.generator
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=g,
+                             device=g.device).item())
+    for i in (*idx, salt):
+        seed = (seed * 1000003 + int(i) + 1) % 2 ** 62
+    return Draws.seeded(seed, g.device)
 
 
 def broadcast(tensors: List[torch.Tensor], src: int, group) -> None:

@@ -41,7 +41,8 @@ mask would differ between the forward and its recompute. It also runs
 under the step's thread state of the first pass (the installed batch
 shard, whether it is active, the iteration): on a CUDA tensor the
 backward, and so the recompute, runs on autograd's device thread, which
-holds none of the calling thread's.
+holds none of the calling thread's (nor its sequence-parallel context,
+which the recompute re-enters too).
 """
 from __future__ import annotations
 
@@ -152,17 +153,23 @@ def maybe_remat(fn: Callable, name: Any) -> Callable:
 
 def _step_state():
     """A context that re-enters this thread's step state (the installed
-    batch shard, whether it is active, the iteration), for a recompute
-    that may run on another thread."""
+    batch shard, whether it is active, the iteration, the seq axis of a
+    sequence-parallel step), for a recompute that may run on another
+    thread."""
+    from deeplearning4j_tpu_torch.parallel import ring
+
     shard = shard_mod.installed_shard()
     on = shard_mod.current() is not None
     iteration = base_mod.current_iteration()
+    seq = ring.active_sequence_axis()
 
     @contextlib.contextmanager
     def again():
         with shard_mod.installed(shard), base_mod.iteration_scope(
                 iteration), (shard_mod.active() if on
-                             else contextlib.nullcontext()):
+                             else contextlib.nullcontext()), (
+                ring.sequence_parallel(seq) if seq is not None
+                else contextlib.nullcontext()):
             yield
 
     return again

@@ -6,11 +6,16 @@ axes inside one process. The port runs one process per rank, so the mesh
 is a grid of ranks: `build_mesh` lays the initialised group's ranks out
 row-major in the JAX axis order (dcn, data, fsdp, model, pipe, seq,
 expert), as `mesh.py` reshapes its devices, and creates one sub-group per
-line of each working axis (every rank creates every group, in one order,
-as torch.distributed asks). It returns a `Grid`: this rank's coordinates
-and its `nn.shard.AxisGroup` on the data, fsdp and model axes, and on
-`shard`, the fsdp x model ranks of its data coordinate. The data, fsdp and
-model axes work; the seq, pipe, dcn and expert axes greater than 1 raise
+line of each axis and of each combination a step reduces over (every rank
+creates every group, in one order, as torch.distributed asks; lines with
+the same ranks share one group). It returns a `Grid`: this rank's
+coordinates and its `nn.shard.AxisGroup` on the data, fsdp, model, pipe,
+seq and expert axes, on `shard` (the fsdp x model ranks of its data
+coordinate), on `batch` (data x seq: the ranks that split one step's
+batch, rows over data and time over seq, whose loss counts, penalty count,
+BatchNorm statistics and gradient reduce a step takes) and on `replica`
+(data x seq x pipe: the reduce of a pipeline's stage-replicated
+gradients). Every axis works but dcn: a dcn axis greater than 1 raises
 NotImplementedError (ROADMAP A.9's rest).
 
 There is no NamedSharding: where the JAX package places a leaf with a
@@ -46,8 +51,14 @@ from deeplearning4j_tpu_torch.nn import shard as shard_mod
 
 AXES = ("dcn", "data", "fsdp", "model", "pipe", "seq", "expert")
 
-# the axes a grid runs; the others wait for ROADMAP A.9's rest
-WORKING_AXES = ("data", "fsdp", "model")
+# the axes a grid runs; dcn waits for ROADMAP A.9's rest
+WORKING_AXES = ("data", "fsdp", "model", "pipe", "seq", "expert")
+
+# the sub-groups of a grid: an AxisGroup each, over these axes
+GROUPS = (("data", ("data",)), ("fsdp", ("fsdp",)), ("model", ("model",)),
+          ("pipe", ("pipe",)), ("seq", ("seq",)), ("expert", ("expert",)),
+          ("shard", ("fsdp", "model")), ("batch", ("data", "seq")),
+          ("replica", ("data", "seq", "pipe")))
 
 # how long a rank waits for the others at the rendezvous and in a
 # collective before it raises (a rank that died leaves the rest waiting)
@@ -85,8 +96,9 @@ class MeshSpec:
 class Grid:
     """The mesh from one rank: the spec, the global group (`group`,
     `rank`, `size`, `backend`), this rank's coordinate on every axis and
-    its AxisGroup on the data, fsdp and model axes and on `shard` (the
-    fsdp x model ranks of its data coordinate)."""
+    its AxisGroup on each of `GROUPS`: the data, fsdp, model, pipe, seq
+    and expert axes, `shard` (fsdp x model), `batch` (data x seq) and
+    `replica` (data x seq x pipe)."""
 
     spec: MeshSpec
     group: object
@@ -97,7 +109,12 @@ class Grid:
     data: shard_mod.AxisGroup
     fsdp: shard_mod.AxisGroup
     model: shard_mod.AxisGroup
+    pipe: shard_mod.AxisGroup
+    seq: shard_mod.AxisGroup
+    expert: shard_mod.AxisGroup
     shard: shard_mod.AxisGroup
+    batch: shard_mod.AxisGroup
+    replica: shard_mod.AxisGroup
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -135,21 +152,22 @@ def init_process_group(init_method: str, rank: int, world_size: int,
 
 
 def check_spec(spec: MeshSpec) -> None:
-    """Raises NotImplementedError for an axis the port does not run yet."""
+    """Raises NotImplementedError for an axis the port does not run yet
+    (dcn)."""
     others = {a: n for a, n in spec.axis_sizes().items()
               if a not in WORKING_AXES and n > 1}
     if others:
         raise NotImplementedError(
-            f"mesh axes {others}: the data, fsdp and model axes are "
-            f"ported; the seq, pipe, dcn and expert axes are queued in "
-            f"ROADMAP A.9's rest")
+            f"mesh axes {others}: the data, fsdp, model, pipe, seq and "
+            f"expert axes are ported; the dcn axis is queued in ROADMAP "
+            f"A.9's rest")
 
 
 def build_mesh(spec: Optional[MeshSpec] = None) -> Grid:
     """The grid of `spec` (default: every rank on the data axis) over the
-    initialised process group. Raises NotImplementedError for a seq,
-    pipe, dcn or expert axis greater than 1, and ValueError when
-    `spec.total()` is not the group's world size."""
+    initialised process group. Raises NotImplementedError for a dcn axis
+    greater than 1, and ValueError when `spec.total()` is not the group's
+    world size."""
     spec = spec or MeshSpec.data_parallel()
     check_spec(spec)
     if not dist.is_initialized():
@@ -165,31 +183,36 @@ def build_mesh(spec: Optional[MeshSpec] = None) -> Grid:
     coords = {a: int(c) for a, c in zip(
         AXES, np.unravel_index(me, sizes))}
 
+    made = {}
+
     def lines(axes):
         """Every group of ranks that differ on `axes` only, in one
-        order; this rank's. An axis of one rank makes no group (its
-        AxisGroup runs no collective), but the data axis's, which the
-        gradient reduce always uses."""
+        order; this rank's (group, rank in it, members). An axis of one
+        rank makes no group (its AxisGroup runs no collective), but the
+        data axis's, the batch's and the replica's, which a gradient
+        reduce always uses. Lines with the same ranks as an earlier one
+        reuse its group."""
         idx = [AXES.index(a) for a in axes]
         rest = [i for i in range(len(AXES)) if i not in idx]
         moved = np.moveaxis(ranks, idx + rest, list(range(len(AXES))))
         flat = moved.reshape(int(np.prod([sizes[i] for i in idx])), -1)
-        if flat.shape[0] == 1 and axes != ("data",):
-            return None, 0, 1
+        if flat.shape[0] == 1 and axes[0] != "data":
+            return None, 0, (me,)
         mine = None
         for col in range(flat.shape[1]):
-            members = [int(r) for r in flat[:, col]]
-            g = (dist.group.WORLD if len(members) == world
-                 else dist.new_group(members))
+            members = tuple(int(r) for r in flat[:, col])
+            if members not in made:
+                made[members] = (dist.group.WORLD if len(members) == world
+                                 else dist.new_group(list(members)))
             if me in members:
-                mine = (g, members.index(me), len(members))
+                mine = (made[members], members.index(me), members)
         return mine
 
     groups = {}
-    for name, axes in (("data", ("data",)), ("fsdp", ("fsdp",)),
-                       ("model", ("model",)), ("shard", ("fsdp", "model"))):
-        g, r, n = lines(axes)
-        groups[name] = shard_mod.AxisGroup(name, g, r, n)
+    for name, axes in GROUPS:
+        g, r, members = lines(axes)
+        groups[name] = shard_mod.AxisGroup(name, g, r, len(members),
+                                           members=members)
     return Grid(spec, dist.group.WORLD, me, world,
                 str(dist.get_backend()), coords, **groups)
 

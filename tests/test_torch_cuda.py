@@ -1962,3 +1962,51 @@ def test_flash_rows_on_half_the_heads_match_plain_version(cuda, shape,
     test's 2 of 4), causal, against their plain versions."""
     _flash_check(cuda, shape, True, dtype, True)
     _flash_bwd_check(cuda, shape, True, dtype)
+
+
+# ---------------------------------------------- the seq axis's ring
+@pytest.mark.cuda
+def test_ring_over_two_gloo_ranks_matches_one_process_rows_2_to_4(
+        cuda, tmp_path):
+    """Ring attention over two ranks on the card (gloo, each hop staged
+    through a host buffer) at (2, 4, 512, 64), causal and not, float32
+    and bfloat16: the output and the gradients of sum(o * w) against one
+    process's flash forward and backward kernels over the whole sequence,
+    at the flash tests' tolerances (x max|plain|: forward float32 1e-5,
+    bfloat16 2e-2; backward 1e-4 and 1e-2); rank r launches each of rows
+    2-4 r + 1 times on a causal ring, twice on a full one."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    shape = (2, 4, 512, 64)
+    cases, inputs = {}, {}
+    for causal in (True, False):
+        for dtype in ("float32", "bfloat16"):
+            name = f"{'causal' if causal else 'full'}_{dtype}"
+            arrays = {n: rng.standard_normal(shape).astype(np.float32)
+                      for n in ("q", "k", "v", "w")}
+            path = str(tmp_path / f"{name}.npz")
+            np.savez(path, **arrays)
+            inputs[name] = arrays
+            cases[name] = dict(ring=True, mesh={"seq": 2}, causal=causal,
+                               dtype=dtype, data=path)
+    ranks = _spawn_worker_ranks(tmp_path, 2, cases)
+    tol = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 1e-2)}
+    for name, arrays in inputs.items():
+        causal, dtype = name.startswith("causal"), name.split("_")[1]
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.from_numpy(arrays[n]).to(cuda, dt)
+                   .requires_grad_(True) for n in ("q", "k", "v"))
+        o = flash_attention(q, k, v, causal)
+        (o.float() * torch.from_numpy(arrays["w"]).to(cuda)).sum().backward()
+        want = {"o": o, "dq": q.grad, "dk": k.grad, "dv": v.grad}
+        for r, res in enumerate(ranks[name]):
+            assert bool(res["kernel_route"])
+            for n, ref in want.items():
+                t = tol[dtype][0 if n == "o" else 1]
+                ref = ref.detach().float().cpu().numpy()
+                err = float(np.abs(res[n] - ref).max())
+                assert err <= t * float(np.abs(ref).max()), (name, r, n, err)
+            hops = r + 1 if causal else 2
+            for row in ("flash_attention", "flash_attention_bwd_dq"):
+                assert int(res[f"launches/{row}"]) == hops, (name, r, row)

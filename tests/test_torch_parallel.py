@@ -70,6 +70,7 @@ from deeplearning4j_tpu_torch.nn.layers import (
 )
 from deeplearning4j_tpu_torch.parallel import (
     MeshSpec,
+    ParallelWrapper,
     build_mesh,
     init_process_group,
 )
@@ -556,15 +557,37 @@ def test_vgg16_step_with_replayed_dropout_keys(tmp_path):
 
 
 def test_refusals(tmp_path):
-    """The axes still queued raise for ROADMAP A.9's rest (here, before
-    any group exists; the model and fsdp axes run,
-    tests/test_torch_tensor_parallel.py); in a group of 2, a data axis of
-    3 and a seq axis raise, and ranks that iterate different data raise
-    on every rank."""
-    for spec in (MeshSpec(dcn=2), MeshSpec(data=2, seq=2),
-                 MeshSpec(pipe=2), MeshSpec(expert=2)):
-        with pytest.raises(NotImplementedError, match="A.9"):
-            build_mesh(spec)
+    """The dcn axis, still queued, raises for ROADMAP A.9's rest, and the
+    JAX wrapper's refusals of axis compositions stand: pipe x seq, pipe x
+    model, fsdp x seq, tBPTT x seq, and an LSTM under seq with JAX's
+    sp_safe message (here, before any group exists; the seq, pipe and
+    expert axes run, tests/test_torch_sequence_pipeline.py and
+    tests/test_torch_sharded_transformer.py); in a group of 2, a data axis
+    of 3 and a dcn axis raise, and ranks that iterate different data
+    raise on every rank."""
+    with pytest.raises(NotImplementedError, match="A.9"):
+        build_mesh(MeshSpec(dcn=2))
+    def net(conf):
+        return MultiLayerNetwork(MultiLayerConfiguration.from_json(
+            conf)).init(device="cpu")
+
+    dense = net(_dense_conf())
+    lstm = net(NeuralNetConfiguration(seed=1).list([
+        LSTM(n_out=8), RnnOutput(n_out=3, loss="mcxent")]).set_input_type(
+            it.recurrent(4, 8)).to_json())
+    tbptt = net(NeuralNetConfiguration(
+        seed=1, backprop_type="tbptt", tbptt_fwd_length=4).list([
+            LSTM(n_out=8), RnnOutput(n_out=3, loss="mcxent")]
+    ).set_input_type(it.recurrent(4, 8)).to_json())
+    for net, spec, match in (
+            (dense, MeshSpec(data=2, pipe=2, seq=2), "pipe x seq"),
+            (dense, MeshSpec(data=2, pipe=2, model=2), "pipe x model"),
+            (dense, MeshSpec(fsdp=2, seq=2), "fsdp composes"),
+            (tbptt, MeshSpec(data=2, seq=2), "truncated BPTT"),
+            (lstm, MeshSpec(data=2, seq=2), "LSTM reduces/restructures "
+             r"the time axis .*sp_safe=False")):
+        with pytest.raises(ValueError, match=match):
+            ParallelWrapper(net, mesh_spec=spec)
     with pytest.raises(ValueError, match="rendezvous"):
         init_process_group("tcp://10.0.0.1:1234", 0, 1, device="cpu")
     seen = spawn(tmp_path, 2, kind="mln", conf=_dense_conf(),
@@ -572,7 +595,7 @@ def test_refusals(tmp_path):
                  batch=16, epochs=1, refusals=True)()
     for rank in seen:
         assert "needs 3 ranks" in rank["world"]
-        assert "A.9" in rank["axis"]
+        assert "A.9" in rank["axis"] and "dcn" in rank["axis"]
         assert "different batches" in rank["batch"]
 
 

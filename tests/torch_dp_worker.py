@@ -25,6 +25,17 @@ TF32 off, each case's results add its kernel launches ("launches/..."),
 and a "probe" case checks the collectives and the model axis's autograd
 Functions on the device instead of fitting.
 
+The seq and pipe axes (tests/test_torch_sequence_pipeline.py): "mesh"
+may name them, "microbatches" is the wrapper's. A "ring" case
+(tests/test_torch_ring.py) runs `parallel.ring.ring_attention` on the
+global q, k, v (and mask) of its .npz on its mesh and writes the output
+and the gradients of sum(o * w); an "lm" case
+(tests/test_torch_sharded_transformer.py) builds a ShardedTransformerLM
+of its config on its mesh from the JAX params of its .npz (or "restore"s
+a checkpoint), fits "steps" steps on the .npz's ids, targets and weights
+and writes the losses and the logits, saving a checkpoint after
+"save_at" steps where asked.
+
 The model and fsdp axes (tests/test_torch_tensor_parallel.py): "mesh"
 names the MeshSpec's axes (default: every rank on the data axis),
 "remat" sets every layer's remat policy, "window" sets
@@ -231,7 +242,7 @@ def refusals(spec, net):
     seen = {}
     for name, ms, exc in (("world", MeshSpec(data=spec["world"] + 1),
                            ValueError),
-                          ("axis", MeshSpec(data=spec["world"], seq=2),
+                          ("axis", MeshSpec(data=spec["world"], dcn=2),
                            NotImplementedError)):
         try:
             ParallelWrapper(net, mesh_spec=ms)
@@ -280,7 +291,8 @@ def fit_case(spec):
     def fit(net, epochs, mesh=mesh, **att):
         log = Scores()
         net.set_listeners(log)
-        pw = ParallelWrapper(net, mesh_spec=mesh)
+        pw = ParallelWrapper(net, mesh_spec=mesh,
+                             microbatches=spec.get("microbatches"))
         if spec.get("table"):
             net.set_param_table(dict(np.load(spec["table"])))
         pw.fit(ListDataSetIterator(dataset(spec), batch=spec["batch"],
@@ -391,6 +403,77 @@ def probe(spec):
     return out
 
 
+_GRIDS = {}
+
+
+def grid_of(mesh):
+    """The grid of a mesh dict, built once per process group."""
+    from deeplearning4j_tpu_torch.parallel import build_mesh
+
+    key = tuple(sorted(mesh.items()))
+    if key not in _GRIDS:
+        _GRIDS[key] = build_mesh(MeshSpec(**mesh))
+    return _GRIDS[key]
+
+
+def ring_case(spec):
+    """Ring attention over global inputs: the output and the gradients of
+    sum(o * w) with respect to q, k and v."""
+    from deeplearning4j_tpu_torch.parallel import ring
+
+    z = np.load(spec["data"])
+    dev = spec.get("device", "cpu")
+    dt = getattr(torch, spec.get("dtype", "float32"))
+    q, k, v = (torch.from_numpy(z[n]).to(dev, dt).requires_grad_(True)
+               for n in ("q", "k", "v"))
+    mask = (torch.from_numpy(z["mask"]).to(dev) if "mask" in z.files
+            else None)
+    before = launch_counts()
+    grid = grid_of(spec["mesh"])
+    hops = grid.seq.stats.collectives
+    o = ring.ring_attention(q, k, v, grid, mask=mask,
+                            causal=spec["causal"],
+                            block_size=spec.get("block_size"))
+    (o.float() * torch.from_numpy(z["w"]).to(dev)).sum().backward()
+    out = {"o": o.detach().float().cpu().numpy()}
+    out.update({f"d{n}": t.grad.float().cpu().numpy()
+                for n, t in (("q", q), ("k", k), ("v", v))})
+    out["kernel_route"] = ring.kernel_route(q, mask)
+    out["hops"] = grid.seq.stats.collectives - hops
+    out.update({f"launches/{k}": v - before[k]
+                for k, v in launch_counts().items()})
+    return out
+
+
+def lm_case(spec):
+    """A ShardedTransformerLM on its mesh: losses, logits, a checkpoint."""
+    from deeplearning4j_tpu_torch.parallel import (
+        ShardedTransformerLM,
+        TransformerConfig,
+    )
+
+    grid = grid_of(spec["mesh"])
+    dev = spec.get("device", "cpu")
+    if spec.get("restore"):
+        lm = ShardedTransformerLM.restore(spec["restore"], grid, device=dev)
+    else:
+        lm = ShardedTransformerLM(TransformerConfig(**spec["config"]), grid,
+                                  device=dev)
+        z = np.load(spec["weights"])
+        interop.sharded_lm_params_from_jax(lm, unflatten(
+            {k: z[k] for k in z.files}))
+    d = np.load(spec["data"])
+    w = d["w"] if "w" in d.files else None
+    losses = []
+    for i in range(spec["steps"]):
+        if spec.get("save_at") == i:
+            lm.save(spec["save"])
+        losses.append(lm.fit_batch(d["ids"], d["tgt"], w))
+    return {"losses": np.asarray(losses, np.float64),
+            "logits": lm.logits(d["ids"]), "iteration": lm.iteration,
+            "local_wqkv": np.asarray(lm.params["blocks"]["Wqkv"].shape)}
+
+
 def main(spec_path):
     with open(spec_path) as f:
         spec = json.load(f)
@@ -406,6 +489,12 @@ def main(spec_path):
                 continue
             if case.get("probe"):
                 np.savez(case["out"], **probe(case))
+                continue
+            if case.get("ring"):
+                np.savez(case["out"], **ring_case(case))
+                continue
+            if case.get("lm"):
+                np.savez(case["out"], **lm_case(case))
                 continue
             if case.get("per_rank_bn"):
                 normalization.shard_mod = types.SimpleNamespace(
