@@ -554,6 +554,36 @@ Phases, in order; any failure exits non-zero without the final line:
               data=2 x seq=2 and model=2 x seq=2 and the MoE config at
               pipe=2 x expert=2, 3 steps each against one process; the
               grid's checkpoint restored here, logits compared.
+ 78. pi-resnet  zoo ResNet-50 behind parallel.ParallelInference (batch
+              limit 32, the model's own card) in BATCHED then INSTANT mode
+              with DL4J_TPU_SERVING unset, then BATCHED with it set (the
+              serving runtime): concurrent requests of 1, 3, 8 and 32 rows
+              and one whose trailing shape does not match (it fails alone),
+              each answer against net.output at serve's tolerance; bn_act
+              53 times per dispatched batch and no other kernel; images/s
+              per mode over a stream of 48 32-row requests beside serve's
+              InferenceServer figure.
+ 79. registry-fleet  one serving.ModelRegistry with a warm-manifest
+              directory serving ResNet-50 from a checkpoint zip written
+              by write_model, the full-width TransformerLM from a
+              CheckpointManager directory through its latest pointer (a
+              torn publication beside it refused with IOError) and
+              zoo:LeNet by name, side by side, plus a second ResNet-50
+              version (zoo:ResNet50) made stable with set_stable: every
+              answer against its model's output; served rates side by
+              side; a second registry warmed from the manifests alone
+              (first-request latency against a cold replica's); two
+              tenants at weights 3:1 and a third over its quota on one
+              shared ResNet-50 server under backlog (served-row ratio,
+              TenantQuotaError count); submit_with_retry through a server
+              that sheds. bn_act 53 per ResNet-50 forward, flash_attention
+              6 per TransformerLM forward, no other kernel.
+ 80. dcn-dp     refer-dp's three networks through ParallelWrapper on four
+              gloo ranks of the one card at MeshSpec(dcn=2, data=2), TF32
+              off: after every step the four ranks bit-identical (so each
+              dcn row equals its data peer) and within refer-dp's 1e-5 of
+              this process's fit; each rank launches refer-dp's kernels per
+              step.
 
 The characters the training phases learn are drawn with Zipf frequencies,
 so that a falling loss shows learning; their shapes are bench.py
@@ -564,8 +594,9 @@ generation run, each training run (the data-parallel ones too), the
 restore-and-resume runs, each evaluation pass and each solver, window,
 sentry and records run, each serving or training run of A.8's paths,
 each pretraining and fine-tuning run, each training run of A.3's rest
-and A.9 and each ring call (in the ranks' processes too), and read just
-after. The
+and A.9 and each ring call (in the ranks' processes too), each
+ParallelInference mode, the registry's run and the dcn ranks' fits, and
+read just after. The
 last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 Exits non-zero when no CUDA device is available, and when the port's
@@ -588,6 +619,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 SEED = 7
 BATCH = 32                 # ResNet-50 server's batch_limit: its serving batch
+SERVE_RATES = {}           # images/s of each serve phase's stream, by tag
 L2_BYTES = 50 * 2 ** 20    # H100 L2; timing inputs rotate through 2x this
 ITERS = 50
 
@@ -1123,6 +1155,7 @@ def phase_serve(torch, np, net, card, rows=None, tag="serve", limit=BATCH,
         if out.shape[0] != limit or not np.isfinite(out).all():
             raise AssertionError(f"{tag}: streamed request: bad output")
     img_s = n_stream * limit / wall
+    SERVE_RATES[tag] = img_s
     log(f"[{tag}] stream: {n_stream} requests x {limit} rows in "
         f"{wall:.3f} s = {img_s:.1f} img/s, latency p50 "
         f"{lats[len(lats) // 2] * 1e3:.2f} ms, max {lats[-1] * 1e3:.2f} ms "
@@ -4222,11 +4255,15 @@ class Snapshots:
         self.steps.append(snap)
 
 
-def dp_refer_run(torch, np, rank=None, tmp=None):
-    """Trains the two refer-dp networks on the card, TF32 off and cuDNN
+def dp_refer_run(torch, np, rank=None, tmp=None, dcn=False):
+    """Trains the refer-dp networks on the card, TF32 off and cuDNN
     deterministic: in this process by fit (`rank` None), or as `rank` of
-    2 through ParallelWrapper over gloo (rendezvous in `tmp`). Returns
-    ({net: [snapshot per step]}, {net: launches})."""
+    2 (MeshSpec(data=2)), or with `dcn` of 4 (MeshSpec(dcn=2, data=2)),
+    through ParallelWrapper over gloo (rendezvous in `tmp`). Returns
+    ({net: [snapshot per step]}, {net: launches}, {net: what the wrapper
+    saw}): for a rank, the (global, local) rows of each batch it stepped
+    on ("rows") and its collectives per axis ("coll"); {} in this
+    process."""
     from deeplearning4j_tpu_torch import dtypes
     from deeplearning4j_tpu_torch.parallel import (
         MeshSpec,
@@ -4234,43 +4271,61 @@ def dp_refer_run(torch, np, rank=None, tmp=None):
         init_process_group,
     )
 
+    spec = MeshSpec(dcn=2, data=2) if dcn else MeshSpec(data=2)
     cudnn = torch.backends.cudnn
     saved = cudnn.deterministic, cudnn.benchmark
     cudnn.deterministic, cudnn.benchmark = True, False
     if rank is not None:
-        init_process_group(f"file://{tmp}/rdv", rank, 2, backend="gloo")
+        init_process_group(f"file://{tmp}/rdv", rank, spec.total(),
+                           backend="gloo")
     try:
         data = dp_refer_data(np)
-        out, launches = {}, {}
+        out, launches, seen = {}, {}, {}
         for name, net in dp_refer_nets().items():
             snaps = Snapshots()
             net.set_listeners(snaps)
-            fit = net.fit
+            fit, pw = net.fit, None
             if rank is not None:
-                fit = ParallelWrapper(net, mesh_spec=MeshSpec(data=2)).fit
+                pw = ParallelWrapper(net, mesh_spec=spec)
+                fit, rows = pw.fit, []
+                local = pw._local
+
+                def counted(ds, local=local, rows=rows):
+                    got = local(ds)
+                    rows.append((ds.num_examples(), got[0].num_examples()))
+                    return got
+
+                pw._local = counted
             reset_counts()
             with dtypes.full_precision():
                 for ds in data[name]:
                     fit(ds)
             launches[name] = read_counts()
             out[name] = snaps.steps
+            if pw is not None:
+                seen[name] = {"rows": rows, "coll": pw.collective_stats()}
     finally:
         cudnn.deterministic, cudnn.benchmark = saved
         if rank is not None:
             torch.distributed.destroy_process_group()
-    return out, launches
+    return out, launches, seen
 
 
-def dp_rank_main(rank: int, tmp: str) -> int:
-    """A refer-dp rank (this script run with --dp-rank RANK DIR): trains
-    and writes its snapshots and launches to DIR/rank{RANK}.npz."""
+def dp_rank_main(rank: int, tmp: str, dcn: bool = False) -> int:
+    """A refer-dp rank (this script run with --dp-rank RANK DIR) or a
+    dcn-dp rank (--dcn-rank RANK DIR): trains and writes its snapshots
+    and launches to DIR/rank{RANK}.npz."""
     import numpy as np
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    out, launches = dp_refer_run(torch, np, rank, tmp)
+    out, launches, seen = dp_refer_run(torch, np, rank, tmp, dcn=dcn)
     flat = {f"launches/{name}/{k}": v for name, counts in launches.items()
             for k, v in counts.items()}
+    for name, s in seen.items():
+        flat[f"rows/{name}"] = np.asarray(s["rows"], np.int64)
+        flat.update({f"coll/{name}/{axis}": v["collectives"]
+                     for axis, v in s["coll"].items()})
     for name, steps in out.items():
         for i, snap in enumerate(steps):
             flat.update({f"{name}/{i}/{k}": np.asarray(v)
@@ -4279,22 +4334,18 @@ def dp_rank_main(rank: int, tmp: str) -> int:
     return 0
 
 
-def phase_refer_dp(torch, np):
-    """Two ranks of ParallelWrapper spawned on the one card over gloo
-    against this process's fit on the same global batches and draws:
-    after every step (tBPTT window) the ranks' params, slots and running
-    stats are bit-identical, and the score, params, Nesterovs / Adam slots
-    and BatchNorm running stats within DP_REFER_TOL of the single process
-    (each leaf relative to its largest magnitude); every process launches
-    exactly DP_REFER_PER_STEP per step."""
-    t0 = time.perf_counter()
+def dp_spawn_ranks(torch, np, tag, flag, world, single=None):
+    """`world` ranks of this script (`flag` RANK DIR) trained on the one
+    card, and (when `single` is None) this process's fit beside them.
+    Returns (single, launches, [each rank's npz])."""
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
-             tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-            for r in range(2)]
+            [sys.executable, os.path.abspath(__file__), flag, str(r), tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(world)]
         try:
-            single, launches = dp_refer_run(torch, np)
+            if single is None:
+                single = dp_refer_run(torch, np)
             logs = [p.communicate(timeout=300)[0].decode() for p in procs]
         finally:
             for p in procs:
@@ -4303,39 +4354,113 @@ def phase_refer_dp(torch, np):
                     p.wait()
         for r, (p, text) in enumerate(zip(procs, logs)):
             if p.returncode != 0:
-                raise AssertionError(f"refer-dp: rank {r} exited "
+                raise AssertionError(f"{tag}: rank {r} exited "
                                      f"{p.returncode}:\n{text[-4000:]}")
         ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
-                 for r in range(2)]
+                 for r in range(world)]
+    return single[0], single[1], ranks
+
+
+def check_dp_ranks(np, tag, single, launches, ranks, what):
+    """Every rank bit-identical to rank 0 after every step (tBPTT window),
+    and the score, params, updater slots and running stats within
+    DP_REFER_TOL of the single process (each leaf relative to its largest
+    magnitude); every process launches DP_REFER_PER_STEP per step.
+    Returns each rank's launches summed over the networks."""
+    per_rank = [dict.fromkeys(launches[next(iter(launches))], 0)
+                for _ in ranks]
     for name, steps in single.items():
         per = DP_REFER_PER_STEP[name]
         want = {k: len(steps) * per.get(k, 0) for k in launches[name]}
         got = [launches[name]] + [{k: int(r[f"launches/{name}/{k}"])
                                    for k in want} for r in ranks]
         if any(g != want for g in got):
-            raise AssertionError(f"refer-dp {name}: launches (single, rank "
-                                 f"0, rank 1) {got}, want {want}")
+            raise AssertionError(f"{tag} {name}: launches (single, then "
+                                 f"each rank) {got}, want {want}")
+        for i, g in enumerate(got[1:]):
+            per_rank[i] = add_counts(per_rank[i], g)
         worst = {}
         for i, snap in enumerate(steps):
             for k, ref in snap.items():
-                a, b = (r[f"{name}/{i}/{k}"] for r in ranks)
-                if not np.array_equal(a, b):
-                    raise AssertionError(f"refer-dp {name}: the ranks "
-                                         f"differ after step {i + 1} in {k}")
+                a = ranks[0][f"{name}/{i}/{k}"]
+                for r, other in enumerate(ranks[1:], 1):
+                    if not np.array_equal(a, other[f"{name}/{i}/{k}"]):
+                        raise AssertionError(
+                            f"{tag} {name}: rank {r} differs from rank 0 "
+                            f"after step {i + 1} in {k}")
                 kind = k.split("/")[0]
                 err = (abs(float(a) - ref) / abs(ref) if kind == "score"
                        else leaf_rel(a, ref))
                 worst[kind] = max(worst.get(kind, 0.0), err)
-        log(f"[refer-dp] {name}: {len(steps)} steps, 2 ranks (gloo, one "
-            f"card) bit-identical after each; against one process, worst "
+        log(f"[{tag}] {name}: {len(steps)} steps, {len(ranks)} ranks ("
+            f"{what}) bit-identical after each; against one process, worst "
             + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
             + f" (tol {DP_REFER_TOL:g}); launches per process {want}")
         bad = {k: v for k, v in worst.items()
                if not (math.isfinite(v) and v <= DP_REFER_TOL)}
         if bad:
-            raise AssertionError(f"refer-dp {name}: ranks and one process "
+            raise AssertionError(f"{tag} {name}: ranks and one process "
                                  f"differ: {bad}")
+    return per_rank
+
+
+def check_rank_rows(np, tag, ranks, single, data):
+    """Each rank stepped on its share of every global batch, the rows over
+    the data axis alone (a dcn peer takes the same count: nothing is split
+    over dcn), and ran no collective on the dcn group and some on the data
+    group."""
+    for name in single:
+        for r, z in enumerate(ranks):
+            rows = z[f"rows/{name}"]
+            want = [-(-g // data) for g in rows[:, 0]]
+            if len(rows) == 0 or list(rows[:, 1]) != want:
+                raise AssertionError(
+                    f"{tag} {name}: rank {r} stepped on (global, local) "
+                    f"rows {rows.tolist()}, want local {want}")
+            dcn, dat = (int(z[f"coll/{name}/dcn"]),
+                        int(z[f"coll/{name}/data"]))
+            if dcn != 0 or dat <= 0:
+                raise AssertionError(f"{tag} {name}: rank {r} ran {dcn} "
+                                     f"collectives on dcn and {dat} on "
+                                     f"data")
+        log(f"[{tag}] {name}: each of {len(ranks)} ranks stepped on "
+            f"{ranks[0][f'rows/{name}'][:, 1].tolist()} of "
+            f"{ranks[0][f'rows/{name}'][:, 0].tolist()} rows; collectives "
+            f"data {[int(z[f'coll/{name}/data']) for z in ranks]}, dcn "
+            f"{[int(z[f'coll/{name}/dcn']) for z in ranks]}")
+
+
+def phase_refer_dp(torch, np):
+    """Two ranks of ParallelWrapper spawned on the one card over gloo
+    against this process's fit on the same global batches and draws
+    (`check_dp_ranks`). Returns the single process's (snapshots,
+    launches)."""
+    t0 = time.perf_counter()
+    single, launches, ranks = dp_spawn_ranks(torch, np, "refer-dp",
+                                             "--dp-rank", 2)
+    check_dp_ranks(np, "refer-dp", single, launches, ranks,
+                   "gloo, one card")
+    check_rank_rows(np, "refer-dp", ranks, single, 2)
     log(f"[refer-dp] took {time.perf_counter() - t0:.1f} s")
+    return single, launches
+
+
+def phase_dcn_dp(torch, np, single):
+    """refer-dp's networks on four ranks at MeshSpec(dcn=2, data=2) against
+    `single` (refer-dp's one-process run): the dcn axis replicates the
+    data-sharded step, so all four ranks end every step bit-identical
+    (ranks 0 and 2, 1 and 3 are each other's dcn peers) and within
+    DP_REFER_TOL of one process; each rank stepped on its data share of
+    every batch and ran no collective on dcn (`check_rank_rows`). Returns
+    each rank's launches."""
+    t0 = time.perf_counter()
+    snaps, launches, ranks = dp_spawn_ranks(torch, np, "dcn-dp",
+                                            "--dcn-rank", 4, single=single)
+    per_rank = check_dp_ranks(np, "dcn-dp", snaps, launches, ranks,
+                              "MeshSpec(dcn=2, data=2), gloo, one card")
+    check_rank_rows(np, "dcn-dp", ranks, snaps, 2)
+    log(f"[dcn-dp] took {time.perf_counter() - t0:.1f} s")
+    return per_rank
 
 
 # ------------------------------------------------------------ phases 36-40
@@ -8405,6 +8530,513 @@ def phase_sharded_lm(torch, np, card, tmp):
     return per_step
 
 
+# ------------------------------------------------------------ phases 78-80
+# A.9's rest and A.10's first half: ParallelInference, the model registry
+# with tenancy, warm manifests and the retrying client, the dcn axis
+PI_STREAM = 48             # 32-row requests per ParallelInference mode
+PI_MODES = (("batched", False), ("instant", False), ("batched", True))
+# an answer against its model's output on the same rows, each row's
+# largest difference over its largest value: with TF32 off (the request
+# and the reference in exact float32), and under the default policy (TF32
+# convolutions; the batch the request rode in may differ from the
+# reference's). A row of another request differs by far more: pi-resnet
+# measures that least difference in each run and fails if a limit is not
+# below it, since a check that a swap of rows would pass proves nothing.
+FULL_TOL = 1e-5
+TF32_TOL = 1e-3
+LM_SERVE_TOL = 1e-3        # phase_serve_lm's: of the largest probability
+PI_MIXED = (5, 7, 2, 16, 9, 4)  # more rows coalesced and carried, TF32 off
+FLEET_SECONDS = 2.0        # the side-by-side and tenant runs
+FLEET_ROWS = 8             # rows per tenant and retrying request
+TENANTS = {"gold": 3.0, "bronze": 1.0}
+TENANT_CLIENTS = 8         # closed-loop clients per weighted tenant
+CAPPED = dict(rate=32.0, burst=16.0)  # the over-quota tenant's rows/s
+RETRY_CLIENTS = 12
+
+
+class Forwards:
+    """Counts the forwards of each network that return, through an
+    instance attribute over its `output`; `direct[name]` is the original
+    (uncounted) forward."""
+
+    def __init__(self, nets):
+        self.nets, self.n, self.direct = nets, {}, {}
+        for name, net in nets.items():
+            self.n[name] = 0
+            self.direct[name] = net.output
+            net.output = functools.partial(self._counted, name)
+
+    def _counted(self, name, x):
+        out = self.direct[name](x)
+        self.n[name] += 1
+        return out
+
+    def restore(self):
+        for name, net in self.nets.items():
+            net.output = self.direct[name]
+
+
+def row_diffs(np, out, ref):
+    """Each row's largest |out - ref| over its largest |ref|."""
+    out = np.asarray(out, np.float64).reshape(len(ref), -1)
+    ref = np.asarray(ref, np.float64).reshape(len(ref), -1)
+    return (np.abs(out - ref).max(1)
+            / np.maximum(np.abs(ref).max(1), 1e-30))
+
+
+def served_close(np, tag, out, ref, tol, whole=False):
+    """A served answer against the model's own output on its rows: each
+    row within `tol` of its largest value with the same argmax, or with
+    `whole` (phase_serve_lm's rule) the answer within `tol` of its
+    largest."""
+    out = np.asarray(out)
+    if out.shape != ref.shape or not np.isfinite(out).all():
+        raise AssertionError(f"{tag}: bad answer {out.shape}, want "
+                             f"{ref.shape}")
+    if whole:
+        diff = (float(np.abs(out - ref).max())
+                / max(float(np.abs(ref).max()), 1e-30))
+        if not diff <= tol:
+            raise AssertionError(f"{tag}: answer differs by {diff:.3g} of "
+                                 f"its largest (tol {tol:g})")
+        return diff
+    diff = float(row_diffs(np, out, ref).max())
+    if not diff <= tol or (out.argmax(-1) != ref.argmax(-1)).any():
+        raise AssertionError(f"{tag}: a row differs by {diff:.3g} of its "
+                             f"largest (tol {tol:g}) or in its argmax")
+    return diff
+
+
+def ask(server, x, **kw):
+    """(answer or the exception, seconds)."""
+    t0 = time.perf_counter()
+    try:
+        out = server.output(x, **kw)
+    except Exception as e:
+        out = e
+    return out, time.perf_counter() - t0
+
+
+def phase_pi_resnet(torch, np, card):
+    """ResNet-50 behind ParallelInference in each of PI_MODES (see the
+    module docstring): with TF32 off, requests of 1, 3, 8 and 32 rows and
+    of PI_MIXED rows at once, each within FULL_TOL of net.output on its
+    rows, and one of another trailing shape that fails alone; then the
+    timed stream under the default policy, every answer within TF32_TOL
+    of net.output on its own input. Returns the launches summed over the
+    modes and the images/s of each."""
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+
+    net = resnet_net(torch, card_device(torch))
+    rng = np.random.default_rng(SEED + 23)
+    sizes = (1, 3, 8, BATCH) + PI_MIXED
+    xs = [rng.standard_normal((n, *RESNET_SHAPE)).astype(np.float32)
+          for n in sizes]
+    bad = rng.standard_normal((2, RESNET_SHAPE[0], RESNET_SHAPE[1],
+                               4)).astype(np.float32)
+    stream = [rng.standard_normal((BATCH, *RESNET_SHAPE)).astype(np.float32)
+              for _ in range(4)]
+    with dtypes.full_precision():
+        refs = [net.output(x).cpu().numpy() for x in xs]
+    stream_refs = [net.output(x).cpu().numpy() for x in stream]
+    # the least difference between two different requests' rows, against
+    # which each limit must be small
+    pool_rows = np.concatenate(refs)
+    apart = min(float(row_diffs(np, np.roll(pool_rows, k, 0),
+                                pool_rows).min())
+                for k in range(1, 4))
+    if not max(FULL_TOL, TF32_TOL) < apart:
+        raise AssertionError(f"pi-resnet: rows of different requests "
+                             f"differ by only {apart:.3g} of their "
+                             f"largest; the tolerances could not see a "
+                             f"swap")
+    fwd = Forwards({"resnet": net})
+    total, rates = None, {}
+    try:
+        for mode, gate in PI_MODES:
+            tag = mode + (" DL4J_TPU_SERVING=1" if gate else "")
+            fwd.n["resnet"] = 0
+            reset_counts()
+            with env_vars(DL4J_TPU_SERVING="1" if gate else None):
+                pi = ParallelInference(net, mode=mode, batch_limit=BATCH)
+            try:
+                with dtypes.full_precision():
+                    with ThreadPoolExecutor(len(xs) + 1) as pool:
+                        first = list(pool.map(lambda x: ask(
+                            pi, x, deadline_s=300.0), xs + [bad]))
+                    torch.cuda.synchronize()
+                # one untimed batch under the default policy first, as
+                # serve's warmup has it: the dispatcher thread's first
+                # TF32 convolutions are not the stream's
+                order = [i % len(stream) for i in range(PI_STREAM)]
+                warm, _ = ask(pi, stream[0], deadline_s=300.0)
+                if isinstance(warm, Exception):
+                    raise AssertionError(f"pi-resnet {tag}: {warm!r}")
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                with ThreadPoolExecutor(4) as pool:
+                    streamed = list(pool.map(lambda i: ask(
+                        pi, stream[i], deadline_s=300.0), order))
+                wall = time.perf_counter() - t1
+            finally:
+                pi.shutdown()
+            launches = read_counts()
+            n_fwd = fwd.n["resnet"]
+            expect_launches(f"pi-resnet {tag}", launches,
+                            {"bn_act": 53 * n_fwd})
+            total = launches if total is None else add_counts(total,
+                                                              launches)
+            worst = 0.0
+            for x, ref, (out, lat) in zip(xs, refs, first):
+                if isinstance(out, Exception):
+                    raise AssertionError(f"pi-resnet {tag}: request of "
+                                         f"{x.shape[0]} rows failed: {out!r}")
+                worst = max(worst, served_close(
+                    np, f"pi-resnet {tag} rows={x.shape[0]}", out, ref,
+                    FULL_TOL))
+            if not isinstance(first[-1][0], Exception):
+                raise AssertionError(f"pi-resnet {tag}: the request of "
+                                     f"trailing shape {bad.shape[1:]} was "
+                                     f"answered")
+            worst_stream = 0.0
+            for i, (out, _) in zip([0] + order, [(warm, 0.0)] + streamed):
+                if isinstance(out, Exception):
+                    raise AssertionError(f"pi-resnet {tag}: streamed "
+                                         f"request: {out!r:.200}")
+                worst_stream = max(worst_stream, served_close(
+                    np, f"pi-resnet {tag} streamed", out, stream_refs[i],
+                    TF32_TOL))
+            rates[tag] = PI_STREAM * BATCH / wall
+            lats = sorted(lat for _, lat in streamed)
+            log(f"[pi-resnet] {tag}: {n_fwd} batches, launches "
+                f"{ {k: v for k, v in launches.items() if v} }; TF32 off, "
+                f"requests of {sizes} rows within {worst:.3g} of "
+                f"net.output per row (tol {FULL_TOL:g}), latencies "
+                + ", ".join(f"{lat * 1e3:.1f}" for _, lat in first[:-1])
+                + f" ms; trailing shape {bad.shape[1:]} failed alone "
+                f"({type(first[-1][0]).__name__}); stream {PI_STREAM} x "
+                f"{BATCH} rows in {wall:.3f} s = {rates[tag]:.1f} img/s, "
+                f"p50 {lats[len(lats) // 2] * 1e3:.2f} ms, every answer "
+                f"within {worst_stream:.3g} per row (tol {TF32_TOL:g}) "
+                f"({card})")
+    finally:
+        fwd.restore()
+    log(f"[pi-resnet] rows of different requests differ by at least "
+        f"{apart:.3g} of their largest; images/s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+        + f"; serve's InferenceServer in this call "
+        f"{SERVE_RATES.get('serve', float('nan')):.1f} ({card})")
+    return total, rates
+
+
+def write_publication(torch, np, net, tmp):
+    """`net` published as a continuous learner publishes: a
+    CheckpointManager checkpoint, then the latest pointer naming it; and a
+    torn copy beside it (the zip cut in half, the manifest kept). Returns
+    (directory, torn directory)."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.distributed.continuous import (
+        LATEST_POINTER,
+        POINTER_VERSION,
+    )
+    from deeplearning4j_tpu_torch.resilience.checkpoint import (
+        CheckpointManager,
+        atomic_write_json,
+    )
+
+    pub = os.path.join(tmp, "lm_publication")
+    mgr = CheckpointManager(pub, save_updater=False)
+    mgr.save(net, step=1)
+    m = mgr.manifest(1)
+    atomic_write_json(os.path.join(pub, LATEST_POINTER), {
+        "pointer_version": POINTER_VERSION, "step": 1,
+        "sha256": m["sha256"], "time": m["time"], "trace_id": None})
+    torn = os.path.join(tmp, "lm_torn")
+    shutil.copytree(pub, torn)
+    z = os.path.join(torn, "checkpoint_00000001.zip")
+    size = os.path.getsize(z)
+    with open(z, "r+b") as f:
+        f.truncate(size // 2)
+    return pub, torn
+
+
+def phase_registry_fleet(torch, np, card, tmp):
+    """One ModelRegistry serving three sources side by side, a second
+    version made stable, a second registry warmed from the manifests,
+    tenants and the retrying client (see the module docstring). Returns
+    the launches."""
+    import random
+    import threading
+
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.models import write_model
+    from deeplearning4j_tpu_torch.serving import (
+        InferenceServer,
+        ModelRegistry,
+        TenancyController,
+        TenantQuotaError,
+        submit_with_retry,
+        warmstart,
+    )
+    from deeplearning4j_tpu_torch.zoo import TransformerLM
+
+    dev = card_device(torch)
+    t0 = time.perf_counter()
+    zip_path = os.path.join(tmp, "resnet50.zip")
+    resnet = resnet_net(torch, dev)
+    write_model(resnet, zip_path, save_updater=False)
+    del resnet
+    lm = TransformerLM(**LM, seed=SEED).init(device=dev)
+    pub, torn = write_publication(torch, np, lm, tmp)
+    del lm
+    torch.cuda.empty_cache()
+    log(f"[registry-fleet] sources written in "
+        f"{time.perf_counter() - t0:.2f} s: {os.path.basename(zip_path)} "
+        f"({os.path.getsize(zip_path) / 1e6:.1f} MB), a TransformerLM "
+        f"publication and a torn one beside it")
+    rng = np.random.default_rng(SEED + 29)
+    t, vocab = LM["max_length"], LM["num_classes"]
+
+    def images(n):
+        return rng.standard_normal((n, *RESNET_SHAPE)).astype(np.float32)
+
+    def ids(n):
+        return rng.integers(0, vocab, (n, t)).astype(np.int32)
+
+    def digits(n):
+        return rng.standard_normal((n, 28, 28, 1)).astype(np.float32)
+
+    warm_dir = os.path.join(tmp, "warm")
+    reg = ModelRegistry(warm_cache_dir=warm_dir)
+    reg2 = fwd = None
+    try:
+        try:
+            reg.register("lm-torn", torn, batch_limit=LM_BATCH)
+        except IOError as e:
+            log(f"[registry-fleet] torn publication refused: {e}")
+        else:
+            raise AssertionError("registry-fleet: a torn publication was "
+                                 "registered")
+        t1 = time.perf_counter()
+        mv = {"resnet": reg.register("resnet", zip_path, batch_limit=BATCH),
+              "lm": reg.register("lm", pub, batch_limit=LM_BATCH),
+              "lenet": reg.register("lenet", "zoo:LeNet",
+                                    batch_limit=BATCH),
+              "resnet-v2": reg.register("resnet", "zoo:ResNet50",
+                                        version="v2", stable=False,
+                                        batch_limit=BATCH)}
+        log(f"[registry-fleet] resolved and registered {reg.models()} "
+            f"(resnet v1 from the zip, v2 zoo:ResNet50; lm through "
+            f"{continuous_step(pub)}) in {time.perf_counter() - t1:.2f} s")
+        fwd = Forwards({k: v.server.model for k, v in mv.items()})
+        make = {"resnet": images, "resnet-v2": images, "lm": ids,
+                "lenet": digits}
+        reset_counts()
+        t1 = time.perf_counter()
+        reg.warm("resnet", example=images(1))
+        reg.warm("resnet", "v2", example=images(1))
+        reg.warm("lm", example=ids(1))
+        reg.warm("lenet", example=digits(1))
+        torch.cuda.synchronize()
+        log(f"[registry-fleet] warmed every bucket in "
+            f"{time.perf_counter() - t1:.2f} s; manifests "
+            + ", ".join(f"{m['model']}:{m['version']} {m['buckets']}"
+                        for m in warmstart.list_manifests(warm_dir)))
+
+        # side by side: each model's requests at once, TF32 off; every
+        # answer is held against its model's output after the launches are
+        # read (with TF32 off where it was served so)
+        checks = []  # (what, model, x, answer, TF32 off)
+        asks = [(name, make[name](n)) for name in ("resnet", "lm", "lenet")
+                for n in ((1, 3, LM_BATCH) if name == "lm" else
+                          (1, 3, 8, BATCH))]
+        with dtypes.full_precision():
+            with ThreadPoolExecutor(len(asks)) as pool:
+                got = list(pool.map(lambda a: ask(
+                    reg.get(a[0]).server, a[1], deadline_s=300.0), asks))
+            for (name, x), (out, _) in zip(asks, got):
+                if isinstance(out, Exception):
+                    raise AssertionError(f"registry-fleet {name}: {out!r}")
+                checks.append((f"side by side, {x.shape[0]} rows", name,
+                               x, out, True))
+            reg.set_stable("resnet", "v2")
+            if reg.get("resnet").version != "v2":
+                raise AssertionError("registry-fleet: set_stable did not "
+                                     "move")
+            x = images(8)
+            checks.append(("stable v2", "resnet-v2", x, reg.get(
+                "resnet").server.output(x, deadline_s=300.0), True))
+
+        # served rates side by side
+        reg.set_stable("resnet", "v1")
+        rows = {"resnet": 0, "lm": 0, "lenet": 0}
+        lock = threading.Lock()
+        end = time.perf_counter() + FLEET_SECONDS
+        fixed = {"resnet": images(BATCH), "lm": ids(LM_BATCH),
+                 "lenet": digits(BATCH)}
+
+        def client(name):
+            server, x = reg.get(name).server, fixed[name]
+            while time.perf_counter() < end:
+                out = server.output(x, deadline_s=300.0)
+                with lock:
+                    rows[name] += out.shape[0]
+
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(6) as pool:
+            list(pool.map(client, ["resnet"] * 3 + ["lm"] + ["lenet"] * 2))
+        wall = time.perf_counter() - t1
+        log(f"[registry-fleet] side by side for {wall:.2f} s: resnet "
+            f"{rows['resnet'] / wall:.1f} images/s, lm "
+            f"{rows['lm'] * t / wall:.1f} tokens/s ({rows['lm'] / wall:.2f} "
+            f"sequences/s), lenet {rows['lenet'] / wall:.1f} images/s "
+            f"({card})")
+
+        # a second registry warmed from the manifests alone
+        net = mv["resnet"].server.model
+        reg2 = ModelRegistry(warm_cache_dir=warm_dir)
+        warm = reg2.register("resnet", net, batch_limit=BATCH)
+        cold = reg2.register("resnet", net, version="cold",
+                             batch_limit=BATCH, stable=False)
+        t1 = time.perf_counter()
+        reg2.warm("resnet")
+        warm_s = time.perf_counter() - t1
+        x = images(8)
+        out, warm_first = ask(warm.server, x, deadline_s=300.0)
+        checks.append(("warm replica", "resnet", x, out, False))
+        out, cold_first = ask(cold.server, x, deadline_s=300.0)
+        checks.append(("cold replica", "resnet", x, out, False))
+        warmed = sorted(b for _, b in warm.server.warmed_rows)
+        log(f"[registry-fleet] second registry warmed resnet:v1 from its "
+            f"manifest alone (buckets {warmed}) in {warm_s:.2f} s; first "
+            f"request of 8 rows "
+            f"{warm_first * 1e3:.2f} ms warm against {cold_first * 1e3:.2f} "
+            f"ms on a cold replica ({card})")
+
+        # tenants on one shared server under backlog
+        ctrl = TenancyController(default_rate=1e9, quantum=FLEET_ROWS)
+        for name, w in TENANTS.items():
+            ctrl.add_tenant(name, rate=1e9, burst=1e9, weight=w)
+        ctrl.add_tenant("capped", weight=1.0, **CAPPED)
+        shared = InferenceServer(model=net, batch_limit=BATCH,
+                                 queue_limit=64, tenancy=ctrl,
+                                 name="tenants")
+        served = dict.fromkeys(list(TENANTS) + ["capped"], 0)
+        quota = [0]
+        x = images(FLEET_ROWS)
+        end = time.perf_counter() + FLEET_SECONDS
+
+        def tenant(name):
+            while time.perf_counter() < end:
+                try:
+                    out = shared.output(x, deadline_s=300.0, tenant=name)
+                except TenantQuotaError as e:
+                    with lock:
+                        quota[0] += 1
+                    time.sleep(min(e.retry_after_s or 0.01, 0.05))
+                    continue
+                with lock:
+                    if not served[name]:
+                        checks.append((f"tenant {name}", "resnet", x, out,
+                                       False))
+                    served[name] += out.shape[0]
+
+        try:
+            with ThreadPoolExecutor(2 * TENANT_CLIENTS + 2) as pool:
+                list(pool.map(tenant, ["gold"] * TENANT_CLIENTS
+                              + ["bronze"] * TENANT_CLIENTS
+                              + ["capped"] * 2))
+        finally:
+            shared.shutdown()
+        ratio = served["gold"] / max(served["bronze"], 1)
+        log(f"[registry-fleet] tenants gold:bronze weights 3:1 on one "
+            f"ResNet-50 server, {TENANT_CLIENTS} closed-loop clients each "
+            f"of {FLEET_ROWS} rows for {FLEET_SECONDS:g} s: served rows "
+            f"{served}, ratio "
+            f"{ratio:.3f}; capped ({CAPPED['rate']:g} rows/s) "
+            f"TenantQuotaError x {quota[0]}; "
+            f"{ctrl.snapshot()['tenants']['capped']['shed']} quota sheds "
+            f"in the controller ({card})")
+        if not (served["gold"] > served["bronze"] > 0 and quota[0] > 0):
+            raise AssertionError(f"registry-fleet: tenants {served}, quota "
+                                 f"refusals {quota[0]}")
+
+        # the retrying client through a server that sheds
+        # one request per batch, two queued at most: the rest shed
+        shedding = InferenceServer(model=net, batch_limit=FLEET_ROWS,
+                                   queue_limit=2, name="shedding")
+        sleeps = []
+
+        def retrying(i):
+            def sleep(s):
+                with lock:
+                    sleeps.append(s)
+                time.sleep(s)
+
+            return submit_with_retry(
+                shedding, x, attempts=50, base_backoff_s=0.005,
+                max_backoff_s=0.2, request_deadline_s=300.0, sleep=sleep,
+                rng=random.Random(SEED + i))
+
+        try:
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(RETRY_CLIENTS) as pool:
+                outs = list(pool.map(retrying, range(RETRY_CLIENTS)))
+            wall = time.perf_counter() - t1
+        finally:
+            shedding.shutdown()
+        checks += [("retrying client", "resnet", x, out, False)
+                   for out in outs]
+        log(f"[registry-fleet] submit_with_retry: {RETRY_CLIENTS} clients "
+            f"through a server of batch_limit {FLEET_ROWS} and queue_limit "
+            f"2, all served in {wall:.2f} "
+            f"s after {len(sleeps)} shed retries (slept "
+            f"{sum(sleeps) * 1e3:.1f} ms in all)")
+        if not sleeps:
+            raise AssertionError("registry-fleet: the server never shed")
+    finally:
+        for r in (reg, reg2):
+            if r is not None:
+                r.shutdown()
+        if fwd is not None:
+            fwd.restore()
+    launches = read_counts()
+    n_resnet = fwd.n["resnet"] + fwd.n["resnet-v2"]
+    log(f"[registry-fleet] forwards {fwd.n}; launches "
+        f"{ {k: v for k, v in launches.items() if v} } (bn_act 53 per "
+        f"ResNet-50 forward, flash_attention {LM['n_layers']} per "
+        f"TransformerLM forward)")
+    expect_launches("registry-fleet", launches, {
+        "bn_act": 53 * n_resnet,
+        "flash_attention": LM["n_layers"] * fwd.n["lm"]})
+    worst = {}
+    for what, name, x, out, full in checks:
+        with (dtypes.full_precision() if full else contextlib.nullcontext()):
+            ref = fwd.direct[name](x).float().cpu().numpy()
+        key = f"{name} ({'TF32 off' if full else 'default'})"
+        worst[key] = max(worst.get(key, 0.0), served_close(
+            np, f"registry-fleet {name} ({what})", out, ref,
+            LM_SERVE_TOL if name == "lm" else FULL_TOL if full
+            else TF32_TOL, whole=name == "lm"))
+    log(f"[registry-fleet] {len(checks)} answers against their model's "
+        f"output, worst " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                      worst.items())
+        + f" (per row: tol {FULL_TOL:g} TF32 off, {TF32_TOL:g} default; "
+        f"lm {LM_SERVE_TOL:g} of its largest); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def continuous_step(pub):
+    from deeplearning4j_tpu_torch.distributed.continuous import (
+        read_latest_pointer,
+    )
+
+    return f"latest.json step {read_latest_pointer(pub)['step']}"
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -8559,7 +9191,7 @@ def main() -> int:
             finally:
                 torch.distributed.destroy_process_group()
         dp_launches = {k: v + resnet_dp[k] for k, v in dp_launches.items()}
-        phase_refer_dp(torch, np)
+        refer_dp_single = phase_refer_dp(torch, np)
         log(f"[refer-dp] the data-parallel phases (dp-vgg16, dp-resnet, "
             f"refer-dp) took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -8706,6 +9338,17 @@ def main() -> int:
         log(f"[sharded-lm] the seq, pipe and expert phases (kernel-ring, "
             f"ring-attention, sp-transformer, pp-transformer, sharded-lm) "
             f"took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        pi_launches, _ = phase_pi_resnet(torch, np, card)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            registry_launches = phase_registry_fleet(torch, np, card, tmp)
+        torch.cuda.empty_cache()
+        fleet_launches = add_counts(pi_launches, registry_launches)
+        dcn_launches = phase_dcn_dp(torch, np, refer_dp_single)
+        log(f"[dcn-dp] the serving-fleet and dcn phases (pi-resnet, "
+            f"registry-fleet, dcn-dp) took {time.perf_counter() - t0:.1f} "
+            f"s")
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
         if leaked:
@@ -8881,7 +9524,13 @@ def main() -> int:
                 "sharded_lm_launches_per_step": slm_per_step[kname]}
                if kname.startswith("flash_attention") else {}),
             "sp_launches": [r[kname] for r in sppp_launches["sp"]],
-            "pp_launches": [r[kname] for r in sppp_launches["pp"]]})
+            "pp_launches": [r[kname] for r in sppp_launches["pp"]],
+            # A.9's rest and A.10's first half: launches in pi-resnet's
+            # three modes and registry-fleet's run (53 bn_act per
+            # ResNet-50 forward, 6 flash_attention per TransformerLM
+            # forward), and on each of dcn-dp's four ranks
+            "fleet_launches": fleet_launches[kname],
+            "dcn_launches": [r[kname] for r in dcn_launches]})
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -8892,8 +9541,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":
-        sys.exit(dp_rank_main(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] in ("--dp-rank", "--dcn-rank"):
+        sys.exit(dp_rank_main(int(sys.argv[2]), sys.argv[3],
+                              dcn=sys.argv[1] == "--dcn-rank"))
     if len(sys.argv) == 6 and sys.argv[1] == "--a9-rank":
         sys.exit(a9_rank_main(sys.argv[2], int(sys.argv[3]),
                               int(sys.argv[4]), sys.argv[5]))

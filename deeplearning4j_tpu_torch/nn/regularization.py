@@ -2,8 +2,7 @@
 constraint half of deeplearning4j_tpu/nn/regularization.py;
 nn/conf/constraint/{MaxNorm,MinMaxNorm,UnitNorm,NonNegative}Constraint.java
 applied via Model.applyConstraints). Weight noise (DropConnect,
-WeightNoise) is not ported yet: a network whose layers ask for it refuses
-to fit.
+WeightNoise) lives in nn/weightnoise.py.
 
 Norms run over every axis but the last (for a dense W [n_in, n_out]: per
 output unit); constraints apply to weights, not to params whose name starts

@@ -1,13 +1,18 @@
-"""Parallel training of the port on torch.distributed (counterpart of
-deeplearning4j_tpu/parallel/): ParallelWrapper over the data, model, fsdp,
-seq and pipe axes of a grid of ranks (`mesh`), ring attention over the seq
-axis (`ring`), ShardedTransformerLM over data x model x seq x pipe x
-expert (`transformer`), the fsdp param layout and the remat policies
-(`layout`), and threshold gradient compression (`compression`).
-ParallelInference, the dcn axis and ComputationGraphs with several inputs
-or outputs in the wrapper are queued in ROADMAP A.9's rest."""
+"""Parallel training and inference of the port on torch.distributed
+(counterpart of deeplearning4j_tpu/parallel/): ParallelWrapper over the
+dcn, data, model, fsdp, seq and pipe axes of a grid of ranks (`mesh`),
+ParallelInference (`inference`: dynamic batching on one device, or rank 0
+dispatching over a grid's data axis), ring attention over the seq axis
+(`ring`), ShardedTransformerLM over data x model x seq x pipe x expert
+(`transformer`), the fsdp param layout and the remat policies (`layout`),
+and threshold gradient compression (`compression`). The wrapper trains a
+ComputationGraph with one input and one output only, as the JAX
+package's does."""
 from deeplearning4j_tpu_torch.parallel.compression import (  # noqa: F401
     EncodingHandler,
+)
+from deeplearning4j_tpu_torch.parallel.inference import (  # noqa: F401
+    ParallelInference,
 )
 from deeplearning4j_tpu_torch.parallel.mesh import (  # noqa: F401
     Grid,

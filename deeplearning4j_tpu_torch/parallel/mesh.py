@@ -51,11 +51,8 @@ from deeplearning4j_tpu_torch.nn import shard as shard_mod
 
 AXES = ("dcn", "data", "fsdp", "model", "pipe", "seq", "expert")
 
-# the axes a grid runs; dcn waits for ROADMAP A.9's rest
-WORKING_AXES = ("data", "fsdp", "model", "pipe", "seq", "expert")
-
 # the sub-groups of a grid: an AxisGroup each, over these axes
-GROUPS = (("data", ("data",)), ("fsdp", ("fsdp",)), ("model", ("model",)),
+GROUPS = (("dcn", ("dcn",)), ("data", ("data",)), ("fsdp", ("fsdp",)), ("model", ("model",)),
           ("pipe", ("pipe",)), ("seq", ("seq",)), ("expert", ("expert",)),
           ("shard", ("fsdp", "model")), ("batch", ("data", "seq")),
           ("replica", ("data", "seq", "pipe")))
@@ -98,7 +95,8 @@ class Grid:
     `rank`, `size`, `backend`), this rank's coordinate on every axis and
     its AxisGroup on each of `GROUPS`: the data, fsdp, model, pipe, seq
     and expert axes, `shard` (fsdp x model), `batch` (data x seq) and
-    `replica` (data x seq x pipe)."""
+    `replica` (data x seq x pipe), and the dcn axis (the same coordinate
+    on every other axis; no step reduces over it)."""
 
     spec: MeshSpec
     group: object
@@ -106,6 +104,7 @@ class Grid:
     size: int
     backend: str
     coords: Dict[str, int]
+    dcn: shard_mod.AxisGroup
     data: shard_mod.AxisGroup
     fsdp: shard_mod.AxisGroup
     model: shard_mod.AxisGroup
@@ -152,22 +151,19 @@ def init_process_group(init_method: str, rank: int, world_size: int,
 
 
 def check_spec(spec: MeshSpec) -> None:
-    """Raises NotImplementedError for an axis the port does not run yet
-    (dcn)."""
-    others = {a: n for a, n in spec.axis_sizes().items()
-              if a not in WORKING_AXES and n > 1}
-    if others:
-        raise NotImplementedError(
-            f"mesh axes {others}: the data, fsdp, model, pipe, seq and "
-            f"expert axes are ported; the dcn axis is queued in ROADMAP "
-            f"A.9's rest")
+    """Raises ValueError for an axis of fewer than one rank; every axis,
+    dcn included, runs."""
+    bad = {a: n for a, n in spec.axis_sizes().items()
+           if not isinstance(n, int) or n < 1}
+    if bad:
+        raise ValueError(f"mesh axes {bad}: each axis holds at least one "
+                         f"rank")
 
 
 def build_mesh(spec: Optional[MeshSpec] = None) -> Grid:
     """The grid of `spec` (default: every rank on the data axis) over the
-    initialised process group. Raises NotImplementedError for a dcn axis
-    greater than 1, and ValueError when `spec.total()` is not the group's
-    world size."""
+    initialised process group. Raises ValueError when `spec.total()` is
+    not the group's world size."""
     spec = spec or MeshSpec.data_parallel()
     check_spec(spec)
     if not dist.is_initialized():

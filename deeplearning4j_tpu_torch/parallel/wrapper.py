@@ -1,5 +1,5 @@
-"""ParallelWrapper over torch.distributed: the data, model, fsdp, seq and
-pipe axes (counterpart of deeplearning4j_tpu/parallel/wrapper.py; the
+"""ParallelWrapper over torch.distributed: the dcn, data, model, fsdp, seq
+and pipe axes (counterpart of deeplearning4j_tpu/parallel/wrapper.py; the
 reference's ParallelWrapper.java:59-73 trains replicas on several
 devices).
 
@@ -81,11 +81,18 @@ with the JAX package's warning once per network. Under
 batches, each rank's rows on the device with the batch's `BatchShard`,
 runs each one's shard step under its shard, and every rank reads the
 window's scores once (the seq and pipe steps keep per-step dispatch, as
-in the JAX package). The dcn axis raises for ROADMAP A.9's rest; fsdp
-does not compose with seq, pipe or tBPTT, nor tBPTT with seq or pipe,
-nor pipe with seq or model, as in the JAX package. The reduce waits for
-the whole backward (its overlap with the backward is queued as perf
-work).
+in the JAX package). fsdp does not compose with seq, pipe or tBPTT, nor
+tBPTT with seq or pipe, nor pipe with seq or model, as in the JAX
+package. The reduce waits for the whole backward (its overlap with the
+backward is queued as perf work).
+
+On the dcn axis (the outermost, across nodes): the JAX wrapper shards its
+batch over "data" alone (`_put`), so each dcn row of the grid is a
+replica of the whole data x fsdp x model x seq x pipe step. Every rank of
+a dcn row takes its data coordinate's rows, exactly as its peers in the
+other rows do, and computes the same gradients; no gradient is reduced
+over dcn, since the JAX program reduces over none. dcn composes with every
+axis the wrapper runs.
 """
 from __future__ import annotations
 
@@ -128,6 +135,7 @@ class ParallelWrapper:
         pw = ParallelWrapper(net, mesh_spec=MeshSpec(model=2, seq=2))
         pw = ParallelWrapper(net, mesh_spec=MeshSpec(data=2, pipe=2),
                              microbatches=4)
+        pw = ParallelWrapper(net, mesh_spec=MeshSpec(dcn=2, data=2))
         pw.fit(iterator, epochs=2)
 
     Every rank runs the same calls. `mesh` is a `parallel.mesh.Grid`
@@ -179,8 +187,12 @@ class ParallelWrapper:
         if isinstance(model, ComputationGraph) and (
                 len(model.conf.network_inputs) != 1
                 or len(model.conf.network_outputs) != 1):
+            # the JAX wrapper's own limit: it wraps "a MultiLayerNetwork
+            # (or ComputationGraph with single in/out)" and its step takes
+            # one features and one labels array
             raise ValueError("ParallelWrapper trains a ComputationGraph "
-                             "with one input and one output")
+                             "with one input and one output, as the JAX "
+                             "package's does")
         if mesh.backend == "nccl" and model.device.type != "cuda":
             raise ValueError(f"a network on {model.device} under the NCCL "
                              f"backend: initialise gloo for the CPU")
@@ -309,9 +321,10 @@ class ParallelWrapper:
         """Collectives launched and bytes moved so far: the gradient
         reduce (over data, data x seq or data x pipe), and every other
         group's (the model, fsdp and shard groups', the ring's hops on
-        seq, the stage hops on pipe)."""
+        seq, the stage hops on pipe; none on dcn)."""
         out = {"data": self.stats}
-        for name in ("model", "fsdp", "shard", "seq", "pipe", "expert"):
+        for name in ("model", "fsdp", "shard", "seq", "pipe", "expert",
+                     "dcn"):
             out[name] = self.mesh.axis(name).stats
         return {k: {"collectives": v.collectives, "bytes": v.bytes}
                 for k, v in out.items()}
@@ -662,9 +675,8 @@ class ParallelWrapper:
 
 
 def _refuse(spec: mesh_mod.MeshSpec, tbptt: bool) -> None:
-    """The JAX wrapper's refusals of axis compositions (ValueError), ahead
-    of the axes the port does not run yet (NotImplementedError, from
-    `mesh.check_spec`)."""
+    """The JAX wrapper's refusals of axis compositions (ValueError), and
+    `mesh.check_spec`'s of an empty axis."""
     sizes = spec.axis_sizes()
     sp, pp = sizes["seq"] > 1, sizes["pipe"] > 1
     if sizes["fsdp"] > 1 and (sp or pp or tbptt):

@@ -2,8 +2,22 @@
 
 `InferenceServer` (serving/runtime.py) coalesces requests into bucketed
 padded batches (serving/buckets.py) with admission control, per-request
-deadlines, load shedding, circuit breaking (serving/breaker.py) and drain on
+deadlines, load shedding, tenant quotas and weighted-fair queues
+(serving/tenancy.py), circuit breaking (serving/breaker.py) and drain on
 shutdown; every refusal is a typed ServingError (serving/errors.py).
+`ModelRegistry` (serving/registry.py) hosts many named, versioned models
+side by side from zoo names, Keras files, checkpoint zips and checkpoint
+directories; `warmstart` (serving/warmstart.py) records warm manifests so
+a restarted replica warms up without an example; `submit_with_retry`
+(serving/client.py) is the client loop for shed and broken-circuit
+refusals. `parallel.ParallelInference` routes through the runtime when
+the `DL4J_TPU_SERVING` gate is on.
+
+The error, bucket and breaker modules are light and imported eagerly; the
+runtime and fleet layers resolve on first touch, so that importing the
+package — as parallel/inference.py does for its typed drain errors —
+keeps the gate-off path free of them. The JAX package's Router and
+Autoscaler are ROADMAP A.10's second half.
 """
 from deeplearning4j_tpu_torch.serving.breaker import CircuitBreaker  # noqa: F401
 from deeplearning4j_tpu_torch.serving.buckets import BucketSpec  # noqa: F401
@@ -16,5 +30,36 @@ from deeplearning4j_tpu_torch.serving.errors import (  # noqa: F401
     ServingError,
     ShedError,
     ShutdownError,
+    TenantQuotaError,
 )
-from deeplearning4j_tpu_torch.serving.runtime import InferenceServer  # noqa: F401
+
+SERVING_GATE = "DL4J_TPU_SERVING"
+
+# attribute -> submodule; resolved on first touch so the gate-off path
+# imports none of them
+_LAZY = {
+    "InferenceServer": "runtime",
+    "healthz_section": "runtime",
+    "ModelRegistry": "registry",
+    "ModelVersion": "registry",
+    "ModelEntry": "registry",
+    "live_registries": "registry",
+    "resolve_model": "registry",
+    "TenancyController": "tenancy",
+    "TenantPolicy": "tenancy",
+    "TenantQueue": "tenancy",
+    "submit_with_retry": "client",
+    "warmstart": "warmstart",
+}
+
+
+def __getattr__(name):
+    mod = _LAZY.get(name)
+    if mod is not None:
+        import importlib
+
+        module = importlib.import_module(
+            f"deeplearning4j_tpu_torch.serving.{mod}")
+        return module if name == mod else getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+

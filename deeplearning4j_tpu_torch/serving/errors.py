@@ -1,6 +1,5 @@
 """Typed serving errors — the overload-protection contract in exceptions
-(the port's own copy of deeplearning4j_tpu/serving/errors.py; the tenancy
-slice adds TenantQuotaError).
+(the port's own copy of deeplearning4j_tpu/serving/errors.py).
 
 Every way the serving runtime can refuse or fail a request has its own
 exception type, because callers (and load balancers in front of them)
@@ -35,6 +34,14 @@ react differently to each:
     DispatcherCrashedError the dispatcher thread died on an unexpected
                            error; queued and future requests surface the
                            crash instead of queueing into a void.
+    TenantQuotaError       the *tenant's* token bucket (serving/
+                           tenancy.py) refused admission — the fleet has
+                           capacity, this caller exhausted its share.
+                           A ShedError subclass, so `submit_with_retry`
+                           backs off on `retry_after_s` (the bucket's
+                           refill horizon) exactly like a queue shed;
+                           `tenant` names the offender so a gateway can
+                           throttle per caller instead of per fleet.
 
 All subclass ServingError, so `except ServingError` is the one catch
 callers need for "request not served, runtime still up". Pure stdlib.
@@ -54,6 +61,17 @@ class ShedError(ServingError):
     def __init__(self, message: str, retry_after_s: Optional[float] = None):
         super().__init__(message)
         self.retry_after_s = retry_after_s
+
+
+class TenantQuotaError(ShedError):
+    """The tenant's own admission quota refused the request; the shared
+    queue never saw it. `retry_after_s` is the token-bucket refill time
+    for the request's cost."""
+
+    def __init__(self, message: str, retry_after_s: Optional[float] = None,
+                 tenant: Optional[str] = None):
+        super().__init__(message, retry_after_s=retry_after_s)
+        self.tenant = tenant
 
 
 class DeadlineExceededError(ServingError, TimeoutError):

@@ -20,6 +20,13 @@ queue or a hung caller:
                       with ShedError to admit the newer). The hint is
                       floored by the breaker's cooldown remaining when
                       the circuit is open.
+  tenant isolation    with a `tenancy=` TenancyController
+                      (serving/tenancy.py), per-tenant token buckets run
+                      in front of the shared queue (an over-quota tenant
+                      sheds ITSELF with TenantQuotaError) and the queue
+                      drains by deficit round-robin across tenant
+                      sub-queues at coalesce time, so one tenant's backlog
+                      cannot starve another's p99.
   circuit breaking    consecutive dispatch failures or non-finite
                       outputs (checked on the device with torch.isfinite)
                       open the breaker (serving/breaker.py): requests
@@ -32,11 +39,23 @@ queue or a hung caller:
                       forever: output() waits in bounded slices, keyed
                       to its deadline.
 
-A model is dispatched on its own device (`align=1`): the padded batch goes
-through `model.output`, and the result comes back to the host once per
-batch. The JAX package's mesh sharding, telemetry spans and metrics, chaos
-fault points, tenant queues, lock-order sentinel and bucket re-cut join
-with later slices; the control flow here is theirs without those hooks.
+Without a mesh a model is dispatched on its own device (`align=1`): the
+padded batch goes through `model.output`. On a `parallel.mesh.Grid` the
+buckets align to the grid's data axis and rank 0 dispatches: it broadcasts
+each padded batch to the grid, every rank runs `model.output` on its data
+coordinate's rows (replicated over the other axes, as the JAX package's
+P("data") replicates them), and the rows come back by all_gather
+(`parallel.inference.GridDispatch`); the other ranks serve in
+`parallel.inference.follow` until `shutdown()` sends the stop message,
+after the batch in flight. Either way the result comes back to the host
+once per batch. `observed_rows` and `recut_buckets` keep the request-size
+reservoir and swap bucket cuts; `healthz_section()` reports every live
+server. The queue lock is a `util.locks.TrackedLock`.
+
+The JAX package's telemetry spans and metrics (`dl4j_tpu_serving_*`, the
+/healthz server) and its chaos fault points (serving_dispatch,
+serving_slow, serving_nan) and the breaker's flight bundle are ROADMAP
+A.11 and left out; the control flow here is theirs without those hooks.
 
 Config gates, read at construction through util/envflags.py (the JAX
 package's names): DL4J_TPU_SERVING_SHED (reject_newest | drop_oldest),
@@ -50,6 +69,7 @@ import logging
 import math
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Callable, List, Optional
 
@@ -58,7 +78,7 @@ import torch
 
 from deeplearning4j_tpu_torch.resilience.retry import Deadline
 from deeplearning4j_tpu_torch.serving import buckets as buckets_mod
-from deeplearning4j_tpu_torch.serving.breaker import CircuitBreaker
+from deeplearning4j_tpu_torch.serving.breaker import OPEN, CircuitBreaker
 from deeplearning4j_tpu_torch.serving.errors import (
     CircuitOpenError,
     DeadlineExceededError,
@@ -69,11 +89,17 @@ from deeplearning4j_tpu_torch.serving.errors import (
     ShedError,
     ShutdownError,
 )
+from deeplearning4j_tpu_torch.serving.tenancy import DEFAULT_TENANT
 from deeplearning4j_tpu_torch.util import envflags
+from deeplearning4j_tpu_torch.util.locks import TrackedLock
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 SHED_POLICIES = ("reject_newest", "drop_oldest")
+
+# live servers for healthz_section (weak: a dropped server must not pin
+# itself)
+_SERVERS: "weakref.WeakSet[InferenceServer]" = weakref.WeakSet()
 
 
 class _Pending:
@@ -81,7 +107,7 @@ class _Pending:
     typed error; `event` is the caller's bounded-wait handle."""
 
     __slots__ = ("x", "n", "sig", "deadline", "event", "result", "error",
-                 "enqueued_perf", "probe")
+                 "enqueued_perf", "probe", "tenant")
 
     def __init__(self, x: np.ndarray, deadline: Deadline):
         self.x = x
@@ -96,6 +122,23 @@ class _Pending:
         # dispatch result repays it via record_success/record_failure;
         # any no-dispatch resolution must release_probe() instead
         self.probe = False
+        # resolved tenant name when the server runs under a
+        # TenancyController (serving/tenancy.py); None otherwise
+        self.tenant = None
+
+
+def healthz_section() -> Optional[dict]:
+    """Breaker + queue state over every LIVE server; None when no server
+    exists."""
+    servers = [s for s in list(_SERVERS) if not s.stopped]
+    if not servers:
+        return None
+    snaps = [s.snapshot() for s in servers]
+    return {
+        "servers": snaps,
+        "breaker_open": any(sn["breaker"]["state"] == OPEN for sn in snaps),
+        "queue_depth": sum(sn["queue_depth"] for sn in snaps),
+    }
 
 
 def _to_host(out: torch.Tensor) -> np.ndarray:
@@ -113,18 +156,24 @@ class InferenceServer:
     Pass a `model` (anything with ``output(x)`` returning a tensor, such as
     a port ComputationGraph or MultiLayerNetwork on its device; integer
     token-id requests keep their dtype through padding and coalescing) or a
-    raw ``dispatch(batch) -> outputs`` callable (tests, custom stacks). `buckets` defaults to
-    power-of-two sizes up to `batch_limit`.
+    raw ``dispatch(batch) -> outputs`` callable (tests, custom stacks).
+    `mesh` is None (the model's own device) or a `parallel.mesh.Grid`
+    (rank 0 dispatches over its data axis; construct the server on rank 0
+    and run `parallel.inference.follow(model, grid)` on the others).
+    `buckets` defaults to power-of-two sizes aligned to the mesh's data
+    axis, up to `batch_limit`. `tenancy` is a TenancyController: per-tenant
+    quotas in front of the queue and a deficit-round-robin queue.
     """
 
     def __init__(self, model=None, dispatch: Optional[Callable] = None,
-                 batch_limit: int = 32, queue_limit: int = 64,
+                 mesh=None, batch_limit: int = 32, queue_limit: int = 64,
                  wait_ms: float = 2.0,
                  buckets: Optional[buckets_mod.BucketSpec] = None,
                  shed_policy: Optional[str] = None,
                  default_deadline_s: Optional[float] = None,
                  breaker: Optional[CircuitBreaker] = None,
                  warmup_example=None,
+                 tenancy=None,
                  name: str = "serving"):
         if model is None and dispatch is None:
             raise ValueError("InferenceServer needs a model or a dispatch "
@@ -134,10 +183,17 @@ class InferenceServer:
         self.queue_limit = max(1, int(queue_limit))
         self.wait_ms = max(0.0, float(wait_ms))
         self.model = model
+        self.mesh = mesh
+        align = 1
+        # the model's own dispatch; on a grid its stop() ends the other
+        # ranks' follow at shutdown
+        self._model_dispatch = None
         if dispatch is None:
-            dispatch = self._build_model_dispatch(model)
+            dispatch, align = self._build_model_dispatch(model, mesh)
+            self._model_dispatch = dispatch
         self._dispatch = dispatch
-        self.buckets = buckets or buckets_mod.BucketSpec(self.batch_limit)
+        self.buckets = buckets or buckets_mod.BucketSpec(
+            self.batch_limit, align=align)
         if shed_policy is None:
             shed_policy = envflags.value("DL4J_TPU_SERVING_SHED",
                                          "reject_newest")
@@ -161,11 +217,24 @@ class InferenceServer:
                 "DL4J_TPU_SERVING_PROBES", 2))
         if self.breaker.on_open is None:
             self.breaker.on_open = self._on_breaker_open
-        self._cond = threading.Condition(threading.Lock())
-        # bounded by queue_limit's shed policy at admission, not by maxlen:
-        # a maxlen overflow would silently drop a request whose caller is
-        # parked on its event
-        self._q: "deque[_Pending]" = deque()  # guarded-by: self._cond
+        # every admit, dispatch pop and snapshot crosses this lock:
+        # TrackedLock is a raw threading.Lock unless DL4J_TPU_LOCKCHECK
+        # turns the order sentinel on
+        self._cond = threading.Condition(
+            TrackedLock("serving.runtime.queue"))
+        # one dispatch at a time: the dispatcher's batches and
+        # recut_buckets' warm batches (on a grid, each is a sequence of
+        # collectives that must not interleave). Never taken under _cond.
+        self._dispatch_lock = TrackedLock("serving.runtime.dispatch")
+        # a TenancyController swaps the FIFO for its deficit-round-robin
+        # TenantQueue (same deque surface, weighted-fair pops); the plain
+        # deque is bounded by queue_limit's shed policy at admission, not
+        # by maxlen: a maxlen overflow would silently drop a request whose
+        # caller is parked on its event
+        self.tenancy = tenancy
+        self._q = (tenancy.make_queue(self.queue_limit)
+                   if tenancy is not None else
+                   deque())  # guarded-by: self._cond
         self._stopping = False  # guarded-by: self._cond
         self._stopped = False
         self._crash: Optional[BaseException] = None  # guarded-by: self._cond
@@ -173,22 +242,33 @@ class InferenceServer:
         self._lat: "deque[float]" = deque(maxlen=512)  # guarded-by: self._cond
         self._depths: "deque[int]" = deque(maxlen=512)  # guarded-by: self._cond
         self.warmed_rows: set = set()
+        self.dispatched_rows: set = set()
+        # the last 512 submitted row counts: the bucket re-cut's planning
+        # input
+        self._row_sizes: "deque[int]" = deque(maxlen=512)
+        self._warm_example = None  # first row template, for re-warms
         self._thread = threading.Thread(
             target=self._loop, daemon=True,
             name=f"InferenceServer-dispatch-{name}")
         self._thread.start()
         if warmup_example is not None:
             self.warmup(warmup_example)
+        _SERVERS.add(self)
 
     # ------------------------------------------------------------------
     # dispatch construction / warmup
     # ------------------------------------------------------------------
     @staticmethod
-    def _build_model_dispatch(model):
-        def dispatch(xp, _model=model):
-            return _model.output(xp)
+    def _build_model_dispatch(model, mesh=None):
+        """(dispatch, align) for `model`: on its own device (align 1), or
+        on a Grid, rank 0's dispatch over the data axis (align the axis's
+        size)."""
+        from deeplearning4j_tpu_torch.parallel.inference import (
+            GridDispatch,
+        )
 
-        return dispatch
+        return (GridDispatch(model, mesh),
+                1 if mesh is None else mesh.shape["data"])
 
     def warmup(self, example) -> None:
         """Dispatch one batch per bucket size before traffic arrives, so
@@ -201,11 +281,13 @@ class InferenceServer:
         its first row is the template. Raises the typed error of a batch
         that fails."""
         row = np.asarray(example)[:1]
+        self._warm_example = row  # template for re-cut re-warms
         sig = buckets_mod.signature(row)
         for b in self.buckets.sizes:
-            # not a client request: no deadline
-            self.result(self.submit(np.repeat(row, b, axis=0),
-                                    deadline_s=math.inf))
+            # not a client request: no deadline, no tenant quota, not in
+            # the request-size reservoir
+            self.result(self._enqueue(_Pending(np.repeat(row, b, axis=0),
+                                               Deadline(math.inf))))
             self.warmed_rows.add((sig, b))
         # first-call times are not traffic: admission estimates and latency
         # percentiles start from the first real batch
@@ -214,24 +296,71 @@ class InferenceServer:
             self._lat.clear()
             self._depths.clear()
 
+    def observed_rows(self) -> list:
+        """The request-size reservoir (rows of the last 512 submits, shed
+        ones included): the bucket re-cut's planning input."""
+        return list(self._row_sizes)
+
+    def recut_buckets(self, sizes, example=None) -> buckets_mod.BucketSpec:
+        """Swap in a re-cut BucketSpec, warming any NEW sizes first so the
+        swap never meets a cold shape in steady state: the dispatcher
+        keeps draining under the old spec while each unseen size is
+        dispatched once here (one dispatch at a time with the
+        dispatcher's), and only then does the spec pointer move (one
+        assignment under the queue lock). `align` and `max_batch` carry
+        over from the live spec; `example` (else the warmup's row) is the
+        row template."""
+        spec = buckets_mod.BucketSpec(self.batch_limit,
+                                      align=self.buckets.align,
+                                      sizes=sizes)
+        row = example if example is not None else self._warm_example
+        if row is not None:
+            row = np.asarray(row)[:1]
+            sig = buckets_mod.signature(row)
+            for b in spec.sizes:
+                if (sig, b) not in self.warmed_rows:
+                    with self._dispatch_lock:
+                        self._dispatch(np.repeat(row, b, axis=0))
+                    self.warmed_rows.add((sig, b))
+        with self._cond:
+            self.buckets = spec
+        return spec
+
     # ------------------------------------------------------------------
     # client API
     # ------------------------------------------------------------------
-    def output(self, x, deadline_s: Optional[float] = None) -> np.ndarray:
+    def output(self, x, deadline_s: Optional[float] = None,
+               tenant: Optional[str] = None) -> np.ndarray:
         """Blocking inference; raises a typed ServingError subclass when
-        the request is shed, expired, broken-circuit, or the runtime is
-        down. Never blocks past the deadline (plus one wait slice)."""
-        return self.result(self.submit(x, deadline_s=deadline_s))
+        the request is shed, expired, over tenant quota, broken-circuit,
+        or the runtime is down. Never blocks past the deadline (plus one
+        wait slice)."""
+        return self.result(self.submit(x, deadline_s=deadline_s,
+                                       tenant=tenant))
 
-    def submit(self, x, deadline_s: Optional[float] = None) -> _Pending:
-        """Admission control: refuse (typed) or enqueue. See the module
-        docstring for the decision order."""
+    def submit(self, x, deadline_s: Optional[float] = None,
+               tenant: Optional[str] = None) -> _Pending:
+        """Admission control: refuse (typed) or enqueue. The order: the
+        tenant's quota (outside the queue lock), a crashed or stopping
+        runtime, the breaker, the deadline estimate, the queue limit."""
         x = np.asarray(x)
         if x.ndim == 0:
             raise ValueError("request must have a leading batch axis")
         deadline = Deadline(deadline_s if deadline_s is not None
                             else self._default_deadline_s)
         req = _Pending(x, deadline)
+        # demand, observed BEFORE admission control: shed requests are
+        # exactly the ones a better bucket cut might serve
+        self._row_sizes.append(int(req.n))
+        if self.tenancy is not None:
+            # an over-quota tenant sheds itself before it can touch
+            # anyone else's admission estimate
+            req.tenant = self.tenancy.admit(tenant or DEFAULT_TENANT,
+                                            rows=req.n)
+        return self._enqueue(req)
+
+    def _enqueue(self, req: _Pending) -> _Pending:
+        deadline = req.deadline
         with self._cond:
             if self._crash is not None:
                 raise DispatcherCrashedError(
@@ -262,12 +391,16 @@ class InferenceServer:
                 if self.shed_policy == "drop_oldest":
                     oldest = self._q.popleft()
                     self._release_if_probe(oldest)
+                    if self.tenancy is not None:
+                        self.tenancy.note_shed(oldest.tenant, "drop_oldest")
                     self._resolve(oldest, error=ShedError(
                         "dropped from a full queue to admit a newer "
                         "request (shed_policy=drop_oldest)",
-                        retry_after_s=hint))
+                        retry_after_s=hint), outcome="shed")
                 else:
                     self._release_if_probe(req)
+                    if self.tenancy is not None:
+                        self.tenancy.note_shed(req.tenant, "queue_full")
                     raise ShedError(
                         f"queue full ({self.queue_limit} requests; "
                         f"shed_policy=reject_newest)",
@@ -302,8 +435,10 @@ class InferenceServer:
 
     def shutdown(self, timeout: float = 5.0) -> None:
         """Drain: finish the in-flight batch, resolve every queued
-        request with ShutdownError, stop the dispatcher. Idempotent;
-        bounded by `timeout`."""
+        request with ShutdownError, stop the dispatcher. Idempotent; the
+        wait for the dispatcher is bounded by `timeout`. On a grid, then
+        the stop message to the other ranks, which waits for a batch
+        still in flight."""
         with self._cond:
             self._stopping = True
             self._cond.notify_all()
@@ -313,7 +448,10 @@ class InferenceServer:
         # belt: if the thread was already dead (crash path) anything
         # still queued is resolved here — a shutdown must leave zero
         # parked callers behind
-        self._drain(ShutdownError("serving runtime shut down"))
+        self._drain(ShutdownError("serving runtime shut down"),
+                    outcome="shutdown")
+        if self._model_dispatch is not None:
+            self._model_dispatch.stop()
         self._stopped = True
 
     @property
@@ -328,20 +466,23 @@ class InferenceServer:
             return self._crash is not None
 
     def snapshot(self) -> dict:
-        """Machine-readable state: queue, latency percentiles, breaker."""
+        """Machine-readable state: queue, latency percentiles, breaker
+        (and the queued requests per tenant under tenancy)."""
         with self._cond:  # rings are written under this lock too
             depth = len(self._q)
             lat = sorted(self._lat)
             depths = sorted(self._depths)
             stopping = self._stopping
             ema = self._ema_latency_s
+            by_tenant = (self._q.queued_by_tenant()
+                         if self.tenancy is not None else None)
 
         def pct(vals, q):
             if not vals:
                 return None
             return vals[min(len(vals) - 1, int(q * (len(vals) - 1)))]
 
-        return {
+        snap = {
             "name": self.name,
             "queue_depth": depth,
             "queue_limit": self.queue_limit,
@@ -354,6 +495,9 @@ class InferenceServer:
             "breaker": self.breaker.snapshot(),
             "stopping": stopping,
         }
+        if by_tenant is not None:
+            snap["queued_by_tenant"] = by_tenant
+        return snap
 
     # ------------------------------------------------------------------
     # internals
@@ -384,10 +528,12 @@ class InferenceServer:
             est += self._ema_latency_s * waves
         return est
 
-    @staticmethod
-    def _resolve(req: _Pending, result=None, error=None) -> None:
+    def _resolve(self, req: _Pending, result=None, error=None,
+                 outcome: str = "ok") -> None:
         req.result = result
         req.error = error
+        if self.tenancy is not None and req.tenant is not None:
+            self.tenancy.observe(req.tenant, outcome)
         req.event.set()
 
     def _expire_queued(self, req: _Pending) -> None:
@@ -400,7 +546,8 @@ class InferenceServer:
                 return  # popped for dispatch (or already resolved)
         self._release_if_probe(req)
         self._resolve(req, error=DeadlineExceededError(
-            f"deadline {req.deadline.seconds:.3g}s expired in queue"))
+            f"deadline {req.deadline.seconds:.3g}s expired in queue"),
+            outcome="deadline")
 
     def _pop_expired_locked(self) -> List[_Pending]:
         out = []
@@ -412,7 +559,8 @@ class InferenceServer:
         for r in expired:
             self._release_if_probe(r)
             self._resolve(r, error=DeadlineExceededError(
-                f"deadline {r.deadline.seconds:.3g}s expired in queue"))
+                f"deadline {r.deadline.seconds:.3g}s expired in queue"),
+                outcome="deadline")
 
     def _next_batch(self) -> Optional[List[_Pending]]:
         """Pop + coalesce: FIFO head defines the shape signature; only
@@ -469,7 +617,7 @@ class InferenceServer:
         return batch
 
     def _fail_batch(self, batch: List[_Pending], error: ServingError,
-                    reason: str) -> None:
+                    outcome: str, reason: str) -> None:
         # record_failure repays the batch's probe slot (max_probes=1:
         # at most one per batch); clear the flags so no later path
         # double-releases
@@ -477,17 +625,20 @@ class InferenceServer:
             r.probe = False
         self.breaker.record_failure(reason)
         for r in batch:
-            self._resolve(r, error=error)
+            self._resolve(r, error=error, outcome=outcome)
 
     def _dispatch_batch(self, batch: List[_Pending]) -> None:
         total = sum(r.n for r in batch)
         target = self.buckets.padded_size(total)
+        sig = batch[0].sig
         t0 = time.perf_counter()
         try:
             x = (np.concatenate([r.x for r in batch], axis=0)
                  if len(batch) > 1 else batch[0].x)
-            out = torch.as_tensor(self._dispatch(
-                buckets_mod.pad_rows(x, target)))
+            with self._dispatch_lock:
+                out = torch.as_tensor(self._dispatch(
+                    buckets_mod.pad_rows(x, target)))
+            self.dispatched_rows.add((sig, target))
             # on the output's device: one reduction, one sync
             if not bool(torch.isfinite(out).all()):
                 raise NonFiniteOutputError(
@@ -495,13 +646,13 @@ class InferenceServer:
                     f"(result discarded)")
             out = _to_host(out)
         except NonFiniteOutputError as e:
-            self._fail_batch(batch, e, "non-finite output")
+            self._fail_batch(batch, e, "nonfinite", "non-finite output")
         except Exception as e:
             self._fail_batch(
                 batch, DispatchFailedError(
                     f"batch dispatch failed: {type(e).__name__}: {e}",
                     cause=e),
-                f"{type(e).__name__}: {e}")
+                "dispatch_error", f"{type(e).__name__}: {e}")
         else:
             now = time.perf_counter()
             dt = now - t0
@@ -519,18 +670,21 @@ class InferenceServer:
             for r in batch:
                 r.result = out[off:off + r.n]
                 off += r.n
-                lats.append(now - r.enqueued_perf)
+                lat = now - r.enqueued_perf
+                lats.append(lat)
+                if self.tenancy is not None and r.tenant is not None:
+                    self.tenancy.observe(r.tenant, "ok", latency_s=lat)
                 r.event.set()
             with self._cond:
                 self._lat.extend(lats)
 
-    def _drain(self, error: ServingError) -> None:
+    def _drain(self, error: ServingError, outcome: str) -> None:
         with self._cond:
             pending = list(self._q)
             self._q.clear()
         for r in pending:
             self._release_if_probe(r)
-            self._resolve(r, error=error)
+            self._resolve(r, error=error, outcome=outcome)
 
     def _on_breaker_open(self, reason: str) -> None:
         logger.warning("serving circuit breaker OPEN (%s); rejecting "
@@ -559,7 +713,8 @@ class InferenceServer:
             for r in inflight:
                 if not r.event.is_set():
                     self._release_if_probe(r)
-                    self._resolve(r, error=err)
-            self._drain(err)
+                    self._resolve(r, error=err, outcome="crashed")
+            self._drain(err, outcome="crashed")
         else:
-            self._drain(ShutdownError("serving runtime shut down"))
+            self._drain(ShutdownError("serving runtime shut down"),
+                        outcome="shutdown")

@@ -2010,3 +2010,189 @@ def test_ring_over_two_gloo_ranks_matches_one_process_rows_2_to_4(
             hops = r + 1 if causal else 2
             for row in ("flash_attention", "flash_attention_bwd_dq"):
                 assert int(res[f"launches/{row}"]) == hops, (name, r, row)
+
+
+# ---------------------------------------------- ParallelInference, the registry
+def _bn_graph(device):
+    """conv -> BatchNorm(relu) -> average pool -> Output at 9x9x3: one
+    bn_act launch per forward."""
+    from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNorm,
+        Conv2D,
+        GlobalPooling,
+        Output,
+    )
+
+    conf = (NeuralNetConfiguration(seed=3).graph().add_inputs("in")
+            .add_layer("c", Conv2D(kernel_size=(3, 3), stride=(2, 2), n_out=8,
+                                   convolution_mode="same", has_bias=False),
+                       "in")
+            .add_layer("bn", BatchNorm(activation="relu"), "c")
+            .add_layer("pool", GlobalPooling(pooling_type="avg"), "bn")
+            .add_layer("out", Output(n_out=5), "pool")
+            .set_outputs("out")
+            .set_input_types(it.convolutional(9, 9, 3)))
+    return ComputationGraph(conf).init(device=device)
+
+
+class _Counted:
+    """Counts the forwards of `net` that return (an instance attribute
+    over its output)."""
+
+    def __init__(self, net):
+        self.net, self.direct, self.n = net, net.output, 0
+        net.output = self
+
+    def __call__(self, x):
+        out = self.direct(x)
+        self.n += 1
+        return out
+
+    def restore(self):
+        self.net.output = self.direct
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,gate", [("batched", False),
+                                       ("instant", False),
+                                       ("batched", True)])
+def test_parallel_inference_on_the_card_matches_output(cuda, monkeypatch,
+                                                       mode, gate):
+    """ParallelInference on the model's own card, both modes with the
+    DL4J_TPU_SERVING gate off and BATCHED with it on, TF32 off: requests
+    of 1, 3 and 8 rows at once, each within 1e-5 of net.output on its
+    rows; a request of another trailing shape fails alone; bn_act
+    launches once per dispatched batch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+
+    if gate:
+        monkeypatch.setenv("DL4J_TPU_SERVING", "1")
+    else:
+        monkeypatch.delenv("DL4J_TPU_SERVING", raising=False)
+    net = _bn_graph(cuda)
+    rng = np.random.default_rng(31)
+    xs = [rng.standard_normal((n, 9, 9, 3)).astype(np.float32)
+          for n in (1, 3, 8)]
+    bad = np.zeros((2, 9, 9, 4), np.float32)
+    with dtypes.full_precision():
+        refs = [net.output(x).cpu().numpy() for x in xs]
+        counted = _Counted(net)
+        before = bn_act.launches
+        pi = ParallelInference(net, mode=mode, batch_limit=8)
+
+        def call(x):
+            try:
+                return pi.output(x, deadline_s=60.0)
+            except Exception as e:
+                return e
+
+        try:
+            with ThreadPoolExecutor(4) as pool:
+                outs = list(pool.map(call, xs + [bad]))
+        finally:
+            pi.shutdown()
+            counted.restore()
+    assert isinstance(outs[-1], Exception)
+    for out, ref in zip(outs, refs):
+        assert np.abs(out - ref).max() <= 1e-5
+    assert counted.n >= 1
+    assert bn_act.launches - before == counted.n
+
+
+@pytest.mark.cuda
+def test_registry_serves_a_transformer_lm_checkpoint_on_the_card(
+        cuda, monkeypatch, tmp_path):
+    """A small TransformerLM written by write_model, resolved by a
+    ModelRegistry onto the card (device None), warmed from an example and
+    then by a second registry from its manifest alone, served with the
+    DL4J_TPU_SERVING gate on and through ParallelInference (the gate
+    routes it through the serving runtime): answers within 1e-5 of the
+    largest probability of net.output (TF32 off); flash_attention
+    launches twice (two blocks) per dispatched batch."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import write_model
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.serving import ModelRegistry
+
+    monkeypatch.setenv("DL4J_TPU_SERVING", "1")
+    path = str(tmp_path / "lm.zip")
+    write_model(TransformerLM(num_classes=64, max_length=32, d_model=64,
+                              n_heads=4, n_layers=2, seed=3).init(
+                                  device=cuda), path, save_updater=False)
+    ids = np.random.default_rng(8).integers(0, 64, (3, 32)).astype(np.int32)
+    warm = str(tmp_path / "warm")
+    reg = ModelRegistry(warm_cache_dir=warm)
+    reg2 = None
+    with dtypes.full_precision():
+        try:
+            mv = reg.register("lm", path, batch_limit=4)
+            net = mv.server.model
+            assert net.device.type == "cuda"
+            ref = net.output(ids).cpu().numpy()
+            counted = _Counted(net)
+            before = flash_attention.launches
+            reg.warm("lm", example=ids[:1])
+            got = [mv.server.output(ids, deadline_s=60.0)]
+            reg2 = ModelRegistry(warm_cache_dir=warm)
+            mv2 = reg2.register("lm", net, batch_limit=4)
+            reg2.warm("lm")
+            assert {b for _, b in mv2.server.warmed_rows} == {1, 2, 4}
+            got.append(mv2.server.output(ids, deadline_s=60.0))
+            pi = ParallelInference(net, batch_limit=4)
+            try:
+                assert pi._serving is not None
+                got.append(pi.output(ids, deadline_s=60.0))
+            finally:
+                pi.shutdown()
+            counted.restore()
+        finally:
+            reg.shutdown()
+            if reg2 is not None:
+                reg2.shutdown()
+    for out in got:
+        assert out.shape == (3, 32, 64)
+        assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+    assert flash_attention.launches - before == 2 * counted.n
+    assert counted.n == 3 + 3 + 1 + 1 + 1  # warmups, then the requests
+
+
+@pytest.mark.cuda
+def test_parallel_inference_over_two_gloo_ranks_on_the_card(cuda,
+                                                            tmp_path):
+    """zoo LeNet's config on a data=2 grid of two gloo ranks on the card:
+    rank 0 dispatches each padded batch, rank 1 follows; BATCHED and
+    INSTANT with the gate off, BATCHED with it on; rank 0's answers within
+    1e-5 of this process's net.output (the same seeded weights, TF32 off
+    in both: cuDNN picks its algorithm by the batch's rows)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    conf = LeNet().conf().to_json()
+    xs = [np.random.default_rng(40 + n).standard_normal(
+        (n, 28, 28, 1)).astype(np.float32) for n in (1, 3, 4)]
+    data = str(tmp_path / "requests.npz")
+    np.savez(data, **{f"x{i}": x for i, x in enumerate(xs)})
+    base = dict(pi=True, kind="mln", conf=conf, data=data, batch_limit=8,
+                mesh={"data": 2}, full_precision=True)
+    ranks = _spawn_worker_ranks(tmp_path, 2, {
+        "batched": dict(base, mode="batched"),
+        "instant": dict(base, mode="instant"),
+        "serving": dict(base, mode="batched", serving=True)})
+    net = MultiLayerNetwork(MultiLayerConfiguration.from_json(conf)).init(
+        device=cuda)
+    with dtypes.full_precision():
+        refs = [net.output(x).cpu().numpy() for x in xs]
+    for name, (r0, r1) in ranks.items():
+        assert int(r1["served"]) >= 1, name
+        for i, ref in enumerate(refs):
+            assert np.abs(r0[f"out{i}"] - ref).max() <= 1e-5, (name, i)

@@ -234,10 +234,9 @@ def test_sync_to_host_leaves_whole_params_on_every_rank(cases):
 
 def test_fsdp_rejects_seq_pipe_and_tbptt_composition():
     """JAX test_fsdp_rejects_seq_and_pipe_composition and the wrapper's
-    other refusals, raised before any group exists; the dcn axis, still
-    queued, raises NotImplementedError naming A.9's rest, while the seq,
-    pipe and expert axes pass every refusal and reach the grid, which
-    asks for a process group."""
+    other refusals, raised before any group exists; the dcn, seq, pipe
+    and expert axes pass every refusal and reach the grid, which asks for
+    a process group."""
     net = tzoo.TransformerLM(num_classes=VOCAB, max_length=16, d_model=32,
                              n_heads=4, n_layers=1).init(device="cpu")
     for spec in (MeshSpec(fsdp=4, seq=2), MeshSpec(fsdp=2, pipe=2)):
@@ -255,9 +254,8 @@ def test_fsdp_rejects_seq_pipe_and_tbptt_composition():
     for spec in (MeshSpec(data=2, seq=2), MeshSpec(data=2, pipe=2)):
         with pytest.raises(ValueError, match="truncated BPTT"):
             ParallelWrapper(rnn, mesh_spec=spec)
-    with pytest.raises(NotImplementedError, match="A.9's rest"):
-        ParallelWrapper(net, mesh_spec=MeshSpec(dcn=2))
-    for spec in (MeshSpec(seq=2), MeshSpec(pipe=2), MeshSpec(expert=2)):
+    for spec in (MeshSpec(dcn=2), MeshSpec(seq=2), MeshSpec(pipe=2),
+                 MeshSpec(expert=2)):
         with pytest.raises(RuntimeError, match="no process group"):
             ParallelWrapper(net, mesh_spec=spec)
 

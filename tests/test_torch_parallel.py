@@ -557,16 +557,19 @@ def test_vgg16_step_with_replayed_dropout_keys(tmp_path):
 
 
 def test_refusals(tmp_path):
-    """The dcn axis, still queued, raises for ROADMAP A.9's rest, and the
-    JAX wrapper's refusals of axis compositions stand: pipe x seq, pipe x
+    """The dcn axis runs (tests/test_torch_dcn.py): without a process
+    group its grid asks for one, and an empty axis raises; the JAX
+    wrapper's refusals of axis compositions stand: pipe x seq, pipe x
     model, fsdp x seq, tBPTT x seq, and an LSTM under seq with JAX's
     sp_safe message (here, before any group exists; the seq, pipe and
     expert axes run, tests/test_torch_sequence_pipeline.py and
     tests/test_torch_sharded_transformer.py); in a group of 2, a data axis
-    of 3 and a dcn axis raise, and ranks that iterate different data
-    raise on every rank."""
-    with pytest.raises(NotImplementedError, match="A.9"):
+    of 3 and a dcn x data grid of 4 ranks raise, and ranks that iterate
+    different data raise on every rank."""
+    with pytest.raises(RuntimeError, match="no process group"):
         build_mesh(MeshSpec(dcn=2))
+    with pytest.raises(ValueError, match="at least one rank"):
+        build_mesh(MeshSpec(dcn=0))
     def net(conf):
         return MultiLayerNetwork(MultiLayerConfiguration.from_json(
             conf)).init(device="cpu")
@@ -595,7 +598,8 @@ def test_refusals(tmp_path):
                  batch=16, epochs=1, refusals=True)()
     for rank in seen:
         assert "needs 3 ranks" in rank["world"]
-        assert "A.9" in rank["axis"] and "dcn" in rank["axis"]
+        assert "needs 4 ranks" in rank["axis"]
+        assert "'dcn': 2" in rank["axis"]
         assert "different batches" in rank["batch"]
 
 

@@ -36,6 +36,15 @@ a checkpoint), fits "steps" steps on the .npz's ids, targets and weights
 and writes the losses and the logits, saving a checkpoint after
 "save_at" steps where asked.
 
+A "pi" case (tests/test_torch_parallel_inference.py) builds the
+network, serves the .npz's requests ("x0", "x1", ...) through
+`parallel.ParallelInference` on its mesh from rank 0 ("mode",
+"batch_limit", "serving" turns DL4J_TPU_SERVING on), the other ranks in
+`follow()` ("full_precision" turns TF32 off), and writes rank 0's
+answers ("out0", ...) and each rank's batches served ("direct" serves
+through an InferenceServer on the grid instead; "slow" shuts rank 0 down
+while a batch is in flight, see `pi_case`).
+
 The model and fsdp axes (tests/test_torch_tensor_parallel.py): "mesh"
 names the MeshSpec's axes (default: every rank on the data axis),
 "remat" sets every layer's remat policy, "window" sets
@@ -56,6 +65,8 @@ import contextlib
 import json
 import os
 import sys
+import threading
+import time
 import types
 
 import numpy as np
@@ -243,7 +254,7 @@ def refusals(spec, net):
     for name, ms, exc in (("world", MeshSpec(data=spec["world"] + 1),
                            ValueError),
                           ("axis", MeshSpec(data=spec["world"], dcn=2),
-                           NotImplementedError)):
+                           ValueError)):
         try:
             ParallelWrapper(net, mesh_spec=ms)
         except exc as e:
@@ -474,6 +485,68 @@ def lm_case(spec):
             "local_wqkv": np.asarray(lm.params["blocks"]["Wqkv"].shape)}
 
 
+def pi_case(spec):
+    """ParallelInference on the case's grid: rank 0 answers every request
+    (concurrently), the other ranks follow. With "direct" rank 0 serves
+    through an InferenceServer on the grid and the others through
+    `parallel.inference.follow`. With "slow" every rank's forward first
+    sleeps that many seconds, and rank 0 shuts down with
+    "shutdown_timeout" while its one request (x0) is in flight."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.parallel.inference import follow
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+
+    grid = grid_of(spec["mesh"])
+    os.environ.pop("DL4J_TPU_SERVING", None)
+    if spec.get("serving"):
+        os.environ["DL4J_TPU_SERVING"] = "1"
+    net = build(spec)
+    started = threading.Event()
+    if spec.get("slow"):
+        forward = net.output
+
+        def slow_output(x):
+            started.set()
+            time.sleep(spec["slow"])
+            return forward(x)
+
+        net.output = slow_output
+    if not spec.get("direct"):
+        pi = ParallelInference(net, mesh=grid, mode=spec["mode"],
+                               batch_limit=spec["batch_limit"])
+    elif grid.rank == 0:
+        pi = InferenceServer(model=net, mesh=grid,
+                             batch_limit=spec["batch_limit"])
+    os.environ.pop("DL4J_TPU_SERVING", None)
+    with (dtypes.full_precision() if spec.get("full_precision")
+          else contextlib.nullcontext()):
+        if grid.rank != 0:
+            return {"served": follow(net, grid) if spec.get("direct")
+                    else pi.follow()}
+        z = np.load(spec["data"])
+        xs = [z[f"x{i}"] for i in range(len(z.files))]
+        if spec.get("slow"):
+            with ThreadPoolExecutor(1) as pool:
+                fut = pool.submit(pi.output, xs[0], deadline_s=60.0)
+                if not started.wait(60.0):
+                    raise RuntimeError("the request never reached the "
+                                       "forward")
+                t0 = time.perf_counter()
+                pi.shutdown(timeout=spec["shutdown_timeout"])
+                took = time.perf_counter() - t0
+                return {"out0": fut.result(timeout=60.0),
+                        "shutdown_s": took}
+        try:
+            with ThreadPoolExecutor(len(xs)) as pool:
+                outs = list(pool.map(
+                    lambda x: pi.output(x, deadline_s=60.0), xs))
+        finally:
+            pi.shutdown()
+    return {f"out{i}": o for i, o in enumerate(outs)}
+
+
 def main(spec_path):
     with open(spec_path) as f:
         spec = json.load(f)
@@ -495,6 +568,9 @@ def main(spec_path):
                 continue
             if case.get("lm"):
                 np.savez(case["out"], **lm_case(case))
+                continue
+            if case.get("pi"):
+                np.savez(case["out"], **pi_case(case))
                 continue
             if case.get("per_rank_bn"):
                 normalization.shard_mod = types.SimpleNamespace(
