@@ -584,6 +584,44 @@ Phases, in order; any failure exits non-zero without the final line:
               dcn row equals its data peer) and within refer-dp's 1e-5 of
               this process's fit; each rank launches refer-dp's kernels per
               step.
+ 81. router-canary  one serving.ModelRegistry behind one serving.Router:
+              ResNet-50 v1 (seed 7, stable), v2 (seed 8) and v3 (seed 9) at
+              batch limit 32 and the full-width TransformerLM. A rollout of
+              v2 over the default stages (5, 25, 50, 100%, the version
+              rules' windows shrunk through rule_kwargs) driven by
+              requests of 1, 3, 8 and 32 rows and fake-clock evaluate()
+              ticks until v2 is promoted, a 1-row TransformerLM request
+              routed by name every 24 requests; every answer against the
+              output of the version the counter split says answered it
+              (the versions' rows must be apart by more than the
+              tolerance); images/s and tokens/s through the Router; then a
+              rollout of v3 under DL4J_TPU_CHAOS=canary_nan that rolls
+              back within one tick with exactly one canary_rollback
+              bundle (read back by load_bundle) while no stable answer
+              changes; requests per version and stage, each version's
+              p50 / p99 from dl4j_tpu_model_latency_seconds. bn_act 53
+              per ResNet-50 forward, flash_attention 6 per TransformerLM
+              forward, no other kernel.
+ 82. fleet-autoscale  serving.Autoscaler.for_model over ResNet-50 from a
+              registry with a warm manifest (min 1, max 3 replicas sharing
+              the network's weights, a TenancyController), attached to the
+              Router: a load step from 1 to 16 closed-loop clients of 8-32
+              rows scales out (replicas per tick, images/s before and
+              after, each spawned replica's first request); one replica's
+              dispatcher crashes under the load (its callers requeue onto
+              survivors: the time from the crash to the last of them) and
+              serving_dispatch@1 fails one batch typed; the load drops to
+              one client and the pool scales in after the dwell; a
+              tenant_burst tenant sheds only itself. Every answer against
+              net.output; bn_act 53 per forward, no other kernel.
+ 83. telemetry-serve  serve's ResNet-50 stream at batch limit 32 with
+              DL4J_TPU_TELEMETRY off, then on (images/s of each); the
+              chrome trace written, loaded back and holding one
+              serving.dispatch_batch span per dispatched batch;
+              dl4j_tpu_serving_requests_total in the Prometheus text equal
+              to the requests made; serving_nan opening the breaker, which
+              writes exactly one serving_breaker bundle. bn_act 53 per
+              forward.
 
 The characters the training phases learn are drawn with Zipf frequencies,
 so that a falling loss shows learning; their shapes are bench.py
@@ -596,7 +634,8 @@ sentry and records run, each serving or training run of A.8's paths,
 each pretraining and fine-tuning run, each training run of A.3's rest
 and A.9 and each ring call (in the ranks' processes too), each
 ParallelInference mode, the registry's run and the dcn ranks' fits, and
-read just after. The
+each of router-canary, fleet-autoscale and telemetry-serve, and read just
+after. The
 last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 Exits non-zero when no CUDA device is available, and when the port's
@@ -9029,6 +9068,673 @@ def phase_registry_fleet(torch, np, card, tmp):
     return launches
 
 
+# ------------------------------------------------------------ phases 81-83
+# A.10's second half and A.11's first pieces: the SLO-gated canary Router,
+# the Autoscaler's replica pool, the telemetry core on the serving path
+ROUTER_SIZES = (1, 3, 8, BATCH)     # rows of the routed ResNet-50 requests
+ROUTER_MIN_REQUESTS = 8             # canary requests a stage must soak
+# the version rules' windows, shrunk through rule_kwargs as the JAX tests
+# do (ticks come with a fake `now`, 61 s apart), and the latency rule's
+# bound: 1 s, so that a first batch of a shape on a fresh dispatcher thread
+# (cuDNN's algorithm choice) cannot hold the ramp; availability is what
+# the rollback below is about
+ROUTER_RULES = dict(fast_window_s=60.0, slow_window_s=600.0,
+                    latency_threshold_s=1.0)
+ROUTER_LM_EVERY = 24                # one 1-row TransformerLM request per 24
+ROUTER_STREAM = 48                  # 32-row requests timed through the Router
+ROUTER_LM_STREAM = (8, 4)           # LM requests x rows timed by name
+ROLLBACK_REQUESTS = 40              # requests during v3's 5% stage
+AUTOSCALE_CLIENTS = 16                  # the load step's closed-loop clients
+AUTOSCALE_ROWS = (8, 16, 24, 32)        # their request sizes, cycled
+AUTOSCALE_BANDS = dict(queue_depth_high=4.0, queue_depth_low=2.0,
+                   ema_high_s=1.0, ema_low_s=0.1, min_dwell_s=1.0)
+AUTOSCALE_WINDOW = 1.5                  # s of load timed before / after scaling
+AUTOSCALE_TICK = 0.2                    # s between evaluate() ticks
+AUTOSCALE_LIMIT = 12.0                  # s the scale out or in may take at most
+AUTOSCALE_DEADLINE = 30.0               # s each fleet request may take at most
+TENANT_ROUNDS = 20                  # noisy / quiet rounds of tenant-burst
+TENANT_TICK = 0.1                   # s of the quotas' clock per round
+# the noisy tenant's quota covers its own 8 rows a round (80 rows/s), not
+# the rounds tenant_burst amplifies tenfold
+NOISY = dict(rate=100.0, burst=20.0)
+TELEMETRY_STREAM = 48               # 32-row requests per telemetry setting
+
+
+def hist_quantile(fam, labels, q):
+    """The q-quantile's upper bound from a labeled histogram family's
+    buckets (the Prometheus le series); None before any observation."""
+    for lab, child in fam.child_items():
+        if lab == labels:
+            pairs = child.bucket_counts()
+            total = pairs[-1][1]
+            if not total:
+                return None
+            for bound, cum in pairs:
+                if cum >= q * total:
+                    return bound
+    return None
+
+
+def routed_version(fraction, counter):
+    """The side the Router's counter split gives the next routed request
+    while a rollout runs at `fraction`: request n goes to the canary iff
+    floor(n f) advanced. `counter` is the split's running count, which,
+    as the Router's, advances only while a rollout runs."""
+    counter[0] += 1
+    k = counter[0]
+    return "canary" if math.floor(k * fraction) > math.floor(
+        (k - 1) * fraction) else "stable"
+
+
+def phase_router_canary(torch, np, card, tmp):
+    """router-canary (see the module docstring). Returns the launches."""
+    from deeplearning4j_tpu_torch.resilience import chaos
+    from deeplearning4j_tpu_torch.serving import ModelRegistry, Router
+    from deeplearning4j_tpu_torch.serving.errors import ServingError
+    from deeplearning4j_tpu_torch.telemetry import flight, metrics
+    from deeplearning4j_tpu_torch.telemetry import trace as trace_mod
+    from deeplearning4j_tpu_torch.zoo import ResNet50, TransformerLM
+
+    dev = card_device(torch)
+    t0 = time.perf_counter()
+    nets = {v: ResNet50(num_classes=1000, input_shape=RESNET_SHAPE,
+                        seed=s).init(device=dev)
+            for v, s in (("v1", SEED), ("v2", SEED + 1), ("v3", SEED + 2))}
+    lm = TransformerLM(**LM, seed=SEED).init(device=dev)
+    rng = np.random.default_rng(SEED + 31)
+    t, vocab = LM["max_length"], LM["num_classes"]
+
+    def images(n):
+        return rng.standard_normal((n, *RESNET_SHAPE)).astype(np.float32)
+
+    def ids(n):
+        return rng.integers(0, vocab, (n, t)).astype(np.int32)
+
+    flight_dir = os.path.join(tmp, "flight")
+    metrics.registry().reset()
+    reg = ModelRegistry()
+    fwd = Forwards(dict(nets, lm=lm))
+    reset_counts()
+    try:
+        for v, net in nets.items():
+            reg.register("resnet", net, version=v, stable=v == "v1",
+                         batch_limit=BATCH)
+            reg.warm("resnet", v, example=images(1))
+        reg.register("lm", lm, batch_limit=LM_BATCH)
+        reg.warm("lm", example=ids(1))
+        torch.cuda.synchronize()
+        log(f"[router-canary] ResNet-50 v1, v2, v3 (seeds {SEED}, "
+            f"{SEED + 1}, {SEED + 2}) and the TransformerLM {LM} registered "
+            f"and warmed in {time.perf_counter() - t0:.2f} s")
+        rt = Router(reg)
+        answers = []       # (model, version, x, answer, stage)
+        per_stage = {}     # (stage, version) -> requests
+        counter, n_req = [0], 0
+        now = 1000.0
+        ro = rt.start_rollout("resnet", "v2", min_requests=ROUTER_MIN_REQUESTS,
+                              **ROUTER_RULES)
+        rt.evaluate(now=now)
+        ticks = 0
+        t1 = time.perf_counter()
+        while ro.state == "running":
+            stage = ro.history[-1]
+            for _ in range(max(ROUTER_MIN_REQUESTS,
+                               int(math.ceil(ROUTER_MIN_REQUESTS
+                                             / ro.fraction)))):
+                n_req += 1
+                if n_req % ROUTER_LM_EVERY == 0:
+                    x = ids(1)
+                    answers.append(("lm", "v1", x, rt.output(
+                        "lm", x, deadline_s=AUTOSCALE_DEADLINE), stage))
+                x = images(ROUTER_SIZES[n_req % len(ROUTER_SIZES)])
+                side = routed_version(ro.fraction, counter)
+                v = "v2" if side == "canary" else "v1"
+                out = rt.output("resnet", x, deadline_s=AUTOSCALE_DEADLINE)
+                answers.append(("resnet", v, x, out, stage))
+                per_stage[(stage, v)] = per_stage.get((stage, v), 0) + 1
+            now += 61.0
+            rt.evaluate(now=now)
+            ticks += 1
+            if ticks > 12:
+                raise AssertionError(f"router-canary: v2 not promoted after "
+                                     f"{ticks} ticks ({ro.history})")
+        ramp_s = time.perf_counter() - t1
+        if ro.state != "promoted" or reg.get("resnet").version != "v2":
+            raise AssertionError(f"router-canary: rollout of v2 ended "
+                                 f"{ro.state} ({ro.history})")
+        log(f"[router-canary] v2 ramp {ro.history} in {ticks} ticks "
+            f"({ramp_s:.2f} s): requests per stage and version "
+            + ", ".join(f"{s}% {v} {n}" for (s, v), n in
+                        sorted(per_stage.items(), key=lambda kv: (
+                            int(kv[0][0]), kv[0][1])))
+            + f"; {sum(1 for a in answers if a[0] == 'lm')} TransformerLM "
+            f"requests routed by name between them")
+
+        # rates through the Router at the promoted version
+        stream = [images(BATCH) for _ in range(4)]
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            outs = list(pool.map(lambda i: rt.output(
+                "resnet", stream[i % 4], deadline_s=AUTOSCALE_DEADLINE),
+                range(ROUTER_STREAM)))
+        wall = time.perf_counter() - t1
+        img_s = ROUTER_STREAM * BATCH / wall
+        answers += [("resnet", "v2", stream[i % 4], o, "stream")
+                    for i, o in enumerate(outs[:4])]
+        n_lm, rows_lm = ROUTER_LM_STREAM
+        lm_x = ids(rows_lm)
+        t1 = time.perf_counter()
+        for _ in range(n_lm):
+            lm_out = rt.output("lm", lm_x, deadline_s=AUTOSCALE_DEADLINE)
+        lm_wall = time.perf_counter() - t1
+        tok_s = n_lm * rows_lm * t / lm_wall
+        answers.append(("lm", "v1", lm_x, lm_out, "stream"))
+        log(f"[router-canary] through the Router: ResNet-50 {img_s:.1f} "
+            f"images/s ({ROUTER_STREAM} x {BATCH} rows, 4 clients), "
+            f"TransformerLM {tok_s:.1f} tokens/s ({n_lm} x {rows_lm} x {t} "
+            f"tokens by name, one client) ({card})")
+
+        # a broken canary: v3 under canary_nan rolls back in one tick
+        with env_vars(DL4J_TPU_CHAOS="canary_nan@" + ":".join(
+                str(i) for i in range(1, 200)),
+                DL4J_TPU_TELEMETRY="1", DL4J_TPU_FLIGHT_DIR=flight_dir):
+            chaos.reset_fault_points()
+            trace_mod.tracer().clear()
+            ro3 = rt.start_rollout("resnet", "v3", **ROUTER_RULES)
+            rt.evaluate(now=now)
+            failed = stable = 0
+            for k in range(ROLLBACK_REQUESTS):
+                x = images(ROUTER_SIZES[k % len(ROUTER_SIZES)])
+                side = routed_version(ro3.fraction, counter)
+                try:
+                    out = rt.output("resnet", x, deadline_s=AUTOSCALE_DEADLINE)
+                except ServingError as e:
+                    if side != "canary":
+                        raise AssertionError(f"router-canary: a stable "
+                                             f"request failed: {e!r}")
+                    failed += 1
+                    continue
+                if side == "canary":
+                    raise AssertionError("router-canary: a canary_nan "
+                                         "answer was served")
+                stable += 1
+                answers.append(("resnet", "v2", x, out, "v3 rollout"))
+            now += 61.0
+            rt.evaluate(now=now)
+            rollback_tick = 1
+            after = [(x, rt.output("resnet", x, deadline_s=AUTOSCALE_DEADLINE))
+                     for x in (images(8) for _ in range(4))]
+            answers += [("resnet", "v2", x, o, "after rollback")
+                        for x, o in after]
+            bundles = [p for p in flight.list_bundles(flight_dir)
+                       if "canary_rollback" in os.path.basename(p)]
+            chaos.reset_fault_points()
+        if ro3.state != "rolled_back" or ro3.history != ["5", "rollback"]:
+            raise AssertionError(f"router-canary: v3 did not roll back in "
+                                 f"one tick: {ro3.state} {ro3.history}")
+        if len(bundles) != 1 or bundles[0] != ro3.rollback_bundle:
+            raise AssertionError(f"router-canary: canary_rollback bundles "
+                                 f"{bundles}")
+        doc = flight.load_bundle(bundles[0])
+        if (doc["reason"] != "canary_rollback"
+                or doc["canary"]["canary"] != "v3"
+                or len(doc["canary"]["offending_traces"]) != failed):
+            raise AssertionError(f"router-canary: bundle {doc['canary']}")
+        log(f"[router-canary] v3 under canary_nan: {failed} canary requests "
+            f"failed typed, {stable} stable answered, rolled back at tick "
+            f"{rollback_tick} after its start ({ro3.rollback_rules}); one "
+            f"canary_rollback bundle ({os.path.basename(bundles[0])}, "
+            f"{len(doc['canary']['offending_traces'])} offending traces) "
+            f"read back by load_bundle")
+        lat = metrics.registry().get("dl4j_tpu_model_latency_seconds")
+        log("[router-canary] dl4j_tpu_model_latency_seconds p50 / p99 "
+            "upper bounds: " + ", ".join(
+                f"{m}:{v} {hist_quantile(lat, dict(model=m, version=v), 0.5)}"
+                f" / {hist_quantile(lat, dict(model=m, version=v), 0.99)} s"
+                for m, v in (("resnet", "v1"), ("resnet", "v2"),
+                             ("lm", "v1"))) + f" ({card})")
+    finally:
+        reg.shutdown()
+        fwd.restore()
+    launches = read_counts()
+    n_resnet = fwd.n["v1"] + fwd.n["v2"] + fwd.n["v3"]
+    expect_launches("router-canary", launches, {
+        "bn_act": 53 * n_resnet,
+        "flash_attention": LM["n_layers"] * fwd.n["lm"]})
+    # every answer against the output of the version the split says
+    # answered it; the versions must be far apart for that to mean anything
+    x = images(8)
+    apart = float(row_diffs(np, fwd.direct["v1"](x).cpu().numpy(),
+                            fwd.direct["v2"](x).cpu().numpy()).min())
+    if not TF32_TOL < apart:
+        raise AssertionError(f"router-canary: v1 and v2 rows differ by only "
+                             f"{apart:.3g}; a swap would pass")
+    worst = {}
+    for model, v, x, out, stage in answers:
+        ref = fwd.direct["lm" if model == "lm" else v](x).float().cpu().numpy()
+        key = f"{model}:{v}"
+        worst[key] = max(worst.get(key, 0.0), served_close(
+            np, f"router-canary {key} ({stage})", out, ref,
+            LM_SERVE_TOL if model == "lm" else TF32_TOL,
+            whole=model == "lm"))
+    log(f"[router-canary] forwards {fwd.n}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; {len(answers)} "
+        f"answers against their version's output, worst "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f" (ResNet-50 per row {TF32_TOL:g}, versions apart by "
+        f"{apart:.3g}; lm {LM_SERVE_TOL:g} of its largest); "
+        f"{time.perf_counter() - t0:.1f} s")
+    del nets, lm
+    return launches
+
+
+def phase_fleet_autoscale(torch, np, card, tmp):
+    """fleet-autoscale (see the module docstring). Returns the launches."""
+    import threading
+
+    from deeplearning4j_tpu_torch.serving import (
+        Autoscaler,
+        ModelRegistry,
+        Router,
+        TenancyController,
+        TenantQuotaError,
+    )
+    from deeplearning4j_tpu_torch.serving.errors import (
+        DispatcherCrashedError,
+        ServingError,
+    )
+    from deeplearning4j_tpu_torch.resilience import chaos
+
+    t0 = time.perf_counter()
+    net = resnet_net(torch, card_device(torch))
+    rng = np.random.default_rng(SEED + 37)
+    xs = {n: rng.standard_normal((n, *RESNET_SHAPE)).astype(np.float32)
+          for n in AUTOSCALE_ROWS}
+    refs = {n: net.output(x).float().cpu().numpy() for n, x in xs.items()}
+    reg = ModelRegistry(warm_cache_dir=os.path.join(tmp, "warm"))
+    # the quotas' clock is the tenant rounds' own: TENANT_TICK a round
+    tclock = [0.0]
+    ctrl = TenancyController(default_rate=1e9, default_burst=1e9,
+                             clock=lambda: tclock[0])
+    ctrl.add_tenant("quiet", rate=1e9, burst=1e9)
+    ctrl.add_tenant("noisy", **NOISY)
+    fwd = Forwards({"resnet": net})
+    reset_counts()
+    pool = None
+    lock = threading.Lock()
+    worst = [0.0]
+    typed = {}
+    broken = []  # a client thread's failure, raised after the join
+
+    def check(out, n, what):
+        d = served_close(np, f"fleet-autoscale ({what})", out, refs[n],
+                         TF32_TOL)
+        with lock:
+            worst[0] = max(worst[0], d)
+
+    try:
+        reg.register("resnet", net, batch_limit=BATCH)
+        reg.warm("resnet", example=xs[8][:1])
+        rt = Router(reg)
+        pool = Autoscaler.for_model(reg, "resnet", tenancy=ctrl,
+                                    min_replicas=1, max_replicas=3,
+                                    **AUTOSCALE_BANDS)
+        rt.attach_autoscaler("resnet", pool)
+        torch.cuda.synchronize()
+        log(f"[fleet-autoscale] ResNet-50 registered, warmed (manifest "
+            f"recorded), pool of {pool.snapshot()['replicas_live']} replica "
+            f"behind the Router in {time.perf_counter() - t0:.2f} s")
+
+        stop = threading.Event()
+        served = [0]
+        requeued = {}  # client thread -> end of its answer after a requeue
+        hit = set()    # client threads the crashed replica refused
+
+        def client(k, sizes=AUTOSCALE_ROWS):
+            i = k
+            try:
+                while not stop.is_set():
+                    n = sizes[i % len(sizes)]
+                    i += 1
+                    s = time.perf_counter()
+                    try:
+                        out = rt.output("resnet", xs[n],
+                                        deadline_s=AUTOSCALE_DEADLINE)
+                    except ServingError as e:
+                        with lock:
+                            typed[type(e).__name__] = typed.get(
+                                type(e).__name__, 0) + 1
+                        if time.perf_counter() - s > AUTOSCALE_DEADLINE + 1.0:
+                            raise AssertionError("a caller blocked past "
+                                                 "its deadline")
+                        continue
+                    check(out, n, "load")
+                    me = threading.get_ident()
+                    with lock:
+                        served[0] += n
+                        if me in hit:
+                            hit.discard(me)
+                            requeued[me] = time.perf_counter()
+            except Exception as e:
+                broken.append(e)
+
+        def window(seconds):
+            """(images/s, rows per dispatched batch, the replicas' mean
+            dispatch EMA in ms) over `seconds` of the load."""
+            a, f = served[0], fwd.n["resnet"]
+            t1 = time.perf_counter()
+            time.sleep(seconds)
+            rows, n = served[0] - a, fwd.n["resnet"] - f
+            ema = pool.snapshot()["signals"]["ema_latency_s"] or 0.0
+            return (rows / (time.perf_counter() - t1), rows / max(n, 1),
+                    ema * 1e3)
+
+        counts = []
+        first_ms = []
+        seen = {r.replica_id for r in pool._replicas}
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(AUTOSCALE_CLIENTS)]
+        for th in threads:
+            th.start()
+        try:
+            time.sleep(0.5)  # the load settles on one replica
+            before = window(AUTOSCALE_WINDOW)
+            end = time.perf_counter() + AUTOSCALE_LIMIT
+            while (pool.snapshot()["replicas_live"] < pool.max_replicas
+                   and time.perf_counter() < end):
+                rt.evaluate()
+                counts.append(pool.snapshot()["replicas_live"])
+                for rep in list(pool._replicas):
+                    if rep.replica_id not in seen:
+                        seen.add(rep.replica_id)
+                        s = time.perf_counter()
+                        out = rep.server.output(xs[8],
+                                                deadline_s=AUTOSCALE_DEADLINE)
+                        first_ms.append((time.perf_counter() - s) * 1e3)
+                        check(out, 8, f"{rep.replica_id} first request")
+                time.sleep(AUTOSCALE_TICK)
+            if pool.snapshot()["replicas_live"] < 2:
+                raise AssertionError(f"fleet-autoscale: no scale out under "
+                                     f"{AUTOSCALE_CLIENTS} clients ({counts})")
+            after = window(AUTOSCALE_WINDOW)
+            log(f"[fleet-autoscale] load step 1 -> {AUTOSCALE_CLIENTS} clients "
+                f"of {AUTOSCALE_ROWS} rows: replicas per tick {counts}; "
+                f"{before[0]:.1f} images/s on 1 replica ({before[1]:.1f} "
+                f"rows a batch, dispatch EMA {before[2]:.2f} ms), "
+                f"{after[0]:.1f} on {pool.snapshot()['replicas_live']} "
+                f"({after[1]:.1f} rows a batch, EMA {after[2]:.2f} ms); "
+                f"spawned replicas' first 8-row request under the load "
+                + ", ".join(f"{v:.1f}" for v in first_ms) + f" ms ({card})")
+
+            # one replica's dispatcher dies under the load: its callers
+            # requeue onto the survivors
+            victim = pool._replicas[0]
+            inner = victim.server._dispatch
+            refused = victim.server.output
+            crash_at = []
+
+            def dying(xp):
+                crash_at.append(time.perf_counter())
+                raise SystemExit("replica dispatcher crashed")
+
+            def watched(x, **kw):
+                # a caller the dead dispatcher refused; the pool requeues it
+                try:
+                    return refused(x, **kw)
+                except DispatcherCrashedError:
+                    with lock:
+                        hit.add(threading.get_ident())
+                    raise
+
+            # every caller inside the victim when it dies must have come in
+            # through the watch: the calls already in it finish first
+            victim.server.output = watched
+            time.sleep(0.5)
+            victim.server._dispatch = dying
+            end = time.perf_counter() + AUTOSCALE_LIMIT
+            while not crash_at and time.perf_counter() < end:
+                time.sleep(0.01)
+            if not crash_at:
+                raise AssertionError("fleet-autoscale: the victim never "
+                                     "dispatched")
+            end = time.perf_counter() + AUTOSCALE_DEADLINE
+            while time.perf_counter() < end:
+                with lock:
+                    if requeued and not hit:
+                        break
+                time.sleep(0.01)
+            with lock:
+                if hit or not requeued:
+                    raise AssertionError(f"fleet-autoscale: callers the "
+                                         f"crash refused: {len(hit)} not "
+                                         f"answered, {len(requeued)} "
+                                         f"answered")
+                recover_ms = (max(requeued.values()) - crash_at[0]) * 1e3
+            rt.evaluate()
+            info = pool.membership.get(victim.replica_id)
+            if info.state.value != "evicted" or info.evict_reason != "crash":
+                raise AssertionError(f"fleet-autoscale: the crashed replica "
+                                     f"is {info.state} ({info.evict_reason})")
+            victim.server._dispatch = inner
+            victim.server.output = refused
+            # the serving_dispatch point: the next dispatched batch of any
+            # replica fails typed, and no one else's
+            with env_vars(DL4J_TPU_CHAOS="serving_dispatch@1"):
+                chaos.reset_fault_points()
+                end = time.perf_counter() + AUTOSCALE_LIMIT
+                while (typed.get("DispatchFailedError", 0) == 0
+                       and time.perf_counter() < end):
+                    time.sleep(0.01)
+                chaos.reset_fault_points()
+            log(f"[fleet-autoscale] {victim.replica_id}'s dispatcher crashed "
+                f"under the load: evicted ({info.evict_reason}), "
+                f"{len(requeued)} callers it refused requeued onto the "
+                f"survivors and answered, the last {recover_ms:.1f} ms "
+                f"after the crash; "
+                f"serving_dispatch@1 failed one batch typed; typed errors "
+                f"{typed} ({card})")
+        finally:
+            stop.set()
+            for th in threads:
+                th.join(AUTOSCALE_DEADLINE + 5.0)
+        if broken:
+            raise broken[0]
+        if set(typed) != {"DispatchFailedError"}:
+            raise AssertionError(f"fleet-autoscale: typed errors {typed}")
+
+        # the load drops to one client: the pool scales in after the dwell
+        stop = threading.Event()
+        th = threading.Thread(target=client, args=(0, (8,)), daemon=True)
+        th.start()
+        counts = [pool.snapshot()["replicas_live"]]
+        t1 = time.perf_counter()
+        try:
+            end = t1 + 2 * AUTOSCALE_LIMIT
+            while (pool.snapshot()["replicas_live"] > pool.min_replicas
+                   and time.perf_counter() < end):
+                rt.evaluate()
+                counts.append(pool.snapshot()["replicas_live"])
+                time.sleep(AUTOSCALE_TICK)
+        finally:
+            stop.set()
+            th.join(AUTOSCALE_DEADLINE + 5.0)
+        if broken:
+            raise broken[0]
+        # a request queued on the drained replica resolves typed
+        if set(typed) - {"DispatchFailedError", "ShutdownError"}:
+            raise AssertionError(f"fleet-autoscale: typed errors {typed}")
+        ins = [e for e in pool.snapshot()["events"]
+               if e["direction"] == "in" and e["reason"] == "idle"]
+        if not ins:
+            raise AssertionError(f"fleet-autoscale: no scale in after the "
+                                 f"load dropped ({counts})")
+        log(f"[fleet-autoscale] load dropped to 1 client: replicas per "
+            f"tick {counts} over {time.perf_counter() - t1:.2f} s "
+            f"({len(ins)} scale-in(s), dwell {AUTOSCALE_BANDS['min_dwell_s']} s)")
+
+        # a bursting tenant sheds only itself
+        with env_vars(DL4J_TPU_CHAOS="tenant_burst@" + ":".join(
+                str(2 * i + 1) for i in range(TENANT_ROUNDS))):
+            chaos.reset_fault_points()
+            noisy_shed, quiet_ok = 0, 0
+            for _ in range(TENANT_ROUNDS):
+                tclock[0] += TENANT_TICK
+                try:
+                    out = rt.output("resnet", xs[8], tenant="noisy",
+                                    deadline_s=AUTOSCALE_DEADLINE)
+                    check(out, 8, "noisy tenant")
+                except TenantQuotaError:
+                    noisy_shed += 1
+                out = rt.output("resnet", xs[8], tenant="quiet",
+                                deadline_s=AUTOSCALE_DEADLINE)
+                check(out, 8, "quiet tenant")
+                quiet_ok += 1
+            chaos.reset_fault_points()
+        tenants = ctrl.snapshot()["tenants"]
+        if not noisy_shed or tenants["quiet"]["shed"]:
+            raise AssertionError(f"fleet-autoscale: tenants {tenants}")
+        log(f"[fleet-autoscale] tenant_burst on each of the noisy tenant's "
+            f"admissions (quota {NOISY['rate']:g} rows/s, burst "
+            f"{NOISY['burst']:g}; 8 rows a {TENANT_TICK:g} s round): noisy "
+            f"shed {noisy_shed} of {TENANT_ROUNDS}, quiet answered "
+            f"{quiet_ok} of {TENANT_ROUNDS} and shed "
+            f"{tenants['quiet']['shed']}")
+    finally:
+        if pool is not None:
+            pool.shutdown()
+        reg.shutdown()
+        fwd.restore()
+    launches = read_counts()
+    expect_launches("fleet-autoscale", launches,
+                    {"bn_act": 53 * fwd.n["resnet"]})
+    log(f"[fleet-autoscale] {fwd.n['resnet']} ResNet-50 forwards, launches "
+        f"{ {k: v for k, v in launches.items() if v} }; every answer within "
+        f"{worst[0]:.3g} of net.output per row (tol {TF32_TOL:g}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_telemetry_serve(torch, np, card, tmp):
+    """telemetry-serve (see the module docstring). Returns the launches."""
+    from deeplearning4j_tpu_torch.resilience import chaos
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+    from deeplearning4j_tpu_torch.serving.errors import (
+        CircuitOpenError,
+        NonFiniteOutputError,
+    )
+    from deeplearning4j_tpu_torch.telemetry import (
+        flight,
+        metrics,
+        render_prometheus,
+    )
+    from deeplearning4j_tpu_torch.telemetry import trace as trace_mod
+
+    t0 = time.perf_counter()
+    net = resnet_net(torch, card_device(torch))
+    rng = np.random.default_rng(SEED)
+    stream = [rng.standard_normal((BATCH, *RESNET_SHAPE)).astype(np.float32)
+              for _ in range(4)]
+    refs = [net.output(x).float().cpu().numpy() for x in stream]
+    fwd = Forwards({"resnet": net})
+    reset_counts()
+    rates, worst, spans = {}, 0.0, None
+    flight_dir = os.path.join(tmp, "flight")
+    try:
+        for gate in ("0", "1"):
+            with env_vars(DL4J_TPU_TELEMETRY=gate,
+                          DL4J_TPU_FLIGHT_DIR=flight_dir):
+                metrics.registry().reset()
+                trace_mod.tracer().clear()
+                server = InferenceServer(model=net, batch_limit=BATCH,
+                                         name=f"telemetry-{gate}")
+                try:
+                    server.warmup(stream[0][:1])
+                    torch.cuda.synchronize()
+                    n0 = fwd.n["resnet"]
+                    t1 = time.perf_counter()
+                    with ThreadPoolExecutor(4) as pool:
+                        outs = list(pool.map(lambda i: server.output(
+                            stream[i % 4]), range(TELEMETRY_STREAM)))
+                    wall = time.perf_counter() - t1
+                    batches = fwd.n["resnet"] - n0
+                finally:
+                    server.shutdown()
+                rates[gate] = TELEMETRY_STREAM * BATCH / wall
+                for i, out in enumerate(outs):
+                    worst = max(worst, served_close(
+                        np, f"telemetry-serve gate {gate}", out,
+                        refs[i % 4], TF32_TOL))
+                text = render_prometheus()
+                made = sum(float(line.rsplit(" ", 1)[1])
+                           for line in text.splitlines()
+                           if line.startswith(
+                               "dl4j_tpu_serving_requests_total{"))
+                if made != TELEMETRY_STREAM:
+                    raise AssertionError(f"telemetry-serve gate {gate}: "
+                                         f"dl4j_tpu_serving_requests_total "
+                                         f"{made}, requests made "
+                                         f"{TELEMETRY_STREAM}")
+                if gate == "1":
+                    path = os.path.join(tmp, "serve_trace.json")
+                    trace_mod.tracer().export_chrome(path)
+                    with open(path) as f:
+                        events = json.load(f)["traceEvents"]
+                    spans = sum(1 for e in events
+                                if e["name"] == "serving.dispatch_batch")
+                    if spans != batches:
+                        raise AssertionError(
+                            f"telemetry-serve: {spans} serving.dispatch_batch "
+                            f"spans for {batches} dispatched batches")
+                    mb = os.path.getsize(path) / 1e6
+        log(f"[telemetry-serve] serve's stream ({TELEMETRY_STREAM} x {BATCH} "
+            f"rows, 4 clients): {rates['0']:.1f} images/s with "
+            f"DL4J_TPU_TELEMETRY off, {rates['1']:.1f} on "
+            f"({(rates['0'] / rates['1'] - 1) * 100:+.2f}% time); the chrome "
+            f"trace ({mb:.2f} MB) holds {spans} serving.dispatch_batch spans "
+            f"for {batches} dispatched batches; "
+            f"dl4j_tpu_serving_requests_total = {TELEMETRY_STREAM} requests "
+            f"made; every answer within {worst:.3g} per row (tol "
+            f"{TF32_TOL:g}) ({card})")
+
+        # serving_nan opens the breaker, which writes one bundle
+        x = stream[0][:1]
+        with env_vars(DL4J_TPU_TELEMETRY="1", DL4J_TPU_FLIGHT_DIR=flight_dir,
+                      DL4J_TPU_CHAOS="serving_nan@1:2:3:4:5"):
+            chaos.reset_fault_points()
+            server = InferenceServer(model=net, batch_limit=BATCH,
+                                     name="telemetry-nan")
+            got = []
+            try:
+                for _ in range(6):
+                    try:
+                        server.output(x)
+                        got.append("ok")
+                    except (NonFiniteOutputError, CircuitOpenError) as e:
+                        got.append(type(e).__name__)
+            finally:
+                server.shutdown()
+                chaos.reset_fault_points()
+        bundles = [p for p in flight.list_bundles(flight_dir)
+                   if "serving_breaker" in os.path.basename(p)]
+        if got != ["NonFiniteOutputError"] * 5 + ["CircuitOpenError"] or \
+                len(bundles) != 1:
+            raise AssertionError(f"telemetry-serve: serving_nan gave {got}, "
+                                 f"bundles {bundles}")
+        doc = flight.load_bundle(bundles[0])
+        log(f"[telemetry-serve] serving_nan@1:2:3:4:5: {got}; one "
+            f"serving_breaker bundle ({doc['note']}), trace of "
+            f"{len(doc['trace']['traceEvents'])} events")
+    finally:
+        fwd.restore()
+    launches = read_counts()
+    expect_launches("telemetry-serve", launches,
+                    {"bn_act": 53 * fwd.n["resnet"]})
+    log(f"[telemetry-serve] {fwd.n['resnet']} ResNet-50 forwards, launches "
+        f"{ {k: v for k, v in launches.items() if v} }; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def continuous_step(pub):
     from deeplearning4j_tpu_torch.distributed.continuous import (
         read_latest_pointer,
@@ -9349,6 +10055,19 @@ def main() -> int:
         log(f"[dcn-dp] the serving-fleet and dcn phases (pi-resnet, "
             f"registry-fleet, dcn-dp) took {time.perf_counter() - t0:.1f} "
             f"s")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            a10_launches = phase_router_canary(torch, np, card, tmp)
+            torch.cuda.empty_cache()
+            a10_launches = add_counts(
+                a10_launches, phase_fleet_autoscale(torch, np, card, tmp))
+            torch.cuda.empty_cache()
+            a10_launches = add_counts(
+                a10_launches, phase_telemetry_serve(torch, np, card, tmp))
+        torch.cuda.empty_cache()
+        log(f"[telemetry-serve] the router, autoscaler and telemetry phases "
+            f"(router-canary, fleet-autoscale, telemetry-serve) took "
+            f"{time.perf_counter() - t0:.1f} s")
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
         if leaked:
@@ -9530,7 +10249,12 @@ def main() -> int:
             # ResNet-50 forward, 6 flash_attention per TransformerLM
             # forward), and on each of dcn-dp's four ranks
             "fleet_launches": fleet_launches[kname],
-            "dcn_launches": [r[kname] for r in dcn_launches]})
+            "dcn_launches": [r[kname] for r in dcn_launches],
+            # A.10's second half and A.11's first pieces: launches in
+            # router-canary's, fleet-autoscale's and telemetry-serve's runs
+            # (53 bn_act per ResNet-50 forward, 6 flash_attention per
+            # TransformerLM forward routed by name)
+            "router_fleet_launches": a10_launches[kname]})
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -48,14 +48,20 @@ Every rank builds the same ParallelInference; rank 0 takes requests:
         pi.follow()
 
 A batch that fails on any rank fails on rank 0 and every rank goes on
-serving. The JAX module's trace spans and flow arrows (ROADMAP A.11's
-telemetry) are left out.
+serving.
+
+Telemetry, as in the JAX module: with ``DL4J_TPU_TELEMETRY`` on, the light
+dispatcher gives each request a TraceContext, a flow arrow from the
+caller to its batch, an ``inference.resolve`` span around the caller's
+wait and an ``inference.dispatch`` span per member on the dispatcher's
+named lane.
 """
 from __future__ import annotations
 
 import logging
 import queue
 import threading
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -69,6 +75,8 @@ from deeplearning4j_tpu_torch.serving.errors import (
     DispatcherCrashedError,
     ShutdownError,
 )
+from deeplearning4j_tpu_torch.telemetry import context as context_mod
+from deeplearning4j_tpu_torch.telemetry import trace as trace_mod
 from deeplearning4j_tpu_torch.util import envflags
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
@@ -209,6 +217,10 @@ class _Request:
         self.event = threading.Event()
         self.result: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
+        # per-request TraceContext while telemetry is on (None otherwise);
+        # the dispatcher attaches it so the dispatch span joins the
+        # request's trace across the thread handoff
+        self.ctx = None
 
 
 def _to_host(out) -> np.ndarray:
@@ -284,7 +296,25 @@ class ParallelInference:
             return self._serving.output(x, deadline_s=deadline_s)
         self._check_live()
         deadline = Deadline(deadline_s)
-        return self._await(_Request(np.asarray(x), deadline), deadline)
+        req = _Request(np.asarray(x), deadline)
+        tr = trace_mod.tracer()
+        if not tr.enabled:
+            return self._await(req, deadline)
+        req.ctx = context_mod.new_trace()
+        with context_mod.activate(req.ctx):
+            t0 = time.perf_counter()
+            outcome = "ok"
+            try:
+                tr.add_flow("inference.batch", flow_id=req.ctx.trace_id,
+                            phase="s", category="serving")
+                return self._await(req, deadline)
+            except BaseException as e:
+                outcome = type(e).__name__
+                raise
+            finally:
+                tr.add_span("inference.resolve",
+                            (time.perf_counter() - t0) * 1e3,
+                            category="serving", outcome=outcome)
 
     def follow(self) -> int:
         """On a rank other than 0: serve rank 0's batches until its
@@ -390,6 +420,10 @@ class ParallelInference:
             r.event.set()
 
     def _dispatch_loop(self):
+        tr = trace_mod.tracer()
+        if tr.enabled:  # name the lane so Chrome/Perfetto shows it
+            tr.set_thread_name(threading.get_ident(),
+                               "ParallelInference-dispatch")
         try:
             self._pump()
         except BaseException as e:  # surface to callers, never vanish
@@ -427,6 +461,7 @@ class ParallelInference:
             self._run_batch(batch)
 
     def _run_batch(self, batch: List[_Request]):
+        t0 = time.perf_counter()
         try:
             sizes = [r.x.shape[0] for r in batch]
             x = (np.concatenate([r.x for r in batch], axis=0)
@@ -443,7 +478,28 @@ class ParallelInference:
                 r.result = out[off:off + s]
                 off += s
                 r.event.set()
+            self._trace_batch(batch, (time.perf_counter() - t0) * 1e3, "ok")
         except BaseException as e:
+            self._trace_batch(batch, (time.perf_counter() - t0) * 1e3,
+                              type(e).__name__)
             for r in batch:
                 r.error = e
                 r.event.set()
+
+    def _trace_batch(self, batch: List[_Request], dt_ms: float,
+                     outcome: str) -> None:
+        """Per-member dispatch spans on the dispatcher lane, each stamped
+        with its request's trace ids; the flow finish binds the span back
+        to the caller-side `inference.batch` arrow started in output()."""
+        tr = trace_mod.tracer()
+        if not tr.enabled:
+            return
+        for r in batch:
+            if r.ctx is None:
+                continue
+            with context_mod.activate(r.ctx):
+                tr.add_flow("inference.batch", flow_id=r.ctx.trace_id,
+                            phase="f", category="serving")
+                tr.add_span("inference.dispatch", dt_ms, category="serving",
+                            rows=r.x.shape[0], batch_size=len(batch),
+                            outcome=outcome)

@@ -1,8 +1,15 @@
 """Resilience of the port's training (counterpart of
 deeplearning4j_tpu/resilience): atomic rotating checkpoints with manifests
-(`checkpoint`), their listener, the divergence sentry (`sentry`) and retry
-with backoff and deadlines (`retry`). The chaos fault points are not
-ported yet (ROADMAP A.11)."""
+(`checkpoint`), their listener, the divergence sentry (`sentry`), retry
+with backoff and deadlines (`retry`) and deterministic fault injection
+(`chaos`: the `DL4J_TPU_CHAOS` fault points and ChaosDataSetIterator)."""
+from deeplearning4j_tpu_torch.resilience.chaos import (  # noqa: F401
+    ChaosDataSetIterator,
+    ChaosError,
+    fault_point,
+    reset_fault_points,
+    silent_fault,
+)
 from deeplearning4j_tpu_torch.resilience.checkpoint import (  # noqa: F401
     CheckpointListener,
     CheckpointManager,

@@ -7,17 +7,19 @@ deadlines, load shedding, tenant quotas and weighted-fair queues
 shutdown; every refusal is a typed ServingError (serving/errors.py).
 `ModelRegistry` (serving/registry.py) hosts many named, versioned models
 side by side from zoo names, Keras files, checkpoint zips and checkpoint
-directories; `warmstart` (serving/warmstart.py) records warm manifests so
-a restarted replica warms up without an example; `submit_with_retry`
-(serving/client.py) is the client loop for shed and broken-circuit
-refusals. `parallel.ParallelInference` routes through the runtime when
+directories; `Router` (serving/router.py) dispatches on model name and
+runs SLO-gated canary rollouts with auto-rollback; `Autoscaler`
+(serving/autoscaler.py) keeps an elastic pool of replica servers of one
+version behind the Router; `warmstart` (serving/warmstart.py) records
+warm manifests so a restarted replica warms up without an example;
+`submit_with_retry` (serving/client.py) is the client loop for shed and
+broken-circuit refusals, straight to a server or routed by model name. `parallel.ParallelInference` routes through the runtime when
 the `DL4J_TPU_SERVING` gate is on.
 
 The error, bucket and breaker modules are light and imported eagerly; the
 runtime and fleet layers resolve on first touch, so that importing the
 package — as parallel/inference.py does for its typed drain errors —
-keeps the gate-off path free of them. The JAX package's Router and
-Autoscaler are ROADMAP A.10's second half.
+keeps the gate-off path free of them.
 """
 from deeplearning4j_tpu_torch.serving.breaker import CircuitBreaker  # noqa: F401
 from deeplearning4j_tpu_torch.serving.buckets import BucketSpec  # noqa: F401
@@ -48,6 +50,12 @@ _LAZY = {
     "TenancyController": "tenancy",
     "TenantPolicy": "tenancy",
     "TenantQueue": "tenancy",
+    "Router": "router",
+    "Rollout": "router",
+    "models_section": "router",
+    "Autoscaler": "autoscaler",
+    "ReplicaServer": "autoscaler",
+    "fleet_section": "autoscaler",
     "submit_with_retry": "client",
     "warmstart": "warmstart",
 }

@@ -1,6 +1,5 @@
 """CircuitBreaker — stop dispatching into a broken model/device path (the
-port's own copy of deeplearning4j_tpu/serving/breaker.py; its transition
-counter joins with the observability slice).
+port's own copy of deeplearning4j_tpu/serving/breaker.py).
 
 When dispatches fail back to back (device wedged, model produces NaN,
 chaos says so), continuing to admit requests just converts every
@@ -17,7 +16,11 @@ at admission, with a retry-after hint) while probing for recovery:
                failure re-opens (fresh cooldown), `probe_successes`
                consecutive successes close the breaker.
 
-`on_open` is called on every edge into OPEN (serving/runtime.py logs it).
+Every transition ticks
+``dl4j_tpu_serving_breaker_transitions_total{state}`` with the state
+ENTERED — a recovery arc open -> half_open -> closed is three exact
+counter increments. `on_open` is the flight-recorder hook
+(serving/runtime.py dumps a breaker-open bundle there).
 
 Thread-safe: admission and dispatch results arrive from different
 threads. The injected `clock` (monotonic) keeps cooldown tests exact.
@@ -28,9 +31,16 @@ import threading
 import time
 from typing import Callable, Optional, Tuple
 
+from deeplearning4j_tpu_torch.telemetry import metrics as metrics_mod
+
 CLOSED = "closed"
 OPEN = "open"
 HALF_OPEN = "half_open"
+
+_TRANSITIONS = metrics_mod.counter(
+    "dl4j_tpu_serving_breaker_transitions_total",
+    "Circuit-breaker transitions, labeled by the state entered",
+    labelnames=("state",))
 
 class CircuitBreaker:
     def __init__(self, failure_threshold: int = 5, cooldown_s: float = 1.0,
@@ -69,6 +79,7 @@ class CircuitBreaker:
     def _transition(self, state: str) -> None:
         # lock held by caller
         self._state = state
+        _TRANSITIONS.labels(state).inc()
 
     # ------------------------------------------------------------------
     def admit(self) -> Tuple[bool, bool]:

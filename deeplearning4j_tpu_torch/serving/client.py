@@ -13,10 +13,11 @@ them under the same conditions fails the same way.
 
 Works against anything exposing `output(x, deadline_s=...)` — an
 `InferenceServer`, a registry's `ModelVersion.server`, a
-`ParallelInference`. `model=` routes by model name through the serving
-Router, which is ROADMAP A.10's second half: until it is ported, passing
-`model` raises NotImplementedError. The JAX module's retry counter
-(`dl4j_tpu_serving_client_retries_total`) is A.11's telemetry.
+`ParallelInference` — or, with `model=`, against a `Router`
+(serving/router.py) passed as `server`: each attempt is then
+`router.output(model, x, ...)`, routed by model name (canary split,
+autoscaled pool). Every retried refusal ticks
+`dl4j_tpu_serving_client_retries_total{error}`.
 """
 from __future__ import annotations
 
@@ -29,6 +30,13 @@ from deeplearning4j_tpu_torch.resilience.retry import (
     decorrelated_backoff,
 )
 from deeplearning4j_tpu_torch.serving.errors import CircuitOpenError, ShedError
+from deeplearning4j_tpu_torch.telemetry import metrics as metrics_mod
+
+_CLIENT_RETRIES = metrics_mod.counter(
+    "dl4j_tpu_serving_client_retries_total",
+    "submit_with_retry attempts that were shed/rejected and retried, "
+    "by error type",
+    labelnames=("error",))
 
 
 def submit_with_retry(server, x, *, model: Optional[str] = None,
@@ -46,14 +54,9 @@ def submit_with_retry(server, x, *, model: Optional[str] = None,
     tries, where the backoff step is `min(cap, uniform(base,
     3 * previous))`. `deadline_s` bounds the WHOLE operation — once
     spent, the last refusal is re-raised instead of sleeping again;
-    `request_deadline_s` is each attempt's serving deadline. `model`
-    (routing through a Router) raises NotImplementedError until the
-    router is ported (ROADMAP A.10's second half)."""
-    if model is not None:
-        raise NotImplementedError(
-            f"model={model!r} routes through serving/router.py's Router, "
-            f"which is ROADMAP A.10's second half; call the model's "
-            f"server (ModelRegistry.get(name).server) directly")
+    `request_deadline_s` is each attempt's serving deadline. With
+    `model`, `server` is a Router and the request routes by that name;
+    without it `server` is called as an InferenceServer."""
     dl = Deadline(deadline_s) if deadline_s is not None else None
     prev_delay = base_backoff_s
     last: Optional[BaseException] = None
@@ -61,9 +64,13 @@ def submit_with_retry(server, x, *, model: Optional[str] = None,
         if dl is not None and dl.expired and last is not None:
             raise last
         try:
+            if model is not None:
+                return server.output(model, x,
+                                     deadline_s=request_deadline_s)
             return server.output(x, deadline_s=request_deadline_s)
         except (ShedError, CircuitOpenError) as e:
             last = e
+            _CLIENT_RETRIES.labels(type(e).__name__).inc()
             if i == attempts - 1:
                 raise
             delay = decorrelated_backoff(prev_delay, base_backoff_s,

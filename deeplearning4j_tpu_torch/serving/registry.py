@@ -28,14 +28,20 @@ Warm starts: with a warm-cache directory (``DL4J_TPU_WARM_CACHE`` or the
 records the warm manifest (serving/warmstart.py), so the NEXT replica's
 ``warm()`` needs no example: it synthesizes the batch from the manifest.
 
+Canary plumbing: each version's dispatch is wrapped with the
+``canary_dispatch`` / ``canary_nan`` chaos fault points
+(resilience/chaos.py), which are ARMED ONLY while that version is the
+active canary (``ModelVersion.canary``, set by serving/router.py's Router
+for the length of a rollout) — a deliberately-broken canary is injectable
+with ``DL4J_TPU_CHAOS=canary_dispatch@1:2:3`` while the stable version and
+all warmups stay untouched. Each ModelVersion also keeps its unwrapped
+``dispatch`` and its ``server_kwargs``: what serving/autoscaler.py's
+``Autoscaler.for_model`` builds replicas from (the same network, so the
+replicas share its weights).
+
 A registry's servers dispatch in one process, each model on its own
 device; a multi-rank grid serves through `parallel.ParallelInference`, so
-the JAX constructor's `mesh` is left out. The router's and autoscaler's
-state on a version (the JAX ModelVersion's ``canary`` flag, its unwrapped
-``dispatch`` and ``server_kwargs``) and the canary plumbing
-(``_canary_faulted``: the ``canary_dispatch`` / ``canary_nan`` chaos points
-armed while a version is the router's canary) wait for the router and
-autoscaler (ROADMAP A.10's second half) and the chaos module (A.11).
+the JAX constructor's `mesh` is left out.
 """
 from __future__ import annotations
 
@@ -44,6 +50,9 @@ import threading
 import weakref
 from typing import Callable, Dict, List, Optional
 
+import torch
+
+from deeplearning4j_tpu_torch.resilience import chaos
 from deeplearning4j_tpu_torch.serving import warmstart
 from deeplearning4j_tpu_torch.serving.runtime import InferenceServer
 
@@ -107,12 +116,21 @@ def resolve_model(source, device=None):
 
 class ModelVersion:
     """One served version: a name + version tag bound to its own
-    InferenceServer."""
+    InferenceServer. ``canary`` is flipped by the router for the
+    duration of a rollout — it arms the canary chaos points and routes
+    this version's outcomes into the per-version SLO selectors."""
 
     def __init__(self, name: str, version: str, server: InferenceServer):
         self.name = name
         self.version = version
         self.server = server
+        self.canary = False
+        # the UNWRAPPED dispatch + serving policy this version was
+        # registered with: what Autoscaler.for_model clones replica
+        # servers from (replicas serve stable traffic, so they never
+        # carry the canary fault wrapper)
+        self.dispatch: Optional[Callable] = None
+        self.server_kwargs: Dict[str, object] = {}
 
     @property
     def key(self) -> str:
@@ -120,7 +138,8 @@ class ModelVersion:
 
     def snapshot(self) -> dict:
         snap = self.server.snapshot()
-        snap.update(model=self.name, version=self.version)
+        snap.update(model=self.name, version=self.version,
+                    canary=self.canary)
         return snap
 
 
@@ -177,9 +196,18 @@ class ModelRegistry:
         model = (resolve_model(source, device=device)
                  if source is not None else None)
         server_kwargs.setdefault("name", f"{name}:{version}")
-        server = InferenceServer(model=model, dispatch=dispatch,
-                                 **server_kwargs)
+        mv_holder: List[ModelVersion] = []
+        inner = (InferenceServer._build_model_dispatch(model)[0]
+                 if dispatch is None else dispatch)
+        server = InferenceServer(
+            dispatch=self._canary_faulted(inner, mv_holder),
+            **server_kwargs)
+        server.model = model
         mv = ModelVersion(name, version, server)
+        mv.dispatch = inner
+        mv.server_kwargs = {k: v for k, v in server_kwargs.items()
+                            if k not in ("name", "warmup_example")}
+        mv_holder.append(mv)
         with self._lock:
             entry = self._entries.setdefault(name, ModelEntry(name))
             taken = version in entry.versions
@@ -191,6 +219,27 @@ class ModelRegistry:
             server.shutdown()
             raise ValueError(f"{mv.key} already registered")
         return mv
+
+    @staticmethod
+    def _canary_faulted(inner: Callable, mv_holder: List[ModelVersion]):
+        """Wrap a dispatch with the canary chaos points, armed only
+        while this version IS the canary — warmups and stable traffic
+        never consume the injection schedule, so
+        ``DL4J_TPU_CHAOS=canary_dispatch@1:2:3`` breaks exactly the
+        first three canary batches."""
+
+        def dispatch(xp):
+            mv = mv_holder[0] if mv_holder else None
+            is_canary = mv is not None and mv.canary
+            if is_canary:
+                chaos.fault_point("canary_dispatch")
+            out = inner(xp)
+            if is_canary and chaos.silent_fault("canary_nan"):
+                out = torch.full_like(torch.as_tensor(out).float(),
+                                      float("nan"))
+            return out
+
+        return dispatch
 
     # ------------------------------------------------------------------
     # warm starts

@@ -31,7 +31,8 @@ queue or a hung caller:
                       outputs (checked on the device with torch.isfinite)
                       open the breaker (serving/breaker.py): requests
                       are rejected FAST with CircuitOpenError while
-                      half-open probes test recovery.
+                      half-open probes test recovery. Opening writes a
+                      flight-recorder bundle (reason "serving_breaker").
   drain on shutdown   shutdown() completes the in-flight batch, resolves
                       every queued request with ShutdownError, and a
                       dispatcher crash resolves queued + future requests
@@ -52,10 +53,31 @@ once per batch. `observed_rows` and `recut_buckets` keep the request-size
 reservoir and swap bucket cuts; `healthz_section()` reports every live
 server. The queue lock is a `util.locks.TrackedLock`.
 
-The JAX package's telemetry spans and metrics (`dl4j_tpu_serving_*`, the
-/healthz server) and its chaos fault points (serving_dispatch,
-serving_slow, serving_nan) and the breaker's flight bundle are ROADMAP
-A.11 and left out; the control flow here is theirs without those hooks.
+Chaos fault points (resilience/chaos.py grammar, e.g.
+``DL4J_TPU_CHAOS=serving_dispatch@1:2:3``), on client batches only (a
+warmup batch consumes no schedule, as the JAX warmup, which calls the
+dispatch directly, does not):
+
+    serving_dispatch  the batch dispatch raises ChaosError
+    serving_slow      SILENT: dispatch sleeps `slow_fault_s` first (the
+                      deadline-expiry / tail-latency arc)
+    serving_nan       SILENT: outputs replaced with NaN (the
+                      non-finite -> breaker arc)
+
+Telemetry, under the JAX package's names (telemetry/):
+``dl4j_tpu_serving_latency_seconds`` (histogram, queue wait + dispatch),
+``dl4j_tpu_serving_latency_{p50,p99}_seconds`` gauges over the last 512
+requests, ``dl4j_tpu_serving_queue_depth``, ``dl4j_tpu_request_rows``,
+``dl4j_tpu_serving_shed_total{reason}``,
+``dl4j_tpu_serving_requests_total{outcome}``,
+``dl4j_tpu_serving_breaker_transitions_total{state}`` (breaker.py). With
+``DL4J_TPU_TELEMETRY`` on, each request gets a TraceContext at admission:
+a ``serving.admission`` span (a refusal carries its `rejected` reason), a
+flow arrow to the batch, a ``serving.dispatch_batch`` span per dispatched
+batch with a ``serving.dispatch`` span and flow finish per member on the
+dispatcher's lane, and a ``serving.resolve`` span around the caller's
+wait. Warmup batches are not client requests: they tick none of these.
+The HTTP endpoints that serve them are not part of the port yet.
 
 Config gates, read at construction through util/envflags.py (the JAX
 package's names): DL4J_TPU_SERVING_SHED (reject_newest | drop_oldest),
@@ -76,6 +98,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.resilience import chaos
 from deeplearning4j_tpu_torch.resilience.retry import Deadline
 from deeplearning4j_tpu_torch.serving import buckets as buckets_mod
 from deeplearning4j_tpu_torch.serving.breaker import OPEN, CircuitBreaker
@@ -90,12 +113,45 @@ from deeplearning4j_tpu_torch.serving.errors import (
     ShutdownError,
 )
 from deeplearning4j_tpu_torch.serving.tenancy import DEFAULT_TENANT
+from deeplearning4j_tpu_torch.telemetry import context as context_mod
+from deeplearning4j_tpu_torch.telemetry import metrics as metrics_mod
+from deeplearning4j_tpu_torch.telemetry import trace as trace_mod
 from deeplearning4j_tpu_torch.util import envflags
 from deeplearning4j_tpu_torch.util.locks import TrackedLock
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 SHED_POLICIES = ("reject_newest", "drop_oldest")
+
+# serving latency spans sub-ms CPU smoke nets to multi-second cold paths
+_LATENCY = metrics_mod.histogram(
+    "dl4j_tpu_serving_latency_seconds",
+    "End-to-end request latency (queue wait + dispatch), successes only",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5, 5.0, 10.0))
+_P50 = metrics_mod.gauge(
+    "dl4j_tpu_serving_latency_p50_seconds",
+    "p50 request latency over the last 512 served requests")
+_P99 = metrics_mod.gauge(
+    "dl4j_tpu_serving_latency_p99_seconds",
+    "p99 request latency over the last 512 served requests")
+_QUEUE_DEPTH = metrics_mod.gauge(
+    "dl4j_tpu_serving_queue_depth",
+    "Requests currently queued (admitted, not yet dispatched)")
+# observed request-size distribution (rows per submit, shed included);
+# bucket bounds are the power-of-two skeleton BucketSpec defaults to
+_REQUEST_ROWS = metrics_mod.histogram(
+    "dl4j_tpu_request_rows",
+    "Rows per submitted request (demand, before admission control)",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024))
+_SHED = metrics_mod.counter(
+    "dl4j_tpu_serving_shed_total",
+    "Requests shed (refused or dropped) before dispatch, by reason",
+    labelnames=("reason",))
+_REQUESTS = metrics_mod.counter(
+    "dl4j_tpu_serving_requests_total",
+    "Admitted requests resolved, by outcome",
+    labelnames=("outcome",))
 
 # live servers for healthz_section (weak: a dropped server must not pin
 # itself)
@@ -107,9 +163,10 @@ class _Pending:
     typed error; `event` is the caller's bounded-wait handle."""
 
     __slots__ = ("x", "n", "sig", "deadline", "event", "result", "error",
-                 "enqueued_perf", "probe", "tenant")
+                 "enqueued_perf", "probe", "ctx", "tenant", "warm")
 
-    def __init__(self, x: np.ndarray, deadline: Deadline):
+    def __init__(self, x: np.ndarray, deadline: Deadline,
+                 warm: bool = False):
         self.x = x
         self.n = x.shape[0]
         self.sig = buckets_mod.signature(x)
@@ -122,9 +179,17 @@ class _Pending:
         # dispatch result repays it via record_success/record_failure;
         # any no-dispatch resolution must release_probe() instead
         self.probe = False
+        # the request's TraceContext (telemetry/context.py), minted at
+        # admission while telemetry is on; None when untraced. The
+        # dispatcher thread attaches it explicitly (contextvars don't
+        # cross threads) so dispatch/resolve spans join the request trace
+        self.ctx = None
         # resolved tenant name when the server runs under a
         # TenancyController (serving/tenancy.py); None otherwise
         self.tenant = None
+        # a warmup batch: not a client request, so no metrics, spans or
+        # chaos firings (the JAX warmup calls the dispatch directly)
+        self.warm = warm
 
 
 def healthz_section() -> Optional[dict]:
@@ -172,6 +237,7 @@ class InferenceServer:
                  shed_policy: Optional[str] = None,
                  default_deadline_s: Optional[float] = None,
                  breaker: Optional[CircuitBreaker] = None,
+                 slow_fault_s: float = 0.25,
                  warmup_example=None,
                  tenancy=None,
                  name: str = "serving"):
@@ -182,6 +248,7 @@ class InferenceServer:
         self.batch_limit = max(1, int(batch_limit))
         self.queue_limit = max(1, int(queue_limit))
         self.wait_ms = max(0.0, float(wait_ms))
+        self.slow_fault_s = max(0.0, float(slow_fault_s))
         self.model = model
         self.mesh = mesh
         align = 1
@@ -286,8 +353,10 @@ class InferenceServer:
         for b in self.buckets.sizes:
             # not a client request: no deadline, no tenant quota, not in
             # the request-size reservoir
-            self.result(self._enqueue(_Pending(np.repeat(row, b, axis=0),
-                                               Deadline(math.inf))))
+            req = _Pending(np.repeat(row, b, axis=0), Deadline(math.inf),
+                           warm=True)
+            self._enqueue(req)
+            self.result(req)
             self.warmed_rows.add((sig, b))
         # first-call times are not traffic: admission estimates and latency
         # percentiles start from the first real batch
@@ -342,7 +411,11 @@ class InferenceServer:
                tenant: Optional[str] = None) -> _Pending:
         """Admission control: refuse (typed) or enqueue. The order: the
         tenant's quota (outside the queue lock), a crashed or stopping
-        runtime, the breaker, the deadline estimate, the queue limit."""
+        runtime, the breaker, the deadline estimate, the queue limit.
+        While telemetry is on, every request is minted a TraceContext at
+        admission; the admission decision itself is a span in that trace
+        (refusals carry a `rejected` reason), and an enqueued request
+        emits a flow arrow that the batch dispatch span binds to."""
         x = np.asarray(x)
         if x.ndim == 0:
             raise ValueError("request must have a leading batch axis")
@@ -351,15 +424,42 @@ class InferenceServer:
         req = _Pending(x, deadline)
         # demand, observed BEFORE admission control: shed requests are
         # exactly the ones a better bucket cut might serve
+        _REQUEST_ROWS.observe(req.n)
         self._row_sizes.append(int(req.n))
         if self.tenancy is not None:
-            # an over-quota tenant sheds itself before it can touch
-            # anyone else's admission estimate
-            req.tenant = self.tenancy.admit(tenant or DEFAULT_TENANT,
-                                            rows=req.n)
-        return self._enqueue(req)
+            req.tenant = tenant or DEFAULT_TENANT
+        tr = trace_mod.tracer()
+        if not tr.enabled:
+            return self._admit(req, tr)
+        req.ctx = context_mod.new_trace()
+        with context_mod.activate(req.ctx):
+            return self._admit(req, tr)
 
-    def _enqueue(self, req: _Pending) -> _Pending:
+    def _admit(self, req: _Pending, tr) -> _Pending:
+        with tr.span("serving.admission", category="serving") as adm:
+            if self.tenancy is not None:
+                # an over-quota tenant sheds itself before it can touch
+                # anyone else's admission estimate (outside the queue lock)
+                try:
+                    req.tenant = self.tenancy.admit(req.tenant, rows=req.n)
+                except ServingError:
+                    adm.set(rejected="tenant_quota")
+                    self._shed("tenant_quota")
+                    raise
+            depth = self._enqueue(req, tr, adm)
+            adm.set(rows=req.n, depth=depth)
+        if req.ctx is not None:
+            # flow start on the caller's lane: the dispatcher's batch
+            # span emits the matching finish
+            tr.add_flow("serving.batch", flow_id=req.ctx.trace_id,
+                        phase="s", category="serving")
+        return req
+
+    def _enqueue(self, req: _Pending, tr=None, adm=None):
+        """Queue `req` or refuse it (typed); returns the queue depth after
+        the append. A warmup batch comes here straight (no quota, no
+        span); `adm` is the admission span a client request's refusal is
+        marked on."""
         deadline = req.deadline
         with self._cond:
             if self._crash is not None:
@@ -370,14 +470,23 @@ class InferenceServer:
                 raise ShutdownError("serving runtime is shut down")
             allowed, holds_probe = self.breaker.admit()
             if not allowed:
+                if adm is not None:
+                    adm.set(rejected="breaker_open")
+                    self._shed("breaker_open")
                 raise CircuitOpenError(
                     "circuit breaker open (consecutive dispatch "
                     "failures or non-finite outputs)",
                     retry_after_s=self.breaker.retry_after_s())
             req.probe = holds_probe
+            if holds_probe and tr is not None:
+                # the half-open probe grant, a marker on the caller's lane
+                tr.add_instant("serving.breaker_probe", category="serving")
             est = self._admission_estimate_locked()
             if deadline.remaining() < est:
                 self._release_if_probe(req)
+                if adm is not None:
+                    adm.set(rejected="deadline")
+                    self._shed("deadline")
                 raise DeadlineExceededError(
                     f"deadline {deadline.seconds:.3g}s cannot be met: "
                     f"estimated time to result {est:.3g}s at queue "
@@ -391,6 +500,7 @@ class InferenceServer:
                 if self.shed_policy == "drop_oldest":
                     oldest = self._q.popleft()
                     self._release_if_probe(oldest)
+                    self._shed("drop_oldest")
                     if self.tenancy is not None:
                         self.tenancy.note_shed(oldest.tenant, "drop_oldest")
                     self._resolve(oldest, error=ShedError(
@@ -399,6 +509,9 @@ class InferenceServer:
                         retry_after_s=hint), outcome="shed")
                 else:
                     self._release_if_probe(req)
+                    if adm is not None:
+                        adm.set(rejected="queue_full")
+                        self._shed("queue_full")
                     if self.tenancy is not None:
                         self.tenancy.note_shed(req.tenant, "queue_full")
                     raise ShedError(
@@ -406,12 +519,32 @@ class InferenceServer:
                         f"shed_policy=reject_newest)",
                         retry_after_s=hint)
             self._q.append(req)
+            depth = len(self._q)
+            _QUEUE_DEPTH.set(depth)
             self._cond.notify()
-        return req
+        return depth
 
     def result(self, req: _Pending) -> np.ndarray:
         """Bounded wait for one submitted request: every wait carries a
-        timeout, and liveness is re-checked per slice."""
+        timeout, and liveness is re-checked per slice. The wait-and-unwrap
+        is the request trace's `serving.resolve` span."""
+        if req.ctx is None:
+            return self._result_inner(req)
+        with context_mod.activate(req.ctx):
+            t0 = time.perf_counter()
+            try:
+                out = self._result_inner(req)
+            except BaseException as e:
+                trace_mod.tracer().add_span(
+                    "serving.resolve", (time.perf_counter() - t0) * 1e3,
+                    category="serving", outcome=type(e).__name__)
+                raise
+            trace_mod.tracer().add_span(
+                "serving.resolve", (time.perf_counter() - t0) * 1e3,
+                category="serving", outcome="ok")
+            return out
+
+    def _result_inner(self, req: _Pending) -> np.ndarray:
         while not req.event.wait(min(0.05, max(
                 0.001, req.deadline.remaining()
                 if req.deadline.seconds is not None else 0.05))):
@@ -449,7 +582,7 @@ class InferenceServer:
         # still queued is resolved here — a shutdown must leave zero
         # parked callers behind
         self._drain(ShutdownError("serving runtime shut down"),
-                    outcome="shutdown")
+                    outcome="shutdown", shed_reason="shutdown")
         if self._model_dispatch is not None:
             self._model_dispatch.stop()
         self._stopped = True
@@ -502,6 +635,9 @@ class InferenceServer:
     # ------------------------------------------------------------------
     # internals
     # ------------------------------------------------------------------
+    def _shed(self, reason: str) -> None:
+        _SHED.labels(reason).inc()
+
     def _release_if_probe(self, req: _Pending) -> None:
         """Repay a half-open probe slot when its request resolves WITHOUT
         a dispatch result (queue expiry, drop_oldest victim, drain,
@@ -532,6 +668,8 @@ class InferenceServer:
                  outcome: str = "ok") -> None:
         req.result = result
         req.error = error
+        if not req.warm:
+            _REQUESTS.labels(outcome).inc()
         if self.tenancy is not None and req.tenant is not None:
             self.tenancy.observe(req.tenant, outcome)
         req.event.set()
@@ -544,7 +682,9 @@ class InferenceServer:
                 self._q.remove(req)
             except ValueError:
                 return  # popped for dispatch (or already resolved)
+            _QUEUE_DEPTH.set(len(self._q))
         self._release_if_probe(req)
+        self._shed("deadline")
         self._resolve(req, error=DeadlineExceededError(
             f"deadline {req.deadline.seconds:.3g}s expired in queue"),
             outcome="deadline")
@@ -553,11 +693,14 @@ class InferenceServer:
         out = []
         while self._q and self._q[0].deadline.expired:
             out.append(self._q.popleft())
+        if out:
+            _QUEUE_DEPTH.set(len(self._q))
         return out
 
     def _fail_expired(self, expired: List[_Pending]) -> None:
         for r in expired:
             self._release_if_probe(r)
+            self._shed("deadline")
             self._resolve(r, error=DeadlineExceededError(
                 f"deadline {r.deadline.seconds:.3g}s expired in queue"),
                 outcome="deadline")
@@ -578,6 +721,7 @@ class InferenceServer:
                     first = None
                 elif self._q:
                     first = self._q.popleft()
+                    _QUEUE_DEPTH.set(len(self._q))
                     self._depths.append(len(self._q))
                 else:
                     self._cond.wait(0.05)
@@ -596,9 +740,11 @@ class InferenceServer:
                 expired = self._pop_expired_locked()
                 nxt = self._q[0] if self._q else None
                 take = (nxt is not None and nxt.sig == first.sig
+                        and nxt.warm == first.warm
                         and total + nxt.n <= self.batch_limit)
                 if take:
                     self._q.popleft()
+                    _QUEUE_DEPTH.set(len(self._q))
                 stop_now = self._stopping
                 if not take and nxt is None and not stop_now:
                     rem = end - time.perf_counter()
@@ -627,18 +773,56 @@ class InferenceServer:
         for r in batch:
             self._resolve(r, error=error, outcome=outcome)
 
+    def _trace_batch_members(self, batch: List[_Pending], dt_ms: float,
+                             target: int, outcome: str) -> None:
+        """Per-member dispatch spans + flow finishes on the dispatcher
+        lane: each admitted request's trace gets its OWN
+        `serving.dispatch` span (stamped with that request's ids, explicit
+        cross-thread attach) and the flow arrow from its enqueue binds
+        here — so a p99 outlier's trace shows which batch carried it."""
+        tr = trace_mod.tracer()
+        if not tr.enabled:
+            return
+        for r in batch:
+            if r.ctx is None:
+                continue
+            with context_mod.activate(r.ctx):
+                tr.add_flow("serving.batch", flow_id=r.ctx.trace_id,
+                            phase="f", category="serving")
+                tr.add_span("serving.dispatch", dt_ms, category="serving",
+                            rows=r.n, bucket=target, outcome=outcome,
+                            batch_size=len(batch))
+
     def _dispatch_batch(self, batch: List[_Pending]) -> None:
         total = sum(r.n for r in batch)
         target = self.buckets.padded_size(total)
         sig = batch[0].sig
+        warm = batch[0].warm
+        member_traces = [r.ctx.trace_id for r in batch
+                         if r.ctx is not None]
         t0 = time.perf_counter()
         try:
+            if not warm:
+                chaos.fault_point("serving_dispatch")
+                if chaos.silent_fault("serving_slow"):
+                    time.sleep(self.slow_fault_s)
             x = (np.concatenate([r.x for r in batch], axis=0)
                  if len(batch) > 1 else batch[0].x)
-            with self._dispatch_lock:
-                out = torch.as_tensor(self._dispatch(
-                    buckets_mod.pad_rows(x, target)))
+            xp = buckets_mod.pad_rows(x, target)
+            if warm:
+                with self._dispatch_lock:
+                    out = torch.as_tensor(self._dispatch(xp))
+            else:
+                with trace_mod.tracer().span("serving.dispatch_batch",
+                                             category="serving",
+                                             rows=total, bucket=target) as sp:
+                    if member_traces:
+                        sp.set(member_traces=member_traces)
+                    with self._dispatch_lock:
+                        out = torch.as_tensor(self._dispatch(xp))
             self.dispatched_rows.add((sig, target))
+            if not warm and chaos.silent_fault("serving_nan"):
+                out = torch.full_like(out.float(), float("nan"))
             # on the output's device: one reduction, one sync
             if not bool(torch.isfinite(out).all()):
                 raise NonFiniteOutputError(
@@ -646,8 +830,14 @@ class InferenceServer:
                     f"(result discarded)")
             out = _to_host(out)
         except NonFiniteOutputError as e:
+            self._trace_batch_members(
+                batch, (time.perf_counter() - t0) * 1e3, target,
+                "nonfinite")
             self._fail_batch(batch, e, "nonfinite", "non-finite output")
         except Exception as e:
+            self._trace_batch_members(
+                batch, (time.perf_counter() - t0) * 1e3, target,
+                "dispatch_error")
             self._fail_batch(
                 batch, DispatchFailedError(
                     f"batch dispatch failed: {type(e).__name__}: {e}",
@@ -656,6 +846,7 @@ class InferenceServer:
         else:
             now = time.perf_counter()
             dt = now - t0
+            self._trace_batch_members(batch, dt * 1e3, target, "ok")
             # the EMA feeds _admission_estimate_locked on admit threads:
             # update it under the same lock those reads hold
             with self._cond:
@@ -672,27 +863,48 @@ class InferenceServer:
                 off += r.n
                 lat = now - r.enqueued_perf
                 lats.append(lat)
+                if not warm:
+                    _LATENCY.observe(lat)
+                    _REQUESTS.labels("ok").inc()
                 if self.tenancy is not None and r.tenant is not None:
                     self.tenancy.observe(r.tenant, "ok", latency_s=lat)
                 r.event.set()
+            # the ring is read by snapshot() from other threads: append
+            # under the lock
             with self._cond:
                 self._lat.extend(lats)
+                lat_sorted = sorted(self._lat)
+            if not warm:
+                _P50.set(lat_sorted[int(0.5 * (len(lat_sorted) - 1))])
+                _P99.set(lat_sorted[int(0.99 * (len(lat_sorted) - 1))])
 
-    def _drain(self, error: ServingError, outcome: str) -> None:
+    def _drain(self, error: ServingError, outcome: str,
+               shed_reason: Optional[str] = None) -> None:
         with self._cond:
             pending = list(self._q)
             self._q.clear()
+            _QUEUE_DEPTH.set(0)
         for r in pending:
             self._release_if_probe(r)
+            if shed_reason is not None and not r.warm:
+                self._shed(shed_reason)
             self._resolve(r, error=error, outcome=outcome)
 
     def _on_breaker_open(self, reason: str) -> None:
         logger.warning("serving circuit breaker OPEN (%s); rejecting "
                        "requests for %.3gs", reason,
                        self.breaker.cooldown_s)
+        from deeplearning4j_tpu_torch.telemetry import flight as flight_mod
+
+        flight_mod.dump("serving_breaker", note=reason)
 
     def _loop(self) -> None:
         inflight: List[_Pending] = []
+        tr = trace_mod.tracer()
+        if tr.enabled:
+            # label the dispatcher's lane in the Chrome export
+            tr.set_thread_name(threading.get_ident(),
+                               f"serving-dispatch-{self.name}")
         try:
             while True:
                 batch = self._next_batch()
@@ -717,4 +929,4 @@ class InferenceServer:
             self._drain(err, outcome="crashed")
         else:
             self._drain(ShutdownError("serving runtime shut down"),
-                        outcome="shutdown")
+                        outcome="shutdown", shed_reason="shutdown")

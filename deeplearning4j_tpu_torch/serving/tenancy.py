@@ -1,9 +1,9 @@
 """Multi-tenant admission and weighted-fair queueing for the serving fleet
 (counterpart of deeplearning4j_tpu/serving/tenancy.py).
 
-One InferenceServer hosts many callers; without isolation, one tenant's
-burst sheds everyone — the queue is shared, the shed policy is blind to
-who filled it. This module gives each tenant:
+One InferenceServer (or an Autoscaler pool) hosts many callers; without
+isolation, one tenant's burst sheds everyone — the queue is shared, the
+shed policy is blind to who filled it. This module gives each tenant:
 
   token-bucket quota   `TenancyController.admit(tenant, rows)` runs in
                        front of the shared queue: each tenant owns a
@@ -26,14 +26,25 @@ who filled it. This module gives each tenant:
                        work unchanged; its state is guarded by the
                        owning server's Condition, like the deque it
                        replaces.
+  per-tenant SLO slice telemetry carries `{tenant}` labels
+                       (`dl4j_tpu_tenant_requests_total{tenant,outcome}`,
+                       `dl4j_tpu_tenant_shed_total{tenant,reason}`,
+                       `dl4j_tpu_tenant_latency_seconds{tenant}`) that
+                       `slo.tenant_rules(tenant)` turns into burn-rate
+                       rules, so one tenant's availability/latency
+                       objective can fire while the others stay green.
+
+Chaos fault point (resilience/chaos.py grammar):
+
+    tenant_burst  SILENT: the firing admission's token cost is amplified
+                  BURST_FACTOR (10x) — the noisy tenant's bucket drains,
+                  so its later requests shed with TenantQuotaError while
+                  the quiet tenants' p99 and shed rate stay flat.
 
 Time comes from the controller's `clock` (time.monotonic by default), so
-tests drive a fake clock. The JAX module's per-tenant metrics
-(`dl4j_tpu_tenant_*`, ROADMAP A.11's telemetry) and its `tenant_burst`
-chaos point (A.11's resilience/chaos.py) are left out; the counts the
-controller keeps itself (admitted, shed, latency rings) are here.
+tests drive a fake clock.
 
-Pure control-plane: no torch, no threads. The controller's own lock never
+Pure control-plane: no tensors, no threads. The controller's own lock never
 nests inside itself and is only ever taken AFTER the server's Condition
 (weight lookup at enqueue), never before — no lock-order cycle.
 """
@@ -44,10 +55,30 @@ from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Optional
 
+from deeplearning4j_tpu_torch.resilience import chaos
 from deeplearning4j_tpu_torch.serving.errors import TenantQuotaError
+from deeplearning4j_tpu_torch.telemetry import metrics as metrics_mod
 from deeplearning4j_tpu_torch.util.locks import TrackedLock
 
 DEFAULT_TENANT = "default"
+# tenant_burst chaos: one firing admission costs 10x its rows — "a tenant
+# offered 10x its quota" compressed into one amplified take
+BURST_FACTOR = 10
+
+_TENANT_REQUESTS = metrics_mod.counter(
+    "dl4j_tpu_tenant_requests_total",
+    "Per-tenant admitted requests resolved, by outcome",
+    labelnames=("tenant", "outcome"))
+_TENANT_SHED = metrics_mod.counter(
+    "dl4j_tpu_tenant_shed_total",
+    "Per-tenant requests shed before the shared queue, by reason",
+    labelnames=("tenant", "reason"))
+_TENANT_LATENCY = metrics_mod.histogram(
+    "dl4j_tpu_tenant_latency_seconds",
+    "Per-tenant end-to-end request latency, successes only",
+    labelnames=("tenant",),
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5, 5.0, 10.0))
 
 
 @dataclass(frozen=True)
@@ -83,8 +114,10 @@ class TokenBucket:
             self.tokens -= cost
             return 0.0
         if cost > self.burst and self.tokens >= self.burst:
-            # a cost the bucket can never fully hold (rows > burst) admits
-            # at full credit and DRAINS it; without the spend this branch
+            # a cost the bucket can never fully hold (an amplified
+            # tenant_burst take, or rows > burst) admits at full credit and
+            # DRAINS it — the burst is paid for by the tenant's own
+            # followers, which now shed. Without the spend this branch
             # would admit for free in a loop
             self.tokens = 0.0
             return 0.0
@@ -161,7 +194,11 @@ class TenancyController:
         TenantQuotaError with the refill horizon. Returns the resolved
         tenant name (None -> DEFAULT_TENANT)."""
         tenant = tenant or DEFAULT_TENANT
+        # the chaos read happens OUTSIDE the lock: fault points never run
+        # under a held lock
         cost = float(rows)
+        if chaos.silent_fault("tenant_burst"):
+            cost *= BURST_FACTOR
         now = self._clock()
         with self._lock:
             pol = self._policy_locked(tenant)
@@ -171,6 +208,7 @@ class TenancyController:
             else:
                 self._sheds[tenant] = self._sheds.get(tenant, 0) + 1
         if wait > 0.0:
+            _TENANT_SHED.labels(tenant, "quota").inc()
             raise TenantQuotaError(
                 f"tenant {tenant!r} over quota ({pol.rate:g} rows/s, "
                 f"burst {pol.burst:g}); retry in {wait:.3g}s",
@@ -182,8 +220,10 @@ class TenancyController:
                 latency_s: Optional[float] = None) -> None:
         """One resolved request of `tenant`; a served one (`latency_s`
         given) joins the tenant's latency ring."""
+        _TENANT_REQUESTS.labels(tenant, outcome).inc()
         if latency_s is None:
             return
+        _TENANT_LATENCY.labels(tenant).observe(latency_s)
         with self._lock:
             ring = self._lat.get(tenant)
             if ring is None:
@@ -193,8 +233,8 @@ class TenancyController:
 
     def note_shed(self, tenant: Optional[str], reason: str) -> None:
         """A shared-queue shed attributed to a tenant (drop_oldest victim,
-        queue_full, drain); the JAX module counts it in a metric, which
-        is A.11's telemetry."""
+        queue_full, drain) — quota sheds tick inside admit()."""
+        _TENANT_SHED.labels(tenant or DEFAULT_TENANT, reason).inc()
 
     # ---- queue + snapshot ----
     def make_queue(self, queue_limit: int) -> "TenantQueue":

@@ -1,0 +1,510 @@
+"""Tracer — spans over a bounded ring buffer, exported as Chrome trace JSON
+(the port's own copy of deeplearning4j_tpu/telemetry/trace.py: the same
+spans give the same names, args and nesting in both packages).
+
+Span timestamps are NTP-immune: a wall/perf anchor pair is captured once
+per Tracer and every span start is ``wall_anchor + (perf_counter() -
+perf_anchor)`` — wall-aligned for readability, monotonic for correctness:
+durations never come from ``time.time()`` subtraction.
+
+Export targets the Chrome trace-event format ("X" complete events with
+microsecond ts/dur), which loads directly in Perfetto or chrome://tracing.
+``merge_training_stats`` ingests distributed ``TrainingStats``-shaped
+timelines (objects or their ``to_json()`` dicts) so orchestration-phase
+timelines land in the same trace, one lane per worker.
+
+Gates: ``DL4J_TPU_TELEMETRY`` (util/envflags.py) and
+``DL4J_TPU_TELEMETRY_BUFFER`` (the ring's capacity). Disabled tracers
+return a shared no-op span singleton from ``span()`` — zero span records
+allocated.
+"""
+from __future__ import annotations
+
+import functools
+import json
+import os
+import statistics
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+from deeplearning4j_tpu_torch.telemetry import context as context_mod
+from deeplearning4j_tpu_torch.util import envflags
+
+TELEMETRY_GATE = "DL4J_TPU_TELEMETRY"
+BUFFER_GATE = "DL4J_TPU_TELEMETRY_BUFFER"
+DEFAULT_CAPACITY = 65536
+
+# tid base for merged distributed-stats lanes (real thread ids are process
+# addresses, far above this; worker lanes must not collide with them in the
+# viewer, so they get their own small-id block + thread_name metadata)
+_WORKER_TID_BASE = 1000
+_MASTER_TID = 999
+
+
+class SpanRecord:
+    """One completed span. `start` is anchored-wall seconds (see module
+    docstring); `duration_ms` comes from perf_counter differences only.
+    `phase` "X" is a complete span; "i" is a Chrome instant event (a
+    point-in-time marker — retrace warnings etc. — with no duration);
+    "s"/"f" are flow start/finish arrows (`flow_id` binds the pair —
+    serving uses them to link each member request to the shared batch
+    dispatch span). `trace_id`/`span_id`/`parent_id` are the correlation
+    ids stamped from the active telemetry.context.TraceContext, None when
+    the span was recorded outside any trace."""
+
+    __slots__ = ("name", "category", "start", "duration_ms", "thread_id",
+                 "attrs", "phase", "trace_id", "span_id", "parent_id",
+                 "flow_id")
+
+    def __init__(self, name: str, category: str, start: float,
+                 duration_ms: float, thread_id: int,
+                 attrs: Optional[Dict[str, Any]], phase: str = "X",
+                 trace_id: Optional[str] = None,
+                 span_id: Optional[str] = None,
+                 parent_id: Optional[str] = None,
+                 flow_id: Optional[str] = None):
+        self.name = name
+        self.category = category
+        self.start = start
+        self.duration_ms = duration_ms
+        self.thread_id = thread_id
+        self.attrs = attrs
+        self.phase = phase
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.flow_id = flow_id
+
+    def to_chrome(self) -> Dict[str, Any]:
+        ev = {
+            "name": self.name,
+            "cat": self.category or "default",
+            "ph": self.phase,
+            "ts": round(self.start * 1e6, 3),
+            "pid": os.getpid(),
+            "tid": self.thread_id,
+        }
+        if self.phase == "X":
+            ev["dur"] = round(self.duration_ms * 1e3, 3)
+        elif self.phase in ("s", "f"):
+            # flow arrows bind by id; "e"-binding attaches the finish to
+            # the enclosing slice (the batch dispatch span)
+            ev["id"] = self.flow_id
+            if self.phase == "f":
+                ev["bp"] = "e"
+        else:  # instant events render process-wide in Perfetto
+            ev["s"] = "p"
+        args = dict(self.attrs) if self.attrs else {}
+        if self.trace_id is not None:
+            args["trace_id"] = self.trace_id
+            if self.span_id is not None:
+                args["span_id"] = self.span_id
+            if self.parent_id is not None:
+                args["parent_id"] = self.parent_id
+        if args:
+            ev["args"] = args
+        return ev
+
+
+class _NullSpan:
+    """Shared do-nothing span: the disabled-mode fast path. One module
+    singleton serves every ``span()`` call, so a disabled tracer allocates
+    nothing per call."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs):
+        return self
+
+
+NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    __slots__ = ("_tracer", "name", "category", "attrs", "_t0", "_ctx",
+                 "_token")
+
+    def __init__(self, tracer: "Tracer", name: str, category: str,
+                 attrs: Optional[Dict[str, Any]]):
+        self._tracer = tracer
+        self.name = name
+        self.category = category
+        self.attrs = attrs
+
+    def set(self, **attrs):
+        """Attach attributes mid-span (rendered as Chrome `args`)."""
+        if self.attrs is None:
+            self.attrs = {}
+        self.attrs.update(attrs)
+        return self
+
+    def __enter__(self):
+        # inherit the active trace context: this span becomes a child of
+        # the current span AND the parent of anything nested inside it
+        cur = context_mod.current()
+        if cur is not None:
+            self._ctx = cur.child()
+            self._token = context_mod.attach(self._ctx)
+        else:
+            self._ctx = None
+            self._token = None
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        if self._token is not None:
+            context_mod.detach(self._token)
+        self._tracer._record(self.name, self.category, self._t0,
+                             t1 - self._t0, self.attrs, ctx=self._ctx)
+        return False
+
+
+class Tracer:
+    """Thread-safe span collector with a bounded ring buffer.
+
+        tr = Tracer(enabled=True)
+        with tr.span("step", category="train"):
+            ...
+        tr.export_chrome("trace.json")   # open in Perfetto
+
+    The buffer is a deque(maxlen=capacity): the newest `capacity` spans
+    survive, `dropped` counts the overwritten ones. Export is lossless
+    over everything the buffer holds.
+    """
+
+    def __init__(self, capacity: int = DEFAULT_CAPACITY,
+                 enabled: bool = False):
+        self._lock = threading.Lock()
+        self._buf: deque = deque(maxlen=max(1, int(capacity)))  # guarded-by: self._lock
+        self._total = 0  # guarded-by: self._lock
+        self.enabled = bool(enabled)
+        self._thread_names: Dict[int, str] = {}
+        # anchor pair: wall-aligned, perf-advanced (NTP-immune starts)
+        self._wall0 = time.time()
+        self._perf0 = time.perf_counter()
+
+    # ------------------------------------------------------------------
+    # recording
+    # ------------------------------------------------------------------
+    @property
+    def capacity(self) -> int:
+        return self._buf.maxlen or 0  # fixed at construction
+
+    @property
+    def dropped(self) -> int:
+        with self._lock:
+            return self._total - len(self._buf)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._buf)
+
+    def _wall_at(self, perf_t: float) -> float:
+        return self._wall0 + (perf_t - self._perf0)
+
+    def span(self, name: str, category: str = "", **attrs):
+        """Context-manager span; the no-op singleton when disabled."""
+        if not self.enabled:
+            return NULL_SPAN
+        return _Span(self, name, category, attrs or None)
+
+    def _record(self, name: str, category: str, perf_start: float,
+                duration_s: float, attrs: Optional[Dict[str, Any]],
+                ctx=None) -> None:
+        if ctx is None:
+            ctx = context_mod.current()
+        rec = SpanRecord(name, category, self._wall_at(perf_start),
+                         duration_s * 1e3, threading.get_ident(), attrs)
+        if ctx is not None:
+            rec.trace_id = ctx.trace_id
+            rec.span_id = ctx.span_id
+            rec.parent_id = ctx.parent_id
+        with self._lock:
+            self._buf.append(rec)
+            self._total += 1
+
+    def add_span(self, name: str, duration_ms: float, category: str = "",
+                 thread_id: Optional[int] = None,
+                 start: Optional[float] = None, **attrs) -> None:
+        """Record an already-measured span (e.g. the ETL wait the fit loops
+        time themselves). `start` is anchored-wall seconds; default = the
+        span ended now and started `duration_ms` ago. The active
+        TraceContext's ids are stamped on (the span reads as a child of
+        the current span)."""
+        if not self.enabled:
+            return
+        if start is None:
+            start = self._wall_at(time.perf_counter()) - duration_ms / 1e3
+        rec = SpanRecord(name, category, start, float(duration_ms),
+                         threading.get_ident() if thread_id is None
+                         else int(thread_id), attrs or None)
+        ctx = context_mod.current()
+        if ctx is not None:
+            rec.trace_id = ctx.trace_id
+            rec.span_id = context_mod.new_span_id()
+            rec.parent_id = ctx.span_id
+        with self._lock:
+            self._buf.append(rec)
+            self._total += 1
+
+    def add_instant(self, name: str, category: str = "",
+                    thread_id: Optional[int] = None, **attrs) -> None:
+        """Record a point-in-time marker (Chrome "i" event) — e.g. the
+        retrace detector's warning flags. No-op when disabled."""
+        if not self.enabled:
+            return
+        rec = SpanRecord(name, category,
+                         self._wall_at(time.perf_counter()), 0.0,
+                         threading.get_ident() if thread_id is None
+                         else int(thread_id), attrs or None, phase="i")
+        ctx = context_mod.current()
+        if ctx is not None:
+            rec.trace_id = ctx.trace_id
+            rec.span_id = context_mod.new_span_id()
+            rec.parent_id = ctx.span_id
+        with self._lock:
+            self._buf.append(rec)
+            self._total += 1
+
+    def add_flow(self, name: str, flow_id: str, phase: str,
+                 category: str = "", thread_id: Optional[int] = None,
+                 **attrs) -> None:
+        """Record one end of a Chrome flow arrow. `phase` is "s" (start,
+        at the producer — e.g. a serving request at enqueue) or "f"
+        (finish, at the consumer — inside the batch dispatch span);
+        `flow_id` binds the pair. No-op when disabled."""
+        if phase not in ("s", "f"):
+            raise ValueError(f"flow phase must be 's' or 'f', got {phase!r}")
+        if not self.enabled:
+            return
+        rec = SpanRecord(name, category,
+                         self._wall_at(time.perf_counter()), 0.0,
+                         threading.get_ident() if thread_id is None
+                         else int(thread_id), attrs or None, phase=phase,
+                         flow_id=str(flow_id))
+        ctx = context_mod.current()
+        if ctx is not None:
+            rec.trace_id = ctx.trace_id
+            rec.span_id = context_mod.new_span_id()
+            rec.parent_id = ctx.span_id
+        with self._lock:
+            self._buf.append(rec)
+            self._total += 1
+
+    def set_thread_name(self, thread_id: int, name: str) -> None:
+        """Label a lane in the exported trace (Chrome thread_name
+        metadata) — the serving dispatchers name theirs."""
+        with self._lock:
+            self._thread_names[int(thread_id)] = str(name)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._buf.clear()
+            self._total = 0
+            self._thread_names.clear()
+
+    def records(self) -> List[SpanRecord]:
+        with self._lock:
+            return list(self._buf)
+
+    def cursor(self) -> int:
+        """Opaque position AFTER the newest record: feed it back to
+        ``records_since`` to receive only what was recorded later."""
+        with self._lock:
+            return self._total
+
+    def records_since(self, cursor: int):
+        """Incremental ring read: records appended after ``cursor`` (a
+        value previously returned by this method or ``cursor()``),
+        the new cursor, and ``gap`` — how many records between the
+        cursor and the oldest survivor were overwritten before this
+        read (the ring outran the reader). ``cursor=0`` reads the whole
+        surviving ring; a cursor from the future clamps to now. The
+        delta seam behind telemetry frames (telemetry/export.py).
+
+        Returns ``(records, new_cursor, gap)``."""
+        with self._lock:
+            total = self._total
+            oldest = total - len(self._buf)  # records ever evicted
+            cur = max(int(cursor), 0)
+            start = min(max(cur, oldest), total)
+            gap = start - min(cur, start)
+            recs = list(self._buf)
+            if start > oldest:
+                recs = recs[start - oldest:]
+            return recs, total, gap
+
+    def thread_names(self) -> Dict[int, str]:
+        """Copy of the lane-label map (frames carry it so a merged
+        fleet trace keeps per-thread lane names)."""
+        with self._lock:
+            return dict(self._thread_names)
+
+    # ------------------------------------------------------------------
+    # distributed-stats merge
+    # ------------------------------------------------------------------
+    def merge_training_stats(self, stats) -> int:
+        """Ingest distributed phase timings: an object with ``events``
+        (EventStats-shaped: key, start_time, duration_ms, worker, meta),
+        a list of such events, or the ``to_json()`` dict / its "events"
+        list. Master events land on one lane, each worker on its own, with
+        thread_name metadata so Perfetto labels the lanes. Returns the
+        number of spans merged. Merging works even on a disabled tracer —
+        it converts recorded history, it doesn't instrument a hot loop."""
+        events = getattr(stats, "events", stats)
+        if isinstance(events, dict):
+            events = events.get("events", [])
+        n = 0
+        with self._lock:
+            for e in events:
+                if isinstance(e, dict):
+                    key, start = e.get("key"), e.get("start_time")
+                    dur, worker = e.get("duration_ms"), e.get("worker")
+                    meta = e.get("meta") or None
+                else:
+                    key, start = e.key, e.start_time
+                    dur, worker = e.duration_ms, e.worker
+                    meta = e.meta or None
+                if key is None or start is None or dur is None:
+                    continue
+                tid = (_MASTER_TID if worker is None
+                       else _WORKER_TID_BASE + int(worker))
+                self._thread_names.setdefault(
+                    tid, "master" if worker is None else f"worker {worker}")
+                # correlation ids ride EventStats.meta and get promoted to first-class record fields so the
+                # merged cross-worker trace joins on trace_id like any
+                # locally recorded span
+                trace_id = span_id = parent_id = None
+                if meta and ("trace_id" in meta or "span_id" in meta
+                             or "parent_id" in meta):
+                    meta = dict(meta)
+                    trace_id = meta.pop("trace_id", None)
+                    span_id = meta.pop("span_id", None)
+                    parent_id = meta.pop("parent_id", None)
+                    meta = meta or None
+                self._buf.append(SpanRecord(
+                    str(key), "distributed", float(start), float(dur),
+                    tid, meta, trace_id=trace_id, span_id=span_id,
+                    parent_id=parent_id))
+                self._total += 1
+                n += 1
+        return n
+
+    # ------------------------------------------------------------------
+    # export
+    # ------------------------------------------------------------------
+    def to_chrome_trace(self) -> Dict[str, Any]:
+        """Chrome trace-event JSON object (loads in Perfetto as-is)."""
+        with self._lock:
+            records = list(self._buf)
+            names = dict(self._thread_names)
+        events: List[Dict[str, Any]] = [
+            {"name": "thread_name", "ph": "M", "pid": os.getpid(),
+             "tid": tid, "args": {"name": label}}
+            for tid, label in sorted(names.items())
+        ]
+        events.extend(r.to_chrome() for r in records)
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    def export_chrome(self, path: str) -> str:
+        with open(path, "w") as f:
+            json.dump(self.to_chrome_trace(), f)
+        return path
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        """Per-span-name stats: count, total/mean/p50/max milliseconds."""
+        by_name: Dict[str, List[float]] = {}
+        for r in self.records():
+            if r.phase != "X":  # instant markers carry no duration
+                continue
+            by_name.setdefault(r.name, []).append(r.duration_ms)
+        out = {}
+        for name in sorted(by_name):
+            ds = by_name[name]
+            out[name] = {
+                "count": len(ds),
+                "total_ms": round(sum(ds), 3),
+                "mean_ms": round(sum(ds) / len(ds), 3),
+                "p50_ms": round(statistics.median(ds), 3),
+                "max_ms": round(max(ds), 3),
+            }
+        return out
+
+
+# ---------------------------------------------------------------------------
+# process-global tracer + gate plumbing
+# ---------------------------------------------------------------------------
+
+_global: Optional[Tracer] = None
+_forced: Optional[bool] = None
+_lock = threading.Lock()
+
+
+def tracer() -> Tracer:
+    """The process-global Tracer. Enablement re-reads the
+    DL4J_TPU_TELEMETRY gate on every call (one env lookup) unless
+    ``configure(enabled=...)`` forced it, so tests and long-lived
+    processes can flip telemetry without restarting."""
+    global _global
+    t = _global
+    if t is None:
+        with _lock:
+            t = _global
+            if t is None:
+                t = _global = Tracer(
+                    capacity=envflags.int_value(BUFFER_GATE,
+                                                DEFAULT_CAPACITY))
+    t.enabled = (envflags.enabled(TELEMETRY_GATE, False)
+                 if _forced is None else _forced)
+    return t
+
+
+_KEEP = object()  # configure() sentinel: "enabled not passed" != None
+
+
+def configure(enabled=_KEEP, capacity: Optional[int] = None) -> Tracer:
+    """Programmatic override of the env gate: True/False forces, None
+    returns control to DL4J_TPU_TELEMETRY, omitted leaves the current
+    override untouched (so a capacity-only resize cannot silently flip
+    tracing off). `capacity` rebuilds the global buffer, keeping the
+    newest records up to the new bound."""
+    global _global, _forced
+    if enabled is not _KEEP:
+        _forced = enabled
+    with _lock:
+        if capacity is not None:
+            old = _global.records() if _global is not None else []
+            _global = Tracer(capacity=capacity)
+            for r in old[-capacity:]:
+                _global._buf.append(r)
+                _global._total += 1
+    return tracer()
+
+
+def traced(name: Optional[str] = None, category: str = ""):
+    """Decorator span over a whole function call:
+
+        @traced("checkpoint.write", category="checkpoint")
+        def save(...): ...
+    """
+
+    def deco(fn):
+        span_name = name or fn.__qualname__
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with tracer().span(span_name, category=category):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco

@@ -13,22 +13,22 @@ is OFF — the default — the constructor returns a RAW `threading.Lock()` /
 bookkeeping. When ON, each first acquisition records the (held ->
 acquired) site pair in a process-global order graph; an acquisition that
 reverses an already-observed pair is a lock-order INVERSION (the
-two-thread interleaving of those stacks deadlocks), and the sentinel
-records the event, with both stack tops, for `inversions()`.
+two-thread interleaving of those stacks deadlocks), and the sentinel:
+
+  * ticks `dl4j_tpu_lock_inversions_total{site}`,
+  * writes ONE flight bundle per inverted pair (reason `lock_inversion`,
+    both stack tops, so the postmortem shows each side of the would-be
+    deadlock; telemetry/flight.py, gated by `DL4J_TPU_TELEMETRY`),
+  * records the event for `inversions()`.
 
 It also measures hold times: releasing a lock held longer than
-`DL4J_TPU_LOCKCHECK_HOLD_S` (default 1.0 s) counts one long hold for its
-site (`long_holds()`).
+`DL4J_TPU_LOCKCHECK_HOLD_S` (default 1.0 s) ticks
+`dl4j_tpu_lock_long_holds_total{site}`.
 
 Both wrappers are `threading.Condition`-compatible: TrackedLock via the
 Condition's release()/acquire() fallback, TrackedRLock via the
 `_release_save`/`_acquire_restore`/`_is_owned` protocol (so a
 `cond.wait()` drops the held-stack entry while waiting).
-
-The JAX package also ticks `dl4j_tpu_lock_inversions_total{site}` and
-`dl4j_tpu_lock_long_holds_total{site}` and writes one flight bundle per
-inverted pair; the port's telemetry and flight recorder are ROADMAP A.11,
-so neither is called here.
 """
 from __future__ import annotations
 
@@ -61,13 +61,23 @@ class _Tracker:
     is on."""
 
     def __init__(self) -> None:
+        from deeplearning4j_tpu_torch.telemetry import metrics
+
         self._mu = threading.Lock()
         # (first_site, second_site) -> stack of the first observation
         self._edges: Dict[Tuple[str, str], List[str]] = {}  # guarded-by: self._mu
         self._events: List[dict] = []  # guarded-by: self._mu
-        self._long: Dict[str, int] = {}  # guarded-by: self._mu
+        self._reported: set = set()  # guarded-by: self._mu
         self._tls = threading.local()
         self.hold_threshold_s = envflags.float_value(HOLD_GATE, 1.0)
+        self._inversions = metrics.counter(
+            "dl4j_tpu_lock_inversions_total",
+            "runtime lock-order inversions detected by TrackedLock",
+            ("site",))
+        self._long_holds = metrics.counter(
+            "dl4j_tpu_lock_long_holds_total",
+            "lock holds exceeding DL4J_TPU_LOCKCHECK_HOLD_S",
+            ("site",))
 
     def _held(self) -> List[dict]:
         h = getattr(self._tls, "held", None)
@@ -78,20 +88,28 @@ class _Tracker:
     def on_acquired(self, site: str) -> None:
         held = self._held()
         stack = _stack_top()
+        inverted: Optional[Tuple[str, List[str]]] = None
         with self._mu:
             for entry in held:
                 pair = (entry["site"], site)
                 rev = (site, entry["site"])
                 if rev in self._edges and pair not in self._edges:
+                    self._inversions.labels(site).inc()
                     self._events.append({
                         "site": site,
                         "against": entry["site"],
                         "stack": stack,
                         "first_stack": self._edges[rev],
                     })
+                    key = frozenset(pair)
+                    if key not in self._reported:
+                        self._reported.add(key)
+                        inverted = (entry["site"], self._edges[rev])
                 self._edges.setdefault(pair, stack)
         held.append({"site": site, "stack": stack,
                      "t0": time.perf_counter()})
+        if inverted is not None:
+            self._bundle(site, stack, inverted[0], inverted[1])
 
     def on_released(self, site: str) -> None:
         held = self._held()
@@ -99,23 +117,36 @@ class _Tracker:
             if held[i]["site"] == site:
                 entry = held.pop(i)
                 if time.perf_counter() - entry["t0"] > self.hold_threshold_s:
-                    with self._mu:
-                        self._long[site] = self._long.get(site, 0) + 1
+                    self._long_holds.labels(site).inc()
                 return
+
+    def _bundle(self, site: str, stack: List[str],
+                other_site: str, other_stack: List[str]) -> None:
+        """First detection of an inverted pair: a flight bundle with BOTH
+        stack tops (no-op when telemetry is off; dump never raises)."""
+        from deeplearning4j_tpu_torch.telemetry import flight
+
+        flight.dump(
+            "lock_inversion",
+            note=f"lock-order inversion: {site} acquired while holding "
+                 f"{other_site}, but the opposite order was observed "
+                 f"earlier — the two-thread interleaving deadlocks",
+            extra={"lock_inversion": {
+                "site": site,
+                "held_site": other_site,
+                "acquire_stack": stack,
+                "first_observed_stack": other_stack,
+            }})
 
     def events(self) -> List[dict]:
         with self._mu:
             return list(self._events)
 
-    def long_holds(self) -> Dict[str, int]:
-        with self._mu:
-            return dict(self._long)
-
     def reset(self) -> None:
         with self._mu:
             self._edges.clear()
             self._events.clear()
-            self._long.clear()
+            self._reported.clear()
 
 
 def tracker() -> "_Tracker":
@@ -132,14 +163,6 @@ def inversions() -> List[dict]:
     if _tracker is None:
         return []
     return _tracker.events()
-
-
-def long_holds() -> Dict[str, int]:
-    """Holds longer than DL4J_TPU_LOCKCHECK_HOLD_S, per site ({} when the
-    gate is off)."""
-    if _tracker is None:
-        return {}
-    return _tracker.long_holds()
 
 
 def reset_for_tests() -> None:

@@ -28,8 +28,11 @@ loss, gradient and decode (the threshold taken on the card) and
 CenterLossOutput's steps, each against the CPU; layerwise pretraining of
 each autoencoder-family case of chip_smoke.py's refer-pretrain
 (AutoEncoder, binary and gaussian-visible RBMs, both VAEs) with the card's
-draws replayed on the CPU, check_gradients in float64 on the card, and
-nan_checks around a step that launches the cross-entropy kernels.
+draws replayed on the CPU, check_gradients in float64 on the card,
+nan_checks around a step that launches the cross-entropy kernels; a
+Router rollout over two LeNet versions on the card rolled back under
+canary_nan with one bundle, and an Autoscaler pool on the card failing
+over a replica whose dispatcher crashed.
 
 Marked `cuda`; they skip where torch.cuda.is_available() is False. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -2196,3 +2199,133 @@ def test_parallel_inference_over_two_gloo_ranks_on_the_card(cuda,
         assert int(r1["served"]) >= 1, name
         for i, ref in enumerate(refs):
             assert np.abs(r0[f"out{i}"] - ref).max() <= 1e-5, (name, i)
+
+
+def _lenet_versions(device):
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    return {"v1": LeNet(seed=1).init(device=device),
+            "v2": LeNet(seed=2).init(device=device)}
+
+
+@pytest.mark.cuda
+def test_router_rollout_on_the_card_rolls_back_under_canary_nan(
+        cuda, monkeypatch, tmp_path):
+    """Two LeNet versions on the card behind a registry and a Router: at
+    the first stage (50%) the counter split sends every second request to
+    the canary; with DL4J_TPU_CHAOS=canary_nan on every canary batch the
+    canary's answers fail typed (non-finite, then the canary's open
+    breaker), the next evaluate() tick rolls back and
+    writes exactly one canary_rollback bundle, and every stable answer
+    (and every answer after the rollback) is v1's net.output within 1e-5
+    (TF32 off)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.resilience import chaos
+    from deeplearning4j_tpu_torch.serving import (
+        ModelRegistry,
+        Router,
+        ServingError,
+    )
+    from deeplearning4j_tpu_torch.telemetry import flight, trace
+
+    monkeypatch.setenv("DL4J_TPU_FLIGHT_DIR", str(tmp_path))
+    monkeypatch.setenv("DL4J_TPU_CHAOS", "canary_nan@" + ":".join(
+        str(i) for i in range(1, 40)))
+    chaos.reset_fault_points()
+    trace.configure(enabled=True)
+    nets = _lenet_versions(cuda)
+    xs = [np.random.default_rng(i).standard_normal(
+        (1 + i % 3, 28, 28, 1)).astype(np.float32) for i in range(12)]
+    reg = ModelRegistry()
+    try:
+        with dtypes.full_precision():
+            for v, net in nets.items():
+                reg.register("m", net, version=v, stable=v == "v1",
+                             batch_limit=4)
+            rt = Router(reg)
+            ro = rt.start_rollout("m", "v2", stages=(0.5, 1.0),
+                                  min_requests=50, fast_window_s=60.0,
+                                  slow_window_s=600.0)
+            rt.evaluate(now=0.0)
+            got = []
+            for x in xs:
+                try:
+                    got.append(rt.output("m", x, deadline_s=60.0))
+                except ServingError as e:
+                    got.append(e)
+            rt.evaluate(now=61.0)
+            after = rt.output("m", xs[0], deadline_s=60.0)
+            refs = [nets["v1"].output(x).cpu().numpy() for x in xs]
+    finally:
+        reg.shutdown()
+        trace.configure(enabled=None)
+        chaos.reset_fault_points()
+    assert [isinstance(g, Exception) for g in got] == [False, True] * 6
+    for g, ref in zip(got[::2], refs[::2]):
+        assert np.abs(g - ref).max() <= 1e-5
+    assert np.abs(after - refs[0]).max() <= 1e-5
+    assert ro.state == "rolled_back" and ro.history == ["50", "rollback"]
+    bundles = [p for p in flight.list_bundles(str(tmp_path))
+               if "canary_rollback" in p]
+    assert bundles == [ro.rollback_bundle]
+    doc = flight.load_bundle(bundles[0])
+    assert len(doc["canary"]["offending_traces"]) == 6
+    assert doc["runtime"]["local_devices"][0] == torch.cuda.get_device_name(
+        0)
+
+
+@pytest.mark.cuda
+def test_autoscaler_fails_over_a_crashed_replica_on_the_card(cuda, tmp_path):
+    """Autoscaler.for_model over LeNet on the card with a warm manifest:
+    two replicas share the network's weights, each warmed from the
+    manifest; one replica's dispatcher dies (an exception that escapes
+    Exception, as a crash does); every call still returns net.output
+    within 1e-5 (requeued onto the survivor), the dead replica is evicted
+    with reason crash, and the next evaluate() restores min_replicas."""
+    import warnings
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import Autoscaler, ModelRegistry
+
+    net = _lenet_versions(cuda)["v1"]
+    reg = ModelRegistry(warm_cache_dir=str(tmp_path / "warm"))
+    pool = None
+    x = np.random.default_rng(3).standard_normal(
+        (2, 28, 28, 1)).astype(np.float32)
+    try:
+        with dtypes.full_precision():
+            reg.register("m", net, batch_limit=4)
+            reg.warm("m", example=x[:1])
+            pool = Autoscaler.for_model(reg, "m", min_replicas=2,
+                                        max_replicas=3, min_dwell_s=0.0,
+                                        clock=lambda: 0.0)
+            reps = list(pool._replicas)
+            assert len(reps) == 2 and all(
+                sorted(b for _, b in r.server.warmed_rows) == [1, 2, 4]
+                for r in reps)
+            victim = reps[0]
+            inner = victim.server._dispatch
+
+            def dying(xp):
+                raise SystemExit("replica dispatcher died")
+
+            victim.server._dispatch = dying
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                outs = [pool.output(x, deadline_s=60.0) for _ in range(6)]
+                pool.evaluate(now=1.0)
+                pool.evaluate(now=2.0)
+            ref = net.output(x).cpu().numpy()
+            victim.server._dispatch = inner
+    finally:
+        if pool is not None:
+            pool.shutdown()
+        reg.shutdown()
+    for out in outs:
+        assert np.abs(out - ref).max() <= 1e-5
+    info = pool.membership.get(victim.replica_id)
+    assert info.state.value == "evicted" and info.evict_reason == "crash"
+    assert any(e["reason"] == "crash" for e in pool._events)
+    assert sum(e["direction"] == "out" for e in pool._events) >= 3

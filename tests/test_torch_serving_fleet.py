@@ -53,6 +53,7 @@ from deeplearning4j_tpu_torch.serving import (
     warmstart,
 )
 from deeplearning4j_tpu_torch.serving import tenancy
+from deeplearning4j_tpu_torch.telemetry import metrics
 from deeplearning4j_tpu_torch.util import locks
 from test_torch_parallel import jax_net, port_net
 
@@ -285,7 +286,8 @@ def test_tracked_lock_reports_an_inversion_as_jax(monkeypatch):
         got, want = _inversions(locks), _inversions(jlocks)
         assert got == want == [("site.a", "site.b")]
         assert isinstance(locks.TrackedLock("on"), locks.TrackedLock)
-        assert locks.long_holds().get("site.a", 0) >= 1
+        assert metrics.registry().get("dl4j_tpu_lock_long_holds_total"
+                                      ).labels("site.a").value >= 1
     finally:
         locks.reset_for_tests()
         jlocks.reset_for_tests()
@@ -570,5 +572,16 @@ def test_submit_with_retry_through_a_shedding_server():
     finally:
         gate.set()
         server.shutdown()
-    with pytest.raises(NotImplementedError, match="A.10"):
-        submit_with_retry(server, np.ones(2), model="m")
+    # model= routes by name through a Router (passed as the server)
+    from deeplearning4j_tpu_torch.serving import Router
+
+    reg = ModelRegistry(device="cpu")
+    try:
+        reg.register("m", dispatch=_echo, batch_limit=2,
+                     buckets=BucketSpec(2, sizes=(1, 2)))
+        out = submit_with_retry(Router(reg), np.ones((2, 2), np.float32),
+                                model="m", request_deadline_s=10.0,
+                                rng=random.Random(1))
+        np.testing.assert_array_equal(out, np.full((2, 2), 2.0))
+    finally:
+        reg.shutdown()
