@@ -622,6 +622,49 @@ Phases, in order; any failure exits non-zero without the final line:
               to the requests made; serving_nan opening the breaker, which
               writes exactly one serving_breaker bundle. bn_act 53 per
               forward.
+ 84. cli-train-lenet  LeNet-5 at MNIST width (the zoo's layers and
+              widths, its config taking convolutional_flat(28, 28, 1)
+              through a FeedForwardToCnn preprocessor) written to a zip,
+              and a CSV of 4096 seeded rows (784 pixel columns and a
+              label); `cli train --batch 64 --epochs 1 --ui-port P` on a
+              thread with DL4J_TPU_TELEMETRY=1 and deterministic cuDNN,
+              while this thread scrapes /healthz (503 "no heartbeat yet"
+              first, then 200 with ParallelWrapper.fit's phase and a
+              rising iteration); after it /metrics
+              (dl4j_tpu_step_seconds_count 64), /trace?cursor= (64 etl and
+              64 step spans of one trace id) and /api/updates (one
+              StatsListener record per iteration, finite scores); the
+              saved zip bit for bit equal to a plain ParallelWrapper.fit of
+              the same zip and CSV (no listeners, telemetry off and on); cli
+              evaluate and summary --json on the saved zip; ms per step
+              measured alike on both sides: the step and etl spans of the
+              CLI fit against a plain fit's with telemetry on and no
+              listeners, the plain fit's wall with telemetry off and on,
+              and StatsListener.iteration_done timed alone. Rows 9 and 10
+              64 times each.
+ 85. health-stall  a LeNet fit on the card under
+              DL4J_TPU_STALL_TIMEOUT=0.5 with a listener sleeping 1.5 s in
+              its third step: the watchdog fires once, one stall bundle,
+              /healthz (polled by a thread) 503 while the stall is open and
+              200 after the next beat; DL4J_TPU_CHAOS=collective@4 through
+              ParallelWrapper (NCCL, world size 1) leaves one parseable
+              crash bundle stamped with the fit's trace id; a NaN batch
+              under DivergenceSentry(policy="skip_batch") writes one
+              sentry bundle; cli postmortem lists the three. Rows 9 and 10
+              once per step.
+ 86. ui-fleet   a UIServer in this process over a ModelRegistry of
+              ResNet-50 v1 (stable), v2 and v3 and the TransformerLM, and
+              a Router: the rollout of v2 (stages 50, 100%) promoted by
+              /models scrapes alone (scraping is the control loop), cli
+              serve rollout exit 0; a two-replica Autoscaler.for_model
+              pool read through /fleet, cli serve fleet (the replica
+              table) and /fleet/metrics; /healthz 200 "serving runtime live
+              (no training heartbeat)", 503 while a probe server's breaker
+              is open, 200 after; v3 under canary_nan rolled back from the
+              scrapes, cli serve rollout then exit 2; cli slo's exit code
+              against its firing rows. Every answer against its version's
+              output; bn_act 53 per ResNet-50 forward, flash_attention 6 per
+              TransformerLM forward, no other kernel.
 
 The characters the training phases learn are drawn with Zipf frequencies,
 so that a falling loss shows learning; their shapes are bench.py
@@ -634,8 +677,8 @@ sentry and records run, each serving or training run of A.8's paths,
 each pretraining and fine-tuning run, each training run of A.3's rest
 and A.9 and each ring call (in the ranks' processes too), each
 ParallelInference mode, the registry's run and the dcn ranks' fits, and
-each of router-canary, fleet-autoscale and telemetry-serve, and read just
-after. The
+each of router-canary, fleet-autoscale, telemetry-serve, cli-train-lenet
+(around the CLI's fit), health-stall and ui-fleet, and read just after. The
 last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 Exits non-zero when no CUDA device is available, and when the port's
@@ -9735,6 +9778,680 @@ def phase_telemetry_serve(torch, np, card, tmp):
     return launches
 
 
+# ------------------------------------------------ A.11: endpoints and CLI
+UI_LENET_ROWS = 4096          # cli-train-lenet's CSV rows (64 steps of 64)
+UI_LENET_BATCH = 64
+STALL_TIMEOUT_S = 0.5         # health-stall's DL4J_TPU_STALL_TIMEOUT
+STALL_SLEEP_S = 1.5           # the listener's sleep in the third step
+STALL_BATCHES = 8             # batches of 64 per health-stall fit
+UI_MIN_REQUESTS = 4           # canary requests a ui-fleet stage must soak
+UI_SIZES = (1, 2, 3)          # rows of ui-fleet's ResNet-50 requests
+UI_LISTENER_CALLS = 16        # StatsListener calls timed alone
+
+
+def http_get(url, timeout=30.0):
+    """(status, body as JSON or text) of one GET, error statuses
+    included."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            code, ctype, raw = r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        code, ctype, raw = e.code, e.headers["Content-Type"], e.read()
+    if ctype.startswith("application/json"):
+        return code, json.loads(raw)
+    return code, raw.decode()
+
+
+def run_cli(argv):
+    """(exit code, standard output) of one `cli.main` call."""
+    import io
+
+    from deeplearning4j_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def lenet_flat_zip(torch, path):
+    """LeNet-5 at MNIST width with the zoo's layers and widths, its config
+    taking convolutional_flat(28, 28, 1) as DL4J's LenetMnistExample does
+    (a FeedForwardToCnn preprocessor before the first convolution),
+    written to `path` with random weights from SEED."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, write_model
+    from deeplearning4j_tpu_torch.nn import inputs as it
+    from deeplearning4j_tpu_torch.nn.preprocessors import FeedForwardToCnn
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    conf = LeNet(seed=SEED).conf()
+    conf.input_preprocessors[0] = FeedForwardToCnn(28, 28, 1)
+    conf.set_input_type(it.convolutional_flat(28, 28, 1))
+    write_model(MultiLayerNetwork(conf).init(device="cpu"), path)
+
+
+def span_figures(spans, steps):
+    """Per-step figures of one fit's etl and step spans, each a (name,
+    start ms, duration ms): the step spans' mean and median, the etl
+    spans' mean, and the spans' extent (the first etl span's start to the
+    last step's end) over `steps`."""
+    step = sorted(d for n, _, d in spans if n == "step")
+    etl = [d for n, _, d in spans if n == "etl"]
+    extent = (max(t + d for _, t, d in spans)
+              - min(t for _, t, _ in spans))
+    mid = len(step) // 2
+    return {"step_mean": sum(step) / len(step),
+            "step_median": (step[mid] + step[~mid]) / 2,
+            "etl_mean": sum(etl) / len(etl), "wall": extent / steps}
+
+
+def phase_cli_train_lenet(torch, np, card, tmp):
+    """cli-train-lenet (see the module docstring). Returns the launches of
+    the CLI's training run."""
+    import threading
+
+    from deeplearning4j_tpu_torch.datasets.records import (
+        CSVRecordReader,
+        RecordReaderDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models import restore_model
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec,
+        ParallelWrapper,
+        init_process_group,
+    )
+    from deeplearning4j_tpu_torch.telemetry import health, metrics
+    from deeplearning4j_tpu_torch.telemetry import trace as trace_mod
+    from deeplearning4j_tpu_torch.ui import UIServer
+
+    t0 = time.perf_counter()
+    # /healthz merges every live serving runtime of the process, which
+    # would answer 200 before the fit's first step: earlier phases' are
+    # weakly held (a crashed replica's by a cycle through its exception),
+    # so collect them first
+    import gc
+
+    from deeplearning4j_tpu_torch.serving import runtime as runtime_mod
+
+    gc.collect()
+    left = [s for s in runtime_mod._SERVERS if not s.stopped]
+    if left:
+        raise AssertionError(f"cli-train-lenet: earlier phases left the "
+                             f"serving runtimes {left} alive")
+    model, out = os.path.join(tmp, "lenet.zip"), os.path.join(tmp, "out.zip")
+    csv = os.path.join(tmp, "mnist_like.csv")
+    lenet_flat_zip(torch, model)
+    rng = np.random.default_rng(SEED + 41)
+    pixels = rng.integers(0, 256, (UI_LENET_ROWS, 784)) / 255.0
+    labels = rng.integers(0, 10, (UI_LENET_ROWS, 1))
+    np.savetxt(csv, np.concatenate([pixels, labels], 1), delimiter=",",
+               fmt="%.6g")
+    steps = UI_LENET_ROWS // UI_LENET_BATCH
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    argv = ["train", "--model", model, "--data", csv, "--num-classes", "10",
+            "--batch", str(UI_LENET_BATCH), "--epochs", "1", "--ui-port",
+            str(port), "--out", out, "--print-every", str(steps)]
+    result = {}
+
+    def train():
+        try:
+            result["rc"] = run_cli(argv)
+        except BaseException as e:  # raised again below
+            result["error"] = e
+
+    seen = []  # (code, phase, iteration, reason) of each /healthz scrape
+    with deterministic_cudnn(torch), env_vars(
+            DL4J_TPU_TELEMETRY="1",
+            DL4J_TPU_FLIGHT_DIR=os.path.join(tmp, "cli_flight")):
+        health.reset_for_tests()
+        metrics.registry().reset()
+        trace_mod.tracer().clear()
+        cursor = trace_mod.tracer().cursor()
+        reset_counts()
+        th = threading.Thread(target=train, name="cli-train")
+        t1 = time.perf_counter()
+        th.start()
+        try:
+            while th.is_alive():
+                try:
+                    code, body = http_get(url + "/healthz", timeout=5.0)
+                except OSError:
+                    time.sleep(0.01)  # the CLI has not started its server
+                    continue
+                seen.append((code, body.get("phase"), body.get("iteration"),
+                             body.get("reason")))
+                time.sleep(0.02)
+        finally:
+            th.join()
+        cli_s = time.perf_counter() - t1
+        launches = read_counts()
+        if "error" in result:
+            raise result["error"]
+        rc, printed = result["rc"]
+        if rc != 0:
+            raise AssertionError(f"cli-train-lenet: train exited {rc}")
+        try:
+            code, text = http_get(url + "/metrics")
+            count = [float(line.rsplit(" ", 1)[1])
+                     for line in text.splitlines()
+                     if line.startswith("dl4j_tpu_step_seconds_count")]
+            total = [float(line.rsplit(" ", 1)[1])
+                     for line in text.splitlines()
+                     if line.startswith("dl4j_tpu_step_seconds_sum")]
+            if code != 200 or count != [steps]:
+                raise AssertionError(f"cli-train-lenet: /metrics {code}, "
+                                     f"dl4j_tpu_step_seconds_count {count}")
+            code, doc = http_get(url + f"/trace?cursor={cursor}")
+            spans = [e for e in doc["traceEvents"] if e["ph"] == "X"
+                     and (e["name"], e["cat"]) in (("etl", "data"),
+                                                   ("step", "collective"))]
+            kinds = {k: sum(1 for e in spans if e["name"] == k)
+                     for k in ("etl", "step")}
+            ids = {e["args"].get("trace_id") for e in spans}
+            if code != 200 or kinds != {"etl": steps, "step": steps} or \
+                    len(ids) != 1 or None in ids:
+                raise AssertionError(f"cli-train-lenet: /trace?cursor= "
+                                     f"{code}: spans {kinds}, trace ids "
+                                     f"{sorted(map(str, ids))}")
+            code, sess = http_get(url + "/api/sessions")
+            sid = sess["sessions"][0]["id"]
+            code, ups = http_get(url + f"/api/updates?session={sid}"
+                                 f"&limit=1000")
+            its = [u["iteration"] for u in ups["updates"]]
+            if its != list(range(1, steps + 1)) or not all(
+                    u["score"] is not None and math.isfinite(u["score"])
+                    for u in ups["updates"]):
+                raise AssertionError(f"cli-train-lenet: /api/updates gave "
+                                     f"iterations {its[:5]}... of "
+                                     f"{len(its)}")
+            rc_e, ev_text = run_cli(["evaluate", "--model", out, "--data",
+                                     csv, "--num-classes", "10", "--batch",
+                                     str(UI_LENET_BATCH)])
+            rc_s, summary = run_cli(["summary", "--model", out, "--json"])
+        finally:
+            if UIServer._instance is not None:
+                UIServer._instance.stop()
+    # /healthz: 503 before the first step, then 200 with the fit's phase
+    # and a rising iteration
+    if not seen or seen[0][0] != 503 or not str(seen[0][3]).startswith(
+            "no heartbeat yet"):
+        raise AssertionError(f"cli-train-lenet: first /healthz {seen[:1]}")
+    live = [s for s in seen if s[0] == 200]
+    its = [s[2] for s in live]
+    if not live or {s[1] for s in live} != {"ParallelWrapper.fit"} or \
+            its != sorted(its) or len(set(its)) < 2:
+        raise AssertionError(f"cli-train-lenet: /healthz while training "
+                             f"{[s[:3] for s in seen[:8]]}...")
+    summary_doc = json.loads(summary.strip().splitlines()[-1])
+    if rc_e != 0 or "Accuracy" not in ev_text or rc_s != 0 or \
+            summary_doc["total_params"] <= 0:
+        raise AssertionError(f"cli-train-lenet: evaluate {rc_e}, summary "
+                             f"{rc_s}")
+    expect_launches("cli-train-lenet", launches,
+                    {"linear_xent_fwd": steps, "linear_xent_bwd": steps})
+    cli_spans = span_figures(
+        [(e["name"], e["ts"] / 1e3, e["dur"] / 1e3) for e in spans], steps)
+
+    # the same net and data through a plain ParallelWrapper.fit with no
+    # listeners, telemetry off and on: the CLI adds only listeners and
+    # telemetry, so all end bit for bit equal. Each plain fit is
+    # timed around pw.fit; the telemetry-on one also by its spans, the
+    # CLI fit's measure
+    def plain_fit(gate):
+        with deterministic_cudnn(torch), env_vars(DL4J_TPU_TELEMETRY=gate):
+            trace_mod.tracer().clear()
+            init_process_group(f"file://{tmp}/rdv_cli_{gate}", 0, 1)  # NCCL
+            try:
+                net = restore_model(model, device=card_device(torch))
+                data = RecordReaderDataSetIterator(
+                    CSVRecordReader(csv), batch=UI_LENET_BATCH,
+                    label_index=-1, num_classes=10)
+                pw = ParallelWrapper(net, mesh_spec=MeshSpec(data=1),
+                                     prefetch_buffer=4)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                pw.fit(data, epochs=1)
+                pw.sync_to_host()
+                wall_ms = (time.perf_counter() - t1) * 1e3 / steps
+            finally:
+                torch.distributed.destroy_process_group()
+            recs = [(r.name, r.start * 1e3, r.duration_ms)
+                    for r in trace_mod.tracer().records()
+                    if r.name in ("etl", "step")]
+        return net, wall_ms, recs
+
+    # in turns, off, on, off, on: the spans are the first on-fit's
+    ref, off_ms, _ = plain_fit("0")
+    ref_on, on_ms, on_recs = plain_fit("1")
+    walls = {"0": [off_ms], "1": [on_ms]}
+    for gate in ("0", "1"):
+        walls[gate].append(plain_fit(gate)[1])
+    on_spans = span_figures(on_recs, steps)
+    got = restore_model(out, device=card_device(torch)).get_param_table()
+    want = ref.get_param_table()
+    want_on = ref_on.get_param_table()
+    differ = [k for k in want if not np.array_equal(got[k], want[k])
+              or not np.array_equal(want_on[k], want[k])]
+    if sorted(got) != sorted(want) or sorted(want_on) != sorted(want) or \
+            differ:
+        raise AssertionError(f"cli-train-lenet: the CLI-trained and plain "
+                             f"fits' params differ at {differ}")
+    # the dashboard's listener alone, on the trained net: its first call
+    # sends the static report and keeps no deltas, so it is left untimed
+    from deeplearning4j_tpu_torch.ui import InMemoryStatsStorage, StatsListener
+
+    listener = StatsListener(InMemoryStatsStorage())
+    listener.iteration_done(ref, 1, ref.score_)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(2, 2 + UI_LISTENER_CALLS):
+        listener.iteration_done(ref, i, ref.score_)
+    torch.cuda.synchronize()
+    stats_ms = (time.perf_counter() - t1) * 1e3 / UI_LISTENER_CALLS
+    log(f"[cli-train-lenet] cli train on {UI_LENET_ROWS} CSV rows "
+        f"({steps} steps of {UI_LENET_BATCH}) with the dashboard and "
+        f"DL4J_TPU_TELEMETRY=1: {cli_s:.2f} s in all (restore, CSV, "
+        f"NCCL group, fit, save); {len(seen)} /healthz scrapes: 503 "
+        f"'{seen[0][3]}' first, then 200 at iterations {its[0]}..{its[-1]} "
+        f"({len(set(its))} distinct); /metrics dl4j_tpu_step_seconds_count "
+        f"{count[0]:g}; /trace?cursor= {kinds} spans of one trace id; "
+        f"/api/updates {len(ups['updates'])} StatsListener records")
+    log(f"[cli-train-lenet] ms per step, telemetry on both sides, CLI "
+        f"(StatsListener, ScoreIterationListener, PerformanceListener) / "
+        f"plain fit (no listeners): step span mean "
+        f"{cli_spans['step_mean']:.3f} / {on_spans['step_mean']:.3f} "
+        f"(dl4j_tpu_step_seconds: {total[0] / count[0] * 1e3:.3f} for the "
+        f"CLI), median {cli_spans['step_median']:.3f} / "
+        f"{on_spans['step_median']:.3f}, etl span mean "
+        f"{cli_spans['etl_mean']:.3f} / {on_spans['etl_mean']:.3f}, the "
+        f"spans' extent over the epoch {cli_spans['wall']:.3f} / "
+        f"{on_spans['wall']:.3f}; plain fit timed around pw.fit in turns: "
+        f"telemetry off {walls['0'][0]:.3f}, on {walls['1'][0]:.3f}, off "
+        f"{walls['0'][1]:.3f}, on {walls['1'][1]:.3f}; "
+        f"StatsListener.iteration_done alone on the trained net "
+        f"{stats_ms:.3f} ({UI_LISTENER_CALLS} calls) ({card})")
+    log(f"[cli-train-lenet] saved zip bit for bit equal to the plain fit's "
+        f"({len(want)} param arrays, deterministic cuDNN); cli evaluate and "
+        f"summary --json exit 0 ({summary_doc['total_params']} params); "
+        f"launches {launches}; rows 9 and 10 at (64, 500, 10) are held "
+        f"against their plain versions in kernel-xent; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_health_stall(torch, np, card, tmp):
+    """health-stall (see the module docstring). Returns the launches."""
+    import threading
+
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec,
+        ParallelWrapper,
+        init_process_group,
+    )
+    from deeplearning4j_tpu_torch.resilience import (
+        ChaosDataSetIterator,
+        ChaosError,
+        DivergenceSentry,
+        chaos,
+    )
+    from deeplearning4j_tpu_torch.telemetry import flight, health, metrics
+    from deeplearning4j_tpu_torch.telemetry import trace as trace_mod
+    from deeplearning4j_tpu_torch.ui import UIServer
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    t0 = time.perf_counter()
+    dev = card_device(torch)
+    net = LeNet(seed=SEED).init(device=dev)
+    rng = np.random.default_rng(SEED + 43)
+    n = STALL_BATCHES * UI_LENET_BATCH
+    x = rng.standard_normal((n, 28, 28, 1)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, n)]
+
+    def batches():
+        return ListDataSetIterator(DataSet(x, y), batch=UI_LENET_BATCH)
+
+    flight_dir = os.path.join(tmp, "stall_flight")
+    reset_counts()
+    net.fit(batches())  # warm: the stalled fit's first steps are quick
+    steps = STALL_BATCHES
+
+    class Sleepy:
+        """Sleeps in the fit's third step (its listeners run inside the
+        step, before the heartbeat)."""
+
+        def __init__(self):
+            self.calls = 0
+
+        def iteration_done(self, model, iteration, score):
+            self.calls += 1
+            if self.calls == 3:
+                time.sleep(STALL_SLEEP_S)
+
+    with env_vars(DL4J_TPU_TELEMETRY="1",
+                  DL4J_TPU_STALL_TIMEOUT=str(STALL_TIMEOUT_S),
+                  DL4J_TPU_FLIGHT_DIR=flight_dir):
+        health.reset_for_tests()
+        metrics.registry().reset()
+        trace_mod.tracer().clear()
+        server = UIServer(port=0)
+        polls, stop = [], threading.Event()
+
+        def poll():
+            while not stop.is_set():
+                code, body = http_get(server.url() + "/healthz")
+                polls.append((code, body.get("stalled"),
+                              body.get("iteration")))
+                time.sleep(0.05)
+
+        poller = threading.Thread(target=poll, name="healthz-poll")
+        try:
+            net.set_listeners(Sleepy())
+            poller.start()
+            net.fit(batches())
+            steps += STALL_BATCHES
+            time.sleep(0.1)
+        finally:
+            stop.set()
+            poller.join()
+            server.stop()
+            net.set_listeners()
+        stalls = metrics.registry().get(
+            "dl4j_tpu_stall_detected_total").snapshot()
+        stall_bundles = [p for p in flight.list_bundles(flight_dir)
+                         if p.endswith("_stall.json")]
+        if stalls != {"phase=MultiLayerNetwork.fit": 1.0} or \
+                len(stall_bundles) != 1:
+            raise AssertionError(f"health-stall: stalls {stalls}, bundles "
+                                 f"{stall_bundles}")
+        open_ = [i for i, p in enumerate(polls) if p[:2] == (503, True)]
+        after = [p for p in polls[open_[-1] + 1:]] if open_ else []
+        if not open_ or not after or after[-1][0] != 200:
+            raise AssertionError(f"health-stall: /healthz polls {polls}")
+        doc = flight.load_bundle(stall_bundles[0])
+        log(f"[health-stall] LeNet fit on the card, a listener sleeping "
+            f"{STALL_SLEEP_S} s in its third step under DL4J_TPU_STALL_TIMEOUT="
+            f"{STALL_TIMEOUT_S}: the watchdog fired once ({stalls}), one "
+            f"stall bundle ({doc['note']}); /healthz answered 503 stalled in "
+            f"{len(open_)} of {len(polls)} polls, then 200 at iteration "
+            f"{after[-1][2]}")
+
+        # a chaos collective fault mid-fit through the wrapper
+        trace_mod.tracer().clear()
+        init_process_group(f"file://{tmp}/rdv_stall", 0, 1)  # NCCL
+        try:
+            with env_vars(DL4J_TPU_CHAOS="collective@4"):
+                chaos.reset_fault_points()
+                it0 = net.iteration
+                try:
+                    ParallelWrapper(net, mesh_spec=MeshSpec(data=1)).fit(
+                        batches())
+                    raise AssertionError("health-stall: collective@4 did "
+                                         "not fire")
+                except ChaosError:
+                    pass
+                chaos.reset_fault_points()
+            steps += net.iteration - it0
+        finally:
+            torch.distributed.destroy_process_group()
+        ids = {r.trace_id for r in trace_mod.tracer().records()
+               if r.name == "step" and r.category == "collective"}
+        crash = [p for p in flight.list_bundles(flight_dir)
+                 if p.endswith("_exception.json")]
+        doc = flight.load_bundle(crash[0]) if len(crash) == 1 else {}
+        if net.iteration - it0 != 3 or doc.get("note") != \
+                "ParallelWrapper.fit" or ids != {doc.get("trace_id")}:
+            raise AssertionError(f"health-stall: collective fault after "
+                                 f"{net.iteration - it0} steps, bundles "
+                                 f"{crash}, step trace ids {ids}")
+        log(f"[health-stall] DL4J_TPU_CHAOS=collective@4 through "
+            f"ParallelWrapper: ChaosError after 3 steps; one crash bundle "
+            f"({doc['exception']['type']}, note {doc['note']}) stamped with "
+            f"the fit's trace id {doc['trace_id']}")
+
+        # a sentry trip dumps its bundle (skip_batch: the NaN step is
+        # undone, so it trips once; every batch still ran its step)
+        net.set_listeners(DivergenceSentry(policy="skip_batch"))
+        net.fit(ChaosDataSetIterator(batches(), nan_at=(2,)))
+        steps += STALL_BATCHES
+        net.set_listeners()
+        rc, listing = run_cli(["postmortem", "--dir", flight_dir])
+    reasons = sorted(os.path.basename(p).rsplit("_", 1)[1][:-len(".json")]
+                     for p in flight.list_bundles(flight_dir))
+    rows = [line for line in listing.splitlines()
+            if line.startswith("flight_")]
+    if reasons != ["exception", "sentry", "stall"] or rc != 0 or \
+            len(rows) != 3:
+        raise AssertionError(f"health-stall: bundles {reasons}, postmortem "
+                             f"exit {rc}:\n{listing}")
+    launches = read_counts()
+    expect_launches("health-stall", launches, {"linear_xent_fwd": steps,
+                                               "linear_xent_bwd": steps})
+    log(f"[health-stall] a NaN batch under DivergenceSentry("
+        f"policy='skip_batch') "
+        f"wrote one sentry bundle; cli postmortem lists {len(rows)} "
+        f"bundles ({', '.join(reasons)}), exit {rc}; {steps} LeNet steps, "
+        f"launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_ui_fleet(torch, np, card, tmp):
+    """ui-fleet (see the module docstring). Returns the launches."""
+    from deeplearning4j_tpu_torch.resilience import chaos
+    from deeplearning4j_tpu_torch.serving import (
+        Autoscaler,
+        CircuitBreaker,
+        InferenceServer,
+        ModelRegistry,
+        Router,
+    )
+    from deeplearning4j_tpu_torch.serving.errors import ServingError
+    from deeplearning4j_tpu_torch.telemetry import health, metrics, slo
+    from deeplearning4j_tpu_torch.telemetry import trace as trace_mod
+    from deeplearning4j_tpu_torch.ui import UIServer
+    from deeplearning4j_tpu_torch.zoo import ResNet50, TransformerLM
+
+    t0 = time.perf_counter()
+    dev = card_device(torch)
+    nets = {v: ResNet50(num_classes=1000, input_shape=RESNET_SHAPE,
+                        seed=s).init(device=dev)
+            for v, s in (("v1", SEED), ("v2", SEED + 1), ("v3", SEED + 2))}
+    lm = TransformerLM(**LM, seed=SEED).init(device=dev)
+    rng = np.random.default_rng(SEED + 47)
+    t, vocab = LM["max_length"], LM["num_classes"]
+
+    def images(n):
+        return rng.standard_normal((n, *RESNET_SHAPE)).astype(np.float32)
+
+    flight_dir = os.path.join(tmp, "ui_flight")
+    # /models and /fleet answer for every live router and pool of the
+    # process: earlier phases' are weakly held, so collect them first
+    import gc
+
+    from deeplearning4j_tpu_torch.serving import autoscaler as autoscaler_mod
+    from deeplearning4j_tpu_torch.serving import router as router_mod
+
+    gc.collect()
+    left = list(router_mod._ROUTERS) + [
+        a for a in autoscaler_mod._AUTOSCALERS if not a.stopped]
+    if left:
+        raise AssertionError(f"ui-fleet: earlier phases left {left} alive")
+    fwd = Forwards(dict(nets, lm=lm))
+    answers = []  # (model, version, x, answer)
+    counter, n_req = [0], 0
+    log_rows = []
+    with env_vars(DL4J_TPU_TELEMETRY="1", DL4J_TPU_FLIGHT_DIR=flight_dir):
+        health.reset_for_tests()
+        metrics.registry().reset()
+        trace_mod.tracer().clear()
+        slo.reset_for_tests()
+        reset_counts()
+        server = UIServer(port=0)
+        url = server.url()
+        reg = ModelRegistry()
+        pool = None
+        try:
+            for v, net in nets.items():
+                reg.register("resnet", net, version=v, stable=v == "v1",
+                             batch_limit=BATCH)
+            reg.register("lm", lm, batch_limit=LM_BATCH)
+            rt = Router(reg)
+
+            def drive(ro, k):
+                nonlocal n_req
+                for _ in range(k):
+                    n_req += 1
+                    x = images(UI_SIZES[n_req % len(UI_SIZES)])
+                    side = routed_version(ro.fraction, counter)
+                    v = ro.canary if side == "canary" else ro.stable
+                    try:
+                        out = rt.output("resnet", x,
+                                        deadline_s=AUTOSCALE_DEADLINE)
+                    except ServingError:
+                        if side != "canary":
+                            raise
+                        continue
+                    answers.append(("resnet", v, x, out))
+                ids = rng.integers(0, vocab, (1, t)).astype(np.int32)
+                answers.append(("lm", "v1", ids, rt.output(
+                    "lm", ids, deadline_s=AUTOSCALE_DEADLINE)))
+
+            # the ramp promotes v2 from /models scrapes alone
+            ro = rt.start_rollout("resnet", "v2", stages=(0.5, 1.0),
+                                  min_requests=UI_MIN_REQUESTS,
+                                  **ROUTER_RULES)
+            scrapes = 0
+            while ro.state == "running" and scrapes < 6:
+                drive(ro, int(math.ceil(UI_MIN_REQUESTS / ro.fraction)))
+                code, body = http_get(url + "/models")
+                scrapes += 1
+                if code != 200:
+                    raise AssertionError(f"ui-fleet: /models {code}")
+            if ro.state != "promoted" or ro.history != ["50", "100",
+                                                       "promote"]:
+                raise AssertionError(f"ui-fleet: v2 after {scrapes} /models "
+                                     f"scrapes: {ro.state} {ro.history}")
+            rc_roll, roll_text = run_cli(["serve", "rollout", "--url", url])
+            if rc_roll != 0 or "promoted" not in roll_text:
+                raise AssertionError(f"ui-fleet: serve rollout exit "
+                                     f"{rc_roll}:\n{roll_text}")
+            log_rows.append(f"v2 promoted by {scrapes} /models scrapes "
+                            f"({ro.history}); cli serve rollout exit 0")
+
+            # the two-replica pool, read through /fleet and the CLI
+            pool = Autoscaler.for_model(reg, "resnet", min_replicas=2,
+                                        max_replicas=2, min_dwell_s=0.0)
+            for k in range(4):
+                x = images(UI_SIZES[k % len(UI_SIZES)])
+                answers.append(("resnet", "v2", x, pool.output(
+                    x, deadline_s=AUTOSCALE_DEADLINE)))
+            code, body = http_get(url + "/fleet")
+            rc_fleet, fleet_text = run_cli(["serve", "fleet", "--url", url])
+            table = [line for line in fleet_text.splitlines()
+                     if line.strip().startswith("resnet")]
+            if code != 200 or body["replicas"] != 2 or rc_fleet != 0 or \
+                    len(table) < 2:
+                raise AssertionError(f"ui-fleet: /fleet {code}, serve fleet "
+                                     f"exit {rc_fleet}:\n{fleet_text}")
+            code, fed = http_get(url + "/fleet/metrics")
+            if code != 200 or "dl4j_tpu_" not in fed:
+                raise AssertionError(f"ui-fleet: /fleet/metrics {code}")
+            log_rows.append(f"/fleet {body['replicas']} replicas; cli serve "
+                            f"fleet exit 0 with {len(table)} replica rows; "
+                            f"/fleet/metrics {len(fed.splitlines())} lines")
+
+            # /healthz: live serving without a training heartbeat, then an
+            # open breaker
+            health_rows = [http_get(url + "/healthz")]
+            probe = InferenceServer(dispatch=lambda b: b, name="probe",
+                                    breaker=CircuitBreaker(
+                                        failure_threshold=1))
+            try:
+                probe.breaker.record_failure()
+                health_rows.append(http_get(url + "/healthz"))
+            finally:
+                probe.shutdown()
+            health_rows.append(http_get(url + "/healthz"))
+            got = [(c, b.get("reason")) for c, b in health_rows]
+            if got != [(200, "serving runtime live (no training heartbeat)"),
+                       (503, "serving circuit breaker open"),
+                       (200, "serving runtime live (no training heartbeat)")]:
+                raise AssertionError(f"ui-fleet: /healthz {got}")
+            log_rows.append(f"/healthz {[c for c, _ in got]}: "
+                            f"'{got[0][1]}', then '{got[1][1]}'")
+
+            # a canary_nan v3 rolls back; the CLI then exits 2
+            with env_vars(DL4J_TPU_CHAOS="canary_nan@" + ":".join(
+                    str(i) for i in range(1, 200))):
+                chaos.reset_fault_points()
+                ro3 = rt.start_rollout("resnet", "v3", stages=(0.5, 1.0),
+                                       min_requests=UI_MIN_REQUESTS,
+                                       **ROUTER_RULES)
+                http_get(url + "/models")
+                scrapes = 0
+                while ro3.state == "running" and scrapes < 6:
+                    drive(ro3, 2 * UI_MIN_REQUESTS)
+                    http_get(url + "/models")
+                    scrapes += 1
+                chaos.reset_fault_points()
+            rc_back, back_text = run_cli(["serve", "rollout", "--url", url])
+            if ro3.state != "rolled_back" or rc_back != 2:
+                raise AssertionError(f"ui-fleet: v3 under canary_nan "
+                                     f"{ro3.state} {ro3.history}; serve "
+                                     f"rollout exit {rc_back}")
+            rc_slo, slo_text = run_cli(["slo", "--interval", "0",
+                                        "--json"])
+            rows = json.loads(slo_text)
+            firing = [r["slo"] for r in rows if r["firing"]]
+            if rc_slo != (2 if firing else 0) or not rows:
+                raise AssertionError(f"ui-fleet: cli slo exit {rc_slo}, "
+                                     f"firing {firing}")
+            log_rows.append(f"v3 under canary_nan {ro3.history} after "
+                            f"{scrapes} scrapes; cli serve rollout exit 2; "
+                            f"cli slo exit {rc_slo} ({len(rows)} rules, "
+                            f"firing {firing})")
+        finally:
+            if pool is not None:
+                pool.shutdown()
+            reg.shutdown()
+            server.stop()
+            fwd.restore()
+    launches = read_counts()
+    n_resnet = fwd.n["v1"] + fwd.n["v2"] + fwd.n["v3"]
+    expect_launches("ui-fleet", launches, {
+        "bn_act": 53 * n_resnet,
+        "flash_attention": LM["n_layers"] * fwd.n["lm"]})
+    worst = {}
+    for model, v, x, out in answers:
+        ref = fwd.direct["lm" if model == "lm" else v](x).float().cpu().numpy()
+        key = f"{model}:{v}"
+        worst[key] = max(worst.get(key, 0.0), served_close(
+            np, f"ui-fleet {key}", out, ref,
+            LM_SERVE_TOL if model == "lm" else TF32_TOL,
+            whole=model == "lm"))
+    for row in log_rows:
+        log(f"[ui-fleet] {row}")
+    log(f"[ui-fleet] forwards {fwd.n}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; {len(answers)} "
+        f"answers against their version's output, worst "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items()))
+        + f"; {time.perf_counter() - t0:.1f} s ({card})")
+    del nets, lm
+    return launches
+
+
 def continuous_step(pub):
     from deeplearning4j_tpu_torch.distributed.continuous import (
         read_latest_pointer,
@@ -10068,6 +10785,17 @@ def main() -> int:
         log(f"[telemetry-serve] the router, autoscaler and telemetry phases "
             f"(router-canary, fleet-autoscale, telemetry-serve) took "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            ui_cli_launches = phase_cli_train_lenet(torch, np, card, tmp)
+            ui_cli_launches = add_counts(
+                ui_cli_launches, phase_health_stall(torch, np, card, tmp))
+            ui_cli_launches = add_counts(
+                ui_cli_launches, phase_ui_fleet(torch, np, card, tmp))
+        torch.cuda.empty_cache()
+        log(f"[ui-fleet] the endpoint, CLI and health phases "
+            f"(cli-train-lenet, health-stall, ui-fleet) took "
+            f"{time.perf_counter() - t0:.1f} s")
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "deeplearning4j_tpu"))
         if leaked:
@@ -10254,7 +10982,12 @@ def main() -> int:
             # router-canary's, fleet-autoscale's and telemetry-serve's runs
             # (53 bn_act per ResNet-50 forward, 6 flash_attention per
             # TransformerLM forward routed by name)
-            "router_fleet_launches": a10_launches[kname]})
+            "router_fleet_launches": a10_launches[kname],
+            # A.11's endpoints, CLI and health monitor: launches in
+            # cli-train-lenet's CLI fit (64 steps), health-stall's LeNet
+            # fits and ui-fleet's run (53 bn_act per ResNet-50 forward, 6
+            # flash_attention per TransformerLM forward routed by name)
+            "ui_cli_launches": ui_cli_launches[kname]})
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

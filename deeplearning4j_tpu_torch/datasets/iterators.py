@@ -21,6 +21,7 @@ from __future__ import annotations
 import itertools
 import queue
 import threading
+import time
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
@@ -173,7 +174,13 @@ class AsyncDataSetIterator(DataSetIterator):
     sentinels. Every wait of the teardown is bounded. An error raised by
     the underlying iterator ends the stream and is raised again on the
     consumer. `queue_size` None reads `DL4J_TPU_PREFETCH_DEPTH` (default 4)
-    at each start."""
+    at each start.
+
+    With ``DL4J_TPU_TELEMETRY`` on, the producer is its own lane in the
+    Chrome trace (named after its thread), consumer fetches record the
+    queue depth and wait seconds and producers their full-queue wait
+    seconds (`telemetry.health`'s `record_consumer` /
+    `record_producer_wait`, the signals of `input_verdict()`)."""
 
     _END = object()
     _ids = itertools.count()
@@ -200,12 +207,21 @@ class AsyncDataSetIterator(DataSetIterator):
         q = self._q = queue.Queue(maxsize=self.prefetch_depth())
         stop = self._stop = threading.Event()
         self._error = None
+        name = f"{type(self).__name__}-prefetch-{next(self._ids)}"
 
         def worker():
+            from deeplearning4j_tpu_torch.telemetry import health as health_mod
+            from deeplearning4j_tpu_torch.telemetry import trace as trace_mod
+
+            mon = health_mod.live()
+            if mon is not None:
+                trace_mod.tracer().set_thread_name(
+                    threading.get_ident(), name)
             try:
                 for d in self.underlying:
                     if self.place is not None:
                         d = self.place(d)
+                    t0 = time.perf_counter()
                     while not stop.is_set():
                         try:
                             q.put(d, timeout=0.1)
@@ -214,6 +230,8 @@ class AsyncDataSetIterator(DataSetIterator):
                             continue
                     if stop.is_set():
                         break
+                    if mon is not None:
+                        mon.record_producer_wait(time.perf_counter() - t0)
             except BaseException as e:  # raised again on the consumer
                 self._error = e
             finally:
@@ -230,9 +248,8 @@ class AsyncDataSetIterator(DataSetIterator):
                             except queue.Empty:
                                 pass
 
-        self._thread = threading.Thread(
-            target=worker, daemon=True,
-            name=f"{type(self).__name__}-prefetch-{next(self._ids)}")
+        self._thread = threading.Thread(target=worker, daemon=True,
+                                        name=name)
         self._thread.start()
 
     def _stop_worker(self):
@@ -271,7 +288,16 @@ class AsyncDataSetIterator(DataSetIterator):
     def __next__(self):
         if self._q is None:
             self._start()
-        item = self._q.get()
+        from deeplearning4j_tpu_torch.telemetry import health as health_mod
+
+        mon = health_mod.live()
+        if mon is None:
+            item = self._q.get()
+        else:
+            depth = self._q.qsize()
+            t0 = time.perf_counter()
+            item = self._q.get()
+            mon.record_consumer(depth, time.perf_counter() - t0)
         if item is self._END:
             # put back, so a later next() sees StopIteration again instead
             # of blocking on a queue whose producer has exited

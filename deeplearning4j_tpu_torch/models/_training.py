@@ -36,6 +36,12 @@ def to_device(tree, device):
             for k, v in tree.items()}
 
 
+def slots_to_device(slots, device):
+    """One layer's updater slots on `device`: a layer without params gets
+    its step counter ("t") from an empty tree, which gives no device."""
+    return to_device(slots, device) if isinstance(slots, dict) else slots
+
+
 def clone_tree(tree):
     """A copy of nested dicts, lists and tuples of tensors, every tensor
     cloned (detached) on its device; other leaves kept."""

@@ -150,8 +150,9 @@ class ComputationGraph:
             self.params[name] = {k: t.to(self.device) for k, t in p.items()}
             self.state[name] = {k: t.to(self.device)
                                 for k, t in v.init_state(in_types).items()}
-        self.opt_state = {name: self._updaters[name].init_state(
-            self.params[name]) for name in self.topo}
+        self.opt_state = {name: tr.slots_to_device(
+            self._updaters[name].init_state(self.params[name]), self.device)
+            for name in self.topo}
         self.draws = Draws.seeded(self.conf.defaults.seed, self.device)
         return self
 
@@ -545,12 +546,14 @@ class ComputationGraph:
 
         if self.params is None:
             raise RuntimeError("call init() before fit()")
-        run = TrainingRun(self, epochs=epochs, **attachments)
+        run = TrainingRun(self, "ComputationGraph.fit", epochs=epochs,
+                          **attachments)
         loop = self._engine_loop()
         return run.execute(
             lambda batches: self._run_epoch(batches, loop),
             self._as_batches(data, labels,
-                             place=device_prefetch_place(self.device)))
+                             place=device_prefetch_place(self.device)),
+            loop=loop)
 
     def _run_epoch(self, batches, loop) -> None:
         """One pass of `fit` through the engine loop `loop`: a step (or

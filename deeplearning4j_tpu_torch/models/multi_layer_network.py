@@ -178,8 +178,9 @@ class MultiLayerNetwork:
             self.params[_key(i)] = tr.to_device(p, self.device)
             self.state[_key(i)] = tr.to_device(layer.init_state(in_type),
                                                self.device)
-        self.opt_state = [u.init_state(self.params[_key(i)])
-                          for i, u in enumerate(self._updaters)]
+        self.opt_state = [tr.slots_to_device(
+            u.init_state(self.params[_key(i)]), self.device)
+            for i, u in enumerate(self._updaters)]
         self.draws = Draws.seeded(self.conf.defaults.seed, self.device)
         return self
 
@@ -621,13 +622,15 @@ class MultiLayerNetwork:
 
         if self.params is None:
             raise RuntimeError("call init() before fit()")
-        run = TrainingRun(self, epochs=epochs, **attachments)
+        run = TrainingRun(self, "MultiLayerNetwork.fit", epochs=epochs,
+                          **attachments)
         if self.conf.defaults.backprop_type == "tbptt":
             self._warn_sgd_fallback()
         iterator = self._as_iterator(data, labels)
+        loop = self._engine_loop()
         # a prefetch producer started here is stopped here
         return run.execute(
-            self._engine_loop().run_epoch, iterator,
+            loop.run_epoch, iterator, loop=loop,
             cleanup=(getattr(iterator, "shutdown", None)
                      if iterator is not data else None))
 

@@ -93,6 +93,13 @@ a dcn row takes its data coordinate's rows, exactly as its peers in the
 other rows do, and computes the same gradients; no gradient is reduced
 over dcn, since the JAX program reduces over none. dcn composes with every
 axis the wrapper runs.
+
+Telemetry and faults, as in the JAX wrapper: `fit` runs as the phase
+"ParallelWrapper.fit" (heartbeats, crash bundles), its steps are "step"
+spans of category "collective", and the `DL4J_TPU_CHAOS` fault point
+`collective` fires before every step and every step window. The JAX
+wrapper's per-device trace lanes wait for `telemetry/introspect.py`
+(ROADMAP A.11 item 3).
 """
 from __future__ import annotations
 
@@ -117,6 +124,7 @@ from deeplearning4j_tpu_torch.nn import shard as shard_mod
 from deeplearning4j_tpu_torch.nn.dropout import Draws
 from deeplearning4j_tpu_torch.parallel import mesh as mesh_mod
 from deeplearning4j_tpu_torch.parallel import ring
+from deeplearning4j_tpu_torch.resilience import chaos
 
 # dtypes of a pipeline boundary's shape message
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64,
@@ -346,7 +354,8 @@ class ParallelWrapper:
         )
 
         model = self.model
-        run = TrainingRun(model, epochs=epochs, **attachments)
+        run = TrainingRun(model, "ParallelWrapper.fit", epochs=epochs,
+                          **attachments)
         if model._shard_layout is None:
             # whole again after sync_to_host (a no-op where nothing splits)
             self._place_params()
@@ -359,8 +368,13 @@ class ParallelWrapper:
         elif isinstance(iterator, DataSetIterator):
             batches = prefetching(iterator, self.prefetch_buffer,
                                   place=device_prefetch_place(model.device))
-        loop = WindowedFitLoop(model, raw_step=self._shard_step,
-                               stage=self._stage, exec_one=self._fit_global)
+        # the JAX wrapper's chaos `collective` site before every step and
+        # every window; its steps are "collective" spans
+        loop = WindowedFitLoop(
+            model, raw_step=self._shard_step, stage=self._stage,
+            exec_one=self._fit_global,
+            on_dispatch=lambda: chaos.fault_point("collective"),
+            span_category="collective")
 
         def run_epoch(epoch_batches):
             def checked():
@@ -372,7 +386,7 @@ class ParallelWrapper:
             loop.run_epoch(checked())
 
         # a prefetch producer started here is stopped here
-        return run.execute(run_epoch, batches, cleanup=getattr(
+        return run.execute(run_epoch, batches, loop=loop, cleanup=getattr(
             batches, "shutdown", None) if batches is not iterator else None)
 
     def _local(self, ds: DataSet):
@@ -420,6 +434,10 @@ class ParallelWrapper:
         """One step (or tBPTT windows) of the wrapped network on the
         global batch `ds`, this rank's rows (and time block) under its
         shard; on the pipe axis, the pipeline's step."""
+        # the JAX wrapper's env-gated chaos site of the multi-device step
+        # (standard and tBPTT alike): a "preempted collective" surfaces as
+        # ChaosError out of fit()
+        chaos.fault_point("collective")
         if self._pp:
             self._fit_pp(ds)
             return

@@ -64,10 +64,16 @@ Fault points in the port:
                       admission's token cost is amplified 10x; the noisy
                       tenant's OWN sub-queue must shed (typed
                       TenantQuotaError) while quiet tenants stay flat
+    checkpoint_write  resilience/checkpoint.py, before each atomic
+                      payload write — the write raises (an OSError), so
+                      the manager's retry must land the checkpoint
+    collective        parallel/wrapper.py, before each multi-device step
+                      and each step window — a "preempted collective"
+                      raises out of fit(); a checkpoint-resumed rerun
+                      must survive it
 
-The JAX package's training-side points (checkpoint_write, collective,
-host_loss, heartbeat_drop, publish) come with the training call sites
-(ROADMAP A.11).
+The JAX package's distributed points (host_loss, heartbeat_drop, publish)
+come with distributed/* (ROADMAP A.11 item 5).
 """
 from __future__ import annotations
 

@@ -31,9 +31,11 @@ warning, and the JAX package ignores `torch_generator`.
 
 `restore` and `restore_latest` build the network on `device` (None: the
 card), like every entry point. Payload writes retry on OSError through
-`retry_call` (DL4J_TPU_RETRY_* gates). The JAX package's write/restore
-metrics, trace spans and its `checkpoint_write` chaos fault point are not
-ported yet (ROADMAP A.11).
+`retry_call` (DL4J_TPU_RETRY_* gates). The JAX package's telemetry comes
+along: the write and restore histograms, the bytes and fallback counters
+(live with the span gate off), the `checkpoint.write` /
+`checkpoint.restore` spans and the `checkpoint_write` chaos fault point in
+`atomic_write_model`.
 """
 from __future__ import annotations
 
@@ -50,9 +52,27 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
+from deeplearning4j_tpu_torch.resilience import chaos
 from deeplearning4j_tpu_torch.resilience.retry import retry_call
+from deeplearning4j_tpu_torch.telemetry import metrics as metrics_mod
+from deeplearning4j_tpu_torch.telemetry import trace as trace_mod
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
+
+# checkpoint IO telemetry, registered at import under the JAX package's
+# names (cold-path metrics stay live with the span gate off)
+_WRITE_SECONDS = metrics_mod.histogram(
+    "dl4j_tpu_checkpoint_write_seconds",
+    "Wall duration of atomic checkpoint payload+manifest writes")
+_WRITE_BYTES = metrics_mod.counter(
+    "dl4j_tpu_checkpoint_write_bytes_total",
+    "Total checkpoint payload bytes written")
+_RESTORE_SECONDS = metrics_mod.histogram(
+    "dl4j_tpu_checkpoint_restore_seconds",
+    "Wall duration of checkpoint restores (restore_latest walks included)")
+_RESTORE_FALLBACKS = metrics_mod.counter(
+    "dl4j_tpu_checkpoint_restore_fallbacks_total",
+    "Checkpoints skipped by restore_latest as torn/corrupt/unloadable")
 
 MANIFEST_VERSION = 1
 
@@ -93,6 +113,7 @@ def atomic_write_model(model, path: str, save_updater: bool = True,
     from deeplearning4j_tpu_torch.models.serialization import write_model
 
     tmp = path + ".tmp"
+    chaos.fault_point("checkpoint_write")
     write_model(model, tmp, save_updater=save_updater, normalizer=normalizer)
     if fsync:
         _fsync_path(tmp)
@@ -215,31 +236,37 @@ class CheckpointManager:
         through the DL4J_TPU_RETRY_* policy."""
         step = int(getattr(model, "iteration", 0)) if step is None else int(step)
         path = self._zip(step)
-        sha = retry_call(
-            atomic_write_model, model, path,
-            save_updater=self.save_updater, fsync=self.fsync,
-            retry_on=(OSError,),
-            on_retry=lambda i, e: logger.warning(
-                "checkpoint write attempt %d failed (%s); retrying",
-                i + 1, e))
-        score = float(getattr(model, "score_", float("nan")))
-        manifest = {
-            "manifest_version": MANIFEST_VERSION,
-            "step": step,
-            "iteration": int(getattr(model, "iteration", 0)),
-            "epoch": int(getattr(model, "epoch", 0)),
-            "time": time.time(),
-            "score": score if np.isfinite(score) else None,
-            "sha256": sha,
-            "size_bytes": os.path.getsize(path),
-            "rng_key": None,
-            "torch_generator": _generator_state(model),
-        }
-        if extra:
-            manifest.update(extra)
-        atomic_write_json(self._manifest_path(step), manifest,
-                          fsync=self.fsync)
-        self.prune()
+        t0 = time.perf_counter()
+        with trace_mod.tracer().span("checkpoint.write",
+                                     category="checkpoint", step=step):
+            sha = retry_call(
+                atomic_write_model, model, path,
+                save_updater=self.save_updater, fsync=self.fsync,
+                retry_on=(OSError,),
+                on_retry=lambda i, e: logger.warning(
+                    "checkpoint write attempt %d failed (%s); retrying",
+                    i + 1, e))
+            score = float(getattr(model, "score_", float("nan")))
+            size = os.path.getsize(path)
+            manifest = {
+                "manifest_version": MANIFEST_VERSION,
+                "step": step,
+                "iteration": int(getattr(model, "iteration", 0)),
+                "epoch": int(getattr(model, "epoch", 0)),
+                "time": time.time(),
+                "score": score if np.isfinite(score) else None,
+                "sha256": sha,
+                "size_bytes": size,
+                "rng_key": None,
+                "torch_generator": _generator_state(model),
+            }
+            if extra:
+                manifest.update(extra)
+            atomic_write_json(self._manifest_path(step), manifest,
+                              fsync=self.fsync)
+            self.prune()
+        _WRITE_SECONDS.observe(time.perf_counter() - t0)
+        _WRITE_BYTES.inc(size)
         return path
 
     # ---- verify / rotate ----
@@ -316,14 +343,21 @@ class CheckpointManager:
         from deeplearning4j_tpu_torch import device as device_mod
 
         device = device_mod.resolve(device)
-        for step in reversed(self.list_steps()):
+        t0 = time.perf_counter()
+        with trace_mod.tracer().span("checkpoint.restore",
+                                     category="checkpoint"):
             try:
-                return self.restore(step, load_updater=load_updater,
-                                    device=device)
-            except Exception as e:
-                logger.warning("checkpoint step %d unrestorable (%s); "
-                               "falling back", step, e)
-        return None, None
+                for step in reversed(self.list_steps()):
+                    try:
+                        return self.restore(step, load_updater=load_updater,
+                                            device=device)
+                    except Exception as e:
+                        _RESTORE_FALLBACKS.inc()
+                        logger.warning("checkpoint step %d unrestorable "
+                                       "(%s); falling back", step, e)
+                return None, None
+            finally:
+                _RESTORE_SECONDS.observe(time.perf_counter() - t0)
 
     def restore_into(self, model, load_updater: bool = True):
         """Resume `model` in place from the newest valid checkpoint, on the

@@ -13,8 +13,9 @@ Backoff is exponential (backoff * 2**retry_index) capped at `max_backoff`;
 a non-zero jitter weight blends it toward decorrelated jitter
 (`min(cap, uniform(base, 3 * previous_delay))`), so workers that failed
 together do not retry in lockstep. The jitter generator is process-local
-and seedable (`seed_jitter`). The JAX package's retry counters
-(telemetry) are not ported yet (ROADMAP A.11).
+and seedable (`seed_jitter`). Every failed attempt ticks
+``dl4j_tpu_retry_attempts_total{error}`` and a call that gives up ticks
+``dl4j_tpu_retry_exhausted_total``, under the JAX package's names.
 
     dl = Deadline(30.0)
     while ...:
@@ -28,6 +29,7 @@ import random
 import time
 from typing import Callable, Optional, Tuple, Type
 
+from deeplearning4j_tpu_torch.telemetry import metrics as metrics_mod
 from deeplearning4j_tpu_torch.util import envflags
 
 _ATTEMPTS_GATE = "DL4J_TPU_RETRY_ATTEMPTS"
@@ -42,6 +44,17 @@ _jitter_rng = random.Random()
 def seed_jitter(seed: Optional[int]) -> None:
     """Seed the module's jitter RNG (None reseeds from OS entropy)."""
     _jitter_rng.seed(seed)
+
+
+# failure-path telemetry: one tick per failed attempt, nothing on the
+# happy path
+_RETRY_ATTEMPTS = metrics_mod.counter(
+    "dl4j_tpu_retry_attempts_total",
+    "Failed attempts that were (or would have been) retried, by error type",
+    labelnames=("error",))
+_RETRY_EXHAUSTED = metrics_mod.counter(
+    "dl4j_tpu_retry_exhausted_total",
+    "retry_call invocations that raised after exhausting every attempt")
 
 
 class Deadline:
@@ -143,7 +156,9 @@ def retry_call(
             return fn(*args, **kwargs)
         except retry_on as e:  # noqa: PERF203 — retry loops try per attempt
             last = e
+            _RETRY_ATTEMPTS.labels(type(e).__name__).inc()
             if i == n - 1:
+                _RETRY_EXHAUSTED.inc()
                 raise
             if on_retry is not None:
                 on_retry(i, e)

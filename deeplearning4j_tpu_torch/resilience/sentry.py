@@ -34,8 +34,10 @@ The port updates params in place (`p.sub_`), so a snapshot holds COPIES:
 each param, state and updater slot cloned, the `Draws` generator's state,
 `iteration`, `epoch` and `score_`; a restore copies the params back into
 the live tensors under no_grad, so anything holding a param tensor sees
-the restored values. The JAX package's trip and rollback counters and its
-flight-recorder dump are not ported (ROADMAP A.11).
+the restored values. Every trip ticks ``dl4j_tpu_sentry_trips_total
+{policy}`` and writes a "sentry" flight bundle (before any rollback
+touches the network); every rollback ticks
+``dl4j_tpu_sentry_rollbacks_total``, under the JAX package's names.
 """
 from __future__ import annotations
 
@@ -49,8 +51,18 @@ import torch
 
 from deeplearning4j_tpu_torch.models._training import clone_tree
 from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
+from deeplearning4j_tpu_torch.telemetry import metrics as metrics_mod
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
+
+# trips count every detection, rollbacks the budget a restore consumed
+_SENTRY_TRIPS = metrics_mod.counter(
+    "dl4j_tpu_sentry_trips_total",
+    "Divergence detections by the DivergenceSentry, by policy",
+    labelnames=("policy",))
+_SENTRY_ROLLBACKS = metrics_mod.counter(
+    "dl4j_tpu_sentry_rollbacks_total",
+    "Snapshot/checkpoint restores performed after a divergence")
 
 POLICIES = ("warn", "skip_batch", "rollback")
 
@@ -212,7 +224,14 @@ class DivergenceSentry(TrainingListener):
         (rollback through the manager), {} (a snapshot restore or a
         re-init) or None (warn). Raises FloatingPointError once the
         budget is spent, or with nothing to restore."""
+        from deeplearning4j_tpu_torch.telemetry import flight as flight_mod
+
         self.divergences += 1
+        _SENTRY_TRIPS.labels(self.policy).inc()
+        # the bundle before any rollback changes the network: the diverged
+        # state is the evidence (a no-op with telemetry off; never raises)
+        flight_mod.dump("sentry", model=model,
+                        checkpoint_manager=self.manager, note=reason)
         if self.policy == "warn":
             logger.warning("divergence detected (%s); policy=warn: "
                            "continuing", reason)
@@ -223,6 +242,7 @@ class DivergenceSentry(TrainingListener):
                 f"rollback(s): retry budget max_rollbacks="
                 f"{self.max_rollbacks} exhausted")
         self.rollbacks += 1
+        _SENTRY_ROLLBACKS.inc()
         if self.policy == "rollback" and self.manager is not None:
             manifest = self.manager.restore_into(model)
             if manifest is not None:

@@ -24,8 +24,10 @@ letter for letter, so one dashboard and one set of SLO rules read both.
              sources (drop, duplicate and late counted), spool
              directories, the merged Chrome trace and a federated SLO
              engine; the Autoscaler registers its replicas here.
-  health     in part: its metrics, gate readers and the membership
-             transition hook (see the module for what is left out).
+  health     HealthMonitor — the stall watchdog every fit heartbeats
+             (``fit_health``), straggler skew, the prefetch queue's
+             accounting and ``input_verdict()``; ``healthz()`` is the
+             ``/healthz`` payload (ui/server.py).
 
 Spans, instants, SLO engines, collectors and bundles are gated by
 ``DL4J_TPU_TELEMETRY``: with the gate off, ``tracer().span()`` is a shared
@@ -33,9 +35,9 @@ no-op singleton and nothing is allocated per call. Metrics at cold
 resilience sites (retries, breaker transitions, chaos injections,
 membership transitions) are always live.
 
-Not ported yet (ROADMAP A.11): the HTTP endpoints and the CLI that serve
-all this, the health monitor and the training call sites, introspection,
-the profiler and the tuner with its knob registry.
+The endpoints are ui/server.py's UIServer and the CLI is cli.py. Not
+ported yet (ROADMAP A.11): introspection and the profiler (item 3), the
+tuner with its knob registry (item 4).
 """
 from deeplearning4j_tpu_torch.telemetry.metrics import (  # noqa: F401
     Counter,
@@ -75,6 +77,10 @@ from deeplearning4j_tpu_torch.telemetry.slo import (  # noqa: F401
     version_rules,
 )
 from deeplearning4j_tpu_torch.telemetry.health import (  # noqa: F401
+    HealthMonitor,
+    fit_health,
+    healthz,
+    input_verdict,
     observe_membership_transition,
 )
 from deeplearning4j_tpu_torch.telemetry.flight import (  # noqa: F401

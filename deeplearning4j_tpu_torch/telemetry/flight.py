@@ -14,10 +14,9 @@ under the temp dir) holding:
     Perfetto-ready)
   * the full metrics snapshot (every counter/gauge/histogram)
   * the exception type/message/traceback (when one exists)
-  * the health section: the port has no HealthMonitor yet (the training
-    call sites carry none), so it is the JAX package's payload for a
-    process whose monitor never saw a heartbeat, and the input-pipeline
-    verdict is None
+  * the health section (``health.healthz()``: the stall watchdog's
+    snapshot, or the no-heartbeat payload before a fit's first step) and
+    the input-pipeline verdict (``health.input_verdict()``)
   * every DL4J_TPU_* env gate in effect (``env``), and the same gates
     under ``knobs`` — the JAX package records its knob registry's
     effective values there, and the port has no knob registry yet
@@ -31,8 +30,10 @@ under the temp dir) holding:
 Callers: the serving breaker (``serving_breaker``), the router's
 rollback (``canary_rollback``), the SLO engine's episodes
 (``slo_burn``), membership evictions (``eviction``), the autoscaler's
-spawn-failure episodes (``replica_spawn``) and the lock-order sentinel
-(``lock_inversion``). Writes are atomic — tmp + fsync + rename through
+spawn-failure episodes (``replica_spawn``), the lock-order sentinel
+(``lock_inversion``), the stall watchdog (``stall``), the divergence
+sentry (``sentry``) and a failing fit (``exception``, through
+``record_crash``). Writes are atomic — tmp + fsync + rename through
 resilience/checkpoint.py's ``atomic_write_json`` — so a crash mid-dump
 can never leave a torn bundle. The directory is bounded:
 ``DL4J_TPU_FLIGHT_KEEP`` (default 20) prunes the oldest bundles after
@@ -66,10 +67,6 @@ FLIGHT_KEEP_GATE = "DL4J_TPU_FLIGHT_KEEP"
 DEFAULT_KEEP = 20
 BUNDLE_VERSION = 1
 BUNDLE_PREFIX = "flight_"
-# the JAX package's health payload for a process whose monitor never saw
-# a heartbeat: what the port reports until it has a HealthMonitor
-NO_HEARTBEAT = {"ok": False, "reason": "no heartbeat yet (no telemetry-"
-                                       "enabled fit has completed a step)"}
 
 _DUMPS = metrics_mod.counter(
     "dl4j_tpu_flight_dumps_total",
@@ -186,6 +183,8 @@ def build_bundle(reason: str, exc: Optional[BaseException] = None,
     top-level keys; reserved keys are never overwritten by it. ``model``
     is accepted for the JAX signature; its analyzer section is None (see
     the module docstring)."""
+    from deeplearning4j_tpu_torch.telemetry import health as health_mod
+
     bundle = {
         "bundle_version": BUNDLE_VERSION,
         "reason": reason,
@@ -195,8 +194,8 @@ def build_bundle(reason: str, exc: Optional[BaseException] = None,
         "process_index": host_process_index(),
         "trace_id": context_mod.current_trace_id(),
         "exception": _exception_section(exc),
-        "health": dict(NO_HEARTBEAT),
-        "input_pipeline": None,
+        "health": health_mod.healthz(),
+        "input_pipeline": health_mod.input_verdict(),
         "trace": trace_mod.tracer().to_chrome_trace(),
         "metrics": metrics_mod.registry().snapshot(),
         "env": _env_gates(),
@@ -267,9 +266,9 @@ def _rotate(directory: str) -> None:
 
 def record_crash(exc: BaseException, model=None, checkpoint_manager=None,
                  phase: Optional[str] = None) -> Optional[str]:
-    """An exception hook: one bundle per escaping exception (the JAX
-    package's fit paths call it; the port's training call sites do not
-    carry telemetry yet). Gated + guarded exactly like ``dump``."""
+    """An exception hook: one bundle per exception escaping a fit
+    (`training.engine.TrainingRun.execute` calls it with the fit's phase).
+    Gated + guarded exactly like ``dump``."""
     return dump("exception", exc=exc, model=model,
                 checkpoint_manager=checkpoint_manager, note=phase)
 

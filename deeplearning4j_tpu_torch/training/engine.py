@@ -58,24 +58,73 @@ leaves them in (`extend(drop_fsdp(spec))` over the whole shape), per key;
 the two agree for every layout `parallel.layout` makes, which is what
 lets the K steps run on the slices.
 
-The JAX engine's telemetry spans, step histograms, health beats, tuner
-signals and flight records, `run_partition` and `master_session` are not
-ported (ROADMAP A.11).
+**Telemetry** (the JAX engine's, under `DL4J_TPU_TELEMETRY`): each epoch
+runs under a fit-level TraceContext (one trace id for every span of the
+fit, unless the caller already attached one); the wait for each batch is
+an "etl" span (category "data") and sets `model.last_etl_time_ms`, which
+PerformanceListener and StatsListener read; each step is a "step" span
+under the loop's `span_category` ("train", "collective" under
+ParallelWrapper) and one `dl4j_tpu_step_seconds` observation (a window of
+K records elapsed / K per step); the stall watchdog's heartbeat
+(`telemetry.health.fit_health`) beats after every dispatch and before each
+window; a failing fit writes `flight.record_crash` with the fit's phase.
+With the gate off none of this allocates.
+
+Still missing (ROADMAP A.11): the per-fit introspection (item 3:
+`introspect.fit_introspection`, the HBM watermark), the closed-loop
+tuner's epoch ticks and window signals (item 4: with `DL4J_TPU_AUTOTUNE`
+on a fit raises NotImplementedError; off, nothing happens, as in JAX),
+`run_partition` and `master_session` (item 5).
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.optimize.listeners import fire_lifecycle
+from deeplearning4j_tpu_torch.telemetry import context as context_mod
+from deeplearning4j_tpu_torch.telemetry import health as health_mod
+from deeplearning4j_tpu_torch.telemetry import trace as trace_mod
 from deeplearning4j_tpu_torch.util import envflags
 
 _WINDOW_GATE = "DL4J_TPU_STEP_WINDOW"
 _PREFETCH_GATE = "DL4J_TPU_DEVICE_PREFETCH"
+AUTOTUNE_GATE = "DL4J_TPU_AUTOTUNE"
 
 _ATTACHMENTS = ("checkpoint_manager",)
+
+_STEP_SECONDS = None
+
+
+def _step_hist():
+    """``dl4j_tpu_step_seconds``, the per-step wall time (the SLO engine's
+    step-time objective reads it). Created on first use and observed only
+    while telemetry is on."""
+    global _STEP_SECONDS
+    if _STEP_SECONDS is None:
+        from deeplearning4j_tpu_torch.telemetry import metrics as metrics_mod
+
+        _STEP_SECONDS = metrics_mod.histogram(
+            "dl4j_tpu_step_seconds",
+            "Optimizer step wall time (windowed dispatches record "
+            "elapsed/n per step)",
+            buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                     0.25, 0.5, 1.0, 2.5, 5.0, 10.0))
+    return _STEP_SECONDS
+
+
+def _check_tuner() -> None:
+    """The JAX engine arms the closed-loop tuner here (epoch ticks,
+    `tuning_signals`) while ``DL4J_TPU_AUTOTUNE`` is on; the tuner is not
+    ported yet, so the gate on raises instead of training untuned."""
+    if envflags.enabled(AUTOTUNE_GATE, False):
+        raise NotImplementedError(
+            f"{AUTOTUNE_GATE} is on, but the closed-loop tuner "
+            f"(telemetry/tuner.py and tuning/*, with the knob registry) is "
+            f"not ported yet (ROADMAP A.11 item 4); unset the gate")
 
 
 def window_size(default: int = 1) -> int:
@@ -231,15 +280,25 @@ class WindowedFitLoop:
                         the device step on staged args at iteration `it`:
                         returns the score as a 0-d device tensor and
                         leaves the bookkeeping to the loop.
+      on_dispatch()     optional hook run just before a window's steps
+                        (ParallelWrapper's chaos `collective` site).
+      span_category     the category of the "step" spans.
+
+    `health` is the stall watchdog's heartbeat handle, which
+    `TrainingRun.execute` binds for the fit (`NULL_HEALTH` otherwise).
     """
 
     def __init__(self, model, *, raw_step: Callable, stage: Callable,
-                 exec_one: Callable):
+                 exec_one: Callable, on_dispatch: Optional[Callable] = None,
+                 span_category: str = "train"):
         self.model = model
         self.window = window_size()
         self.raw_step = raw_step
         self.stage = stage
         self.exec_one = exec_one
+        self.on_dispatch = on_dispatch
+        self.span_category = span_category
+        self.health = health_mod.NULL_HEALTH
         self._buf: List[Tuple[tuple, int]] = []
         self._buf_sig = None
 
@@ -247,53 +306,87 @@ class WindowedFitLoop:
         """One pass over `batches`; the pending window flushes before it
         returns, so epoch-end hooks see every step applied. An exception
         from the iterator or a step drops the staged batches (never
-        applied: a resumed fit replays the epoch from its checkpoint)."""
+        applied: a resumed fit replays the epoch from its checkpoint).
+        The spans land under TrainingRun.execute's fit-level
+        TraceContext."""
+        tr = trace_mod.tracer()
+        t0 = time.perf_counter()
         try:
             for ds in batches:
-                self._consume(ds)
+                etl_ms = (time.perf_counter() - t0) * 1e3
+                self.model.last_etl_time_ms = etl_ms
+                if tr.enabled:
+                    tr.add_span("etl", etl_ms, category="data")
+                self._consume(ds, tr)
+                t0 = time.perf_counter()
         except BaseException:
             self._buf = []
             raise
-        self.flush()
+        self.flush(tr)
 
-    def _consume(self, ds) -> None:
+    def _consume(self, ds, tr) -> None:
         if self.window == 1:
-            self.exec_one(ds)
+            self._exec_one(ds, tr)
             return
         staged = self.stage(ds)
         if staged is None:
             # a batch of its own kind: apply the pending window first, so
             # the steps keep their order
-            self.flush()
-            self.exec_one(ds)
+            self.flush(tr)
+            self._exec_one(ds, tr)
             return
         args, report_batch = staged
         sig = _signature(args)
         if self._buf and sig != self._buf_sig:
-            self.flush()
+            self.flush(tr)
         self._buf.append((args, report_batch))
         self._buf_sig = sig
         if len(self._buf) >= self.window:
-            self.flush()
+            self.flush(tr)
 
-    def flush(self) -> None:
+    def _exec_one(self, ds, tr) -> None:
+        t_step = time.perf_counter()
+        with tr.span("step", category=self.span_category):
+            self.exec_one(ds)
+        if tr.enabled:
+            _step_hist().observe(time.perf_counter() - t_step)
+        self.health.beat(self.model.iteration)
+
+    def flush(self, tr=None) -> None:
         """Run the pending window (a no-op when empty): `on_window_start`,
         the steps, one read of their scores, the replay, `on_window_end`.
         A window shorter than K (the epoch's tail, a change of signature)
         runs at its own length."""
         if not self._buf:
             return
+        if tr is None:
+            tr = trace_mod.tracer()
         batch, self._buf = self._buf, []
+        n = len(batch)
         m = self.model
         for lst in m.listeners:
             cb = getattr(lst, "on_window_start", None)
             if cb is not None:
                 cb(m)
+        # beat before the window, as the JAX engine does before its scan
+        self.health.beat(m.iteration)
+        if self.on_dispatch is not None:
+            self.on_dispatch()
         it0 = m.iteration
+        t_step = time.perf_counter()
         scores = [self.raw_step(*args, iteration=it0 + j)
                   for j, (args, _) in enumerate(batch)]
         # the window's one host read
         host = torch.stack(scores).cpu().tolist()
+        elapsed = time.perf_counter() - t_step
+        if tr.enabled:
+            # n per-step spans of elapsed / n, so step-span medians stay
+            # per-step comparable
+            per_step_ms = elapsed * 1e3 / n
+            hist = _step_hist()
+            for _ in range(n):
+                tr.add_span("step", per_step_ms, category=self.span_category)
+                hist.observe(per_step_ms / 1e3)
         # during the replay the params are the window's end while
         # `iteration` walks through the steps: listeners that persist
         # (iteration, params) pairs defer to on_window_end
@@ -317,6 +410,7 @@ class WindowedFitLoop:
             cb = getattr(lst, "on_window_end", None)
             if cb is not None:
                 cb(m)
+        self.health.beat(m.iteration)
 
 
 def _fire_epoch(listeners, event: str, model) -> None:
@@ -327,15 +421,20 @@ def _fire_epoch(listeners, event: str, model) -> None:
 
 
 class TrainingRun:
-    """The fit lifecycle of one fit() call (see the module docstring)."""
+    """The fit lifecycle of one fit() call (see the module docstring);
+    `phase` names the fit path in heartbeats and crash bundles
+    ("MultiLayerNetwork.fit", "ComputationGraph.fit",
+    "ParallelWrapper.fit")."""
 
-    def __init__(self, model, *, epochs: int = 1, **attachments):
+    def __init__(self, model, phase: str = "fit", *, epochs: int = 1,
+                 **attachments):
         unknown = sorted(set(attachments) - set(_ATTACHMENTS))
         if unknown:
             raise TypeError(
                 f"fit() got unexpected keyword argument(s): {unknown}; "
                 f"engine attachments are {list(_ATTACHMENTS)}")
         self.model = model
+        self.phase = phase
         self.manager = attachments.get("checkpoint_manager")
         if self.manager is not None:
             self.manager.restore_into(model)
@@ -348,12 +447,25 @@ class TrainingRun:
             self.manager.save(self.model, extra={"trigger": "epoch"})
 
     def execute(self, run_epoch: Callable, batches, *,
+                loop: Optional[WindowedFitLoop] = None,
                 cleanup: Optional[Callable] = None):
         """Run the fit: `run_epoch` trains one pass of `batches` (a
         WindowedFitLoop's `run_epoch`, or a function around one),
         `batches` the epoch's iterable or a zero-argument callable that
-        makes one per epoch. Returns the model."""
+        makes one per epoch; `loop` gets the fit's heartbeat handle.
+        Returns the model."""
+        from deeplearning4j_tpu_torch.telemetry import flight as flight_mod
+
+        _check_tuner()
         m = self.model
+        hb = health_mod.fit_health(self.phase)
+        if loop is not None:
+            loop.health = hb
+        # attached outside the crash guard, so the crash bundle stamps the
+        # fit's trace id
+        ctx_token = (context_mod.attach(context_mod.new_trace())
+                     if trace_mod.tracer().enabled
+                     and context_mod.current() is None else None)
         fire_lifecycle(m.listeners, "on_fit_start", m)
         try:
             for _ in range(self.epochs):
@@ -362,8 +474,20 @@ class TrainingRun:
                 _fire_epoch(m.listeners, "on_epoch_end", m)
                 m.epoch += 1
                 self.save_epoch()
+        except BaseException as e:
+            # the black box, while the dying state is still there (a no-op
+            # with telemetry off; never raises)
+            flight_mod.record_crash(e, model=m,
+                                    checkpoint_manager=self.manager,
+                                    phase=self.phase)
+            raise
         finally:
             if cleanup is not None:
                 cleanup()
+            hb.end()
+            if loop is not None:
+                loop.health = health_mod.NULL_HEALTH
             fire_lifecycle(m.listeners, "on_fit_end", m, swallow=True)
+            if ctx_token is not None:
+                context_mod.detach(ctx_token)
         return m

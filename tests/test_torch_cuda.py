@@ -32,7 +32,9 @@ draws replayed on the CPU, check_gradients in float64 on the card,
 nan_checks around a step that launches the cross-entropy kernels; a
 Router rollout over two LeNet versions on the card rolled back under
 canary_nan with one bundle, and an Autoscaler pool on the card failing
-over a replica whose dispatcher crashed.
+over a replica whose dispatcher crashed; `cli train` on the card bit for
+bit equal to a plain ParallelWrapper fit, and the stall watchdog firing
+once during a card fit.
 
 Marked `cuda`; they skip where torch.cuda.is_available() is False. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -2329,3 +2331,107 @@ def test_autoscaler_fails_over_a_crashed_replica_on_the_card(cuda, tmp_path):
     assert info.state.value == "evicted" and info.evict_reason == "crash"
     assert any(e["reason"] == "crash" for e in pool._events)
     assert sum(e["direction"] == "out" for e in pool._events) >= 3
+
+
+@pytest.mark.cuda
+def test_cli_train_on_the_card_equals_a_plain_wrapper_fit(cuda, tmp_path):
+    """`cli train` with no --device trains on the card (a NCCL group of
+    one it starts and closes) and saves params bit for bit equal to a
+    plain ParallelWrapper.fit of the same zip and CSV, under
+    deterministic cuDNN: the CLI adds only listeners and telemetry."""
+    import sys
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.datasets.records import (
+        CSVRecordReader,
+        RecordReaderDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models import restore_model
+    from deeplearning4j_tpu_torch.parallel import (
+        ParallelWrapper,
+        init_process_group,
+    )
+
+    model, out = str(tmp_path / "m.zip"), str(tmp_path / "out.zip")
+    csv = str(tmp_path / "d.csv")
+    chip_smoke.lenet_flat_zip(torch, model)
+    rng = np.random.default_rng(3)
+    rows = np.concatenate([rng.integers(0, 256, (256, 784)) / 255.0,
+                           rng.integers(0, 10, (256, 1))], 1)
+    np.savetxt(csv, rows, delimiter=",", fmt="%.6g")
+    with chip_smoke.deterministic_cudnn(torch):
+        assert cli.main(["train", "--model", model, "--data", csv,
+                         "--num-classes", "10", "--batch", "64", "--out",
+                         out]) == 0
+        init_process_group(f"file://{tmp_path}/rdv", 0, 1)
+        try:
+            ref = restore_model(model)
+            pw = ParallelWrapper(ref)
+            pw.fit(RecordReaderDataSetIterator(
+                CSVRecordReader(csv), batch=64, label_index=-1,
+                num_classes=10))
+            pw.sync_to_host()
+        finally:
+            torch.distributed.destroy_process_group()
+    got = restore_model(out)
+    assert got.device.type == "cuda" and got.iteration == 4
+    a, b = got.get_param_table(), ref.get_param_table()
+    assert sorted(a) == sorted(b)
+    for k in b:
+        assert np.array_equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_stall_watchdog_fires_once_during_a_card_fit(cuda, monkeypatch,
+                                                     tmp_path):
+    """A LeNet fit on the card whose third step's listener sleeps past
+    DL4J_TPU_STALL_TIMEOUT: one stall, one stall bundle, healthz stalled
+    during it and live after the next beat."""
+    import time
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.telemetry import flight, health, metrics
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    net = LeNet(seed=1).init()
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((256, 28, 28, 1)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 256)]
+    # a first fit with the gate off: the card's first steps of a new
+    # network (cuDNN's choices) must not read as a stall
+    net.fit(ListDataSetIterator(DataSet(x, y), batch=64))
+    monkeypatch.setenv("DL4J_TPU_TELEMETRY", "1")
+    monkeypatch.setenv("DL4J_TPU_STALL_TIMEOUT", "0.3")
+    monkeypatch.setenv("DL4J_TPU_FLIGHT_DIR", str(tmp_path))
+    health.reset_for_tests()
+    metrics.registry().reset()
+    snaps = []
+
+    class Sleepy:
+        calls = 0
+
+        def iteration_done(self, model, iteration, score):
+            self.calls += 1
+            if self.calls == 3:
+                time.sleep(1.0)
+                snaps.append(health.healthz())
+
+    net.set_listeners(Sleepy())
+    net.fit(ListDataSetIterator(DataSet(x, y), batch=64))
+    after = health.healthz()
+    health.reset_for_tests()
+    assert metrics.registry().get(
+        "dl4j_tpu_stall_detected_total").snapshot() == {
+        "phase=MultiLayerNetwork.fit": 1.0}
+    assert snaps[0]["stalled"] is True and snaps[0]["ok"] is False
+    assert after["ok"] is True and after["iteration"] == 8
+    assert len([p for p in flight.list_bundles(str(tmp_path))
+                if p.endswith("_stall.json")]) == 1

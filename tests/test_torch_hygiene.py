@@ -47,6 +47,8 @@ def test_importing_the_whole_port_loads_no_jax():
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("[]"), out.stdout
+    assert {"deeplearning4j_tpu_torch.cli", "deeplearning4j_tpu_torch.ui",
+            "deeplearning4j_tpu_torch.ui.server"} <= set(_modules())
 
 
 def test_no_source_file_names_jax_or_the_jax_package():
@@ -84,6 +86,25 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         LocalFileModelSaver(str(tmp_path / "es")).get_best()
     assert LocalFileModelSaver(str(tmp_path / "es")).get_best(
         device="cpu").device.type == "cpu"
+    # the CLI's commands and the models a UIServer process serves
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.models import write_model
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+
+    zip_path = str(tmp_path / "m.zip")
+    write_model(net, zip_path)
+    csv = tmp_path / "d.csv"
+    csv.write_text("0.1,0.2,0.3,1\n0.4,0.5,0.6,0\n")
+    args = ["--model", zip_path, "--data", str(csv), "--num-classes", "2"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["train"] + args)
+    for cmd in (["evaluate"] + args, ["summary", "--model", zip_path]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(cmd)
+    assert cli.main(["summary", "--model", zip_path, "--device",
+                     "cpu"]) == 0
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelRegistry().register("m", zip_path)
 
 
 def test_network_used_before_init_raises():

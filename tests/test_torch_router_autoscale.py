@@ -65,7 +65,7 @@ from deeplearning4j_tpu_torch.telemetry import metrics
 from deeplearning4j_tpu_torch.telemetry import slo
 from deeplearning4j_tpu_torch.telemetry import trace
 from test_torch_parallel import jax_net, port_net
-from test_torch_telemetry import live_text
+from test_torch_telemetry import labelled_text, live_text
 
 TOL = 1e-5
 SIZES = (1, 2, 3)
@@ -196,11 +196,14 @@ def test_router_splits_ramps_and_promotes_on_the_same_ticks(lenets):
     assert log["port"][-1][3] == ["25", "50", "100", "promote"]
     for got, want in zip(answers["port"], answers["jax"]):
         np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
-    text = {name: live_text(m, (
+    # this test's model only, gauges at 0 included: the promoted canary's
+    # traffic fraction reads 0
+    text = {name: labelled_text(m, (
         "dl4j_tpu_model_requests_total", "dl4j_tpu_canary_transitions_total",
-        "dl4j_tpu_canary_traffic_fraction"))
+        "dl4j_tpu_canary_traffic_fraction"), model="m")
         for name, (_, _, _, _, _, m, *_rest) in PACKAGES.items()}
     assert text["port"] == text["jax"]
+    assert 'dl4j_tpu_canary_traffic_fraction{model="m"} 0' in text["port"]
 
 
 def test_nan_canary_rolls_back_in_one_tick_with_one_bundle(

@@ -1,5 +1,5 @@
 """The port's telemetry core (deeplearning4j_tpu_torch/telemetry/: context,
-metrics, trace, slo, flight, export, aggregate, health in part) against the
+metrics, trace, slo, flight, export, aggregate, health's metrics) against the
 JAX package's on the same inputs and a fake clock.
 
 Exact parity: the same metric operations render byte-identical Prometheus
@@ -16,6 +16,7 @@ counters are reset around every test, since the metric names are shared.
 """
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -32,7 +33,7 @@ from deeplearning4j_tpu.telemetry import aggregate as jagg
 from deeplearning4j_tpu.telemetry import context as jcontext
 from deeplearning4j_tpu.telemetry import export as jexport
 from deeplearning4j_tpu.telemetry import flight as jflight
-from deeplearning4j_tpu.telemetry import health as jhealth  # noqa: F401
+from deeplearning4j_tpu.telemetry import health as jhealth
 from deeplearning4j_tpu.telemetry import metrics as jmetrics
 from deeplearning4j_tpu.telemetry import slo as jslo
 from deeplearning4j_tpu.telemetry import trace as jtrace
@@ -49,7 +50,7 @@ from deeplearning4j_tpu_torch.telemetry import aggregate as agg
 from deeplearning4j_tpu_torch.telemetry import context
 from deeplearning4j_tpu_torch.telemetry import export
 from deeplearning4j_tpu_torch.telemetry import flight
-from deeplearning4j_tpu_torch.telemetry import health  # noqa: F401
+from deeplearning4j_tpu_torch.telemetry import health
 from deeplearning4j_tpu_torch.telemetry import metrics
 from deeplearning4j_tpu_torch.telemetry import slo
 from deeplearning4j_tpu_torch.telemetry import trace
@@ -75,6 +76,45 @@ def live_text(m, names):
     return "\n".join(out)
 
 
+def _has_labels(got, labels):
+    """Whether the label dict ``got`` matches every ``key=value`` or
+    ``key=(v1, v2)`` of ``labels``."""
+    return all(got.get(k) in (v if isinstance(v, tuple) else (v,))
+               for k, v in labels.items())
+
+
+def labelled_text(m, names, **labels):
+    """The families' Prometheus text restricted to the series whose labels
+    a test created itself (``key=value`` or ``key=(v1, v2)``), gauges at 0
+    included. A reset keeps a family's children at 0, so another test in
+    the same worker may have left series of these very labels in one
+    package's registry alone: a counter series at 0 is left out, since
+    after a reset it reads the same as one never made."""
+    out = []
+    for n in names:
+        fam = m.registry().get(n)
+        for line in fam.render():
+            if line.startswith("#"):
+                out.append(line)
+                continue
+            series, value = line.rsplit(" ", 1)
+            if fam.typename == "counter" and float(value) == 0:
+                continue
+            if _has_labels(dict(re.findall(r'(\w+)="([^"]*)"', series)),
+                           labels):
+                out.append(line)
+    return "\n".join(out)
+
+
+def own_series(snapshot, **labels):
+    """A labelled counter family's snapshot restricted to the series whose
+    labels match ``labels`` and whose count is not 0 (see
+    ``labelled_text``)."""
+    return {key: value for key, value in snapshot.items() if value and
+            _has_labels(dict(kv.split("=", 1) for kv in key.split(",")),
+                        labels)}
+
+
 def _reset_all():
     for m, t, s, c, a, e in PACKAGES.values():
         t.configure(enabled=None, capacity=t.DEFAULT_CAPACITY)
@@ -84,6 +124,8 @@ def _reset_all():
         c.reset_fault_points()
         a.reset_for_tests()
         e.reset_for_tests()
+    for h in (jhealth, health):
+        h.reset_for_tests()
 
 
 @pytest.fixture(autouse=True)
@@ -502,8 +544,12 @@ def test_each_package_reads_the_others_flight_bundle(monkeypatch,
     assert p_doc["runtime"]["local_devices"]
     assert p_doc["analyzer_estimates"] is None
     assert p_doc["knobs"] == p_doc["env"]
-    assert p_doc["health"] == {"ok": False, "reason": flight.NO_HEARTBEAT[
-        "reason"]}
+    # no fit has beaten either package's monitor: both write the
+    # no-heartbeat payload and an input verdict with no spans
+    assert p_doc["health"] == j_doc["health"] == jhealth.healthz()
+    assert p_doc["health"]["ok"] is False
+    assert p_doc["input_pipeline"]["verdict"] == "unknown"
+    assert sorted(p_doc["input_pipeline"]) == sorted(j_doc["input_pipeline"])
     # each summarize reads the other's bundle like its own: same lines,
     # the pid, time and phase table's durations aside
     for doc in (p_doc, j_doc):
@@ -580,7 +626,10 @@ def _collect(m, a, frames_by_host, order, chaos_spec, monkeypatch, c):
            "dl4j_tpu_fleet_frames_dropped_total",
            "dl4j_tpu_fleet_frames_duplicate_total",
            "dl4j_tpu_fleet_frames_late_total")
-    counters = {n: m.registry().get(n).snapshot() for n in fam}
+    # only this test's hosts: a reset keeps the series another test in
+    # the same worker created, at 0
+    counters = {n: own_series(m.registry().get(n).snapshot(),
+                              host=("a", "b")) for n in fam}
     merged = coll.merged_chrome_trace()
     return (coll.render(), counters, outcomes,
             _structure(merged["traceEvents"]), merged["fleet"],
@@ -603,7 +652,13 @@ def test_fleet_collector_merge_and_counters_match_under_drop_dup_reorder(
     assert got["port"] == got["jax"]
     render, counters, outcomes, *_ = got["port"]
     assert outcomes == ["duplicate"]
-    assert counters["dl4j_tpu_fleet_frames_dropped_total"]
+    hosts = ("host=a,replica=r0", "host=b,replica=r0")
+    assert counters["dl4j_tpu_fleet_frames_total"] == dict.fromkeys(
+        hosts, 5.0)
+    for n in ("dl4j_tpu_fleet_frames_dropped_total",
+              "dl4j_tpu_fleet_frames_duplicate_total",
+              "dl4j_tpu_fleet_frames_late_total"):
+        assert counters[n] == dict.fromkeys(hosts, 1.0), n
     assert "req_total" in render and "depth_fleet" in render
 
 
